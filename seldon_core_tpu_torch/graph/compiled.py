@@ -1,0 +1,229 @@
+"""Compiled-graph executor — the port's counterpart of
+``seldon_core_tpu/graph/compiled.py:84-501``.
+
+The JAX package traces a whole in-process graph into one jitted XLA
+program.  The port evaluates the same tree eagerly, in PyTorch, walking
+it in the same order:
+
+    transform_input -> children -> aggregate -> transform_output
+
+with unit states held in one dict (node name -> state) and threaded
+through ``UnitAux`` updates, tags merged with later writers winning.
+Each unit's tensors stay on the engine's device; the only host transfer
+is the caller's readback.  Graphs with routers (per-request branch
+choice), remote nodes or impure units are refused with a
+``GraphSpecError``: the router executor and the feedback pass are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from seldon_core_tpu_torch.device import DeviceLike, resolve_device
+from seldon_core_tpu_torch.graph.interpreter import (
+    effective_type,
+    methods_for,
+    pythonize_tags,
+    unit_rngs,
+)
+from seldon_core_tpu_torch.graph.spec import (
+    GraphSpecError,
+    PredictiveUnit,
+    PredictorSpec,
+    UnitMethod,
+    UnitType,
+    params_to_kwargs,
+)
+from seldon_core_tpu_torch.graph.units import (
+    UNIT_REGISTRY,
+    Unit,
+    instantiate_bound_unit,
+    normalize_output,
+)
+from seldon_core_tpu_torch.messages import Meta, SeldonMessage, Status
+
+__all__ = ["CompiledGraph", "build_units", "to_device"]
+
+
+def _set_state(states: Dict[str, Any], name: str, new_state) -> Dict[str, Any]:
+    """State write: a unit may only write state it declared via
+    ``init_state`` (its key already exists), as in the JAX executor."""
+    if new_state is None or new_state is states.get(name):
+        return states
+    if name not in states:
+        raise GraphSpecError(
+            f"unit {name!r} returned a state update but init_state() was None"
+        )
+    out = dict(states)
+    out[name] = new_state
+    return out
+
+
+def build_units(predictor: PredictorSpec, device: Optional[torch.device] = None) -> Dict[str, Unit]:
+    """Instantiate an in-process Unit for every graph node; raises
+    ``GraphSpecError`` for a remote or impure node."""
+    units: Dict[str, Unit] = {}
+    comp_map = predictor.component_map()
+    for node in predictor.graph.walk():
+        if node.implementation.value in UNIT_REGISTRY:
+            unit = UNIT_REGISTRY[node.implementation.value](
+                **params_to_kwargs(node.parameters)
+            )
+        else:
+            binding = comp_map.get(node.name)
+            if binding is None or binding.runtime != "inprocess":
+                raise GraphSpecError(
+                    f"node {node.name!r} is not an in-process unit; remote "
+                    f"nodes are served by the host interpreter, which is not "
+                    f"ported yet (slice 2 of the port)"
+                )
+            unit = instantiate_bound_unit(binding, node, device=device)
+        if not unit.pure:
+            raise GraphSpecError(
+                f"unit {node.name!r} ({type(unit).__name__}) is not pure; "
+                f"compiled mode requires pure units"
+            )
+        units[node.name] = unit
+    return units
+
+
+def to_device(state, device: torch.device):
+    """A unit state (tensor, dict of states, or anything else) on ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, dict):
+        return {k: to_device(v, device) for k, v in state.items()}
+    return state
+
+
+def _as_input(X, device: torch.device) -> torch.Tensor:
+    """Rows -> a tensor on the device.  float64 arrives from the JSON codec
+    and is cast to float32 (int64 to int32), as ``jnp.asarray`` does with
+    64-bit mode off in the JAX package."""
+    if not isinstance(X, torch.Tensor):
+        X = torch.from_numpy(np.ascontiguousarray(X))
+    if X.dtype == torch.float64:
+        X = X.float()
+    elif X.dtype == torch.int64:
+        X = X.int()
+    return X.to(device)
+
+
+class CompiledGraph:
+    """Evaluate a PredictorSpec's graph eagerly on one device.
+
+    Usage::
+
+        cg = CompiledGraph(predictor, device="cuda")
+        y, routing, tags = cg.predict_arrays(x)   # y stays on the device
+        resp = cg.predict(msg)                    # SeldonMessage in/out
+    """
+
+    def __init__(self, predictor: PredictorSpec, rng: Optional[int] = None,
+                 device: DeviceLike = None):
+        self.predictor = predictor
+        self.device = resolve_device(device)
+        routers = [u.name for u in predictor.graph.walk()
+                   if UnitMethod.ROUTE in methods_for(u) and u.children]
+        if routers:
+            raise GraphSpecError(
+                f"routers {routers} need per-request branch choice, which the "
+                f"port does not have yet (slice 2 of the port: graph "
+                f"interpreter and routers)"
+            )
+        self.units = build_units(predictor, device=self.device)
+        rngs = unit_rngs(list(self.units), rng)
+        self.states: Dict[str, Any] = {}
+        for name, unit in sorted(self.units.items()):
+            st = unit.init_state(rngs[name])
+            if st is not None:
+                self.states[name] = to_device(st, self.device)
+        self._predict_fn = self._build_predict(predictor.graph)
+
+    def _build_predict(self, node: PredictiveUnit) -> Callable:
+        unit = self.units[node.name]
+        methods = methods_for(node)
+        is_model = effective_type(node) is UnitType.MODEL
+        child_fns = [self._build_predict(c) for c in node.children]
+        name = node.name
+        static_tags = dict(unit.static_tags or {})
+
+        def fn(states, X):
+            tags: Dict[str, Any] = dict(static_tags)
+            y = X
+            if UnitMethod.TRANSFORM_INPUT in methods:
+                m = unit.predict if is_model else unit.transform_input
+                y, new_state, t = normalize_output(m(states.get(name), y), states.get(name))
+                states = _set_state(states, name, new_state)
+                tags.update(t)
+            if child_fns:
+                ys = []
+                for cf in child_fns:
+                    yc, states, t = cf(states, y)
+                    ys.append(yc)
+                    tags.update(t)
+                if UnitMethod.AGGREGATE in methods:
+                    out = unit.aggregate(states.get(name), torch.stack(ys, dim=0))
+                    y, new_state, t = normalize_output(out, states.get(name))
+                    states = _set_state(states, name, new_state)
+                    tags.update(t)
+                elif len(ys) == 1:
+                    y = ys[0]
+                else:
+                    raise GraphSpecError(
+                        f"node {name!r} has {len(ys)} children but no "
+                        f"AGGREGATE method to merge them"
+                    )
+            if UnitMethod.TRANSFORM_OUTPUT in methods:
+                out = unit.transform_output(states.get(name), y)
+                y, new_state, t = normalize_output(out, states.get(name))
+                states = _set_state(states, name, new_state)
+                tags.update(t)
+            return y, states, tags
+
+        return fn
+
+    def predict_arrays(self, X) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
+        """Run the graph; returns (Y on the device, routing, tags) and
+        advances the held unit states."""
+        X = _as_input(X, self.device)
+        with torch.inference_mode():
+            y, self.states, tags = self._predict_fn(self.states, X)
+        return y, {}, tags
+
+    def predict(self, msg: SeldonMessage) -> SeldonMessage:
+        # 1-D wire payloads mean a single sample
+        y, routing, tags = self.predict_arrays(np.atleast_2d(msg.array()))
+        resp = msg.with_array(
+            y.detach().cpu().numpy(),
+            names=self._output_names(self.predictor.graph, routing),
+        )
+        resp.meta = Meta(
+            puid=msg.meta.puid,
+            tags={**msg.meta.tags, **pythonize_tags(tags)},
+            routing={**msg.meta.routing, **routing},
+            requestPath=dict(msg.meta.requestPath),
+        )
+        resp.status = Status()
+        return resp
+
+    def _output_names(self, node: PredictiveUnit, routing: Dict[str, int]) -> Optional[list]:
+        """Names of the unit that produced the output: the last unit on the
+        executed path that sets class names (graph/compiled.py:477)."""
+        unit = self.units[node.name]
+        methods = methods_for(node)
+        names: Optional[list] = None
+        if UnitMethod.TRANSFORM_INPUT in methods and unit.class_names is not None:
+            names = list(unit.class_names)
+        if node.children:
+            if UnitMethod.AGGREGATE in methods and unit.class_names is not None:
+                names = list(unit.class_names)
+            else:
+                names = self._output_names(node.children[0], routing) or names
+        if UnitMethod.TRANSFORM_OUTPUT in methods and unit.class_names is not None:
+            names = list(unit.class_names)
+        return names

@@ -1,0 +1,193 @@
+"""Predictive-unit protocol and the built-in units — the port's counterpart
+of ``seldon_core_tpu/graph/units.py``.
+
+A unit is a bundle of functions over an explicit state (a dict of tensors,
+or None) and a batch of tensors with a leading batch axis:
+
+    init_state(rng: torch.Generator) -> state (None if stateless)
+    predict(state, X)                -> Y            | (Y, UnitAux)
+    transform_input(state, X)        -> X'           | (X', UnitAux)
+    transform_output(state, Y)       -> Y'           | (Y', UnitAux)
+    route(state, X)                  -> branch int   | (branch, UnitAux)
+    aggregate(state, Ys)             -> Y            | (Y, UnitAux)  # Ys stacked [n_children, ...]
+    send_feedback(state, X, branch, reward, truth) -> state
+
+The executors hold every unit's state and thread updates through
+``UnitAux``, as the JAX package does, so the same unit classes fit a later
+graph capture.  Built-ins ported so far:
+
+  * SimpleModelUnit     — fixed [0.1, 0.9, 0.5] / class0..2 stub
+    (engine SimpleModelUnit.java:29-44)
+  * AverageCombinerUnit — element-wise mean over child outputs
+    (engine AverageCombinerUnit.java:30-95)
+
+SIMPLE_ROUTER and RANDOM_ABTEST come with the router executor.
+"""
+
+from __future__ import annotations
+
+import importlib
+import inspect
+from typing import Any, Callable, Dict, NamedTuple, Optional, Type
+
+import torch
+
+from seldon_core_tpu_torch.graph.spec import GraphSpecError, params_to_kwargs
+
+__all__ = [
+    "UnitAux",
+    "Unit",
+    "normalize_output",
+    "register_unit",
+    "resolve_unit_class",
+    "instantiate_bound_unit",
+    "UNIT_REGISTRY",
+    "SimpleModelUnit",
+    "AverageCombinerUnit",
+]
+
+
+class UnitAux(NamedTuple):
+    """Optional second return value of any unit method."""
+
+    state: Any = None  # replacement state, or None = unchanged
+    tags: Optional[Dict[str, Any]] = None  # data-dependent meta tags
+
+
+def normalize_output(out, old_state):
+    """Normalize ``Y`` or ``(Y, UnitAux)`` to ``(Y, state, tags)``."""
+    if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], UnitAux):
+        y, aux = out
+        state = aux.state if aux.state is not None else old_state
+        return y, state, (aux.tags or {})
+    return out, old_state, {}
+
+
+class Unit:
+    """Base class for in-process units.  Subclasses override the methods for
+    their unit type; unimplemented methods raise."""
+
+    #: True if every method is a pure function of (state, inputs); the
+    #: compiled executor refuses impure units
+    pure: bool = True
+    #: optional output feature names (the wrappers' class_names)
+    class_names: Optional[list] = None
+    #: static meta tags merged into every response this unit touches
+    static_tags: Optional[dict] = None
+
+    def init_state(self, rng: Optional[torch.Generator]) -> Any:
+        return None
+
+    def predict(self, state, X):
+        raise NotImplementedError(f"{type(self).__name__} does not implement predict")
+
+    def transform_input(self, state, X):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement transform_input"
+        )
+
+    def transform_output(self, state, Y):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement transform_output"
+        )
+
+    def route(self, state, X):
+        raise NotImplementedError(f"{type(self).__name__} does not implement route")
+
+    def aggregate(self, state, Ys):
+        raise NotImplementedError(f"{type(self).__name__} does not implement aggregate")
+
+    def send_feedback(self, state, X, branch, reward, truth):
+        return state
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+UNIT_REGISTRY: Dict[str, Type[Unit]] = {}
+
+
+def register_unit(name: str) -> Callable[[Type[Unit]], Type[Unit]]:
+    def deco(cls: Type[Unit]) -> Type[Unit]:
+        UNIT_REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def resolve_unit_class(class_path: str) -> type:
+    """Resolve ``registered-name`` or ``module:Class`` to a class.  The
+    port's model families register when ``seldon_core_tpu_torch.models``
+    is imported, so a bare name like "MnistClassifier" resolves."""
+    if class_path not in UNIT_REGISTRY:
+        importlib.import_module("seldon_core_tpu_torch.models")
+    if class_path in UNIT_REGISTRY:
+        return UNIT_REGISTRY[class_path]
+    if ":" in class_path:
+        mod_name, _, cls_name = class_path.partition(":")
+        try:
+            mod = importlib.import_module(mod_name)
+        except ImportError as e:
+            raise ValueError(f"cannot import unit module {mod_name!r}: {e}") from e
+        try:
+            return getattr(mod, cls_name)
+        except AttributeError as e:
+            raise ValueError(f"module {mod_name!r} has no class {cls_name!r}") from e
+    raise ValueError(
+        f"unknown unit {class_path!r}: not registered and not a module:Class path"
+    )
+
+
+def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None) -> Unit:
+    """Build the in-process Unit of a component binding.  A unit class whose
+    constructor takes ``device`` gets the engine's device, so it can choose
+    its kernel path at construction from static shapes."""
+    try:
+        cls = resolve_unit_class(binding.class_path)
+    except ValueError as e:
+        raise GraphSpecError(f"component {binding.name!r}: {e}") from e
+    if binding.mesh_axes:
+        raise GraphSpecError(
+            f"component {binding.name!r} declares mesh_axes "
+            f"{dict(binding.mesh_axes)}: multi-device units are not ported "
+            f"yet (slice 4 of the port: multi-device meshes)"
+        )
+    if not (isinstance(cls, type) and issubclass(cls, Unit)):
+        raise GraphSpecError(
+            f"component {binding.name!r}: {binding.class_path!r} is not a "
+            f"Unit; plain user objects are served through the microservice "
+            f"adapter, which is not ported yet (slice 2 of the port)"
+        )
+    kwargs = params_to_kwargs(binding.parameters or node.parameters)
+    if device is not None and "device" in inspect.signature(cls.__init__).parameters:
+        kwargs["device"] = device
+    return cls(**kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Built-in (hardcoded) units
+# ---------------------------------------------------------------------------
+
+
+@register_unit("SIMPLE_MODEL")
+class SimpleModelUnit(Unit):
+    """Test stub: the fixed row [0.1, 0.9, 0.5] per batch element
+    (engine SimpleModelUnit.java:33-44)."""
+
+    values = (0.1, 0.9, 0.5)
+    class_names = ["class0", "class1", "class2"]
+
+    def predict(self, state, X):
+        batch = X.shape[0] if X.ndim >= 1 else 1
+        row = torch.tensor(self.values, dtype=torch.float32, device=X.device)
+        return row.expand(batch, -1).clone()
+
+
+@register_unit("AVERAGE_COMBINER")
+class AverageCombinerUnit(Unit):
+    """Element-wise mean over child outputs stacked on a leading children
+    axis (engine AverageCombinerUnit.java:30-95)."""
+
+    def aggregate(self, state, Ys):
+        return Ys.mean(dim=0)

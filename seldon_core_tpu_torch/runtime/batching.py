@@ -1,0 +1,190 @@
+"""Micro-batching queue — the port's counterpart of
+``seldon_core_tpu/runtime/batching.py:59-300``.
+
+Coalesces concurrent requests that share a feature shape into one stacked
+device dispatch and hands each caller back exactly its rows.  Stacks are
+padded to power-of-two row counts (a handful of shapes instead of one per
+row total) and cut at ``max_batch``.  Up to ``max_inflight`` stacked
+dispatches run at once; a bucket flushes the moment a slot frees, so the
+batch size grows with load.  A freshly runnable flush waits
+``coalesce_ms`` (bounded by ``max_wait_ms``) while a burst is landing.
+
+Batching is transparent only for graphs whose per-request decisions do
+not change under concatenation, so the engine batches router-free graphs
+only (``graph_is_batchable``).  The JAX package's autopilot flush
+planning, QoS tiers and telemetry records are not ported yet.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from collections import deque
+from typing import Any, Awaitable, Callable, Deque, Dict, Tuple
+
+import numpy as np
+
+from seldon_core_tpu_torch.graph.interpreter import methods_for
+from seldon_core_tpu_torch.graph.spec import PredictiveUnit, UnitMethod
+from seldon_core_tpu_torch.messages import DispatchTimeoutError
+
+__all__ = ["MicroBatcher", "graph_is_batchable"]
+
+
+def graph_is_batchable(graph: PredictiveUnit) -> bool:
+    """True when no node routes (per-request decisions)."""
+    return not any(
+        UnitMethod.ROUTE in methods_for(u) and u.children for u in graph.walk()
+    )
+
+
+def pad_rows(n: int, max_batch: int) -> int:
+    """Rows a chunk of ``n`` real rows is padded to: the next power of two,
+    capped at ``max_batch``."""
+    return min(1 << (n - 1).bit_length(), max_batch) if n > 1 else n
+
+
+class MicroBatcher:
+    """Coalesce concurrent ``submit(rows)`` calls into stacked calls of
+    ``batch_fn`` (an ``async ([B, ...]) -> ([B, ...], aux)`` callable)."""
+
+    def __init__(
+        self,
+        batch_fn: Callable[[np.ndarray], Awaitable[Tuple[Any, Any]]],
+        max_batch: int = 1024,
+        max_wait_ms: float = 2.0,
+        max_inflight: int = 1,
+        coalesce_ms: float = 0.5,
+        dispatch_timeout_s: float = 0.0,
+    ):
+        self.batch_fn = batch_fn
+        self.max_batch = int(max_batch)
+        self.max_wait_ms = float(max_wait_ms)
+        self.coalesce_s = min(float(coalesce_ms), float(max_wait_ms)) / 1e3
+        self.max_inflight = int(max_inflight)
+        # >0: abandon a dispatch after this long so its slot frees (a wedged
+        # device must not wedge the whole queue)
+        self.dispatch_timeout_s = float(dispatch_timeout_s)
+        self._sem = asyncio.Semaphore(self.max_inflight)
+        self._buckets: Dict[Tuple, Deque] = {}
+        self._pumps: Dict[Tuple, asyncio.Task] = {}
+        self._inflight: set = set()  # strong refs: bare create_task is GC-able
+
+    async def submit(self, x: np.ndarray):
+        """x: [b, ...feature] rows of one request.  Returns (y_rows, aux)."""
+        x = np.asarray(x)
+        if x.ndim < 2:
+            # a 1-D payload is one sample, not len(x) scalar rows
+            x = np.atleast_2d(x)
+        key = (x.shape[1:], x.dtype)
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._buckets.setdefault(key, deque()).append((x, fut))
+        if key not in self._pumps:
+            self._pumps[key] = asyncio.create_task(self._pump(key))
+        return await fut
+
+    def snapshot(self) -> dict:
+        """Queued rows per shape bucket plus the dispatch-slot picture."""
+        return {
+            "buckets": {
+                f"{tuple(shape)}/{dtype}": {
+                    "requests": len(entries),
+                    "rows": sum(len(e[0]) for e in entries),
+                }
+                for (shape, dtype), entries in self._buckets.items()
+            },
+            "inflight_dispatches": len(self._inflight),
+            "max_inflight": self.max_inflight,
+            "max_batch": self.max_batch,
+            "coalesce_ms": self.coalesce_s * 1e3,
+        }
+
+    async def _pump(self, key) -> None:
+        """One pump per shape bucket: take a dispatch slot, give same-burst
+        submitters a beat to land, stack what is waiting, dispatch, repeat.
+        Exits when its bucket drains (a later submit restarts it)."""
+        try:
+            while self._buckets.get(key):
+                await self._sem.acquire()
+                if self.coalesce_s > 0:
+                    # a lone request on an idle device pays no window; one
+                    # zero-sleep yield still lets same-tick submitters land
+                    waiting = self._buckets.get(key)
+                    if self._inflight or (waiting and len(waiting) > 1):
+                        await asyncio.sleep(self.coalesce_s)
+                    else:
+                        await asyncio.sleep(0)
+                bucket = self._buckets.get(key)
+                take = []
+                if bucket:
+                    take = [bucket.popleft() for _ in range(self._take_count(bucket))]
+                if bucket is not None and not bucket:
+                    del self._buckets[key]
+                if not take:
+                    self._sem.release()
+                    continue
+                t = asyncio.get_running_loop().create_task(self._run_batch(take))
+                self._inflight.add(t)
+                t.add_done_callback(self._inflight.discard)
+                t.add_done_callback(lambda _t: self._sem.release())
+        finally:
+            # reached only with the bucket empty and no awaits since that
+            # check, so a concurrent submit cannot be orphaned
+            self._pumps.pop(key, None)
+
+    def _take_count(self, bucket) -> int:
+        """As many whole requests as fit under max_batch (a single oversized
+        request may exceed it, and then rides alone)."""
+        k, rows = 0, 0
+        for x, _ in bucket:
+            if k and rows + len(x) > self.max_batch:
+                break
+            k += 1
+            rows += len(x)
+            if rows >= self.max_batch:
+                break
+        return k
+
+    async def _run_batch(self, entries) -> None:
+        # aux (routing, tags) goes to every caller of the stack as is: no
+        # ported unit returns per-row tags, so there is nothing to slice
+        xs = [e[0] for e in entries]
+        futs = [e[1] for e in entries]
+        try:
+            stacked = np.concatenate(xs, axis=0)
+            ys, aux = await self._dispatch_chunked(stacked)
+            offset = 0
+            for x, fut in zip(xs, futs):
+                if not fut.cancelled():
+                    fut.set_result((ys[offset: offset + len(x)], aux))
+                offset += len(x)
+        except Exception as e:  # propagate to every waiter
+            for fut in futs:
+                if not fut.done():
+                    fut.set_exception(e)
+
+    async def _dispatch_chunked(self, stacked: np.ndarray):
+        """Dispatch in <= max_batch chunks, each padded up to a power of two
+        (repeating its last row); pad rows are cut from the answer.  The
+        ported units are stateless, so pad rows can change no state."""
+        ys_parts = []
+        aux = None
+        for start in range(0, len(stacked), self.max_batch):
+            chunk = stacked[start: start + self.max_batch]
+            n = len(chunk)
+            target = pad_rows(n, self.max_batch)
+            if target > n:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], target - n, axis=0)], axis=0
+                )
+            dispatch = self.batch_fn(chunk)
+            if self.dispatch_timeout_s > 0:
+                try:
+                    ys, aux = await asyncio.wait_for(dispatch, self.dispatch_timeout_s)
+                except asyncio.TimeoutError:
+                    raise DispatchTimeoutError(
+                        f"device dispatch exceeded {self.dispatch_timeout_s:.1f}s"
+                    ) from None
+            else:
+                ys, aux = await dispatch
+            ys_parts.append(np.asarray(ys)[:n])
+        return np.concatenate(ys_parts, axis=0), aux

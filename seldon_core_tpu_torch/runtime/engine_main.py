@@ -1,0 +1,145 @@
+"""Engine process entry point — the port's counterpart of
+``seldon_core_tpu/runtime/engine_main.py``.
+
+Config resolution order (engine EnginePredictor.java:56-150):
+
+  1. ``ENGINE_PREDICTOR``          base64(JSON PredictorSpec)
+  2. ``ENGINE_SELDON_DEPLOYMENT``  base64(JSON SeldonDeployment)
+  3. ``--file`` (else ``./deploymentdef.json``)
+  4. the default SIMPLE_MODEL stub graph
+
+Env knobs, as in the JAX package: ``ENGINE_SERVER_PORT`` (8000),
+``ENGINE_MAX_BATCH`` (1024), ``ENGINE_BATCH_WAIT_MS`` (2.0),
+``ENGINE_PIPELINE_DEPTH`` (8), ``ENGINE_DISPATCH_TIMEOUT_S`` (30) and
+``ENGINE_SHUTDOWN_DRAIN_S`` (20).  ``--device`` picks the device: ``cuda``
+by default; asking for CUDA without it exits with an error.  SIGTERM or
+SIGINT flips readiness to 503 and drains before exit; a second signal
+skips the drain.
+
+    python -m seldon_core_tpu_torch.runtime.engine_main --file examples/mnist_deployment.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import base64
+import json
+import os
+import signal
+from typing import Optional
+
+from seldon_core_tpu_torch.device import resolve_device
+from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeploymentSpec
+
+__all__ = ["load_deployment_from_env", "serve", "main"]
+
+DEFAULT_GRAPH = {
+    "spec": {
+        "name": "default",
+        "predictors": [
+            {
+                "name": "default",
+                "graph": {
+                    "name": "simple-model",
+                    "implementation": "SIMPLE_MODEL",
+                    "type": "MODEL",
+                },
+            }
+        ],
+    }
+}
+
+
+def load_deployment_from_env(file_path: Optional[str] = None) -> SeldonDeploymentSpec:
+    raw = os.environ.get("ENGINE_PREDICTOR")
+    if raw:
+        predictor = json.loads(base64.b64decode(raw))
+        spec = SeldonDeploymentSpec(
+            name=os.environ.get("SELDON_DEPLOYMENT_ID", "engine"),
+            predictors=[PredictorSpec.from_json_dict(predictor)],
+        )
+        return default_and_validate(spec)
+    raw = os.environ.get("ENGINE_SELDON_DEPLOYMENT")
+    if raw:
+        return default_and_validate(SeldonDeploymentSpec.from_json(base64.b64decode(raw)))
+    path = file_path or "./deploymentdef.json"
+    if os.path.exists(path):
+        with open(path) as f:
+            return default_and_validate(SeldonDeploymentSpec.from_json(f.read()))
+    return default_and_validate(SeldonDeploymentSpec.from_json_dict(DEFAULT_GRAPH))
+
+
+async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
+                host: str = "0.0.0.0", rest_port: Optional[int] = None,
+                device=None) -> None:
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+    from seldon_core_tpu_torch.runtime.rest import serve_fast
+
+    rest_port = rest_port or int(os.environ.get("ENGINE_SERVER_PORT", "8000"))
+    engine = EngineService(
+        deployment,
+        predictor_name,
+        max_batch=int(os.environ.get("ENGINE_MAX_BATCH", "1024")),
+        max_wait_ms=float(os.environ.get("ENGINE_BATCH_WAIT_MS", "2.0")),
+        pipeline_depth=int(os.environ.get("ENGINE_PIPELINE_DEPTH", "8")),
+        dispatch_timeout_s=float(os.environ.get("ENGINE_DISPATCH_TIMEOUT_S", "30")),
+        device=device,
+    )
+    server = await serve_fast(engine, host, rest_port)
+    print(f"engine up: predictor={engine.predictor.name} mode={engine.mode} "
+          f"device={engine.device} rest=:{server.port}", flush=True)
+
+    stop = asyncio.Event()
+    hurry = asyncio.Event()  # second signal: skip the drain
+    loop = asyncio.get_running_loop()
+
+    def _on_signal():
+        if stop.is_set():
+            hurry.set()
+        else:
+            stop.set()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            loop.add_signal_handler(sig, _on_signal)
+        except (NotImplementedError, RuntimeError):
+            pass  # platforms without signal support: external kill only
+    await stop.wait()
+    drain_s = float(os.environ.get("ENGINE_SHUTDOWN_DRAIN_S", "20"))
+    print(f"engine draining: up to {drain_s:.0f}s (readiness now 503; "
+          f"signal again to skip)", flush=True)
+    engine.pause()  # /ready -> 503; the load balancer stops routing here
+    deadline = loop.time() + drain_s
+    while loop.time() < deadline and not hurry.is_set():
+        if engine.drained():
+            break
+        try:
+            await asyncio.wait_for(hurry.wait(), min(0.1, max(deadline - loop.time(), 0.01)))
+        except asyncio.TimeoutError:
+            pass
+    await server.stop()
+    engine.close()
+    print("engine stopped", flush=True)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="seldon_core_tpu_torch engine")
+    parser.add_argument("--file", default=None, help="deployment JSON path")
+    parser.add_argument("--predictor", default=None)
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--rest-port", type=int, default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu; cuda without a card is an error")
+    args = parser.parse_args(argv)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        parser.exit(2, f"engine_main: {e}\n")
+    deployment = load_deployment_from_env(args.file)
+    asyncio.run(serve(deployment, args.predictor, args.host, args.rest_port, device))
+
+
+if __name__ == "__main__":
+    main()

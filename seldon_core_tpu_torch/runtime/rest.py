@@ -1,0 +1,266 @@
+"""REST lane — stdlib asyncio HTTP/1.1, the port's counterpart of
+``seldon_core_tpu/runtime/httpfast.py`` (no aiohttp dependency).
+
+Routes:
+
+  POST /api/v0.1/predictions   JSON body or form field ``json=``
+  POST /predict                internal-API alias (engine as a MODEL leaf)
+  GET  /ping /ready /pause /unpause /stats
+
+Protocol scope: HTTP/1.1 with keepalive and Content-Length bodies.
+Pipelined requests are answered in order (each request's handler runs
+concurrently; a per-connection writer sends responses FIFO).
+``Transfer-Encoding: chunked`` is declined with 501.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+from typing import Awaitable, Callable, Dict, Optional, Tuple
+from urllib.parse import parse_qs
+
+from seldon_core_tpu_torch.graph.spec import GraphSpecError
+from seldon_core_tpu_torch.messages import SeldonMessage, SeldonMessageError
+
+__all__ = ["FastHttpServer", "serve_fast"]
+
+_JSON = "application/json"
+_MAX_BODY = 256 * 1024 * 1024
+_MAX_HEAD = 64 * 1024
+_MAX_INFLIGHT = 128  # per-connection pipelined requests before pause_reading
+
+Result = Tuple[int, bytes, str]  # (status, body, content-type)
+Handler = Callable[[bytes, str], Awaitable[Result]]
+
+_STATUS_LINE = {
+    code: f"HTTP/1.1 {code} {text}\r\n".encode()
+    for code, text in {
+        200: "OK", 400: "Bad Request", 404: "Not Found",
+        405: "Method Not Allowed", 413: "Payload Too Large",
+        500: "Internal Server Error", 501: "Not Implemented",
+        503: "Service Unavailable", 504: "Gateway Timeout",
+    }.items()
+}
+
+
+def _payload_text(body: bytes, ctype: str) -> str:
+    """JSON body or form-encoded ``json=`` field (httpfast.py:109)."""
+    if "form" in ctype:
+        form = parse_qs(body.decode("utf-8", "replace"), keep_blank_values=True)
+        if "json" in form:
+            return form["json"][0]
+    return body.decode("utf-8", "replace")
+
+
+def _failure(e: Exception, code: int) -> bytes:
+    return SeldonMessage.failure(str(e), code=code).to_json().encode()
+
+
+class _EngineRoutes:
+    """The engine route table shared by every connection."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.post: Dict[bytes, Handler] = {
+            b"/api/v0.1/predictions": self._predictions,
+            b"/predict": self._predictions,
+        }
+        self.get: Dict[bytes, Handler] = {
+            b"/ping": self._ping,
+            b"/ready": self._ready,
+            b"/pause": self._pause,
+            b"/unpause": self._unpause,
+            b"/stats": self._stats,
+        }
+
+    async def _predictions(self, body, ctype) -> Result:
+        text, status = await self.engine.predict_json(_payload_text(body, ctype))
+        return status or 200, text.encode(), _JSON
+
+    async def _ping(self, body, ctype) -> Result:
+        return 200, b"pong", "text/plain"
+
+    async def _ready(self, body, ctype) -> Result:
+        if self.engine.ready():
+            return 200, b"ready", "text/plain"
+        return 503, b"paused", "text/plain"
+
+    async def _pause(self, body, ctype) -> Result:
+        self.engine.pause()
+        return 200, b"paused", "text/plain"
+
+    async def _unpause(self, body, ctype) -> Result:
+        self.engine.unpause()
+        return 200, b"unpaused", "text/plain"
+
+    async def _stats(self, body, ctype) -> Result:
+        return 200, json.dumps(self.engine.stats()).encode(), _JSON
+
+
+def _header_value(lower: bytes, name: bytes) -> Optional[bytes]:
+    """Value of header ``name`` (lower-case, colon included) anchored at a
+    line start, so it never matches inside another header's name."""
+    j = lower.find(b"\r\n" + name)
+    if j < 0:
+        return None
+    start = j + 2 + len(name)
+    stop = lower.find(b"\r", start)
+    return lower[start: stop if stop > 0 else None].strip()
+
+
+class _HttpProtocol(asyncio.Protocol):
+    def __init__(self, routes: _EngineRoutes, protocols: set):
+        self.routes = routes
+        self.protocols = protocols
+        self.buf = bytearray()
+        self.transport: Optional[asyncio.Transport] = None
+        self.queue: "asyncio.Queue" = asyncio.Queue()
+        self.writer_task: Optional[asyncio.Task] = None
+        self.closing = False
+        self.paused_read = False
+
+    def connection_made(self, transport):
+        self.transport = transport
+        self.protocols.add(self)
+        self.writer_task = asyncio.get_running_loop().create_task(self._writer())
+
+    def connection_lost(self, exc):
+        self.closing = True
+        self.protocols.discard(self)
+        if self.writer_task is not None:
+            self.writer_task.cancel()
+
+    async def _writer(self):
+        """Send handler results in request order (pipelining-safe)."""
+        while True:
+            task, close = await self.queue.get()
+            try:
+                status, body, ctype = await task
+            except asyncio.CancelledError:
+                raise
+            except (SeldonMessageError, GraphSpecError) as e:
+                status, body, ctype = e.http_code, _failure(e, e.http_code), _JSON
+            except Exception as e:  # unexpected: 500, keep serving
+                status, body, ctype = 500, _failure(e, 500), _JSON
+            if self.transport is None or self.transport.is_closing():
+                continue
+            head = (_STATUS_LINE.get(status) or f"HTTP/1.1 {status} X\r\n".encode()) + (
+                b"Content-Length: %d\r\nContent-Type: %s\r\n%s\r\n"
+                % (len(body), ctype.encode(), b"Connection: close\r\n" if close else b"")
+            )
+            self.transport.write(head + body)
+            if self.paused_read and self.queue.qsize() <= _MAX_INFLIGHT // 2:
+                self.paused_read = False
+                self.transport.resume_reading()
+            if close:
+                self.transport.close()
+
+    def data_received(self, data):
+        self.buf += data
+        consumed = 0
+        while not self.closing:
+            end = self.buf.find(b"\r\n\r\n", consumed)
+            if end < 0:
+                if len(self.buf) - consumed > _MAX_HEAD:
+                    self._reject(413, b"headers too large", close=True)
+                break
+            head = bytes(self.buf[consumed:end])
+            lower = head.lower()
+            # Transfer-Encoding wins over Content-Length (RFC 7230); framing
+            # such a request by Content-Length would allow smuggling
+            if _header_value(lower, b"transfer-encoding:") is not None:
+                self._reject(501, b"chunked bodies not supported", close=True)
+                break
+            clen = 0
+            clv = _header_value(lower, b"content-length:")
+            if clv is not None:
+                if not clv.isdigit():
+                    self._reject(400, b"bad content-length", close=True)
+                    break
+                clen = int(clv)
+            if clen > _MAX_BODY:
+                self._reject(413, b"body too large", close=True)
+                break
+            start = end + 4
+            if len(self.buf) < start + clen:
+                break  # body incomplete: wait for more bytes
+            body = bytes(self.buf[start: start + clen])
+            consumed = start + clen
+            self._dispatch(head, lower, body)
+        if consumed:
+            del self.buf[:consumed]
+        if (not self.paused_read and self.queue.qsize() > _MAX_INFLIGHT
+                and self.transport is not None):
+            self.paused_read = True
+            self.transport.pause_reading()
+
+    def _reject(self, status: int, text: bytes, close: bool = False):
+        self.closing = self.closing or close
+        fut = asyncio.get_running_loop().create_future()
+        fut.set_result((status, text, "text/plain"))
+        self.queue.put_nowait((fut, close))
+
+    def _dispatch(self, head: bytes, lower: bytes, body: bytes):
+        line_end = head.find(b"\r\n")
+        request_line = head[: line_end if line_end > 0 else len(head)]
+        try:
+            method, target, _ = request_line.split(b" ", 2)
+        except ValueError:
+            self._reject(400, b"malformed request line", close=True)
+            return
+        path = target.split(b"?", 1)[0]
+        conn = _header_value(lower, b"connection:")
+        close = conn is not None and b"close" in (p.strip() for p in conn.split(b","))
+        table = {b"POST": self.routes.post, b"GET": self.routes.get}.get(method)
+        if table is None:
+            self._reject(405, b"method not allowed", close=close)
+            return
+        handler = table.get(path)
+        if handler is None:
+            self._reject(404, b"not found", close=close)
+            return
+        ctv = _header_value(lower, b"content-type:")
+        task = asyncio.get_running_loop().create_task(
+            handler(body, ctv.decode("latin-1") if ctv is not None else "")
+        )
+        self.queue.put_nowait((task, close))
+
+
+class FastHttpServer:
+    """Owns the listening socket: ``await start(host, port)`` /
+    ``await stop()``; ``port`` is the bound port (0 picks a free one)."""
+
+    def __init__(self, engine):
+        self.routes = _EngineRoutes(engine)
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._protocols: set = set()
+        self.port: Optional[int] = None
+
+    async def start(self, host: str, port: int) -> None:
+        loop = asyncio.get_running_loop()
+        self._server = await loop.create_server(
+            lambda: _HttpProtocol(self.routes, self._protocols), host, port, backlog=1024
+        )
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        if self._server is None:
+            return
+        self._server.close()
+        # idle keepalive connections never finish on their own: close their
+        # transports first or wait_closed hangs
+        for proto in list(self._protocols):
+            if proto.transport is not None:
+                proto.transport.close()
+        try:
+            await asyncio.wait_for(self._server.wait_closed(), timeout=5.0)
+        except asyncio.TimeoutError:
+            pass  # the listener is closed either way
+        self._server = None
+
+
+async def serve_fast(engine, host: str, port: int) -> FastHttpServer:
+    server = FastHttpServer(engine)
+    await server.start(host, port)
+    return server

@@ -1,0 +1,89 @@
+"""The port stands alone: no module of seldon_core_tpu_torch, and not
+chip_smoke.py, imports JAX or anything of the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "seldon_core_tpu")
+
+
+def _blocked(name: str) -> bool:
+    # exact names or dotted children: "seldon_core_tpu_torch" is allowed
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def _port_files():
+    files = sorted((ROOT / "seldon_core_tpu_torch").rglob("*.py"))
+    assert len(files) >= 15
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", "")) in
+              ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.lineno, node.args[0].value
+
+
+def test_blocker_names():
+    assert _blocked("jax") and _blocked("jax.numpy")
+    assert _blocked("seldon_core_tpu") and _blocked("seldon_core_tpu.graph.spec")
+    assert not _blocked("seldon_core_tpu_torch") and not _blocked("jaxlib_free")
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad += [f"{path.relative_to(ROOT)}:{line} {name}"
+                for line, name in _imports(tree) if _blocked(name)]
+    assert bad == []
+
+
+_SERVE_WITH_JAX_BLOCKED = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in ("jax", "seldon_core_tpu")):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import asyncio
+import torch
+torch.set_num_threads(1)
+from seldon_core_tpu_torch.runtime.engine import EngineService
+from seldon_core_tpu_torch.runtime.engine_main import load_deployment_from_env
+
+engine = EngineService(load_deployment_from_env("examples/mnist_deployment.json"), device="cpu")
+text, status = asyncio.run(engine.predict_json(json.dumps({"data": {"ndarray": [[0.5] * 784]}})))
+engine.close()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
+print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
+                  "leaked": leaked}))
+"""
+
+
+def test_port_serves_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", _SERVE_WITH_JAX_BLOCKED], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == '{"status": 200, "shape": 10, "leaked": []}'
