@@ -3,32 +3,49 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the served path from the sources in this checkout,
-holds each against its plain PyTorch version on the card, serves
-``examples/mnist_deployment.json`` (784 -> 256 -> 256 -> 10, bf16, random
-weights from a seed) through the port's engine and REST lane on a
-localhost port, checks the answers, shows that the serving run went
-through the kernel, and times the kernel beside its plain version, a
-PyTorch library chain and its bound.  Phases, in order; any failure exits
-non-zero without the final line:
+Builds every kernel of the served paths from the sources in this checkout
+(two libraries, built at once), holds each kernel against its plain
+PyTorch version on the card, serves two deployments through the port's
+engine and REST lane on a localhost port, checks the answers, shows that
+each serving run went through its kernel, and times each kernel beside its
+plain version, a PyTorch library call and its bound.  Weights are random,
+from a seed.  Phases, in order; any failure exits non-zero without the
+final line, and each phase prints its wall:
 
   1. device   CUDA present; the card's name and power limit (nvidia-smi)
-  2. build    nvcc build of ops/csrc/fused_mlp.cu, with ptxas's report, and
-              the kernel's own shape check (fused_mlp_smem_bytes) asked
-              for the served widths and for three it must refuse
+  2. build    nvcc of ops/csrc/fused_mlp.cu and ops/csrc/flash_attention.cu
+              at once, with ptxas's report; each kernel's own shape check
+              asked for shapes it takes and shapes it must refuse
   3. kernel   fused_mlp_softmax vs fused_mlp_softmax_reference at
               784-256-256-10 and 784-512-512-10 with non-zero biases,
               B in {1, 7, 32, 64, 128, 1024} (32 and 64 are the served
               stacks)
-  4. serve    engine construction (the unit probes the kernel), then
-              1-row ndarray, 64-row tensor, 32 concurrent 1-row requests
-              and a 1-row latency loop over one keepalive connection, all
-              through POST /api/v0.1/predictions; kernel launch counts
-              reset just before, read just after; then the same request's
-              p50 inside the engine and at the dispatch, layer by layer
-  5. times    kernel / plain / library device times and the bound at
-              B=1 and B=1024, one JSON line {"kernels": [...]}
-  6. last line {"ok": true, "device": {"platform": "gpu", ...}}
+  4. serve    examples/mnist_deployment.json: engine construction (the
+              unit probes the kernel), then 1-row ndarray, 64-row tensor,
+              32 concurrent 1-row requests and a 1-row latency loop over
+              one keepalive connection, all through POST
+              /api/v0.1/predictions; launch counts reset just before, read
+              just after; then the same request's p50 inside the engine
+              and at the dispatch
+  5. times    fused-MLP kernel / plain / library device times and the
+              bound at B=1 and B=1024
+  6. flash    flash_attention kernel vs flash_attention_reference, o and
+              lse, causal and not, at five shapes (the served prefill layer
+              among them)
+  7. gen      the flagship TransformerGenerator of bench.py:3342-3344
+              (vocab 32768, d_model 1024, 16 heads over 4 kv heads, 12
+              layers, d_ff 4096, 64 new tokens, bf16): engine construction
+              (the unit probes the flash kernel), then a 1-row 512-token
+              ndarray prompt, a 32-row 512-token tensor request, 8
+              concurrent 1-row requests and a 1-row 100-token prompt (S %
+              128 != 0: the plain attention, no launch), launch counts reset
+              before and read after; every served token teacher-forced
+              through the plain path; prefill logits kernel vs plain
+  8. times    flash kernel / plain / SDPA device times and the bound at the
+              served prefill shape and at S=2048, 4096 (B=4); served TTFT,
+              32-row request wall, decode tokens/s, the kernel's share of
+              the prefill; then the {"kernels": [...]} line
+  9. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
 port's package is not beside it.  It imports nothing of JAX.
@@ -50,15 +67,41 @@ from pathlib import Path
 
 import numpy as np
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+KERNEL_SOURCES = ("fused_mlp", "flash_attention")
 KERNEL_ATOL = 2e-3   # kernel vs plain, probabilities: both round at the same
 #                      bf16 casts, only the order of the f32 sums differs.
 #                      Served answers are the same kernel against the same
 #                      plain version, so they are held to it too.
+FLASH_O_ATOL = 1.6e-2   # kernel vs plain, bf16 o (|o| < 2): p rounds to bf16
+#                         at the kernel's running row max and at the plain
+#                         version's final one, sums run in another order,
+#                         and o is rounded to bf16 -- 2 bf16 ulps at |o| ~ 1
+FLASH_LSE_ATOL = 1e-4   # lse is an f32 max + log of an f32 sum on both sides
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SERVE_P50_REQUESTS = 200
+# bench.py:3342-3344, gen_lm_deployment(smoke=False), quant none
+GEN_DIMS = {"vocab": 32768, "d_model": 1024, "n_heads": 16, "n_kv_heads": 4,
+            "n_layers": 12, "d_ff": 4096, "max_new_tokens": 64}
+GEN_S = 512            # the flagship traffic: B=32 prompts of 512 tokens
+GEN_B = 32
+FLASH_SHAPES = [(1, 2, 2, 256, 64), (1, 1, 1, 384, 32), (32, 16, 4, 512, 64),
+                (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256)]   # (B, H, KV, S, D)
+FLASH_TIMED = [(32, 16, 4, 512, 64), (4, 16, 4, 2048, 64), (4, 16, 4, 4096, 64)]
+# The served path (flash prefill, two-tier cached decode) and the plain
+# path (attention="xla", the whole sequence at once) round at other places:
+# the attention output by 1-2 bf16 ulps (p rounds at the running vs the final
+# row max), the S=1 and S=575 matmuls by cuBLAS's choice of algorithm.  Over
+# 12 layers that moves the bf16 logits near the row maximum (|logit| in
+# [4, 8) at vocab 32768, ulp 2^-5) by a few ulps: the first card run
+# measured 0.047 (token gap) and 0.051 (prefill logits).  Both are held to
+# 4 ulps there.  A token that is not the plain argmax must still be within
+# TOKEN_DELTA of it.
+PREFILL_LOGIT_ATOL = 0.125
+TOKEN_DELTA = 0.125
 
 
 def log(msg: str) -> None:
@@ -180,56 +223,354 @@ def check_answer(status, raw, n_rows: int, kind: str):
     return y
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
-              "an NVIDIA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    try:
-        from seldon_core_tpu_torch.graph.defaulting import default_and_validate
-        from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
-        from seldon_core_tpu_torch.models.mnist import mlp_apply, mlp_init
-        from seldon_core_tpu_torch.ops import _build, fused_mlp
-        from seldon_core_tpu_torch.runtime.engine import EngineService
-    except ImportError as e:
-        print(f"chip_smoke: the port's package is not beside this script: {e}",
-              file=sys.stderr)
-        return 1
-
-    # the plain version's f32 products must be true f32, not TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    # -- 1. device ---------------------------------------------------------
-    smi = nvidia_smi_line()
-    log(smi)
-    log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-        f"torch {torch.__version__} cuda {torch.version.cuda}")
-
-    # -- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.load_library("fused_mlp")
-    info = _build.BUILD_INFO["fused_mlp"]
-    log(f"[build] fused_mlp: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s) -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
-    smem, why = fused_mlp._smem_bytes([784, 256, 256, 10])
-    if why is not None or smem != 50688 + 16896 + 33792 + 8192 + 2048:
-        raise AssertionError(f"shape check at 784-256-256-10: {smem} bytes, {why!r}")
-    for dims, dtype, match in (([4096, 4096, 4096, 10], torch.bfloat16, "shared memory"),
-                               ([24, 64, 10], torch.bfloat16, "multiple of 16"),
-                               ([16] * 10 + [10], torch.bfloat16, "at most 8")):
-        why = fused_mlp.kernel_shape_error(dims, [dtype] * (2 * len(dims) - 2))
+def flash_build_checks(torch, fa) -> None:
+    """The flash kernel's own shape check (flash_attention_smem_bytes):
+    the served head shape is taken, two others refused."""
+    smem, why = fa._smem_bytes(64, GEN_S, torch.bfloat16)
+    if why is not None or smem != 3 * 64 * (64 + 8) * 2:
+        raise AssertionError(f"flash shape check at D=64 S={GEN_S}: {smem} bytes, {why!r}")
+    for head_dim, dtype, match in ((40, torch.bfloat16, "multiple of 16"),
+                                   (64, torch.float32, "bfloat16")):
+        why = fa.kernel_shape_error(head_dim, dtype)
         if why is None or match not in why:
-            raise AssertionError(f"shape check let {dims} through: {why!r}")
-    log(f"[build] shape check: 784-256-256-10 takes {smem} bytes of shared memory; "
-        f"4096-wide, 24-wide and 10-layer MLPs refused")
+            raise AssertionError(f"flash shape check let D={head_dim} {dtype} through: {why!r}")
+    log(f"[build] flash shape check: D=64 bf16 takes {smem} bytes of shared memory; "
+        f"D=40 and float32 refused")
+
+
+def flash_bound(shape, causal: bool = True):
+    """Least time for the work: q, k, v read once and o, lse written once
+    over HBM bandwidth, against the score and PV FLOPs this run needs (the
+    causal pairs only) over the bf16 peak; the larger one bounds."""
+    B, H, KV, S, D = shape
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D) + 4 * B * H * S
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * D * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def flash_inputs(torch, shape, gen, dev):
+    B, H, KV, S, D = shape
+    return (torch.randn(B, H, S, D, generator=gen).to(torch.bfloat16).to(dev),
+            torch.randn(B, KV, S, D, generator=gen).to(torch.bfloat16).to(dev),
+            torch.randn(B, KV, S, D, generator=gen).to(torch.bfloat16).to(dev))
+
+
+def flash_kernel_phase(torch, fa, dev) -> float:
+    """Phase 6: the kernel against its plain version; returns the max abs
+    error of o over every shape."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 1)
+    max_err = 0.0
+    for shape in FLASH_SHAPES:
+        q, k, v = flash_inputs(torch, shape, gen, dev)
+        for causal in (True, False):
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            o_err = float((o.float() - ro.float()).abs().max())
+            lse_err = float((lse - rlse).abs().max())
+            if (not bool(torch.isfinite(o.float()).all()) or o_err > FLASH_O_ATOL
+                    or lse_err > FLASH_LSE_ATOL or o.dtype != torch.bfloat16):
+                raise AssertionError(
+                    f"flash kernel vs plain at {shape} causal={causal}: o err {o_err:.3e} "
+                    f"(tolerance {FLASH_O_ATOL}), lse err {lse_err:.3e} "
+                    f"(tolerance {FLASH_LSE_ATOL})")
+            max_err = max(max_err, o_err)
+            log(f"[flash] (B,H,KV,S,D)={shape} causal={causal}: o max abs err {o_err:.3e} "
+                f"(tolerance {FLASH_O_ATOL}), lse {lse_err:.3e} (tolerance {FLASH_LSE_ATOL})")
+    log(f"[flash] phase wall {time.perf_counter() - t0:.2f} s")
+    return max_err
+
+
+def gen_deployment() -> dict:
+    parameters = [{"name": k, "value": str(v), "type": "INT"} for k, v in GEN_DIMS.items()]
+    parameters.append({"name": "quant", "value": "none", "type": "STRING"})
+    return {"spec": {"name": "gen-flagship", "predictors": [{
+        "name": "main",
+        "graph": {"name": "gen", "type": "MODEL"},
+        "components": [{"name": "gen", "runtime": "inprocess",
+                        "class_path": "TransformerGenerator", "parameters": parameters}],
+    }]}}
+
+
+def check_tokens(status, raw, prompts: np.ndarray, kind: str) -> np.ndarray:
+    if status != 200:
+        raise AssertionError(f"HTTP {status}: {raw[:300]!r}")
+    data = json.loads(raw)["data"]
+    if kind not in data:
+        raise AssertionError(f"response lost the request's wire kind {kind!r}: {list(data)}")
+    if kind == "ndarray":
+        y = np.asarray(data["ndarray"], dtype=np.float64)
+    else:
+        y = np.asarray(data["tensor"]["values"], dtype=np.float64).reshape(
+            data["tensor"]["shape"])
+    want = (len(prompts), GEN_DIMS["max_new_tokens"])
+    if y.shape != want:
+        raise AssertionError(f"answer shape {y.shape} != {want}")
+    if (not np.isfinite(y).all() or (y != np.round(y)).any() or y.min() < 0
+            or y.max() >= GEN_DIMS["vocab"]):
+        raise AssertionError("answer rows are not token ids in [0, vocab)")
+    return y.astype(np.int64)
+
+
+def teacher_forced(torch, lm_apply, params, cfg, prompts, toks, dev):
+    """Each generated token's gap to the plain path's maximum logit at its
+    position (prompt + the tokens before it, attention="xla"), and whether
+    it is that maximum."""
+    S, n = prompts.shape[1], toks.shape[1]
+    seq = np.concatenate([prompts, toks[:, :-1]], axis=1)
+    with torch.inference_mode():
+        logits = lm_apply(params, torch.as_tensor(seq, dtype=torch.int32, device=dev), cfg,
+                          use_flash=False)
+        rows = logits[:, S - 1:S - 1 + n, :]
+        tok = torch.as_tensor(toks, dtype=torch.long, device=dev)
+        gap = rows.amax(dim=-1) - rows.gather(-1, tok[..., None])[..., 0]
+        exact = rows.argmax(dim=-1) == tok
+    return gap.cpu().numpy(), exact.cpu().numpy()
+
+
+def wall_p50(torch, fn, runs: int) -> float:
+    """Host-clock p50 in ms of ``fn`` ending in a synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return float(np.median(walls) * 1e3)
+
+
+def device_profile(torch, fn, name: str) -> dict:
+    """One call of ``fn`` (after a warm-up call) under torch.profiler: the
+    host wall, the summed device time of its kernels, their count, and the
+    kernels that took the most device time, read from the exported trace's
+    kernel events.  The profiler's own host cost lengthens the wall, so the
+    busy share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    path = ROOT / "build" / f"trace_{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    by_name: dict = {}
+    n_kernels = 0
+    for e in events:
+        if e.get("cat") == "kernel":
+            n_kernels += 1
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    kernel_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
+            "kernels": n_kernels, "top_ms": [[k[:90], v / 1e3] for k, v in top]}
+
+
+def generation_phases(torch, dev, smi) -> dict:
+    """Phases 6-8; returns the flash_attention row of the kernels line."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.models.generate import init_cache, prefill, sample_token, generate
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, fused_mlp
+
+    max_err = flash_kernel_phase(torch, fa, dev)
+
+    # -- 7. gen ---------------------------------------------------------------
+    t_phase = time.perf_counter()
+    spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(gen_deployment()))
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+
+    t0 = time.perf_counter()
+    probes_before = fa.LAUNCHES
+    engine = EngineService(spec, device=dev)
+    unit = engine.compiled.units["gen"]
+    if not unit.use_flash or fa.LAUNCHES != probes_before + 1:
+        raise AssertionError(f"the generator did not probe and take the flash kernel "
+                             f"(use_flash={unit.use_flash}, probe launches "
+                             f"{fa.LAUNCHES - probes_before})")
+    cfg = unit.cfg
+    params = engine.states()["gen"]["params"]
+    n_params = sum(t.numel() for layer in params.values()
+                   for t in (layer.values() if isinstance(layer, dict) else [layer]))
+    log(f"[gen] engine built in {time.perf_counter() - t0:.2f} s: {n_params / 1e6:.1f} M "
+        f"params ({cfg.dtype}), the unit probed the flash kernel once")
+    dispatches = []
+    batched = engine._batched_predict_sync
+
+    def counted(stacked):  # every stacked dispatch's shape, in order
+        dispatches.append(tuple(stacked.shape))
+        return batched(stacked)
+
+    engine._batched_predict_sync = counted
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    rng = np.random.default_rng(SEED)
+    vocab = GEN_DIMS["vocab"]
+    p1 = rng.integers(0, vocab, size=(1, GEN_S))
+    p32 = rng.integers(0, vocab, size=(GEN_B, GEN_S))
+    p8 = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(8)]
+    p100 = rng.integers(0, vocab, size=(1, 100))
+    try:
+        fa.LAUNCHES = 0
+        fused_mlp.LAUNCHES = 0
+        s1 = request("POST", url, {"data": {"ndarray": p1.tolist()}})
+        s32 = request("POST", url, {"data": {"tensor": {"shape": list(p32.shape),
+                                                         "values": p32.ravel().tolist()}}})
+        with ThreadPoolExecutor(8) as pool:
+            s8 = list(pool.map(lambda x: request("POST", url, {"data": {"ndarray": x.tolist()}}),
+                               p8))
+        launches = fa.LAUNCHES
+        eligible = sum(1 for d in dispatches if d[1] % 128 == 0)
+        s100 = request("POST", url, {"data": {"ndarray": p100.tolist()}})
+        launches_after_100 = fa.LAUNCHES
+        mlp_launches = fused_mlp.LAUNCHES
+        st_stats, raw_stats = request("GET", f"http://127.0.0.1:{port}/stats")
+        # the 32-row request's wall, after the counts were read
+        body32 = {"data": {"tensor": {"shape": list(p32.shape), "values": p32.ravel().tolist()}}}
+        walls32 = []
+        for _ in range(3):
+            t = time.perf_counter()
+            st, _raw = request("POST", url, body32)
+            walls32.append(time.perf_counter() - t)
+            if st != 200:
+                raise AssertionError(f"32-row latency loop: HTTP {st}")
+    finally:
+        server.stop()
+    if launches != 12 * eligible or eligible < 3:
+        raise AssertionError(f"flash launches {launches} != 12 x {eligible} kernel-eligible "
+                             f"prefill dispatches ({dispatches})")
+    if launches_after_100 != launches:
+        raise AssertionError(f"the 100-token prompt launched the flash kernel "
+                             f"{launches_after_100 - launches} times")
+    if mlp_launches != 0:
+        raise AssertionError(f"the generation run launched the fused-MLP kernel {mlp_launches} times")
+    stats = json.loads(raw_stats)
+    if st_stats != 200 or stats["kernels"]["flash_attention"]["launches"] != launches_after_100:
+        raise AssertionError(f"/stats does not report the flash launches: {raw_stats[:300]!r}")
+    log(f"[gen] dispatches {dispatches}: {eligible} kernel-eligible prefills; flash launches "
+        f"{launches} = 12 x {eligible}; the 100-token prompt launched none "
+        f"({launches_after_100} after it); fused-MLP launches 0")
+
+    # correctness: every served token teacher-forced through the plain path
+    y1 = check_tokens(*s1, p1, "ndarray")
+    y32 = check_tokens(*s32, p32, "tensor")
+    y8 = np.concatenate([check_tokens(*r, x, "ndarray") for r, x in zip(s8, p8)])
+    y100 = check_tokens(*s100, p100, "ndarray")
+    gaps, exacts = [], []
+    for prompts, toks in ((p32, y32), (np.concatenate([p1] + p8), np.concatenate([y1, y8])),
+                          (p100, y100)):
+        gap, exact = teacher_forced(torch, lm_apply, params, cfg, prompts, toks, dev)
+        gaps.append(gap.ravel())
+        exacts.append(exact.ravel())
+    gaps, exacts = np.concatenate(gaps), np.concatenate(exacts)
+    log(f"[gen] teacher-forced, {gaps.size} served tokens: gap to the plain maximum "
+        f"max {gaps.max():.5f}, p99 {np.quantile(gaps, 0.99):.5f}, mean {gaps.mean():.6f} "
+        f"(delta {TOKEN_DELTA}); {exacts.mean() * 100:.2f}% equal the plain argmax")
+    if gaps.max() > TOKEN_DELTA:
+        raise AssertionError(f"a served token is {gaps.max():.4f} below the plain maximum "
+                             f"(delta {TOKEN_DELTA})")
+    tok32 = torch.as_tensor(p32, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        lk, _ = prefill(params, tok32, init_cache(cfg, GEN_B, GEN_S, dev), cfg, use_flash=True)
+        lp, _ = prefill(params, tok32, init_cache(cfg, GEN_B, GEN_S, dev), cfg, use_flash=False)
+        logit_err = float((lk - lp).abs().max())
+        same_first = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    log(f"[gen] prefill last-position logits, kernel vs plain attention: max abs err "
+        f"{logit_err:.5f} (tolerance {PREFILL_LOGIT_ATOL}), first tokens equal "
+        f"{same_first * 100:.1f}%")
+    if not bool(torch.isfinite(lk).all()) or logit_err > PREFILL_LOGIT_ATOL:
+        raise AssertionError(f"prefill logits differ by {logit_err} > {PREFILL_LOGIT_ATOL}")
+    log(f"[gen] phase wall {time.perf_counter() - t_phase:.2f} s")
+
+    # -- 8. times -------------------------------------------------------------
+    t_phase = time.perf_counter()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(SEED + 2)
+    timings = []
+    for shape in FLASH_TIMED:
+        q, k, v = flash_inputs(torch, shape, gen, dev)
+        k_ms = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, True), 20)
+        p_ms = device_ms(torch, lambda: fa.flash_attention_reference(q, k, v, True), 10)
+        l_ms = device_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
+        b_ms, b_by = flash_bound(shape)
+        timings.append({"shape": list(shape), "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[times] flash (B,H,KV,S,D)={shape} causal: kernel {k_ms:.5f} ms, plain "
+            f"{p_ms:.5f} ms, SDPA {l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}) on {smi}")
+        del q, k, v
+    with torch.inference_mode():
+        def first_token():
+            logits, _ = prefill(params, tok32, init_cache(cfg, GEN_B, GEN_S, dev), cfg,
+                                use_flash=True)
+            return sample_token(logits)
+
+        ttft_ms = wall_p50(torch, first_token, 5)
+        gen_ms = wall_p50(torch, lambda: generate(params, tok32, cfg, GEN_DIMS["max_new_tokens"],
+                                                  use_flash=True), 3)
+    new = GEN_DIMS["max_new_tokens"]
+    served = {
+        "ttft_p50_ms": ttft_ms,
+        "generate_p50_ms": gen_ms,
+        "request32_wall_p50_ms": float(np.median(walls32) * 1e3),
+        "decode_tokens_per_s": GEN_B * (new - 1) / ((gen_ms - ttft_ms) / 1e3),
+        "kernel_share_of_prefill": 12 * timings[0]["ms"] / ttft_ms,
+        "card": smi,
+    }
+    log(f"[times] {GEN_B}x{GEN_S} prefill (TTFT) p50 {ttft_ms:.3f} ms; generate({new} new) p50 "
+        f"{gen_ms:.3f} ms; the 32-row REST request p50 {served['request32_wall_p50_ms']:.3f} "
+        f"ms; decode {served['decode_tokens_per_s']:.1f} tokens/s; flash kernel "
+        f"{served['kernel_share_of_prefill'] * 100:.2f}% of the prefill, on {smi}")
+    log(json.dumps({"served_generation": served}))
+    with torch.inference_mode():
+        for name, fn in (("prefill", first_token),
+                         ("generate", lambda: generate(params, tok32, cfg, new, use_flash=True))):
+            prof = device_profile(torch, fn, name)
+            log(f"[times] profiled {name} (B={GEN_B}, S={GEN_S}): wall {prof['wall_ms']:.3f} ms, "
+                f"device kernels {prof['kernel_ms']:.3f} ms in {prof['kernels']} launches, "
+                f"busy {prof['busy_share'] * 100:.1f}% on {smi}")
+            log(json.dumps({f"profile_{name}": prof}))
+    log(f"[times] phase wall {time.perf_counter() - t_phase:.2f} s")
+    top = timings[0]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "seldon_core_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "seldon_core_tpu/ops/flash_attention.py:56",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"],
+        "shape": "B=32 H=16 KV=4 S=512 D=64 causal bf16",
+        "at": timings,
+        "served": served,
+    }
+
+
+def mnist_phases(torch, dev, smi) -> dict:
+    """Phases 3-5 on examples/mnist_deployment.json; returns the fused-MLP
+    row of the {"kernels": [...]} line."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.models.mnist import mlp_apply, mlp_init
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.engine import EngineService
 
     # -- 3. kernel vs plain --------------------------------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -384,8 +725,68 @@ def main() -> int:
         "at": [timings[1], timings[1024]],
         "served_p50_ms": p50_ms,
     }
+    return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
+              "an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        from seldon_core_tpu_torch.ops import _build, flash_attention, fused_mlp
+        from seldon_core_tpu_torch.runtime.engine import EngineService  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is not beside this script: {e}",
+              file=sys.stderr)
+        return 1
+
+    # the plain version's f32 products must be true f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # -- 1. device ---------------------------------------------------------
+    smi = nvidia_smi_line()
     log(smi)
-    log(json.dumps({"kernels": [row]}))
+    log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # -- 2. build ----------------------------------------------------------
+    log(f"[device] phase wall {time.perf_counter() - T_START:.2f} s since start")
+    t0 = time.perf_counter()
+    _build.build_all(KERNEL_SOURCES)  # one nvcc per source, all started together
+    log(f"[build] {', '.join(KERNEL_SOURCES)}: {time.perf_counter() - t0:.2f} s wall")
+    for name in KERNEL_SOURCES:
+        info = _build.BUILD_INFO[name]
+        log(f"[build] {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build]   {line.strip()}")
+    smem, why = fused_mlp._smem_bytes([784, 256, 256, 10])
+    if why is not None or smem != 50688 + 16896 + 33792 + 8192 + 2048:
+        raise AssertionError(f"shape check at 784-256-256-10: {smem} bytes, {why!r}")
+    for dims, dtype, match in (([4096, 4096, 4096, 10], torch.bfloat16, "shared memory"),
+                               ([24, 64, 10], torch.bfloat16, "multiple of 16"),
+                               ([16] * 10 + [10], torch.bfloat16, "at most 8")):
+        why = fused_mlp.kernel_shape_error(dims, [dtype] * (2 * len(dims) - 2))
+        if why is None or match not in why:
+            raise AssertionError(f"shape check let {dims} through: {why!r}")
+    log(f"[build] shape check: 784-256-256-10 takes {smem} bytes of shared memory; "
+        f"4096-wide, 24-wide and 10-layer MLPs refused")
+    flash_build_checks(torch, flash_attention)
+    log(f"[build] phase wall {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    mlp_row = mnist_phases(torch, dev, smi)
+    log(f"[mnist] phases 3-5 wall {time.perf_counter() - t0:.2f} s")
+    flash_row = generation_phases(torch, dev, smi)
+
+    log(smi)
+    log(json.dumps({"kernels": [mlp_row, flash_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

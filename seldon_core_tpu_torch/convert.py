@@ -1,9 +1,10 @@
 """Carry weights across from the JAX package.
 
 ``params_from_jax`` takes a unit's state as the JAX package holds it
-(``CompiledGraph(...).states["mnist"]`` after ``np.asarray`` on each
-array) and returns the port's param dict on a device, ready for
-``EngineService.load_states({"mnist": ...})``.
+(``CompiledGraph(...).states["mnist"]``, or a generator's nested
+``{"params": {"embed", "l0": {...}, ..., "ln_f"}, "requests"}``, after
+``np.asarray`` on each array) and returns the port's state, with the same
+nesting, on a device, ready for ``EngineService.load_states({name: ...})``.
 
 bf16 arrays arrive with an ``ml_dtypes`` dtype whose name is "bfloat16".
 They are taken by bit pattern (uint16 view -> torch -> bfloat16 view), so
@@ -12,7 +13,7 @@ the values are identical and ``ml_dtypes`` is never imported.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -22,16 +23,19 @@ from seldon_core_tpu_torch.device import DeviceLike, resolve_device
 __all__ = ["params_from_jax"]
 
 
-def params_from_jax(arrays: Mapping[str, np.ndarray], device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+def params_from_jax(arrays: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     dev = resolve_device(device)
-    out: Dict[str, torch.Tensor] = {}
-    for name, arr in arrays.items():
-        # a private, writable copy: np.asarray of a jax array is read-only,
-        # and the returned tensor must not alias the caller's buffer
-        a = np.array(arr, order="C", copy=True)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(a)
-        out[name] = t.to(dev)
-    return out
+    return {name: _convert(arr, dev) for name, arr in arrays.items()}
+
+
+def _convert(arr, dev: torch.device):
+    if isinstance(arr, Mapping):
+        return {name: _convert(a, dev) for name, a in arr.items()}
+    # a private, writable copy: np.asarray of a jax array is read-only,
+    # and the returned tensor must not alias the caller's buffer
+    a = np.array(arr, order="C", copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(dev)

@@ -27,7 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
-from seldon_core_tpu_torch.device import DeviceLike, resolve_device
+from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
 from seldon_core_tpu_torch.graph.units import Unit, register_unit
 from seldon_core_tpu_torch.ops.fused_mlp import (
     fused_mlp_softmax,
@@ -42,9 +42,6 @@ logger = logging.getLogger(__name__)
 
 NUM_CLASSES = 10
 INPUT_DIM = 784
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
 
 
 def mlp_init(
@@ -97,9 +94,7 @@ class MnistClassifier(Unit):
         self.hidden = int(hidden)
         self.depth = int(depth)
         self.seed = int(seed)
-        if str(dtype) not in _DTYPES:
-            raise ValueError(f"dtype {dtype!r} not one of {sorted(_DTYPES)}")
-        self.dtype = _DTYPES[str(dtype)]
+        self.dtype = parse_dtype(dtype)
         self.use_pallas = str(use_pallas)
         if self.use_pallas not in ("auto", "interpret", "never"):
             raise ValueError(f"use_pallas {use_pallas!r} not auto/interpret/never")

@@ -1,0 +1,360 @@
+"""Decoder-only transformer LM — the port's counterpart of
+``seldon_core_tpu/models/transformer.py``, single device, dense FFN.
+
+Public functions keep the JAX layout: heads ``[B, H, S, hd]``, weights
+``W`` as ``[in, out]``, params as nested dicts ``{"embed", "l0": {"ln1",
+"wqkv", "wo", "ln2", "w1", "w2"}, ..., "ln_f"}``, so
+``convert.params_from_jax`` carries a JAX unit's state across unchanged.
+The arithmetic mirrors the JAX code op for op: where JAX asks for an f32
+product of bf16 inputs (``preferred_element_type``, in ``gqa_attention``),
+the port upcasts both inputs and multiplies in f32, since a bf16
+``torch.matmul`` would round its output to bf16 (it costs an f32 copy of
+q/k/v and f32 tensor-core-free products on the plain path); where JAX
+rounds (``h @ w`` in bf16, the unembed before ``.astype(f32)``), the port
+rounds too.
+
+Attention (``_attention``): ``use_flash`` sends prefill and ``lm_apply``
+attention to the flash-attention forward (``ops/flash_attention.py``: the
+Hopper kernel for CUDA tensors, its plain version for CPU tensors) when
+the JAX shape contract holds (S % 128 == 0, head dim <= 256, H a multiple
+of KV), and otherwise to the plain attention (``gqa_attention`` for
+grouped K/V, the einsum path for full heads), as the JAX package falls
+back.  ``resolve_flash`` decides ``use_flash`` once, at construction:
+
+  ``attention``  on CUDA                                      on CPU
+  "auto"         the kernel, probed now; plain attention       the plain
+                 (logged) when the kernel refuses the dtype    flash version
+                 or head dim
+  "flash"        the kernel, probed now; ValueError when the   the plain
+                 kernel refuses the dtype or head dim          flash version
+  "xla"          plain attention                               plain attention
+
+The JAX package's length gates (``FLASH_AUTO_MIN_S`` = 4096 and
+``FLASH_AUTO_MIN_S_GQA`` = 512, ``transformer.py:544-545``) were set from
+TPU measurements and are not inherited: "auto" takes the kernel at every
+length the contract admits.  ``chip_smoke.py`` times the kernel against
+PyTorch's fused attention on the H100; a later change may set a gate from
+those numbers.
+
+Not ported yet (the units raise ``ValueError`` naming the ROADMAP item):
+int8 ``quant``, MoE layers, ``weights_path``, meshes and ring attention,
+training (``lm_loss`` / ``lm_train_step``) and the pipeline variant.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
+from seldon_core_tpu_torch.graph.units import Unit, register_unit
+from seldon_core_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    kernel_shape_error,
+    probe_kernel,
+    shape_contract_error,
+)
+from seldon_core_tpu_torch.ops.quant import lm_matmul
+
+__all__ = ["LMConfig", "lm_init", "lm_apply", "apply_rope", "gqa_attention",
+           "resolve_flash", "TransformerLM"]
+
+logger = logging.getLogger(__name__)
+
+@dataclass(frozen=True)
+class LMConfig:
+    """``seldon_core_tpu/models/transformer.py:53-125`` with a torch dtype;
+    the same fields, defaults and validation messages."""
+
+    vocab: int = 256
+    d_model: int = 128
+    n_heads: int = 4
+    n_layers: int = 2
+    d_ff: int = 512
+    n_kv_heads: int = 0   # 0 = multi-head attention
+    dtype: torch.dtype = torch.bfloat16
+    moe_every: int = 0
+    n_experts: int = 8
+    moe_k: int = 2
+    quant: str = "none"
+    kv_quant: str = "none"
+    rope: bool = True
+    rope_base: float = 10000.0
+
+    def __post_init__(self):
+        if self.d_model % self.n_heads != 0:
+            raise ValueError(
+                f"d_model={self.d_model} not divisible by "
+                f"n_heads={self.n_heads}"
+            )
+        if self.quant not in ("none", "int8"):
+            raise ValueError(
+                f"quant={self.quant!r} not supported (none | int8)"
+            )
+        if self.kv_quant not in ("none", "int8"):
+            raise ValueError(
+                f"kv_quant={self.kv_quant!r} not supported (none | int8)"
+            )
+        kv = self.kv_heads
+        if self.n_heads % kv != 0:
+            raise ValueError(
+                f"n_heads={self.n_heads} not divisible by "
+                f"n_kv_heads={kv}"
+            )
+        if self.rope and (self.d_model // self.n_heads) % 2 != 0:
+            raise ValueError(
+                f"RoPE needs an even head dim, got "
+                f"{self.d_model // self.n_heads}"
+            )
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def refuse_unported(cfg: LMConfig, weights_path: str) -> None:
+    """ValueError for the LM options the port does not serve yet, naming
+    the ROADMAP item that will port each."""
+    if cfg.quant != "none" or cfg.kv_quant != "none":
+        raise ValueError(
+            f"quant={cfg.quant!r} / kv_quant={cfg.kv_quant!r}: the port serves "
+            f"dense bf16/f32 weights and caches only (int8 LM quantization: "
+            f"ROADMAP Queue 1 item 2)"
+        )
+    if cfg.moe_every > 0:
+        raise ValueError(
+            f"moe_every={cfg.moe_every}: MoE layers are not ported yet "
+            f"(ROADMAP Queue 1 item 5e)"
+        )
+    if weights_path:
+        raise ValueError(
+            f"weights_path={weights_path!r}: loading LM checkpoints is not "
+            f"ported yet (ROADMAP Queue 1 item 5e); carry weights across with "
+            f"convert.params_from_jax and EngineService.load_states"
+        )
+
+
+def _rmsnorm(x, w, eps=1e-6):
+    x32 = x.float()
+    scale = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (x32 * scale).to(x.dtype) * w
+
+
+def apply_rope(x, positions, base: float = 10000.0):
+    """Rotate [B, H, S, hd] by per-position angles; positions [S] shared
+    across the batch or [B, S] per row.  Half-split convention, f32 trig,
+    output in the input dtype.  The JAX code computes the rotate-half as
+    ``x @ R`` with a signed permutation R, which is exact arithmetic; the
+    concatenation ``[-x2, x1]`` in f32 gives the same numbers."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
+    cos = torch.cos(angles)
+    sin = torch.sin(angles)
+    if angles.ndim == 2:  # shared positions [S, half]
+        c = torch.cat([cos, cos], dim=-1)[None, None]
+        s = torch.cat([sin, sin], dim=-1)[None, None]
+    else:  # per-row positions [B, S, half] -> broadcast over heads
+        c = torch.cat([cos, cos], dim=-1)[:, None]
+        s = torch.cat([sin, sin], dim=-1)[:, None]
+    x32 = x.float()
+    rx = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
+    return (x32 * c + rx * s).to(x.dtype)
+
+
+def _dense(rng: torch.Generator, shape, fan_in: int, dtype: torch.dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=rng, dtype=torch.float32)
+            * (fan_in ** -0.5)).to(dtype)
+
+
+def lm_init(rng: torch.Generator, cfg: LMConfig, device: DeviceLike = "cpu") -> Dict[str, Any]:
+    """Parameters as ``lm_init`` lays them out, drawn on the CPU from
+    ``rng`` (a CPU ``torch.Generator``) in the order embed, then per layer
+    wqkv, wo, w1, w2, and moved to ``device``.  The draws differ from
+    ``jax.random``'s; parity tests carry JAX weights across instead."""
+    if cfg.moe_every > 0:
+        refuse_unported(cfg, "")
+    dev = resolve_device(device)
+    dt = cfg.dtype
+    hd = cfg.head_dim
+    qkv_out = cfg.d_model + 2 * cfg.kv_heads * hd  # q | k | v segments
+    params: Dict[str, Any] = {"embed": _dense(rng, (cfg.vocab, cfg.d_model), cfg.d_model, dt).to(dev)}
+    for i in range(cfg.n_layers):
+        params[f"l{i}"] = {
+            "ln1": torch.ones(cfg.d_model, dtype=dt, device=dev),
+            "wqkv": _dense(rng, (cfg.d_model, qkv_out), cfg.d_model, dt).to(dev),
+            "wo": _dense(rng, (cfg.d_model, cfg.d_model), cfg.d_model, dt).to(dev),
+            "ln2": torch.ones(cfg.d_model, dtype=dt, device=dev),
+            "w1": _dense(rng, (cfg.d_model, cfg.d_ff), cfg.d_model, dt).to(dev),
+            "w2": _dense(rng, (cfg.d_ff, cfg.d_model), cfg.d_ff, dt).to(dev),
+        }
+    params["ln_f"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
+    return params
+
+
+def gqa_attention(q, k, v, causal: bool):
+    """Grouped-query attention without repeating K/V: q [B, H, S, hd],
+    k/v [B, KV, S_k, hd], H = KV * g, group heads folded into the row
+    axis.  Scores and the PV product in f32 from the inputs upcast, p cast
+    to V's dtype first, the output in q's dtype."""
+    B, H, S, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = 1.0 / (hd ** 0.5)
+    s = torch.matmul(q.reshape(B, KV, g * S, hd).float(),
+                     k.float().transpose(-1, -2)) * scale  # [B, KV, g*S, Sk]
+    s = s.reshape(B, KV, g, S, Sk)
+    if causal:
+        qpos = torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s = s.masked_fill(qpos < kpos, -1e30)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.matmul(p.reshape(B, KV, g * S, Sk).float(), v.float()).to(q.dtype)
+    return out.reshape(B, H, S, hd)
+
+
+def _attention(q, k, v, causal: bool, use_flash: bool = False):
+    """q [B, H, S, hd], k/v [B, KV, S, hd] -> [B, H, S, hd].  The flash
+    forward when ``use_flash`` and the JAX shape contract holds (a static
+    check: a launch failure is never caught), else the plain attention."""
+    if use_flash and shape_contract_error(q, k, v) is None:
+        return flash_attention(q, k, v, causal=causal)
+    if k.shape[1] != q.shape[1]:
+        return gqa_attention(q, k, v, causal)
+    # plain attention in q's dtype, as the JAX package's XLA fallback
+    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]), device=q.device)).to(q.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        qpos = torch.arange(q.shape[2], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = s.masked_fill(qpos < kpos, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+
+
+def heads(t, B, S, n, hd):
+    """[B, S, n*hd] -> [B, n, S, hd] (a strided view, no copy)."""
+    return t.reshape(B, S, n, hd).transpose(1, 2)
+
+
+def _ffn(lp, h):
+    """Dense feed-forward on h [B, S, D]: gelu (tanh form, as
+    ``jax.nn.gelu``) between the two layer matmuls."""
+    if "moe" in lp:
+        raise ValueError("MoE layers are not ported yet (ROADMAP Queue 1 item 5e)")
+    u = F.gelu(lm_matmul(lp, "w1", h, out_dtype=h.dtype), approximate="tanh")
+    return lm_matmul(lp, "w2", u, out_dtype=h.dtype)
+
+
+def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
+    """One decoder block: attention + dense FFN with residuals."""
+    B, S, D = x.shape
+    hd = cfg.head_dim
+    kv = cfg.kv_heads
+    h = _rmsnorm(x, lp["ln1"])
+    qkv = lm_matmul(lp, "wqkv", h, out_dtype=x.dtype)
+    q, k, v = torch.split(qkv, [D, kv * hd, kv * hd], dim=-1)
+    q, k, v = heads(q, B, S, cfg.n_heads, hd), heads(k, B, S, kv, hd), heads(v, B, S, kv, hd)
+    if cfg.rope:
+        positions = torch.arange(S, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_base)
+        k = apply_rope(k, positions, cfg.rope_base)
+    a = _attention(q, k, v, causal, use_flash)
+    a = a.transpose(1, 2).reshape(B, S, D)
+    x = x + lm_matmul(lp, "wo", a, out_dtype=x.dtype)
+    return x + _ffn(lp, _rmsnorm(x, lp["ln2"]))
+
+
+def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool = False):
+    """tokens [B, S] int -> logits [B, S, V] f32."""
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.n_layers):
+        x = _block(params[f"l{i}"], x, cfg, causal, use_flash)
+    x = _rmsnorm(x, params["ln_f"])
+    return (x @ params["embed"].T).float()
+
+
+def resolve_flash(attention: str, cfg: LMConfig, device: torch.device) -> bool:
+    """Deployment-parameter attention mode -> ``use_flash``, decided once
+    at construction (table in the module docstring).  On CUDA the kernel
+    is built and launched once here (``probe_kernel``), so a missing nvcc
+    or a failing build raises before an engine reports ready."""
+    if attention == "xla":
+        return False
+    if attention not in ("auto", "flash"):
+        raise ValueError(
+            f"attention={attention!r} not supported (auto | flash | xla)"
+        )
+    if device.type != "cuda":
+        return True  # the wrapper runs the plain version for CPU tensors
+    why = kernel_shape_error(cfg.head_dim, cfg.dtype)
+    if why is not None:
+        if attention == "flash":
+            raise ValueError(f"attention='flash': {why}")
+        logger.info("flash-attention kernel not used (%s); attention runs the "
+                    "plain path", why)
+        return False
+    probe_kernel(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
+    return True
+
+
+def seeded_generator(rng: Optional[torch.Generator], seed: int) -> torch.Generator:
+    """The unit's CPU generator: the graph's seed folded with the unit's,
+    so two units with different seeds differ under one graph seed."""
+    base = 0 if rng is None else rng.initial_seed()
+    g = torch.Generator(device="cpu")
+    g.manual_seed((base * 1_000_003 + int(seed)) % (1 << 63))
+    return g
+
+
+@register_unit("TransformerLM")
+class TransformerLM(Unit):
+    """Serving unit: next-token logits [B, S, V] f32 for token rows,
+    registered under the JAX unit's name with its parameters."""
+
+    def __init__(
+        self,
+        vocab: int = 256,
+        d_model: int = 128,
+        n_heads: int = 4,
+        n_layers: int = 2,
+        d_ff: int = 512,
+        seed: int = 0,
+        dtype: str = "bfloat16",
+        moe_every: int = 0,
+        n_experts: int = 8,
+        moe_k: int = 2,
+        quant: str = "none",
+        attention: str = "auto",
+        n_kv_heads: int = 0,
+        weights_path: str = "",
+        rope: bool = True,
+        rope_base: float = 10000.0,
+        device: DeviceLike = None,
+    ):
+        self.cfg = LMConfig(
+            vocab=int(vocab), d_model=int(d_model), n_heads=int(n_heads),
+            n_layers=int(n_layers), d_ff=int(d_ff), dtype=parse_dtype(dtype),
+            moe_every=int(moe_every), n_experts=int(n_experts),
+            moe_k=int(moe_k), quant=str(quant), n_kv_heads=int(n_kv_heads),
+            rope=bool(rope), rope_base=float(rope_base),
+        )
+        refuse_unported(self.cfg, str(weights_path))
+        self.seed = int(seed)
+        self.device = resolve_device(device)
+        self.use_flash = resolve_flash(str(attention), self.cfg, self.device)
+
+    def init_state(self, rng):
+        return lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
+
+    def predict(self, state, X):
+        return lm_apply(state, X.to(torch.int32), self.cfg, use_flash=self.use_flash)
+

@@ -1,6 +1,11 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-  fused_mlp   fused MLP + softmax (CUDA C++, csrc/fused_mlp.cu); replaces
-              the Pallas kernel of seldon_core_tpu/ops/fused_mlp.py
-  _build      nvcc build at first use + ctypes binding
+  fused_mlp        fused MLP + softmax (CUDA C++, csrc/fused_mlp.cu);
+                   replaces the Pallas kernel of
+                   seldon_core_tpu/ops/fused_mlp.py
+  flash_attention  flash-attention forward with log-sum-exp (CUDA C++,
+                   csrc/flash_attention.cu); replaces the forward Pallas
+                   kernel of seldon_core_tpu/ops/flash_attention.py
+  quant            lm_matmul, the LM layer matmul (dense only; no kernel)
+  _build           nvcc build at first use + ctypes binding
 """

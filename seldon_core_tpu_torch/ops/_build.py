@@ -11,7 +11,8 @@ into ``build/torch_kernels/`` at the root of the checkout, keyed by a hash
 of the source and the flags, under a file lock so two processes never
 build the same library at once.  Nothing is built at import: the first
 call that needs a kernel builds it (a unit's construction, which probes
-its kernel, or a launch).  Only sources in this package are built.
+its kernel, or a launch).  ``build_all`` starts one nvcc per source, all
+at once.  Only sources in this package are built.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
-__all__ = ["BUILD_DIR", "BUILD_INFO", "load_library", "find_nvcc"]
+__all__ = ["BUILD_DIR", "BUILD_INFO", "load_library", "build_all", "find_nvcc"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -42,7 +44,8 @@ NVCC_FLAGS = [
 #: "ptxas" (the compiler's resource report)}
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()               # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 
 
 def find_nvcc() -> str:
@@ -66,11 +69,19 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed.
     Raises RuntimeError when the build fails."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:  # one build per library; other libraries build alongside
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_build(name)))
             _LIBS[name] = lib
         return lib
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Build and load several libraries at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(load_library, names))
 
 
 def _build(name: str) -> Path:

@@ -15,7 +15,7 @@ known-good-width rule (a failure on a feature width that has served
 before is a server fault and propagates; on a novel width it is the
 client's shape error, a 400), ``ready`` / ``pause`` / ``drained``, and
 ``states`` / ``load_states``.  Not ported yet: the host interpreter for
-remote nodes and routers, fused graphs, feedback, the generation lane,
+remote nodes and routers, fused graphs, feedback, the continuous generation lane,
 admission control and the observatories.
 """
 
@@ -43,7 +43,7 @@ from seldon_core_tpu_torch.messages import (
     Status,
     new_puid,
 )
-from seldon_core_tpu_torch.ops import fused_mlp
+from seldon_core_tpu_torch.ops import flash_attention, fused_mlp
 from seldon_core_tpu_torch.runtime.batching import MicroBatcher, graph_is_batchable
 
 __all__ = ["EngineService"]
@@ -183,7 +183,8 @@ class EngineService:
             "device": self.device.type,
             "predictor": self.predictor.name,
             "batcher": self.batcher.snapshot() if self.batcher is not None else None,
-            "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES}},
+            "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES},
+                        "flash_attention": {"launches": flash_attention.LAUNCHES}},
         }
 
     def close(self) -> None:

@@ -1,5 +1,6 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package."""
+chip_smoke.py, imports JAX or anything of the JAX package, and the port
+serves the MNIST and generator examples with both blocked."""
 
 import ast
 import os
@@ -72,9 +73,15 @@ from seldon_core_tpu_torch.runtime.engine_main import load_deployment_from_env
 engine = EngineService(load_deployment_from_env("examples/mnist_deployment.json"), device="cpu")
 text, status = asyncio.run(engine.predict_json(json.dumps({"data": {"ndarray": [[0.5] * 784]}})))
 engine.close()
+gen = EngineService(load_deployment_from_env("examples/generator_deployment.json"), device="cpu")
+gen_text, gen_status = asyncio.run(gen.predict_json(
+    json.dumps({"data": {"ndarray": [list(range(128))]}})))
+gen.close()
+gen_rows = json.loads(gen_text)["data"]["ndarray"]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
+                  "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
                   "leaked": leaked}))
 """
 
@@ -86,4 +93,5 @@ def test_port_serves_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _SERVE_WITH_JAX_BLOCKED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.strip().splitlines()[-1] == '{"status": 200, "shape": 10, "leaked": []}'
+    assert proc.stdout.strip().splitlines()[-1] == (
+        '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], "leaked": []}')
