@@ -3,19 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the served paths from the sources in this checkout
-(two libraries, built at once), holds each kernel against its plain
-PyTorch version on the card, serves two deployments through the port's
-engine and REST lane on a localhost port, checks the answers, shows that
-each serving run went through its kernel, and times each kernel beside its
-plain version, a PyTorch library call and its bound.  Weights are random,
-from a seed.  Phases, in order; any failure exits non-zero without the
-final line, and each phase prints its wall:
+Builds every kernel of the served and trained paths from the sources in
+this checkout (three libraries, built at once), holds each kernel against
+its plain PyTorch version on the card, serves two deployments through the
+port's engine and REST lane on a localhost port, trains the flagship LM a
+few steps and serves its checkpoint, checks the answers, shows that each
+run went through its kernels, and times each kernel beside its plain
+version, a PyTorch library call and its bound.  Weights are random, from
+a seed.  Phases, in order; any failure exits non-zero without the final
+line, and each phase prints its wall:
 
   1. device   CUDA present; the card's name and power limit (nvidia-smi)
-  2. build    nvcc of ops/csrc/fused_mlp.cu and ops/csrc/flash_attention.cu
-              at once, with ptxas's report; each kernel's own shape check
-              asked for shapes it takes and shapes it must refuse
+  2. build    nvcc of ops/csrc/fused_mlp.cu, ops/csrc/flash_attention.cu
+              and ops/csrc/flash_attention_bwd.cu at once, with ptxas's
+              report; each kernel's own shape check asked for shapes it
+              takes and shapes it must refuse
   3. kernel   fused_mlp_softmax vs fused_mlp_softmax_reference at
               784-256-256-10 and 784-512-512-10 with non-zero biases,
               B in {1, 7, 32, 64, 128, 1024} (32 and 64 are the served
@@ -44,8 +46,25 @@ final line, and each phase prints its wall:
   8. times    flash kernel / plain / SDPA device times and the bound at the
               served prefill shape and at S=2048, 4096 (B=4); served TTFT,
               32-row request wall, decode tokens/s, the kernel's share of
-              the prefill; then the {"kernels": [...]} line
-  9. last line {"ok": true, "device": {"platform": "gpu", ...}}
+              the prefill
+  9. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
+              dq/dk/dv, causal and not, at five shapes (the training layer
+              among them); each call moves each launch counter by 1, and a
+              second call gives the same bits
+ 10. train    the flagship config (GEN_DIMS) in bf16 on the copy task of
+              bench.py:2105-2108 at B=16, S=512 with adam(3e-4): one step's
+              loss and per-leaf gradients, kernel path vs plain path; then
+              20 steps with counts reset before and read after (12 forward,
+              12 dQ and 12 dK/dV launches per step), losses finite and
+              falling; step wall, trained tokens/s, a profiled step
+ 11. hand-off save_lm_weights / load_lm_weights bit-identical; a
+              TransformerGenerator with weights_path served over REST
+              answers a 512-token copy-task prompt as an in-process
+              generate on the trained params does
+ 12. times    dQ and dK/dV kernel / plain / SDPA-backward device times and
+              their bounds at the training layer and at S=2048 (B=4); then
+              the {"kernels": [...]} line with all four kernels
+ 13. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
 port's package is not beside it.  It imports nothing of JAX.
@@ -70,7 +89,7 @@ import numpy as np
 T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-KERNEL_SOURCES = ("fused_mlp", "flash_attention")
+KERNEL_SOURCES = ("fused_mlp", "flash_attention", "flash_attention_bwd")
 KERNEL_ATOL = 2e-3   # kernel vs plain, probabilities: both round at the same
 #                      bf16 casts, only the order of the f32 sums differs.
 #                      Served answers are the same kernel against the same
@@ -91,6 +110,20 @@ GEN_B = 32
 FLASH_SHAPES = [(1, 2, 2, 256, 64), (1, 1, 1, 384, 32), (32, 16, 4, 512, 64),
                 (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256)]   # (B, H, KV, S, D)
 FLASH_TIMED = [(32, 16, 4, 512, 64), (4, 16, 4, 2048, 64), (4, 16, 4, 4096, 64)]
+# (B, H, KV, S, D): MHA, the 3-tile carry with D padded to the 64-wide
+# tile, the training layer, GQA at D=128, and D=256 (the two-walk dK/dV)
+FLASH_BWD_SHAPES = [(1, 2, 2, 256, 64), (1, 1, 1, 384, 32), (16, 16, 4, 512, 64),
+                    (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256)]
+FLASH_BWD_TIMED = [(16, 16, 4, 512, 64), (4, 16, 4, 2048, 64)]
+BWD_REL_TOL = 2.0 ** -5   # kernel vs plain backward, each of dq, dk, dv, as
+#                           a share of that gradient's largest element: both
+#                           round p and ds to bf16 at the same places, but
+#                           their f32 scores and sums run in other orders, so
+#                           a rounding of p, ds or the bf16 result can move by
+#                           an ulp; under GQA the plain version also rounds
+#                           each query head's dK/dV before the group sum, the
+#                           kernel once after it.  4 bf16 ulps of the largest
+#                           element (an ulp is 2^-8 to 2^-7 of it).
 # The served path (flash prefill, two-tier cached decode) and the plain
 # path (attention="xla", the whole sequence at once) round at other places:
 # the attention output by 1-2 bf16 ulps (p rounds at the running vs the final
@@ -102,6 +135,20 @@ FLASH_TIMED = [(32, 16, 4, 512, 64), (4, 16, 4, 2048, 64), (4, 16, 4, 4096, 64)]
 # TOKEN_DELTA of it.
 PREFILL_LOGIT_ATOL = 0.125
 TOKEN_DELTA = 0.125
+# Training: the flagship generator's config (GEN_DIMS) in bf16 on the copy
+# task of bench.py:2105-2108 (rows head|head|head, bhalf = 171, so tokens
+# [16, 513] and S = 512), adam(3e-4) as bench.py:2118
+TRAIN_B, TRAIN_HALF, TRAIN_STEPS, TRAIN_LR = 16, 171, 20, 3e-4
+# One step's gradients, kernel path vs plain path (use_flash=False), per
+# leaf as ||g_kernel - g_plain|| / ||g_plain||.  Both are bf16 training, but
+# the plain path's autograd rounds dP to bf16 and keeps ds and dq in f32,
+# where the kernels keep dP in f32 and round ds to bf16, and the forward's o
+# differs by 1-2 bf16 ulps (p rounded at the running vs the final row max):
+# each element moves by about 2^-8 of itself, independently, and 12 layers
+# of bf16 activations carry it down.  5e-2 (~13 x 2^-8) leaves room for
+# that and still catches a wrong term (a wrong head's dQ/dK/dV is O(1)).
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_LOSS_RTOL = 1e-3   # the loss is a mean over 8,192 tokens of f32 nll
 
 
 def log(msg: str) -> None:
@@ -224,8 +271,10 @@ def check_answer(status, raw, n_rows: int, kind: str):
 
 
 def flash_build_checks(torch, fa) -> None:
-    """The flash kernel's own shape check (flash_attention_smem_bytes):
-    the served head shape is taken, two others refused."""
+    """The flash kernels' own shape checks (flash_attention_smem_bytes and
+    flash_attention_bwd_smem_bytes): the served and trained head shape is
+    taken, two others refused, and the backward takes every head dim the
+    forward takes."""
     smem, why = fa._smem_bytes(64, GEN_S, torch.bfloat16)
     if why is not None or smem != 3 * 64 * (64 + 8) * 2:
         raise AssertionError(f"flash shape check at D=64 S={GEN_S}: {smem} bytes, {why!r}")
@@ -236,6 +285,18 @@ def flash_build_checks(torch, fa) -> None:
             raise AssertionError(f"flash shape check let D={head_dim} {dtype} through: {why!r}")
     log(f"[build] flash shape check: D=64 bf16 takes {smem} bytes of shared memory; "
         f"D=40 and float32 refused")
+    bwd = {d: fa._smem_bytes(d, GEN_S, torch.bfloat16, bwd=True) for d in (16, 64, 128, 256)}
+    if bwd[64] != (4 * 64 * (64 + 8) * 2 + 2 * 64 * 4, None) or any(w for _, w in bwd.values()):
+        raise AssertionError(f"flash backward shape check: {bwd}")
+    for head_dim, dtype, match in ((40, torch.bfloat16, "multiple of 16"),
+                                   (64, torch.float32, "bfloat16")):
+        why = fa.bwd_kernel_shape_error(head_dim, dtype)
+        if why is None or match not in why:
+            raise AssertionError(f"flash backward shape check let D={head_dim} {dtype} "
+                                 f"through: {why!r}")
+    log(f"[build] flash backward shape check: D=16, 64, 128, 256 bf16 take "
+        f"{[bwd[d][0] for d in (16, 64, 128, 256)]} bytes of shared memory; D=40 and float32 "
+        f"refused")
 
 
 def flash_bound(shape, causal: bool = True):
@@ -285,9 +346,117 @@ def flash_kernel_phase(torch, fa, dev) -> float:
     return max_err
 
 
-def gen_deployment() -> dict:
+def flash_bwd_bound(shape, kernel: str, causal: bool = True):
+    """Least time for one backward kernel's work: its inputs read once and
+    its outputs written once over HBM bandwidth (dQ: q, k, v, dO, lse,
+    dsum in, dq out; dK/dV: the same in, dk and dv out), against the FLOPs
+    of its products over the causal pairs this run needs (dQ: q.k, dO.v,
+    ds.k; dK/dV: those of p^T dO, dO.v, ds^T q and q.k) over the bf16
+    peak; the larger one bounds."""
+    B, H, KV, S, D = shape
+    rows = 2 * 4 * B * H * S                  # lse and dsum, f32
+    q_side, kv_side = 2 * B * H * S * D, 2 * B * KV * S * D
+    if kernel == "dq":
+        nbytes, products = 3 * q_side + 2 * kv_side + rows, 3
+    else:
+        nbytes, products = 2 * q_side + 4 * kv_side + rows, 4
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = products * 2 * B * H * D * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def flash_bwd_inputs(torch, fa, shape, gen, dev, causal: bool = True):
+    """q, k, v, dO from ``gen`` on the card, and o, lse from the forward
+    kernel, as a training step hands them to the backward."""
+    q, k, v = flash_inputs(torch, shape, gen, dev)
+    do = torch.randn(q.shape, generator=gen).to(torch.bfloat16).to(dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
+def flash_bwd_phase(torch, fa, dev) -> dict:
+    """Phase 9: the dQ and dK/dV kernels against the plain backward: dq,
+    dk, dv at every shape, causal and not; each call moves each counter by
+    exactly 1, and a second call on the same inputs gives the same bits.
+    Returns each kernel's largest absolute error."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for shape in FLASH_BWD_SHAPES:
+        for causal in (True, False):
+            q, k, v, o, lse, do = flash_bwd_inputs(torch, fa, shape, gen, dev, causal)
+            n_dq, n_dkv = fa.DQ_LAUNCHES, fa.DKV_LAUNCHES
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            if (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) != (n_dq + 1, n_dkv + 1):
+                raise AssertionError(f"one backward at {shape} moved the counters by "
+                                     f"{fa.DQ_LAUNCHES - n_dq}, {fa.DKV_LAUNCHES - n_dkv}")
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+                scale = float(w.float().abs().max())
+                abs_err = float((g.float() - w.float()).abs().max())
+                err = abs_err / scale
+                if (g.dtype != torch.bfloat16 or g.shape != w.shape
+                        or not bool(torch.isfinite(g.float()).all()) or err > BWD_REL_TOL):
+                    raise AssertionError(
+                        f"flash backward {name} vs plain at {shape} causal={causal}: error "
+                        f"{err:.3e} of its largest element {scale:.3e} (tolerance {BWD_REL_TOL})")
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"flash backward {name} at {shape} causal={causal} "
+                                         f"differs between two calls on the same inputs")
+                errs.append(err)
+                kern = "dq" if name == "dq" else "dkv"
+                worst[kern] = max(worst[kern], abs_err)
+            log(f"[flash-bwd] (B,H,KV,S,D)={shape} causal={causal}: dq {errs[0]:.3e}, dk "
+                f"{errs[1]:.3e}, dv {errs[2]:.3e} of each gradient's largest element "
+                f"(tolerance {BWD_REL_TOL}); a second call bit-identical")
+            del q, k, v, o, lse, do, got, again, want
+    log(f"[flash-bwd] phase wall {time.perf_counter() - t0:.2f} s")
+    return worst
+
+
+def kernel_ms_by_name(torch, fn, iters: int) -> dict:
+    """Device time per call of each kernel ``fn`` launches, from
+    torch.profiler's kernel records over ``iters`` calls (after a warm-up
+    call): how a wrapper that launches two kernels is timed kernel by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {k: v / iters for k, v in trace_kernels(prof, "kernel_times")[0].items()}
+
+
+def trace_kernels(prof, name: str):
+    """({kernel name: summed device ms}, launches) from a profiler's
+    exported trace."""
+    path = ROOT / "build" / f"trace_{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    by_name: dict = {}
+    n_kernels = 0
+    for e in events:
+        if e.get("cat") == "kernel":
+            n_kernels += 1
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0)) / 1e3
+    return by_name, n_kernels
+
+
+def gen_deployment(weights_path: str = "") -> dict:
     parameters = [{"name": k, "value": str(v), "type": "INT"} for k, v in GEN_DIMS.items()]
     parameters.append({"name": "quant", "value": "none", "type": "STRING"})
+    if weights_path:
+        parameters.append({"name": "weights_path", "value": weights_path, "type": "STRING"})
     return {"spec": {"name": "gen-flagship", "predictors": [{
         "name": "main",
         "graph": {"name": "gen", "type": "MODEL"},
@@ -361,21 +530,11 @@ def device_profile(torch, fn, name: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    path = ROOT / "build" / f"trace_{name}.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text()).get("traceEvents", [])
-    path.unlink()
-    by_name: dict = {}
-    n_kernels = 0
-    for e in events:
-        if e.get("cat") == "kernel":
-            n_kernels += 1
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
-    kernel_ms = sum(by_name.values()) / 1e3
+    by_name, n_kernels = trace_kernels(prof, name)
+    kernel_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
-            "kernels": n_kernels, "top_ms": [[k[:90], v / 1e3] for k, v in top]}
+            "kernels": n_kernels, "top_ms": [[k[:90], v] for k, v in top]}
 
 
 def generation_phases(torch, dev, smi) -> dict:
@@ -561,6 +720,216 @@ def generation_phases(torch, dev, smi) -> dict:
         "at": timings,
         "served": served,
     }
+
+
+def copy_batch(rng, vocab: int):
+    """bench.py:2105-2108: each row a random head repeated three times."""
+    head = rng.integers(1, vocab, size=(TRAIN_B, TRAIN_HALF))
+    return np.concatenate([head, head, head], axis=1)
+
+
+def loss_and_grads(torch, lm_loss, params, batch, cfg, use_flash: bool):
+    from seldon_core_tpu_torch.tree import leaves_with_paths, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = lm_loss(live, batch, cfg, use_flash=use_flash)
+    leaves = leaves_with_paths(live)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    return float(loss.detach()), {k: g for (k, _), g in zip(leaves, grads)}
+
+
+def training_phases(torch, dev, smi):
+    """Phases 9-12: the backward kernels against their plain version, the
+    flagship config trained 20 steps through them, its checkpoint served
+    through weights_path, and their times.  Returns the dQ and dK/dV rows
+    of the kernels line."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.models.generate import generate
+    from seldon_core_tpu_torch.models.transformer import (
+        LMConfig, lm_init, lm_loss, lm_train_step, load_lm_weights, resolve_train_flash,
+        save_lm_weights)
+    from seldon_core_tpu_torch.ops import flash_attention as fa, fused_mlp
+    from seldon_core_tpu_torch.optim import adam
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    bwd_errs = flash_bwd_phase(torch, fa, dev)
+
+    # -- 10. train --------------------------------------------------------
+    t_phase = time.perf_counter()
+    dims = {k: v for k, v in GEN_DIMS.items() if k != "max_new_tokens"}
+    cfg = LMConfig(**dims, dtype=torch.bfloat16)
+    params = lm_init(torch.Generator().manual_seed(SEED), cfg, dev)
+    if not resolve_train_flash(cfg, dev):  # asks both shape checks; probes both once
+        raise AssertionError("training did not take the flash kernels at the flagship config")
+    rng = np.random.default_rng(SEED)
+    vocab = cfg.vocab
+
+    def batch():
+        return {"tokens": torch.as_tensor(copy_batch(rng, vocab), dtype=torch.int32, device=dev)}
+
+    first = batch()
+    loss_k, grads_k = loss_and_grads(torch, lm_loss, params, first, cfg, True)
+    loss_p, grads_p = loss_and_grads(torch, lm_loss, params, first, cfg, False)
+    rel = {k: float((grads_k[k].float() - grads_p[k].float()).norm()
+                    / grads_p[k].float().norm()) for k in grads_p}
+    worst_leaf = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[train] one step at B={TRAIN_B}, S={first['tokens'].shape[1] - 1}: loss kernel path "
+        f"{loss_k:.6f}, plain path {loss_p:.6f} (relative {loss_rel:.3e}, tolerance "
+        f"{TRAIN_LOSS_RTOL}); gradients, relative L2 per leaf: max {rel[worst_leaf]:.3e} at "
+        f"{worst_leaf}, median {float(np.median(list(rel.values()))):.3e} over {len(rel)} "
+        f"leaves (tolerance {TRAIN_GRAD_REL_L2})")
+    if (loss_rel > TRAIN_LOSS_RTOL or rel[worst_leaf] > TRAIN_GRAD_REL_L2
+            or not all(bool(torch.isfinite(g.float()).all()) for g in grads_k.values())):
+        raise AssertionError(f"kernel-path gradients differ from the plain path: {rel}")
+    del grads_k, grads_p
+
+    opt = adam(TRAIN_LR)
+    opt_state = opt.init(params)
+    losses, walls = [], []
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fused_mlp.LAUNCHES = 0
+    for _ in range(TRAIN_STEPS):
+        b = batch()
+        t = time.perf_counter()
+        params, opt_state, loss = lm_train_step(params, opt_state, b, opt, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    launches = {"fwd": fa.LAUNCHES, "dq": fa.DQ_LAUNCHES, "dkv": fa.DKV_LAUNCHES,
+                "fused_mlp": fused_mlp.LAUNCHES}
+    want = cfg.n_layers * TRAIN_STEPS
+    if launches != {"fwd": want, "dq": want, "dkv": want, "fused_mlp": 0}:
+        raise AssertionError(f"{TRAIN_STEPS} train steps launched {launches}, not "
+                             f"{cfg.n_layers} of each flash kernel per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    step_ms = float(np.median(walls) * 1e3)
+    tokens = TRAIN_B * (first["tokens"].shape[1] - 1)
+    log(f"[train] {TRAIN_STEPS} steps of adam({TRAIN_LR}): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, all finite; launches {launches} = {cfg.n_layers} forward + "
+        f"{cfg.n_layers} dQ + {cfg.n_layers} dK/dV per step")
+    prof = device_profile(torch, lambda: lm_train_step(params, opt_state, first, opt, cfg),
+                          "train_step")
+    trained = {"step_wall_p50_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+               "losses": losses, "launches": launches, "profile": prof, "card": smi}
+    log(f"[train] step wall p50 {step_ms:.3f} ms, {trained['tokens_per_s']:.1f} trained "
+        f"tokens/s; profiled step: wall {prof['wall_ms']:.3f} ms, device kernels "
+        f"{prof['kernel_ms']:.3f} ms in {prof['kernels']} launches, busy "
+        f"{prof['busy_share'] * 100:.1f}% on {smi}")
+    log(json.dumps({"training": trained}))
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.2f} s")
+
+    # -- 11. hand-off -----------------------------------------------------
+    t_phase = time.perf_counter()
+    path = ROOT / "build" / "chip_smoke_trained_lm.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        save_lm_weights(params, str(path))
+        back = load_lm_weights(lm_init(torch.Generator().manual_seed(SEED + 1), cfg, dev),
+                               str(path))
+        for (key, got), (_, want_t) in zip(leaves_with_paths(back), leaves_with_paths(params)):
+            if got.dtype != torch.bfloat16 or not torch.equal(got, want_t):
+                raise AssertionError(f"checkpoint round trip changed {key}")
+        log(f"[hand-off] save_lm_weights -> load_lm_weights: {path.stat().st_size / 1e6:.1f} MB, "
+            f"every bf16 leaf bit-identical")
+        del back
+        spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(
+            gen_deployment(weights_path=str(path))))
+        engine = EngineService(spec, device=dev)
+    finally:
+        path.unlink(missing_ok=True)
+    served_params = engine.states()["gen"]["params"]
+    if not all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(leaves_with_paths(served_params), leaves_with_paths(params))):
+        raise AssertionError("the generator's weights are not the trained weights")
+    prompt = copy_batch(np.random.default_rng(SEED + 1), vocab)[:1, :GEN_S]
+    server = ServerThread(engine)
+    port = server.start()
+    try:
+        fa.LAUNCHES = 0
+        st, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                          {"data": {"ndarray": prompt.tolist()}})
+        served_launches = fa.LAUNCHES
+    finally:
+        server.stop()
+    served = check_tokens(st, raw, prompt, "ndarray")
+    if served_launches != cfg.n_layers:
+        raise AssertionError(f"the served prefill launched the flash kernel {served_launches} "
+                             f"times, not {cfg.n_layers}")
+    tok = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        local = generate(params, tok, cfg, GEN_DIMS["max_new_tokens"], use_flash=True).cpu().numpy()
+    if np.array_equal(served, local):
+        held = "identical to an in-process generate on the trained params"
+    else:
+        from seldon_core_tpu_torch.models.transformer import lm_apply
+
+        gap, _ = teacher_forced(torch, lm_apply, params, cfg, prompt, served, dev)
+        if gap.max() > TOKEN_DELTA:
+            raise AssertionError(f"served tokens differ from generate and a served token is "
+                                 f"{gap.max():.4f} below the plain maximum")
+        held = (f"not identical to generate ({int((served != local).sum())} tokens differ); "
+                f"each within {gap.max():.5f} of the plain maximum (delta {TOKEN_DELTA})")
+    log(f"[hand-off] a TransformerGenerator with weights_path, over REST: 1x{GEN_S} copy-task "
+        f"prompt -> {served.shape[1]} tokens, {held}; {served_launches} flash launches")
+    log(f"[hand-off] phase wall {time.perf_counter() - t_phase:.2f} s")
+    del params, opt_state, served_params
+
+    # -- 12. times --------------------------------------------------------
+    t_phase = time.perf_counter()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows = {"dq": [], "dkv": []}
+    for shape in FLASH_BWD_TIMED:
+        q, k, v, o, lse, do = flash_bwd_inputs(torch, fa, shape, gen, dev)
+        by_name = kernel_ms_by_name(
+            torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True), 20)
+        g = shape[1] // shape[2]
+        krep, vrep = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        dsum = torch.sum(do.float() * o.float(), dim=-1)
+        plain = {
+            "dq": device_ms(torch, lambda: fa._dq_reference(q, krep, vrep, do, lse, dsum, True), 5),
+            "dkv": device_ms(torch, lambda: fa._dkv_reference(q, krep, vrep, do, lse, dsum, True),
+                             5),
+        }
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        lib_ms = device_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                              retain_graph=True), 20)
+        for kern, tag in (("dq", "flash_bwd_dq_kernel"), ("dkv", "flash_bwd_dkv_kernel")):
+            ms = sum(v for name, v in by_name.items() if tag in name)
+            b_ms, b_by = flash_bwd_bound(shape, kern)
+            rows[kern].append({"shape": list(shape), "ms": ms, "plain_ms": plain[kern],
+                               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+            log(f"[times] {kern} (B,H,KV,S,D)={shape} causal: kernel {ms:.5f} ms, plain "
+                f"{plain[kern]:.5f} ms, SDPA backward (dq, dk and dv) {lib_ms:.5f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by}) on {smi}")
+        del q, k, v, o, lse, do, krep, vrep, qs, ks, vs, out
+    log(f"[times] phase wall {time.perf_counter() - t_phase:.2f} s")
+    out_rows = []
+    for kern, name, line, launches_k in (
+            ("dq", "flash_attention_bwd_dq", 208, launches["dq"]),
+            ("dkv", "flash_attention_bwd_dkv", 252, launches["dkv"])):
+        top = rows[kern][0]
+        out_rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "seldon_core_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": f"seldon_core_tpu/ops/flash_attention.py:{line}",
+            "launches": launches_k,
+            "max_abs_err": bwd_errs[kern],
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "shape": "B=16 H=16 KV=4 S=512 D=64 causal bf16",
+            "at": rows[kern],
+        })
+    return out_rows
 
 
 def mnist_phases(torch, dev, smi) -> dict:
@@ -784,9 +1153,10 @@ def main() -> int:
     mlp_row = mnist_phases(torch, dev, smi)
     log(f"[mnist] phases 3-5 wall {time.perf_counter() - t0:.2f} s")
     flash_row = generation_phases(torch, dev, smi)
+    dq_row, dkv_row = training_phases(torch, dev, smi)
 
     log(smi)
-    log(json.dumps({"kernels": [mlp_row, flash_row]}))
+    log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

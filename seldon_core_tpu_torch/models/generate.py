@@ -22,11 +22,12 @@ decode loop (``lax.scan`` in JAX) is a Python loop.  The JAX package's
 telemetry records (TTFT, decode rate) are not ported.
 
 Served here: greedy decoding (``temperature`` 0), float caches, no shared
-prefix.  The constructor refuses, with the ROADMAP item that will port
-each: ``temperature > 0`` (sampling), ``prefix_tokens`` (prefix cache),
-``quant`` / ``kv_quant`` other than "none", ``moe_every > 0`` and a
-``weights_path``.  The continuous-batching lane, speculative decoding and
-the paged KV pool are later slices.
+prefix, seeded or trained weights (``weights_path``, loaded in
+``init_state`` as the JAX unit does).  The constructor refuses, with the
+ROADMAP item that will port each: ``temperature > 0`` (sampling),
+``prefix_tokens`` (prefix cache), ``quant`` / ``kv_quant`` other than
+"none" and ``moe_every > 0``.  The continuous-batching lane, speculative
+decoding and the paged KV pool are later slices.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from seldon_core_tpu_torch.models.transformer import (
     apply_rope,
     heads,
     lm_init,
+    load_lm_weights,
     refuse_unported,
     resolve_flash,
     seeded_generator,
@@ -63,11 +65,12 @@ GEN_CHUNK_CAP = 256
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
-               device: DeviceLike = "cpu") -> Dict[str, Any]:
+               device: DeviceLike = None) -> Dict[str, Any]:
     """Zeroed K/V ``[batch, kv_heads, max_len, hd]`` per layer in the
-    model dtype, at the grouped head count."""
+    model dtype, at the grouped head count, on ``device`` (default
+    ``cuda``)."""
     if cfg.kv_quant != "none":
-        refuse_unported(cfg, "")
+        refuse_unported(cfg)
     dev = resolve_device(device)
     shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
     return {f"l{i}": {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -75,7 +78,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             for i in range(cfg.n_layers)}
 
 
-def init_chunk(cfg: LMConfig, batch: int, cap: int, device: DeviceLike = "cpu") -> Dict[str, Any]:
+def init_chunk(cfg: LMConfig, batch: int, cap: int, device: DeviceLike = None) -> Dict[str, Any]:
     """Decode chunk buffer: the cache layout, named for the role."""
     return init_cache(cfg, batch, cap, device)
 
@@ -365,7 +368,7 @@ class TransformerGenerator(Unit):
             moe_k=int(moe_k), quant=str(quant), kv_quant=str(kv_quant),
             n_kv_heads=int(n_kv_heads), rope=bool(rope), rope_base=float(rope_base),
         )
-        refuse_unported(self.cfg, str(weights_path))
+        refuse_unported(self.cfg)
         _greedy_only(float(temperature))
         if str(prefix_tokens).replace(" ", "").replace(",", ""):
             raise ValueError(
@@ -374,6 +377,7 @@ class TransformerGenerator(Unit):
             )
         # top_k / top_p shape sampled decoding only: greedy reads neither
         self.seed = int(seed)
+        self.weights_path = str(weights_path)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token = int(eos_token)
         self.device = resolve_device(device)
@@ -382,7 +386,8 @@ class TransformerGenerator(Unit):
     def init_state(self, rng: Optional[torch.Generator]):
         # the JAX unit's state also counts requests, for sampled decoding;
         # greedy decoding needs only the weights
-        return {"params": lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)}
+        params = lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
+        return {"params": load_lm_weights(params, self.weights_path)}
 
     def predict(self, state, X):
         prompt = sanitize_prompt(X, self.cfg.vocab)

@@ -51,11 +51,12 @@ def mlp_init(
     in_dim: int = INPUT_DIM,
     out_dim: int = NUM_CLASSES,
     dtype: torch.dtype = torch.bfloat16,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = None,
 ) -> Dict[str, torch.Tensor]:
     """He-initialised MLP parameters as a flat dict {w0, b0, ...}; W is
     [in, out] as in the JAX package.  Drawn on the CPU from ``rng`` (a CPU
-    ``torch.Generator``), then moved to ``device``."""
+    ``torch.Generator``), then moved to ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
     dims = [in_dim] + [hidden] * depth + [out_dim]
     params: Dict[str, torch.Tensor] = {}
     for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):

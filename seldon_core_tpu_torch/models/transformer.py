@@ -36,32 +36,53 @@ length the contract admits.  ``chip_smoke.py`` times the kernel against
 PyTorch's fused attention on the H100; a later change may set a gate from
 those numbers.
 
-Not ported yet (the units raise ``ValueError`` naming the ROADMAP item):
-int8 ``quant``, MoE layers, ``weights_path``, meshes and ring attention,
-training (``lm_loss`` / ``lm_train_step``) and the pipeline variant.
+Training: ``lm_loss`` (next-token cross-entropy) and ``lm_train_step``
+(one functional step: loss, ``torch.autograd.grad`` over the leaves, an
+optimizer update such as ``optim.adam``), as ``transformer.py:412-462``.
+On CUDA the attention's gradient comes from the two backward kernels
+through ``ops.flash_attention.FlashAttention``; ``resolve_train_flash``
+decides ``use_flash=None`` (the kernels where both the forward and the
+backward take the dtype and head dim, probed once; the plain attention on
+the CPU, as JAX's ``pallas_supported()`` answers there).  The kernels are
+bf16 only, so f32 training on CUDA takes the plain attention (logged).
+``save_lm_weights`` / ``load_lm_weights`` and the units' ``weights_path``
+carry trained weights to serving in the JAX package's ``.npz`` format.
+
+Not ported yet (the units and ``lm_train_step`` raise ``ValueError``
+naming the ROADMAP item): int8 ``quant``, MoE layers and their
+load-balance loss, meshes and ring attention, and the pipeline and sharded
+train steps.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
 from seldon_core_tpu_torch.graph.units import Unit, register_unit
 from seldon_core_tpu_torch.ops.flash_attention import (
+    bwd_kernel_shape_error,
     flash_attention,
     kernel_shape_error,
+    probe_bwd_kernel,
     probe_kernel,
     shape_contract_error,
 )
 from seldon_core_tpu_torch.ops.quant import lm_matmul
+from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
+from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["LMConfig", "lm_init", "lm_apply", "apply_rope", "gqa_attention",
-           "resolve_flash", "TransformerLM"]
+           "resolve_flash", "resolve_train_flash", "lm_loss", "lm_train_step",
+           "save_lm_weights", "load_lm_weights", "LB_LOSS_COEF", "TransformerLM"]
 
 logger = logging.getLogger(__name__)
 
@@ -120,7 +141,7 @@ class LMConfig:
         return self.d_model // self.n_heads
 
 
-def refuse_unported(cfg: LMConfig, weights_path: str) -> None:
+def refuse_unported(cfg: LMConfig) -> None:
     """ValueError for the LM options the port does not serve yet, naming
     the ROADMAP item that will port each."""
     if cfg.quant != "none" or cfg.kv_quant != "none":
@@ -133,12 +154,6 @@ def refuse_unported(cfg: LMConfig, weights_path: str) -> None:
         raise ValueError(
             f"moe_every={cfg.moe_every}: MoE layers are not ported yet "
             f"(ROADMAP Queue 1 item 5e)"
-        )
-    if weights_path:
-        raise ValueError(
-            f"weights_path={weights_path!r}: loading LM checkpoints is not "
-            f"ported yet (ROADMAP Queue 1 item 5e); carry weights across with "
-            f"convert.params_from_jax and EngineService.load_states"
         )
 
 
@@ -176,13 +191,14 @@ def _dense(rng: torch.Generator, shape, fan_in: int, dtype: torch.dtype) -> torc
             * (fan_in ** -0.5)).to(dtype)
 
 
-def lm_init(rng: torch.Generator, cfg: LMConfig, device: DeviceLike = "cpu") -> Dict[str, Any]:
+def lm_init(rng: torch.Generator, cfg: LMConfig, device: DeviceLike = None) -> Dict[str, Any]:
     """Parameters as ``lm_init`` lays them out, drawn on the CPU from
     ``rng`` (a CPU ``torch.Generator``) in the order embed, then per layer
-    wqkv, wo, w1, w2, and moved to ``device``.  The draws differ from
-    ``jax.random``'s; parity tests carry JAX weights across instead."""
+    wqkv, wo, w1, w2, and moved to ``device`` (default ``cuda``).  The
+    draws differ from ``jax.random``'s; parity tests carry JAX weights
+    across instead."""
     if cfg.moe_every > 0:
-        refuse_unported(cfg, "")
+        refuse_unported(cfg)
     dev = resolve_device(device)
     dt = cfg.dtype
     hd = cfg.head_dim
@@ -306,6 +322,115 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device) -> bool:
     return True
 
 
+@functools.lru_cache(maxsize=None)
+def _train_kernels(n_heads: int, n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                   device: torch.device) -> bool:
+    why = kernel_shape_error(head_dim, dtype) or bwd_kernel_shape_error(head_dim, dtype)
+    if why is not None:
+        logger.info("flash-attention kernels not used for training (%s); attention "
+                    "runs the plain path", why)
+        return False
+    probe_kernel(n_heads, n_kv_heads, head_dim, dtype, device)
+    probe_bwd_kernel(n_heads, n_kv_heads, head_dim, dtype, device)
+    return True
+
+
+def resolve_train_flash(cfg: LMConfig, device: torch.device) -> bool:
+    """``lm_loss``'s ``use_flash=None``: on CUDA the kernels when both the
+    forward and the backward take the config's dtype and head dim (asked,
+    and both probed, once per config and device; a missing nvcc or a
+    failing build raises), else the plain attention; on the CPU the plain
+    attention, as the JAX package's ``pallas_supported()`` answers off
+    the TPU."""
+    if device.type != "cuda":
+        return False
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _train_kernels(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
+
+
+#: weight of the MoE load-balance loss in ``lm_loss`` (``transformer.py:409``);
+#: dense configs have none, and MoE waits for ROADMAP Queue 1 item 5e
+LB_LOSS_COEF = 0.01
+
+
+def lm_loss(params, batch, cfg: LMConfig, use_flash: Optional[bool] = None):
+    """Next-token cross-entropy, f32 scalar; ``batch = {"tokens": [B,
+    S+1]}``: the mean over positions of ``-log_softmax(logits)`` at the next
+    token, as ``transformer.py:412-442``.  ``use_flash=None`` asks
+    ``resolve_train_flash``."""
+    if cfg.moe_every > 0:
+        refuse_unported(cfg)
+    tokens = batch["tokens"]
+    if use_flash is None:
+        use_flash = resolve_train_flash(cfg, params["embed"].device)
+    logits = lm_apply(params, tokens[:, :-1], cfg, use_flash=use_flash)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+    return nll.mean()
+
+
+def _grad_update(loss_fn: Callable, params, opt_state, batch, optimizer):
+    """(params', opt_state', loss): the loss and its gradient over every
+    leaf, the optimizer's updates, ``p + u`` in each param's dtype.
+    Functional, as in JAX: the inputs are not changed."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = loss_fn(live, batch)
+    grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(live)))
+    updates, opt_state = optimizer.update(grads, opt_state, params)
+    params = tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+    return params, opt_state, loss.detach()
+
+
+def lm_train_step(params, opt_state, batch, optimizer, cfg: LMConfig,
+                  use_flash: Optional[bool] = None):
+    """One training step, ``transformer.py:452-462`` on one device:
+    returns (params, opt_state, loss)."""
+    if cfg.quant != "none":
+        # int8 weights are not differentiable: quantization is a serving
+        # transform, applied after training
+        raise ValueError("lm_train_step requires quant='none'")
+    return _grad_update(lambda p, b: lm_loss(p, b, cfg, use_flash=use_flash),
+                        params, opt_state, batch, optimizer)
+
+
+def save_lm_weights(params, path: str) -> str:
+    """Checkpoint an ``lm_init``-shaped params tree to one ``.npz`` in the
+    JAX package's flat-pytree format: the train -> serve hand-off."""
+    return save_state_to_path(path, params)
+
+
+def load_lm_weights(params, path: str):
+    """Trained weights onto a freshly initialised params tree (the
+    ``weights_path`` unit parameter), cast to the serving config's dtypes
+    on its device.  Strict, with the JAX package's messages: a missing
+    file, a checkpoint whose keys do not cover the serving config's tree,
+    or a shape mismatch raises at load time."""
+    if not path:
+        return params
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"weights_path {path!r} does not exist")
+    with np.load(path) as data:
+        flat = dict(data)
+    want = {key: tuple(leaf.shape) for key, leaf in leaves_with_paths(params)}
+    missing = sorted(set(want) - set(flat))
+    if missing:
+        raise ValueError(
+            f"weights_path {path!r} does not cover the serving config: "
+            f"{len(missing)} missing leaves (first: {missing[0]}); is the "
+            f"checkpoint from a different architecture, or a unit-STATE "
+            f"snapshot rather than save_lm_weights params?"
+        )
+    bad = [(k, flat[k].shape, want[k]) for k in want if tuple(flat[k].shape) != want[k]]
+    if bad:
+        k, got, exp = bad[0]
+        raise ValueError(
+            f"weights_path {path!r} shape mismatch at {k}: checkpoint "
+            f"{got} vs serving config {exp} (+{len(bad) - 1} more)"
+        )
+    return state_from_host(flat, params)
+
+
 def seeded_generator(rng: Optional[torch.Generator], seed: int) -> torch.Generator:
     """The unit's CPU generator: the graph's seed folded with the unit's,
     so two units with different seeds differ under one graph seed."""
@@ -318,7 +443,9 @@ def seeded_generator(rng: Optional[torch.Generator], seed: int) -> torch.Generat
 @register_unit("TransformerLM")
 class TransformerLM(Unit):
     """Serving unit: next-token logits [B, S, V] f32 for token rows,
-    registered under the JAX unit's name with its parameters."""
+    registered under the JAX unit's name with its parameters.  A
+    ``weights_path`` is loaded over the seeded weights in ``init_state``
+    (``load_lm_weights``), as the JAX unit does."""
 
     def __init__(
         self,
@@ -347,13 +474,15 @@ class TransformerLM(Unit):
             moe_k=int(moe_k), quant=str(quant), n_kv_heads=int(n_kv_heads),
             rope=bool(rope), rope_base=float(rope_base),
         )
-        refuse_unported(self.cfg, str(weights_path))
+        refuse_unported(self.cfg)
+        self.weights_path = str(weights_path)
         self.seed = int(seed)
         self.device = resolve_device(device)
         self.use_flash = resolve_flash(str(attention), self.cfg, self.device)
 
     def init_state(self, rng):
-        return lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
+        params = lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
+        return load_lm_weights(params, self.weights_path)
 
     def predict(self, state, X):
         return lm_apply(state, X.to(torch.int32), self.cfg, use_flash=self.use_flash)

@@ -4,8 +4,10 @@
                    replaces the Pallas kernel of
                    seldon_core_tpu/ops/fused_mlp.py
   flash_attention  flash-attention forward with log-sum-exp (CUDA C++,
-                   csrc/flash_attention.cu); replaces the forward Pallas
-                   kernel of seldon_core_tpu/ops/flash_attention.py
+                   csrc/flash_attention.cu) and its backward, dQ and dK/dV
+                   (csrc/flash_attention_bwd.cu), behind a
+                   torch.autograd.Function; replaces the three Pallas
+                   kernels of seldon_core_tpu/ops/flash_attention.py
   quant            lm_matmul, the LM layer matmul (dense only; no kernel)
   _build           nvcc build at first use + ctypes binding
 """

@@ -8,11 +8,12 @@ for Hopper:
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/lib<name>-<hash>.so
 
 into ``build/torch_kernels/`` at the root of the checkout, keyed by a hash
-of the source and the flags, under a file lock so two processes never
-build the same library at once.  Nothing is built at import: the first
-call that needs a kernel builds it (a unit's construction, which probes
-its kernel, or a launch).  ``build_all`` starts one nvcc per source, all
-at once.  Only sources in this package are built.
+of the source, the shared headers ``csrc/*.cuh`` and the flags, under a
+file lock so two processes never build the same library at once.
+Nothing is built at import: the first call that needs a kernel builds it
+(a unit's construction, which probes its kernel, or a launch).
+``build_all`` starts one nvcc per source, all at once.  Only sources in
+this package are built.
 """
 
 from __future__ import annotations
@@ -86,8 +87,11 @@ def build_all(names: Sequence[str]) -> None:
 
 def _build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    # the shared headers are part of every library's key: an edit to one
+    # rebuilds each source that may include it
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     info = {"path": str(out), "seconds": 0.0, "ptxas": ""}

@@ -39,26 +39,17 @@
 // pipelining or producer warp yet.
 //
 // Interface: plain C functions loaded with ctypes (no PyTorch headers).
+// The tile shape, the mma.sync helpers and the shape rules are shared with
+// the backward kernels (flash_common.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 #include <atomic>
 #include <cmath>
-#include <cstdint>
-#include <cstdio>
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // key rows per K/V tile
-constexpr int NWARPS = 4;              // 16 query rows each
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;                 // bf16 row padding: spreads banks
-constexpr int MAX_D = 256;
-constexpr int SMEM_LIMIT = 232448;     // 227 KB opt-in per block on sm_90
-constexpr float NEG_INF = -1e30f;      // the TPU kernel's mask value
-constexpr int DTYPE_BF16 = 0;          // dtype codes of the wrapper
+using namespace flash;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -72,51 +63,7 @@ struct Params {
   int causal;
 };
 
-// the instantiated tile width for a head dim: the smallest of 64, 128, 256
-// that holds it
-inline int tile_width(int D) { return D <= 64 ? 64 : (D <= 128 ? 128 : 256); }
-
-inline int smem_for(int DT) { return 3 * BQ * (DT + PAD) * 2; }  // Q, K, V tiles
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// d += a(16x16, row) * b(16x8, col), bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// 64 rows of width D (row stride `stride` elements, 16-byte aligned rows)
-// into a [64][DT + PAD] shared tile; columns D..DT-1 are zeros
-template <int DT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long stride, int D) {
-  constexpr int LD = DT + PAD;
-  constexpr int CH = DT / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * CH; i += NTHREADS) {
-    const int r = i / CH;
-    const int c = (i - r * CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (c < D) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
+inline int smem_for(int DT) { return 3 * tile_bytes(DT); }  // Q, K, V tiles
 
 template <int DT>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
@@ -269,26 +216,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   }
 }
 
-// The one statement of which shapes and types the kernel takes, for the
+// Which shapes and types the kernel takes (flash_common.cuh), for the
 // launch and for flash_attention_smem_bytes (which the Python wrapper asks
 // before it picks the kernel).  Returns the dynamic shared memory in bytes,
 // or -1 with the reason in why (why may be null when why_len is 0).
 int plan(int head_dim, int seq_len, int dtype_code, char* why, int why_len) {
-  if (dtype_code != DTYPE_BF16) {
-    snprintf(why, why_len, "the flash-attention kernel takes bfloat16 q/k/v only");
-    return -1;
-  }
-  if (head_dim < 16 || head_dim > MAX_D || head_dim % 16 != 0) {
-    snprintf(why, why_len,
-             "head dim %d: the flash-attention kernel takes a multiple of 16 up to %d",
-             head_dim, MAX_D);
-    return -1;
-  }
-  if (seq_len < BQ || seq_len % BQ != 0 || seq_len / BQ > 65535) {
-    snprintf(why, why_len, "seq len %d: the flash-attention kernel takes a multiple of %d",
-             seq_len, BQ);
-    return -1;
-  }
+  if (!shape_ok(head_dim, seq_len, dtype_code, why, why_len)) return -1;
   const int smem = smem_for(tile_width(head_dim));
   if (smem > SMEM_LIMIT) {
     snprintf(why, why_len, "flash attention needs %d KiB shared memory (budget %d KiB)",
@@ -299,7 +232,6 @@ int plan(int head_dim, int seq_len, int dtype_code, char* why, int why_len) {
 }
 
 // per tile width (64, 128, 256) and device: the shared-memory opt-in is set
-constexpr int MAX_DEVICES = 64;
 std::atomic<bool> g_smem_set[3][MAX_DEVICES];
 
 }  // namespace
@@ -342,7 +274,7 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void
   p.causal = causal ? 1 : 0;
 
   const int DT = tile_width(D);
-  const int which = DT == 64 ? 0 : (DT == 128 ? 1 : 2);
+  const int which = width_index(DT);
   void (*kernel)(const Params) =
       which == 0 ? flash_fwd_kernel<64> : (which == 1 ? flash_fwd_kernel<128> : flash_fwd_kernel<256>);
   int dev = 0;

@@ -1,4 +1,5 @@
-"""Flash-attention forward — the prefill attention of the LM units on Hopper.
+"""Flash attention on Hopper — the prefill attention of the LM units and,
+with its backward, the attention of training.
 
     o = softmax(q k^T / sqrt(D)) v,   lse = logsumexp(q k^T / sqrt(D))
 
@@ -7,34 +8,53 @@ query attention is native: K/V are never repeated), o ``[B, H, S, D]`` in
 q's dtype and the per-row log-sum-exp ``lse`` ``[B*H, S, 1]`` float32, the
 layout of the JAX package.
 
-Replaces the Pallas TPU kernel ``seldon_core_tpu/ops/flash_attention.py``
-(``_fwd_impl`` :136, kernel body ``_flash_kernel`` :56, ``pallas_call``
-:177) with the hand-written CUDA kernel ``ops/csrc/flash_attention.cu`` for
-sm_90a, which computes the same arithmetic in the same order: f32 scores,
-causal masking by global position with -1e30, an online softmax whose
-``p`` is cast to V's dtype before the PV product, ``acc / max(l, 1e-30)``.
-Only the forward is ported; the backward kernels come with training.
+Replaces the three Pallas TPU kernels of
+``seldon_core_tpu/ops/flash_attention.py`` with hand-written CUDA kernels
+for sm_90a that compute the same arithmetic and round at the same places:
+
+  forward   ``_fwd_impl`` :136 (``_flash_kernel`` :56, ``pallas_call``
+            :177) -> ``ops/csrc/flash_attention.cu``: f32 scores, causal
+            masking by global position with -1e30, an online softmax whose
+            ``p`` is cast to V's dtype before the PV product,
+            ``acc / max(l, 1e-30)``;
+  backward  ``_bwd_impl`` :303 (``_bwd_dq_kernel`` :208, ``pallas_call``
+            :331; ``_bwd_dkv_kernel`` :252, ``pallas_call`` :349) ->
+            ``ops/csrc/flash_attention_bwd.cu``: p recomputed as
+            exp(s - lse), ``p`` cast to dO's dtype before P^T dO, ds =
+            p (dp - dsum) in f32 cast to K's/Q's dtype before dS K and
+            dS^T Q, the scale after the f32 products; two kernels, no
+            atomics.  The GQA adjoint (``_flash_bwd`` :397-413) is native
+            too: the dK/dV kernel sums a kv head's query heads in f32.
 
 Bound on an H100 SXM: at the served prefill (B=32, H=16, KV=4, S=512,
-D=64, bf16) the call moves ~85 MB, ~25 us at 3.35 TB/s, against 17.2
-GFLOP, ~17 us at 989 TFLOP/s, so it is bound by the bytes.  The kernel
-keeps the [S, S] scores out of device memory and streams each kv head's
-K/V once per query tile; see the source for the layout.
+D=64, bf16) the forward moves ~85 MB, ~25 us at 3.35 TB/s, against 17.2
+GFLOP, ~17 us at 989 TFLOP/s, so it is bound by the bytes; the backward's
+bounds are in its source.  The kernels keep the [S, S] scores out of
+device memory and stream each kv head's K/V at its stored size.
 
-``flash_attention`` / ``flash_attention_fwd`` first hold the inputs to the
-JAX package's shape contract (``_validate``, the same messages).  A CUDA
-tensor then launches the kernel or raises: what the kernel cannot take
-(a dtype other than bf16, a head dim that is not a multiple of 16) is a
-``ValueError`` from a static check before any launch, and those kernel-
-only limits are the source's to state (``flash_attention_smem_bytes``,
-asked through ``kernel_shape_error``).  The kernel takes q/k/v by strides
+``flash_attention`` goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward is ``flash_attention_fwd`` and
+whose backward is ``flash_attention_bwd``, as ``jax.custom_vjp`` wraps the
+TPU kernels: on the CPU the plain forward runs without a graph and the
+gradient comes from the plain *backward*, not from autograd of the plain
+forward.  Every entry point first holds the inputs to the JAX package's
+shape contract (``_validate``, the same messages).  A CUDA tensor then
+launches the kernel or raises: what the kernels cannot take (a dtype other
+than bf16, a head dim that is not a multiple of 16) is a ``ValueError``
+from a static check before any launch, and those kernel-only limits are
+the sources' to state (``flash_attention_smem_bytes`` and
+``flash_attention_bwd_smem_bytes``, asked through ``kernel_shape_error``
+and ``bwd_kernel_shape_error``).  The kernels take q/k/v/dO by strides
 (unit stride along D), so the strided head views of the LM blocks need no
 copy; a tensor whose rows are not 16-byte aligned is made contiguous
-first.  A CPU tensor runs ``flash_attention_reference``, the plain
-PyTorch version the tests and ``chip_smoke.py`` hold the kernel against;
-nothing on the CUDA path calls it.  ``LAUNCHES`` counts kernel launches
-and nothing else.  ``probe_kernel`` builds the library and launches once,
-so a unit finds a missing compiler or a failing build when it is built.
+first.  A CPU tensor runs the plain PyTorch versions
+(``flash_attention_reference``, ``flash_attention_bwd_reference``) that
+the tests and ``chip_smoke.py`` hold the kernels against; nothing on the
+CUDA path calls them.  ``LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES``
+count kernel launches and nothing else.  ``probe_kernel`` and
+``probe_bwd_kernel`` build a library and launch once, so a unit or a
+training run finds a missing compiler or a failing build before it
+starts.
 """
 
 from __future__ import annotations
@@ -45,21 +65,32 @@ from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from seldon_core_tpu_torch.ops._build import load_library
 
 __all__ = [
     "LAUNCHES",
+    "DQ_LAUNCHES",
+    "DKV_LAUNCHES",
+    "FlashAttention",
     "flash_attention",
     "flash_attention_fwd",
+    "flash_attention_bwd",
     "flash_attention_reference",
+    "flash_attention_bwd_reference",
     "shape_contract_error",
     "kernel_shape_error",
+    "bwd_kernel_shape_error",
     "probe_kernel",
+    "probe_bwd_kernel",
 ]
 
-#: kernel launches since import (or since a caller last reset it to 0)
+#: forward kernel launches since import (or since a caller last reset it to 0)
 LAUNCHES = 0
+#: dQ and dK/dV kernel launches, likewise
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 _BLOCK = 128       # the JAX contract: S divisible by 128
@@ -118,6 +149,64 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def _dsum(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * o) in f32, [B, H, S] contiguous: the term ``_bwd_impl``
+    computes in XLA outside the TPU kernels (:316-319)."""
+    return torch.sum(do.float() * o.float(), dim=-1)
+
+
+def _probs(q, k, lse, causal: bool) -> torch.Tensor:
+    """p = exp(s - lse), [B, H, S, S] f32, with K/V at the query heads."""
+    B, H, S, D = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / (D ** 0.5))
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], _NEG_INF)
+    return torch.exp(s - lse.reshape(B, H, S, 1))
+
+
+def _dq_reference(q, k, v, do, lse, dsum, causal: bool) -> torch.Tensor:
+    """``_bwd_dq_kernel`` over whole rows, K/V at the query heads: dQ =
+    (bf16(ds) k) * scale, ds = p (dO v^T - dsum) in f32."""
+    p = _probs(q, k, lse, causal)
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - dsum[..., None])
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * (1.0 / (q.shape[-1] ** 0.5))
+    return dq.to(q.dtype)
+
+
+def _dkv_reference(q, k, v, do, lse, dsum, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_bwd_dkv_kernel`` over whole rows, K/V at the query heads: dV =
+    bf16(p)^T dO, dK = (bf16(ds)^T q) * scale, each in K's/V's dtype."""
+    p = _probs(q, k, lse, causal)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - dsum[..., None])
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * (
+        1.0 / (q.shape[-1] ** 0.5))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch backward, on any device: (dq, dk, dv).  Mirrors
+    ``_bwd_impl`` and the GQA adjoint of ``_flash_bwd``: K/V repeated over
+    the group, the MHA backward, each query head's dK/dV rounded to K's/V's
+    dtype, the group summed in f32 and cast."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    g = H // KV
+    dsum = _dsum(o, do)
+    krep = k.repeat_interleave(g, dim=1) if g > 1 else k
+    vrep = v.repeat_interleave(g, dim=1) if g > 1 else v
+    dq = _dq_reference(q, krep, vrep, do, lse, dsum, causal)
+    dk, dv = _dkv_reference(q, krep, vrep, do, lse, dsum, causal)
+    if g > 1:
+        dk = dk.float().reshape(B, KV, g, S, D).sum(dim=2).to(k.dtype)
+        dv = dv.float().reshape(B, KV, g, S, D).sum(dim=2).to(v.dtype)
+    return dq, dk, dv
+
+
 _bind_lock = threading.Lock()
 _lib: Optional[SimpleNamespace] = None
 
@@ -143,21 +232,58 @@ def _library() -> SimpleNamespace:
         return _lib
 
 
-def _smem_bytes(head_dim: int, seq_len: int, dtype: torch.dtype) -> Tuple[int, Optional[str]]:
-    """(dynamic shared memory the kernel asks for, None), or (-1, why not),
-    from ``flash_attention_smem_bytes`` in the .cu."""
+_bwd_lib: Optional[SimpleNamespace] = None
+
+
+def _bwd_library() -> SimpleNamespace:
+    """The backward library's entry points, built and bound at first use."""
+    global _bwd_lib
+    with _bind_lock:
+        if _bwd_lib is None:
+            lib = load_library("flash_attention_bwd")
+            dq = lib.flash_attention_bwd_dq_launch
+            dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p, ctypes.c_void_p]
+            dq.restype = ctypes.c_int
+            dkv = lib.flash_attention_bwd_dkv_launch
+            dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p, ctypes.c_void_p]
+            dkv.restype = ctypes.c_int
+            smem = lib.flash_attention_bwd_smem_bytes
+            smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_int]
+            smem.restype = ctypes.c_int
+            err = lib.flash_attention_bwd_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _bwd_lib = SimpleNamespace(dq=dq, dkv=dkv, smem_bytes=smem, error_string=err)
+        return _bwd_lib
+
+
+def _smem_bytes(head_dim: int, seq_len: int, dtype: torch.dtype,
+                bwd: bool = False) -> Tuple[int, Optional[str]]:
+    """(dynamic shared memory the forward, or with ``bwd`` the backward,
+    asks for, None), or (-1, why not), from ``flash_attention_smem_bytes``
+    / ``flash_attention_bwd_smem_bytes`` in the sources."""
     why = ctypes.create_string_buffer(256)
     dtype_code = 0 if dtype == torch.bfloat16 else -1  # the .cu's codes: 0 = bfloat16
-    n = _library().smem_bytes(int(head_dim), int(seq_len), dtype_code,
-                              ctypes.addressof(why), len(why))
+    lib = _bwd_library() if bwd else _library()
+    n = lib.smem_bytes(int(head_dim), int(seq_len), dtype_code, ctypes.addressof(why), len(why))
     return n, (why.value.decode() if n < 0 else None)
 
 
 def kernel_shape_error(head_dim: int, dtype: torch.dtype, seq_len: int = _BLOCK) -> Optional[str]:
-    """Why the kernel cannot take this head dim, dtype and sequence length
-    (any length the JAX contract admits, by default), or None.  Asks the
-    kernel source (nvcc needed); units call it at construction."""
+    """Why the forward kernel cannot take this head dim, dtype and sequence
+    length (any length the JAX contract admits, by default), or None.  Asks
+    the kernel source (nvcc needed); units call it at construction."""
     return _smem_bytes(head_dim, seq_len, dtype)[1]
+
+
+def bwd_kernel_shape_error(head_dim: int, dtype: torch.dtype,
+                           seq_len: int = _BLOCK) -> Optional[str]:
+    """The same question for the two backward kernels (their source takes
+    what the forward takes)."""
+    return _smem_bytes(head_dim, seq_len, dtype, bwd=True)[1]
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
@@ -168,15 +294,28 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t if aligned else t.contiguous()
 
 
-def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    global LAUNCHES
-    B, H, S, D = q.shape
-    KV = k.shape[1]
-    for name, t in (("k", k), ("v", v)):
+def _same_device_and_dtype(q, **others) -> None:
+    for name, t in others.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} differs from q dtype {q.dtype}")
+
+
+def _count(counter: str) -> None:
+    with _LAUNCH_LOCK:
+        globals()[counter] += 1
+
+
+def _raise_launch_error(what: str, rc: int, lib: SimpleNamespace) -> None:
+    raise RuntimeError(
+        f"{what} kernel launch failed: CUDA error {rc} ({lib.error_string(rc).decode()})")
+
+
+def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    _same_device_and_dtype(q, k=k, v=v)
     why = kernel_shape_error(D, q.dtype, S)
     if why is not None:
         raise ValueError(why)
@@ -193,13 +332,49 @@ def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
                         lse.data_ptr(), B, H, KV, S, D, int(bool(causal)),
                         ctypes.addressof(strides), stream)
     if rc != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {rc} "
-            f"({lib.error_string(rc).decode()})"
-        )
-    with _LAUNCH_LOCK:
-        LAUNCHES += 1
+        _raise_launch_error("flash_attention", rc, lib)
+    _count("LAUNCHES")
     return o, lse
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    _same_device_and_dtype(q, k=k, v=v, o=o, do=do)
+    if do.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"o/dO shapes {tuple(o.shape)} {tuple(do.shape)} != q {tuple(q.shape)}")
+    if lse.device != q.device or lse.dtype != torch.float32 or lse.numel() != B * H * S:
+        raise ValueError(f"lse must be [B*H, S, 1] float32 on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    why = bwd_kernel_shape_error(D, q.dtype, S)
+    if why is not None:
+        raise ValueError(why)
+    dsum = _dsum(o, do)
+    lse = lse.contiguous()
+    q, k, v, do = _kernel_view(q), _kernel_view(k), _kernel_view(v), _kernel_view(do)
+    dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KV, S, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, KV, S, D), dtype=v.dtype, device=q.device)
+    if B == 0:
+        return dq, dk, dv
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *do.stride()[:3])
+    lib = _bwd_library()
+    shape = (B, H, KV, S, D, int(bool(causal)), ctypes.addressof(strides))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           dsum.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dq(*ins, dq.data_ptr(), *shape, stream)
+        if rc != 0:
+            _raise_launch_error("flash_attention dQ", rc, lib)
+        _count("DQ_LAUNCHES")
+        rc = lib.dkv(*ins, dk.data_ptr(), dv.data_ptr(), *shape, stream)
+        if rc != 0:
+            _raise_launch_error("flash_attention dK/dV", rc, lib)
+        _count("DKV_LAUNCHES")
+    return dq, dk, dv
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -215,12 +390,49 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, causal)
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``o = flash_attention(q, k, v)`` for the cotangent
+    ``do``, from the forward's ``o`` and ``lse``: ``_flash_bwd``'s result.
+    A CUDA q launches the dQ and then the dK/dV kernel or raises; a CPU q
+    runs the plain version."""
+    _validate(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention takes cpu or cuda tensors, got {q.device}")
+    return _launch_bwd(q, k, v, o, lse, do, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward, as ``jax.custom_vjp`` wraps
+    the TPU kernels: the forward saves (q, k, v, o, lse) and the backward
+    is ``flash_attention_bwd`` (the kernels on CUDA, the plain backward on
+    the CPU).  Not twice differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q [B, H, S, D], k/v [B, KV, S, D] (KV divides H) -> [B, H, S, D].
-    Constraints (ValueError otherwise): S divisible by 128, D <= 256, H a
-    multiple of KV; on CUDA also what the kernel takes."""
-    return flash_attention_fwd(q, k, v, causal)[0]
+    """q [B, H, S, D], k/v [B, KV, S, D] (KV divides H) -> [B, H, S, D],
+    differentiable through ``FlashAttention``.  Constraints (ValueError
+    otherwise): S divisible by 128, D <= 256, H a multiple of KV; on CUDA
+    also what the kernels take."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def probe_kernel(n_heads: int, n_kv_heads: int, head_dim: int, dtype: torch.dtype,
@@ -240,3 +452,26 @@ def probe_kernel(n_heads: int, n_kv_heads: int, head_dim: int, dtype: torch.dtyp
         raise RuntimeError(
             f"flash_attention probe at heads {n_heads}/{n_kv_heads}, head dim {head_dim} "
             f"answered o max {float(o.abs().max())}, lse {lse[0, :4].tolist()}...")
+
+
+def probe_bwd_kernel(n_heads: int, n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                     device: torch.device) -> None:
+    """Build the backward library and launch both kernels once at the head
+    shape with S=128 on a CUDA ``device``, for the cotangent dO = 1 of
+    attention over zeros (uniform causal p, o = 0): dQ and dK must be 0
+    and dV must equal the plain backward's; raise otherwise."""
+    q = torch.zeros(1, n_heads, _BLOCK, head_dim, dtype=dtype, device=device)
+    kv = torch.zeros(1, n_kv_heads, _BLOCK, head_dim, dtype=dtype, device=device)
+    lse = torch.log(torch.arange(1, _BLOCK + 1, dtype=torch.float32, device=device))
+    lse = lse.repeat(n_heads).reshape(n_heads, _BLOCK, 1)
+    do = torch.ones_like(q)
+    dq, dk, dv = flash_attention_bwd(q, kv, kv, q, lse, do, causal=True)
+    want = flash_attention_bwd_reference(q, kv, kv, q, lse, do, causal=True)[2].float()
+    dv_err = float((dv.float() - want).abs().max())
+    # both round the same f32 sums to bf16, summed in another order: an ulp
+    ulp = 2.0 ** -7 * float(want.abs().max())
+    if bool(dq.abs().max().cpu() != 0) or bool(dk.abs().max().cpu() != 0) or dv_err > ulp:
+        raise RuntimeError(
+            f"flash_attention backward probe at heads {n_heads}/{n_kv_heads}, head dim "
+            f"{head_dim} answered dq max {float(dq.abs().max())}, dk max "
+            f"{float(dk.abs().max())}, dv error {dv_err}")

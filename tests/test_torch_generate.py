@@ -20,7 +20,9 @@ from seldon_core_tpu.models.transformer import lm_init as jax_lm_init
 from seldon_core_tpu_torch.convert import params_from_jax
 from seldon_core_tpu_torch.graph.defaulting import default_and_validate
 from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+from seldon_core_tpu_torch.models.mnist import mlp_init
 from seldon_core_tpu_torch.models.transformer import LMConfig as TConfig
+from seldon_core_tpu_torch.models.transformer import lm_init as ttr_lm_init
 from seldon_core_tpu_torch.runtime.engine import EngineService
 
 # the modules themselves: the packages re-export functions of the same names
@@ -78,7 +80,7 @@ def test_prefill_matches(S, jax_flash_interpret):
         jp, jnp.asarray(prompt), jgen.init_cache(JCFG, 2, S + 3), JCFG,
         "force" if use_flash else False)
     got_logits, got_cache = tgen.prefill(
-        tp, torch.from_numpy(prompt), tgen.init_cache(TCFG, 2, S + 3), TCFG, use_flash=use_flash)
+        tp, torch.from_numpy(prompt), tgen.init_cache(TCFG, 2, S + 3, "cpu"), TCFG, use_flash=use_flash)
     # f32 through two layers, sums in another order
     np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits), atol=1e-4, rtol=1e-4)
     _assert_cache_close(got_cache, want_cache)
@@ -91,8 +93,8 @@ def test_decode_step_two_tier_and_merge_chunk_match():
     _, jmain = jax.jit(jgen.prefill, static_argnums=(3,))(
         jp, jnp.asarray(prompt), jgen.init_cache(JCFG, 2, S + C), JCFG)
     jstep = jax.jit(jgen.decode_step_two_tier, static_argnums=(6,))
-    _, tmain = tgen.prefill(tp, torch.from_numpy(prompt), tgen.init_cache(TCFG, 2, S + C), TCFG)
-    jchunk, tchunk = jgen.init_chunk(JCFG, 2, C), tgen.init_chunk(TCFG, 2, C)
+    _, tmain = tgen.prefill(tp, torch.from_numpy(prompt), tgen.init_cache(TCFG, 2, S + C, "cpu"), TCFG)
+    jchunk, tchunk = jgen.init_chunk(JCFG, 2, C), tgen.init_chunk(TCFG, 2, C, "cpu")
     token = np.array([3, 7], np.int32)
     for used in range(3):  # three steps: main not full (masked), chunk growing
         jl, jchunk = jstep(jp, jnp.asarray(token), jmain, jchunk, S, used, JCFG)
@@ -112,7 +114,7 @@ def test_single_tier_decode_step_matches():
     prompt = _prompt((2, S), 4)
     _, jcache = jax.jit(jgen.prefill, static_argnums=(3,))(
         jp, jnp.asarray(prompt), jgen.init_cache(JCFG, 2, S + 2), JCFG)
-    _, tcache = tgen.prefill(tp, torch.from_numpy(prompt), tgen.init_cache(TCFG, 2, S + 2), TCFG)
+    _, tcache = tgen.prefill(tp, torch.from_numpy(prompt), tgen.init_cache(TCFG, 2, S + 2, "cpu"), TCFG)
     token = np.array([1, 9], np.int32)
     jl, jcache = jax.jit(jgen.decode_step, static_argnums=(4,))(
         jp, jnp.asarray(token), jcache, S, JCFG)
@@ -168,12 +170,36 @@ def test_eos_masking_and_prompt_clamping():
     ({"quant": "int8"}, "item 2"),
     ({"kv_quant": "int8"}, "item 2"),
     ({"moe_every": 2}, "item 5e"),
-    ({"weights_path": "/nonexistent.npz"}, "item 5e"),
     ({"attention": "ring"}, "not supported"),
 ])
 def test_constructor_refuses_what_is_not_served(kw, match):
     with pytest.raises(ValueError, match=match):
         tgen.TransformerGenerator(**DIMS, dtype="float32", device="cpu", **kw)
+
+
+def test_missing_weights_path_raises_the_jax_message_at_init_state(tmp_path):
+    path = str(tmp_path / "nonexistent.npz")
+    unit = tgen.TransformerGenerator(**DIMS, dtype="float32", device="cpu", weights_path=path)
+    junit = jgen.TransformerGenerator(**DIMS, dtype="float32", weights_path=path)
+    with pytest.raises(FileNotFoundError) as want:
+        junit.init_state(jax.random.key(0))
+    with pytest.raises(FileNotFoundError) as got:
+        unit.init_state(None)
+    assert str(got.value) == str(want.value) == f"weights_path {path!r} does not exist"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: ttr_lm_init(torch.Generator().manual_seed(0), TCFG),
+    lambda: tgen.init_cache(TCFG, 1, 8),
+    lambda: tgen.init_chunk(TCFG, 1, 8),
+    lambda: mlp_init(torch.Generator().manual_seed(0), hidden=16),
+], ids=["lm_init", "init_cache", "init_chunk", "mlp_init"])
+def test_init_functions_default_to_cuda(make, monkeypatch):
+    """Without a device they ask resolve_device for cuda, and raise its
+    error where CUDA is absent instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
 
 
 def test_engine_serves_the_example_deployment_like_the_jax_unit():

@@ -1,6 +1,7 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py, imports JAX or anything of the JAX package, and the port
-serves the MNIST and generator examples with both blocked."""
+serves the MNIST and generator examples, takes a training step and
+round-trips a checkpoint with both blocked."""
 
 import ast
 import os
@@ -19,7 +20,11 @@ def _blocked(name: str) -> bool:
 
 def _port_files():
     files = sorted((ROOT / "seldon_core_tpu_torch").rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 18
+    # the training slice's modules are scanned with the rest
+    names = {str(f.relative_to(ROOT / "seldon_core_tpu_torch")) for f in files}
+    assert {"optim.py", "tree.py", "runtime/persistence.py",
+            "ops/flash_attention.py", "models/transformer.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -78,11 +83,23 @@ gen_text, gen_status = asyncio.run(gen.predict_json(
     json.dumps({"data": {"ndarray": [list(range(128))]}})))
 gen.close()
 gen_rows = json.loads(gen_text)["data"]["ndarray"]
+import os, tempfile
+from seldon_core_tpu_torch.models import transformer as T
+from seldon_core_tpu_torch.optim import adam
+cfg = T.LMConfig(vocab=32, d_model=32, n_heads=2, n_layers=1, d_ff=64)
+params = T.lm_init(torch.Generator().manual_seed(0), cfg, "cpu")
+opt = adam(1e-3)
+params, _, loss = T.lm_train_step(params, opt.init(params),
+                                  {"tokens": torch.randint(0, 32, (2, 129))}, opt, cfg)
+path = T.save_lm_weights(params, os.path.join(tempfile.mkdtemp(), "w.npz"))
+back = T.load_lm_weights(T.lm_init(torch.Generator().manual_seed(1), cfg, "cpu"), path)
+trained = bool(torch.isfinite(loss)) and all(
+    torch.equal(back[k], params[k]) for k in ("embed", "ln_f"))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
-                  "leaked": leaked}))
+                  "trained": trained, "leaked": leaked}))
 """
 
 
@@ -94,4 +111,5 @@ def test_port_serves_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == (
-        '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], "leaked": []}')
+        '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], "trained": true, '
+        '"leaked": []}')

@@ -134,8 +134,8 @@ def test_unit_rejects_wrong_feature_width():
 
 
 def test_mlp_init_is_seeded_and_he_scaled():
-    a = mlp_init(torch.Generator().manual_seed(7), hidden=64, depth=2)
-    b = mlp_init(torch.Generator().manual_seed(7), hidden=64, depth=2)
+    a = mlp_init(torch.Generator().manual_seed(7), hidden=64, depth=2, device="cpu")
+    b = mlp_init(torch.Generator().manual_seed(7), hidden=64, depth=2, device="cpu")
     assert sorted(a) == ["b0", "b1", "b2", "w0", "w1", "w2"]
     assert [tuple(a[f"w{i}"].shape) for i in range(3)] == [(784, 64), (64, 64), (64, 10)]
     for k in a:

@@ -1,0 +1,159 @@
+"""The port's training path (seldon_core_tpu_torch/optim.py ``adam`` and
+models/transformer.py ``lm_loss`` / ``lm_train_step``) against the JAX
+package's ``lm_loss`` / ``lm_train_step`` with ``optax.adam``, on the same
+weights (carried across with convert.params_from_jax) and the same token
+batches (numpy, from a seed), in f32 on the CPU."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from seldon_core_tpu.models import transformer as jtr
+from seldon_core_tpu_torch.convert import params_from_jax
+from seldon_core_tpu_torch.models import transformer as ttr
+from seldon_core_tpu_torch.optim import adam
+from seldon_core_tpu_torch.tree import leaves_with_paths
+
+# the module itself: the package re-exports a function of the same name
+jfa = importlib.import_module("seldon_core_tpu.ops.flash_attention")
+
+GQA = dict(vocab=64, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=128)
+MHA = dict(vocab=64, d_model=64, n_heads=2, n_layers=1, d_ff=128)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # tier-1 runs under several xdist workers: keep torch's CPU pool small
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def jax_flash_interpret(monkeypatch):
+    """The JAX package's attention through its flash kernel in interpret
+    mode at any length, as tests/test_flash_attention.py:120-138 forces it
+    (the JAX package's own auto gate keeps XLA below S=512/4096)."""
+    orig = jtr._attention
+
+    def flash_forced(q, k, v, mesh, causal, use_flash=False):
+        if use_flash:
+            return jfa.flash_attention(q, k, v, causal, True)
+        return orig(q, k, v, mesh, causal, use_flash=False)
+
+    monkeypatch.setattr(jtr, "_attention", flash_forced)
+
+
+def _setup(dims, seed=0):
+    jcfg = jtr.LMConfig(**dims, dtype=jnp.float32)
+    tcfg = ttr.LMConfig(**dims, dtype=torch.float32)
+    jp = jtr.lm_init(jax.random.key(seed), jcfg)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _tokens(shape, seed, vocab=64):
+    return np.random.default_rng(seed).integers(0, vocab, size=shape).astype(np.int32)
+
+
+def _jax_leaves(tree):
+    return {jax.tree_util.keystr(p): np.asarray(x)
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_adam_matches_optax_for_three_updates():
+    rng = np.random.default_rng(0)
+    params = {"a": rng.standard_normal((5, 7)).astype(np.float32),
+              "l0": {"w": rng.standard_normal(11).astype(np.float32)}}
+    opt, jopt = adam(3e-3), optax.adam(3e-3)
+    tp = {"a": torch.from_numpy(params["a"]), "l0": {"w": torch.from_numpy(params["l0"]["w"])}}
+    state, jstate = opt.init(tp), jopt.init(params)
+    for step in range(3):
+        g = {"a": rng.standard_normal((5, 7)).astype(np.float32),
+             "l0": {"w": (rng.standard_normal(11) * 10.0 ** -step).astype(np.float32)}}
+        tg = {"a": torch.from_numpy(g["a"]), "l0": {"w": torch.from_numpy(g["l0"]["w"])}}
+        upd, state = opt.update(tg, state, tp)
+        jupd, jstate = jopt.update(g, jstate, params)
+        want = _jax_leaves(jupd)
+        for key, u in leaves_with_paths(upd):
+            assert u.dtype == torch.float32
+            np.testing.assert_allclose(u.numpy(), want[key], atol=1e-6, rtol=1e-6)
+        assert int(state["count"]) == int(jstate[0].count) == step + 1
+        assert state["count"].dtype == torch.int32
+        for key, m in leaves_with_paths(state["mu"]):
+            np.testing.assert_allclose(m.numpy(), _jax_leaves(jstate[0].mu)[key], atol=1e-7)
+
+
+@pytest.mark.parametrize("dims", [GQA, MHA], ids=["gqa", "mha"])
+@pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
+def test_lm_loss_and_grads_match_jax(dims, flash, request):
+    if flash:
+        request.getfixturevalue("jax_flash_interpret")
+    jcfg, tcfg, jp, tp = _setup(dims)
+    tokens = _tokens((2, 129), 1)  # S = 128 meets the flash contract
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jtr.lm_loss(p, {"tokens": jnp.asarray(tokens)}, jcfg, use_flash=flash))(jp)
+    live = {k: ({kk: vv.clone().requires_grad_() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.clone().requires_grad_()) for k, v in tp.items()}
+    loss = ttr.lm_loss(live, {"tokens": torch.from_numpy(tokens)}, tcfg, use_flash=flash)
+    leaves = leaves_with_paths(live)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    want = _jax_leaves(jgrads)
+    assert sorted(want) == [k for k, _ in leaves]
+    for (key, _), g in zip(leaves, grads):
+        # the JAX test's tolerance for flash vs XLA gradients (test_flash_attention.py:150)
+        np.testing.assert_allclose(g.numpy(), want[key], atol=5e-4, rtol=5e-4, err_msg=key)
+
+
+def test_three_train_steps_match_jax_with_optax_adam():
+    lr = 1e-3
+    jcfg, tcfg, jp, tp = _setup(GQA, seed=2)
+    jopt, opt = optax.adam(lr), adam(lr)
+    jstate, state = jopt.init(jp), opt.init(tp)
+    jstep = jax.jit(lambda p, o, b: jtr.lm_train_step(p, o, b, jopt, jcfg, use_flash=False))
+    for step in range(3):
+        tokens = _tokens((2, 65), 10 + step)
+        jp, jstate, jloss = jstep(jp, jstate, {"tokens": jnp.asarray(tokens)})
+        tp, state, loss = ttr.lm_train_step(tp, state, {"tokens": torch.from_numpy(tokens)},
+                                            opt, tcfg)
+        assert loss.dtype == torch.float32 and loss.ndim == 0
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    want = _jax_leaves(jp)
+    for key, p in leaves_with_paths(tp):
+        # Adam turns each gradient into a step of about lr whatever its
+        # size (m / sqrt(v) is sign(g) on the first step), so an element
+        # whose gradient is near zero can step +lr in one package and -lr
+        # in the other from a tiny f32 difference: up to 2 lr per step
+        diff = np.abs(p.numpy() - want[key])
+        assert diff.max() <= 3 * 2 * lr, key
+        # elsewhere the two agree to f32 rounding of the steps: at most one
+        # element in a thousand is off by more than a hundredth of lr
+        assert (diff > 1e-2 * lr).mean() <= 1e-3, key
+
+
+def test_train_step_refuses_what_jax_refuses_and_moe():
+    tcfg = ttr.LMConfig(**GQA, dtype=torch.float32, quant="int8")
+    with pytest.raises(ValueError, match="lm_train_step requires quant='none'"):
+        ttr.lm_train_step({}, {}, {"tokens": torch.zeros(1, 2)}, adam(1e-3), tcfg)
+    jcfg = jtr.LMConfig(**GQA, dtype=jnp.float32, quant="int8")
+    with pytest.raises(ValueError, match="lm_train_step requires quant='none'"):
+        jtr.lm_train_step({}, {}, {}, optax.adam(1e-3), jcfg)
+    tp = _setup(GQA)[3]
+    moe = ttr.LMConfig(**GQA, dtype=torch.float32, moe_every=2)
+    with pytest.raises(ValueError, match="item 5e"):
+        ttr.lm_train_step(tp, adam(1e-3).init(tp), {"tokens": torch.zeros(1, 9, dtype=torch.int32)},
+                          adam(1e-3), moe)
+
+
+def test_use_flash_none_takes_the_plain_attention_on_the_cpu():
+    _, tcfg, _, tp = _setup(GQA)
+    assert ttr.resolve_train_flash(tcfg, torch.device("cpu")) is False
+    tokens = {"tokens": torch.from_numpy(_tokens((2, 129), 3))}
+    assert torch.equal(ttr.lm_loss(tp, tokens, tcfg), ttr.lm_loss(tp, tokens, tcfg, use_flash=False))
