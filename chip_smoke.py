@@ -4,20 +4,21 @@
     python3 chip_smoke.py
 
 Builds every kernel of the served and trained paths from the sources in
-this checkout (three libraries, built at once), holds each kernel against
+this checkout (five libraries, built at once), holds each kernel against
 its plain PyTorch version on the card, serves two deployments through the
-port's engine and REST lane on a localhost port, trains the flagship LM a
-few steps and serves its checkpoint, checks the answers, shows that each
-run went through its kernels, and times each kernel beside its plain
-version, a PyTorch library call and its bound.  Weights are random, from
-a seed.  Phases, in order; any failure exits non-zero without the final
-line, and each phase prints its wall:
+port's engine and REST lane on a localhost port (the generator also as an
+SSE token stream), trains the flagship LM a few steps and serves its
+checkpoint, checks the answers, shows that each run went through its
+kernels, and times each kernel beside its plain version, a PyTorch
+library call and its bound.  Weights are random, from a seed.  Phases, in
+order; any failure exits non-zero without the final line, and each phase
+prints its wall:
 
   1. device   CUDA present; the card's name and power limit (nvidia-smi)
-  2. build    nvcc of ops/csrc/fused_mlp.cu, ops/csrc/flash_attention.cu
-              and ops/csrc/flash_attention_bwd.cu at once, with ptxas's
-              report; each kernel's own shape check asked for shapes it
-              takes and shapes it must refuse
+  2. build    nvcc of ops/csrc/fused_mlp.cu, flash_attention.cu,
+              flash_attention_bwd.cu, flash_decode.cu and kv_write.cu at
+              once, with ptxas's report; each kernel's own shape check
+              asked for shapes it takes and shapes it must refuse
   3. kernel   fused_mlp_softmax vs fused_mlp_softmax_reference at
               784-256-256-10 and 784-512-512-10 with non-zero biases,
               B in {1, 7, 32, 64, 128, 1024} (32 and 64 are the served
@@ -34,37 +35,54 @@ line, and each phase prints its wall:
   6. flash    flash_attention kernel vs flash_attention_reference, o and
               lse, causal and not, at five shapes (the served prefill layer
               among them)
-  7. gen      the flagship TransformerGenerator of bench.py:3342-3344
+  7. decode-kernel  flash_decode_two_tier vs its plain version at ten
+              shapes (the served layer with 1, 32 and 63 chunk tokens, B=1,
+              main 100, main 640 full and 600 of 640, hd 128 and 256, MHA),
+              each a second time for the same bits; flash_decode over one
+              cache; kv_write bit-exact and in place from strided head views
+  8. gen      the flagship TransformerGenerator of bench.py:3342-3344
               (vocab 32768, d_model 1024, 16 heads over 4 kv heads, 12
               layers, d_ff 4096, 64 new tokens, bf16): engine construction
-              (the unit probes the flash kernel), then a 1-row 512-token
-              ndarray prompt, a 32-row 512-token tensor request, 8
-              concurrent 1-row requests and a 1-row 100-token prompt (S %
-              128 != 0: the plain attention, no launch), launch counts reset
-              before and read after; every served token teacher-forced
-              through the plain path; prefill logits kernel vs plain
-  8. times    flash kernel / plain / SDPA device times and the bound at the
-              served prefill shape and at S=2048, 4096 (B=4); served TTFT,
-              32-row request wall, decode tokens/s, the kernel's share of
-              the prefill
-  9. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
+              (the unit probes the flash, flash-decode and kv-write kernels
+              once each), then a 1-row 512-token ndarray prompt, a 32-row
+              512-token tensor request, 8 concurrent 1-row requests and a
+              1-row 100-token prompt (S % 128 != 0: a plain-attention
+              prefill), launch counts reset before and read after: 12 flash
+              launches per eligible prefill, 12 x 63 flash_decode and
+              kv_write launches per dispatch; every served token
+              teacher-forced through the plain path; prefill logits kernel
+              vs plain
+  9. stream   POST /api/v0.1/generate/stream with the 1-row 512-token
+              prompt at chunk 8 (counts reset before, read after): frames
+              parse, tokens equal an in-process generate, time to the first
+              frame; then an in-process 4-row stream of 300 tokens across
+              two grow_merges, teacher-forced through the plain path
+ 10. times    flash kernel / plain / SDPA device times and the bound at the
+              served prefill shape and at S=2048, 4096 (B=4); flash decode
+              and kv_write kernel / plain / library times and their bounds;
+              TTFT and generate p50 with the kernels and with
+              attention="xla" in turns (8 walls each, with quartiles),
+              decode tokens/s; profiled prefill
+              and generate both ways: launches and device time per decode
+              step, busy share, flash_decode_kernel's time per call
+ 11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at five shapes (the training layer
               among them); each call moves each launch counter by 1, and a
               second call gives the same bits
- 10. train    the flagship config (GEN_DIMS) in bf16 on the copy task of
+ 12. train    the flagship config (GEN_DIMS) in bf16 on the copy task of
               bench.py:2105-2108 at B=16, S=512 with adam(3e-4): one step's
               loss and per-leaf gradients, kernel path vs plain path; then
               20 steps with counts reset before and read after (12 forward,
               12 dQ and 12 dK/dV launches per step), losses finite and
               falling; step wall, trained tokens/s, a profiled step
- 11. hand-off save_lm_weights / load_lm_weights bit-identical; a
+ 13. hand-off save_lm_weights / load_lm_weights bit-identical; a
               TransformerGenerator with weights_path served over REST
               answers a 512-token copy-task prompt as an in-process
               generate on the trained params does
- 12. times    dQ and dK/dV kernel / plain / SDPA-backward device times and
+ 14. times    dQ and dK/dV kernel / plain / SDPA-backward device times and
               their bounds at the training layer and at S=2048 (B=4); then
-              the {"kernels": [...]} line with all four kernels
- 13. last line {"ok": true, "device": {"platform": "gpu", ...}}
+              the {"kernels": [...]} line with all six kernels
+ 15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
 port's package is not beside it.  It imports nothing of JAX.
@@ -89,7 +107,8 @@ import numpy as np
 T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-KERNEL_SOURCES = ("fused_mlp", "flash_attention", "flash_attention_bwd")
+KERNEL_SOURCES = ("fused_mlp", "flash_attention", "flash_attention_bwd", "flash_decode",
+                  "kv_write")
 KERNEL_ATOL = 2e-3   # kernel vs plain, probabilities: both round at the same
 #                      bf16 casts, only the order of the f32 sums differs.
 #                      Served answers are the same kernel against the same
@@ -149,6 +168,20 @@ TRAIN_B, TRAIN_HALF, TRAIN_STEPS, TRAIN_LR = 16, 171, 20, 3e-4
 # that and still catches a wrong term (a wrong head's dQ/dK/dV is O(1)).
 TRAIN_GRAD_REL_L2 = 5e-2
 TRAIN_LOSS_RTOL = 1e-3   # the loss is a mean over 8,192 tokens of f32 nll
+# Flash decode, kernel vs plain two-tier attention, bf16 o: FLASH_O_ATOL, for
+# its reason (p rounds to bf16 at each slot's running max in the kernel and
+# at the global max in the plain version; o rounds to bf16).  Shapes (B, KV,
+# G, hd, main slots, n_main, chunk slots, n_chunk): the served layer (63
+# chunk slots: 64 new tokens) at three chunk fills, B = 1, the 100-token
+# prompt, main 640 full and 600 of 640 valid, hd 128 and 256, and MHA.
+DECODE_SHAPES = [(32, 4, 4, 64, 512, 512, 63, 1), (32, 4, 4, 64, 512, 512, 63, 32),
+                 (32, 4, 4, 64, 512, 512, 63, 63), (1, 4, 4, 64, 512, 512, 63, 17),
+                 (32, 4, 4, 64, 100, 100, 63, 9), (32, 4, 4, 64, 640, 640, 63, 9),
+                 (4, 4, 4, 64, 640, 600, 63, 9), (4, 4, 4, 128, 512, 512, 63, 9),
+                 (4, 4, 4, 256, 512, 512, 63, 9), (8, 16, 1, 64, 512, 512, 63, 9)]
+DECODE_TIMED = [(32, 4, 4, 64, 512, 512, 63, 32), (32, 4, 4, 64, 512, 512, 63, 63)]
+STREAM_CHUNK = 8          # tokens per SSE frame in the stream phase
+STREAM_LONG = (4, 300)    # the in-process stream: rows, new tokens (two grow_merges)
 
 
 def log(msg: str) -> None:
@@ -232,12 +265,13 @@ class ServerThread:
             raise RuntimeError(f"REST lane did not start: {self._error!r}")
         return self.server.port
 
-    def stop(self):
+    def stop(self, close_engine: bool = True):
         if self.server is not None:
             asyncio.run_coroutine_threadsafe(self.server.stop(), self.loop).result(30)
         self.loop.call_soon_threadsafe(self.loop.stop)
         self.thread.join(30)
-        self.engine.close()
+        if close_engine:
+            self.engine.close()
 
 
 def request(method: str, url: str, body=None):
@@ -297,6 +331,139 @@ def flash_build_checks(torch, fa) -> None:
     log(f"[build] flash backward shape check: D=16, 64, 128, 256 bf16 take "
         f"{[bwd[d][0] for d in (16, 64, 128, 256)]} bytes of shared memory; D=40 and float32 "
         f"refused")
+
+
+def decode_build_checks(torch, fd) -> None:
+    """The flash-decode kernel's own shape check (flash_decode_smem_bytes):
+    the served head shape is taken, three others refused."""
+    smem, why = fd._smem_bytes(64, 4, torch.bfloat16)
+    if why is not None or smem != 32 * 4 * (64 + 2) * 4:
+        raise AssertionError(f"flash-decode shape check at hd=64 G=4: {smem} bytes, {why!r}")
+    for head_dim, dtype, match in ((36, torch.bfloat16, "multiple of 8"),
+                                   (512, torch.bfloat16, "up to 256"),
+                                   (64, torch.float32, "bfloat16")):
+        why = fd.decode_kernel_shape_error(head_dim, dtype, 4)
+        if why is None or match not in why:
+            raise AssertionError(f"flash-decode shape check let hd={head_dim} {dtype} "
+                                 f"through: {why!r}")
+    log(f"[build] flash-decode shape check: hd=64 G=4 bf16 takes {smem} bytes of shared "
+        f"memory; hd=36, hd=512 and float32 refused")
+
+
+def decode_inputs(torch, shape, gen, dev):
+    B, KV, G, hd, Lm, _, C, _ = shape
+
+    def rnd(*dims):
+        return torch.randn(*dims, generator=gen).to(torch.bfloat16).to(dev)
+
+    return (rnd(B, KV, G, hd), rnd(B, KV, Lm, hd), rnd(B, KV, Lm, hd), rnd(B, KV, C, hd),
+            rnd(B, KV, C, hd))
+
+
+def decode_kernel_phase(torch, fd, kw, dev) -> dict:
+    """The decode-kernel phase: flash_decode_two_tier and flash_decode
+    against their plain versions (each call one launch, a repeat the same
+    bits), and kv_write bit-exact and in place.  Returns each kernel's
+    largest absolute error."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    max_err = 0.0
+    for shape in DECODE_SHAPES:
+        q, mk, mv, ck, cv = decode_inputs(torch, shape, gen, dev)
+        n_main, n_chunk = shape[5], shape[7]
+        before = fd.LAUNCHES
+        got = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk)
+        again = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk)
+        want = fd.flash_decode_two_tier_reference(q, mk, mv, n_main, ck, cv, n_chunk)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if (fd.LAUNCHES != before + 2 or got.dtype != torch.bfloat16 or err > FLASH_O_ATOL
+                or not bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"flash decode vs plain at {shape}: o err {err:.3e} (tolerance "
+                                 f"{FLASH_O_ATOL}), launches {fd.LAUNCHES - before}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash decode at {shape} differs between two calls")
+        max_err = max(max_err, err)
+        log(f"[decode-kernel] (B,KV,G,hd,main,n_main,chunk,n_chunk)={shape}: o max abs err "
+            f"{err:.3e} (tolerance {FLASH_O_ATOL}); a second call bit-identical")
+    q, mk, mv, _, _ = decode_inputs(torch, DECODE_SHAPES[0], gen, dev)
+    got = fd.flash_decode(q, mk, mv, 300)
+    err = float((got.float() - fd.flash_decode_reference(q, mk, mv, 300).float()).abs().max())
+    if err > FLASH_O_ATOL:
+        raise AssertionError(f"flash_decode over one cache, n_valid 300 of 512: err {err:.3e}")
+    max_err = max(max_err, err)
+    log(f"[decode-kernel] flash_decode over one 512-slot cache, n_valid 300: o max abs err "
+        f"{err:.3e} (tolerance {FLASH_O_ATOL})")
+    B, KV, _, hd, _, _, C, _ = DECODE_SHAPES[0]
+    for pos in (0, C // 2, C - 1):
+        ck, cv = (torch.randn(B, KV, C, hd, generator=gen).to(torch.bfloat16).to(dev)
+                  for _ in range(2))
+        qkv = torch.randn(B, 1, (4 + 2) * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
+        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+        v = qkv[..., 5 * KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+        want_k, want_v = kw.kv_write_reference(ck.clone(), cv.clone(), k, v, pos)
+        ptrs, before = (ck.data_ptr(), cv.data_ptr()), kw.LAUNCHES
+        out = kw.kv_write(ck, cv, k, v, pos)
+        torch.cuda.synchronize()
+        if (kw.LAUNCHES != before + 1 or (out[0].data_ptr(), out[1].data_ptr()) != ptrs
+                or not torch.equal(ck, want_k) or not torch.equal(cv, want_v)):
+            raise AssertionError(f"kv_write at slot {pos} is not the in-place slice assignment")
+    log(f"[decode-kernel] kv_write into ({B},{KV},{C},{hd}) bf16 at slots 0, {C // 2}, {C - 1} "
+        f"from strided head views: bit-exact, every other slot untouched, in place")
+    log(f"[decode-kernel] phase wall {time.perf_counter() - t0:.2f} s")
+    return {"flash_decode": max_err, "kv_write": 0.0}
+
+
+def decode_bound(shape):
+    """Least time for one flash-decode call: K and V of the valid
+    positions, q read once and o written once over HBM bandwidth, against
+    the score and PV FLOPs over the bf16 peak; the larger one bounds."""
+    B, KV, G, hd, _, n_main, _, n_chunk = shape
+    n = n_main + n_chunk
+    nbytes = 2 * (2 * B * KV * n * hd + 2 * B * KV * G * hd)
+    flops = 4 * B * KV * G * n * hd
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def sse_stream(port: int, body: dict):
+    """POST /api/v0.1/generate/stream on a raw socket; returns (the parsed
+    SSE events, seconds to the first frame, seconds to the terminal
+    chunk).  Raises unless the answer is a well-formed chunked 200."""
+    import socket
+
+    payload = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+        sock.sendall(b"POST /api/v0.1/generate/stream HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: %d\r\n\r\n"
+                     % len(payload) + payload)
+        f = sock.makefile("rb")
+        status = f.readline()
+        head = b""
+        while True:
+            line = f.readline()
+            if line in (b"\r\n", b""):
+                break
+            head += line.lower()
+        if not status.startswith(b"HTTP/1.1 200") or b"transfer-encoding: chunked" not in head:
+            raise AssertionError(f"stream answered {status!r} {head!r}")
+        events, first = [], None
+        while True:
+            n = int(f.readline().strip(), 16)
+            if n == 0:
+                if f.readline() != b"\r\n":
+                    raise AssertionError("the terminal chunk is malformed")
+                break
+            frame = f.read(n)
+            if f.read(2) != b"\r\n" or not frame.startswith(b"data: ") or not frame.endswith(
+                    b"\n\n"):
+                raise AssertionError(f"malformed SSE chunk {frame[:80]!r}")
+            if first is None:
+                first = time.perf_counter() - t0
+            events.append(json.loads(frame[6:]))
+    return events, first, time.perf_counter() - t0
 
 
 def flash_bound(shape, causal: bool = True):
@@ -377,7 +544,7 @@ def flash_bwd_inputs(torch, fa, shape, gen, dev, causal: bool = True):
 
 
 def flash_bwd_phase(torch, fa, dev) -> dict:
-    """Phase 9: the dQ and dK/dV kernels against the plain backward: dq,
+    """Phase 11: the dQ and dK/dV kernels against the plain backward: dq,
     dk, dv at every shape, causal and not; each call moves each counter by
     exactly 1, and a second call on the same inputs gives the same bits.
     Returns each kernel's largest absolute error."""
@@ -515,7 +682,7 @@ def wall_p50(torch, fn, runs: int) -> float:
     return float(np.median(walls) * 1e3)
 
 
-def device_profile(torch, fn, name: str) -> dict:
+def device_profile(torch, fn, name: str, by_name: bool = False) -> dict:
     """One call of ``fn`` (after a warm-up call) under torch.profiler: the
     host wall, the summed device time of its kernels, their count, and the
     kernels that took the most device time, read from the exported trace's
@@ -530,42 +697,48 @@ def device_profile(torch, fn, name: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_name, n_kernels = trace_kernels(prof, name)
-    kernel_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
+    names, n_kernels = trace_kernels(prof, name)
+    kernel_ms = sum(names.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    prof = {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
             "kernels": n_kernels, "top_ms": [[k[:90], v] for k, v in top]}
+    return {**prof, "by_name": names} if by_name else prof
 
 
-def generation_phases(torch, dev, smi) -> dict:
-    """Phases 6-8; returns the flash_attention row of the kernels line."""
+def generation_phases(torch, dev, smi) -> list:
+    """Phases 6-10; returns the flash_attention, flash_decode and kv_write
+    rows of the kernels line."""
     from seldon_core_tpu_torch.graph.defaulting import default_and_validate
     from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
     from seldon_core_tpu_torch.models.generate import init_cache, prefill, sample_token, generate
     from seldon_core_tpu_torch.models.transformer import lm_apply
-    from seldon_core_tpu_torch.ops import flash_attention as fa, fused_mlp
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd, fused_mlp
+    from seldon_core_tpu_torch.ops import kv_write as kw
 
     max_err = flash_kernel_phase(torch, fa, dev)
+    decode_errs = decode_kernel_phase(torch, fd, kw, dev)
 
-    # -- 7. gen ---------------------------------------------------------------
+    # -- 8. gen ---------------------------------------------------------------
     t_phase = time.perf_counter()
     spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(gen_deployment()))
     from seldon_core_tpu_torch.runtime.engine import EngineService
 
     t0 = time.perf_counter()
-    probes_before = fa.LAUNCHES
+    probes_before = (fa.LAUNCHES, fd.LAUNCHES, kw.LAUNCHES)
     engine = EngineService(spec, device=dev)
     unit = engine.compiled.units["gen"]
-    if not unit.use_flash or fa.LAUNCHES != probes_before + 1:
-        raise AssertionError(f"the generator did not probe and take the flash kernel "
-                             f"(use_flash={unit.use_flash}, probe launches "
-                             f"{fa.LAUNCHES - probes_before})")
+    probes = tuple(n - b for n, b in zip((fa.LAUNCHES, fd.LAUNCHES, kw.LAUNCHES), probes_before))
+    if not unit.use_flash or probes != (1, 1, 1):
+        raise AssertionError(f"the generator did not probe and take the flash, flash-decode and "
+                             f"kv-write kernels (use_flash={unit.use_flash}, probe launches "
+                             f"{probes})")
     cfg = unit.cfg
     params = engine.states()["gen"]["params"]
     n_params = sum(t.numel() for layer in params.values()
                    for t in (layer.values() if isinstance(layer, dict) else [layer]))
     log(f"[gen] engine built in {time.perf_counter() - t0:.2f} s: {n_params / 1e6:.1f} M "
-        f"params ({cfg.dtype}), the unit probed the flash kernel once")
+        f"params ({cfg.dtype}), the unit probed the flash, flash-decode and kv-write kernels "
+        f"once each")
     dispatches = []
     batched = engine._batched_predict_sync
 
@@ -583,8 +756,9 @@ def generation_phases(torch, dev, smi) -> dict:
     p32 = rng.integers(0, vocab, size=(GEN_B, GEN_S))
     p8 = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(8)]
     p100 = rng.integers(0, vocab, size=(1, 100))
+    new = GEN_DIMS["max_new_tokens"]
     try:
-        fa.LAUNCHES = 0
+        fa.LAUNCHES = fd.LAUNCHES = kw.LAUNCHES = 0
         fused_mlp.LAUNCHES = 0
         s1 = request("POST", url, {"data": {"ndarray": p1.tolist()}})
         s32 = request("POST", url, {"data": {"tensor": {"shape": list(p32.shape),
@@ -596,6 +770,8 @@ def generation_phases(torch, dev, smi) -> dict:
         eligible = sum(1 for d in dispatches if d[1] % 128 == 0)
         s100 = request("POST", url, {"data": {"ndarray": p100.tolist()}})
         launches_after_100 = fa.LAUNCHES
+        decode_launches = {"flash_decode": fd.LAUNCHES, "kv_write": kw.LAUNCHES}
+        n_dispatch = len(dispatches)  # the latency loop below dispatches after the read
         mlp_launches = fused_mlp.LAUNCHES
         st_stats, raw_stats = request("GET", f"http://127.0.0.1:{port}/stats")
         # the 32-row request's wall, after the counts were read
@@ -608,7 +784,7 @@ def generation_phases(torch, dev, smi) -> dict:
             if st != 200:
                 raise AssertionError(f"32-row latency loop: HTTP {st}")
     finally:
-        server.stop()
+        server.stop(close_engine=False)
     if launches != 12 * eligible or eligible < 3:
         raise AssertionError(f"flash launches {launches} != 12 x {eligible} kernel-eligible "
                              f"prefill dispatches ({dispatches})")
@@ -617,12 +793,20 @@ def generation_phases(torch, dev, smi) -> dict:
                              f"{launches_after_100 - launches} times")
     if mlp_launches != 0:
         raise AssertionError(f"the generation run launched the fused-MLP kernel {mlp_launches} times")
+    want_decode = cfg.n_layers * (new - 1) * n_dispatch
+    if decode_launches != {"flash_decode": want_decode, "kv_write": want_decode}:
+        raise AssertionError(f"decode launches {decode_launches}, not {cfg.n_layers} x {new - 1} "
+                             f"per dispatch over {n_dispatch} dispatches")
     stats = json.loads(raw_stats)
-    if st_stats != 200 or stats["kernels"]["flash_attention"]["launches"] != launches_after_100:
-        raise AssertionError(f"/stats does not report the flash launches: {raw_stats[:300]!r}")
+    if st_stats != 200 or stats["kernels"]["flash_attention"]["launches"] != launches_after_100 \
+            or {k: stats["kernels"][k]["launches"] for k in decode_launches} != decode_launches:
+        raise AssertionError(f"/stats does not report the kernel launches: {raw_stats[:400]!r}")
     log(f"[gen] dispatches {dispatches}: {eligible} kernel-eligible prefills; flash launches "
         f"{launches} = 12 x {eligible}; the 100-token prompt launched none "
         f"({launches_after_100} after it); fused-MLP launches 0")
+    log(f"[gen] decode: flash_decode {decode_launches['flash_decode']} and kv_write "
+        f"{decode_launches['kv_write']} launches = {cfg.n_layers} x {new - 1} x "
+        f"{n_dispatch} dispatches, the 100-token prompt included; /stats agrees")
 
     # correctness: every served token teacher-forced through the plain path
     y1 = check_tokens(*s1, p1, "ndarray")
@@ -655,7 +839,9 @@ def generation_phases(torch, dev, smi) -> dict:
         raise AssertionError(f"prefill logits differ by {logit_err} > {PREFILL_LOGIT_ATOL}")
     log(f"[gen] phase wall {time.perf_counter() - t_phase:.2f} s")
 
-    # -- 8. times -------------------------------------------------------------
+    stream = stream_phase(torch, dev, engine, params, cfg, p1, smi)
+
+    # -- 10. times ------------------------------------------------------------
     t_phase = time.perf_counter()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -671,40 +857,87 @@ def generation_phases(torch, dev, smi) -> dict:
         log(f"[times] flash (B,H,KV,S,D)={shape} causal: kernel {k_ms:.5f} ms, plain "
             f"{p_ms:.5f} ms, SDPA {l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}) on {smi}")
         del q, k, v
+    decode_rows = decode_times(torch, fd, kw, dev, smi, gen)
     with torch.inference_mode():
-        def first_token():
+        def first_token(use_flash=True):
             logits, _ = prefill(params, tok32, init_cache(cfg, GEN_B, GEN_S, dev), cfg,
-                                use_flash=True)
+                                use_flash=use_flash)
             return sample_token(logits)
 
-        ttft_ms = wall_p50(torch, first_token, 5)
-        gen_ms = wall_p50(torch, lambda: generate(params, tok32, cfg, GEN_DIMS["max_new_tokens"],
-                                                  use_flash=True), 3)
-    new = GEN_DIMS["max_new_tokens"]
+        # the kernels and attention="xla" (the plain path) in turns, ABBA,
+        # 8 walls each: the host's launch rate moves between runs and calls
+        walls = {"ttft": ([], []), "generate": ([], [])}
+        fns = {"ttft": lambda uf: first_token(uf),
+               "generate": lambda uf: generate(params, tok32, cfg, new, use_flash=uf)}
+        for name, fn in fns.items():
+            for uf in (True, False):
+                fn(uf)  # warm-up
+            for _ in range(4):
+                for uf in (True, False, False, True):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn(uf)
+                    torch.cuda.synchronize()
+                    walls[name][0 if uf else 1].append(time.perf_counter() - t)
+        quart = {name: [[float(q) for q in np.percentile(np.asarray(w) * 1e3, [25, 50, 75])]
+                        for w in pair] for name, pair in walls.items()}
+        med = {name: [qs[1] for qs in pair] for name, pair in quart.items()}
+    ttft_ms, ttft_xla_ms = med["ttft"]
+    gen_ms, gen_xla_ms = med["generate"]
     served = {
         "ttft_p50_ms": ttft_ms,
         "generate_p50_ms": gen_ms,
         "request32_wall_p50_ms": float(np.median(walls32) * 1e3),
         "decode_tokens_per_s": GEN_B * (new - 1) / ((gen_ms - ttft_ms) / 1e3),
+        "xla_ttft_p50_ms": ttft_xla_ms,
+        "xla_generate_p50_ms": gen_xla_ms,
+        "xla_decode_tokens_per_s": GEN_B * (new - 1) / ((gen_xla_ms - ttft_xla_ms) / 1e3),
         "kernel_share_of_prefill": 12 * timings[0]["ms"] / ttft_ms,
+        "wall_quartiles_ms": {f"{name}{tag}": quart[name][i] for name in quart
+                              for i, tag in ((0, ""), (1, "_xla"))},
+        "stream": stream,
         "card": smi,
     }
     log(f"[times] {GEN_B}x{GEN_S} prefill (TTFT) p50 {ttft_ms:.3f} ms; generate({new} new) p50 "
         f"{gen_ms:.3f} ms; the 32-row REST request p50 {served['request32_wall_p50_ms']:.3f} "
         f"ms; decode {served['decode_tokens_per_s']:.1f} tokens/s; flash kernel "
         f"{served['kernel_share_of_prefill'] * 100:.2f}% of the prefill, on {smi}")
+    log(f"[times] attention=\"xla\" (no kernel), in turns with the above: TTFT p50 "
+        f"{ttft_xla_ms:.3f} ms; generate p50 {gen_xla_ms:.3f} ms; decode "
+        f"{served['xla_decode_tokens_per_s']:.1f} tokens/s, on {smi}")
+    log(f"[times] generate walls p25/p50/p75 over 8 each: kernels "
+        f"{'/'.join(f'{q:.3f}' for q in quart['generate'][0])} ms, xla "
+        f"{'/'.join(f'{q:.3f}' for q in quart['generate'][1])} ms")
     log(json.dumps({"served_generation": served}))
+    profiles = {}
     with torch.inference_mode():
         for name, fn in (("prefill", first_token),
-                         ("generate", lambda: generate(params, tok32, cfg, new, use_flash=True))):
-            prof = device_profile(torch, fn, name)
+                         ("generate", lambda: generate(params, tok32, cfg, new, use_flash=True)),
+                         ("prefill_xla", lambda: first_token(False)),
+                         ("generate_xla", lambda: generate(params, tok32, cfg, new,
+                                                           use_flash=False))):
+            prof = device_profile(torch, fn, name, by_name=name == "generate")
+            profiles[name] = prof
             log(f"[times] profiled {name} (B={GEN_B}, S={GEN_S}): wall {prof['wall_ms']:.3f} ms, "
                 f"device kernels {prof['kernel_ms']:.3f} ms in {prof['kernels']} launches, "
                 f"busy {prof['busy_share'] * 100:.1f}% on {smi}")
-            log(json.dumps({f"profile_{name}": prof}))
+            log(json.dumps({f"profile_{name}": {k: v for k, v in prof.items() if k != "by_name"}}))
+    for tag in ("", "_xla"):
+        gen_p, pre_p = profiles[f"generate{tag}"], profiles[f"prefill{tag}"]
+        per_step = (gen_p["kernels"] - pre_p["kernels"]) / (new - 1)
+        step_ms = (gen_p["kernel_ms"] - pre_p["kernel_ms"]) / (new - 1)
+        served[f"decode_launches_per_step{tag}"] = per_step
+        served[f"decode_device_ms_per_step{tag}"] = step_ms
+        log(f"[times] decode{' (xla)' if tag else ''}: {per_step:.1f} launches and {step_ms:.4f} "
+            f"ms of device kernels per step (generate minus prefill, over {new - 1} steps)")
+    fd_ms = sum(v for k, v in profiles["generate"]["by_name"].items() if "flash_decode_kernel" in k)
+    served["flash_decode_ms_per_call_in_generate"] = fd_ms / (cfg.n_layers * (new - 1))
+    log(f"[times] flash_decode_kernel in the profiled generate: "
+        f"{served['flash_decode_ms_per_call_in_generate']:.5f} ms per call over "
+        f"{cfg.n_layers * (new - 1)} calls (n = 513..575 positions), on {smi}")
     log(f"[times] phase wall {time.perf_counter() - t_phase:.2f} s")
     top = timings[0]
-    return {
+    flash_row = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "seldon_core_tpu_torch/ops/csrc/flash_attention.cu",
@@ -720,6 +953,179 @@ def generation_phases(torch, dev, smi) -> dict:
         "at": timings,
         "served": served,
     }
+    rows = [flash_row]
+    for name, source, replaces, shape_text in (
+            ("flash_decode", "flash_decode.cu", "seldon_core_tpu/ops/flash_decode.py:47",
+             "B=32 KV=4 G=4 hd=64 n_main=512 n_chunk=32 bf16"),
+            ("kv_write", "kv_write.cu", "scripts/probe_inplace.py:55",
+             "caches (32,4,63,64) bf16, slot 31")):
+        top = decode_rows[name][0]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"seldon_core_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces,
+            "launches": decode_launches[name],
+            "max_abs_err": decode_errs[name],
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "shape": shape_text,
+            "at": decode_rows[name],
+        })
+    return rows
+
+
+def host_us_per_call(torch, fn, calls: int = 500) -> float:
+    """Host wall per call of ``fn`` in microseconds: ``calls`` back-to-back
+    calls after a warm-up, the device left to drain after the clock stops
+    (the queue holds them all, so the host never waits on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
+def decode_times(torch, fd, kw, dev, smi, gen) -> dict:
+    """Device times of the decode kernels beside their plain versions, a
+    PyTorch library call and their bounds: flash decode at the served layer
+    with 32 and 63 chunk tokens (SDPA over the same positions made dense
+    beforehand, enable_gqa: a yardstick the port never calls), and kv_write
+    into the served chunk buffer (torch._foreach_copy_ of the two slots)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"flash_decode": [], "kv_write": []}
+    for shape in DECODE_TIMED:
+        q, mk, mv, ck, cv = decode_inputs(torch, shape, gen, dev)
+        B, KV, G, hd, _, n_main, _, n_chunk = shape
+        k_ms = device_ms(torch, lambda: fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv,
+                                                                 n_chunk), 200)
+        p_ms = device_ms(torch, lambda: fd.flash_decode_two_tier_reference(
+            q, mk, mv, n_main, ck, cv, n_chunk), 50)
+        kd = torch.cat([mk[:, :, :n_main], ck[:, :, :n_chunk]], dim=2)
+        vd = torch.cat([mv[:, :, :n_main], cv[:, :, :n_chunk]], dim=2)
+        qh = q.reshape(B, KV * G, 1, hd)
+        l_ms = device_ms(torch, lambda: sdpa(qh, kd, vd, enable_gqa=True), 200)
+        b_ms, b_by = decode_bound(shape)
+        h_us = host_us_per_call(torch, lambda: fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv,
+                                                                        n_chunk))
+        rows["flash_decode"].append({"shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
+                                     "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                     "host_us_per_call": h_us})
+        log(f"[times] flash decode (B,KV,G,hd,main,n_main,chunk,n_chunk)={shape}: kernel "
+            f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, SDPA over {n_main + n_chunk} dense slots "
+            f"{l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}); wrapper host {h_us:.3f} us per "
+            f"call on {smi}")
+    B, KV, _, hd, _, _, C, _ = DECODE_TIMED[0]
+    ck, cv = (torch.randn(B, KV, C, hd, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))
+    k, v = (torch.randn(B, KV, 1, hd, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))
+    pos = C // 2
+    k_ms = device_ms(torch, lambda: kw.kv_write(ck, cv, k, v, pos), 500)
+    p_ms = device_ms(torch, lambda: kw.kv_write_reference(ck, cv, k, v, pos), 500)
+    l_ms = None
+    if hasattr(torch, "_foreach_copy_"):
+        dst, src = [ck[:, :, pos], cv[:, :, pos]], [k[:, :, 0], v[:, :, 0]]
+        l_ms = device_ms(torch, lambda: torch._foreach_copy_(dst, src), 500)
+    nbytes = 2 * 2 * B * KV * hd * 2  # k, v read; their slots written
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    h_us = host_us_per_call(torch, lambda: kw.kv_write(ck, cv, k, v, pos))
+    rows["kv_write"].append({"shape": [B, KV, C, hd, pos], "ms": k_ms, "plain_ms": p_ms,
+                             "library_ms": l_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                             "host_us_per_call": h_us})
+    log(f"[times] kv_write into ({B},{KV},{C},{hd}) bf16 at slot {pos}: kernel {k_ms:.5f} ms, "
+        f"plain (two slice copies) {p_ms:.5f} ms, torch._foreach_copy_ "
+        f"{'not available' if l_ms is None else f'{l_ms:.5f} ms'}, bound {b_ms:.7f} ms (bytes; "
+        f"the launch itself dominates); wrapper host {h_us:.3f} us per call on {smi}")
+    return rows
+
+
+def stream_phase(torch, dev, engine, params, cfg, prompt, smi) -> dict:
+    """Phase 9: the 1-row 512-token prompt streamed over REST at chunk 8
+    (counts reset just before, read just after), its tokens equal to an
+    in-process generate on the row; then an in-process B=4 stream of 300
+    tokens across two grow_merges, teacher-forced through the plain path."""
+    from seldon_core_tpu_torch.models import generate as gen_mod
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    t_phase = time.perf_counter()
+    new = GEN_DIMS["max_new_tokens"]
+    server = ServerThread(engine)
+    port = server.start()
+    try:
+        fa.LAUNCHES = fd.LAUNCHES = kw.LAUNCHES = 0
+        events, first_s, wall_s = sse_stream(port, {"data": {"ndarray": prompt.tolist()},
+                                                    "chunk": STREAM_CHUNK})
+        launches = {"flash_attention": fa.LAUNCHES, "flash_decode": fd.LAUNCHES,
+                    "kv_write": kw.LAUNCHES}
+    finally:
+        server.stop()
+    if not events or events[-1].get("done") is not True or "puid" not in events[-1].get("meta", {}):
+        raise AssertionError(f"the stream did not end with its terminal frame: {events[-1:]}")
+    chunks = [np.asarray(e["tokens"], dtype=np.float64) for e in events[:-1]]
+    sizes = [c.shape[1] for c in chunks]
+    if any(e["done"] for e in events[:-1]) or sizes != [STREAM_CHUNK] * (new // STREAM_CHUNK):
+        raise AssertionError(f"stream frames {sizes}")
+    streamed = np.concatenate(chunks, axis=1).astype(np.int64)
+    tok = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        local = gen_mod.generate(params, tok, cfg, new, use_flash=True).cpu().numpy()
+    if not np.array_equal(streamed, local):
+        raise AssertionError(f"streamed tokens differ from an in-process generate at "
+                             f"{int((streamed != local).sum())} positions")
+    want = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (new - 1),
+            "kv_write": cfg.n_layers * (new - 1)}
+    if launches != want:
+        raise AssertionError(f"the REST stream launched {launches}, not {want}")
+    # after the first frame (the prefill and STREAM_CHUNK - 1 steps) come
+    # new - STREAM_CHUNK steps
+    rest_step_ms = (wall_s - first_s) * 1e3 / (new - STREAM_CHUNK)
+    log(f"[stream] POST /api/v0.1/generate/stream, 1x{GEN_S} prompt at chunk {STREAM_CHUNK}: "
+        f"{len(chunks)} frames + the terminal frame, all parse; tokens identical to an "
+        f"in-process generate; first frame after {first_s * 1e3:.3f} ms, last after "
+        f"{wall_s * 1e3:.3f} ms ({rest_step_ms:.4f} ms per step after the first frame); "
+        f"launches {launches}")
+    rows, n_tok = STREAM_LONG
+    p4 = np.random.default_rng(SEED + 3).integers(0, cfg.vocab, size=(rows, GEN_S))
+    merges = []
+    orig = gen_mod.grow_merge
+    gen_mod.grow_merge = lambda *a: merges.append(a[3]) or orig(*a)
+    try:
+        fd.LAUNCHES = kw.LAUNCHES = 0
+        with torch.inference_mode():
+            t = time.perf_counter()
+            toks = [c.cpu().numpy() for c in gen_mod.stream_chunks(
+                params, torch.as_tensor(p4, dtype=torch.int32, device=dev), cfg, n_tok,
+                chunk=STREAM_CHUNK, use_flash=True)]
+            long_s = time.perf_counter() - t
+        long_launches = (fd.LAUNCHES, kw.LAUNCHES)
+    finally:
+        gen_mod.grow_merge = orig
+    toks = np.concatenate(toks, axis=1).astype(np.int64)
+    if toks.shape != (rows, n_tok) or len(merges) != 2:
+        raise AssertionError(f"the long stream gave {toks.shape} with merges {merges}")
+    if long_launches != (cfg.n_layers * (n_tok - 1),) * 2:
+        raise AssertionError(f"the long stream launched {long_launches}")
+    gap, exact = teacher_forced(torch, lm_apply, params, cfg, p4, toks, dev)
+    long_step_ms = long_s * 1e3 / (n_tok - 1)
+    log(f"[stream] in-process stream_chunks, {rows}x{GEN_S} prompt, {n_tok} tokens at chunk "
+        f"{STREAM_CHUNK}: grow_merge of {merges} buffered tokens; launches {long_launches}; "
+        f"teacher-forced gap max {gap.max():.5f} (delta {TOKEN_DELTA}), "
+        f"{exact.mean() * 100:.2f}% equal the plain argmax; {long_s:.3f} s "
+        f"({long_step_ms:.4f} ms per step, prefill included)")
+    if gap.max() > TOKEN_DELTA:
+        raise AssertionError(f"a streamed token is {gap.max():.4f} below the plain maximum")
+    log(f"[stream] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return {"first_frame_ms": first_s * 1e3, "stream_wall_ms": wall_s * 1e3, "frames": len(chunks),
+            "rest_step_ms": rest_step_ms, "launches": launches, "long_stream_s": long_s,
+            "long_step_ms": long_step_ms, "long_merges": merges,
+            "long_gap_max": float(gap.max()), "card": smi}
 
 
 def copy_batch(rng, vocab: int):
@@ -739,7 +1145,7 @@ def loss_and_grads(torch, lm_loss, params, batch, cfg, use_flash: bool):
 
 
 def training_phases(torch, dev, smi):
-    """Phases 9-12: the backward kernels against their plain version, the
+    """Phases 11-14: the backward kernels against their plain version, the
     flagship config trained 20 steps through them, its checkpoint served
     through weights_path, and their times.  Returns the dQ and dK/dV rows
     of the kernels line."""
@@ -756,7 +1162,7 @@ def training_phases(torch, dev, smi):
 
     bwd_errs = flash_bwd_phase(torch, fa, dev)
 
-    # -- 10. train --------------------------------------------------------
+    # -- 12. train --------------------------------------------------------
     t_phase = time.perf_counter()
     dims = {k: v for k, v in GEN_DIMS.items() if k != "max_new_tokens"}
     cfg = LMConfig(**dims, dtype=torch.bfloat16)
@@ -822,7 +1228,7 @@ def training_phases(torch, dev, smi):
     log(json.dumps({"training": trained}))
     log(f"[train] phase wall {time.perf_counter() - t_phase:.2f} s")
 
-    # -- 11. hand-off -----------------------------------------------------
+    # -- 13. hand-off -----------------------------------------------------
     t_phase = time.perf_counter()
     path = ROOT / "build" / "chip_smoke_trained_lm.npz"
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -878,7 +1284,7 @@ def training_phases(torch, dev, smi):
     log(f"[hand-off] phase wall {time.perf_counter() - t_phase:.2f} s")
     del params, opt_state, served_params
 
-    # -- 12. times --------------------------------------------------------
+    # -- 14. times --------------------------------------------------------
     t_phase = time.perf_counter()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -1106,7 +1512,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     try:
-        from seldon_core_tpu_torch.ops import _build, flash_attention, fused_mlp
+        from seldon_core_tpu_torch.ops import _build, flash_attention, flash_decode, fused_mlp
         from seldon_core_tpu_torch.runtime.engine import EngineService  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script: {e}",
@@ -1147,16 +1553,17 @@ def main() -> int:
     log(f"[build] shape check: 784-256-256-10 takes {smem} bytes of shared memory; "
         f"4096-wide, 24-wide and 10-layer MLPs refused")
     flash_build_checks(torch, flash_attention)
+    decode_build_checks(torch, flash_decode)
     log(f"[build] phase wall {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     mlp_row = mnist_phases(torch, dev, smi)
     log(f"[mnist] phases 3-5 wall {time.perf_counter() - t0:.2f} s")
-    flash_row = generation_phases(torch, dev, smi)
+    flash_row, decode_row, kv_row = generation_phases(torch, dev, smi)
     dq_row, dkv_row = training_phases(torch, dev, smi)
 
     log(smi)
-    log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row]}))
+    log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

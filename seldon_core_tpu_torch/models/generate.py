@@ -1,5 +1,6 @@
 """Autoregressive greedy decoding with a KV cache — the port's counterpart
-of the static per-request path of ``seldon_core_tpu/models/generate.py``.
+of the static per-request path and the stream of
+``seldon_core_tpu/models/generate.py``.
 
 ``TransformerGenerator`` is a MODEL unit: prompt token rows in, generated
 token rows out, over the same REST data plane as every other model.  Its
@@ -9,31 +10,44 @@ token rows out, over the same REST data plane as every other model.  Its
     ``[B, KV, S, hd]`` per layer (grouped heads); its causal attention is
     the flash-attention forward (``models/transformer.py:_attention``);
   * decode: the main cache is read-only, each new token's K/V go to a
-    chunk buffer, and attention softmaxes over the concatenated scores of
-    both tiers (``_attend_two_tier``), as the JAX package does;
+    chunk buffer, and attention softmaxes over both tiers at once
+    (``_attend_two_tier``), as the JAX package does.  With ``use_flash``
+    each layer of each step writes its slot with the ``kv_write`` kernel
+    and attends with the ``flash_decode_two_tier`` kernel
+    (``ops/csrc/kv_write.cu``, ``ops/csrc/flash_decode.cu``), which read
+    the bf16 caches at their stored size; without it, their plain
+    versions.  The choice is static; a launch failure is never caught;
   * generations longer than ``GEN_CHUNK_CAP`` fold each full chunk into
     main (``merge_chunk``) between chunks.
+
+``stream_chunks`` (and the unit's ``stream_tokens``, which the engine's
+SSE route drives) yields the same tokens chunk by chunk: the same decode
+steps, a ``STREAM_CHUNK_CAP``-slot chunk buffer that ``grow_merge`` folds
+into main when it fills, and the after-eos latch on the device
+(``_chunk_eos_mask``).
 
 Where the JAX package rebuilds a buffer (``dynamic_update_slice`` inside a
 jitted scan), the port writes it in place: the prefill writes K/V into the
 cache by slice assignment, a decode step writes its slot of the chunk
 buffer, and ``merge_chunk`` copies the chunk into main in place.  The
 decode loop (``lax.scan`` in JAX) is a Python loop.  The JAX package's
-telemetry records (TTFT, decode rate) are not ported.
+telemetry (TTFT, decode rate, the flight recorder) is not ported.
 
 Served here: greedy decoding (``temperature`` 0), float caches, no shared
 prefix, seeded or trained weights (``weights_path``, loaded in
-``init_state`` as the JAX unit does).  The constructor refuses, with the
-ROADMAP item that will port each: ``temperature > 0`` (sampling),
-``prefix_tokens`` (prefix cache), ``quant`` / ``kv_quant`` other than
-"none" and ``moe_every > 0``.  The continuous-batching lane, speculative
-decoding and the paged KV pool are later slices.
+``init_state`` as the JAX unit does).  The constructor and
+``stream_chunks`` refuse, with the ROADMAP item that will port each:
+``temperature > 0`` (sampling), ``prefix_tokens`` (prefix cache),
+``quant`` / ``kv_quant`` other than "none" and ``moe_every > 0``.  The
+continuous-batching lane, speculative decoding and the paged KV pool are
+later slices.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
@@ -51,17 +65,25 @@ from seldon_core_tpu_torch.models.transformer import (
     resolve_flash,
     seeded_generator,
 )
+from seldon_core_tpu_torch.ops.flash_decode import (
+    flash_decode_reference,
+    flash_decode_two_tier,
+    flash_decode_two_tier_reference,
+)
+from seldon_core_tpu_torch.ops.kv_write import kv_write, kv_write_reference
 from seldon_core_tpu_torch.ops.quant import lm_matmul
 
 __all__ = ["init_cache", "init_chunk", "prefill", "decode_step",
            "decode_step_two_tier", "merge_chunk", "generate", "sample_token",
-           "mask_after_eos", "sanitize_prompt", "GEN_CHUNK_CAP",
-           "TransformerGenerator"]
+           "mask_after_eos", "sanitize_prompt", "grow_merge", "stream_chunks",
+           "GEN_CHUNK_CAP", "STREAM_CHUNK_CAP", "TransformerGenerator"]
 
 #: generation chunk-buffer capacity: generations up to this length run
 #: with a prompt-sized main cache and no merges; longer ones merge the
 #: chunk into main once per CAP tokens
 GEN_CHUNK_CAP = 256
+#: stream chunk-buffer capacity: slots between ``grow_merge``s
+STREAM_CHUNK_CAP = 128
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
@@ -89,60 +111,45 @@ def sanitize_prompt(X, vocab: int):
     return torch.clamp(torch.nan_to_num(X), 0, vocab - 1).to(torch.int32)
 
 
-def _grouped_qk(q, cache_k):
-    """q [B,H,S,hd] x cache_k [B,KV,L,hd] -> scores [B,KV,g,S,L] f32, the
-    group axis folded into the row axis; f32 products of the upcast
-    inputs (JAX's ``preferred_element_type=f32``)."""
-    B, H, S, hd = q.shape
-    KV, L = cache_k.shape[1], cache_k.shape[2]
-    g = H // KV
-    scale = 1.0 / (hd ** 0.5)
-    s = torch.matmul(q.reshape(B, KV, g * S, hd).float(),
-                     cache_k.float().transpose(-1, -2)) * scale
-    return s.reshape(B, KV, g, S, L)
-
-
-def _grouped_pv(p, cache_v, out_shape, out_dtype):
-    """p [B,KV,g,S,L] x cache_v [B,KV,L,hd] -> [B,H,S,hd] ``out_dtype``:
-    p cast to ``out_dtype`` first, the product in f32."""
-    B, KV, g, S, L = p.shape
-    out = torch.matmul(p.to(out_dtype).reshape(B, KV, g * S, L).float(),
-                       cache_v.float()).to(out_dtype)
-    return out.reshape(out_shape)
-
-
-def _pv_f32(p, cache_v):
-    """p [B,KV,g,S,L] x cache_v [B,KV,L,hd] -> f32 [B,KV,g*S,hd] partial
-    output (un-cast, so the two tiers' partials add exactly); p is cast to
-    the cache dtype first."""
-    B, KV, g, S, L = p.shape
-    return torch.matmul(p.to(cache_v.dtype).reshape(B, KV, g * S, L).float(),
-                        cache_v.float())
+def _grouped(q, kv_heads: int):
+    """q [B, H, 1, hd] -> [B, KV, G, hd]: the group's query heads folded
+    onto rows (a view), the layout of the decode kernel."""
+    B, H, _, hd = q.shape
+    return q.reshape(B, kv_heads, H // kv_heads, hd)
 
 
 def _attend_two_tier(q, main_layer, chunk_layer, n_main: int, n_chunk: int,
-                     main_full: bool = False):
+                     use_flash: bool = False):
     """q [B,H,1,hd] over main[:n_main] + chunk[:n_chunk]: one softmax over
-    the concatenated scores, partial PV products summed in f32 and
-    normalised after them.  Validity masks are added (0 / -1e30); with
-    ``main_full`` every main slot is valid and main is not masked."""
-    sm = _grouped_qk(q, main_layer["k"])
-    sc = _grouped_qk(q, chunk_layer["k"])
-    C = chunk_layer["k"].shape[2]
-    dev = q.device
-    if not main_full:
-        Lm = main_layer["k"].shape[2]
-        sm = sm + torch.where(torch.arange(Lm, device=dev) < n_main, 0.0, -1e30)
-    sc = sc + torch.where(torch.arange(C, device=dev) < n_chunk, 0.0, -1e30)
-    m = torch.maximum(sm.amax(dim=-1), sc.amax(dim=-1))
-    em = torch.exp(sm - m[..., None])
-    ec = torch.exp(sc - m[..., None])
-    l = em.sum(dim=-1) + ec.sum(dim=-1)  # [B,KV,g,S]
-    om = _pv_f32(em, main_layer["v"])
-    oc = _pv_f32(ec, chunk_layer["v"])
-    B, KV, g, S = m.shape
-    out = (om + oc) / l.reshape(B, KV, g * S)[..., None]
-    return out.to(q.dtype).reshape(q.shape)
+    both tiers (``_attend_two_tier``'s arithmetic).  ``use_flash`` takes
+    ``flash_decode_two_tier`` (the kernel for CUDA tensors), else its plain
+    version; main is masked only where n_main is short of its length."""
+    attend = flash_decode_two_tier if use_flash else flash_decode_two_tier_reference
+    out = attend(_grouped(q, main_layer["k"].shape[1]), main_layer["k"], main_layer["v"],
+                 n_main, chunk_layer["k"], chunk_layer["v"], n_chunk)
+    return out.reshape(q.shape)
+
+
+def _attend_cached(q, cache_layer, n_valid: int, use_flash: bool = False):
+    """q [B,H,1,hd] against the cache layer; positions >= n_valid masked.
+    ``use_flash`` takes ``flash_decode_two_tier`` over cache[:n_valid] and
+    an empty chunk (the kernel for CUDA tensors, at any cache length: the
+    L % 128 rule is ``flash_decode``'s, for JAX parity only), else the
+    plain version (``_attend_cached``'s arithmetic)."""
+    qg = _grouped(q, cache_layer["k"].shape[1])
+    k, v = cache_layer["k"], cache_layer["v"]
+    if use_flash:
+        out = flash_decode_two_tier(qg, k, v, n_valid, k[:, :, :0], v[:, :, :0], 0)
+    else:
+        out = flash_decode_reference(qg, k, v, n_valid)
+    return out.reshape(q.shape)
+
+
+def _write_slot(layer, k, v, pos: int, use_flash: bool) -> None:
+    """One step's K/V [B, KV, 1, hd] into slot ``pos`` of a cache layer, in
+    place: the ``kv_write`` kernel (for CUDA tensors) when ``use_flash``,
+    else slice assignment."""
+    (kv_write if use_flash else kv_write_reference)(layer["k"], layer["v"], k, v, pos)
 
 
 def _qkv(lp, x, cfg: LMConfig, start: int):
@@ -168,26 +175,27 @@ def _finish_block(lp, x, a):
 
 
 def _block_two_tier(lp, x, main_layer, chunk_layer, n_main: int, n_chunk: int,
-                    cfg: LMConfig, main_full: bool = False):
+                    cfg: LMConfig, use_flash: bool = False):
     """One decoder block for one cached step: this token's K/V are written
     in place into chunk slot ``n_chunk`` (main is never touched), then it
     attends over main[:n_main] + chunk[:n_chunk+1].  Its global position
-    is n_main + n_chunk."""
+    is n_main + n_chunk.  ``use_flash`` takes the decode kernels."""
     q, k, v = _qkv(lp, x, cfg, n_main + n_chunk)
-    chunk_layer["k"][:, :, n_chunk:n_chunk + 1] = k
-    chunk_layer["v"][:, :, n_chunk:n_chunk + 1] = v
-    a = _attend_two_tier(q, main_layer, chunk_layer, n_main, n_chunk + 1, main_full)
+    _write_slot(chunk_layer, k, v, n_chunk, use_flash)
+    a = _attend_two_tier(q, main_layer, chunk_layer, n_main, n_chunk + 1, use_flash)
     return _finish_block(lp, x, a), chunk_layer
 
 
 def decode_step_two_tier(params, token, main, chunk, n_main: int, n_chunk: int,
-                         cfg: LMConfig, main_full: bool = False):
-    """One cached step against (read-only main, growing chunk).  token [B]
-    -> (logits [B, V] f32, chunk, written in place)."""
+                         cfg: LMConfig, use_flash: bool = False):
+    """One cached step against (read-only main[:n_main], growing chunk).
+    token [B] -> (logits [B, V] f32, chunk, written in place).  With
+    ``use_flash`` each layer runs ``kv_write`` and
+    ``flash_decode_two_tier``, else their plain versions."""
     x = params["embed"][token.long()][:, None, :]
     for i in range(cfg.n_layers):
         x, chunk[f"l{i}"] = _block_two_tier(
-            params[f"l{i}"], x, main[f"l{i}"], chunk[f"l{i}"], n_main, n_chunk, cfg, main_full)
+            params[f"l{i}"], x, main[f"l{i}"], chunk[f"l{i}"], n_main, n_chunk, cfg, use_flash)
     x = _rmsnorm(x, params["ln_f"])
     return (x[:, 0, :] @ params["embed"].T).float(), chunk
 
@@ -204,28 +212,22 @@ def merge_chunk(main, chunk, n_main: int, cfg: LMConfig):
     return main
 
 
-def _attend_cached(q, cache_layer, n_valid: int):
-    """q [B,H,1,hd] against the cache layer; positions >= n_valid masked."""
-    s = _grouped_qk(q, cache_layer["k"])
-    valid = torch.arange(cache_layer["k"].shape[2], device=q.device) < n_valid
-    s = s.masked_fill(~valid, -1e30)
-    return _grouped_pv(torch.softmax(s, dim=-1), cache_layer["v"], q.shape, q.dtype)
-
-
 def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
                   use_flash: bool = False):
     """One decoder block writing K/V into the cache at ``start`` (in place)
     and attending: S > 1 is a prefill from position 0, causal over the
     fresh K/V (the flash forward when ``use_flash`` and the shape contract
-    holds); S == 1 is a cached step over cache[:n_valid]."""
+    holds); S == 1 is a cached step over cache[:n_valid] (``kv_write`` and
+    ``flash_decode_two_tier`` when ``use_flash``)."""
     S = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, start)
-    cache_layer["k"][:, :, start:start + S] = k
-    cache_layer["v"][:, :, start:start + S] = v
     if S > 1:
+        cache_layer["k"][:, :, start:start + S] = k
+        cache_layer["v"][:, :, start:start + S] = v
         a = _attention(q, k, v, causal=True, use_flash=use_flash)
     else:
-        a = _attend_cached(q, cache_layer, n_valid)
+        _write_slot(cache_layer, k, v, start, use_flash)
+        a = _attend_cached(q, cache_layer, n_valid, use_flash)
     return _finish_block(lp, x, a), cache_layer
 
 
@@ -251,12 +253,13 @@ def prefill(params, tokens, cache, cfg: LMConfig, use_flash: bool = False):
     return logits[:, -1, :], cache
 
 
-def decode_step(params, token, cache, pos: int, cfg: LMConfig):
+def decode_step(params, token, cache, pos: int, cfg: LMConfig, use_flash: bool = False):
     """One cached step over a single-tier cache.  token [B], pos an int ->
     (logits [B, V] f32, cache)."""
     x = params["embed"][token.long()][:, None, :]
     for i in range(cfg.n_layers):
-        x, cache[f"l{i}"] = _block_cached(params[f"l{i}"], x, cache[f"l{i}"], pos, pos + 1, cfg)
+        x, cache[f"l{i}"] = _block_cached(params[f"l{i}"], x, cache[f"l{i}"], pos, pos + 1, cfg,
+                                          use_flash)
     x = _rmsnorm(x, params["ln_f"])
     return (x[:, 0, :] @ params["embed"].T).float(), cache
 
@@ -267,6 +270,12 @@ def _greedy_only(temperature: float) -> None:
             f"temperature={temperature}: sampled decoding is not ported yet; "
             f"the port serves greedy decoding (ROADMAP Queue 1 item 5d)"
         )
+
+
+def _no_prefix(what: str) -> None:
+    raise ValueError(
+        f"{what}: the shared-prefix cache is not ported yet (ROADMAP Queue 1 item 5d)"
+    )
 
 
 def sample_token(logits, temperature: float = 0.0):
@@ -286,16 +295,30 @@ def mask_after_eos(toks, eos_token: int):
     return torch.where(after, torch.full_like(toks, eos_token), toks)
 
 
+def _chunk_eos_mask(toks, seen_eos, eos_token: int):
+    """Per-chunk after-eos masking with a carried latch, on the device:
+    rows already stopped (``seen_eos`` [B] bool) are forced to eos, the
+    positions after a fresh eos too, and the latch is updated.  Returns
+    (masked [B, n], seen_eos', all_done), all_done a 0-dim bool tensor:
+    the caller reads back only that flag."""
+    t = torch.where(seen_eos[:, None], torch.full_like(toks, eos_token), toks)
+    is_eos = (t == eos_token).to(torch.int32)
+    after = (torch.cumsum(is_eos, dim=1) - is_eos) > 0
+    t = torch.where(after, torch.full_like(t, eos_token), t)
+    seen = seen_eos | (is_eos > 0).any(dim=1)
+    return t, seen, seen.all()
+
+
 def _chunk_step(params, token, main, chunk_buf, n_main: int, used: int,
                 cfg: LMConfig, n: int, temperature: float = 0.0,
-                main_full: bool = False):
+                use_flash: bool = False):
     """n cached greedy steps over the two-tier cache (a Python loop where
-    JAX scans): main is read-only, new K/V go to chunk slots
+    JAX scans): main[:n_main] is read-only, new K/V go to chunk slots
     used..used+n-1.  Returns (tokens [B, n], (token, chunk_buf, used'))."""
     toks = []
     for _ in range(n):
         logits, chunk_buf = decode_step_two_tier(
-            params, token, main, chunk_buf, n_main, used, cfg, main_full)
+            params, token, main, chunk_buf, n_main, used, cfg, use_flash)
         token = sample_token(logits, temperature)
         toks.append(token)
         used += 1
@@ -309,7 +332,9 @@ def generate(params, prompt, cfg: LMConfig, max_new_tokens: int = 32,
     rows that emit ``eos_token`` are eos-padded afterwards.  The first
     token comes from the prefill; the chunk loop emits the rest over the
     two-tier cache, merging a full chunk into main before the next one
-    when ``max_new_tokens - 1`` exceeds ``GEN_CHUNK_CAP``."""
+    when ``max_new_tokens - 1`` exceeds ``GEN_CHUNK_CAP``.  ``use_flash``
+    takes the flash forward in the prefill and the decode kernels in every
+    step."""
     _greedy_only(temperature)
     B, S = prompt.shape
     dev = prompt.device
@@ -328,13 +353,86 @@ def generate(params, prompt, cfg: LMConfig, max_new_tokens: int = 32,
                  for li, layer in main.items()}
         chunk = init_chunk(cfg, B, GEN_CHUNK_CAP if chunked else n, dev)
         toks, (token, chunk, _) = _chunk_step(
-            params, token, valid, chunk, n_main, 0, cfg, n, temperature, main_full=True)
+            params, token, valid, chunk, n_main, 0, cfg, n, temperature, use_flash)
         out.append(toks)
         remaining -= n
         if remaining > 0:  # fold the finished chunk in before the next
             main = merge_chunk(main, chunk, n_main, cfg)
             n_main += n
     return mask_after_eos(torch.cat(out, dim=1), eos_token)
+
+
+def grow_merge(main, chunk, cfg: LMConfig, used: int):
+    """main ++ chunk[:used] along the length axis (``torch.cat``): a new
+    main cache that is exactly full, so every later step reads valid slots
+    only.  The stream's counterpart of ``merge_chunk``; it copies main once
+    per ``STREAM_CHUNK_CAP`` tokens and briefly holds old and new main."""
+    return {f"l{i}": {kk: torch.cat([main[f"l{i}"][kk], chunk[f"l{i}"][kk][:, :, :used]], dim=2)
+                      for kk in ("k", "v")}
+            for i in range(cfg.n_layers)}
+
+
+def stream_chunks(params, prompt, cfg: LMConfig, max_new_tokens: int, chunk: int = 8,
+                  temperature: float = 0.0, use_flash: bool = False, eos_token: int = -1,
+                  prefix=None):
+    """Incremental greedy decoding: yields int32 token tensors [B, <=chunk]
+    whose concatenation equals ``generate(...)`` token for token (eos
+    padding included).  The first chunk is the prefill's token and chunk-1
+    steps; each later one is ``_chunk_step`` over ``chunk`` steps, chunks
+    capped at ``STREAM_CHUNK_CAP``.  When the chunk buffer would overflow,
+    main grows by the buffered tokens (``grow_merge``) and a fresh buffer
+    starts.  With ``eos_token`` set, masking runs on the device
+    (``_chunk_eos_mask``) and only the all-done flag is read back; once
+    every row has stopped, the host pads the remaining chunks with eos and
+    the device does no more work.  Sampling (``temperature`` > 0) and a
+    shared ``prefix`` are refused, as the unit refuses them."""
+    _greedy_only(temperature)
+    if prefix is not None:
+        _no_prefix("prefix")
+    B, S = prompt.shape
+    dev = prompt.device
+    cap = STREAM_CHUNK_CAP
+    chunk = min(int(chunk), cap)  # a chunk may not outgrow the buffer
+    main = init_cache(cfg, B, S, dev)
+    logits, main = prefill(params, prompt, main, cfg, use_flash)
+    first = sample_token(logits, temperature)
+    token, chunk_buf = first, init_chunk(cfg, B, cap, dev)
+    n_main, used = S, 0
+    seen_eos = torch.zeros(B, dtype=torch.bool, device=dev)
+    all_done = False
+
+    def finalize(toks):
+        nonlocal seen_eos, all_done
+        if eos_token < 0:
+            return toks
+        toks, seen_eos, flag = _chunk_eos_mask(toks, seen_eos, eos_token)
+        all_done = bool(flag)  # the one readback: drives the early stop
+        return toks
+
+    def emit(n):
+        nonlocal token, chunk_buf, main, n_main, used
+        if used + n > cap:  # grow main by the buffered tokens, continue
+            main = grow_merge(main, chunk_buf, cfg, used)
+            n_main += used
+            chunk_buf = init_chunk(cfg, B, cap, dev)
+            used = 0
+        toks, (token, chunk_buf, used) = _chunk_step(
+            params, token, main, chunk_buf, n_main, used, cfg, n, temperature, use_flash)
+        return toks
+
+    n_first = min(chunk - 1, max_new_tokens - 1)
+    if n_first > 0:
+        yield finalize(torch.cat([first[:, None], emit(n_first)], dim=1))
+    else:
+        yield finalize(first[:, None])
+    done = 1 + n_first
+    while done < max_new_tokens:
+        n = min(chunk, max_new_tokens - done)
+        if eos_token >= 0 and all_done:  # every row stopped: pad on the host
+            yield torch.full((B, n), eos_token, dtype=torch.int32, device=dev)
+        else:
+            yield finalize(emit(n))
+        done += n
 
 
 @register_unit("TransformerGenerator")
@@ -371,17 +469,14 @@ class TransformerGenerator(Unit):
         refuse_unported(self.cfg)
         _greedy_only(float(temperature))
         if str(prefix_tokens).replace(" ", "").replace(",", ""):
-            raise ValueError(
-                f"prefix_tokens={prefix_tokens!r}: the shared-prefix cache is not "
-                f"ported yet (ROADMAP Queue 1 item 5d)"
-            )
+            _no_prefix(f"prefix_tokens={prefix_tokens!r}")
         # top_k / top_p shape sampled decoding only: greedy reads neither
         self.seed = int(seed)
         self.weights_path = str(weights_path)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token = int(eos_token)
         self.device = resolve_device(device)
-        self.use_flash = resolve_flash(str(attention), self.cfg, self.device)
+        self.use_flash = resolve_flash(str(attention), self.cfg, self.device, decode=True)
 
     def init_state(self, rng: Optional[torch.Generator]):
         # the JAX unit's state also counts requests, for sampled decoding;
@@ -395,3 +490,13 @@ class TransformerGenerator(Unit):
                         max_new_tokens=self.max_new_tokens,
                         use_flash=self.use_flash,
                         eos_token=self.eos_token).to(torch.float32)
+
+    def stream_tokens(self, state, X, chunk: int = 8):
+        """Incremental serving: yields int32 token tensors [B, <=chunk]
+        whose concatenation equals ``predict``'s output.  ``X`` (prompt
+        rows, any array) goes to the unit's device as float32, as the
+        engine's dispatch does."""
+        rows = torch.as_tensor(np.asarray(X, dtype=np.float32), device=self.device)
+        yield from stream_chunks(state["params"], sanitize_prompt(rows, self.cfg.vocab), self.cfg,
+                                 max_new_tokens=self.max_new_tokens, chunk=int(chunk),
+                                 use_flash=self.use_flash, eos_token=self.eos_token)

@@ -29,6 +29,13 @@ back.  ``resolve_flash`` decides ``use_flash`` once, at construction:
                  kernel refuses the dtype or head dim          flash version
   "xla"          plain attention                               plain attention
 
+A generator asks with ``decode=True``: then the decode lane's kernels
+(``ops/flash_decode.py``, ``ops/kv_write.py``) are asked and probed as
+well, and one refusal of either sends prefill and decode to the plain
+path ("auto", logged) or raises ("flash").  The decode kernel takes every
+config the forward takes (bf16, head dim a multiple of 16 up to 256), so
+in practice the forward decides.
+
 The JAX package's length gates (``FLASH_AUTO_MIN_S`` = 4096 and
 ``FLASH_AUTO_MIN_S_GQA`` = 512, ``transformer.py:544-545``) were set from
 TPU measurements and are not inherited: "auto" takes the kernel at every
@@ -76,6 +83,8 @@ from seldon_core_tpu_torch.ops.flash_attention import (
     probe_kernel,
     shape_contract_error,
 )
+from seldon_core_tpu_torch.ops.flash_decode import decode_kernel_shape_error, probe_decode_kernel
+from seldon_core_tpu_torch.ops.kv_write import probe_kv_write
 from seldon_core_tpu_torch.ops.quant import lm_matmul
 from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
 from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
@@ -298,11 +307,16 @@ def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool
     return (x @ params["embed"].T).float()
 
 
-def resolve_flash(attention: str, cfg: LMConfig, device: torch.device) -> bool:
+def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
+                  decode: bool = False) -> bool:
     """Deployment-parameter attention mode -> ``use_flash``, decided once
     at construction (table in the module docstring).  On CUDA the kernel
     is built and launched once here (``probe_kernel``), so a missing nvcc
-    or a failing build raises before an engine reports ready."""
+    or a failing build raises before an engine reports ready.  With
+    ``decode`` (a generator) the decode lane's kernels are asked and
+    probed too (``decode_kernel_shape_error``, ``probe_decode_kernel``,
+    ``probe_kv_write``), and ``use_flash`` also sends every cached step
+    through them."""
     if attention == "xla":
         return False
     if attention not in ("auto", "flash"):
@@ -310,15 +324,21 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device) -> bool:
             f"attention={attention!r} not supported (auto | flash | xla)"
         )
     if device.type != "cuda":
-        return True  # the wrapper runs the plain version for CPU tensors
+        return True  # the wrappers run the plain versions for CPU tensors
+    group = cfg.n_heads // cfg.kv_heads
     why = kernel_shape_error(cfg.head_dim, cfg.dtype)
+    if why is None and decode:
+        why = decode_kernel_shape_error(cfg.head_dim, cfg.dtype, group)
     if why is not None:
         if attention == "flash":
             raise ValueError(f"attention='flash': {why}")
-        logger.info("flash-attention kernel not used (%s); attention runs the "
+        logger.info("flash kernels not used (%s); attention and decode run the "
                     "plain path", why)
         return False
     probe_kernel(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
+    if decode:
+        probe_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, device)
+        probe_kv_write(cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
     return True
 
 

@@ -67,6 +67,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from seldon_core_tpu_torch.device import launch_on
 from seldon_core_tpu_torch.ops._build import load_library
 
 __all__ = [
@@ -326,11 +327,8 @@ def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         return o, lse
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                        lse.data_ptr(), B, H, KV, S, D, int(bool(causal)),
-                        ctypes.addressof(strides), stream)
+    rc = launch_on(q.device, lib.launch, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   lse.data_ptr(), B, H, KV, S, D, int(bool(causal)), ctypes.addressof(strides))
     if rc != 0:
         _raise_launch_error("flash_attention", rc, lib)
     _count("LAUNCHES")
@@ -364,16 +362,14 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool
     shape = (B, H, KV, S, D, int(bool(causal)), ctypes.addressof(strides))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            dsum.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dq(*ins, dq.data_ptr(), *shape, stream)
-        if rc != 0:
-            _raise_launch_error("flash_attention dQ", rc, lib)
-        _count("DQ_LAUNCHES")
-        rc = lib.dkv(*ins, dk.data_ptr(), dv.data_ptr(), *shape, stream)
-        if rc != 0:
-            _raise_launch_error("flash_attention dK/dV", rc, lib)
-        _count("DKV_LAUNCHES")
+    rc = launch_on(q.device, lib.dq, *ins, dq.data_ptr(), *shape)
+    if rc != 0:
+        _raise_launch_error("flash_attention dQ", rc, lib)
+    _count("DQ_LAUNCHES")
+    rc = launch_on(q.device, lib.dkv, *ins, dk.data_ptr(), dv.data_ptr(), *shape)
+    if rc != 0:
+        _raise_launch_error("flash_attention dK/dV", rc, lib)
+    _count("DKV_LAUNCHES")
     return dq, dk, dv
 
 

@@ -1,0 +1,288 @@
+"""Flash decode on Hopper — the attention of every cached decode step.
+
+    o = softmax(q k^T / sqrt(hd)) v   over the valid cache positions
+
+q ``[B, KV, G, hd]`` (the G query heads of a kv head folded onto rows, one
+token each), k/v ``[B, KV, L, hd]`` at their stored (grouped) size, o
+``[B, KV, G, hd]`` in q's dtype: the layout of the JAX package.
+
+Replaces the Pallas TPU kernel of ``seldon_core_tpu/ops/flash_decode.py``
+(``flash_decode`` :87, kernel ``_decode_kernel`` :47, ``pallas_call`` :125)
+with a hand-written CUDA kernel for sm_90a (``ops/csrc/flash_decode.cu``)
+that computes the same arithmetic: f32 scores times 1/sqrt(hd), an online
+softmax, ``p`` cast to the cache dtype before an f32 PV product, ``acc /
+max(l, 1e-30)`` cast to q's dtype.  Its probe ``flash_decode_supported``
+(:136, which reaches the kernel through ``flash_decode`` at :148) has as
+its counterpart ``probe_decode_kernel``, which raises where the JAX probe
+answers False.
+
+Two entry points share the kernel:
+
+  ``flash_decode(q, k, v, n_valid)``   one cache, positions >= n_valid
+                                        masked; keeps the JAX shape
+                                        contract and messages (L % 128,
+                                        hd <= 256);
+  ``flash_decode_two_tier(q, main_k, main_v, n_main, chunk_k, chunk_v,
+  n_chunk)``                            the same function over
+                                        main[:n_main] ++ chunk[:n_chunk]:
+                                        what the decode lane's two-tier
+                                        cache attends over
+                                        (``models/generate.py``).
+
+The kernel reads only the valid positions of each segment and masks its
+own ragged edge, so the two-tier function has no length rule: the served
+100-token prompt and a 63-slot chunk buffer take the kernel.  The kernel
+reads q/k/v by strides (unit stride along hd), so the sliced main cache
+of ``generate`` reaches it without a copy.
+
+A CUDA tensor launches the kernel or raises: what it cannot take (a dtype
+other than bf16, a head dim that is not a multiple of 8 up to 256, no
+valid position) is a ``ValueError`` from a static check before any launch;
+the dtype and head-dim rules are the source's to state
+(``flash_decode_smem_bytes``, asked through ``decode_kernel_shape_error``).
+A CPU tensor runs the plain PyTorch versions, ``flash_decode_reference``
+(the arithmetic of ``_attend_cached``, ``generate.py:369``) and
+``flash_decode_two_tier_reference`` (``_attend_two_tier``,
+``generate.py:230``), which the tests and ``chip_smoke.py`` hold the kernel
+against and which the decode lane runs with ``use_flash`` off.
+``LAUNCHES`` counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from types import SimpleNamespace
+from typing import Optional
+
+import torch
+
+from seldon_core_tpu_torch.device import launch_on
+from seldon_core_tpu_torch.ops._build import load_library
+from seldon_core_tpu_torch.ops.flash_attention import _kernel_view, _same_device_and_dtype
+
+__all__ = [
+    "LAUNCHES",
+    "flash_decode",
+    "flash_decode_two_tier",
+    "flash_decode_reference",
+    "flash_decode_two_tier_reference",
+    "decode_contract_error",
+    "decode_kernel_shape_error",
+    "probe_decode_kernel",
+]
+
+#: kernel launches since import (or since a caller last reset it to 0)
+LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+
+_BLOCK = 128       # the JAX contract of flash_decode: L divisible by 128
+_NEG_INF = -1e30
+
+
+def _shapes_error(q, k, v) -> Optional[str]:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        return f"bad shapes: q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}"
+    B, KV, _, hd = q.shape
+    if k.shape[0] != B or k.shape[1] != KV or k.shape[3] != hd:
+        return f"q/k mismatch: q{tuple(q.shape)} k{tuple(k.shape)}"
+    return None
+
+
+def decode_contract_error(q, k, v) -> Optional[str]:
+    """Why q/k/v break the JAX package's ``flash_decode`` contract
+    (``flash_decode.py:96-105``), with its messages, or None.  Static:
+    ``decode_step`` asks it to pick the plain path."""
+    why = _shapes_error(q, k, v)
+    if why is not None:
+        return why
+    if k.shape[2] % _BLOCK != 0:
+        return f"cache len {k.shape[2]} not divisible by {_BLOCK}"
+    if q.shape[3] > 256:
+        return f"head dim {q.shape[3]} > 256"
+    return None
+
+
+def _scores(q, k):
+    """q [B,KV,G,hd] x k [B,KV,L,hd] -> [B,KV,G,L] f32 scores: f32 products
+    of the upcast inputs (JAX's ``preferred_element_type=f32``), scaled."""
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / (q.shape[-1] ** 0.5))
+
+
+def flash_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           n_valid: int) -> torch.Tensor:
+    """The plain PyTorch version, on any device, with ``_attend_cached``'s
+    arithmetic: positions >= n_valid set to -1e30, a softmax over the whole
+    row, p cast to q's dtype before an f32 PV product, o in q's dtype."""
+    s = _scores(q, k)
+    valid = torch.arange(k.shape[2], device=q.device) < n_valid
+    p = torch.softmax(s.masked_fill(~valid, _NEG_INF), dim=-1)
+    return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def flash_decode_two_tier_reference(q: torch.Tensor, main_k: torch.Tensor, main_v: torch.Tensor,
+                                    n_main: int, chunk_k: torch.Tensor, chunk_v: torch.Tensor,
+                                    n_chunk: int) -> torch.Tensor:
+    """The plain PyTorch version of the two-tier attention, on any device,
+    with ``_attend_two_tier``'s arithmetic: one softmax over the
+    concatenated scores, masks added (0 / -1e30) to a segment only where
+    its n is short of its length (JAX's ``main_full``), the partial PV
+    products of p cast to the cache dtype summed in f32 and normalised
+    after them.  A segment of 0 slots drops out: ``_attend_cached`` passes
+    an empty chunk."""
+    segments = [(k, v, n) for k, v, n in ((main_k, main_v, n_main), (chunk_k, chunk_v, n_chunk))
+                if k.shape[2] > 0]
+    scores = []
+    for k, _, n in segments:
+        s = _scores(q, k)
+        if n < k.shape[2]:
+            s = s + torch.where(torch.arange(k.shape[2], device=q.device) < n, 0.0, _NEG_INF)
+        scores.append(s)
+    m = scores[0].amax(dim=-1)
+    for s in scores[1:]:
+        m = torch.maximum(m, s.amax(dim=-1))
+    es = [torch.exp(s - m[..., None]) for s in scores]
+    # reduce, not sum(): sum's 0 + tensor would be one more launch each
+    l = functools.reduce(torch.add, (e.sum(dim=-1) for e in es))
+    o = functools.reduce(torch.add, (torch.matmul(e.to(v.dtype).float(), v.float())
+                                     for e, (_, v, _) in zip(es, segments)))
+    return (o / l[..., None]).to(q.dtype)
+
+
+_bind_lock = threading.Lock()
+_lib: Optional[SimpleNamespace] = None
+
+
+def _library() -> SimpleNamespace:
+    """The kernel library's entry points, built and bound at first use."""
+    global _lib
+    with _bind_lock:
+        if _lib is None:
+            lib = load_library("flash_decode")
+            launch = lib.flash_decode_launch
+            launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                               + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                               + [ctypes.c_void_p, ctypes.c_void_p])
+            launch.restype = ctypes.c_int
+            smem = lib.flash_decode_smem_bytes
+            smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_int]
+            smem.restype = ctypes.c_int
+            err = lib.flash_decode_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _lib = SimpleNamespace(launch=launch, smem_bytes=smem, error_string=err)
+        return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(head_dim: int, group: int, dtype: torch.dtype):
+    """(dynamic shared memory the kernel asks for, None), or (-1, why not),
+    from ``flash_decode_smem_bytes`` in the source: asked once per head
+    dim, group and dtype, not at every launch."""
+    why = ctypes.create_string_buffer(256)
+    dtype_code = 0 if dtype == torch.bfloat16 else -1  # the .cu's codes: 0 = bfloat16
+    n = _library().smem_bytes(int(head_dim), int(group), dtype_code, ctypes.addressof(why),
+                              len(why))
+    return n, (why.value.decode() if n < 0 else None)
+
+
+def decode_kernel_shape_error(head_dim: int, dtype: torch.dtype, group: int = 1) -> Optional[str]:
+    """Why the kernel cannot take this head dim, dtype and group (query
+    heads per kv head), or None.  Asks the kernel source (nvcc needed);
+    ``resolve_flash`` calls it at a generator's construction."""
+    return _smem_bytes(head_dim, group, dtype)[1]
+
+
+def _launch(q, k0, v0, n0: int, k1, v1, n1: int) -> torch.Tensor:
+    B, KV, G, hd = q.shape
+    _same_device_and_dtype(q, k=k0, v=v0, chunk_k=k1, chunk_v=v1)
+    why = decode_kernel_shape_error(hd, q.dtype, G)
+    if why is not None:
+        raise ValueError(why)
+    if n0 + n1 < 1:
+        raise ValueError("the flash-decode kernel needs at least one valid cache position")
+    q = q if q.stride(3) == 1 else q.contiguous()
+    k0, v0, k1, v1 = (_kernel_view(t) for t in (k0, v0, k1, v1))
+    o = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or KV == 0 or G == 0:
+        return o
+    strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k0.stride()[:3], *v0.stride()[:3],
+                                       *k1.stride()[:3], *v1.stride()[:3])
+    lib = _library()
+    rc = launch_on(q.device, lib.launch, q.data_ptr(), k0.data_ptr(), v0.data_ptr(), int(n0),
+                   k1.data_ptr(), v1.data_ptr(), int(n1), o.data_ptr(), B, KV, G, hd,
+                   ctypes.addressof(strides))
+    if rc != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc} "
+                           f"({lib.error_string(rc).decode()})")
+    global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+    return o
+
+
+def _device_kind(q) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_decode takes cpu or cuda tensors, got {q.device}")
+    return q.device.type
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """q [B, KV, G, hd] x cache k/v [B, KV, L, hd] -> [B, KV, G, hd]; cache
+    positions >= ``n_valid`` are masked.  Constraints (ValueError, the JAX
+    messages): L divisible by 128, hd <= 256; on CUDA also what the kernel
+    takes.  A CUDA q launches the kernel (over the first ``n_valid``
+    positions) or raises; a CPU q runs ``flash_decode_reference``."""
+    why = decode_contract_error(q, k, v)
+    if why is not None:
+        raise ValueError(why)
+    if _device_kind(q) == "cpu":
+        return flash_decode_reference(q, k, v, n_valid)
+    n = min(max(int(n_valid), 0), k.shape[2])
+    return _launch(q, k, v, n, k, v, 0)
+
+
+def flash_decode_two_tier(q: torch.Tensor, main_k: torch.Tensor, main_v: torch.Tensor,
+                          n_main: int, chunk_k: torch.Tensor, chunk_v: torch.Tensor,
+                          n_chunk: int) -> torch.Tensor:
+    """q [B, KV, G, hd] over main[:n_main] ++ chunk[:n_chunk] (each [B, KV,
+    *, hd]) -> [B, KV, G, hd]: ``flash_decode``'s function over the two
+    segments, with no length rule.  A CUDA q launches the kernel or raises;
+    a CPU q runs ``flash_decode_two_tier_reference``."""
+    for kk, vv, n, what in ((main_k, main_v, n_main, "n_main"),
+                            (chunk_k, chunk_v, n_chunk, "n_chunk")):
+        why = _shapes_error(q, kk, vv)
+        if why is not None:
+            raise ValueError(why)
+        if not 0 <= int(n) <= kk.shape[2]:
+            raise ValueError(f"{what}={n} outside [0, {kk.shape[2]}]")
+    if _device_kind(q) == "cpu":
+        return flash_decode_two_tier_reference(q, main_k, main_v, n_main, chunk_k, chunk_v,
+                                               n_chunk)
+    return _launch(q, main_k, main_v, int(n_main), chunk_k, chunk_v, int(n_chunk))
+
+
+def probe_decode_kernel(n_kv_heads: int, group: int, head_dim: int, dtype: torch.dtype,
+                        device: torch.device) -> None:
+    """Build the library and launch the kernel once at the head shape
+    (``n_kv_heads``, ``group`` query heads each, ``head_dim``) on a CUDA
+    ``device``, over both segments: zero queries and keys give a uniform
+    softmax, and values 1, 2, 3 in main and 4 in chunk slot 0 (slot 1, 100,
+    is past n_chunk) must average to exactly 2.5.  Raises if the build or
+    the launch fails or the answer differs.  The counterpart of
+    ``flash_decode_supported``, except that it raises where that one
+    answers False."""
+    q = torch.zeros(1, n_kv_heads, group, head_dim, dtype=dtype, device=device)
+    main_k = torch.zeros(1, n_kv_heads, 3, head_dim, dtype=dtype, device=device)
+    rows = torch.tensor([1.0, 2.0, 3.0], device=device)
+    main_v = rows[None, None, :, None].expand_as(main_k).to(dtype).contiguous()
+    chunk_k = torch.zeros(1, n_kv_heads, 2, head_dim, dtype=dtype, device=device)
+    chunk_v = torch.tensor([4.0, 100.0], device=device)[None, None, :, None].expand_as(
+        chunk_k).to(dtype).contiguous()
+    o = flash_decode_two_tier(q, main_k, main_v, 3, chunk_k, chunk_v, 1)
+    if not bool((o.float() == 2.5).all().cpu()):
+        raise RuntimeError(
+            f"flash_decode probe at {n_kv_heads} kv heads x {group}, head dim {head_dim} "
+            f"answered {o.float().flatten()[:4].tolist()}..., not 2.5")

@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from seldon_core_tpu_torch.device import launch_on
 from seldon_core_tpu_torch.ops._build import load_library
 
 __all__ = [
@@ -175,11 +176,9 @@ def fused_mlp_softmax(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch
     dims_arr = (ctypes.c_int * (n + 1))(*dims)
     w_arr = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
     b_arr = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.launch(x.data_ptr(), out.data_ptr(), x.shape[0], n,
-                    ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
-                    ctypes.addressof(b_arr), stream)
+    rc = launch_on(x.device, lib.launch, x.data_ptr(), out.data_ptr(), x.shape[0], n,
+                   ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
+                   ctypes.addressof(b_arr))
     if rc != 0:
         raise RuntimeError(
             f"fused_mlp_softmax kernel launch failed: CUDA error {rc} "

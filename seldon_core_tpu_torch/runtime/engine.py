@@ -13,19 +13,26 @@ Kept from the JAX engine: ``predict`` / ``predict_json``, ``_submit``
 with the dispatch deadline (``DispatchTimeoutError``, 504), the
 known-good-width rule (a failure on a feature width that has served
 before is a server fault and propagates; on a novel width it is the
-client's shape error, a 400), ``ready`` / ``pause`` / ``drained``, and
-``states`` / ``load_states``.  Not ported yet: the host interpreter for
-remote nodes and routers, fused graphs, feedback, the continuous generation lane,
-admission control and the observatories.
+client's shape error, a 400), ``ready`` / ``pause`` / ``drained``,
+``states`` / ``load_states``, and token streaming for a single generator
+node (``can_stream``, ``prepare_stream_request``, ``generate_stream``,
+``engine.py:690-849``): each chunk is computed on the dispatch executor,
+streams bypass the batcher and write no state back.  Not ported yet: the
+host interpreter for remote nodes and routers, fused graphs, feedback,
+the continuous generation lane (and with it streams that join a running
+batch), the stream's tracer spans and audit log, admission control, QoS
+and the observatories.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from seldon_core_tpu_torch.device import DeviceLike, resolve_device
 from seldon_core_tpu_torch.graph.compiled import CompiledGraph, to_device
@@ -43,10 +50,37 @@ from seldon_core_tpu_torch.messages import (
     Status,
     new_puid,
 )
-from seldon_core_tpu_torch.ops import flash_attention, fused_mlp
+from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, kv_write
 from seldon_core_tpu_torch.runtime.batching import MicroBatcher, graph_is_batchable
 
-__all__ = ["EngineService"]
+__all__ = ["EngineService", "StreamRequest"]
+
+
+class StreamRequest(NamedTuple):
+    """A validated streaming request: prompt rows [B, S] float64, puid,
+    tokens per frame."""
+
+    rows: np.ndarray
+    puid: str
+    chunk: int
+
+
+def _max_new(value) -> None:
+    """A stream's ``max_new``: validated as the JAX engine does, not used
+    (the compiled lane generates the unit's ``max_new_tokens``)."""
+    try:
+        int(value)
+    except (TypeError, ValueError):
+        raise SeldonMessageError("max_new must be an integer") from None
+
+
+def _prompt_rows(msg: SeldonMessage) -> np.ndarray:
+    """A stream's prompt as [B, S] float64 rows, S >= 1, or a
+    SeldonMessageError."""
+    rows = None if msg.data is None else np.atleast_2d(msg.array())
+    if rows is None or rows.dtype == object or rows.ndim != 2 or rows.shape[1] == 0:
+        raise SeldonMessageError("streaming needs a numeric prompt of token rows")
+    return rows.astype(np.float64)
 
 
 class EngineService:
@@ -175,6 +209,77 @@ class EngineService:
         resp.meta.puid = msg.meta.puid
         return resp
 
+    # -- streaming generation (engine.py:690-849) -----------------------
+
+    def can_stream(self) -> bool:
+        """True when the graph is a single unit that streams tokens (a
+        generator exposing ``stream_tokens``)."""
+        units = self.compiled.units
+        return len(units) == 1 and hasattr(next(iter(units.values())), "stream_tokens")
+
+    def prepare_stream_request(self, text) -> StreamRequest:
+        """Validate a streaming request before any response byte exists, so
+        the lane can answer a plain 400 instead of a 200 that dies.  One
+        JSON parse; returns the prompt rows, the puid and ``chunk``
+        (default 8, clamped to 1..256).  A top-level ``max_new`` is
+        validated and not used, as in the JAX engine's compiled lane.
+        Raises SeldonMessageError on bad JSON, a bad chunk or ``max_new``,
+        a graph that cannot stream or a payload without a non-empty
+        numeric prompt of token rows."""
+        chunk = 8
+        try:
+            doc = json.loads(text)
+        except (TypeError, ValueError) as e:
+            raise SeldonMessageError(f"invalid JSON: {e}") from None
+        if isinstance(doc, dict) and "chunk" in doc:
+            try:
+                chunk = max(1, min(256, int(doc["chunk"])))
+            except (TypeError, ValueError):
+                raise SeldonMessageError("chunk must be an integer") from None
+        if isinstance(doc, dict) and doc.get("max_new") is not None:
+            _max_new(doc["max_new"])
+        if not self.can_stream():
+            raise SeldonMessageError(
+                "graph does not support streaming generation (need a single generator node)")
+        msg = SeldonMessage.from_json_dict(doc)
+        return StreamRequest(_prompt_rows(msg), msg.meta.puid or new_puid(), chunk)
+
+    def _next_chunk(self, gen):
+        """One chunk of a stream, read back to the host, or None at its end.
+        Runs on the dispatch executor, in inference mode as a dispatch
+        runs: the kernels launch on its thread and the readback
+        synchronises its stream."""
+        with torch.inference_mode():
+            toks = next(gen, None)
+        return None if toks is None else toks.cpu().numpy()
+
+    async def generate_stream(self, request: StreamRequest):
+        """Incremental generation of a request that
+        ``prepare_stream_request`` validated: yields JSON strings
+        ``{"tokens": [[...]], "done": false}`` per chunk, then ``{"done":
+        true, "meta": {"puid": ...}}``.  Greedy streams concatenate to
+        exactly the ``predict_json`` output.  Streams bypass the batcher
+        and never write unit state back; closing this generator closes the
+        unit's."""
+        name, unit = next(iter(self.compiled.units.items()))
+        gen = unit.stream_tokens(self.compiled.states[name], request.rows, chunk=request.chunk)
+        pending = None
+        try:
+            while True:
+                pending = self._executor.submit(self._next_chunk, gen)
+                toks = await asyncio.wrap_future(pending)
+                if toks is None:
+                    break
+                yield json.dumps({"tokens": toks.astype(float).tolist(), "done": False})
+        finally:
+            # closed when no chunk is running: now, or as soon as the one
+            # still on the executor (a cancelled stream's) returns
+            if pending is None:
+                gen.close()
+            else:
+                pending.add_done_callback(lambda _: gen.close())
+        yield json.dumps({"done": True, "meta": {"puid": request.puid}})
+
     # -- admin (engine RestClientController.java:57-99) -------------------
 
     def stats(self) -> dict:
@@ -184,7 +289,9 @@ class EngineService:
             "predictor": self.predictor.name,
             "batcher": self.batcher.snapshot() if self.batcher is not None else None,
             "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES},
-                        "flash_attention": {"launches": flash_attention.LAUNCHES}},
+                        "flash_attention": {"launches": flash_attention.LAUNCHES},
+                        "flash_decode": {"launches": flash_decode.LAUNCHES},
+                        "kv_write": {"launches": kv_write.LAUNCHES}},
         }
 
     def close(self) -> None:

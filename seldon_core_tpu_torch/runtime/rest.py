@@ -3,14 +3,22 @@
 
 Routes:
 
-  POST /api/v0.1/predictions   JSON body or form field ``json=``
-  POST /predict                internal-API alias (engine as a MODEL leaf)
+  POST /api/v0.1/predictions       JSON body or form field ``json=``
+  POST /predict                    internal-API alias (engine as a MODEL leaf)
+  POST /api/v0.1/generate/stream   SSE token streaming (``httpfast.py:219-232``)
   GET  /ping /ready /pause /unpause /stats
 
-Protocol scope: HTTP/1.1 with keepalive and Content-Length bodies.
-Pipelined requests are answered in order (each request's handler runs
-concurrently; a per-connection writer sends responses FIFO).
-``Transfer-Encoding: chunked`` is declined with 501.
+Protocol scope: HTTP/1.1 with keepalive and Content-Length request
+bodies.  Pipelined requests are answered in order (each request's handler
+runs concurrently; a per-connection writer sends responses FIFO).  A
+request with ``Transfer-Encoding: chunked`` is declined with 501.  The
+stream route answers every problem with a plain 400 before any byte;
+otherwise its response is chunked, one ``data: {...}`` SSE frame per
+token chunk, then the terminal ``{"done": true, "meta": {"puid": ...}}``
+frame.  A failure mid-stream sends a terminal error frame and closes the
+connection; a client that goes away closes the engine's generator.  Not
+ported: the binary wire lane, the feedback, events, trace and profile
+routes, and the writer's transport flow control.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from urllib.parse import parse_qs
 from seldon_core_tpu_torch.graph.spec import GraphSpecError
 from seldon_core_tpu_torch.messages import SeldonMessage, SeldonMessageError
 
-__all__ = ["FastHttpServer", "serve_fast"]
+__all__ = ["FastHttpServer", "StreamResult", "serve_fast"]
 
 _JSON = "application/json"
 _MAX_BODY = 256 * 1024 * 1024
@@ -42,6 +50,18 @@ _STATUS_LINE = {
         503: "Service Unavailable", 504: "Gateway Timeout",
     }.items()
 }
+
+
+class StreamResult:
+    """Handler result of a streaming route: the writer sends a chunked
+    response, one SSE ``data:`` frame per item of the async generator."""
+
+    __slots__ = ("status", "ctype", "agen")
+
+    def __init__(self, status: int, ctype: str, agen):
+        self.status = status
+        self.ctype = ctype
+        self.agen = agen
 
 
 def _payload_text(body: bytes, ctype: str) -> str:
@@ -65,6 +85,7 @@ class _EngineRoutes:
         self.post: Dict[bytes, Handler] = {
             b"/api/v0.1/predictions": self._predictions,
             b"/predict": self._predictions,
+            b"/api/v0.1/generate/stream": self._generate_stream,
         }
         self.get: Dict[bytes, Handler] = {
             b"/ping": self._ping,
@@ -77,6 +98,16 @@ class _EngineRoutes:
     async def _predictions(self, body, ctype) -> Result:
         text, status = await self.engine.predict_json(_payload_text(body, ctype))
         return status or 200, text.encode(), _JSON
+
+    async def _generate_stream(self, body, ctype):
+        """SSE token streaming: a SeldonMessage with the prompt rows and an
+        optional top-level ``chunk`` (tokens per frame)."""
+        try:  # every problem is a plain 400 before any byte is sent
+            request = self.engine.prepare_stream_request(_payload_text(body, ctype))
+        except SeldonMessageError as e:
+            return 400, _failure(e, 400), _JSON
+        return StreamResult(200, "text/event-stream",
+                            self.engine.generate_stream(request))
 
     async def _ping(self, body, ctype) -> Result:
         return 200, b"pong", "text/plain"
@@ -136,13 +167,19 @@ class _HttpProtocol(asyncio.Protocol):
         while True:
             task, close = await self.queue.get()
             try:
-                status, body, ctype = await task
+                result = await task
             except asyncio.CancelledError:
                 raise
             except (SeldonMessageError, GraphSpecError) as e:
-                status, body, ctype = e.http_code, _failure(e, e.http_code), _JSON
+                result = e.http_code, _failure(e, e.http_code), _JSON
             except Exception as e:  # unexpected: 500, keep serving
-                status, body, ctype = 500, _failure(e, 500), _JSON
+                result = 500, _failure(e, 500), _JSON
+            if isinstance(result, StreamResult):
+                await self._write_stream(result)
+                if close and self.transport is not None:
+                    self.transport.close()
+                continue
+            status, body, ctype = result
             if self.transport is None or self.transport.is_closing():
                 continue
             head = (_STATUS_LINE.get(status) or f"HTTP/1.1 {status} X\r\n".encode()) + (
@@ -155,6 +192,37 @@ class _HttpProtocol(asyncio.Protocol):
                 self.transport.resume_reading()
             if close:
                 self.transport.close()
+
+    async def _write_stream(self, result: StreamResult):
+        """Chunked transfer encoding, one SSE ``data:`` frame per event.  A
+        failure mid-stream cannot change the status already sent: the
+        stream ends with an error frame and the connection closes."""
+        try:
+            if self.transport is None or self.transport.is_closing():
+                return
+            self.transport.write(
+                b"HTTP/1.1 %d OK\r\nContent-Type: %s\r\nCache-Control: no-cache\r\n"
+                b"Transfer-Encoding: chunked\r\n\r\n" % (result.status, result.ctype.encode()))
+            try:
+                async for event in result.agen:
+                    if self.transport is None or self.transport.is_closing():
+                        return  # the client went away; finally closes the generator
+                    frame = b"data: " + event.encode() + b"\n\n"
+                    self.transport.write(b"%x\r\n" % len(frame) + frame + b"\r\n")
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 - reported in-band
+                if self.transport is not None and not self.transport.is_closing():
+                    err = b"data: %s\n\n" % json.dumps({"done": True, "error": str(e)}).encode()
+                    self.transport.write(b"%x\r\n" % len(err) + err + b"\r\n0\r\n\r\n")
+                    self.transport.close()  # the stream's integrity is unknown
+                return
+            if self.transport is not None and not self.transport.is_closing():
+                self.transport.write(b"0\r\n\r\n")
+        finally:
+            # a client gone mid-stream must not leave the generator (and its
+            # KV caches) suspended until garbage collection
+            await result.agen.aclose()
 
     def data_received(self, data):
         self.buf += data

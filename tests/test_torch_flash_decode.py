@@ -1,0 +1,352 @@
+"""The port's decode-lane kernels' plain versions against the JAX package:
+``flash_decode`` (seldon_core_tpu_torch/ops/flash_decode.py) against the
+Pallas kernel in interpret mode, as tests/test_flash_decode.py runs it;
+``flash_decode_two_tier`` against ``_attend_two_tier``; ``kv_write``
+against ``jax.lax.dynamic_update_slice``; and the decode lane's wiring.
+
+On the CPU the wrappers run their plain versions, so these tests hold
+those to the TPU kernels' arithmetic.  The CUDA kernels themselves are
+held to the plain versions on the card (the ``cuda`` tests below, and
+chip_smoke.py)."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seldon_core_tpu.ops.flash_decode import flash_decode as jax_flash_decode
+from seldon_core_tpu_torch.ops import flash_decode as fd
+from seldon_core_tpu_torch.ops import kv_write as kw
+
+jgen = importlib.import_module("seldon_core_tpu.models.generate")
+tgen = importlib.import_module("seldon_core_tpu_torch.models.generate")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # tier-1 runs under several xdist workers: keep torch's CPU pool small
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _normal(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("kv,g", [(8, 1), (2, 4)])
+def test_flash_decode_matches_pallas_interpret(kv, g):
+    rng = np.random.default_rng(0)
+    B, hd, L = 2, 64, 256
+    q, k, v = _normal(rng, B, kv, g, hd), _normal(rng, B, kv, L, hd), _normal(rng, B, kv, L, hd)
+    n_valid = 130  # mid-block mask boundary
+    want = np.asarray(jax_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), n_valid,
+                                       interpret=True))
+    got = fd.flash_decode(*_t(q, k, v), n_valid)
+    assert got.shape == (B, kv, g, hd) and got.dtype == torch.float32
+    # the JAX test's tolerance (tests/test_flash_decode.py:26): f32
+    # throughout, only the order of the f32 sums differs
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("n_valid", [1, 256])
+def test_flash_decode_full_valid_and_single_position(n_valid):
+    rng = np.random.default_rng(1)
+    B, kv, g, hd, L = 2, 2, 4, 64, 256
+    q, k, v = _normal(rng, B, kv, g, hd), _normal(rng, B, kv, L, hd), _normal(rng, B, kv, L, hd)
+    want = np.asarray(jax_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), n_valid,
+                                       interpret=True))
+    got = fd.flash_decode(*_t(q, k, v), n_valid)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("q_shape,k_shape,match", [
+    ((1, 1, 1, 32), (1, 1, 100, 32), "divisible"),
+    ((1, 1, 1, 32), (1, 2, 128, 32), "mismatch"),
+    ((1, 1, 1, 32), (1, 1, 128), "bad shapes"),
+    ((1, 1, 1, 512), (1, 1, 128, 512), "head dim"),
+])
+def test_flash_decode_constraints_carry_the_jax_messages(q_shape, k_shape, match):
+    """The ValueErrors of ``test_flash_decode_constraints`` (and the head-dim
+    rule), raised by both packages with the same text."""
+    q, k = np.zeros(q_shape, np.float32), np.zeros(k_shape, np.float32)
+    with pytest.raises(ValueError, match=match) as want:
+        jax_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), 5, interpret=True)
+    with pytest.raises(ValueError, match=match) as got:
+        fd.flash_decode(*_t(q, k, k), 5)
+    assert str(got.value) == str(want.value)
+
+
+# (B, KV, G, hd, main length, n_main, chunk slots, n_chunk): main full and
+# not, ragged counts, main lengths that are not multiples of 128, MHA
+TWO_TIER = [(2, 2, 4, 32, 100, 100, 63, 5), (2, 2, 4, 32, 200, 130, 8, 8),
+            (1, 4, 1, 16, 257, 257, 16, 1), (3, 1, 8, 64, 37, 20, 12, 11)]
+
+
+@pytest.mark.parametrize("case", TWO_TIER, ids=[str(c) for c in TWO_TIER])
+def test_two_tier_matches_jax_attend_two_tier(case):
+    B, KV, G, hd, Lm, n_main, C, n_chunk = case
+    rng = np.random.default_rng(sum(case))
+    q = _normal(rng, B, KV, G, hd)
+    mk, mv = _normal(rng, B, KV, Lm, hd), _normal(rng, B, KV, Lm, hd)
+    ck, cv = _normal(rng, B, KV, C, hd), _normal(rng, B, KV, C, hd)
+    main_full = n_main == Lm
+    want = np.asarray(jax.jit(jgen._attend_two_tier, static_argnums=(5,))(
+        jnp.asarray(q).reshape(B, KV * G, 1, hd), {"k": jnp.asarray(mk), "v": jnp.asarray(mv)},
+        {"k": jnp.asarray(ck), "v": jnp.asarray(cv)}, n_main, n_chunk, main_full))
+    got = fd.flash_decode_two_tier(*_t(q, mk, mv), n_main, *_t(ck, cv), n_chunk)
+    np.testing.assert_allclose(got.reshape(B, KV * G, 1, hd).numpy(), want, rtol=2e-5, atol=2e-6)
+
+
+def test_two_tier_bf16_matches_jax_within_a_bf16_rounding():
+    """bf16 caches: both cast the unnormalised p to bf16 before the f32 PV
+    products and round o to bf16; their f32 sums run in other orders, which
+    can move a rounding of p or o by one bf16 ulp (2^-7 at |o| ~ 1)."""
+    B, KV, G, hd, Lm, n_main, C, n_chunk = 2, 2, 4, 64, 100, 100, 63, 17
+    rng = np.random.default_rng(7)
+    arrays = [_normal(rng, B, KV, G, hd), _normal(rng, B, KV, Lm, hd), _normal(rng, B, KV, Lm, hd),
+              _normal(rng, B, KV, C, hd), _normal(rng, B, KV, C, hd)]
+    jq, jmk, jmv, jck, jcv = (jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays)
+    tq, tmk, tmv, tck, tcv = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    want = jgen._attend_two_tier(jq.reshape(B, KV * G, 1, hd), {"k": jmk, "v": jmv},
+                                 {"k": jck, "v": jcv}, n_main, n_chunk, True)
+    got = fd.flash_decode_two_tier(tq, tmk, tmv, n_main, tck, tcv, n_chunk)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().reshape(B, KV * G, 1, hd).numpy(),
+                               np.asarray(want, dtype=np.float32), atol=1.6e-2, rtol=1e-2)
+
+
+def test_two_tier_over_one_segment_is_flash_decode():
+    """A second segment of length 0 is ``flash_decode`` over the first."""
+    rng = np.random.default_rng(3)
+    q, k, v = _normal(rng, 2, 2, 4, 32), _normal(rng, 2, 2, 128, 32), _normal(rng, 2, 2, 128, 32)
+    one = fd.flash_decode(*_t(q, k, v), 77)
+    two = fd.flash_decode_two_tier(*_t(q, k[:, :, :77], v[:, :, :77]), 77, *_t(k, v), 0)
+    torch.testing.assert_close(two, one, atol=2e-6, rtol=2e-5)
+
+
+@pytest.mark.parametrize("n_main,n_chunk,match", [(101, 3, "n_main=101"), (5, 9, "n_chunk=9"),
+                                                  (-1, 3, "n_main=-1")])
+def test_two_tier_refuses_counts_outside_the_segments(n_main, n_chunk, match):
+    q, main, chunk = torch.zeros(1, 1, 1, 16), torch.zeros(1, 1, 100, 16), torch.zeros(1, 1, 8, 16)
+    with pytest.raises(ValueError, match=match):
+        fd.flash_decode_two_tier(q, main, main, n_main, chunk, chunk, n_chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 5, 11])
+def test_kv_write_matches_dynamic_update_slice_in_place(pos, dtype):
+    """Bit-exact against ``jax.lax.dynamic_update_slice`` at the first, a
+    middle and the last slot; the caches stay the same tensors, and k/v
+    may be strided head views (a transpose of a slice of the qkv product)."""
+    B, KV, C, hd = 2, 3, 12, 16
+    rng = np.random.default_rng(pos)
+    ck, cv = _normal(rng, B, KV, C, hd), _normal(rng, B, KV, C, hd)
+    qkv = _normal(rng, B, 1, (1 + 2 * KV) * hd)
+    tck, tcv = (torch.from_numpy(a).to(dtype) for a in (ck, cv))
+    tqkv = torch.from_numpy(qkv).to(dtype)
+    _, k, v = torch.split(tqkv, [hd, KV * hd, KV * hd], dim=-1)
+    k, v = tgen.heads(k, B, 1, KV, hd), tgen.heads(v, B, 1, KV, hd)
+    assert not k.is_contiguous()
+    ids = (id(tck), tck.data_ptr(), id(tcv), tcv.data_ptr())
+    out_k, out_v = kw.kv_write(tck, tcv, k, v, pos)
+    assert (id(out_k), out_k.data_ptr(), id(out_v), out_v.data_ptr()) == ids
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    for cache, new, got in ((ck, k, tck), (cv, v, tcv)):
+        want = jax.lax.dynamic_update_slice(jnp.asarray(cache, jdt),
+                                            jnp.asarray(new.float().numpy(), jdt), (0, 0, pos, 0))
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(pos=12), "outside"), (dict(pos=-1), "outside"),
+    (dict(k=torch.zeros(2, 3, 2, 16)), "k/v must be"),
+    (dict(cache_v=torch.zeros(2, 3, 11, 16)), "one shape"),
+    (dict(v=torch.zeros(2, 3, 1, 16, dtype=torch.float64)), "float64"),
+])
+def test_kv_write_refuses_bad_slots_and_shapes(bad, match):
+    args = dict(cache_k=torch.zeros(2, 3, 12, 16), cache_v=torch.zeros(2, 3, 12, 16),
+                k=torch.zeros(2, 3, 1, 16), v=torch.zeros(2, 3, 1, 16), pos=0)
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        kw.kv_write(**args)
+
+
+def test_decode_lane_takes_the_kernel_wrappers_only_with_use_flash(monkeypatch):
+    """``use_flash`` picks the wrappers statically (which launch the
+    kernels for CUDA tensors); without it the decode step calls the plain
+    versions directly.  On the CPU both give the same logits."""
+    from seldon_core_tpu_torch.models.transformer import LMConfig, lm_init
+
+    cfg = LMConfig(vocab=32, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=64,
+                   dtype=torch.float32)
+    params = lm_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    calls = []
+    for name in ("flash_decode_two_tier", "flash_decode_two_tier_reference", "kv_write",
+                 "kv_write_reference"):
+        orig = getattr(tgen, name)
+        monkeypatch.setattr(tgen, name, lambda *a, _n=name, _f=orig: calls.append(_n) or _f(*a))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, 32, (2, 5)).astype(np.int32))
+    out = {}
+    for use_flash in (True, False):
+        calls.clear()
+        _, main = tgen.prefill(params, prompt, tgen.init_cache(cfg, 2, 5, "cpu"), cfg)
+        chunk = tgen.init_chunk(cfg, 2, 3, "cpu")
+        logits, _ = tgen.decode_step_two_tier(params, torch.tensor([1, 2]), main, chunk, 5, 0, cfg,
+                                              use_flash)
+        out[use_flash] = logits
+        want = (["kv_write", "flash_decode_two_tier"] if use_flash
+                else ["kv_write_reference", "flash_decode_two_tier_reference"])
+        assert calls == want * cfg.n_layers
+    torch.testing.assert_close(out[True], out[False], atol=0, rtol=0)
+    assert fd.LAUNCHES == 0 and kw.LAUNCHES == 0  # CPU tensors: no kernel
+
+
+def _spy(monkeypatch, names):
+    calls = []
+    for name in names:
+        orig = getattr(tgen, name)
+        monkeypatch.setattr(tgen, name, lambda *a, _n=name, _f=orig: calls.append(_n) or _f(*a))
+    return calls
+
+
+@pytest.mark.parametrize("L", [100, 128])
+def test_single_tier_decode_step_takes_the_wrapper_at_any_cache_length(monkeypatch, L):
+    """``decode_step`` with ``use_flash`` calls the kernel wrapper in every
+    layer whatever the cache length (no L % 128 gate), and gives the
+    plain path's logits on the CPU."""
+    from seldon_core_tpu_torch.models.transformer import LMConfig, lm_init
+
+    cfg = LMConfig(vocab=32, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=64,
+                   dtype=torch.float32)
+    params = lm_init(torch.Generator().manual_seed(1), cfg, "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, 32, (2, 7)).astype(np.int32))
+    calls = _spy(monkeypatch, ("flash_decode_two_tier", "flash_decode_reference"))
+    out = {}
+    for use_flash in (True, False):
+        calls.clear()
+        _, cache = tgen.prefill(params, prompt, tgen.init_cache(cfg, 2, L, "cpu"), cfg)
+        out[use_flash], _ = tgen.decode_step(params, torch.tensor([3, 4]), cache, 7, cfg,
+                                             use_flash)
+        want = "flash_decode_two_tier" if use_flash else "flash_decode_reference"
+        assert calls == [want] * cfg.n_layers
+    torch.testing.assert_close(out[True], out[False], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S", [6, 128])
+def test_single_tier_decode_step_with_use_flash_matches_jax(S):
+    """``decode_step`` with ``use_flash`` (``flash_decode_two_tier`` over
+    the cache and an empty chunk, at any cache length, and ``kv_write``)
+    against the JAX package's ``decode_step``."""
+    from seldon_core_tpu.models.transformer import LMConfig as JConfig
+    from seldon_core_tpu.models.transformer import lm_init as jax_lm_init
+    from seldon_core_tpu_torch.convert import params_from_jax
+    from seldon_core_tpu_torch.models.transformer import LMConfig
+
+    dims = dict(vocab=48, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=64)
+    jcfg, tcfg = JConfig(**dims, dtype=jnp.float32), LMConfig(**dims, dtype=torch.float32)
+    jp = jax_lm_init(jax.random.key(4), jcfg)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    L = S + 2 if S % 128 else S + 128
+    prompt = np.random.default_rng(5).integers(0, 48, (2, S)).astype(np.int32)
+    _, jcache = jax.jit(jgen.prefill, static_argnums=(3,))(
+        jp, jnp.asarray(prompt), jgen.init_cache(jcfg, 2, L), jcfg)
+    _, tcache = tgen.prefill(tp, torch.from_numpy(prompt), tgen.init_cache(tcfg, 2, L, "cpu"), tcfg)
+    token = np.array([1, 9], np.int32)
+    jl, _ = jax.jit(jgen.decode_step, static_argnums=(4,))(jp, jnp.asarray(token), jcache, S, jcfg)
+    tl, tcache = tgen.decode_step(tp, torch.from_numpy(token), tcache, S, tcfg, use_flash=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    from seldon_core_tpu_torch.ops._build import find_nvcc
+
+    try:
+        find_nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TWO_TIER + [(32, 4, 4, 64, 512, 512, 63, 32)],
+                         ids=[str(c) for c in TWO_TIER] + ["served"])
+def test_kernel_matches_plain_on_card(case):
+    _need_card()
+    B, KV, G, hd, Lm, n_main, C, n_chunk = case
+    gen = torch.Generator().manual_seed(sum(case))
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16).to(dev)
+
+    q, mk, mv, ck, cv = (rnd(B, KV, G, hd), rnd(B, KV, Lm, hd), rnd(B, KV, Lm, hd),
+                         rnd(B, KV, C, hd), rnd(B, KV, C, hd))
+    before = fd.LAUNCHES
+    got = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk)
+    again = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk)
+    want = fd.flash_decode_two_tier_reference(q, mk, mv, n_main, ck, cv, n_chunk)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == before + 2
+    # p rounds to bf16 at running (kernel) vs global (plain) maxima, and o
+    # to bf16: 2 bf16 ulps at |o| ~ 1, as FLASH_O_ATOL in chip_smoke.py
+    assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_kv_write_kernel_is_bit_exact_on_card():
+    _need_card()
+    dev = torch.device("cuda")
+    ck = torch.randn(4, 2, 9, 64, device=dev).to(torch.bfloat16)
+    cv = torch.randn(4, 2, 9, 64, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(4, 2, 1, 64, device=dev).to(torch.bfloat16) for _ in range(2))
+    want_k, want_v = kw.kv_write_reference(ck.clone(), cv.clone(), k, v, 7)
+    before = kw.LAUNCHES
+    kw.kv_write(ck, cv, k, v, 7)
+    torch.cuda.synchronize()
+    assert kw.LAUNCHES == before + 1
+    assert torch.equal(ck, want_k) and torch.equal(cv, want_v)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_what_it_cannot_take():
+    _need_card()
+    assert "bfloat16" in fd.decode_kernel_shape_error(64, torch.float32)
+    assert "multiple of 8" in fd.decode_kernel_shape_error(36, torch.bfloat16)
+    assert fd.decode_kernel_shape_error(64, torch.bfloat16, 4) is None
+
+
+@pytest.mark.cuda
+def test_single_tier_decode_step_launches_once_per_layer_on_card():
+    """At a cache length of 100 (not a multiple of 128) ``decode_step``
+    with ``use_flash`` launches the decode kernel once per layer, and its
+    logits stay near the plain path's."""
+    _need_card()
+    from seldon_core_tpu_torch.models.transformer import LMConfig, lm_init
+
+    dev = torch.device("cuda")
+    cfg = LMConfig(vocab=64, d_model=128, n_heads=4, n_kv_heads=2, n_layers=3, d_ff=256,
+                   dtype=torch.bfloat16)
+    params = lm_init(torch.Generator().manual_seed(2), cfg, dev)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(0, 64, (2, 40)).astype(np.int32))
+    out = {}
+    for use_flash in (True, False):
+        _, cache = tgen.prefill(params, prompt.to(dev), tgen.init_cache(cfg, 2, 100, dev), cfg)
+        before = fd.LAUNCHES
+        out[use_flash], _ = tgen.decode_step(params, torch.tensor([3, 4], device=dev), cache, 40,
+                                             cfg, use_flash)
+        torch.cuda.synchronize()
+        assert fd.LAUNCHES - before == (cfg.n_layers if use_flash else 0)
+    assert torch.isfinite(out[True]).all()
+    # bf16 logits: the kernel and the plain path round p and o differently
+    assert float((out[True] - out[False]).abs().max()) <= 0.125

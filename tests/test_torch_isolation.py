@@ -1,7 +1,7 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py, imports JAX or anything of the JAX package, and the port
-serves the MNIST and generator examples, takes a training step and
-round-trips a checkpoint with both blocked."""
+serves the MNIST and generator examples, streams the generator's tokens,
+takes a training step and round-trips a checkpoint with both blocked."""
 
 import ast
 import os
@@ -21,10 +21,11 @@ def _blocked(name: str) -> bool:
 def _port_files():
     files = sorted((ROOT / "seldon_core_tpu_torch").rglob("*.py"))
     assert len(files) >= 18
-    # the training slice's modules are scanned with the rest
+    # the training and decode-lane slices' modules are scanned with the rest
     names = {str(f.relative_to(ROOT / "seldon_core_tpu_torch")) for f in files}
     assert {"optim.py", "tree.py", "runtime/persistence.py",
-            "ops/flash_attention.py", "models/transformer.py"} <= names
+            "ops/flash_attention.py", "models/transformer.py",
+            "ops/flash_decode.py", "ops/kv_write.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -81,8 +82,15 @@ engine.close()
 gen = EngineService(load_deployment_from_env("examples/generator_deployment.json"), device="cpu")
 gen_text, gen_status = asyncio.run(gen.predict_json(
     json.dumps({"data": {"ndarray": [list(range(128))]}})))
-gen.close()
 gen_rows = json.loads(gen_text)["data"]["ndarray"]
+
+async def stream():
+    return [json.loads(e) async for e in gen.generate_stream(gen.prepare_stream_request(
+        json.dumps({"data": {"ndarray": [list(range(128))]}, "chunk": 5})))]
+
+events = asyncio.run(stream())
+gen.close()
+streamed = [t for e in events[:-1] for t in e["tokens"][0]]
 import os, tempfile
 from seldon_core_tpu_torch.models import transformer as T
 from seldon_core_tpu_torch.optim import adam
@@ -99,6 +107,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
+                  "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "leaked": leaked}))
 """
 
@@ -111,5 +120,5 @@ def test_port_serves_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == (
-        '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], "trained": true, '
-        '"leaked": []}')
+        '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], "streamed": true, '
+        '"trained": true, "leaked": []}')
