@@ -33,13 +33,15 @@ prints its wall:
   5. times    fused-MLP kernel / plain / library device times and the
               bound at B=1 and B=1024
   6. flash    flash_attention kernel vs flash_attention_reference, o and
-              lse, causal and not, at five shapes (the served prefill layer
-              among them)
-  7. decode-kernel  flash_decode_two_tier vs its plain version at ten
+              lse, causal and not, at six shapes (the served prefill layer
+              among them, and S=192: a ragged last 128-row query tile)
+  7. decode-kernel  flash_decode_two_tier vs its plain version at fifteen
               shapes (the served layer with 1, 32 and 63 chunk tokens, B=1,
-              main 100, main 640 full and 600 of 640, hd 128 and 256, MHA),
-              each a second time for the same bits; flash_decode over one
-              cache; kv_write bit-exact and in place from strided head views
+              main 100, main 640 full and 600 of 640, hd 128 and 256, MHA at
+              hd 64 and 256, B=1 at 1, 17, 309 and 640 positions: clusters
+              of 1, 2, 4 and 8 blocks), each a second time for the same
+              bits; flash_decode over one cache; kv_write bit-exact and in
+              place from strided head views
   8. gen      the flagship TransformerGenerator of bench.py:3342-3344
               (vocab 32768, d_model 1024, 16 heads over 4 kv heads, 12
               layers, d_ff 4096, 64 new tokens, bf16): engine construction
@@ -59,7 +61,9 @@ prints its wall:
               two grow_merges, teacher-forced through the plain path
  10. times    flash kernel / plain / SDPA device times and the bound at the
               served prefill shape and at S=2048, 4096 (B=4); flash decode
-              and kv_write kernel / plain / library times and their bounds;
+              (the served layer and the 1-row stream's, each rotating over
+              256 MiB of inputs: cold L2, as the served step reads them) and
+              kv_write kernel / plain / library times and their bounds;
               TTFT and generate p50 with the kernels and with
               attention="xla" in turns (8 walls each, with quartiles),
               decode tokens/s; profiled prefill
@@ -126,8 +130,10 @@ GEN_DIMS = {"vocab": 32768, "d_model": 1024, "n_heads": 16, "n_kv_heads": 4,
             "n_layers": 12, "d_ff": 4096, "max_new_tokens": 64}
 GEN_S = 512            # the flagship traffic: B=32 prompts of 512 tokens
 GEN_B = 32
+# (B, H, KV, S, D); S = 192 is a ragged last 128-row query tile, which only
+# the kernel's own entry (fa._launch) takes: the JAX contract wants S % 128
 FLASH_SHAPES = [(1, 2, 2, 256, 64), (1, 1, 1, 384, 32), (32, 16, 4, 512, 64),
-                (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256)]   # (B, H, KV, S, D)
+                (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256), (2, 8, 2, 192, 64)]
 FLASH_TIMED = [(32, 16, 4, 512, 64), (4, 16, 4, 2048, 64), (4, 16, 4, 4096, 64)]
 # (B, H, KV, S, D): MHA, the 3-tile carry with D padded to the 64-wide
 # tile, the training layer, GQA at D=128, and D=256 (the two-walk dK/dV)
@@ -173,13 +179,34 @@ TRAIN_LOSS_RTOL = 1e-3   # the loss is a mean over 8,192 tokens of f32 nll
 # at the global max in the plain version; o rounds to bf16).  Shapes (B, KV,
 # G, hd, main slots, n_main, chunk slots, n_chunk): the served layer (63
 # chunk slots: 64 new tokens) at three chunk fills, B = 1, the 100-token
-# prompt, main 640 full and 600 of 640 valid, hd 128 and 256, and MHA.
+# prompt, main 640 full and 600 of 640 valid, hd 128 and 256, MHA at hd 64
+# and 256 (one query row a block: the layout whose mbarriers need rounding
+# up to 8 bytes), and B = 1 at 1, 17, 309 (a cluster of 4) and 640
+# positions (a cluster of 8).  Together they plan clusters of 1, 2, 4 and 8.
 DECODE_SHAPES = [(32, 4, 4, 64, 512, 512, 63, 1), (32, 4, 4, 64, 512, 512, 63, 32),
                  (32, 4, 4, 64, 512, 512, 63, 63), (1, 4, 4, 64, 512, 512, 63, 17),
                  (32, 4, 4, 64, 100, 100, 63, 9), (32, 4, 4, 64, 640, 640, 63, 9),
                  (4, 4, 4, 64, 640, 600, 63, 9), (4, 4, 4, 128, 512, 512, 63, 9),
-                 (4, 4, 4, 256, 512, 512, 63, 9), (8, 16, 1, 64, 512, 512, 63, 9)]
-DECODE_TIMED = [(32, 4, 4, 64, 512, 512, 63, 32), (32, 4, 4, 64, 512, 512, 63, 63)]
+                 (4, 4, 4, 256, 512, 512, 63, 9), (8, 16, 1, 64, 512, 512, 63, 9),
+                 (4, 16, 1, 256, 512, 512, 63, 9), (1, 4, 4, 64, 512, 0, 63, 1),
+                 (1, 4, 4, 64, 512, 0, 63, 17), (1, 4, 4, 64, 512, 300, 63, 9),
+                 (1, 4, 4, 64, 640, 640, 63, 0)]
+# the served layer at two chunk fills, and the 1-row SSE stream's layer
+DECODE_TIMED = [(32, 4, 4, 64, 512, 512, 63, 32), (32, 4, 4, 64, 512, 512, 63, 63),
+                (1, 4, 4, 64, 512, 512, 63, 17)]
+# The served decode step reads a different cache in each of its 12 layers
+# (~214 MB a step), so its kernel finds its K/V in HBM, not in the 50 MB
+# L2: the decode times rotate over input sets of at least this many bytes.
+DECODE_COLD_BYTES = 256 * 2**20
+# the flash-attention and flash-decode designs, for the kernels line
+FLASH_DESIGN = ("persistent CTAs (one per SM) over 128-row query tiles: two consumer "
+                "warpgroups taking turns, one TMA producer warp, two Q buffers and a 3-stage "
+                "mbarrier ring of K/V in 128-byte-swizzled shared memory, QK^T and PV by "
+                "wgmma (P from registers), base-2 online softmax")
+DECODE_DESIGN = ("positions split across a thread-block cluster of 1-8 blocks "
+                 "(decode_split_plan), a bulk-copy (cp.async.bulk) ring of K/V rows on "
+                 "mbarriers, f32 FMAs, slots combined in shared memory and blocks on rank 0 "
+                 "through distributed shared memory: one launch")
 STREAM_CHUNK = 8          # tokens per SSE frame in the stream phase
 STREAM_LONG = (4, 300)    # the in-process stream: rows, new tokens (two grow_merges)
 
@@ -310,7 +337,9 @@ def flash_build_checks(torch, fa) -> None:
     taken, two others refused, and the backward takes every head dim the
     forward takes."""
     smem, why = fa._smem_bytes(64, GEN_S, torch.bfloat16)
-    if why is not None or smem != 3 * 64 * (64 + 8) * 2:
+    # two Q buffers (128 x 64), three stages of K and V (128 x 64 each), the
+    # 1 KiB swizzle alignment and ten mbarriers
+    if why is not None or smem != 2 * 128 * 64 * 2 + 3 * 2 * 128 * 64 * 2 + 1024 + 10 * 8:
         raise AssertionError(f"flash shape check at D=64 S={GEN_S}: {smem} bytes, {why!r}")
     for head_dim, dtype, match in ((40, torch.bfloat16, "multiple of 16"),
                                    (64, torch.float32, "bfloat16")):
@@ -335,10 +364,21 @@ def flash_build_checks(torch, fa) -> None:
 
 def decode_build_checks(torch, fd) -> None:
     """The flash-decode kernel's own shape check (flash_decode_smem_bytes):
-    the served head shape is taken, three others refused."""
+    the served head shape and MHA at hd=256 are taken, three others
+    refused."""
     smem, why = fd._smem_bytes(64, 4, torch.bfloat16)
-    if why is not None or smem != 32 * 4 * (64 + 2) * 4:
+    # the ring (4 stages of 2 x 32 positions' K and V rows), the slot
+    # weights (32 slots x 4 rows), up to 8 ranks' (m, l, acc) per row and
+    # the ring's 4 mbarriers
+    if why is not None or smem != (4 * 2 * 32 * 64 * 4 + 32 * 4 * 4 + 8 * 4 * (64 + 2) * 4
+                                   + 4 * 8):
         raise AssertionError(f"flash-decode shape check at hd=64 G=4: {smem} bytes, {why!r}")
+    # hd=256, one row: 8 slots, so 9 weight floats put the mbarriers at an
+    # odd float offset, which the layout rounds up to 8 bytes
+    mha, why = fd._smem_bytes(256, 1, torch.bfloat16)
+    floats = 4 * 2 * 8 * 256 + 9 + 8 * (256 + 2)
+    if why is not None or mha != ((floats + 1) // 2 * 2) * 4 + 4 * 8:
+        raise AssertionError(f"flash-decode shape check at hd=256 G=1: {mha} bytes, {why!r}")
     for head_dim, dtype, match in ((36, torch.bfloat16, "multiple of 8"),
                                    (512, torch.bfloat16, "up to 256"),
                                    (64, torch.float32, "bfloat16")):
@@ -347,7 +387,8 @@ def decode_build_checks(torch, fd) -> None:
             raise AssertionError(f"flash-decode shape check let hd={head_dim} {dtype} "
                                  f"through: {why!r}")
     log(f"[build] flash-decode shape check: hd=64 G=4 bf16 takes {smem} bytes of shared "
-        f"memory; hd=36, hd=512 and float32 refused")
+        f"memory, hd=256 G=1 {mha} (mbarriers 8-byte aligned); hd=36, hd=512 and float32 "
+        f"refused")
 
 
 def decode_inputs(torch, shape, gen, dev):
@@ -367,10 +408,14 @@ def decode_kernel_phase(torch, fd, kw, dev) -> dict:
     largest absolute error."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 5)
-    max_err = 0.0
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_err, clusters = 0.0, set()
     for shape in DECODE_SHAPES:
         q, mk, mv, ck, cv = decode_inputs(torch, shape, gen, dev)
         n_main, n_chunk = shape[5], shape[7]
+        split, span = fd.decode_split_plan(shape[0], shape[1], shape[2], n_main + n_chunk,
+                                           sm_count)
+        clusters.add(split)
         before = fd.LAUNCHES
         got = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk)
         again = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk)
@@ -384,8 +429,12 @@ def decode_kernel_phase(torch, fd, kw, dev) -> dict:
         if not torch.equal(got, again):
             raise AssertionError(f"flash decode at {shape} differs between two calls")
         max_err = max(max_err, err)
-        log(f"[decode-kernel] (B,KV,G,hd,main,n_main,chunk,n_chunk)={shape}: o max abs err "
-            f"{err:.3e} (tolerance {FLASH_O_ATOL}); a second call bit-identical")
+        log(f"[decode-kernel] (B,KV,G,hd,main,n_main,chunk,n_chunk)={shape}, a cluster of "
+            f"{split} ({span} positions a block): o max abs err {err:.3e} (tolerance "
+            f"{FLASH_O_ATOL}); a second call bit-identical")
+    if clusters != {1, 2, 4, 8}:
+        raise AssertionError(f"DECODE_SHAPES planned clusters of {sorted(clusters)}, not 1, 2, 4 "
+                             f"and 8")
     q, mk, mv, _, _ = decode_inputs(torch, DECODE_SHAPES[0], gen, dev)
     got = fd.flash_decode(q, mk, mv, 300)
     err = float((got.float() - fd.flash_decode_reference(q, mk, mv, 300).float()).abs().max())
@@ -494,8 +543,10 @@ def flash_kernel_phase(torch, fa, dev) -> float:
     max_err = 0.0
     for shape in FLASH_SHAPES:
         q, k, v = flash_inputs(torch, shape, gen, dev)
+        # S % 128 != 0 is the kernel's to take, not the JAX contract's
+        fwd = fa.flash_attention_fwd if shape[3] % 128 == 0 else fa._launch
         for causal in (True, False):
-            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            o, lse = fwd(q, k, v, causal)
             ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
             torch.cuda.synchronize()
             o_err = float((o.float() - ro.float()).abs().max())
@@ -949,6 +1000,7 @@ def generation_phases(torch, dev, smi) -> list:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
+        "design": FLASH_DESIGN,
         "shape": "B=32 H=16 KV=4 S=512 D=64 causal bf16",
         "at": timings,
         "served": served,
@@ -975,6 +1027,7 @@ def generation_phases(torch, dev, smi) -> list:
             "shape": shape_text,
             "at": decode_rows[name],
         })
+    rows[1]["design"] = DECODE_DESIGN
     return rows
 
 
@@ -992,35 +1045,73 @@ def host_us_per_call(torch, fn, calls: int = 500) -> float:
     return host / calls * 1e6
 
 
+def decode_sets(torch, shape, dev, seed: int) -> list:
+    """Input sets of one decode shape, made on the card, enough of them to
+    hold DECODE_COLD_BYTES of K/V together: a run that walks them in turn
+    finds each set's K/V evicted from the 50 MB L2, as the served step does."""
+    B, KV, G, hd, Lm, _, C, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    per_set = 2 * 2 * B * KV * (Lm + C) * hd
+    n_sets = max(4, -(-DECODE_COLD_BYTES // per_set))
+
+    def rnd(*dims):
+        return torch.randn(*dims, generator=gen, device=dev).to(torch.bfloat16)
+
+    return [(rnd(B, KV, G, hd), rnd(B, KV, Lm, hd), rnd(B, KV, Lm, hd), rnd(B, KV, C, hd),
+             rnd(B, KV, C, hd)) for _ in range(n_sets)]
+
+
+def rotating(sets, fn):
+    """A call of ``fn(*set)`` that moves to the next set at every call."""
+    state = {"i": 0}
+
+    def call():
+        x = sets[state["i"] % len(sets)]
+        state["i"] += 1
+        return fn(*x)
+
+    return call
+
+
 def decode_times(torch, fd, kw, dev, smi, gen) -> dict:
     """Device times of the decode kernels beside their plain versions, a
-    PyTorch library call and their bounds: flash decode at the served layer
-    with 32 and 63 chunk tokens (SDPA over the same positions made dense
-    beforehand, enable_gqa: a yardstick the port never calls), and kv_write
-    into the served chunk buffer (torch._foreach_copy_ of the two slots)."""
+    PyTorch library call and their bounds: flash decode at DECODE_TIMED
+    (SDPA over the same positions made dense beforehand, enable_gqa: a
+    yardstick the port never calls), each of the three rotating over
+    DECODE_COLD_BYTES of inputs, so K/V come from HBM; and kv_write into
+    the served chunk buffer (torch._foreach_copy_ of the two slots)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {"flash_decode": [], "kv_write": []}
     for shape in DECODE_TIMED:
-        q, mk, mv, ck, cv = decode_inputs(torch, shape, gen, dev)
         B, KV, G, hd, _, n_main, _, n_chunk = shape
-        k_ms = device_ms(torch, lambda: fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv,
-                                                                 n_chunk), 200)
-        p_ms = device_ms(torch, lambda: fd.flash_decode_two_tier_reference(
-            q, mk, mv, n_main, ck, cv, n_chunk), 50)
-        kd = torch.cat([mk[:, :, :n_main], ck[:, :, :n_chunk]], dim=2)
-        vd = torch.cat([mv[:, :, :n_main], cv[:, :, :n_chunk]], dim=2)
-        qh = q.reshape(B, KV * G, 1, hd)
-        l_ms = device_ms(torch, lambda: sdpa(qh, kd, vd, enable_gqa=True), 200)
+        sets = decode_sets(torch, shape, dev, SEED + 7)
+        k_ms = device_ms(torch, rotating(sets, lambda q, mk, mv, ck, cv: fd.flash_decode_two_tier(
+            q, mk, mv, n_main, ck, cv, n_chunk)), 200)
+        p_ms = device_ms(torch, rotating(sets, lambda q, mk, mv, ck, cv:
+                                         fd.flash_decode_two_tier_reference(
+                                             q, mk, mv, n_main, ck, cv, n_chunk)), 50)
+        dense = [(q.reshape(B, KV * G, 1, hd),
+                  torch.cat([mk[:, :, :n_main], ck[:, :, :n_chunk]], dim=2),
+                  torch.cat([mv[:, :, :n_main], cv[:, :, :n_chunk]], dim=2))
+                 for q, mk, mv, ck, cv in sets]
+        l_ms = device_ms(torch, rotating(dense, lambda qh, kd, vd: sdpa(qh, kd, vd,
+                                                                        enable_gqa=True)), 200)
+        del dense
         b_ms, b_by = decode_bound(shape)
+        q, mk, mv, ck, cv = sets[0]
         h_us = host_us_per_call(torch, lambda: fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv,
                                                                         n_chunk))
+        split, _ = fd.decode_split_plan(
+            B, KV, G, n_main + n_chunk, torch.cuda.get_device_properties(dev).multi_processor_count)
         rows["flash_decode"].append({"shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
                                      "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                     "host_us_per_call": h_us})
-        log(f"[times] flash decode (B,KV,G,hd,main,n_main,chunk,n_chunk)={shape}: kernel "
-            f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, SDPA over {n_main + n_chunk} dense slots "
-            f"{l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}); wrapper host {h_us:.3f} us per "
-            f"call on {smi}")
+                                     "cluster": split, "host_us_per_call": h_us,
+                                     "input_sets": len(sets)})
+        log(f"[times] flash decode (B,KV,G,hd,main,n_main,chunk,n_chunk)={shape}, cold L2 "
+            f"({len(sets)} input sets): kernel {k_ms:.5f} ms (cluster of {split}), plain "
+            f"{p_ms:.5f} ms, SDPA over {n_main + n_chunk} dense slots {l_ms:.5f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}); wrapper host {h_us:.3f} us per call on {smi}")
+        del sets, q, mk, mv, ck, cv
     B, KV, _, hd, _, _, C, _ = DECODE_TIMED[0]
     ck, cv = (torch.randn(B, KV, C, hd, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))
     k, v = (torch.randn(B, KV, 1, hd, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))

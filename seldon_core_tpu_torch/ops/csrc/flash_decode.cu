@@ -10,7 +10,8 @@
 //   * scores (q.k) * (1/sqrt(D)) in f32 from bf16 inputs;
 //   * an online softmax: running max m and normaliser l in f32, p = exp(s -
 //     m) cast to bf16 (the cache dtype, JAX's p.astype(v.dtype)) before an
-//     f32 PV product, the accumulator rescaled by exp(m_prev - m);
+//     f32 PV product, the accumulator rescaled by exp(m_prev - m); the
+//     scores are taken times log2 e and every exp is the SFU's exp2;
 //   * o = acc / max(l, 1e-30) in q's dtype.
 // The TPU kernel masks positions >= n_valid with -1e30 inside 128-slot
 // blocks; this kernel reads only the valid positions of each segment and
@@ -25,34 +26,59 @@
 // at the flagship: 16 heads over 4 kv heads), far below the ~295 at which
 // the card becomes compute-bound, so the bound is the bytes: K and V of
 // the valid positions read once.  At the served layer (B=32, KV=4, D=64,
-// n_main=512, n_chunk=32) that is ~17.8 MB, ~5.3 us at 3.35 TB/s.
+// n_main=512, n_chunk=32) that is ~17.8 MB, ~5.3 us at 3.35 TB/s; HBM
+// reaches that rate only with ~20 KB or more in flight on every SM.
 //
-// Design (simple first): one block of 8 warps per (b*KV + kv head, tile of
-// up to 8 query rows of the group).  An mma.sync m16 tile would be 3/4
-// padding at G = 4, and the work is bytes-bound, so the products are f32
-// FMAs on the CUDA cores.  A cache row of D bf16 values is read as D/8
-// 16-byte loads by a group of lanes (lpr, the power of two >= D/8), so a
-// warp reads 32/lpr positions at once; each such lane group is a "slot"
-// that walks every slots-th position, keeping U positions' K and V loads
-// in flight per step, with its own (m, l, acc) over its positions.  A
-// lane holds the 8 columns of q and of the accumulator that match its
-// chunk of the row; scores are summed across the lane group with
-// shuffles.  At the end the slots combine their (m, l, acc) in shared
-// memory, in a fixed order, so a repeat gives the same bits.
-//
-// Later, not now: B = 1 gives only KV blocks (4 on 132 SMs).  Splitting
-// the positions across blocks with a combine pass (flash-decoding) is a
-// perf PR's work, as are cp.async/TMA staging and tensor-core products.
+// Design: the positions of each (b*KV + kv head, tile of up to 8 query
+// rows) are split across the C blocks of one thread-block cluster (C = 1,
+// 2, 4 or 8, launched with cudaLaunchKernelEx and a cluster dimension), so
+// that the grid holds at least ~1.5 blocks per SM where the positions
+// allow, and more than KV blocks at B = 1.  C and the split (span positions per
+// block, the last one short) come from the caller
+// (ops/flash_decode.py decode_split_plan) and depend only on B, KV, G, D
+// and n_main + n_chunk: position j, counted across both segments, goes to
+// block j / span, and within the block to slot (j % span) % slots, so a
+// stream whose chunk buffer is merged into main at another point gives the
+// same bits as one that is not.
+//   * A block has 8 warps.  A cache row of D bf16 values is read as D/8
+//     16-byte chunks by a group of lanes (lpr, the power of two >= D/8);
+//     each lane group is a slot that takes every slots-th position of the
+//     block's share, with its own (m, l, acc) over them, updated U
+//     positions at a time.  The products are f32 FMAs on the CUDA cores:
+//     at G = 4 the work is ~G FLOP per byte, and an m16 tensor-core tile
+//     would be 3/4 padding.  Each score's sum over its lane group runs a
+//     shuffle level at a time for all of a step's scores, so their
+//     latencies overlap: on the card the walk is bound by these
+//     instructions' latency more than by the bytes.
+//   * K and V rows reach shared memory through a ring of NSTAGE stages
+//     of U x slots positions (16 KB of K and V at D = 64), NSTAGE - 1
+//     stages ahead of their use, by the bulk-copy engine
+//     (cp.async.bulk, one copy per contiguous run of rows, completion on
+//     an mbarrier per stage): 48 KB in flight per block, issued by one
+//     thread, so the lanes spend no instructions on loads.  (Per-lane
+//     16-byte cp.async copies measured no faster: the walk, not the
+//     copies, sets a stage's time.)
+//   * At the end the slots combine their (m, l, acc) in shared memory in a
+//     fixed order.  With C > 1 each block stores its (m, l, acc) into rank
+//     0's shared memory through distributed shared memory (map_shared_rank:
+//     remote stores need no round trip, where remote loads would wait on
+//     each), the cluster synchronises, and rank 0 combines them in rank
+//     order: no scratch tensor, no atomics, and still one launch per call.
+//     A repeat gives the same bits.
 //
 // Interface: plain C functions loaded with ctypes (no PyTorch headers).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -60,10 +86,16 @@ constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_D = 256;
 constexpr int MAX_GT = 8;              // query rows per block
+constexpr int MAX_SPLIT = 8;           // blocks per cluster: the portable limit
+constexpr int NSTAGE = 4;              // ring depth, in groups of U positions a slot
 constexpr int SMEM_LIMIT = 232448;     // 227 KB opt-in per block on sm_90
 constexpr int DTYPE_BF16 = 0;          // dtype codes of the wrappers
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
+
+// positions per slot per ring stage: their K and V reach registers
+// together; fewer at GT = 8 to stay clear of spills
+__host__ __device__ constexpr int positions_per_stage(int GT) { return GT >= 8 ? 1 : 2; }
 
 struct Segment {
   const __nv_bfloat16* k;
@@ -79,11 +111,13 @@ struct Params {
   __nv_bfloat16* o;        // [B, KV, G, D] contiguous
   int KV, G, D;
   int lpr;                 // lanes per cache row
-  float scale;
+  int split;               // C: blocks per cluster, one cluster per (b, kv head, row tile)
+  int span;                // positions per block (the last block's share may be short)
+  float scale_log2;         // (1/sqrt(D)) log2 e
 };
 
 // the power of two >= D / 8 (lanes that read one row, 16 bytes each)
-inline int lanes_per_row(int D) {
+__host__ __device__ inline int lanes_per_row(int D) {
   int lpr = 1;
   while (lpr * 8 < D) lpr <<= 1;
   return lpr;
@@ -96,11 +130,32 @@ inline int group_tile(int G) {
   return gt;
 }
 
-// shared memory of the combine: (m, l, acc[lpr*8]) per slot and row
-inline int smem_for(int D, int GT) {
+// Shared memory, in floats from the base: the ring (NSTAGE stages of K
+// rows then V rows, U x slots positions each), which the slots' combine
+// scratch (m, l, acc[lpr*8] per slot and row) reuses after the walk; then
+// the slot weights per row; then, for each of up to MAX_SPLIT ranks, a
+// block's (m, l, acc) per row: on rank 0 every rank of the cluster writes
+// its own there; last, one mbarrier per ring stage, 8-byte aligned.
+struct Layout {
+  int scratch, weights, result, bars, bytes;
+};
+
+__host__ __device__ inline Layout layout_for(int D, int GT) {
   const int lpr = lanes_per_row(D);
   const int slots = NWARPS * (32 / lpr);
-  return slots * GT * (lpr * 8 + 2) * 4;
+  const int hdp = lpr * 8;
+  const int ring = NSTAGE * positions_per_stage(GT) * slots * D;  // floats: K and V rows
+  const int scratch = slots * GT * (hdp + 2);
+  Layout lay;
+  lay.scratch = 0;
+  lay.weights = ring > scratch ? ring : scratch;
+  // the slot weights per row, later rank 0's rank weights and normaliser
+  lay.result = lay.weights + (slots > MAX_SPLIT + 1 ? slots : MAX_SPLIT + 1) * GT;
+  // mbarriers need 8-byte alignment: round up to an even float offset
+  // (the weights' rows make the offset odd at 8 slots and GT = 1)
+  lay.bars = (lay.result + MAX_SPLIT * GT * (hdp + 2) + 1) & ~1;
+  lay.bytes = (lay.bars + 2 * NSTAGE) * 4;
+  return lay;
 }
 
 // The shape and type rules: bf16, a head dim that is a multiple of 8 up to
@@ -122,7 +177,7 @@ int plan(int head_dim, int group, int dtype_code, char* why, int why_len) {
              group);
     return -1;
   }
-  const int smem = smem_for(head_dim, group_tile(group));
+  const int smem = layout_for(head_dim, group_tile(group)).bytes;
   if (smem > SMEM_LIMIT) {
     snprintf(why, why_len, "flash decode needs %d KiB shared memory (budget %d KiB)",
              smem >> 10, SMEM_LIMIT >> 10);
@@ -141,16 +196,68 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   }
 }
 
+// 2^x on the SFU in one instruction: 0 for -inf (denormal results flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spins until the barrier's phase of this parity has completed; traps
+// after 2^33 clocks (seconds), so a fault ends the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// rows cache rows of row_bytes each, `stride` elements apart, into
+// consecutive rows of shared memory by the bulk-copy engine, completion on
+// bar: one copy when the rows are contiguous, else one a row
+__device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src, long long stride,
+                                          int rows, int row_bytes, uint32_t bar) {
+  const int runs = stride * 2 == row_bytes ? 1 : rows;
+  const int bytes = stride * 2 == row_bytes ? rows * row_bytes : row_bytes;
+  for (int r = 0; r < runs; ++r)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(dst + r * row_bytes), "l"(src + r * stride), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
 template <int GT>
 __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) {
-  // positions per slot per step: their K and V loads are all in flight
-  // before the first is used; fewer at GT = 8 to stay clear of spills
-  constexpr int U = GT >= 8 ? 2 : 4;
+  constexpr int U = positions_per_stage(GT);
   extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -162,12 +269,53 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   const int slot = warp * rpw + sub;
   const int d0 = c * 8;
   const bool active = d0 < p.D;
-  const int bk = blockIdx.x;           // b * KV + kv head
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bk = blockIdx.x / p.split; // b * KV + kv head
   const int b = bk / p.KV;
   const int kvh = bk - b * p.KV;
   const int g0 = blockIdx.y * GT;
   const int gn = min(GT, p.G - g0);
+  // every block of the cluster must have started before another writes
+  // into its shared memory: arrive now, wait before the first remote store
+  if (p.split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
+  const Segment& s0 = p.seg[0];
+  const Segment& s1 = p.seg[1];
+  const int n0 = s0.n;
+  const int n = n0 + s1.n;
+  // this block's share of the positions, by global index over both segments
+  const int p0 = rank * p.span;
+  const int cnt = max(0, min(n, p0 + p.span) - p0);
+  const int T = slots * U;                       // positions per ring stage
+  const int n_groups = (cnt + T - 1) / T;        // block-uniform
+  const Layout lay = layout_for(p.D, GT);
+  const int row_bytes = p.D * 2;
+  const int stage_bytes = 2 * T * row_bytes;     // K rows, then V rows
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t bar0 = smem_u32(smem + lay.bars);
+  // thread 0 loads ring group grp: local positions grp*T .. (in at most two
+  // runs, split where main ends), K and V rows, and arms its barrier
+  auto fill = [&](int grp) {
+    if (grp >= n_groups) return;
+    const int lo = grp * T;
+    const int hi = min(cnt, lo + T);
+    const uint32_t kdst = ring + (grp % NSTAGE) * stage_bytes;
+    const uint32_t bar = bar0 + 8 * (grp % NSTAGE);
+    mbar_expect_tx(bar, 2 * (hi - lo) * row_bytes);
+    for (int i = lo; i < hi;) {
+      const int j = p0 + i;
+      const bool in0 = j < n0;
+      const int end = in0 ? min(hi, n0 - p0) : hi;
+      const Segment& sg = in0 ? s0 : s1;
+      const long long jj = in0 ? j : j - n0;
+      const uint32_t off = (i - lo) * row_bytes;
+      copy_rows(kdst + off, sg.k + b * sg.ks[0] + kvh * sg.ks[1] + jj * sg.ks[2], sg.ks[2],
+                end - i, row_bytes, bar);
+      copy_rows(kdst + T * row_bytes + off, sg.v + b * sg.vs[0] + kvh * sg.vs[1] + jj * sg.vs[2],
+                sg.vs[2], end - i, row_bytes, bar);
+      i = end;
+    }
+  };
   float qr[GT][8];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
@@ -176,6 +324,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     for (int e = 0; e < 8; ++e)
       qr[g][e] = (g < gn && active) ? __bfloat162float(qp[e]) : 0.f;
   }
+  // thread 0 starts the first NSTAGE - 1 groups' copies while q is on its
+  // way (q's loads go first: behind the copies they would wait for them)
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NSTAGE; ++st) mbar_init(bar0 + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < NSTAGE - 1; ++st) fill(st);
+  }
+  __syncthreads();  // the barriers are initialised
+
   float m[GT], l[GT], acc[GT][8];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
@@ -185,49 +342,50 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
   }
 
-  const Segment& s0 = p.seg[0];
-  const Segment& s1 = p.seg[1];
-  const int n0 = s0.n;
-  const int n = n0 + s1.n;
-  const __nv_bfloat16* kb0 = s0.k + b * s0.ks[0] + kvh * s0.ks[1] + d0;
-  const __nv_bfloat16* vb0 = s0.v + b * s0.vs[0] + kvh * s0.vs[1] + d0;
-  const __nv_bfloat16* kb1 = s1.k + b * s1.ks[0] + kvh * s1.ks[1] + d0;
-  const __nv_bfloat16* vb1 = s1.v + b * s1.vs[0] + kvh * s1.vs[1] + d0;
 
-  // base is warp-uniform, so every lane reaches the shuffles below
-  for (int base = warp * rpw; base < n; base += slots * U) {
-    uint4 kr[U], vr[U];
+  const unsigned char* smem_bytes = reinterpret_cast<const unsigned char*>(smem);
+  for (int grp = 0; grp < n_groups; ++grp) {
+    // the stage refilled here was read in the previous group, which ended
+    // at a block barrier
+    if (threadIdx.x == 0) fill(grp + NSTAGE - 1);
+    mbar_wait(bar0 + 8 * (grp % NSTAGE), (grp / NSTAGE) & 1);
+    // the slot's u-th position of the group is row u*slots + slot of the stage
+    const unsigned char* stage =
+        smem_bytes + (grp % NSTAGE) * stage_bytes + slot * row_bytes + c * 16;
     bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = base + sub + u * slots;
-      ok[u] = j < n;
-      kr[u] = make_uint4(0u, 0u, 0u, 0u);
-      vr[u] = kr[u];
-      if (ok[u] && active) {
-        const bool in0 = j < n0;
-        const long long jj = in0 ? j : j - n0;
-        const __nv_bfloat16* kp = in0 ? kb0 + jj * s0.ks[2] : kb1 + jj * s1.ks[2];
-        const __nv_bfloat16* vp = in0 ? vb0 + jj * s0.vs[2] : vb1 + jj * s1.vs[2];
-        kr[u] = *reinterpret_cast<const uint4*>(kp);
-        vr[u] = *reinterpret_cast<const uint4*>(vp);
-      }
-    }
     float s[U][GT];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      ok[u] = (grp * U + u) * slots + slot < cnt;
       float kf[8];
-      unpack8(kr[u], kf);
+      unpack8(ok[u] && active ? *reinterpret_cast<const uint4*>(stage + u * slots * row_bytes)
+                              : make_uint4(0u, 0u, 0u, 0u),
+              kf);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         float x = 0.f;
 #pragma unroll
         for (int e = 0; e < 8; ++e) x = fmaf(qr[g][e], kf[e], x);
-        for (int off = lpr >> 1; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
-        s[u][g] = ok[u] ? x * p.scale : -INFINITY;
+        s[u][g] = x;
       }
     }
-    // the online softmax over this step's U positions, row by row
+    // each score summed over its lane group: a level at a time for all of
+    // them, so their shuffles overlap (lpr is uniform: no divergence); then
+    // scaled by (1/sqrt(D)) log2 e, so the softmax runs in base 2
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      if (off < lpr) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int g = 0; g < GT; ++g) s[u][g] += __shfl_xor_sync(FULL, s[u][g], off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int g = 0; g < GT; ++g) s[u][g] = ok[u] ? s[u][g] * p.scale_log2 : -INFINITY;
+    // the online softmax over this group's U positions, row by row
     float pb[GT][U];
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
@@ -239,11 +397,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
         for (int u = 0; u < U; ++u) pb[g][u] = 0.f;
         continue;
       }
-      const float alpha = expf(m[g] - mx);  // 0 while m is still -inf
+      const float alpha = exp2_approx(m[g] - mx);  // 0 while m is still -inf
       float psum = 0.f;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const float pu = expf(s[u][g] - mx);
+        const float pu = exp2_approx(s[u][g] - mx);
         psum += pu;
         pb[g][u] = round_bf16(pu);  // p cast to the cache dtype
       }
@@ -255,21 +413,34 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[8];
-      unpack8(vr[u], vf);
+      unpack8(ok[u] && active
+                  ? *reinterpret_cast<const uint4*>(stage + (T + u * slots) * row_bytes)
+                  : make_uint4(0u, 0u, 0u, 0u),
+              vf);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pb[g][u], vf[e], acc[g][e]);
       }
     }
+    __syncthreads();  // every lane is done with this stage: it may be refilled
   }
+  // the last group's barrier passed: the scratch reuses the ring
 
-  // combine the slots: o = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30),
-  // w_s = exp(m_s - max_s m_s), over the slots in index order
+  // combine the slots: O = sum_s acc_s w_s, L = sum_s l_s w_s, w_s =
+  // exp(m_s - M), M = max_s m_s, each sum in a fixed order
   const int HDP = lpr * 8;
-  float* sm_m = smem;                    // [slots][GT]
+  float* sm_m = smem + lay.scratch;      // [slots][GT]
   float* sm_l = sm_m + slots * GT;       // [slots][GT]
   float* sm_acc = sm_l + slots * GT;     // [slots][GT][HDP]
+  float* sm_w = smem + lay.weights;      // [slots][GT]
+  // this block's (M, L, O) per row: in its own shared memory when the
+  // cluster is one block, else pushed into rank 0's, slot `rank` (remote
+  // stores do not wait for an answer, as remote loads would)
+  const int stride = GT * (HDP + 2);
+  float* gather = smem + lay.result;     // [MAX_SPLIT][GT * (HDP + 2)]
+  if (p.split > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* mine = (p.split == 1 ? gather : cluster.map_shared_rank(gather, 0)) + rank * stride;
   if (c == 0) {
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
@@ -286,19 +457,69 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     }
   }
   __syncthreads();
+  if (warp < gn) {  // warp g weighs row g's slots; its lanes take every 32nd
+    const int g = warp;
+    float M = -INFINITY;
+    for (int t = lane; t < slots; t += 32) M = fmaxf(M, sm_m[t * GT + g]);
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, off));
+    float L = 0.f;
+    for (int t = lane; t < slots; t += 32) {
+      const float mt = sm_m[t * GT + g];
+      const float w = mt == -INFINITY ? 0.f : exp2_approx(mt - M);  // 0 for a slot that read nothing
+      sm_w[t * GT + g] = w;
+      L = fmaf(sm_l[t * GT + g], w, L);
+    }
+    for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(FULL, L, off);
+    if (lane == 0) {
+      mine[g] = M;
+      mine[GT + g] = L;
+    }
+  }
+  __syncthreads();
   for (int i = threadIdx.x; i < gn * p.D; i += NTHREADS) {
     const int g = i / p.D;
     const int d = i - g * p.D;
-    float M = -INFINITY;
-    for (int t = 0; t < slots; ++t) M = fmaxf(M, sm_m[t * GT + g]);
-    float L = 0.f, O = 0.f;
-    for (int t = 0; t < slots; ++t) {
-      const float w = expf(sm_m[t * GT + g] - M);  // 0 for a slot that read nothing
-      L = fmaf(sm_l[t * GT + g], w, L);
-      O = fmaf(sm_acc[(t * GT + g) * HDP + d], w, O);
+    // four partial sums (slots is a multiple of 8), added in a fixed order
+    float O4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < slots; t += 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        O4[k] = fmaf(sm_acc[((t + k) * GT + g) * HDP + d], sm_w[(t + k) * GT + g], O4[k]);
     }
+    const float O = (O4[0] + O4[1]) + (O4[2] + O4[3]);
+    if (p.split == 1)
+      p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
+          __float2bfloat16(O / fmaxf(mine[GT + g], 1e-30f));
+    else
+      mine[2 * GT + g * HDP + d] = O;
+  }
+  if (p.split == 1) return;
+
+  // rank 0 combines the cluster's blocks in rank order, from its own shared
+  // memory once the cluster barrier has made every rank's stores visible
+  cluster.sync();
+  if (rank != 0) return;
+  if (threadIdx.x < gn) {  // row g's rank weights and normaliser, in rank order
+    const int g = threadIdx.x;
+    float M = -INFINITY;
+    for (int r = 0; r < p.split; ++r) M = fmaxf(M, gather[r * stride + g]);
+    float L = 0.f;
+    for (int r = 0; r < p.split; ++r) {
+      const float w = exp2_approx(gather[r * stride + g] - M);  // 0 for an empty block
+      sm_w[r * GT + g] = w;
+      L = fmaf(gather[r * stride + GT + g], w, L);
+    }
+    sm_w[MAX_SPLIT * GT + g] = L;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < gn * p.D; i += NTHREADS) {
+    const int g = i / p.D;
+    const int d = i - g * p.D;
+    float O = 0.f;
+    for (int r = 0; r < p.split; ++r)
+      O = fmaf(gather[r * stride + 2 * GT + g * HDP + d], sm_w[r * GT + g], O);
     p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
-        __float2bfloat16(O / fmaxf(L, 1e-30f));
+        __float2bfloat16(O / fmaxf(sm_w[MAX_SPLIT * GT + g], 1e-30f));
   }
 }
 
@@ -321,12 +542,18 @@ int flash_decode_smem_bytes(int head_dim, int group, int dtype_code, char* why, 
 // bf16 with unit stride along D; the segments k0/v0 (n0 positions) and
 // k1/v1 (n1 positions) [B,KV,*,D] bf16 with unit stride along D and
 // 16-byte aligned rows; strides[15] = (b, kv head, row) element strides of
-// q, k0, v0, k1, v1; o [B,KV,G,D] bf16 contiguous.  n0 + n1 >= 1.
+// q, k0, v0, k1, v1; o [B,KV,G,D] bf16 contiguous.  n0 + n1 >= 1.  The
+// positions of each (b, kv head, row tile) are split across a cluster of
+// `split` blocks (1, 2, 4 or 8), `span` positions each, with (split - 1) *
+// span < n0 + n1 <= split * span.
 int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, const void* k1,
-                        const void* v1, int n1, void* o, int B, int KV, int G, int D,
-                        const long long* strides, void* stream) {
+                        const void* v1, int n1, void* o, int B, int KV, int G, int D, int split,
+                        int span, const long long* strides, void* stream) {
   const int smem = plan(D, G, DTYPE_BF16, nullptr, 0);
-  if (smem < 0 || B < 1 || KV < 1 || n0 < 0 || n1 < 0 || n0 + n1 < 1)
+  const int n = n0 + n1;  // split: 1, 2, 4 or 8, the portable cluster sizes
+  if (smem < 0 || B < 1 || KV < 1 || n0 < 0 || n1 < 0 || n < 1 ||
+      (split != 1 && split != 2 && split != 4 && split != 8) || span < 1 ||
+      static_cast<long long>(split) * span < n || static_cast<long long>(split - 1) * span >= n)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -348,7 +575,9 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
   p.G = G;
   p.D = D;
   p.lpr = lanes_per_row(D);
-  p.scale = 1.0f / sqrtf(static_cast<float>(D));
+  p.split = split;
+  p.span = span;
+  p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
 
   const int GT = group_tile(G);
   const int which = GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3));
@@ -361,14 +590,27 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!g_smem_set[which][dev].load()) {
-    // the largest the kernel asks for at this tile (D = 8: the most slots)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_for(8, GT));
+    // the largest the kernel asks for at this tile, over every head dim
+    int most = 0;
+    for (int d = 8; d <= MAX_D; d += 8) most = std::max(most, layout_for(d, GT).bytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
     g_smem_set[which][dev].store(true);
   }
-  const dim3 grid(B * KV, (G + GT - 1) / GT);
-  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * B * KV, (G + GT - 1) / GT);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

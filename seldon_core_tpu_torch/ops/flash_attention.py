@@ -288,8 +288,12 @@ def bwd_kernel_shape_error(head_dim: int, dtype: torch.dtype,
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it by strides (unit stride
-    along D, 16-byte aligned rows), else a contiguous copy."""
+    """``t`` itself when the kernels can read it by strides (unit stride
+    along D, 16-byte aligned rows), else a contiguous copy.  Those are also
+    the rules of the forward's TMA tensor maps (a 16-byte aligned base,
+    every stride a multiple of 16 bytes; a dimension of size 1 is never
+    stepped, so the source gives it a stride of its own), so every view
+    this admits is loaded by TMA as it is."""
     aligned = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
                and all(t.stride(i) % 8 == 0 or t.shape[i] == 1 for i in range(3)))
     return t if aligned else t.contiguous()

@@ -35,6 +35,11 @@ own ragged edge, so the two-tier function has no length rule: the served
 reads q/k/v by strides (unit stride along hd), so the sliced main cache
 of ``generate`` reaches it without a copy.
 
+The kernel splits each (batch, kv head)'s positions across the blocks of
+one thread-block cluster; ``decode_split_plan`` picks the cluster size
+and each block's share from the shapes and the total position count
+alone, so the split never depends on where main ends.
+
 A CUDA tensor launches the kernel or raises: what it cannot take (a dtype
 other than bf16, a head dim that is not a multiple of 8 up to 256, no
 valid position) is a ``ValueError`` from a static check before any launch;
@@ -54,7 +59,7 @@ import ctypes
 import functools
 import threading
 from types import SimpleNamespace
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -70,6 +75,7 @@ __all__ = [
     "flash_decode_two_tier_reference",
     "decode_contract_error",
     "decode_kernel_shape_error",
+    "decode_split_plan",
     "probe_decode_kernel",
 ]
 
@@ -79,6 +85,10 @@ _LAUNCH_LOCK = threading.Lock()
 
 _BLOCK = 128       # the JAX contract of flash_decode: L divisible by 128
 _NEG_INF = -1e30
+_MAX_GT = 8        # query rows per block of the kernel (MAX_GT in flash_decode.cu)
+_SPLITS = (1, 2, 4, 8)   # cluster sizes: the portable ones
+_MIN_SPAN = 64     # the fewest positions a block of a split cluster reads
+_BLOCKS_PER_SM = 1.5     # what the split aims the grid at (see decode_split_plan)
 
 
 def _shapes_error(q, k, v) -> Optional[str]:
@@ -150,6 +160,36 @@ def flash_decode_two_tier_reference(q: torch.Tensor, main_k: torch.Tensor, main_
     return (o / l[..., None]).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=4096)
+def decode_split_plan(B: int, KV: int, G: int, n_total: int, sm_count: int) -> Tuple[int, int]:
+    """(C, span): how the kernel splits the ``n_total`` positions of each
+    (b, kv head, row tile) across the C blocks of one cluster.  C is the
+    smallest of 1, 2, 4, 8 whose grid holds at least 1.5 blocks per SM (at B=32, KV=4, G=4: C=2, 256 blocks,
+    which the kernel's two resident blocks per SM take in one wave), as
+    long as every block keeps at least 64 positions: below that a block's
+    fixed cost (q, the combine) outweighs its share of the reads.  Block r
+    takes positions [r*span, min((r+1)*span, n_total)) by their global
+    index over both segments, so neither C nor the boundaries depend on
+    where main ends.  Cached: the decode lane asks it 12 times a step."""
+    if n_total < 1:
+        raise ValueError("the flash-decode kernel needs at least one valid cache position")
+    gt = 1
+    while gt < G and gt < _MAX_GT:
+        gt *= 2
+    groups = B * KV * -(-G // gt)
+    split = 1
+    for c in _SPLITS[1:]:
+        if groups * split >= _BLOCKS_PER_SM * sm_count or -(-n_total // c) < _MIN_SPAN:
+            break
+        split = c
+    return split, -(-n_total // split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _bind_lock = threading.Lock()
 _lib: Optional[SimpleNamespace] = None
 
@@ -162,7 +202,7 @@ def _library() -> SimpleNamespace:
             lib = load_library("flash_decode")
             launch = lib.flash_decode_launch
             launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                               + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                               + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
                                + [ctypes.c_void_p, ctypes.c_void_p])
             launch.restype = ctypes.c_int
             smem = lib.flash_decode_smem_bytes
@@ -211,9 +251,11 @@ def _launch(q, k0, v0, n0: int, k1, v1, n1: int) -> torch.Tensor:
     strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k0.stride()[:3], *v0.stride()[:3],
                                        *k1.stride()[:3], *v1.stride()[:3])
     lib = _library()
+    index = torch.cuda.current_device() if q.device.index is None else q.device.index
+    split, span = decode_split_plan(B, KV, G, int(n0) + int(n1), _sm_count(index))
     rc = launch_on(q.device, lib.launch, q.data_ptr(), k0.data_ptr(), v0.data_ptr(), int(n0),
-                   k1.data_ptr(), v1.data_ptr(), int(n1), o.data_ptr(), B, KV, G, hd,
-                   ctypes.addressof(strides))
+                   k1.data_ptr(), v1.data_ptr(), int(n1), o.data_ptr(), B, KV, G, hd, split,
+                   span, ctypes.addressof(strides))
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")

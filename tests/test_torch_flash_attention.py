@@ -135,6 +135,45 @@ def test_kernel_matches_plain_on_card(shape, causal):
     assert float((lse - want_lse).abs().max()) <= 1e-4
 
 
+# (B, H, KV, S, D): a ragged last 128-row query tile (S = 192, which only
+# the kernel's own entry takes: the JAX contract wants S % 128 == 0), the
+# narrowest and the widest tile width
+KERNEL_EDGES = [(2, 8, 2, 192, 64), (1, 4, 2, 192, 32), (1, 2, 1, 192, 256), (2, 4, 4, 256, 32),
+                (1, 4, 2, 256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", KERNEL_EDGES, ids=[str(c) for c in KERNEL_EDGES])
+def test_kernel_edges_match_plain_on_card(shape, causal, strided):
+    """The ragged query tile, D = 32 and D = 256, by contiguous tensors and
+    by the strided head views of a fused qkv product (TMA reads both)."""
+    _need_card()
+    B, H, KV, S, D = shape
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(S + D)
+    if strided:
+        qkv = torch.randn(B, S, (H + 2 * KV) * D, generator=gen).to(torch.bfloat16).to(dev)
+        q, k, v = torch.split(qkv, [H * D, KV * D, KV * D], dim=-1)
+        q = q.reshape(B, S, H, D).transpose(1, 2)
+        k = k.reshape(B, S, KV, D).transpose(1, 2)
+        v = v.reshape(B, S, KV, D).transpose(1, 2)
+        assert all(fa._kernel_view(t) is t for t in (q, k, v))
+    else:
+        q, k, v = (torch.randn(B, n, S, D, generator=gen).to(torch.bfloat16).to(dev)
+                   for n in (H, KV, KV))
+    before = fa.LAUNCHES
+    o, lse = fa._launch(q, k, v, causal)
+    again, _ = fa._launch(q, k, v, causal)
+    want_o, want_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2
+    assert float((o.float() - want_o.float()).abs().max()) <= 1.6e-2
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    assert torch.equal(o, again)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take():
     _need_card()

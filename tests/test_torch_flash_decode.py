@@ -266,6 +266,104 @@ def test_single_tier_decode_step_with_use_flash_matches_jax(S):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
 
 
+# (B, KV, G, n_total): the served layer at the first and last decode step,
+# the 1-row stream, short caches that stay whole, a long MHA cache, G = 5
+SPLIT_CASES = [(32, 4, 4, 513), (32, 4, 4, 575), (1, 4, 4, 529), (1, 4, 4, 640), (1, 4, 4, 17),
+               (1, 4, 4, 1), (4, 4, 4, 129), (8, 16, 1, 4096), (2, 2, 5, 300)]
+
+
+def _bounds(split, span, n_total):
+    """Block r's positions [r*span, min((r+1)*span, n_total)), as the kernel
+    takes them (flash_decode.cu: p0 = rank * span)."""
+    return [(r * span, min((r + 1) * span, n_total)) for r in range(split)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[str(c) for c in SPLIT_CASES])
+def test_split_plan_covers_every_position_once(case):
+    B, KV, G, n = case
+    split, span = fd.decode_split_plan(B, KV, G, n, sm_count=132)
+    bounds = _bounds(split, span, n)
+    assert split in (1, 2, 4, 8)
+    covered = [j for lo, hi in bounds for j in range(lo, hi)]
+    assert covered == list(range(n))          # each position once, in order
+    assert all(hi > lo for lo, hi in bounds)  # no block without positions
+    assert all(hi - lo == span for lo, hi in bounds[:-1])
+    if split > 1:
+        assert span >= fd._MIN_SPAN
+
+
+def _slot_of(n_main, n_chunk, span, slots):
+    """(segment, index) -> (block, slot, step) as the kernel assigns them:
+    by the global index j over main ++ chunk."""
+    where = {}
+    for j in range(n_main + n_chunk):
+        seg = ("main", j) if j < n_main else ("chunk", j - n_main)
+        where[seg] = (j // span, (j % span) % slots, (j % span) // slots)
+    return where
+
+
+@pytest.mark.parametrize("n_total", [529, 575, 640])
+def test_split_plan_ignores_where_main_ends(n_total):
+    """A stream whose chunk buffer is merged into main at another point
+    asks the same plan, and every position lands on the same block, slot
+    and step: the kernel's sums run in the same order, so the bits match."""
+    plans, orders = set(), []
+    for n_main in (n_total - 1, 512, 320, 64, 0):
+        n_chunk = n_total - n_main
+        split, span = fd.decode_split_plan(1, 4, 4, n_main + n_chunk, 132)
+        plans.add((split, span, tuple(_bounds(split, span, n_total))))
+        where = _slot_of(n_main, n_chunk, span, slots=32)
+        orders.append([where[("main", j) if j < n_main else ("chunk", j - n_main)]
+                       for j in range(n_total)])
+    assert len(plans) == 1
+    assert all(order == orders[0] for order in orders)
+
+
+@pytest.mark.parametrize("B,n_total", [(1, 529), (1, 575), (2, 640)])
+def test_split_plan_fills_more_than_the_kv_blocks_at_small_batch(B, n_total):
+    """The 1-row stream: the unsplit grid is B x KV = 4 blocks on 132 SMs."""
+    split, _ = fd.decode_split_plan(B, 4, 4, n_total, 132)
+    assert B * 4 * split > 4 * B and split == 8
+
+
+def test_split_plan_aims_at_one_and_a_half_blocks_per_sm_at_the_served_batch():
+    split, span = fd.decode_split_plan(32, 4, 4, 544, 132)
+    assert (split, span) == (2, 272) and 32 * 4 * split >= 1.5 * 132
+
+
+def _partial(q, k, v):
+    """One block's (m, l, acc) over its positions, f32: q [G, hd], k/v [n, hd]."""
+    s = (q @ k.T) / np.sqrt(q.shape[-1])
+    m = s.max(axis=-1)
+    p = np.exp(s - m[:, None])
+    return m, p.sum(axis=-1), p @ v
+
+
+@pytest.mark.parametrize("case", [(1, 4, 4, 529), (1, 4, 4, 640), (32, 4, 4, 575), (4, 4, 4, 129)])
+def test_split_then_combine_in_rank_order_is_the_unsplit_softmax(case):
+    """The kernel's cluster combine, emulated in f32: each block's (m, l,
+    acc) over its share, then M = max m_r, O = sum_r acc_r exp(m_r - M),
+    L = sum_r l_r exp(m_r - M) in rank order, o = O / L, against one
+    softmax over all positions."""
+    B, KV, G, n = case
+    rng = np.random.default_rng(n)
+    hd = 64
+    q = rng.standard_normal((G, hd)).astype(np.float32)
+    k = rng.standard_normal((n, hd)).astype(np.float32)
+    v = rng.standard_normal((n, hd)).astype(np.float32)
+    split, span = fd.decode_split_plan(B, KV, G, n, 132)
+    parts = [_partial(q, k[lo:hi], v[lo:hi]) for lo, hi in _bounds(split, span, n)]
+    M = np.max([m for m, _, _ in parts], axis=0)
+    L = np.zeros(G, np.float32)
+    O = np.zeros((G, hd), np.float32)
+    for m, l, acc in parts:
+        w = np.exp(m - M).astype(np.float32)
+        L = L + l * w
+        O = O + acc * w[:, None]
+    m, l, acc = _partial(q, k, v)
+    np.testing.assert_allclose(O / L[:, None], acc / l[:, None], rtol=0, atol=1e-6)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
@@ -277,9 +375,14 @@ def _need_card():
         pytest.skip(str(e))
 
 
+# the served layer, and MHA at hd 256 (8 slots and one row a block: the
+# layout whose mbarriers are rounded up to 8 bytes)
+ON_CARD = [(32, 4, 4, 64, 512, 512, 63, 32), (4, 16, 1, 256, 512, 512, 63, 9)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", TWO_TIER + [(32, 4, 4, 64, 512, 512, 63, 32)],
-                         ids=[str(c) for c in TWO_TIER] + ["served"])
+@pytest.mark.parametrize("case", TWO_TIER + ON_CARD,
+                         ids=[str(c) for c in TWO_TIER] + ["served", "mha-hd256"])
 def test_kernel_matches_plain_on_card(case):
     _need_card()
     B, KV, G, hd, Lm, n_main, C, n_chunk = case
@@ -301,6 +404,39 @@ def test_kernel_matches_plain_on_card(case):
     # to bf16: 2 bf16 ulps at |o| ~ 1, as FLASH_O_ATOL in chip_smoke.py
     assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
     assert torch.equal(got, again)
+
+
+# (B, KV, G, hd, main slots, n_main, chunk slots, n_chunk): the 1-row
+# stream at 1 and 17 positions (a cluster of 1), 309 (4) and 529 and 640
+# (8), and the served batch (a cluster of 2)
+SPLIT_ON_CARD = [(1, 4, 4, 64, 512, 0, 63, 1), (1, 4, 4, 64, 512, 0, 63, 17),
+                 (1, 4, 4, 64, 640, 640, 63, 0), (1, 4, 4, 64, 512, 512, 63, 17),
+                 (1, 4, 4, 64, 512, 300, 63, 9), (32, 4, 4, 64, 512, 512, 63, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_ON_CARD, ids=[str(c) for c in SPLIT_ON_CARD])
+def test_split_kernel_repeats_bits_and_launches_once(case):
+    """Each call one launch, a repeat the same bits, and the same bits when
+    main ends elsewhere (the positions moved from main into the chunk)."""
+    _need_card()
+    B, KV, G, hd, Lm, n_main, C, n_chunk = case
+    gen = torch.Generator().manual_seed(sum(case))
+    dev = torch.device("cuda")
+    q = torch.randn(B, KV, G, hd, generator=gen).to(torch.bfloat16).to(dev)
+    kk = torch.randn(B, KV, Lm + C, hd, generator=gen).to(torch.bfloat16).to(dev)
+    vv = torch.randn(B, KV, Lm + C, hd, generator=gen).to(torch.bfloat16).to(dev)
+    n = n_main + n_chunk
+    before = fd.LAUNCHES
+    got = fd.flash_decode_two_tier(q, kk, vv, n, kk[:, :, n:], vv[:, :, n:], 0)
+    again = fd.flash_decode_two_tier(q, kk, vv, n, kk[:, :, n:], vv[:, :, n:], 0)
+    cut = n // 3
+    moved = fd.flash_decode_two_tier(q, kk, vv, cut, kk[:, :, cut:], vv[:, :, cut:], n - cut)
+    want = fd.flash_decode_two_tier_reference(q, kk, vv, n, kk[:, :, n:], vv[:, :, n:], 0)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == before + 3
+    assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
+    assert torch.equal(got, again) and torch.equal(got, moved)
 
 
 @pytest.mark.cuda
