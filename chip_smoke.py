@@ -70,8 +70,9 @@ prints its wall:
               and generate both ways: launches and device time per decode
               step, busy share, flash_decode_kernel's time per call
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
-              dq/dk/dv, causal and not, at five shapes (the training layer
-              among them); each call moves each launch counter by 1, and a
+              dq/dk/dv, causal and not, at seven shapes (the training layer
+              among them, a group of 8, and S=192: a ragged last 128-row
+              tile); each call moves each launch counter by 1, and a
               second call gives the same bits
  12. train    the flagship config (GEN_DIMS) in bf16 on the copy task of
               bench.py:2105-2108 at B=16, S=512 with adam(3e-4): one step's
@@ -84,8 +85,10 @@ prints its wall:
               answers a 512-token copy-task prompt as an in-process
               generate on the trained params does
  14. times    dQ and dK/dV kernel / plain / SDPA-backward device times and
-              their bounds at the training layer and at S=2048 (B=4); then
-              the {"kernels": [...]} line with all six kernels
+              their bounds at the training layer and at S=2048 (B=4), and
+              the whole flash_attention_bwd call (both launches) beside
+              SDPA's backward; then the {"kernels": [...]} line with all
+              six kernels
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -136,9 +139,12 @@ FLASH_SHAPES = [(1, 2, 2, 256, 64), (1, 1, 1, 384, 32), (32, 16, 4, 512, 64),
                 (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256), (2, 8, 2, 192, 64)]
 FLASH_TIMED = [(32, 16, 4, 512, 64), (4, 16, 4, 2048, 64), (4, 16, 4, 4096, 64)]
 # (B, H, KV, S, D): MHA, the 3-tile carry with D padded to the 64-wide
-# tile, the training layer, GQA at D=128, and D=256 (the two-walk dK/dV)
+# tile, the training layer, GQA at D=128, D=256 (the two-walk dK/dV), a
+# ragged last 128-row tile (S=192, through fa._launch_bwd: the JAX contract
+# wants S % 128) and a group of 8 query heads on one kv head
 FLASH_BWD_SHAPES = [(1, 2, 2, 256, 64), (1, 1, 1, 384, 32), (16, 16, 4, 512, 64),
-                    (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256)]
+                    (2, 8, 2, 1024, 128), (1, 4, 4, 256, 256), (2, 8, 2, 192, 64),
+                    (1, 8, 1, 256, 64)]
 FLASH_BWD_TIMED = [(16, 16, 4, 512, 64), (4, 16, 4, 2048, 64)]
 BWD_REL_TOL = 2.0 ** -5   # kernel vs plain backward, each of dq, dk, dv, as
 #                           a share of that gradient's largest element: both
@@ -203,6 +209,13 @@ FLASH_DESIGN = ("persistent CTAs (one per SM) over 128-row query tiles: two cons
                 "warpgroups taking turns, one TMA producer warp, two Q buffers and a 3-stage "
                 "mbarrier ring of K/V in 128-byte-swizzled shared memory, QK^T and PV by "
                 "wgmma (P from registers), base-2 online softmax")
+FLASH_BWD_DESIGN = ("persistent CTAs over items taken longest first in a snake (dQ: one CTA "
+                    "per SM, two consumer warpgroups taking turns; dK/dV: two one-warpgroup "
+                    "CTAs per SM); one TMA producer warp, two own buffers and a 4-stage "
+                    "mbarrier ring in 128-byte-swizzled shared memory; every product wgmma "
+                    "m64n64k16 (SS for S and dP, RS with P/dS from registers and the streamed "
+                    "tile as an MN-major B); exp2 with the scale folded in; dQ also makes "
+                    "dsum; two passes, no atomics")
 DECODE_DESIGN = ("positions split across a thread-block cluster of 1-8 blocks "
                  "(decode_split_plan), a bulk-copy (cp.async.bulk) ring of K/V rows on "
                  "mbarriers, f32 FMAs, slots combined in shared memory and blocks on rank 0 "
@@ -349,7 +362,11 @@ def flash_build_checks(torch, fa) -> None:
     log(f"[build] flash shape check: D=64 bf16 takes {smem} bytes of shared memory; "
         f"D=40 and float32 refused")
     bwd = {d: fa._smem_bytes(d, GEN_S, torch.bfloat16, bwd=True) for d in (16, 64, 128, 256)}
-    if bwd[64] != (4 * 64 * (64 + 8) * 2 + 2 * 64 * 4, None) or any(w for _, w in bwd.values()):
+    # the larger kernel, dQ: two own buffers of Q, dO and o (128 x 64 each),
+    # four stages of K and V (64 x 64 each), the 1 KiB swizzle alignment and
+    # twelve mbarriers
+    dq_smem = 2 * 3 * 128 * 64 * 2 + 4 * 2 * 64 * 64 * 2 + 1024 + 12 * 8
+    if bwd[64] != (dq_smem, None) or any(w for _, w in bwd.values()):
         raise AssertionError(f"flash backward shape check: {bwd}")
     for head_dim, dtype, match in ((40, torch.bfloat16, "multiple of 16"),
                                    (64, torch.float32, "bfloat16")):
@@ -566,16 +583,16 @@ def flash_kernel_phase(torch, fa, dev) -> float:
 
 def flash_bwd_bound(shape, kernel: str, causal: bool = True):
     """Least time for one backward kernel's work: its inputs read once and
-    its outputs written once over HBM bandwidth (dQ: q, k, v, dO, lse,
-    dsum in, dq out; dK/dV: the same in, dk and dv out), against the FLOPs
-    of its products over the causal pairs this run needs (dQ: q.k, dO.v,
-    ds.k; dK/dV: those of p^T dO, dO.v, ds^T q and q.k) over the bf16
-    peak; the larger one bounds."""
+    its outputs written once over HBM bandwidth (dQ: q, k, v, dO, o, lse
+    in, dq and dsum out; dK/dV: q, k, v, dO, lse, dsum in, dk and dv out),
+    against the FLOPs of its products over the causal pairs this run needs
+    (dQ: q.k, dO.v, ds.k; dK/dV: those of p^T dO, dO.v, ds^T q and q.k)
+    over the bf16 peak; the larger one bounds."""
     B, H, KV, S, D = shape
     rows = 2 * 4 * B * H * S                  # lse and dsum, f32
     q_side, kv_side = 2 * B * H * S * D, 2 * B * KV * S * D
     if kernel == "dq":
-        nbytes, products = 3 * q_side + 2 * kv_side + rows, 3
+        nbytes, products = 4 * q_side + 2 * kv_side + rows, 3
     else:
         nbytes, products = 2 * q_side + 4 * kv_side + rows, 4
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -587,10 +604,12 @@ def flash_bwd_bound(shape, kernel: str, causal: bool = True):
 
 def flash_bwd_inputs(torch, fa, shape, gen, dev, causal: bool = True):
     """q, k, v, dO from ``gen`` on the card, and o, lse from the forward
-    kernel, as a training step hands them to the backward."""
+    kernel, as a training step hands them to the backward (S % 128 != 0
+    through the kernels' own entries, which the JAX contract refuses)."""
     q, k, v = flash_inputs(torch, shape, gen, dev)
     do = torch.randn(q.shape, generator=gen).to(torch.bfloat16).to(dev)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    fwd = fa.flash_attention_fwd if shape[3] % 128 == 0 else fa._launch
+    o, lse = fwd(q, k, v, causal)
     return q, k, v, o, lse, do
 
 
@@ -605,12 +624,13 @@ def flash_bwd_phase(torch, fa, dev) -> dict:
     for shape in FLASH_BWD_SHAPES:
         for causal in (True, False):
             q, k, v, o, lse, do = flash_bwd_inputs(torch, fa, shape, gen, dev, causal)
+            bwd = fa.flash_attention_bwd if shape[3] % 128 == 0 else fa._launch_bwd
             n_dq, n_dkv = fa.DQ_LAUNCHES, fa.DKV_LAUNCHES
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            got = bwd(q, k, v, o, lse, do, causal)
             if (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) != (n_dq + 1, n_dkv + 1):
                 raise AssertionError(f"one backward at {shape} moved the counters by "
                                      f"{fa.DQ_LAUNCHES - n_dq}, {fa.DKV_LAUNCHES - n_dkv}")
-            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            again = bwd(q, k, v, o, lse, do, causal)
             want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
             torch.cuda.synchronize()
             errs = []
@@ -637,20 +657,28 @@ def flash_bwd_phase(torch, fa, dev) -> dict:
     return worst
 
 
-def kernel_ms_by_name(torch, fn, iters: int) -> dict:
+def kernel_ms_by_name(torch, fn, iters: int, expect=()) -> dict:
     """Device time per call of each kernel ``fn`` launches, from
     torch.profiler's kernel records over ``iters`` calls (after a warm-up
     call): how a wrapper that launches two kernels is timed kernel by
-    kernel."""
+    kernel.  Every name in ``expect`` must be part of a recorded kernel's
+    name: a profiler window that came back without one (it happened once
+    on the card) is taken again, up to three times, and then it raises
+    rather than report a time of 0."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {k: v / iters for k, v in trace_kernels(prof, "kernel_times")[0].items()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {k: v / iters for k, v in trace_kernels(prof, "kernel_times")[0].items()}
+        if all(any(tag in name for name in by_name) for tag in expect):
+            return by_name
+    raise AssertionError(f"three profiler windows recorded no kernel named {expect}: "
+                         f"{sorted(by_name)}")
 
 
 def trace_kernels(prof, name: str):
@@ -1383,7 +1411,10 @@ def training_phases(torch, dev, smi):
     for shape in FLASH_BWD_TIMED:
         q, k, v, o, lse, do = flash_bwd_inputs(torch, fa, shape, gen, dev)
         by_name = kernel_ms_by_name(
-            torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True), 20)
+            torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True), 20,
+            expect=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+        # the whole call: both launches and whatever the wrapper adds on the card
+        call_ms = device_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True), 20)
         g = shape[1] // shape[2]
         krep, vrep = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
         dsum = torch.sum(do.float() * o.float(), dim=-1)
@@ -1400,16 +1431,22 @@ def training_phases(torch, dev, smi):
             ms = sum(v for name, v in by_name.items() if tag in name)
             b_ms, b_by = flash_bwd_bound(shape, kern)
             rows[kern].append({"shape": list(shape), "ms": ms, "plain_ms": plain[kern],
-                               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+                               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                               "call_ms": call_ms})
             log(f"[times] {kern} (B,H,KV,S,D)={shape} causal: kernel {ms:.5f} ms, plain "
                 f"{plain[kern]:.5f} ms, SDPA backward (dq, dk and dv) {lib_ms:.5f} ms, bound "
                 f"{b_ms:.6f} ms ({b_by}) on {smi}")
+        log(f"[times] flash_attention_bwd (B,H,KV,S,D)={shape} causal, the whole call (dQ "
+            f"with dsum, then dK/dV): {call_ms:.5f} ms; SDPA backward {lib_ms:.5f} ms "
+            f"({call_ms / lib_ms:.2f}x) on {smi}")
         del q, k, v, o, lse, do, krep, vrep, qs, ks, vs, out
     log(f"[times] phase wall {time.perf_counter() - t_phase:.2f} s")
     out_rows = []
-    for kern, name, line, launches_k in (
-            ("dq", "flash_attention_bwd_dq", 208, launches["dq"]),
-            ("dkv", "flash_attention_bwd_dkv", 252, launches["dkv"])):
+    for kern, name, line, launches_k, computes in (
+            ("dq", "flash_attention_bwd_dq", 208, launches["dq"],
+             "dq, and dsum = rowsum(dO o) for the dK/dV kernel"),
+            ("dkv", "flash_attention_bwd_dkv", 252, launches["dkv"],
+             "dk and dv, the GQA group summed in f32")):
         top = rows[kern][0]
         out_rows.append({
             "name": name,
@@ -1423,6 +1460,8 @@ def training_phases(torch, dev, smi):
             "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
+            "computes": computes,
+            "design": FLASH_BWD_DESIGN,
             "shape": "B=16 H=16 KV=4 S=512 D=64 causal bf16",
             "at": rows[kern],
         })

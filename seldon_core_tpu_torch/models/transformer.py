@@ -89,7 +89,7 @@ from seldon_core_tpu_torch.ops.quant import lm_matmul
 from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
 from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["LMConfig", "lm_init", "lm_apply", "apply_rope", "gqa_attention",
+__all__ = ["LMConfig", "lm_init", "lm_apply", "token_rows", "apply_rope", "gqa_attention",
            "resolve_flash", "resolve_train_flash", "lm_loss", "lm_train_step",
            "save_lm_weights", "load_lm_weights", "LB_LOSS_COEF", "TransformerLM"]
 
@@ -298,9 +298,25 @@ def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
     return x + _ffn(lp, _rmsnorm(x, lp["ln2"]))
 
 
+def token_rows(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Token ids, or the float values a wire row carries, -> rows of the
+    embedding table (int64), by the reference's rule: ``X.astype(int32)``
+    (NaN is 0, a float truncates toward zero and saturates at the int32
+    range, a wider int wraps), then JAX's gather, which adds ``vocab`` to
+    a negative index once and clamps what is still out of range to
+    [0, vocab - 1].  So no index leaves the table on any device."""
+    if tokens.is_floating_point():
+        t = torch.nan_to_num(tokens.double(), nan=0.0).trunc()
+        t = t.clamp(-2.0 ** 31, 2.0 ** 31 - 1).long()
+    else:
+        t = tokens.to(torch.int32).long()
+    return torch.where(t < 0, t + vocab, t).clamp(0, vocab - 1)
+
+
 def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool = False):
-    """tokens [B, S] int -> logits [B, S, V] f32."""
-    x = params["embed"][tokens.long()]
+    """tokens [B, S] (ids, or wire values: ``token_rows``) -> logits
+    [B, S, V] f32."""
+    x = params["embed"][token_rows(tokens, cfg.vocab)]
     for i in range(cfg.n_layers):
         x = _block(params[f"l{i}"], x, cfg, causal, use_flash)
     x = _rmsnorm(x, params["ln_f"])
@@ -505,5 +521,5 @@ class TransformerLM(Unit):
         return load_lm_weights(params, self.weights_path)
 
     def predict(self, state, X):
-        return lm_apply(state, X.to(torch.int32), self.cfg, use_flash=self.use_flash)
+        return lm_apply(state, X, self.cfg, use_flash=self.use_flash)
 

@@ -23,8 +23,11 @@ for sm_90a that compute the same arithmetic and round at the same places:
             exp(s - lse), ``p`` cast to dO's dtype before P^T dO, ds =
             p (dp - dsum) in f32 cast to K's/Q's dtype before dS K and
             dS^T Q, the scale after the f32 products; two kernels, no
-            atomics.  The GQA adjoint (``_flash_bwd`` :397-413) is native
-            too: the dK/dV kernel sums a kv head's query heads in f32.
+            atomics.  The dQ kernel also computes dsum = rowsum(dO o)
+            (XLA's term outside the TPU kernels) and hands it to the
+            dK/dV kernel, so the backward is two launches.  The GQA
+            adjoint (``_flash_bwd`` :397-413) is native too: the dK/dV
+            kernel sums a kv head's query heads in f32.
 
 Bound on an H100 SXM: at the served prefill (B=32, H=16, KV=4, S=512,
 D=64, bf16) the forward moves ~85 MB, ~25 us at 3.35 TB/s, against 17.2
@@ -152,7 +155,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _dsum(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """rowsum(dO * o) in f32, [B, H, S] contiguous: the term ``_bwd_impl``
-    computes in XLA outside the TPU kernels (:316-319)."""
+    computes in XLA outside the TPU kernels (:316-319).  The plain
+    version's; on CUDA the dQ kernel computes it."""
     return torch.sum(do.float() * o.float(), dim=-1)
 
 
@@ -243,7 +247,7 @@ def _bwd_library() -> SimpleNamespace:
         if _bwd_lib is None:
             lib = load_library("flash_attention_bwd")
             dq = lib.flash_attention_bwd_dq_launch
-            dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p, ctypes.c_void_p]
             dq.restype = ctypes.c_int
             dkv = lib.flash_attention_bwd_dkv_launch
@@ -290,7 +294,7 @@ def bwd_kernel_shape_error(head_dim: int, dtype: torch.dtype,
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can read it by strides (unit stride
     along D, 16-byte aligned rows), else a contiguous copy.  Those are also
-    the rules of the forward's TMA tensor maps (a 16-byte aligned base,
+    the rules of the kernels' TMA tensor maps (a 16-byte aligned base,
     every stride a multiple of 16 bytes; a dimension of size 1 is never
     stepped, so the source gives it a stride of its own), so every view
     this admits is loaded by TMA as it is."""
@@ -352,25 +356,29 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool
     why = bwd_kernel_shape_error(D, q.dtype, S)
     if why is not None:
         raise ValueError(why)
-    dsum = _dsum(o, do)
     lse = lse.contiguous()
-    q, k, v, do = _kernel_view(q), _kernel_view(k), _kernel_view(v), _kernel_view(do)
+    if lse.data_ptr() % 16:  # the dK/dV kernel bulk-copies its rows
+        lse = lse.clone()
+    q, k, v, do, o = (_kernel_view(t) for t in (q, k, v, do, o))
     dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, KV, S, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, KV, S, D), dtype=v.dtype, device=q.device)
+    # rowsum(dO o): written by the dQ kernel, read by the dK/dV kernel
+    dsum = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     if B == 0:
         return dq, dk, dv
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                                       *do.stride()[:3])
+    strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *do.stride()[:3], *o.stride()[:3])
     lib = _bwd_library()
     shape = (B, H, KV, S, D, int(bool(causal)), ctypes.addressof(strides))
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-           dsum.data_ptr())
-    rc = launch_on(q.device, lib.dq, *ins, dq.data_ptr(), *shape)
+    qkvdo = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
+    rc = launch_on(q.device, lib.dq, *qkvdo, o.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                   dq.data_ptr(), *shape)
     if rc != 0:
         _raise_launch_error("flash_attention dQ", rc, lib)
     _count("DQ_LAUNCHES")
-    rc = launch_on(q.device, lib.dkv, *ins, dk.data_ptr(), dv.data_ptr(), *shape)
+    rc = launch_on(q.device, lib.dkv, *qkvdo, lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), *shape)
     if rc != 0:
         _raise_launch_error("flash_attention dK/dV", rc, lib)
     _count("DKV_LAUNCHES")
@@ -395,8 +403,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``o = flash_attention(q, k, v)`` for the cotangent
     ``do``, from the forward's ``o`` and ``lse``: ``_flash_bwd``'s result.
-    A CUDA q launches the dQ and then the dK/dV kernel or raises; a CPU q
-    runs the plain version."""
+    A CUDA q launches the dQ kernel (which also makes dsum) and then the
+    dK/dV kernel, or raises; a CPU q runs the plain version."""
     _validate(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal)

@@ -143,17 +143,23 @@ def _need_card():
         pytest.skip(str(e))
 
 
+# S=192 is a ragged last 128-row tile, which only the kernels' own entries
+# take (the JAX contract wants S % 128); (1, 8, 1, 256, 64) a group of 8
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", SHAPES + [(2, 8, 2, 1024, 128), (1, 4, 4, 256, 256)])
+@pytest.mark.parametrize("shape", SHAPES + [(2, 8, 2, 1024, 128), (1, 4, 4, 256, 256),
+                                            (2, 8, 2, 192, 64), (1, 8, 1, 256, 64)])
 def test_kernels_match_plain_on_card(shape, causal):
     _need_card()
     dev = torch.device("cuda")
     q, k, v, do = (_torch(a, torch.bfloat16).to(dev) for a in _inputs(shape, 4))
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ragged = shape[3] % 128 != 0
+    fwd = fa._launch if ragged else fa.flash_attention_fwd
+    bwd = fa._launch_bwd if ragged else fa.flash_attention_bwd
+    o, lse = fwd(q, k, v, causal)
     before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    got = bwd(q, k, v, o, lse, do, causal)
+    again = bwd(q, k, v, o, lse, do, causal)
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 2, before[1] + 2)

@@ -123,6 +123,78 @@ def test_transformer_lm_predict_parity():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
+# token ids the reference serves although they leave the table: past the
+# vocab, negative, NaN and beyond the int32 range (vocab 64)
+ODD_DIMS = dict(vocab=64, d_model=32, n_heads=2, n_layers=1, d_ff=64)
+ODD_ROW = [[1, 2, 70, -1, -70, float("nan"), 1e10, -1e10]]
+
+
+def _odd_units():
+    junit = jtr.TransformerLM(**ODD_DIMS, dtype="float32", attention="xla", seed=3)
+    jstate = junit.init_state(jax.random.key(7))
+    tunit = ttr.TransformerLM(**ODD_DIMS, dtype="float32", attention="xla", seed=3,
+                              device="cpu")
+    tstate = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
+    return junit, jstate, tunit, tstate
+
+
+def test_predict_takes_out_of_range_and_nan_ids_as_the_reference_does():
+    """The reference casts with astype(int32) (NaN -> 0, truncation,
+    saturation) and JAX's gather wraps a negative index once and clamps;
+    the port reads the same embedding rows instead of raising IndexError
+    (or, on CUDA, a device-side assert)."""
+    X = np.asarray(ODD_ROW, dtype=np.float32)
+    assert ttr.token_rows(torch.from_numpy(X), 64).tolist() == [[1, 2, 63, 63, 0, 0, 63, 0]]
+    junit, jstate, tunit, tstate = _odd_units()
+    want = np.asarray(jax.jit(junit.predict)(jstate, jnp.asarray(X)))
+    got = tunit.predict(tstate, torch.from_numpy(X)).numpy()
+    assert got.shape == (1, 8, 64) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("vocab", [64, 1000])
+def test_token_rows_are_the_rows_jax_gathers(dtype, vocab):
+    """token_rows against what the reference reads: ``table[X.astype(int32)]``
+    over a table whose row i holds i."""
+    rng = np.random.default_rng(vocab)
+    vals = [0, 1, vocab - 1, vocab, vocab + 1, -1, -vocab, -vocab - 1, 2**31 - 1, -2**31]
+    vals += rng.integers(-3 * vocab, 3 * vocab, 64).tolist()
+    if dtype == "float32":
+        vals += [float("nan"), float("inf"), float("-inf"), 1e10, -1e10, 2.7, -2.7, -0.5,
+                 vocab - 0.5, -vocab - 0.5]
+    X = np.asarray(vals, dtype=dtype).reshape(2, -1)
+    want = np.asarray(jnp.arange(vocab)[jnp.asarray(X).astype(jnp.int32)])
+    np.testing.assert_array_equal(ttr.token_rows(torch.from_numpy(X), vocab).numpy(), want)
+
+
+def test_engine_serves_out_of_range_and_nan_ids_as_the_reference_does():
+    import asyncio
+    import json
+
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+
+    params = [{"name": k, "value": str(v), "type": "INT"} for k, v in ODD_DIMS.items()]
+    params += [{"name": "dtype", "value": "float32", "type": "STRING"},
+               {"name": "attention", "value": "xla", "type": "STRING"}]
+    doc = {"spec": {"name": "lm", "predictors": [{
+        "name": "p", "graph": {"name": "g", "type": "MODEL"},
+        "components": [{"name": "g", "runtime": "inprocess", "class_path": "TransformerLM",
+                        "parameters": params}]}]}}
+    junit, jstate, _, tstate = _odd_units()
+    engine = EngineService(SeldonDeploymentSpec.from_json_dict(doc), device="cpu")
+    try:
+        engine.load_states({"g": tstate})
+        text, status = asyncio.run(engine.predict_json(json.dumps({"data": {"ndarray": ODD_ROW}})))
+    finally:
+        engine.close()
+    assert status == 200, text
+    got = np.asarray(json.loads(text)["data"]["ndarray"], dtype=np.float32)
+    want = np.asarray(jax.jit(junit.predict)(jstate, jnp.asarray(ODD_ROW, jnp.float32)))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
 def test_config_keeps_the_jax_validation_messages():
     for kw, match in (({"d_model": 30}, "not divisible by n_heads"),
                       ({"quant": "int4"}, "not supported"),
