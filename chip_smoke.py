@@ -6,13 +6,15 @@
 Builds every kernel of the served and trained paths from the sources in
 this checkout (five libraries, built at once), holds each kernel against
 its plain PyTorch version on the card, serves two deployments through the
-port's engine and REST lane on a localhost port (the generator also as an
-SSE token stream), trains the flagship LM a few steps and serves its
-checkpoint, checks the answers, shows that each run went through its
-kernels, and times each kernel beside its plain version, a PyTorch
-library call and its bound.  Weights are random, from a seed.  Phases, in
-order; any failure exits non-zero without the final line, and each phase
-prints its wall:
+port's engine and REST lane on a localhost port (the generator on the
+static lane and on the continuous lane, also as an SSE token stream),
+trains the flagship LM a few steps and serves its checkpoint, checks the
+answers, shows that each run went through its kernels, and times each
+kernel beside its plain version, a PyTorch library call and its bound.
+Weights are random, from a seed.  Phases, in order; any failure exits
+non-zero without the final line, and each phase prints its wall.  Every
+phase but the continuous lane's runs with SELDON_TPU_GEN_CONTINUOUS=0, so
+it serves the static lane it measured before that lane's switch:
 
   1. device   CUDA present; the card's name and power limit (nvidia-smi)
   2. build    nvcc of ops/csrc/fused_mlp.cu, flash_attention.cu,
@@ -69,6 +71,29 @@ prints its wall:
               decode tokens/s; profiled prefill
               and generate both ways: launches and device time per decode
               step, busy share, flash_decode_kernel's time per call
+ 10a. paged-kernel  flash_decode_paged vs its plain version at four
+              shapes (the served round, B=32 over 64 blocks of 16 with
+              ragged lengths 513..576; one row at 17 and 560 positions, a
+              cluster of 8 with empty ranks; MHA at hd 128), each also
+              repeated and with the rows' blocks permuted in the pool (the
+              same bits); kv_write_paged bit-exact and in place at the
+              round's write (W=1) and a prefill tick's (W=128)
+ 10b. continuous  the flagship generator through the continuous lane
+              (runtime/genserver.py, default knobs) over REST: a 1-row and
+              a 32-row 512-token request (preemption must occur), 8 1-row
+              requests 20 ms apart (a decode round must hold more than one
+              row) and the 1-row prompt as an SSE stream (equal to the
+              unary answer), counts reset before and read after: 12
+              flash_decode_paged launches per decode step, 12 kv_write_paged
+              launches per decode step and prefill tick, none of the static
+              lane's; every token teacher-forced through the plain path
+ 10c. times   the continuous and the static lane in turns (ABBA): 1-row
+              TTFT (first SSE frame) and the 32-row request's wall; a
+              profiled decode round (launches and device ms per step, busy
+              share), tokens/s, prefill ticks; flash_decode_paged (cold L2)
+              beside its plain version, its bound, the gather-then-dense
+              alternative, the two-segment kernel on the positions made
+              dense and gather-then-SDPA; kv_write_paged beside index_put_
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at seven shapes (the training layer
               among them, a group of 8, and S=192: a ragged last 128-row
@@ -88,7 +113,7 @@ prints its wall:
               their bounds at the training layer and at S=2048 (B=4), and
               the whole flash_attention_bwd call (both launches) beside
               SDPA's backward; then the {"kernels": [...]} line with all
-              six kernels
+              eight kernels
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -100,6 +125,7 @@ from __future__ import annotations
 import asyncio
 import http.client
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -1247,6 +1273,484 @@ def stream_phase(torch, dev, engine, params, cfg, prompt, smi) -> dict:
             "long_gap_max": float(gap.max()), "card": smi}
 
 
+# The continuous lane (runtime/genserver.py) at its default knobs: pool
+# blocks of 16 positions, and a decode round's table bucketed to a power of
+# two of blocks: 64 (1,024 positions) once a row passes 512 positions.
+PAGED_BS = 16
+PAGED_NBLK = 64
+# flash_decode_paged against its plain version (FLASH_O_ATOL, for its
+# reason): (B, KV, G, hd, table blocks, lengths).  The served round (B=32,
+# ragged lengths 513..576, a cluster of 2 of which rank 1 reads the last
+# 1..64 positions), one row at 17 positions (a cluster of 8, seven ranks
+# empty) and at 560, and MHA at hd 128 with ragged lengths over 16 blocks.
+PAGED_SHAPES = [(32, 4, 4, 64, PAGED_NBLK, (513, 577)), (1, 4, 4, 64, PAGED_NBLK, (17, 18)),
+                (1, 4, 4, 64, PAGED_NBLK, (560, 561)), (4, 8, 1, 128, 16, (1, 257))]
+# the timed shapes: the served round at a late step (512 + 48 positions in
+# every row, so the same positions made dense are one n for the
+# two-segment kernel), and one row
+PAGED_TIMED = [(32, 4, 4, 64, PAGED_NBLK, 560), (1, 4, 4, 64, PAGED_NBLK, 560)]
+CONT_BURST = 8            # 1-row requests sent CONT_GAP_S apart: they join a running batch
+CONT_GAP_S = 0.020
+CONT_TURNS = 2            # ABBA turns of the lane comparison (4 walls each)
+PAGED_DESIGN = ("the flash-decode kernel's cluster split, bulk-copy ring and combine; each "
+                "block reads its row's block table and length on the device, the fill splits "
+                "runs at pool-block boundaries (one bulk copy per 16-row block), the split "
+                "comes from the table's width; empty shares contribute m=-inf, l=0")
+
+
+def paged_inputs(torch, case, gen, dev):
+    """q, pools with every row's blocks in a shuffled order, tables and
+    lengths of one PAGED_SHAPES case."""
+    B, KV, G, hd, nblk, (lo, hi) = case
+    N = B * nblk + 1
+
+    def rnd(*dims):
+        return torch.randn(*dims, generator=gen).to(torch.bfloat16).to(dev)
+
+    tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+    lens = torch.randint(lo, hi, (B,), generator=gen)
+    return (rnd(B, KV, G, hd), rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd),
+            tables.to(torch.int32).to(dev), lens.to(torch.int32).to(dev))
+
+
+def paged_kernel_phase(torch, fd, kw, dev) -> dict:
+    """flash_decode_paged against its plain version at PAGED_SHAPES (one
+    launch a call, a repeat the same bits, the same bits with the row's
+    blocks moved elsewhere in the pool); kv_write_paged bit-exact and in
+    place at the decode round's write (W=1 from strided head views, three
+    inactive rows) and a prefill tick's (W=128, ragged widths).  Returns
+    each kernel's largest absolute error."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 9)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_err = 0.0
+    for case in PAGED_SHAPES:
+        q, pk, pv, tables, lens = paged_inputs(torch, case, gen, dev)
+        B, KV, G, _, nblk, _ = case
+        split, span = fd.decode_split_plan(B, KV, G, nblk * PAGED_BS, sm_count)
+        perm = torch.randperm(pk.shape[0] - 1, generator=gen).to(dev) + 1
+        mk, mv = pk.clone(), pv.clone()
+        mk[perm], mv[perm] = pk[1:], pv[1:]
+        moved_tables = perm[(tables - 1).long()].to(torch.int32)
+        before = fd.PAGED_LAUNCHES
+        got = fd.flash_decode_paged(q, pk, pv, tables, lens)
+        again = fd.flash_decode_paged(q, pk, pv, tables, lens)
+        moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens)
+        want = fd.flash_decode_paged_reference(q, pk, pv, tables, lens)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if (fd.PAGED_LAUNCHES != before + 3 or got.dtype != torch.bfloat16 or err > FLASH_O_ATOL
+                or not bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"flash_decode_paged vs plain at {case}: o err {err:.3e} "
+                                 f"(tolerance {FLASH_O_ATOL}), launches "
+                                 f"{fd.PAGED_LAUNCHES - before}")
+        if not torch.equal(got, again) or not torch.equal(got, moved):
+            raise AssertionError(f"flash_decode_paged at {case}: a repeat or the same rows in "
+                                 f"other blocks gave other bits")
+        max_err = max(max_err, err)
+        log(f"[paged-kernel] flash_decode_paged (B,KV,G,hd,blocks,lens)={case}: a cluster of "
+            f"{split} ({span} positions a block), lengths {int(lens.min())}..{int(lens.max())}: "
+            f"o max abs err {err:.3e} (tolerance {FLASH_O_ATOL}); a repeat and the blocks "
+            f"permuted in the pool bit-identical")
+    B, KV, hd, nblk = 32, 4, 64, PAGED_NBLK
+    N = B * nblk + 1
+    for W in (1, 128):
+        pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen).to(torch.bfloat16).to(dev)
+                  for _ in range(2))
+        tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+        tables = tables.to(torch.int32).to(dev)
+        qkv = torch.randn(B, W, 6 * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
+        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
+        v = qkv[..., 5 * KV * hd:].reshape(B, W, KV, hd).transpose(1, 2)  # strided head views
+        if W == 1:
+            start = torch.randint(0, nblk * PAGED_BS, (B,), generator=gen)
+            valid = torch.arange(B)[:, None] < B - 3
+        else:
+            start = torch.randint(0, 4, (B,), generator=gen) * 128
+            valid = torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen)
+        start, valid = start.to(torch.int32).to(dev), valid.to(dev)
+        want_k, want_v = kw.kv_write_paged_reference(pk.clone(), pv.clone(), k, v, tables, start,
+                                                     valid)
+        ptrs, before = (pk.data_ptr(), pv.data_ptr()), kw.PAGED_LAUNCHES
+        out = kw.kv_write_paged(pk, pv, k, v, tables, start, valid)
+        torch.cuda.synchronize()
+        # block 0 (scratch) takes several invalid writes to one row, in no order
+        if (kw.PAGED_LAUNCHES != before + 1 or (out[0].data_ptr(), out[1].data_ptr()) != ptrs
+                or not torch.equal(pk[1:], want_k[1:]) or not torch.equal(pv[1:], want_v[1:])):
+            raise AssertionError(f"kv_write_paged at W={W} is not the plain scatter")
+        log(f"[paged-kernel] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16 through "
+            f"[{B},{nblk}] tables, W={W} from strided head views: bit-exact outside the scratch "
+            f"block, in place")
+    log(f"[paged-kernel] phase wall {time.perf_counter() - t0:.2f} s")
+    return {"flash_decode_paged": max_err, "kv_write_paged": 0.0}
+
+
+def paged_decode_bound(B, KV, G, hd, nblk, n):
+    """Least time for one flash_decode_paged call: K and V of the valid
+    positions, q, the tables and lengths read once and o written once over
+    HBM bandwidth, against the score and PV FLOPs over the bf16 peak."""
+    nbytes = 2 * (2 * B * KV * n * hd + 2 * B * KV * G * hd) + 4 * (B * nblk + B)
+    flops = 4 * B * KV * G * n * hd
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def paged_times(torch, fd, kw, dev, smi) -> dict:
+    """Device times of the paged kernels beside their plain versions, a
+    library yardstick and their bounds.  flash_decode_paged at PAGED_TIMED,
+    rotating over DECODE_COLD_BYTES of inputs (cold L2): beside it the
+    gather-then-dense alternative (paged_view, then the two-segment
+    kernel), the two-segment kernel alone on the positions made dense
+    beforehand, and the gather-then-SDPA library call (enable_gqa).
+    kv_write_paged at the round's write (B=32, W=1) beside index_put_ on
+    the pools with the indices made beforehand."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"flash_decode_paged": [], "kv_write_paged": []}
+    for B, KV, G, hd, nblk, n in PAGED_TIMED:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        N = B * nblk + 1
+        per_set = 2 * 2 * N * KV * PAGED_BS * hd
+        n_sets = max(4, -(-DECODE_COLD_BYTES // per_set))
+
+        def rnd(*dims):
+            return torch.randn(*dims, generator=gen, device=dev).to(torch.bfloat16)
+
+        sets = []
+        for _ in range(n_sets):
+            tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
+            sets.append((rnd(B, KV, G, hd), rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd),
+                         tables.reshape(B, nblk).to(torch.int32),
+                         torch.full((B,), n, dtype=torch.int32, device=dev)))
+        k_ms = device_ms(torch, rotating(sets, fd.flash_decode_paged), 200)
+        p_ms = device_ms(torch, rotating(sets, fd.flash_decode_paged_reference), 20)
+
+        def gather_two_segment(q, pk, pv, t, _lens):
+            k, v = fd.paged_view(pk, pv, t)
+            return fd.flash_decode_two_tier(q, k, v, n, k[:, :, :0], v[:, :, :0], 0)
+
+        def gather_sdpa(q, pk, pv, t, _lens):
+            k, v = fd.paged_view(pk, pv, t)
+            return sdpa(q.reshape(B, KV * G, 1, hd), k[:, :, :n], v[:, :, :n], enable_gqa=True)
+
+        g_ms = device_ms(torch, rotating(sets, gather_two_segment), 100)
+        l_ms = device_ms(torch, rotating(sets, gather_sdpa), 100)
+        dense = []
+        for q, pk, pv, t, _ in sets:
+            k, v = fd.paged_view(pk, pv, t)
+            dense.append((q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()))
+        t_ms = device_ms(torch, rotating(dense, lambda q, k, v: fd.flash_decode_two_tier(
+            q, k, v, n, k[:, :, :0], v[:, :, :0], 0)), 200)
+        s_ms = device_ms(torch, rotating(dense, lambda q, k, v: sdpa(
+            q.reshape(B, KV * G, 1, hd), k, v, enable_gqa=True)), 200)
+        del dense
+        b_ms, b_by = paged_decode_bound(B, KV, G, hd, nblk, n)
+        split, _ = fd.decode_split_plan(B, KV, G, nblk * PAGED_BS,
+                                        torch.cuda.get_device_properties(dev).multi_processor_count)
+        h_us = host_us_per_call(torch, lambda: fd.flash_decode_paged(*sets[0]))
+        rows["flash_decode_paged"].append({
+            "shape": [B, KV, G, hd, nblk, n], "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "gather_two_segment_ms": g_ms,
+            "two_segment_dense_ms": t_ms, "sdpa_dense_ms": s_ms, "cluster": split,
+            "host_us_per_call": h_us, "input_sets": len(sets)})
+        log(f"[times] flash_decode_paged (B,KV,G,hd,blocks,n)=({B},{KV},{G},{hd},{nblk},{n}), "
+            f"cold L2 ({len(sets)} input sets): kernel {k_ms:.5f} ms (cluster of {split}), plain "
+            f"{p_ms:.5f} ms; gather then the two-segment kernel {g_ms:.5f} ms, the two-segment "
+            f"kernel on the positions made dense {t_ms:.5f} ms; gather then SDPA {l_ms:.5f} ms, "
+            f"SDPA on the dense positions {s_ms:.5f} ms; bound {b_ms:.6f} ms ({b_by}); wrapper "
+            f"host {h_us:.3f} us per call on {smi}")
+        del sets
+    B, KV, hd, nblk = 32, 4, 64, PAGED_NBLK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    N = B * nblk + 1
+    pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
+    tables = tables.reshape(B, nblk).to(torch.int32)
+    k, v = (torch.randn(B, KV, 1, hd, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    start = torch.full((B,), 559, dtype=torch.int32, device=dev)
+    valid = torch.ones(B, 1, dtype=torch.bool, device=dev)
+    k_ms = device_ms(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid), 500)
+    p_ms = device_ms(torch, lambda: kw.kv_write_paged_reference(pk, pv, k, v, tables, start,
+                                                                valid), 500)
+    blk = tables[:, 559 // PAGED_BS].long()[:, None]
+    off = torch.full_like(blk, 559 % PAGED_BS)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def index_put():
+        pk[blk, :, off] = kt
+        pv[blk, :, off] = vt
+
+    l_ms = device_ms(torch, index_put, 500)
+    b_ms = 2 * 2 * B * KV * hd * 2 / HBM_BYTES_PER_S * 1e3  # k, v read; their rows written
+    h_us = host_us_per_call(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid))
+    rows["kv_write_paged"].append({"shape": [N, KV, PAGED_BS, hd, B, 1], "ms": k_ms,
+                                   "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                                   "bound_by": "bytes", "host_us_per_call": h_us})
+    log(f"[times] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16, B={B} rows at "
+        f"position 559: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, index_put_ with the indices "
+        f"made beforehand {l_ms:.5f} ms, bound {b_ms:.7f} ms (bytes; the launch itself "
+        f"dominates); wrapper host {h_us:.3f} us per call on {smi}")
+    return rows
+
+
+def round_inputs(torch, cfg, B, n, dev, gen):
+    """A decode round's inputs at B rows of n cached positions: a pool of
+    random K/V, shuffled tables of PAGED_NBLK blocks, random tokens."""
+    from seldon_core_tpu_torch.models.generate import init_block_pool
+
+    N = B * PAGED_NBLK + 1
+    pool = init_block_pool(cfg, N, PAGED_BS, dev)
+    for layer in pool.values():
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev).to(t.dtype))
+    tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * PAGED_NBLK] + 1)
+    return (pool, tables.reshape(B, PAGED_NBLK).to(torch.int32),
+            torch.randint(0, cfg.vocab, (B,), generator=gen, device=dev).to(torch.int32),
+            torch.full((B,), n, dtype=torch.int32, device=dev),
+            torch.ones(B, dtype=torch.bool, device=dev), torch.zeros(B, dtype=torch.bool,
+                                                                     device=dev))
+
+
+def continuous_phases(torch, dev, smi) -> list:
+    """The paged kernels against their plain versions, then the flagship
+    generator served through the continuous lane (runtime/genserver.py) at
+    its default knobs over REST: a 1-row and a 32-row 512-token request
+    (the 32 prompts need 1,024 blocks of the pool's 1,023: preemption),
+    CONT_BURST 1-row requests CONT_GAP_S apart (they join a running round)
+    and the 1-row prompt as an SSE stream, counts reset just before and
+    read just after; every token teacher-forced; then the lane against the
+    static lane in turns, a profiled round, prefill ticks and the paged
+    kernels' times.  Returns the flash_decode_paged and kv_write_paged
+    rows of the kernels line."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.models.generate import paged_decode_round, paged_forward
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+
+    errs = paged_kernel_phase(torch, fd, kw, dev)
+
+    # -- continuous: served --------------------------------------------------
+    t_phase = time.perf_counter()
+    spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(gen_deployment()))
+    lane_env = os.environ.pop("SELDON_TPU_GEN_CONTINUOUS", None)
+    try:
+        t0 = time.perf_counter()
+        probes_before = (fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES)
+        engine = EngineService(spec, device=dev)
+    finally:
+        if lane_env is not None:
+            os.environ["SELDON_TPU_GEN_CONTINUOUS"] = lane_env
+    g = engine.genserver
+    probes = (fd.PAGED_LAUNCHES - probes_before[0], kw.PAGED_LAUNCHES - probes_before[1])
+    if g is None or not g.use_flash or probes != (1, 1):
+        raise AssertionError(f"the engine did not build the continuous lane over the paged "
+                             f"kernels (genserver {g is not None}, probe launches {probes})")
+    cfg = engine.compiled.units["gen"].cfg
+    params = engine.states()["gen"]["params"]
+    log(f"[continuous] engine built in {time.perf_counter() - t0:.2f} s with the continuous "
+        f"lane: blocks of {g.block_size}, {g.num_blocks} pool blocks, {g.slots} slots, span "
+        f"{g.span}, prefill chunk {g.prefill_chunk}..{g.prefill_chunk_max}; the scheduler probed "
+        f"flash_decode_paged and kv_write_paged once each")
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    rng = np.random.default_rng(SEED + 11)
+    vocab, new = GEN_DIMS["vocab"], GEN_DIMS["max_new_tokens"]
+    p1 = rng.integers(0, vocab, size=(1, GEN_S))
+    p32 = rng.integers(0, vocab, size=(GEN_B, GEN_S))
+    pb = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(CONT_BURST)]
+    try:
+        fa.LAUNCHES = fd.LAUNCHES = kw.LAUNCHES = fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
+        snap0 = g.snapshot()
+        s1 = request("POST", url, {"data": {"ndarray": p1.tolist()}})
+        s32 = request("POST", url, {"data": {"tensor": {"shape": list(p32.shape),
+                                                         "values": p32.ravel().tolist()}}})
+        preempted32 = g.snapshot()["preempted_total"] - snap0["preempted_total"]
+        g.decode_round_rows_max = 0
+        with ThreadPoolExecutor(CONT_BURST) as pool:
+            futs = []
+            for x in pb:
+                futs.append(pool.submit(request, "POST", url, {"data": {"ndarray": x.tolist()}}))
+                time.sleep(CONT_GAP_S)
+            sb = [f.result() for f in futs]
+        burst_rows_max = g.decode_round_rows_max
+        events, first_s, wall_s = sse_stream(port, {"data": {"ndarray": p1.tolist()},
+                                                    "chunk": STREAM_CHUNK})
+        snap1 = g.snapshot()
+        launches = {"flash_decode_paged": fd.PAGED_LAUNCHES, "kv_write_paged": kw.PAGED_LAUNCHES,
+                    "flash_attention": fa.LAUNCHES, "flash_decode": fd.LAUNCHES,
+                    "kv_write": kw.LAUNCHES}
+        st_stats, raw_stats = request("GET", f"http://127.0.0.1:{port}/stats")
+    finally:
+        server.stop(close_engine=False)
+    steps = snap1["decode_steps_total"] - snap0["decode_steps_total"]
+    ticks = snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+    want = {"flash_decode_paged": cfg.n_layers * steps,
+            "kv_write_paged": cfg.n_layers * (steps + ticks),
+            "flash_attention": 0, "flash_decode": 0, "kv_write": 0}
+    if launches != want or steps == 0 or ticks == 0:
+        raise AssertionError(f"continuous launches {launches}, not {want} ({steps} decode steps, "
+                             f"{ticks} prefill ticks)")
+    stats = json.loads(raw_stats)
+    if st_stats != 200 or stats["batcher"] != {"mode": "genserver"} or any(
+            stats["kernels"][k]["launches"] != launches[k]
+            for k in ("flash_decode_paged", "kv_write_paged")):
+        raise AssertionError(f"/stats does not report the continuous lane: {raw_stats[:400]!r}")
+    if preempted32 < 1:
+        raise AssertionError("the 32-row request preempted no sequence")
+    if burst_rows_max < 2:
+        raise AssertionError(f"the {CONT_BURST} staggered requests never shared a decode round")
+    log(f"[continuous] 1-row, 32-row, {CONT_BURST} staggered 1-row requests and a 1-row stream: "
+        f"{steps} decode steps in {steps // g.span} rounds and {ticks} prefill ticks; launches "
+        f"{launches} = {cfg.n_layers} x {steps} flash_decode_paged and {cfg.n_layers} x "
+        f"({steps} + {ticks}) kv_write_paged, none of the static lane's; /stats agrees")
+    log(f"[continuous] the 32-row request preempted {preempted32} sequences (pool "
+        f"{g.num_blocks - 1} blocks, {snap1['kv_blocks']['high_water']} at most in use); the "
+        f"staggered requests shared rounds of up to {burst_rows_max} rows; scheduler "
+        f"{json.dumps({k: snap1[k] for k in ('admitted_total', 'retired_total', 'preempted_total', 'steps_total', 'prefill_chunk_effective')})}")
+    if not events or events[-1].get("done") is not True:
+        raise AssertionError(f"the stream did not end with its terminal frame: {events[-1:]}")
+    chunks = [np.asarray(e["tokens"], dtype=np.float64) for e in events[:-1]]
+    if [c.shape[1] for c in chunks] != [STREAM_CHUNK] * (new // STREAM_CHUNK):
+        raise AssertionError(f"stream frames {[c.shape for c in chunks]}")
+    streamed = np.concatenate(chunks, axis=1).astype(np.int64)
+    y1 = check_tokens(*s1, p1, "ndarray")
+    y32 = check_tokens(*s32, p32, "tensor")
+    yb = np.concatenate([check_tokens(*r, x, "ndarray") for r, x in zip(sb, pb)])
+    if not np.array_equal(streamed, y1):
+        raise AssertionError(f"the stream differs from the unary answer for the same prompt at "
+                             f"{int((streamed != y1).sum())} positions")
+    gaps, exacts = [], []
+    for prompts, toks in ((p32, y32), (np.concatenate([p1] + pb), np.concatenate([y1, yb]))):
+        gap, exact = teacher_forced(torch, lm_apply, params, cfg, prompts, toks, dev)
+        gaps.append(gap.ravel())
+        exacts.append(exact.ravel())
+    gaps, exacts = np.concatenate(gaps), np.concatenate(exacts)
+    log(f"[continuous] teacher-forced, {gaps.size} served tokens: gap to the plain maximum max "
+        f"{gaps.max():.5f}, p99 {np.quantile(gaps, 0.99):.5f} (delta {TOKEN_DELTA}); "
+        f"{exacts.mean() * 100:.2f}% equal the plain argmax; the stream equals the unary answer "
+        f"(first frame after {first_s * 1e3:.3f} ms)")
+    if gaps.max() > TOKEN_DELTA:
+        raise AssertionError(f"a served token is {gaps.max():.4f} below the plain maximum")
+    log(f"[continuous] phase wall {time.perf_counter() - t_phase:.2f} s")
+
+    # -- continuous: times ----------------------------------------------------
+    t_phase = time.perf_counter()
+    static = EngineService(spec, device=dev)  # SELDON_TPU_GEN_CONTINUOUS=0: the static lane
+    if static.genserver is not None:
+        raise AssertionError("the kill switch did not keep the static lane")
+    static.load_states(engine.states())
+    lanes = {"continuous": ServerThread(engine), "static": ServerThread(static)}
+    ports = {name: s.start() for name, s in lanes.items()}
+    body32 = {"data": {"tensor": {"shape": list(p32.shape), "values": p32.ravel().tolist()}}}
+    walls = {name: {"ttft": [], "request32": []} for name in lanes}
+    try:
+        for name in lanes:  # warm-up
+            sse_stream(ports[name], {"data": {"ndarray": p1.tolist()}, "chunk": STREAM_CHUNK})
+        for _ in range(CONT_TURNS):
+            for name in ("continuous", "static", "static", "continuous"):
+                _, first, _ = sse_stream(ports[name], {"data": {"ndarray": p1.tolist()},
+                                                       "chunk": STREAM_CHUNK})
+                t = time.perf_counter()
+                st, _raw = request("POST", f"http://127.0.0.1:{ports[name]}/api/v0.1/predictions",
+                                   body32)
+                walls[name]["request32"].append(time.perf_counter() - t)
+                walls[name]["ttft"].append(first)
+                if st != 200:
+                    raise AssertionError(f"{name} 32-row request: HTTP {st}")
+    finally:
+        lanes["static"].stop()
+        lanes["continuous"].stop(close_engine=False)
+    lane_ms = {name: {k: [float(x) for x in np.percentile(np.asarray(v) * 1e3, [25, 50, 75])]
+                      for k, v in w.items()} for name, w in walls.items()}
+    for name, w in lane_ms.items():
+        log(f"[times] {name} lane over REST, in turns (ABBA, {2 * CONT_TURNS} each): 1-row "
+            f"{GEN_S}-token TTFT (first SSE frame, chunk {STREAM_CHUNK}) p25/p50/p75 "
+            f"{'/'.join(f'{x:.3f}' for x in w['ttft'])} ms; the 32-row request's wall "
+            f"{'/'.join(f'{x:.3f}' for x in w['request32'])} ms, on {smi}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    with torch.inference_mode():
+        inputs = round_inputs(torch, cfg, GEN_B, GEN_S, dev, gen)
+
+        def one_round():
+            return paged_decode_round(params, inputs[0], *inputs[1:], cfg, span=g.span,
+                                      use_flash=True)[0]
+
+        round_ms = wall_p50(torch, one_round, 5)
+        prof = device_profile(torch, one_round, "continuous_round")
+        per_step = {"launches": prof["kernels"] / g.span, "device_ms": prof["kernel_ms"] / g.span}
+        fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
+        one_round()
+        torch.cuda.synchronize()
+        if (fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES) != (cfg.n_layers * g.span,) * 2:
+            raise AssertionError(f"a round launched {fd.PAGED_LAUNCHES} / {kw.PAGED_LAUNCHES}")
+        tick_ms = {}
+        for B, C, start in ((GEN_B, 128, 0), (GEN_B, 128, 384), (GEN_B, 512, 0), (1, 512, 0)):
+            nblk = 1 << max(-(-(start + C) // PAGED_BS) - 1, 0).bit_length()
+            toks = torch.randint(0, cfg.vocab, (B, C), generator=gen, device=dev).to(torch.int32)
+            args = (toks, inputs[0], inputs[1][:B, :nblk].contiguous(),
+                    torch.full((B,), start, dtype=torch.int32, device=dev),
+                    torch.full((B,), C, dtype=torch.int32, device=dev))
+            tick_ms[f"B{B}_C{C}_at{start}"] = wall_p50(
+                torch, lambda: paged_forward(params, *args[:2], *args[2:], cfg, use_flash=True),
+                5)
+        del inputs
+    served = {
+        "lanes_ms": lane_ms,
+        "round_wall_ms": round_ms,
+        "decode_tokens_per_s": GEN_B * g.span / (round_ms / 1e3),
+        "per_step": per_step,
+        "round_busy_share": prof["busy_share"],
+        "round_profile": {k: v for k, v in prof.items() if k != "by_name"},
+        "prefill_tick_ms": tick_ms,
+        "served_first_frame_ms": first_s * 1e3,
+        "served_stream_wall_ms": wall_s * 1e3,
+        "preempted_32row": preempted32,
+        "burst_round_rows_max": burst_rows_max,
+        "card": smi,
+    }
+    log(f"[times] a decode round, B={GEN_B} at {GEN_S} cached positions, span {g.span}: wall p50 "
+        f"{round_ms:.3f} ms ({served['decode_tokens_per_s']:.1f} tokens/s); profiled: "
+        f"{per_step['launches']:.1f} launches and {per_step['device_ms']:.4f} ms of device "
+        f"kernels per step, busy {prof['busy_share'] * 100:.1f}% on {smi}")
+    log(f"[times] prefill ticks (paged_forward, the plain attention) wall p50: "
+        f"{json.dumps({k: round(v, 3) for k, v in tick_ms.items()})} ms on {smi}")
+    log(json.dumps({"continuous_lane": served}))
+    rows_t = paged_times(torch, fd, kw, dev, smi)
+    engine.close()
+    log(f"[times] phase wall {time.perf_counter() - t_phase:.2f} s")
+    out = []
+    for name, source, replaces, shape_text in (
+            ("flash_decode_paged", "flash_decode.cu", "seldon_core_tpu/ops/flash_decode.py:47",
+             f"B=32 KV=4 G=4 hd=64, {PAGED_NBLK} blocks of {PAGED_BS}, n=560 in every row, bf16"),
+            ("kv_write_paged", "kv_write.cu", "scripts/probe_inplace.py:55",
+             f"pools ({GEN_B * PAGED_NBLK + 1},4,{PAGED_BS},64) bf16, B=32 rows, W=1")):
+        top = rows_t[name][0]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"seldon_core_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "shape": shape_text,
+            "at": rows_t[name],
+        })
+    out[0]["design"] = PAGED_DESIGN
+    out[0]["served"] = served
+    return out
+
+
 def copy_batch(rng, vocab: int):
     """bench.py:2105-2108: each row a random head repeated three times."""
     head = rng.integers(1, vocab, size=(TRAIN_B, TRAIN_HALF))
@@ -1649,6 +2153,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    # the phases before the continuous lane's (and the hand-off's) serve and
+    # measure the static lane, as they did before that lane became the
+    # engine's default; continuous_phases lifts the switch for its engine
+    os.environ["SELDON_TPU_GEN_CONTINUOUS"] = "0"
     # the plain version's f32 products must be true f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1690,10 +2198,14 @@ def main() -> int:
     mlp_row = mnist_phases(torch, dev, smi)
     log(f"[mnist] phases 3-5 wall {time.perf_counter() - t0:.2f} s")
     flash_row, decode_row, kv_row = generation_phases(torch, dev, smi)
+    t0 = time.perf_counter()
+    paged_row, kv_paged_row = continuous_phases(torch, dev, smi)
+    log(f"[continuous] phases wall {time.perf_counter() - t0:.2f} s")
     dq_row, dkv_row = training_phases(torch, dev, smi)
 
     log(smi)
-    log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row]}))
+    log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,
+                                paged_row, kv_paged_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -79,7 +79,7 @@ def build_units(predictor: PredictorSpec, device: Optional[torch.device] = None)
                 raise GraphSpecError(
                     f"node {node.name!r} is not an in-process unit; remote "
                     f"nodes are served by the host interpreter, which is not "
-                    f"ported yet (slice 2 of the port)"
+                    f"ported yet (ROADMAP Queue 1 item [1])"
                 )
             unit = instantiate_bound_unit(binding, node, device=device)
         if not unit.pure:
@@ -132,7 +132,7 @@ class CompiledGraph:
         if routers:
             raise GraphSpecError(
                 f"routers {routers} need per-request branch choice, which the "
-                f"port does not have yet (slice 2 of the port: graph "
+                f"port does not have yet (ROADMAP Queue 1 item [1]: graph "
                 f"interpreter and routers)"
             )
         self.units = build_units(predictor, device=self.device)

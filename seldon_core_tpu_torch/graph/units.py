@@ -151,13 +151,13 @@ def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None)
         raise GraphSpecError(
             f"component {binding.name!r} declares mesh_axes "
             f"{dict(binding.mesh_axes)}: multi-device units are not ported "
-            f"yet (slice 4 of the port: multi-device meshes)"
+            f"yet (ROADMAP Queue 1 item [6]: multi-device meshes)"
         )
     if not (isinstance(cls, type) and issubclass(cls, Unit)):
         raise GraphSpecError(
             f"component {binding.name!r}: {binding.class_path!r} is not a "
             f"Unit; plain user objects are served through the microservice "
-            f"adapter, which is not ported yet (slice 2 of the port)"
+            f"adapter, which is not ported yet (ROADMAP Queue 1 item [1])"
         )
     kwargs = params_to_kwargs(binding.parameters or node.parameters)
     if device is not None and "device" in inspect.signature(cls.__init__).parameters:

@@ -31,6 +31,7 @@ __all__ = [
     "SeldonMessageError",
     "DispatchTimeoutError",
     "DeadlineExceededError",
+    "LoadShedError",
     "new_puid",
 ]
 
@@ -54,6 +55,13 @@ class DeadlineExceededError(SeldonMessageError):
     """The caller's request-level deadline budget ran out."""
 
     http_code = 504
+
+
+class LoadShedError(SeldonMessageError):
+    """A deliberate refusal under overload (the generation lane's bounded
+    admission queue): 503 at the edge, retryable downstream."""
+
+    http_code = 503
 
 
 # ---------------------------------------------------------------------------

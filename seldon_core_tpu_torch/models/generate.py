@@ -37,10 +37,41 @@ Served here: greedy decoding (``temperature`` 0), float caches, no shared
 prefix, seeded or trained weights (``weights_path``, loaded in
 ``init_state`` as the JAX unit does).  The constructor and
 ``stream_chunks`` refuse, with the ROADMAP item that will port each:
-``temperature > 0`` (sampling), ``prefix_tokens`` (prefix cache),
-``quant`` / ``kv_quant`` other than "none" and ``moe_every > 0``.  The
-continuous-batching lane, speculative decoding and the paged KV pool are
-later slices.
+``temperature > 0`` (sampling, [5d] b), ``prefix_tokens`` (prefix cache,
+[5d] c), ``quant`` / ``kv_quant`` other than "none" ([2]) and
+``moe_every > 0``.  Speculative decoding is [5d] d.
+
+The paged KV pool of the continuous lane (``runtime/genserver.py``; the
+reference's ``generate.py:985-1210``): a per-layer pool of fixed-size
+blocks, block 0 the scratch block, and a block table per row.
+
+  * ``init_block_pool`` makes the pools; float pools only.  The port lays
+    a pool out as ``[num_blocks, KV, block_size, hd]``, where the
+    reference has ``[num_blocks, block_size, KV, hd]``: one kv head's rows
+    of a block are then one contiguous run (2 KB at bs 16, hd 64, bf16),
+    which the flash-decode kernel's bulk-copy ring reads in one copy.
+    ``_paged_view`` gives the reference's dense views, so the tests
+    compare views (and transposed pools), not raw pool bytes;
+  * ``_paged_write`` scatters fresh K/V at per-row positions ``start[b] +
+    i`` (the reference takes the positions [B, W] themselves; every
+    caller's are start + i), ``_paged_view`` gathers a row's blocks,
+    ``_attend_paged`` attends with per-row starts, ``_paged_block`` is a
+    decoder block over the pool;
+  * ``paged_forward``: W tokens a row at per-row offsets (the chunked
+    prefill), ``last_only`` for the next-token logits;
+  * ``paged_decode_round``: ``span`` greedy steps for the whole in-flight
+    batch with static shapes: ``token``, ``n_valid``, ``active`` and
+    ``seen_eos`` stay device tensors across the steps (a Python loop
+    where the reference scans) and the loop makes no host sync; the
+    caller reads back the round's [B, span] tokens once.
+
+With ``use_flash`` on CUDA a block writes through ``kv_write_paged`` (W
+rows, the prefill tick's too) and a W = 1 block attends through
+``flash_decode_paged``; W > 1 attends through the plain
+``_attend_paged``, as the reference does (neither package has a kernel
+there).  On the CPU the wrappers run their plain versions.  The pools are
+written in place, where the reference donates them through each jitted
+program.
 """
 
 from __future__ import annotations
@@ -66,16 +97,25 @@ from seldon_core_tpu_torch.models.transformer import (
     seeded_generator,
 )
 from seldon_core_tpu_torch.ops.flash_decode import (
+    attend_paged,
+    flash_decode_paged,
     flash_decode_reference,
     flash_decode_two_tier,
     flash_decode_two_tier_reference,
+    paged_view,
 )
-from seldon_core_tpu_torch.ops.kv_write import kv_write, kv_write_reference
+from seldon_core_tpu_torch.ops.kv_write import (
+    kv_write,
+    kv_write_paged,
+    kv_write_paged_reference,
+    kv_write_reference,
+)
 from seldon_core_tpu_torch.ops.quant import lm_matmul
 
 __all__ = ["init_cache", "init_chunk", "prefill", "decode_step",
            "decode_step_two_tier", "merge_chunk", "generate", "sample_token",
            "mask_after_eos", "sanitize_prompt", "grow_merge", "stream_chunks",
+           "init_block_pool", "paged_forward", "paged_decode_round",
            "GEN_CHUNK_CAP", "STREAM_CHUNK_CAP", "TransformerGenerator"]
 
 #: generation chunk-buffer capacity: generations up to this length run
@@ -152,9 +192,10 @@ def _write_slot(layer, k, v, pos: int, use_flash: bool) -> None:
     (kv_write if use_flash else kv_write_reference)(layer["k"], layer["v"], k, v, pos)
 
 
-def _qkv(lp, x, cfg: LMConfig, start: int):
+def _qkv(lp, x, cfg: LMConfig, start):
     """ln1, the qkv matmul, the head split and RoPE at global positions
-    start.. -> (q, k, v), each [B, n, S, hd]."""
+    start.. (an int, or a [B, 1] tensor of per-row starts) -> (q, k, v),
+    each [B, n, S, hd]."""
     B, S, D = x.shape
     hd, kv = cfg.head_dim, cfg.kv_heads
     qkv = lm_matmul(lp, "wqkv", _rmsnorm(x, lp["ln1"]), out_dtype=x.dtype)
@@ -268,13 +309,13 @@ def _greedy_only(temperature: float) -> None:
     if temperature > 0.0:
         raise ValueError(
             f"temperature={temperature}: sampled decoding is not ported yet; "
-            f"the port serves greedy decoding (ROADMAP Queue 1 item 5d)"
+            f"the port serves greedy decoding (ROADMAP Queue 1 item [5d] b)"
         )
 
 
 def _no_prefix(what: str) -> None:
     raise ValueError(
-        f"{what}: the shared-prefix cache is not ported yet (ROADMAP Queue 1 item 5d)"
+        f"{what}: the shared-prefix cache is not ported yet (ROADMAP Queue 1 item [5d] c)"
     )
 
 
@@ -435,6 +476,132 @@ def stream_chunks(params, prompt, cfg: LMConfig, max_new_tokens: int, chunk: int
         done += n
 
 
+# ---------------------------------------------------------------------------
+# Paged KV-block pool: the continuous lane (runtime/genserver.py)
+# ---------------------------------------------------------------------------
+
+
+def init_block_pool(cfg: LMConfig, num_blocks: int, block_size: int,
+                    device: DeviceLike = None) -> Dict[str, Any]:
+    """Per-layer {k, v} pools ``[num_blocks, KV, block_size, hd]`` in the
+    model dtype on ``device`` (default ``cuda``).  Block 0 is the scratch
+    block: the allocator hands out ids >= 1.  Float pools only: an int8
+    ``kv_quant`` is refused (ROADMAP Queue 1 item [2])."""
+    if cfg.kv_quant != "none":
+        refuse_unported(cfg)
+    dev = resolve_device(device)
+    shape = (num_blocks, cfg.kv_heads, block_size, cfg.head_dim)
+    return {f"l{i}": {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                      "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            for i in range(cfg.n_layers)}
+
+
+def _paged_view(layer, tables):
+    """One layer's blocks gathered into dense position-ordered views:
+    {"k", "v"} each [B, KV, nblk*bs, hd], the reference's view."""
+    k, v = paged_view(layer["k"], layer["v"], tables)
+    return {"k": k, "v": v}
+
+
+def _paged_write(layer, tables, start, valid, k_new, v_new, use_flash: bool = False):
+    """Fresh K/V [B, KV, W, hd] into the pool at positions start[b] + i of
+    each row, through its table; ``valid`` [B, W] False routes a write to
+    the scratch block 0.  In place: ``kv_write_paged`` (the kernel for CUDA
+    tensors) when ``use_flash``, else its plain version.  Returns the
+    layer."""
+    write = kv_write_paged if use_flash else kv_write_paged_reference
+    write(layer["k"], layer["v"], k_new, v_new, tables, start, valid)
+    return layer
+
+
+def _attend_paged(q, view, start):
+    """q [B, H, W, hd] over a dense paged view; query i of row b sees
+    positions <= start[b] + i (its own fresh K/V is already in the pool).
+    W == 1 with start == n_valid is the cached decode mask."""
+    return attend_paged(q, view["k"], view["v"], start)
+
+
+def _paged_block(lp, x, pool_layer, tables, start, valid, cfg: LMConfig,
+                 use_flash: bool = False, lens=None):
+    """One decoder block over the paged pool: K/V written at per-row
+    positions start[b] + i (scratch-routed where ``valid`` is False), then
+    attention over each row's own blocks.  x [B, W, D].  A W == 1 block
+    with ``use_flash`` attends through ``flash_decode_paged`` over
+    ``lens`` (start + 1, shared by the layers of a step), any other block
+    through ``_attend_paged`` over ``_paged_view``."""
+    W = x.shape[1]
+    q, k, v = _qkv(lp, x, cfg, start[:, None])
+    _paged_write(pool_layer, tables, start, valid, k, v, use_flash)
+    if W == 1 and use_flash:
+        lens = start + 1 if lens is None else lens
+        a = flash_decode_paged(_grouped(q, cfg.kv_heads), pool_layer["k"], pool_layer["v"],
+                               tables, lens).reshape(q.shape)
+    else:
+        a = _attend_paged(q, _paged_view(pool_layer, tables), start)
+    return _finish_block(lp, x, a), pool_layer
+
+
+def paged_forward(params, tokens, pool, tables, start, width, cfg: LMConfig,
+                  last_only: bool = True, use_flash: bool = False):
+    """W tokens a row at per-row offsets over the paged pool: the chunked
+    prefill.  tokens [B, W] int32; start [B] the global offset of each
+    row's token 0; width [B] its valid tokens (pad positions write to the
+    scratch block; their logits are garbage nobody reads).  Returns
+    (logits, pool): [B, V] f32 at each row's last valid position with
+    ``last_only``, else [B, W, V]."""
+    B, W = tokens.shape
+    valid = torch.arange(W, device=tokens.device)[None, :] < width[:, None]
+    lens = start + 1 if W == 1 else None
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.n_layers):
+        x, pool[f"l{i}"] = _paged_block(params[f"l{i}"], x, pool[f"l{i}"], tables, start,
+                                        valid, cfg, use_flash, lens)
+    if last_only:
+        idx = torch.clamp(width.long() - 1, 0, W - 1)
+        # before the (positionwise) norm: same numerics
+        x = x[torch.arange(B, device=x.device), idx][:, None, :]
+    x = _rmsnorm(x, params["ln_f"])
+    logits = (x @ params["embed"].T).float()
+    return (logits[:, 0, :] if last_only else logits), pool
+
+
+def paged_decode_round(params, pool, tables, token, n_valid, active, seen_eos, cfg: LMConfig,
+                       *, span: int, temperature: float = 0.0, eos_token: int = -1,
+                       use_flash: bool = False):
+    """``span`` greedy cached steps for the whole in-flight batch: the
+    scheduler's unit of work between admission points.
+
+    token [B] pending tokens, n_valid [B] per-row cache lengths, active
+    [B] bool (empty slots write to scratch and emit 0), seen_eos [B] bool
+    the after-eos latch (rows past their stop emit eos until the host
+    retires them), all device tensors that stay on the device across the
+    steps; tables [B, nblk] covers n_valid + span for every active row.
+    Static shapes, no host sync: the caller's readback of the tokens is
+    the round's one.  Returns (toks [B, span] int32, pool, token, n_valid,
+    seen_eos).  Sampled decoding (``temperature > 0``) is refused."""
+    _greedy_only(temperature)
+    valid = active[:, None]
+    step = active.to(torch.int32)
+    toks = []
+    for _ in range(span):
+        lens = n_valid + 1  # this step's own K/V is written before it attends
+        x = params["embed"][token.long()][:, None, :]
+        for i in range(cfg.n_layers):
+            x, pool[f"l{i}"] = _paged_block(params[f"l{i}"], x, pool[f"l{i}"], tables, n_valid,
+                                            valid, cfg, use_flash, lens)
+        x = _rmsnorm(x, params["ln_f"])
+        logits = (x[:, 0, :] @ params["embed"].T).float()
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if eos_token >= 0:
+            nxt = nxt.masked_fill(seen_eos, eos_token)
+            seen_eos = seen_eos | (nxt == eos_token)
+        nxt = nxt.masked_fill(~active, 0)
+        n_valid = n_valid + step
+        toks.append(nxt)
+        token = nxt
+    return torch.stack(toks, dim=1), pool, token, n_valid, seen_eos
+
+
 @register_unit("TransformerGenerator")
 class TransformerGenerator(Unit):
     """Serving unit: prompt token rows in, generated token rows out
@@ -490,6 +657,17 @@ class TransformerGenerator(Unit):
                         max_new_tokens=self.max_new_tokens,
                         use_flash=self.use_flash,
                         eos_token=self.eos_token).to(torch.float32)
+
+    def continuous_spec(self, state):
+        """What the continuous lane (``runtime/genserver.py``) needs to
+        serve this unit: the params, the config, ``eos_token``,
+        ``max_new_tokens`` and whether to take the kernels.  None where the
+        reference returns None (MoE couples co-batched rows; the port
+        refuses MoE at construction already)."""
+        if self.cfg.moe_every > 0:
+            return None
+        return {"params": state["params"], "cfg": self.cfg, "eos_token": self.eos_token,
+                "max_new_tokens": self.max_new_tokens, "use_flash": self.use_flash}
 
     def stream_tokens(self, state, X, chunk: int = 8):
         """Incremental serving: yields int32 token tensors [B, <=chunk]

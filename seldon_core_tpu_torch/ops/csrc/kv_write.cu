@@ -20,6 +20,16 @@
 // strides (the RoPE'd head views of the decode step), with unit stride
 // along hd.
 //
+// The paged variant (kv_write_paged_launch) serves the continuous lane's
+// block pool (models/generate.py _paged_write; the reference scatters with
+// XLA there, at W = 1 the slot write above): fresh K/V [B, KV, W, hd] go to
+// pool[table[b, p // bs], :, p % bs] at per-row positions p = start[b] + i,
+// block 0 (the scratch block) where valid[b, i] is false.  The table, the
+// starts and the valid flags are device arrays that the kernel reads
+// itself, so the host never learns a row's position.  Pools are [N, KV, bs,
+// hd]; one thread per 16-byte unit (or 8, 4, 2, 1 bytes), as above, and the
+// same bound: the bytes of the fresh rows, far below a launch's cost.
+//
 // Interface: plain C functions loaded with ctypes (no PyTorch headers).
 
 #include <cuda_runtime.h>
@@ -53,6 +63,48 @@ __global__ void __launch_bounds__(NTHREADS) kv_write_kernel(const Params p) {
   const int which = static_cast<int>(r / p.B);
   const char* s = p.src[which] + b * p.ss[which][0] + kvh * p.ss[which][1];
   char* d = p.dst[which] + b * p.ds[which][0] + kvh * p.ds[which][1] + p.pos * p.ds[which][2];
+  reinterpret_cast<T*>(d)[u] = reinterpret_cast<const T*>(s)[u];
+}
+
+struct PagedParams {
+  char* dst[2];             // pool_k, pool_v [N, KV, bs, hd]
+  const char* src[2];       // k, v [B, KV, W, hd]
+  long long ds[2][3];       // byte strides of block, kv head, row of each pool
+  long long ss[2][3];       // byte strides of b, kv head, position of each source
+  const int* table;         // [B, nblk] int32, contiguous
+  const int* start;         // [B] int32
+  const unsigned char* valid;  // [B, W] bool, contiguous
+  int B, KV, W, nblk, bs, nblocks;
+  int units;                // units of the copy per row
+  long long total;          // 2 * B * KV * W * units
+};
+
+// floor division and the matching non-negative remainder (JAX's // and %)
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) kv_write_paged_kernel(const PagedParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * NTHREADS + threadIdx.x;
+  if (i >= p.total) return;
+  long long r = i / p.units;
+  const int u = static_cast<int>(i - r * p.units);
+  const int w = static_cast<int>(r % p.W);
+  r /= p.W;
+  const int kvh = static_cast<int>(r % p.KV);
+  r /= p.KV;
+  const int b = static_cast<int>(r % p.B);
+  const int which = static_cast<int>(r / p.B);
+  const int pos = p.start[b] + w;
+  const int q = floor_div(pos, p.bs);
+  const int off = pos - q * p.bs;
+  const int idx = min(max(q, 0), p.nblk - 1);
+  const int blk = p.valid[b * p.W + w] ? p.table[b * p.nblk + idx] : 0;
+  if (blk < 0 || blk >= p.nblocks) return;  // out of the pool: dropped, as XLA's scatter drops it
+  const char* s = p.src[which] + b * p.ss[which][0] + kvh * p.ss[which][1] + w * p.ss[which][2];
+  char* d = p.dst[which] + blk * p.ds[which][0] + kvh * p.ds[which][1] + off * p.ds[which][2];
   reinterpret_cast<T*>(d)[u] = reinterpret_cast<const T*>(s)[u];
 }
 
@@ -97,6 +149,56 @@ int kv_write_launch(void* cache_k, void* cache_v, const void* k, const void* v, 
     case 4: kv_write_kernel<uint32_t><<<blocks, NTHREADS, 0, s>>>(p); break;
     case 2: kv_write_kernel<uint16_t><<<blocks, NTHREADS, 0, s>>>(p); break;
     case 1: kv_write_kernel<uint8_t><<<blocks, NTHREADS, 0, s>>>(p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launches on `stream` and returns cudaGetLastError() after the launch: 0
+// means launched.  Writes row_bytes bytes per (b, kv head, position i <
+// W) from k and v into the pools at (table[b, clamp((start[b] + i) // bs,
+// 0, nblk - 1)], start[b] + i mod bs), or block 0 where valid[b, i] is 0;
+// a block id outside [0, nblocks) is dropped.  strides[12] = byte strides
+// (block, kv, row) of pool_k and pool_v, then (b, kv, position) of k and
+// v.  unit (1, 2, 4, 8 or 16) divides row_bytes, every pointer and every
+// stride.
+int kv_write_paged_launch(void* pool_k, void* pool_v, const void* k, const void* v,
+                          const int* table, const int* start, const unsigned char* valid, int B,
+                          int KV, int W, int nblk, int bs, int nblocks, int row_bytes,
+                          const long long* strides, int unit, void* stream) {
+  if (B < 1 || KV < 1 || W < 1 || nblk < 1 || bs < 1 || nblocks < 1 || row_bytes < 1 ||
+      unit < 1 || row_bytes % unit != 0)
+    return (int)cudaErrorInvalidValue;
+  PagedParams p;
+  p.dst[0] = static_cast<char*>(pool_k);
+  p.dst[1] = static_cast<char*>(pool_v);
+  p.src[0] = static_cast<const char*>(k);
+  p.src[1] = static_cast<const char*>(v);
+  for (int i = 0; i < 3; ++i) {
+    p.ds[0][i] = strides[i];
+    p.ds[1][i] = strides[3 + i];
+    p.ss[0][i] = strides[6 + i];
+    p.ss[1][i] = strides[9 + i];
+  }
+  p.table = table;
+  p.start = start;
+  p.valid = valid;
+  p.B = B;
+  p.KV = KV;
+  p.W = W;
+  p.nblk = nblk;
+  p.bs = bs;
+  p.nblocks = nblocks;
+  p.units = row_bytes / unit;
+  p.total = 2LL * B * KV * W * p.units;
+  const unsigned blocks = static_cast<unsigned>((p.total + NTHREADS - 1) / NTHREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (unit) {
+    case 16: kv_write_paged_kernel<uint4><<<blocks, NTHREADS, 0, s>>>(p); break;
+    case 8: kv_write_paged_kernel<uint2><<<blocks, NTHREADS, 0, s>>>(p); break;
+    case 4: kv_write_paged_kernel<uint32_t><<<blocks, NTHREADS, 0, s>>>(p); break;
+    case 2: kv_write_paged_kernel<uint16_t><<<blocks, NTHREADS, 0, s>>>(p); break;
+    case 1: kv_write_paged_kernel<uint8_t><<<blocks, NTHREADS, 0, s>>>(p); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

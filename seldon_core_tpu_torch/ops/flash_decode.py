@@ -51,6 +51,22 @@ A CPU tensor runs the plain PyTorch versions, ``flash_decode_reference``
 ``generate.py:230``), which the tests and ``chip_smoke.py`` hold the kernel
 against and which the decode lane runs with ``use_flash`` off.
 ``LAUNCHES`` counts kernel launches and nothing else.
+
+The paged variant serves the continuous lane's block pool
+(``models/generate.py``; the reference gathers the pages and attends in
+plain XLA, ``_attend_paged`` at W = 1, ``generate.py:1086``, which is this
+kernel's function):
+
+  ``flash_decode_paged(q, pool_k, pool_v, tables, lens)``
+        q [B, KV, G, hd] over row b's positions [0, lens[b]), position j
+        at row j % bs of pool block tables[b, j // bs]; pools [N, KV, bs,
+        hd], tables [B, nblk] and lens [B] int32 on the device.
+
+The kernel reads the table and the lengths itself: nothing is read back
+on the host, and the split (``decode_split_plan``) comes from the table's
+width nblk * bs, which the host knows.  ``flash_decode_paged_reference``
+is its plain version (the gather ``_paged_view`` and ``_attend_paged``),
+``PAGED_LAUNCHES`` its count and ``probe_paged_decode_kernel`` its probe.
 """
 
 from __future__ import annotations
@@ -77,10 +93,18 @@ __all__ = [
     "decode_kernel_shape_error",
     "decode_split_plan",
     "probe_decode_kernel",
+    "PAGED_LAUNCHES",
+    "flash_decode_paged",
+    "flash_decode_paged_reference",
+    "paged_view",
+    "attend_paged",
+    "probe_paged_decode_kernel",
 ]
 
 #: kernel launches since import (or since a caller last reset it to 0)
 LAUNCHES = 0
+#: the paged variant's launches, counted the same way
+PAGED_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 _BLOCK = 128       # the JAX contract of flash_decode: L divisible by 128
@@ -209,10 +233,15 @@ def _library() -> SimpleNamespace:
             smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                              ctypes.c_int]
             smem.restype = ctypes.c_int
+            paged = lib.flash_decode_paged_launch
+            paged.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                              + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+            paged.restype = ctypes.c_int
             err = lib.flash_decode_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _lib = SimpleNamespace(launch=launch, smem_bytes=smem, error_string=err)
+            _lib = SimpleNamespace(launch=launch, paged=paged, smem_bytes=smem,
+                                   error_string=err)
         return _lib
 
 
@@ -328,3 +357,134 @@ def probe_decode_kernel(n_kv_heads: int, group: int, head_dim: int, dtype: torch
         raise RuntimeError(
             f"flash_decode probe at {n_kv_heads} kv heads x {group}, head dim {head_dim} "
             f"answered {o.float().flatten()[:4].tolist()}..., not 2.5")
+
+
+def paged_view(pool_k: torch.Tensor, pool_v: torch.Tensor, tables: torch.Tensor):
+    """Gather one layer's blocks into dense position-ordered views: pools
+    [N, KV, bs, hd] + tables [B, nblk] -> (k, v), each [B, KV, nblk*bs, hd]
+    (``_paged_view``, ``generate.py:1039``, for the port's pool layout)."""
+    B, nblk = tables.shape
+    _, KV, bs, hd = pool_k.shape
+    idx = tables.long()
+    return tuple(pool[idx].permute(0, 2, 1, 3, 4).reshape(B, KV, nblk * bs, hd)
+                 for pool in (pool_k, pool_v))
+
+
+def attend_paged(q: torch.Tensor, view_k: torch.Tensor, view_v: torch.Tensor,
+                 start: torch.Tensor) -> torch.Tensor:
+    """q [B, H, W, hd] over dense paged views [B, KV, L, hd]: query i of row
+    b sees positions <= start[b] + i (``_attend_paged``, ``generate.py:1086``,
+    with ``_grouped_qk`` / ``_grouped_pv``'s arithmetic): f32 scores of the
+    inputs times 1/sqrt(hd), masked to -1e30, a softmax, p cast to q's
+    dtype before an f32 PV product, o in q's dtype."""
+    B, H, W, hd = q.shape
+    KV, L = view_k.shape[1], view_k.shape[2]
+    g = H // KV
+    s = torch.matmul(q.reshape(B, KV, g * W, hd).float(), view_k.float().transpose(-1, -2))
+    s = (s * (1.0 / (hd ** 0.5))).reshape(B, KV, g, W, L)
+    qpos = start.long()[:, None] + torch.arange(W, device=q.device)  # [B, W]
+    allowed = torch.arange(L, device=q.device)[None, None, :] <= qpos[:, :, None]  # [B, W, L]
+    s = s.masked_fill(~allowed[:, None, None], _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p.to(q.dtype).reshape(B, KV, g * W, L).float(), view_v.float())
+    return out.to(q.dtype).reshape(B, H, W, hd)
+
+
+def flash_decode_paged_reference(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                                 tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The plain version, on any device: ``paged_view`` and
+    ``attend_paged`` at W = 1 with start = lens - 1, q [B, KV, G, hd] ->
+    o [B, KV, G, hd] in q's dtype."""
+    B, KV, G, hd = q.shape
+    k, v = paged_view(pool_k, pool_v, tables)
+    o = attend_paged(q.reshape(B, KV * G, 1, hd), k, v, lens - 1)
+    return o.reshape(B, KV, G, hd)
+
+
+def _paged_error(q, pool_k, pool_v, tables, lens) -> Optional[str]:
+    if q.ndim != 4 or pool_k.ndim != 4 or pool_k.shape != pool_v.shape:
+        return (f"bad shapes: q{tuple(q.shape)} pool_k{tuple(pool_k.shape)} "
+                f"pool_v{tuple(pool_v.shape)}")
+    B, KV, _, hd = q.shape
+    if pool_k.shape[1] != KV or pool_k.shape[3] != hd:
+        return f"q/pool mismatch: q{tuple(q.shape)} pool{tuple(pool_k.shape)}"
+    if tables.ndim != 2 or tables.shape[0] != B or tables.shape[1] < 1 \
+            or tables.dtype != torch.int32:
+        return f"tables must be int32 [{B}, nblk >= 1], got {tables.dtype} {tuple(tables.shape)}"
+    if tuple(lens.shape) != (B,) or lens.dtype != torch.int32:
+        return f"lens must be int32 [{B}], got {lens.dtype} {tuple(lens.shape)}"
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v), ("tables", tables), ("lens", lens)):
+        if t.device != q.device:
+            return f"{name} is on {t.device}, q on {q.device}"
+    return None
+
+
+def _launch_paged(q, pool_k, pool_v, tables, lens) -> torch.Tensor:
+    B, KV, G, hd = q.shape
+    N, _, bs, _ = pool_k.shape
+    _same_device_and_dtype(q, pool_k=pool_k, pool_v=pool_v)
+    why = decode_kernel_shape_error(hd, q.dtype, G)
+    if why is not None:
+        raise ValueError(why)
+    q = q if q.stride(3) == 1 else q.contiguous()
+    pool_k, pool_v = (_kernel_view(t) for t in (pool_k, pool_v))
+    tables, lens = tables.contiguous(), lens.contiguous()
+    o = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or KV == 0 or G == 0:
+        return o
+    nblk = tables.shape[1]
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *pool_k.stride()[:3],
+                                      *pool_v.stride()[:3])
+    lib = _library()
+    index = torch.cuda.current_device() if q.device.index is None else q.device.index
+    split, span = decode_split_plan(B, KV, G, nblk * bs, _sm_count(index))
+    rc = launch_on(q.device, lib.paged, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                   tables.data_ptr(), lens.data_ptr(), N, nblk, bs, o.data_ptr(), B, KV, G, hd,
+                   split, span, ctypes.addressof(strides))
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_paged kernel launch failed: CUDA error {rc} "
+                           f"({lib.error_string(rc).decode()})")
+    global PAGED_LAUNCHES
+    with _LAUNCH_LOCK:
+        PAGED_LAUNCHES += 1
+    return o
+
+
+def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                       tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """q [B, KV, G, hd] over each row's positions [0, lens[b]) of the paged
+    pools [N, KV, bs, hd] through ``tables`` [B, nblk] -> o [B, KV, G,
+    hd].  ``tables`` and ``lens`` are int32 on q's device and are read by
+    the device only (a length is clamped to [0, nblk*bs], a block id to
+    the pool).  A CUDA q launches the kernel or raises; a CPU q runs
+    ``flash_decode_paged_reference``."""
+    why = _paged_error(q, pool_k, pool_v, tables, lens)
+    if why is not None:
+        raise ValueError(why)
+    if _device_kind(q) == "cpu":
+        return flash_decode_paged_reference(q, pool_k, pool_v, tables, lens)
+    return _launch_paged(q, pool_k, pool_v, tables, lens)
+
+
+def probe_paged_decode_kernel(n_kv_heads: int, group: int, head_dim: int, dtype: torch.dtype,
+                              device: torch.device) -> None:
+    """Build the library and launch the paged kernel once at the head shape
+    on a CUDA ``device``: zero queries and keys give a uniform softmax
+    over row 0's 5 positions, held in pool blocks 3 and 1 (blocks of 4
+    rows) with values 1..5 (block 2, past the row's length, holds 100),
+    so the answer is exactly 3.  Raises if the build or the launch fails
+    or the answer differs.  The paged counterpart of
+    ``probe_decode_kernel``."""
+    pool_k = torch.zeros(4, n_kv_heads, 4, head_dim, dtype=dtype, device=device)
+    vals = torch.full((4, 4), 100.0, device=device)
+    vals[3] = torch.tensor([1.0, 2.0, 3.0, 4.0], device=device)
+    vals[1, 0] = 5.0
+    pool_v = vals[:, None, :, None].expand_as(pool_k).to(dtype).contiguous()
+    q = torch.zeros(1, n_kv_heads, group, head_dim, dtype=dtype, device=device)
+    tables = torch.tensor([[3, 1, 2]], dtype=torch.int32, device=device)
+    lens = torch.tensor([5], dtype=torch.int32, device=device)
+    o = flash_decode_paged(q, pool_k, pool_v, tables, lens)
+    if not bool((o.float() == 3.0).all().cpu()):
+        raise RuntimeError(
+            f"flash_decode_paged probe at {n_kv_heads} kv heads x {group}, head dim {head_dim} "
+            f"answered {o.float().flatten()[:4].tolist()}..., not 3")

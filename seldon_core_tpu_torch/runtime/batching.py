@@ -13,6 +13,11 @@ Batching is transparent only for graphs whose per-request decisions do
 not change under concatenation, so the engine batches router-free graphs
 only (``graph_is_batchable``).  The JAX package's autopilot flush
 planning, QoS tiers and telemetry records are not ported yet.
+
+``GenLane`` (``batching.py:507-563`` there) takes the batcher's place for
+a generator served by the continuous lane (``runtime/genserver.py``): each
+request's rows become sequences of the scheduler, with the same
+``submit(rows) -> (y_rows, aux)`` contract.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from seldon_core_tpu_torch.graph.interpreter import methods_for
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit, UnitMethod
 from seldon_core_tpu_torch.messages import DispatchTimeoutError
 
-__all__ = ["MicroBatcher", "graph_is_batchable"]
+__all__ = ["GenLane", "MicroBatcher", "graph_is_batchable"]
 
 
 def graph_is_batchable(graph: PredictiveUnit) -> bool:
@@ -188,3 +193,33 @@ class MicroBatcher:
                 ys, aux = await dispatch
             ys_parts.append(np.asarray(ys)[:n])
         return np.concatenate(ys_parts, axis=0), aux
+
+
+class GenLane:
+    """The generation lane's bypass of the MicroBatcher.  The batcher's
+    unit of work is one stacked dispatch that holds the device until every
+    row's whole generation is done; a continuous scheduler admits each
+    row into the running decode batch at its next tick and retires rows
+    one by one.  Unary predicts of a generator take this lane, with the
+    batcher's ``submit(rows) -> (y_rows, aux)`` contract."""
+
+    def __init__(self, genserver):
+        self.genserver = genserver
+
+    async def submit(self, x: np.ndarray):
+        x = np.asarray(x)
+        if x.ndim < 2:
+            x = np.atleast_2d(x)
+        req = self.genserver.submit(x)
+        try:
+            y = await asyncio.wrap_future(req.future)
+        except asyncio.CancelledError:
+            # the engine's deadline fired (or the caller left): stop the
+            # request, so its sequences free their blocks
+            req.cancel()
+            raise
+        return y.astype(np.float64), ({}, {})
+
+    def snapshot(self) -> dict:
+        # the scheduler's own block is stats()["genserver"]
+        return {"mode": "genserver"}

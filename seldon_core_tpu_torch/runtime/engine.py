@@ -4,6 +4,14 @@
 One engine per predictor.  The graph runs in the eager ``CompiledGraph``
 on the engine's device; router-free graphs go through the
 ``MicroBatcher``, which stacks concurrent requests into one dispatch.
+A single generator node is served by the continuous lane instead
+(``engine.py:273-325`` there): the engine builds a ``GenServer`` from the
+unit's ``continuous_spec`` and puts the ``GenLane`` in the batcher's
+place, and streams join the running batch (``genserver.stream``).
+``SELDON_TPU_GEN_CONTINUOUS=0`` keeps the static lane (``MicroBatcher``
+and the unit's ``stream_tokens``).  Unlike the reference, a scheduler
+that fails to build (or whose kernels fail their probe) raises here: the
+engine never falls back to the static lane quietly.
 A dispatch runs on an executor thread (``_batched_predict_sync``): the
 kernels launch on that thread's current CUDA stream, and the ``.cpu()``
 readback synchronises it.  Rows arrive as float64 from the JSON codec and
@@ -16,18 +24,18 @@ before is a server fault and propagates; on a novel width it is the
 client's shape error, a 400), ``ready`` / ``pause`` / ``drained``,
 ``states`` / ``load_states``, and token streaming for a single generator
 node (``can_stream``, ``prepare_stream_request``, ``generate_stream``,
-``engine.py:690-849``): each chunk is computed on the dispatch executor,
+``engine.py:690-849``): each chunk is read on the dispatch executor,
 streams bypass the batcher and write no state back.  Not ported yet: the
 host interpreter for remote nodes and routers, fused graphs, feedback,
-the continuous generation lane (and with it streams that join a running
-batch), the stream's tracer spans and audit log, admission control, QoS
-and the observatories.
+the stream's tracer spans and audit log, admission control, QoS and the
+observatories.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
@@ -51,25 +59,28 @@ from seldon_core_tpu_torch.messages import (
     new_puid,
 )
 from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, kv_write
-from seldon_core_tpu_torch.runtime.batching import MicroBatcher, graph_is_batchable
+from seldon_core_tpu_torch.runtime.batching import GenLane, MicroBatcher, graph_is_batchable
+from seldon_core_tpu_torch.runtime.genserver import GenServer
 
 __all__ = ["EngineService", "StreamRequest"]
 
 
 class StreamRequest(NamedTuple):
     """A validated streaming request: prompt rows [B, S] float64, puid,
-    tokens per frame."""
+    tokens per frame, and the request's ``max_new`` (None: the unit's)."""
 
     rows: np.ndarray
     puid: str
     chunk: int
+    max_new: Optional[int] = None
 
 
-def _max_new(value) -> None:
-    """A stream's ``max_new``: validated as the JAX engine does, not used
-    (the compiled lane generates the unit's ``max_new_tokens``)."""
+def _max_new(value) -> int:
+    """A stream's ``max_new``, at least 1, as the JAX engine reads it: the
+    continuous lane generates that many tokens, the static lane the
+    unit's ``max_new_tokens``."""
     try:
-        int(value)
+        return max(1, int(value))
     except (TypeError, ValueError):
         raise SeldonMessageError("max_new must be an integer") from None
 
@@ -114,8 +125,15 @@ class EngineService:
         )
         self.compiled = CompiledGraph(self.predictor, rng=rng, device=self.device)
         self.mode = "compiled"
-        self.batcher: Optional[MicroBatcher] = None
-        if batching and graph_is_batchable(self.predictor.graph):
+        # router-free: the output names never vary per request
+        self._static_names = (self.compiled._output_names(self.predictor.graph, {})
+                              if graph_is_batchable(self.predictor.graph) else None)
+        self.genserver: Optional[GenServer] = None
+        self._build_genserver()
+        self.batcher = None
+        if batching and self.genserver is not None:
+            self.batcher = GenLane(self.genserver)
+        elif batching and graph_is_batchable(self.predictor.graph):
             # the ported units are stateless and row-independent, so
             # dispatches are order-independent reads: they pipeline through
             # the batcher's in-flight slots, padded rows and all
@@ -128,8 +146,19 @@ class EngineService:
                 # their 504s
                 dispatch_timeout_s=self.dispatch_timeout_s * 1.5,
             )
-            # router-free: the output names never vary per request
-            self._static_names = self.compiled._output_names(self.predictor.graph, {})
+
+    def _build_genserver(self) -> None:
+        """The continuous lane's scheduler for a single unit whose
+        ``continuous_spec`` is not None, unless
+        ``SELDON_TPU_GEN_CONTINUOUS=0``.  A failure raises."""
+        if os.environ.get("SELDON_TPU_GEN_CONTINUOUS", "1") == "0" \
+                or len(self.compiled.units) != 1:
+            return
+        name, unit = next(iter(self.compiled.units.items()))
+        spec_fn = getattr(unit, "continuous_spec", None)
+        spec = None if spec_fn is None else spec_fn(self.compiled.states[name])
+        if spec is not None:
+            self.genserver = GenServer(**spec)
 
     # -- dispatch -------------------------------------------------------
 
@@ -212,21 +241,24 @@ class EngineService:
     # -- streaming generation (engine.py:690-849) -----------------------
 
     def can_stream(self) -> bool:
-        """True when the graph is a single unit that streams tokens (a
-        generator exposing ``stream_tokens``)."""
+        """True when the continuous lane serves the graph, or the graph is a
+        single unit that streams tokens (a generator exposing
+        ``stream_tokens``)."""
         units = self.compiled.units
-        return len(units) == 1 and hasattr(next(iter(units.values())), "stream_tokens")
+        return self.genserver is not None or (
+            len(units) == 1 and hasattr(next(iter(units.values())), "stream_tokens"))
 
     def prepare_stream_request(self, text) -> StreamRequest:
         """Validate a streaming request before any response byte exists, so
         the lane can answer a plain 400 instead of a 200 that dies.  One
         JSON parse; returns the prompt rows, the puid and ``chunk``
-        (default 8, clamped to 1..256).  A top-level ``max_new`` is
-        validated and not used, as in the JAX engine's compiled lane.
+        (default 8, clamped to 1..256), and a top-level ``max_new`` (at
+        least 1), which the continuous lane generates and the static lane,
+        as the JAX engine's, validates and ignores.
         Raises SeldonMessageError on bad JSON, a bad chunk or ``max_new``,
         a graph that cannot stream or a payload without a non-empty
         numeric prompt of token rows."""
-        chunk = 8
+        chunk, max_new = 8, None
         try:
             doc = json.loads(text)
         except (TypeError, ValueError) as e:
@@ -237,32 +269,42 @@ class EngineService:
             except (TypeError, ValueError):
                 raise SeldonMessageError("chunk must be an integer") from None
         if isinstance(doc, dict) and doc.get("max_new") is not None:
-            _max_new(doc["max_new"])
+            max_new = _max_new(doc["max_new"])
         if not self.can_stream():
             raise SeldonMessageError(
                 "graph does not support streaming generation (need a single generator node)")
         msg = SeldonMessage.from_json_dict(doc)
-        return StreamRequest(_prompt_rows(msg), msg.meta.puid or new_puid(), chunk)
+        return StreamRequest(_prompt_rows(msg), msg.meta.puid or new_puid(), chunk, max_new)
 
     def _next_chunk(self, gen):
-        """One chunk of a stream, read back to the host, or None at its end.
-        Runs on the dispatch executor, in inference mode as a dispatch
-        runs: the kernels launch on its thread and the readback
-        synchronises its stream."""
+        """One chunk of a stream on the host, or None at its end.  Runs on
+        the dispatch executor, in inference mode as a dispatch runs: a
+        static stream's kernels launch on its thread and the readback
+        synchronises its stream; a continuous stream waits there for the
+        scheduler's next chunk."""
         with torch.inference_mode():
             toks = next(gen, None)
-        return None if toks is None else toks.cpu().numpy()
+        if toks is None:
+            return None
+        return toks.cpu().numpy() if isinstance(toks, torch.Tensor) else np.asarray(toks)
 
     async def generate_stream(self, request: StreamRequest):
         """Incremental generation of a request that
         ``prepare_stream_request`` validated: yields JSON strings
         ``{"tokens": [[...]], "done": false}`` per chunk, then ``{"done":
         true, "meta": {"puid": ...}}``.  Greedy streams concatenate to
-        exactly the ``predict_json`` output.  Streams bypass the batcher
-        and never write unit state back; closing this generator closes the
-        unit's."""
-        name, unit = next(iter(self.compiled.units.items()))
-        gen = unit.stream_tokens(self.compiled.states[name], request.rows, chunk=request.chunk)
+        exactly the ``predict_json`` output.  On the continuous lane the
+        stream joins the running batch (``genserver.stream``); on the static
+        lane it runs the unit's ``stream_tokens`` and bypasses the batcher.
+        Streams never write unit state back; closing this generator closes
+        the lane's (a continuous stream's request is then cancelled)."""
+        if self.genserver is not None:
+            gen = self.genserver.stream(request.rows, chunk=request.chunk,
+                                        max_new=request.max_new)
+        else:
+            name, unit = next(iter(self.compiled.units.items()))
+            gen = unit.stream_tokens(self.compiled.states[name], request.rows,
+                                     chunk=request.chunk)
         pending = None
         try:
             while True:
@@ -283,7 +325,7 @@ class EngineService:
     # -- admin (engine RestClientController.java:57-99) -------------------
 
     def stats(self) -> dict:
-        return {
+        out = {
             "mode": self.mode,
             "device": self.device.type,
             "predictor": self.predictor.name,
@@ -291,11 +333,19 @@ class EngineService:
             "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES},
                         "flash_attention": {"launches": flash_attention.LAUNCHES},
                         "flash_decode": {"launches": flash_decode.LAUNCHES},
-                        "kv_write": {"launches": kv_write.LAUNCHES}},
+                        "kv_write": {"launches": kv_write.LAUNCHES},
+                        "flash_decode_paged": {"launches": flash_decode.PAGED_LAUNCHES},
+                        "kv_write_paged": {"launches": kv_write.PAGED_LAUNCHES}},
         }
+        if self.genserver is not None:
+            out["genserver"] = self.genserver.snapshot()
+        return out
 
     def close(self) -> None:
-        """Stop the dispatch threads (after the last request)."""
+        """Stop the generation scheduler and the dispatch threads (after the
+        last request)."""
+        if self.genserver is not None:
+            self.genserver.stop()
         self._executor.shutdown(wait=True)
 
     def ready(self) -> bool:
@@ -309,6 +359,9 @@ class EngineService:
 
     def drained(self) -> bool:
         """No queued or in-flight work — the shutdown drain's exit probe."""
+        if self.genserver is not None:
+            g = self.genserver.snapshot()
+            return not g["inflight_sequences"] and not g["waiting_sequences"]
         if self.batcher is None:
             return True
         b = self.batcher.snapshot()
@@ -323,7 +376,13 @@ class EngineService:
 
     def load_states(self, states) -> None:
         """Replace unit states (e.g. ``{"mnist": convert.params_from_jax(...)}``),
-        moved to the engine's device."""
+        moved to the engine's device.  The continuous lane's scheduler is
+        built again over the new weights (the old one is stopped)."""
         self.compiled.states.update(
             {name: to_device(st, self.device) for name, st in states.items()}
         )
+        if self.genserver is not None:
+            self.genserver.stop()
+            self.genserver = None
+            self._build_genserver()
+            self.batcher = GenLane(self.genserver) if self.batcher is not None else None

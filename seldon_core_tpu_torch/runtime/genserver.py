@@ -1,0 +1,741 @@
+"""Continuous-batching generation server over a paged KV pool — the port's
+counterpart of ``seldon_core_tpu/runtime/genserver.py`` (greedy, float
+pools, the unified role).
+
+The static lane runs ``generate`` once per request: the request's batch
+holds the device for its whole life, and a late arrival waits for it.
+Here every row of every request is a sequence of its own, scheduled step
+by step on one worker thread:
+
+  * **Paged KV pool**: one pool of fixed-size blocks per layer
+    (``models/generate.py`` ``init_block_pool``; block 0 is the scratch
+    block), a block table per sequence; ``BlockAllocator`` hands out and
+    takes back block ids on the host.
+  * **Per-tick admission**: each tick admits waiting sequences FIFO into
+    free slots, runs one prefill tick (one ``prefill_chunk`` piece of
+    every prefilling sequence's prompt, batched) and one decode round
+    (``span`` greedy steps of every running sequence,
+    ``paged_decode_round``), retires finished rows and hands their tokens
+    to the requests' futures and stream queues.
+  * **Preemption**: when the pool runs dry the youngest sequence (running
+    or prefilling) gives its blocks back and waits at the front of the
+    queue; it re-prefills its prompt and the tokens it already emitted,
+    and resumes with the token it had pending, never re-sampled.
+
+Row and table shapes are bucketed to powers of two, and a round's
+positions live in device tensors, so the round is the static-shape
+program a CUDA graph can capture.  All device work runs on the scheduler
+thread, under ``torch.inference_mode``, on the unit's device and, on
+CUDA, on a stream of its own; the round's one host sync is its [B, span]
+token readback, a prefill tick's the [B] first tokens.  On CUDA with
+``use_flash`` the constructor builds and probes the lane's two kernels
+(``flash_decode_paged`` and ``kv_write_paged``) and raises if either
+fails: the engine never falls back to the static lane quietly.
+
+Greedy output is token-identical to ``generate`` (the tests pin it
+against the JAX package on the CPU).
+
+Tuning knobs, the reference's names and defaults:
+``SELDON_TPU_GEN_BLOCK_SIZE`` (16), ``SELDON_TPU_GEN_POOL_BLOCKS``
+(1024), ``SELDON_TPU_GEN_SLOTS`` (64), ``SELDON_TPU_GEN_SPAN`` (8),
+``SELDON_TPU_GEN_PREFILL_CHUNK`` (128, the interleave floor),
+``SELDON_TPU_GEN_PREFILL_CHUNK_MAX`` (512, the adaptive chunk's ceiling)
+and ``SELDON_TPU_GEN_MAX_WAITING`` (4096 sequences queued before a typed
+503).  ``SELDON_TPU_GEN_CONTINUOUS=0`` keeps the static lane
+(``runtime/engine.py``).
+
+Not ported, with the ROADMAP item that ports each: sampled decoding and
+per-row sampling keys ([5d] b; ``temperature > 0`` is refused), the
+shared-prefix blocks ([5d] c), the speculative round and its draft pool
+([5d] d), the disaggregated roles and the KV handoff ([6]), and the cost
+ledger, flight recorder, tracer spans, brownout, QoS tiers and ``prewarm``
+([4]).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import logging
+import os
+import queue
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from seldon_core_tpu_torch.messages import LoadShedError, SeldonMessageError
+from seldon_core_tpu_torch.models.generate import (
+    _greedy_only,
+    init_block_pool,
+    paged_decode_round,
+    paged_forward,
+)
+from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
+from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
+
+__all__ = ["BlockAllocator", "GenRequest", "GenServer"]
+
+logger = logging.getLogger(__name__)
+
+#: the wire prefix of a deliberate load shed (the reference's
+#: ``runtime/autopilot.py`` ``SHED_INFO_PREFIX``): a gateway reads it as
+#: backpressure, not as a replica fault
+SHED_INFO_PREFIX = "autopilot load shed"
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
+
+
+class BlockAllocator:
+    """Host-side free list over the device block pool.
+
+    Block 0 is the scratch block and is never handed out.  Freed ids go
+    back on the list FIFO; any free block serves any sequence (the table
+    adds the indirection), so the pool cannot fragment.  ``pin`` marks
+    blocks that ``free`` must never take back (the shared-prefix blocks of
+    [5d] c).  Every mutation takes the lock."""
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError("pool needs at least 2 blocks (1 is scratch)")
+        self.num_blocks = int(num_blocks)
+        self._free: deque = deque(range(1, self.num_blocks))
+        self._pinned: set = set()
+        self._lock = threading.Lock()
+        self.high_water = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.num_blocks - 1  # scratch excluded
+
+    @property
+    def used(self) -> int:
+        return self.capacity - len(self._free)
+
+    def can_alloc(self, n: int) -> bool:
+        return len(self._free) >= n
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n blocks, or None: the caller queues on a full pool, it never
+        crashes."""
+        with self._lock:
+            if n < 0 or len(self._free) < n:
+                return None
+            out = [self._free.popleft() for _ in range(n)]
+            self.high_water = max(self.high_water, self.used)
+            return out
+
+    def pin(self, blocks: List[int]) -> None:
+        with self._lock:
+            self._pinned.update(blocks)
+
+    def free(self, blocks: List[int]) -> None:
+        with self._lock:
+            for b in blocks:
+                if b not in self._pinned:
+                    self._free.append(b)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"total": self.capacity, "used": self.used, "pinned": len(self._pinned),
+                    "high_water": self.high_water}
+
+
+class _Sequence:
+    """One row of one request riding the scheduler."""
+
+    __slots__ = ("sid", "request", "prompt", "prompt0", "max_new", "n_valid", "blocks",
+                 "pending", "prefill_pos", "emitted", "done", "admit_order", "retire_reason")
+
+    def __init__(self, sid: int, request: "GenRequest", prompt: np.ndarray, max_new: int):
+        self.sid = sid                  # arrival order: a round's row order
+        self.request = request
+        self.prompt = prompt            # int32 [S]: what the next prefill consumes
+        self.prompt0 = prompt           # as submitted: the preemption rebuild's base
+        self.max_new = int(max_new)
+        self.n_valid = 0                # cache positions written
+        self.blocks: List[int] = []
+        self.pending: Optional[int] = None  # emitted, not yet in the cache
+        self.prefill_pos = 0            # prompt tokens consumed
+        self.emitted: List[int] = []
+        self.done = False
+        self.admit_order = -1
+        self.retire_reason = ""
+
+
+class GenRequest:
+    """One client request: its sequences and how they are delivered, a
+    future holding the eos-padded ``[B, max_new]`` int32 tokens (unary) or
+    a queue of ``[B, <=chunk]`` arrays ending in None (streaming)."""
+
+    def __init__(self, chunk: Optional[int], max_new: int):
+        self.chunk = chunk              # None: unary
+        self.max_new = int(max_new)
+        self.seqs: List[_Sequence] = []
+        self.future: concurrent.futures.Future = concurrent.futures.Future()
+        # unbounded on purpose: a stream buffers at most max_new tokens a
+        # row, and a bounded queue could block the scheduler on a slow reader
+        self.queue: "queue.Queue" = queue.Queue()
+        self.delivered = 0              # stream tokens handed out per row
+        self.cancelled = False
+
+    def cancel(self) -> None:
+        self.cancelled = True
+
+
+class GenServer:
+    """The continuous-batching scheduler of one generator deployment.
+
+    ``params`` and ``cfg`` are the unit's (``continuous_spec``); the pool
+    lives on the params' device.  The worker thread starts at the first
+    submit; callers reach it through thread-safe queues and futures."""
+
+    def __init__(self, params, cfg, *, temperature: float = 0.0, eos_token: int = -1,
+                 max_new_tokens: int = 32, use_flash: bool = False,
+                 block_size: Optional[int] = None, num_blocks: Optional[int] = None,
+                 slots: Optional[int] = None, span: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None):
+        _greedy_only(float(temperature))
+        self.params = params
+        self.cfg = cfg
+        self.eos_token = int(eos_token)
+        self.max_new_tokens = int(max_new_tokens)
+        self.use_flash = bool(use_flash)
+        self.device = params["embed"].device
+        self.block_size = block_size or _env_int("SELDON_TPU_GEN_BLOCK_SIZE", 16)
+        self.num_blocks = num_blocks or _env_int("SELDON_TPU_GEN_POOL_BLOCKS", 1024)
+        self.slots = slots or _env_int("SELDON_TPU_GEN_SLOTS", 64)
+        self.span = span or _env_int("SELDON_TPU_GEN_SPAN", 8)
+        self.prefill_chunk = prefill_chunk or _env_int("SELDON_TPU_GEN_PREFILL_CHUNK", 128)
+        # a bounded admission queue: sustained overload fails typed (503)
+        # with flat memory instead of growing the waiting deques
+        self.max_waiting = _env_int("SELDON_TPU_GEN_MAX_WAITING", 4096)
+        # the adaptive prefill chunk: prefill_chunk is the floor; while a
+        # doubled chunk leaves a tick's wall nearly flat (dispatch-bound)
+        # the chunk probes up towards the ceiling, and it backs off and
+        # latches the first time doubling makes the tick much slower
+        self.prefill_chunk_max = max(_env_int("SELDON_TPU_GEN_PREFILL_CHUNK_MAX", 512),
+                                     self.prefill_chunk)
+        self._chunk_eff = self.prefill_chunk
+        self._chunk_wall: Dict[int, List[float]] = {}  # C -> [ema_s, ticks]
+        self._chunk_latched = self._chunk_eff >= self.prefill_chunk_max
+        if self.device.type == "cuda" and self.use_flash:
+            # the lane's two kernels, built and launched once here: a
+            # missing compiler or a failing build raises at construction
+            group = cfg.n_heads // cfg.kv_heads
+            probe_paged_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, self.device)
+            probe_kv_write_paged(cfg.kv_heads, cfg.head_dim, cfg.dtype, self.device)
+        self._allocator = BlockAllocator(self.num_blocks)
+        self._pool = None
+        # scheduler state: the worker thread's, except arrivals
+        self._arrivals: deque = deque()
+        self._waiting: deque = deque()
+        self._prefilling: List[_Sequence] = []
+        self._active: List[_Sequence] = []
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._thread: Optional[threading.Thread] = None
+        self._stopped = False
+        self._seq_counter = 0
+        self._admit_counter = 0
+        # lifetime counters for /stats
+        self.admitted_total = 0
+        self.retired_total: Dict[str, int] = {}
+        self.preempted_total = 0
+        self.steps_total: Dict[str, int] = {}
+        self.tokens_emitted_total = 0
+        self.tick_errors_total = 0
+        # device work dispatched: prefill ticks and single-token decode
+        # steps (each step is one launch of each paged kernel per layer),
+        # and the most rows a decode round has carried
+        self.prefill_dispatches_total = 0
+        self.decode_steps_total = 0
+        self.decode_round_rows_max = 0
+
+    # -- client surface (any thread) ------------------------------------
+
+    def submit(self, rows, max_new: Optional[int] = None) -> GenRequest:
+        """Unary generation: rows [B, S] (float wire rows: NaN to 0, then
+        clamped to [0, vocab) and truncated, as ``sanitize_prompt``).  The
+        request's ``future`` resolves to the eos-padded int32 [B, max_new]
+        array, ``generate``'s output."""
+        return self._enqueue(rows, chunk=None, max_new=max_new)
+
+    def stream(self, rows, chunk: int = 8, max_new: Optional[int] = None):
+        """Streaming generation: a generator of [B, <=chunk] int32 arrays
+        whose concatenation equals the unary output.  Closing it early
+        cancels the request, which frees its blocks at the next tick."""
+        req = self._enqueue(rows, chunk=max(1, int(chunk)), max_new=max_new)
+
+        def _iter():
+            try:
+                while True:
+                    item = req.queue.get()
+                    if item is None:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+            finally:
+                if not req.future.done():
+                    req.cancel()
+                    with self._wake:
+                        self._wake.notify_all()
+
+        return _iter()
+
+    def _enqueue(self, rows, chunk, max_new) -> GenRequest:
+        rows = np.asarray(rows, dtype=np.float64)
+        if rows.ndim < 2:
+            rows = rows.reshape(1, -1)
+        if rows.ndim != 2 or rows.shape[0] == 0 or rows.shape[1] == 0:
+            raise SeldonMessageError(
+                f"generation needs prompt token rows [B, S] with B, S >= 1, got shape "
+                f"{rows.shape}")
+        # sanitize_prompt's clamp, on the host: NaN to 0, clip to the vocab
+        prompts = np.clip(np.nan_to_num(rows), 0, self.cfg.vocab - 1).astype(np.int32)
+        req = GenRequest(chunk, int(max_new or self.max_new_tokens))
+        with self._wake:
+            if self._stopped:
+                raise RuntimeError("generation scheduler stopped")
+            waiting = len(self._waiting) + len(self._arrivals)
+            if self.max_waiting > 0 and waiting + len(prompts) > self.max_waiting:
+                raise LoadShedError(
+                    f"{SHED_INFO_PREFIX}: generation admission queue full ({waiting}/"
+                    f"{self.max_waiting} sequences waiting; grow SELDON_TPU_GEN_MAX_WAITING "
+                    f"or add replicas)")
+            for p in prompts:
+                self._seq_counter += 1
+                seq = _Sequence(self._seq_counter, req, p, req.max_new)
+                req.seqs.append(seq)
+                self._arrivals.append(seq)
+            self._ensure_thread()
+            self._wake.notify_all()
+        return req
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            waiting = len(self._waiting) + len(self._arrivals)
+            inflight = len(self._active) + len(self._prefilling)
+        return {
+            "mode": "decode",
+            "slots": self.slots,
+            "inflight_sequences": inflight,
+            "waiting_sequences": waiting,
+            "max_waiting": self.max_waiting,
+            "kv_blocks": self._allocator.snapshot(),
+            "block_size": self.block_size,
+            "span": self.span,
+            "prefill_chunk": self.prefill_chunk,
+            "prefill_chunk_effective": self._chunk_eff,
+            "admitted_total": self.admitted_total,
+            "retired_total": dict(self.retired_total),
+            "preempted_total": self.preempted_total,
+            "steps_total": dict(self.steps_total),
+            "tokens_emitted_total": self.tokens_emitted_total,
+            "tick_errors_total": self.tick_errors_total,
+            "prefill_dispatches_total": self.prefill_dispatches_total,
+            "decode_steps_total": self.decode_steps_total,
+            "decode_round_rows_max": self.decode_round_rows_max,
+        }
+
+    def stop(self) -> None:
+        """Stop the worker thread; every request still queued or in flight
+        fails with "generation scheduler stopped"."""
+        with self._wake:
+            self._stopped = True
+            self._wake.notify_all()
+        t = self._thread
+        if t is not None and t.is_alive():
+            t.join(timeout=10)
+
+    # -- worker thread ---------------------------------------------------
+
+    def _ensure_thread(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(target=self._run, name="genserver", daemon=True)
+            self._thread.start()
+
+    def _device_context(self):
+        """The scheduler thread's CUDA stream (after the weights' writes on
+        the default stream), or nothing on the CPU."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.default_stream(self.device))
+        return torch.cuda.stream(stream)
+
+    def _run(self) -> None:
+        with torch.inference_mode(), self._device_context():
+            while True:
+                with self._wake:
+                    while (not self._stopped and not self._arrivals and not self._waiting
+                           and not self._prefilling and not self._active):
+                        self._wake.wait()
+                    if self._stopped:
+                        break
+                    while self._arrivals:
+                        self._waiting.append(self._arrivals.popleft())
+                try:
+                    progress = self._tick()
+                except Exception as e:  # noqa: BLE001 - the scheduler must outlive a bad tick
+                    logger.exception("genserver tick failed")
+                    self.tick_errors_total += 1
+                    self._fail_all(e)
+                    progress = True
+                if not progress:
+                    # queued work that cannot run yet (a dry pool): no hot spin
+                    with self._wake:
+                        self._wake.wait(0.005)
+        self._fail_all(RuntimeError("generation scheduler stopped"))
+
+    def _fail_all(self, exc: BaseException) -> None:
+        with self._lock:
+            seqs = (list(self._waiting) + list(self._prefilling) + list(self._active)
+                    + list(self._arrivals))
+            self._waiting.clear()
+            self._arrivals.clear()
+            self._prefilling, self._active = [], []
+        for seq in seqs:
+            self._release_blocks(seq)
+            req = seq.request
+            if not req.future.done():
+                req.future.set_exception(exc)
+            req.queue.put(exc)
+
+    # -- the scheduler step ----------------------------------------------
+
+    def _tick(self) -> bool:
+        """One iteration: admit, one prefill tick, one decode round,
+        retire.  Returns False when no work could run (the loop then backs
+        off instead of spinning)."""
+        if self._pool is None:
+            self._pool = init_block_pool(self.cfg, self.num_blocks, self.block_size,
+                                         self.device)
+        self._drop_cancelled()
+        admitted = self._admit()
+        kind = None
+        tokens = 0
+        if self._prefilling:
+            kind = "prefill"
+            tokens = self._prefill_tick()
+        # a first token can finish a sequence (eos, max_new 1): retire it
+        # before the round, so it takes neither a slot nor a dispatch
+        retired = self._retire_finished()
+        if self._active:
+            kind = "decode" if kind is None else "mixed"
+            tokens += self._decode_round()
+        retired += self._retire_finished()
+        self.steps_total[kind or "idle"] = self.steps_total.get(kind or "idle", 0) + 1
+        if kind is not None:
+            self.tokens_emitted_total += tokens
+        return kind is not None or admitted > 0 or retired > 0
+
+    def _drop_cancelled(self) -> None:
+        for coll in (self._waiting, self._prefilling, self._active):
+            for seq in [s for s in coll if s.request.cancelled]:
+                coll.remove(seq)
+                self._retire(seq, "cancelled")
+
+    def _blocks_needed(self, upto: int) -> int:
+        return -(-upto // self.block_size)  # ceil
+
+    def _ensure_capacity(self, seq: _Sequence, upto: int) -> bool:
+        """Grow ``seq``'s table to cover positions [0, upto), preempting
+        (youngest first) while the pool is dry."""
+        need = self._blocks_needed(upto) - len(seq.blocks)
+        if need <= 0:
+            return True
+        while not self._allocator.can_alloc(need):
+            victim = self._pick_victim(exclude=seq)
+            if victim is None:
+                return False
+            self._preempt(victim)
+        got = self._allocator.alloc(need)
+        if got is None:
+            return False
+        seq.blocks.extend(got)
+        return True
+
+    def _pick_victim(self, exclude: _Sequence) -> Optional[_Sequence]:
+        """The youngest admitted sequence, running or prefilling, but
+        ``exclude``."""
+        pool = [s for s in self._active + self._prefilling if s is not exclude]
+        return max(pool, key=lambda s: s.admit_order) if pool else None
+
+    def _preempt(self, seq: _Sequence) -> None:
+        """Evict a sequence: free its blocks and put it at the front of the
+        queue for recompute.  The tokens it already emitted join the
+        re-prefill prompt, and its pending token is restored, never
+        re-sampled, so it resumes where it stopped."""
+        for coll in (self._active, self._prefilling):
+            if seq in coll:
+                coll.remove(seq)
+        self._release_blocks(seq)
+        if seq.emitted:
+            # rebuilt from the ORIGINAL prompt: folding into an already
+            # folded prompt would repeat context on a second preemption
+            seq.prompt = np.concatenate(
+                [seq.prompt0, np.asarray(seq.emitted[:-1], np.int32)]).astype(np.int32)
+            seq.pending = seq.emitted[-1]
+        seq.prefill_pos = 0
+        seq.n_valid = 0
+        self._waiting.appendleft(seq)
+        self.preempted_total += 1
+        self.retired_total["preempted"] = self.retired_total.get("preempted", 0) + 1
+
+    def _release_blocks(self, seq: _Sequence) -> None:
+        if seq.blocks:
+            self._allocator.free(seq.blocks)
+        seq.blocks = []
+
+    def _admit(self) -> int:
+        """FIFO admission into free slots.  A sequence whose first chunk's
+        blocks cannot be allocated stays queued (pool exhaustion queues, it
+        never crashes); one that cannot fit with the scheduler otherwise
+        empty can never be served and fails with a typed error."""
+        admitted = 0
+        while self._waiting and len(self._active) + len(self._prefilling) < self.slots:
+            seq = self._waiting[0]
+            need = self._blocks_needed(min(len(seq.prompt), self.prefill_chunk))
+            if not self._allocator.can_alloc(need):
+                if not self._active and not self._prefilling:
+                    # nothing will ever retire to free blocks
+                    self._waiting.popleft()
+                    self._finish_error(seq, RuntimeError(
+                        f"KV pool ({self.num_blocks} blocks of {self.block_size}) cannot hold "
+                        f"one prefill chunk (grow SELDON_TPU_GEN_POOL_BLOCKS)"))
+                    continue
+                break  # pool dry: wait for a retirement
+            self._waiting.popleft()
+            seq.blocks = self._allocator.alloc(need) or []
+            seq.n_valid = 0
+            seq.prefill_pos = 0
+            self._admit_counter += 1
+            seq.admit_order = self._admit_counter
+            self._prefilling.append(seq)
+            self.admitted_total += 1
+            admitted += 1
+        return admitted
+
+    def _table(self, seq: _Sequence, nblk: int) -> np.ndarray:
+        row = np.zeros((nblk,), np.int32)
+        row[: len(seq.blocks)] = seq.blocks[:nblk]
+        return row
+
+    def _to_device(self, *arrays):
+        return [torch.from_numpy(a).to(self.device) for a in arrays]
+
+    # -- prefill ----------------------------------------------------------
+
+    def _prefill_tick(self) -> int:
+        """One chunk of every prefilling sequence's prompt as one batched
+        ``paged_forward``: a long prompt stalls the running decode for about
+        one chunk, and co-arriving prompts prefill together."""
+        t0 = time.perf_counter()
+        C = self._chunk_eff
+        # the capacity pass first: an eviction in it may requeue another
+        # prefilling sequence, so the batch is built only afterwards
+        for seq in list(self._prefilling):
+            if seq not in self._prefilling:
+                continue  # preempted by an earlier row's eviction
+            w = min(C, len(seq.prompt) - seq.prefill_pos)
+            if self._ensure_capacity(seq, seq.prefill_pos + w):
+                continue
+            # cannot hold this chunk: give the blocks back and wait (a
+            # re-admission starts the prefill over)
+            self._prefilling.remove(seq)
+            self._release_blocks(seq)
+            if not self._active and not self._prefilling:
+                # alone and still failing: the prompt exceeds the pool, and
+                # requeueing would spin admit -> prefill -> requeue forever
+                self._finish_error(seq, RuntimeError(
+                    f"KV pool ({self.num_blocks} blocks of {self.block_size}) too small for "
+                    f"prompt length {len(seq.prompt)} (grow SELDON_TPU_GEN_POOL_BLOCKS)"))
+                continue
+            self._waiting.appendleft(seq)
+        batch = list(self._prefilling)
+        if not batch:
+            return 0
+        B = _pow2(len(batch))
+        toks = np.zeros((B, C), np.int32)
+        start = np.zeros((B,), np.int32)
+        width = np.zeros((B,), np.int32)
+        for i, seq in enumerate(batch):
+            lo = seq.prefill_pos
+            w = min(C, len(seq.prompt) - lo)
+            toks[i, :w] = seq.prompt[lo:lo + w]
+            start[i] = lo
+            width[i] = w
+        nblk = _pow2(max(self._blocks_needed(int(start[i] + width[i]))
+                         for i in range(len(batch))))
+        tables = np.zeros((B, nblk), np.int32)
+        for i, seq in enumerate(batch):
+            tables[i] = self._table(seq, nblk)
+        toks_t, tables_t, start_t, width_t = self._to_device(toks, tables, start, width)
+        logits, self._pool = paged_forward(self.params, toks_t, self._pool, tables_t, start_t,
+                                           width_t, self.cfg, last_only=True,
+                                           use_flash=self.use_flash)
+        # the tick's one sync: every row's next token (argmax takes the
+        # first maximal index, as generate's sample_token does)
+        first = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.prefill_dispatches_total += 1
+        emitted = 0
+        for i, seq in enumerate(batch):
+            seq.prefill_pos += int(width[i])
+            seq.n_valid = int(start[i] + width[i])
+            if seq.prefill_pos < len(seq.prompt):
+                continue
+            # prompt consumed: its first token (or the restored pending one)
+            self._prefilling.remove(seq)
+            if seq.pending is None:
+                seq.pending = int(first[i])
+                self._emit_tokens(seq, [seq.pending])
+                emitted += 1
+            self._active.append(seq)
+        if int(width.max()) == C:
+            # only saturated ticks say anything about width-C compute
+            self._adapt_chunk(C, time.perf_counter() - t0)
+        return emitted
+
+    def _adapt_chunk(self, C: int, wall_s: float) -> None:
+        """Probe the effective prefill chunk upward while ticks stay
+        dispatch-bound.  After >= 2 ticks at width C: if doubling from C/2
+        left the EMA wall under 1.6x (compute would have doubled it), keep
+        probing; if it is more than 1.6x slower, shrink back and latch.
+        The floor is the configured grain, the ceiling PREFILL_CHUNK_MAX."""
+        ema = self._chunk_wall.setdefault(C, [wall_s, 0])
+        ema[0] = 0.5 * ema[0] + 0.5 * wall_s
+        ema[1] += 1
+        if self._chunk_latched or ema[1] < 2:
+            return
+        prev = self._chunk_wall.get(C // 2)
+        if C > self.prefill_chunk and prev and ema[0] > 1.6 * prev[0]:
+            self._chunk_eff = C // 2
+            self._chunk_latched = True
+        elif C < self.prefill_chunk_max:
+            self._chunk_eff = min(2 * C, self.prefill_chunk_max)
+        else:
+            self._chunk_latched = True
+
+    # -- decode -----------------------------------------------------------
+
+    def _decode_round(self) -> int:
+        """One ``span``-step round of every running sequence as one
+        ``paged_decode_round``: rows padded to a power of two, the table to
+        a power-of-two number of blocks; the one host sync is the token
+        readback the streams need anyway."""
+        for seq in sorted(self._active, key=lambda s: s.sid):
+            if seq not in self._active:
+                continue  # preempted by an earlier row's eviction
+            if not self._ensure_capacity(seq, seq.n_valid + self.span):
+                # the pool is exhausted even after eviction: this sequence
+                # is alone and cannot fit
+                self._active.remove(seq)
+                self._finish_error(seq, RuntimeError(
+                    f"KV pool too small for sequence length {seq.n_valid + self.span} (grow "
+                    f"SELDON_TPU_GEN_POOL_BLOCKS)"))
+                return 0
+        batch = sorted(self._active, key=lambda s: s.sid)
+        if not batch:
+            return 0
+        B = _pow2(len(batch))
+        nblk = _pow2(max(self._blocks_needed(s.n_valid + self.span) for s in batch))
+        tables = np.zeros((B, nblk), np.int32)
+        token = np.zeros((B,), np.int32)
+        n_valid = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        seen = np.zeros((B,), bool)
+        for i, s in enumerate(batch):
+            tables[i] = self._table(s, nblk)
+            token[i] = s.pending
+            n_valid[i] = s.n_valid
+            active[i] = True
+            seen[i] = self.eos_token >= 0 and self.eos_token in s.emitted
+        dev = self._to_device(tables, token, n_valid, active, seen)
+        toks, self._pool, _, _, _ = paged_decode_round(
+            self.params, self._pool, *dev, self.cfg, span=self.span, eos_token=self.eos_token,
+            use_flash=self.use_flash)
+        toks = toks.cpu().numpy()  # the round's host sync
+        self.decode_steps_total += self.span
+        self.decode_round_rows_max = max(self.decode_round_rows_max, len(batch))
+        emitted = 0
+        for i, s in enumerate(batch):
+            take = min(self.span, s.max_new - len(s.emitted))
+            s.n_valid += self.span
+            s.pending = int(toks[i, -1])
+            self._emit_tokens(s, [int(t) for t in toks[i, :take]])
+            emitted += take
+        return emitted
+
+    # -- emission / retirement --------------------------------------------
+
+    def _emit_tokens(self, seq: _Sequence, toks: List[int]) -> None:
+        if not toks or seq.done:
+            return
+        seq.emitted.extend(toks)
+        if self.eos_token >= 0 and self.eos_token in seq.emitted:
+            # finished early: eos-pad the tail now (mask_after_eos's contract)
+            first = seq.emitted.index(self.eos_token)
+            seq.emitted = (seq.emitted[: first + 1]
+                           + [self.eos_token] * (seq.max_new - first - 1))
+            seq.retire_reason = "eos"
+            seq.done = True
+        elif len(seq.emitted) >= seq.max_new:
+            seq.emitted = seq.emitted[: seq.max_new]
+            seq.retire_reason = "length"
+            seq.done = True
+        self._deliver(seq.request)
+
+    def _deliver(self, req: GenRequest) -> None:
+        """Stream chunks once every row has them; the whole array at the
+        end."""
+        if req.cancelled or req.future.done():
+            return
+        if req.chunk is not None:
+            while True:
+                avail = min(len(s.emitted) for s in req.seqs)
+                n = min(req.chunk, req.max_new - req.delivered)
+                if n <= 0 or avail - req.delivered < n:
+                    break
+                req.queue.put(np.asarray([s.emitted[req.delivered:req.delivered + n]
+                                          for s in req.seqs], np.int32))
+                req.delivered += n
+        if all(s.done for s in req.seqs):
+            req.future.set_result(np.asarray([s.emitted for s in req.seqs], np.int32))
+            if req.chunk is not None:
+                req.queue.put(None)
+
+    def _retire_finished(self) -> int:
+        finished = [s for s in self._active if s.done]
+        for seq in finished:
+            self._active.remove(seq)
+            self._retire(seq, seq.retire_reason or "length")
+        return len(finished)
+
+    def _retire(self, seq: _Sequence, reason: str) -> None:
+        self._release_blocks(seq)
+        self.retired_total[reason] = self.retired_total.get(reason, 0) + 1
+        self._deliver(seq.request)
+
+    def _finish_error(self, seq: _Sequence, exc: BaseException) -> None:
+        self._retire(seq, "error")
+        req = seq.request
+        if not req.future.done():
+            req.future.set_exception(exc)
+        req.queue.put(exc)
+        # the request is dead: its other rows must not keep decoding or
+        # holding blocks (the next tick's _drop_cancelled sweeps them)
+        req.cancelled = True

@@ -165,8 +165,8 @@ def test_eos_masking_and_prompt_clamping():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"temperature": 0.7}, "item 5d"),
-    ({"prefix_tokens": "1,2,3"}, "item 5d"),
+    ({"temperature": 0.7}, r"item \[5d\] b"),
+    ({"prefix_tokens": "1,2,3"}, r"item \[5d\] c"),
     ({"quant": "int8"}, "item 2"),
     ({"kv_quant": "int8"}, "item 2"),
     ({"moe_every": 2}, "item 5e"),
@@ -202,7 +202,10 @@ def test_init_functions_default_to_cuda(make, monkeypatch):
         make()
 
 
-def test_engine_serves_the_example_deployment_like_the_jax_unit():
+def test_engine_serves_the_example_deployment_like_the_jax_unit(monkeypatch):
+    # the static lane: one generate per dispatch, its prefill through the
+    # flash path at S = 128 (the continuous lane has tests of its own)
+    monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "0")
     doc = json.loads((ROOT / "examples" / "generator_deployment.json").read_text())
     engine = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc)),
                            device="cpu")

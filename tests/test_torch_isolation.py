@@ -1,6 +1,7 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py, imports JAX or anything of the JAX package, and the port
-serves the MNIST and generator examples, streams the generator's tokens,
+serves the MNIST and generator examples (the generator through the
+continuous lane, runtime/genserver.py), streams the generator's tokens,
 takes a training step and round-trips a checkpoint with both blocked."""
 
 import ast
@@ -21,11 +22,12 @@ def _blocked(name: str) -> bool:
 def _port_files():
     files = sorted((ROOT / "seldon_core_tpu_torch").rglob("*.py"))
     assert len(files) >= 18
-    # the training and decode-lane slices' modules are scanned with the rest
+    # the training, decode-lane and continuous-lane slices' modules are
+    # scanned with the rest
     names = {str(f.relative_to(ROOT / "seldon_core_tpu_torch")) for f in files}
     assert {"optim.py", "tree.py", "runtime/persistence.py",
             "ops/flash_attention.py", "models/transformer.py",
-            "ops/flash_decode.py", "ops/kv_write.py"} <= names
+            "ops/flash_decode.py", "ops/kv_write.py", "runtime/genserver.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -89,6 +91,8 @@ async def stream():
         json.dumps({"data": {"ndarray": [list(range(128))]}, "chunk": 5})))]
 
 events = asyncio.run(stream())
+gen_stats = gen.stats()
+lane = [gen_stats["batcher"]["mode"], gen_stats["genserver"]["admitted_total"]]
 gen.close()
 streamed = [t for e in events[:-1] for t in e["tokens"][0]]
 import os, tempfile
@@ -107,6 +111,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
+                  "lane": lane,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "leaked": leaked}))
 """
@@ -120,5 +125,5 @@ def test_port_serves_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == (
-        '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], "streamed": true, '
-        '"trained": true, "leaked": []}')
+        '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], '
+        '"lane": ["genserver", 2], "streamed": true, "trained": true, "leaked": []}')

@@ -1,0 +1,399 @@
+"""The port's paged KV pool (seldon_core_tpu_torch/models/generate.py) and
+the plain versions of the continuous lane's two kernels against the JAX
+package's paged programs (``seldon_core_tpu/models/generate.py:985-1210``),
+on the same pool contents, tables and positions, made with numpy from a
+seed, and the same weights (carried across by ``params_from_jax``).
+
+The port lays a pool out as [N, KV, bs, hd] (the reference as [N, bs, KV,
+hd]), so pools are compared transposed and views as they are.  Writes are
+held bit for bit, attention within an f32 tolerance, greedy tokens
+exactly.  The CUDA kernels are held to the plain versions on the card
+(the ``cuda`` tests below, and chip_smoke.py)."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seldon_core_tpu.models.transformer import LMConfig as JConfig
+from seldon_core_tpu.models.transformer import lm_init as jax_lm_init
+from seldon_core_tpu_torch.convert import params_from_jax
+from seldon_core_tpu_torch.models.transformer import LMConfig as TConfig
+from seldon_core_tpu_torch.ops import flash_decode as fd
+from seldon_core_tpu_torch.ops import kv_write as kw
+
+jgen = importlib.import_module("seldon_core_tpu.models.generate")
+tgen = importlib.import_module("seldon_core_tpu_torch.models.generate")
+
+# the reference's tests/test_genserver.py CFG (MHA), and a GQA variant
+DIMS = dict(vocab=48, d_model=32, n_heads=4, n_layers=2, d_ff=64)
+GQA = dict(DIMS, n_kv_heads=2)
+# f32 throughout; only the order of the f32 sums differs
+ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # tier-1 runs under several xdist workers: keep torch's CPU pool small
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _cfgs(dims):
+    return JConfig(**dims, dtype=jnp.float32), TConfig(**dims, dtype=torch.float32)
+
+
+def _weights(jcfg, seed=3):
+    jp = jax_lm_init(jax.random.key(seed), jcfg)
+    return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
+def _pool_pair(tcfg, N, bs, rng):
+    """The same random pool contents in both layouts: (jax pool, port pool)."""
+    KV, hd = tcfg.kv_heads, tcfg.head_dim
+    jpool, tpool = {}, {}
+    for i in range(tcfg.n_layers):
+        k = rng.normal(size=(N, KV, bs, hd)).astype(np.float32)
+        v = rng.normal(size=(N, KV, bs, hd)).astype(np.float32)
+        tpool[f"l{i}"] = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+        jpool[f"l{i}"] = {"k": jnp.asarray(k.transpose(0, 2, 1, 3)),
+                          "v": jnp.asarray(v.transpose(0, 2, 1, 3))}
+    return jpool, tpool
+
+
+def _tables(rng, B, nblk, N):
+    """Distinct non-scratch blocks for every row, in a random order."""
+    ids = rng.permutation(np.arange(1, N))[: B * nblk]
+    return ids.reshape(B, nblk).astype(np.int32)
+
+
+def _same_pool(tpool, jpool):
+    for li, layer in jpool.items():
+        for name in ("k", "v"):
+            np.testing.assert_array_equal(tpool[li][name].numpy(),
+                                          np.asarray(layer[name]).transpose(0, 2, 1, 3))
+
+
+def _t32(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.int32))
+
+
+def test_init_block_pool_layout_scratch_and_refusals(monkeypatch):
+    _, tcfg = _cfgs(GQA)
+    pool = tgen.init_block_pool(tcfg, 5, 4, "cpu")
+    assert set(pool) == {"l0", "l1"}
+    assert pool["l0"]["k"].shape == (5, 2, 4, 8) and pool["l0"]["k"].dtype == torch.float32
+    assert not pool["l0"]["v"].any()
+    with pytest.raises(ValueError, match="item 2"):
+        tgen.init_block_pool(TConfig(**GQA, kv_quant="int8"), 5, 4, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tgen.init_block_pool(tcfg, 5, 4)
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+def test_paged_write_matches_bit_for_bit_with_scratch_rows(dims):
+    """Row 1's positions are not valid: they land in the scratch block at
+    distinct offsets, so even scratch is compared bit for bit; positions
+    cross block boundaries."""
+    jcfg, tcfg = _cfgs(dims)
+    rng = np.random.default_rng(0)
+    N, bs, B, W, nblk = 12, 8, 3, 5, 3
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    # scratch takes offsets 0-4 (row 1) and 7 (row 2's last position)
+    start = np.array([6, 0, 3], np.int32)
+    valid = np.ones((B, W), bool)
+    valid[1] = False
+    valid[2, 4] = False
+    KV, hd = tcfg.kv_heads, tcfg.head_dim
+    k = rng.normal(size=(B, KV, W, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, W, hd)).astype(np.float32)
+    pos = start[:, None] + np.arange(W)[None, :]
+    want = jgen._paged_write(jpool["l0"], jnp.asarray(tables), jnp.asarray(pos),
+                             jnp.asarray(valid), jnp.asarray(k), jnp.asarray(v))
+    got = tgen._paged_write(tpool["l0"], _t32(tables), _t32(start), torch.from_numpy(valid),
+                            torch.from_numpy(k), torch.from_numpy(v))
+    assert got is tpool["l0"]  # in place
+    _same_pool({"l0": got}, {"l0": want})
+    # the wrapper, on CPU tensors, is the same plain write
+    again = {n: t.clone() for n, t in tpool["l0"].items()}
+    kw.kv_write_paged(again["k"], again["v"], torch.from_numpy(k), torch.from_numpy(v),
+                      _t32(tables), _t32(start), torch.from_numpy(valid))
+    assert all(torch.equal(again[n], got[n]) for n in ("k", "v"))
+
+
+def test_kv_write_paged_reference_against_the_reference_scatter():
+    """``kv_write_paged_reference`` at W = 1 (the decode round's write,
+    from strided head views) against ``_paged_write``, bit for bit, with an
+    inactive row routed to scratch."""
+    jcfg, tcfg = _cfgs(GQA)
+    rng = np.random.default_rng(1)
+    N, bs, B, nblk = 9, 4, 4, 2
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    n_valid = np.array([0, 5, 7, 3], np.int32)
+    active = np.array([True, True, True, False])
+    KV, hd = tcfg.kv_heads, tcfg.head_dim
+    qkv = rng.normal(size=(B, 1, 3 * KV * hd)).astype(np.float32)
+    k = torch.from_numpy(qkv)[..., :KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+    v = torch.from_numpy(qkv)[..., KV * hd:2 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+    assert not k.is_contiguous()
+    want = jgen._paged_write(jpool["l0"], jnp.asarray(tables), jnp.asarray(n_valid[:, None]),
+                             jnp.asarray(active[:, None]), jnp.asarray(k.numpy()),
+                             jnp.asarray(v.numpy()))
+    kw.kv_write_paged_reference(tpool["l0"]["k"], tpool["l0"]["v"], k, v, _t32(tables),
+                                _t32(n_valid), torch.from_numpy(active[:, None]))
+    _same_pool(tpool, {"l0": want, "l1": jpool["l1"]})
+
+
+def test_kv_write_paged_refuses_bad_shapes_and_types():
+    pk = torch.zeros(4, 2, 4, 8)
+    k = torch.zeros(2, 2, 1, 8)
+    ok = dict(tables=torch.zeros(2, 1, dtype=torch.int32), start=torch.zeros(2, dtype=torch.int32),
+              valid=torch.ones(2, 1, dtype=torch.bool))
+    for bad, match in (({"tables": torch.zeros(2, 1)}, "tables must be"),
+                       ({"start": torch.zeros(3, dtype=torch.int32)}, "start must be"),
+                       ({"valid": torch.ones(2, 2, dtype=torch.bool)}, "valid must be")):
+        with pytest.raises(ValueError, match=match):
+            kw.kv_write_paged(pk, pk.clone(), k, k, **{**ok, **bad})
+    with pytest.raises(ValueError, match="k/v must be"):
+        kw.kv_write_paged(pk, pk.clone(), torch.zeros(2, 3, 1, 8), torch.zeros(2, 3, 1, 8), **ok)
+
+
+def test_paged_view_matches():
+    jcfg, tcfg = _cfgs(GQA)
+    rng = np.random.default_rng(2)
+    jpool, tpool = _pool_pair(tcfg, 10, 4, rng)
+    tables = _tables(rng, 3, 3, 10)
+    want = jgen._paged_view(jpool["l1"], jnp.asarray(tables))
+    got = tgen._paged_view(tpool["l1"], _t32(tables))
+    for name in ("k", "v"):
+        assert got[name].shape == (3, 2, 12, 8)
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]))
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+@pytest.mark.parametrize("W", [1, 5])
+def test_attend_paged_matches(dims, W):
+    jcfg, tcfg = _cfgs(dims)
+    rng = np.random.default_rng(3 + W)
+    jpool, tpool = _pool_pair(tcfg, 14, 4, rng)
+    tables = _tables(rng, 3, 4, 14)
+    start = np.array([0, 6, 10], np.int32)
+    q = rng.normal(size=(3, tcfg.n_heads, W, tcfg.head_dim)).astype(np.float32)
+    want = jgen._attend_paged(jnp.asarray(q), jgen._paged_view(jpool["l0"], jnp.asarray(tables)),
+                              jnp.asarray(start))
+    got = tgen._attend_paged(torch.from_numpy(q), tgen._paged_view(tpool["l0"], _t32(tables)),
+                             _t32(start))
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+def test_flash_decode_paged_reference_is_the_reference_decode_mask(dims):
+    """The plain paged decode against ``_attend_paged`` at W = 1 with start
+    = lens - 1, and against ``flash_decode_two_tier_reference`` over the
+    same positions made dense; the wrapper on CPU tensors is the plain
+    version, and a row's answer does not move when its blocks move."""
+    jcfg, tcfg = _cfgs(dims)
+    rng = np.random.default_rng(7)
+    N, bs, B, nblk = 20, 4, 4, 4
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    lens = np.array([1, 7, 16, 9], np.int32)
+    KV, G, hd = tcfg.kv_heads, tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim
+    q = rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+    pk, pv = tpool["l0"]["k"], tpool["l0"]["v"]
+    got = fd.flash_decode_paged_reference(torch.from_numpy(q), pk, pv, _t32(tables), _t32(lens))
+    want = jgen._attend_paged(jnp.asarray(q.reshape(B, KV * G, 1, hd)),
+                              jgen._paged_view(jpool["l0"], jnp.asarray(tables)),
+                              jnp.asarray(lens - 1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(B, KV, G, hd), atol=ATOL,
+                               rtol=ATOL)
+    k, v = fd.paged_view(pk, pv, _t32(tables))
+    for b in range(B):
+        dense = fd.flash_decode_two_tier_reference(
+            torch.from_numpy(q[b:b + 1]), k[b:b + 1, :, :lens[b]], v[b:b + 1, :, :lens[b]],
+            int(lens[b]), k[b:b + 1, :, :0], v[b:b + 1, :, :0], 0)
+        np.testing.assert_allclose(got[b:b + 1].numpy(), dense.numpy(), atol=ATOL, rtol=ATOL)
+    assert torch.equal(fd.flash_decode_paged(torch.from_numpy(q), pk, pv, _t32(tables),
+                                             _t32(lens)), got)
+    # the same rows in other physical blocks
+    perm = rng.permutation(np.arange(1, N))
+    moved_k, moved_v = pk.clone(), pv.clone()
+    moved_k[torch.from_numpy(perm)] = pk[1:]
+    moved_v[torch.from_numpy(perm)] = pv[1:]
+    moved_tables = perm[tables - 1].astype(np.int32)
+    moved = fd.flash_decode_paged_reference(torch.from_numpy(q), moved_k, moved_v,
+                                            _t32(moved_tables), _t32(lens))
+    assert torch.equal(moved, got)
+
+
+def test_flash_decode_paged_refuses_bad_arguments():
+    q = torch.zeros(2, 2, 2, 8)
+    pool = torch.zeros(4, 2, 4, 8)
+    tables = torch.zeros(2, 2, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    for args, match in (((q, pool, pool, tables.long(), lens), "tables must be int32"),
+                        ((q, pool, pool, tables, lens[:1]), "lens must be int32"),
+                        ((q, torch.zeros(4, 3, 4, 8), torch.zeros(4, 3, 4, 8), tables, lens),
+                         "q/pool mismatch")):
+        with pytest.raises(ValueError, match=match):
+            fd.flash_decode_paged(*args)
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+def test_paged_forward_matches(dims):
+    """A chunked prefill step: rows at different offsets and widths (one a
+    pad row of width 0), logits at each row's last valid position within
+    1e-4, and the written pool as the reference's."""
+    jcfg, tcfg = _cfgs(dims)
+    jp, tp = _weights(jcfg)
+    rng = np.random.default_rng(4)
+    N, bs, B, W, nblk = 24, 4, 4, 6, 4
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    tables[3] = 0  # the pad row's table is scratch
+    toks = rng.integers(0, dims["vocab"], size=(B, W)).astype(np.int32)
+    start = np.array([0, 4, 9, 0], np.int32)
+    width = np.array([6, 3, 5, 0], np.int32)
+    for last_only in (True, False):
+        jl, jpool2 = jgen.paged_forward(jp, jnp.asarray(toks), dict(jpool), jnp.asarray(tables),
+                                        jnp.asarray(start), jnp.asarray(width), jcfg,
+                                        last_only=last_only)
+        tpool2 = {li: {n: t.clone() for n, t in layer.items()} for li, layer in tpool.items()}
+        tl, tpool2 = tgen.paged_forward(tp, _t32(toks), tpool2, _t32(tables), _t32(start),
+                                        _t32(width), tcfg, last_only=last_only)
+        assert tl.shape == ((B, dims["vocab"]) if last_only else (B, W, dims["vocab"]))
+        rows = slice(0, 3)  # the pad row's logits are garbage nobody reads
+        np.testing.assert_allclose(tl.numpy()[rows], np.asarray(jl)[rows], atol=1e-4, rtol=1e-4)
+        for li, layer in jpool2.items():
+            for name in ("k", "v"):
+                got = tpool2[li][name].numpy()[1:]
+                want = np.asarray(layer[name]).transpose(0, 2, 1, 3)[1:]
+                np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+@pytest.mark.parametrize("eos", [-1, "first"])
+def test_paged_decode_round_tokens_identical(dims, eos):
+    """A round over rows at different lengths, an inactive pad row and (with
+    eos) a row whose latch is already set: the same greedy tokens, and the
+    same cache lengths and latches on the device afterwards."""
+    jcfg, tcfg = _cfgs(dims)
+    jp, tp = _weights(jcfg, seed=5)
+    rng = np.random.default_rng(5)
+    N, bs, B, nblk, span = 40, 4, 4, 5, 4
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    tables[3] = 0
+    token = rng.integers(0, dims["vocab"], size=(B,)).astype(np.int32)
+    n_valid = np.array([3, 11, 7, 0], np.int32)
+    active = np.array([True, True, True, False])
+    seen = np.array([False, True, False, False])
+    if eos == "first":
+        probe = jgen.paged_decode_round(
+            jp, dict(jpool), jnp.asarray(tables), jnp.asarray(token), jnp.asarray(n_valid),
+            jnp.asarray(active), jnp.zeros((B,), bool), jnp.zeros((B,), jnp.uint32), jcfg,
+            span=span, temperature=0.0, top_k=0, top_p=0.0, eos_token=-1)[0]
+        eos_token = int(np.asarray(probe)[0, 1])  # row 0 stops mid-round
+    else:
+        eos_token, seen = -1, np.zeros((B,), bool)
+    jt, _, jtok, jnv, jseen, _ = jgen.paged_decode_round(
+        jp, dict(jpool), jnp.asarray(tables), jnp.asarray(token), jnp.asarray(n_valid),
+        jnp.asarray(active), jnp.asarray(seen), jnp.zeros((B,), jnp.uint32), jcfg, span=span,
+        temperature=0.0, top_k=0, top_p=0.0, eos_token=eos_token)
+    tt, _, ttok, tnv, tseen = tgen.paged_decode_round(
+        tp, tpool, _t32(tables), _t32(token), _t32(n_valid), torch.from_numpy(active),
+        torch.from_numpy(seen), tcfg, span=span, eos_token=eos_token)
+    assert tt.dtype == torch.int32 and tt.shape == (B, span)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(tnv.numpy(), np.asarray(jnv))
+    np.testing.assert_array_equal(tseen.numpy(), np.asarray(jseen))
+
+
+def test_paged_decode_round_refuses_sampling():
+    _, tcfg = _cfgs(DIMS)
+    with pytest.raises(ValueError, match=r"item \[5d\] b"):
+        tgen.paged_decode_round({}, {}, None, None, None, None, None, tcfg, span=2,
+                                temperature=0.5)
+
+
+# -- the kernels on the card ---------------------------------------------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the paged kernels have no CPU mode)")
+    from seldon_core_tpu_torch.ops._build import find_nvcc
+
+    try:
+        find_nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+
+
+# (B, KV, G, hd, table blocks): the served decode layer (B=32, 64 blocks of
+# 16), one row, and MHA at hd 128
+PAGED_ON_CARD = [(32, 4, 4, 64, 64), (1, 4, 4, 64, 64), (4, 8, 1, 128, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_ON_CARD, ids=[str(c) for c in PAGED_ON_CARD])
+def test_flash_decode_paged_kernel_matches_plain_on_card(case):
+    """Ragged lengths over a shuffled pool; one launch a call; a repeat and
+    a permutation of the row's blocks give the same bits."""
+    _need_card()
+    B, KV, G, hd, nblk = case
+    bs, dev = 16, torch.device("cuda")
+    gen = torch.Generator().manual_seed(sum(case))
+    N = B * nblk + 1
+    pk, pv = (torch.randn(N, KV, bs, hd, generator=gen).to(torch.bfloat16).to(dev)
+              for _ in range(2))
+    q = torch.randn(B, KV, G, hd, generator=gen).to(torch.bfloat16).to(dev)
+    tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+    lens = torch.randint(1, nblk * bs + 1, (B,), generator=gen)
+    tables, lens = tables.to(torch.int32).to(dev), lens.to(torch.int32).to(dev)
+    before = fd.PAGED_LAUNCHES
+    got = fd.flash_decode_paged(q, pk, pv, tables, lens)
+    again = fd.flash_decode_paged(q, pk, pv, tables, lens)
+    want = fd.flash_decode_paged_reference(q, pk, pv, tables, lens)
+    perm = torch.randperm(N - 1, generator=gen).to(dev) + 1
+    mk, mv = pk.clone(), pv.clone()
+    mk[perm], mv[perm] = pk[1:], pv[1:]
+    moved = fd.flash_decode_paged(q, mk, mv, perm[(tables - 1).long()].to(torch.int32), lens)
+    torch.cuda.synchronize()
+    assert fd.PAGED_LAUNCHES == before + 3
+    # FLASH_O_ATOL of chip_smoke.py: p rounds to bf16 at running (kernel)
+    # vs global (plain) maxima, and o to bf16
+    assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
+    assert torch.equal(got, again) and torch.equal(got, moved)
+
+
+@pytest.mark.cuda
+def test_kv_write_paged_kernel_is_bit_exact_on_card():
+    _need_card()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    pk, pv = (torch.randn(9, 2, 4, 64, generator=gen).to(torch.bfloat16).to(dev)
+              for _ in range(2))
+    k, v = (torch.randn(3, 2, 5, 64, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))
+    tables = torch.tensor([[3, 1, 2], [5, 4, 6], [7, 8, 0]], dtype=torch.int32, device=dev)
+    start = torch.tensor([2, 0, 6], dtype=torch.int32, device=dev)
+    valid = torch.ones(3, 5, dtype=torch.bool, device=dev)
+    valid[1] = False
+    want_k, want_v = kw.kv_write_paged_reference(pk.clone(), pv.clone(), k, v, tables, start,
+                                                 valid)
+    before = kw.PAGED_LAUNCHES
+    kw.kv_write_paged(pk, pv, k, v, tables, start, valid)
+    torch.cuda.synchronize()
+    assert kw.PAGED_LAUNCHES == before + 1
+    # block 0 takes several scratch writes to one row: only live blocks are exact
+    assert torch.equal(pk[1:], want_k[1:]) and torch.equal(pv[1:], want_v[1:])

@@ -134,8 +134,8 @@ def test_grow_merge_matches_jax():
             np.testing.assert_array_equal(got[li][kk].numpy(), np.asarray(want[li][kk]))
 
 
-@pytest.mark.parametrize("kw,match", [({"temperature": 0.7}, "item 5d"),
-                                      ({"prefix": {"l0": {}}}, "item 5d")])
+@pytest.mark.parametrize("kw,match", [({"temperature": 0.7}, r"item \[5d\] b"),
+                                      ({"prefix": {"l0": {}}}, r"item \[5d\] c")])
 def test_stream_refuses_sampling_and_a_prefix(kw, match):
     _, tp = _weights()
     with pytest.raises(ValueError, match=match):
@@ -170,7 +170,9 @@ async def _collect(agen):
     return events
 
 
-def test_engine_stream_equals_predict_json_and_the_jax_unit():
+def test_engine_stream_equals_predict_json_and_the_jax_unit(monkeypatch):
+    # the static lane's stream: the unit's stream_tokens, max_new unused
+    monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "0")
     engine, junit, jstate = _gen_engine()
     try:
         assert engine.can_stream()
@@ -328,7 +330,8 @@ def _engine_with(streamer):
     return engine
 
 
-def test_a_failure_mid_stream_ends_with_an_error_frame_and_closes():
+def test_a_failure_mid_stream_ends_with_an_error_frame_and_closes(monkeypatch):
+    monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "0")  # the static lane's stream_tokens
     streamer = _FakeStreamer(fail_after=2)
     engine = _engine_with(streamer)
     payload = b'{"data":{"ndarray":[[1, 2]]}}'
@@ -365,7 +368,8 @@ def test_a_failure_mid_stream_ends_with_an_error_frame_and_closes():
     assert streamer.closed
 
 
-def test_a_client_that_disconnects_closes_the_generator():
+def test_a_client_that_disconnects_closes_the_generator(monkeypatch):
+    monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "0")  # the static lane's stream_tokens
     streamer = _FakeStreamer()
     engine = _engine_with(streamer)
 
