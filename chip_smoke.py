@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the served and trained paths from the sources in
-this checkout (five libraries, built at once), holds each kernel against
+this checkout (six libraries, built at once), holds each kernel against
 its plain PyTorch version on the card, serves two deployments through the
 port's engine and REST lane on a localhost port (the generator on the
 static lane and on the continuous lane, also as an SSE token stream),
@@ -18,8 +18,8 @@ it serves the static lane it measured before that lane's switch:
 
   1. device   CUDA present; the card's name and power limit (nvidia-smi)
   2. build    nvcc of ops/csrc/fused_mlp.cu, flash_attention.cu,
-              flash_attention_bwd.cu, flash_decode.cu and kv_write.cu at
-              once, with ptxas's report; each kernel's own shape check
+              flash_attention_bwd.cu, flash_decode.cu, flash_decode_paged.cu
+              and kv_write.cu at once, with ptxas's report; each kernel's own shape check
               asked for shapes it takes and shapes it must refuse
   3. kernel   fused_mlp_softmax vs fused_mlp_softmax_reference at
               784-256-256-10 and 784-512-512-10 with non-zero biases,
@@ -71,29 +71,38 @@ it serves the static lane it measured before that lane's switch:
               decode tokens/s; profiled prefill
               and generate both ways: launches and device time per decode
               step, busy share, flash_decode_kernel's time per call
- 10a. paged-kernel  flash_decode_paged vs its plain version at four
+ 10a. paged-kernel  flash_decode_paged vs its plain version at five
               shapes (the served round, B=32 over 64 blocks of 16 with
               ragged lengths 513..576; one row at 17 and 560 positions, a
-              cluster of 8 with empty ranks; MHA at hd 128), each also
-              repeated and with the rows' blocks permuted in the pool (the
-              same bits); kv_write_paged bit-exact and in place at the
-              round's write (W=1) and a prefill tick's (W=128)
+              cluster of 8 with empty ranks; MHA at hd 128; 16 query heads
+              at hd 256) and on one batch of lengths 1, 17, 300, 560 and
+              1009, each also repeated and with the rows' blocks permuted in
+              the pool (the same bits); the call with the decode step's
+              K/V write fused in at the round's shape (three inactive rows):
+              o of the active rows, the pools bit-exact outside the scratch
+              block, a repeat and moved blocks the same bits;
+              kv_write_paged bit-exact and in place at W=1 and at a prefill
+              tick's W=128 and 512
  10b. continuous  the flagship generator through the continuous lane
               (runtime/genserver.py, default knobs) over REST: a 1-row and
               a 32-row 512-token request (preemption must occur), 8 1-row
               requests 20 ms apart (a decode round must hold more than one
               row) and the 1-row prompt as an SSE stream (equal to the
               unary answer), counts reset before and read after: 12
-              flash_decode_paged launches per decode step, 12 kv_write_paged
-              launches per decode step and prefill tick, none of the static
-              lane's; every token teacher-forced through the plain path
+              flash_decode_paged launches per decode step (each with the
+              step's K/V write), 12 kv_write_paged launches per prefill
+              tick and none in a decode step, none of the static lane's;
+              every token teacher-forced through the plain path
  10c. times   the continuous and the static lane in turns (ABBA): 1-row
               TTFT (first SSE frame) and the 32-row request's wall; a
-              profiled decode round (launches and device ms per step, busy
-              share), tokens/s, prefill ticks; flash_decode_paged (cold L2)
-              beside its plain version, its bound, the gather-then-dense
-              alternative, the two-segment kernel on the positions made
-              dense and gather-then-SDPA; kv_write_paged beside index_put_
+              profiled decode round (launches and device ms per step,
+              flash_decode_paged's share, busy share), tokens/s, prefill
+              ticks; flash_decode_paged (cold L2) beside its plain version,
+              its bound, the fused call and the write launched apart, the
+              gather-then-dense alternative, the two-segment kernel on the
+              positions made dense and gather-then-SDPA, and on the ragged
+              batch; kv_write_paged at a prefill tick's W=128 and 512
+              beside index_put_
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at seven shapes (the training layer
               among them, a group of 8, and S=192: a ragged last 128-row
@@ -141,7 +150,7 @@ T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 KERNEL_SOURCES = ("fused_mlp", "flash_attention", "flash_attention_bwd", "flash_decode",
-                  "kv_write")
+                  "flash_decode_paged", "kv_write")
 KERNEL_ATOL = 2e-3   # kernel vs plain, probabilities: both round at the same
 #                      bf16 casts, only the order of the f32 sums differs.
 #                      Served answers are the same kernel against the same
@@ -434,6 +443,36 @@ def decode_build_checks(torch, fd) -> None:
         f"refused")
 
 
+def paged_build_checks(torch, fd) -> None:
+    """The paged kernel's own shape check (flash_decode_paged_smem_bytes):
+    the served head shape and 16 query heads at hd=256 are taken, four
+    others refused."""
+    # 8 warps x 2 stages of a 16-position tile's K and V (one 2 KB box
+    # each), then the 16 mbarriers and 1024 bytes of alignment; the combine
+    # scratch fits inside the ring
+    smem, why = fd._paged_smem_bytes(64, 4, PAGED_BS, torch.bfloat16)
+    if why is not None or smem != 8 * 2 * 2 * 2048 + 16 * 8 + 1024:
+        raise AssertionError(f"paged shape check at hd=64 G=4: {smem} bytes, {why!r}")
+    # hd=256, 16 rows: 4 warps, one stage of 4 boxes of K and V each (64
+    # KB), and beyond it the warps' (m, l, acc), the weights and 8 ranks'
+    # gather
+    big, why = fd._paged_smem_bytes(256, 16, PAGED_BS, torch.bfloat16)
+    floats = 4 * 16 * 258 + 10 * 16 + 8 * 16 * 258
+    if why is not None or big != floats * 4 + 4 * 8 + 1024:
+        raise AssertionError(f"paged shape check at hd=256 G=16: {big} bytes, {why!r}")
+    for head_dim, dtype, bs, match in ((36, torch.bfloat16, 16, "multiple of 8 up to"),
+                                       (512, torch.bfloat16, 16, "up to 256"),
+                                       (64, torch.float32, 16, "bfloat16"),
+                                       (64, torch.bfloat16, 12, "pool blocks of 12")):
+        why = fd.paged_kernel_shape_error(head_dim, dtype, 4, bs)
+        if why is None or match not in why:
+            raise AssertionError(f"paged shape check let hd={head_dim} {dtype} bs={bs} "
+                                 f"through: {why!r}")
+    log(f"[build] paged flash-decode shape check: hd=64 G=4 bf16 in blocks of {PAGED_BS} takes "
+        f"{smem} bytes of shared memory, hd=256 G=16 {big}; hd=36, hd=512, float32 and blocks "
+        f"of 12 refused")
+
+
 def decode_inputs(torch, shape, gen, dev):
     B, KV, G, hd, Lm, _, C, _ = shape
 
@@ -688,14 +727,16 @@ def kernel_ms_by_name(torch, fn, iters: int, expect=()) -> dict:
     torch.profiler's kernel records over ``iters`` calls (after a warm-up
     call): how a wrapper that launches two kernels is timed kernel by
     kernel.  Every name in ``expect`` must be part of a recorded kernel's
-    name: a profiler window that came back without one (it happened once
-    on the card) is taken again, up to three times, and then it raises
-    rather than report a time of 0."""
+    name: a profiler window that came back without one (it happened on
+    the card, once three windows in a row) is taken again after a pause,
+    up to five times, and then it raises rather than report a time of 0."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -703,7 +744,7 @@ def kernel_ms_by_name(torch, fn, iters: int, expect=()) -> dict:
         by_name = {k: v / iters for k, v in trace_kernels(prof, "kernel_times")[0].items()}
         if all(any(tag in name for name in by_name) for tag in expect):
             return by_name
-    raise AssertionError(f"three profiler windows recorded no kernel named {expect}: "
+    raise AssertionError(f"five profiler windows recorded no kernel named {expect}: "
                          f"{sorted(by_name)}")
 
 
@@ -1280,58 +1321,81 @@ PAGED_BS = 16
 PAGED_NBLK = 64
 # flash_decode_paged against its plain version (FLASH_O_ATOL, for its
 # reason): (B, KV, G, hd, table blocks, lengths).  The served round (B=32,
-# ragged lengths 513..576, a cluster of 2 of which rank 1 reads the last
-# 1..64 positions), one row at 17 positions (a cluster of 8, seven ranks
-# empty) and at 560, and MHA at hd 128 with ragged lengths over 16 blocks.
+# ragged lengths 513..576, a cluster of 2 that splits each row's own
+# length), one row at 17 positions (a cluster of 8, seven ranks empty) and
+# at 560, MHA at hd 128 with ragged lengths over 16 blocks, and a group of
+# 16 query heads (all 16 rows of the m16 tile) at hd 256.
 PAGED_SHAPES = [(32, 4, 4, 64, PAGED_NBLK, (513, 577)), (1, 4, 4, 64, PAGED_NBLK, (17, 18)),
-                (1, 4, 4, 64, PAGED_NBLK, (560, 561)), (4, 8, 1, 128, 16, (1, 257))]
+                (1, 4, 4, 64, PAGED_NBLK, (560, 561)), (4, 8, 1, 128, 16, (1, 257)),
+                (2, 1, 16, 256, 16, (100, 257))]
+# one batch whose rows' lengths span the table: the split follows each row
+PAGED_RAGGED = [1, 17, 300, 560, 1009]
 # the timed shapes: the served round at a late step (512 + 48 positions in
 # every row, so the same positions made dense are one n for the
 # two-segment kernel), and one row
 PAGED_TIMED = [(32, 4, 4, 64, PAGED_NBLK, 560), (1, 4, 4, 64, PAGED_NBLK, 560)]
+# the prefill tick's writes that kv_write_paged still takes: B=32 rows of
+# W=128 (the chunk floor) and W=512 (its ceiling)
+KV_PAGED_TIMED = (128, 512)
 CONT_BURST = 8            # 1-row requests sent CONT_GAP_S apart: they join a running batch
 CONT_GAP_S = 0.020
 CONT_TURNS = 2            # ABBA turns of the lane comparison (4 walls each)
-PAGED_DESIGN = ("the flash-decode kernel's cluster split, bulk-copy ring and combine; each "
-                "block reads its row's block table and length on the device, the fill splits "
-                "runs at pool-block boundaries (one bulk copy per 16-row block), the split "
-                "comes from the table's width; empty shares contribute m=-inf, l=0")
+PAGED_DESIGN = ("a cluster of 1-8 blocks per (row, kv head); each block reads the row's "
+                "length and block table on the device and takes a share of whole pool blocks "
+                "of that length (paged_shares); 8 warps, each with its own TMA ring of "
+                "16-position tiles (one 128-byte-swizzled box per pool block), QK^T and PV "
+                "by mma.sync m16n8k16 with the query heads on M and P kept in registers, "
+                "one rescale per tile; the decode step's K/V write fused in; warps and "
+                "blocks combined in a fixed order through DSMEM: one launch")
 
 
 def paged_inputs(torch, case, gen, dev):
     """q, pools with every row's blocks in a shuffled order, tables and
-    lengths of one PAGED_SHAPES case."""
-    B, KV, G, hd, nblk, (lo, hi) = case
+    lengths of one PAGED_SHAPES case (a (lo, hi) range of lengths, or a
+    list of one length a row)."""
+    B, KV, G, hd, nblk, span = case
     N = B * nblk + 1
 
     def rnd(*dims):
         return torch.randn(*dims, generator=gen).to(torch.bfloat16).to(dev)
 
     tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
-    lens = torch.randint(lo, hi, (B,), generator=gen)
+    lens = (torch.tensor(span) if isinstance(span, list) else
+            torch.randint(span[0], span[1], (B,), generator=gen))
     return (rnd(B, KV, G, hd), rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd),
             tables.to(torch.int32).to(dev), lens.to(torch.int32).to(dev))
 
 
+def permuted_pool(torch, pk, pv, tables, gen, dev):
+    """The same rows in other physical blocks: pools with blocks 1.. moved
+    to a random permutation, and the tables that follow them."""
+    perm = torch.randperm(pk.shape[0] - 1, generator=gen).to(dev) + 1
+    mk, mv = pk.clone(), pv.clone()
+    mk[perm], mv[perm] = pk[1:], pv[1:]
+    return mk, mv, perm[(tables - 1).long()].to(torch.int32)
+
+
 def paged_kernel_phase(torch, fd, kw, dev) -> dict:
-    """flash_decode_paged against its plain version at PAGED_SHAPES (one
-    launch a call, a repeat the same bits, the same bits with the row's
-    blocks moved elsewhere in the pool); kv_write_paged bit-exact and in
-    place at the decode round's write (W=1 from strided head views, three
-    inactive rows) and a prefill tick's (W=128, ragged widths).  Returns
-    each kernel's largest absolute error."""
+    """flash_decode_paged against its plain version at PAGED_SHAPES and the
+    ragged batch PAGED_RAGGED (one launch a call, a repeat the same bits,
+    the same bits with the rows' blocks moved elsewhere in the pool), then
+    the fused call at the round's shape (B=32 from strided head views,
+    three inactive rows on scratch tables): o of the active rows against
+    the plain fused version, the pools bit-exact outside the scratch block,
+    a repeat and moved blocks the same bits.  kv_write_paged bit-exact and
+    in place at W=1 (three inactive rows) and at a prefill tick's W=128
+    and 512 (ragged widths).  Returns each kernel's largest absolute
+    error."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 9)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err = 0.0
-    for case in PAGED_SHAPES:
+    ragged = (len(PAGED_RAGGED), 4, 4, 64, PAGED_NBLK, PAGED_RAGGED)
+    for case in PAGED_SHAPES + [ragged]:
         q, pk, pv, tables, lens = paged_inputs(torch, case, gen, dev)
         B, KV, G, _, nblk, _ = case
-        split, span = fd.decode_split_plan(B, KV, G, nblk * PAGED_BS, sm_count)
-        perm = torch.randperm(pk.shape[0] - 1, generator=gen).to(dev) + 1
-        mk, mv = pk.clone(), pv.clone()
-        mk[perm], mv[perm] = pk[1:], pv[1:]
-        moved_tables = perm[(tables - 1).long()].to(torch.int32)
+        split = fd.paged_cluster(B, KV, G, nblk * PAGED_BS, sm_count)
+        mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
         before = fd.PAGED_LAUNCHES
         got = fd.flash_decode_paged(q, pk, pv, tables, lens)
         again = fd.flash_decode_paged(q, pk, pv, tables, lens)
@@ -1348,13 +1412,47 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
             raise AssertionError(f"flash_decode_paged at {case}: a repeat or the same rows in "
                                  f"other blocks gave other bits")
         max_err = max(max_err, err)
+        n_max = int(lens.max())
         log(f"[paged-kernel] flash_decode_paged (B,KV,G,hd,blocks,lens)={case}: a cluster of "
-            f"{split} ({span} positions a block), lengths {int(lens.min())}..{int(lens.max())}: "
-            f"o max abs err {err:.3e} (tolerance {FLASH_O_ATOL}); a repeat and the blocks "
-            f"permuted in the pool bit-identical")
+            f"{split}; the longest row ({n_max}) split "
+            f"{[b - a for a, b in fd.paged_shares(n_max, split, PAGED_BS)]}: o max abs err "
+            f"{err:.3e} (tolerance {FLASH_O_ATOL}); a repeat and the blocks permuted in the pool "
+            f"bit-identical")
+    # the fused call at the round's shape
+    B, KV, G, hd, nblk = GEN_B, 4, 4, 64, PAGED_NBLK
+    q, pk, pv, tables, lens = paged_inputs(torch, (B, KV, G, hd, nblk, (513, 577)), gen, dev)
+    active = torch.arange(B, device=dev) < B - 3
+    tables[~active] = 0  # an empty slot's table is the scratch block
+    qkv = torch.randn(B, 1, 6 * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
+    k_new = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+    v_new = qkv[..., 5 * KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+    mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
+    moved_tables[~active] = 0
+    pools = {name: (pk.clone(), pv.clone()) for name in ("got", "again", "want")}
+    before = fd.PAGED_LAUNCHES
+    got = fd.flash_decode_paged(q, *pools["got"], tables, lens, k_new, v_new, active)
+    again = fd.flash_decode_paged(q, *pools["again"], tables, lens, k_new, v_new, active)
+    moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens, k_new, v_new, active)
+    want = fd.flash_decode_paged_reference(q, *pools["want"], tables, lens, k_new, v_new, active)
+    torch.cuda.synchronize()
+    err = float((got[active].float() - want[active].float()).abs().max())
+    if fd.PAGED_LAUNCHES != before + 3 or err > FLASH_O_ATOL:
+        raise AssertionError(f"fused flash_decode_paged vs plain: o err {err:.3e} (tolerance "
+                             f"{FLASH_O_ATOL}), launches {fd.PAGED_LAUNCHES - before}")
+    if not all(torch.equal(pools["got"][i][1:], pools["want"][i][1:]) for i in (0, 1)):
+        raise AssertionError("the fused write is not the plain write outside the scratch block")
+    if not torch.equal(got[active], again[active]) or not torch.equal(got[active], moved[active]) \
+            or not all(torch.equal(pools["got"][i], pools["again"][i]) for i in (0, 1)):
+        raise AssertionError("the fused call: a repeat or the same rows in other blocks gave "
+                             "other bits")
+    max_err = max(max_err, err)
+    log(f"[paged-kernel] flash_decode_paged with the step's write fused in, B={B} (3 inactive "
+        f"rows) from strided head views, lengths {int(lens.min())}..{int(lens.max())}: o max abs "
+        f"err {err:.3e} on the active rows (tolerance {FLASH_O_ATOL}); the pools bit-exact "
+        f"outside the scratch block; a repeat and the blocks permuted bit-identical")
     B, KV, hd, nblk = 32, 4, 64, PAGED_NBLK
     N = B * nblk + 1
-    for W in (1, 128):
+    for W in (1,) + KV_PAGED_TIMED:
         pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen).to(torch.bfloat16).to(dev)
                   for _ in range(2))
         tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
@@ -1366,7 +1464,7 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
             start = torch.randint(0, nblk * PAGED_BS, (B,), generator=gen)
             valid = torch.arange(B)[:, None] < B - 3
         else:
-            start = torch.randint(0, 4, (B,), generator=gen) * 128
+            start = torch.randint(0, nblk * PAGED_BS // W, (B,), generator=gen) * W
             valid = torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen)
         start, valid = start.to(torch.int32).to(dev), valid.to(dev)
         want_k, want_v = kw.kv_write_paged_reference(pk.clone(), pv.clone(), k, v, tables, start,
@@ -1385,45 +1483,71 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
     return {"flash_decode_paged": max_err, "kv_write_paged": 0.0}
 
 
-def paged_decode_bound(B, KV, G, hd, nblk, n):
-    """Least time for one flash_decode_paged call: K and V of the valid
-    positions, q, the tables and lengths read once and o written once over
-    HBM bandwidth, against the score and PV FLOPs over the bf16 peak."""
-    nbytes = 2 * (2 * B * KV * n * hd + 2 * B * KV * G * hd) + 4 * (B * nblk + B)
-    flops = 4 * B * KV * G * n * hd
+def paged_decode_bound(B, KV, G, hd, nblk, lens, fused: bool = False):
+    """Least time for one flash_decode_paged call: K and V of each row's
+    positions (``lens``, one length a row), q, the tables and lengths read
+    once and o written once over HBM bandwidth (with the fused write also
+    the fresh K/V read and written once), against the score and PV FLOPs
+    over the bf16 peak."""
+    n_sum = sum(lens)
+    nbytes = 2 * (2 * KV * n_sum * hd + 2 * B * KV * G * hd) + 4 * (B * nblk + B)
+    if fused:
+        nbytes += 2 * 2 * 2 * B * KV * hd
+    flops = 4 * KV * G * n_sum * hd
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def paged_sets(torch, B, KV, G, hd, nblk, lens, dev, seed: int) -> list:
+    """Input sets of one paged shape (q, pools, shuffled tables, lengths,
+    fresh K/V), made on the card, enough of them to hold DECODE_COLD_BYTES
+    of pools together: walked in turn, each set's K/V is out of the L2."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N = B * nblk + 1
+    per_set = 2 * 2 * N * KV * PAGED_BS * hd
+    n_sets = max(4, -(-DECODE_COLD_BYTES // per_set))
+
+    def rnd(*dims):
+        return torch.randn(*dims, generator=gen, device=dev).to(torch.bfloat16)
+
+    sets = []
+    for _ in range(n_sets):
+        tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
+        sets.append((rnd(B, KV, G, hd), rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd),
+                     tables.reshape(B, nblk).to(torch.int32),
+                     torch.tensor(lens, dtype=torch.int32, device=dev),
+                     rnd(B, KV, 1, hd), rnd(B, KV, 1, hd)))
+    return sets
+
+
 def paged_times(torch, fd, kw, dev, smi) -> dict:
     """Device times of the paged kernels beside their plain versions, a
-    library yardstick and their bounds.  flash_decode_paged at PAGED_TIMED,
-    rotating over DECODE_COLD_BYTES of inputs (cold L2): beside it the
-    gather-then-dense alternative (paged_view, then the two-segment
-    kernel), the two-segment kernel alone on the positions made dense
-    beforehand, and the gather-then-SDPA library call (enable_gqa).
-    kv_write_paged at the round's write (B=32, W=1) beside index_put_ on
-    the pools with the indices made beforehand."""
+    library yardstick and their bounds.  flash_decode_paged at PAGED_TIMED
+    and on the ragged batch PAGED_RAGGED, rotating over DECODE_COLD_BYTES
+    of inputs (cold L2); at B=32 also the fused call (the decode step's
+    write and attention in one launch) beside the write and the attention
+    launched apart, the gather-then-dense alternative (paged_view, then the
+    two-segment kernel), the two-segment kernel alone on the positions made
+    dense beforehand, and the gather-then-SDPA library call (enable_gqa).
+    kv_write_paged at the prefill tick's writes (B=32, W in KV_PAGED_TIMED)
+    beside index_put_ on the pools with the indices made beforehand."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {"flash_decode_paged": [], "kv_write_paged": []}
     for B, KV, G, hd, nblk, n in PAGED_TIMED:
-        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-        N = B * nblk + 1
-        per_set = 2 * 2 * N * KV * PAGED_BS * hd
-        n_sets = max(4, -(-DECODE_COLD_BYTES // per_set))
+        sets = paged_sets(torch, B, KV, G, hd, nblk, [n] * B, dev, SEED + 12)
+        attend = [x[:5] for x in sets]
+        k_ms = device_ms(torch, rotating(attend, fd.flash_decode_paged), 200)
+        p_ms = device_ms(torch, rotating(attend, fd.flash_decode_paged_reference), 20)
+        f_ms = device_ms(torch, rotating(sets, fd.flash_decode_paged), 200)
+        ones = torch.ones(B, 1, dtype=torch.bool, device=dev)
 
-        def rnd(*dims):
-            return torch.randn(*dims, generator=gen, device=dev).to(torch.bfloat16)
+        def write_then_attend(q, pk, pv, t, lens, kn, vn, start):
+            kw.kv_write_paged(pk, pv, kn, vn, t, start, ones)
+            return fd.flash_decode_paged(q, pk, pv, t, lens)
 
-        sets = []
-        for _ in range(n_sets):
-            tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
-            sets.append((rnd(B, KV, G, hd), rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd),
-                         tables.reshape(B, nblk).to(torch.int32),
-                         torch.full((B,), n, dtype=torch.int32, device=dev)))
-        k_ms = device_ms(torch, rotating(sets, fd.flash_decode_paged), 200)
-        p_ms = device_ms(torch, rotating(sets, fd.flash_decode_paged_reference), 20)
+        w_ms = device_ms(torch, rotating([(*x, x[4] - 1) for x in sets], write_then_attend), 200)
 
         def gather_two_segment(q, pk, pv, t, _lens):
             k, v = fd.paged_view(pk, pv, t)
@@ -1433,10 +1557,10 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
             k, v = fd.paged_view(pk, pv, t)
             return sdpa(q.reshape(B, KV * G, 1, hd), k[:, :, :n], v[:, :, :n], enable_gqa=True)
 
-        g_ms = device_ms(torch, rotating(sets, gather_two_segment), 100)
-        l_ms = device_ms(torch, rotating(sets, gather_sdpa), 100)
+        g_ms = device_ms(torch, rotating(attend, gather_two_segment), 100)
+        l_ms = device_ms(torch, rotating(attend, gather_sdpa), 100)
         dense = []
-        for q, pk, pv, t, _ in sets:
+        for q, pk, pv, t, _ in attend:
             k, v = fd.paged_view(pk, pv, t)
             dense.append((q, k[:, :, :n].contiguous(), v[:, :, :n].contiguous()))
         t_ms = device_ms(torch, rotating(dense, lambda q, k, v: fd.flash_decode_two_tier(
@@ -1444,22 +1568,41 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
         s_ms = device_ms(torch, rotating(dense, lambda q, k, v: sdpa(
             q.reshape(B, KV * G, 1, hd), k, v, enable_gqa=True)), 200)
         del dense
-        b_ms, b_by = paged_decode_bound(B, KV, G, hd, nblk, n)
-        split, _ = fd.decode_split_plan(B, KV, G, nblk * PAGED_BS,
-                                        torch.cuda.get_device_properties(dev).multi_processor_count)
+        b_ms, b_by = paged_decode_bound(B, KV, G, hd, nblk, [n] * B)
+        fb_ms, _ = paged_decode_bound(B, KV, G, hd, nblk, [n] * B, fused=True)
+        split = fd.paged_cluster(B, KV, G, nblk * PAGED_BS, sm_count)
         h_us = host_us_per_call(torch, lambda: fd.flash_decode_paged(*sets[0]))
         rows["flash_decode_paged"].append({
             "shape": [B, KV, G, hd, nblk, n], "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "gather_two_segment_ms": g_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "fused_ms": f_ms, "fused_bound_ms": fb_ms,
+            "write_then_attend_ms": w_ms, "gather_two_segment_ms": g_ms,
             "two_segment_dense_ms": t_ms, "sdpa_dense_ms": s_ms, "cluster": split,
+            "shares": [b - a for a, b in fd.paged_shares(n, split, PAGED_BS)],
             "host_us_per_call": h_us, "input_sets": len(sets)})
         log(f"[times] flash_decode_paged (B,KV,G,hd,blocks,n)=({B},{KV},{G},{hd},{nblk},{n}), "
             f"cold L2 ({len(sets)} input sets): kernel {k_ms:.5f} ms (cluster of {split}), plain "
-            f"{p_ms:.5f} ms; gather then the two-segment kernel {g_ms:.5f} ms, the two-segment "
-            f"kernel on the positions made dense {t_ms:.5f} ms; gather then SDPA {l_ms:.5f} ms, "
-            f"SDPA on the dense positions {s_ms:.5f} ms; bound {b_ms:.6f} ms ({b_by}); wrapper "
-            f"host {h_us:.3f} us per call on {smi}")
-        del sets
+            f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}, {b_ms / k_ms * 100:.1f}% of it); with "
+            f"the step's write fused in {f_ms:.5f} ms (bound {fb_ms:.6f}), kv_write_paged then "
+            f"the kernel {w_ms:.5f} ms; gather then the two-segment kernel {g_ms:.5f} ms, the "
+            f"two-segment kernel on the positions made dense {t_ms:.5f} ms; gather then SDPA "
+            f"{l_ms:.5f} ms, SDPA on the dense positions {s_ms:.5f} ms; wrapper host "
+            f"{h_us:.3f} us per call on {smi}")
+        del sets, attend
+    B = len(PAGED_RAGGED)
+    sets = [x[:5] for x in paged_sets(torch, B, 4, 4, 64, PAGED_NBLK, PAGED_RAGGED, dev,
+                                      SEED + 15)]
+    k_ms = device_ms(torch, rotating(sets, fd.flash_decode_paged), 200)
+    b_ms, b_by = paged_decode_bound(B, 4, 4, 64, PAGED_NBLK, PAGED_RAGGED)
+    split = fd.paged_cluster(B, 4, 4, PAGED_NBLK * PAGED_BS, sm_count)
+    rows["flash_decode_paged"].append({
+        "shape": [B, 4, 4, 64, PAGED_NBLK, PAGED_RAGGED], "ms": k_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "cluster": split, "input_sets": len(sets),
+        "shares": {n: [b - a for a, b in fd.paged_shares(n, split, PAGED_BS)]
+                   for n in PAGED_RAGGED}})
+    log(f"[times] flash_decode_paged on a ragged batch, lengths {PAGED_RAGGED} over "
+        f"{PAGED_NBLK} blocks, cold L2: kernel {k_ms:.5f} ms (a cluster of {split}), bound "
+        f"{b_ms:.6f} ms ({b_by}) on {smi}")
+    del sets
     B, KV, hd, nblk = 32, 4, 64, PAGED_NBLK
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     N = B * nblk + 1
@@ -1467,31 +1610,36 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
               for _ in range(2))
     tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
     tables = tables.reshape(B, nblk).to(torch.int32)
-    k, v = (torch.randn(B, KV, 1, hd, generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    start = torch.full((B,), 559, dtype=torch.int32, device=dev)
-    valid = torch.ones(B, 1, dtype=torch.bool, device=dev)
-    k_ms = device_ms(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid), 500)
-    p_ms = device_ms(torch, lambda: kw.kv_write_paged_reference(pk, pv, k, v, tables, start,
-                                                                valid), 500)
-    blk = tables[:, 559 // PAGED_BS].long()[:, None]
-    off = torch.full_like(blk, 559 % PAGED_BS)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    for W in KV_PAGED_TIMED:
+        qkv = torch.randn(B, W, 6 * KV * hd, generator=gen, device=dev).to(torch.bfloat16)
+        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
+        v = qkv[..., 5 * KV * hd:].reshape(B, W, KV, hd).transpose(1, 2)  # as a tick has them
+        start = torch.full((B,), 512 - W, dtype=torch.int32, device=dev)
+        valid = torch.ones(B, W, dtype=torch.bool, device=dev)
+        k_ms = device_ms(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid), 200)
+        p_ms = device_ms(torch, lambda: kw.kv_write_paged_reference(pk, pv, k, v, tables, start,
+                                                                    valid), 50)
+        pos = torch.arange(512 - W, 512, device=dev)
+        blk = tables[:, pos // PAGED_BS].long()
+        off = (pos % PAGED_BS)[None, :].expand(B, W)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
 
-    def index_put():
-        pk[blk, :, off] = kt
-        pv[blk, :, off] = vt
+        def index_put():
+            pk[blk, :, off] = kt
+            pv[blk, :, off] = vt
 
-    l_ms = device_ms(torch, index_put, 500)
-    b_ms = 2 * 2 * B * KV * hd * 2 / HBM_BYTES_PER_S * 1e3  # k, v read; their rows written
-    h_us = host_us_per_call(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid))
-    rows["kv_write_paged"].append({"shape": [N, KV, PAGED_BS, hd, B, 1], "ms": k_ms,
-                                   "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                                   "bound_by": "bytes", "host_us_per_call": h_us})
-    log(f"[times] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16, B={B} rows at "
-        f"position 559: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, index_put_ with the indices "
-        f"made beforehand {l_ms:.5f} ms, bound {b_ms:.7f} ms (bytes; the launch itself "
-        f"dominates); wrapper host {h_us:.3f} us per call on {smi}")
+        l_ms = device_ms(torch, index_put, 200)
+        b_ms = 2 * 2 * B * KV * W * hd * 2 / HBM_BYTES_PER_S * 1e3  # k, v read; their rows written
+        h_us = host_us_per_call(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start,
+                                                                 valid))
+        rows["kv_write_paged"].append({"shape": [N, KV, PAGED_BS, hd, B, W], "ms": k_ms,
+                                       "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                                       "bound_by": "bytes", "host_us_per_call": h_us})
+        log(f"[times] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16, a prefill "
+            f"tick's B={B} rows of W={W} at positions {512 - W}..511 from strided head views: "
+            f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, index_put_ with the indices made "
+            f"beforehand {l_ms:.5f} ms, bound {b_ms:.6f} ms (bytes); wrapper host {h_us:.3f} us "
+            f"per call on {smi}")
     return rows
 
 
@@ -1590,8 +1738,7 @@ def continuous_phases(torch, dev, smi) -> list:
         server.stop(close_engine=False)
     steps = snap1["decode_steps_total"] - snap0["decode_steps_total"]
     ticks = snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
-    want = {"flash_decode_paged": cfg.n_layers * steps,
-            "kv_write_paged": cfg.n_layers * (steps + ticks),
+    want = {"flash_decode_paged": cfg.n_layers * steps, "kv_write_paged": cfg.n_layers * ticks,
             "flash_attention": 0, "flash_decode": 0, "kv_write": 0}
     if launches != want or steps == 0 or ticks == 0:
         raise AssertionError(f"continuous launches {launches}, not {want} ({steps} decode steps, "
@@ -1607,8 +1754,9 @@ def continuous_phases(torch, dev, smi) -> list:
         raise AssertionError(f"the {CONT_BURST} staggered requests never shared a decode round")
     log(f"[continuous] 1-row, 32-row, {CONT_BURST} staggered 1-row requests and a 1-row stream: "
         f"{steps} decode steps in {steps // g.span} rounds and {ticks} prefill ticks; launches "
-        f"{launches} = {cfg.n_layers} x {steps} flash_decode_paged and {cfg.n_layers} x "
-        f"({steps} + {ticks}) kv_write_paged, none of the static lane's; /stats agrees")
+        f"{launches} = {cfg.n_layers} x {steps} flash_decode_paged (the step's write fused in) "
+        f"and {cfg.n_layers} x {ticks} kv_write_paged (prefill ticks only), none of the static "
+        f"lane's; /stats agrees")
     log(f"[continuous] the 32-row request preempted {preempted32} sequences (pool "
         f"{g.num_blocks - 1} blocks, {snap1['kv_blocks']['high_water']} at most in use); the "
         f"staggered requests shared rounds of up to {burst_rows_max} rows; scheduler "
@@ -1682,13 +1830,18 @@ def continuous_phases(torch, dev, smi) -> list:
                                       use_flash=True)[0]
 
         round_ms = wall_p50(torch, one_round, 5)
-        prof = device_profile(torch, one_round, "continuous_round")
-        per_step = {"launches": prof["kernels"] / g.span, "device_ms": prof["kernel_ms"] / g.span}
+        prof = device_profile(torch, one_round, "continuous_round", by_name=True)
+        paged_ms = sum(v for k, v in prof.pop("by_name").items() if "paged_decode_kernel" in k)
+        per_step = {"launches": prof["kernels"] / g.span, "device_ms": prof["kernel_ms"] / g.span,
+                    "flash_decode_paged_ms": paged_ms / g.span,
+                    "flash_decode_paged_share": paged_ms / prof["kernel_ms"]}
         fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
         one_round()
         torch.cuda.synchronize()
-        if (fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES) != (cfg.n_layers * g.span,) * 2:
-            raise AssertionError(f"a round launched {fd.PAGED_LAUNCHES} / {kw.PAGED_LAUNCHES}")
+        if (fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES) != (cfg.n_layers * g.span, 0):
+            raise AssertionError(f"a round launched {fd.PAGED_LAUNCHES} flash_decode_paged and "
+                                 f"{kw.PAGED_LAUNCHES} kv_write_paged, not "
+                                 f"{cfg.n_layers * g.span} and 0")
         tick_ms = {}
         for B, C, start in ((GEN_B, 128, 0), (GEN_B, 128, 384), (GEN_B, 512, 0), (1, 512, 0)):
             nblk = 1 << max(-(-(start + C) // PAGED_BS) - 1, 0).bit_length()
@@ -1706,7 +1859,7 @@ def continuous_phases(torch, dev, smi) -> list:
         "decode_tokens_per_s": GEN_B * g.span / (round_ms / 1e3),
         "per_step": per_step,
         "round_busy_share": prof["busy_share"],
-        "round_profile": {k: v for k, v in prof.items() if k != "by_name"},
+        "round_profile": prof,
         "prefill_tick_ms": tick_ms,
         "served_first_frame_ms": first_s * 1e3,
         "served_stream_wall_ms": wall_s * 1e3,
@@ -1717,7 +1870,10 @@ def continuous_phases(torch, dev, smi) -> list:
     log(f"[times] a decode round, B={GEN_B} at {GEN_S} cached positions, span {g.span}: wall p50 "
         f"{round_ms:.3f} ms ({served['decode_tokens_per_s']:.1f} tokens/s); profiled: "
         f"{per_step['launches']:.1f} launches and {per_step['device_ms']:.4f} ms of device "
-        f"kernels per step, busy {prof['busy_share'] * 100:.1f}% on {smi}")
+        f"kernels per step, of which flash_decode_paged "
+        f"{per_step['flash_decode_paged_ms']:.4f} ms "
+        f"({per_step['flash_decode_paged_share'] * 100:.1f}%), busy "
+        f"{prof['busy_share'] * 100:.1f}% on {smi}")
     log(f"[times] prefill ticks (paged_forward, the plain attention) wall p50: "
         f"{json.dumps({k: round(v, 3) for k, v in tick_ms.items()})} ms on {smi}")
     log(json.dumps({"continuous_lane": served}))
@@ -1726,10 +1882,13 @@ def continuous_phases(torch, dev, smi) -> list:
     log(f"[times] phase wall {time.perf_counter() - t_phase:.2f} s")
     out = []
     for name, source, replaces, shape_text in (
-            ("flash_decode_paged", "flash_decode.cu", "seldon_core_tpu/ops/flash_decode.py:47",
-             f"B=32 KV=4 G=4 hd=64, {PAGED_NBLK} blocks of {PAGED_BS}, n=560 in every row, bf16"),
+            ("flash_decode_paged", "flash_decode_paged.cu",
+             "seldon_core_tpu/ops/flash_decode.py:47",
+             f"B=32 KV=4 G=4 hd=64, {PAGED_NBLK} blocks of {PAGED_BS}, n=560 in every row, bf16 "
+             f"(the attention alone; the main path's calls also take the step's write)"),
             ("kv_write_paged", "kv_write.cu", "scripts/probe_inplace.py:55",
-             f"pools ({GEN_B * PAGED_NBLK + 1},4,{PAGED_BS},64) bf16, B=32 rows, W=1")):
+             f"pools ({GEN_B * PAGED_NBLK + 1},4,{PAGED_BS},64) bf16, a prefill tick's B=32 rows "
+             f"of W={KV_PAGED_TIMED[0]}")):
         top = rows_t[name][0]
         out.append({
             "name": name,
@@ -2192,6 +2351,7 @@ def main() -> int:
         f"4096-wide, 24-wide and 10-layer MLPs refused")
     flash_build_checks(torch, flash_attention)
     decode_build_checks(torch, flash_decode)
+    paged_build_checks(torch, flash_decode)
     log(f"[build] phase wall {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()

@@ -49,7 +49,7 @@ blocks, block 0 the scratch block, and a block table per row.
     a pool out as ``[num_blocks, KV, block_size, hd]``, where the
     reference has ``[num_blocks, block_size, KV, hd]``: one kv head's rows
     of a block are then one contiguous run (2 KB at bs 16, hd 64, bf16),
-    which the flash-decode kernel's bulk-copy ring reads in one copy.
+    which the paged flash-decode kernel's ring reads as one TMA box.
     ``_paged_view`` gives the reference's dense views, so the tests
     compare views (and transposed pools), not raw pool bytes;
   * ``_paged_write`` scatters fresh K/V at per-row positions ``start[b] +
@@ -65,13 +65,16 @@ blocks, block 0 the scratch block, and a block table per row.
     where the reference scans) and the loop makes no host sync; the
     caller reads back the round's [B, span] tokens once.
 
-With ``use_flash`` on CUDA a block writes through ``kv_write_paged`` (W
-rows, the prefill tick's too) and a W = 1 block attends through
-``flash_decode_paged``; W > 1 attends through the plain
-``_attend_paged``, as the reference does (neither package has a kernel
-there).  On the CPU the wrappers run their plain versions.  The pools are
-written in place, where the reference donates them through each jitted
-program.
+With ``use_flash`` a W = 1 block (every decode step) writes and attends
+in one ``flash_decode_paged`` call, the write fused into the attention's
+launch; there an inactive row writes nothing, where the reference sends
+its write to the scratch block 0, so the pools differ from the
+reference's only in block 0, which no active row reads.  A W > 1 block
+(the prefill tick) writes through ``kv_write_paged`` and attends through
+the plain ``_attend_paged``, as the reference does (neither package has
+a kernel there).  On CUDA the wrappers launch their kernels, on the CPU
+they run their plain versions.  The pools are written in place, where
+the reference donates them through each jitted program.
 """
 
 from __future__ import annotations
@@ -524,19 +527,21 @@ def _attend_paged(q, view, start):
 def _paged_block(lp, x, pool_layer, tables, start, valid, cfg: LMConfig,
                  use_flash: bool = False, lens=None):
     """One decoder block over the paged pool: K/V written at per-row
-    positions start[b] + i (scratch-routed where ``valid`` is False), then
-    attention over each row's own blocks.  x [B, W, D].  A W == 1 block
-    with ``use_flash`` attends through ``flash_decode_paged`` over
-    ``lens`` (start + 1, shared by the layers of a step), any other block
-    through ``_attend_paged`` over ``_paged_view``."""
+    positions start[b] + i, then attention over each row's own blocks.
+    x [B, W, D].  A W == 1 block with ``use_flash`` writes and attends in
+    one ``flash_decode_paged`` call over ``lens`` (start + 1, shared by the
+    layers of a step), where a row whose ``valid`` is False writes
+    nothing; any other block writes through ``_paged_write`` (invalid
+    positions to the scratch block) and attends through ``_attend_paged``
+    over ``_paged_view``."""
     W = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, start[:, None])
-    _paged_write(pool_layer, tables, start, valid, k, v, use_flash)
     if W == 1 and use_flash:
         lens = start + 1 if lens is None else lens
         a = flash_decode_paged(_grouped(q, cfg.kv_heads), pool_layer["k"], pool_layer["v"],
-                               tables, lens).reshape(q.shape)
+                               tables, lens, k, v, valid[:, 0]).reshape(q.shape)
     else:
+        _paged_write(pool_layer, tables, start, valid, k, v, use_flash)
         a = _attend_paged(q, _paged_view(pool_layer, tables), start)
     return _finish_block(lp, x, a), pool_layer
 
@@ -572,7 +577,8 @@ def paged_decode_round(params, pool, tables, token, n_valid, active, seen_eos, c
     scheduler's unit of work between admission points.
 
     token [B] pending tokens, n_valid [B] per-row cache lengths, active
-    [B] bool (empty slots write to scratch and emit 0), seen_eos [B] bool
+    [B] bool (empty slots emit 0 and write nothing with ``use_flash``,
+    to the scratch block without), seen_eos [B] bool
     the after-eos latch (rows past their stop emit eos until the host
     retires them), all device tensors that stay on the device across the
     steps; tables [B, nblk] covers n_valid + span for every active row.

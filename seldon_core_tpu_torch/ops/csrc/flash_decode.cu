@@ -66,22 +66,8 @@
 //     order: no scratch tensor, no atomics, and still one launch per call.
 //     A repeat gives the same bits.
 //
-// The paged variant (flash_decode_paged_launch, the template's PAGED
-// case) serves the continuous lane's block pool (models/generate.py,
-// reference _attend_paged at W = 1, seldon_core_tpu/models/generate.py
-// :1086, which its docstring calls exactly the cached decode mask): row b
-// attends over its positions [0, lens[b]), position j at row j % bs of
-// pool block table[b, j / bs], pools [N, KV, bs, D].  The table and the
-// lengths are device arrays the blocks read themselves: a continuous round
-// has another length in each row, and the lengths advance on the device
-// inside a round.  The walk, the ring and the combine are the two-segment
-// kernel's; only where a position's row comes from (the fill splits runs
-// at block boundaries, not where main ends) and where the walk stops
-// (lens[b], read by the block) differ.  The split comes from the table's
-// width, nblk * bs, which the host knows without a sync; a block whose
-// share lies past lens[b] reads nothing and contributes m = -inf, l = 0.
-// Position j still goes to a slot by its index j, so a row's bits do not
-// depend on which physical blocks hold it.
+// The continuous lane's block pool has a kernel of its own
+// (flash_decode_paged.cu), with both products on the tensor cores.
 //
 // Interface: plain C functions loaded with ctypes (no PyTorch headers).
 
@@ -124,10 +110,7 @@ struct Segment {
 struct Params {
   const __nv_bfloat16* q;
   long long qs[3];         // element strides of b, kv head, group row (d is 1)
-  Segment seg[2];          // paged: seg[0] holds the pools, strides of block, kv head, row
-  const int* table;        // paged: [B, nblk] int32 block ids, contiguous
-  const int* lens;         // paged: [B] int32 positions per row
-  int nblk, bs, nblocks;   // paged: table width, rows per block, blocks in the pool
+  Segment seg[2];
   __nv_bfloat16* o;        // [B, KV, G, D] contiguous
   int KV, G, D;
   int lpr;                 // lanes per cache row
@@ -273,7 +256,7 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src
         : "memory");
 }
 
-template <int GT, bool PAGED>
+template <int GT>
 __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) {
   constexpr int U = positions_per_stage(GT);
   extern __shared__ __align__(16) float smem[];
@@ -302,8 +285,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   const Segment& s0 = p.seg[0];
   const Segment& s1 = p.seg[1];
   const int n0 = s0.n;
-  // paged: the row's length, read by the block, at most the table's width
-  const int n = PAGED ? min(max(p.lens[b], 0), p.nblk * p.bs) : n0 + s1.n;
+  const int n = n0 + s1.n;
   // this block's share of the positions, by global index over both segments
   const int p0 = rank * p.span;
   const int cnt = max(0, min(n, p0 + p.span) - p0);
@@ -323,24 +305,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     const uint32_t kdst = ring + (grp % NSTAGE) * stage_bytes;
     const uint32_t bar = bar0 + 8 * (grp % NSTAGE);
     mbar_expect_tx(bar, 2 * (hi - lo) * row_bytes);
-    if constexpr (PAGED) {
-      // one run per pool block the group's positions touch
-      for (int i = lo; i < hi;) {
-        const int j = p0 + i;
-        const int blk = j / p.bs;
-        const int end = min(hi, (blk + 1) * p.bs - p0);
-        const long long phys = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
-        const long long row = j - blk * p.bs;
-        const uint32_t off = (i - lo) * row_bytes;
-        copy_rows(kdst + off, s0.k + phys * s0.ks[0] + kvh * s0.ks[1] + row * s0.ks[2], s0.ks[2],
-                  end - i, row_bytes, bar);
-        copy_rows(kdst + T * row_bytes + off,
-                  s0.v + phys * s0.vs[0] + kvh * s0.vs[1] + row * s0.vs[2], s0.vs[2], end - i,
-                  row_bytes, bar);
-        i = end;
-      }
-      return;
-    }
     for (int i = lo; i < hi;) {
       const int j = p0 + i;
       const bool in0 = j < n0;
@@ -544,10 +508,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     for (int r = 0; r < p.split; ++r) M = fmaxf(M, gather[r * stride + g]);
     float L = 0.f;
     for (int r = 0; r < p.split; ++r) {
-      // 0 for an empty block; paged, every block of a row may be empty
-      const float w = (PAGED && gather[r * stride + g] == -INFINITY)
-                          ? 0.f
-                          : exp2_approx(gather[r * stride + g] - M);
+      const float w = exp2_approx(gather[r * stride + g] - M);  // 0 for an empty block
       sm_w[r * GT + g] = w;
       L = fmaf(gather[r * stride + GT + g], w, L);
     }
@@ -565,52 +526,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   }
 }
 
-// per variant (two-segment, paged), group tile (1, 2, 4, 8) and device:
-// the shared-memory opt-in is set
-std::atomic<bool> g_smem_set[2][4][MAX_DEVICES];
-
-// The launch both entry points share: the kernel for G's row tile, the
-// shared-memory opt-in once per device, a cluster of `split` blocks for
-// each (b, kv head, row tile).
-template <bool PAGED>
-int launch(const Params& p, int B, int split, void* stream) {
-  const int smem = plan(p.D, p.G, DTYPE_BF16, nullptr, 0);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
-  const int GT = group_tile(p.G);
-  const int which = GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3));
-  void (*kernel)(const Params) =
-      which == 0 ? flash_decode_kernel<1, PAGED>
-                 : (which == 1 ? flash_decode_kernel<2, PAGED>
-                               : (which == 2 ? flash_decode_kernel<4, PAGED>
-                                             : flash_decode_kernel<8, PAGED>));
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!g_smem_set[PAGED][which][dev].load()) {
-    // the largest the kernel asks for at this tile, over every head dim
-    int most = 0;
-    for (int d = 8; d <= MAX_D; d += 8) most = std::max(most, layout_for(d, GT).bytes);
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (e != cudaSuccess) return (int)e;
-    g_smem_set[PAGED][which][dev].store(true);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split * B * p.KV, (p.G + GT - 1) / GT);
-  cfg.blockDim = dim3(NTHREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = split;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
+// per group tile (1, 2, 4, 8) and device: the shared-memory opt-in is set
+std::atomic<bool> g_smem_set[4][MAX_DEVICES];
 
 }  // namespace
 
@@ -656,9 +573,6 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
     p.seg[1].ks[i] = strides[9 + i];
     p.seg[1].vs[i] = strides[12 + i];
   }
-  p.table = nullptr;
-  p.lens = nullptr;
-  p.nblk = p.bs = p.nblocks = 0;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.KV = KV;
   p.G = G;
@@ -667,53 +581,40 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
   p.split = split;
   p.span = span;
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  return launch<false>(p, B, split, stream);
-}
 
-// The paged variant: q [B,KV,G,D] bf16 with unit stride along D; pools
-// pool_k/pool_v [nblocks,KV,bs,D] bf16 with unit stride along D and
-// 16-byte aligned rows; table [B,nblk] int32 contiguous; lens [B] int32
-// (row b attends over positions [0, lens[b]), clamped to [0, nblk*bs]);
-// strides[9] = (b, kv head, row) element strides of q, then (block, kv
-// head, row) of pool_k and pool_v; o [B,KV,G,D] bf16 contiguous.  Each
-// (b, kv head, row tile)'s nblk*bs table positions are split across a
-// cluster of `split` blocks (1, 2, 4 or 8), `span` positions each, with
-// (split - 1) * span < nblk * bs <= split * span.
-int flash_decode_paged_launch(const void* q, const void* pool_k, const void* pool_v,
-                              const int* table, const int* lens, int nblocks, int nblk, int bs,
-                              void* o, int B, int KV, int G, int D, int split, int span,
-                              const long long* strides, void* stream) {
-  const long long width = static_cast<long long>(nblk) * bs;
-  if (B < 1 || KV < 1 || nblocks < 1 || nblk < 1 || bs < 1 || width > (1 << 30) ||
-      (split != 1 && split != 2 && split != 4 && split != 8) || span < 1 ||
-      static_cast<long long>(split) * span < width ||
-      static_cast<long long>(split - 1) * span >= width)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.seg[0].k = static_cast<const __nv_bfloat16*>(pool_k);
-  p.seg[0].v = static_cast<const __nv_bfloat16*>(pool_v);
-  p.seg[1] = p.seg[0];
-  p.seg[0].n = p.seg[1].n = 0;
-  for (int i = 0; i < 3; ++i) {
-    p.qs[i] = strides[i];
-    p.seg[0].ks[i] = p.seg[1].ks[i] = strides[3 + i];
-    p.seg[0].vs[i] = p.seg[1].vs[i] = strides[6 + i];
+  const int GT = group_tile(G);
+  const int which = GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3));
+  void (*kernel)(const Params) =
+      which == 0 ? flash_decode_kernel<1>
+                 : (which == 1 ? flash_decode_kernel<2>
+                               : (which == 2 ? flash_decode_kernel<4> : flash_decode_kernel<8>));
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!g_smem_set[which][dev].load()) {
+    // the largest the kernel asks for at this tile, over every head dim
+    int most = 0;
+    for (int d = 8; d <= MAX_D; d += 8) most = std::max(most, layout_for(d, GT).bytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    g_smem_set[which][dev].store(true);
   }
-  p.table = table;
-  p.lens = lens;
-  p.nblk = nblk;
-  p.bs = bs;
-  p.nblocks = nblocks;
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.KV = KV;
-  p.G = G;
-  p.D = D;
-  p.lpr = lanes_per_row(D);
-  p.split = split;
-  p.span = span;
-  p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  return launch<true>(p, B, split, stream);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * B * KV, (G + GT - 1) / GT);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 const char* flash_decode_error_string(int code) {

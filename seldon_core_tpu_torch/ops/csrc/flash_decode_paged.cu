@@ -1,0 +1,735 @@
+// Paged flash decode for Hopper (sm_90a): one query token per (row, kv
+// head) over that row's positions of a KV block pool, read through the
+// row's block table, with the decode step's fresh K/V row written into the
+// pool in the same launch.
+//
+// Replaces what the reference computes in XLA for the continuous lane's
+// decode step (seldon_core_tpu/models/generate.py: _paged_write :1057, then
+// _attend_paged :1086 at W = 1, in _paged_block :1102), the paged form of
+// the Pallas TPU kernel seldon_core_tpu/ops/flash_decode.py (flash_decode
+// :87, _decode_kernel :47, pallas_call :125).  The arithmetic is the
+// two-segment kernel's (flash_decode.cu):
+//   * q [B,KV,G,D] (the G query heads of a kv head on the rows of an m16
+//     tile), pools [N,KV,bs,D], row b's positions [0, lens[b]), position j
+//     at row j % bs of pool block table[b, j / bs];
+//   * scores (q.k) * (1/sqrt(D)) in f32 from bf16 inputs, taken times
+//     log2 e so every exp is the SFU's exp2;
+//   * an online softmax (running max m, normaliser l in f32), p cast to
+//     bf16 before the PV product, the accumulator rescaled by exp(m_prev -
+//     m); o = acc / max(l, 1e-30) in bf16.
+//
+// The fused write.  With k_new/v_new ([B,KV,1,D]) the kernel stores each
+// valid row's fresh K/V at position lens[b] - 1 through the table (what
+// kv_write_paged did in a launch of its own before every attention) and
+// attends with that position taken from the fresh input, not read back
+// from the pool: only the rank whose share holds it touches it.  An
+// inactive row (valid[b] false) writes nothing and attends over the pool
+// as it stands; its o is computed and no token reads it.  The reference
+// routes an inactive row's write to the scratch block 0, which the next
+// read of block 0 would race with inside one launch, so the port's pools
+// differ from the reference's only in block 0, which no valid row reads.
+// A row whose length lies outside [1, nblk * bs] writes nothing either.
+//
+// Bound on an H100 SXM: ~G FLOP per byte of K/V, far below the ~295 at
+// which the card becomes compute-bound, so the bound is the bytes: K and
+// V of each row's positions read once (~18.4 MB, ~5.5 us at the served
+// round: B=32, KV=4, D=64, 560 positions).  What held the first paged
+// design back was not the bytes: its cluster split the table's width, not
+// the row's length, and its CUDA-core walk spent ~30 instructions a
+// position a lane group (unpacks, FMAs, shuffle levels, a rescale every 2
+// positions).  This design:
+//   * Splits by the row's own length, on the device.  The host picks C,
+//     the blocks of a cluster (1, 2, 4 or 8), from the shapes and the
+//     table's width without a sync (decode_split_plan, aiming at ~one
+//     block per SM: a cluster's barriers and DSMEM combine cost ~2 us, so
+//     the served round, B=32 x 4 kv heads, runs C = 1); each block reads
+//     lens[b] and takes its share (share_of below, paged_shares in
+//     ops/flash_decode.py): the non-empty shares are whole pool blocks,
+//     differ by at most one block and hold at least MIN_SPAN positions
+//     each, so a short row leaves the later ranks empty (m = -inf, l = 0)
+//     and no block walks the empty tail of the table.
+//   * Puts both products on the tensor cores.  Each of the block's warps
+//     (8 up to D = 128, else 4) takes every 8th (4th) tile of 16 positions
+//     of the block's share; per tile, S = Q K^T is mma.sync m16n8k16 (bf16
+//     in, f32 out) with the G query rows on M (4 of 16 at the flagship,
+//     the rest zero), K through ldmatrix;
+//     P goes from the S accumulator's registers to the A operand's without
+//     shared memory (FA2's layout trick), and O += P V is m16n8k16 with V
+//     through ldmatrix.trans.  A row's max and sum need the accumulator
+//     quad's two shuffle levels, and the accumulator is rescaled once per
+//     16 positions.  (The swap-AB form, S^T = K Q^T on wgmma m64n8k16, was
+//     not taken: at 16 positions a warp and a walk this short, mma.sync
+//     needs no warpgroup barrier and no shared-memory operand staging.
+//     Tiles of 32 positions and four independent accumulators over the
+//     QK^T k-steps measured no faster on the card: the walk waits on the
+//     loads, which reach ~2.2 TB/s from HBM, more than on the products.)
+//   * Fills each warp's own ring of 1-4 tiles (64 KB a block) by TMA: per
+//     pool block, one box of 64 columns x 16 rows (two of 8 rows where bs
+//     is a multiple of 8 only) for each 64 columns of the tile width (64,
+//     128 or 256: the columns past D come in as zeros, so no loop of the
+//     products has a bound that depends on D, and the compiler issues all
+//     of a tile's ldmatrix loads ahead of its products), over a 4-d map of
+//     the pool [N, KV, bs, D], with the 128-byte swizzle, so ldmatrix
+//     reads conflict-free; lane 0 issues the warp's next tile as soon as
+//     the warp is done with a stage, so no block-wide barrier stands in
+//     the walk.  The table entries of 32 tiles at a time are read by the
+//     warp's lanes up front.
+//   * Combines the warps, then the cluster's blocks, in a fixed order: each
+//     block pushes (M, L, O) into rank 0's shared memory through DSMEM and
+//     rank 0 combines in rank order, in one launch with no atomics.  A
+//     repeat gives the same bits, and since position j goes to a tile by
+//     its index, a row's bits depend on lens[b] and C only, never on which
+//     physical blocks hold it.
+//
+// Interface: plain C functions loaded with ctypes (no PyTorch headers); the
+// tensor maps are encoded on the host (flash_common.cuh), no -lcuda.
+
+#include <cooperative_groups.h>
+
+#include "flash_common.cuh"
+
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace flash;
+
+constexpr int TILE = 16;               // positions a warp takes at a time (PV k-steps of 16)
+constexpr int BOX_BYTES = TILE * 128;  // a tile's 64 columns: TILE rows of 128 bytes
+constexpr int MAX_BOX_ROWS = 16;       // rows of a TMA box: 16, or 8 where bs % 16 != 0
+constexpr int MAX_SPLIT = 8;           // blocks per cluster: the portable limit
+constexpr int MIN_SPAN = 64;           // the fewest positions a non-empty share holds unless alone
+constexpr int RING_BUDGET = 64 * 1024; // bytes of ring a block aims at
+constexpr unsigned FULL = 0xffffffffu;
+
+// warps per block: 8 up to a head dim of 128; 4 above, where the warps'
+// partial outputs would not fit beside the cluster's gather
+__host__ __device__ constexpr int nwarps(int D) { return D <= 128 ? 8 : 4; }
+
+// the instantiated tile width for a head dim: 64, 128 or 256 columns, all
+// of them loaded (TMA fills the columns past D with zeros), so the
+// products' loops have no bound that depends on D
+__host__ __device__ constexpr int tile_cols(int D) { return D <= 64 ? 64 : (D <= 128 ? 128 : 256); }
+static_assert(nwarps(64) <= MAX_SPLIT, "the weights region holds MAX_SPLIT per row");
+
+struct Params {
+  const __nv_bfloat16* q;
+  long long qs[3];                     // element strides of b, kv head, group row (d is 1)
+  __nv_bfloat16* pool_k;
+  __nv_bfloat16* pool_v;
+  long long ks[3], vs[3];              // element strides of block, kv head, row (d is 1)
+  const int* table;                    // [B, nblk] int32 block ids, contiguous
+  const int* lens;                     // [B] int32 positions per row
+  const __nv_bfloat16* k_new;          // [B, KV, 1, D] or null: no fused write
+  const __nv_bfloat16* v_new;
+  long long kns[2], vns[2];            // element strides of b, kv head
+  const unsigned char* valid;          // [B] bool, or null: every row valid
+  __nv_bfloat16* o;                    // [B, KV, G, D] contiguous
+  int nblk, bs, nblocks;               // table width, rows per pool block, blocks in the pool
+  int KV, G, D;
+  int split;                           // C: blocks per cluster
+  int box_rows;                        // rows of a TMA box (MAX_BOX_ROWS or 8)
+  float scale_log2;                    // (1/sqrt(D)) log2 e
+};
+
+// Block r's share [p0, p1) of a row's n positions when a cluster of C
+// blocks splits them in pool blocks of bs rows: k ranks take ceil(n / bs)
+// blocks, q or q + 1 each (the extra ones last, with the partial block),
+// where k is the largest count <= C that leaves every share at least
+// MIN_SPAN positions; ranks >= k are empty.  paged_shares in
+// ops/flash_decode.py is the same rule, which the CPU tests test.
+__host__ __device__ inline void share_of(int n, int C, int bs, int r, int& p0, int& p1) {
+  const int nb = (n + bs - 1) / bs;
+  int k = C;
+  for (; k > 1; --k) {
+    const int q = nb / k;
+    const int rem = nb - q * k;
+    const int last = n - (nb - q - (rem > 0 ? 1 : 0)) * bs;  // the last share's positions
+    if (q * bs >= MIN_SPAN && last >= MIN_SPAN) break;
+  }
+  if (r >= k) {
+    p0 = p1 = n;
+    return;
+  }
+  const int q = nb / k;
+  const int rem = nb - q * k;
+  const int start = r * q + (r > k - rem ? r - (k - rem) : 0);
+  const int blocks = q + (r >= k - rem ? 1 : 0);
+  p0 = start * bs < n ? start * bs : n;
+  p1 = (start + blocks) * bs < n ? (start + blocks) * bs : n;
+}
+
+// Shared memory, in bytes from a 1024-aligned base: each warp's ring of
+// DEPTH stages (a stage is a tile's K boxes, then its V boxes); after the
+// walk, reusing the ring, the warps' (m, l, acc) per row, the weights, and
+// rank 0's gather of every rank's (M, L, O) per row; last the mbarriers.
+struct Layout {
+  int depth, slot, scratch, weights, gather, bars, bytes;
+};
+
+__host__ __device__ inline Layout layout_for(int D, int GT) {
+  const int NW = nwarps(D);
+  Layout L;
+  L.slot = 2 * (tile_cols(D) / BOX_COLS) * BOX_BYTES;
+  const int depth = RING_BUDGET / (NW * L.slot);
+  L.depth = depth < 1 ? 1 : (depth > 4 ? 4 : depth);
+  const int ring = NW * L.depth * L.slot;
+  L.scratch = 0;                                    // floats: m, l [NW][GT]; acc [NW][GT][D]
+  L.weights = (NW * GT * (D + 2)) * 4;              // floats: [MAX_SPLIT + 2][GT]
+  L.gather = L.weights + (MAX_SPLIT + 2) * GT * 4;      // floats: [MAX_SPLIT][GT * (D + 2)]
+  const int end = L.gather + MAX_SPLIT * GT * (D + 2) * 4;
+  L.bars = ((ring > end ? ring : end) + 7) & ~7;
+  L.bytes = L.bars + 8 * NW * L.depth + 1024;       // 1024: the base's alignment
+  return L;
+}
+
+// The shape and type rules: bf16, a head dim that is a multiple of 8 up to
+// 256, a group of at least one row, pool blocks of a multiple of 8 rows.
+// Returns the dynamic shared memory in bytes, or -1 with the reason in why
+// (why may be null when why_len is 0).
+int plan(int head_dim, int group, int block_size, int dtype_code, char* why, int why_len) {
+  if (dtype_code != DTYPE_BF16) {
+    snprintf(why, why_len, "the paged flash-decode kernel takes bfloat16 q/k/v only");
+    return -1;
+  }
+  if (head_dim < 8 || head_dim > MAX_D || head_dim % 8 != 0) {
+    snprintf(why, why_len,
+             "head dim %d: the paged flash-decode kernel takes a multiple of 8 up to %d",
+             head_dim, MAX_D);
+    return -1;
+  }
+  if (group < 1) {
+    snprintf(why, why_len, "group %d: the paged flash-decode kernel takes at least one row",
+             group);
+    return -1;
+  }
+  if (block_size < 8 || block_size % 8 != 0) {
+    snprintf(why, why_len,
+             "pool blocks of %d rows: the paged flash-decode kernel takes a multiple of 8",
+             block_size);
+    return -1;
+  }
+  const int smem = layout_for(head_dim, group > 8 ? 16 : 8).bytes;
+  if (smem > SMEM_LIMIT) {
+    snprintf(why, why_len, "paged flash decode needs %d KiB shared memory (budget %d KiB)",
+             smem >> 10, SMEM_LIMIT >> 10);
+    return -1;
+  }
+  return smem;
+}
+
+// byte offset of 16-byte chunk c of row r in a tile of 64-column boxes
+// written by TMA with the 128-byte swizzle
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * BOX_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += A(16x16, bf16, row) * B(16x8, bf16, col), f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 of q at (row, col), (row, col + 1), or zeros off the tile
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qb, long long row_stride, int row,
+                                           int rows, int col, int D) {
+  if (row >= rows || col >= D) return 0u;
+  const __nv_bfloat16* s = qb + row * row_stride + col;
+  __nv_bfloat162 v;
+  v.x = s[0];
+  v.y = s[1];
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DT, int GT>
+__global__ void __launch_bounds__(nwarps(DT) * 32)
+    paged_decode_kernel(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Params p) {
+  constexpr int NW = nwarps(DT);
+  constexpr int NTHREADS = NW * 32;
+  constexpr int KSTEPS = DT / 16;  // QK^T k-steps over the tile width
+  constexpr int NT = DT / 8;       // PV n-tiles of 8 columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = lane >> 2;        // the accumulator rows of this lane: r0, r0 + 8
+  const int cq = (lane & 3) * 2;   // and its column pair within an 8-column tile
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bk = blockIdx.x / p.split;  // b * KV + kv head
+  const int b = bk / p.KV;
+  const int kvh = bk - b * p.KV;
+  const int g0 = blockIdx.y * GT;
+  const int gn = min(GT, p.G - g0);
+  const Layout lay = layout_for(p.D, GT);
+
+  // the row's length, at most the table's width, and whether its fresh
+  // row is written and attended from the input
+  const int len = p.lens[b];
+  const int width = p.nblk * p.bs;
+  const int n = min(max(len, 0), width);
+  const bool fresh = p.k_new != nullptr && (p.valid == nullptr || p.valid[b] != 0) && len >= 1 &&
+                     len <= width;
+  int p0, p1;
+  share_of(n, p.split, p.bs, rank, p0, p1);
+  const int cnt = p1 - p0;
+  const int ntiles = (cnt + TILE - 1) / TILE;
+  const int mine = warp < ntiles ? (ntiles - 1 - warp) / NW + 1 : 0;  // this warp's tiles
+  // the warp that walks the share's last tile holds position n - 1
+  const bool holds_fresh = fresh && cnt > 0 && p1 == n && warp == (ntiles - 1) % NW;
+
+  const uint32_t bar0 = base + lay.bars + 8 * warp * lay.depth;
+  const uint32_t ring = base + warp * lay.depth * lay.slot;
+  const int kbytes = lay.slot / 2;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NW * lay.depth; ++i) mbar_init(base + lay.bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the fresh row: its 16-byte chunks to lanes c < D / 8, written into the
+  // pool now (no block of this launch reads that pool row: the one that
+  // attends over it takes it from these registers)
+  uint4 fk = make_uint4(0u, 0u, 0u, 0u), fv = fk;
+  if (holds_fresh && lane < p.D / 8) {
+    fk = *reinterpret_cast<const uint4*>(p.k_new + b * p.kns[0] + kvh * p.kns[1] + lane * 8);
+    fv = *reinterpret_cast<const uint4*>(p.v_new + b * p.vns[0] + kvh * p.vns[1] + lane * 8);
+    if (blockIdx.y == 0) {
+      const int j = n - 1;
+      const int blk = j / p.bs;
+      const long long phys = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
+      const long long row = j - blk * p.bs;
+      *reinterpret_cast<uint4*>(p.pool_k + phys * p.ks[0] + kvh * p.ks[1] + row * p.ks[2] +
+                                lane * 8) = fk;
+      *reinterpret_cast<uint4*>(p.pool_v + phys * p.vs[0] + kvh * p.vs[1] + row * p.vs[2] +
+                                lane * 8) = fv;
+    }
+  }
+
+  // q as the A operand of every k-step: rows g0 + r0 (and + 8 at GT = 16)
+  uint32_t qa[KSTEPS][4];
+  {
+    const __nv_bfloat16* qb = p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2];
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int c = ks * 16 + cq;
+      qa[ks][0] = q_pair(qb, p.qs[2], r0, gn, c, p.D);
+      qa[ks][1] = GT == 16 ? q_pair(qb, p.qs[2], r0 + 8, gn, c, p.D) : 0u;
+      qa[ks][2] = q_pair(qb, p.qs[2], r0, gn, c + 8, p.D);
+      qa[ks][3] = GT == 16 ? q_pair(qb, p.qs[2], r0 + 8, gn, c + 8, p.D) : 0u;
+    }
+  }
+
+  // the pool blocks of this warp's tiles 32 at a time: lane l holds those
+  // of its tile batch * 32 + l, one per row box
+  constexpr int MAX_BOXES = TILE / 8;
+  const int R = p.box_rows;
+  int phys[MAX_BOXES];
+#pragma unroll
+  for (int rb = 0; rb < MAX_BOXES; ++rb) phys[rb] = 0;
+  auto load_blocks = [&](int batch) {
+    const int lo = p0 + (warp + (batch * 32 + lane) * NW) * TILE;
+#pragma unroll
+    for (int rb = 0; rb < MAX_BOXES; ++rb)
+      if (rb * R < TILE && lo + rb * R < p1)
+        phys[rb] = min(max(p.table[b * p.nblk + (lo + rb * R) / p.bs], 0), p.nblocks - 1);
+  };
+  // stage i % DEPTH takes this warp's i-th tile: lane 0 arms the stage's
+  // barrier and issues one box per (row box, 64 columns) of K, then of V
+  auto issue = [&](int i) {
+    if (i > 0 && (i & 31) == 0) load_blocks(i >> 5);
+    int ph[MAX_BOXES];
+#pragma unroll
+    for (int rb = 0; rb < MAX_BOXES; ++rb) ph[rb] = __shfl_sync(FULL, phys[rb], i & 31);
+    if (lane != 0) return;
+    const int lo = p0 + (warp + i * NW) * TILE;
+    const int nbox = (min(p1, lo + TILE) - lo + R - 1) / R;
+    constexpr int COLS = DT / BOX_COLS;
+    const uint32_t kdst = ring + (i % lay.depth) * lay.slot;
+    const uint32_t bar = bar0 + 8 * (i % lay.depth);
+    mbar_expect_tx(bar, 2 * nbox * COLS * R * 128);
+#pragma unroll
+    for (int rb = 0; rb < MAX_BOXES; ++rb) {
+      if (rb >= nbox) break;
+      const int j = lo + rb * R;
+      const int row = j - (j / p.bs) * p.bs;
+      const int phys = ph[rb];
+#pragma unroll
+      for (int cb = 0; cb < COLS; ++cb) {
+        const uint32_t off = cb * BOX_BYTES + rb * R * 128;
+        tma_load(kdst + off, &tk, bar, cb * BOX_COLS, row, kvh, phys);
+        tma_load(kdst + kbytes + off, &tv, bar, cb * BOX_COLS, row, kvh, phys);
+      }
+    }
+  };
+  __syncthreads();  // the barriers are initialised
+  if (mine > 0) {
+    load_blocks(0);
+    for (int i = 0; i < lay.depth && i < mine; ++i) issue(i);
+  }
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // ldmatrix row addresses: lanes 8i..8i+7 give matrix i's rows.  K: the
+  // matrices are (positions 0-7, chunk 2ks), (0-7, 2ks+1), (8-15, 2ks),
+  // (8-15, 2ks+1); V (transposed): (0-7, 2jp), (8-15, 2jp), (0-7, 2jp+1),
+  // (8-15, 2jp+1)
+  const int mi = lane >> 3;
+  const int k_row = (mi >> 1) * 8 + (lane & 7);
+  const int v_row = (mi & 1) * 8 + (lane & 7);
+
+  for (int i = 0; i < mine; ++i) {
+    const int s = i % lay.depth;
+    mbar_wait(bar0 + 8 * s, (i / lay.depth) & 1);
+    const uint32_t kt = ring + s * lay.slot;
+    const uint32_t vt = kt + kbytes;
+    const int lo = (warp + i * NW) * TILE;  // local to the share
+    const int tcnt = min(TILE, cnt - lo);
+    if (holds_fresh && i == mine - 1) {     // position n - 1 from the input, not the pool
+      const int rr = n - 1 - (p0 + lo);
+      if (lane < p.D / 8) {
+        *reinterpret_cast<uint4*>(smem + (kt - base) + swz(rr, lane)) = fk;
+        *reinterpret_cast<uint4*>(smem + (vt - base) + swz(rr, lane)) = fv;
+      }
+      __syncwarp();
+    }
+    // S = Q K^T: NS tiles of 8 positions
+    constexpr int NS = TILE / 8;
+    float sc[NS][4];
+#pragma unroll
+    for (int t = 0; t < NS; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+      for (int t = 0; t < NS; t += 2) {
+        uint32_t kb[4];
+        ldsm_x4(kt + swz(t * 8 + k_row, 2 * ks + (mi & 1)), kb);
+        mma_bf16(sc[t], qa[ks], kb[0], kb[1]);
+        mma_bf16(sc[t + 1], qa[ks], kb[2], kb[3]);
+      }
+    }
+    // scaled to base 2; positions past the share's end masked
+#pragma unroll
+    for (int t = 0; t < NS; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[t][e] = t * 8 + cq + (e & 1) < tcnt ? sc[t][e] * p.scale_log2 : -INFINITY;
+    // the online softmax, once per tile: a row's max over its quad; P as
+    // the A operand of each 16-position PV k-step, cast to the cache dtype
+    uint32_t pa[NS / 2][4];
+    {
+      float mx = m0;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) mx = fmaxf(mx, fmaxf(sc[t][0], sc[t][1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float alpha = exp2_approx(m0 - mx);  // 0 while m0 is still -inf
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        const float e0 = exp2_approx(sc[t][0] - mx), e1 = exp2_approx(sc[t][1] - mx);
+        sum += e0 + e1;
+        pa[t / 2][(t & 1) * 2] = pack_f32(e0, e1);
+      }
+      l0 = l0 * alpha + sum;
+      m0 = mx;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][0] *= alpha;
+        acc[j][1] *= alpha;
+      }
+    }
+    if constexpr (GT == 16) {
+      float mx = m1;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) mx = fmaxf(mx, fmaxf(sc[t][2], sc[t][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float alpha = exp2_approx(m1 - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        const float e2 = exp2_approx(sc[t][2] - mx), e3 = exp2_approx(sc[t][3] - mx);
+        sum += e2 + e3;
+        pa[t / 2][(t & 1) * 2 + 1] = pack_f32(e2, e3);
+      }
+      l1 = l1 * alpha + sum;
+      m1 = mx;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2] *= alpha;
+        acc[j][3] *= alpha;
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) pa[kk][1] = pa[kk][3] = 0u;
+    }
+    // O += P V.  V rows past the share's end may hold anything (a stage's
+    // earlier tile, another row's data): their halves are zeroed, as p = 0
+    // there would not cancel a NaN
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      const int c0 = kk * 16 + cq;
+      const uint32_t keep_lo = (c0 < tcnt ? 0xffffu : 0u) | (c0 + 1 < tcnt ? 0xffff0000u : 0u);
+      const uint32_t keep_hi =
+          (c0 + 8 < tcnt ? 0xffffu : 0u) | (c0 + 9 < tcnt ? 0xffff0000u : 0u);
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vt + swz(kk * 16 + v_row, 2 * jp + (mi >> 1)), vb);
+        mma_bf16(acc[2 * jp], pa[kk], vb[0] & keep_lo, vb[1] & keep_hi);
+        mma_bf16(acc[2 * jp + 1], pa[kk], vb[2] & keep_lo, vb[3] & keep_hi);
+      }
+    }
+    __syncwarp();  // every lane has read the stage: it may be refilled
+    if (i + lay.depth < mine) issue(i + lay.depth);
+  }
+  // each lane's l covers its quad's columns: sum over the quad
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
+  // rank 0's gather shares the ring's space: a rank writes it only once
+  // every rank of the cluster is past its walk
+  if (p.split > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  __syncthreads();  // every warp is done with its ring: the scratch reuses it
+
+  // the warps' (m, l, acc) per row, then per row the block's (M, L, O) with
+  // O = sum_w acc_w wt_w, L = sum_w l_w wt_w, wt_w = exp(m_w - M), in warp order
+  float* sm_m = reinterpret_cast<float*>(smem + lay.scratch);  // [NW][GT]
+  float* sm_l = sm_m + NW * GT;                                 // [NW][GT]
+  float* sm_acc = sm_l + NW * GT;                               // [NW][GT][D]
+  float* sm_w = reinterpret_cast<float*>(smem + lay.weights);   // [MAX_SPLIT + 2][GT]
+  float* gather = reinterpret_cast<float*>(smem + lay.gather);  // [MAX_SPLIT][GT * (D + 2)]
+  if ((lane & 3) == 0) {
+    if (r0 < gn) {
+      sm_m[warp * GT + r0] = m0;
+      sm_l[warp * GT + r0] = l0;
+    }
+    if (GT == 16 && r0 + 8 < gn) {
+      sm_m[warp * GT + r0 + 8] = m1;
+      sm_l[warp * GT + r0 + 8] = l1;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int d = j * 8 + cq;
+    if (d < p.D) {
+      if (r0 < gn)
+        *reinterpret_cast<float2*>(sm_acc + (warp * GT + r0) * p.D + d) =
+            make_float2(acc[j][0], acc[j][1]);
+      if (GT == 16 && r0 + 8 < gn)
+        *reinterpret_cast<float2*>(sm_acc + (warp * GT + r0 + 8) * p.D + d) =
+            make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < gn) {
+    const int g = threadIdx.x;
+    float M = -INFINITY;
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w * GT + g]);
+    float L = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      const float mw = sm_m[w * GT + g];
+      const float wt = mw == -INFINITY ? 0.f : exp2_approx(mw - M);  // 0: a warp with no tile
+      sm_w[w * GT + g] = wt;
+      L = fmaf(sm_l[w * GT + g], wt, L);
+    }
+    sm_w[MAX_SPLIT * GT + g] = M;
+    sm_w[(MAX_SPLIT + 1) * GT + g] = L;
+  }
+  __syncthreads();
+  const int stride = GT * (p.D + 2);
+  float* mine_out = gather;
+  if (p.split > 1) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    mine_out = cluster.map_shared_rank(gather, 0) + rank * stride;
+    if (threadIdx.x < gn) {
+      mine_out[threadIdx.x] = sm_w[MAX_SPLIT * GT + threadIdx.x];
+      mine_out[GT + threadIdx.x] = sm_w[(MAX_SPLIT + 1) * GT + threadIdx.x];
+    }
+  }
+  for (int e = threadIdx.x; e < gn * p.D; e += NTHREADS) {
+    const int g = e / p.D;
+    const int d = e - g * p.D;
+    float O = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) O = fmaf(sm_acc[(w * GT + g) * p.D + d], sm_w[w * GT + g], O);
+    if (p.split == 1)
+      p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
+          __float2bfloat16(O / fmaxf(sm_w[(MAX_SPLIT + 1) * GT + g], 1e-30f));
+    else
+      mine_out[2 * GT + g * p.D + d] = O;
+  }
+  if (p.split == 1) return;
+
+  // rank 0 combines the cluster's blocks in rank order, from its own shared
+  // memory once the cluster barrier has made every rank's stores visible
+  cluster.sync();
+  if (rank != 0) return;
+  if (threadIdx.x < gn) {
+    const int g = threadIdx.x;
+    float M = -INFINITY;
+    for (int r = 0; r < p.split; ++r) M = fmaxf(M, gather[r * stride + g]);
+    float L = 0.f;
+    for (int r = 0; r < p.split; ++r) {
+      const float mr = gather[r * stride + g];
+      const float wt = mr == -INFINITY ? 0.f : exp2_approx(mr - M);  // 0: an empty share
+      sm_w[r * GT + g] = wt;
+      L = fmaf(gather[r * stride + GT + g], wt, L);
+    }
+    sm_w[MAX_SPLIT * GT + g] = L;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < gn * p.D; e += NTHREADS) {
+    const int g = e / p.D;
+    const int d = e - g * p.D;
+    float O = 0.f;
+    for (int r = 0; r < p.split; ++r)
+      O = fmaf(gather[r * stride + 2 * GT + g * p.D + d], sm_w[r * GT + g], O);
+    p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
+        __float2bfloat16(O / fmaxf(sm_w[MAX_SPLIT * GT + g], 1e-30f));
+  }
+}
+
+using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const Params);
+
+// per (tile width, row tile) and device: the shared-memory opt-in is set
+std::atomic<bool> g_smem_set[3][2][MAX_DEVICES];
+
+}  // namespace
+
+extern "C" {
+
+// The dynamic shared memory the kernel takes for this head dim, group
+// (query heads per kv head), pool block size and dtype code (0 =
+// bfloat16), or -1 with the reason in why.
+int flash_decode_paged_smem_bytes(int head_dim, int group, int block_size, int dtype_code,
+                                  char* why, int why_len) {
+  return plan(head_dim, group, block_size, dtype_code, why, why_len);
+}
+
+// Launches on `stream` (a cudaStream_t as an integer handle) and returns
+// cudaGetLastError() after the launch: 0 means launched.  q [B,KV,G,D] bf16
+// with unit stride along D; pools pool_k/pool_v [nblocks,KV,bs,D] bf16
+// with unit stride along D, 16-byte aligned bases and strides that are
+// multiples of 8 elements (TMA's rules); table [B,nblk] int32 contiguous;
+// lens [B] int32 (row b attends over positions [0, lens[b]), clamped to
+// [0, nblk*bs]); k_new/v_new [B,KV,1,D] bf16 with 16-byte aligned rows, or
+// null for no fused write; valid [B] bool or null (every row valid);
+// strides[13] = (b, kv head, row) element strides of q, (block, kv head,
+// row) of pool_k and pool_v, (b, kv head) of k_new and v_new; o [B,KV,G,D]
+// bf16 contiguous.  Each (b, kv head, row tile) is a cluster of `split`
+// blocks (1, 2, 4 or 8) that split the row's positions by share_of.
+int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const int* table,
+                              const int* lens, const void* k_new, const void* v_new,
+                              const void* valid, void* o, int nblocks, int nblk, int bs, int B,
+                              int KV, int G, int D, int split, const long long* strides,
+                              void* stream) {
+  const int smem = plan(D, G, bs, DTYPE_BF16, nullptr, 0);
+  if (smem < 0 || B < 1 || KV < 1 || nblocks < 1 || nblk < 1 ||
+      static_cast<long long>(nblk) * bs > (1 << 30) ||
+      (split != 1 && split != 2 && split != 4 && split != 8) ||
+      (k_new == nullptr) != (v_new == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int box_rows = bs % MAX_BOX_ROWS == 0 ? MAX_BOX_ROWS : 8;
+  CUtensorMap tk, tv;
+  if (!encode(&tk, pool_k, nblocks, KV, bs, D, strides + 3, box_rows) ||
+      !encode(&tv, pool_v, nblocks, KV, bs, D, strides + 6, box_rows))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.pool_k = static_cast<__nv_bfloat16*>(pool_k);
+  p.pool_v = static_cast<__nv_bfloat16*>(pool_v);
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = strides[i];
+    p.ks[i] = strides[3 + i];
+    p.vs[i] = strides[6 + i];
+  }
+  p.table = table;
+  p.lens = lens;
+  p.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  p.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  for (int i = 0; i < 2; ++i) {
+    p.kns[i] = strides[9 + i];
+    p.vns[i] = strides[11 + i];
+  }
+  p.valid = static_cast<const unsigned char*>(valid);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.nblk = nblk;
+  p.bs = bs;
+  p.nblocks = nblocks;
+  p.KV = KV;
+  p.G = G;
+  p.D = D;
+  p.split = split;
+  p.box_rows = box_rows;
+  p.scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+
+  const int GT = G > 8 ? 16 : 8;
+  const int DT = tile_cols(D);
+  const int wi = width_index(DT);
+  const int gi = GT == 16 ? 1 : 0;
+  const Kernel kernels[3][2] = {{paged_decode_kernel<64, 8>, paged_decode_kernel<64, 16>},
+                                {paged_decode_kernel<128, 8>, paged_decode_kernel<128, 16>},
+                                {paged_decode_kernel<256, 8>, paged_decode_kernel<256, 16>}};
+  const Kernel kernel = kernels[wi][gi];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!g_smem_set[wi][gi][dev].load()) {
+    // the largest this instance asks for, over the head dims it serves
+    int most = 0;
+    for (int d = 8; d <= MAX_D; d += 8)
+      if (tile_cols(d) == DT) most = std::max(most, layout_for(d, GT).bytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    g_smem_set[wi][gi][dev].store(true);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * B * KV, (G + GT - 1) / GT);
+  cfg.blockDim = dim3(nwarps(D) * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tk, tv, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+const char* flash_decode_paged_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

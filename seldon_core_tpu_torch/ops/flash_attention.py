@@ -291,16 +291,20 @@ def bwd_kernel_shape_error(head_dim: int, dtype: torch.dtype,
     return _smem_bytes(head_dim, seq_len, dtype, bwd=True)[1]
 
 
+def _tma_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels can read the 4-d bf16 ``t`` by strides: unit
+    stride along D and 16-byte aligned rows.  Those are also the rules of
+    the kernels' TMA tensor maps (a 16-byte aligned base, every stride a
+    multiple of 16 bytes; a dimension of size 1 is never stepped, so the
+    source gives it a stride of its own)."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(t.stride(i) % 8 == 0 or t.shape[i] == 1 for i in range(3)))
+
+
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels can read it by strides (unit stride
-    along D, 16-byte aligned rows), else a contiguous copy.  Those are also
-    the rules of the kernels' TMA tensor maps (a 16-byte aligned base,
-    every stride a multiple of 16 bytes; a dimension of size 1 is never
-    stepped, so the source gives it a stride of its own), so every view
-    this admits is loaded by TMA as it is."""
-    aligned = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-               and all(t.stride(i) % 8 == 0 or t.shape[i] == 1 for i in range(3)))
-    return t if aligned else t.contiguous()
+    """``t`` itself when ``_tma_aligned``, else a contiguous copy: every
+    view this admits is loaded by TMA as it is."""
+    return t if _tma_aligned(t) else t.contiguous()
 
 
 def _same_device_and_dtype(q, **others) -> None:

@@ -52,20 +52,26 @@ A CPU tensor runs the plain PyTorch versions, ``flash_decode_reference``
 against and which the decode lane runs with ``use_flash`` off.
 ``LAUNCHES`` counts kernel launches and nothing else.
 
-The paged variant serves the continuous lane's block pool
-(``models/generate.py``; the reference gathers the pages and attends in
-plain XLA, ``_attend_paged`` at W = 1, ``generate.py:1086``, which is this
-kernel's function):
+The continuous lane's block pool has a kernel of its own
+(``ops/csrc/flash_decode_paged.cu``; the reference writes the step's K/V
+with ``_paged_write``, ``generate.py:1057``, then gathers the pages and
+attends in plain XLA, ``_attend_paged`` at W = 1, ``generate.py:1086``):
 
-  ``flash_decode_paged(q, pool_k, pool_v, tables, lens)``
+  ``flash_decode_paged(q, pool_k, pool_v, tables, lens, k_new=None,
+  v_new=None, valid=None)``
         q [B, KV, G, hd] over row b's positions [0, lens[b]), position j
         at row j % bs of pool block tables[b, j // bs]; pools [N, KV, bs,
-        hd], tables [B, nblk] and lens [B] int32 on the device.
+        hd], tables [B, nblk] and lens [B] int32 on the device.  With
+        k_new/v_new [B, KV, 1, hd] the same launch first stores each
+        valid row's fresh K/V at position lens[b] - 1 (the decode step's
+        write) and attends with it; a row whose ``valid`` [B] is False
+        writes nothing (the reference sends it to the scratch block 0).
 
 The kernel reads the table and the lengths itself: nothing is read back
-on the host, and the split (``decode_split_plan``) comes from the table's
-width nblk * bs, which the host knows.  ``flash_decode_paged_reference``
-is its plain version (the gather ``_paged_view`` and ``_attend_paged``),
+on the host.  The host picks the cluster size from the table's width
+(``decode_split_plan``) and each block takes its share of the row's own
+length (``paged_shares``).  ``flash_decode_paged_reference`` is its plain
+version (the write, then the gather ``paged_view`` and ``attend_paged``),
 ``PAGED_LAUNCHES`` its count and ``probe_paged_decode_kernel`` its probe.
 """
 
@@ -81,7 +87,9 @@ import torch
 
 from seldon_core_tpu_torch.device import launch_on
 from seldon_core_tpu_torch.ops._build import load_library
-from seldon_core_tpu_torch.ops.flash_attention import _kernel_view, _same_device_and_dtype
+from seldon_core_tpu_torch.ops.flash_attention import (_kernel_view, _same_device_and_dtype,
+                                                       _tma_aligned)
+from seldon_core_tpu_torch.ops.kv_write import kv_write_paged_reference
 
 __all__ = [
     "LAUNCHES",
@@ -96,6 +104,9 @@ __all__ = [
     "PAGED_LAUNCHES",
     "flash_decode_paged",
     "flash_decode_paged_reference",
+    "paged_cluster",
+    "paged_kernel_shape_error",
+    "paged_shares",
     "paged_view",
     "attend_paged",
     "probe_paged_decode_kernel",
@@ -112,6 +123,10 @@ _NEG_INF = -1e30
 _MAX_GT = 8        # query rows per block of the kernel (MAX_GT in flash_decode.cu)
 _SPLITS = (1, 2, 4, 8)   # cluster sizes: the portable ones
 _MIN_SPAN = 64     # the fewest positions a block of a split cluster reads
+_PAGED_GT = 16     # query rows per block of the paged kernel (one m16 tile)
+# the paged kernel's 8-warp blocks fill an SM each, and a cluster's combine
+# costs more than the split gains until the grid is short of ~one per SM
+_PAGED_BLOCKS_PER_SM = 0.9
 _BLOCKS_PER_SM = 1.5     # what the split aims the grid at (see decode_split_plan)
 
 
@@ -185,7 +200,9 @@ def flash_decode_two_tier_reference(q: torch.Tensor, main_k: torch.Tensor, main_
 
 
 @functools.lru_cache(maxsize=4096)
-def decode_split_plan(B: int, KV: int, G: int, n_total: int, sm_count: int) -> Tuple[int, int]:
+def decode_split_plan(B: int, KV: int, G: int, n_total: int, sm_count: int,
+                      row_tile: int = _MAX_GT,
+                      blocks_per_sm: float = _BLOCKS_PER_SM) -> Tuple[int, int]:
     """(C, span): how the kernel splits the ``n_total`` positions of each
     (b, kv head, row tile) across the C blocks of one cluster.  C is the
     smallest of 1, 2, 4, 8 whose grid holds at least 1.5 blocks per SM (at B=32, KV=4, G=4: C=2, 256 blocks,
@@ -194,16 +211,18 @@ def decode_split_plan(B: int, KV: int, G: int, n_total: int, sm_count: int) -> T
     fixed cost (q, the combine) outweighs its share of the reads.  Block r
     takes positions [r*span, min((r+1)*span, n_total)) by their global
     index over both segments, so neither C nor the boundaries depend on
-    where main ends.  Cached: the decode lane asks it 12 times a step."""
+    where main ends.  ``row_tile`` is the most query rows a block takes
+    and ``blocks_per_sm`` the grid's aim (the paged kernel's are 16 and
+    0.9).  Cached: the decode lane asks it 12 times a step."""
     if n_total < 1:
         raise ValueError("the flash-decode kernel needs at least one valid cache position")
     gt = 1
-    while gt < G and gt < _MAX_GT:
+    while gt < G and gt < row_tile:
         gt *= 2
     groups = B * KV * -(-G // gt)
     split = 1
     for c in _SPLITS[1:]:
-        if groups * split >= _BLOCKS_PER_SM * sm_count or -(-n_total // c) < _MIN_SPAN:
+        if groups * split >= blocks_per_sm * sm_count or -(-n_total // c) < _MIN_SPAN:
             break
         split = c
     return split, -(-n_total // split)
@@ -233,15 +252,10 @@ def _library() -> SimpleNamespace:
             smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                              ctypes.c_int]
             smem.restype = ctypes.c_int
-            paged = lib.flash_decode_paged_launch
-            paged.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                              + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
-            paged.restype = ctypes.c_int
             err = lib.flash_decode_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _lib = SimpleNamespace(launch=launch, paged=paged, smem_bytes=smem,
-                                   error_string=err)
+            _lib = SimpleNamespace(launch=launch, smem_bytes=smem, error_string=err)
         return _lib
 
 
@@ -390,18 +404,66 @@ def attend_paged(q: torch.Tensor, view_k: torch.Tensor, view_v: torch.Tensor,
     return out.to(q.dtype).reshape(B, H, W, hd)
 
 
+def paged_shares(n: int, C: int, bs: int):
+    """Each of the C blocks' share [p0, p1) of a row's n positions, in
+    pool blocks of bs rows: k ranks take the ceil(n / bs) blocks, q or q
+    + 1 each (the extra ones last, with the partial block), where k is
+    the largest count <= C that leaves every share at least ``_MIN_SPAN``
+    positions; ranks >= k are empty, [n, n).  ``share_of`` in
+    ``ops/csrc/flash_decode_paged.cu`` is the same rule: the paged kernel's
+    blocks compute it from the row's own length on the device, so the
+    table's width never enters."""
+    nb = -(-n // bs)
+    k = C
+    while k > 1:
+        q, rem = divmod(nb, k)
+        if q * bs >= _MIN_SPAN and n - (nb - q - (rem > 0)) * bs >= _MIN_SPAN:
+            break
+        k -= 1
+    q, rem = divmod(nb, k)
+    shares = []
+    for r in range(C):
+        if r >= k:
+            shares.append((n, n))
+            continue
+        start = r * q + max(0, r - (k - rem))
+        end = start + q + (r >= k - rem)
+        shares.append((min(n, start * bs), min(n, end * bs)))
+    return shares
+
+
+def paged_cluster(B: int, KV: int, G: int, width: int, sm_count: int) -> int:
+    """C, the blocks of the paged kernel's cluster for each (row, kv head,
+    row tile), from the shapes and the table's width (``width`` = nblk *
+    bs) alone: ``decode_split_plan`` at the paged kernel's row tile and
+    grid aim."""
+    return decode_split_plan(B, KV, G, width, sm_count, _PAGED_GT, _PAGED_BLOCKS_PER_SM)[0]
+
+
 def flash_decode_paged_reference(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
-                                 tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """The plain version, on any device: ``paged_view`` and
-    ``attend_paged`` at W = 1 with start = lens - 1, q [B, KV, G, hd] ->
-    o [B, KV, G, hd] in q's dtype."""
+                                 tables: torch.Tensor, lens: torch.Tensor,
+                                 k_new: Optional[torch.Tensor] = None,
+                                 v_new: Optional[torch.Tensor] = None,
+                                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version, on any device.  With ``k_new``/``v_new``, first
+    ``kv_write_paged_reference`` at position lens[b] - 1 of the rows that
+    write (valid, with a length in [1, nblk * bs]; the others write
+    nothing), in place.  Then ``paged_view`` and ``attend_paged`` at W = 1
+    with start = lens - 1, q [B, KV, G, hd] -> o [B, KV, G, hd] in q's
+    dtype."""
     B, KV, G, hd = q.shape
+    if k_new is not None:
+        writes = (lens >= 1) & (lens <= tables.shape[1] * pool_k.shape[2])
+        idx = torch.nonzero(writes if valid is None else writes & valid)[:, 0]
+        kv_write_paged_reference(pool_k, pool_v, k_new[idx], v_new[idx], tables[idx],
+                                 lens[idx] - 1,
+                                 torch.ones(idx.numel(), 1, dtype=torch.bool, device=q.device))
     k, v = paged_view(pool_k, pool_v, tables)
     o = attend_paged(q.reshape(B, KV * G, 1, hd), k, v, lens - 1)
     return o.reshape(B, KV, G, hd)
 
 
-def _paged_error(q, pool_k, pool_v, tables, lens) -> Optional[str]:
+def _paged_error(q, pool_k, pool_v, tables, lens, k_new, v_new, valid) -> Optional[str]:
     if q.ndim != 4 or pool_k.ndim != 4 or pool_k.shape != pool_v.shape:
         return (f"bad shapes: q{tuple(q.shape)} pool_k{tuple(pool_k.shape)} "
                 f"pool_v{tuple(pool_v.shape)}")
@@ -413,34 +475,96 @@ def _paged_error(q, pool_k, pool_v, tables, lens) -> Optional[str]:
         return f"tables must be int32 [{B}, nblk >= 1], got {tables.dtype} {tuple(tables.shape)}"
     if tuple(lens.shape) != (B,) or lens.dtype != torch.int32:
         return f"lens must be int32 [{B}], got {lens.dtype} {tuple(lens.shape)}"
-    for name, t in (("pool_k", pool_k), ("pool_v", pool_v), ("tables", tables), ("lens", lens)):
-        if t.device != q.device:
+    if (k_new is None) != (v_new is None) or (k_new is None and valid is not None):
+        return "k_new and v_new go together, and valid goes with them"
+    if k_new is not None:
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            if tuple(t.shape) != (B, KV, 1, hd) or t.dtype != pool_k.dtype:
+                return (f"{name} must be {pool_k.dtype} {(B, KV, 1, hd)}, got {t.dtype} "
+                        f"{tuple(t.shape)}")
+        if valid is not None and (tuple(valid.shape) != (B,) or valid.dtype != torch.bool):
+            return f"valid must be bool [{B}], got {valid.dtype} {tuple(valid.shape)}"
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v), ("tables", tables), ("lens", lens),
+                    ("k_new", k_new), ("v_new", v_new), ("valid", valid)):
+        if t is not None and t.device != q.device:
             return f"{name} is on {t.device}, q on {q.device}"
     return None
 
 
-def _launch_paged(q, pool_k, pool_v, tables, lens) -> torch.Tensor:
+_paged_bind_lock = threading.Lock()
+_paged_lib: Optional[SimpleNamespace] = None
+
+
+def _paged_library() -> SimpleNamespace:
+    """The paged kernel library's entry points, built and bound at first
+    use."""
+    global _paged_lib
+    with _paged_bind_lock:
+        if _paged_lib is None:
+            lib = load_library("flash_decode_paged")
+            launch = lib.flash_decode_paged_launch
+            launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                               + [ctypes.c_void_p, ctypes.c_void_p])
+            launch.restype = ctypes.c_int
+            smem = lib.flash_decode_paged_smem_bytes
+            smem.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+            smem.restype = ctypes.c_int
+            err = lib.flash_decode_paged_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _paged_lib = SimpleNamespace(launch=launch, smem_bytes=smem, error_string=err)
+        return _paged_lib
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_smem_bytes(head_dim: int, group: int, block_size: int, dtype: torch.dtype):
+    """(dynamic shared memory the paged kernel asks for, None), or (-1, why
+    not), from ``flash_decode_paged_smem_bytes`` in its source."""
+    why = ctypes.create_string_buffer(256)
+    dtype_code = 0 if dtype == torch.bfloat16 else -1  # the .cu's codes: 0 = bfloat16
+    n = _paged_library().smem_bytes(int(head_dim), int(group), int(block_size), dtype_code,
+                                    ctypes.addressof(why), len(why))
+    return n, (why.value.decode() if n < 0 else None)
+
+
+def paged_kernel_shape_error(head_dim: int, dtype: torch.dtype, group: int = 1,
+                             block_size: int = 16) -> Optional[str]:
+    """Why the paged kernel cannot take this head dim, dtype, group and
+    pool block size, or None.  Asks the kernel source (nvcc needed)."""
+    return _paged_smem_bytes(head_dim, group, block_size, dtype)[1]
+
+
+def _launch_paged(q, pool_k, pool_v, tables, lens, k_new, v_new, valid) -> torch.Tensor:
     B, KV, G, hd = q.shape
     N, _, bs, _ = pool_k.shape
     _same_device_and_dtype(q, pool_k=pool_k, pool_v=pool_v)
-    why = decode_kernel_shape_error(hd, q.dtype, G)
+    why = paged_kernel_shape_error(hd, q.dtype, G, bs)
     if why is not None:
         raise ValueError(why)
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+        if not _tma_aligned(t):  # read by TMA and written in place: no copy will do
+            raise ValueError(f"{name} needs unit stride along hd, a 16-byte aligned base and "
+                             f"strides that are multiples of 8, got {t.stride()}")
     q = q if q.stride(3) == 1 else q.contiguous()
-    pool_k, pool_v = (_kernel_view(t) for t in (pool_k, pool_v))
     tables, lens = tables.contiguous(), lens.contiguous()
+    if k_new is not None:
+        k_new, v_new = (_kernel_view(t) for t in (k_new, v_new))
+        valid = None if valid is None else valid.contiguous()
     o = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
     if B == 0 or KV == 0 or G == 0:
         return o
-    nblk = tables.shape[1]
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *pool_k.stride()[:3],
-                                      *pool_v.stride()[:3])
-    lib = _library()
+    fresh = (0, 0) if k_new is None else (*k_new.stride()[:2], *v_new.stride()[:2])
+    strides = (ctypes.c_longlong * 13)(*q.stride()[:3], *pool_k.stride()[:3],
+                                       *pool_v.stride()[:3], *fresh)
+    lib = _paged_library()
     index = torch.cuda.current_device() if q.device.index is None else q.device.index
-    split, span = decode_split_plan(B, KV, G, nblk * bs, _sm_count(index))
-    rc = launch_on(q.device, lib.paged, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                   tables.data_ptr(), lens.data_ptr(), N, nblk, bs, o.data_ptr(), B, KV, G, hd,
-                   split, span, ctypes.addressof(strides))
+    split = paged_cluster(B, KV, G, tables.shape[1] * bs, _sm_count(index))
+    rc = launch_on(q.device, lib.launch, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                   tables.data_ptr(), lens.data_ptr(),
+                   None if k_new is None else k_new.data_ptr(),
+                   None if v_new is None else v_new.data_ptr(),
+                   None if valid is None else valid.data_ptr(), o.data_ptr(), N,
+                   tables.shape[1], bs, B, KV, G, hd, split, ctypes.addressof(strides))
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged kernel launch failed: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")
@@ -451,40 +575,53 @@ def _launch_paged(q, pool_k, pool_v, tables, lens) -> torch.Tensor:
 
 
 def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
-                       tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+                       tables: torch.Tensor, lens: torch.Tensor,
+                       k_new: Optional[torch.Tensor] = None, v_new: Optional[torch.Tensor] = None,
+                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, KV, G, hd] over each row's positions [0, lens[b]) of the paged
     pools [N, KV, bs, hd] through ``tables`` [B, nblk] -> o [B, KV, G,
     hd].  ``tables`` and ``lens`` are int32 on q's device and are read by
     the device only (a length is clamped to [0, nblk*bs], a block id to
-    the pool).  A CUDA q launches the kernel or raises; a CPU q runs
-    ``flash_decode_paged_reference``."""
-    why = _paged_error(q, pool_k, pool_v, tables, lens)
+    the pool).  With ``k_new``/``v_new`` [B, KV, 1, hd] (and ``valid`` [B]
+    bool, default all True) the decode step's write is fused in: each
+    valid row with a length in [1, nblk*bs] first stores its fresh K/V at
+    position lens[b] - 1 of the pools, in place; the other rows write
+    nothing.  A CUDA q launches the kernel (one launch, write included)
+    or raises; a CPU q runs ``flash_decode_paged_reference``."""
+    why = _paged_error(q, pool_k, pool_v, tables, lens, k_new, v_new, valid)
     if why is not None:
         raise ValueError(why)
     if _device_kind(q) == "cpu":
-        return flash_decode_paged_reference(q, pool_k, pool_v, tables, lens)
-    return _launch_paged(q, pool_k, pool_v, tables, lens)
+        return flash_decode_paged_reference(q, pool_k, pool_v, tables, lens, k_new, v_new, valid)
+    return _launch_paged(q, pool_k, pool_v, tables, lens, k_new, v_new, valid)
 
 
 def probe_paged_decode_kernel(n_kv_heads: int, group: int, head_dim: int, dtype: torch.dtype,
-                              device: torch.device) -> None:
+                              device: torch.device, block_size: int = 16) -> None:
     """Build the library and launch the paged kernel once at the head shape
-    on a CUDA ``device``: zero queries and keys give a uniform softmax
-    over row 0's 5 positions, held in pool blocks 3 and 1 (blocks of 4
-    rows) with values 1..5 (block 2, past the row's length, holds 100),
-    so the answer is exactly 3.  Raises if the build or the launch fails
-    or the answer differs.  The paged counterpart of
-    ``probe_decode_kernel``."""
-    pool_k = torch.zeros(4, n_kv_heads, 4, head_dim, dtype=dtype, device=device)
-    vals = torch.full((4, 4), 100.0, device=device)
-    vals[3] = torch.tensor([1.0, 2.0, 3.0, 4.0], device=device)
-    vals[1, 0] = 5.0
-    pool_v = vals[:, None, :, None].expand_as(pool_k).to(dtype).contiguous()
+    and pool block size on a CUDA ``device``, with the fused write: zero
+    queries and keys give a uniform softmax over row 0's block_size + 1
+    positions, the first block_size in pool block 3 (values 2 and 4 in
+    turn), the last the fresh row (value 3) bound for block 1, row 0,
+    where the pool holds a stale key of 7 and value of 100 (so do blocks
+    0 and 2, past the row's length): the answer is exactly 3, and block 1
+    row 0 must hold the fresh key and value afterwards.  Raises if the
+    build or the launch fails or the answer differs.  The paged
+    counterpart of ``probe_decode_kernel``."""
+    shape = (4, n_kv_heads, block_size, head_dim)
+    pool_k = torch.zeros(shape, dtype=dtype, device=device)
+    pool_k[1, :, 0] = 7.0
+    vals = torch.full((4, block_size), 100.0, device=device)
+    vals[3] = torch.tensor([2.0, 4.0], device=device).repeat(block_size // 2 + 1)[:block_size]
+    pool_v = vals[:, None, :, None].expand(shape).to(dtype).contiguous()
     q = torch.zeros(1, n_kv_heads, group, head_dim, dtype=dtype, device=device)
+    k_new = torch.zeros(1, n_kv_heads, 1, head_dim, dtype=dtype, device=device)
     tables = torch.tensor([[3, 1, 2]], dtype=torch.int32, device=device)
-    lens = torch.tensor([5], dtype=torch.int32, device=device)
-    o = flash_decode_paged(q, pool_k, pool_v, tables, lens)
-    if not bool((o.float() == 3.0).all().cpu()):
+    lens = torch.tensor([block_size + 1], dtype=torch.int32, device=device)
+    o = flash_decode_paged(q, pool_k, pool_v, tables, lens, k_new, k_new + 3.0)
+    if (not bool((o.float() == 3.0).all().cpu()) or not bool((pool_k[1, :, 0] == 0).all().cpu())
+            or not bool((pool_v[1, :, 0].float() == 3.0).all().cpu())):
         raise RuntimeError(
-            f"flash_decode_paged probe at {n_kv_heads} kv heads x {group}, head dim {head_dim} "
-            f"answered {o.float().flatten()[:4].tolist()}..., not 3")
+            f"flash_decode_paged probe at {n_kv_heads} kv heads x {group}, head dim {head_dim}, "
+            f"blocks of {block_size} answered {o.float().flatten()[:4].tolist()}..., not 3, or "
+            f"did not write the fresh row")

@@ -29,8 +29,10 @@ thread, under ``torch.inference_mode``, on the unit's device and, on
 CUDA, on a stream of its own; the round's one host sync is its [B, span]
 token readback, a prefill tick's the [B] first tokens.  On CUDA with
 ``use_flash`` the constructor builds and probes the lane's two kernels
-(``flash_decode_paged`` and ``kv_write_paged``) and raises if either
-fails: the engine never falls back to the static lane quietly.
+(``flash_decode_paged``, which also takes each decode step's K/V write
+and is probed at the pool's block size, and ``kv_write_paged``, the
+prefill tick's write) and raises if either fails: the engine never falls
+back to the static lane quietly.
 
 Greedy output is token-identical to ``generate`` (the tests pin it
 against the JAX package on the CPU).
@@ -235,7 +237,8 @@ class GenServer:
             # the lane's two kernels, built and launched once here: a
             # missing compiler or a failing build raises at construction
             group = cfg.n_heads // cfg.kv_heads
-            probe_paged_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, self.device)
+            probe_paged_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, self.device,
+                                      self.block_size)
             probe_kv_write_paged(cfg.kv_heads, cfg.head_dim, cfg.dtype, self.device)
         self._allocator = BlockAllocator(self.num_blocks)
         self._pool = None

@@ -1,5 +1,5 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package, and the port
+chip_smoke.py or paged_decode_turns.py, imports JAX or anything of the JAX package, and the port
 serves the MNIST and generator examples (the generator through the
 continuous lane, runtime/genserver.py), streams the generator's tokens,
 takes a training step and round-trips a checkpoint with both blocked."""
@@ -28,7 +28,7 @@ def _port_files():
     assert {"optim.py", "tree.py", "runtime/persistence.py",
             "ops/flash_attention.py", "models/transformer.py",
             "ops/flash_decode.py", "ops/kv_write.py", "runtime/genserver.py"} <= names
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "paged_decode_turns.py"]
 
 
 def _imports(tree):

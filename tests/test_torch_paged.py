@@ -240,12 +240,104 @@ def test_flash_decode_paged_refuses_bad_arguments():
     pool = torch.zeros(4, 2, 4, 8)
     tables = torch.zeros(2, 2, dtype=torch.int32)
     lens = torch.ones(2, dtype=torch.int32)
+    kn = torch.zeros(2, 2, 1, 8)
     for args, match in (((q, pool, pool, tables.long(), lens), "tables must be int32"),
                         ((q, pool, pool, tables, lens[:1]), "lens must be int32"),
                         ((q, torch.zeros(4, 3, 4, 8), torch.zeros(4, 3, 4, 8), tables, lens),
-                         "q/pool mismatch")):
+                         "q/pool mismatch"),
+                        ((q, pool, pool, tables, lens, kn, None), "go together"),
+                        ((q, pool, pool, tables, lens, None, None, torch.ones(2, dtype=torch.bool)),
+                         "go together"),
+                        ((q, pool, pool, tables, lens, kn[:, :, :, :4], kn), "k_new must be"),
+                        ((q, pool, pool, tables, lens, kn, kn, torch.ones(2)), "valid must be")):
         with pytest.raises(ValueError, match=match):
             fd.flash_decode_paged(*args)
+
+
+# the continuous lane's pool blocks (16 rows) and the cluster sizes the
+# paged kernel plans
+SHARE_NS = [1, 15, 16, 17, 560, 1024]
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", SHARE_NS)
+def test_paged_shares_cover_the_row_in_whole_blocks(n, C):
+    """Each rank's share of a row's own length: together they cover [0, n)
+    once and in order, start on pool-block boundaries, the non-empty ones
+    differ by at most one pool block and none holds fewer than _MIN_SPAN
+    positions unless it is the only one; the empty ones sit at the end."""
+    bs = 16
+    shares = fd.paged_shares(n, C, bs)
+    assert len(shares) == C
+    assert shares[0][0] == 0 and shares[-1][1] == n
+    for (_, end), (start, _) in zip(shares, shares[1:]):
+        assert start == end
+    full = [(a, b) for a, b in shares if b > a]
+    assert full and shares[:len(full)] == full  # the empty ranks come last
+    assert all(a % bs == 0 for a, _ in full)
+    blocks = [-(-b // bs) - a // bs for a, b in full]
+    assert max(blocks) - min(blocks) <= 1
+    if len(full) > 1:
+        assert min(b - a for a, b in full) >= fd._MIN_SPAN
+
+
+def test_paged_shares_follow_the_row_not_the_table():
+    """The split comes from the row's own length: the cluster size is the
+    host's (from the table's width, the same for a 64- and a 128-block
+    table at B=1), and the shares then depend on the length alone, so rank
+    0 of a 560-position row takes 272 positions of a cluster of 2 where the
+    table-width split gave it 512 of the 1,024 table positions."""
+    for width in (64 * 16, 128 * 16):
+        assert fd.paged_cluster(1, 4, 4, width, 132) == 8
+    assert fd.paged_cluster(32, 4, 4, 64 * 16, 132) == 1
+    assert fd.paged_cluster(16, 4, 4, 64 * 16, 132) == 2
+    assert fd.paged_shares(560, 2, 16) == [(0, 272), (272, 560)]
+    assert [b - a for a, b in fd.paged_shares(560, 8, 16)] == [64] * 5 + [80] * 3
+    assert fd.paged_shares(17, 8, 16) == [(0, 17)] + [(17, 17)] * 7
+    for n in SHARE_NS:
+        assert fd.paged_shares(n, 4, 16)[0][0] == 0
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+def test_flash_decode_paged_fused_write_is_the_reference_write_and_attend(dims):
+    """The fused call's plain version (the decode step's write, then the
+    attention) against ``_paged_write`` + ``_attend_paged`` at W = 1 on the
+    same numpy inputs, with two inactive rows (one on a scratch table, one
+    on live blocks): the pools bit for bit outside the scratch block 0,
+    which the reference writes for the inactive rows and the port leaves,
+    and o of the active rows within ATOL; the wrapper on CPU tensors is the
+    plain version."""
+    jcfg, tcfg = _cfgs(dims)
+    rng = np.random.default_rng(11)
+    N, bs, B, nblk = 30, 4, 5, 4
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    tables[3] = 0
+    lens = np.array([1, 7, 16, 5, 10], np.int32)
+    active = np.array([True, True, True, False, False])
+    KV, G, hd = tcfg.kv_heads, tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim
+    q = rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+    k = rng.normal(size=(B, KV, 1, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, 1, hd)).astype(np.float32)
+    layer = jgen._paged_write(jpool["l0"], jnp.asarray(tables), jnp.asarray(lens[:, None] - 1),
+                              jnp.asarray(active[:, None]), jnp.asarray(k), jnp.asarray(v))
+    want = jgen._attend_paged(jnp.asarray(q.reshape(B, KV * G, 1, hd)),
+                              jgen._paged_view(layer, jnp.asarray(tables)),
+                              jnp.asarray(lens - 1))
+    want = np.asarray(want).reshape(B, KV, G, hd)
+    pools = {}
+    for name, fn in (("plain", fd.flash_decode_paged_reference), ("wrapper", fd.flash_decode_paged)):
+        pk, pv = tpool["l0"]["k"].clone(), tpool["l0"]["v"].clone()
+        got = fn(torch.from_numpy(q), pk, pv, _t32(tables), _t32(lens), torch.from_numpy(k),
+                 torch.from_numpy(v), torch.from_numpy(active))
+        np.testing.assert_allclose(got.numpy()[active], want[active], atol=ATOL, rtol=ATOL)
+        for t, ref in ((pk, layer["k"]), (pv, layer["v"])):
+            np.testing.assert_array_equal(t.numpy()[1:],
+                                          np.asarray(ref).transpose(0, 2, 1, 3)[1:])
+        # an inactive row writes nothing: the scratch block is as it was
+        np.testing.assert_array_equal(pk.numpy()[0], tpool["l0"]["k"].numpy()[0])
+        pools[name] = (pk, pv, got)
+    assert all(torch.equal(a, b) for a, b in zip(pools["plain"], pools["wrapper"]))
 
 
 @pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
@@ -280,12 +372,16 @@ def test_paged_forward_matches(dims):
                 np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
 
 
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "fused"])
 @pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
 @pytest.mark.parametrize("eos", [-1, "first"])
-def test_paged_decode_round_tokens_identical(dims, eos):
+def test_paged_decode_round_tokens_identical(dims, eos, use_flash):
     """A round over rows at different lengths, an inactive pad row and (with
     eos) a row whose latch is already set: the same greedy tokens, and the
-    same cache lengths and latches on the device afterwards."""
+    same cache lengths and latches on the device afterwards.  With
+    ``use_flash`` every step takes ``flash_decode_paged`` with its write
+    fused in (on the CPU its plain version), where the inactive row writes
+    nothing instead of the scratch block."""
     jcfg, tcfg = _cfgs(dims)
     jp, tp = _weights(jcfg, seed=5)
     rng = np.random.default_rng(5)
@@ -311,7 +407,7 @@ def test_paged_decode_round_tokens_identical(dims, eos):
         temperature=0.0, top_k=0, top_p=0.0, eos_token=eos_token)
     tt, _, ttok, tnv, tseen = tgen.paged_decode_round(
         tp, tpool, _t32(tables), _t32(token), _t32(n_valid), torch.from_numpy(active),
-        torch.from_numpy(seen), tcfg, span=span, eos_token=eos_token)
+        torch.from_numpy(seen), tcfg, span=span, eos_token=eos_token, use_flash=use_flash)
     assert tt.dtype == torch.int32 and tt.shape == (B, span)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
@@ -340,26 +436,32 @@ def _need_card():
         pytest.skip(str(e))
 
 
-# (B, KV, G, hd, table blocks): the served decode layer (B=32, 64 blocks of
-# 16), one row, and MHA at hd 128
-PAGED_ON_CARD = [(32, 4, 4, 64, 64), (1, 4, 4, 64, 64), (4, 8, 1, 128, 16)]
+# (B, KV, G, hd, table blocks, lengths): the served decode layer (B=32, 64
+# blocks of 16), one row, MHA at hd 128, and one batch whose lengths span
+# the table (the split follows each row's own length)
+PAGED_ON_CARD = [(32, 4, 4, 64, 64, None), (1, 4, 4, 64, 64, None), (4, 8, 1, 128, 16, None),
+                 (5, 4, 4, 64, 64, (1, 17, 300, 560, 1009))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", PAGED_ON_CARD, ids=[str(c) for c in PAGED_ON_CARD])
 def test_flash_decode_paged_kernel_matches_plain_on_card(case):
     """Ragged lengths over a shuffled pool; one launch a call; a repeat and
-    a permutation of the row's blocks give the same bits."""
+    a permutation of the row's blocks give the same bits.  Then the call
+    with the decode step's write fused in (the last row inactive): o of
+    the active rows as the plain fused call's, the pools bit-exact outside
+    the scratch block, a repeat the same bits."""
     _need_card()
-    B, KV, G, hd, nblk = case
+    B, KV, G, hd, nblk, lengths = case
     bs, dev = 16, torch.device("cuda")
-    gen = torch.Generator().manual_seed(sum(case))
+    gen = torch.Generator().manual_seed(sum(case[:5]))
     N = B * nblk + 1
     pk, pv = (torch.randn(N, KV, bs, hd, generator=gen).to(torch.bfloat16).to(dev)
               for _ in range(2))
     q = torch.randn(B, KV, G, hd, generator=gen).to(torch.bfloat16).to(dev)
     tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
-    lens = torch.randint(1, nblk * bs + 1, (B,), generator=gen)
+    lens = (torch.tensor(lengths) if lengths else
+            torch.randint(1, nblk * bs + 1, (B,), generator=gen))
     tables, lens = tables.to(torch.int32).to(dev), lens.to(torch.int32).to(dev)
     before = fd.PAGED_LAUNCHES
     got = fd.flash_decode_paged(q, pk, pv, tables, lens)
@@ -375,20 +477,52 @@ def test_flash_decode_paged_kernel_matches_plain_on_card(case):
     # vs global (plain) maxima, and o to bf16
     assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
     assert torch.equal(got, again) and torch.equal(got, moved)
+    # the fused write: fresh rows from strided head views
+    qkv = torch.randn(B, 1, 3 * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
+    k_new = qkv[..., KV * hd:2 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+    v_new = qkv[..., 2 * KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)
+    valid = torch.arange(B, device=dev) < max(B - 1, 1)
+    pools = [(pk.clone(), pv.clone()) for _ in range(3)]
+    got = fd.flash_decode_paged(q, *pools[0], tables, lens, k_new, v_new, valid)
+    again = fd.flash_decode_paged(q, *pools[1], tables, lens, k_new, v_new, valid)
+    want = fd.flash_decode_paged_reference(q, *pools[2], tables, lens, k_new, v_new, valid)
+    torch.cuda.synchronize()
+    assert fd.PAGED_LAUNCHES == before + 5
+    assert float((got[valid].float() - want[valid].float()).abs().max()) <= 1.6e-2
+    assert all(torch.equal(pools[0][i][1:], pools[2][i][1:]) for i in (0, 1))
+    assert torch.equal(got, again) and all(torch.equal(pools[0][i], pools[1][i]) for i in (0, 1))
 
 
 @pytest.mark.cuda
-def test_kv_write_paged_kernel_is_bit_exact_on_card():
+@pytest.mark.parametrize("W", [1, 128, 512])
+def test_kv_write_paged_kernel_is_bit_exact_on_card(W):
+    """The W = 1 write (a row routed to scratch), and the prefill tick's
+    W = 128 and 512 at ragged widths, where the kernel still runs."""
     _need_card()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
-    pk, pv = (torch.randn(9, 2, 4, 64, generator=gen).to(torch.bfloat16).to(dev)
-              for _ in range(2))
-    k, v = (torch.randn(3, 2, 5, 64, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))
-    tables = torch.tensor([[3, 1, 2], [5, 4, 6], [7, 8, 0]], dtype=torch.int32, device=dev)
-    start = torch.tensor([2, 0, 6], dtype=torch.int32, device=dev)
-    valid = torch.ones(3, 5, dtype=torch.bool, device=dev)
-    valid[1] = False
+    if W == 1:
+        pk, pv = (torch.randn(9, 2, 4, 64, generator=gen).to(torch.bfloat16).to(dev)
+                  for _ in range(2))
+        k, v = (torch.randn(3, 2, 5, 64, generator=gen).to(torch.bfloat16).to(dev)
+                for _ in range(2))
+        tables = torch.tensor([[3, 1, 2], [5, 4, 6], [7, 8, 0]], dtype=torch.int32, device=dev)
+        start = torch.tensor([2, 0, 6], dtype=torch.int32, device=dev)
+        valid = torch.ones(3, 5, dtype=torch.bool, device=dev)
+        valid[1] = False
+    else:
+        B, KV, bs, hd, nblk = 4, 4, 16, 64, 512 // 16 * 2
+        N = B * nblk + 1
+        pk, pv = (torch.randn(N, KV, bs, hd, generator=gen).to(torch.bfloat16).to(dev)
+                  for _ in range(2))
+        k, v = (torch.randn(B, KV, W, hd, generator=gen).to(torch.bfloat16).to(dev)
+                for _ in range(2))
+        tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+        tables = tables.to(torch.int32).to(dev)
+        start = (torch.randint(0, nblk * bs // W, (B,), generator=gen) * W).to(torch.int32)
+        start = start.to(dev)
+        valid = (torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen))
+        valid = valid.to(dev)
     want_k, want_v = kw.kv_write_paged_reference(pk.clone(), pv.clone(), k, v, tables, start,
                                                  valid)
     before = kw.PAGED_LAUNCHES
