@@ -24,7 +24,9 @@ it serves the static lane it measured before that lane's switch:
   3. kernel   fused_mlp_softmax vs fused_mlp_softmax_reference at
               784-256-256-10 and 784-512-512-10 with non-zero biases,
               B in {1, 7, 32, 64, 128, 1024} (32 and 64 are the served
-              stacks)
+              stacks): a repeat the same bits, the cluster the kernel ran
+              the one mlp_plan chose (more than one block at B=1), one
+              row the same bits in every batch whatever the plan
   4. serve    examples/mnist_deployment.json: engine construction (the
               unit probes the kernel), then 1-row ndarray, 64-row tensor,
               32 concurrent 1-row requests and a 1-row latency loop over
@@ -32,8 +34,15 @@ it serves the static lane it measured before that lane's switch:
               /api/v0.1/predictions; launch counts reset just before, read
               just after; then the same request's p50 inside the engine
               and at the dispatch
-  5. times    fused-MLP kernel / plain / library device times and the
-              bound at B=1 and B=1024
+  5. times    fused-MLP kernel / plain / library device times, the bound
+              and an empty launch of the same grid and cluster (the
+              floor) at B=1, 32, 64 and 1024, and B=1 cold (rotating over
+              256 MiB of weight copies); the wrapper's host time with
+              its shape check cached and asked each call; the kernel
+              of commit 30a1d89 in turns with the present one
+              (mlp_turns.py) when its
+              source is at build/dev/fused_mlp_30a1d89.cu or git can
+              write it there
   6. flash    flash_attention kernel vs flash_attention_reference, o and
               lse, causal and not, at six shapes (the served prefill layer
               among them, and S=192: a ragged last 128-row query tile)
@@ -43,17 +52,23 @@ it serves the static lane it measured before that lane's switch:
               hd 64 and 256, B=1 at 1, 17, 309 and 640 positions: clusters
               of 1, 2, 4 and 8 blocks), each a second time for the same
               bits; flash_decode over one cache; kv_write bit-exact and in
-              place from strided head views
+              place from strided head views; the decode step's fused call
+              (k_new/v_new from strided head views) at the served layer
+              with 1, 32 and 63 chunk tokens and an empty chunk: caches
+              bit-exact against kv_write_reference, o within FLASH_O_ATOL
+              of write-then-attend, a repeat the same bits
   8. gen      the flagship TransformerGenerator of bench.py:3342-3344
               (vocab 32768, d_model 1024, 16 heads over 4 kv heads, 12
               layers, d_ff 4096, 64 new tokens, bf16): engine construction
-              (the unit probes the flash, flash-decode and kv-write kernels
-              once each), then a 1-row 512-token ndarray prompt, a 32-row
+              (the unit probes the flash and flash-decode kernels once
+              each, the latter with the write fused in), then a 1-row
+              512-token ndarray prompt, a 32-row
               512-token tensor request, 8 concurrent 1-row requests and a
               1-row 100-token prompt (S % 128 != 0: a plain-attention
               prefill), launch counts reset before and read after: 12 flash
-              launches per eligible prefill, 12 x 63 flash_decode and
-              kv_write launches per dispatch; every served token
+              launches per eligible prefill, 12 x 63 flash_decode launches
+              (each with the step's K/V write) and no kv_write per
+              dispatch; every served token
               teacher-forced through the plain path; prefill logits kernel
               vs plain
   9. stream   POST /api/v0.1/generate/stream with the 1-row 512-token
@@ -64,7 +79,9 @@ it serves the static lane it measured before that lane's switch:
  10. times    flash kernel / plain / SDPA device times and the bound at the
               served prefill shape and at S=2048, 4096 (B=4); flash decode
               (the served layer and the 1-row stream's, each rotating over
-              256 MiB of inputs: cold L2, as the served step reads them) and
+              256 MiB of inputs: cold L2, as the served step reads them),
+              at the served layer also the fused call against the
+              attention alone and kv_write then the attention, in turns;
               kv_write kernel / plain / library times and their bounds;
               TTFT and generate p50 with the kernels and with
               attention="xla" in turns (8 walls each, with quartiles),
@@ -232,6 +249,10 @@ DECODE_SHAPES = [(32, 4, 4, 64, 512, 512, 63, 1), (32, 4, 4, 64, 512, 512, 63, 3
                  (4, 16, 1, 256, 512, 512, 63, 9), (1, 4, 4, 64, 512, 0, 63, 1),
                  (1, 4, 4, 64, 512, 0, 63, 17), (1, 4, 4, 64, 512, 300, 63, 9),
                  (1, 4, 4, 64, 640, 640, 63, 0)]
+# the decode step's fused call (write and attention) at the served layer:
+# the fresh row into the chunk after 0, 31 and 62 tokens, and into main's
+# last slot with an empty chunk
+FUSED_CHUNKS = (1, 32, 63, 0)
 # the served layer at two chunk fills, and the 1-row SSE stream's layer
 DECODE_TIMED = [(32, 4, 4, 64, 512, 512, 63, 32), (32, 4, 4, 64, 512, 512, 63, 63),
                 (1, 4, 4, 64, 512, 512, 63, 17)]
@@ -251,10 +272,18 @@ FLASH_BWD_DESIGN = ("persistent CTAs over items taken longest first in a snake (
                     "m64n64k16 (SS for S and dP, RS with P/dS from registers and the streamed "
                     "tile as an MN-major B); exp2 with the scale folded in; dQ also makes "
                     "dsum; two passes, no atomics")
+MLP_DESIGN = ("the weights split over a thread-block cluster of 1-16 blocks a tile of 8-64 "
+              "batch rows (mlp_plan), every slice in flight at entry by TMA on one mbarrier a "
+              "layer, mma.sync m16n8k16 with A and B swapped, the k-steps in 8 classes summed "
+              "in a fixed tree, activations pushed to the next layer's ranks by st.async "
+              "through distributed shared memory (completing on their barriers), logits and "
+              "softmax on rank 0: one launch")
 DECODE_DESIGN = ("positions split across a thread-block cluster of 1-8 blocks "
                  "(decode_split_plan), a bulk-copy (cp.async.bulk) ring of K/V rows on "
                  "mbarriers, f32 FMAs, slots combined in shared memory and blocks on rank 0 "
-                 "through distributed shared memory: one launch")
+                 "through distributed shared memory; the decode step's K/V write fused in "
+                 "(the ring stops short of the fresh slot, which its lanes fill from the input, "
+                 "the kernel templated on the write): one launch")
 STREAM_CHUNK = 8          # tokens per SSE frame in the stream phase
 STREAM_LONG = (4, 300)    # the in-process stream: rows, new tokens (two grow_merges)
 
@@ -541,6 +570,36 @@ def decode_kernel_phase(torch, fd, kw, dev) -> dict:
             raise AssertionError(f"kv_write at slot {pos} is not the in-place slice assignment")
     log(f"[decode-kernel] kv_write into ({B},{KV},{C},{hd}) bf16 at slots 0, {C // 2}, {C - 1} "
         f"from strided head views: bit-exact, every other slot untouched, in place")
+    # the decode step's call: the step's K/V written in the same launch
+    for n_chunk in FUSED_CHUNKS:
+        q, mk, mv, ck, cv = decode_inputs(torch, DECODE_SHAPES[0], gen, dev)
+        n_main = DECODE_SHAPES[0][5]
+        qkv = torch.randn(B, 1, (4 + 2) * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
+        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+        v = qkv[..., 5 * KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+        ref = [t.clone() for t in (mk, mv, ck, cv)]
+        want = fd.flash_decode_two_tier_reference(q, *ref[:2], n_main, *ref[2:], n_chunk, k, v)
+        before = (fd.LAUNCHES, kw.LAUNCHES)
+        got = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk, k, v)
+        again = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if (fd.LAUNCHES - before[0], kw.LAUNCHES - before[1]) != (2, 0) or err > FLASH_O_ATOL \
+                or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"the fused call at n_chunk={n_chunk}: o err {err:.3e}, "
+                                 f"launches {fd.LAUNCHES - before[0]} / {kw.LAUNCHES - before[1]}")
+        if not all(torch.equal(t, r) for t, r in zip((mk, mv, ck, cv), ref)):
+            raise AssertionError(f"the fused call at n_chunk={n_chunk} left the caches other "
+                                 f"than kv_write_reference does")
+        if not torch.equal(got, again):
+            raise AssertionError(f"the fused call at n_chunk={n_chunk} differs between two calls")
+        max_err = max(max_err, err)
+        where = f"chunk slot {n_chunk - 1}" if n_chunk else f"main slot {n_main - 1}"
+        log(f"[decode-kernel] the fused call (B,KV,G,hd)=({B},{KV},4,{hd}), main {n_main} + "
+            f"{n_chunk} chunk positions, the fresh row into {where} from strided head views: "
+            f"caches bit-exact against kv_write_reference, o max abs err {err:.3e} against "
+            f"write-then-attend (tolerance {FLASH_O_ATOL}), a repeat the same bits, one launch "
+            f"and no kv_write launch a call")
     log(f"[decode-kernel] phase wall {time.perf_counter() - t0:.2f} s")
     return {"flash_decode": max_err, "kv_write": 0.0}
 
@@ -874,17 +933,17 @@ def generation_phases(torch, dev, smi) -> list:
     engine = EngineService(spec, device=dev)
     unit = engine.compiled.units["gen"]
     probes = tuple(n - b for n, b in zip((fa.LAUNCHES, fd.LAUNCHES, kw.LAUNCHES), probes_before))
-    if not unit.use_flash or probes != (1, 1, 1):
-        raise AssertionError(f"the generator did not probe and take the flash, flash-decode and "
-                             f"kv-write kernels (use_flash={unit.use_flash}, probe launches "
-                             f"{probes})")
+    if not unit.use_flash or probes != (1, 1, 0):
+        raise AssertionError(f"the generator did not probe and take the flash and flash-decode "
+                             f"kernels, the decode probe with the write fused in, and no "
+                             f"kv_write (use_flash={unit.use_flash}, probe launches {probes})")
     cfg = unit.cfg
     params = engine.states()["gen"]["params"]
     n_params = sum(t.numel() for layer in params.values()
                    for t in (layer.values() if isinstance(layer, dict) else [layer]))
     log(f"[gen] engine built in {time.perf_counter() - t0:.2f} s: {n_params / 1e6:.1f} M "
-        f"params ({cfg.dtype}), the unit probed the flash, flash-decode and kv-write kernels "
-        f"once each")
+        f"params ({cfg.dtype}), the unit probed the flash and flash-decode kernels once each "
+        f"(the decode probe with the step's write fused in), kv_write not at all")
     dispatches = []
     batched = engine._batched_predict_sync
 
@@ -940,9 +999,10 @@ def generation_phases(torch, dev, smi) -> list:
     if mlp_launches != 0:
         raise AssertionError(f"the generation run launched the fused-MLP kernel {mlp_launches} times")
     want_decode = cfg.n_layers * (new - 1) * n_dispatch
-    if decode_launches != {"flash_decode": want_decode, "kv_write": want_decode}:
+    if decode_launches != {"flash_decode": want_decode, "kv_write": 0}:
         raise AssertionError(f"decode launches {decode_launches}, not {cfg.n_layers} x {new - 1} "
-                             f"per dispatch over {n_dispatch} dispatches")
+                             f"flash_decode per dispatch over {n_dispatch} dispatches and no "
+                             f"kv_write (the step's write is fused into flash_decode)")
     stats = json.loads(raw_stats)
     if st_stats != 200 or stats["kernels"]["flash_attention"]["launches"] != launches_after_100 \
             or {k: stats["kernels"][k]["launches"] for k in decode_launches} != decode_launches:
@@ -950,9 +1010,9 @@ def generation_phases(torch, dev, smi) -> list:
     log(f"[gen] dispatches {dispatches}: {eligible} kernel-eligible prefills; flash launches "
         f"{launches} = 12 x {eligible}; the 100-token prompt launched none "
         f"({launches_after_100} after it); fused-MLP launches 0")
-    log(f"[gen] decode: flash_decode {decode_launches['flash_decode']} and kv_write "
-        f"{decode_launches['kv_write']} launches = {cfg.n_layers} x {new - 1} x "
-        f"{n_dispatch} dispatches, the 100-token prompt included; /stats agrees")
+    log(f"[gen] decode: flash_decode {decode_launches['flash_decode']} launches = "
+        f"{cfg.n_layers} x {new - 1} x {n_dispatch} dispatches, the 100-token prompt included, "
+        f"each with the step's K/V write; kv_write {decode_launches['kv_write']}; /stats agrees")
 
     # correctness: every served token teacher-forced through the plain path
     y1 = check_tokens(*s1, p1, "ndarray")
@@ -1123,6 +1183,9 @@ def generation_phases(torch, dev, smi) -> list:
             "at": decode_rows[name],
         })
     rows[1]["design"] = DECODE_DESIGN
+    rows[2]["folded_into"] = ("flash_decode: every decode step's K/V write is done in the "
+                              "flash_decode launch that attends over it (flash_decode.cu); "
+                              "kv_write itself is held and timed here, and launched on no path")
     return rows
 
 
@@ -1193,6 +1256,24 @@ def decode_times(torch, fd, kw, dev, smi, gen) -> dict:
                                                                         enable_gqa=True)), 200)
         del dense
         b_ms, b_by = decode_bound(shape)
+        # the decode step: its K/V write fused in (the fresh row bound for
+        # chunk slot n_chunk - 1), against the attention alone and the
+        # write launched apart (kv_write, then the attention), in turns
+        kn = [torch.randn(B, KV, 1, hd, generator=gen).to(torch.bfloat16).to(dev)
+              for _ in range(2)]
+        fused = rotating(sets, lambda q, mk, mv, ck, cv: fd.flash_decode_two_tier(
+            q, mk, mv, n_main, ck, cv, n_chunk, *kn))
+        apart = rotating(sets, lambda q, mk, mv, ck, cv: (
+            kw.kv_write(ck, cv, *kn, n_chunk - 1),
+            fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk)))
+        alone = rotating(sets, lambda q, mk, mv, ck, cv: fd.flash_decode_two_tier(
+            q, mk, mv, n_main, ck, cv, n_chunk))
+        turns = {"fused_ms": [], "attention_ms": [], "write_then_attend_ms": []}
+        for name, fn in (("attention_ms", alone), ("fused_ms", fused),
+                         ("write_then_attend_ms", apart), ("write_then_attend_ms", apart),
+                         ("fused_ms", fused), ("attention_ms", alone)):
+            turns[name].append(device_ms(torch, fn, 200))
+        fb_ms = b_ms + 2 * 2 * B * KV * hd * 2 / HBM_BYTES_PER_S * 1e3  # + the row read, written
         q, mk, mv, ck, cv = sets[0]
         h_us = host_us_per_call(torch, lambda: fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv,
                                                                         n_chunk))
@@ -1201,11 +1282,15 @@ def decode_times(torch, fd, kw, dev, smi, gen) -> dict:
         rows["flash_decode"].append({"shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
                                      "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
                                      "cluster": split, "host_us_per_call": h_us,
-                                     "input_sets": len(sets)})
+                                     "input_sets": len(sets), "fused_bound_ms": fb_ms,
+                                     "turns": turns})
         log(f"[times] flash decode (B,KV,G,hd,main,n_main,chunk,n_chunk)={shape}, cold L2 "
             f"({len(sets)} input sets): kernel {k_ms:.5f} ms (cluster of {split}), plain "
             f"{p_ms:.5f} ms, SDPA over {n_main + n_chunk} dense slots {l_ms:.5f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}); wrapper host {h_us:.3f} us per call on {smi}")
+        log(f"[times]   the decode step's call, in turns: attention alone "
+            f"{turns['attention_ms']} ms, the write fused in {turns['fused_ms']} ms (bound "
+            f"{fb_ms:.6f}), kv_write then the attention {turns['write_then_attend_ms']} ms")
         del sets, q, mk, mv, ck, cv
     B, KV, _, hd, _, _, C, _ = DECODE_TIMED[0]
     ck, cv = (torch.randn(B, KV, C, hd, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))
@@ -1266,7 +1351,7 @@ def stream_phase(torch, dev, engine, params, cfg, prompt, smi) -> dict:
         raise AssertionError(f"streamed tokens differ from an in-process generate at "
                              f"{int((streamed != local).sum())} positions")
     want = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (new - 1),
-            "kv_write": cfg.n_layers * (new - 1)}
+            "kv_write": 0}
     if launches != want:
         raise AssertionError(f"the REST stream launched {launches}, not {want}")
     # after the first frame (the prefill and STREAM_CHUNK - 1 steps) come
@@ -1296,7 +1381,7 @@ def stream_phase(torch, dev, engine, params, cfg, prompt, smi) -> dict:
     toks = np.concatenate(toks, axis=1).astype(np.int64)
     if toks.shape != (rows, n_tok) or len(merges) != 2:
         raise AssertionError(f"the long stream gave {toks.shape} with merges {merges}")
-    if long_launches != (cfg.n_layers * (n_tok - 1),) * 2:
+    if long_launches != (cfg.n_layers * (n_tok - 1), 0):
         raise AssertionError(f"the long stream launched {long_launches}")
     gap, exact = teacher_forced(torch, lm_apply, params, cfg, p4, toks, dev)
     long_step_ms = long_s * 1e3 / (n_tok - 1)
@@ -2140,16 +2225,27 @@ def mnist_phases(torch, dev, smi) -> dict:
     from seldon_core_tpu_torch.ops import fused_mlp
     from seldon_core_tpu_torch.runtime.engine import EngineService
 
+    import mlp_turns  # the earlier design, in turns (beside this script)
+
     # -- 3. kernel vs plain --------------------------------------------------
     gen = torch.Generator().manual_seed(SEED)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err = 0.0
     shapes = {}
     for hidden in (256, 512):
         params = random_params(torch, mlp_init, hidden, gen, dev)
         shapes[hidden] = params
+        dims = (784, hidden, hidden, 10)
+        row = torch.rand(1, 784, generator=gen).to(dev)
+        first, clusters = None, set()
         for batch in (1, 7, 32, 64, 128, 1024):
             x = torch.rand(batch, 784, generator=gen).to(dev)
-            got = fused_mlp.fused_mlp_softmax(params, x)
+            x[0] = row[0]  # one row at the same place in every batch
+            plan = fused_mlp.mlp_plan(batch, dims, sm_count)
+            launched = torch.zeros(3, dtype=torch.int32, device=dev)
+            before = fused_mlp.LAUNCHES
+            got = fused_mlp._launch(fused_mlp._layer_params(params), dims, x, plan, launched)
+            again = fused_mlp.fused_mlp_softmax(params, x)
             want = fused_mlp.fused_mlp_softmax_reference(params, x)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -2157,9 +2253,27 @@ def mnist_phases(torch, dev, smi) -> dict:
                 raise AssertionError(
                     f"kernel vs plain at 784-{hidden}-{hidden}-10 B={batch}: "
                     f"max abs err {err:.3e} > {KERNEL_ATOL}")
+            if not torch.equal(got, again) or fused_mlp.LAUNCHES != before + 2:
+                raise AssertionError(f"a repeat at 784-{hidden}-{hidden}-10 B={batch} gave "
+                                     f"other bits, or the calls did not launch twice")
+            BM, C = plan
+            if launched.tolist() != [C, C * -(-batch // BM), BM]:
+                raise AssertionError(f"B={batch}: the plan chose (BM, C) = {plan}, the kernel "
+                                     f"ran (cluster, blocks, BM) = {launched.tolist()}")
+            first = got[0] if first is None else first
+            row_err = float((got[0] - first).abs().max())
+            if row_err > KERNEL_ATOL or not torch.equal(got[0], first):
+                raise AssertionError(f"the common row at B={batch} (plan {plan}) moved by "
+                                     f"{row_err:.3e}: the plan changed its bits")
+            clusters.add(C)
             max_err = max(max_err, err)
-            log(f"[kernel] 784-{hidden}-{hidden}-10 B={batch:5d}: max abs err "
-                f"{err:.3e} (tolerance {KERNEL_ATOL})")
+            log(f"[kernel] 784-{hidden}-{hidden}-10 B={batch:5d}: max abs err {err:.3e} "
+                f"(tolerance {KERNEL_ATOL}); a repeat the same bits; plan BM={BM} C={C}, "
+                f"launched clusters of {launched[0]} blocks, {launched[1]} blocks; the "
+                f"common row the same bits as at B=1")
+        if len(clusters) < 2 or fused_mlp.mlp_plan(1, dims, sm_count)[1] <= 1:
+            raise AssertionError(f"the plans took clusters of {sorted(clusters)}: B=1 must "
+                                 f"take more than one block, and the batches more than one C")
 
     # -- 4. serve ------------------------------------------------------------
     doc = json.loads((ROOT / "examples" / "mnist_deployment.json").read_text())
@@ -2262,19 +2376,49 @@ def mnist_phases(torch, dev, smi) -> dict:
 
     # -- 5. times ------------------------------------------------------------
     params = shapes[256]
-    dims = [784, 256, 256, 10]
+    dims = (784, 256, 256, 10)
     timings = {}
-    for batch, iters in ((1, 500), (1024, 200)):
+    for batch, iters in ((1, 500), (32, 500), (64, 500), (1024, 200)):
         x = torch.rand(batch, 784, generator=gen).to(dev)
+        plan = fused_mlp.mlp_plan(batch, dims, sm_count)
         k_ms = device_ms(torch, lambda: fused_mlp.fused_mlp_softmax(params, x), iters)
+        f_ms = device_ms(torch, lambda: fused_mlp._empty_launch(dims, batch, plan, dev), iters)
         p_ms = device_ms(torch, lambda: fused_mlp.fused_mlp_softmax_reference(params, x), iters)
         l_ms = device_ms(torch, lambda: torch.softmax(mlp_apply(params, x), dim=-1), iters)
         b_ms, b_by = mlp_bound(dims, batch)
         timings[batch] = {"B": batch, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                          "bound_ms": b_ms, "bound_by": b_by}
-        log(f"[times] 784-256-256-10 B={batch}: kernel {k_ms:.5f} ms, plain "
-            f"{p_ms:.5f} ms, library {l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}) "
-            f"on {smi}")
+                          "bound_ms": b_ms, "bound_by": b_by, "floor_ms": f_ms,
+                          "plan": {"BM": plan[0], "C": plan[1]}}
+        log(f"[times] 784-256-256-10 B={batch}: kernel {k_ms:.5f} ms (BM={plan[0]}, a cluster "
+            f"of {plan[1]}), an empty launch of that grid and cluster {f_ms:.5f} ms, plain "
+            f"{p_ms:.5f} ms, library {l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}) on {smi}")
+    # B=1 with the weights cold in L2, as a request finds them after other
+    # work: rotating over DECODE_COLD_BYTES of weight copies
+    per_set = sum(t.numel() * t.element_size() for t in params.values())
+    x = torch.rand(1, 784, generator=gen).to(dev)
+    sets = [({k: v.clone() for k, v in params.items()}, x)
+            for _ in range(-(-DECODE_COLD_BYTES // per_set))]
+    cold_ms = device_ms(torch, rotating(sets, fused_mlp.fused_mlp_softmax), 2 * len(sets))
+    timings[1]["cold_ms"] = cold_ms
+    log(f"[times] 784-256-256-10 B=1, cold L2 ({len(sets)} weight sets, "
+        f"{len(sets) * per_set / 2**20:.0f} MiB): kernel {cold_ms:.5f} ms on {smi}")
+    del sets
+    # the shape check asked once per widths (the wrapper's cache) against
+    # asking the library at every call, as the wrapper did before
+    cached_us = host_us_per_call(torch, lambda: fused_mlp.fused_mlp_softmax(params, x))
+    asked_us = host_us_per_call(torch, lambda: (fused_mlp._smem_bytes(dims, 16, 8),
+                                                fused_mlp.fused_mlp_softmax(params, x)))
+    served["wrapper_host_us"] = {"shape_check_cached": cached_us,
+                                 "shape_check_asked_each_call": asked_us}
+    log(f"[times] fused_mlp_softmax wrapper host per B=1 call: {cached_us:.3f} us with the "
+        f"shape check cached, {asked_us:.3f} us asking the library each call")
+    source = mlp_turns.earlier_source()
+    if source is None:
+        log(f"[times] the earlier design ({mlp_turns.EARLIER_COMMIT}) is not run: its source "
+            f"is not at {mlp_turns.EARLIER} and git cannot write it (see mlp_turns.py)")
+        earlier = None
+    else:
+        earlier = mlp_turns.turns(torch, dev, smi, source, log=log)
 
     top = timings[1]
     row = {
@@ -2289,9 +2433,13 @@ def mnist_phases(torch, dev, smi) -> dict:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
+        "floor_ms": top["floor_ms"],
+        "design": MLP_DESIGN,
         "shape": "784-256-256-10",
-        "at": [timings[1], timings[1024]],
+        "at": [timings[b] for b in sorted(timings)],
+        "earlier_design_turns": earlier,
         "served_p50_ms": p50_ms,
+        "served": served,
     }
     return row
 
@@ -2338,17 +2486,30 @@ def main() -> int:
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build]   {line.strip()}")
-    smem, why = fused_mlp._smem_bytes([784, 256, 256, 10])
-    if why is not None or smem != 50688 + 16896 + 33792 + 8192 + 2048:
+    # at the B=1 plan (a cluster of 16, 8 rows a block): the two activation
+    # buffers, the rank's weight slices, the last layer whole, three layers'
+    # biases, the 8 warps' partial sums, the logits and three mbarriers
+    smem, why = fused_mlp._smem_bytes([784, 256, 256, 10], 16, 8)
+    if why is not None or smem != (12672 + 4224 + 25088 + 8192 + 5120 + 3 * 128 + 4096 + 384
+                                   + 128):
         raise AssertionError(f"shape check at 784-256-256-10: {smem} bytes, {why!r}")
+    for hidden in (256, 512):  # mlp_plan reads the Python statement of the layout
+        dims = [784, hidden, hidden, 10]
+        for C in (1, 2, 4, 8, 16):
+            for BM in (8, 16, 32, 64):
+                n, why = fused_mlp._smem_bytes(dims, C, BM)
+                if fused_mlp._layout_bytes(dims, C, BM) != (n if why is None else None):
+                    raise AssertionError(f"the layout's Python statement differs from the "
+                                         f"source at {dims}, C={C}, BM={BM}: {n}, {why!r}")
     for dims, dtype, match in (([4096, 4096, 4096, 10], torch.bfloat16, "shared memory"),
                                ([24, 64, 10], torch.bfloat16, "multiple of 16"),
                                ([16] * 10 + [10], torch.bfloat16, "at most 8")):
         why = fused_mlp.kernel_shape_error(dims, [dtype] * (2 * len(dims) - 2))
         if why is None or match not in why:
             raise AssertionError(f"shape check let {dims} through: {why!r}")
-    log(f"[build] shape check: 784-256-256-10 takes {smem} bytes of shared memory; "
-        f"4096-wide, 24-wide and 10-layer MLPs refused")
+    log(f"[build] shape check: 784-256-256-10 takes {smem} bytes of shared memory at a "
+        f"cluster of 16 and 8 rows a block (ops/fused_mlp.py's statement of the layout agrees "
+        f"at every plan of both served stacks); 4096-wide, 24-wide and 10-layer MLPs refused")
     flash_build_checks(torch, flash_attention)
     decode_build_checks(torch, flash_decode)
     paged_build_checks(torch, flash_decode)

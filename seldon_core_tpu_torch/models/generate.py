@@ -12,11 +12,11 @@ token rows out, over the same REST data plane as every other model.  Its
   * decode: the main cache is read-only, each new token's K/V go to a
     chunk buffer, and attention softmaxes over both tiers at once
     (``_attend_two_tier``), as the JAX package does.  With ``use_flash``
-    each layer of each step writes its slot with the ``kv_write`` kernel
-    and attends with the ``flash_decode_two_tier`` kernel
-    (``ops/csrc/kv_write.cu``, ``ops/csrc/flash_decode.cu``), which read
-    the bf16 caches at their stored size; without it, their plain
-    versions.  The choice is static; a launch failure is never caught;
+    each layer of each step writes its slot and attends in one launch of
+    the ``flash_decode_two_tier`` kernel (``ops/csrc/flash_decode.cu``,
+    the step's K/V write fused in), which reads the bf16 caches at their
+    stored size; without it, the slot's slice assignment and the plain
+    attention.  The choice is static; a launch failure is never caught;
   * generations longer than ``GEN_CHUNK_CAP`` fold each full chunk into
     main (``merge_chunk``) between chunks.
 
@@ -108,7 +108,6 @@ from seldon_core_tpu_torch.ops.flash_decode import (
     paged_view,
 )
 from seldon_core_tpu_torch.ops.kv_write import (
-    kv_write,
     kv_write_paged,
     kv_write_paged_reference,
     kv_write_reference,
@@ -162,37 +161,39 @@ def _grouped(q, kv_heads: int):
 
 
 def _attend_two_tier(q, main_layer, chunk_layer, n_main: int, n_chunk: int,
-                     use_flash: bool = False):
+                     use_flash: bool = False, k_new=None, v_new=None):
     """q [B,H,1,hd] over main[:n_main] + chunk[:n_chunk]: one softmax over
-    both tiers (``_attend_two_tier``'s arithmetic).  ``use_flash`` takes
-    ``flash_decode_two_tier`` (the kernel for CUDA tensors), else its plain
-    version; main is masked only where n_main is short of its length."""
+    both tiers (``_attend_two_tier``'s arithmetic); main is masked only
+    where n_main is short of its length.  With ``k_new``/``v_new`` [B, KV,
+    1, hd] the step's K/V first go into the slot of position n_main +
+    n_chunk - 1 (the chunk's last, or main's when the chunk is empty).
+    ``use_flash`` takes ``flash_decode_two_tier`` (the kernel for CUDA
+    tensors: one launch, the write fused in), else its plain version (the
+    slot's slice assignment, then the plain attention)."""
     attend = flash_decode_two_tier if use_flash else flash_decode_two_tier_reference
     out = attend(_grouped(q, main_layer["k"].shape[1]), main_layer["k"], main_layer["v"],
-                 n_main, chunk_layer["k"], chunk_layer["v"], n_chunk)
+                 n_main, chunk_layer["k"], chunk_layer["v"], n_chunk, k_new, v_new)
     return out.reshape(q.shape)
 
 
-def _attend_cached(q, cache_layer, n_valid: int, use_flash: bool = False):
+def _attend_cached(q, cache_layer, n_valid: int, use_flash: bool = False, k_new=None,
+                   v_new=None):
     """q [B,H,1,hd] against the cache layer; positions >= n_valid masked.
+    With ``k_new``/``v_new`` the step's K/V first go into slot n_valid - 1.
     ``use_flash`` takes ``flash_decode_two_tier`` over cache[:n_valid] and
-    an empty chunk (the kernel for CUDA tensors, at any cache length: the
-    L % 128 rule is ``flash_decode``'s, for JAX parity only), else the
-    plain version (``_attend_cached``'s arithmetic)."""
+    an empty chunk, the write fused in (the kernel for CUDA tensors, at any
+    cache length: the L % 128 rule is ``flash_decode``'s, for JAX parity
+    only), else the slot's slice assignment and the plain version
+    (``_attend_cached``'s arithmetic)."""
     qg = _grouped(q, cache_layer["k"].shape[1])
     k, v = cache_layer["k"], cache_layer["v"]
     if use_flash:
-        out = flash_decode_two_tier(qg, k, v, n_valid, k[:, :, :0], v[:, :, :0], 0)
+        out = flash_decode_two_tier(qg, k, v, n_valid, k[:, :, :0], v[:, :, :0], 0, k_new, v_new)
     else:
+        if k_new is not None:
+            kv_write_reference(k, v, k_new, v_new, n_valid - 1)
         out = flash_decode_reference(qg, k, v, n_valid)
     return out.reshape(q.shape)
-
-
-def _write_slot(layer, k, v, pos: int, use_flash: bool) -> None:
-    """One step's K/V [B, KV, 1, hd] into slot ``pos`` of a cache layer, in
-    place: the ``kv_write`` kernel (for CUDA tensors) when ``use_flash``,
-    else slice assignment."""
-    (kv_write if use_flash else kv_write_reference)(layer["k"], layer["v"], k, v, pos)
 
 
 def _qkv(lp, x, cfg: LMConfig, start):
@@ -221,12 +222,12 @@ def _finish_block(lp, x, a):
 def _block_two_tier(lp, x, main_layer, chunk_layer, n_main: int, n_chunk: int,
                     cfg: LMConfig, use_flash: bool = False):
     """One decoder block for one cached step: this token's K/V are written
-    in place into chunk slot ``n_chunk`` (main is never touched), then it
+    in place into chunk slot ``n_chunk`` (main is never touched), and it
     attends over main[:n_main] + chunk[:n_chunk+1].  Its global position
-    is n_main + n_chunk.  ``use_flash`` takes the decode kernels."""
+    is n_main + n_chunk.  ``use_flash`` takes the decode kernel, write and
+    attention in one launch."""
     q, k, v = _qkv(lp, x, cfg, n_main + n_chunk)
-    _write_slot(chunk_layer, k, v, n_chunk, use_flash)
-    a = _attend_two_tier(q, main_layer, chunk_layer, n_main, n_chunk + 1, use_flash)
+    a = _attend_two_tier(q, main_layer, chunk_layer, n_main, n_chunk + 1, use_flash, k, v)
     return _finish_block(lp, x, a), chunk_layer
 
 
@@ -234,8 +235,9 @@ def decode_step_two_tier(params, token, main, chunk, n_main: int, n_chunk: int,
                          cfg: LMConfig, use_flash: bool = False):
     """One cached step against (read-only main[:n_main], growing chunk).
     token [B] -> (logits [B, V] f32, chunk, written in place).  With
-    ``use_flash`` each layer runs ``kv_write`` and
-    ``flash_decode_two_tier``, else their plain versions."""
+    ``use_flash`` each layer makes one ``flash_decode_two_tier`` launch
+    (write and attention), else the slot's slice assignment and the plain
+    attention."""
     x = params["embed"][token.long()][:, None, :]
     for i in range(cfg.n_layers):
         x, chunk[f"l{i}"] = _block_two_tier(
@@ -261,8 +263,9 @@ def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
     """One decoder block writing K/V into the cache at ``start`` (in place)
     and attending: S > 1 is a prefill from position 0, causal over the
     fresh K/V (the flash forward when ``use_flash`` and the shape contract
-    holds); S == 1 is a cached step over cache[:n_valid] (``kv_write`` and
-    ``flash_decode_two_tier`` when ``use_flash``)."""
+    holds); S == 1 is a cached step over cache[:n_valid], whose K/V go to
+    slot ``start`` = n_valid - 1 (one ``flash_decode_two_tier`` launch, the
+    write fused in, when ``use_flash``)."""
     S = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, start)
     if S > 1:
@@ -270,8 +273,7 @@ def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
         cache_layer["v"][:, :, start:start + S] = v
         a = _attention(q, k, v, causal=True, use_flash=use_flash)
     else:
-        _write_slot(cache_layer, k, v, start, use_flash)
-        a = _attend_cached(q, cache_layer, n_valid, use_flash)
+        a = _attend_cached(q, cache_layer, n_valid, use_flash, k, v)
     return _finish_block(lp, x, a), cache_layer
 
 

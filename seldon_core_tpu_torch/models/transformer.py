@@ -29,10 +29,10 @@ back.  ``resolve_flash`` decides ``use_flash`` once, at construction:
                  kernel refuses the dtype or head dim          flash version
   "xla"          plain attention                               plain attention
 
-A generator asks with ``decode=True``: then the decode lane's kernels
-(``ops/flash_decode.py``, ``ops/kv_write.py``) are asked and probed as
-well, and one refusal of either sends prefill and decode to the plain
-path ("auto", logged) or raises ("flash").  The decode kernel takes every
+A generator asks with ``decode=True``: then the decode lane's kernel
+(``ops/flash_decode.py``, whose launch also writes the step's K/V) is
+asked and probed as well, and a refusal sends prefill and decode to the
+plain path ("auto", logged) or raises ("flash").  The decode kernel takes every
 config the forward takes (bf16, head dim a multiple of 16 up to 256), so
 in practice the forward decides.
 
@@ -84,7 +84,6 @@ from seldon_core_tpu_torch.ops.flash_attention import (
     shape_contract_error,
 )
 from seldon_core_tpu_torch.ops.flash_decode import decode_kernel_shape_error, probe_decode_kernel
-from seldon_core_tpu_torch.ops.kv_write import probe_kv_write
 from seldon_core_tpu_torch.ops.quant import lm_matmul
 from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
 from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
@@ -330,9 +329,9 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
     is built and launched once here (``probe_kernel``), so a missing nvcc
     or a failing build raises before an engine reports ready.  With
     ``decode`` (a generator) the decode lane's kernels are asked and
-    probed too (``decode_kernel_shape_error``, ``probe_decode_kernel``,
-    ``probe_kv_write``), and ``use_flash`` also sends every cached step
-    through them."""
+    probed too (``decode_kernel_shape_error``, ``probe_decode_kernel``, with
+    the step's K/V write fused in, as every cached step calls it), and
+    ``use_flash`` also sends every cached step through it."""
     if attention == "xla":
         return False
     if attention not in ("auto", "flash"):
@@ -354,7 +353,6 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
     probe_kernel(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
     if decode:
         probe_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, device)
-        probe_kv_write(cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
     return True
 
 

@@ -66,6 +66,21 @@
 //     order: no scratch tensor, no atomics, and still one launch per call.
 //     A repeat gives the same bits.
 //
+// The fused write.  With k_new/v_new ([B,KV,1,D]) the launch also does the
+// decode step's K/V write (what kv_write.cu did in a launch of its own
+// before every attention): the fresh row belongs at the last position, n -
+// 1 over both segments (the chunk's last slot when n1 > 0, else main's),
+// and is attended from the input, not read back.  The block whose share
+// holds n - 1 (the last rank with a share, for every row tile) stops its
+// bulk copies short of that slot, and in its last ring group the lane
+// group that walks that slot stores the input row there, each lane its own
+// 16-byte chunk, which it alone reads back: the walk itself is unchanged.
+// Of those blocks the one of row tile 0 alone stores the row into the
+// cache, with plain stores: no copy of this launch reads that slot, so the
+// generic-proxy store never meets an async-proxy read of it.  The split
+// still depends only on n, so a stream's merge of its chunk into main
+// keeps its bits.
+//
 // The continuous lane's block pool has a kernel of its own
 // (flash_decode_paged.cu), with both products on the tensor cores.
 //
@@ -111,6 +126,9 @@ struct Params {
   const __nv_bfloat16* q;
   long long qs[3];         // element strides of b, kv head, group row (d is 1)
   Segment seg[2];
+  const __nv_bfloat16* k_new;  // [B, KV, 1, D] or null: no fused write
+  const __nv_bfloat16* v_new;
+  long long kns[2], vns[2];    // element strides of b and kv head of k_new, v_new
   __nv_bfloat16* o;        // [B, KV, G, D] contiguous
   int KV, G, D;
   int lpr;                 // lanes per cache row
@@ -256,7 +274,9 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src
         : "memory");
 }
 
-template <int GT>
+// FRESH: the launch takes the decode step's K/V write (k_new/v_new set);
+// without it the kernel is the plain attention, with none of the write's code
+template <int GT, bool FRESH>
 __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) {
   constexpr int U = positions_per_stage(GT);
   extern __shared__ __align__(16) float smem[];
@@ -289,11 +309,19 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   // this block's share of the positions, by global index over both segments
   const int p0 = rank * p.span;
   const int cnt = max(0, min(n, p0 + p.span) - p0);
+  // the block whose share ends at position n - 1 takes that row from
+  // k_new/v_new when the write is fused in
+  const bool holds_fresh = FRESH && cnt > 0 && p0 + cnt == n;
+  const int copied = holds_fresh ? cnt - 1 : cnt;  // positions the ring copies
   const int T = slots * U;                       // positions per ring stage
   const int n_groups = (cnt + T - 1) / T;        // block-uniform
   const Layout lay = layout_for(p.D, GT);
   const int row_bytes = p.D * 2;
   const int stage_bytes = 2 * T * row_bytes;     // K rows, then V rows
+  // where the fresh row sits in the ring: group, step and slot (-1: nowhere)
+  const int fresh_grp = holds_fresh ? (cnt - 1) / T : -1;
+  const int fresh_u = holds_fresh ? ((cnt - 1) % T) / slots : 0;
+  const int fresh_slot = holds_fresh ? (cnt - 1) % slots : -1;
   const uint32_t ring = smem_u32(smem);
   const uint32_t bar0 = smem_u32(smem + lay.bars);
   // thread 0 loads ring group grp: local positions grp*T .. (in at most two
@@ -301,10 +329,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   auto fill = [&](int grp) {
     if (grp >= n_groups) return;
     const int lo = grp * T;
-    const int hi = min(cnt, lo + T);
+    const int hi = min(copied, lo + T);  // short of the stale slot under a fused write
     const uint32_t kdst = ring + (grp % NSTAGE) * stage_bytes;
     const uint32_t bar = bar0 + 8 * (grp % NSTAGE);
-    mbar_expect_tx(bar, 2 * (hi - lo) * row_bytes);
+    mbar_expect_tx(bar, 2 * max(hi - lo, 0) * row_bytes);
     for (int i = lo; i < hi;) {
       const int j = p0 + i;
       const bool in0 = j < n0;
@@ -319,6 +347,34 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
       i = end;
     }
   };
+  // the fresh row: the lane group that walks its slot loads it a group
+  // ahead (its latency hidden behind the ring) and stores it into the
+  // ring's empty slot; in row tile 0 the same lanes write it into its cache
+  // slot (segment 1's last when it has positions, else segment 0's) as the
+  // block leaves, after its last cluster barrier, whose release would
+  // otherwise wait for the stores to reach memory
+  const bool fresh_lanes = holds_fresh && slot == fresh_slot && active;
+  uint4 fk = make_uint4(0u, 0u, 0u, 0u), fv = fk;
+  auto load_fresh = [&]() {
+    if (!fresh_lanes) return;
+    fk = *reinterpret_cast<const uint4*>(p.k_new + b * p.kns[0] + kvh * p.kns[1] + d0);
+    fv = *reinterpret_cast<const uint4*>(p.v_new + b * p.vns[0] + kvh * p.vns[1] + d0);
+  };
+  auto write_fresh = [&]() {
+    if (!fresh_lanes || blockIdx.y != 0) return;
+    load_fresh();
+    const bool w1 = s1.n > 0;  // the segment written
+    const long long j = (w1 ? s1.n : n0) - 1;
+    __nv_bfloat16* kd = const_cast<__nv_bfloat16*>(w1 ? s1.k : s0.k) +
+                        b * (w1 ? s1.ks[0] : s0.ks[0]) + kvh * (w1 ? s1.ks[1] : s0.ks[1]) +
+                        j * (w1 ? s1.ks[2] : s0.ks[2]);
+    __nv_bfloat16* vd = const_cast<__nv_bfloat16*>(w1 ? s1.v : s0.v) +
+                        b * (w1 ? s1.vs[0] : s0.vs[0]) + kvh * (w1 ? s1.vs[1] : s0.vs[1]) +
+                        j * (w1 ? s1.vs[2] : s0.vs[2]);
+    *reinterpret_cast<uint4*>(kd + d0) = fk;
+    *reinterpret_cast<uint4*>(vd + d0) = fv;
+  };
+  if (fresh_grp == 0) load_fresh();
   float qr[GT][8];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
@@ -355,6 +411,14 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     // the slot's u-th position of the group is row u*slots + slot of the stage
     const unsigned char* stage =
         smem_bytes + (grp % NSTAGE) * stage_bytes + slot * row_bytes + c * 16;
+    if (grp == fresh_grp && fresh_lanes) {
+      // each lane stores its own 16-byte chunk, which it alone reads back
+      // (the last group: no copy refills this stage)
+      *reinterpret_cast<uint4*>(const_cast<unsigned char*>(stage) + fresh_u * slots * row_bytes) =
+          fk;
+      *reinterpret_cast<uint4*>(const_cast<unsigned char*>(stage) +
+                                (T + fresh_u * slots) * row_bytes) = fv;
+    }
     bool ok[U];
     float s[U][GT];
 #pragma unroll
@@ -426,6 +490,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
         for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pb[g][u], vf[e], acc[g][e]);
       }
     }
+    if (grp + 1 == fresh_grp) load_fresh();
     __syncthreads();  // every lane is done with this stage: it may be refilled
   }
   // the last group's barrier passed: the scratch reuses the ring
@@ -496,11 +561,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     else
       mine[2 * GT + g * HDP + d] = O;
   }
-  if (p.split == 1) return;
+  if (p.split == 1) {
+    write_fresh();
+    return;
+  }
 
   // rank 0 combines the cluster's blocks in rank order, from its own shared
   // memory once the cluster barrier has made every rank's stores visible
   cluster.sync();
+  write_fresh();
   if (rank != 0) return;
   if (threadIdx.x < gn) {  // row g's rank weights and normaliser, in rank order
     const int g = threadIdx.x;
@@ -526,8 +595,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   }
 }
 
-// per group tile (1, 2, 4, 8) and device: the shared-memory opt-in is set
-std::atomic<bool> g_smem_set[4][MAX_DEVICES];
+// per group tile (1, 2, 4, 8), with or without the fused write, and device:
+// the shared-memory opt-in is set
+std::atomic<bool> g_smem_set[8][MAX_DEVICES];
 
 }  // namespace
 
@@ -544,19 +614,25 @@ int flash_decode_smem_bytes(int head_dim, int group, int dtype_code, char* why, 
 // cudaGetLastError() after the launch: 0 means launched.  q [B,KV,G,D]
 // bf16 with unit stride along D; the segments k0/v0 (n0 positions) and
 // k1/v1 (n1 positions) [B,KV,*,D] bf16 with unit stride along D and
-// 16-byte aligned rows; strides[15] = (b, kv head, row) element strides of
-// q, k0, v0, k1, v1; o [B,KV,G,D] bf16 contiguous.  n0 + n1 >= 1.  The
+// 16-byte aligned rows; strides[19] = (b, kv head, row) element strides of
+// q, k0, v0, k1, v1, then (b, kv head) of k_new and v_new; o [B,KV,G,D]
+// bf16 contiguous.  n0 + n1 >= 1.  k_new/v_new [B,KV,1,D] bf16 with 16-byte
+// aligned rows, or null: with them the launch writes the fresh row into
+// position n0 + n1 - 1 (chunk slot n1 - 1 when n1 > 0, else main slot n0 -
+// 1) and attends with it (see the note at the top).  The
 // positions of each (b, kv head, row tile) are split across a cluster of
 // `split` blocks (1, 2, 4 or 8), `span` positions each, with (split - 1) *
 // span < n0 + n1 <= split * span.
 int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, const void* k1,
-                        const void* v1, int n1, void* o, int B, int KV, int G, int D, int split,
-                        int span, const long long* strides, void* stream) {
+                        const void* v1, int n1, const void* k_new, const void* v_new, void* o,
+                        int B, int KV, int G, int D, int split, int span,
+                        const long long* strides, void* stream) {
   const int smem = plan(D, G, DTYPE_BF16, nullptr, 0);
   const int n = n0 + n1;  // split: 1, 2, 4 or 8, the portable cluster sizes
   if (smem < 0 || B < 1 || KV < 1 || n0 < 0 || n1 < 0 || n < 1 ||
       (split != 1 && split != 2 && split != 4 && split != 8) || span < 1 ||
-      static_cast<long long>(split) * span < n || static_cast<long long>(split - 1) * span >= n)
+      static_cast<long long>(split) * span < n || static_cast<long long>(split - 1) * span >= n ||
+      (k_new == nullptr) != (v_new == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -573,6 +649,12 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
     p.seg[1].ks[i] = strides[9 + i];
     p.seg[1].vs[i] = strides[12 + i];
   }
+  p.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  p.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  for (int i = 0; i < 2; ++i) {
+    p.kns[i] = strides[15 + i];
+    p.vns[i] = strides[17 + i];
+  }
   p.o = static_cast<__nv_bfloat16*>(o);
   p.KV = KV;
   p.G = G;
@@ -583,11 +665,14 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
 
   const int GT = group_tile(G);
-  const int which = GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3));
-  void (*kernel)(const Params) =
-      which == 0 ? flash_decode_kernel<1>
-                 : (which == 1 ? flash_decode_kernel<2>
-                               : (which == 2 ? flash_decode_kernel<4> : flash_decode_kernel<8>));
+  const bool fresh = k_new != nullptr;
+  const int which = (GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3))) + 4 * fresh;
+  void (*const kernels[8])(const Params) = {
+      flash_decode_kernel<1, false>, flash_decode_kernel<2, false>,
+      flash_decode_kernel<4, false>, flash_decode_kernel<8, false>,
+      flash_decode_kernel<1, true>,  flash_decode_kernel<2, true>,
+      flash_decode_kernel<4, true>,  flash_decode_kernel<8, true>};
+  void (*kernel)(const Params) = kernels[which];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;

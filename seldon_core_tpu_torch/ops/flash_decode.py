@@ -23,11 +23,19 @@ Two entry points share the kernel:
                                         contract and messages (L % 128,
                                         hd <= 256);
   ``flash_decode_two_tier(q, main_k, main_v, n_main, chunk_k, chunk_v,
-  n_chunk)``                            the same function over
+  n_chunk, k_new=None, v_new=None)``    the same function over
                                         main[:n_main] ++ chunk[:n_chunk]:
                                         what the decode lane's two-tier
                                         cache attends over
-                                        (``models/generate.py``).
+                                        (``models/generate.py``); with
+                                        k_new/v_new [B, KV, 1, hd] the
+                                        same launch first writes the
+                                        step's K/V into the last of those
+                                        positions (chunk slot n_chunk - 1,
+                                        or main slot n_main - 1 when the
+                                        chunk is empty) and attends with
+                                        it: the decode step's write
+                                        (``kv_write``) folded in.
 
 The kernel reads only the valid positions of each segment and masks its
 own ragged edge, so the two-tier function has no length rule: the served
@@ -89,7 +97,7 @@ from seldon_core_tpu_torch.device import launch_on
 from seldon_core_tpu_torch.ops._build import load_library
 from seldon_core_tpu_torch.ops.flash_attention import (_kernel_view, _same_device_and_dtype,
                                                        _tma_aligned)
-from seldon_core_tpu_torch.ops.kv_write import kv_write_paged_reference
+from seldon_core_tpu_torch.ops.kv_write import kv_write_paged_reference, kv_write_reference
 
 __all__ = [
     "LAUNCHES",
@@ -172,14 +180,22 @@ def flash_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_two_tier_reference(q: torch.Tensor, main_k: torch.Tensor, main_v: torch.Tensor,
                                     n_main: int, chunk_k: torch.Tensor, chunk_v: torch.Tensor,
-                                    n_chunk: int) -> torch.Tensor:
+                                    n_chunk: int, k_new: Optional[torch.Tensor] = None,
+                                    v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version of the two-tier attention, on any device,
     with ``_attend_two_tier``'s arithmetic: one softmax over the
     concatenated scores, masks added (0 / -1e30) to a segment only where
     its n is short of its length (JAX's ``main_full``), the partial PV
     products of p cast to the cache dtype summed in f32 and normalised
     after them.  A segment of 0 slots drops out: ``_attend_cached`` passes
-    an empty chunk."""
+    an empty chunk.  With ``k_new``/``v_new``, first ``kv_write_reference``
+    into the slot of position n_main + n_chunk - 1 (chunk slot n_chunk - 1,
+    or main slot n_main - 1 when n_chunk is 0), in place."""
+    if k_new is not None:
+        if n_chunk > 0:
+            kv_write_reference(chunk_k, chunk_v, k_new, v_new, n_chunk - 1)
+        else:
+            kv_write_reference(main_k, main_v, k_new, v_new, n_main - 1)
     segments = [(k, v, n) for k, v, n in ((main_k, main_v, n_main), (chunk_k, chunk_v, n_chunk))
                 if k.shape[2] > 0]
     scores = []
@@ -245,7 +261,7 @@ def _library() -> SimpleNamespace:
             lib = load_library("flash_decode")
             launch = lib.flash_decode_launch
             launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                               + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
+                               + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                                + [ctypes.c_void_p, ctypes.c_void_p])
             launch.restype = ctypes.c_int
             smem = lib.flash_decode_smem_bytes
@@ -278,7 +294,7 @@ def decode_kernel_shape_error(head_dim: int, dtype: torch.dtype, group: int = 1)
     return _smem_bytes(head_dim, group, dtype)[1]
 
 
-def _launch(q, k0, v0, n0: int, k1, v1, n1: int) -> torch.Tensor:
+def _launch(q, k0, v0, n0: int, k1, v1, n1: int, k_new=None, v_new=None) -> torch.Tensor:
     B, KV, G, hd = q.shape
     _same_device_and_dtype(q, k=k0, v=v0, chunk_k=k1, chunk_v=v1)
     why = decode_kernel_shape_error(hd, q.dtype, G)
@@ -286,19 +302,29 @@ def _launch(q, k0, v0, n0: int, k1, v1, n1: int) -> torch.Tensor:
         raise ValueError(why)
     if n0 + n1 < 1:
         raise ValueError("the flash-decode kernel needs at least one valid cache position")
+    if k_new is not None:
+        for name, t in ((("chunk_k", k1), ("chunk_v", v1)) if n1 > 0
+                        else (("main_k", k0), ("main_v", v0))):
+            if not _tma_aligned(t):  # written in place: no copy will do
+                raise ValueError(f"{name} takes the fused write in place, so it needs unit "
+                                 f"stride along hd and 16-byte aligned rows, got {t.stride()}")
+        k_new, v_new = (_kernel_view(t) for t in (k_new, v_new))
     q = q if q.stride(3) == 1 else q.contiguous()
     k0, v0, k1, v1 = (_kernel_view(t) for t in (k0, v0, k1, v1))
     o = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
     if B == 0 or KV == 0 or G == 0:
         return o
-    strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k0.stride()[:3], *v0.stride()[:3],
-                                       *k1.stride()[:3], *v1.stride()[:3])
+    fresh = (0,) * 4 if k_new is None else (*k_new.stride()[:2], *v_new.stride()[:2])
+    strides = (ctypes.c_longlong * 19)(*q.stride()[:3], *k0.stride()[:3], *v0.stride()[:3],
+                                       *k1.stride()[:3], *v1.stride()[:3], *fresh)
     lib = _library()
     index = torch.cuda.current_device() if q.device.index is None else q.device.index
     split, span = decode_split_plan(B, KV, G, int(n0) + int(n1), _sm_count(index))
     rc = launch_on(q.device, lib.launch, q.data_ptr(), k0.data_ptr(), v0.data_ptr(), int(n0),
-                   k1.data_ptr(), v1.data_ptr(), int(n1), o.data_ptr(), B, KV, G, hd, split,
-                   span, ctypes.addressof(strides))
+                   k1.data_ptr(), v1.data_ptr(), int(n1),
+                   None if k_new is None else k_new.data_ptr(),
+                   None if v_new is None else v_new.data_ptr(), o.data_ptr(), B, KV, G, hd,
+                   split, span, ctypes.addressof(strides))
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")
@@ -329,13 +355,36 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int
     return _launch(q, k, v, n, k, v, 0)
 
 
+def _fresh_error(q, main_k, n_main: int, n_chunk: int, k_new, v_new) -> Optional[str]:
+    if (k_new is None) != (v_new is None):
+        return "k_new and v_new go together"
+    if k_new is None:
+        return None
+    B, KV, _, hd = q.shape
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(t.shape) != (B, KV, 1, hd) or t.dtype != main_k.dtype:
+            return (f"{name} must be {main_k.dtype} {(B, KV, 1, hd)}, got {t.dtype} "
+                    f"{tuple(t.shape)}")
+        if t.device != q.device:
+            return f"{name} is on {t.device}, q on {q.device}"
+    if int(n_main) + int(n_chunk) < 1:
+        return "the fused write needs a position: n_main + n_chunk >= 1"
+    return None
+
+
 def flash_decode_two_tier(q: torch.Tensor, main_k: torch.Tensor, main_v: torch.Tensor,
                           n_main: int, chunk_k: torch.Tensor, chunk_v: torch.Tensor,
-                          n_chunk: int) -> torch.Tensor:
+                          n_chunk: int, k_new: Optional[torch.Tensor] = None,
+                          v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, KV, G, hd] over main[:n_main] ++ chunk[:n_chunk] (each [B, KV,
     *, hd]) -> [B, KV, G, hd]: ``flash_decode``'s function over the two
-    segments, with no length rule.  A CUDA q launches the kernel or raises;
-    a CPU q runs ``flash_decode_two_tier_reference``."""
+    segments, with no length rule.  With ``k_new``/``v_new`` [B, KV, 1, hd]
+    (in the caches' dtype; strided views will do) the decode step's write is
+    fused in: the step's K/V go into the slot of position n_main + n_chunk
+    - 1 (chunk slot n_chunk - 1, or main slot n_main - 1 when n_chunk is
+    0), in place, and the attention takes them.  A CUDA q launches the
+    kernel (one launch, write included) or raises; a CPU q runs
+    ``flash_decode_two_tier_reference``."""
     for kk, vv, n, what in ((main_k, main_v, n_main, "n_main"),
                             (chunk_k, chunk_v, n_chunk, "n_chunk")):
         why = _shapes_error(q, kk, vv)
@@ -343,34 +392,45 @@ def flash_decode_two_tier(q: torch.Tensor, main_k: torch.Tensor, main_v: torch.T
             raise ValueError(why)
         if not 0 <= int(n) <= kk.shape[2]:
             raise ValueError(f"{what}={n} outside [0, {kk.shape[2]}]")
+    why = _fresh_error(q, main_k, n_main, n_chunk, k_new, v_new)
+    if why is not None:
+        raise ValueError(why)
     if _device_kind(q) == "cpu":
         return flash_decode_two_tier_reference(q, main_k, main_v, n_main, chunk_k, chunk_v,
-                                               n_chunk)
-    return _launch(q, main_k, main_v, int(n_main), chunk_k, chunk_v, int(n_chunk))
+                                               n_chunk, k_new, v_new)
+    return _launch(q, main_k, main_v, int(n_main), chunk_k, chunk_v, int(n_chunk), k_new,
+                   v_new)
 
 
 def probe_decode_kernel(n_kv_heads: int, group: int, head_dim: int, dtype: torch.dtype,
                         device: torch.device) -> None:
     """Build the library and launch the kernel once at the head shape
     (``n_kv_heads``, ``group`` query heads each, ``head_dim``) on a CUDA
-    ``device``, over both segments: zero queries and keys give a uniform
-    softmax, and values 1, 2, 3 in main and 4 in chunk slot 0 (slot 1, 100,
-    is past n_chunk) must average to exactly 2.5.  Raises if the build or
-    the launch fails or the answer differs.  The counterpart of
-    ``flash_decode_supported``, except that it raises where that one
+    ``device``, over both segments and with the write fused in, as every
+    decode step calls it: zero queries and keys give a uniform softmax over
+    values 1, 2, 3 in main, 4 in chunk slot 0 and the fresh row's 5 bound
+    for chunk slot 1, where the chunk holds a stale key of 7 and value of
+    100 (slot 2, 100, is past n_chunk): the answer is exactly 3, and
+    chunk slot 1 must hold the fresh key and value afterwards.  Raises if
+    the build or the launch fails or the answer differs.  The counterpart
+    of ``flash_decode_supported``, except that it raises where that one
     answers False."""
     q = torch.zeros(1, n_kv_heads, group, head_dim, dtype=dtype, device=device)
     main_k = torch.zeros(1, n_kv_heads, 3, head_dim, dtype=dtype, device=device)
     rows = torch.tensor([1.0, 2.0, 3.0], device=device)
     main_v = rows[None, None, :, None].expand_as(main_k).to(dtype).contiguous()
-    chunk_k = torch.zeros(1, n_kv_heads, 2, head_dim, dtype=dtype, device=device)
-    chunk_v = torch.tensor([4.0, 100.0], device=device)[None, None, :, None].expand_as(
+    chunk_k = torch.zeros(1, n_kv_heads, 3, head_dim, dtype=dtype, device=device)
+    chunk_k[:, :, 1] = 7.0
+    chunk_v = torch.tensor([4.0, 100.0, 100.0], device=device)[None, None, :, None].expand_as(
         chunk_k).to(dtype).contiguous()
-    o = flash_decode_two_tier(q, main_k, main_v, 3, chunk_k, chunk_v, 1)
-    if not bool((o.float() == 2.5).all().cpu()):
+    k_new = torch.zeros(1, n_kv_heads, 1, head_dim, dtype=dtype, device=device)
+    o = flash_decode_two_tier(q, main_k, main_v, 3, chunk_k, chunk_v, 2, k_new, k_new + 5.0)
+    if (not bool((o.float() == 3.0).all().cpu()) or not bool((chunk_k[:, :, 1] == 0).all().cpu())
+            or not bool((chunk_v[:, :, 1].float() == 5.0).all().cpu())):
         raise RuntimeError(
             f"flash_decode probe at {n_kv_heads} kv heads x {group}, head dim {head_dim} "
-            f"answered {o.float().flatten()[:4].tolist()}..., not 2.5")
+            f"answered {o.float().flatten()[:4].tolist()}..., not 3, or did not write the "
+            f"fresh row")
 
 
 def paged_view(pool_k: torch.Tensor, pool_v: torch.Tensor, tables: torch.Tensor):

@@ -14,8 +14,9 @@ one launch, by bytes (any dtype).  The plain version, ``kv_write_reference``,
 is slice assignment, which is what the decode step did before; a CPU
 tensor runs it, a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
 counts kernel launches and nothing else; ``probe_kv_write`` builds the
-library and writes once, so a generator finds a missing compiler or a
-failing build at construction.
+library and writes once.  The decode lane no longer launches it: its
+write is fused into ``flash_decode_two_tier``'s launch
+(``ops/flash_decode.py``), whose plain path is ``kv_write_reference``.
 
 The paged variant serves the continuous lane's block pool
 (``models/generate.py`` ``_paged_write``, the reference's

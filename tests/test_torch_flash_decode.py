@@ -181,16 +181,19 @@ def test_kv_write_refuses_bad_slots_and_shapes(bad, match):
 
 
 def test_decode_lane_takes_the_kernel_wrappers_only_with_use_flash(monkeypatch):
-    """``use_flash`` picks the wrappers statically (which launch the
-    kernels for CUDA tensors); without it the decode step calls the plain
-    versions directly.  On the CPU both give the same logits."""
+    """``use_flash`` picks the wrapper statically (which launches the
+    kernel for CUDA tensors): one ``flash_decode_two_tier`` call a layer,
+    the step's K/V write fused in, and no ``kv_write``; without it the
+    decode step calls the plain version directly (which does the slot's
+    slice assignment, then the plain attention).  On the CPU both give the
+    same logits."""
     from seldon_core_tpu_torch.models.transformer import LMConfig, lm_init
 
     cfg = LMConfig(vocab=32, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=64,
                    dtype=torch.float32)
     params = lm_init(torch.Generator().manual_seed(0), cfg, "cpu")
     calls = []
-    for name in ("flash_decode_two_tier", "flash_decode_two_tier_reference", "kv_write",
+    for name in ("flash_decode_two_tier", "flash_decode_two_tier_reference",
                  "kv_write_reference"):
         orig = getattr(tgen, name)
         monkeypatch.setattr(tgen, name, lambda *a, _n=name, _f=orig: calls.append(_n) or _f(*a))
@@ -203,8 +206,8 @@ def test_decode_lane_takes_the_kernel_wrappers_only_with_use_flash(monkeypatch):
         logits, _ = tgen.decode_step_two_tier(params, torch.tensor([1, 2]), main, chunk, 5, 0, cfg,
                                               use_flash)
         out[use_flash] = logits
-        want = (["kv_write", "flash_decode_two_tier"] if use_flash
-                else ["kv_write_reference", "flash_decode_two_tier_reference"])
+        want = (["flash_decode_two_tier"] if use_flash
+                else ["flash_decode_two_tier_reference"])
         assert calls == want * cfg.n_layers
     torch.testing.assert_close(out[True], out[False], atol=0, rtol=0)
     assert fd.LAUNCHES == 0 and kw.LAUNCHES == 0  # CPU tensors: no kernel
@@ -465,8 +468,9 @@ def test_decode_kernel_refuses_what_it_cannot_take():
 @pytest.mark.cuda
 def test_single_tier_decode_step_launches_once_per_layer_on_card():
     """At a cache length of 100 (not a multiple of 128) ``decode_step``
-    with ``use_flash`` launches the decode kernel once per layer, and its
-    logits stay near the plain path's."""
+    with ``use_flash`` launches the decode kernel once per layer (the
+    step's K/V write fused in: no ``kv_write`` launch), and its logits stay
+    near the plain path's."""
     _need_card()
     from seldon_core_tpu_torch.models.transformer import LMConfig, lm_init
 
@@ -479,10 +483,119 @@ def test_single_tier_decode_step_launches_once_per_layer_on_card():
     for use_flash in (True, False):
         _, cache = tgen.prefill(params, prompt.to(dev), tgen.init_cache(cfg, 2, 100, dev), cfg)
         before = fd.LAUNCHES
+        before_kw = kw.LAUNCHES
         out[use_flash], _ = tgen.decode_step(params, torch.tensor([3, 4], device=dev), cache, 40,
                                              cfg, use_flash)
         torch.cuda.synchronize()
         assert fd.LAUNCHES - before == (cfg.n_layers if use_flash else 0)
+        assert kw.LAUNCHES == before_kw  # the step's write is fused into the decode launch
     assert torch.isfinite(out[True]).all()
     # bf16 logits: the kernel and the plain path round p and o differently
     assert float((out[True] - out[False]).abs().max()) <= 0.125
+
+
+# (B, KV, G, hd, main length, n_main, chunk slots, n_chunk before the step):
+# the fresh row into the chunk (at its first, a middle and its last slot),
+# and with an empty chunk into main's last valid slot (n_chunk = -1: the
+# step's position is n_main - 1, and the chunk takes nothing)
+FUSED = [(2, 2, 4, 32, 100, 100, 8, 0), (2, 2, 4, 32, 200, 130, 8, 5), (1, 4, 1, 16, 64, 64, 16, 15),
+         (2, 2, 4, 32, 100, 37, 8, -1), (3, 1, 8, 64, 40, 40, 4, -1)]
+
+
+def _fused_case(case, dtype):
+    """numpy inputs of one fused case, and the JAX side: the step's write by
+    ``jax.lax.dynamic_update_slice`` (``_block_two_tier``,
+    generate.py:305-320, into main's slot n_main - 1 for an empty chunk),
+    then ``_attend_two_tier`` over main[:n_main] + chunk[:n_chunk + 1]."""
+    B, KV, G, hd, Lm, n_main, C, n_chunk = case
+    rng = np.random.default_rng(sum(case) + 11)
+    arrays = [_normal(rng, B, KV, G, hd), _normal(rng, B, KV, Lm, hd), _normal(rng, B, KV, Lm, hd),
+              _normal(rng, B, KV, C, hd), _normal(rng, B, KV, C, hd),
+              _normal(rng, B, KV, 1, hd), _normal(rng, B, KV, 1, hd)]
+    jq, jmk, jmv, jck, jcv, jkn, jvn = (jnp.asarray(a, dtype=dtype) for a in arrays)
+    if n_chunk >= 0:
+        jck = jax.lax.dynamic_update_slice(jck, jkn, (0, 0, n_chunk, 0))
+        jcv = jax.lax.dynamic_update_slice(jcv, jvn, (0, 0, n_chunk, 0))
+    else:
+        jmk = jax.lax.dynamic_update_slice(jmk, jkn, (0, 0, n_main - 1, 0))
+        jmv = jax.lax.dynamic_update_slice(jmv, jvn, (0, 0, n_main - 1, 0))
+    want = jgen._attend_two_tier(jq.reshape(B, KV * G, 1, hd), {"k": jmk, "v": jmv},
+                                 {"k": jck, "v": jcv}, n_main, n_chunk + 1, False)
+    return arrays, (jmk, jmv, jck, jcv), want
+
+
+@pytest.mark.parametrize("case", FUSED, ids=[str(c) for c in FUSED])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_two_tier_matches_jax_write_then_attend(case, dtype):
+    """``flash_decode_two_tier`` with k_new/v_new (its plain version on the
+    CPU) writes the step's row where ``_block_two_tier``'s
+    ``dynamic_update_slice`` does, bit for bit, and attends as
+    ``_attend_two_tier`` over the written caches: f32 within the JAX test's
+    tolerance (only the order of the f32 sums differs), bf16 within a bf16
+    rounding of p or o (2^-7 at |o| ~ 1)."""
+    B, KV, G, hd, Lm, n_main, C, n_chunk = case
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    arrays, jcaches, want = _fused_case(case, jdt)
+    q, mk, mv, ck, cv, kn, vn = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk + 1, kn, vn)
+    for t, j in zip((mk, mv, ck, cv), jcaches):
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(j, dtype=np.float32))
+    got = got.float().reshape(B, KV * G, 1, hd).numpy()
+    want = np.asarray(want, dtype=np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+    else:
+        np.testing.assert_allclose(got, want, atol=1.6e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(k_new=None), "go together"),
+    (dict(v_new=None), "go together"),
+    (dict(k_new=torch.zeros(2, 2, 2, 16)), r"k_new must be .*\(2, 2, 1, 16\)"),
+    (dict(v_new=torch.zeros(2, 2, 1, 8)), r"v_new must be .*\(2, 2, 1, 16\)"),
+    (dict(k_new=torch.zeros(2, 2, 1, 16, dtype=torch.float64)), "k_new must be torch.float32"),
+    (dict(v_new=torch.zeros(2, 2, 1, 16, device="meta")), "v_new is on meta"),
+    (dict(n_main=0, n_chunk=0), "needs a position"),
+])
+def test_fused_two_tier_refuses_bad_fresh_rows(bad, match):
+    """The wrapper checks k_new/v_new before any launch: both or neither,
+    [B, KV, 1, hd] in the caches' dtype, on q's device, and a position to
+    write."""
+    args = dict(q=torch.zeros(2, 2, 4, 16), main_k=torch.zeros(2, 2, 10, 16),
+                main_v=torch.zeros(2, 2, 10, 16), n_main=10, chunk_k=torch.zeros(2, 2, 4, 16),
+                chunk_v=torch.zeros(2, 2, 4, 16), n_chunk=2, k_new=torch.zeros(2, 2, 1, 16),
+                v_new=torch.zeros(2, 2, 1, 16))
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        fd.flash_decode_two_tier(**args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunk", [1, 32, 63, 0])
+def test_fused_two_tier_call_on_card(n_chunk):
+    """The served layer (B=32, 4 kv heads x 4, hd 64, main 512) with the
+    step's write fused in: the caches bit-exact against ``kv_write_reference``
+    (the chunk's slot n_chunk - 1, or main's last with an empty chunk), o
+    within a bf16 rounding of write-then-attend, a repeat the same bits, one
+    launch and no kv_write launch."""
+    _need_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n_chunk)
+    q, mk, mv = (torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+                 for s in ((32, 4, 4, 64), (32, 4, 512, 64), (32, 4, 512, 64)))
+    ck, cv = (torch.randn(32, 4, 63, 64, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    qkv = torch.randn(32, 1, 6 * 4 * 64, generator=g, device=dev).to(torch.bfloat16)
+    kn = qkv[..., 4 * 256:5 * 256].reshape(32, 1, 4, 64).transpose(1, 2)  # strided head views
+    vn = qkv[..., 5 * 256:].reshape(32, 1, 4, 64).transpose(1, 2)
+    ref = [t.clone() for t in (mk, mv, ck, cv)]
+    want = fd.flash_decode_two_tier_reference(q, *ref[:2], 512, *ref[2:], n_chunk, kn, vn)
+    before = (fd.LAUNCHES, kw.LAUNCHES)
+    got = fd.flash_decode_two_tier(q, mk, mv, 512, ck, cv, n_chunk, kn, vn)
+    again = fd.flash_decode_two_tier(q, mk, mv, 512, ck, cv, n_chunk, kn, vn)
+    torch.cuda.synchronize()
+    assert (fd.LAUNCHES - before[0], kw.LAUNCHES - before[1]) == (2, 0)
+    assert all(torch.equal(t, r) for t, r in zip((mk, mv, ck, cv), ref))
+    assert torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) <= 1.6e-2

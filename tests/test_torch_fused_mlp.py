@@ -117,12 +117,23 @@ def test_kernel_takes_the_served_widths():
 @pytest.mark.cuda
 def test_smem_layout_matches_hand_count():
     _need_card()
-    # 784-256-256-10 (the csrc layout, 128-byte aligned pieces):
-    # buffer 0: 32 rows x (784 + 8) bf16 = 50688; buffer 1: 32 x (256 + 8)
-    # bf16 = 16896; weight stage 64 x (256 + 8) bf16 = 33792; 8 warps x
-    # 16x16 f32 scratch = 8192; logits 32 x 16 f32 = 2048
-    want = 50688 + 16896 + 33792 + 8192 + 2048
-    assert fused_mlp._smem_bytes([784, 256, 256, 10]) == (want, None)
+    # 784-256-256-10 at the B=1 plan, a cluster of 16 and 8 rows a block
+    # (the csrc layout, 128-byte aligned pieces): buffer 0: 8 rows x (784 +
+    # 8) bf16 = 12672; buffer 1: 8 x (256 + 8) bf16 = 4224; the rank's
+    # weight slices 784 x 16 and 256 x 16 bf16 = 25088 + 8192; the last
+    # layer whole, 256 x 10 bf16 = 5120; three layers' biases, 16 f32 each
+    # (128 apiece); 8 warps' partial sums, 32 lanes x 4 f32 = 4096; logits
+    # 8 x 10 f32 = 384; three mbarriers = 128
+    want = 12672 + 4224 + 25088 + 8192 + 5120 + 3 * 128 + 4096 + 384 + 128
+    assert fused_mlp._smem_bytes([784, 256, 256, 10], 16, 8) == (want, None)
+    # and the Python statement of the layout, which mlp_plan reads, is the
+    # source's at every plan of both served stacks
+    for hidden in (256, 512):
+        dims = [784, hidden, hidden, 10]
+        for C in (1, 2, 4, 8, 16):
+            for BM in (8, 16, 32, 64):
+                n, why = fused_mlp._smem_bytes(dims, C, BM)
+                assert fused_mlp._layout_bytes(dims, C, BM) == (n if why is None else None)
 
 
 @pytest.mark.cuda
@@ -151,3 +162,108 @@ def test_kernel_matches_plain_on_card():
             assert fused_mlp.LAUNCHES == before + 1
             # both sides round at the same bf16 casts; f32 sum order differs
             assert float((got - want).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("batch", [1, 7, 32, 64, 128, 1024])
+@pytest.mark.parametrize("hidden", [256, 512])
+def test_plan_covers_every_row_and_column_once(batch, hidden):
+    """``mlp_plan``'s (BM, C) at the served widths: a plan the source takes
+    (a cluster of 1-16 blocks, 8-64 rows a block, a layout within the
+    shared-memory budget), tiles of BM rows that cover each batch row once,
+    and ranks whose column ranges cover each layer's columns once: the
+    hidden layers split over the cluster, the last layer's 10 columns on
+    rank 0 alone, even over 16 ranks."""
+    dims = (784, hidden, hidden, 10)
+    BM, C = fused_mlp.mlp_plan(batch, dims, 132)
+    assert C in (1, 2, 4, 8, 16) and BM in (8, 16, 32, 64)
+    assert fused_mlp._layout_bytes(dims, C, BM) is not None
+    tiles = [range(t * BM, min(batch, (t + 1) * BM)) for t in range(-(-batch // BM))]
+    assert [r for tile in tiles for r in tile] == list(range(batch))
+    cw = fused_mlp.layer_columns(dims, C)
+    for l, n in enumerate(dims[1:-1]):
+        owned = [c for r in range(C) for c in range(r * cw[l], min(n, (r + 1) * cw[l]))]
+        assert owned == list(range(n)) and cw[l] % 16 == 0
+    assert cw[-1] == 16  # rank 0's one m16 tile of the 10 logits
+    if batch <= 32:
+        assert C == 16  # the one-tile batches take the widest cluster
+
+
+@pytest.mark.parametrize("dims,C,columns", [
+    ((784, 256, 256, 10), 16, [16, 16, 16]), ((784, 512, 512, 10), 16, [32, 32, 16]),
+    ((784, 256, 256, 10), 1, [256, 256, 16]), ((32, 48, 10), 16, [16, 16]),
+    ((32, 48, 10), 2, [32, 16]),
+])
+def test_layer_columns_and_the_layout_rule(dims, C, columns):
+    """Each rank's columns are a multiple of 16 (one m16 tile each), and
+    the Python statement of the layout refuses what the source refuses: a
+    rank's columns past 256 (one TMA box), a cluster or row tile it has no
+    kernel for, more than the 227 KiB budget (the 4096-wide MLP)."""
+    assert fused_mlp.layer_columns(dims, C) == columns
+    assert fused_mlp._layout_bytes((784, 512, 512, 10), 1, 8) is None  # 512 columns a rank
+    assert fused_mlp._layout_bytes((784, 256, 256, 10), 3, 8) is None
+    assert fused_mlp._layout_bytes((784, 256, 256, 10), 16, 12) is None
+    assert fused_mlp._layout_bytes((4096, 4096, 4096, 10), 16, 8) is None
+    assert fused_mlp._layout_bytes((784, 256, 256, 10), 16, 8) == 60288
+
+
+def _column_split(params, x, C):
+    """The kernel's split, emulated plainly: each rank computes its columns
+    of a hidden layer from its own slice of the weights (bias and relu on
+    them), the columns are gathered, and rank 0 computes the last layer
+    whole and the softmax."""
+    layers = fused_mlp._layer_params(params)
+    dims = [layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
+    cw = fused_mlp.layer_columns(dims, C)
+    h = x.float()
+    for i, (w, b) in enumerate(layers):
+        hin = h.to(w.dtype).float()
+        if i == len(layers) - 1:
+            h = hin @ w.float() + b.float()
+        else:
+            n = w.shape[1]
+            h = torch.relu(torch.cat([hin @ w[:, r * cw[i]:(r + 1) * cw[i]].float()
+                                      + b[r * cw[i]:(r + 1) * cw[i]].float()
+                                      for r in range(C) if r * cw[i] < n], dim=1))
+    return torch.softmax(h, dim=-1)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16])
+def test_column_split_is_the_plain_version_bit_for_bit(C):
+    """Splitting each hidden layer's columns over C ranks and gathering
+    them changes no bit of the plain version's probabilities: a column's
+    dot product does not depend on the other columns (bf16 weights, the
+    served 784-256-256-10 stack, 7 rows)."""
+    dims = [784, 256, 256, 10]
+    tp = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in _np_mlp(5, dims).items()}
+    x = torch.from_numpy(np.random.default_rng(6).random((7, 784)).astype(np.float32))
+    want = fused_mlp.fused_mlp_softmax_reference(tp, x)
+    assert torch.equal(_column_split(tp, x, C), want)
+
+
+@pytest.mark.cuda
+def test_kernel_row_bits_do_not_depend_on_the_plan_on_card():
+    """Every plan the kernel takes gives a row the same bits (a column's
+    dot product is one rank's, in a fixed order of its k-steps), a repeat
+    gives the same bits, and the launch runs the cluster the plan asked
+    for, as the kernel itself reads it."""
+    _need_card()
+    dev = torch.device("cuda")
+    dims = (784, 256, 256, 10)
+    tp = {k: torch.from_numpy(v).to(torch.bfloat16).to(dev) for k, v in _np_mlp(7, dims).items()}
+    layers = fused_mlp._layer_params(tp)
+    x = torch.from_numpy(np.random.default_rng(8).random((64, 784)).astype(np.float32)).to(dev)
+    want = fused_mlp.fused_mlp_softmax_reference(tp, x)
+    first = None
+    for C in (1, 2, 4, 8, 16):
+        for BM in (8, 16, 32, 64):
+            if fused_mlp._layout_bytes(dims, C, BM) is None:
+                continue
+            shape = torch.zeros(3, dtype=torch.int32, device=dev)
+            got = fused_mlp._launch(layers, dims, x, (BM, C), shape)
+            again = fused_mlp._launch(layers, dims, x, (BM, C))
+            torch.cuda.synchronize()
+            assert shape.tolist() == [C, C * -(-64 // BM), BM]
+            assert torch.equal(got, again)
+            assert float((got - want).abs().max()) <= 2e-3
+            first = got if first is None else first
+            assert torch.equal(got, first)
