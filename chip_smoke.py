@@ -7,7 +7,8 @@ Builds every kernel of the served and trained paths from the sources in
 this checkout (six libraries, built at once), holds each kernel against
 its plain PyTorch version on the card, serves two deployments through the
 port's engine and REST lane on a localhost port (the generator on the
-static lane and on the continuous lane, also as an SSE token stream),
+static lane and on the continuous lane, also as an SSE token stream, and
+in its sampled, shared-prefix and speculative modes on both lanes),
 trains the flagship LM a few steps and serves its checkpoint, checks the
 answers, shows that each run went through its kernels, and times each
 kernel beside its plain version, a PyTorch library call and its bound.
@@ -88,18 +89,20 @@ it serves the static lane it measured before that lane's switch:
               decode tokens/s; profiled prefill
               and generate both ways: launches and device time per decode
               step, busy share, flash_decode_kernel's time per call
- 10a. paged-kernel  flash_decode_paged vs its plain version at five
+ 10a. paged-kernel  flash_decode_paged vs its plain version at seven
               shapes (the served round, B=32 over 64 blocks of 16 with
               ragged lengths 513..576; one row at 17 and 560 positions, a
               cluster of 8 with empty ranks; MHA at hd 128; 16 query heads
-              at hd 256) and on one batch of lengths 1, 17, 300, 560 and
-              1009, each also repeated and with the rows' blocks permuted in
-              the pool (the same bits); the call with the decode step's
-              K/V write fused in at the round's shape (three inactive rows):
-              o of the active rows, the pools bit-exact outside the scratch
-              block, a repeat and moved blocks the same bits;
-              kv_write_paged bit-exact and in place at W=1 and at a prefill
-              tick's W=128 and 512
+              at hd 256; the speculative drafts' MHA at hd 64 and hd 32)
+              and on one batch of lengths 1, 17, 300, 560 and 1009, each
+              also repeated and with the rows' blocks permuted in the pool
+              (the same bits); the call with the decode step's K/V write
+              fused in at the round's shape and the drafts' (three inactive
+              rows): o of the active rows, the pools bit-exact outside the
+              scratch block, a repeat and moved blocks the same bits;
+              kv_write_paged bit-exact and in place at W=1, at a prefill
+              tick's W=128 and 512, a verify's W=5 (16 kv heads) and at
+              hd 32
  10b. continuous  the flagship generator through the continuous lane
               (runtime/genserver.py, default knobs) over REST: a 1-row and
               a 32-row 512-token request (preemption must occur), 8 1-row
@@ -120,6 +123,32 @@ it serves the static lane it measured before that lane's switch:
               positions made dense and gather-then-SDPA, and on the ragged
               batch; kv_write_paged at a prefill tick's W=128 and 512
               beside index_put_
+ 10d. sampled  the flagship generator at temperature 0.8, top_k 50, top_p
+              0.95: on the continuous lane a 1-row probe, 8 1-row requests
+              20 ms apart and a 32-row request (12 flash_decode_paged
+              launches a decode step, 12 kv_write_paged a prefill tick); on
+              the static lane (no batcher) a 1-row and an 8-row request and
+              a 1-row stream (12 flash launches a prefill, 12 x 63
+              flash_decode a dispatch); every token within TOKEN_DELTA of
+              its teacher-forced top 50; a fresh engine with the same seed
+              replays the first answer on each lane; a round's device ms
+              and wall, sampled against greedy in turns
+ 10e. prefix   a 200-token prefix_tokens (12 pinned blocks of 16, an
+              8-token tail) with 312-token suffixes, greedy, a 1-row and a
+              32-row request on each lane: every token within TOKEN_DELTA
+              of its teacher-forced maximum over prefix + suffix; the
+              pinned blocks hold the prefix cache bit for bit before and
+              after; kv_write_paged launches 12 for the blocks, 12 a tail,
+              12 a prefill tick; TTFT against the same 512 tokens sent
+              whole, in turns
+ 10f. speculative  SpeculativeGenerator at the flagship target's dims
+              (MHA), bf16, k=4, with its default draft and with the target
+              as its own draft, on both lanes: every token within
+              TOKEN_DELTA of the target's teacher-forced maximum;
+              flash_decode_paged once a draft layer a draft step,
+              kv_write_paged once a target layer a verify; the self-draft
+              accepting at least 2 of 4 a row-round; the 32-row request's
+              tokens/s of both against the plain continuous lane in turns
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at seven shapes (the training layer
               among them, a group of 8, and S=192: a ragged last 128-row
@@ -139,7 +168,8 @@ it serves the static lane it measured before that lane's switch:
               their bounds at the training layer and at S=2048 (B=4), and
               the whole flash_attention_bwd call (both launches) beside
               SDPA's backward; then the {"kernels": [...]} line with all
-              eight kernels
+              eight kernels, each row's launches those of every served
+              path (phases 8-10f), with a breakdown by path
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -788,7 +818,11 @@ def kernel_ms_by_name(torch, fn, iters: int, expect=()) -> dict:
     kernel.  Every name in ``expect`` must be part of a recorded kernel's
     name: a profiler window that came back without one (it happened on
     the card, once three windows in a row) is taken again after a pause,
-    up to five times, and then it raises rather than report a time of 0."""
+    up to five times, and then it raises rather than report a time of 0.
+    A kernel's time is its recorded time over its recorded launches: a
+    window that lost part of its records (on the card, after earlier
+    profiler sessions of the same process, a dQ time of a tenth of its
+    byte bound came back) then still gives the time of one call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -800,7 +834,8 @@ def kernel_ms_by_name(torch, fn, iters: int, expect=()) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {k: v / iters for k, v in trace_kernels(prof, "kernel_times")[0].items()}
+        total, _, counts = trace_kernels(prof, "kernel_times")
+        by_name = {k: v / counts[k] for k, v in total.items()}
         if all(any(tag in name for name in by_name) for tag in expect):
             return by_name
     raise AssertionError(f"five profiler windows recorded no kernel named {expect}: "
@@ -808,32 +843,38 @@ def kernel_ms_by_name(torch, fn, iters: int, expect=()) -> dict:
 
 
 def trace_kernels(prof, name: str):
-    """({kernel name: summed device ms}, launches) from a profiler's
-    exported trace."""
+    """({kernel name: summed device ms}, launches, {kernel name: its
+    launches}) from a profiler's exported trace."""
     path = ROOT / "build" / f"trace_{name}.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text()).get("traceEvents", [])
     path.unlink()
     by_name: dict = {}
-    n_kernels = 0
+    counts: dict = {}
     for e in events:
         if e.get("cat") == "kernel":
-            n_kernels += 1
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0)) / 1e3
-    return by_name, n_kernels
+    return by_name, sum(counts.values()), counts
 
 
-def gen_deployment(weights_path: str = "") -> dict:
-    parameters = [{"name": k, "value": str(v), "type": "INT"} for k, v in GEN_DIMS.items()]
-    parameters.append({"name": "quant", "value": "none", "type": "STRING"})
+def gen_deployment(weights_path: str = "", params=None,
+                   class_path: str = "TransformerGenerator") -> dict:
+    """The flagship generator's deployment (GEN_DIMS, quant none), with
+    ``params`` added or replacing GEN_DIMS's (a None value drops one)."""
+    values = {**GEN_DIMS, "quant": "none", **(params or {})}
     if weights_path:
-        parameters.append({"name": "weights_path", "value": weights_path, "type": "STRING"})
+        values["weights_path"] = weights_path
+    parameters = [{"name": k, "value": str(v),
+                   "type": "FLOAT" if isinstance(v, float) else
+                   "STRING" if isinstance(v, str) else "INT"}
+                  for k, v in values.items() if v is not None]
     return {"spec": {"name": "gen-flagship", "predictors": [{
         "name": "main",
         "graph": {"name": "gen", "type": "MODEL"},
         "components": [{"name": "gen", "runtime": "inprocess",
-                        "class_path": "TransformerGenerator", "parameters": parameters}],
+                        "class_path": class_path, "parameters": parameters}],
     }]}}
 
 
@@ -857,10 +898,10 @@ def check_tokens(status, raw, prompts: np.ndarray, kind: str) -> np.ndarray:
     return y.astype(np.int64)
 
 
-def teacher_forced(torch, lm_apply, params, cfg, prompts, toks, dev):
-    """Each generated token's gap to the plain path's maximum logit at its
-    position (prompt + the tokens before it, attention="xla"), and whether
-    it is that maximum."""
+def teacher_forced(torch, lm_apply, params, cfg, prompts, toks, dev, kth: int = 1):
+    """Each generated token's gap to the plain path's ``kth`` largest logit
+    at its position (prompt + the tokens before it, attention="xla"; 1: the
+    maximum), and whether it is the maximum."""
     S, n = prompts.shape[1], toks.shape[1]
     seq = np.concatenate([prompts, toks[:, :-1]], axis=1)
     with torch.inference_mode():
@@ -868,8 +909,9 @@ def teacher_forced(torch, lm_apply, params, cfg, prompts, toks, dev):
                           use_flash=False)
         rows = logits[:, S - 1:S - 1 + n, :]
         tok = torch.as_tensor(toks, dtype=torch.long, device=dev)
-        gap = rows.amax(dim=-1) - rows.gather(-1, tok[..., None])[..., 0]
+        gap = rows.topk(kth, dim=-1).values[..., -1] - rows.gather(-1, tok[..., None])[..., 0]
         exact = rows.argmax(dim=-1) == tok
+        del logits, rows
     return gap.cpu().numpy(), exact.cpu().numpy()
 
 
@@ -902,7 +944,7 @@ def device_profile(torch, fn, name: str, by_name: bool = False) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    names, n_kernels = trace_kernels(prof, name)
+    names, n_kernels, _ = trace_kernels(prof, name)
     kernel_ms = sum(names.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     prof = {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
@@ -1408,20 +1450,35 @@ PAGED_NBLK = 64
 # reason): (B, KV, G, hd, table blocks, lengths).  The served round (B=32,
 # ragged lengths 513..576, a cluster of 2 that splits each row's own
 # length), one row at 17 positions (a cluster of 8, seven ranks empty) and
-# at 560, MHA at hd 128 with ragged lengths over 16 blocks, and a group of
-# 16 query heads (all 16 rows of the m16 tile) at hd 256.
+# at 560, MHA at hd 128 with ragged lengths over 16 blocks, a group of
+# 16 query heads (all 16 rows of the m16 tile) at hd 256, and the
+# speculative lane's draft steps at B=32: MHA at hd 64 (16 kv heads, the
+# flagship target as its own draft) and at hd 32 (8 kv heads, its
+# default draft).
 PAGED_SHAPES = [(32, 4, 4, 64, PAGED_NBLK, (513, 577)), (1, 4, 4, 64, PAGED_NBLK, (17, 18)),
                 (1, 4, 4, 64, PAGED_NBLK, (560, 561)), (4, 8, 1, 128, 16, (1, 257)),
-                (2, 1, 16, 256, 16, (100, 257))]
+                (2, 1, 16, 256, 16, (100, 257)), (32, 16, 1, 64, 40, (513, 582)),
+                (32, 8, 1, 32, 40, (513, 582))]
+# the fused call (the decode step's write in the launch), at the served
+# round and at the speculative lane's draft steps: the flagship target as
+# its own draft (MHA, hd 64) and its default draft (8 heads of 32)
+PAGED_FUSED = [(GEN_B, 4, 4, 64), (GEN_B, 16, 1, 64), (GEN_B, 8, 1, 32)]
+# kv_write_paged bit-exact: (KV, hd, W) at the served round (W = 1 and a
+# prefill tick's 128 and 512), a speculative verify of the MHA target (W =
+# k + 1) and a prefill tick of the default draft (hd 32)
+KV_PAGED_CASES = [(4, 64, 1), (4, 64, 128), (4, 64, 512), (16, 64, 5), (8, 32, 128)]
 # one batch whose rows' lengths span the table: the split follows each row
 PAGED_RAGGED = [1, 17, 300, 560, 1009]
 # the timed shapes: the served round at a late step (512 + 48 positions in
 # every row, so the same positions made dense are one n for the
-# two-segment kernel), and one row
-PAGED_TIMED = [(32, 4, 4, 64, PAGED_NBLK, 560), (1, 4, 4, 64, PAGED_NBLK, 560)]
-# the prefill tick's writes that kv_write_paged still takes: B=32 rows of
-# W=128 (the chunk floor) and W=512 (its ceiling)
-KV_PAGED_TIMED = (128, 512)
+# two-segment kernel), one row, and the speculative drafts' steps at B=32:
+# the default draft's (8 kv heads of 32) and the self-draft's (MHA, hd 64)
+PAGED_TIMED = [(32, 4, 4, 64, PAGED_NBLK, 560), (1, 4, 4, 64, PAGED_NBLK, 560),
+               (32, 8, 1, 32, PAGED_NBLK, 560), (32, 16, 1, 64, PAGED_NBLK, 560)]
+# the writes that kv_write_paged takes, (KV, hd, W): a prefill tick's B=32
+# rows of W=128 (the chunk floor) and W=512 (its ceiling), and a
+# speculative verify's W = k + 1 = 5 of the MHA target
+KV_PAGED_TIMED = [(4, 64, 128), (4, 64, 512), (16, 64, 5)]
 CONT_BURST = 8            # 1-row requests sent CONT_GAP_S apart: they join a running batch
 CONT_GAP_S = 0.020
 CONT_TURNS = 2            # ABBA turns of the lane comparison (4 walls each)
@@ -1464,13 +1521,12 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
     """flash_decode_paged against its plain version at PAGED_SHAPES and the
     ragged batch PAGED_RAGGED (one launch a call, a repeat the same bits,
     the same bits with the rows' blocks moved elsewhere in the pool), then
-    the fused call at the round's shape (B=32 from strided head views,
-    three inactive rows on scratch tables): o of the active rows against
-    the plain fused version, the pools bit-exact outside the scratch block,
-    a repeat and moved blocks the same bits.  kv_write_paged bit-exact and
-    in place at W=1 (three inactive rows) and at a prefill tick's W=128
-    and 512 (ragged widths).  Returns each kernel's largest absolute
-    error."""
+    the fused call at PAGED_FUSED (B=32 from strided head views, three
+    inactive rows on scratch tables): o of the active rows against the
+    plain fused version, the pools bit-exact outside the scratch block, a
+    repeat and moved blocks the same bits.  kv_write_paged bit-exact and in
+    place at KV_PAGED_CASES (W=1 with three inactive rows, ragged widths
+    otherwise).  Returns each kernel's largest absolute error."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 9)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1503,41 +1559,47 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
             f"{[b - a for a, b in fd.paged_shares(n_max, split, PAGED_BS)]}: o max abs err "
             f"{err:.3e} (tolerance {FLASH_O_ATOL}); a repeat and the blocks permuted in the pool "
             f"bit-identical")
-    # the fused call at the round's shape
-    B, KV, G, hd, nblk = GEN_B, 4, 4, 64, PAGED_NBLK
-    q, pk, pv, tables, lens = paged_inputs(torch, (B, KV, G, hd, nblk, (513, 577)), gen, dev)
-    active = torch.arange(B, device=dev) < B - 3
-    tables[~active] = 0  # an empty slot's table is the scratch block
-    qkv = torch.randn(B, 1, 6 * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
-    k_new = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
-    v_new = qkv[..., 5 * KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
-    mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
-    moved_tables[~active] = 0
-    pools = {name: (pk.clone(), pv.clone()) for name in ("got", "again", "want")}
-    before = fd.PAGED_LAUNCHES
-    got = fd.flash_decode_paged(q, *pools["got"], tables, lens, k_new, v_new, active)
-    again = fd.flash_decode_paged(q, *pools["again"], tables, lens, k_new, v_new, active)
-    moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens, k_new, v_new, active)
-    want = fd.flash_decode_paged_reference(q, *pools["want"], tables, lens, k_new, v_new, active)
-    torch.cuda.synchronize()
-    err = float((got[active].float() - want[active].float()).abs().max())
-    if fd.PAGED_LAUNCHES != before + 3 or err > FLASH_O_ATOL:
-        raise AssertionError(f"fused flash_decode_paged vs plain: o err {err:.3e} (tolerance "
-                             f"{FLASH_O_ATOL}), launches {fd.PAGED_LAUNCHES - before}")
-    if not all(torch.equal(pools["got"][i][1:], pools["want"][i][1:]) for i in (0, 1)):
-        raise AssertionError("the fused write is not the plain write outside the scratch block")
-    if not torch.equal(got[active], again[active]) or not torch.equal(got[active], moved[active]) \
-            or not all(torch.equal(pools["got"][i], pools["again"][i]) for i in (0, 1)):
-        raise AssertionError("the fused call: a repeat or the same rows in other blocks gave "
-                             "other bits")
-    max_err = max(max_err, err)
-    log(f"[paged-kernel] flash_decode_paged with the step's write fused in, B={B} (3 inactive "
-        f"rows) from strided head views, lengths {int(lens.min())}..{int(lens.max())}: o max abs "
-        f"err {err:.3e} on the active rows (tolerance {FLASH_O_ATOL}); the pools bit-exact "
-        f"outside the scratch block; a repeat and the blocks permuted bit-identical")
-    B, KV, hd, nblk = 32, 4, 64, PAGED_NBLK
+    # the fused call at the round's shape and the speculative drafts'
+    for B, KV, G, hd in PAGED_FUSED:
+        nblk = PAGED_NBLK
+        q, pk, pv, tables, lens = paged_inputs(torch, (B, KV, G, hd, nblk, (513, 577)), gen, dev)
+        active = torch.arange(B, device=dev) < B - 3
+        tables[~active] = 0  # an empty slot's table is the scratch block
+        qkv = torch.randn(B, 1, (2 * G + 4) * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
+        k_new = qkv[..., -2 * KV * hd:-KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+        v_new = qkv[..., -KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+        mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
+        moved_tables[~active] = 0
+        pools = {name: (pk.clone(), pv.clone()) for name in ("got", "again", "want")}
+        before = fd.PAGED_LAUNCHES
+        got = fd.flash_decode_paged(q, *pools["got"], tables, lens, k_new, v_new, active)
+        again = fd.flash_decode_paged(q, *pools["again"], tables, lens, k_new, v_new, active)
+        moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens, k_new, v_new, active)
+        want = fd.flash_decode_paged_reference(q, *pools["want"], tables, lens, k_new, v_new,
+                                               active)
+        torch.cuda.synchronize()
+        err = float((got[active].float() - want[active].float()).abs().max())
+        if fd.PAGED_LAUNCHES != before + 3 or err > FLASH_O_ATOL:
+            raise AssertionError(f"fused flash_decode_paged vs plain at (B,KV,G,hd)="
+                                 f"{(B, KV, G, hd)}: o err {err:.3e} (tolerance {FLASH_O_ATOL}), "
+                                 f"launches {fd.PAGED_LAUNCHES - before}")
+        if not all(torch.equal(pools["got"][i][1:], pools["want"][i][1:]) for i in (0, 1)):
+            raise AssertionError(f"the fused write at {(B, KV, G, hd)} is not the plain write "
+                                 f"outside the scratch block")
+        if not torch.equal(got[active], again[active]) \
+                or not torch.equal(got[active], moved[active]) \
+                or not all(torch.equal(pools["got"][i], pools["again"][i]) for i in (0, 1)):
+            raise AssertionError(f"the fused call at {(B, KV, G, hd)}: a repeat or the same rows "
+                                 f"in other blocks gave other bits")
+        max_err = max(max_err, err)
+        log(f"[paged-kernel] flash_decode_paged with the step's write fused in, (B,KV,G,hd)="
+            f"{(B, KV, G, hd)} (3 inactive rows) from strided head views, lengths "
+            f"{int(lens.min())}..{int(lens.max())}: o max abs err {err:.3e} on the active rows "
+            f"(tolerance {FLASH_O_ATOL}); the pools bit-exact outside the scratch block; a repeat "
+            f"and the blocks permuted bit-identical")
+    B, nblk = 32, PAGED_NBLK
     N = B * nblk + 1
-    for W in (1,) + KV_PAGED_TIMED:
+    for KV, hd, W in KV_PAGED_CASES:
         pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen).to(torch.bfloat16).to(dev)
                   for _ in range(2))
         tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
@@ -1560,7 +1622,8 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
         # block 0 (scratch) takes several invalid writes to one row, in no order
         if (kw.PAGED_LAUNCHES != before + 1 or (out[0].data_ptr(), out[1].data_ptr()) != ptrs
                 or not torch.equal(pk[1:], want_k[1:]) or not torch.equal(pv[1:], want_v[1:])):
-            raise AssertionError(f"kv_write_paged at W={W} is not the plain scatter")
+            raise AssertionError(f"kv_write_paged at KV={KV} hd={hd} W={W} is not the plain "
+                                 f"scatter")
         log(f"[paged-kernel] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16 through "
             f"[{B},{nblk}] tables, W={W} from strided head views: bit-exact outside the scratch "
             f"block, in place")
@@ -1615,8 +1678,9 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
     launched apart, the gather-then-dense alternative (paged_view, then the
     two-segment kernel), the two-segment kernel alone on the positions made
     dense beforehand, and the gather-then-SDPA library call (enable_gqa).
-    kv_write_paged at the prefill tick's writes (B=32, W in KV_PAGED_TIMED)
-    beside index_put_ on the pools with the indices made beforehand."""
+    kv_write_paged at KV_PAGED_TIMED (B=32: a prefill tick's writes and a
+    speculative verify's) beside index_put_ on the pools with the indices
+    made beforehand."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {"flash_decode_paged": [], "kv_write_paged": []}
@@ -1688,14 +1752,14 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
         f"{PAGED_NBLK} blocks, cold L2: kernel {k_ms:.5f} ms (a cluster of {split}), bound "
         f"{b_ms:.6f} ms ({b_by}) on {smi}")
     del sets
-    B, KV, hd, nblk = 32, 4, 64, PAGED_NBLK
+    B, nblk = 32, PAGED_NBLK
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     N = B * nblk + 1
-    pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen, device=dev).to(torch.bfloat16)
-              for _ in range(2))
     tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
     tables = tables.reshape(B, nblk).to(torch.int32)
-    for W in KV_PAGED_TIMED:
+    for KV, hd, W in KV_PAGED_TIMED:
+        pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
         qkv = torch.randn(B, W, 6 * KV * hd, generator=gen, device=dev).to(torch.bfloat16)
         k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
         v = qkv[..., 5 * KV * hd:].reshape(B, W, KV, hd).transpose(1, 2)  # as a tick has them
@@ -1720,8 +1784,8 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
         rows["kv_write_paged"].append({"shape": [N, KV, PAGED_BS, hd, B, W], "ms": k_ms,
                                        "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
                                        "bound_by": "bytes", "host_us_per_call": h_us})
-        log(f"[times] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16, a prefill "
-            f"tick's B={B} rows of W={W} at positions {512 - W}..511 from strided head views: "
+        log(f"[times] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16, B={B} rows "
+            f"of W={W} at positions {512 - W}..511 from strided head views: "
             f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, index_put_ with the indices made "
             f"beforehand {l_ms:.5f} ms, bound {b_ms:.6f} ms (bytes); wrapper host {h_us:.3f} us "
             f"per call on {smi}")
@@ -1973,7 +2037,7 @@ def continuous_phases(torch, dev, smi) -> list:
              f"(the attention alone; the main path's calls also take the step's write)"),
             ("kv_write_paged", "kv_write.cu", "scripts/probe_inplace.py:55",
              f"pools ({GEN_B * PAGED_NBLK + 1},4,{PAGED_BS},64) bf16, a prefill tick's B=32 rows "
-             f"of W={KV_PAGED_TIMED[0]}")):
+             f"of W={KV_PAGED_TIMED[0][2]}")):
         top = rows_t[name][0]
         out.append({
             "name": name,
@@ -1993,6 +2057,624 @@ def continuous_phases(torch, dev, smi) -> list:
     out[0]["design"] = PAGED_DESIGN
     out[0]["served"] = served
     return out
+
+
+# -- the generator's serving modes: sampling, the shared prefix, speculative ----
+
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+PREFIX_P = 200            # 12 full blocks of 16 and an 8-token tail
+PREFIX_S = GEN_S - PREFIX_P
+SPEC_K = 4
+# the speculative phase's pools: 32 rows of 512 + 64 + k + 1 positions of
+# the MHA target take 1,184 blocks of 16, past the default 1,024 (which
+# preempts, as the continuous phase shows); every engine of the phase,
+# the plain one it is timed against too, gets the same larger pool
+SPEC_POOL_BLOCKS = 2048
+SPEC_ENV = {"SELDON_TPU_GEN_POOL_BLOCKS": str(SPEC_POOL_BLOCKS)}
+MODE_TURNS = 2            # ABBA turns of each timing below (4 walls a side)
+COUNTED = ("flash_attention", "flash_decode", "kv_write", "flash_decode_paged", "kv_write_paged")
+
+
+def reset_counts(fa, fd, kw) -> None:
+    fa.LAUNCHES = fd.LAUNCHES = kw.LAUNCHES = fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
+
+
+def read_counts(fa, fd, kw) -> dict:
+    return dict(zip(COUNTED, (fa.LAUNCHES, fd.LAUNCHES, kw.LAUNCHES, fd.PAGED_LAUNCHES,
+                              kw.PAGED_LAUNCHES)))
+
+
+def mode_engine(torch, dev, doc: dict, continuous: bool, env=None):
+    """An engine for ``doc`` on the continuous lane or, with
+    SELDON_TPU_GEN_CONTINUOUS=0, the static lane (and ``env``'s knobs);
+    the environment as it was afterwards."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+
+    spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(doc))
+    env = {"SELDON_TPU_GEN_CONTINUOUS": "1" if continuous else "0", **(env or {})}
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        engine = EngineService(spec, device=dev)
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    if (engine.genserver is not None) != continuous:
+        raise AssertionError(f"the engine did not serve the {'continuous' if continuous else 'static'} "
+                             f"lane")
+    return engine
+
+
+def ndarray(x) -> dict:
+    return {"data": {"ndarray": np.asarray(x).tolist()}}
+
+
+def sse_first_frame(port: int, body: dict, engine) -> float:
+    """Seconds from sending a stream request to its first SSE frame; the
+    connection is closed then, and the call returns once the lane has
+    dropped the rest (the engine drained, then one more scheduler tick's
+    worth of wait), so the next measurement finds it idle."""
+    import socket
+
+    payload = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+        sock.sendall(b"POST /api/v0.1/generate/stream HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: %d\r\n\r\n"
+                     % len(payload) + payload)
+        f = sock.makefile("rb")
+        if not f.readline().startswith(b"HTTP/1.1 200"):
+            raise AssertionError("the stream was not answered 200")
+        while f.readline() not in (b"\r\n", b""):
+            pass
+        n = int(f.readline().strip(), 16)
+        frame = f.read(n)
+        first = time.perf_counter() - t0
+    if not frame.startswith(b"data: ") or "tokens" not in json.loads(frame[6:]):
+        raise AssertionError(f"the first frame is not a token frame: {frame[:80]!r}")
+    deadline = time.perf_counter() + 60
+    while not engine.drained() and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.2)  # a static stream's last chunk on the executor
+    return first
+
+
+def quartiles_ms(walls) -> list:
+    return [float(q) for q in np.percentile(np.asarray(walls) * 1e3, [25, 50, 75])]
+
+
+def check_gaps(torch, lm_apply, params, cfg, sets, dev, kth: int, what: str) -> dict:
+    """Every token of every (prompts, tokens) set teacher-forced through the
+    plain path: within TOKEN_DELTA of the ``kth`` largest logit."""
+    gaps, exacts = [], []
+    for prompts, toks in sets:
+        gap, exact = teacher_forced(torch, lm_apply, params, cfg, prompts, toks, dev, kth)
+        gaps.append(gap.ravel())
+        exacts.append(exact.ravel())
+    gaps, exacts = np.concatenate(gaps), np.concatenate(exacts)
+    bound = "maximum" if kth == 1 else f"{kth}th largest logit"
+    log(f"[{what}] teacher-forced, {gaps.size} tokens: the {bound} minus the token's logit "
+        f"max {gaps.max():.5f}, p99 {np.quantile(gaps, 0.99):.5f} (delta {TOKEN_DELTA}); "
+        f"{exacts.mean() * 100:.2f}% equal the plain argmax")
+    if gaps.max() > TOKEN_DELTA:
+        raise AssertionError(f"[{what}] a token is {gaps.max():.4f} below the {bound}")
+    return {"tokens": int(gaps.size), "gap_max": float(gaps.max()),
+            "argmax_share": float(exacts.mean())}
+
+
+def sampled_phase(torch, dev, smi, counts: dict) -> dict:
+    """10d. The flagship generator with temperature 0.8, top_k 50, top_p
+    0.95 on both lanes: each token in its teacher-forced top 50 (within
+    TOKEN_DELTA), a fresh engine with the same seed replays the first
+    request's answer, launch counts; then a continuous round's device time
+    and wall, sampled against greedy in turns."""
+    from seldon_core_tpu_torch.models import prng
+    from seldon_core_tpu_torch.models.generate import paged_decode_round
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    t_phase = time.perf_counter()
+    doc = gen_deployment(params=SAMPLING)
+    rng = np.random.default_rng(SEED + 21)
+    vocab, new = GEN_DIMS["vocab"], GEN_DIMS["max_new_tokens"]
+    probe = rng.integers(0, vocab, size=(1, GEN_S))
+    pb = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(CONT_BURST)]
+    p32 = rng.integers(0, vocab, size=(GEN_B, GEN_S))
+    p8 = rng.integers(0, vocab, size=(8, GEN_S))
+    out = {}
+
+    # the continuous lane: the probe first, 8 staggered 1-row requests, a 32-row one
+    engine = mode_engine(torch, dev, doc, continuous=True)
+    g = engine.genserver
+    if (g.temperature, g.top_k, g.top_p) != (0.8, 50, 0.95):
+        raise AssertionError("the continuous lane did not take the sampling knobs")
+    params, cfg = engine.states()["gen"]["params"], engine.compiled.units["gen"].cfg
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    try:
+        reset_counts(fa, fd, kw)
+        snap0 = g.snapshot()
+        s_probe = request("POST", url, ndarray(probe))
+        with ThreadPoolExecutor(CONT_BURST) as pool:
+            futs = []
+            for x in pb:
+                futs.append(pool.submit(request, "POST", url, ndarray(x)))
+                time.sleep(CONT_GAP_S)
+            sb = [f.result() for f in futs]
+        s32 = request("POST", url, ndarray(p32))
+        launches = read_counts(fa, fd, kw)
+        snap1 = g.snapshot()
+    finally:
+        server.stop(close_engine=False)
+    steps = snap1["decode_steps_total"] - snap0["decode_steps_total"]
+    ticks = snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+    want = {"flash_attention": 0, "flash_decode": 0, "kv_write": 0,
+            "flash_decode_paged": cfg.n_layers * steps, "kv_write_paged": cfg.n_layers * ticks}
+    if launches != want or not steps or not ticks:
+        raise AssertionError(f"[sampled] continuous launches {launches}, not {want}")
+    for k, v in launches.items():
+        counts[k] += v
+    y_probe = check_tokens(*s_probe, probe, "ndarray")
+    yb = np.concatenate([check_tokens(*r, x, "ndarray") for r, x in zip(sb, pb)])
+    y32 = check_tokens(*s32, p32, "ndarray")
+    log(f"[sampled] continuous lane, temperature 0.8 / top_k 50 / top_p 0.95: the probe, "
+        f"{CONT_BURST} staggered 1-row requests and a 32-row one in {steps} decode steps and "
+        f"{ticks} prefill ticks; launches {launches} = {cfg.n_layers} x {steps} "
+        f"flash_decode_paged and {cfg.n_layers} x {ticks} kv_write_paged")
+    out["continuous"] = check_gaps(torch, lm_apply, params, cfg,
+                                   ((np.concatenate([probe] + pb), np.concatenate([y_probe, yb])),
+                                    (p32, y32)), dev, SAMPLING["top_k"], "sampled")
+    out["continuous"].update(launches=launches, decode_steps=steps, prefill_ticks=ticks)
+
+    # the random source gives the same draws on the card as on the host
+    keys = torch.stack([prng.fold_in(prng.key(SEED + 23), i) for i in range(GEN_B)])
+    host_keys, host_g = prng.split(keys), prng.gumbel(keys, vocab)
+    dev_keys, dev_g = prng.split(keys.to(dev)), prng.gumbel(keys.to(dev), vocab)
+    g_diff = (dev_g.cpu() - host_g).abs()
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(dev_keys, host_keys)) \
+            or float(g_diff.max()) > 1e-6:
+        raise AssertionError(f"[sampled] the card's keys or Gumbel draws differ from the host's "
+                             f"(largest draw difference {float(g_diff.max()):.3e})")
+    out["gumbel_host_vs_card"] = {"draws": int(g_diff.numel()),
+                                  "bit_identical": int((g_diff == 0).sum()),
+                                  "max_abs_diff": float(g_diff.max())}
+    log(f"[sampled] models/prng.py on the card and on the host, {GEN_B} keys: splits "
+        f"bit-identical; of {g_diff.numel()} Gumbel draws {int((g_diff == 0).sum())} "
+        f"bit-identical, the largest difference {float(g_diff.max()):.3e}")
+
+    # a continuous round, sampled against greedy, in turns
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    with torch.inference_mode():
+        inputs = round_inputs(torch, cfg, GEN_B, GEN_S, dev, gen)
+        keys = torch.stack([prng.fold_in(prng.key(SEED), i) for i in range(GEN_B)]).to(dev)
+        rounds = {
+            "greedy": lambda: paged_decode_round(params, inputs[0], *inputs[1:], cfg, span=g.span,
+                                                 use_flash=True)[0],
+            "sampled": lambda: paged_decode_round(params, inputs[0], *inputs[1:], cfg, span=g.span,
+                                                  keys=keys, use_flash=True, **SAMPLING)[0]}
+        walls = {name: [] for name in rounds}
+        for fn in rounds.values():
+            fn()
+        for _ in range(MODE_TURNS):
+            for name in ("greedy", "sampled", "sampled", "greedy"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rounds[name]()
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t)
+        prof = {name: device_profile(torch, fn, f"round_{name}", by_name=True)
+                for name, fn in rounds.items()}
+        del inputs
+    per_step = {}
+    for name, pr in prof.items():
+        by_name = pr.pop("by_name")
+        sort_ms = sum(v for k, v in by_name.items() if "sort" in k.lower() or "radix" in k.lower())
+        per_step[name] = {"launches": pr["kernels"] / g.span, "device_ms": pr["kernel_ms"] / g.span,
+                          "sort_ms": sort_ms / g.span, "wall_quartiles_ms": quartiles_ms(walls[name]),
+                          "busy_share": pr["busy_share"]}
+        log(f"[times] a continuous round, B={GEN_B} at {GEN_S} cached positions, span {g.span}, "
+            f"{name}: wall p25/p50/p75 {'/'.join(f'{x:.3f}' for x in per_step[name]['wall_quartiles_ms'])} "
+            f"ms in turns; profiled {per_step[name]['launches']:.1f} launches and "
+            f"{per_step[name]['device_ms']:.4f} ms of device kernels a step, sort kernels "
+            f"{per_step[name]['sort_ms']:.4f} ms a step, busy {pr['busy_share'] * 100:.1f}% on {smi}")
+    out["round"] = per_step
+    out["sampling_device_ms_per_step"] = per_step["sampled"]["device_ms"] - per_step["greedy"]["device_ms"]
+    log(f"[times] sampling costs {out['sampling_device_ms_per_step']:.4f} ms of device kernels and "
+        f"{per_step['sampled']['launches'] - per_step['greedy']['launches']:.1f} launches a step "
+        f"over greedy (the sort over V={GEN_DIMS['vocab']}: {per_step['sampled']['sort_ms']:.4f} ms)")
+    engine.close()
+
+    replay = mode_engine(torch, dev, doc, continuous=True)  # a fresh engine, the same seed
+    try:
+        y_again = replay.genserver.submit(probe.astype(float)).future.result(120)
+    finally:
+        replay.close()
+    if not np.array_equal(y_again, y_probe):
+        raise AssertionError("[sampled] a fresh continuous engine did not replay the probe's answer")
+    log(f"[sampled] a fresh continuous engine with the same seed replayed the probe's {new} "
+        f"tokens")
+
+    # the static lane: a 1-row and an 8-row request (no batcher), a 1-row stream
+    static = mode_engine(torch, dev, doc, continuous=False)
+    if static.batcher is not None:
+        raise AssertionError("[sampled] the static lane batched a batch-coupled unit")
+    server = ServerThread(static)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    try:
+        reset_counts(fa, fd, kw)
+        s1 = request("POST", url, ndarray(probe))
+        s8 = request("POST", url, ndarray(p8))
+        events, first_s, _ = sse_stream(port, {**ndarray(probe), "chunk": STREAM_CHUNK})
+        launches = read_counts(fa, fd, kw)
+    finally:
+        server.stop(close_engine=False)
+    want = {"flash_attention": 3 * cfg.n_layers, "flash_decode": 3 * cfg.n_layers * (new - 1),
+            "kv_write": 0, "flash_decode_paged": 0, "kv_write_paged": 0}
+    if launches != want:
+        raise AssertionError(f"[sampled] static launches {launches}, not {want}")
+    if int(static.states()["gen"]["requests"]) != 2:
+        raise AssertionError("[sampled] the static lane did not count its two requests")
+    for k, v in launches.items():
+        counts[k] += v
+    y1 = check_tokens(*s1, probe, "ndarray")
+    y8 = check_tokens(*s8, p8, "ndarray")
+    streamed = np.concatenate([np.asarray(e["tokens"], np.int64) for e in events[:-1]], axis=1)
+    params = static.states()["gen"]["params"]
+    log(f"[sampled] static lane: a 1-row and an 8-row request and a 1-row stream (first frame "
+        f"{first_s * 1e3:.3f} ms); launches {launches}; the request counter at 2")
+    out["static"] = check_gaps(torch, lm_apply, params, cfg,
+                               ((np.concatenate([probe, p8, probe]),
+                                 np.concatenate([y1, y8, streamed])),), dev,
+                               SAMPLING["top_k"], "sampled")
+    out["static"]["launches"] = launches
+    static.close()
+    replay = mode_engine(torch, dev, doc, continuous=False)
+    try:
+        with torch.inference_mode():
+            y_again = replay.compiled.predict_arrays(probe.astype(np.float32))[0].cpu().numpy()
+    finally:
+        replay.close()
+    if not np.array_equal(y_again, y1):
+        raise AssertionError("[sampled] a fresh static engine did not replay the first answer")
+    log("[sampled] a fresh static engine with the same seed replayed the first request's answer")
+    log(f"[sampled] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def prefix_phase(torch, dev, smi, counts: dict) -> dict:
+    """10e. The flagship generator with a 200-token prefix_tokens (12 full
+    blocks of 16, an 8-token tail), greedy, on both lanes: a 1-row and a
+    32-row request of 312-token suffixes, every token within TOKEN_DELTA of
+    its teacher-forced maximum over prefix + suffix; on the continuous
+    lane the pinned blocks hold the prefix cache, bit for bit, before and
+    after, and kv_write_paged launches 12 for them, 12 a tail and 12 a
+    prefill tick; then TTFT against the same 512 tokens sent without a
+    prefix, in turns."""
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 31)
+    vocab, new = GEN_DIMS["vocab"], GEN_DIMS["max_new_tokens"]
+    prefix = rng.integers(0, vocab, size=PREFIX_P)
+    doc = gen_deployment(params={"prefix_tokens": ",".join(str(t) for t in prefix)})
+    p1 = rng.integers(0, vocab, size=(1, PREFIX_S))
+    p32 = rng.integers(0, vocab, size=(GEN_B, PREFIX_S))
+    full = lambda x: np.concatenate([np.broadcast_to(prefix, (len(x), PREFIX_P)), x], axis=1)  # noqa: E731
+    out = {}
+
+    engine = mode_engine(torch, dev, doc, continuous=True)
+    g = engine.genserver
+    state = engine.states()["gen"]
+    params, cfg, pc = state["params"], engine.compiled.units["gen"].cfg, state["prefix_cache"]
+
+    def pinned_bytes():
+        blocks = g._prefix_blocks
+        return {li: {kk: g._pool[li][kk][blocks].clone() for kk in "kv"} for li in g._pool}
+
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    try:
+        reset_counts(fa, fd, kw)
+        snap0 = g.snapshot()
+        s1 = request("POST", url, ndarray(p1))  # its first tick writes and pins the full blocks
+        before = pinned_bytes()
+        s32 = request("POST", url, ndarray(p32))
+        launches = read_counts(fa, fd, kw)
+        snap1 = g.snapshot()
+        after = pinned_bytes()
+    finally:
+        server.stop(close_engine=False)
+    full_blocks = PREFIX_P // g.block_size
+    steps = snap1["decode_steps_total"] - snap0["decode_steps_total"]
+    ticks = snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+    tails = snap1["prefix_tail_writes_total"] - snap0["prefix_tail_writes_total"]
+    want = {"flash_attention": 0, "flash_decode": 0, "kv_write": 0,
+            "flash_decode_paged": cfg.n_layers * steps,
+            "kv_write_paged": cfg.n_layers * (1 + tails + ticks)}
+    if launches != want or len(g._prefix_blocks) != full_blocks or tails < 1 + GEN_B:
+        raise AssertionError(f"[prefix] continuous launches {launches}, not {want} ({tails} "
+                             f"tails, {len(g._prefix_blocks)} pinned blocks)")
+    for k, v in launches.items():
+        counts[k] += v
+    for li in before:
+        for kk in "kv":
+            # the pool's [blocks, KV, bs, hd] against the cache's [1, KV, P, hd]
+            want_b = pc[li][kk][0, :, :full_blocks * g.block_size].reshape(
+                cfg.kv_heads, full_blocks, g.block_size, cfg.head_dim).transpose(0, 1)
+            if not torch.equal(before[li][kk], want_b) or not torch.equal(after[li][kk], want_b):
+                raise AssertionError(f"[prefix] pinned blocks of {li}.{kk} are not the prefix "
+                                     f"cache, or changed during the phase")
+    if snap1["kv_blocks"]["pinned"] != full_blocks:
+        raise AssertionError(f"[prefix] {snap1['kv_blocks']['pinned']} blocks pinned")
+    log(f"[prefix] continuous lane, a {PREFIX_P}-token prefix ({full_blocks} blocks pinned, an "
+        f"{PREFIX_P - full_blocks * g.block_size}-token tail): a 1-row and a 32-row request of "
+        f"{PREFIX_S}-token suffixes in {steps} decode steps, {ticks} prefill ticks and {tails} "
+        f"tail writes ({snap1['preempted_total'] - snap0['preempted_total']} preemptions); "
+        f"launches {launches} = {cfg.n_layers} x {steps} flash_decode_paged and {cfg.n_layers} x "
+        f"(1 + {tails} + {ticks}) kv_write_paged; the pinned blocks hold the prefix cache bit "
+        f"for bit before and after")
+    y1 = check_tokens(*s1, p1, "ndarray")
+    y32 = check_tokens(*s32, p32, "ndarray")
+    out["continuous"] = check_gaps(torch, lm_apply, params, cfg,
+                                   ((full(p1), y1), (full(p32), y32)), dev, 1, "prefix")
+    out["continuous"].update(launches=launches, tail_writes=tails, prefill_ticks=ticks)
+
+    static = mode_engine(torch, dev, doc, continuous=False)
+    server = ServerThread(static)
+    sport = server.start()
+    try:
+        reset_counts(fa, fd, kw)
+        s1 = request("POST", f"http://127.0.0.1:{sport}/api/v0.1/predictions", ndarray(p1))
+        s32 = request("POST", f"http://127.0.0.1:{sport}/api/v0.1/predictions", ndarray(p32))
+        launches = read_counts(fa, fd, kw)
+    finally:
+        server.stop(close_engine=False)
+    want = {"flash_attention": 0, "flash_decode": 2 * cfg.n_layers * (new - 1), "kv_write": 0,
+            "flash_decode_paged": 0, "kv_write_paged": 0}
+    if launches != want:
+        raise AssertionError(f"[prefix] static launches {launches}, not {want}")
+    for k, v in launches.items():
+        counts[k] += v
+    log(f"[prefix] static lane: a 1-row and a 32-row request; launches {launches} (the suffix "
+        f"prefills as a causal segment through the plain attention; every decode step through "
+        f"flash_decode_two_tier over main = prefix + suffix)")
+    y1 = check_tokens(*s1, p1, "ndarray")
+    y32 = check_tokens(*s32, p32, "ndarray")
+    out["static"] = check_gaps(torch, lm_apply, static.states()["gen"]["params"], cfg,
+                               ((full(p1), y1), (full(p32), y32)), dev, 1, "prefix")
+    out["static"]["launches"] = launches
+
+    # TTFT (the first SSE frame at chunk 1), prefixed against the same 512
+    # tokens sent whole to an engine without the prefix, in turns; on the
+    # continuous lane both engines prefill in one chunk of up to 512 (the
+    # adaptive chunk would otherwise differ between them with their history)
+    engine.close()
+    one_chunk = {"SELDON_TPU_GEN_PREFILL_CHUNK": str(GEN_S)}
+    timed = {True: {"prefix": mode_engine(torch, dev, doc, True, env=one_chunk),
+                    "whole": mode_engine(torch, dev, gen_deployment(), True, env=one_chunk)},
+             False: {"prefix": static,
+                     "whole": mode_engine(torch, dev, gen_deployment(), continuous=False)}}
+    ttft = {}
+    for continuous, by_name in timed.items():
+        lane = "continuous" if continuous else "static"
+        servers = {name: ServerThread(e) for name, e in by_name.items()}
+        ports = {name: srv.start() for name, srv in servers.items()}
+        try:
+            for rows, x in (("1-row", p1), ("32-row", p32)):
+                bodies = {"prefix": {**ndarray(x), "chunk": 1},
+                          "whole": {**ndarray(full(x)), "chunk": 1}}
+                walls = {name: [] for name in bodies}
+                for name in bodies:  # warm-up
+                    sse_first_frame(ports[name], bodies[name], by_name[name])
+                for _ in range(MODE_TURNS):
+                    for name in ("prefix", "whole", "whole", "prefix"):
+                        walls[name].append(sse_first_frame(ports[name], bodies[name],
+                                                           by_name[name]))
+                ttft[f"{lane}_{rows}"] = {name: quartiles_ms(w) for name, w in walls.items()}
+                log(f"[times] {lane} lane, {rows} TTFT (first SSE frame at chunk 1) p25/p50/p75, "
+                    f"in turns: {PREFIX_P}-token prefix + {PREFIX_S}-token suffix "
+                    f"{'/'.join(f'{v:.3f}' for v in ttft[f'{lane}_{rows}']['prefix'])} ms, the "
+                    f"same {GEN_S} tokens without the prefix "
+                    f"{'/'.join(f'{v:.3f}' for v in ttft[f'{lane}_{rows}']['whole'])} ms"
+                    f"{f' (prefill chunk {GEN_S})' if continuous else ''}, on {smi}")
+        finally:
+            for srv in servers.values():
+                srv.stop()
+    out["ttft_ms"] = ttft
+    log(f"[prefix] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def spec_deployment(self_draft: bool) -> dict:
+    """SpeculativeGenerator with the flagship target's dims (MHA: the unit
+    has no n_kv_heads), bf16, k=4, 64 new tokens; the default draft, or a
+    draft of the target's own dims."""
+    params = {k: v for k, v in GEN_DIMS.items() if k != "n_kv_heads"}
+    params.update(k=SPEC_K, dtype="bfloat16", n_kv_heads=None, quant=None)
+    if self_draft:
+        params.update(draft_d_model=GEN_DIMS["d_model"], draft_n_heads=GEN_DIMS["n_heads"],
+                      draft_n_layers=GEN_DIMS["n_layers"], draft_d_ff=GEN_DIMS["d_ff"])
+    return gen_deployment(params=params, class_path="SpeculativeGenerator")
+
+
+def speculative_phase(torch, dev, smi, counts: dict) -> dict:
+    """10f. SpeculativeGenerator at the flagship target's dims with two
+    drafts, the default one and the target itself (its weights carried
+    into the draft), on both lanes: every token within TOKEN_DELTA of the
+    target's teacher-forced maximum; the continuous lane launches
+    flash_decode_paged once a draft layer a draft step and kv_write_paged
+    once a target layer a verify (and a layer of each model a prefill
+    tick); the self-draft accepts at least 2 proposals a row-round; then
+    the 32-row request's tokens/s of both drafts against the plain
+    continuous lane serving the same target, in turns."""
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    from seldon_core_tpu_torch.models.speculative import SpeculativeGenerator
+
+    t_phase = time.perf_counter()
+    # the unit's default dtype, float32, is one the paged kernel does not
+    # take: on the card the unit refuses it rather than serve the plain path
+    try:
+        SpeculativeGenerator(device=dev)
+    except ValueError as e:
+        log(f"[speculative] a float32 draft is refused on the card: {e}")
+    else:
+        raise AssertionError("[speculative] a float32 SpeculativeGenerator was accepted on the "
+                             "card, where its draft steps cannot take flash_decode_paged")
+    rng = np.random.default_rng(SEED + 41)
+    vocab, new = GEN_DIMS["vocab"], GEN_DIMS["max_new_tokens"]
+    p1 = rng.integers(0, vocab, size=(1, GEN_S))
+    p32 = rng.integers(0, vocab, size=(GEN_B, GEN_S))
+    p8 = rng.integers(0, vocab, size=(8, GEN_S))
+    out = {"pool_blocks": SPEC_POOL_BLOCKS}
+    engines = {}
+    for name, self_draft in (("default", False), ("self", True)):
+        reset_counts(fa, fd, kw)
+        engine = mode_engine(torch, dev, spec_deployment(self_draft), continuous=True,
+                             env=SPEC_ENV)
+        probes = read_counts(fa, fd, kw)
+        if self_draft:  # the draft carries the target's weights
+            target = engine.states()["gen"]["target"]
+            engine.load_states({"gen": {"target": target, "draft": target}})
+        engines[name] = engine
+        unit, g = engine.compiled.units["gen"], engine.genserver
+        if not g.spec or not g.use_flash or probes["flash_decode_paged"] != 1 \
+                or probes["kv_write_paged"] != 2:
+            raise AssertionError(f"[speculative] the {name} draft's scheduler did not probe its "
+                                 f"kernels ({probes})")
+        d = unit.draft_cfg
+        log(f"[speculative] {name} draft: d_model {d.d_model}, {d.n_heads} heads of {d.head_dim}, "
+            f"{d.n_layers} layers, d_ff {d.d_ff}; the target {unit.target_cfg.d_model} wide, "
+            f"{unit.target_cfg.n_heads} heads (MHA) of {unit.target_cfg.head_dim}, "
+            f"{unit.target_cfg.n_layers} layers, bf16, k={SPEC_K}")
+        server = ServerThread(engine)
+        port = server.start()
+        url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+        try:
+            reset_counts(fa, fd, kw)
+            snap0 = g.snapshot()
+            s1 = request("POST", url, ndarray(p1))
+            s32 = request("POST", url, ndarray(p32))
+            launches = read_counts(fa, fd, kw)
+            snap1 = g.snapshot()
+        finally:
+            server.stop(close_engine=False)
+        rounds = snap1["spec_rounds_total"] - snap0["spec_rounds_total"]
+        row_rounds = snap1["spec_row_rounds_total"] - snap0["spec_row_rounds_total"]
+        accepted = snap1["spec_accepted_total"] - snap0["spec_accepted_total"]
+        ticks = snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+        t_layers, d_layers = unit.target_cfg.n_layers, d.n_layers
+        want = {"flash_attention": 0, "flash_decode": 0, "kv_write": 0,
+                "flash_decode_paged": d_layers * (SPEC_K + 1) * rounds,
+                "kv_write_paged": t_layers * rounds + (t_layers + d_layers) * ticks}
+        if launches != want or not rounds:
+            raise AssertionError(f"[speculative] {name} draft launches {launches}, not {want}")
+        for k, v in launches.items():
+            counts[k] += v
+        mean_accepted = accepted / row_rounds
+        log(f"[speculative] continuous lane, {name} draft: a 1-row and a 32-row {GEN_S}-token "
+            f"request in {rounds} rounds ({row_rounds} row-rounds, {ticks} prefill ticks, "
+            f"{snap1['preempted_total'] - snap0['preempted_total']} preemptions); launches "
+            f"{launches} = {d_layers} x {SPEC_K + 1} x {rounds} flash_decode_paged and "
+            f"{t_layers} x {rounds} + ({t_layers} + {d_layers}) x {ticks} kv_write_paged; "
+            f"{mean_accepted:.3f} of {SPEC_K} proposals accepted a row-round")
+        if self_draft and mean_accepted < 2:
+            raise AssertionError(f"[speculative] the self-draft accepted {mean_accepted:.3f} < 2 "
+                                 f"proposals a row-round")
+        target = engine.states()["gen"]["target"]
+        y1 = check_tokens(*s1, p1, "ndarray")
+        y32 = check_tokens(*s32, p32, "ndarray")
+        out[name] = check_gaps(torch, lm_apply, target, unit.target_cfg,
+                               ((p1, y1), (p32, y32)), dev, 1, "speculative")
+        out[name].update(launches=launches, rounds=rounds, row_rounds=row_rounds,
+                         mean_accepted=mean_accepted, prefill_ticks=ticks)
+
+        static = mode_engine(torch, dev, spec_deployment(self_draft), continuous=False)
+        static.load_states({"gen": engine.states()["gen"]})
+        server = ServerThread(static)
+        sport = server.start()
+        try:
+            reset_counts(fa, fd, kw)
+            s8 = request("POST", f"http://127.0.0.1:{sport}/api/v0.1/predictions", ndarray(p8))
+            launches = read_counts(fa, fd, kw)
+        finally:
+            server.stop()
+        if any(launches.values()):
+            raise AssertionError(f"[speculative] the static lane launched {launches}")
+        y8 = check_tokens(*s8, p8, "ndarray")
+        log(f"[speculative] static lane, {name} draft: an 8-row request through "
+            f"speculative_generate (the reference's plain bitmap-masked attention, no kernel)")
+        out[f"{name}_static"] = check_gaps(torch, lm_apply, target, unit.target_cfg,
+                                           ((p8, y8),), dev, 1, "speculative")
+
+    # tokens/s of the 32-row request: both drafts against the plain lane
+    plain = mode_engine(torch, dev, gen_deployment(params={"n_kv_heads": 0}), continuous=True,
+                        env=SPEC_ENV)
+    target = engines["default"].states()["gen"]["target"]
+    plain.load_states({"gen": {"params": target,
+                               "requests": torch.zeros((), dtype=torch.int32, device=dev)}})
+    lanes = {"plain": plain, **engines}
+    servers = {name: ServerThread(e) for name, e in lanes.items()}
+    ports = {name: srv.start() for name, srv in servers.items()}
+    walls = {name: [] for name in lanes}
+    try:
+        answers = {}
+        for name in lanes:  # warm-up, and the three answers for the same prompts
+            answers[name] = check_tokens(*request(
+                "POST", f"http://127.0.0.1:{ports[name]}/api/v0.1/predictions", ndarray(p32)),
+                p32, "ndarray")
+        for _ in range(MODE_TURNS):
+            for name in ("plain", "default", "self", "self", "default", "plain"):
+                t = time.perf_counter()
+                st, _raw = request("POST", f"http://127.0.0.1:{ports[name]}/api/v0.1/predictions",
+                                   ndarray(p32))
+                walls[name].append(time.perf_counter() - t)
+                if st != 200:
+                    raise AssertionError(f"[speculative] {name}: HTTP {st}")
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    same = {name: float((answers[name] == answers["plain"]).mean()) for name in engines}
+    out["tokens_per_s"] = {name: GEN_B * new / float(np.median(w)) for name, w in walls.items()}
+    out["wall_quartiles_ms"] = {name: quartiles_ms(w) for name, w in walls.items()}
+    out["same_tokens_as_plain"] = same
+    log(f"[times] the 32-row {GEN_S}-token request, {new} new tokens, in turns ({2 * MODE_TURNS} "
+        f"walls each): plain continuous lane "
+        f"{'/'.join(f'{v:.3f}' for v in out['wall_quartiles_ms']['plain'])} ms "
+        f"({out['tokens_per_s']['plain']:.1f} tokens/s); speculative, default draft "
+        f"{'/'.join(f'{v:.3f}' for v in out['wall_quartiles_ms']['default'])} ms "
+        f"({out['tokens_per_s']['default']:.1f} tokens/s, {out['default']['mean_accepted']:.3f} "
+        f"accepted a row-round); self-draft "
+        f"{'/'.join(f'{v:.3f}' for v in out['wall_quartiles_ms']['self'])} ms "
+        f"({out['tokens_per_s']['self']:.1f} tokens/s, {out['self']['mean_accepted']:.3f} "
+        f"accepted); tokens equal to the plain lane's: {json.dumps(same)}, on {smi}")
+    log(f"[speculative] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def serving_modes_phases(torch, dev, smi):
+    """Phases 10d-10f: the generator's sampled, shared-prefix and
+    speculative modes on both lanes.  Returns (the launches each kernel
+    made on these paths, their numbers)."""
+    counts = {k: 0 for k in COUNTED}
+    modes = {"sampled": sampled_phase(torch, dev, smi, counts),
+             "prefix": prefix_phase(torch, dev, smi, counts),
+             "speculative": speculative_phase(torch, dev, smi, counts), "card": smi}
+    log(json.dumps({"serving_modes": modes}))
+    return counts, modes
 
 
 def copy_batch(rng, vocab: int):
@@ -2522,6 +3204,15 @@ def main() -> int:
     t0 = time.perf_counter()
     paged_row, kv_paged_row = continuous_phases(torch, dev, smi)
     log(f"[continuous] phases wall {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    mode_counts, _modes = serving_modes_phases(torch, dev, smi)
+    log(f"[modes] phases 10d-10f wall {time.perf_counter() - t0:.2f} s")
+    for row in (flash_row, decode_row, kv_row, paged_row, kv_paged_row):
+        # the main path's launches: each served path's, counted from 0 just
+        # before it and read just after
+        row["launches_by_path"] = {"earlier phases": row["launches"],
+                                   "sampled, prefix and speculative": mode_counts[row["name"]]}
+        row["launches"] += mode_counts[row["name"]]
     dq_row, dkv_row = training_phases(torch, dev, smi)
 
     log(smi)

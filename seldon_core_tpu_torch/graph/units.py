@@ -70,6 +70,15 @@ class Unit:
     #: True if every method is a pure function of (state, inputs); the
     #: compiled executor refuses impure units
     pure: bool = True
+    #: True when predict returns a state update that depends on the rows
+    #: seen (a request counter, streaming statistics): the engine gives such
+    #: a unit no batcher, runs one dispatch at a time and writes the state
+    #: back after each
+    updates_state_on_predict: bool = False
+    #: True when a row's output depends on the other rows of its batch (one
+    #: sampling key for the batch, a batch-global reduction): the engine
+    #: never coalesces concurrent requests through such a unit
+    batch_coupled: bool = False
     #: optional output feature names (the wrappers' class_names)
     class_names: Optional[list] = None
     #: static meta tags merged into every response this unit touches

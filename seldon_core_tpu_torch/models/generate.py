@@ -1,5 +1,5 @@
-"""Autoregressive greedy decoding with a KV cache — the port's counterpart
-of the static per-request path and the stream of
+"""Autoregressive decoding with a KV cache — the port's counterpart of the
+static per-request path, the stream and the paged programs of
 ``seldon_core_tpu/models/generate.py``.
 
 ``TransformerGenerator`` is a MODEL unit: prompt token rows in, generated
@@ -26,6 +26,22 @@ steps, a ``STREAM_CHUNK_CAP``-slot chunk buffer that ``grow_merge`` folds
 into main when it fills, and the after-eos latch on the device
 (``_chunk_eos_mask``).
 
+Sampling (``sample_token``): greedy at ``temperature <= 0``; otherwise
+the reference's truncation (``top_k`` as a threshold at the k-th largest
+logit, ``top_p`` as the nucleus cut of the sorted softmax) and JAX's
+categorical draw, ``argmax(logits + gumbel)``.  The Gumbel noise comes
+from ``models/prng.py``, a counter-based generator keyed by integers
+(its bits differ from ``jax.random``'s by design): one key per request,
+``fold_in(key(seed), requests)``, split once a step, as the reference
+threads its key; the continuous lane carries one key per sequence.
+
+The shared prefix (``prefix_tokens``): ``init_state`` prefills the prefix
+once at B=1; a request then prefills only its suffix, as a causal segment
+at global offset P over the broadcast prefix (``build_prefix_main``,
+``segment_forward(segment=True)``, the plain attention: the flash forward
+has no mid-sequence causal mask, as in the reference), and decodes over
+the P + S main cache through ``flash_decode_two_tier``.
+
 Where the JAX package rebuilds a buffer (``dynamic_update_slice`` inside a
 jitted scan), the port writes it in place: the prefill writes K/V into the
 cache by slice assignment, a decode step writes its slot of the chunk
@@ -33,16 +49,15 @@ buffer, and ``merge_chunk`` copies the chunk into main in place.  The
 decode loop (``lax.scan`` in JAX) is a Python loop.  The JAX package's
 telemetry (TTFT, decode rate, the flight recorder) is not ported.
 
-Served here: greedy decoding (``temperature`` 0), float caches, no shared
-prefix, seeded or trained weights (``weights_path``, loaded in
-``init_state`` as the JAX unit does).  The constructor and
-``stream_chunks`` refuse, with the ROADMAP item that will port each:
-``temperature > 0`` (sampling, [5d] b), ``prefix_tokens`` (prefix cache,
-[5d] c), ``quant`` / ``kv_quant`` other than "none" ([2]) and
-``moe_every > 0``.  Speculative decoding is [5d] d.
+Served here: greedy and sampled decoding, the shared prefix, float
+caches, seeded or trained weights (``weights_path``, loaded in
+``init_state`` as the JAX unit does).  The constructor refuses, with the
+ROADMAP item that will port each, ``quant`` / ``kv_quant`` other than
+"none" ([2]) and ``moe_every > 0`` ([5e]).  Speculative decoding is
+``models/speculative.py``.
 
 The paged KV pool of the continuous lane (``runtime/genserver.py``; the
-reference's ``generate.py:985-1210``): a per-layer pool of fixed-size
+reference's ``generate.py:985-1351``): a per-layer pool of fixed-size
 blocks, block 0 the scratch block, and a block table per row.
 
   * ``init_block_pool`` makes the pools; float pools only.  The port lays
@@ -58,34 +73,44 @@ blocks, block 0 the scratch block, and a block table per row.
     ``_attend_paged`` attends with per-row starts, ``_paged_block`` is a
     decoder block over the pool;
   * ``paged_forward``: W tokens a row at per-row offsets (the chunked
-    prefill), ``last_only`` for the next-token logits;
-  * ``paged_decode_round``: ``span`` greedy steps for the whole in-flight
-    batch with static shapes: ``token``, ``n_valid``, ``active`` and
-    ``seen_eos`` stay device tensors across the steps (a Python loop
-    where the reference scans) and the loop makes no host sync; the
-    caller reads back the round's [B, span] tokens once.
+    prefill and the speculative verify), ``last_only`` for the next-token
+    logits;
+  * ``paged_decode_round``: ``span`` steps for the whole in-flight batch
+    with static shapes: ``token``, ``n_valid``, ``active``, ``seen_eos``
+    and the per-row sampling ``keys`` stay device tensors across the
+    steps (a Python loop where the reference scans) and the loop makes no
+    host sync; the caller reads back the round's [B, span] tokens once;
+  * ``paged_spec_round``: k + 1 draft steps, one (k + 1)-wide target
+    verify and greedy acceptance;
+  * ``paged_write_prefix_blocks`` / ``paged_write_prefix_tail``: the
+    shared prefix's full blocks (once, pinned by the scheduler) and its
+    tail (into each sequence's first private block), each one
+    ``kv_write_paged`` launch a layer with ``use_flash``.
 
-With ``use_flash`` a W = 1 block (every decode step) writes and attends
-in one ``flash_decode_paged`` call, the write fused into the attention's
-launch; there an inactive row writes nothing, where the reference sends
-its write to the scratch block 0, so the pools differ from the
-reference's only in block 0, which no active row reads.  A W > 1 block
-(the prefill tick) writes through ``kv_write_paged`` and attends through
-the plain ``_attend_paged``, as the reference does (neither package has
-a kernel there).  On CUDA the wrappers launch their kernels, on the CPU
-they run their plain versions.  The pools are written in place, where
-the reference donates them through each jitted program.
+With ``use_flash`` a W = 1 block (every decode step and draft step)
+writes and attends in one ``flash_decode_paged`` call, the write fused
+into the attention's launch; there an inactive row writes nothing, where
+the reference sends its write to the scratch block 0, so the pools differ
+from the reference's only in block 0, which no active row reads.  A
+W > 1 block (the prefill tick, the verify) writes through
+``kv_write_paged`` and attends through the plain ``_attend_paged``, as the
+reference does (neither package has a kernel there).  On CUDA the
+wrappers launch their kernels, on the CPU they run their plain versions.
+The pools are written in place, where the reference donates them through
+each jitted program.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import itertools
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
-from seldon_core_tpu_torch.graph.units import Unit, register_unit
+from seldon_core_tpu_torch.graph.units import Unit, UnitAux, register_unit
+from seldon_core_tpu_torch.models import prng
 from seldon_core_tpu_torch.models.transformer import (
     LMConfig,
     _attention,
@@ -116,9 +141,13 @@ from seldon_core_tpu_torch.ops.quant import lm_matmul
 
 __all__ = ["init_cache", "init_chunk", "prefill", "decode_step",
            "decode_step_two_tier", "merge_chunk", "generate", "sample_token",
-           "mask_after_eos", "sanitize_prompt", "grow_merge", "stream_chunks",
+           "truncate_logits", "mask_after_eos", "sanitize_prompt", "grow_merge",
+           "stream_chunks", "build_prefix_main", "segment_forward",
            "init_block_pool", "paged_forward", "paged_decode_round",
+           "paged_spec_round", "paged_write_prefix_blocks", "paged_write_prefix_tail",
            "GEN_CHUNK_CAP", "STREAM_CHUNK_CAP", "TransformerGenerator"]
+
+_stream_counter = itertools.count()  # the process's sampled-stream key source
 
 #: generation chunk-buffer capacity: generations up to this length run
 #: with a prompt-sized main cache and no merges; longer ones merge the
@@ -258,19 +287,34 @@ def merge_chunk(main, chunk, n_main: int, cfg: LMConfig):
     return main
 
 
+def _attend_cached_causal(q, cache_layer, start: int):
+    """q [B,H,S,hd] for global positions start..start+S-1 over the whole
+    cache: query i sees positions <= start + i (``_attend_cached_causal``,
+    ``generate.py:387``: the prefix's suffix segment).  The plain attention
+    of the paged pool's views, with one start for every row."""
+    starts = torch.full((q.shape[0],), int(start), dtype=torch.int32, device=q.device)
+    return attend_paged(q, cache_layer["k"], cache_layer["v"], starts)
+
+
 def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
-                  use_flash: bool = False):
+                  use_flash: bool = False, segment: bool = False):
     """One decoder block writing K/V into the cache at ``start`` (in place)
-    and attending: S > 1 is a prefill from position 0, causal over the
-    fresh K/V (the flash forward when ``use_flash`` and the shape contract
-    holds); S == 1 is a cached step over cache[:n_valid], whose K/V go to
-    slot ``start`` = n_valid - 1 (one ``flash_decode_two_tier`` launch, the
+    and attending.  ``segment``: a mid-sequence causal segment at global
+    offset ``start`` over the whole cache (the plain attention, with or
+    without ``use_flash``: the flash forward has no mid-sequence mask);
+    else S > 1 is a prefill from position 0, causal over the fresh K/V (the
+    flash forward when ``use_flash`` and the shape contract holds), and
+    S == 1 a cached step over cache[:n_valid], whose K/V go to slot
+    ``start`` = n_valid - 1 (one ``flash_decode_two_tier`` launch, the
     write fused in, when ``use_flash``)."""
     S = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, start)
-    if S > 1:
+    if segment or S > 1:
         cache_layer["k"][:, :, start:start + S] = k
         cache_layer["v"][:, :, start:start + S] = v
+    if segment:
+        a = _attend_cached_causal(q, cache_layer, start)
+    elif S > 1:
         a = _attention(q, k, v, causal=True, use_flash=use_flash)
     else:
         a = _attend_cached(q, cache_layer, n_valid, use_flash, k, v)
@@ -278,14 +322,14 @@ def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
 
 
 def segment_forward(params, tokens, cache, start: int, cfg: LMConfig,
-                    use_flash: bool = False, last_only: bool = False):
-    """Forward S tokens from position ``start`` (0: the prefill) through the
-    cache, filling it; returns (logits [B, S, V] f32, or [B, 1, V] with
-    ``last_only``, cache)."""
+                    use_flash: bool = False, segment: bool = True, last_only: bool = False):
+    """Forward S tokens at global positions start.. through the cache,
+    filling it; returns (logits [B, S, V] f32, or [B, 1, V] with
+    ``last_only``, cache).  ``segment=False`` is the prefill (start 0)."""
     x = params["embed"][tokens.long()]
     for i in range(cfg.n_layers):
         x, cache[f"l{i}"] = _block_cached(
-            params[f"l{i}"], x, cache[f"l{i}"], start, tokens.shape[1], cfg, use_flash)
+            params[f"l{i}"], x, cache[f"l{i}"], start, tokens.shape[1], cfg, use_flash, segment)
     if last_only:
         x = x[:, -1:, :]  # before the (positionwise) norm: same numerics
     x = _rmsnorm(x, params["ln_f"])
@@ -295,7 +339,8 @@ def segment_forward(params, tokens, cache, start: int, cfg: LMConfig,
 def prefill(params, tokens, cache, cfg: LMConfig, use_flash: bool = False):
     """Consume the prompt in one pass, filling the cache.
     tokens [B, S] -> (last-position logits [B, V] f32, cache)."""
-    logits, cache = segment_forward(params, tokens, cache, 0, cfg, use_flash, last_only=True)
+    logits, cache = segment_forward(params, tokens, cache, 0, cfg, use_flash, segment=False,
+                                    last_only=True)
     return logits[:, -1, :], cache
 
 
@@ -310,25 +355,63 @@ def decode_step(params, token, cache, pos: int, cfg: LMConfig, use_flash: bool =
     return (x[:, 0, :] @ params["embed"].T).float(), cache
 
 
-def _greedy_only(temperature: float) -> None:
-    if temperature > 0.0:
-        raise ValueError(
-            f"temperature={temperature}: sampled decoding is not ported yet; "
-            f"the port serves greedy decoding (ROADMAP Queue 1 item [5d] b)"
-        )
+def build_prefix_main(prefix_cache, batch: int, total_len: int, cfg: LMConfig):
+    """A batched main cache [batch, KV, total_len, hd] per layer whose first
+    P slots hold the shared B=1 prefix cache, the rest zeros
+    (``build_prefix_main``, ``generate.py:522``): each request then
+    prefills only its suffix."""
+    out = {}
+    for li, layer in prefix_cache.items():
+        out[li] = {}
+        for kk, vv in layer.items():
+            t = vv.new_zeros((batch, vv.shape[1], total_len, vv.shape[3]))
+            t[:, :, :vv.shape[2]] = vv
+            out[li][kk] = t
+    return out
 
 
-def _no_prefix(what: str) -> None:
-    raise ValueError(
-        f"{what}: the shared-prefix cache is not ported yet (ROADMAP Queue 1 item [5d] c)"
-    )
+def truncate_logits(logits, temperature: float, top_k: int = 0, top_p: float = 0.0):
+    """``sample_token``'s truncation at ``temperature > 0``: logits /
+    temperature in f32, then ``top_k`` (clamped to V) keeps every logit >=
+    the k-th largest, ties included; ``top_p`` (only for 0 < top_p < 1)
+    sorts descending, takes the softmax of the sorted values, keeps the
+    tokens whose mass before them is < top_p and cuts at the smallest kept
+    value, ties at the cut kept (always at least one token).  Dropped
+    logits become -inf."""
+    logits = (logits / temperature).float()
+    if top_k and top_k > 0:
+        kk = min(int(top_k), logits.shape[-1])
+        kth = torch.topk(logits, kk, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p and 0.0 < top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        mass_before = torch.cumsum(probs, dim=-1) - probs
+        cutoff = torch.where(mass_before < top_p, srt, float("inf")).amin(dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
 
 
-def sample_token(logits, temperature: float = 0.0):
-    """[B, V] f32 logits -> [B] int32 greedy ids.  ``torch.argmax`` returns
-    the first maximal index, as ``jnp.argmax`` does, so ties break alike."""
-    _greedy_only(temperature)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def sample_token(logits, key=None, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, gumbel=None):
+    """[B, V] f32 logits -> [B] int32 next-token ids (``generate.py:546``).
+    ``temperature <= 0`` is greedy: ``torch.argmax`` returns the first
+    maximal index, as ``jnp.argmax`` does.  Otherwise ``truncate_logits``,
+    then JAX's categorical draw, ``argmax(gumbel + logits)``, with standard
+    Gumbel noise [B, V]: ``gumbel`` when given (the tests inject the
+    reference's draws), else from ``key``: one key [2] for the batch (the
+    noise of its B*V elements, as JAX draws one [B, V] array from one key)
+    or per-row keys [B, 2] (each row's noise from its own key alone)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = truncate_logits(logits, temperature, top_k, top_p)
+    if gumbel is None:
+        if key is None:
+            raise ValueError("sampled decoding (temperature > 0) needs a key or gumbel noise")
+        B, V = logits.shape
+        gumbel = (prng.gumbel(key, B * V).reshape(B, V) if key.ndim == 1
+                  else prng.gumbel(key, V))
+    return torch.argmax(gumbel + logits, dim=-1).to(torch.int32)
 
 
 def mask_after_eos(toks, eos_token: int):
@@ -357,49 +440,83 @@ def _chunk_eos_mask(toks, seen_eos, eos_token: int):
 
 def _chunk_step(params, token, main, chunk_buf, n_main: int, used: int,
                 cfg: LMConfig, n: int, temperature: float = 0.0,
-                use_flash: bool = False):
-    """n cached greedy steps over the two-tier cache (a Python loop where
-    JAX scans): main[:n_main] is read-only, new K/V go to chunk slots
-    used..used+n-1.  Returns (tokens [B, n], (token, chunk_buf, used'))."""
+                use_flash: bool = False, key=None, top_k: int = 0, top_p: float = 0.0):
+    """n cached steps over the two-tier cache (a Python loop where JAX
+    scans): main[:n_main] is read-only, new K/V go to chunk slots
+    used..used+n-1; a sampled step splits ``key`` and spends one half.
+    Returns (tokens [B, n], (token, chunk_buf, used', key'))."""
     toks = []
     for _ in range(n):
         logits, chunk_buf = decode_step_two_tier(
             params, token, main, chunk_buf, n_main, used, cfg, use_flash)
-        token = sample_token(logits, temperature)
+        sub = None
+        if temperature > 0.0:
+            key, sub = prng.split(key)
+        token = sample_token(logits, sub, temperature, top_k, top_p)
         toks.append(token)
         used += 1
-    return torch.stack(toks, dim=1), (token, chunk_buf, used)
+    return torch.stack(toks, dim=1), (token, chunk_buf, used, key)
+
+
+def _prefill_or_prefix(params, prompt, cfg: LMConfig, main_len: int, use_flash: bool, prefix):
+    """The first token's logits [B, V] and a main cache of ``main_len``
+    slots: the prompt's prefill, or with a shared ``prefix`` (B=1, P
+    slots) the suffix as a causal segment at offset P over a cache of
+    exactly P + S slots, zero-padded to ``main_len`` afterwards, as the
+    reference sizes it.  The segment takes the plain attention."""
+    B, S = prompt.shape
+    if prefix is None:
+        main = init_cache(cfg, B, main_len, prompt.device)
+        return prefill(params, prompt, main, cfg, use_flash)
+    P = prefix["l0"]["k"].shape[2]
+    main = build_prefix_main(prefix, B, P + S, cfg)
+    logits, main = segment_forward(params, prompt, main, P, cfg, segment=True, last_only=True)
+    if main_len > P + S:
+        main = {li: {kk: torch.cat([vv, vv.new_zeros(vv.shape[:2] + (main_len - P - S,)
+                                                      + vv.shape[3:])], dim=2)
+                     for kk, vv in layer.items()}
+                for li, layer in main.items()}
+    return logits[:, -1, :], main
 
 
 def generate(params, prompt, cfg: LMConfig, max_new_tokens: int = 32,
              temperature: float = 0.0, use_flash: bool = False,
-             eos_token: int = -1):
-    """prompt [B, S] int32 -> generated [B, max_new_tokens] int32, greedy;
-    rows that emit ``eos_token`` are eos-padded afterwards.  The first
-    token comes from the prefill; the chunk loop emits the rest over the
+             eos_token: int = -1, rng=None, top_k: int = 0, top_p: float = 0.0,
+             prefix: Optional[Dict[str, Any]] = None):
+    """prompt [B, S] int32 -> generated [B, max_new_tokens] int32: greedy
+    at ``temperature`` 0, else sampled (``sample_token``; ``rng`` a key
+    [2] from ``models/prng.py``, split as the reference splits its key);
+    rows that emit ``eos_token`` are eos-padded afterwards.  With a shared
+    ``prefix`` (a B=1 cache of P slots) ``prompt`` holds the suffix, which
+    prefills as a causal segment at offset P; positions are global, so the
+    answer equals generating over the concatenation.  The first token
+    comes from the prefill; the chunk loop emits the rest over the
     two-tier cache, merging a full chunk into main before the next one
     when ``max_new_tokens - 1`` exceeds ``GEN_CHUNK_CAP``.  ``use_flash``
-    takes the flash forward in the prefill and the decode kernels in every
-    step."""
-    _greedy_only(temperature)
+    takes the flash forward in a prefill (not in a prefix's suffix) and
+    the decode kernels in every step."""
     B, S = prompt.shape
     dev = prompt.device
+    P = 0 if prefix is None else prefix["l0"]["k"].shape[2]
     chunked = max_new_tokens - 1 > GEN_CHUNK_CAP
     # single-chunk generations never merge, so main holds only the prompt
-    main_len = S + max_new_tokens if chunked else S
-    main = init_cache(cfg, B, main_len, dev)
-    logits, main = prefill(params, prompt, main, cfg, use_flash)
-    token = sample_token(logits, temperature)
+    main_len = P + S + max_new_tokens if chunked else P + S
+    logits, main = _prefill_or_prefix(params, prompt, cfg, main_len, use_flash, prefix)
+    key0 = None
+    if temperature > 0.0:
+        key0, rng = prng.split(prng.key(0, dev) if rng is None else rng)
+    token = sample_token(logits, key0, temperature, top_k, top_p)
     out = [token[:, None]]
-    n_main, remaining = S, max_new_tokens - 1
+    n_main, remaining = P + S, max_new_tokens - 1
     while remaining > 0:
         n = min(remaining, GEN_CHUNK_CAP) if chunked else remaining
         # only the valid prefix of main is read: no mask over unwritten slots
         valid = {li: {kk: vv[:, :, :n_main] for kk, vv in layer.items()}
                  for li, layer in main.items()}
         chunk = init_chunk(cfg, B, GEN_CHUNK_CAP if chunked else n, dev)
-        toks, (token, chunk, _) = _chunk_step(
-            params, token, valid, chunk, n_main, 0, cfg, n, temperature, use_flash)
+        toks, (token, chunk, _, rng) = _chunk_step(
+            params, token, valid, chunk, n_main, 0, cfg, n, temperature, use_flash, rng,
+            top_k, top_p)
         out.append(toks)
         remaining -= n
         if remaining > 0:  # fold the finished chunk in before the next
@@ -420,30 +537,30 @@ def grow_merge(main, chunk, cfg: LMConfig, used: int):
 
 def stream_chunks(params, prompt, cfg: LMConfig, max_new_tokens: int, chunk: int = 8,
                   temperature: float = 0.0, use_flash: bool = False, eos_token: int = -1,
-                  prefix=None):
-    """Incremental greedy decoding: yields int32 token tensors [B, <=chunk]
-    whose concatenation equals ``generate(...)`` token for token (eos
-    padding included).  The first chunk is the prefill's token and chunk-1
-    steps; each later one is ``_chunk_step`` over ``chunk`` steps, chunks
-    capped at ``STREAM_CHUNK_CAP``.  When the chunk buffer would overflow,
-    main grows by the buffered tokens (``grow_merge``) and a fresh buffer
-    starts.  With ``eos_token`` set, masking runs on the device
+                  prefix=None, rng=None, top_k: int = 0, top_p: float = 0.0):
+    """Incremental decoding: yields int32 token tensors [B, <=chunk] whose
+    concatenation equals ``generate(...)`` token for token (the same
+    sampling and key, eos padding and shared prefix).  The first chunk is
+    the prefill's token and chunk-1 steps; each later one is
+    ``_chunk_step`` over ``chunk`` steps, chunks capped at
+    ``STREAM_CHUNK_CAP``.  When the chunk buffer would overflow, main grows
+    by the buffered tokens (``grow_merge``) and a fresh buffer starts.
+    With ``eos_token`` set, masking runs on the device
     (``_chunk_eos_mask``) and only the all-done flag is read back; once
     every row has stopped, the host pads the remaining chunks with eos and
-    the device does no more work.  Sampling (``temperature`` > 0) and a
-    shared ``prefix`` are refused, as the unit refuses them."""
-    _greedy_only(temperature)
-    if prefix is not None:
-        _no_prefix("prefix")
+    the device does no more work."""
     B, S = prompt.shape
     dev = prompt.device
     cap = STREAM_CHUNK_CAP
     chunk = min(int(chunk), cap)  # a chunk may not outgrow the buffer
-    main = init_cache(cfg, B, S, dev)
-    logits, main = prefill(params, prompt, main, cfg, use_flash)
-    first = sample_token(logits, temperature)
+    P = 0 if prefix is None else prefix["l0"]["k"].shape[2]
+    logits, main = _prefill_or_prefix(params, prompt, cfg, P + S, use_flash, prefix)
+    key0 = None
+    if temperature > 0.0:
+        key0, rng = prng.split(prng.key(0, dev) if rng is None else rng)
+    first = sample_token(logits, key0, temperature, top_k, top_p)
     token, chunk_buf = first, init_chunk(cfg, B, cap, dev)
-    n_main, used = S, 0
+    n_main, used = P + S, 0
     seen_eos = torch.zeros(B, dtype=torch.bool, device=dev)
     all_done = False
 
@@ -456,14 +573,15 @@ def stream_chunks(params, prompt, cfg: LMConfig, max_new_tokens: int, chunk: int
         return toks
 
     def emit(n):
-        nonlocal token, chunk_buf, main, n_main, used
+        nonlocal token, chunk_buf, main, n_main, used, rng
         if used + n > cap:  # grow main by the buffered tokens, continue
             main = grow_merge(main, chunk_buf, cfg, used)
             n_main += used
             chunk_buf = init_chunk(cfg, B, cap, dev)
             used = 0
-        toks, (token, chunk_buf, used) = _chunk_step(
-            params, token, main, chunk_buf, n_main, used, cfg, n, temperature, use_flash)
+        toks, (token, chunk_buf, used, rng) = _chunk_step(
+            params, token, main, chunk_buf, n_main, used, cfg, n, temperature, use_flash, rng,
+            top_k, top_p)
         return toks
 
     n_first = min(chunk - 1, max_new_tokens - 1)
@@ -573,33 +691,33 @@ def paged_forward(params, tokens, pool, tables, start, width, cfg: LMConfig,
 
 
 def paged_decode_round(params, pool, tables, token, n_valid, active, seen_eos, cfg: LMConfig,
-                       *, span: int, temperature: float = 0.0, eos_token: int = -1,
-                       use_flash: bool = False):
-    """``span`` greedy cached steps for the whole in-flight batch: the
+                       *, span: int, keys=None, temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 0.0, eos_token: int = -1, use_flash: bool = False):
+    """``span`` cached steps for the whole in-flight batch: the
     scheduler's unit of work between admission points.
 
     token [B] pending tokens, n_valid [B] per-row cache lengths, active
     [B] bool (empty slots emit 0 and write nothing with ``use_flash``,
-    to the scratch block without), seen_eos [B] bool
-    the after-eos latch (rows past their stop emit eos until the host
-    retires them), all device tensors that stay on the device across the
-    steps; tables [B, nblk] covers n_valid + span for every active row.
-    Static shapes, no host sync: the caller's readback of the tokens is
-    the round's one.  Returns (toks [B, span] int32, pool, token, n_valid,
-    seen_eos).  Sampled decoding (``temperature > 0``) is refused."""
-    _greedy_only(temperature)
+    to the scratch block without), seen_eos [B] bool the after-eos latch
+    (rows past their stop emit eos until the host retires them), keys [B,
+    2] the rows' own sampling keys (``models/prng.py``; needed when
+    ``temperature > 0``, split once a step, so co-batched rows never share
+    a draw), all device tensors that stay on the device across the steps;
+    tables [B, nblk] covers n_valid + span for every active row.  Static
+    shapes, no host sync: the caller's readback of the tokens is the
+    round's one.  Returns (toks [B, span] int32, pool, token, n_valid,
+    seen_eos, keys)."""
+    if temperature > 0.0 and keys is None:
+        raise ValueError("a sampled round (temperature > 0) needs per-row keys [B, 2]")
     valid = active[:, None]
     step = active.to(torch.int32)
     toks = []
     for _ in range(span):
-        lens = n_valid + 1  # this step's own K/V is written before it attends
-        x = params["embed"][token.long()][:, None, :]
-        for i in range(cfg.n_layers):
-            x, pool[f"l{i}"] = _paged_block(params[f"l{i}"], x, pool[f"l{i}"], tables, n_valid,
-                                            valid, cfg, use_flash, lens)
-        x = _rmsnorm(x, params["ln_f"])
-        logits = (x[:, 0, :] @ params["embed"].T).float()
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        logits = _paged_step_logits(params, pool, tables, token, n_valid, valid, cfg, use_flash)
+        sub = None
+        if temperature > 0.0:
+            keys, sub = prng.split(keys)
+        nxt = sample_token(logits, sub, temperature, top_k, top_p)
         if eos_token >= 0:
             nxt = nxt.masked_fill(seen_eos, eos_token)
             seen_eos = seen_eos | (nxt == eos_token)
@@ -607,7 +725,98 @@ def paged_decode_round(params, pool, tables, token, n_valid, active, seen_eos, c
         n_valid = n_valid + step
         toks.append(nxt)
         token = nxt
-    return torch.stack(toks, dim=1), pool, token, n_valid, seen_eos
+    return torch.stack(toks, dim=1), pool, token, n_valid, seen_eos, keys
+
+
+def _paged_step_logits(params, pool, tables, token, n_valid, valid, cfg: LMConfig,
+                       use_flash: bool):
+    """One W = 1 step over the pool at per-row positions n_valid: [B, V]
+    f32 logits (the pool written in place)."""
+    lens = n_valid + 1  # the step's own K/V is written before it attends
+    x = params["embed"][token.long()][:, None, :]
+    for i in range(cfg.n_layers):
+        x, pool[f"l{i}"] = _paged_block(params[f"l{i}"], x, pool[f"l{i}"], tables, n_valid,
+                                        valid, cfg, use_flash, lens)
+    x = _rmsnorm(x, params["ln_f"])
+    return (x[:, 0, :] @ params["embed"].T).float()
+
+
+def paged_spec_round(t_params, d_params, t_pool, d_pool, t_tables, d_tables, token, n_valid,
+                     active, t_cfg: LMConfig, d_cfg: LMConfig, *, k: int,
+                     use_flash: bool = False):
+    """One speculative draft/verify round over the paged pools
+    (``generate.py:1211``; greedy, float pools).  The draft takes k + 1
+    single-token steps (the last writes the last proposal's K/V, so a fully
+    accepted round leaves no draft-cache hole), each layer of each a
+    ``flash_decode_paged`` launch with the step's write fused in when
+    ``use_flash``; the target verifies all k + 1 positions in one
+    ``paged_forward`` (``kv_write_paged``, then the plain attention);
+    greedy acceptance takes the longest matched prefix plus the corrected
+    token.  Rejected candidates' K/V stay as stale slots past the row's
+    length, which the next round overwrites before anything attends them.
+    Returns (new_toks [B, k+1], gained [B], corrected [B], t_pool,
+    d_pool): row b's output is new_toks[b, :gained[b]], its next pending
+    token corrected[b]."""
+    B, W = token.shape[0], k + 1
+    valid = active[:, None]
+    seg, tok, nv = [], token, n_valid
+    for _ in range(W):
+        logits = _paged_step_logits(d_params, d_pool, d_tables, tok, nv, valid, d_cfg, use_flash)
+        seg.append(tok)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        nv = nv + 1
+    seg = torch.stack(seg, dim=1)  # [B, W] = [pending, d1 .. dk]
+    widths = torch.where(active, W, 0).to(torch.int32)
+    t_logits, t_pool = paged_forward(t_params, seg, t_pool, t_tables, n_valid, widths, t_cfg,
+                                     last_only=False, use_flash=use_flash)
+    t_argmax = torch.argmax(t_logits, dim=-1).to(torch.int32)  # [B, W]
+    draft = seg[:, 1:]
+    mismatch = torch.cat([draft != t_argmax[:, :k],
+                          torch.ones(B, 1, dtype=torch.bool, device=seg.device)], dim=1)
+    a = torch.argmax(mismatch.to(torch.int32), dim=1)  # the first mismatch; k if none
+    corrected = torch.gather(t_argmax, 1, a[:, None])[:, 0]
+    padded = torch.cat([draft, torch.zeros(B, 1, dtype=torch.int32, device=seg.device)], dim=1)
+    new_toks = torch.where(torch.arange(W, device=seg.device)[None, :] < a[:, None], padded,
+                           corrected[:, None])
+    gained = torch.where(active, a + 1, 0).to(torch.int32)
+    return new_toks, gained, corrected, t_pool, d_pool
+
+
+def _prefix_write(pool, prefix, tables: List[int], lo: int, hi: int, use_flash: bool):
+    """Positions lo..hi-1 of the B=1 prefix cache into the pool through a
+    one-row table, starting at the table's position 0: one
+    ``_paged_write`` a layer (``kv_write_paged`` with ``use_flash``)."""
+    dev = pool["l0"]["k"].device
+    table = torch.tensor([tables], dtype=torch.int32, device=dev)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    valid = torch.ones(1, hi - lo, dtype=torch.bool, device=dev)
+    for li, layer in pool.items():
+        pl = prefix[li]
+        _paged_write(layer, table, start, valid, pl["k"][:, :, lo:hi], pl["v"][:, :, lo:hi],
+                     use_flash)
+    return pool
+
+
+def paged_write_prefix_blocks(pool, prefix, blocks: List[int], cfg: LMConfig,
+                              use_flash: bool = False):
+    """Write the full-block part of a shared prefix into pool ``blocks``
+    (len = P // block_size), once per deployment
+    (``paged_write_prefix_blocks``, ``generate.py:1297``): one B=1 write a
+    layer, the blocks as the table row, start 0, W = the blocks' slots.
+    Every admitted sequence then references these blocks through its
+    table."""
+    bs = pool["l0"]["k"].shape[2]
+    return _prefix_write(pool, prefix, list(blocks), 0, len(blocks) * bs, use_flash)
+
+
+def paged_write_prefix_tail(pool, prefix, blk: int, cfg: LMConfig, *, p0: int,
+                            use_flash: bool = False):
+    """Copy the shared prefix's tail (positions p0..P-1, short of a whole
+    block) into one private pool block ``blk`` at rows 0..r-1
+    (``paged_write_prefix_tail``, ``generate.py:1270``): one B=1 write a
+    layer.  The boundary block must be private: the sequence's own tokens
+    continue into it."""
+    return _prefix_write(pool, prefix, [int(blk)], p0, prefix["l0"]["k"].shape[2], use_flash)
 
 
 @register_unit("TransformerGenerator")
@@ -615,9 +824,17 @@ class TransformerGenerator(Unit):
     """Serving unit: prompt token rows in, generated token rows out
     (``[B, max_new_tokens]`` float32 token ids, no class names), registered
     under the JAX unit's name with its parameters.  Prompt values are
-    truncated to int32 and clamped to [0, vocab).  Greedy decoding is a
-    pure function of (weights, prompt) and each row is independent, so the
-    engine's batcher may stack and pad requests."""
+    truncated to int32 and clamped to [0, vocab).
+
+    Greedy decoding is a pure function of (weights, prompt) and each row
+    is independent, so the engine's batcher may stack and pad requests.
+    Sampled decoding (``temperature > 0``) draws a request's noise from one
+    key, ``fold_in(key(seed), requests)``, so a row's tokens depend on its
+    place in the batch, and the request counter in state advances with
+    every predict: the unit declares ``batch_coupled`` and
+    ``updates_state_on_predict``, and the engine neither coalesces nor pads
+    its requests.  ``prefix_tokens`` ("1,2,3") is a shared prefix whose
+    cache ``init_state`` builds once."""
 
     pure = True
     class_names = None
@@ -642,47 +859,78 @@ class TransformerGenerator(Unit):
             n_kv_heads=int(n_kv_heads), rope=bool(rope), rope_base=float(rope_base),
         )
         refuse_unported(self.cfg)
-        _greedy_only(float(temperature))
-        if str(prefix_tokens).replace(" ", "").replace(",", ""):
-            _no_prefix(f"prefix_tokens={prefix_tokens!r}")
-        # top_k / top_p shape sampled decoding only: greedy reads neither
         self.seed = int(seed)
         self.weights_path = str(weights_path)
         self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
         self.eos_token = int(eos_token)
+        self.prefix_ids = [int(t) for t in str(prefix_tokens).replace(" ", "").split(",")
+                           if t != ""]
+        for t in self.prefix_ids:
+            if not 0 <= t < self.cfg.vocab:
+                raise ValueError(f"prefix token {t} outside vocab [0, {self.cfg.vocab})")
+        self.batch_coupled = self.temperature > 0.0
+        self.updates_state_on_predict = self.temperature > 0.0
         self.device = resolve_device(device)
         self.use_flash = resolve_flash(str(attention), self.cfg, self.device, decode=True)
+        self._root_key = prng.key(self.seed, self.device)
 
     def init_state(self, rng: Optional[torch.Generator]):
-        # the JAX unit's state also counts requests, for sampled decoding;
-        # greedy decoding needs only the weights
         params = lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
-        return {"params": load_lm_weights(params, self.weights_path)}
+        params = load_lm_weights(params, self.weights_path)
+        state = {"params": params,
+                 "requests": torch.zeros((), dtype=torch.int32, device=self.device)}
+        if self.prefix_ids:
+            prompt = torch.tensor([self.prefix_ids], dtype=torch.int32, device=self.device)
+            _, state["prefix_cache"] = prefill(
+                params, prompt, init_cache(self.cfg, 1, len(self.prefix_ids), self.device),
+                self.cfg, self.use_flash)
+        return state
 
     def predict(self, state, X):
         prompt = sanitize_prompt(X, self.cfg.vocab)
-        return generate(state["params"], prompt, self.cfg,
-                        max_new_tokens=self.max_new_tokens,
-                        use_flash=self.use_flash,
-                        eos_token=self.eos_token).to(torch.float32)
+        sampled = self.temperature > 0.0
+        y = generate(state["params"], prompt, self.cfg,
+                     max_new_tokens=self.max_new_tokens, temperature=self.temperature,
+                     use_flash=self.use_flash, eos_token=self.eos_token,
+                     rng=prng.fold_in(self._root_key, state["requests"]) if sampled else None,
+                     top_k=self.top_k, top_p=self.top_p,
+                     prefix=state.get("prefix_cache")).to(torch.float32)
+        if sampled:
+            # every state key is kept (the prefix cache): only the counter moves
+            return y, UnitAux(state={**state, "requests": state["requests"] + 1})
+        return y
 
     def continuous_spec(self, state):
         """What the continuous lane (``runtime/genserver.py``) needs to
-        serve this unit: the params, the config, ``eos_token``,
-        ``max_new_tokens`` and whether to take the kernels.  None where the
-        reference returns None (MoE couples co-batched rows; the port
-        refuses MoE at construction already)."""
+        serve this unit: the params, the config, the sampling knobs and
+        seed, ``eos_token``, ``max_new_tokens``, the shared-prefix cache and
+        whether to take the kernels.  None where the reference returns None
+        (MoE couples co-batched rows; the port refuses MoE at construction
+        already)."""
         if self.cfg.moe_every > 0:
             return None
-        return {"params": state["params"], "cfg": self.cfg, "eos_token": self.eos_token,
-                "max_new_tokens": self.max_new_tokens, "use_flash": self.use_flash}
+        return {"params": state["params"], "cfg": self.cfg, "temperature": self.temperature,
+                "top_k": self.top_k, "top_p": self.top_p, "eos_token": self.eos_token,
+                "max_new_tokens": self.max_new_tokens,
+                "prefix_cache": state.get("prefix_cache"), "seed": self.seed,
+                "use_flash": self.use_flash}
 
     def stream_tokens(self, state, X, chunk: int = 8):
         """Incremental serving: yields int32 token tensors [B, <=chunk]
-        whose concatenation equals ``predict``'s output.  ``X`` (prompt
-        rows, any array) goes to the unit's device as float32, as the
-        engine's dispatch does."""
+        whose concatenation equals ``predict``'s output for greedy decoding.
+        ``X`` (prompt rows, any array) goes to the unit's device as float32,
+        as the engine's dispatch does.  Streams bypass the batcher and the
+        state write-back, so a sampled stream draws a key of its own per
+        call, ``fold_in(key(seed), n)`` with n from a process-wide counter,
+        as the reference does."""
         rows = torch.as_tensor(np.asarray(X, dtype=np.float32), device=self.device)
+        n = next(_stream_counter) if self.temperature > 0.0 else 0
         yield from stream_chunks(state["params"], sanitize_prompt(rows, self.cfg.vocab), self.cfg,
                                  max_new_tokens=self.max_new_tokens, chunk=int(chunk),
-                                 use_flash=self.use_flash, eos_token=self.eos_token)
+                                 temperature=self.temperature, use_flash=self.use_flash,
+                                 eos_token=self.eos_token, prefix=state.get("prefix_cache"),
+                                 rng=prng.fold_in(self._root_key, n), top_k=self.top_k,
+                                 top_p=self.top_p)

@@ -9,7 +9,12 @@ A single generator node is served by the continuous lane instead
 unit's ``continuous_spec`` and puts the ``GenLane`` in the batcher's
 place, and streams join the running batch (``genserver.stream``).
 ``SELDON_TPU_GEN_CONTINUOUS=0`` keeps the static lane (``MicroBatcher``
-and the unit's ``stream_tokens``).  Unlike the reference, a scheduler
+and the unit's ``stream_tokens``).  A ``batch_coupled`` unit (a
+sampled generator) gets no ``MicroBatcher``, as in the reference
+(``engine.py:323-338`` there); nor does a unit that
+``updates_state_on_predict``, whose dispatches run one at a time, each
+writing its state back (the reference batches such a unit unpadded;
+every such unit the port has is batch-coupled too).  Unlike the reference, a scheduler
 that fails to build (or whose kernels fail their probe) raises here: the
 engine never falls back to the static lane quietly.
 A dispatch runs on an executor thread (``_batched_predict_sync``): the
@@ -36,6 +41,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
@@ -109,6 +115,12 @@ class EngineService:
         dispatch_timeout_s: float = 30.0,
         device: DeviceLike = None,
     ):
+        # the disaggregated prefill/decode roles are not ported: a replica
+        # told to take one is refused, never served as a unified one
+        role = os.environ.get("ENGINE_GEN_ROLE", "").strip().lower() or "unified"
+        if role != "unified":
+            raise ValueError(f"ENGINE_GEN_ROLE={role!r}: the disaggregated prefill/decode "
+                             f"roles are not ported yet (ROADMAP Queue 1 item [6])")
         self.deployment = deployment
         self.predictor: PredictorSpec = deployment.predictor(predictor_name)
         self.device = resolve_device(device)
@@ -129,14 +141,24 @@ class EngineService:
         self._static_names = (self.compiled._output_names(self.predictor.graph, {})
                               if graph_is_batchable(self.predictor.graph) else None)
         self.genserver: Optional[GenServer] = None
+        # the lane is chosen once: a later load_states rebuilds the same one
+        self._continuous = os.environ.get("SELDON_TPU_GEN_CONTINUOUS", "1") != "0"
         self._build_genserver()
+        units = list(self.compiled.units.values())
+        # a unit whose predict moves its state (a sampled generator's
+        # request counter) runs one dispatch at a time, its state written
+        # back after each (engine.py:323-338 there)
+        self._stateful = any(u.updates_state_on_predict for u in units)
+        self._state_lock = threading.Lock()
         self.batcher = None
         if batching and self.genserver is not None:
             self.batcher = GenLane(self.genserver)
-        elif batching and graph_is_batchable(self.predictor.graph):
-            # the ported units are stateless and row-independent, so
-            # dispatches are order-independent reads: they pipeline through
-            # the batcher's in-flight slots, padded rows and all
+        elif (batching and graph_is_batchable(self.predictor.graph) and not self._stateful
+              and not any(u.batch_coupled for u in units)):
+            # a batch-coupled unit gets no batcher: coalesced rows would
+            # change another caller's answer.  Stateless units' dispatches
+            # are order-independent reads: they pipeline through the
+            # batcher's in-flight slots, padded rows and all
             self.batcher = MicroBatcher(
                 self._batched_predict,
                 max_batch=max_batch,
@@ -147,18 +169,19 @@ class EngineService:
                 dispatch_timeout_s=self.dispatch_timeout_s * 1.5,
             )
 
-    def _build_genserver(self) -> None:
+    def _build_genserver(self, knobs=None) -> None:
         """The continuous lane's scheduler for a single unit whose
-        ``continuous_spec`` is not None, unless
-        ``SELDON_TPU_GEN_CONTINUOUS=0``.  A failure raises."""
-        if os.environ.get("SELDON_TPU_GEN_CONTINUOUS", "1") == "0" \
-                or len(self.compiled.units) != 1:
+        ``continuous_spec`` is not None, unless ``SELDON_TPU_GEN_CONTINUOUS``
+        was 0 when the engine was built; ``knobs`` (a rebuild's) keep the
+        pool and round sizes of the scheduler it replaces.  A failure
+        raises."""
+        if not self._continuous or len(self.compiled.units) != 1:
             return
         name, unit = next(iter(self.compiled.units.items()))
         spec_fn = getattr(unit, "continuous_spec", None)
         spec = None if spec_fn is None else spec_fn(self.compiled.states[name])
         if spec is not None:
-            self.genserver = GenServer(**spec)
+            self.genserver = GenServer(**spec, **(knobs or {}))
 
     # -- dispatch -------------------------------------------------------
 
@@ -189,6 +212,14 @@ class EngineService:
             raise SeldonMessageError(f"graph rejected input of feature shape {width}: {e}") from e
         self._known_good_widths.add(width)
         return out
+
+    def _serial(self, fn, *args):
+        """``fn(*args)``, one at a time when a unit updates state on
+        predict: each dispatch reads the state the last one wrote back."""
+        if not self._stateful:
+            return fn(*args)
+        with self._state_lock:
+            return fn(*args)
 
     def _batched_predict_sync(self, stacked):
         # executor thread: the kernels launch on this thread's current stream
@@ -231,7 +262,7 @@ class EngineService:
                 return resp
             width = np.shape(msg.array())[1:] if msg.data is not None else None
             resp = await asyncio.get_running_loop().run_in_executor(
-                self._executor, self._guarded, width, self.compiled.predict, msg
+                self._executor, self._guarded, width, self._serial, self.compiled.predict, msg
             )
         except (SeldonMessageError, GraphSpecError) as e:
             return SeldonMessage.failure(str(e), code=e.http_code, meta=msg.meta)
@@ -377,12 +408,15 @@ class EngineService:
     def load_states(self, states) -> None:
         """Replace unit states (e.g. ``{"mnist": convert.params_from_jax(...)}``),
         moved to the engine's device.  The continuous lane's scheduler is
-        built again over the new weights (the old one is stopped)."""
+        built again over the new weights, with the old one's pool and round
+        sizes (the old one is stopped)."""
         self.compiled.states.update(
             {name: to_device(st, self.device) for name, st in states.items()}
         )
         if self.genserver is not None:
-            self.genserver.stop()
+            old = self.genserver
+            old.stop()
             self.genserver = None
-            self._build_genserver()
+            self._build_genserver({k: getattr(old, k) for k in (
+                "block_size", "num_blocks", "slots", "span", "prefill_chunk")})
             self.batcher = GenLane(self.genserver) if self.batcher is not None else None

@@ -1,6 +1,6 @@
 """Continuous-batching generation server over a paged KV pool — the port's
-counterpart of ``seldon_core_tpu/runtime/genserver.py`` (greedy, float
-pools, the unified role).
+counterpart of ``seldon_core_tpu/runtime/genserver.py`` (float pools, the
+unified role).
 
 The static lane runs ``generate`` once per request: the request's batch
 holds the device for its whole life, and a late arrival waits for it.
@@ -14,7 +14,7 @@ by step on one worker thread:
   * **Per-tick admission**: each tick admits waiting sequences FIFO into
     free slots, runs one prefill tick (one ``prefill_chunk`` piece of
     every prefilling sequence's prompt, batched) and one decode round
-    (``span`` greedy steps of every running sequence,
+    (``span`` steps of every running sequence,
     ``paged_decode_round``), retires finished rows and hands their tokens
     to the requests' futures and stream queues.
   * **Preemption**: when the pool runs dry the youngest sequence (running
@@ -27,15 +27,40 @@ positions live in device tensors, so the round is the static-shape
 program a CUDA graph can capture.  All device work runs on the scheduler
 thread, under ``torch.inference_mode``, on the unit's device and, on
 CUDA, on a stream of its own; the round's one host sync is its [B, span]
-token readback, a prefill tick's the [B] first tokens.  On CUDA with
-``use_flash`` the constructor builds and probes the lane's two kernels
-(``flash_decode_paged``, which also takes each decode step's K/V write
-and is probed at the pool's block size, and ``kv_write_paged``, the
-prefill tick's write) and raises if either fails: the engine never falls
-back to the static lane quietly.
+token readback (with the rows' keys when sampling), a prefill tick's the
+[B] first tokens.  On CUDA with ``use_flash`` the constructor builds and
+probes the lane's two kernels (``flash_decode_paged``, which also takes
+each decode step's K/V write and is probed at the pool's block size and
+the head shape it decodes, the draft's in speculative mode, and
+``kv_write_paged``, the prefill tick's, the prefix's and the verify's
+write) and raises if either fails: the engine never falls back to the
+static lane quietly.
+
+Three serving modes beside greedy decoding, as the reference composes
+them:
+
+  * **Sampling** (``temperature > 0``, ``top_k``, ``top_p``): each
+    sequence carries its own key, ``fold_in(key(seed), sequence counter)``
+    (``models/prng.py``), split once a step on the device inside the round
+    (``paged_decode_round``'s per-row keys, written back after the
+    round's one readback), so a row's draws never depend on the rows it is
+    batched with.  The first token after prefill spends one split too.
+  * **Shared prefix** (a unit's ``prefix_tokens``: ``prefix_cache``, B=1,
+    P positions): its full blocks are written once at start-up
+    (``paged_write_prefix_blocks``) and pinned, and every sequence's table
+    starts with them; the partial last block is private, copied into each
+    admitted sequence's first block (``paged_write_prefix_tail``, again
+    after a preemption), and the suffix prefills from position P.
+  * **Speculative** (``draft_params``, ``draft_cfg``, ``spec_k``): a draft
+    pool with an allocator of its own; every prefill tick also prefills
+    the draft, and each round is ``paged_spec_round`` (k + 1 draft steps
+    through ``flash_decode_paged``, one (k + 1)-wide target verify through
+    ``kv_write_paged`` and the plain attention, greedy acceptance).  As in
+    the reference it is greedy, float pools, no prefix.
 
 Greedy output is token-identical to ``generate`` (the tests pin it
-against the JAX package on the CPU).
+against the JAX package on the CPU), with and without a prefix, and the
+speculative lane's is the target's greedy decoding.
 
 Tuning knobs, the reference's names and defaults:
 ``SELDON_TPU_GEN_BLOCK_SIZE`` (16), ``SELDON_TPU_GEN_POOL_BLOCKS``
@@ -46,12 +71,10 @@ and ``SELDON_TPU_GEN_MAX_WAITING`` (4096 sequences queued before a typed
 503).  ``SELDON_TPU_GEN_CONTINUOUS=0`` keeps the static lane
 (``runtime/engine.py``).
 
-Not ported, with the ROADMAP item that ports each: sampled decoding and
-per-row sampling keys ([5d] b; ``temperature > 0`` is refused), the
-shared-prefix blocks ([5d] c), the speculative round and its draft pool
-([5d] d), the disaggregated roles and the KV handoff ([6]), and the cost
-ledger, flight recorder, tracer spans, brownout, QoS tiers and ``prewarm``
-([4]).
+Not ported, with the ROADMAP item that ports each: the disaggregated
+prefill and decode roles and the KV handoff between them
+(``runtime/kvstream.py``; [6]), and the cost ledger, flight recorder,
+tracer spans, brownout, QoS tiers and ``prewarm`` ([4]).
 """
 
 from __future__ import annotations
@@ -70,11 +93,15 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch.messages import LoadShedError, SeldonMessageError
+from seldon_core_tpu_torch.models import prng
 from seldon_core_tpu_torch.models.generate import (
-    _greedy_only,
     init_block_pool,
     paged_decode_round,
     paged_forward,
+    paged_spec_round,
+    paged_write_prefix_blocks,
+    paged_write_prefix_tail,
+    sample_token,
 )
 from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
 from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
@@ -106,8 +133,8 @@ class BlockAllocator:
     Block 0 is the scratch block and is never handed out.  Freed ids go
     back on the list FIFO; any free block serves any sequence (the table
     adds the indirection), so the pool cannot fragment.  ``pin`` marks
-    blocks that ``free`` must never take back (the shared-prefix blocks of
-    [5d] c).  Every mutation takes the lock."""
+    blocks that ``free`` must never take back (the shared prefix's full
+    blocks).  Every mutation takes the lock."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 2:
@@ -159,20 +186,23 @@ class _Sequence:
     """One row of one request riding the scheduler."""
 
     __slots__ = ("sid", "request", "prompt", "prompt0", "max_new", "n_valid", "blocks",
-                 "pending", "prefill_pos", "emitted", "done", "admit_order", "retire_reason")
+                 "draft_blocks", "pending", "prefill_pos", "emitted", "done", "key",
+                 "admit_order", "retire_reason")
 
     def __init__(self, sid: int, request: "GenRequest", prompt: np.ndarray, max_new: int):
         self.sid = sid                  # arrival order: a round's row order
         self.request = request
-        self.prompt = prompt            # int32 [S]: what the next prefill consumes
-        self.prompt0 = prompt           # as submitted: the preemption rebuild's base
+        self.prompt = prompt            # int32 [S] (the suffix with a prefix): what
+        self.prompt0 = prompt           # the next prefill consumes; as submitted
         self.max_new = int(max_new)
-        self.n_valid = 0                # cache positions written
-        self.blocks: List[int] = []
+        self.n_valid = 0                # cache positions written (the prefix's too)
+        self.blocks: List[int] = []     # private blocks only
+        self.draft_blocks: List[int] = []  # speculative mode: the draft pool's
         self.pending: Optional[int] = None  # emitted, not yet in the cache
         self.prefill_pos = 0            # prompt tokens consumed
         self.emitted: List[int] = []
         self.done = False
+        self.key: Optional[np.ndarray] = None  # sampling: int64 [2] (models/prng.py)
         self.admit_order = -1
         self.retire_reason = ""
 
@@ -204,16 +234,29 @@ class GenServer:
     lives on the params' device.  The worker thread starts at the first
     submit; callers reach it through thread-safe queues and futures."""
 
-    def __init__(self, params, cfg, *, temperature: float = 0.0, eos_token: int = -1,
-                 max_new_tokens: int = 32, use_flash: bool = False,
-                 block_size: Optional[int] = None, num_blocks: Optional[int] = None,
-                 slots: Optional[int] = None, span: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None):
-        _greedy_only(float(temperature))
+    def __init__(self, params, cfg, *, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, eos_token: int = -1, max_new_tokens: int = 32,
+                 prefix_cache=None, draft_params=None, draft_cfg=None, spec_k: int = 4,
+                 seed: int = 0, use_flash: bool = False, block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None, slots: Optional[int] = None,
+                 span: Optional[int] = None, prefill_chunk: Optional[int] = None):
         self.params = params
         self.cfg = cfg
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
         self.eos_token = int(eos_token)
         self.max_new_tokens = int(max_new_tokens)
+        self.prefix_cache = prefix_cache
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec = draft_params is not None
+        self.spec_k = int(spec_k)
+        self.seed = int(seed)
+        if self.spec and (self.temperature > 0.0 or cfg.kv_quant == "int8"
+                          or prefix_cache is not None):
+            # speculative_generate's guards: greedy, float KV
+            raise ValueError("speculative continuous mode is greedy/float-KV only")
         self.use_flash = bool(use_flash)
         self.device = params["embed"].device
         self.block_size = block_size or _env_int("SELDON_TPU_GEN_BLOCK_SIZE", 16)
@@ -235,13 +278,22 @@ class GenServer:
         self._chunk_latched = self._chunk_eff >= self.prefill_chunk_max
         if self.device.type == "cuda" and self.use_flash:
             # the lane's two kernels, built and launched once here: a
-            # missing compiler or a failing build raises at construction
-            group = cfg.n_heads // cfg.kv_heads
-            probe_paged_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, self.device,
+            # missing compiler or a failing build raises at construction.
+            # The decode kernel at the head shape the lane decodes (the
+            # draft's in speculative mode), the write at every pool's
+            decoder = draft_cfg if self.spec else cfg
+            probe_paged_decode_kernel(decoder.kv_heads, decoder.n_heads // decoder.kv_heads,
+                                      decoder.head_dim, decoder.dtype, self.device,
                                       self.block_size)
-            probe_kv_write_paged(cfg.kv_heads, cfg.head_dim, cfg.dtype, self.device)
+            for c in (cfg, draft_cfg) if self.spec else (cfg,):
+                probe_kv_write_paged(c.kv_heads, c.head_dim, c.dtype, self.device)
         self._allocator = BlockAllocator(self.num_blocks)
+        self._draft_allocator = BlockAllocator(self.num_blocks) if self.spec else None
         self._pool = None
+        self._draft_pool = None
+        self._prefix_blocks: List[int] = []  # the shared full blocks, pinned
+        self._prefix_len = 0 if prefix_cache is None else int(prefix_cache["l0"]["k"].shape[2])
+        self._root_key = prng.key(self.seed)  # on the host: sequences' keys fold in here
         # scheduler state: the worker thread's, except arrivals
         self._arrivals: deque = deque()
         self._waiting: deque = deque()
@@ -260,11 +312,16 @@ class GenServer:
         self.steps_total: Dict[str, int] = {}
         self.tokens_emitted_total = 0
         self.tick_errors_total = 0
-        # device work dispatched: prefill ticks and single-token decode
-        # steps (each step is one launch of each paged kernel per layer),
-        # and the most rows a decode round has carried
+        # device work dispatched: prefill ticks, single-token decode steps
+        # (each step is one launch of each paged kernel per layer),
+        # speculative rounds (k + 1 draft steps and one verify each), prefix
+        # tail writes, and the most rows a decode round has carried
         self.prefill_dispatches_total = 0
         self.decode_steps_total = 0
+        self.spec_rounds_total = 0
+        self.spec_row_rounds_total = 0
+        self.spec_accepted_total = 0
+        self.prefix_tail_writes_total = 0
         self.decode_round_rows_max = 0
 
     # -- client surface (any thread) ------------------------------------
@@ -322,6 +379,10 @@ class GenServer:
             for p in prompts:
                 self._seq_counter += 1
                 seq = _Sequence(self._seq_counter, req, p, req.max_new)
+                if self.temperature > 0.0:
+                    # the sequence's own key: its draws never follow its
+                    # place in a round or the rows batched with it
+                    seq.key = prng.fold_in(self._root_key, self._seq_counter).numpy()
                 req.seqs.append(seq)
                 self._arrivals.append(seq)
             self._ensure_thread()
@@ -332,8 +393,8 @@ class GenServer:
         with self._lock:
             waiting = len(self._waiting) + len(self._arrivals)
             inflight = len(self._active) + len(self._prefilling)
-        return {
-            "mode": "decode",
+        doc = {
+            "mode": "speculative" if self.spec else "decode",
             "slots": self.slots,
             "inflight_sequences": inflight,
             "waiting_sequences": waiting,
@@ -352,7 +413,15 @@ class GenServer:
             "prefill_dispatches_total": self.prefill_dispatches_total,
             "decode_steps_total": self.decode_steps_total,
             "decode_round_rows_max": self.decode_round_rows_max,
+            "prefix_len": self._prefix_len,
+            "prefix_tail_writes_total": self.prefix_tail_writes_total,
         }
+        if self.spec:
+            doc["draft_kv_blocks"] = self._draft_allocator.snapshot()
+            doc["spec_rounds_total"] = self.spec_rounds_total
+            doc["spec_row_rounds_total"] = self.spec_row_rounds_total
+            doc["spec_accepted_total"] = self.spec_accepted_total
+        return doc
 
     def stop(self) -> None:
         """Stop the worker thread; every request still queued or in flight
@@ -425,8 +494,7 @@ class GenServer:
         retire.  Returns False when no work could run (the loop then backs
         off instead of spinning)."""
         if self._pool is None:
-            self._pool = init_block_pool(self.cfg, self.num_blocks, self.block_size,
-                                         self.device)
+            self._init_device()
         self._drop_cancelled()
         admitted = self._admit()
         kind = None
@@ -438,13 +506,34 @@ class GenServer:
         # before the round, so it takes neither a slot nor a dispatch
         retired = self._retire_finished()
         if self._active:
-            kind = "decode" if kind is None else "mixed"
-            tokens += self._decode_round()
+            kind = ("spec" if self.spec else "decode") if kind is None else "mixed"
+            tokens += self._spec_round() if self.spec else self._decode_round()
         retired += self._retire_finished()
         self.steps_total[kind or "idle"] = self.steps_total.get(kind or "idle", 0) + 1
         if kind is not None:
             self.tokens_emitted_total += tokens
         return kind is not None or admitted > 0 or retired > 0
+
+    def _init_device(self) -> None:
+        """The pools, on the first tick; with a shared prefix its full
+        blocks are written once and pinned (block 0 stays scratch).  Bound
+        only when all of it succeeded, so a failure fails every tick rather
+        than serving without the prefix."""
+        pool = init_block_pool(self.cfg, self.num_blocks, self.block_size, self.device)
+        draft = (init_block_pool(self.draft_cfg, self.num_blocks, self.block_size, self.device)
+                 if self.spec else None)
+        if self.prefix_cache is not None:
+            full = self._prefix_len // self.block_size
+            if full:
+                blocks = self._allocator.alloc(full)
+                if blocks is None:
+                    raise RuntimeError(f"KV pool ({self.num_blocks} blocks) smaller than the "
+                                       f"shared prefix ({full} blocks)")
+                paged_write_prefix_blocks(pool, self.prefix_cache, blocks, self.cfg,
+                                          self.use_flash)
+                self._allocator.pin(blocks)
+                self._prefix_blocks = blocks
+        self._pool, self._draft_pool = pool, draft
 
     def _drop_cancelled(self) -> None:
         for coll in (self._waiting, self._prefilling, self._active):
@@ -455,21 +544,25 @@ class GenServer:
     def _blocks_needed(self, upto: int) -> int:
         return -(-upto // self.block_size)  # ceil
 
-    def _ensure_capacity(self, seq: _Sequence, upto: int) -> bool:
-        """Grow ``seq``'s table to cover positions [0, upto), preempting
+    def _ensure_capacity(self, seq: _Sequence, upto: int, draft: bool = False) -> bool:
+        """Grow ``seq``'s table (the draft pool's with ``draft``) to cover
+        positions [0, upto), the shared prefix blocks counted, preempting
         (youngest first) while the pool is dry."""
-        need = self._blocks_needed(upto) - len(seq.blocks)
+        alloc = self._draft_allocator if draft else self._allocator
+        shared = 0 if draft else len(self._prefix_blocks)
+        owned = seq.draft_blocks if draft else seq.blocks
+        need = self._blocks_needed(upto) - shared - len(owned)
         if need <= 0:
             return True
-        while not self._allocator.can_alloc(need):
+        while not alloc.can_alloc(need):
             victim = self._pick_victim(exclude=seq)
             if victim is None:
                 return False
             self._preempt(victim)
-        got = self._allocator.alloc(need)
+        got = alloc.alloc(need)
         if got is None:
             return False
-        seq.blocks.extend(got)
+        owned.extend(got)
         return True
 
     def _pick_victim(self, exclude: _Sequence) -> Optional[_Sequence]:
@@ -500,9 +593,14 @@ class GenServer:
         self.retired_total["preempted"] = self.retired_total.get("preempted", 0) + 1
 
     def _release_blocks(self, seq: _Sequence) -> None:
+        """A sequence's private blocks back to their pools (the shared
+        prefix blocks are not its own, and are pinned besides)."""
         if seq.blocks:
             self._allocator.free(seq.blocks)
         seq.blocks = []
+        if seq.draft_blocks:
+            self._draft_allocator.free(seq.draft_blocks)
+        seq.draft_blocks = []
 
     def _admit(self) -> int:
         """FIFO admission into free slots.  A sequence whose first chunk's
@@ -512,8 +610,11 @@ class GenServer:
         admitted = 0
         while self._waiting and len(self._active) + len(self._prefilling) < self.slots:
             seq = self._waiting[0]
-            need = self._blocks_needed(min(len(seq.prompt), self.prefill_chunk))
-            if not self._allocator.can_alloc(need):
+            first = min(len(seq.prompt), self.prefill_chunk)
+            need = self._blocks_needed(self._prefix_len + first) - len(self._prefix_blocks)
+            d_need = self._blocks_needed(first) if self.spec else 0
+            if not self._allocator.can_alloc(need) or (
+                    self.spec and not self._draft_allocator.can_alloc(d_need)):
                 if not self._active and not self._prefilling:
                     # nothing will ever retire to free blocks
                     self._waiting.popleft()
@@ -524,7 +625,16 @@ class GenServer:
                 break  # pool dry: wait for a retirement
             self._waiting.popleft()
             seq.blocks = self._allocator.alloc(need) or []
-            seq.n_valid = 0
+            if self.spec:
+                seq.draft_blocks = self._draft_allocator.alloc(d_need) or []
+            # the prefix's partial last block is private: its tail goes into
+            # the sequence's first block (again after a preemption)
+            p0 = len(self._prefix_blocks) * self.block_size
+            if self._prefix_len > p0 and seq.blocks:
+                paged_write_prefix_tail(self._pool, self.prefix_cache, seq.blocks[0], self.cfg,
+                                        p0=p0, use_flash=self.use_flash)
+                self.prefix_tail_writes_total += 1
+            seq.n_valid = self._prefix_len
             seq.prefill_pos = 0
             self._admit_counter += 1
             seq.admit_order = self._admit_counter
@@ -533,9 +643,12 @@ class GenServer:
             admitted += 1
         return admitted
 
-    def _table(self, seq: _Sequence, nblk: int) -> np.ndarray:
+    def _table(self, seq: _Sequence, nblk: int, draft: bool = False) -> np.ndarray:
+        """A row of the round's block table: the shared prefix blocks, then
+        the sequence's own (the draft pool's own blocks with ``draft``)."""
+        blocks = seq.draft_blocks if draft else self._prefix_blocks + seq.blocks
         row = np.zeros((nblk,), np.int32)
-        row[: len(seq.blocks)] = seq.blocks[:nblk]
+        row[: len(blocks)] = blocks[:nblk]
         return row
 
     def _to_device(self, *arrays):
@@ -555,7 +668,9 @@ class GenServer:
             if seq not in self._prefilling:
                 continue  # preempted by an earlier row's eviction
             w = min(C, len(seq.prompt) - seq.prefill_pos)
-            if self._ensure_capacity(seq, seq.prefill_pos + w):
+            if self._ensure_capacity(seq, self._prefix_len + seq.prefill_pos + w):
+                if self.spec:  # the draft pool is sized like the target's: best effort
+                    self._ensure_capacity(seq, seq.prefill_pos + w, draft=True)
                 continue
             # cannot hold this chunk: give the blocks back and wait (a
             # re-admission starts the prefill over)
@@ -580,7 +695,7 @@ class GenServer:
             lo = seq.prefill_pos
             w = min(C, len(seq.prompt) - lo)
             toks[i, :w] = seq.prompt[lo:lo + w]
-            start[i] = lo
+            start[i] = self._prefix_len + lo
             width[i] = w
         nblk = _pow2(max(self._blocks_needed(int(start[i] + width[i]))
                          for i in range(len(batch))))
@@ -591,9 +706,32 @@ class GenServer:
         logits, self._pool = paged_forward(self.params, toks_t, self._pool, tables_t, start_t,
                                            width_t, self.cfg, last_only=True,
                                            use_flash=self.use_flash)
+        if self.spec:  # the draft's cache follows the target's, without a prefix
+            d_nblk = _pow2(max(self._blocks_needed(seq.prefill_pos + int(width[i]))
+                               for i, seq in enumerate(batch)))
+            d_tables = np.zeros((B, d_nblk), np.int32)
+            d_start = np.zeros((B,), np.int32)
+            for i, seq in enumerate(batch):
+                d_tables[i] = self._table(seq, d_nblk, draft=True)
+                d_start[i] = seq.prefill_pos
+            d_tables_t, d_start_t = self._to_device(d_tables, d_start)
+            _, self._draft_pool = paged_forward(self.draft_params, toks_t, self._draft_pool,
+                                                d_tables_t, d_start_t, width_t, self.draft_cfg,
+                                                last_only=True, use_flash=self.use_flash)
         # the tick's one sync: every row's next token (argmax takes the
-        # first maximal index, as generate's sample_token does)
-        first = torch.argmax(logits, dim=-1).cpu().numpy()
+        # first maximal index, as generate's sample_token does) and, when
+        # sampling, the keys after the split that drew it
+        keys = None
+        if self.temperature > 0.0:
+            kd = np.zeros((B, 2), np.int64)
+            for i, seq in enumerate(batch):
+                kd[i] = seq.key
+            keys, sub = prng.split(*self._to_device(kd))
+            first = sample_token(logits, sub, self.temperature, self.top_k, self.top_p)
+            host = torch.cat([first[:, None].long(), keys], dim=1).cpu().numpy()
+            first, keys = host[:, 0], host[:, 1:]
+        else:
+            first = torch.argmax(logits, dim=-1).cpu().numpy()
         self.prefill_dispatches_total += 1
         emitted = 0
         for i, seq in enumerate(batch):
@@ -604,6 +742,8 @@ class GenServer:
             # prompt consumed: its first token (or the restored pending one)
             self._prefilling.remove(seq)
             if seq.pending is None:
+                if keys is not None:
+                    seq.key = keys[i]
                 seq.pending = int(first[i])
                 self._emit_tokens(seq, [seq.pending])
                 emitted += 1
@@ -668,18 +808,84 @@ class GenServer:
             active[i] = True
             seen[i] = self.eos_token >= 0 and self.eos_token in s.emitted
         dev = self._to_device(tables, token, n_valid, active, seen)
-        toks, self._pool, _, _, _ = paged_decode_round(
-            self.params, self._pool, *dev, self.cfg, span=self.span, eos_token=self.eos_token,
-            use_flash=self.use_flash)
-        toks = toks.cpu().numpy()  # the round's host sync
+        keys = None
+        if self.temperature > 0.0:
+            # the rows' own keys; pad rows draw from a zero key nobody reads
+            kd = np.zeros((B, 2), np.int64)
+            for i, s in enumerate(batch):
+                kd[i] = s.key
+            keys, = self._to_device(kd)
+        toks, self._pool, _, _, _, keys = paged_decode_round(
+            self.params, self._pool, *dev, self.cfg, span=self.span, keys=keys,
+            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
+            eos_token=self.eos_token, use_flash=self.use_flash)
+        # the round's host sync: the tokens, and the keys they leave behind
+        if keys is None:
+            toks = toks.cpu().numpy()
+        else:
+            host = torch.cat([toks.long(), keys], dim=1).cpu().numpy()
+            toks, keys = host[:, :self.span], host[:, self.span:]
         self.decode_steps_total += self.span
         self.decode_round_rows_max = max(self.decode_round_rows_max, len(batch))
         emitted = 0
         for i, s in enumerate(batch):
+            if keys is not None:
+                s.key = keys[i]
             take = min(self.span, s.max_new - len(s.emitted))
             s.n_valid += self.span
             s.pending = int(toks[i, -1])
             self._emit_tokens(s, [int(t) for t in toks[i, :take]])
+            emitted += take
+        return emitted
+
+    def _spec_round(self) -> int:
+        """One speculative draft/verify round of every running sequence as
+        one ``paged_spec_round`` (greedy): up to k + 1 tokens a row.  The
+        host sync reads the new tokens, the gains and the corrected tokens
+        back at once."""
+        W = self.spec_k + 1
+        for seq in sorted(self._active, key=lambda s: s.sid):
+            if seq not in self._active:
+                continue  # preempted by an earlier row's eviction
+            if not (self._ensure_capacity(seq, seq.n_valid + W)
+                    and self._ensure_capacity(seq, seq.n_valid + W, draft=True)):
+                self._active.remove(seq)
+                self._finish_error(seq, RuntimeError(
+                    "KV pool too small for speculative round (grow SELDON_TPU_GEN_POOL_BLOCKS)"))
+                return 0
+        batch = sorted(self._active, key=lambda s: s.sid)
+        if not batch:
+            return 0
+        B = _pow2(len(batch))
+        # the draft's tables cover what the target's do: no prefix in this mode
+        nblk = _pow2(max(self._blocks_needed(s.n_valid + W) for s in batch))
+        tables = np.zeros((B, nblk), np.int32)
+        d_tables = np.zeros((B, nblk), np.int32)
+        token = np.zeros((B,), np.int32)
+        n_valid = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        for i, s in enumerate(batch):
+            tables[i] = self._table(s, nblk)
+            d_tables[i] = self._table(s, nblk, draft=True)
+            token[i] = s.pending
+            n_valid[i] = s.n_valid
+            active[i] = True
+        new_toks, gained, corrected, self._pool, self._draft_pool = paged_spec_round(
+            self.params, self.draft_params, self._pool, self._draft_pool,
+            *self._to_device(tables, d_tables, token, n_valid, active), self.cfg,
+            self.draft_cfg, k=self.spec_k, use_flash=self.use_flash)
+        host = torch.cat([new_toks, gained[:, None], corrected[:, None]], dim=1).cpu().numpy()
+        self.spec_rounds_total += 1
+        self.spec_row_rounds_total += len(batch)
+        self.decode_round_rows_max = max(self.decode_round_rows_max, len(batch))
+        emitted = 0
+        for i, s in enumerate(batch):
+            g = int(host[i, W])
+            take = min(g, s.max_new - len(s.emitted))
+            s.n_valid += g
+            s.pending = int(host[i, W + 1])
+            self.spec_accepted_total += g - 1
+            self._emit_tokens(s, [int(t) for t in host[i, :take]])
             emitted += take
         return emitted
 

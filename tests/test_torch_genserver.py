@@ -179,9 +179,142 @@ def test_scheduler_eos_contract(weights):
 
 
 def test_scheduler_refuses_sampling(weights):
+    """Sampling is served, but not in speculative mode: the reference's
+    guard (greedy, float KV), with its message."""
     _, tp = weights
-    with pytest.raises(ValueError, match=r"item \[5d\] b"):
-        _server(tp, temperature=0.7)
+    with pytest.raises(ValueError, match="speculative continuous mode is greedy/float-KV only"):
+        _server(tp, temperature=0.7, draft_params=tp, draft_cfg=CFG)
+
+
+# -- sampling ----------------------------------------------------------------
+
+
+def test_sampled_uses_per_sequence_keys(weights):
+    """The reference's tests/test_genserver.py:344: valid tokens, and
+    repeated identical prompts draw different continuations (each sequence
+    its own key).  A fresh scheduler with the same seed replays them, and a
+    sequence's tokens do not depend on the sequences batched with it."""
+    _, tp = weights
+    prompt = _prompts(7, (1, 5)).astype(float)
+    runs = []
+    for _ in range(2):
+        srv = _server(tp, temperature=1.0, top_k=10, top_p=0.95, seed=3, max_new_tokens=8)
+        try:
+            a = srv.submit(prompt).future.result(timeout=WAIT_S)
+            b = srv.submit(prompt).future.result(timeout=WAIT_S)
+        finally:
+            srv.stop()
+        for t in (a, b):
+            assert t.shape == (1, 8) and (t >= 0).all() and (t < DIMS["vocab"]).all()
+        assert (a != b).any()
+        runs.append((a, b))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+    # sequence 1 alone, then again as sequence 1 of a scheduler that also
+    # runs sequences 2 and 3 in the same rounds
+    srv = _server(tp, temperature=1.0, top_k=10, top_p=0.95, seed=3, max_new_tokens=8)
+    try:
+        both = srv.submit(np.concatenate([prompt, _prompts(8, (2, 5))])).future.result(WAIT_S)
+        assert srv.snapshot()["decode_round_rows_max"] == 3
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(both[:1], runs[0][0])
+
+
+def test_sampling_that_keeps_one_token_gives_the_jax_greedy_tokens(weights):
+    """top_k = 1: every draw is the argmax, through the first token's split
+    after prefill and the rounds' per-row splits, co-scheduled."""
+    jp, tp = weights
+    prompts = _prompts(2, (3, 6))
+    srv = _server(tp, temperature=0.8, top_k=1)
+    try:
+        r1 = srv.submit(prompts[:1].astype(float))
+        r2 = srv.submit(prompts[1:].astype(float))
+        got = np.concatenate([r1.future.result(WAIT_S), r2.future.result(WAIT_S)])
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(got, _ref(jp, prompts, 10))
+
+
+# -- the shared prefix --------------------------------------------------------
+
+
+def _prefix(jp, tp, n, seed=11):
+    ids = np.random.default_rng(seed).integers(0, DIMS["vocab"], size=(1, n)).astype(np.int32)
+    _, jpc = jgen.prefill(jp, jnp.asarray(ids), jgen.init_cache(JCFG, 1, n), JCFG)
+    # the reference's cache carried across, so pool bytes compare exactly
+    return ids, jpc, {li: {kk: torch.from_numpy(np.array(jpc[li][kk])) for kk in "kv"}
+                      for li in jpc}
+
+
+@pytest.mark.parametrize("P", [6, 8], ids=["blocks+tail", "blocks"])
+def test_scheduler_prefix_cache_shared_blocks(weights, P):
+    """The reference's tests/test_genserver.py:161: the full blocks written
+    once and pinned, each sequence's tail copied into its first private
+    block (none when P fills whole blocks), answers equal to the JAX
+    generate with the same prefix; the pinned blocks' bytes unchanged after
+    the run, and only they stay in use."""
+    jp, tp = weights
+    ids, jpc, tpc = _prefix(jp, tp, P)
+    sufs = _prompts(12, (3, 5))
+    ref = np.asarray(jgen.generate(jp, jnp.asarray(sufs, jnp.int32), JCFG, max_new_tokens=10,
+                                   prefix=jpc))
+    srv = _server(tp, prefix_cache=tpc)
+    try:
+        got = srv.submit(sufs.astype(float)).future.result(timeout=WAIT_S)
+        pinned = list(srv._prefix_blocks)
+        snap0 = {li: {kk: srv._pool[li][kk][pinned].clone() for kk in "kv"} for li in srv._pool}
+        got2 = srv.submit(sufs[:1].astype(float)).future.result(timeout=WAIT_S)
+        snap = _settle(srv)
+        assert len(pinned) == P // 4 and snap["kv_blocks"]["pinned"] == P // 4
+        assert snap["kv_blocks"]["used"] == P // 4  # only the pinned blocks stay
+        assert snap["prefix_len"] == P
+        assert snap["prefix_tail_writes_total"] == (4 if P % 4 else 0)
+        for li in srv._pool:
+            for kk in "kv":
+                assert torch.equal(srv._pool[li][kk][pinned], snap0[li][kk])
+                # the pinned blocks hold the prefix, in the port's [N, KV, bs, hd]
+                want = tpc[li][kk][0, :, :len(pinned) * 4].reshape(
+                    CFG.kv_heads, len(pinned), 4, CFG.head_dim).transpose(0, 1)
+                assert torch.equal(srv._pool[li][kk][pinned], want)
+        assert not set(pinned) & set(srv._allocator._free)
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got2, ref[:1])
+
+
+def test_scheduler_prefix_preempted_sequence_rewrites_its_tail(weights):
+    """A pool too small for every sequence at once: sequences are preempted
+    and recomputed, each re-admission writes its tail again, the answers
+    stay the JAX generate's and the pinned blocks are never freed."""
+    jp, tp = weights
+    ids, jpc, tpc = _prefix(jp, tp, 6, seed=13)
+    sufs = _prompts(14, (4, 5))
+    ref = np.asarray(jgen.generate(jp, jnp.asarray(sufs, jnp.int32), JCFG, max_new_tokens=10,
+                                   prefix=jpc))
+    srv = _server(tp, prefix_cache=tpc, num_blocks=12, slots=4)
+    try:
+        got = srv.submit(sufs.astype(float)).future.result(timeout=WAIT_S)
+        snap = _settle(srv)
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(got, ref)
+    assert snap["preempted_total"] >= 1
+    assert snap["prefix_tail_writes_total"] == 4 + snap["preempted_total"]
+    assert snap["kv_blocks"]["used"] == snap["kv_blocks"]["pinned"] == 1
+
+
+def test_scheduler_prefix_larger_than_the_pool_fails_every_request(weights):
+    jp, tp = weights
+    _, _, tpc = _prefix(jp, tp, 12, seed=15)
+    srv = _server(tp, prefix_cache=tpc, num_blocks=3)
+    try:
+        with pytest.raises(RuntimeError, match="smaller than the shared prefix"):
+            srv.submit(_prompts(1, (1, 3)).astype(float)).future.result(timeout=WAIT_S)
+        assert srv._prefix_blocks == []
+    finally:
+        srv.stop()
 
 
 # -- admission / retirement / exhaustion -------------------------------------
@@ -519,6 +652,36 @@ def test_kill_switch_restores_static_path(monkeypatch):
             json.dumps({"data": {"ndarray": [[3, 1, 4, 1, 5]]}})))
         assert status == 200
         assert np.asarray(json.loads(text)["data"]["ndarray"]).shape == (1, 8)
+    finally:
+        engine.close()
+
+
+@pytest.mark.parametrize("built_continuous", [True, False], ids=["continuous", "static"])
+def test_load_states_keeps_the_lane_chosen_at_construction(weights, monkeypatch,
+                                                           built_continuous):
+    """ROADMAP Queue 3 item 2: load_states rebuilt the scheduler by reading
+    SELDON_TPU_GEN_CONTINUOUS again, so an engine built on the continuous
+    lane lost it (genserver None behind a GenLane, the next predict an
+    AttributeError) when the switch had changed since.  The lane is the
+    one chosen at construction, and so are the rebuilt scheduler's sizes."""
+    jp, tp = weights
+    if not built_continuous:
+        monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "0")
+    monkeypatch.setenv("SELDON_TPU_GEN_POOL_BLOCKS", "96")
+    engine = EngineService(_gen_spec(), device="cpu")
+    try:
+        monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "0" if built_continuous else "1")
+        monkeypatch.setenv("SELDON_TPU_GEN_POOL_BLOCKS", "64")
+        engine.load_states({"g": {"params": tp}})
+        assert (engine.genserver is not None) == built_continuous
+        if built_continuous:  # the pool's size too is the one it was built with
+            assert engine.genserver.num_blocks == 96
+        assert isinstance(engine.batcher, GenLane if built_continuous else MicroBatcher)
+        X = [[3, 1, 4, 1, 5]]
+        text, status = asyncio.run(engine.predict_json(json.dumps({"data": {"ndarray": X}})))
+        assert status == 200
+        np.testing.assert_array_equal(np.asarray(json.loads(text)["data"]["ndarray"]),
+                                      _ref(jp, np.asarray(X), 8))
     finally:
         engine.close()
 

@@ -1,8 +1,9 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py or paged_decode_turns.py, imports JAX or anything of the JAX package, and the port
 serves the MNIST and generator examples (the generator through the
-continuous lane, runtime/genserver.py), streams the generator's tokens,
-takes a training step and round-trips a checkpoint with both blocked."""
+continuous lane, runtime/genserver.py, greedy and sampled), streams the
+generator's tokens, takes a training step and round-trips a checkpoint
+with both blocked."""
 
 import ast
 import os
@@ -27,7 +28,8 @@ def _port_files():
     names = {str(f.relative_to(ROOT / "seldon_core_tpu_torch")) for f in files}
     assert {"optim.py", "tree.py", "runtime/persistence.py",
             "ops/flash_attention.py", "models/transformer.py",
-            "ops/flash_decode.py", "ops/kv_write.py", "runtime/genserver.py"} <= names
+            "ops/flash_decode.py", "ops/kv_write.py", "runtime/genserver.py",
+            "models/speculative.py", "models/prng.py"} <= names
     return files + [ROOT / "chip_smoke.py", ROOT / "paged_decode_turns.py"]
 
 
@@ -94,6 +96,19 @@ events = asyncio.run(stream())
 gen_stats = gen.stats()
 lane = [gen_stats["batcher"]["mode"], gen_stats["genserver"]["admitted_total"]]
 gen.close()
+doc = json.load(open("examples/generator_deployment.json"))
+doc["spec"]["predictors"][0]["components"][0]["parameters"] += [
+    {"name": "temperature", "value": "0.8", "type": "FLOAT"},
+    {"name": "top_k", "value": "20", "type": "INT"}]
+from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+sampler = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc)),
+                        device="cpu")
+sampled_text, sampled_status = asyncio.run(sampler.predict_json(
+    json.dumps({"data": {"ndarray": [list(range(5))]}})))
+sampled = [sampled_status, len(json.loads(sampled_text)["data"]["ndarray"][0]),
+           sampler.genserver.snapshot()["admitted_total"]]
+sampler.close()
 streamed = [t for e in events[:-1] for t in e["tokens"][0]]
 import os, tempfile
 from seldon_core_tpu_torch.models import transformer as T
@@ -111,7 +126,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
-                  "lane": lane,
+                  "lane": lane, "sampled": sampled,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "leaked": leaked}))
 """
@@ -126,4 +141,5 @@ def test_port_serves_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == (
         '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], '
-        '"lane": ["genserver", 2], "streamed": true, "trained": true, "leaked": []}')
+        '"lane": ["genserver", 2], "sampled": [200, 16, 1], "streamed": true, "trained": true, '
+        '"leaked": []}')

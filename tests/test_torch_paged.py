@@ -7,7 +7,10 @@ seed, and the same weights (carried across by ``params_from_jax``).
 The port lays a pool out as [N, KV, bs, hd] (the reference as [N, bs, KV,
 hd]), so pools are compared transposed and views as they are.  Writes are
 held bit for bit, attention within an f32 tolerance, greedy tokens
-exactly.  The CUDA kernels are held to the plain versions on the card
+exactly; so are the shared prefix's pool writes and the speculative
+round's tokens, and a sampled round is held to the reference's greedy
+round where truncation keeps one token, and to rows independent of their
+batch.  The CUDA kernels are held to the plain versions on the card
 (the ``cuda`` tests below, and chip_smoke.py)."""
 
 import importlib
@@ -21,6 +24,7 @@ import torch
 from seldon_core_tpu.models.transformer import LMConfig as JConfig
 from seldon_core_tpu.models.transformer import lm_init as jax_lm_init
 from seldon_core_tpu_torch.convert import params_from_jax
+from seldon_core_tpu_torch.models import prng as tprng
 from seldon_core_tpu_torch.models.transformer import LMConfig as TConfig
 from seldon_core_tpu_torch.ops import flash_decode as fd
 from seldon_core_tpu_torch.ops import kv_write as kw
@@ -405,7 +409,7 @@ def test_paged_decode_round_tokens_identical(dims, eos, use_flash):
         jp, dict(jpool), jnp.asarray(tables), jnp.asarray(token), jnp.asarray(n_valid),
         jnp.asarray(active), jnp.asarray(seen), jnp.zeros((B,), jnp.uint32), jcfg, span=span,
         temperature=0.0, top_k=0, top_p=0.0, eos_token=eos_token)
-    tt, _, ttok, tnv, tseen = tgen.paged_decode_round(
+    tt, _, ttok, tnv, tseen, _ = tgen.paged_decode_round(
         tp, tpool, _t32(tables), _t32(token), _t32(n_valid), torch.from_numpy(active),
         torch.from_numpy(seen), tcfg, span=span, eos_token=eos_token, use_flash=use_flash)
     assert tt.dtype == torch.int32 and tt.shape == (B, span)
@@ -416,8 +420,10 @@ def test_paged_decode_round_tokens_identical(dims, eos, use_flash):
 
 
 def test_paged_decode_round_refuses_sampling():
+    """A sampled round without the rows' keys is refused before any work:
+    a shared draw would couple co-batched rows."""
     _, tcfg = _cfgs(DIMS)
-    with pytest.raises(ValueError, match=r"item \[5d\] b"):
+    with pytest.raises(ValueError, match=r"needs per-row keys"):
         tgen.paged_decode_round({}, {}, None, None, None, None, None, tcfg, span=2,
                                 temperature=0.5)
 
@@ -531,3 +537,133 @@ def test_kv_write_paged_kernel_is_bit_exact_on_card(W):
     assert kw.PAGED_LAUNCHES == before + 1
     # block 0 takes several scratch writes to one row: only live blocks are exact
     assert torch.equal(pk[1:], want_k[1:]) and torch.equal(pv[1:], want_v[1:])
+
+
+# -- sampling, the shared prefix and the speculative round ------------------------
+
+
+def _round_args(tcfg, tp, seed, B=4, nblk=5, N=40, bs=4):
+    rng = np.random.default_rng(seed)
+    _, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    token = rng.integers(0, tcfg.vocab, size=(B,)).astype(np.int32)
+    n_valid = rng.integers(0, 8, size=(B,)).astype(np.int32)
+    return tpool, _t32(tables), _t32(token), _t32(n_valid)
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "fused"])
+def test_sampled_round_keeping_one_token_is_the_reference_greedy_round(use_flash):
+    """top_k = 1 keeps only the argmax, so a sampled round (keys split once
+    a step on the device) gives the reference's greedy tokens, and hands
+    back keys split span times."""
+    jcfg, tcfg = _cfgs(GQA)
+    jp, tp = _weights(jcfg, seed=7)
+    rng = np.random.default_rng(7)
+    N, bs, B, nblk, span = 40, 4, 4, 5, 3
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    token = rng.integers(0, GQA["vocab"], size=(B,)).astype(np.int32)
+    n_valid = np.array([3, 11, 7, 1], np.int32)
+    active = np.array([True, True, True, False])
+    jt = jgen.paged_decode_round(
+        jp, dict(jpool), jnp.asarray(tables), jnp.asarray(token), jnp.asarray(n_valid),
+        jnp.asarray(active), jnp.zeros((B,), bool), jnp.zeros((B,), jnp.uint32), jcfg,
+        span=span, temperature=0.0, top_k=0, top_p=0.0, eos_token=-1)[0]
+    keys = torch.stack([tprng.fold_in(tprng.key(1), i) for i in range(B)])
+    tt, *_, keys_out = tgen.paged_decode_round(
+        tp, tpool, _t32(tables), _t32(token), _t32(n_valid), torch.from_numpy(active),
+        torch.zeros(B, dtype=torch.bool), tcfg, span=span, keys=keys, temperature=0.8,
+        top_k=1, use_flash=use_flash)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    want_keys = keys
+    for _ in range(span):
+        want_keys = tprng.split(want_keys)[0]
+    assert torch.equal(keys_out, want_keys)
+
+
+def test_sampled_round_rows_do_not_depend_on_their_batch():
+    """Each row draws from its own key: a row's sampled tokens are the same
+    alone, beside other rows and at another place in the round."""
+    _, tcfg = _cfgs(DIMS)
+    _, tp = _weights(_cfgs(DIMS)[0], seed=8)
+    tpool, tables, token, n_valid = _round_args(tcfg, tp, 8)
+    keys = torch.stack([tprng.fold_in(tprng.key(2), i) for i in range(4)])
+
+    def run(rows):
+        pool = {li: {n: t.clone() for n, t in layer.items()} for li, layer in tpool.items()}
+        idx = torch.tensor(rows)
+        return tgen.paged_decode_round(
+            tp, pool, tables[idx], token[idx], n_valid[idx], torch.ones(len(rows), dtype=torch.bool),
+            torch.zeros(len(rows), dtype=torch.bool), tcfg, span=4, keys=keys[idx],
+            temperature=1.0, top_k=20, top_p=0.95, use_flash=True)[0]
+
+    whole = run([0, 1, 2, 3])
+    assert torch.equal(run([2]), whole[2:3])
+    assert torch.equal(run([3, 0, 2, 1]), whole[[3, 0, 2, 1]])
+    assert torch.equal(run([1, 3]), whole[[1, 3]])
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "kernel-wrapper"])
+@pytest.mark.parametrize("P", [6, 8, 3], ids=["blocks+tail", "blocks", "tail"])
+def test_prefix_block_and_tail_writes_leave_the_reference_pool(P, use_flash):
+    """paged_write_prefix_blocks (one B=1 write a layer: the full blocks as
+    the table row, start 0) and paged_write_prefix_tail (the rest into one
+    private block) leave the pool the reference's leave, bit for bit."""
+    jcfg, tcfg = _cfgs(GQA)
+    jp, _ = _weights(jcfg, seed=9)
+    rng = np.random.default_rng(9)
+    N, bs = 12, 4
+    jpool, tpool = _pool_pair(tcfg, N, bs, rng)
+    prefix = rng.integers(0, GQA["vocab"], size=(1, P)).astype(np.int32)
+    _, jpc = jgen.prefill(jp, jnp.asarray(prefix), jgen.init_cache(jcfg, 1, P), jcfg)
+    tpc = {li: {kk: torch.from_numpy(np.array(jpc[li][kk])) for kk in "kv"} for li in jpc}
+    full = P // bs
+    blocks = [7, 2][:full]
+    before = kw.PAGED_LAUNCHES
+    if full:
+        jpool = jgen.paged_write_prefix_blocks(jpool, jpc, tuple(blocks), jcfg)
+        tpool = tgen.paged_write_prefix_blocks(tpool, tpc, blocks, tcfg, use_flash)
+    if P > full * bs:
+        jpool = jgen.paged_write_prefix_tail(jpool, jpc, jnp.int32(5), jcfg, p0=full * bs)
+        tpool = tgen.paged_write_prefix_tail(tpool, tpc, 5, tcfg, p0=full * bs,
+                                             use_flash=use_flash)
+    _same_pool(tpool, jpool)
+    assert kw.PAGED_LAUNCHES == before  # CPU tensors: the plain version, no launch
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_paged_spec_round_matches_the_reference(k, use_flash):
+    """One draft/verify round on one pool state, rows at different lengths
+    and an inactive row: new_toks, gained and corrected identical to the
+    reference's, and both pools as the reference leaves them outside the
+    scratch block (with ``use_flash`` an inactive row writes nothing)."""
+    t_dims = dict(DIMS)
+    d_dims = dict(vocab=48, d_model=16, n_heads=2, n_layers=1, d_ff=32)
+    (jt_cfg, tt_cfg), (jd_cfg, td_cfg) = _cfgs(t_dims), _cfgs(d_dims)
+    jtp, ttp = _weights(jt_cfg, seed=11)
+    jdp, tdp = _weights(jd_cfg, seed=12)
+    rng = np.random.default_rng(13)
+    N, bs, B, nblk = 48, 4, 4, 5
+    jt_pool, tt_pool = _pool_pair(tt_cfg, N, bs, rng)
+    jd_pool, td_pool = _pool_pair(td_cfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    d_tables = _tables(rng, B, nblk, N)
+    token = rng.integers(0, 48, size=(B,)).astype(np.int32)
+    n_valid = np.array([2, 9, 5, 0], np.int32)
+    active = np.array([True, True, True, False])
+    want = jgen.paged_spec_round(jtp, jdp, dict(jt_pool), dict(jd_pool), jnp.asarray(tables),
+                                 jnp.asarray(d_tables), jnp.asarray(token), jnp.asarray(n_valid),
+                                 jnp.asarray(active), jt_cfg, jd_cfg, k=k)
+    got = tgen.paged_spec_round(ttp, tdp, tt_pool, td_pool, _t32(tables), _t32(d_tables),
+                                _t32(token), _t32(n_valid), torch.from_numpy(active), tt_cfg,
+                                td_cfg, k=k, use_flash=use_flash)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for tpool, jpool in ((got[3], want[3]), (got[4], want[4])):
+        for li, layer in jpool.items():
+            for name in ("k", "v"):
+                np.testing.assert_allclose(
+                    tpool[li][name].numpy()[1:],
+                    np.asarray(layer[name]).transpose(0, 2, 1, 3)[1:], atol=ATOL, rtol=ATOL)

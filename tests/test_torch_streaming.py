@@ -7,6 +7,7 @@ JAX package's stream and to the port's own ``generate``."""
 
 import asyncio
 import importlib
+import itertools
 import json
 import time
 
@@ -134,18 +135,11 @@ def test_grow_merge_matches_jax():
             np.testing.assert_array_equal(got[li][kk].numpy(), np.asarray(want[li][kk]))
 
 
-@pytest.mark.parametrize("kw,match", [({"temperature": 0.7}, r"item \[5d\] b"),
-                                      ({"prefix": {"l0": {}}}, r"item \[5d\] c")])
-def test_stream_refuses_sampling_and_a_prefix(kw, match):
-    _, tp = _weights()
-    with pytest.raises(ValueError, match=match):
-        next(tgen.stream_chunks(tp, torch.zeros(1, 3, dtype=torch.int32), TCFG, 4, **kw))
-
-
-def _gen_doc(max_new=16):
+def _gen_doc(max_new=16, extra=()):
     params = [{"name": k, "value": str(v), "type": "INT"} for k, v in DIMS.items()]
     params += [{"name": "max_new_tokens", "value": str(max_new), "type": "INT"},
                {"name": "dtype", "value": "float32", "type": "STRING"}]
+    params += [{"name": k, "value": v, "type": t} for k, v, t in extra]
     return {"spec": {"name": "sg", "predictors": [{
         "name": "p", "graph": {"name": "g", "type": "MODEL"},
         "components": [{"name": "g", "runtime": "inprocess", "class_path": "TransformerGenerator",
@@ -199,6 +193,51 @@ def test_engine_stream_equals_predict_json_and_the_jax_unit(monkeypatch):
     np.testing.assert_array_equal(streamed, want)
     assert engine.stats()["kernels"]["flash_decode"] == {"launches": 0}  # CPU: no kernel
     assert engine.stats()["kernels"]["kv_write"] == {"launches": 0}
+
+
+@pytest.mark.parametrize("extra", [
+    [("temperature", "0.7", "FLOAT"), ("top_k", "20", "INT"), ("top_p", "0.9", "FLOAT")],
+    [("prefix_tokens", "5,1,9,2,7", "STRING")],
+], ids=["sampled", "prefix"])
+def test_stream_refuses_sampling_and_a_prefix(extra, monkeypatch):
+    """Sampled and prefix streams, once refused, are served: on the static
+    lane the engine's stream of a sampled unit equals the unit's own
+    ``stream_tokens`` under the same stream counter, and a second stream
+    draws anew; a prefix unit's stream equals its ``predict_json`` answer."""
+    monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "0")
+    engine = EngineService(SeldonDeploymentSpec.from_json_dict(_gen_doc(extra=extra)),
+                           device="cpu")
+    sampled = extra[0][0] == "temperature"
+    try:
+        X = [[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]]
+        payload = json.dumps({"data": {"ndarray": X}, "chunk": 5})
+        monkeypatch.setattr(tgen, "_stream_counter", itertools.count(11))
+
+        async def run():
+            text, status = await engine.predict_json(json.dumps({"data": {"ndarray": X}}))
+            assert status == 200
+            streams = [await _collect(engine.generate_stream(engine.prepare_stream_request(
+                payload))) for _ in range(2)]
+            return np.asarray(json.loads(text)["data"]["ndarray"]), streams
+
+        answer, streams = asyncio.run(run())
+        got = []
+        for events in streams:
+            assert events[-1]["done"] and not any(e["done"] for e in events[:-1])
+            got.append(np.concatenate([np.asarray(e["tokens"]) for e in events[:-1]], axis=1))
+        assert got[0].shape == (2, 16)
+        if sampled:
+            monkeypatch.setattr(tgen, "_stream_counter", itertools.count(11))
+            unit, state = engine.compiled.units["g"], engine.states()["g"]
+            for streamed in got:
+                want = torch.cat(list(unit.stream_tokens(state, np.asarray(X), chunk=5)), dim=1)
+                np.testing.assert_array_equal(streamed, want.numpy())
+            assert (got[0] != got[1]).any()
+        else:
+            for streamed in got:
+                np.testing.assert_array_equal(streamed, answer)
+    finally:
+        engine.close()
 
 
 def test_stream_request_validation_is_pre_flight():
