@@ -8,7 +8,9 @@ this checkout (six libraries, built at once), holds each kernel against
 its plain PyTorch version on the card, serves two deployments through the
 port's engine and REST lane on a localhost port (the generator on the
 static lane and on the continuous lane, also as an SSE token stream, and
-in its sampled, shared-prefix and speculative modes on both lanes),
+in its sampled, shared-prefix and speculative modes on both lanes; the
+float32 speculative example; the iris, mean_transformer, gbm,
+outlier_pipeline and epsilon_greedy examples, the last with feedback),
 trains the flagship LM a few steps and serves its checkpoint, checks the
 answers, shows that each run went through its kernels, and times each
 kernel beside its plain version, a PyTorch library call and its bound.
@@ -141,7 +143,8 @@ it serves the static lane it measured before that lane's switch:
               after; kv_write_paged launches 12 for the blocks, 12 a tail,
               12 a prefill tick; TTFT against the same 512 tokens sent
               whole, in turns
- 10f. speculative  SpeculativeGenerator at the flagship target's dims
+ 10f. speculative  a float16 SpeculativeGenerator refused on the card (the
+              paged kernel takes bf16 and f32); then one at the flagship target's dims
               (MHA), bf16, k=4, with its default draft and with the target
               as its own draft, on both lanes: every token within
               TOKEN_DELTA of the target's teacher-forced maximum;
@@ -149,6 +152,33 @@ it serves the static lane it measured before that lane's switch:
               kv_write_paged once a target layer a verify; the self-draft
               accepting at least 2 of 4 a row-round; the 32-row request's
               tokens/s of both against the plain continuous lane in turns
+ 10g. spec-f32  examples/speculative_deployment.json as written (float32,
+              a draft of 2 heads of hd 32): flash_decode_paged's float32
+              path vs its plain f32 version at one row of 1, 17 and 512
+              positions, a ragged batch and two wider shapes (clusters of 1-8
+              blocks), and fused with three inactive rows (o within
+              F32_O_ATOL, the pools bit-exact outside the scratch block, a
+              repeat and moved blocks the same bits); the engine on the
+              continuous lane over REST (1-row, 8-row and 4 concurrent
+              requests), counts reset before and read after: flash_decode_paged
+              once a draft layer a draft step, all on the float32 path,
+              kv_write_paged once a target layer a verify and once a layer of
+              each model a prefill tick; every token within F32_TOKEN_DELTA of
+              the target's teacher-forced maximum and equal to the same
+              engine's on the CPU; the 32-row request's tokens/s; the f32
+              kernel cold beside its plain version, gather + SDPA in f32 and
+              its bound
+ 10h. families examples/iris, mean_transformer, gbm and outlier_pipeline over
+              REST: 1, 3 and 8 rows against the same engine on the CPU (the
+              outlier's state moving in step); outlier_pipeline one fused-MLP
+              launch a dispatch, 8 concurrent callers each with its own rows'
+              outlierScore; 1-row p50s; the eigh share of the outlier's
+              dispatch under torch.profiler
+ 10i. router  examples/epsilon_greedy_deployment.json over REST: 12 requests
+              each followed by POST /api/v0.1/feedback of its meta.routing;
+              branches and answers equal to the CPU engine's, success / tries
+              moved on the routed branch only, fused-MLP launches by branch,
+              the events stub
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at seven shapes (the training layer
               among them, a group of 8, and S=192: a ragged last 128-row
@@ -168,8 +198,9 @@ it serves the static lane it measured before that lane's switch:
               their bounds at the training layer and at S=2048 (B=4), and
               the whole flash_attention_bwd call (both launches) beside
               SDPA's backward; then the {"kernels": [...]} line with all
-              eight kernels, each row's launches those of every served
-              path (phases 8-10f), with a breakdown by path
+              eight kernels and the float32 path of flash_decode_paged in a
+              row of its own, each row's launches those of every served
+              path (phases 4 and 8-10i), with a breakdown by path
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -519,17 +550,22 @@ def paged_build_checks(torch, fd) -> None:
     floats = 4 * 16 * 258 + 10 * 16 + 8 * 16 * 258
     if why is not None or big != floats * 4 + 4 * 8 + 1024:
         raise AssertionError(f"paged shape check at hd=256 G=16: {big} bytes, {why!r}")
+    # the f32 path at the speculative example's draft (hd 32, one query row
+    # a block): q, the 8 warps' (m, l, acc), the weights and 8 ranks' gather
+    f32, why = fd._paged_smem_bytes(32, 1, PAGED_BS, torch.float32)
+    if why is not None or f32 != 4 * (32 + 8 + 8 + 8 * 32 + 10 + 8 * 34):
+        raise AssertionError(f"paged shape check at hd=32 G=1 float32: {f32} bytes, {why!r}")
     for head_dim, dtype, bs, match in ((36, torch.bfloat16, 16, "multiple of 8 up to"),
                                        (512, torch.bfloat16, 16, "up to 256"),
-                                       (64, torch.float32, 16, "bfloat16"),
+                                       (64, torch.float16, 16, "bfloat16 or float32"),
                                        (64, torch.bfloat16, 12, "pool blocks of 12")):
         why = fd.paged_kernel_shape_error(head_dim, dtype, 4, bs)
         if why is None or match not in why:
             raise AssertionError(f"paged shape check let hd={head_dim} {dtype} bs={bs} "
                                  f"through: {why!r}")
     log(f"[build] paged flash-decode shape check: hd=64 G=4 bf16 in blocks of {PAGED_BS} takes "
-        f"{smem} bytes of shared memory, hd=256 G=16 {big}; hd=36, hd=512, float32 and blocks "
-        f"of 12 refused")
+        f"{smem} bytes of shared memory, hd=256 G=16 {big}, hd=32 G=1 float32 {f32}; hd=36, "
+        f"hd=512, float16 and blocks of 12 refused")
 
 
 def decode_inputs(torch, shape, gen, dev):
@@ -878,7 +914,9 @@ def gen_deployment(weights_path: str = "", params=None,
     }]}}
 
 
-def check_tokens(status, raw, prompts: np.ndarray, kind: str) -> np.ndarray:
+def check_tokens(status, raw, prompts: np.ndarray, kind: str,
+                 new: int = GEN_DIMS["max_new_tokens"], vocab: int = GEN_DIMS["vocab"]
+                 ) -> np.ndarray:
     if status != 200:
         raise AssertionError(f"HTTP {status}: {raw[:300]!r}")
     data = json.loads(raw)["data"]
@@ -889,11 +927,11 @@ def check_tokens(status, raw, prompts: np.ndarray, kind: str) -> np.ndarray:
     else:
         y = np.asarray(data["tensor"]["values"], dtype=np.float64).reshape(
             data["tensor"]["shape"])
-    want = (len(prompts), GEN_DIMS["max_new_tokens"])
+    want = (len(prompts), new)
     if y.shape != want:
         raise AssertionError(f"answer shape {y.shape} != {want}")
     if (not np.isfinite(y).all() or (y != np.round(y)).any() or y.min() < 0
-            or y.max() >= GEN_DIMS["vocab"]):
+            or y.max() >= vocab):
         raise AssertionError("answer rows are not token ids in [0, vocab)")
     return y.astype(np.int64)
 
@@ -1491,15 +1529,42 @@ PAGED_DESIGN = ("a cluster of 1-8 blocks per (row, kv head); each block reads th
                 "blocks combined in a fixed order through DSMEM: one launch")
 
 
-def paged_inputs(torch, case, gen, dev):
+# flash_decode_paged's float32 path (an f32 model's pools) against its plain
+# version in f32, (B, KV, G, hd, table blocks, lengths): the speculative
+# example's draft (2 kv heads of hd 32, one query head each) at one row of
+# 1, 17 and 512 positions and on a ragged batch, then 4 query rows at hd 64
+# and 8 at hd 256, which reach the path's other instances
+PAGED_F32_SHAPES = [(1, 2, 1, 32, PAGED_NBLK, [1]), (1, 2, 1, 32, PAGED_NBLK, [17]),
+                    (1, 2, 1, 32, PAGED_NBLK, [512]),
+                    (6, 2, 1, 32, PAGED_NBLK, [1, 17, 512, 100, 33, 1000]),
+                    (4, 4, 4, 64, 16, [1, 60, 200, 256]), (2, 1, 8, 256, 16, [100, 256])]
+# the fused call at the draft's shape, rows 5..7 inactive
+PAGED_F32_FUSED = (8, 2, 1, 32, [1, 17, 512, 64, 300, 1000, 5, 2])
+# f32 kernel vs plain f32: both sum f32 products, in other orders, and the
+# kernel's exp is ex2.approx (~2 ulp), so o agrees to ~1e-6 at these sizes
+F32_O_ATOL = 1e-5
+# the timed f32 shapes: the draft's step at B=32 and at one row, 512
+# positions a row, cold L2
+PAGED_F32_TIMED = [(32, 2, 1, 32, PAGED_NBLK, 512), (1, 2, 1, 32, PAGED_NBLK, 512)]
+F32_FLOPS = 67e12            # H100 SXM float32 peak outside the tensor cores
+
+
+PAGED_F32_DESIGN = ("the bf16 path's share rule, fused write and DSMEM combine; 8 warps each "
+                    "take every 8th tile of 32 positions, one position a lane: scores by f32 "
+                    "FMAs of the lane's K row (16-byte loads) against q in shared memory, the "
+                    "tile's max and sum by warp shuffles, O += P V with each position's p and V "
+                    "row broadcast by shuffle, every 32nd column a lane; no TF32, no TMA")
+
+
+def paged_inputs(torch, case, gen, dev, dtype=None):
     """q, pools with every row's blocks in a shuffled order, tables and
     lengths of one PAGED_SHAPES case (a (lo, hi) range of lengths, or a
-    list of one length a row)."""
+    list of one length a row), in bf16 or ``dtype``."""
     B, KV, G, hd, nblk, span = case
     N = B * nblk + 1
 
     def rnd(*dims):
-        return torch.randn(*dims, generator=gen).to(torch.bfloat16).to(dev)
+        return torch.randn(*dims, generator=gen).to(dtype or torch.bfloat16).to(dev)
 
     tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
     lens = (torch.tensor(span) if isinstance(span, list) else
@@ -1631,19 +1696,127 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
     return {"flash_decode_paged": max_err, "kv_write_paged": 0.0}
 
 
-def paged_decode_bound(B, KV, G, hd, nblk, lens, fused: bool = False):
+def paged_f32_phase(torch, fd, dev) -> float:
+    """flash_decode_paged's float32 path against its plain version in f32 at
+    PAGED_F32_SHAPES (one launch a call, a repeat and the rows' blocks
+    permuted in the pool the same bits), then the fused call at
+    PAGED_F32_FUSED from strided head views: o of the active rows, the
+    pools bit-exact outside the scratch block.  Returns the largest
+    absolute error of o."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 19)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_err = 0.0
+    for case in PAGED_F32_SHAPES:
+        q, pk, pv, tables, lens = paged_inputs(torch, case, gen, dev, torch.float32)
+        B, KV, G, hd, nblk, span = case
+        split = fd.paged_cluster(B, KV, G, nblk * PAGED_BS, sm_count)
+        mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
+        before = fd.PAGED_LAUNCHES
+        got = fd.flash_decode_paged(q, pk, pv, tables, lens)
+        again = fd.flash_decode_paged(q, pk, pv, tables, lens)
+        moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens)
+        want = fd.flash_decode_paged_reference(q, pk, pv, tables, lens)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if (fd.PAGED_LAUNCHES != before + 3 or got.dtype != torch.float32 or err > F32_O_ATOL
+                or not bool(torch.isfinite(got).all())):
+            raise AssertionError(f"flash_decode_paged float32 vs plain at {case}: o err "
+                                 f"{err:.3e} (tolerance {F32_O_ATOL}), launches "
+                                 f"{fd.PAGED_LAUNCHES - before}")
+        if not torch.equal(got, again) or not torch.equal(got, moved):
+            raise AssertionError(f"flash_decode_paged float32 at {case}: a repeat or the same "
+                                 f"rows in other blocks gave other bits")
+        max_err = max(max_err, err)
+        log(f"[paged-f32] flash_decode_paged float32 (B,KV,G,hd,blocks,lens)={case}: a cluster "
+            f"of {split}: o max abs err {err:.3e} (tolerance {F32_O_ATOL}); a repeat and the "
+            f"blocks permuted in the pool bit-identical")
+    B, KV, G, hd, span = PAGED_F32_FUSED
+    q, pk, pv, tables, lens = paged_inputs(torch, (B, KV, G, hd, PAGED_NBLK, span), gen, dev,
+                                           torch.float32)
+    active = torch.arange(B, device=dev) < B - 3
+    tables[~active] = 0  # an empty slot's table is the scratch block
+    qkv = torch.randn(B, 1, (2 * G + 4) * KV * hd, generator=gen).to(dev)
+    k_new = qkv[..., -2 * KV * hd:-KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+    v_new = qkv[..., -KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+    mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
+    moved_tables[~active] = 0
+    pools = {name: (pk.clone(), pv.clone()) for name in ("got", "again", "want")}
+    before = fd.PAGED_LAUNCHES
+    got = fd.flash_decode_paged(q, *pools["got"], tables, lens, k_new, v_new, active)
+    again = fd.flash_decode_paged(q, *pools["again"], tables, lens, k_new, v_new, active)
+    moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens, k_new, v_new, active)
+    want = fd.flash_decode_paged_reference(q, *pools["want"], tables, lens, k_new, v_new, active)
+    torch.cuda.synchronize()
+    err = float((got[active] - want[active]).abs().max())
+    if fd.PAGED_LAUNCHES != before + 3 or err > F32_O_ATOL:
+        raise AssertionError(f"fused flash_decode_paged float32 vs plain at {PAGED_F32_FUSED}: "
+                             f"o err {err:.3e} (tolerance {F32_O_ATOL}), launches "
+                             f"{fd.PAGED_LAUNCHES - before}")
+    if not all(torch.equal(pools["got"][i][1:], pools["want"][i][1:]) for i in (0, 1)):
+        raise AssertionError("the fused float32 write is not the plain write outside the "
+                             "scratch block")
+    if not torch.equal(got[active], again[active]) or not torch.equal(got[active], moved[active]):
+        raise AssertionError("the fused float32 call: a repeat or the same rows in other blocks "
+                             "gave other bits")
+    max_err = max(max_err, err)
+    log(f"[paged-f32] flash_decode_paged float32 with the step's write fused in, (B,KV,G,hd)="
+        f"{(B, KV, G, hd)}, lengths {span}, rows 5-7 inactive, from strided head views: o max "
+        f"abs err {err:.3e} on the active rows (tolerance {F32_O_ATOL}); the pools bit-exact "
+        f"outside the scratch block; a repeat and the blocks permuted bit-identical")
+    log(f"[paged-f32] phase wall {time.perf_counter() - t0:.2f} s")
+    return max_err
+
+
+def paged_f32_times(torch, fd, dev, smi) -> list:
+    """flash_decode_paged's float32 path at PAGED_F32_TIMED, rotating over
+    DECODE_COLD_BYTES of f32 inputs (cold L2), beside its plain version, the
+    gather-then-SDPA library call in f32 and its bound (f32 bytes, f32 FMA
+    peak); the fused call too.  Returns one row a shape."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for B, KV, G, hd, nblk, n in PAGED_F32_TIMED:
+        sets = [tuple(t.float() if t.is_floating_point() else t for t in x)
+                for x in paged_sets(torch, B, KV, G, hd, nblk, [n] * B, dev, SEED + 20)]
+        attend = [x[:5] for x in sets]
+        k_ms = device_ms(torch, rotating(attend, fd.flash_decode_paged), 200)
+        p_ms = device_ms(torch, rotating(attend, fd.flash_decode_paged_reference), 20)
+        f_ms = device_ms(torch, rotating(sets, fd.flash_decode_paged), 200)
+
+        def gather_sdpa(q, pk, pv, t, _lens):
+            k, v = fd.paged_view(pk, pv, t)
+            return sdpa(q.reshape(B, KV * G, 1, hd), k[:, :, :n], v[:, :, :n], enable_gqa=True)
+
+        l_ms = device_ms(torch, rotating(attend, gather_sdpa), 100)
+        b_ms, b_by = paged_decode_bound(B, KV, G, hd, nblk, [n] * B, elt=4, peak=F32_FLOPS)
+        split = fd.paged_cluster(B, KV, G, nblk * PAGED_BS, sm_count)
+        rows.append({"shape": [B, KV, G, hd, nblk, n], "ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "fused_ms": f_ms,
+                     "cluster": split, "input_sets": len(sets)})
+        log(f"[times] flash_decode_paged float32 (B,KV,G,hd,blocks,n)=({B},{KV},{G},{hd},{nblk},"
+            f"{n}), cold L2 ({len(sets)} input sets): kernel {k_ms:.5f} ms (cluster of {split}), "
+            f"fused {f_ms:.5f} ms, plain {p_ms:.5f} ms, gather then SDPA in f32 {l_ms:.5f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}, {b_ms / k_ms * 100:.1f}% of it) on {smi}")
+        del sets, attend
+    return rows
+
+
+def paged_decode_bound(B, KV, G, hd, nblk, lens, fused: bool = False, elt: int = 2,
+                       peak: float = BF16_FLOPS):
     """Least time for one flash_decode_paged call: K and V of each row's
     positions (``lens``, one length a row), q, the tables and lengths read
     once and o written once over HBM bandwidth (with the fused write also
     the fresh K/V read and written once), against the score and PV FLOPs
-    over the bf16 peak."""
+    over the peak of their type: ``elt`` bytes a value, bf16's tensor-core
+    peak by default, F32_FLOPS for the f32 path."""
     n_sum = sum(lens)
-    nbytes = 2 * (2 * KV * n_sum * hd + 2 * B * KV * G * hd) + 4 * (B * nblk + B)
+    nbytes = elt * (2 * KV * n_sum * hd + 2 * B * KV * G * hd) + 4 * (B * nblk + B)
     if fused:
-        nbytes += 2 * 2 * 2 * B * KV * hd
+        nbytes += 2 * 2 * elt * B * KV * hd
     flops = 4 * KV * G * n_sum * hd
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
+    ops_ms = flops / peak * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -2525,14 +2698,15 @@ def speculative_phase(torch, dev, smi, counts: dict) -> dict:
     from seldon_core_tpu_torch.models.speculative import SpeculativeGenerator
 
     t_phase = time.perf_counter()
-    # the unit's default dtype, float32, is one the paged kernel does not
-    # take: on the card the unit refuses it rather than serve the plain path
+    # float16 is a dtype the paged kernel does not take: on the card the
+    # unit refuses it rather than serve the plain path (its float32 default
+    # takes the kernel's float32 path: phase 10g serves it)
     try:
-        SpeculativeGenerator(device=dev)
+        SpeculativeGenerator(device=dev, dtype="float16")
     except ValueError as e:
-        log(f"[speculative] a float32 draft is refused on the card: {e}")
+        log(f"[speculative] a float16 draft is refused on the card: {e}")
     else:
-        raise AssertionError("[speculative] a float32 SpeculativeGenerator was accepted on the "
+        raise AssertionError("[speculative] a float16 SpeculativeGenerator was accepted on the "
                              "card, where its draft steps cannot take flash_decode_paged")
     rng = np.random.default_rng(SEED + 41)
     vocab, new = GEN_DIMS["vocab"], GEN_DIMS["max_new_tokens"]
@@ -2675,6 +2849,371 @@ def serving_modes_phases(torch, dev, smi):
              "speculative": speculative_phase(torch, dev, smi, counts), "card": smi}
     log(json.dumps({"serving_modes": modes}))
     return counts, modes
+
+
+# -- the f32 speculative example, the model families and the router ----------
+
+F32_TOKEN_DELTA = 1e-3    # an f32 token within this of the target's teacher-forced maximum
+SPEC_EX_P = 24            # prompt tokens of the speculative example's requests
+SPEC_EX_TURNS = 4         # walls of the example's 32-row request
+FAMILY_P50_REQUESTS = 30  # 1-row requests a family example's p50 is read over
+MNIST_ATOL = 2e-2         # the bf16 MNIST probabilities, card kernel vs the CPU's plain version
+FAMILY_ATOL = 1e-5        # the f32 families, card vs CPU: f32 sums in other orders
+SCORE_RTOL = 1e-3         # outlierScore, cuSOLVER vs LAPACK eigh and solve
+FAMILY_INPUTS = {"iris": (4, 2.0, 4.0), "mean_transformer": (6, 10.0, 0.0),
+                 "gbm": (8, 1.0, 0.0), "outlier_pipeline": (784, 1.0, 0.0)}
+
+
+def example_doc(name: str) -> dict:
+    return json.loads((ROOT / "examples" / f"{name}_deployment.json").read_text())
+
+
+def cpu_twin(torch, engine, doc: dict):
+    """The same deployment on the CPU, on the same lane, with the card
+    engine's states."""
+    twin = mode_engine(torch, torch.device("cpu"), doc, continuous=engine.genserver is not None)
+    twin.load_states(engine.states())
+    return twin
+
+
+def keepalive_p50_ms(port: int, body: dict, runs: int) -> float:
+    """The p50 wall of ``runs`` POSTs of ``body`` over one keepalive connection."""
+    payload = json.dumps(body)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    walls = []
+    try:
+        for _ in range(runs):
+            t = time.perf_counter()
+            conn.request("POST", "/api/v0.1/predictions", payload,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            walls.append(time.perf_counter() - t)
+            if resp.status != 200:
+                raise AssertionError(f"latency loop: HTTP {resp.status}")
+    finally:
+        conn.close()
+    return float(np.median(walls)) * 1e3
+
+
+def spec_example_phase(torch, dev, smi) -> dict:
+    """10g. examples/speculative_deployment.json as written (float32, its
+    draft 2 heads of hd 32) on the continuous lane: flash_decode_paged's
+    float32 path against its plain version (paged_f32_phase); the engine
+    probes the f32 draft shape; a 1-row, an 8-row and 4 concurrent 1-row
+    requests over REST, counts reset before and read after:
+    flash_decode_paged once a draft layer a draft step, all on the float32
+    path, kv_write_paged once a target layer a verify and once a layer of
+    each model a prefill tick; every token within F32_TOKEN_DELTA of the
+    target's teacher-forced maximum, and equal to the same engine's on the
+    CPU (the card's states carried over); then the 32-row request's
+    tokens/s and the f32 kernel's times (paged_f32_times)."""
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    t_phase = time.perf_counter()
+    f32_err = paged_f32_phase(torch, fd, dev)
+    doc = example_doc("speculative")
+    reset_counts(fa, fd, kw)
+    fd.PAGED_F32_LAUNCHES = 0
+    engine = mode_engine(torch, dev, doc, continuous=True)
+    probes = read_counts(fa, fd, kw)
+    unit, g = engine.compiled.units["gen"], engine.genserver
+    t_cfg, d_cfg = unit.target_cfg, unit.draft_cfg
+    if (t_cfg.dtype != torch.float32 or not g.spec or not g.use_flash
+            or probes["flash_decode_paged"] != 1 or fd.PAGED_F32_LAUNCHES != 1
+            or probes["kv_write_paged"] != 2):
+        raise AssertionError(f"[spec-f32] the example's scheduler did not probe its kernels at "
+                             f"float32 ({probes}, {fd.PAGED_F32_LAUNCHES} on the f32 path)")
+    log(f"[spec-f32] examples/speculative_deployment.json: float32 target {t_cfg.d_model} wide, "
+        f"{t_cfg.n_heads} heads of {t_cfg.head_dim}, {t_cfg.n_layers} layers; draft "
+        f"{d_cfg.d_model} wide, {d_cfg.n_heads} heads of {d_cfg.head_dim}, {d_cfg.n_layers} "
+        f"layer(s); k={unit.k}; the scheduler probed flash_decode_paged at the f32 draft shape")
+    rng = np.random.default_rng(SEED + 61)
+    vocab, new = t_cfg.vocab, unit.max_new_tokens
+    p1 = rng.integers(0, vocab, size=(1, SPEC_EX_P))
+    p8 = rng.integers(0, vocab, size=(8, SPEC_EX_P))
+    p4 = [rng.integers(0, vocab, size=(1, SPEC_EX_P)) for _ in range(4)]
+    p32 = rng.integers(0, vocab, size=(GEN_B, SPEC_EX_P))
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    twin = cpu_twin(torch, engine, doc)
+    try:
+        reset_counts(fa, fd, kw)
+        fd.PAGED_F32_LAUNCHES = 0
+        snap0 = g.snapshot()
+        s1 = request("POST", url, ndarray(p1))
+        s8 = request("POST", url, ndarray(p8))
+        with ThreadPoolExecutor(4) as pool:
+            s4 = list(pool.map(lambda p: request("POST", url, ndarray(p)), p4))
+        launches = read_counts(fa, fd, kw)
+        f32_launches = fd.PAGED_F32_LAUNCHES
+        snap1 = g.snapshot()
+        walls = []
+        for _ in range(SPEC_EX_TURNS + 1):  # the first is the warm-up
+            t = time.perf_counter()
+            s32 = request("POST", url, ndarray(p32))
+            walls.append(time.perf_counter() - t)
+        walls = walls[1:]
+    finally:
+        server.stop()
+    rounds = snap1["spec_rounds_total"] - snap0["spec_rounds_total"]
+    ticks = snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+    row_rounds = snap1["spec_row_rounds_total"] - snap0["spec_row_rounds_total"]
+    accepted = snap1["spec_accepted_total"] - snap0["spec_accepted_total"]
+    t_layers, d_layers = t_cfg.n_layers, d_cfg.n_layers
+    want = {"flash_attention": 0, "flash_decode": 0, "kv_write": 0,
+            "flash_decode_paged": d_layers * (unit.k + 1) * rounds,
+            "kv_write_paged": t_layers * rounds + (t_layers + d_layers) * ticks}
+    if launches != want or not rounds or f32_launches != want["flash_decode_paged"]:
+        raise AssertionError(f"[spec-f32] launches {launches} ({f32_launches} on the f32 path), "
+                             f"not {want}")
+    log(f"[spec-f32] continuous lane over REST, a 1-row, an 8-row and 4 concurrent 1-row "
+        f"{SPEC_EX_P}-token requests in {rounds} rounds ({row_rounds} row-rounds, {ticks} "
+        f"prefill ticks): launches {launches} = {d_layers} x {unit.k + 1} x {rounds} "
+        f"flash_decode_paged, every one on the float32 path ({f32_launches}), and {t_layers} x "
+        f"{rounds} + ({t_layers} + {d_layers}) x {ticks} kv_write_paged; "
+        f"{accepted / max(row_rounds, 1):.3f} of {unit.k} proposals accepted a row-round")
+    sets = [(p1, s1), (p8, s8)] + list(zip(p4, s4)) + [(p32, s32)]
+    served = [(p, check_tokens(*s, p, "ndarray", new, vocab)) for p, s in sets]
+    target = engine.states()["gen"]["target"]
+    gaps = {"tokens": 0, "gap_max": 0.0}
+    same, ties = 0, 0
+    for prompts, toks in served:
+        gap, _ = teacher_forced(torch, lm_apply, target, t_cfg, prompts, toks, dev)
+        gaps["tokens"] += gap.size
+        gaps["gap_max"] = max(gaps["gap_max"], float(gap.max()))
+        text, st = asyncio.run(twin.predict_json(json.dumps(ndarray(prompts))))
+        cpu_toks = np.asarray(json.loads(text)["data"]["ndarray"], np.int64)
+        if st != 200 or cpu_toks.shape != toks.shape:
+            raise AssertionError(f"[spec-f32] the CPU engine answered {st}, {cpu_toks.shape}")
+        same += int((cpu_toks == toks).sum())
+        for r in np.nonzero((cpu_toks != toks).any(axis=1))[0]:
+            # a row may part only at an f32 tie: where it first parts, the two
+            # tokens' teacher-forced logits agree to well inside the delta
+            j = int(np.argmax(cpu_toks[r] != toks[r]))
+            seq = np.concatenate([prompts[r], toks[r, :j]])[None]
+            with torch.inference_mode():
+                row = lm_apply(target, torch.as_tensor(seq, dtype=torch.int32, device=dev),
+                               t_cfg, use_flash=False)[0, -1]
+            if abs(float(row[int(toks[r, j])] - row[int(cpu_toks[r, j])])) > 1e-4:
+                raise AssertionError(f"[spec-f32] row {r} parts from the CPU engine's at token "
+                                     f"{j} without a tie")
+            ties += 1
+    twin.close()
+    if gaps["gap_max"] > F32_TOKEN_DELTA:
+        raise AssertionError(f"[spec-f32] a token is {gaps['gap_max']:.3e} below the target's "
+                             f"teacher-forced maximum (delta {F32_TOKEN_DELTA})")
+    tok_s = GEN_B * new / float(np.median(walls))
+    log(f"[spec-f32] {gaps['tokens']} served tokens teacher-forced through the target: max gap "
+        f"{gaps['gap_max']:.3e} (delta {F32_TOKEN_DELTA}); {same} of {gaps['tokens']} equal to "
+        f"the same engine's on the CPU ({ties} rows parted at an f32 tie)")
+    log(f"[times] the speculative example's 32-row {SPEC_EX_P}-token request, {new} new tokens: "
+        f"{'/'.join(f'{v:.3f}' for v in quartiles_ms(walls))} ms over {len(walls)} walls, "
+        f"{tok_s:.1f} tokens/s on {smi}")
+    times = paged_f32_times(torch, fd, dev, smi)
+    log(f"[spec-f32] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return {"max_abs_err": f32_err, "launches": launches, "f32_launches": f32_launches,
+            "rounds": rounds, "prefill_ticks": ticks, "mean_accepted": accepted / max(row_rounds, 1),
+            "teacher_forced": gaps, "same_as_cpu": same, "cpu_ties": ties,
+            "tokens_per_s": tok_s, "wall_quartiles_ms": quartiles_ms(walls), "times": times}
+
+
+def eigh_share(torch, engine, x, calls: int = 5) -> dict:
+    """The outlier's dispatch under torch.profiler: ``calls`` dispatches of
+    ``x`` through the compiled graph, the host wall around them, and the
+    share of it inside aten::linalg_eigh (its host time, which waits on
+    cuSOLVER) and of the device time in the kernels launched under it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.compiled.predict_arrays(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            engine.compiled.predict_arrays(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ops = {e.key: e for e in prof.key_averages()}
+    eigh = ops.get("aten::linalg_eigh") or ops.get("aten::_linalg_eigh")
+    if eigh is None:
+        raise AssertionError("[families] the profile shows no aten::linalg_eigh")
+    dev_us = getattr(eigh, "device_time_total", None)
+    if dev_us is None:
+        dev_us = getattr(eigh, "cuda_time_total", 0.0)
+    names, n_kernels, _ = trace_kernels(prof, "outlier")
+    kernel_ms = sum(names.values())
+    return {"calls": calls, "wall_ms": wall_ms, "eigh_host_ms": eigh.cpu_time_total / 1e3,
+            "eigh_share_of_wall": eigh.cpu_time_total / 1e3 / wall_ms,
+            "eigh_device_ms": dev_us / 1e3, "kernel_ms": kernel_ms, "kernels": n_kernels,
+            "eigh_share_of_device": (dev_us / 1e3 / kernel_ms) if kernel_ms else None}
+
+
+def family_phases(torch, dev, smi) -> dict:
+    """10h. examples/iris, mean_transformer, gbm and outlier_pipeline over
+    REST on the card: requests of 1, 3 and 8 rows held against the same
+    engine on the CPU (the card's states carried over, the outlier's moving
+    in step); outlier_pipeline (the outlier TRANSFORMER, then MNIST through
+    fused_mlp_softmax) one fused-MLP launch a dispatch, then 8 concurrent
+    requests each answered with its own rows' outlierScore tags; each
+    example's 1-row p50 over one keepalive connection; the eigh share of
+    the outlier's dispatch.  Returns its numbers and the fused-MLP
+    launches of the outlier path."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, (width, scale, shift) in FAMILY_INPUTS.items():
+        doc = example_doc(name)
+        engine = mode_engine(torch, dev, doc, continuous=False)
+        twin = cpu_twin(torch, engine, doc)
+        rng = np.random.default_rng(SEED + width)
+        xs = [rng.random((n, width)) * scale + shift for n in (1, 3, 8)]
+        server = ServerThread(engine)
+        port = server.start()
+        url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+        row = {}
+        try:
+            fused_mlp.LAUNCHES = 0
+            errs = []
+            for x in xs:
+                st, raw = request("POST", url, ndarray(x))
+                text, cst = asyncio.run(twin.predict_json(json.dumps(ndarray(x))))
+                got, want = json.loads(raw), json.loads(text)
+                if st != 200 or cst != 200 or got["data"].get("names") != want["data"].get("names"):
+                    raise AssertionError(f"[families] {name}: HTTP {st}/{cst}, or other names")
+                y, yw = np.asarray(got["data"]["ndarray"]), np.asarray(want["data"]["ndarray"])
+                err = float(np.abs(y - yw).max())
+                tol = MNIST_ATOL if name == "outlier_pipeline" else FAMILY_ATOL
+                if y.shape != yw.shape or not np.isfinite(y).all() or err > tol:
+                    raise AssertionError(f"[families] {name} {x.shape}: card vs CPU err {err:.3e} "
+                                         f"(tolerance {tol})")
+                errs.append(err)
+                tags, wtags = got["meta"].get("tags", {}), want["meta"].get("tags", {})
+                if set(tags) != set(wtags):
+                    raise AssertionError(f"[families] {name}: tags {tags} vs {wtags}")
+                if "outlierScore" in tags:
+                    sc, wsc = np.asarray(tags["outlierScore"]), np.asarray(wtags["outlierScore"])
+                    if sc.shape != (len(x),) or not np.allclose(sc, wsc, rtol=SCORE_RTOL,
+                                                                 atol=1e-3):
+                        raise AssertionError(f"[families] outlierScore {sc} vs the CPU's {wsc}")
+            row["max_abs_err_vs_cpu"] = max(errs)
+            if name == "outlier_pipeline":
+                row["fused_mlp_launches"] = fused_mlp.LAUNCHES
+                if fused_mlp.LAUNCHES != len(xs):
+                    raise AssertionError(f"[families] {len(xs)} dispatches made "
+                                         f"{fused_mlp.LAUNCHES} fused-MLP launches")
+                sizes = [3, 4, 5, 6, 7, 8, 9, 10]
+                n0 = float(engine.states()["outlier"]["n"])
+                with ThreadPoolExecutor(len(sizes)) as pool:
+                    answers = list(pool.map(lambda n: request(
+                        "POST", url, ndarray(rng.random((n, width)))), sizes))
+                for n, (st, raw) in zip(sizes, answers):
+                    scores = json.loads(raw)["meta"]["tags"]["outlierScore"]
+                    if st != 200 or len(scores) != n or not np.isfinite(scores).all():
+                        raise AssertionError(f"[families] a concurrent {n}-row caller got "
+                                             f"{len(scores)} scores (HTTP {st})")
+                if float(engine.states()["outlier"]["n"]) != n0 + sum(sizes):
+                    raise AssertionError("[families] the outlier's count missed rows")
+                row["fused_mlp_launches"] = fused_mlp.LAUNCHES
+                log(f"[families] outlier_pipeline: {len(sizes)} concurrent callers of 3..10 rows "
+                    f"each answered with its own rows' outlierScore; the running count took "
+                    f"every row; {fused_mlp.LAUNCHES} fused_mlp_softmax launches, one a dispatch")
+            row["p50_ms"] = keepalive_p50_ms(port, ndarray(xs[0]), FAMILY_P50_REQUESTS)
+        finally:
+            server.stop(close_engine=False)
+        if name == "outlier_pipeline":
+            row["eigh"] = eigh_share(torch, engine, xs[2])
+            e = row["eigh"]
+            log(f"[times] outlier_pipeline's 8-row dispatch under torch.profiler, {e['calls']} "
+                f"calls: {e['wall_ms'] / e['calls']:.3f} ms a call, aten::linalg_eigh "
+                f"{e['eigh_host_ms'] / e['calls']:.3f} ms of it on the host "
+                f"({e['eigh_share_of_wall'] * 100:.1f}%), its kernels {e['eigh_device_ms']:.3f} "
+                f"of {e['kernel_ms']:.3f} device ms on {smi}")
+        engine.close()
+        twin.close()
+        out[name] = row
+        log(f"[families] {name} over REST: 1, 3 and 8 rows within {row['max_abs_err_vs_cpu']:.3e} "
+            f"of the CPU engine; 1-row p50 {row['p50_ms']:.3f} ms over {FAMILY_P50_REQUESTS} "
+            f"keepalive requests on {smi}")
+    log(f"[families] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def router_phase(torch, dev, smi) -> dict:
+    """10i. examples/epsilon_greedy_deployment.json over REST: 12 requests of
+    1-4 rows, each then a POST /api/v0.1/feedback of its response's
+    meta.routing with a reward; the router's success / tries move on the
+    routed branch only, as floor(reward * rows) and rows; the branches and
+    answers equal the same engine's on the CPU (the same key: the port's
+    draws are the same integers on both); the fused-MLP launches of each
+    branch, one a request; the events stub answers 200."""
+    from seldon_core_tpu_torch.messages import Feedback
+    from seldon_core_tpu_torch.ops import fused_mlp
+
+    t_phase = time.perf_counter()
+    doc = example_doc("epsilon_greedy")
+    engine = mode_engine(torch, dev, doc, continuous=False)
+    if engine.batcher is not None or any(u.path != "kernel" for n, u in
+                                         engine.compiled.units.items() if n != "eg-router"):
+        raise AssertionError("[router] the router graph got a batcher, or an MNIST branch is "
+                             "not on the kernel")
+    twin = cpu_twin(torch, engine, doc)
+    n = engine.compiled.units["eg-router"].n
+    success, tries = np.zeros(n), np.zeros(n)
+    per_branch = [0] * n
+    rng = np.random.default_rng(SEED + 71)
+    server = ServerThread(engine)
+    port = server.start()
+    base = f"http://127.0.0.1:{port}/api/v0.1"
+    err = 0.0
+    try:
+        for i in range(12):
+            x = rng.random((1 + i % 4, 784))
+            before = fused_mlp.LAUNCHES
+            st, raw = request("POST", f"{base}/predictions", ndarray(x))
+            launched = fused_mlp.LAUNCHES - before
+            text, cst = asyncio.run(twin.predict_json(json.dumps(ndarray(x))))
+            resp, want = json.loads(raw), json.loads(text)
+            branch = resp["meta"]["routing"]["eg-router"]
+            if st != 200 or cst != 200 or want["meta"]["routing"] != resp["meta"]["routing"] \
+                    or launched != 1:
+                raise AssertionError(f"[router] request {i}: HTTP {st}/{cst}, routing "
+                                     f"{resp['meta'].get('routing')} vs the CPU's "
+                                     f"{want['meta'].get('routing')}, {launched} launches")
+            err = max(err, float(np.abs(np.asarray(resp["data"]["ndarray"])
+                                        - np.asarray(want["data"]["ndarray"])).max()))
+            per_branch[branch] += launched
+            reward = round(float(rng.random()), 3)
+            fb = {"request": ndarray(x), "response": resp, "reward": reward}
+            fst, fraw = request("POST", f"{base}/feedback", fb)
+            asyncio.run(twin.send_feedback(Feedback.from_json(json.dumps(fb))))
+            if fst != 200 or json.loads(fraw)["meta"]["puid"] != resp["meta"]["puid"]:
+                raise AssertionError(f"[router] feedback {i}: HTTP {fst} {fraw[:200]!r}")
+            success[branch] += np.floor(np.float32(reward) * np.float32(len(x)))
+            tries[branch] += len(x)
+        events = request("GET", f"{base}/events")
+    finally:
+        server.stop()
+    state = engine.states()["eg-router"]
+    got = (state["success"].cpu().numpy(), state["tries"].cpu().numpy())
+    cpu_state = twin.states()["eg-router"]
+    twin.close()
+    if (not np.array_equal(got[0], success) or not np.array_equal(got[1], tries)
+            or not torch.equal(cpu_state["success"], state["success"].cpu())):
+        raise AssertionError(f"[router] success/tries {got} vs {success}/{tries} expected")
+    if err > MNIST_ATOL or events != (200, b"Not Implemented") or min(per_branch) == 0:
+        raise AssertionError(f"[router] answers err {err:.3e}, events {events}, launches by "
+                             f"branch {per_branch}")
+    log(f"[router] epsilon_greedy over REST: 12 requests then 12 feedbacks; routing equal to "
+        f"the CPU engine's, answers within {err:.3e}; success {got[0].tolist()} and tries "
+        f"{got[1].tolist()} moved on the routed branches only; fused_mlp_softmax launches by "
+        f"branch {per_branch}; the events stub answers 200; phase wall "
+        f"{time.perf_counter() - t_phase:.2f} s on {smi}")
+    return {"success": got[0].tolist(), "tries": got[1].tolist(),
+            "fused_mlp_launches_by_branch": per_branch, "max_abs_err_vs_cpu": err}
 
 
 def copy_batch(rng, vocab: int):
@@ -3213,11 +3752,47 @@ def main() -> int:
         row["launches_by_path"] = {"earlier phases": row["launches"],
                                    "sampled, prefix and speculative": mode_counts[row["name"]]}
         row["launches"] += mode_counts[row["name"]]
+    t0 = time.perf_counter()
+    spec_ex = spec_example_phase(torch, dev, smi)
+    families = family_phases(torch, dev, smi)
+    router = router_phase(torch, dev, smi)
+    log(f"[families] phases 10g-10i wall {time.perf_counter() - t0:.2f} s")
+    log(json.dumps({"new_paths": {"speculative_example": spec_ex, "families": families,
+                                  "router": router, "card": smi}}))
+    # the f32 example's verifies and prefill ticks write through kv_write_paged
+    kv_paged_row["launches_by_path"]["speculative example (float32)"] = \
+        spec_ex["launches"]["kv_write_paged"]
+    kv_paged_row["launches"] += spec_ex["launches"]["kv_write_paged"]
+    # the MNIST behind the outlier TRANSFORMER and both router branches
+    mlp_row["launches_by_path"] = {
+        "mnist example": mlp_row["launches"],
+        "outlier_pipeline": families["outlier_pipeline"]["fused_mlp_launches"],
+        "epsilon_greedy": sum(router["fused_mlp_launches_by_branch"])}
+    mlp_row["launches"] = sum(mlp_row["launches_by_path"].values())
+    top = spec_ex["times"][0]
+    f32_row = {
+        "name": "flash_decode_paged (float32 path)",
+        "route": "cuda",
+        "source": "seldon_core_tpu_torch/ops/csrc/flash_decode_paged.cu",
+        "replaces": "seldon_core_tpu/ops/flash_decode.py:47",
+        "launches": spec_ex["f32_launches"],
+        "max_abs_err": spec_ex["max_abs_err"],
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"],
+        "shape": (f"B=32 KV=2 G=1 hd=32, {PAGED_NBLK} blocks of {PAGED_BS}, n=512 in every row, "
+                  f"float32 (the speculative example's draft; the main path's calls also take "
+                  f"the step's write)"),
+        "design": PAGED_F32_DESIGN,
+        "at": spec_ex["times"],
+    }
     dq_row, dkv_row = training_phases(torch, dev, smi)
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,
-                                paged_row, kv_paged_row]}))
+                                paged_row, f32_row, kv_paged_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

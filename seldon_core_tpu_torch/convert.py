@@ -6,6 +6,14 @@
 ``np.asarray`` on each array) and returns the port's state, with the same
 nesting, on a device, ready for ``EngineService.load_states({name: ...})``.
 
+Every unit's state carries this way: the MLP and the convnet (whose conv
+weights keep the JAX package's HWIO layout in the port's state), the
+generators, the tabular and iris units, the outlier's running statistics
+and a router's ``success`` / ``tries``.  A router's key cannot carry: the
+port's keys (``models/prng.py``) are not ``jax.random``'s, so keep the
+port's own, ``{**port_state, **params_from_jax({"success": ..., "tries":
+...})}``.
+
 bf16 arrays arrive with an ``ml_dtypes`` dtype whose name is "bfloat16".
 They are taken by bit pattern (uint16 view -> torch -> bfloat16 view), so
 the values are identical and ``ml_dtypes`` is never imported.

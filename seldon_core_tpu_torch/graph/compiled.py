@@ -5,20 +5,27 @@ The JAX package traces a whole in-process graph into one jitted XLA
 program.  The port evaluates the same tree eagerly, in PyTorch, walking
 it in the same order:
 
-    transform_input -> children -> aggregate -> transform_output
+    transform_input -> route -> children -> aggregate -> transform_output
 
 with unit states held in one dict (node name -> state) and threaded
 through ``UnitAux`` updates, tags merged with later writers winning.
-Each unit's tensors stay on the engine's device; the only host transfer
-is the caller's readback.  Graphs with routers (per-request branch
-choice), remote nodes or impure units are refused with a
-``GraphSpecError``: the router executor and the feedback pass are not
-ported yet.
+Each unit's tensors stay on the engine's device.  A router's branch is
+one device-to-host read per request, and then only the chosen child runs:
+the eager counterpart of the reference's ``lax.switch``.  An out-of-range
+branch raises before any child runs, and the states stay as they were
+(the reference raises after the program, without writing its states
+back).  ``routing`` records each visited router's branch; routers off the
+executed path report ``NOT_ROUTED`` and are left out of ``meta.routing``.
+The feedback pass (``feedback_arrays``) replays a response's
+``meta.routing``: each unit with SEND_FEEDBACK takes the reward, and a
+router's feedback reaches only the child it routed to (all of them for a
+router it does not record).  Remote nodes and impure units are refused
+with a ``GraphSpecError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +53,11 @@ from seldon_core_tpu_torch.graph.units import (
 )
 from seldon_core_tpu_torch.messages import Meta, SeldonMessage, Status
 
-__all__ = ["CompiledGraph", "build_units", "to_device"]
+__all__ = ["CompiledGraph", "NOT_ROUTED", "build_units", "to_device"]
+
+# routing's sentinel for a router off the executed path: far outside any
+# plausible branch index, so a router's negative answer cannot collide
+NOT_ROUTED = -(2**30)
 
 
 def _set_state(states: Dict[str, Any], name: str, new_state) -> Dict[str, Any]:
@@ -100,6 +111,10 @@ def to_device(state, device: torch.device):
     return state
 
 
+def _routers_in(node: PredictiveUnit) -> List[str]:
+    return [u.name for u in node.walk() if UnitMethod.ROUTE in methods_for(u) and u.children]
+
+
 def _as_input(X, device: torch.device) -> torch.Tensor:
     """Rows -> a tensor on the device.  float64 arrives from the JSON codec
     and is cast to float32 (int64 to int32), as ``jnp.asarray`` does with
@@ -127,14 +142,6 @@ class CompiledGraph:
                  device: DeviceLike = None):
         self.predictor = predictor
         self.device = resolve_device(device)
-        routers = [u.name for u in predictor.graph.walk()
-                   if UnitMethod.ROUTE in methods_for(u) and u.children]
-        if routers:
-            raise GraphSpecError(
-                f"routers {routers} need per-request branch choice, which the "
-                f"port does not have yet (ROADMAP Queue 1 item [1]: graph "
-                f"interpreter and routers)"
-            )
         self.units = build_units(predictor, device=self.device)
         rngs = unit_rngs(list(self.units), rng)
         self.states: Dict[str, Any] = {}
@@ -142,7 +149,9 @@ class CompiledGraph:
             st = unit.init_state(rngs[name])
             if st is not None:
                 self.states[name] = to_device(st, self.device)
+        self._all_routers = _routers_in(predictor.graph)
         self._predict_fn = self._build_predict(predictor.graph)
+        self._feedback_fn = self._build_feedback(predictor.graph)
 
     def _build_predict(self, node: PredictiveUnit) -> Callable:
         unit = self.units[node.name]
@@ -153,6 +162,7 @@ class CompiledGraph:
         static_tags = dict(unit.static_tags or {})
 
         def fn(states, X):
+            routing: Dict[str, int] = {}
             tags: Dict[str, Any] = dict(static_tags)
             y = X
             if UnitMethod.TRANSFORM_INPUT in methods:
@@ -160,11 +170,26 @@ class CompiledGraph:
                 y, new_state, t = normalize_output(m(states.get(name), y), states.get(name))
                 states = _set_state(states, name, new_state)
                 tags.update(t)
-            if child_fns:
+            if child_fns and UnitMethod.ROUTE in methods:
+                out = unit.route(states.get(name), y)
+                branch, new_state, _ = normalize_output(out, states.get(name))
+                states = _set_state(states, name, new_state)
+                branch = int(branch)  # the request's one device-to-host read here
+                if not 0 <= branch < len(child_fns):
+                    raise GraphSpecError(
+                        f"router {name!r} chose branch {branch} but has {len(child_fns)} "
+                        f"children (broadcast routing is host-mode only)"
+                    )
+                y, states, child_routing, t = child_fns[branch](states, y)
+                routing[name] = branch
+                routing.update(child_routing)
+                tags.update(t)
+            elif child_fns:
                 ys = []
                 for cf in child_fns:
-                    yc, states, t = cf(states, y)
+                    yc, states, r, t = cf(states, y)
                     ys.append(yc)
+                    routing.update(r)
                     tags.update(t)
                 if UnitMethod.AGGREGATE in methods:
                     out = unit.aggregate(states.get(name), torch.stack(ys, dim=0))
@@ -183,17 +208,56 @@ class CompiledGraph:
                 y, new_state, t = normalize_output(out, states.get(name))
                 states = _set_state(states, name, new_state)
                 tags.update(t)
-            return y, states, tags
+            return y, states, routing, tags
+
+        return fn
+
+    def _build_feedback(self, node: PredictiveUnit) -> Callable:
+        unit = self.units[node.name]
+        methods = methods_for(node)
+        child_fbs = [self._build_feedback(c) for c in node.children]
+        name = node.name
+        is_router = UnitMethod.ROUTE in methods and bool(node.children)
+
+        def fn(states, X, routing, reward, truth):
+            branch = routing.get(name, -1)
+            if UnitMethod.SEND_FEEDBACK in methods:
+                new_state = unit.send_feedback(states.get(name), X, branch, reward, truth)
+                states = _set_state(states, name, new_state)
+            for idx, cfb in enumerate(child_fbs):
+                # a router's feedback reaches the child it routed to, or
+                # every child when it recorded no branch
+                if not is_router or branch in (idx, -1):
+                    states = cfb(states, X, routing, reward, truth)
+            return states
 
         return fn
 
     def predict_arrays(self, X) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
         """Run the graph; returns (Y on the device, routing, tags) and
-        advances the held unit states."""
+        advances the held unit states (not on a failure)."""
         X = _as_input(X, self.device)
         with torch.inference_mode():
-            y, self.states, tags = self._predict_fn(self.states, X)
-        return y, {}, tags
+            y, states, routing, tags = self._predict_fn(self.states, X)
+        self.states = states
+        routing = {r: routing.get(r, NOT_ROUTED) for r in self._all_routers}
+        return y, {r: v for r, v in routing.items() if v != NOT_ROUTED}, tags
+
+    def feedback_arrays(self, X, routing: Dict[str, Any], reward: float, truth=None) -> None:
+        """The feedback pass: the units' state updates for a reward on rows
+        ``X`` (None: one row), replaying the recorded ``routing``; a router
+        it does not name counts as -1 (no recorded branch)."""
+        try:
+            replay = {r: int(routing.get(r, -1)) for r in self._all_routers}
+        except (TypeError, ValueError) as e:
+            raise GraphSpecError(f"feedback routing {routing!r} is not a branch index: "
+                                 f"{e}") from None
+        if X is not None:
+            X = _as_input(np.atleast_2d(X), self.device)
+        if truth is not None:
+            truth = _as_input(truth, self.device)
+        with torch.inference_mode():
+            self.states = self._feedback_fn(self.states, X, replay, float(reward), truth)
 
     def predict(self, msg: SeldonMessage) -> SeldonMessage:
         # 1-D wire payloads mean a single sample
@@ -213,14 +277,18 @@ class CompiledGraph:
 
     def _output_names(self, node: PredictiveUnit, routing: Dict[str, int]) -> Optional[list]:
         """Names of the unit that produced the output: the last unit on the
-        executed path that sets class names (graph/compiled.py:477)."""
+        executed path, following the recorded routing, that sets class
+        names (graph/compiled.py:477)."""
         unit = self.units[node.name]
         methods = methods_for(node)
         names: Optional[list] = None
         if UnitMethod.TRANSFORM_INPUT in methods and unit.class_names is not None:
             names = list(unit.class_names)
         if node.children:
-            if UnitMethod.AGGREGATE in methods and unit.class_names is not None:
+            if UnitMethod.ROUTE in methods and node.name in routing:
+                child = node.children[routing[node.name]]
+                names = self._output_names(child, routing) or names
+            elif UnitMethod.AGGREGATE in methods and unit.class_names is not None:
                 names = list(unit.class_names)
             else:
                 names = self._output_names(node.children[0], routing) or names

@@ -18,10 +18,12 @@ graph capture.  Built-ins ported so far:
 
   * SimpleModelUnit     — fixed [0.1, 0.9, 0.5] / class0..2 stub
     (engine SimpleModelUnit.java:29-44)
+  * SimpleRouterUnit    — always child 0 (engine SimpleRouterUnit.java:24-31)
+  * RandomABTestUnit    — a seeded uniform <= ratioA picks child 0, else 1
+    (engine RandomABTestUnit.java:35-58); its state is the port's own key
+    (``models/prng.py``), never ``jax.random``'s
   * AverageCombinerUnit — element-wise mean over child outputs
     (engine AverageCombinerUnit.java:30-95)
-
-SIMPLE_ROUTER and RANDOM_ABTEST come with the router executor.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ __all__ = [
     "instantiate_bound_unit",
     "UNIT_REGISTRY",
     "SimpleModelUnit",
+    "SimpleRouterUnit",
+    "RandomABTestUnit",
     "AverageCombinerUnit",
 ]
 
@@ -191,6 +195,42 @@ class SimpleModelUnit(Unit):
         batch = X.shape[0] if X.ndim >= 1 else 1
         row = torch.tensor(self.values, dtype=torch.float32, device=X.device)
         return row.expand(batch, -1).clone()
+
+
+@register_unit("SIMPLE_ROUTER")
+class SimpleRouterUnit(Unit):
+    """Always routes to child 0 (engine SimpleRouterUnit.java:24-31)."""
+
+    def route(self, state, X):
+        return 0
+
+
+@register_unit("RANDOM_ABTEST")
+class RandomABTestUnit(Unit):
+    """Seeded random A/B split: a uniform draw <= ratioA routes to child 0,
+    else to child 1 (engine RandomABTestUnit.java:35-58).  The state is the
+    key, split once a request, so a fixed seed gives a fixed sequence of
+    branches, like the reference's ``Random(1337)``."""
+
+    def __init__(self, ratioA: float = 0.5, seed: int = 1337):
+        self.ratioA = float(ratioA)
+        self.seed = int(seed)
+
+    def init_state(self, rng):
+        from seldon_core_tpu_torch.models import prng  # the models package imports this module
+
+        return prng.key(self.seed if rng is None else rng.initial_seed())
+
+    def _draw(self, key):
+        """(the next key, a uniform draw in [0, 1)) from ``key``."""
+        from seldon_core_tpu_torch.models import prng
+
+        key, sub = prng.split(key)
+        return key, prng.uniform(sub, 1)[0]
+
+    def route(self, state, X):
+        key, u = self._draw(state)
+        return (u > self.ratioA).long(), UnitAux(state=key)
 
 
 @register_unit("AVERAGE_COMBINER")

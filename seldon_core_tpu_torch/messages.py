@@ -2,6 +2,7 @@
 
 The wire contract of the reference (proto/prediction.proto:12-69) as
 dataclasses: ``SeldonMessage{status, meta, data|binData|strData}``,
+``Feedback{request, response, reward, truth}``,
 ``DefaultData{names, tensor|ndarray}`` whose wire kind a response keeps
 from its request, ``Meta{puid, tags, routing, requestPath}`` and
 ``Status``.  JSON field names are camelCase, so clients of the JAX
@@ -28,6 +29,7 @@ __all__ = [
     "Meta",
     "DefaultData",
     "SeldonMessage",
+    "Feedback",
     "SeldonMessageError",
     "DispatchTimeoutError",
     "DeadlineExceededError",
@@ -339,3 +341,66 @@ class SeldonMessage:
         except json.JSONDecodeError as e:
             raise SeldonMessageError(f"invalid JSON: {e}") from e
         return SeldonMessage.from_json_dict(d, dtype=dtype)
+
+
+@dataclass
+class Feedback:
+    """Online-learning signal (proto/prediction.proto:55-60): the original
+    request/response pair plus a scalar reward and optional ground truth."""
+
+    request: Optional[SeldonMessage] = None
+    response: Optional[SeldonMessage] = None
+    reward: float = 0.0
+    truth: Optional[SeldonMessage] = None
+
+    def puid(self) -> str:
+        """Correlation id of this feedback: the served response's puid when
+        present, else the original request's."""
+        if self.response is not None and self.response.meta.puid:
+            return self.response.meta.puid
+        if self.request is not None and self.request.meta.puid:
+            return self.request.meta.puid
+        return ""
+
+    def truth_array(self) -> Optional[np.ndarray]:
+        """The ground-truth tensor (``truth.data``) as numpy, or None."""
+        if self.truth is not None and self.truth.data is not None:
+            return np.asarray(self.truth.array())
+        return None
+
+    def to_json_dict(self) -> dict:
+        out: dict = {"reward": float(self.reward)}
+        if self.request is not None:
+            out["request"] = self.request.to_json_dict()
+        if self.response is not None:
+            out["response"] = self.response.to_json_dict()
+        if self.truth is not None:
+            out["truth"] = self.truth.to_json_dict()
+        return out
+
+    @staticmethod
+    def from_json_dict(d: Mapping[str, Any], dtype=np.float64) -> "Feedback":
+        if not isinstance(d, Mapping):
+            raise SeldonMessageError("Feedback JSON must be an object")
+
+        def _msg(key: str) -> Optional[SeldonMessage]:
+            v = d.get(key)
+            return SeldonMessage.from_json_dict(v, dtype=dtype) if v is not None else None
+
+        try:
+            reward = float(d.get("reward", 0.0) or 0.0)
+        except (TypeError, ValueError) as e:
+            raise SeldonMessageError(f"malformed reward: {e}") from e
+        return Feedback(request=_msg("request"), response=_msg("response"), reward=reward,
+                        truth=_msg("truth"))
+
+    @staticmethod
+    def from_json(s: Union[str, bytes], dtype=np.float64) -> "Feedback":
+        try:
+            d = json.loads(s)
+        except json.JSONDecodeError as e:
+            raise SeldonMessageError(f"invalid JSON: {e}") from e
+        return Feedback.from_json_dict(d, dtype=dtype)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_json_dict(), separators=(",", ":"))

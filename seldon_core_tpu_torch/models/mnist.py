@@ -17,6 +17,15 @@ static shapes and the device, as the JAX unit chooses:
 ``mlp_apply`` and says so once in the log, as the JAX unit falls back to
 its XLA path.  When the kernel is taken, the constructor builds and
 launches it once (``probe_kernel``) and raises if that fails.
+
+``MnistCNN`` (``mnist.py:172`` there) is the small convnet: two 3x3 conv
++ ReLU + 2x2 max-pool layers and a dense softmax, bf16 by default.  Its
+public functions keep the JAX package's layouts, NHWC input and HWIO conv
+weights (``cnn_init``, ``cnn_apply``; the state carries across from the
+JAX unit as it is); inside, ``F.conv2d`` runs in NCHW/OIHW.  The JAX
+package computes the convolutions in XLA, outside any Pallas kernel, so
+they stay library calls here (cuDNN on the card).  A float32 CNN on the
+card convolves in TF32 unless ``torch.backends.cudnn.allow_tf32`` is off.
 """
 
 from __future__ import annotations
@@ -26,9 +35,11 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
 from seldon_core_tpu_torch.graph.units import Unit, register_unit
+from seldon_core_tpu_torch.models.transformer import seeded_generator
 from seldon_core_tpu_torch.ops.fused_mlp import (
     fused_mlp_softmax,
     fused_mlp_softmax_reference,
@@ -36,7 +47,7 @@ from seldon_core_tpu_torch.ops.fused_mlp import (
     probe_kernel,
 )
 
-__all__ = ["MnistClassifier", "mlp_init", "mlp_apply"]
+__all__ = ["MnistClassifier", "MnistCNN", "mlp_init", "mlp_apply", "cnn_init", "cnn_apply"]
 
 logger = logging.getLogger(__name__)
 
@@ -123,12 +134,9 @@ class MnistClassifier(Unit):
             self.path = "kernel"
 
     def init_state(self, rng: Optional[torch.Generator]):
-        # fold the construction seed into the graph's generator so two
+        # the construction seed folded into the graph's generator: two
         # ensemble members with different seeds differ under one graph seed
-        base = 0 if rng is None else rng.initial_seed()
-        g = torch.Generator(device="cpu")
-        g.manual_seed((base * 1_000_003 + self.seed) % (1 << 63))
-        return mlp_init(g, hidden=self.hidden, depth=self.depth,
+        return mlp_init(seeded_generator(rng, self.seed), hidden=self.hidden, depth=self.depth,
                         dtype=self.dtype, device=self.device)
 
     def predict(self, state, X):
@@ -140,3 +148,53 @@ class MnistClassifier(Unit):
         if self.path == "reference":
             return fused_mlp_softmax_reference(state, X)
         return torch.softmax(mlp_apply(state, X), dim=-1)
+
+
+def cnn_init(rng: torch.Generator, channels: int = 32, dtype: torch.dtype = torch.bfloat16,
+             device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """He-initialised convnet parameters {c1, c2 (HWIO), w [7*7*2c, 10], b},
+    drawn on the CPU from ``rng`` and moved to ``device`` (default cuda)."""
+    device = resolve_device(device)
+    c = int(channels)
+
+    def normal(shape, fan_in):
+        w = torch.randn(*shape, generator=rng, dtype=torch.float32) * math.sqrt(2.0 / fan_in)
+        return w.to(dtype).to(device)
+
+    return {"c1": normal((3, 3, 1, c), 9), "c2": normal((3, 3, c, 2 * c), 9 * c),
+            "w": normal((7 * 7 * 2 * c, NUM_CLASSES), 7 * 7 * 2 * c),
+            "b": torch.zeros(NUM_CLASSES, dtype=dtype, device=device)}
+
+
+def cnn_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Class probabilities [B, 10] f32 for x [B, 784] or NHWC [B, 28, 28, 1]:
+    each conv 3x3 'SAME' then ReLU then a 2x2 max-pool, in the params'
+    dtype; the flattened NHWC features times w, plus b, in f32."""
+    h = x.reshape(-1, 28, 28, 1).to(params["c1"].dtype).permute(0, 3, 1, 2)  # NCHW
+    for name in ("c1", "c2"):
+        h = F.conv2d(h, params[name].permute(3, 2, 0, 1), padding=1)  # HWIO -> OIHW
+        h = F.max_pool2d(torch.relu(h), 2)
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # NHWC order, as the reference flattens
+    logits = (h @ params["w"]).float() + params["b"].float()
+    return torch.softmax(logits, dim=-1)
+
+
+@register_unit("MnistCNN")
+class MnistCNN(Unit):
+    """Small convnet (2x conv+pool, 1 dense); accepts [B, 784] or [B, 28,
+    28, 1] input."""
+
+    class_names = [f"class:{i}" for i in range(NUM_CLASSES)]
+
+    def __init__(self, channels: int = 32, seed: int = 0, dtype: str = "bfloat16",
+                 device: DeviceLike = None):
+        self.channels = int(channels)
+        self.seed = int(seed)
+        self.dtype = parse_dtype(dtype)
+        self.device = resolve_device(device)
+
+    def init_state(self, rng: Optional[torch.Generator]):
+        return cnn_init(seeded_generator(rng, self.seed), self.channels, self.dtype, self.device)
+
+    def predict(self, state, X):
+        return cnn_apply(state, X)

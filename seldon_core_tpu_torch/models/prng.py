@@ -11,7 +11,9 @@ whatever device the key lives on:
                              that lives on the device (``fold_in``);
   * ``split(key)``           two keys from one (``split`` into two);
   * ``gumbel(key, n)``       ``n`` standard Gumbel draws a key, f32, from
-                             the words of element j = 0..n-1 alone.
+                             the words of element j = 0..n-1 alone;
+  * ``uniform(key, n)``      ``n`` uniform draws in [0, 1) a key, f32, from
+                             the same words (the routers' coin).
 
 So a draw depends only on its key and its index: a batch of per-row keys
 ``[B, 2]`` gives each row the noise it would get alone, whatever rows are
@@ -38,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["key", "fold_in", "split", "gumbel"]
+__all__ = ["key", "fold_in", "split", "gumbel", "uniform"]
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -92,12 +94,22 @@ def split(k: torch.Tensor):
     return both[..., 0, :], both[..., 1, :]
 
 
-def gumbel(k: torch.Tensor, n: int) -> torch.Tensor:
-    """Standard Gumbel draws [..., n] f32 from keys [..., 2]: element j of a
-    key's row hashes (key, j) alone."""
+def _words(k: torch.Tensor, n: int) -> torch.Tensor:
+    """24 random bits [..., n] from keys [..., 2]: element j of a key's row
+    hashes (key, j) alone."""
     j = torch.arange(int(n), device=k.device, dtype=torch.int64)
     k0, k1 = k[..., 0:1], k[..., 1:2]
     h = _fmix(_mul(j, _GOLDEN) ^ k0)
-    h = _fmix((h + k1) & _M32)
-    u = ((h >> 8).double() + 0.5) * 2.0 ** -24  # (0, 1), never 0 or 1
+    return _fmix((h + k1) & _M32) >> 8
+
+
+def gumbel(k: torch.Tensor, n: int) -> torch.Tensor:
+    """Standard Gumbel draws [..., n] f32 from keys [..., 2]."""
+    u = (_words(k, n).double() + 0.5) * 2.0 ** -24  # (0, 1), never 0 or 1
     return (-torch.log(-torch.log(u))).float()
+
+
+def uniform(k: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniform draws [..., n] f32 in [0, 1) from keys [..., 2], on a grid of
+    2^-24 (exact in f32), from the words ``gumbel`` draws from."""
+    return _words(k, n).float() * 2.0 ** -24

@@ -26,9 +26,10 @@ takes a bitmap mask).
 
 ``SpeculativeGenerator`` is the serving unit (the reference's name and
 parameters; the draft's dims default to a quarter of the width and half
-the depth, dtype float32).  On CUDA it refuses a draft that the paged
-decode kernel cannot take (that kernel takes bfloat16: set
-``dtype="bfloat16"``), so no draft step runs the plain path on the card.
+the depth, dtype float32).  On CUDA it asks the paged decode kernel for
+its draft's shape and refuses one the kernel cannot take (the kernel takes
+bfloat16 on the tensor cores and float32 by f32 FMAs, not float16), so no
+draft step runs the plain path on the card.
 The engine serves it by the continuous lane (``continuous_spec``:
 ``runtime/genserver.py`` in speculative mode, whose rounds are
 ``models/generate.py:paged_spec_round``, the draft's steps through the
@@ -245,7 +246,8 @@ class SpeculativeGenerator(Unit):
         if self.device.type == "cuda":
             # every draft step of the continuous lane is a flash_decode_paged
             # launch: a draft it cannot take is refused here, never served
-            # by the plain path on the card (the kernel takes bfloat16)
+            # by the plain path on the card (the kernel takes bfloat16 and
+            # float32)
             why = paged_kernel_shape_error(self.draft_cfg.head_dim, dt, 1)
             if why is not None:
                 raise ValueError(f"SpeculativeGenerator on {self.device}: {why}")

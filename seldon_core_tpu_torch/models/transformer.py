@@ -156,7 +156,7 @@ def refuse_unported(cfg: LMConfig) -> None:
         raise ValueError(
             f"quant={cfg.quant!r} / kv_quant={cfg.kv_quant!r}: the port serves "
             f"dense bf16/f32 weights and caches only (int8 LM quantization: "
-            f"ROADMAP Queue 1 item 2)"
+            f"ROADMAP Queue 1 item [2q])"
         )
     if cfg.moe_every > 0:
         raise ValueError(

@@ -81,6 +81,22 @@
 //     its index, a row's bits depend on lens[b] and C only, never on which
 //     physical blocks hold it.
 //
+// The float32 path (paged_decode_f32_kernel) serves the float32 pools of
+// an f32 model, such as a speculative unit's f32 draft (hd 32, group 1,
+// pool blocks of 16), with the same share rule, fused write and combine.
+// Its products are f32 FMAs on the CUDA cores: mma.sync's TF32 keeps 10
+// mantissa bits and would move an f32 draft's logits by ~1e-3, enough to
+// turn an argmax away from the reference's.  A draft head is narrow and the
+// walk is bound by the bytes (~G FMAs a K/V float), so the CUDA cores' 67
+// TFLOP/s do not bound it.  Each warp takes every 8th tile of 32 positions
+// of the share, one position a lane: a lane's scores are its K row's dot
+// products with the block's query rows (q in shared memory, K by 16-byte
+// loads of the lane's own row), the tile's max and sum are warp shuffles,
+// and O += P V broadcasts each position's p and V row pointer across the
+// warp, whose lanes each hold every 32nd column of V.  No TMA: K and V come
+// straight from the pools through L1 (one K row is 128 bytes at hd 32), so
+// the pools need only 16-byte aligned rows.
+//
 // Interface: plain C functions loaded with ctypes (no PyTorch headers); the
 // tensor maps are encoded on the host (flash_common.cuh), no -lcuda.
 
@@ -105,6 +121,9 @@ constexpr int MAX_SPLIT = 8;           // blocks per cluster: the portable limit
 constexpr int MIN_SPAN = 64;           // the fewest positions a non-empty share holds unless alone
 constexpr int RING_BUDGET = 64 * 1024; // bytes of ring a block aims at
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int DTYPE_F32 = 1;           // the wrappers' dtype code for float32 (0: bfloat16)
+constexpr int F32_TILE = 32;           // positions an f32 warp takes at a time: one a lane
+constexpr int F32_WARPS = 8;           // warps of an f32 block
 
 // warps per block: 8 up to a head dim of 128; 4 above, where the warps'
 // partial outputs would not fit beside the cluster's gather
@@ -116,25 +135,27 @@ __host__ __device__ constexpr int nwarps(int D) { return D <= 128 ? 8 : 4; }
 __host__ __device__ constexpr int tile_cols(int D) { return D <= 64 ? 64 : (D <= 128 ? 128 : 256); }
 static_assert(nwarps(64) <= MAX_SPLIT, "the weights region holds MAX_SPLIT per row");
 
-struct Params {
-  const __nv_bfloat16* q;
+template <typename T>                  // T: the element type of q, the pools and o
+struct ParamsT {
+  const T* q;
   long long qs[3];                     // element strides of b, kv head, group row (d is 1)
-  __nv_bfloat16* pool_k;
-  __nv_bfloat16* pool_v;
+  T* pool_k;
+  T* pool_v;
   long long ks[3], vs[3];              // element strides of block, kv head, row (d is 1)
   const int* table;                    // [B, nblk] int32 block ids, contiguous
   const int* lens;                     // [B] int32 positions per row
-  const __nv_bfloat16* k_new;          // [B, KV, 1, D] or null: no fused write
-  const __nv_bfloat16* v_new;
+  const T* k_new;                      // [B, KV, 1, D] or null: no fused write
+  const T* v_new;
   long long kns[2], vns[2];            // element strides of b, kv head
   const unsigned char* valid;          // [B] bool, or null: every row valid
-  __nv_bfloat16* o;                    // [B, KV, G, D] contiguous
+  T* o;                                // [B, KV, G, D] contiguous
   int nblk, bs, nblocks;               // table width, rows per pool block, blocks in the pool
   int KV, G, D;
   int split;                           // C: blocks per cluster
   int box_rows;                        // rows of a TMA box (MAX_BOX_ROWS or 8)
   float scale_log2;                    // (1/sqrt(D)) log2 e
 };
+using Params = ParamsT<__nv_bfloat16>;
 
 // Block r's share [p0, p1) of a row's n positions when a cluster of C
 // blocks splits them in pool blocks of bs rows: k ranks take ceil(n / bs)
@@ -187,13 +208,41 @@ __host__ __device__ inline Layout layout_for(int D, int GT) {
   return L;
 }
 
-// The shape and type rules: bf16, a head dim that is a multiple of 8 up to
-// 256, a group of at least one row, pool blocks of a multiple of 8 rows.
-// Returns the dynamic shared memory in bytes, or -1 with the reason in why
-// (why may be null when why_len is 0).
+// The float32 path's shared memory, in floats from the base: q [GT][D];
+// the warps' m, l [NW][GT] and acc [NW][GT][D]; the weights [MAX_SPLIT +
+// 2][GT]; rank 0's gather of every rank's (M, L, O) per row [MAX_SPLIT][GT *
+// (D + 2)].  Twice the bf16 path's bytes a value, and no ring.
+struct LayoutF32 {
+  int m, l, acc, weights, gather, bytes;
+};
+
+__host__ __device__ inline LayoutF32 layout_f32(int D, int GT) {
+  LayoutF32 L;
+  L.m = GT * D;
+  L.l = L.m + F32_WARPS * GT;
+  L.acc = L.l + F32_WARPS * GT;
+  L.weights = L.acc + F32_WARPS * GT * D;
+  L.gather = L.weights + (MAX_SPLIT + 2) * GT;
+  L.bytes = (L.gather + MAX_SPLIT * GT * (D + 2)) * 4;
+  return L;
+}
+
+// query rows a float32 block takes: the group rounded up to 1, 2, 4 or 8
+__host__ __device__ constexpr int f32_rows(int G) { return G <= 1 ? 1 : (G <= 2 ? 2 : (G <= 4 ? 4 : 8)); }
+
+// columns of V a float32 lane holds: D <= 32 * f32_cols(D)
+__host__ __device__ constexpr int f32_cols(int D) { return D <= 32 ? 1 : (D <= 64 ? 2 : (D <= 128 ? 4 : 8)); }
+
+// 0..3 for 1, 2, 4, 8
+inline int log2_index(int x) { return x <= 1 ? 0 : (x <= 2 ? 1 : (x <= 4 ? 2 : 3)); }
+
+// The shape and type rules: bfloat16 or float32, a head dim that is a
+// multiple of 8 up to 256, a group of at least one row, pool blocks of a
+// multiple of 8 rows.  Returns the dynamic shared memory in bytes, or -1
+// with the reason in why (why may be null when why_len is 0).
 int plan(int head_dim, int group, int block_size, int dtype_code, char* why, int why_len) {
-  if (dtype_code != DTYPE_BF16) {
-    snprintf(why, why_len, "the paged flash-decode kernel takes bfloat16 q/k/v only");
+  if (dtype_code != DTYPE_BF16 && dtype_code != DTYPE_F32) {
+    snprintf(why, why_len, "the paged flash-decode kernel takes bfloat16 or float32 q/k/v only");
     return -1;
   }
   if (head_dim < 8 || head_dim > MAX_D || head_dim % 8 != 0) {
@@ -213,7 +262,8 @@ int plan(int head_dim, int group, int block_size, int dtype_code, char* why, int
              block_size);
     return -1;
   }
-  const int smem = layout_for(head_dim, group > 8 ? 16 : 8).bytes;
+  const int smem = dtype_code == DTYPE_F32 ? layout_f32(head_dim, f32_rows(group)).bytes
+                                            : layout_for(head_dim, group > 8 ? 16 : 8).bytes;
   if (smem > SMEM_LIMIT) {
     snprintf(why, why_len, "paged flash decode needs %d KiB shared memory (budget %d KiB)",
              smem >> 10, SMEM_LIMIT >> 10);
@@ -261,12 +311,95 @@ __device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qb, long long ro
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) { *o = __float2bfloat16(x); }
+__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
+
+// A block's end, shared by both paths once its warps' (m, l, acc) per row
+// are in shared memory: per row the block's (M, L, O) with O = sum_w acc_w
+// wt_w, L = sum_w l_w wt_w, wt_w = exp(m_w - M), in warp order; then o, or
+// with a cluster each rank's (M, L, O) into rank 0's gather through DSMEM
+// and rank 0's combine in rank order.  The caller has arrived on the
+// cluster barrier (split > 1) before any warp wrote its scratch.
+template <typename T, int NW, int GT>
+__device__ __forceinline__ void combine_store(const ParamsT<T>& p, int rank, int bk, int g0,
+                                              int gn, const float* sm_m, const float* sm_l,
+                                              const float* sm_acc, float* sm_w, float* gather) {
+  constexpr int NTHREADS = NW * 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  __syncthreads();
+  if (threadIdx.x < gn) {
+    const int g = threadIdx.x;
+    float M = -INFINITY;
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w * GT + g]);
+    float L = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      const float mw = sm_m[w * GT + g];
+      const float wt = mw == -INFINITY ? 0.f : exp2_approx(mw - M);  // 0: a warp with no tile
+      sm_w[w * GT + g] = wt;
+      L = fmaf(sm_l[w * GT + g], wt, L);
+    }
+    sm_w[MAX_SPLIT * GT + g] = M;
+    sm_w[(MAX_SPLIT + 1) * GT + g] = L;
+  }
+  __syncthreads();
+  const int stride = GT * (p.D + 2);
+  float* mine_out = gather;
+  if (p.split > 1) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    mine_out = cluster.map_shared_rank(gather, 0) + rank * stride;
+    if (threadIdx.x < gn) {
+      mine_out[threadIdx.x] = sm_w[MAX_SPLIT * GT + threadIdx.x];
+      mine_out[GT + threadIdx.x] = sm_w[(MAX_SPLIT + 1) * GT + threadIdx.x];
+    }
+  }
+  for (int e = threadIdx.x; e < gn * p.D; e += NTHREADS) {
+    const int g = e / p.D;
+    const int d = e - g * p.D;
+    float O = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) O = fmaf(sm_acc[(w * GT + g) * p.D + d], sm_w[w * GT + g], O);
+    if (p.split == 1)
+      store_out(p.o + (static_cast<long long>(bk) * p.G + g0 + g) * p.D + d,
+                O / fmaxf(sm_w[(MAX_SPLIT + 1) * GT + g], 1e-30f));
+    else
+      mine_out[2 * GT + g * p.D + d] = O;
+  }
+  if (p.split == 1) return;
+
+  // rank 0 combines the cluster's blocks in rank order, from its own shared
+  // memory once the cluster barrier has made every rank's stores visible
+  cluster.sync();
+  if (rank != 0) return;
+  if (threadIdx.x < gn) {
+    const int g = threadIdx.x;
+    float M = -INFINITY;
+    for (int r = 0; r < p.split; ++r) M = fmaxf(M, gather[r * stride + g]);
+    float L = 0.f;
+    for (int r = 0; r < p.split; ++r) {
+      const float mr = gather[r * stride + g];
+      const float wt = mr == -INFINITY ? 0.f : exp2_approx(mr - M);  // 0: an empty share
+      sm_w[r * GT + g] = wt;
+      L = fmaf(gather[r * stride + GT + g], wt, L);
+    }
+    sm_w[MAX_SPLIT * GT + g] = L;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < gn * p.D; e += NTHREADS) {
+    const int g = e / p.D;
+    const int d = e - g * p.D;
+    float O = 0.f;
+    for (int r = 0; r < p.split; ++r)
+      O = fmaf(gather[r * stride + 2 * GT + g * p.D + d], sm_w[r * GT + g], O);
+    store_out(p.o + (static_cast<long long>(bk) * p.G + g0 + g) * p.D + d,
+              O / fmaxf(sm_w[MAX_SPLIT * GT + g], 1e-30f));
+  }
+}
+
 template <int DT, int GT>
 __global__ void __launch_bounds__(nwarps(DT) * 32)
     paged_decode_kernel(const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, const Params p) {
   constexpr int NW = nwarps(DT);
-  constexpr int NTHREADS = NW * 32;
   constexpr int KSTEPS = DT / 16;  // QK^T k-steps over the tile width
   constexpr int NT = DT / 8;       // PV n-tiles of 8 columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -518,8 +651,7 @@ __global__ void __launch_bounds__(nwarps(DT) * 32)
   if (p.split > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   __syncthreads();  // every warp is done with its ring: the scratch reuses it
 
-  // the warps' (m, l, acc) per row, then per row the block's (M, L, O) with
-  // O = sum_w acc_w wt_w, L = sum_w l_w wt_w, wt_w = exp(m_w - M), in warp order
+  // the warps' (m, l, acc) per row, then the block's combine
   float* sm_m = reinterpret_cast<float*>(smem + lay.scratch);  // [NW][GT]
   float* sm_l = sm_m + NW * GT;                                 // [NW][GT]
   float* sm_acc = sm_l + NW * GT;                               // [NW][GT][D]
@@ -547,74 +679,173 @@ __global__ void __launch_bounds__(nwarps(DT) * 32)
             make_float2(acc[j][2], acc[j][3]);
     }
   }
-  __syncthreads();
-  if (threadIdx.x < gn) {
-    const int g = threadIdx.x;
-    float M = -INFINITY;
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w * GT + g]);
-    float L = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float mw = sm_m[w * GT + g];
-      const float wt = mw == -INFINITY ? 0.f : exp2_approx(mw - M);  // 0: a warp with no tile
-      sm_w[w * GT + g] = wt;
-      L = fmaf(sm_l[w * GT + g], wt, L);
-    }
-    sm_w[MAX_SPLIT * GT + g] = M;
-    sm_w[(MAX_SPLIT + 1) * GT + g] = L;
-  }
-  __syncthreads();
-  const int stride = GT * (p.D + 2);
-  float* mine_out = gather;
-  if (p.split > 1) {
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    mine_out = cluster.map_shared_rank(gather, 0) + rank * stride;
-    if (threadIdx.x < gn) {
-      mine_out[threadIdx.x] = sm_w[MAX_SPLIT * GT + threadIdx.x];
-      mine_out[GT + threadIdx.x] = sm_w[(MAX_SPLIT + 1) * GT + threadIdx.x];
-    }
-  }
-  for (int e = threadIdx.x; e < gn * p.D; e += NTHREADS) {
-    const int g = e / p.D;
-    const int d = e - g * p.D;
-    float O = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) O = fmaf(sm_acc[(w * GT + g) * p.D + d], sm_w[w * GT + g], O);
-    if (p.split == 1)
-      p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
-          __float2bfloat16(O / fmaxf(sm_w[(MAX_SPLIT + 1) * GT + g], 1e-30f));
-    else
-      mine_out[2 * GT + g * p.D + d] = O;
-  }
-  if (p.split == 1) return;
-
-  // rank 0 combines the cluster's blocks in rank order, from its own shared
-  // memory once the cluster barrier has made every rank's stores visible
-  cluster.sync();
-  if (rank != 0) return;
-  if (threadIdx.x < gn) {
-    const int g = threadIdx.x;
-    float M = -INFINITY;
-    for (int r = 0; r < p.split; ++r) M = fmaxf(M, gather[r * stride + g]);
-    float L = 0.f;
-    for (int r = 0; r < p.split; ++r) {
-      const float mr = gather[r * stride + g];
-      const float wt = mr == -INFINITY ? 0.f : exp2_approx(mr - M);  // 0: an empty share
-      sm_w[r * GT + g] = wt;
-      L = fmaf(gather[r * stride + GT + g], wt, L);
-    }
-    sm_w[MAX_SPLIT * GT + g] = L;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < gn * p.D; e += NTHREADS) {
-    const int g = e / p.D;
-    const int d = e - g * p.D;
-    float O = 0.f;
-    for (int r = 0; r < p.split; ++r)
-      O = fmaf(gather[r * stride + 2 * GT + g * p.D + d], sm_w[r * GT + g], O);
-    p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
-        __float2bfloat16(O / fmaxf(sm_w[MAX_SPLIT * GT + g], 1e-30f));
-  }
+  combine_store<__nv_bfloat16, NW, GT>(p, rank, bk, g0, gn, sm_m, sm_l, sm_acc, sm_w, gather);
 }
+
+// The float32 path.  A block is (row, kv head, rank, tile of GT query
+// rows); each warp walks every F32_WARPS-th tile of 32 positions of the
+// rank's share, one position a lane (see the note at the top).
+template <int DW, int GT>
+__global__ void __launch_bounds__(F32_WARPS * 32)
+    paged_decode_f32_kernel(const ParamsT<float> p) {
+  constexpr int NW = F32_WARPS;
+  extern __shared__ __align__(16) float smf[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bk = blockIdx.x / p.split;  // b * KV + kv head
+  const int b = bk / p.KV;
+  const int kvh = bk - b * p.KV;
+  const int g0 = blockIdx.y * GT;
+  const int gn = min(GT, p.G - g0);
+  const LayoutF32 lay = layout_f32(p.D, GT);
+  const int D = p.D;
+
+  const int len = p.lens[b];
+  const int width = p.nblk * p.bs;
+  const int n = min(max(len, 0), width);
+  const bool fresh = p.k_new != nullptr && (p.valid == nullptr || p.valid[b] != 0) && len >= 1 &&
+                     len <= width;
+  int p0, p1;
+  share_of(n, p.split, p.bs, rank, p0, p1);
+  const int cnt = p1 - p0;
+  const int ntiles = (cnt + F32_TILE - 1) / F32_TILE;
+  const int mine = warp < ntiles ? (ntiles - 1 - warp) / NW + 1 : 0;
+  const bool holds_fresh = fresh && cnt > 0 && p1 == n;  // this share ends at position n - 1
+  const float* kf = fresh ? p.k_new + b * p.kns[0] + kvh * p.kns[1] : nullptr;
+  const float* vf = fresh ? p.v_new + b * p.vns[0] + kvh * p.vns[1] : nullptr;
+
+  // q's rows to shared memory, zeros past the group
+  float* sq = smf;
+  {
+    const float* qb = p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2];
+    for (int e = threadIdx.x; e < GT * D; e += NW * 32) {
+      const int g = e / D;
+      sq[e] = g < gn ? qb[g * p.qs[2] + (e - g * D)] : 0.f;
+    }
+  }
+  // the fresh row into the pool (no block of this launch reads that pool
+  // row: the lane that attends over it takes it from k_new / v_new)
+  if (holds_fresh && blockIdx.y == 0 && warp == 0) {
+    const int j = n - 1;
+    const int blk = j / p.bs;
+    const long long phys = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
+    const long long row = j - blk * p.bs;
+    for (int d = lane; d < D; d += 32) {
+      p.pool_k[phys * p.ks[0] + kvh * p.ks[1] + row * p.ks[2] + d] = kf[d];
+      p.pool_v[phys * p.vs[0] + kvh * p.vs[1] + row * p.vs[2] + d] = vf[d];
+    }
+  }
+  __syncthreads();  // q is in shared memory
+
+  float m[GT], l[GT], acc[GT][DW];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int t = 0; t < DW; ++t) acc[g][t] = 0.f;
+  }
+  for (int i = 0; i < mine; ++i) {
+    const int lo = p0 + (warp + i * NW) * F32_TILE;
+    const int tcnt = min(F32_TILE, p1 - lo);  // >= 1
+    const int j = lo + lane;
+    const bool on = lane < tcnt;
+    // this lane's position: its K and V rows, from the input at n - 1
+    const float* kr = nullptr;
+    const float* vr = nullptr;
+    if (on) {
+      if (holds_fresh && j == n - 1) {
+        kr = kf;
+        vr = vf;
+      } else {
+        const int blk = j / p.bs;
+        const long long phys = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
+        const long long row = j - blk * p.bs;
+        kr = p.pool_k + phys * p.ks[0] + kvh * p.ks[1] + row * p.ks[2];
+        vr = p.pool_v + phys * p.vs[0] + kvh * p.vs[1] + row * p.vs[2];
+      }
+    }
+    // scores: the lane's K row against every query row, 4 columns a load
+    float s[GT];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) s[g] = 0.f;
+    if (on) {
+#pragma unroll 2
+      for (int c = 0; c < D; c += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          const float4 qv = *reinterpret_cast<const float4*>(sq + g * D + c);
+          s[g] = fmaf(qv.x, kv.x, s[g]);
+          s[g] = fmaf(qv.y, kv.y, s[g]);
+          s[g] = fmaf(qv.z, kv.z, s[g]);
+          s[g] = fmaf(qv.w, kv.w, s[g]);
+        }
+      }
+    }
+    // the online softmax over the tile, scaled to base 2; each lane keeps
+    // its own positions' share of l
+    float pr[GT];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float sg = on ? s[g] * p.scale_log2 : -INFINITY;
+      float mx = sg;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float mnew = fmaxf(m[g], mx);       // finite: the tile holds a position
+      const float alpha = exp2_approx(m[g] - mnew);  // 0 while m is still -inf
+      pr[g] = exp2_approx(sg - mnew);           // 0 off the tile
+      l[g] = fmaf(l[g], alpha, pr[g]);
+#pragma unroll
+      for (int t = 0; t < DW; ++t) acc[g][t] *= alpha;
+      m[g] = mnew;
+    }
+    // O += P V: position jj's V row (lane jj's pointer), every 32nd column a lane
+#pragma unroll 4
+    for (int jj = 0; jj < tcnt; ++jj) {
+      const float* vrow = reinterpret_cast<const float*>(
+          __shfl_sync(FULL, reinterpret_cast<unsigned long long>(vr), jj));
+      float v[DW];
+#pragma unroll
+      for (int t = 0; t < DW; ++t) v[t] = lane + 32 * t < D ? vrow[lane + 32 * t] : 0.f;
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float pj = __shfl_sync(FULL, pr[g], jj);
+#pragma unroll
+        for (int t = 0; t < DW; ++t) acc[g][t] = fmaf(pj, v[t], acc[g][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l[g] += __shfl_xor_sync(FULL, l[g], o);
+  if (p.split > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+
+  float* sm_m = smf + lay.m;
+  float* sm_l = smf + lay.l;
+  float* sm_acc = smf + lay.acc;
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (g >= gn) break;
+    if (lane == 0) {
+      sm_m[warp * GT + g] = m[g];
+      sm_l[warp * GT + g] = l[g];
+    }
+#pragma unroll
+    for (int t = 0; t < DW; ++t)
+      if (lane + 32 * t < D) sm_acc[(warp * GT + g) * D + lane + 32 * t] = acc[g][t];
+  }
+  combine_store<float, NW, GT>(p, rank, bk, g0, gn, sm_m, sm_l, sm_acc, smf + lay.weights,
+                               smf + lay.gather);
+}
+
+using KernelF32 = void (*)(const ParamsT<float>);
+
+// per (columns a lane, query rows) and device: the shared-memory opt-in is set
+std::atomic<bool> g_smem_set_f32[4][4][MAX_DEVICES];
 
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const Params);
 
@@ -627,44 +858,25 @@ extern "C" {
 
 // The dynamic shared memory the kernel takes for this head dim, group
 // (query heads per kv head), pool block size and dtype code (0 =
-// bfloat16), or -1 with the reason in why.
+// bfloat16, 1 = float32), or -1 with the reason in why.
 int flash_decode_paged_smem_bytes(int head_dim, int group, int block_size, int dtype_code,
                                   char* why, int why_len) {
   return plan(head_dim, group, block_size, dtype_code, why, why_len);
 }
 
-// Launches on `stream` (a cudaStream_t as an integer handle) and returns
-// cudaGetLastError() after the launch: 0 means launched.  q [B,KV,G,D] bf16
-// with unit stride along D; pools pool_k/pool_v [nblocks,KV,bs,D] bf16
-// with unit stride along D, 16-byte aligned bases and strides that are
-// multiples of 8 elements (TMA's rules); table [B,nblk] int32 contiguous;
-// lens [B] int32 (row b attends over positions [0, lens[b]), clamped to
-// [0, nblk*bs]); k_new/v_new [B,KV,1,D] bf16 with 16-byte aligned rows, or
-// null for no fused write; valid [B] bool or null (every row valid);
-// strides[13] = (b, kv head, row) element strides of q, (block, kv head,
-// row) of pool_k and pool_v, (b, kv head) of k_new and v_new; o [B,KV,G,D]
-// bf16 contiguous.  Each (b, kv head, row tile) is a cluster of `split`
-// blocks (1, 2, 4 or 8) that split the row's positions by share_of.
-int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const int* table,
-                              const int* lens, const void* k_new, const void* v_new,
-                              const void* valid, void* o, int nblocks, int nblk, int bs, int B,
-                              int KV, int G, int D, int split, const long long* strides,
-                              void* stream) {
-  const int smem = plan(D, G, bs, DTYPE_BF16, nullptr, 0);
-  if (smem < 0 || B < 1 || KV < 1 || nblocks < 1 || nblk < 1 ||
-      static_cast<long long>(nblk) * bs > (1 << 30) ||
-      (split != 1 && split != 2 && split != 4 && split != 8) ||
-      (k_new == nullptr) != (v_new == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int box_rows = bs % MAX_BOX_ROWS == 0 ? MAX_BOX_ROWS : 8;
-  CUtensorMap tk, tv;
-  if (!encode(&tk, pool_k, nblocks, KV, bs, D, strides + 3, box_rows) ||
-      !encode(&tv, pool_v, nblocks, KV, bs, D, strides + 6, box_rows))
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.pool_k = static_cast<__nv_bfloat16*>(pool_k);
-  p.pool_v = static_cast<__nv_bfloat16*>(pool_v);
+}  // extern "C"
+
+namespace {
+
+template <typename T>
+ParamsT<T> fill_params(const void* q, void* pool_k, void* pool_v, const int* table,
+                       const int* lens, const void* k_new, const void* v_new, const void* valid,
+                       void* o, int nblocks, int nblk, int bs, int KV, int G, int D, int split,
+                       const long long* strides) {
+  ParamsT<T> p;
+  p.q = static_cast<const T*>(q);
+  p.pool_k = static_cast<T*>(pool_k);
+  p.pool_v = static_cast<T*>(pool_v);
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];
     p.ks[i] = strides[3 + i];
@@ -672,14 +884,14 @@ int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const i
   }
   p.table = table;
   p.lens = lens;
-  p.k_new = static_cast<const __nv_bfloat16*>(k_new);
-  p.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  p.k_new = static_cast<const T*>(k_new);
+  p.v_new = static_cast<const T*>(v_new);
   for (int i = 0; i < 2; ++i) {
     p.kns[i] = strides[9 + i];
     p.vns[i] = strides[11 + i];
   }
   p.valid = static_cast<const unsigned char*>(valid);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = static_cast<T*>(o);
   p.nblk = nblk;
   p.bs = bs;
   p.nblocks = nblocks;
@@ -687,8 +899,103 @@ int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const i
   p.G = G;
   p.D = D;
   p.split = split;
-  p.box_rows = box_rows;
+  p.box_rows = bs % MAX_BOX_ROWS == 0 ? MAX_BOX_ROWS : 8;
   p.scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  return p;
+}
+
+// a launch of a cluster of `split` blocks along x
+template <typename K, typename... Args>
+cudaError_t launch_cluster(K kernel, dim3 grid, int threads, int smem, int split, void* stream,
+                           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+cudaError_t launch_f32(const ParamsT<float>& p, int B, int smem, void* stream) {
+  const int GT = f32_rows(p.G);
+  const int DW = f32_cols(p.D);
+  const int ci = log2_index(DW);
+  const int gi = log2_index(GT);
+  const KernelF32 kernels[4][4] = {
+      {paged_decode_f32_kernel<1, 1>, paged_decode_f32_kernel<1, 2>,
+       paged_decode_f32_kernel<1, 4>, paged_decode_f32_kernel<1, 8>},
+      {paged_decode_f32_kernel<2, 1>, paged_decode_f32_kernel<2, 2>,
+       paged_decode_f32_kernel<2, 4>, paged_decode_f32_kernel<2, 8>},
+      {paged_decode_f32_kernel<4, 1>, paged_decode_f32_kernel<4, 2>,
+       paged_decode_f32_kernel<4, 4>, paged_decode_f32_kernel<4, 8>},
+      {paged_decode_f32_kernel<8, 1>, paged_decode_f32_kernel<8, 2>,
+       paged_decode_f32_kernel<8, 4>, paged_decode_f32_kernel<8, 8>}};
+  const KernelF32 kernel = kernels[ci][gi];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!g_smem_set_f32[ci][gi][dev].load()) {
+    // the largest this instance asks for: the widest head dim it serves
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             layout_f32(32 * DW, GT).bytes);
+    if (e != cudaSuccess) return e;
+    g_smem_set_f32[ci][gi][dev].store(true);
+  }
+  return launch_cluster(kernel, dim3(p.split * B * p.KV, (p.G + GT - 1) / GT), F32_WARPS * 32,
+                        smem, p.split, stream, p);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches on `stream` (a cudaStream_t as an integer handle) and returns
+// cudaGetLastError() after the launch: 0 means launched.  dtype_code 0:
+// q, the pools, k_new/v_new and o are bfloat16; 1: float32.  q [B,KV,G,D]
+// with unit stride along D; pools pool_k/pool_v [nblocks,KV,bs,D] with
+// unit stride along D, 16-byte aligned bases and strides that are
+// multiples of 16 bytes (TMA's rules on the bf16 path, 16-byte loads on
+// the f32 path); table [B,nblk] int32 contiguous; lens [B] int32 (row b
+// attends over positions [0, lens[b]), clamped to [0, nblk*bs]);
+// k_new/v_new [B,KV,1,D] with 16-byte aligned rows, or null for no fused
+// write; valid [B] bool or null (every row valid); strides[13] = (b, kv
+// head, row) element strides of q, (block, kv head, row) of pool_k and
+// pool_v, (b, kv head) of k_new and v_new; o [B,KV,G,D] contiguous.  Each
+// (b, kv head, row tile) is a cluster of `split` blocks (1, 2, 4 or 8)
+// that split the row's positions by share_of.
+int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const int* table,
+                              const int* lens, const void* k_new, const void* v_new,
+                              const void* valid, void* o, int nblocks, int nblk, int bs, int B,
+                              int KV, int G, int D, int split, int dtype_code,
+                              const long long* strides, void* stream) {
+  const int smem = plan(D, G, bs, dtype_code, nullptr, 0);
+  if (smem < 0 || B < 1 || KV < 1 || nblocks < 1 || nblk < 1 ||
+      static_cast<long long>(nblk) * bs > (1 << 30) ||
+      (split != 1 && split != 2 && split != 4 && split != 8) ||
+      (k_new == nullptr) != (v_new == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype_code == DTYPE_F32) {
+    const ParamsT<float> p = fill_params<float>(q, pool_k, pool_v, table, lens, k_new, v_new,
+                                                valid, o, nblocks, nblk, bs, KV, G, D, split,
+                                                strides);
+    const cudaError_t e = launch_f32(p, B, smem, stream);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  const Params p = fill_params<__nv_bfloat16>(q, pool_k, pool_v, table, lens, k_new, v_new, valid,
+                                              o, nblocks, nblk, bs, KV, G, D, split, strides);
+  CUtensorMap tk, tv;
+  if (!encode(&tk, pool_k, nblocks, KV, bs, D, strides + 3, p.box_rows) ||
+      !encode(&tv, pool_v, nblocks, KV, bs, D, strides + 6, p.box_rows))
+    return (int)cudaErrorInvalidValue;
 
   const int GT = G > 8 ? 16 : 8;
   const int DT = tile_cols(D);
@@ -711,19 +1018,8 @@ int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const i
     if (e != cudaSuccess) return (int)e;
     g_smem_set[wi][gi][dev].store(true);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split * B * KV, (G + GT - 1) / GT);
-  cfg.blockDim = dim3(nwarps(D) * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = split;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, tk, tv, p);
+  e = launch_cluster(kernel, dim3(split * B * KV, (G + GT - 1) / GT), nwarps(D) * 32, smem, split,
+                     stream, tk, tv, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

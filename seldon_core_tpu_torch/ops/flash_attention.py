@@ -292,13 +292,15 @@ def bwd_kernel_shape_error(head_dim: int, dtype: torch.dtype,
 
 
 def _tma_aligned(t: torch.Tensor) -> bool:
-    """Whether the kernels can read the 4-d bf16 ``t`` by strides: unit
-    stride along D and 16-byte aligned rows.  Those are also the rules of
-    the kernels' TMA tensor maps (a 16-byte aligned base, every stride a
-    multiple of 16 bytes; a dimension of size 1 is never stepped, so the
-    source gives it a stride of its own)."""
+    """Whether the kernels can read the 4-d ``t`` by strides: unit stride
+    along D and 16-byte aligned rows, counted in bytes (8 bf16 or 4 f32
+    elements).  Those are also the rules of the kernels' TMA tensor maps (a
+    16-byte aligned base, every stride a multiple of 16 bytes; a dimension
+    of size 1 is never stepped, so the source gives it a stride of its
+    own)."""
+    size = t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(t.stride(i) % 8 == 0 or t.shape[i] == 1 for i in range(3)))
+            and all(t.stride(i) * size % 16 == 0 or t.shape[i] == 1 for i in range(3)))
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:

@@ -74,13 +74,17 @@ attends in plain XLA, ``_attend_paged`` at W = 1, ``generate.py:1086``):
         valid row's fresh K/V at position lens[b] - 1 (the decode step's
         write) and attends with it; a row whose ``valid`` [B] is False
         writes nothing (the reference sends it to the scratch block 0).
+        bfloat16 takes the tensor cores; float32 (an f32 model's pools,
+        such as a speculative unit's f32 draft) takes a path of f32 FMAs
+        on the CUDA cores, never TF32, in the same source.
 
 The kernel reads the table and the lengths itself: nothing is read back
 on the host.  The host picks the cluster size from the table's width
 (``decode_split_plan``) and each block takes its share of the row's own
 length (``paged_shares``).  ``flash_decode_paged_reference`` is its plain
 version (the write, then the gather ``paged_view`` and ``attend_paged``),
-``PAGED_LAUNCHES`` its count and ``probe_paged_decode_kernel`` its probe.
+``PAGED_LAUNCHES`` its count (``PAGED_F32_LAUNCHES`` those on the
+float32 path) and ``probe_paged_decode_kernel`` its probe.
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ __all__ = [
     "decode_split_plan",
     "probe_decode_kernel",
     "PAGED_LAUNCHES",
+    "PAGED_F32_LAUNCHES",
     "flash_decode_paged",
     "flash_decode_paged_reference",
     "paged_cluster",
@@ -124,6 +129,8 @@ __all__ = [
 LAUNCHES = 0
 #: the paged variant's launches, counted the same way
 PAGED_LAUNCHES = 0
+#: those of them that took its float32 path
+PAGED_F32_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 _BLOCK = 128       # the JAX contract of flash_decode: L divisible by 128
@@ -563,7 +570,7 @@ def _paged_library() -> SimpleNamespace:
         if _paged_lib is None:
             lib = load_library("flash_decode_paged")
             launch = lib.flash_decode_paged_launch
-            launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+            launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                                + [ctypes.c_void_p, ctypes.c_void_p])
             launch.restype = ctypes.c_int
             smem = lib.flash_decode_paged_smem_bytes
@@ -576,13 +583,18 @@ def _paged_library() -> SimpleNamespace:
         return _paged_lib
 
 
+#: the paged kernel source's dtype codes (flash_decode_paged.cu): bfloat16
+#: takes the tensor-core path, float32 the CUDA-core FMA path
+_PAGED_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+
 @functools.lru_cache(maxsize=None)
 def _paged_smem_bytes(head_dim: int, group: int, block_size: int, dtype: torch.dtype):
     """(dynamic shared memory the paged kernel asks for, None), or (-1, why
     not), from ``flash_decode_paged_smem_bytes`` in its source."""
     why = ctypes.create_string_buffer(256)
-    dtype_code = 0 if dtype == torch.bfloat16 else -1  # the .cu's codes: 0 = bfloat16
-    n = _paged_library().smem_bytes(int(head_dim), int(group), int(block_size), dtype_code,
+    n = _paged_library().smem_bytes(int(head_dim), int(group), int(block_size),
+                                    _PAGED_DTYPE_CODES.get(dtype, -1),
                                     ctypes.addressof(why), len(why))
     return n, (why.value.decode() if n < 0 else None)
 
@@ -602,9 +614,9 @@ def _launch_paged(q, pool_k, pool_v, tables, lens, k_new, v_new, valid) -> torch
     if why is not None:
         raise ValueError(why)
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
-        if not _tma_aligned(t):  # read by TMA and written in place: no copy will do
+        if not _tma_aligned(t):  # read by TMA or 16-byte loads, written in place: no copy
             raise ValueError(f"{name} needs unit stride along hd, a 16-byte aligned base and "
-                             f"strides that are multiples of 8, got {t.stride()}")
+                             f"strides that are multiples of 16 bytes, got {t.stride()}")
     q = q if q.stride(3) == 1 else q.contiguous()
     tables, lens = tables.contiguous(), lens.contiguous()
     if k_new is not None:
@@ -624,13 +636,16 @@ def _launch_paged(q, pool_k, pool_v, tables, lens, k_new, v_new, valid) -> torch
                    None if k_new is None else k_new.data_ptr(),
                    None if v_new is None else v_new.data_ptr(),
                    None if valid is None else valid.data_ptr(), o.data_ptr(), N,
-                   tables.shape[1], bs, B, KV, G, hd, split, ctypes.addressof(strides))
+                   tables.shape[1], bs, B, KV, G, hd, split, _PAGED_DTYPE_CODES[q.dtype],
+                   ctypes.addressof(strides))
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged kernel launch failed: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")
-    global PAGED_LAUNCHES
+    global PAGED_LAUNCHES, PAGED_F32_LAUNCHES
     with _LAUNCH_LOCK:
         PAGED_LAUNCHES += 1
+        if q.dtype == torch.float32:
+            PAGED_F32_LAUNCHES += 1
     return o
 
 

@@ -23,7 +23,7 @@ def lm_matmul(lp: Dict[str, torch.Tensor], name: str, h: torch.Tensor,
         raise ValueError(
             f"layer weight {name!r} is int8-quantized ({name}_q / {name}_s); the "
             f"port serves dense weights only (int8 LM quantization: ROADMAP "
-            f"Queue 1 item 2)"
+            f"Queue 1 item [2q])"
         )
     y = h @ lp[name]
     if out_dtype is not None and y.dtype != out_dtype:

@@ -2,7 +2,11 @@
 ``seldon_core_tpu/runtime/batching.py:59-300``.
 
 Coalesces concurrent requests that share a feature shape into one stacked
-device dispatch and hands each caller back exactly its rows.  Stacks are
+device dispatch and hands each caller back exactly its rows, and its own
+rows of any per-row array in the aux (a tag whose leading dim is the
+stack's rows, such as an outlier score: ``_aux_has_per_row``,
+``_slice_aux``); a chunked dispatch concatenates its chunks' per-row
+arrays (``_concat_aux``), everything else in the aux is shared.  Stacks are
 padded to power-of-two row counts (a handful of shapes instead of one per
 row total) and cut at ``max_batch``.  Up to ``max_inflight`` stacked
 dispatches run at once; a bucket flushes the moment a slot frees, so the
@@ -150,17 +154,19 @@ class MicroBatcher:
         return k
 
     async def _run_batch(self, entries) -> None:
-        # aux (routing, tags) goes to every caller of the stack as is: no
-        # ported unit returns per-row tags, so there is nothing to slice
         xs = [e[0] for e in entries]
         futs = [e[1] for e in entries]
         try:
             stacked = np.concatenate(xs, axis=0)
+            total = len(stacked)
             ys, aux = await self._dispatch_chunked(stacked)
+            # one walk decides whether the aux holds per-row arrays at all
+            per_row = _aux_has_per_row(aux, total)
             offset = 0
             for x, fut in zip(xs, futs):
                 if not fut.cancelled():
-                    fut.set_result((ys[offset: offset + len(x)], aux))
+                    rows = slice(offset, offset + len(x))
+                    fut.set_result((ys[rows], _slice_aux(aux, rows, total) if per_row else aux))
                 offset += len(x)
         except Exception as e:  # propagate to every waiter
             for fut in futs:
@@ -169,8 +175,9 @@ class MicroBatcher:
 
     async def _dispatch_chunked(self, stacked: np.ndarray):
         """Dispatch in <= max_batch chunks, each padded up to a power of two
-        (repeating its last row); pad rows are cut from the answer.  The
-        ported units are stateless, so pad rows can change no state."""
+        (repeating its last row); pad rows are cut from the answer and from
+        each chunk's per-row aux.  Units that move their state on predict
+        get no batcher, so pad rows can change no state."""
         ys_parts = []
         aux = None
         for start in range(0, len(stacked), self.max_batch):
@@ -184,15 +191,51 @@ class MicroBatcher:
             dispatch = self.batch_fn(chunk)
             if self.dispatch_timeout_s > 0:
                 try:
-                    ys, aux = await asyncio.wait_for(dispatch, self.dispatch_timeout_s)
+                    ys, chunk_aux = await asyncio.wait_for(dispatch, self.dispatch_timeout_s)
                 except asyncio.TimeoutError:
                     raise DispatchTimeoutError(
                         f"device dispatch exceeded {self.dispatch_timeout_s:.1f}s"
                     ) from None
             else:
-                ys, aux = await dispatch
+                ys, chunk_aux = await dispatch
             ys_parts.append(np.asarray(ys)[:n])
+            chunk_aux = _slice_aux(chunk_aux, slice(0, n), len(chunk))
+            aux = chunk_aux if aux is None else _concat_aux(aux, chunk_aux)
         return np.concatenate(ys_parts, axis=0), aux
+
+
+def _concat_aux(a, b):
+    """Merge chunked aux: per-row arrays concatenate, everything else keeps
+    the latest value (the last chunk's routing and shared tags)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return {k: _concat_aux(a.get(k), b.get(k)) for k in {**a, **b}}
+    if isinstance(a, tuple) and isinstance(b, tuple) and len(a) == len(b):
+        return tuple(_concat_aux(x, y) for x, y in zip(a, b))
+    if getattr(a, "ndim", 0) >= 1 and getattr(b, "ndim", 0) >= 1:
+        return np.concatenate([np.asarray(a), np.asarray(b)], axis=0)
+    return b if b is not None else a
+
+
+def _aux_has_per_row(aux, total: int) -> bool:
+    """True when the aux tree holds an array whose leading dim is the
+    stack's ``total`` rows: per-row data to slice per caller."""
+    if isinstance(aux, dict):
+        return any(_aux_has_per_row(v, total) for v in aux.values())
+    if isinstance(aux, tuple):
+        return any(_aux_has_per_row(v, total) for v in aux)
+    return getattr(aux, "ndim", 0) >= 1 and aux.shape[0] == total
+
+
+def _slice_aux(aux, rows: slice, total: int):
+    """Each caller's own rows of the aux's per-row arrays (leading dim ==
+    ``total``); everything else is shared as it is."""
+    if isinstance(aux, dict):
+        return {k: _slice_aux(v, rows, total) for k, v in aux.items()}
+    if isinstance(aux, tuple):
+        return tuple(_slice_aux(v, rows, total) for v in aux)
+    if getattr(aux, "ndim", 0) >= 1 and aux.shape[0] == total:
+        return np.asarray(aux)[rows]
+    return aux
 
 
 class GenLane:

@@ -1,9 +1,16 @@
 """Engine service — the port's counterpart of
-``seldon_core_tpu/runtime/engine.py:103-1720``, compiled mode only.
+``seldon_core_tpu/runtime/engine.py:103-1760``, compiled mode only.
 
 One engine per predictor.  The graph runs in the eager ``CompiledGraph``
 on the engine's device; router-free graphs go through the
-``MicroBatcher``, which stacks concurrent requests into one dispatch.
+``MicroBatcher``, which stacks concurrent requests into one dispatch and
+hands each caller its own rows of any per-row tag (an outlier score).
+A graph with a router gets no batcher (the branch is a per-request
+choice, as in the reference, ``engine.py:316-320`` there): its requests
+run one at a time under the engine's state lock, since the router's key
+moves on every predict, and ``send_feedback`` (``POST
+/api/v0.1/feedback``) takes the same lock to replay a response's
+``meta.routing`` through the graph's feedback pass.
 A single generator node is served by the continuous lane instead
 (``engine.py:273-325`` there): the engine builds a ``GenServer`` from the
 unit's ``continuous_spec`` and puts the ``GenLane`` in the batcher's
@@ -31,9 +38,9 @@ client's shape error, a 400), ``ready`` / ``pause`` / ``drained``,
 node (``can_stream``, ``prepare_stream_request``, ``generate_stream``,
 ``engine.py:690-849``): each chunk is read on the dispatch executor,
 streams bypass the batcher and write no state back.  Not ported yet: the
-host interpreter for remote nodes and routers, fused graphs, feedback,
-the stream's tracer spans and audit log, admission control, QoS and the
-observatories.
+host interpreter (``GraphExecutor``) for remote nodes, fused graphs, the
+stream's tracer spans and audit log, admission control, QoS and the
+observatories (ROADMAP Queue 1 item [1]).
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from seldon_core_tpu_torch.graph.spec import (
 )
 from seldon_core_tpu_torch.messages import (
     DispatchTimeoutError,
+    Feedback,
     Meta,
     SeldonMessage,
     SeldonMessageError,
@@ -146,9 +154,12 @@ class EngineService:
         self._build_genserver()
         units = list(self.compiled.units.values())
         # a unit whose predict moves its state (a sampled generator's
-        # request counter) runs one dispatch at a time, its state written
-        # back after each (engine.py:323-338 there)
-        self._stateful = any(u.updates_state_on_predict for u in units)
+        # request counter, an outlier's running covariance) runs one
+        # dispatch at a time, its state written back after each
+        # (engine.py:323-338 there); so does a graph with a router, whose
+        # key moves on every predict, and feedback takes the same lock
+        self._stateful = (any(u.updates_state_on_predict for u in units)
+                          or not graph_is_batchable(self.predictor.graph))
         self._state_lock = threading.Lock()
         self.batcher = None
         if batching and self.genserver is not None:
@@ -215,9 +226,14 @@ class EngineService:
 
     def _serial(self, fn, *args):
         """``fn(*args)``, one at a time when a unit updates state on
-        predict: each dispatch reads the state the last one wrote back."""
+        predict or the graph routes: each dispatch reads the state the last
+        one wrote back."""
         if not self._stateful:
             return fn(*args)
+        return self._locked(fn, *args)
+
+    def _locked(self, fn, *args):
+        """``fn(*args)`` under the engine's state lock."""
         with self._state_lock:
             return fn(*args)
 
@@ -226,7 +242,10 @@ class EngineService:
         y, routing, tags = self._guarded(
             stacked.shape[1:], self.compiled.predict_arrays, stacked
         )
-        # the readback synchronises this thread's stream
+        # the readback synchronises this thread's stream; tags come back as
+        # numpy, so the batcher can give each caller its rows of a per-row one
+        tags = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in tags.items()}
         return y.detach().cpu().numpy(), (routing, tags)
 
     # -- request API ----------------------------------------------------
@@ -268,6 +287,30 @@ class EngineService:
             return SeldonMessage.failure(str(e), code=e.http_code, meta=msg.meta)
         resp.meta.puid = msg.meta.puid
         return resp
+
+    async def send_feedback(self, feedback: Feedback) -> SeldonMessage:
+        """The feedback pass (engine.py:1720-1760 there, its compiled
+        branch): replay the response's ``meta.routing`` with the reward on
+        the request's rows, under the engine's state lock.  Answers an ack
+        with the response's puid, or a 400 FAILURE for a feedback the graph
+        cannot take."""
+        try:
+            if self.mode != "compiled":
+                raise SeldonMessageError("feedback through the host interpreter is not ported "
+                                         "yet (ROADMAP Queue 1 item [1])")
+            routing = feedback.response.meta.routing if feedback.response is not None else {}
+            X = None
+            if feedback.request is not None and feedback.request.data is not None:
+                X = feedback.request.array()
+            await asyncio.get_running_loop().run_in_executor(
+                self._executor, self._locked, self.compiled.feedback_arrays, X, routing,
+                feedback.reward, feedback.truth_array())
+        except (SeldonMessageError, GraphSpecError) as e:
+            return SeldonMessage.failure(str(e), code=400)
+        ack = SeldonMessage()
+        if feedback.response is not None:
+            ack.meta.puid = feedback.response.meta.puid
+        return ack
 
     # -- streaming generation (engine.py:690-849) -----------------------
 
@@ -365,7 +408,9 @@ class EngineService:
                         "flash_attention": {"launches": flash_attention.LAUNCHES},
                         "flash_decode": {"launches": flash_decode.LAUNCHES},
                         "kv_write": {"launches": kv_write.LAUNCHES},
-                        "flash_decode_paged": {"launches": flash_decode.PAGED_LAUNCHES},
+                        "flash_decode_paged": {
+                            "launches": flash_decode.PAGED_LAUNCHES,
+                            "float32_launches": flash_decode.PAGED_F32_LAUNCHES},
                         "kv_write_paged": {"launches": kv_write.PAGED_LAUNCHES}},
         }
         if self.genserver is not None:

@@ -5,7 +5,11 @@ Routes:
 
   POST /api/v0.1/predictions       JSON body or form field ``json=``
   POST /predict                    internal-API alias (engine as a MODEL leaf)
+  POST /api/v0.1/feedback          a Feedback JSON (reward, request, response
+                                   with its meta.routing, truth): the graph's
+                                   feedback pass; a malformed one is a 400
   POST /api/v0.1/generate/stream   SSE token streaming (``httpfast.py:219-232``)
+  ANY  /api/v0.1/events            the reference's stub: 200 "Not Implemented"
   GET  /ping /ready /pause /unpause /stats
 
 Protocol scope: HTTP/1.1 with keepalive and Content-Length request
@@ -17,8 +21,8 @@ otherwise its response is chunked, one ``data: {...}`` SSE frame per
 token chunk, then the terminal ``{"done": true, "meta": {"puid": ...}}``
 frame.  A failure mid-stream sends a terminal error frame and closes the
 connection; a client that goes away closes the engine's generator.  Not
-ported: the binary wire lane, the feedback, events, trace and profile
-routes, and the writer's transport flow control.
+ported: the binary wire lane, the trace and profile routes, and the
+writer's transport flow control.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Awaitable, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs
 
 from seldon_core_tpu_torch.graph.spec import GraphSpecError
-from seldon_core_tpu_torch.messages import SeldonMessage, SeldonMessageError
+from seldon_core_tpu_torch.messages import Feedback, SeldonMessage, SeldonMessageError
 
 __all__ = ["FastHttpServer", "StreamResult", "serve_fast"]
 
@@ -85,8 +89,11 @@ class _EngineRoutes:
         self.post: Dict[bytes, Handler] = {
             b"/api/v0.1/predictions": self._predictions,
             b"/predict": self._predictions,
+            b"/api/v0.1/feedback": self._feedback,
             b"/api/v0.1/generate/stream": self._generate_stream,
         }
+        # any method (engine RestClientController.java:177-180)
+        self.any: Dict[bytes, Handler] = {b"/api/v0.1/events": self._events}
         self.get: Dict[bytes, Handler] = {
             b"/ping": self._ping,
             b"/ready": self._ready,
@@ -98,6 +105,19 @@ class _EngineRoutes:
     async def _predictions(self, body, ctype) -> Result:
         text, status = await self.engine.predict_json(_payload_text(body, ctype))
         return status or 200, text.encode(), _JSON
+
+    async def _feedback(self, body, ctype) -> Result:
+        try:
+            fb = Feedback.from_json(_payload_text(body, ctype))
+        except SeldonMessageError as e:
+            return 400, _failure(e, 400), _JSON
+        ack = await self.engine.send_feedback(fb)
+        ok = ack.status is None or ack.status.status == "SUCCESS"
+        return 200 if ok else (ack.status.code or 400), ack.to_json().encode(), _JSON
+
+    async def _events(self, body, ctype) -> Result:
+        # the reference's stub, exactly: 200 on any method
+        return 200, b"Not Implemented", "text/plain"
 
     async def _generate_stream(self, body, ctype):
         """SSE token streaming: a SeldonMessage with the prompt rows and an
@@ -280,11 +300,11 @@ class _HttpProtocol(asyncio.Protocol):
         path = target.split(b"?", 1)[0]
         conn = _header_value(lower, b"connection:")
         close = conn is not None and b"close" in (p.strip() for p in conn.split(b","))
-        table = {b"POST": self.routes.post, b"GET": self.routes.get}.get(method)
-        if table is None:
+        table = {b"POST": self.routes.post, b"GET": self.routes.get}.get(method, {})
+        handler = self.routes.any.get(path) or table.get(path)
+        if handler is None and not table:
             self._reject(405, b"method not allowed", close=close)
             return
-        handler = table.get(path)
         if handler is None:
             self._reject(404, b"not found", close=close)
             return

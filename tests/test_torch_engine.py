@@ -310,13 +310,27 @@ def test_rest_lane_routes():
 
 
 def test_router_graphs_wait_for_the_router_executor():
+    """The compiled router executor serves an in-process router graph (one
+    request at a time, no batcher, the branch in meta.routing); a router
+    over a remote node still waits for the host interpreter, item [1]."""
     doc = {"spec": {"name": "d", "predictors": [{
         "name": "p",
         "graph": {"name": "r", "implementation": "SIMPLE_ROUTER", "children": [
             {"name": "a", "implementation": "SIMPLE_MODEL"},
             {"name": "b", "implementation": "SIMPLE_MODEL"}]}}]}}
+    engine = EngineService(SeldonDeploymentSpec.from_json_dict(doc), device="cpu")
+    try:
+        text, status = asyncio.run(engine.predict_json(_ndarray(np.ones((2, 3)))))
+    finally:
+        engine.close()
+    assert status == 200 and engine.batcher is None
+    assert json.loads(text)["meta"]["routing"] == {"r": 0}
+    remote = json.loads(json.dumps(doc))
+    remote["spec"]["predictors"][0]["graph"]["children"][1] = {
+        "name": "b", "type": "MODEL", "endpoint": {"type": "REST", "service_host": "localhost",
+                                                   "service_port": 9000}}
     with pytest.raises(GraphSpecError, match=r"item \[1\]"):
-        EngineService(SeldonDeploymentSpec.from_json_dict(doc), device="cpu")
+        EngineService(SeldonDeploymentSpec.from_json_dict(remote), device="cpu")
 
 
 def test_cuda_without_a_card_is_an_error():

@@ -173,8 +173,8 @@ def test_eos_masking_and_prompt_clamping():
 
 @pytest.mark.parametrize("kw,match", [
     ({"prefix_tokens": "1,2,99"}, r"prefix token 99 outside vocab \[0, 48\)"),
-    ({"quant": "int8"}, "item 2"),
-    ({"kv_quant": "int8"}, "item 2"),
+    ({"quant": "int8"}, r"item \[2q\]"),
+    ({"kv_quant": "int8"}, r"item \[2q\]"),
     ({"moe_every": 2}, "item 5e"),
     ({"attention": "ring"}, "not supported"),
 ])

@@ -1,9 +1,10 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py or paged_decode_turns.py, imports JAX or anything of the JAX package, and the port
 serves the MNIST and generator examples (the generator through the
-continuous lane, runtime/genserver.py, greedy and sampled), streams the
-generator's tokens, takes a training step and round-trips a checkpoint
-with both blocked."""
+continuous lane, runtime/genserver.py, greedy and sampled), the iris
+example (its rows from the bundled csv) and the epsilon-greedy router
+example with a feedback, streams the generator's tokens, takes a training
+step and round-trips a checkpoint with both blocked."""
 
 import ast
 import os
@@ -29,7 +30,8 @@ def _port_files():
     assert {"optim.py", "tree.py", "runtime/persistence.py",
             "ops/flash_attention.py", "models/transformer.py",
             "ops/flash_decode.py", "ops/kv_write.py", "runtime/genserver.py",
-            "models/speculative.py", "models/prng.py"} <= names
+            "models/speculative.py", "models/prng.py", "models/tabular.py",
+            "models/iris.py", "models/outlier.py", "models/mab.py"} <= names
     return files + [ROOT / "chip_smoke.py", ROOT / "paged_decode_turns.py"]
 
 
@@ -122,13 +124,28 @@ path = T.save_lm_weights(params, os.path.join(tempfile.mkdtemp(), "w.npz"))
 back = T.load_lm_weights(T.lm_init(torch.Generator().manual_seed(1), cfg, "cpu"), path)
 trained = bool(torch.isfinite(loss)) and all(
     torch.equal(back[k], params[k]) for k in ("embed", "ln_f"))
+iris = EngineService(load_deployment_from_env("examples/iris_deployment.json"), device="cpu")
+iris_text, iris_status = asyncio.run(iris.predict_json(
+    json.dumps({"data": {"ndarray": [[5.1, 3.5, 1.4, 0.2]]}})))
+iris.close()
+eg = EngineService(load_deployment_from_env("examples/epsilon_greedy_deployment.json"),
+                   device="cpu")
+eg_text, eg_status = asyncio.run(eg.predict_json(json.dumps({"data": {"ndarray": [[0.5] * 784]}})))
+from seldon_core_tpu_torch.messages import Feedback
+ack = asyncio.run(eg.send_feedback(Feedback.from_json(json.dumps(
+    {"request": {"data": {"ndarray": [[0.5] * 784]}}, "response": json.loads(eg_text),
+     "reward": 1.0}))))
+eg_tries = eg.states()["eg-router"]["tries"].tolist()
+eg.close()
+new_examples = [iris_status, json.loads(iris_text)["data"]["names"], eg_status,
+                ack.status is None, sum(eg_tries)]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
                   "lane": lane, "sampled": sampled,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
-                  "trained": trained, "leaked": leaked}))
+                  "trained": trained, "new_examples": new_examples, "leaked": leaked}))
 """
 
 
@@ -142,4 +159,5 @@ def test_port_serves_with_jax_blocked():
     assert proc.stdout.strip().splitlines()[-1] == (
         '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], '
         '"lane": ["genserver", 2], "sampled": [200, 16, 1], "streamed": true, "trained": true, '
+        '"new_examples": [200, ["setosa", "versicolor", "virginica"], 200, true, 1.0], '
         '"leaked": []}')

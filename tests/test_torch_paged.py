@@ -93,7 +93,7 @@ def test_init_block_pool_layout_scratch_and_refusals(monkeypatch):
     assert set(pool) == {"l0", "l1"}
     assert pool["l0"]["k"].shape == (5, 2, 4, 8) and pool["l0"]["k"].dtype == torch.float32
     assert not pool["l0"]["v"].any()
-    with pytest.raises(ValueError, match="item 2"):
+    with pytest.raises(ValueError, match=r"item \[2q\]"):
         tgen.init_block_pool(TConfig(**GQA, kv_quant="int8"), 5, 4, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -428,6 +428,40 @@ def test_paged_decode_round_refuses_sampling():
                                 temperature=0.5)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["attend", "fused"])
+def test_flash_decode_paged_f32_plain_is_the_reference_at_the_draft_shape(fused):
+    """The plain paged decode in f32 (what the kernel's float32 path is held
+    to on the card) at the speculative example's draft shape: 2 kv heads of
+    hd 32, one query head each, pool blocks of 16, rows of 1, 17 and 512
+    positions and a ragged one, against ``_attend_paged`` (after
+    ``_paged_write`` with the step's write fused in) at ATOL."""
+    rng = np.random.default_rng(23)
+    B, KV, G, hd, bs, nblk = 4, 2, 1, 32, 16, 32
+    N = B * nblk + 1
+    k_pool = rng.normal(size=(N, KV, bs, hd)).astype(np.float32)
+    v_pool = rng.normal(size=(N, KV, bs, hd)).astype(np.float32)
+    jlayer = {"k": jnp.asarray(k_pool.transpose(0, 2, 1, 3)),
+              "v": jnp.asarray(v_pool.transpose(0, 2, 1, 3))}
+    tables = _tables(rng, B, nblk, N)
+    lens = np.array([1, 17, 512, 300], np.int32)
+    q = rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+    pk, pv = torch.from_numpy(k_pool.copy()), torch.from_numpy(v_pool.copy())
+    extra = ()
+    if fused:
+        k = rng.normal(size=(B, KV, 1, hd)).astype(np.float32)
+        v = rng.normal(size=(B, KV, 1, hd)).astype(np.float32)
+        jlayer = jgen._paged_write(jlayer, jnp.asarray(tables), jnp.asarray(lens[:, None] - 1),
+                                   jnp.ones((B, 1), bool), jnp.asarray(k), jnp.asarray(v))
+        extra = (torch.from_numpy(k), torch.from_numpy(v))
+    want = jgen._attend_paged(jnp.asarray(q.reshape(B, KV * G, 1, hd)),
+                              jgen._paged_view(jlayer, jnp.asarray(tables)), jnp.asarray(lens - 1))
+    got = fd.flash_decode_paged(torch.from_numpy(q), pk, pv, _t32(tables), _t32(lens), *extra)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(B, KV, G, hd), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(jlayer["k"]).transpose(0, 2, 1, 3))
+
+
 # -- the kernels on the card ---------------------------------------------------
 
 
@@ -497,6 +531,40 @@ def test_flash_decode_paged_kernel_matches_plain_on_card(case):
     assert float((got[valid].float() - want[valid].float()).abs().max()) <= 1.6e-2
     assert all(torch.equal(pools[0][i][1:], pools[2][i][1:]) for i in (0, 1))
     assert torch.equal(got, again) and all(torch.equal(pools[0][i], pools[1][i]) for i in (0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(1,), (17,), (512,), (1, 17, 512, 100, 33, 1000)])
+def test_flash_decode_paged_f32_kernel_matches_plain_on_card(lengths):
+    """The float32 path at the draft's shape (2 kv heads of hd 32, group 1),
+    unfused and with the step's write fused in (the last row inactive
+    where there are several): o within 1e-5 of the plain f32 call (f32
+    FMAs, no TF32), the pools bit-exact outside the scratch block, a
+    repeat the same bits, one launch a call."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in f32
+    B, KV, G, hd, nblk, bs, dev = len(lengths), 2, 1, 32, 64, 16, torch.device("cuda")
+    gen = torch.Generator().manual_seed(len(lengths))
+    N = B * nblk + 1
+    pk, pv = (torch.randn(N, KV, bs, hd, generator=gen).to(dev) for _ in range(2))
+    q = torch.randn(B, KV, G, hd, generator=gen).to(dev)
+    tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+    tables = tables.to(torch.int32).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = fd.PAGED_LAUNCHES
+    got = fd.flash_decode_paged(q, pk, pv, tables, lens)
+    again = fd.flash_decode_paged(q, pk, pv, tables, lens)
+    want = fd.flash_decode_paged_reference(q, pk, pv, tables, lens)
+    k_new, v_new = (torch.randn(B, KV, 1, hd, generator=gen).to(dev) for _ in range(2))
+    valid = torch.arange(B, device=dev) < max(B - 1, 1)
+    pools = [(pk.clone(), pv.clone()) for _ in range(2)]
+    fused = fd.flash_decode_paged(q, *pools[0], tables, lens, k_new, v_new, valid)
+    fused_want = fd.flash_decode_paged_reference(q, *pools[1], tables, lens, k_new, v_new, valid)
+    torch.cuda.synchronize()
+    assert fd.PAGED_LAUNCHES == before + 3 and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-5 and torch.equal(got, again)
+    assert float((fused[valid] - fused_want[valid]).abs().max()) <= 1e-5
+    assert all(torch.equal(pools[0][i][1:], pools[1][i][1:]) for i in (0, 1))
 
 
 @pytest.mark.cuda

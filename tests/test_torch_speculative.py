@@ -273,25 +273,46 @@ def test_the_disaggregated_roles_name_their_item(role, monkeypatch):
                   device="cpu").close()
 
 
-def test_a_draft_the_paged_kernel_refuses_is_refused_on_cuda(monkeypatch):
-    """On CUDA every draft step is a flash_decode_paged launch: a draft the
-    kernel cannot take (its shape check stubbed here, as nvcc answers it on
-    the card) is refused at construction with the kernel's reason, never
-    served by the plain path; a draft it takes is accepted, and its
-    continuous spec asks for the kernels."""
-    asked = []
+def _kernel_dtypes(asked):
+    """A stand-in for the paged kernel's shape check (nvcc answers it on the
+    card): it takes bfloat16 and float32, as flash_decode_paged.cu does."""
 
     def shape_error(head_dim, dtype, group=1, block_size=16):
         asked.append((head_dim, dtype, group))
-        return None if dtype == torch.bfloat16 else "the kernel takes bfloat16 only"
+        return (None if dtype in (torch.bfloat16, torch.float32)
+                else "the paged flash-decode kernel takes bfloat16 or float32 q/k/v only")
 
+    return shape_error
+
+
+def test_a_draft_the_paged_kernel_refuses_is_refused_on_cuda(monkeypatch):
+    """On CUDA every draft step is a flash_decode_paged launch: a draft the
+    kernel cannot take (float16, its shape check stubbed here) is refused
+    at construction with the kernel's reason, never served by the plain
+    path; a draft it takes is accepted, and its continuous spec asks for
+    the kernels."""
+    asked = []
     monkeypatch.setattr(tspec, "resolve_device", lambda device: torch.device("cuda"))
-    monkeypatch.setattr(tspec, "paged_kernel_shape_error", shape_error)
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        tspec.SpeculativeGenerator(d_model=256, n_heads=4)
-    assert asked == [(32, torch.float32, 1)]  # the derived draft: d_model 64, 2 heads
+    monkeypatch.setattr(tspec, "paged_kernel_shape_error", _kernel_dtypes(asked))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tspec.SpeculativeGenerator(d_model=256, n_heads=4, dtype="float16")
+    assert asked == [(32, torch.float16, 1)]  # the derived draft: d_model 64, 2 heads
     unit = tspec.SpeculativeGenerator(d_model=256, n_heads=4, dtype="bfloat16")
     assert unit.device.type == "cuda"
+    assert unit.continuous_spec({"target": {}, "draft": {}})["use_flash"]
+
+
+def test_a_float32_draft_asks_the_paged_kernel_and_is_accepted_on_cuda(monkeypatch):
+    """The unit's float32 default (the speculative example as written) asks
+    the paged kernel for its f32 draft (hd 32, group 1) and is served
+    through it: the kernel's float32 path, not a plain fallback."""
+    asked = []
+    monkeypatch.setattr(tspec, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(tspec, "paged_kernel_shape_error", _kernel_dtypes(asked))
+    unit = tspec.SpeculativeGenerator(vocab=256, d_model=128, n_heads=4, n_layers=2, d_ff=512,
+                                      draft_d_model=64, draft_n_layers=1, max_new_tokens=16, k=4)
+    assert asked == [(32, torch.float32, 1)]
+    assert unit.draft_cfg.dtype == torch.float32 and unit.device.type == "cuda"
     assert unit.continuous_spec({"target": {}, "draft": {}})["use_flash"]
 
 
