@@ -155,7 +155,8 @@ it serves the static lane it measured before that lane's switch:
  10g. spec-f32  examples/speculative_deployment.json as written (float32,
               a draft of 2 heads of hd 32): flash_decode_paged's float32
               path vs its plain f32 version at one row of 1, 17 and 512
-              positions, a ragged batch and two wider shapes (clusters of 1-8
+              positions, a ragged batch, the walk's edge lengths (1-2048),
+              32 and 64 random rows and three wider shapes (clusters of 1-8
               blocks), and fused with three inactive rows (o within
               F32_O_ATOL, the pools bit-exact outside the scratch block, a
               repeat and moved blocks the same bits); the engine on the
@@ -551,10 +552,18 @@ def paged_build_checks(torch, fd) -> None:
     if why is not None or big != floats * 4 + 4 * 8 + 1024:
         raise AssertionError(f"paged shape check at hd=256 G=16: {big} bytes, {why!r}")
     # the f32 path at the speculative example's draft (hd 32, one query row
-    # a block): q, the 8 warps' (m, l, acc), the weights and 8 ranks' gather
+    # a block): 8 warps x 4 stages of a tile's K and V (a 1 KB box each;
+    # the warps' (m, l, acc), the weights and 8 ranks' gather fit inside),
+    # q (32 floats), the 32 mbarriers and 1024 bytes of alignment
     f32, why = fd._paged_smem_bytes(32, 1, PAGED_BS, torch.float32)
-    if why is not None or f32 != 4 * (32 + 8 + 8 + 8 * 32 + 10 + 8 * 34):
+    if why is not None or f32 != 8 * 4 * 2 * 1024 + 32 * 4 + 32 * 8 + 1024:
         raise AssertionError(f"paged shape check at hd=32 G=1 float32: {f32} bytes, {why!r}")
+    for head_dim in range(8, 257, 8):  # paged_f32_layout is the source's layout_f32
+        for group in (1, 2, 3, 4, 8, 16):
+            n, why = fd._paged_smem_bytes(head_dim, group, PAGED_BS, torch.float32)
+            if why is not None or n != fd.paged_f32_layout(head_dim, group)["bytes"]:
+                raise AssertionError(f"the f32 layout's Python statement differs from the "
+                                     f"source at hd={head_dim} G={group}: {n}, {why!r}")
     for head_dim, dtype, bs, match in ((36, torch.bfloat16, 16, "multiple of 8 up to"),
                                        (512, torch.bfloat16, 16, "up to 256"),
                                        (64, torch.float16, 16, "bfloat16 or float32"),
@@ -1532,14 +1541,24 @@ PAGED_DESIGN = ("a cluster of 1-8 blocks per (row, kv head); each block reads th
 # flash_decode_paged's float32 path (an f32 model's pools) against its plain
 # version in f32, (B, KV, G, hd, table blocks, lengths): the speculative
 # example's draft (2 kv heads of hd 32, one query head each) at one row of
-# 1, 17 and 512 positions and on a ragged batch, then 4 query rows at hd 64
-# and 8 at hd 256, which reach the path's other instances
+# 1, 17 and 512 positions and on a ragged batch; the walk's edges (tiles of
+# 8 positions a warp, pool blocks of 16, shares of at least 64 positions)
+# in one batch and one row of 2048; 32 and 64 rows of random lengths
+# (clusters of 2 and 1); then 4 query rows at hd 64, 8 at hd 256 and 3 at
+# hd 40, which reach the path's other instances
+F32_EDGE_LENGTHS = [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 511, 512, 2048, 100]
 PAGED_F32_SHAPES = [(1, 2, 1, 32, PAGED_NBLK, [1]), (1, 2, 1, 32, PAGED_NBLK, [17]),
                     (1, 2, 1, 32, PAGED_NBLK, [512]),
                     (6, 2, 1, 32, PAGED_NBLK, [1, 17, 512, 100, 33, 1000]),
-                    (4, 4, 4, 64, 16, [1, 60, 200, 256]), (2, 1, 8, 256, 16, [100, 256])]
-# the fused call at the draft's shape, rows 5..7 inactive
-PAGED_F32_FUSED = (8, 2, 1, 32, [1, 17, 512, 64, 300, 1000, 5, 2])
+                    (len(F32_EDGE_LENGTHS), 2, 1, 32, 128, F32_EDGE_LENGTHS),
+                    (1, 2, 1, 32, 128, [2048]), (1, 2, 1, 32, 128, [65]),
+                    (32, 2, 1, 32, PAGED_NBLK, (1, 1025)), (64, 2, 1, 32, PAGED_NBLK, (1, 1025)),
+                    (4, 4, 4, 64, 16, [1, 60, 200, 256]), (2, 1, 8, 256, 16, [100, 256]),
+                    (3, 2, 3, 40, 16, [5, 77, 256])]
+# the fused call at the draft's shape, (B, KV, G, hd, table blocks, lengths),
+# the last three rows inactive
+PAGED_F32_FUSED = [(8, 2, 1, 32, PAGED_NBLK, [1, 17, 512, 64, 300, 1000, 5, 2]),
+                   (17, 2, 1, 32, 128, F32_EDGE_LENGTHS + [5, 2, 9])]
 # f32 kernel vs plain f32: both sum f32 products, in other orders, and the
 # kernel's exp is ex2.approx (~2 ulp), so o agrees to ~1e-6 at these sizes
 F32_O_ATOL = 1e-5
@@ -1549,11 +1568,13 @@ PAGED_F32_TIMED = [(32, 2, 1, 32, PAGED_NBLK, 512), (1, 2, 1, 32, PAGED_NBLK, 51
 F32_FLOPS = 67e12            # H100 SXM float32 peak outside the tensor cores
 
 
-PAGED_F32_DESIGN = ("the bf16 path's share rule, fused write and DSMEM combine; 8 warps each "
-                    "take every 8th tile of 32 positions, one position a lane: scores by f32 "
-                    "FMAs of the lane's K row (16-byte loads) against q in shared memory, the "
-                    "tile's max and sum by warp shuffles, O += P V with each position's p and V "
-                    "row broadcast by shuffle, every 32nd column a lane; no TF32, no TMA")
+PAGED_F32_DESIGN = ("the bf16 path's share rule, fused write and DSMEM combine; the walk is "
+                    "bound by the bytes (~G/2 f32 FLOP a byte), so each warp takes every 8th "
+                    "tile of 8 positions (every warp busy from a 64-position share) through its "
+                    "own ring of 2-4 stages filled by TMA (32-column boxes of 8 rows, 128-byte "
+                    "swizzle, the next tile issued as a stage frees): scores 4 lanes a "
+                    "position from shared memory, PV every 32nd column a lane with p by "
+                    "shuffle, no global load in the loop; f32 FMAs on the CUDA cores, no TF32")
 
 
 def paged_inputs(torch, case, gen, dev, dtype=None):
@@ -1731,39 +1752,43 @@ def paged_f32_phase(torch, fd, dev) -> float:
         log(f"[paged-f32] flash_decode_paged float32 (B,KV,G,hd,blocks,lens)={case}: a cluster "
             f"of {split}: o max abs err {err:.3e} (tolerance {F32_O_ATOL}); a repeat and the "
             f"blocks permuted in the pool bit-identical")
-    B, KV, G, hd, span = PAGED_F32_FUSED
-    q, pk, pv, tables, lens = paged_inputs(torch, (B, KV, G, hd, PAGED_NBLK, span), gen, dev,
-                                           torch.float32)
-    active = torch.arange(B, device=dev) < B - 3
-    tables[~active] = 0  # an empty slot's table is the scratch block
-    qkv = torch.randn(B, 1, (2 * G + 4) * KV * hd, generator=gen).to(dev)
-    k_new = qkv[..., -2 * KV * hd:-KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
-    v_new = qkv[..., -KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
-    mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
-    moved_tables[~active] = 0
-    pools = {name: (pk.clone(), pv.clone()) for name in ("got", "again", "want")}
-    before = fd.PAGED_LAUNCHES
-    got = fd.flash_decode_paged(q, *pools["got"], tables, lens, k_new, v_new, active)
-    again = fd.flash_decode_paged(q, *pools["again"], tables, lens, k_new, v_new, active)
-    moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens, k_new, v_new, active)
-    want = fd.flash_decode_paged_reference(q, *pools["want"], tables, lens, k_new, v_new, active)
-    torch.cuda.synchronize()
-    err = float((got[active] - want[active]).abs().max())
-    if fd.PAGED_LAUNCHES != before + 3 or err > F32_O_ATOL:
-        raise AssertionError(f"fused flash_decode_paged float32 vs plain at {PAGED_F32_FUSED}: "
-                             f"o err {err:.3e} (tolerance {F32_O_ATOL}), launches "
-                             f"{fd.PAGED_LAUNCHES - before}")
-    if not all(torch.equal(pools["got"][i][1:], pools["want"][i][1:]) for i in (0, 1)):
-        raise AssertionError("the fused float32 write is not the plain write outside the "
-                             "scratch block")
-    if not torch.equal(got[active], again[active]) or not torch.equal(got[active], moved[active]):
-        raise AssertionError("the fused float32 call: a repeat or the same rows in other blocks "
-                             "gave other bits")
-    max_err = max(max_err, err)
-    log(f"[paged-f32] flash_decode_paged float32 with the step's write fused in, (B,KV,G,hd)="
-        f"{(B, KV, G, hd)}, lengths {span}, rows 5-7 inactive, from strided head views: o max "
-        f"abs err {err:.3e} on the active rows (tolerance {F32_O_ATOL}); the pools bit-exact "
-        f"outside the scratch block; a repeat and the blocks permuted bit-identical")
+    for B, KV, G, hd, nblk, span in PAGED_F32_FUSED:
+        q, pk, pv, tables, lens = paged_inputs(torch, (B, KV, G, hd, nblk, span), gen, dev,
+                                               torch.float32)
+        active = torch.arange(B, device=dev) < B - 3
+        tables[~active] = 0  # an empty slot's table is the scratch block
+        qkv = torch.randn(B, 1, (2 * G + 4) * KV * hd, generator=gen).to(dev)
+        k_new = qkv[..., -2 * KV * hd:-KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+        v_new = qkv[..., -KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+        mk, mv, moved_tables = permuted_pool(torch, pk, pv, tables, gen, dev)
+        moved_tables[~active] = 0
+        pools = {name: (pk.clone(), pv.clone()) for name in ("got", "again", "want")}
+        before = fd.PAGED_LAUNCHES
+        got = fd.flash_decode_paged(q, *pools["got"], tables, lens, k_new, v_new, active)
+        again = fd.flash_decode_paged(q, *pools["again"], tables, lens, k_new, v_new, active)
+        moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens, k_new, v_new, active)
+        want = fd.flash_decode_paged_reference(q, *pools["want"], tables, lens, k_new, v_new,
+                                               active)
+        torch.cuda.synchronize()
+        err = float((got[active] - want[active]).abs().max())
+        if fd.PAGED_LAUNCHES != before + 3 or err > F32_O_ATOL:
+            raise AssertionError(f"fused flash_decode_paged float32 vs plain at (B,KV,G,hd)="
+                                 f"{(B, KV, G, hd)}, lengths {span}: o err {err:.3e} (tolerance "
+                                 f"{F32_O_ATOL}), launches {fd.PAGED_LAUNCHES - before}")
+        if not all(torch.equal(pools["got"][i][1:], pools["want"][i][1:]) for i in (0, 1)):
+            raise AssertionError(f"the fused float32 write at lengths {span} is not the plain "
+                                 f"write outside the scratch block")
+        if not torch.equal(got[active], again[active]) \
+                or not torch.equal(got[active], moved[active]) \
+                or not all(torch.equal(pools["got"][i], pools["again"][i]) for i in (0, 1)):
+            raise AssertionError(f"the fused float32 call at lengths {span}: a repeat or the "
+                                 f"same rows in other blocks gave other bits")
+        max_err = max(max_err, err)
+        log(f"[paged-f32] flash_decode_paged float32 with the step's write fused in, "
+            f"(B,KV,G,hd)={(B, KV, G, hd)}, lengths {span}, the last 3 rows inactive, from "
+            f"strided head views: o max abs err {err:.3e} on the active rows (tolerance "
+            f"{F32_O_ATOL}); the pools bit-exact outside the scratch block; a repeat and the "
+            f"blocks permuted bit-identical")
     log(f"[paged-f32] phase wall {time.perf_counter() - t0:.2f} s")
     return max_err
 

@@ -84,18 +84,42 @@
 // The float32 path (paged_decode_f32_kernel) serves the float32 pools of
 // an f32 model, such as a speculative unit's f32 draft (hd 32, group 1,
 // pool blocks of 16), with the same share rule, fused write and combine.
-// Its products are f32 FMAs on the CUDA cores: mma.sync's TF32 keeps 10
-// mantissa bits and would move an f32 draft's logits by ~1e-3, enough to
-// turn an argmax away from the reference's.  A draft head is narrow and the
-// walk is bound by the bytes (~G FMAs a K/V float), so the CUDA cores' 67
-// TFLOP/s do not bound it.  Each warp takes every 8th tile of 32 positions
-// of the share, one position a lane: a lane's scores are its K row's dot
-// products with the block's query rows (q in shared memory, K by 16-byte
-// loads of the lane's own row), the tile's max and sum are warp shuffles,
-// and O += P V broadcasts each position's p and V row pointer across the
-// warp, whose lanes each hold every 32nd column of V.  No TMA: K and V come
-// straight from the pools through L1 (one K row is 128 bytes at hd 32), so
-// the pools need only 16-byte aligned rows.
+//   * What bounds it.  A score costs hd FMAs for 4 hd bytes of K (PV the
+//     same for V): ~G/2 FLOP a byte, where the card's 67 TFLOP/s of f32
+//     FMAs bind only above ~20 FLOP a byte (67e12 / 3.35e12).  So the
+//     bytes bound the walk: K and V of the row's positions read once
+//     (~2.5 us at the draft's step, B=32 x 2 kv heads x 512 positions of
+//     hd 32).  A walk that loads V rows from global memory inside its PV
+//     loop pays a dependent trip to device memory every few positions, and
+//     tiles of 32 positions a warp leave most warps idle at one row (8
+//     ranks of 64 positions): both keep it far from that bound.
+//   * Staging.  Each warp walks every NW-th tile of F32_TILE (8) positions
+//     of the block's share, so a share of MIN_SPAN positions gives every
+//     warp a tile.  A warp's tiles reach its own ring of 2-4 stages by TMA
+//     (a tile lies in one pool block: per 32 columns one box of 8 rows of
+//     128 bytes with the 128-byte swizzle, K then V, over a 4-d f32 map
+//     of the pool; columns past hd come in as zeros); lane 0 issues the
+//     ring's tiles at entry and the next one as soon as the warp is done
+//     with a stage, so every copy of a short share is in flight at once
+//     and none waits on the walk.  The scores read K from shared memory,
+//     4 lanes a position (every 4th 16-byte chunk of the row each, summed
+//     by two shuffle levels; the swizzle puts a phase's 8 rows on 8
+//     different bank groups); PV reads one V row a position with a lane on
+//     every 32nd column (one 128-byte line a row, no conflict) and p from
+//     its position's lane by shuffle: no global load inside the loop.
+//   * Entry.  The length's load, q's, the table row's prefetch toward L2
+//     and the tensor maps' are in flight together; each warp arms its own
+//     barriers (no block barrier before its first copies); the fresh row
+//     waits in registers and reaches the pool after the walk.  A launch's
+//     chain is then the length, the table (from L2), the copies and the
+//     combine.  On an H100 SXM that chain and the launch take ~4 us with
+//     every row empty, ~6 us as a cluster (paged_f32_turns.py), and the
+//     walk adds the bytes at ~2.6 TB/s.
+//   * Products.  f32 FMAs on the CUDA cores, never the tensor cores:
+//     mma.sync takes f32 only as TF32 (10 mantissa bits), which moves an
+//     f32 draft's logits by ~1e-3, enough to turn an argmax away from the
+//     reference's; and at ~G/2 FLOP a byte the FMAs cost less than the
+//     bytes do.
 //
 // Interface: plain C functions loaded with ctypes (no PyTorch headers); the
 // tensor maps are encoded on the host (flash_common.cuh), no -lcuda.
@@ -122,8 +146,11 @@ constexpr int MIN_SPAN = 64;           // the fewest positions a non-empty share
 constexpr int RING_BUDGET = 64 * 1024; // bytes of ring a block aims at
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int DTYPE_F32 = 1;           // the wrappers' dtype code for float32 (0: bfloat16)
-constexpr int F32_TILE = 32;           // positions an f32 warp takes at a time: one a lane
-constexpr int F32_WARPS = 8;           // warps of an f32 block
+constexpr int F32_TILE = 8;            // positions an f32 warp takes at a time: a box's rows
+constexpr int F32_BOX_COLS = 32;       // f32 columns in a 128-byte swizzle row
+constexpr int F32_BOX_BYTES = F32_TILE * 128;  // one f32 box: 8 rows of 128 bytes
+constexpr int F32_RING_BUDGET = 64 * 1024;     // bytes of f32 ring a block aims at
+constexpr int F32_MAX_DEPTH = 4;       // stages of an f32 warp's ring, at most (at least 2)
 
 // warps per block: 8 up to a head dim of 128; 4 above, where the warps'
 // partial outputs would not fit beside the cluster's gather
@@ -208,30 +235,47 @@ __host__ __device__ inline Layout layout_for(int D, int GT) {
   return L;
 }
 
-// The float32 path's shared memory, in floats from the base: q [GT][D];
-// the warps' m, l [NW][GT] and acc [NW][GT][D]; the weights [MAX_SPLIT +
-// 2][GT]; rank 0's gather of every rank's (M, L, O) per row [MAX_SPLIT][GT *
-// (D + 2)].  Twice the bf16 path's bytes a value, and no ring.
+// query rows a float32 block takes: the group rounded up to 1, 2, 4 or 8
+__host__ __device__ constexpr int f32_rows(int G) { return G <= 1 ? 1 : (G <= 2 ? 2 : (G <= 4 ? 4 : 8)); }
+
+// columns of V a float32 lane holds, and 32-column boxes a staged row
+// takes: D <= 32 * f32_cols(D)
+__host__ __device__ constexpr int f32_cols(int D) { return D <= 32 ? 1 : (D <= 64 ? 2 : (D <= 128 ? 4 : 8)); }
+
+// warps of a float32 block: 8 up to a head dim of 128; 4 above, so that two
+// stages a warp fit
+__host__ __device__ constexpr int f32_warps(int D) { return D <= 128 ? 8 : 4; }
+
+// The float32 path's shared memory, in bytes from a 1024-aligned base: each
+// warp's ring of `depth` stages (a stage is a tile's K boxes, then its V
+// boxes); after the walk, reusing the ring, the warps' m, l [NW][GT] and
+// acc [NW][GT][D], the weights [MAX_SPLIT + 2][GT] and rank 0's gather of
+// every rank's (M, L, O) per row [MAX_SPLIT][GT * (D + 2)], all f32; past
+// both, q [GT][32 * f32_cols(D)] (zeros past the group and past D); last
+// the mbarriers.  paged_f32_layout in ops/flash_decode.py is the same rule.
 struct LayoutF32 {
-  int m, l, acc, weights, gather, bytes;
+  int nw, depth, stage, m, l, acc, weights, gather, q, bars, bytes;
 };
 
 __host__ __device__ inline LayoutF32 layout_f32(int D, int GT) {
   LayoutF32 L;
-  L.m = GT * D;
-  L.l = L.m + F32_WARPS * GT;
-  L.acc = L.l + F32_WARPS * GT;
-  L.weights = L.acc + F32_WARPS * GT * D;
-  L.gather = L.weights + (MAX_SPLIT + 2) * GT;
-  L.bytes = (L.gather + MAX_SPLIT * GT * (D + 2)) * 4;
+  const int DW = f32_cols(D);
+  L.nw = f32_warps(D);
+  L.stage = 2 * DW * F32_BOX_BYTES;
+  const int depth = F32_RING_BUDGET / (L.nw * L.stage);
+  L.depth = depth < 2 ? 2 : (depth > F32_MAX_DEPTH ? F32_MAX_DEPTH : depth);
+  const int ring = L.nw * L.depth * L.stage;
+  L.m = 0;
+  L.l = L.m + L.nw * GT * 4;
+  L.acc = L.l + L.nw * GT * 4;
+  L.weights = L.acc + L.nw * GT * D * 4;
+  L.gather = L.weights + (MAX_SPLIT + 2) * GT * 4;
+  const int end = L.gather + MAX_SPLIT * GT * (D + 2) * 4;
+  L.q = ((ring > end ? ring : end) + 15) & ~15;
+  L.bars = (L.q + GT * 32 * DW * 4 + 7) & ~7;
+  L.bytes = L.bars + 8 * L.nw * L.depth + 1024;  // 1024: the base's alignment
   return L;
 }
-
-// query rows a float32 block takes: the group rounded up to 1, 2, 4 or 8
-__host__ __device__ constexpr int f32_rows(int G) { return G <= 1 ? 1 : (G <= 2 ? 2 : (G <= 4 ? 4 : 8)); }
-
-// columns of V a float32 lane holds: D <= 32 * f32_cols(D)
-__host__ __device__ constexpr int f32_cols(int D) { return D <= 32 ? 1 : (D <= 64 ? 2 : (D <= 128 ? 4 : 8)); }
 
 // 0..3 for 1, 2, 4, 8
 inline int log2_index(int x) { return x <= 1 ? 0 : (x <= 2 ? 1 : (x <= 4 ? 2 : 3)); }
@@ -683,13 +727,17 @@ __global__ void __launch_bounds__(nwarps(DT) * 32)
 }
 
 // The float32 path.  A block is (row, kv head, rank, tile of GT query
-// rows); each warp walks every F32_WARPS-th tile of 32 positions of the
-// rank's share, one position a lane (see the note at the top).
+// rows); each warp walks every NW-th tile of F32_TILE positions of the
+// rank's share through its own TMA ring (see the note at the top).
 template <int DW, int GT>
-__global__ void __launch_bounds__(F32_WARPS * 32)
-    paged_decode_f32_kernel(const ParamsT<float> p) {
-  constexpr int NW = F32_WARPS;
-  extern __shared__ __align__(16) float smf[];
+__global__ void __launch_bounds__(f32_warps(32 * DW) * 32)
+    paged_decode_f32_kernel(const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, const ParamsT<float> p) {
+  constexpr int NW = f32_warps(32 * DW);
+  constexpr int DT = 32 * DW;  // columns a staged row: DW boxes of 32, zeros past D
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -702,7 +750,35 @@ __global__ void __launch_bounds__(F32_WARPS * 32)
   const LayoutF32 lay = layout_f32(p.D, GT);
   const int D = p.D;
 
+  // Entry, ordered so that the loads which do not wait on the row's length
+  // are in flight while it comes: the length, the table row toward L2, both
+  // tensor maps, q into shared memory; each warp's lane 0 initialises its
+  // own barriers, so no block-wide barrier stands before its first copies.
   const int len = p.lens[b];
+  for (int c = threadIdx.x * 32; c < p.nblk; c += NW * 32 * 32)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p.table + b * p.nblk + c));
+  if (threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+  }
+  const uint32_t bar0 = base + lay.bars + 8 * warp * lay.depth;
+  const uint32_t ring = base + warp * lay.depth * lay.stage;
+  const int kbytes = lay.stage / 2;
+  if (lane == 0) {
+    for (int i = 0; i < lay.depth; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // q's rows to shared memory, zeros past the group and past D
+  float* sq = reinterpret_cast<float*>(smem + lay.q);
+  {
+    const float* qb = p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2];
+    for (int e = threadIdx.x; e < GT * DT; e += NW * 32) {
+      const int g = e / DT;
+      const int d = e - g * DT;
+      sq[e] = g < gn && d < D ? qb[g * p.qs[2] + d] : 0.f;
+    }
+  }
+
   const int width = p.nblk * p.bs;
   const int n = min(max(len, 0), width);
   const bool fresh = p.k_new != nullptr && (p.valid == nullptr || p.valid[b] != 0) && len >= 1 &&
@@ -711,34 +787,65 @@ __global__ void __launch_bounds__(F32_WARPS * 32)
   share_of(n, p.split, p.bs, rank, p0, p1);
   const int cnt = p1 - p0;
   const int ntiles = (cnt + F32_TILE - 1) / F32_TILE;
-  const int mine = warp < ntiles ? (ntiles - 1 - warp) / NW + 1 : 0;
-  const bool holds_fresh = fresh && cnt > 0 && p1 == n;  // this share ends at position n - 1
-  const float* kf = fresh ? p.k_new + b * p.kns[0] + kvh * p.kns[1] : nullptr;
-  const float* vf = fresh ? p.v_new + b * p.vns[0] + kvh * p.vns[1] : nullptr;
-
-  // q's rows to shared memory, zeros past the group
-  float* sq = smf;
-  {
-    const float* qb = p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2];
-    for (int e = threadIdx.x; e < GT * D; e += NW * 32) {
-      const int g = e / D;
-      sq[e] = g < gn ? qb[g * p.qs[2] + (e - g * D)] : 0.f;
+  const int mine = warp < ntiles ? (ntiles - 1 - warp) / NW + 1 : 0;  // this warp's tiles
+  // the warp that walks the share's last tile holds position n - 1
+  const bool holds_fresh = fresh && cnt > 0 && p1 == n && warp == (ntiles - 1) % NW;
+  // the fresh row's 16-byte chunks c = lane + 32 u, in registers from here:
+  // the loads land while the walk's copies fly, and nothing waits on them
+  // before the last tile
+  constexpr int FCH = (DT / 4 + 31) / 32;
+  float4 fk[FCH], fv[FCH];
+#pragma unroll
+  for (int u = 0; u < FCH; ++u) fk[u] = fv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (holds_fresh) {
+    const float* kf = p.k_new + b * p.kns[0] + kvh * p.kns[1];
+    const float* vf = p.v_new + b * p.vns[0] + kvh * p.vns[1];
+#pragma unroll
+    for (int u = 0; u < FCH; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D / 4) {
+        fk[u] = *reinterpret_cast<const float4*>(kf + 4 * c);
+        fv[u] = *reinterpret_cast<const float4*>(vf + 4 * c);
+      }
     }
   }
-  // the fresh row into the pool (no block of this launch reads that pool
-  // row: the lane that attends over it takes it from k_new / v_new)
-  if (holds_fresh && blockIdx.y == 0 && warp == 0) {
-    const int j = n - 1;
-    const int blk = j / p.bs;
-    const long long phys = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
-    const long long row = j - blk * p.bs;
-    for (int d = lane; d < D; d += 32) {
-      p.pool_k[phys * p.ks[0] + kvh * p.ks[1] + row * p.ks[2] + d] = kf[d];
-      p.pool_v[phys * p.vs[0] + kvh * p.vs[1] + row * p.vs[2] + d] = vf[d];
+
+  // the pool blocks of this warp's tiles 32 at a time: lane l holds that of
+  // its tile batch * 32 + l (a tile of 8 lies in one pool block: shares
+  // start on a pool block and bs is a multiple of 8)
+  int phys = 0;
+  auto load_blocks = [&](int batch) {
+    const int lo = p0 + (warp + (batch * 32 + lane) * NW) * F32_TILE;
+    if (lo < p1) phys = min(max(p.table[b * p.nblk + lo / p.bs], 0), p.nblocks - 1);
+  };
+  // stage i % depth takes this warp's i-th tile: lane 0 arms the stage's
+  // barrier and issues one box per 32 columns of K, then of V
+  auto issue = [&](int i) {
+    if (i > 0 && (i & 31) == 0) load_blocks(i >> 5);
+    const int ph = __shfl_sync(FULL, phys, i & 31);
+    if (lane != 0) return;
+    const int lo = p0 + (warp + i * NW) * F32_TILE;
+    const int row = lo - (lo / p.bs) * p.bs;
+    const uint32_t kdst = ring + (i % lay.depth) * lay.stage;
+    const uint32_t bar = bar0 + 8 * (i % lay.depth);
+    mbar_expect_tx(bar, lay.stage);
+#pragma unroll
+    for (int cb = 0; cb < DW; ++cb) {
+      tma_load(kdst + cb * F32_BOX_BYTES, &tk, bar, cb * F32_BOX_COLS, row, kvh, ph);
+      tma_load(kdst + kbytes + cb * F32_BOX_BYTES, &tv, bar, cb * F32_BOX_COLS, row, kvh, ph);
     }
+  };
+  __syncwarp();  // this warp's barriers are initialised
+  if (mine > 0) {
+    load_blocks(0);
+    for (int i = 0; i < lay.depth && i < mine; ++i) issue(i);
   }
   __syncthreads();  // q is in shared memory
 
+  // scores: lane = r + 8 * part takes position r of a tile and the row's
+  // 16-byte chunks part, part + 4, ...; PV: every 32nd column a lane
+  const int r = lane & 7;
+  const int part = lane >> 3;
   float m[GT], l[GT], acc[GT][DW];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
@@ -748,68 +855,73 @@ __global__ void __launch_bounds__(F32_WARPS * 32)
     for (int t = 0; t < DW; ++t) acc[g][t] = 0.f;
   }
   for (int i = 0; i < mine; ++i) {
+    const int s = i % lay.depth;
+    mbar_wait(bar0 + 8 * s, (i / lay.depth) & 1);
+    unsigned char* kt = smem + (ring - base) + s * lay.stage;
+    const unsigned char* vt = kt + kbytes;
     const int lo = p0 + (warp + i * NW) * F32_TILE;
     const int tcnt = min(F32_TILE, p1 - lo);  // >= 1
-    const int j = lo + lane;
-    const bool on = lane < tcnt;
-    // this lane's position: its K and V rows, from the input at n - 1
-    const float* kr = nullptr;
-    const float* vr = nullptr;
-    if (on) {
-      if (holds_fresh && j == n - 1) {
-        kr = kf;
-        vr = vf;
-      } else {
-        const int blk = j / p.bs;
-        const long long phys = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
-        const long long row = j - blk * p.bs;
-        kr = p.pool_k + phys * p.ks[0] + kvh * p.ks[1] + row * p.ks[2];
-        vr = p.pool_v + phys * p.vs[0] + kvh * p.vs[1] + row * p.vs[2];
-      }
-    }
-    // scores: the lane's K row against every query row, 4 columns a load
-    float s[GT];
+    if (holds_fresh && i == mine - 1) {       // position n - 1 from the input, not the pool
+      const int rr = n - 1 - lo;
 #pragma unroll
-    for (int g = 0; g < GT; ++g) s[g] = 0.f;
-    if (on) {
-#pragma unroll 2
-      for (int c = 0; c < D; c += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + c);
-#pragma unroll
-        for (int g = 0; g < GT; ++g) {
-          const float4 qv = *reinterpret_cast<const float4*>(sq + g * D + c);
-          s[g] = fmaf(qv.x, kv.x, s[g]);
-          s[g] = fmaf(qv.y, kv.y, s[g]);
-          s[g] = fmaf(qv.z, kv.z, s[g]);
-          s[g] = fmaf(qv.w, kv.w, s[g]);
+      for (int u = 0; u < FCH; ++u) {
+        const int c = lane + 32 * u;
+        if (c < D / 4) {
+          const int off = (c >> 3) * F32_BOX_BYTES + rr * 128 + (((c & 7) ^ rr) << 4);
+          *reinterpret_cast<float4*>(kt + off) = fk[u];
+          *reinterpret_cast<float4*>(kt + kbytes + off) = fv[u];
         }
       }
+      __syncwarp();
     }
-    // the online softmax over the tile, scaled to base 2; each lane keeps
-    // its own positions' share of l
+    // this lane's part of its position's dot products with the query rows
+    float sc[GT];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) sc[g] = 0.f;
+#pragma unroll
+    for (int k = 0; k < DT / 16; ++k) {
+      const int c = part + 4 * k;
+      const float4 kv = *reinterpret_cast<const float4*>(
+          kt + (c >> 3) * F32_BOX_BYTES + r * 128 + (((c & 7) ^ r) << 4));
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float4 qv = *reinterpret_cast<const float4*>(sq + g * DT + 4 * c);
+        sc[g] = fmaf(qv.x, kv.x, sc[g]);
+        sc[g] = fmaf(qv.y, kv.y, sc[g]);
+        sc[g] = fmaf(qv.z, kv.z, sc[g]);
+        sc[g] = fmaf(qv.w, kv.w, sc[g]);
+      }
+    }
+    // the online softmax over the tile, scaled to base 2: the parts' sums
+    // (the same bits in all four), the tile's max over its 8 positions;
+    // each lane keeps its own position's share of l
     float pr[GT];
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
-      const float sg = on ? s[g] * p.scale_log2 : -INFINITY;
+      sc[g] += __shfl_xor_sync(FULL, sc[g], 8);
+      sc[g] += __shfl_xor_sync(FULL, sc[g], 16);
+      const float sg = r < tcnt ? sc[g] * p.scale_log2 : -INFINITY;
       float mx = sg;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-      const float mnew = fmaxf(m[g], mx);       // finite: the tile holds a position
+      for (int o = 1; o < F32_TILE; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float mnew = fmaxf(m[g], mx);            // finite: the tile holds a position
       const float alpha = exp2_approx(m[g] - mnew);  // 0 while m is still -inf
-      pr[g] = exp2_approx(sg - mnew);           // 0 off the tile
+      pr[g] = exp2_approx(sg - mnew);                // 0 off the tile
       l[g] = fmaf(l[g], alpha, pr[g]);
 #pragma unroll
       for (int t = 0; t < DW; ++t) acc[g][t] *= alpha;
       m[g] = mnew;
     }
-    // O += P V: position jj's V row (lane jj's pointer), every 32nd column a lane
-#pragma unroll 4
-    for (int jj = 0; jj < tcnt; ++jj) {
-      const float* vrow = reinterpret_cast<const float*>(
-          __shfl_sync(FULL, reinterpret_cast<unsigned long long>(vr), jj));
+    // O += P V from the stage: position jj's p from lane jj, its V row's
+    // columns lane + 32 t (rows past tcnt are never read)
+#pragma unroll
+    for (int jj = 0; jj < F32_TILE; ++jj) {
+      if (jj >= tcnt) break;
       float v[DW];
 #pragma unroll
-      for (int t = 0; t < DW; ++t) v[t] = lane + 32 * t < D ? vrow[lane + 32 * t] : 0.f;
+      for (int t = 0; t < DW; ++t)
+        v[t] = *reinterpret_cast<const float*>(vt + t * F32_BOX_BYTES + jj * 128 +
+                                               (((lane >> 2) ^ jj) << 4) + (lane & 3) * 4);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         const float pj = __shfl_sync(FULL, pr[g], jj);
@@ -817,16 +929,41 @@ __global__ void __launch_bounds__(F32_WARPS * 32)
         for (int t = 0; t < DW; ++t) acc[g][t] = fmaf(pj, v[t], acc[g][t]);
       }
     }
+    __syncwarp();  // every lane has read the stage: it may be refilled
+    if (i + lay.depth < mine) issue(i + lay.depth);
   }
+  // l over the 8 positions (the four parts of a position hold the same l)
 #pragma unroll
   for (int g = 0; g < GT; ++g)
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l[g] += __shfl_xor_sync(FULL, l[g], o);
+    for (int o = 1; o < F32_TILE; o <<= 1) l[g] += __shfl_xor_sync(FULL, l[g], o);
+  // the fresh row into the pool, once this warp's copies have landed (no
+  // block of this launch reads that pool row: a block that attends over it
+  // takes it from k_new / v_new over whatever its copy of that row brought)
+  if (holds_fresh && blockIdx.y == 0) {
+    const int j = n - 1;
+    const int blk = j / p.bs;
+    const long long pb = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
+    const long long row = j - blk * p.bs;
+#pragma unroll
+    for (int u = 0; u < FCH; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D / 4) {
+        *reinterpret_cast<float4*>(p.pool_k + pb * p.ks[0] + kvh * p.ks[1] + row * p.ks[2] +
+                                   4 * c) = fk[u];
+        *reinterpret_cast<float4*>(p.pool_v + pb * p.vs[0] + kvh * p.vs[1] + row * p.vs[2] +
+                                   4 * c) = fv[u];
+      }
+    }
+  }
+  // rank 0's gather shares the ring's space: a rank writes it only once
+  // every rank of the cluster is past its walk
   if (p.split > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  __syncthreads();  // every warp is done with its ring: the scratch reuses it
 
-  float* sm_m = smf + lay.m;
-  float* sm_l = smf + lay.l;
-  float* sm_acc = smf + lay.acc;
+  float* sm_m = reinterpret_cast<float*>(smem + lay.m);    // [NW][GT]
+  float* sm_l = reinterpret_cast<float*>(smem + lay.l);    // [NW][GT]
+  float* sm_acc = reinterpret_cast<float*>(smem + lay.acc);  // [NW][GT][D]
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
     if (g >= gn) break;
@@ -838,11 +975,12 @@ __global__ void __launch_bounds__(F32_WARPS * 32)
     for (int t = 0; t < DW; ++t)
       if (lane + 32 * t < D) sm_acc[(warp * GT + g) * D + lane + 32 * t] = acc[g][t];
   }
-  combine_store<float, NW, GT>(p, rank, bk, g0, gn, sm_m, sm_l, sm_acc, smf + lay.weights,
-                               smf + lay.gather);
+  combine_store<float, NW, GT>(p, rank, bk, g0, gn, sm_m, sm_l, sm_acc,
+                               reinterpret_cast<float*>(smem + lay.weights),
+                               reinterpret_cast<float*>(smem + lay.gather));
 }
 
-using KernelF32 = void (*)(const ParamsT<float>);
+using KernelF32 = void (*)(const CUtensorMap, const CUtensorMap, const ParamsT<float>);
 
 // per (columns a lane, query rows) and device: the shared-memory opt-in is set
 std::atomic<bool> g_smem_set_f32[4][4][MAX_DEVICES];
@@ -923,7 +1061,28 @@ cudaError_t launch_cluster(K kernel, dim3 grid, int threads, int smem, int split
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-cudaError_t launch_f32(const ParamsT<float>& p, int B, int smem, void* stream) {
+// A 4-d map over an f32 pool [N][KV][bs][D] (element strides st = block,
+// kv head, row; d is 1) with boxes of 32 columns x F32_TILE rows, 128-byte
+// swizzle, zeros out of bounds; a dimension of size 1 takes the row stride
+// (TMA wants every stride a multiple of 16 bytes), as encode() does.
+bool encode_f32(CUtensorMap* map, const void* base, int N, int heads, int S, int D,
+                const long long* st) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t s_bytes = static_cast<cuuint64_t>(st[2]) * 4;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                        static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(N)};
+  cuuint64_t strides[3] = {s_bytes, heads == 1 ? s_bytes : static_cast<cuuint64_t>(st[1]) * 4,
+                           N == 1 ? s_bytes : static_cast<cuuint64_t>(st[0]) * 4};
+  cuuint32_t box[4] = {F32_BOX_COLS, F32_TILE, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_f32(const ParamsT<float>& p, int B, int smem, void* stream,
+                       const CUtensorMap& tk, const CUtensorMap& tv) {
   const int GT = f32_rows(p.G);
   const int DW = f32_cols(p.D);
   const int ci = log2_index(DW);
@@ -949,8 +1108,8 @@ cudaError_t launch_f32(const ParamsT<float>& p, int B, int smem, void* stream) {
     if (e != cudaSuccess) return e;
     g_smem_set_f32[ci][gi][dev].store(true);
   }
-  return launch_cluster(kernel, dim3(p.split * B * p.KV, (p.G + GT - 1) / GT), F32_WARPS * 32,
-                        smem, p.split, stream, p);
+  return launch_cluster(kernel, dim3(p.split * B * p.KV, (p.G + GT - 1) / GT),
+                        f32_warps(p.D) * 32, smem, p.split, stream, tk, tv, p);
 }
 
 }  // namespace
@@ -962,8 +1121,7 @@ extern "C" {
 // q, the pools, k_new/v_new and o are bfloat16; 1: float32.  q [B,KV,G,D]
 // with unit stride along D; pools pool_k/pool_v [nblocks,KV,bs,D] with
 // unit stride along D, 16-byte aligned bases and strides that are
-// multiples of 16 bytes (TMA's rules on the bf16 path, 16-byte loads on
-// the f32 path); table [B,nblk] int32 contiguous; lens [B] int32 (row b
+// multiples of 16 bytes (TMA's rules, on both paths); table [B,nblk] int32 contiguous; lens [B] int32 (row b
 // attends over positions [0, lens[b]), clamped to [0, nblk*bs]);
 // k_new/v_new [B,KV,1,D] with 16-byte aligned rows, or null for no fused
 // write; valid [B] bool or null (every row valid); strides[13] = (b, kv
@@ -986,7 +1144,11 @@ int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const i
     const ParamsT<float> p = fill_params<float>(q, pool_k, pool_v, table, lens, k_new, v_new,
                                                 valid, o, nblocks, nblk, bs, KV, G, D, split,
                                                 strides);
-    const cudaError_t e = launch_f32(p, B, smem, stream);
+    CUtensorMap tk, tv;
+    if (!encode_f32(&tk, pool_k, nblocks, KV, bs, D, strides + 3) ||
+        !encode_f32(&tv, pool_v, nblocks, KV, bs, D, strides + 6))
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t e = launch_f32(p, B, smem, stream, tk, tv);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }

@@ -76,7 +76,9 @@ attends in plain XLA, ``_attend_paged`` at W = 1, ``generate.py:1086``):
         writes nothing (the reference sends it to the scratch block 0).
         bfloat16 takes the tensor cores; float32 (an f32 model's pools,
         such as a speculative unit's f32 draft) takes a path of f32 FMAs
-        on the CUDA cores, never TF32, in the same source.
+        on the CUDA cores, never TF32, in the same source: each warp walks
+        tiles of 8 positions through its own TMA ring
+        (``paged_f32_layout`` states its plan).
 
 The kernel reads the table and the lengths itself: nothing is read back
 on the host.  The host picks the cluster size from the table's width
@@ -118,6 +120,7 @@ __all__ = [
     "flash_decode_paged",
     "flash_decode_paged_reference",
     "paged_cluster",
+    "paged_f32_layout",
     "paged_kernel_shape_error",
     "paged_shares",
     "paged_view",
@@ -143,6 +146,15 @@ _PAGED_GT = 16     # query rows per block of the paged kernel (one m16 tile)
 # costs more than the split gains until the grid is short of ~one per SM
 _PAGED_BLOCKS_PER_SM = 0.9
 _BLOCKS_PER_SM = 1.5     # what the split aims the grid at (see decode_split_plan)
+# the paged kernel's float32 walk (flash_decode_paged.cu: F32_TILE,
+# F32_BOX_COLS, F32_RING_BUDGET, F32_MAX_DEPTH, MAX_SPLIT): positions a
+# warp's tile (a TMA box's rows), f32 columns a box, the ring's aim in bytes
+# a block, the deepest ring, and the most blocks a cluster
+_F32_TILE = 8
+_F32_BOX_COLS = 32
+_F32_RING_BUDGET = 64 * 1024
+_F32_MAX_DEPTH = 4
+_MAX_SPLIT = 8
 
 
 def _shapes_error(q, k, v) -> Optional[str]:
@@ -505,6 +517,34 @@ def paged_cluster(B: int, KV: int, G: int, width: int, sm_count: int) -> int:
     bs) alone: ``decode_split_plan`` at the paged kernel's row tile and
     grid aim."""
     return decode_split_plan(B, KV, G, width, sm_count, _PAGED_GT, _PAGED_BLOCKS_PER_SM)[0]
+
+
+def paged_f32_layout(head_dim: int, group: int) -> dict:
+    """The float32 walk's plan at this head dim and group (query heads per
+    kv head), ``layout_f32`` in ``ops/csrc/flash_decode_paged.cu`` step by
+    step (the card holds the two to each other): ``rows`` query rows a
+    block (the group rounded up to 1, 2, 4 or 8), ``warps`` a block (8 up
+    to hd 128, else 4), ``tile`` positions a warp takes at a time,
+    ``depth`` stages of each warp's TMA ring (as many as the ring's aim
+    holds, 2 to 4), ``stage`` bytes a stage (a tile's K and V in boxes of
+    32 columns) and ``bytes`` of dynamic shared memory.  Warp w walks tiles
+    w, w + warps, ... of its block's share, so a share of ``_MIN_SPAN``
+    positions gives each of 8 warps a tile."""
+    cols = next(c for c in (1, 2, 4, 8) if head_dim <= _F32_BOX_COLS * c)
+    rows = next(r for r in (1, 2, 4, 8) if group <= r or r == 8)
+    warps = 8 if head_dim <= 128 else 4
+    stage = 2 * cols * _F32_TILE * 128
+    depth = min(max(_F32_RING_BUDGET // (warps * stage), 2), _F32_MAX_DEPTH)
+    ring = warps * depth * stage
+    # after the walk, in the ring's space: m and l [warps][rows], acc
+    # [warps][rows][hd], the weights [MAX_SPLIT + 2][rows] and rank 0's
+    # gather [MAX_SPLIT][rows * (hd + 2)], f32
+    end = 4 * (2 * warps * rows + warps * rows * head_dim + (_MAX_SPLIT + 2) * rows
+               + _MAX_SPLIT * rows * (head_dim + 2))
+    q = -(-max(ring, end) // 16) * 16
+    bars = -(-(q + rows * _F32_BOX_COLS * cols * 4) // 8) * 8
+    return {"rows": rows, "warps": warps, "tile": _F32_TILE, "depth": depth, "stage": stage,
+            "bytes": bars + 8 * warps * depth + 1024}
 
 
 def flash_decode_paged_reference(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,

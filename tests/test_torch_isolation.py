@@ -1,5 +1,6 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
-chip_smoke.py or paged_decode_turns.py, imports JAX or anything of the JAX package, and the port
+chip_smoke.py or the turns scripts (paged_decode_turns.py,
+paged_f32_turns.py), imports JAX or anything of the JAX package, and the port
 serves the MNIST and generator examples (the generator through the
 continuous lane, runtime/genserver.py, greedy and sampled), the iris
 example (its rows from the bundled csv) and the epsilon-greedy router
@@ -32,7 +33,8 @@ def _port_files():
             "ops/flash_decode.py", "ops/kv_write.py", "runtime/genserver.py",
             "models/speculative.py", "models/prng.py", "models/tabular.py",
             "models/iris.py", "models/outlier.py", "models/mab.py"} <= names
-    return files + [ROOT / "chip_smoke.py", ROOT / "paged_decode_turns.py"]
+    return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
+                                             "paged_f32_turns.py")]
 
 
 def _imports(tree):

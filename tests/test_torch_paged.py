@@ -14,6 +14,8 @@ batch.  The CUDA kernels are held to the plain versions on the card
 (the ``cuda`` tests below, and chip_smoke.py)."""
 
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -428,22 +430,32 @@ def test_paged_decode_round_refuses_sampling():
                                 temperature=0.5)
 
 
+# rows of the f32 parity test: 1, 17 and 512 positions and a ragged one,
+# then the float32 kernel's tiling edges (tiles of 8 positions, pool blocks
+# of 16, shares of at least 64; 100 ends in a partial block)
+F32_PARITY_LENGTHS = [(1, 17, 512, 300), (1, 7, 8, 9), (31, 32, 33), (63, 64, 65),
+                      (511, 512, 2048), (100,)]
+
+
+@pytest.mark.parametrize("lengths", F32_PARITY_LENGTHS,
+                         ids=["-".join(map(str, n)) for n in F32_PARITY_LENGTHS])
 @pytest.mark.parametrize("fused", [False, True], ids=["attend", "fused"])
-def test_flash_decode_paged_f32_plain_is_the_reference_at_the_draft_shape(fused):
+def test_flash_decode_paged_f32_plain_is_the_reference_at_the_draft_shape(fused, lengths):
     """The plain paged decode in f32 (what the kernel's float32 path is held
     to on the card) at the speculative example's draft shape: 2 kv heads of
-    hd 32, one query head each, pool blocks of 16, rows of 1, 17 and 512
-    positions and a ragged one, against ``_attend_paged`` (after
-    ``_paged_write`` with the step's write fused in) at ATOL."""
-    rng = np.random.default_rng(23)
-    B, KV, G, hd, bs, nblk = 4, 2, 1, 32, 16, 32
+    hd 32, one query head each, pool blocks of 16, rows of ``lengths``,
+    against ``_attend_paged`` (after ``_paged_write`` with the step's write
+    fused in) at ATOL."""
+    rng = np.random.default_rng(23 + sum(lengths))
+    B, KV, G, hd, bs = len(lengths), 2, 1, 32, 16
+    nblk = max(32, -(-max(lengths) // bs))
     N = B * nblk + 1
     k_pool = rng.normal(size=(N, KV, bs, hd)).astype(np.float32)
     v_pool = rng.normal(size=(N, KV, bs, hd)).astype(np.float32)
     jlayer = {"k": jnp.asarray(k_pool.transpose(0, 2, 1, 3)),
               "v": jnp.asarray(v_pool.transpose(0, 2, 1, 3))}
     tables = _tables(rng, B, nblk, N)
-    lens = np.array([1, 17, 512, 300], np.int32)
+    lens = np.array(lengths, np.int32)
     q = rng.normal(size=(B, KV, G, hd)).astype(np.float32)
     pk, pv = torch.from_numpy(k_pool.copy()), torch.from_numpy(v_pool.copy())
     extra = ()
@@ -460,6 +472,74 @@ def test_flash_decode_paged_f32_plain_is_the_reference_at_the_draft_shape(fused)
     np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(B, KV, G, hd), atol=ATOL,
                                rtol=ATOL)
     np.testing.assert_array_equal(pk.numpy(), np.asarray(jlayer["k"]).transpose(0, 2, 1, 3))
+
+
+def _source_constants() -> dict:
+    """The float32 walk's constants as ``flash_decode_paged.cu`` states them."""
+    src = (Path(fd.__file__).parent / "csrc" / "flash_decode_paged.cu").read_text()
+    found = dict(re.findall(r"constexpr int (\w+) = ([0-9 *]+);", src))
+    warps = re.search(r"f32_warps\(int D\) \{ return D <= (\d+) \? (\d+) : (\d+); \}", src)
+    return {**{k: eval(v) for k, v in found.items()},  # noqa: S307 - integer products
+            "F32_WARPS_RULE": tuple(int(x) for x in warps.groups())}
+
+
+def test_paged_f32_layout_is_the_sources_rule():
+    """``paged_f32_layout`` (the host's statement of the float32 walk: tiles,
+    warps, ring stages, shared memory) is pinned to the source's constants,
+    and to a hand count at the draft's shape and the widest instance; the
+    card holds its bytes to the source's at every head dim and group
+    (chip_smoke.py)."""
+    c = _source_constants()
+    assert (fd._F32_TILE, fd._F32_BOX_COLS, fd._F32_RING_BUDGET, fd._F32_MAX_DEPTH,
+            fd._MAX_SPLIT, fd._MIN_SPAN) == (c["F32_TILE"], c["F32_BOX_COLS"],
+                                            c["F32_RING_BUDGET"], c["F32_MAX_DEPTH"],
+                                            c["MAX_SPLIT"], c["MIN_SPAN"])
+    assert c["F32_BOX_COLS"] * 4 == 128  # a box row is the 128-byte swizzle's row
+    limit, many, few = c["F32_WARPS_RULE"]
+    for hd in range(8, 257, 8):
+        for g in (1, 2, 3, 4, 5, 8, 16):
+            plan = fd.paged_f32_layout(hd, g)
+            assert plan["warps"] == (many if hd <= limit else few)
+            assert plan["rows"] == min(8, 1 << (g - 1).bit_length())
+            assert 2 <= plan["depth"] <= c["F32_MAX_DEPTH"]
+            assert plan["bytes"] <= 232448  # the opt-in limit of a block on sm_90
+    # the draft (hd 32, group 1): 8 warps x 4 stages of a tile's K and V (one
+    # 1 KB box each), q's 32 floats, 32 mbarriers and 1024 bytes of alignment
+    draft = fd.paged_f32_layout(32, 1)
+    assert (draft["warps"], draft["depth"], draft["stage"]) == (8, 4, 2048)
+    assert draft["bytes"] == 8 * 4 * 2048 + 32 * 4 + 32 * 8 + 1024
+    # hd 256, 8 rows: 4 warps x 2 stages of 8 boxes of K and V (128 KB; the
+    # combine's scratch fits inside), q 8 x 256 floats, 8 mbarriers
+    wide = fd.paged_f32_layout(256, 8)
+    assert (wide["warps"], wide["depth"], wide["stage"]) == (4, 2, 16384)
+    assert wide["bytes"] == 4 * 2 * 16384 + 8 * 256 * 4 + 8 * 8 + 1024
+
+
+@pytest.mark.parametrize("n, C, want", [
+    (512, 8, [[1] * 8] * 8),    # one row of 512 (B=1): every warp of every rank one tile
+    (512, 2, [[4] * 8] * 2),    # B=32's cluster of 2: 4 tiles a warp, the ring's depth
+    (64, 1, [[1] * 8]),         # a share of MIN_SPAN positions still busies all 8 warps
+    (65, 8, [[2] + [1] * 7] + [[0] * 8] * 7),  # 65 < 2 x 64: one rank takes it all
+    (9, 8, [[1, 1] + [0] * 6] + [[0] * 8] * 7),
+    (2048, 2, [[16] * 8] * 2),
+])
+def test_paged_f32_warp_tiles_keep_the_warps_busy(n, C, want):
+    """The float32 walk's split of a row among a cluster's warps (the
+    source's rule: warp w of a rank walks tiles w, w + warps, ... of
+    ``F32_TILE`` positions of its ``paged_shares`` share): every position
+    in exactly one tile, and from a share of 64 positions every warp of
+    the rank walks at least one."""
+    warps = fd.paged_f32_layout(32, 1)["warps"]
+    tiles = []
+    for p0, p1 in fd.paged_shares(n, C, 16):
+        count = -(-(p1 - p0) // _source_constants()["F32_TILE"])
+        tiles.append([(count - 1 - w) // warps + 1 if w < count else 0 for w in range(warps)])
+    assert tiles == want
+    shares = fd.paged_shares(n, C, 16)
+    for (p0, p1), row in zip(shares, tiles):
+        assert sum(row) == -(-(p1 - p0) // fd._F32_TILE)
+        if p1 - p0 >= fd._MIN_SPAN:
+            assert min(row) >= 1
 
 
 # -- the kernels on the card ---------------------------------------------------
@@ -533,38 +613,82 @@ def test_flash_decode_paged_kernel_matches_plain_on_card(case):
     assert torch.equal(got, again) and all(torch.equal(pools[0][i], pools[1][i]) for i in (0, 1))
 
 
+# the float32 walk's edges: tiles of 8 positions a warp, pool blocks of 16,
+# shares of whole pool blocks (MIN_SPAN 64); 100 ends in a partial block
+F32_EDGE_LENGTHS = (1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 511, 512, 2048, 100)
+# (KV, G, hd, table blocks, lengths, pools): the draft's head shape (2 kv
+# heads of hd 32, group 1) with every edge length in one batch (a cluster
+# of 8), each of four alone (one row: a cluster of 8), 32 rows of 512 (a
+# cluster of 2) from pools that are strided views, and 64 rows (a cluster
+# of 1); then the other instances: 4 rows of hd 64, 8 of hd 256, and 3 of
+# hd 40 (boxes past the head dim zero-filled, a partial row tile)
+PAGED_F32_ON_CARD = [(2, 1, 32, 128, F32_EDGE_LENGTHS, "dense")]
+PAGED_F32_ON_CARD += [(2, 1, 32, 128, (n,), "dense") for n in (9, 65, 511, 2048)]
+PAGED_F32_ON_CARD += [(2, 1, 32, 64, (512,) * 32, "strided"),
+                      (2, 1, 32, 128, tuple(range(1, 2048, 32)), "dense"),
+                      (4, 4, 64, 16, (1, 60, 200, 256), "dense"),
+                      (1, 8, 256, 16, (100, 256), "dense"),
+                      (2, 3, 40, 16, (5, 77, 256), "dense")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lengths", [(1,), (17,), (512,), (1, 17, 512, 100, 33, 1000)])
-def test_flash_decode_paged_f32_kernel_matches_plain_on_card(lengths):
-    """The float32 path at the draft's shape (2 kv heads of hd 32, group 1),
-    unfused and with the step's write fused in (the last row inactive
-    where there are several): o within 1e-5 of the plain f32 call (f32
-    FMAs, no TF32), the pools bit-exact outside the scratch block, a
-    repeat the same bits, one launch a call."""
+@pytest.mark.parametrize("case", PAGED_F32_ON_CARD,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}-B{len(c[4])}-n{max(c[4])}-{c[5]}"
+                              for c in PAGED_F32_ON_CARD])
+def test_flash_decode_paged_f32_kernel_matches_plain_on_card(case):
+    """The float32 path, unfused and with the step's write fused in from
+    strided head views of a projection (the draft's layout; the last row
+    inactive where there are several): o within 1e-5 of the plain f32
+    call (f32 FMAs, no TF32), a repeat and the rows' blocks permuted in the
+    pool the same bits, the pools bit-exact outside the scratch block,
+    one launch a call."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in f32
-    B, KV, G, hd, nblk, bs, dev = len(lengths), 2, 1, 32, 64, 16, torch.device("cuda")
-    gen = torch.Generator().manual_seed(len(lengths))
+    KV, G, hd, nblk, lengths, pools_as = case
+    B, bs, dev = len(lengths), 16, torch.device("cuda")
+    gen = torch.Generator().manual_seed(B * 1000 + hd + max(lengths))
     N = B * nblk + 1
-    pk, pv = (torch.randn(N, KV, bs, hd, generator=gen).to(dev) for _ in range(2))
+
+    def pool(data):  # strided: every other kv head of a wider pool, rows of 2 hd
+        if pools_as == "dense":
+            return data.clone()
+        wide = torch.zeros(N, 2 * KV, bs, 2 * hd, device=dev)
+        view = wide[:, ::2, :, :hd]
+        view.copy_(data)
+        return view
+
+    pk, pv = (pool(torch.randn(N, KV, bs, hd, generator=gen).to(dev)) for _ in range(2))
     q = torch.randn(B, KV, G, hd, generator=gen).to(dev)
     tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
     tables = tables.to(torch.int32).to(dev)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    perm = torch.randperm(N - 1, generator=gen).to(dev) + 1
+    mk, mv = pk.clone(), pv.clone()
+    mk[perm], mv[perm] = pk[1:], pv[1:]
+    moved_tables = perm[(tables - 1).long()].to(torch.int32)
     before = fd.PAGED_LAUNCHES
     got = fd.flash_decode_paged(q, pk, pv, tables, lens)
     again = fd.flash_decode_paged(q, pk, pv, tables, lens)
+    moved = fd.flash_decode_paged(q, mk, mv, moved_tables, lens)
     want = fd.flash_decode_paged_reference(q, pk, pv, tables, lens)
-    k_new, v_new = (torch.randn(B, KV, 1, hd, generator=gen).to(dev) for _ in range(2))
-    valid = torch.arange(B, device=dev) < max(B - 1, 1)
-    pools = [(pk.clone(), pv.clone()) for _ in range(2)]
-    fused = fd.flash_decode_paged(q, *pools[0], tables, lens, k_new, v_new, valid)
-    fused_want = fd.flash_decode_paged_reference(q, *pools[1], tables, lens, k_new, v_new, valid)
     torch.cuda.synchronize()
     assert fd.PAGED_LAUNCHES == before + 3 and got.dtype == torch.float32
-    assert float((got - want).abs().max()) <= 1e-5 and torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, again) and torch.equal(got, moved)
+    qkv = torch.randn(B, 1, (2 * G + 4) * KV * hd, generator=gen).to(dev)
+    k_new = qkv[..., -2 * KV * hd:-KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+    v_new = qkv[..., -KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)
+    valid = torch.arange(B, device=dev) < max(B - 1, 1)
+    pools = [(pool(pk), pool(pv)) for _ in range(3)]
+    fused = fd.flash_decode_paged(q, *pools[0], tables, lens, k_new, v_new, valid)
+    fused_again = fd.flash_decode_paged(q, *pools[1], tables, lens, k_new, v_new, valid)
+    fused_want = fd.flash_decode_paged_reference(q, *pools[2], tables, lens, k_new, v_new, valid)
+    torch.cuda.synchronize()
+    assert fd.PAGED_LAUNCHES == before + 5
     assert float((fused[valid] - fused_want[valid]).abs().max()) <= 1e-5
-    assert all(torch.equal(pools[0][i][1:], pools[1][i][1:]) for i in (0, 1))
+    assert all(torch.equal(pools[0][i][1:], pools[2][i][1:]) for i in (0, 1))
+    assert torch.equal(fused, fused_again)
+    assert all(torch.equal(pools[0][i], pools[1][i]) for i in (0, 1))
 
 
 @pytest.mark.cuda
