@@ -5,12 +5,14 @@
 
 Builds every kernel of the served and trained paths from the sources in
 this checkout (six libraries, built at once), holds each kernel against
-its plain PyTorch version on the card, serves two deployments through the
+its plain PyTorch version on the card, serves the deployments below through the
 port's engine and REST lane on a localhost port (the generator on the
 static lane and on the continuous lane, also as an SSE token stream, and
 in its sampled, shared-prefix and speculative modes on both lanes; the
 float32 speculative example; the iris, mean_transformer, gbm,
-outlier_pipeline and epsilon_greedy examples, the last with feedback),
+outlier_pipeline and epsilon_greedy examples, the last with feedback; the
+ensemble4 example fused, compiled and in host mode with one node served by
+the unit microservice, partial fusion, quorum and fallback),
 trains the flagship LM a few steps and serves its checkpoint, checks the
 answers, shows that each run went through its kernels, and times each
 kernel beside its plain version, a PyTorch library call and its bound.
@@ -180,6 +182,25 @@ it serves the static lane it measured before that lane's switch:
               branches and answers equal to the CPU engine's, success / tries
               moved on the routed branch only, fused-MLP launches by branch,
               the events stub
+ 10j. host   the host half of the graph runtime: the MNIST unit microservice
+              (runtime/microservice.py) as a subprocess with
+              MICROSERVICE_SMOKE_EXIT (exit 0, on cuda), then in this process
+              on a localhost port (MnistClassifier, seed 3, through the fused
+              MLP); examples/ensemble4_deployment.json as written (mode
+              fused), with SELDON_TPU_GRAPH_FUSE=0 (compiled) and with m3
+              bound to the microservice (host), the same weights, each a
+              1-row, a 64-row and 8 concurrent 1-row requests over REST:
+              fused and compiled the same bits, host within HOST_ATOL, all
+              within MNIST_ATOL of the CPU twin, the launches counted (4 a
+              dispatch; 3 in the engine and 1 in the microservice a request
+              in host mode); the 1-row p50 of each mode and of the remote hop
+              alone in turns; a quorum-1 COMBINER over a fused
+              MeanTransformer -> MnistClassifier subtree and the REST leaf
+              (the pure interpreter's answer; after the microservice stops,
+              200s tagged seldon.degraded.comb until the leaf's breaker opens,
+              shown in /ready and /stats); a ROUTER with fallback 1 over the
+              dead leaf; examples/torch_model/torch_mnist_deployment.json (a
+              plain user object) against its object's predict
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at seven shapes (the training layer
               among them, a group of 8, and S=192: a ragged last 128-row
@@ -201,7 +222,7 @@ it serves the static lane it measured before that lane's switch:
               SDPA's backward; then the {"kernels": [...]} line with all
               eight kernels and the float32 path of flash_decode_paged in a
               row of its own, each row's launches those of every served
-              path (phases 4 and 8-10i), with a breakdown by path
+              path (phases 4 and 8-10j), with a breakdown by path
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -401,10 +422,13 @@ def random_params(torch, mlp_init, hidden: int, gen, device):
 
 
 class ServerThread:
-    """The port's REST lane on its own event loop and thread."""
+    """The port's REST lane on its own event loop and thread: an engine's
+    routes, or with ``serve`` (``rest.serve_unit``) a unit microservice's
+    over the node runtime given as ``engine``."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, serve=None):
         self.engine = engine
+        self.serve = serve
         self.loop = asyncio.new_event_loop()
         self.server = None
         self.thread = threading.Thread(target=self._run, daemon=True)
@@ -417,7 +441,7 @@ class ServerThread:
         asyncio.set_event_loop(self.loop)
         try:
             self.server = self.loop.run_until_complete(
-                serve_fast(self.engine, "127.0.0.1", 0))
+                (self.serve or serve_fast)(self.engine, "127.0.0.1", 0))
         except BaseException as e:  # noqa: BLE001 - reported to start()
             self._error = e
             self._up.set()
@@ -2901,16 +2925,17 @@ def cpu_twin(torch, engine, doc: dict):
     return twin
 
 
-def keepalive_p50_ms(port: int, body: dict, runs: int) -> float:
-    """The p50 wall of ``runs`` POSTs of ``body`` over one keepalive connection."""
+def keepalive_walls(port: int, body: dict, runs: int,
+                    path: str = "/api/v0.1/predictions") -> list:
+    """The walls (s) of ``runs`` POSTs of ``body`` to ``path`` over one
+    keepalive connection."""
     payload = json.dumps(body)
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     walls = []
     try:
         for _ in range(runs):
             t = time.perf_counter()
-            conn.request("POST", "/api/v0.1/predictions", payload,
-                         {"Content-Type": "application/json"})
+            conn.request("POST", path, payload, {"Content-Type": "application/json"})
             resp = conn.getresponse()
             resp.read()
             walls.append(time.perf_counter() - t)
@@ -2918,7 +2943,12 @@ def keepalive_p50_ms(port: int, body: dict, runs: int) -> float:
                 raise AssertionError(f"latency loop: HTTP {resp.status}")
     finally:
         conn.close()
-    return float(np.median(walls)) * 1e3
+    return walls
+
+
+def keepalive_p50_ms(port: int, body: dict, runs: int) -> float:
+    """The p50 wall of ``runs`` POSTs of ``body`` over one keepalive connection."""
+    return float(np.median(keepalive_walls(port, body, runs))) * 1e3
 
 
 def spec_example_phase(torch, dev, smi) -> dict:
@@ -3239,6 +3269,334 @@ def router_phase(torch, dev, smi) -> dict:
         f"{time.perf_counter() - t_phase:.2f} s on {smi}")
     return {"success": got[0].tolist(), "tries": got[1].tolist(),
             "fused_mlp_launches_by_branch": per_branch, "max_abs_err_vs_cpu": err}
+
+
+HOST_P50_REQUESTS = 100   # 1-row keepalive requests a turn; two turns a mode (ABBA): 200 each
+HOST_ATOL = 1e-6          # host mode vs fused: m3's answer crosses JSON as float64 reprs of
+#                           float32 values, which parse back to the same float32 values, so the
+#                           bound is met with room (the run prints the difference it found)
+HOST_BREAKER_TRIES = 12   # degraded requests allowed before the leaf's breaker must be open
+
+
+def _seed3():
+    from seldon_core_tpu_torch.graph.spec import Parameter
+
+    return [Parameter.from_json_dict({"name": "seed", "value": "3", "type": "INT"})]
+
+
+def _with_m3_remote(doc: dict, port: int) -> dict:
+    doc = json.loads(json.dumps(doc))
+    comps = doc["spec"]["predictors"][0]["components"]
+    comps[[c["name"] for c in comps].index("m3")] = {
+        "name": "m3", "runtime": "rest", "host": "127.0.0.1", "port": port}
+    return doc
+
+
+def _count_calls(obj, attr: str, counter: list) -> None:
+    """Count the calls of ``obj.attr`` in ``counter[0]`` (an instance wrapper)."""
+    orig = getattr(obj, attr)
+
+    def counted(*a, **k):
+        counter[0] += 1
+        return orig(*a, **k)
+
+    setattr(obj, attr, counted)
+
+
+def _serve_rows(url: str, x1, x64, xs8) -> np.ndarray:
+    """A 1-row ndarray, a 64-row tensor and 8 concurrent 1-row requests;
+    their answers' rows in that order."""
+    ys = [check_answer(*request("POST", url, ndarray(x1)), 1, "ndarray")]
+    st, raw = request("POST", url, {"data": {"tensor": {"shape": list(x64.shape),
+                                                        "values": x64.ravel().tolist()}}})
+    ys.append(check_answer(st, raw, len(x64), "tensor"))
+    with ThreadPoolExecutor(len(xs8)) as pool:
+        for st, raw in pool.map(lambda x: request("POST", url, ndarray(x)), xs8):
+            ys.append(check_answer(st, raw, 1, "ndarray"))
+    return np.concatenate(ys)
+
+
+def host_graph_phases(torch, dev, smi) -> dict:
+    """10j. The host half of the graph runtime on the card.  The MNIST unit
+    microservice: its entry point once as a subprocess with
+    MICROSERVICE_SMOKE_EXIT (exit 0, on cuda), then served in this process
+    (MnistClassifier, seed 3, on cuda, through the fused-MLP kernel) on a
+    localhost port, so its launches show in fused_mlp.LAUNCHES.
+    examples/ensemble4_deployment.json three ways with the same weights:
+    as written (mode fused), with SELDON_TPU_GRAPH_FUSE=0 (compiled) and
+    with m3 rebound to the microservice (host); each takes a 1-row, a
+    64-row and 8 concurrent 1-row requests over REST: fused and compiled
+    the same bits, host within HOST_ATOL of them, all within MNIST_ATOL of
+    the CPU twin; 4 launches a dispatch in fused and compiled mode (the
+    batcher may merge requests), 3 in the engine and 1 in the microservice
+    a request in host mode.  The 1-row p50 over 200 keepalive requests of
+    each mode and of the remote hop alone, in turns.  A COMBINER with quorum
+    1 over MeanTransformer -> MnistClassifier (one FusedSubtreeRuntime)
+    and the REST leaf: with the leaf up the answer is the pure
+    interpreter's; with the microservice stopped every answer is 200 and
+    tagged seldon.degraded.comb, the leaf's breaker opens and /ready and
+    /stats show it; a ROUTER with fallback 1 over the dead leaf serves its
+    branch 1.  examples/torch_model/torch_mnist_deployment.json (a plain
+    user object, host mode) answers as its object's predict."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.fuse import FusedSubtreeRuntime
+    from seldon_core_tpu_torch.graph.interpreter import to_device
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+    from seldon_core_tpu_torch.runtime.microservice import build_runtime
+    from seldon_core_tpu_torch.runtime.rest import serve_unit
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    # -- the microservice's entry point, once, as the image-build smoke runs it
+    t0 = time.perf_counter()
+    smoke = subprocess.run(
+        [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice", "MnistClassifier",
+         "REST", "--parameters", json.dumps([p.to_json_dict() for p in _seed3()]),
+         "--device", dev.type],
+        cwd=ROOT, env={**os.environ, "MICROSERVICE_SMOKE_EXIT": "1"}, capture_output=True,
+        text=True, timeout=300)
+    if (smoke.returncode != 0
+            or f"smoke ok: MnistClassifier as MODEL on {dev.type}" not in smoke.stdout):
+        raise AssertionError(f"[host] microservice MICROSERVICE_SMOKE_EXIT run: exit "
+                             f"{smoke.returncode}, {smoke.stdout[-300:]!r} {smoke.stderr[-800:]!r}")
+    log(f"[host] python -m seldon_core_tpu_torch.runtime.microservice MnistClassifier REST with "
+        f"MICROSERVICE_SMOKE_EXIT: exit 0, '{smoke.stdout.strip()}' "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # -- the three modes of ensemble4, m3's weights in the microservice
+    doc = example_doc("ensemble4")
+    fused = mode_engine(torch, dev, doc, continuous=False)
+    compiled = mode_engine(torch, dev, doc, continuous=False, env={"SELDON_TPU_GRAPH_FUSE": "0"})
+    compiled.load_states(fused.states())
+    unit_pool = ThreadPoolExecutor(1, thread_name_prefix="unit-dispatch")
+    unit = build_runtime("MnistClassifier", "MODEL", _seed3(), unit_name="m3", device=dev,
+                         executor=unit_pool)
+    unit.state = to_device(fused.states()["m3"], dev)
+    remote_calls = [0]
+    _count_calls(unit.unit, "predict", remote_calls)
+    unit_server = ServerThread(unit, serve=serve_unit)
+    unit_port = unit_server.start()
+    host = mode_engine(torch, dev, _with_m3_remote(doc, unit_port), continuous=False)
+    host.load_states(fused.states())
+    twin = cpu_twin(torch, fused, doc)
+    engines = {"fused": fused, "compiled": compiled, "host": host}
+    paths = [u.path for e in (fused, compiled) for u in e.compiled.units.values()
+             if hasattr(u, "path")]
+    paths += [host.executor.runtimes[f"m{i}"].unit.path for i in range(3)] + [unit.unit.path]
+    if ([e.mode for e in engines.values()] != ["fused", "compiled", "host"]
+            or set(paths) != {"kernel"} or unit.device.type != dev.type
+            or sorted(host.breakers) != ["m3"]):
+        raise AssertionError(f"[host] modes {[e.mode for e in engines.values()]}, unit paths "
+                             f"{paths}, microservice on {unit.device}, breakers "
+                             f"{sorted(host.breakers)}")
+    servers = {mode: ServerThread(e) for mode, e in engines.items()}
+    ports = {mode: srv.start() for mode, srv in servers.items()}
+    rng = np.random.default_rng(SEED + 113)
+    x1, x64 = rng.random((1, 784)), rng.random((64, 784))
+    xs8 = [rng.random((1, 784)) for _ in range(8)]
+    rows = np.concatenate([x1, x64] + xs8)
+    answers, rules = {}, {}
+    try:
+        for mode, engine in engines.items():
+            dispatches = [0]
+            if engine.compiled is not None:
+                _count_calls(engine.compiled, "predict_arrays", dispatches)
+            remote_calls[0] = 0
+            fused_mlp.LAUNCHES = 0
+            answers[mode] = _serve_rows(f"http://127.0.0.1:{ports[mode]}/api/v0.1/predictions",
+                                        x1, x64, xs8)
+            n = fused_mlp.LAUNCHES
+            if engine.compiled is not None:
+                del engine.compiled.predict_arrays  # the class's method again
+                ok = n == 4 * dispatches[0] and 3 <= dispatches[0] <= 10 and remote_calls[0] == 0
+                rules[mode] = (f"{n} launches = 4 a dispatch x {dispatches[0]} dispatches of 10 "
+                               f"requests (the batcher merges concurrent ones)")
+            else:
+                ok = remote_calls[0] == 10 and n == 3 * 10 + remote_calls[0]
+                rules[mode] = (f"{n} launches = 3 a request in the engine x 10 + 1 a request in "
+                               f"the microservice x {remote_calls[0]}")
+            if not ok:
+                raise AssertionError(f"[host] {mode}: {rules[mode]}")
+            out["launches"][mode] = n
+            log(f"[host] ensemble4 {mode}: 1-row, 64-row and 8 concurrent 1-row requests over "
+                f"REST; {rules[mode]}")
+        want = np.concatenate([np.asarray(json.loads(asyncio.run(twin.predict_json(json.dumps(
+            ndarray(x))))[0])["data"]["ndarray"]) for x in (x1, x64, *xs8)])
+        err_cpu = {m: float(np.abs(a - want).max()) for m, a in answers.items()}
+        host_err = float(np.abs(answers["host"] - answers["fused"]).max())
+        if (not np.array_equal(answers["fused"], answers["compiled"]) or host_err > HOST_ATOL
+                or max(err_cpu.values()) > MNIST_ATOL or answers["fused"].shape != (len(rows), 10)):
+            raise AssertionError(f"[host] fused vs compiled equal: "
+                                 f"{np.array_equal(answers['fused'], answers['compiled'])}; host vs "
+                                 f"fused {host_err:.3e} (bound {HOST_ATOL}); vs the CPU {err_cpu}")
+        out.update(host_vs_fused_max_abs=host_err, max_abs_err_vs_cpu=err_cpu)
+        log(f"[host] ensemble4: fused and compiled the same bits on all {len(rows)} rows; host "
+            f"within {host_err:.3e} of them (bound {HOST_ATOL}: the remote leg's JSON float64 "
+            f"reprs of float32 values parse back to the same float32); vs the plain CPU twin "
+            f"{', '.join(f'{m} {e:.3e}' for m, e in err_cpu.items())} (tolerance {MNIST_ATOL})")
+
+        # -- 1-row p50s in turns, and the remote hop alone
+        walls = {m: [] for m in ("fused", "compiled", "host", "hop")}
+        for mode in ("fused", "compiled", "host", "hop", "hop", "host", "compiled", "fused"):
+            if mode == "hop":
+                walls[mode] += keepalive_walls(unit_port, ndarray(x1), HOST_P50_REQUESTS,
+                                               path="/predict")
+            else:
+                walls[mode] += keepalive_walls(ports[mode], ndarray(x1), HOST_P50_REQUESTS)
+        p50 = {m: float(np.median(w)) * 1e3 for m, w in walls.items()}
+        out.update(p50_ms=p50, quartiles_ms={m: quartiles_ms(w) for m, w in walls.items()},
+                   hop_share_of_host=p50["hop"] / p50["host"])
+        log(f"[times] ensemble4 1-row p50 over {2 * HOST_P50_REQUESTS} keepalive requests each, "
+            f"in turns: fused {p50['fused']:.3f} ms, compiled {p50['compiled']:.3f} ms, host "
+            f"{p50['host']:.3f} ms; the remote hop alone (POST /predict to the microservice) "
+            f"{p50['hop']:.3f} ms, {100 * p50['hop'] / p50['host']:.1f}% of host's; on {smi}")
+    finally:
+        for srv in servers.values():
+            srv.stop(close_engine=False)
+        for e in (fused, compiled, host):
+            e.close()
+        twin.close()
+
+    # -- partial fusion and degradation
+    pf_doc = {"spec": {"name": "partial", "predictors": [{
+        "name": "main",
+        "components": [
+            {"name": "norm", "runtime": "inprocess", "class_path": "MeanTransformer"},
+            {"name": "mnist", "runtime": "inprocess", "class_path": "MnistClassifier",
+             "parameters": [{"name": "seed", "value": "0", "type": "INT"}]},
+            {"name": "leaf", "runtime": "rest", "host": "127.0.0.1", "port": unit_port}],
+        "graph": {"name": "comb", "type": "COMBINER", "implementation": "AVERAGE_COMBINER",
+                  "quorum": 1, "children": [
+                      {"name": "norm", "type": "TRANSFORMER",
+                       "children": [{"name": "mnist", "type": "MODEL"}]},
+                      {"name": "leaf", "type": "MODEL"}]}}]}}
+    partial = mode_engine(torch, dev, pf_doc, continuous=False)
+    ref_doc = json.loads(json.dumps(pf_doc))
+    ref_doc["spec"]["predictors"][0]["components"][2] = {
+        "name": "leaf", "runtime": "inprocess", "class_path": "MnistClassifier",
+        "parameters": [{"name": "seed", "value": "3", "type": "INT"}]}
+    ref = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(ref_doc)),
+                        device=dev, force_host=True)
+    ref.load_states({"mnist": partial.states()["mnist"], "leaf": unit.state})
+    plan = partial.fusion_plan
+    if (partial.mode != "host" or list(partial.executor.fused) != ["norm"]
+            or not isinstance(partial.executor.fused["norm"], FusedSubtreeRuntime)
+            or plan.hops_eliminated != 1 or ref.mode != "host" or ref.executor.fused):
+        raise AssertionError(f"[host] partial fusion: mode {partial.mode}, fused "
+                             f"{list(partial.executor.fused)}, plan {plan.summary()}")
+    fb_doc = {"spec": {"name": "fallback", "predictors": [{
+        "name": "main",
+        "components": [
+            {"name": "leaf", "runtime": "rest", "host": "127.0.0.1", "port": unit_port},
+            {"name": "local", "runtime": "inprocess", "class_path": "MnistClassifier",
+             "parameters": [{"name": "seed", "value": "3", "type": "INT"}]}],
+        "graph": {"name": "r", "type": "ROUTER", "implementation": "SIMPLE_ROUTER",
+                  "fallback": 1, "children": [{"name": "leaf", "type": "MODEL"},
+                                              {"name": "local", "type": "MODEL"}]}}]}}
+    fallback = mode_engine(torch, dev, fb_doc, continuous=False)
+    fallback.load_states({"local": unit.state})
+    srv_p, srv_f = ServerThread(partial), ServerThread(fallback)
+    port_p, port_f = srv_p.start(), srv_f.start()
+    url_p = f"http://127.0.0.1:{port_p}/api/v0.1/predictions"
+    x4 = rng.random((4, 784))
+    try:
+        remote_calls[0] = 0
+        fused_mlp.LAUNCHES = 0
+        st, raw = request("POST", url_p, ndarray(x4))
+        up = check_answer(st, raw, 4, "ndarray")
+        n_up = fused_mlp.LAUNCHES
+        text, cst = asyncio.run(ref.predict_json(json.dumps(ndarray(x4))))
+        pf_err = float(np.abs(up - np.asarray(json.loads(text)["data"]["ndarray"])).max())
+        if (cst != 200 or pf_err > HOST_ATOL or n_up != 2 or remote_calls[0] != 1
+                or json.loads(raw)["meta"].get("tags")):
+            raise AssertionError(f"[host] partial fusion up: vs the interpreter {pf_err:.3e}, "
+                                 f"{n_up} launches, {remote_calls[0]} remote calls, tags "
+                                 f"{json.loads(raw)['meta'].get('tags')}")
+        log(f"[host] quorum-1 COMBINER over MeanTransformer -> MnistClassifier (one "
+            f"FusedSubtreeRuntime, {plan.hops_eliminated} hop saved) and the REST leaf: within "
+            f"{pf_err:.3e} of the pure interpreter; {n_up} launches, 1 fused subtree + 1 "
+            f"microservice")
+        unit_server.stop(close_engine=False)
+        fused_mlp.LAUNCHES = 0
+        degraded = 0
+        while partial.open_breakers() != ["leaf"]:
+            degraded += 1
+            if degraded > HOST_BREAKER_TRIES:
+                raise AssertionError(f"[host] the leaf's breaker did not open in "
+                                     f"{HOST_BREAKER_TRIES} degraded requests: "
+                                     f"{partial.stats()['resilience']['breakers']['leaf']}")
+            st, raw = request("POST", url_p, ndarray(x4))
+            check_answer(st, raw, 4, "ndarray")
+            if json.loads(raw)["meta"].get("tags") != {"seldon.degraded.comb": ["leaf"]}:
+                raise AssertionError(f"[host] degraded answer tags {json.loads(raw)['meta']}")
+        n_down = fused_mlp.LAUNCHES
+        ready = request("GET", f"http://127.0.0.1:{port_p}/ready")
+        stats = json.loads(request("GET", f"http://127.0.0.1:{port_p}/stats")[1])
+        leaf = stats["resilience"]["breakers"]["leaf"]
+        if (ready != (200, b"ready (breakers open: leaf)") or leaf["state"] != "open"
+                or n_down != degraded or stats["mode"] != "host"):
+            raise AssertionError(f"[host] after the stop: /ready {ready}, breaker {leaf}, "
+                                 f"{n_down} launches in {degraded} requests")
+        log(f"[host] microservice stopped: {degraded} requests answered 200 tagged "
+            f"seldon.degraded.comb=['leaf'] until the breaker opened ({leaf['window_failures']} "
+            f"of {leaf['window_calls']} calls failed in its window); /ready says "
+            f"{ready[1].decode()!r}; {n_down} launches, the fused subtree's")
+        fused_mlp.LAUNCHES = 0
+        st, raw = request("POST", f"http://127.0.0.1:{port_f}/api/v0.1/predictions", ndarray(x4))
+        y_fb = check_answer(st, raw, 4, "ndarray")
+        meta = json.loads(raw)["meta"]
+        n_fb = fused_mlp.LAUNCHES
+        if (meta.get("routing") != {"r": 1} or meta["tags"].get("seldon.fallback.r") != 1
+                or n_fb != 1 or "ConnectionRefusedError" not in meta["tags"].get(
+                    "seldon.fallback.r.reason", "")):
+            raise AssertionError(f"[host] fallback: {meta}, {n_fb} launches")
+        # the local branch's own answer (a comparison launch, not counted)
+        want_fb = fused_mlp.fused_mlp_softmax(unit.state, torch.as_tensor(
+            x4, dtype=torch.float32, device=dev)).cpu().numpy()
+        fb_err = float(np.abs(y_fb - want_fb).max())
+        if fb_err > HOST_ATOL:
+            raise AssertionError(f"[host] fallback answer vs its branch's unit {fb_err:.3e}")
+        log(f"[host] ROUTER (SIMPLE_ROUTER, fallback 1) over the dead leaf: routing "
+            f"{meta['routing']}, tag seldon.fallback.r=1 "
+            f"({meta['tags']['seldon.fallback.r.reason']!r}); within {fb_err:.3e} of the "
+            f"local branch's unit; {n_fb} launch, the local branch's")
+        out["launches"]["partial fusion and degradation"] = n_up + n_down + n_fb
+        out["degraded_requests_until_open"] = degraded
+    finally:
+        srv_p.stop(close_engine=False)
+        srv_f.stop(close_engine=False)
+        for e in (partial, fallback, ref):
+            e.close()
+        unit_pool.shutdown(wait=True)
+
+    # -- a plain user object, host mode
+    tm_doc = json.loads((ROOT / "examples" / "torch_model" /
+                         "torch_mnist_deployment.json").read_text())
+    tm = mode_engine(torch, dev, tm_doc, continuous=False)
+    srv = ServerThread(tm)
+    port = srv.start()
+    x5 = rng.random((5, 784))
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    try:
+        # twice: the object's first CPU matmul in a process rounds apart from
+        # its later ones (a warm-up of torch's CPU kernels, not of the engine)
+        first = check_answer(*request("POST", url, ndarray(x5)), 5, "ndarray")
+        got = check_answer(*request("POST", url, ndarray(x5)), 5, "ndarray")
+        own = tm.executor.runtimes["tm"].unit.user.predict(x5)
+    finally:
+        srv.stop()
+    warm = float(np.abs(first - own).max())
+    if tm.mode != "host" or not np.array_equal(got, own) or warm > HOST_ATOL:
+        raise AssertionError(f"[host] torch_mnist: mode {tm.mode}, vs its object's predict "
+                             f"{float(np.abs(got - own).max()):.3e} (the first answer {warm:.3e})")
+    log(f"[host] examples/torch_model/torch_mnist_deployment.json (a plain TorchMnist object): "
+        f"mode host, 5 rows the same bits as the object's own predict (the first, warm-up "
+        f"answer within {warm:.3e})")
+    out["card"] = smi
+    log(f"[host] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
 
 
 def copy_batch(rng, vocab: int):
@@ -3782,8 +4140,9 @@ def main() -> int:
     families = family_phases(torch, dev, smi)
     router = router_phase(torch, dev, smi)
     log(f"[families] phases 10g-10i wall {time.perf_counter() - t0:.2f} s")
+    host_graphs = host_graph_phases(torch, dev, smi)
     log(json.dumps({"new_paths": {"speculative_example": spec_ex, "families": families,
-                                  "router": router, "card": smi}}))
+                                  "router": router, "host_graphs": host_graphs, "card": smi}}))
     # the f32 example's verifies and prefill ticks write through kv_write_paged
     kv_paged_row["launches_by_path"]["speculative example (float32)"] = \
         spec_ex["launches"]["kv_write_paged"]
@@ -3792,7 +4151,10 @@ def main() -> int:
     mlp_row["launches_by_path"] = {
         "mnist example": mlp_row["launches"],
         "outlier_pipeline": families["outlier_pipeline"]["fused_mlp_launches"],
-        "epsilon_greedy": sum(router["fused_mlp_launches_by_branch"])}
+        "epsilon_greedy": sum(router["fused_mlp_launches_by_branch"]),
+        # ensemble4 fused, compiled and host (engine and microservice), the
+        # partial-fusion graph up and degraded, and the fallback router
+        "host_graphs": sum(host_graphs["launches"].values())}
     mlp_row["launches"] = sum(mlp_row["launches_by_path"].values())
     top = spec_ex["times"][0]
     f32_row = {

@@ -19,8 +19,10 @@ executed path report ``NOT_ROUTED`` and are left out of ``meta.routing``.
 The feedback pass (``feedback_arrays``) replays a response's
 ``meta.routing``: each unit with SEND_FEEDBACK takes the reward, and a
 router's feedback reaches only the child it routed to (all of them for a
-router it does not record).  Remote nodes and impure units are refused
-with a ``GraphSpecError``.
+router it does not record).  A remote node, a node without a unit and an
+impure unit (a plain user object behind its adapter) are refused with a
+``GraphSpecError``, which the engine takes as its cue to serve the graph
+through the host interpreter (``graph/interpreter.py``).
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ import torch
 
 from seldon_core_tpu_torch.device import DeviceLike, resolve_device
 from seldon_core_tpu_torch.graph.interpreter import (
+    as_input,
     effective_type,
     methods_for,
     pythonize_tags,
+    to_device,
     unit_rngs,
 )
 from seldon_core_tpu_torch.graph.spec import (
@@ -48,6 +52,7 @@ from seldon_core_tpu_torch.graph.spec import (
 from seldon_core_tpu_torch.graph.units import (
     UNIT_REGISTRY,
     Unit,
+    host_only_reason,
     instantiate_bound_unit,
     normalize_output,
 )
@@ -75,24 +80,23 @@ def _set_state(states: Dict[str, Any], name: str, new_state) -> Dict[str, Any]:
 
 
 def build_units(predictor: PredictorSpec, device: Optional[torch.device] = None) -> Dict[str, Unit]:
-    """Instantiate an in-process Unit for every graph node; raises
-    ``GraphSpecError`` for a remote or impure node."""
-    units: Dict[str, Unit] = {}
+    """Instantiate an in-process Unit for every graph node.  A node that is
+    not an in-process pure unit (``host_only_reason``: a remote binding or
+    none, a plain user object, an impure class) raises ``GraphSpecError``
+    before any unit is built."""
     comp_map = predictor.component_map()
+    for node in predictor.graph.walk():
+        reason = host_only_reason(node, comp_map.get(node.name))
+        if reason is not None:
+            raise GraphSpecError(f"node {node.name!r}: {reason}; the host interpreter serves it")
+    units: Dict[str, Unit] = {}
     for node in predictor.graph.walk():
         if node.implementation.value in UNIT_REGISTRY:
             unit = UNIT_REGISTRY[node.implementation.value](
                 **params_to_kwargs(node.parameters)
             )
         else:
-            binding = comp_map.get(node.name)
-            if binding is None or binding.runtime != "inprocess":
-                raise GraphSpecError(
-                    f"node {node.name!r} is not an in-process unit; remote "
-                    f"nodes are served by the host interpreter, which is not "
-                    f"ported yet (ROADMAP Queue 1 item [1])"
-                )
-            unit = instantiate_bound_unit(binding, node, device=device)
+            unit = instantiate_bound_unit(comp_map[node.name], node, device=device)
         if not unit.pure:
             raise GraphSpecError(
                 f"unit {node.name!r} ({type(unit).__name__}) is not pure; "
@@ -102,30 +106,8 @@ def build_units(predictor: PredictorSpec, device: Optional[torch.device] = None)
     return units
 
 
-def to_device(state, device: torch.device):
-    """A unit state (tensor, dict of states, or anything else) on ``device``."""
-    if isinstance(state, torch.Tensor):
-        return state.to(device)
-    if isinstance(state, dict):
-        return {k: to_device(v, device) for k, v in state.items()}
-    return state
-
-
 def _routers_in(node: PredictiveUnit) -> List[str]:
     return [u.name for u in node.walk() if UnitMethod.ROUTE in methods_for(u) and u.children]
-
-
-def _as_input(X, device: torch.device) -> torch.Tensor:
-    """Rows -> a tensor on the device.  float64 arrives from the JSON codec
-    and is cast to float32 (int64 to int32), as ``jnp.asarray`` does with
-    64-bit mode off in the JAX package."""
-    if not isinstance(X, torch.Tensor):
-        X = torch.from_numpy(np.ascontiguousarray(X))
-    if X.dtype == torch.float64:
-        X = X.float()
-    elif X.dtype == torch.int64:
-        X = X.int()
-    return X.to(device)
 
 
 class CompiledGraph:
@@ -161,7 +143,7 @@ class CompiledGraph:
         name = node.name
         static_tags = dict(unit.static_tags or {})
 
-        def fn(states, X):
+        def fn(states, X, ctx):
             routing: Dict[str, int] = {}
             tags: Dict[str, Any] = dict(static_tags)
             y = X
@@ -180,14 +162,15 @@ class CompiledGraph:
                         f"router {name!r} chose branch {branch} but has {len(child_fns)} "
                         f"children (broadcast routing is host-mode only)"
                     )
-                y, states, child_routing, t = child_fns[branch](states, y)
+                branch = self._serve_branch(name, branch, ctx)
+                y, states, child_routing, t = child_fns[branch](states, y, ctx)
                 routing[name] = branch
                 routing.update(child_routing)
                 tags.update(t)
             elif child_fns:
                 ys = []
                 for cf in child_fns:
-                    yc, states, r, t = cf(states, y)
+                    yc, states, r, t = cf(states, y, ctx)
                     ys.append(yc)
                     routing.update(r)
                     tags.update(t)
@@ -233,12 +216,22 @@ class CompiledGraph:
 
         return fn
 
+    def _serve_branch(self, name: str, branch: int, ctx) -> int:
+        """The branch that serves when router ``name`` picks ``branch``
+        (already range-checked); ``ctx`` is the value the call handed the
+        walk.  The compiled executor serves the router's own choice; a
+        ``FusedGraph`` applies its demotion rule here."""
+        return branch
+
     def predict_arrays(self, X) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
         """Run the graph; returns (Y on the device, routing, tags) and
         advances the held unit states (not on a failure)."""
-        X = _as_input(X, self.device)
+        return self._walk(X, None)
+
+    def _walk(self, X, ctx) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
+        X = as_input(X, self.device)
         with torch.inference_mode():
-            y, states, routing, tags = self._predict_fn(self.states, X)
+            y, states, routing, tags = self._predict_fn(self.states, X, ctx)
         self.states = states
         routing = {r: routing.get(r, NOT_ROUTED) for r in self._all_routers}
         return y, {r: v for r, v in routing.items() if v != NOT_ROUTED}, tags
@@ -253,13 +246,14 @@ class CompiledGraph:
             raise GraphSpecError(f"feedback routing {routing!r} is not a branch index: "
                                  f"{e}") from None
         if X is not None:
-            X = _as_input(np.atleast_2d(X), self.device)
+            X = as_input(np.atleast_2d(X), self.device)
         if truth is not None:
-            truth = _as_input(truth, self.device)
+            truth = as_input(truth, self.device)
         with torch.inference_mode():
             self.states = self._feedback_fn(self.states, X, replay, float(reward), truth)
 
     def predict(self, msg: SeldonMessage) -> SeldonMessage:
+        """SeldonMessage in and out."""
         # 1-D wire payloads mean a single sample
         y, routing, tags = self.predict_arrays(np.atleast_2d(msg.array()))
         resp = msg.with_array(

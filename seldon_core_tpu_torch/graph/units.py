@@ -29,12 +29,11 @@ graph capture.  Built-ins ported so far:
 from __future__ import annotations
 
 import importlib
-import inspect
 from typing import Any, Callable, Dict, NamedTuple, Optional, Type
 
 import torch
 
-from seldon_core_tpu_torch.graph.spec import GraphSpecError, params_to_kwargs
+from seldon_core_tpu_torch.graph.spec import GraphSpecError, UnitImplementation
 
 __all__ = [
     "UnitAux",
@@ -43,6 +42,8 @@ __all__ = [
     "register_unit",
     "resolve_unit_class",
     "instantiate_bound_unit",
+    "speaks_unit_protocol",
+    "host_only_reason",
     "UNIT_REGISTRY",
     "SimpleModelUnit",
     "SimpleRouterUnit",
@@ -152,10 +153,47 @@ def resolve_unit_class(class_path: str) -> type:
     )
 
 
+def speaks_unit_protocol(obj) -> bool:
+    """True for a Unit class or instance, or any class or object declaring
+    the protocol's ``pure`` marker; False for a plain user object, which
+    serves behind the microservice's ``as_unit`` adapter."""
+    return hasattr(obj, "pure")
+
+
+def host_only_reason(node, binding) -> Optional[str]:
+    """Why ``node`` (bound by ``binding``, or None) cannot run as an
+    in-process pure unit, so that only the host interpreter serves it
+    (None: it can), read from class-level facts: no unit is built here.
+    The compiled executor and the fusion planner both ask it."""
+    if node.implementation is not UnitImplementation.UNKNOWN_IMPLEMENTATION:
+        cls = UNIT_REGISTRY.get(node.implementation.value)
+        if cls is None:
+            return f"no registered unit for {node.implementation.value}"
+    else:
+        if binding is None:
+            return "no implementation, binding, or runtime"
+        if binding.runtime != "inprocess":
+            return f"remote {binding.runtime} binding"
+        try:
+            cls = resolve_unit_class(binding.class_path)
+        except ValueError as e:
+            return f"unresolvable unit class: {e}"
+    if not speaks_unit_protocol(cls):
+        # a plain user object: bound through the as_unit adapter, host-mode only
+        return f"user-object class {getattr(cls, '__name__', cls)!r} serves host-mode only"
+    if not getattr(cls, "pure", False):
+        return f"impure unit {getattr(cls, '__name__', cls)}"
+    return None
+
+
 def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None) -> Unit:
     """Build the in-process Unit of a component binding.  A unit class whose
     constructor takes ``device`` gets the engine's device, so it can choose
-    its kernel path at construction from static shapes."""
+    its kernel path at construction from static shapes.  A reference-style
+    plain user object (``predict(X, feature_names)``, a torch or sklearn
+    model) gets the microservice's ``as_unit`` adapter, whose ``pure =
+    False`` keeps it out of the compiled and fused executors: the engine
+    serves it through the host interpreter, like a remote wrapper node."""
     try:
         cls = resolve_unit_class(binding.class_path)
     except ValueError as e:
@@ -166,16 +204,13 @@ def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None)
             f"{dict(binding.mesh_axes)}: multi-device units are not ported "
             f"yet (ROADMAP Queue 1 item [6]: multi-device meshes)"
         )
-    if not (isinstance(cls, type) and issubclass(cls, Unit)):
-        raise GraphSpecError(
-            f"component {binding.name!r}: {binding.class_path!r} is not a "
-            f"Unit; plain user objects are served through the microservice "
-            f"adapter, which is not ported yet (ROADMAP Queue 1 item [1])"
-        )
-    kwargs = params_to_kwargs(binding.parameters or node.parameters)
-    if device is not None and "device" in inspect.signature(cls.__init__).parameters:
-        kwargs["device"] = device
-    return cls(**kwargs)
+    from seldon_core_tpu_torch.graph.interpreter import effective_type
+    from seldon_core_tpu_torch.runtime.microservice import build_unit
+
+    # the implementation-implied type, as the interpreter's dispatch reads it
+    etype = effective_type(node)
+    return build_unit(cls, binding.parameters or node.parameters,
+                      etype.name if etype is not None else "MODEL", device)
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +271,13 @@ class RandomABTestUnit(Unit):
 @register_unit("AVERAGE_COMBINER")
 class AverageCombinerUnit(Unit):
     """Element-wise mean over child outputs stacked on a leading children
-    axis (engine AverageCombinerUnit.java:30-95)."""
+    axis (engine AverageCombinerUnit.java:30-95), computed as XLA computes
+    ``jnp.mean``: the sum, child by child in order, times 1/n in the
+    outputs' dtype.  So the answer has the JAX package's bits, and a row's
+    bits never depend on the other rows of its batch."""
 
     def aggregate(self, state, Ys):
-        return Ys.mean(dim=0)
+        y = Ys[0]
+        for child in Ys[1:]:
+            y = y + child
+        return y * (1.0 / Ys.shape[0])

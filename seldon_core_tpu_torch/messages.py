@@ -3,6 +3,7 @@
 The wire contract of the reference (proto/prediction.proto:12-69) as
 dataclasses: ``SeldonMessage{status, meta, data|binData|strData}``,
 ``Feedback{request, response, reward, truth}``,
+``SeldonMessageList{seldonMessages}`` (a COMBINER's ``/aggregate`` body),
 ``DefaultData{names, tensor|ndarray}`` whose wire kind a response keeps
 from its request, ``Meta{puid, tags, routing, requestPath}`` and
 ``Status``.  JSON field names are camelCase, so clients of the JAX
@@ -29,6 +30,7 @@ __all__ = [
     "Meta",
     "DefaultData",
     "SeldonMessage",
+    "SeldonMessageList",
     "Feedback",
     "SeldonMessageError",
     "DispatchTimeoutError",
@@ -141,6 +143,16 @@ class Meta:
     tags: dict = field(default_factory=dict)
     routing: dict = field(default_factory=dict)
     requestPath: dict = field(default_factory=dict)
+
+    def merged_with(self, other: "Meta") -> "Meta":
+        """A child's meta merged into its parent's, the other's entries
+        winning (engine PredictiveUnitBean.java:252-264)."""
+        return Meta(
+            puid=other.puid or self.puid,
+            tags={**self.tags, **other.tags},
+            routing={**self.routing, **other.routing},
+            requestPath={**self.requestPath, **other.requestPath},
+        )
 
     def to_json_dict(self) -> dict:
         out: dict = {"puid": self.puid}
@@ -269,6 +281,11 @@ class SeldonMessage:
     status: Optional[Status] = None
 
     @staticmethod
+    def from_array(arr: ArrayLike, names: Optional[Sequence[str]] = None, kind: str = "tensor",
+                   meta: Optional[Meta] = None) -> "SeldonMessage":
+        return SeldonMessage(data=DefaultData.from_array(arr, names, kind), meta=meta or Meta())
+
+    @staticmethod
     def failure(info: str, code: int = 400, meta: Optional[Meta] = None) -> "SeldonMessage":
         return SeldonMessage(status=Status.failure(info, code=code), meta=meta or Meta())
 
@@ -276,6 +293,9 @@ class SeldonMessage:
         if self.data is None:
             raise SeldonMessageError("message has no DefaultData payload")
         return self.data.numpy()
+
+    def names(self) -> list:
+        return list(self.data.names) if self.data is not None else []
 
     def with_array(self, arr: ArrayLike, names: Optional[Sequence[str]] = None) -> "SeldonMessage":
         """Response builder: new array, preserved payload kind/meta."""
@@ -341,6 +361,35 @@ class SeldonMessage:
         except json.JSONDecodeError as e:
             raise SeldonMessageError(f"invalid JSON: {e}") from e
         return SeldonMessage.from_json_dict(d, dtype=dtype)
+
+
+@dataclass
+class SeldonMessageList:
+    """A COMBINER's input: one message per child branch
+    (proto/prediction.proto:51-53)."""
+
+    messages: list = field(default_factory=list)
+
+    def to_json_dict(self) -> dict:
+        return {"seldonMessages": [m.to_json_dict() for m in self.messages]}
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_json_dict(), separators=(",", ":"))
+
+    @staticmethod
+    def from_json_dict(d: Mapping[str, Any], dtype=np.float64) -> "SeldonMessageList":
+        if not isinstance(d, Mapping):
+            raise SeldonMessageError("SeldonMessageList JSON must be an object")
+        return SeldonMessageList(messages=[SeldonMessage.from_json_dict(m, dtype=dtype)
+                                           for m in d.get("seldonMessages", []) or []])
+
+    @staticmethod
+    def from_json(s: Union[str, bytes], dtype=np.float64) -> "SeldonMessageList":
+        try:
+            d = json.loads(s)
+        except json.JSONDecodeError as e:
+            raise SeldonMessageError(f"invalid JSON: {e}") from e
+        return SeldonMessageList.from_json_dict(d, dtype=dtype)
 
 
 @dataclass

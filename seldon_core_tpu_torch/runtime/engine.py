@@ -1,8 +1,27 @@
 """Engine service — the port's counterpart of
-``seldon_core_tpu/runtime/engine.py:103-1760``, compiled mode only.
+``seldon_core_tpu/runtime/engine.py:103-1760``.
 
-One engine per predictor.  The graph runs in the eager ``CompiledGraph``
-on the engine's device; router-free graphs go through the
+One engine per predictor, in one of three modes chosen at construction as
+the JAX engine chooses (``engine.py:182-251`` there):
+
+* ``fused``: a multi-node graph whose every node is an in-process pure
+  unit runs as one ``FusedGraph`` (``graph/fuse.py``) on the engine's
+  device (its demotion budget, the request's remaining deadline there,
+  comes with the autopilot, ROADMAP Queue 1 item [4]);
+* ``compiled``: a single node, a graph the fusion pass refuses (a
+  ``quorum`` or ``fallback`` over pure units, the predictor annotation
+  ``seldon.io/graph-fuse: "false"``) or any eligible graph with
+  ``SELDON_TPU_GRAPH_FUSE=0``, runs as one ``CompiledGraph``;
+* ``host``: any other graph (a REST-bound node, a plain user object, or
+  ``force_host``, or ``extra_runtimes`` given) runs through the
+  ``GraphExecutor`` (``graph/interpreter.py``) with partial fusion of its
+  eligible subtrees (unless fusion is off); every REST node gets a pooled
+  client (``runtime/client.py``) with a ``CircuitBreaker`` of its own and
+  the predictor's one ``RetryBudget``.  In-process nodes run on the
+  engine's dispatch threads; a remote node's request body is encoded and
+  the answer read back there too, never on the loop.
+
+In the fused and compiled modes router-free graphs go through the
 ``MicroBatcher``, which stacks concurrent requests into one dispatch and
 hands each caller its own rows of any per-row tag (an outlier score).
 A graph with a router gets no batcher (the branch is a per-request
@@ -34,13 +53,13 @@ with the dispatch deadline (``DispatchTimeoutError``, 504), the
 known-good-width rule (a failure on a feature width that has served
 before is a server fault and propagates; on a novel width it is the
 client's shape error, a 400), ``ready`` / ``pause`` / ``drained``,
-``states`` / ``load_states``, and token streaming for a single generator
-node (``can_stream``, ``prepare_stream_request``, ``generate_stream``,
-``engine.py:690-849``): each chunk is read on the dispatch executor,
-streams bypass the batcher and write no state back.  Not ported yet: the
-host interpreter (``GraphExecutor``) for remote nodes, fused graphs, the
-stream's tracer spans and audit log, admission control, QoS and the
-observatories (ROADMAP Queue 1 item [1]).
+``open_breakers`` (named in ``/ready``), ``states`` / ``load_states``, and
+token streaming for a single generator node (``can_stream``,
+``prepare_stream_request``, ``generate_stream``, ``engine.py:690-849``):
+each chunk is read on the dispatch executor, streams bypass the batcher
+and write no state back.  Not ported yet: the stream's tracer spans and
+audit log, admission control, QoS, the autopilot and the observatories
+(ROADMAP Queue 1 item [4]).
 """
 
 from __future__ import annotations
@@ -50,14 +69,15 @@ import json
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from seldon_core_tpu_torch.device import DeviceLike, resolve_device
 from seldon_core_tpu_torch.graph.compiled import CompiledGraph, to_device
-from seldon_core_tpu_torch.graph.interpreter import pythonize_tags
+from seldon_core_tpu_torch.graph.fuse import FusedGraph, fuse_enabled, plan_fusion
+from seldon_core_tpu_torch.graph.interpreter import GraphExecutor, NodeRuntime, pythonize_tags
 from seldon_core_tpu_torch.graph.spec import (
     GraphSpecError,
     PredictorSpec,
@@ -75,6 +95,7 @@ from seldon_core_tpu_torch.messages import (
 from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, kv_write
 from seldon_core_tpu_torch.runtime.batching import GenLane, MicroBatcher, graph_is_batchable
 from seldon_core_tpu_torch.runtime.genserver import GenServer
+from seldon_core_tpu_torch.runtime.resilience import CircuitBreaker, RetryBudget
 
 __all__ = ["EngineService", "StreamRequest"]
 
@@ -108,6 +129,13 @@ def _prompt_rows(msg: SeldonMessage) -> np.ndarray:
     return rows.astype(np.float64)
 
 
+def _host_payload(resp: SeldonMessage) -> SeldonMessage:
+    """A host-mode answer with its device tensor read back to numpy."""
+    if resp.data is not None and isinstance(resp.data.array, torch.Tensor):
+        resp.data.array = resp.data.array.detach().cpu().numpy()
+    return resp
+
+
 class EngineService:
     """One engine per predictor; used from a single asyncio loop."""
 
@@ -115,7 +143,9 @@ class EngineService:
         self,
         deployment: SeldonDeploymentSpec,
         predictor_name: Optional[str] = None,
+        extra_runtimes: Optional[Dict[str, NodeRuntime]] = None,
         rng: Optional[int] = None,
+        force_host: bool = False,
         batching: bool = True,
         max_batch: int = 1024,
         max_wait_ms: float = 2.0,
@@ -143,16 +173,46 @@ class EngineService:
         self._executor = ThreadPoolExecutor(
             max_workers=max(1, int(pipeline_depth)), thread_name_prefix="engine-dispatch"
         )
-        self.compiled = CompiledGraph(self.predictor, rng=rng, device=self.device)
-        self.mode = "compiled"
+        self.mode = "host"
+        self.compiled: Optional[CompiledGraph] = None
+        self.executor: Optional[GraphExecutor] = None
+        self._fuse = fuse_enabled() and not force_host
+        self.fusion_plan = None
+        if not force_host and not extra_runtimes:
+            if self._fuse and self.predictor.graph.children:
+                # a multi-node graph tries the fused walk first (a single
+                # node has no hops to fuse: the compiled executor is its one
+                # program already); the plan stays either way, so /stats
+                # names what blocked fusion
+                self.fusion_plan = plan_fusion(self.predictor)
+                try:
+                    self.compiled = FusedGraph(self.predictor, rng=rng, device=self.device,
+                                               plan=self.fusion_plan)
+                    self.mode = "fused"
+                except GraphSpecError:
+                    pass
+            if self.compiled is None:
+                try:
+                    self.compiled = CompiledGraph(self.predictor, rng=rng, device=self.device)
+                    self.mode = "compiled"
+                except GraphSpecError:
+                    pass
+        # one retry budget for every node client of the predictor, so
+        # retries cannot amplify an outage across the fan-out, and one
+        # breaker per remote node
+        self.retry_budget = RetryBudget()
+        self.breakers: Dict[str, CircuitBreaker] = {}
+        if self.compiled is None:
+            self._build_host(extra_runtimes, rng)
         # router-free: the output names never vary per request
         self._static_names = (self.compiled._output_names(self.predictor.graph, {})
-                              if graph_is_batchable(self.predictor.graph) else None)
+                              if self.compiled is not None
+                              and graph_is_batchable(self.predictor.graph) else None)
         self.genserver: Optional[GenServer] = None
         # the lane is chosen once: a later load_states rebuilds the same one
         self._continuous = os.environ.get("SELDON_TPU_GEN_CONTINUOUS", "1") != "0"
         self._build_genserver()
-        units = list(self.compiled.units.values())
+        units = list(self.compiled.units.values()) if self.compiled is not None else []
         # a unit whose predict moves its state (a sampled generator's
         # request counter, an outlier's running covariance) runs one
         # dispatch at a time, its state written back after each
@@ -164,8 +224,8 @@ class EngineService:
         self.batcher = None
         if batching and self.genserver is not None:
             self.batcher = GenLane(self.genserver)
-        elif (batching and graph_is_batchable(self.predictor.graph) and not self._stateful
-              and not any(u.batch_coupled for u in units)):
+        elif (batching and self.compiled is not None and graph_is_batchable(self.predictor.graph)
+              and not self._stateful and not any(u.batch_coupled for u in units)):
             # a batch-coupled unit gets no batcher: coalesced rows would
             # change another caller's answer.  Stateless units' dispatches
             # are order-independent reads: they pipeline through the
@@ -180,13 +240,46 @@ class EngineService:
                 dispatch_timeout_s=self.dispatch_timeout_s * 1.5,
             )
 
+    def _build_host(self, extra_runtimes, rng) -> None:
+        """Host mode: a pooled client for each REST node the caller did not
+        supply, then the ``GraphExecutor`` (with partial fusion unless the
+        pass is off)."""
+        from seldon_core_tpu_torch.runtime.client import make_node_runtime
+
+        runtimes = dict(extra_runtimes or {})
+        comp_map = self.predictor.component_map()
+        for node in self.predictor.graph.walk():
+            binding = comp_map.get(node.name)
+            if (node.name not in runtimes and binding is not None
+                    and binding.runtime in ("rest", "grpc")):
+                breaker = CircuitBreaker(node.name)
+                self.breakers[node.name] = breaker
+                runtimes[node.name] = make_node_runtime(node, binding, breaker=breaker,
+                                                        retry_budget=self.retry_budget,
+                                                        executor=self._executor)
+        # a caller's runtime may carry its own breaker: /stats and /ready
+        # show it too
+        for name, rt in runtimes.items():
+            br = getattr(rt, "breaker", None)
+            if br is not None and name not in self.breakers:
+                self.breakers[name] = br
+        try:
+            self.executor = GraphExecutor(self.predictor, extra_runtimes=runtimes, rng=rng,
+                                          fuse=self._fuse, device=self.device,
+                                          executor=self._executor)
+        except BaseException:
+            for rt in runtimes.values():
+                getattr(rt, "close", lambda: None)()
+            raise
+        self.fusion_plan = self.executor.fusion_plan
+
     def _build_genserver(self, knobs=None) -> None:
         """The continuous lane's scheduler for a single unit whose
         ``continuous_spec`` is not None, unless ``SELDON_TPU_GEN_CONTINUOUS``
         was 0 when the engine was built; ``knobs`` (a rebuild's) keep the
         pool and round sizes of the scheduler it replaces.  A failure
         raises."""
-        if not self._continuous or len(self.compiled.units) != 1:
+        if not self._continuous or self.compiled is None or len(self.compiled.units) != 1:
             return
         name, unit = next(iter(self.compiled.units.items()))
         spec_fn = getattr(unit, "continuous_spec", None)
@@ -264,7 +357,8 @@ class EngineService:
         if not msg.meta.puid:
             msg.meta.puid = new_puid()
         try:
-            if msg.data is not None and msg.array().dtype == object:
+            if self.compiled is not None and msg.data is not None \
+                    and msg.array().dtype == object:
                 # a ragged/string ndarray must fail as a 400 FAILURE message
                 raise SeldonMessageError("data payload is not a numeric rectangular tensor")
             if self.batcher is not None and msg.data is not None:
@@ -279,25 +373,31 @@ class EngineService:
                 )
                 resp.status = Status()
                 return resp
-            width = np.shape(msg.array())[1:] if msg.data is not None else None
-            resp = await asyncio.get_running_loop().run_in_executor(
-                self._executor, self._guarded, width, self._serial, self.compiled.predict, msg
-            )
+            loop = asyncio.get_running_loop()
+            if self.compiled is None:
+                resp = await self.executor.predict(msg)
+                # the answer's readback on a dispatch thread, off the loop
+                resp = await loop.run_in_executor(self._executor, _host_payload, resp)
+            else:
+                width = np.shape(msg.array())[1:] if msg.data is not None else None
+                resp = await loop.run_in_executor(
+                    self._executor, self._guarded, width, self._serial, self.compiled.predict,
+                    msg)
         except (SeldonMessageError, GraphSpecError) as e:
             return SeldonMessage.failure(str(e), code=e.http_code, meta=msg.meta)
         resp.meta.puid = msg.meta.puid
         return resp
 
     async def send_feedback(self, feedback: Feedback) -> SeldonMessage:
-        """The feedback pass (engine.py:1720-1760 there, its compiled
-        branch): replay the response's ``meta.routing`` with the reward on
-        the request's rows, under the engine's state lock.  Answers an ack
-        with the response's puid, or a 400 FAILURE for a feedback the graph
-        cannot take."""
+        """The feedback pass (engine.py:1720-1760 there): replay the
+        response's ``meta.routing`` with the reward on the request's rows,
+        under the engine's state lock in the fused and compiled modes,
+        through the executor's routed replay in host mode (remote nodes
+        get ``/send-feedback``).  Answers an ack with the response's puid,
+        or a 400 FAILURE for a feedback the graph cannot take."""
         try:
-            if self.mode != "compiled":
-                raise SeldonMessageError("feedback through the host interpreter is not ported "
-                                         "yet (ROADMAP Queue 1 item [1])")
+            if self.compiled is None:
+                return await self.executor.send_feedback(feedback)
             routing = feedback.response.meta.routing if feedback.response is not None else {}
             X = None
             if feedback.request is not None and feedback.request.data is not None:
@@ -318,6 +418,8 @@ class EngineService:
         """True when the continuous lane serves the graph, or the graph is a
         single unit that streams tokens (a generator exposing
         ``stream_tokens``)."""
+        if self.compiled is None:
+            return False
         units = self.compiled.units
         return self.genserver is not None or (
             len(units) == 1 and hasattr(next(iter(units.values())), "stream_tokens"))
@@ -404,6 +506,14 @@ class EngineService:
             "device": self.device.type,
             "predictor": self.predictor.name,
             "batcher": self.batcher.snapshot() if self.batcher is not None else None,
+            # the fusion pass and its plan: fused roots, blocked nodes and
+            # the per-request hops saved
+            "graph_fuse": {"enabled": self._fuse,
+                           "plan": None if self.fusion_plan is None
+                           else self.fusion_plan.summary()},
+            "resilience": {"retry_budget": self.retry_budget.snapshot(),
+                           "breakers": {name: br.snapshot()
+                                        for name, br in self.breakers.items()}},
             "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES},
                         "flash_attention": {"launches": flash_attention.LAUNCHES},
                         "flash_decode": {"launches": flash_decode.LAUNCHES},
@@ -418,14 +528,24 @@ class EngineService:
         return out
 
     def close(self) -> None:
-        """Stop the generation scheduler and the dispatch threads (after the
-        last request)."""
+        """Stop the generation scheduler, close the remote nodes' pooled
+        connections and stop the dispatch threads (after the last request)."""
         if self.genserver is not None:
             self.genserver.stop()
+        if self.executor is not None:
+            for rt in self.executor.runtimes.values():
+                closer = getattr(rt, "close", None)
+                if closer is not None:
+                    closer()
         self._executor.shutdown(wait=True)
 
     def ready(self) -> bool:
         return not self.paused
+
+    def open_breakers(self) -> "list[str]":
+        """Remote nodes whose breaker is not closed, shown in ``/ready``."""
+        return sorted(name for name, br in self.breakers.items()
+                      if br.state != CircuitBreaker.CLOSED)
 
     def pause(self) -> None:
         self.paused = True
@@ -448,13 +568,19 @@ class EngineService:
     # -- state handoff ----------------------------------------------------
 
     def states(self) -> dict:
+        if self.compiled is None:
+            return self.executor.states()
         return dict(self.compiled.states)
 
     def load_states(self, states) -> None:
         """Replace unit states (e.g. ``{"mnist": convert.params_from_jax(...)}``),
         moved to the engine's device.  The continuous lane's scheduler is
         built again over the new weights, with the old one's pool and round
-        sizes (the old one is stopped)."""
+        sizes (the old one is stopped).  In host mode the names of remote
+        nodes are ignored."""
+        if self.compiled is None:
+            self.executor.load_states(states)
+            return
         self.compiled.states.update(
             {name: to_device(st, self.device) for name, st in states.items()}
         )

@@ -8,6 +8,11 @@ Config resolution order (engine EnginePredictor.java:56-150):
   3. ``--file`` (else ``./deploymentdef.json``)
   4. the default SIMPLE_MODEL stub graph
 
+The engine picks its mode from the spec (``runtime/engine.py``): a spec
+whose nodes include REST bindings (``{"runtime": "rest", "host": ...,
+"port": ...}``, e.g. in ``ENGINE_PREDICTOR``) serves in host mode, each
+remote node through a pooled client.
+
 Env knobs, as in the JAX package: ``ENGINE_SERVER_PORT`` (8000),
 ``ENGINE_MAX_BATCH`` (1024), ``ENGINE_BATCH_WAIT_MS`` (2.0),
 ``ENGINE_PIPELINE_DEPTH`` (8), ``ENGINE_DISPATCH_TIMEOUT_S`` (30) and

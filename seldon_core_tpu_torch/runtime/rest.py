@@ -12,6 +12,23 @@ Routes:
   ANY  /api/v0.1/events            the reference's stub: 200 "Not Implemented"
   GET  /ping /ready /pause /unpause /stats
 
+The unit microservice's routes (``FastHttpServer(routes=_UnitRoutes(...))``,
+``serve_unit``; ``make_unit_app`` of the JAX package's ``runtime/rest.py``):
+
+  POST /predict /transform-input /transform-output /route /aggregate
+       /send-feedback          a SeldonMessage (an /aggregate a
+                               SeldonMessageList, a /send-feedback a
+                               Feedback), JSON body or form ``json=``;
+                               the answer a SeldonMessage (/route's a 1x1
+                               tensor holding the branch)
+  GET  /ping /stats
+
+A request's ``Seldon-Deadline-Ms`` header becomes its deadline scope
+(``runtime/resilience.py``) for every route; a unit route whose budget is
+spent on arrival answers 504.  A unit route sent the binary tensor wire
+(``application/x-seldon-tensor``) answers 415: that wire is ROADMAP Queue 1
+item [3].
+
 Protocol scope: HTTP/1.1 with keepalive and Content-Length request
 bodies.  Pipelined requests are answered in order (each request's handler
 runs concurrently; a per-connection writer sends responses FIFO).  A
@@ -28,14 +45,28 @@ writer's transport flow control.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import json
 from typing import Awaitable, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs
 
-from seldon_core_tpu_torch.graph.spec import GraphSpecError
-from seldon_core_tpu_torch.messages import Feedback, SeldonMessage, SeldonMessageError
+import numpy as np
 
-__all__ = ["FastHttpServer", "StreamResult", "serve_fast"]
+from seldon_core_tpu_torch.graph.spec import GraphSpecError
+from seldon_core_tpu_torch.messages import (
+    Feedback,
+    SeldonMessage,
+    SeldonMessageError,
+    SeldonMessageList,
+)
+from seldon_core_tpu_torch.runtime.resilience import (
+    DEADLINE_VAR,
+    Deadline,
+    current_deadline,
+    deadline_ms_header,
+)
+
+__all__ = ["FastHttpServer", "StreamResult", "serve_fast", "serve_unit"]
 
 _JSON = "application/json"
 _MAX_BODY = 256 * 1024 * 1024
@@ -49,7 +80,7 @@ _STATUS_LINE = {
     code: f"HTTP/1.1 {code} {text}\r\n".encode()
     for code, text in {
         200: "OK", 400: "Bad Request", 404: "Not Found",
-        405: "Method Not Allowed", 413: "Payload Too Large",
+        405: "Method Not Allowed", 413: "Payload Too Large", 415: "Unsupported Media Type",
         500: "Internal Server Error", 501: "Not Implemented",
         503: "Service Unavailable", 504: "Gateway Timeout",
     }.items()
@@ -133,9 +164,15 @@ class _EngineRoutes:
         return 200, b"pong", "text/plain"
 
     async def _ready(self, body, ctype) -> Result:
-        if self.engine.ready():
-            return 200, b"ready", "text/plain"
-        return 503, b"paused", "text/plain"
+        if not self.engine.ready():
+            return 503, b"paused", "text/plain"
+        open_breakers = self.engine.open_breakers()
+        if open_breakers:
+            # still ready (the graph serves, degraded), but the condition
+            # shows where orchestration probes look first
+            return 200, b"ready (breakers open: %s)" % ",".join(open_breakers).encode(), \
+                "text/plain"
+        return 200, b"ready", "text/plain"
 
     async def _pause(self, body, ctype) -> Result:
         self.engine.pause()
@@ -147,6 +184,81 @@ class _EngineRoutes:
 
     async def _stats(self, body, ctype) -> Result:
         return 200, json.dumps(self.engine.stats()).encode(), _JSON
+
+
+class _UnitRoutes:
+    """The unit microservice's route table (``make_unit_app`` there): one
+    ``InProcessNodeRuntime`` behind the internal API.  A runtime with a
+    thread pool runs there, and the answer's JSON (with the device
+    readback) is encoded there too."""
+
+    def __init__(self, runtime):
+        self.runtime = runtime
+        self.post: Dict[bytes, Handler] = {
+            b"/predict": self._handler("predict"),
+            b"/transform-input": self._handler("transform_input"),
+            b"/transform-output": self._handler("transform_output"),
+            b"/route": self._handler("route"),
+            b"/aggregate": self._handler("aggregate"),
+            b"/send-feedback": self._handler("send_feedback"),
+        }
+        self.any: Dict[bytes, Handler] = {}
+        self.get: Dict[bytes, Handler] = {b"/ping": self._ping, b"/stats": self._stats}
+
+    def _handler(self, method: str) -> Handler:
+        async def handle(body, ctype) -> Result:
+            if "x-seldon-tensor" in ctype:
+                return 415, _failure(SeldonMessageError(
+                    "the binary tensor wire is not ported yet (ROADMAP Queue 1 item [3]); "
+                    "send JSON"), 415), _JSON
+            dl = current_deadline()
+            if dl is not None and dl.expired:
+                return 504, _failure(SeldonMessageError(
+                    "request deadline exhausted on arrival"), 504), _JSON
+            try:
+                resp = await self._dispatch(method, _payload_text(body, ctype))
+            except (SeldonMessageError, GraphSpecError) as e:
+                return e.http_code, _failure(e, e.http_code), _JSON
+            except NotImplementedError as e:
+                return 501, _failure(e, 501), _JSON
+            pool = getattr(self.runtime, "executor", None)
+            if pool is None:
+                return 200, resp.to_json().encode(), _JSON
+            text = await asyncio.get_running_loop().run_in_executor(pool, resp.to_json)
+            return 200, text.encode(), _JSON
+
+        return handle
+
+    async def _dispatch(self, method: str, text: str) -> SeldonMessage:
+        rt = self.runtime
+        if method == "aggregate":
+            return await rt.aggregate(SeldonMessageList.from_json(text).messages)
+        if method == "send_feedback":
+            fb = Feedback.from_json(text)
+            routing = fb.response.meta.routing if fb.response is not None else {}
+            await rt.send_feedback(fb, int(routing.get(rt.node.name, -1)))
+            return SeldonMessage()
+        msg = SeldonMessage.from_json(text)
+        if method == "route":
+            branch = await rt.route(msg)
+            # the branch as a 1x1 tensor, as the reference's router wrapper
+            # answers (wrappers/python/router_microservice.py:39-56)
+            return msg.with_array(np.array([[branch]], dtype=np.float64))
+        return await getattr(rt, method)(msg)
+
+    async def _ping(self, body, ctype) -> Result:
+        return 200, b"pong", "text/plain"
+
+    async def _stats(self, body, ctype) -> Result:
+        from seldon_core_tpu_torch.ops import fused_mlp
+
+        node = self.runtime.node
+        return 200, json.dumps({
+            "unit": {"name": node.name, "type": getattr(node.type, "name", None),
+                     "class": type(self.runtime.unit).__name__},
+            "device": self.runtime.device.type,
+            "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES}},
+        }).encode(), _JSON
 
 
 def _header_value(lower: bytes, name: bytes) -> Optional[bytes]:
@@ -309,18 +421,27 @@ class _HttpProtocol(asyncio.Protocol):
             self._reject(404, b"not found", close=close)
             return
         ctv = _header_value(lower, b"content-type:")
-        task = asyncio.get_running_loop().create_task(
-            handler(body, ctv.decode("latin-1") if ctv is not None else "")
-        )
+        coro = handler(body, ctv.decode("latin-1") if ctv is not None else "")
+        loop = asyncio.get_running_loop()
+        budget = deadline_ms_header(_header_value(lower, b"seldon-deadline-ms:"))
+        if budget is None:
+            task = loop.create_task(coro)
+        else:
+            # the request's deadline scope: the handler's task, and every
+            # task it starts, inherit it
+            ctx = contextvars.copy_context()
+            ctx.run(DEADLINE_VAR.set, Deadline.after(budget))
+            task = loop.create_task(coro, context=ctx)
         self.queue.put_nowait((task, close))
 
 
 class FastHttpServer:
     """Owns the listening socket: ``await start(host, port)`` /
-    ``await stop()``; ``port`` is the bound port (0 picks a free one)."""
+    ``await stop()``; ``port`` is the bound port (0 picks a free one).
+    Serves an engine's routes, or a given route table (``_UnitRoutes``)."""
 
-    def __init__(self, engine):
-        self.routes = _EngineRoutes(engine)
+    def __init__(self, engine=None, routes=None):
+        self.routes = routes if routes is not None else _EngineRoutes(engine)
         self._server: Optional[asyncio.AbstractServer] = None
         self._protocols: set = set()
         self.port: Optional[int] = None
@@ -350,5 +471,12 @@ class FastHttpServer:
 
 async def serve_fast(engine, host: str, port: int) -> FastHttpServer:
     server = FastHttpServer(engine)
+    await server.start(host, port)
+    return server
+
+
+async def serve_unit(runtime, host: str, port: int) -> FastHttpServer:
+    """Serve one node runtime over the unit microservice API."""
+    server = FastHttpServer(routes=_UnitRoutes(runtime))
     await server.start(host, port)
     return server

@@ -22,7 +22,7 @@ from seldon_core_tpu.graph.spec import SeldonDeploymentSpec as JaxSpec
 from seldon_core_tpu.runtime.engine import EngineService as JaxEngine
 from seldon_core_tpu_torch.convert import params_from_jax
 from seldon_core_tpu_torch.graph.compiled import CompiledGraph
-from seldon_core_tpu_torch.graph.spec import GraphSpecError, SeldonDeploymentSpec
+from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
 from seldon_core_tpu_torch.runtime import engine_main
 from seldon_core_tpu_torch.runtime.batching import MicroBatcher, pad_rows
 from seldon_core_tpu_torch.runtime.engine import EngineService
@@ -310,9 +310,14 @@ def test_rest_lane_routes():
 
 
 def test_router_graphs_wait_for_the_router_executor():
-    """The compiled router executor serves an in-process router graph (one
-    request at a time, no batcher, the branch in meta.routing); a router
-    over a remote node still waits for the host interpreter, item [1]."""
+    """An in-process router graph serves fused, the mode the JAX engine
+    picks for it (one request at a time, no batcher, the branch in
+    meta.routing); a router over a REST-bound node serves in host mode
+    through the GraphExecutor, its routed child answered by the port's unit
+    microservice over localhost."""
+    from seldon_core_tpu_torch.runtime.microservice import build_runtime
+    from seldon_core_tpu_torch.runtime.rest import serve_unit
+
     doc = {"spec": {"name": "d", "predictors": [{
         "name": "p",
         "graph": {"name": "r", "implementation": "SIMPLE_ROUTER", "children": [
@@ -324,13 +329,31 @@ def test_router_graphs_wait_for_the_router_executor():
     finally:
         engine.close()
     assert status == 200 and engine.batcher is None
+    assert engine.mode == "fused" == JaxEngine(JaxSpec.from_json_dict(doc)).mode
     assert json.loads(text)["meta"]["routing"] == {"r": 0}
     remote = json.loads(json.dumps(doc))
-    remote["spec"]["predictors"][0]["graph"]["children"][1] = {
-        "name": "b", "type": "MODEL", "endpoint": {"type": "REST", "service_host": "localhost",
-                                                   "service_port": 9000}}
-    with pytest.raises(GraphSpecError, match=r"item \[1\]"):
-        EngineService(SeldonDeploymentSpec.from_json_dict(remote), device="cpu")
+    pred = remote["spec"]["predictors"][0]
+    pred["graph"]["children"][0] = {"name": "a", "type": "MODEL"}
+
+    async def run():
+        unit = build_runtime("SIMPLE_MODEL", unit_name="a", device="cpu")
+        server = await serve_unit(unit, "127.0.0.1", 0)
+        pred["components"] = [{"name": "a", "runtime": "rest", "host": "127.0.0.1",
+                               "port": server.port}]
+        host = EngineService(SeldonDeploymentSpec.from_json_dict(remote), device="cpu")
+        try:
+            return host, await host.predict_json(_ndarray(np.ones((2, 3))))
+        finally:
+            host.close()
+            await server.stop()
+
+    host, (text, status) = asyncio.run(run())
+    out = json.loads(text)
+    assert status == 200 and host.mode == "host" and host.batcher is None
+    assert out["meta"]["routing"] == {"r": 0}
+    assert out["data"]["names"] == ["class0", "class1", "class2"]
+    np.testing.assert_allclose(out["data"]["ndarray"], [[0.1, 0.9, 0.5]] * 2)
+    assert host.stats()["resilience"]["breakers"]["a"]["state"] == "closed"
 
 
 def test_cuda_without_a_card_is_an_error():

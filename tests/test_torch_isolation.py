@@ -1,11 +1,13 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py or the turns scripts (paged_decode_turns.py,
-paged_f32_turns.py), imports JAX or anything of the JAX package, and the port
+paged_f32_turns.py), imports JAX or anything of the JAX package, nor
+aiohttp or grpc (the card's machine has neither), and the port
 serves the MNIST and generator examples (the generator through the
 continuous lane, runtime/genserver.py, greedy and sampled), the iris
 example (its rows from the bundled csv) and the epsilon-greedy router
-example with a feedback, streams the generator's tokens, takes a training
-step and round-trips a checkpoint with both blocked."""
+example with a feedback, one host-mode request through a REST node served
+by the port's unit microservice, streams the generator's tokens, takes a
+training step and round-trips a checkpoint with both blocked."""
 
 import ast
 import os
@@ -15,6 +17,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "seldon_core_tpu")
+# not on the card's machine: the port's REST client and servers are stdlib
+SERVING_BLOCKED = ("aiohttp", "grpc")
 
 
 def _blocked(name: str) -> bool:
@@ -32,7 +36,9 @@ def _port_files():
             "ops/flash_attention.py", "models/transformer.py",
             "ops/flash_decode.py", "ops/kv_write.py", "runtime/genserver.py",
             "models/speculative.py", "models/prng.py", "models/tabular.py",
-            "models/iris.py", "models/outlier.py", "models/mab.py"} <= names
+            "models/iris.py", "models/outlier.py", "models/mab.py",
+            "graph/fuse.py", "runtime/client.py", "runtime/resilience.py",
+            "runtime/microservice.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "paged_f32_turns.py")]
 
@@ -54,6 +60,7 @@ def _imports(tree):
 
 
 def test_blocker_names():
+    assert "aiohttp" in SERVING_BLOCKED and "grpc" in SERVING_BLOCKED
     assert _blocked("jax") and _blocked("jax.numpy")
     assert _blocked("seldon_core_tpu") and _blocked("seldon_core_tpu.graph.spec")
     assert not _blocked("seldon_core_tpu_torch") and not _blocked("jaxlib_free")
@@ -64,7 +71,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
         bad += [f"{path.relative_to(ROOT)}:{line} {name}"
-                for line, name in _imports(tree) if _blocked(name)]
+                for line, name in _imports(tree)
+                if _blocked(name) or name.split(".")[0] in SERVING_BLOCKED]
     assert bad == []
 
 
@@ -73,7 +81,8 @@ import importlib.abc, json, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if any(name == b or name.startswith(b + ".") for b in ("jax", "seldon_core_tpu")):
+        if any(name == b or name.startswith(b + ".")
+               for b in ("jax", "seldon_core_tpu", "aiohttp", "grpc")):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -141,13 +150,35 @@ eg_tries = eg.states()["eg-router"]["tries"].tolist()
 eg.close()
 new_examples = [iris_status, json.loads(iris_text)["data"]["names"], eg_status,
                 ack.status is None, sum(eg_tries)]
+from seldon_core_tpu_torch.graph.spec import Parameter
+from seldon_core_tpu_torch.runtime.microservice import build_runtime
+from seldon_core_tpu_torch.runtime.rest import serve_unit
+
+async def host_mode():
+    unit = build_runtime("MnistClassifier", parameters=[Parameter.from_json_dict(
+        {"name": "hidden", "value": "32", "type": "INT"})], unit_name="m", device="cpu")
+    server = await serve_unit(unit, "127.0.0.1", 0)
+    doc = {"spec": {"name": "h", "predictors": [{"name": "p", "graph": {
+        "name": "m", "type": "MODEL"}, "components": [{"name": "m", "runtime": "rest",
+                                                       "host": "127.0.0.1",
+                                                       "port": server.port}]}]}}
+    host = EngineService(SeldonDeploymentSpec.from_json_dict(doc), device="cpu")
+    try:
+        text, status = await host.predict_json(json.dumps({"data": {"ndarray": [[0.5] * 784]}}))
+    finally:
+        host.close()
+        await server.stop()
+    return [host.mode, status, len(json.loads(text)["data"]["ndarray"][0])]
+
+remote = asyncio.run(host_mode())
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
                   "lane": lane, "sampled": sampled,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
-                  "trained": trained, "new_examples": new_examples, "leaked": leaked}))
+                  "trained": trained, "new_examples": new_examples, "remote": remote,
+                  "leaked": leaked}))
 """
 
 
@@ -162,4 +193,4 @@ def test_port_serves_with_jax_blocked():
         '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], '
         '"lane": ["genserver", 2], "sampled": [200, 16, 1], "streamed": true, "trained": true, '
         '"new_examples": [200, ["setosa", "versicolor", "virginica"], 200, true, 1.0], '
-        '"leaked": []}')
+        '"remote": ["host", 200, 10], "leaked": []}')

@@ -28,7 +28,7 @@ from seldon_core_tpu_torch.graph import units as tunits
 from seldon_core_tpu_torch.graph.compiled import NOT_ROUTED, CompiledGraph
 from seldon_core_tpu_torch.graph.defaulting import default_and_validate
 from seldon_core_tpu_torch.graph.spec import GraphSpecError, SeldonDeploymentSpec
-from seldon_core_tpu_torch.messages import Feedback, Meta, SeldonMessage
+from seldon_core_tpu_torch.messages import Feedback, Meta, SeldonMessage, Status
 from seldon_core_tpu_torch.runtime.batching import MicroBatcher
 from seldon_core_tpu_torch.runtime.engine import EngineService
 from seldon_core_tpu_torch.runtime.rest import serve_fast
@@ -309,15 +309,17 @@ def _example(name):
     return json.loads((ROOT / "examples" / f"{name}_deployment.json").read_text())
 
 
-def _engines(name, monkeypatch):
-    """The port's engine on the CPU and the JAX engine (compiled, not fused)
-    of one example, the JAX engine's state carried across (a router keeps
+def _engines(name, monkeypatch, fuse="0"):
+    """The port's engine on the CPU and the JAX engine of one example, both
+    compiled (``fuse`` "0") or both in their default mode ("1": fused for a
+    multi-node graph), the JAX engine's state carried across (a router keeps
     its own key, with the reference's draws injected)."""
-    monkeypatch.setenv("SELDON_TPU_GRAPH_FUSE", "0")
+    monkeypatch.setenv("SELDON_TPU_GRAPH_FUSE", fuse)
     doc = _example(name)
     jax_engine = JaxEngine(JaxSpec.from_json_dict(doc))
     engine = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc)),
                            device="cpu")
+    assert engine.mode == jax_engine.mode
     states = {}
     for unit_name, st in jax_engine.states().items():
         if isinstance(st, dict) and "key" in st:
@@ -340,14 +342,16 @@ def _inputs(name, rng):
     return [rng.random((n, 784)) for n in (1, 5, 6, 8)]  # outlier_pipeline, epsilon_greedy
 
 
+@pytest.mark.parametrize("fuse", ["0", "1"], ids=["compiled", "default"])
 @pytest.mark.parametrize("name", ["iris", "mean_transformer", "gbm", "outlier_pipeline",
                                   "epsilon_greedy"])
-def test_new_example_served_over_rest_matches_the_jax_engine(name, monkeypatch):
+def test_new_example_served_over_rest_matches_the_jax_engine(name, fuse, monkeypatch):
     """Each newly served example over the port's REST lane against the JAX
-    engine in process: the same status, names, routing and tags, values
-    within the units' tolerance; epsilon_greedy also takes a feedback a
-    response and its router's counts move as the reference's."""
-    engine, jax_engine = _engines(name, monkeypatch)
+    engine in process, both compiled or both in their default mode (the
+    multi-node examples fused): the same mode, status, names, routing and
+    tags, values within the units' tolerance; epsilon_greedy also takes a
+    feedback a response and its router's counts move as the reference's."""
+    engine, jax_engine = _engines(name, monkeypatch, fuse)
     xs = _inputs(name, np.random.default_rng(len(name)))
     bf16 = name in ("outlier_pipeline", "epsilon_greedy")
 
@@ -404,34 +408,44 @@ def test_new_example_served_over_rest_matches_the_jax_engine(name, monkeypatch):
 
 
 def test_feedback_moves_the_routed_branch_and_bad_feedback_is_a_400():
-    engine = EngineService(SeldonDeploymentSpec.from_json_dict(_eg_doc(n=2, epsilon=0.0)),
-                           device="cpu")
+    """The feedback pass on the fused engine, and on a host-mode engine
+    (``force_host``: the GraphExecutor's routed replay) the same moves.
+    Each mode acks as the JAX engine's does: the fused and compiled modes
+    with no status, host mode with a SUCCESS status."""
+    spec = SeldonDeploymentSpec.from_json_dict(_eg_doc(n=2, epsilon=0.0))
+    engine = EngineService(spec, device="cpu")
+    host_engine = EngineService(SeldonDeploymentSpec.from_json_dict(_eg_doc(n=2, epsilon=0.0)),
+                                device="cpu", force_host=True)
+    host_engine.load_states(engine.states())
     x = np.random.default_rng(1).random((3, 784))
 
-    async def run():
-        text, status = await engine.predict_json(json.dumps({"data": {"ndarray": x.tolist()}}))
+    async def run(e):
+        text, status = await e.predict_json(json.dumps({"data": {"ndarray": x.tolist()}}))
         resp = json.loads(text)
         fb = Feedback(request=SeldonMessage.from_json(json.dumps(
             {"data": {"ndarray": x.tolist()}})), response=SeldonMessage.from_json(text),
             reward=1.0)
-        ack = await engine.send_feedback(fb)
-        bad = await engine.send_feedback(Feedback(
+        ack = await e.send_feedback(fb)
+        bad = await e.send_feedback(Feedback(
             response=SeldonMessage(meta=Meta(routing={"eg": "left"})), reward=1.0))
-        engine.mode = "host"  # a GraphExecutor engine: not ported
-        host = await engine.send_feedback(fb)
-        return status, resp, ack, bad, host
+        return status, resp, ack, bad
 
     try:
-        status, resp, ack, bad, host = asyncio.run(run())
+        runs = [asyncio.run(run(e)) for e in (engine, host_engine)]
     finally:
         engine.close()
-    branch = resp["meta"]["routing"]["eg"]
-    assert status == 200 and branch == 0  # epsilon 0, no tries yet: branch 0 is best
-    assert ack.status is None and ack.meta.puid == resp["meta"]["puid"]
-    state = engine.states()["eg"]
-    assert state["success"].tolist() == [3.0, 0.0] and state["tries"].tolist() == [3.0, 0.0]
-    assert bad.status.code == 400 and "not a branch index" in bad.status.info
-    assert host.status.code == 400 and "item [1]" in host.status.info
+        host_engine.close()
+    assert (engine.mode, host_engine.mode) == ("fused", "host")
+    for e, (status, resp, ack, bad) in zip((engine, host_engine), runs):
+        branch = resp["meta"]["routing"]["eg"]
+        assert status == 200 and branch == 0  # epsilon 0, no tries yet: branch 0 is best
+        assert ack.meta.puid == resp["meta"]["puid"]
+        state = e.states()["eg"]
+        assert state["success"].tolist() == [3.0, 0.0] and state["tries"].tolist() == [3.0, 0.0]
+        assert bad.status.code == 400 and "not a branch index" in bad.status.info
+    assert runs[0][2].status is None and runs[1][2].status == Status()
+    np.testing.assert_array_equal(np.asarray(runs[0][1]["data"]["ndarray"]),
+                                  np.asarray(runs[1][1]["data"]["ndarray"]))
 
 
 def test_rest_feedback_and_events_routes():
@@ -490,17 +504,26 @@ EXAMPLES = sorted(p.name for p in (ROOT / "examples").glob("*_deployment.json"))
 REFUSED = {"generator_int8_deployment.json": r"item \[2q\]",
            "generator_tp_deployment.json": r"item \[6\]",
            "generator_ep_deployment.json": r"item \[6\]"}
+# the multi-node examples, all in-process and pure, serve fused as the JAX
+# engine's do; every other example is a single node, served compiled
+FUSED = {"ensemble4_deployment.json", "epsilon_greedy_deployment.json",
+         "mean_transformer_deployment.json", "outlier_pipeline_deployment.json"}
 
 
 @pytest.mark.parametrize("example", EXAMPLES)
 def test_the_port_builds_twelve_of_fifteen_examples(example):
     """Every example but the int8 and multi-device generators builds an
-    engine on the CPU; those three are refused naming their ROADMAP item."""
+    engine on the CPU, in the mode the JAX engine picks; those three are
+    refused naming their ROADMAP item, in every mode."""
     assert len(EXAMPLES) == 15
     doc = json.loads((ROOT / "examples" / example).read_text())
     spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(doc))
     if example in REFUSED:
         with pytest.raises((ValueError, GraphSpecError), match=REFUSED[example]):
             EngineService(spec, device="cpu")
+        with pytest.raises((ValueError, GraphSpecError), match=REFUSED[example]):
+            EngineService(spec, device="cpu", force_host=True)
     else:
-        EngineService(spec, device="cpu").close()
+        engine = EngineService(spec, device="cpu")
+        engine.close()
+        assert engine.mode == ("fused" if example in FUSED else "compiled")
