@@ -9,7 +9,8 @@ its plain PyTorch version on the card, serves the deployments below through the
 port's engine and REST lane on a localhost port (the generator on the
 static lane and on the continuous lane, also as an SSE token stream, and
 in its sampled, shared-prefix and speculative modes on both lanes; the
-float32 speculative example; the iris, mean_transformer, gbm,
+float32 speculative example; the int8 generator example and the flagship
+at int8 weights and K/V on both lanes, and the quantized MNIST; the iris, mean_transformer, gbm,
 outlier_pipeline and epsilon_greedy examples, the last with feedback; the
 ensemble4 example fused, compiled and in host mode with one node served by
 the unit microservice, partial fusion, quorum and fallback),
@@ -25,7 +26,8 @@ it serves the static lane it measured before that lane's switch:
   2. build    nvcc of ops/csrc/fused_mlp.cu, flash_attention.cu,
               flash_attention_bwd.cu, flash_decode.cu, flash_decode_paged.cu
               and kv_write.cu at once, with ptxas's report; each kernel's own shape check
-              asked for shapes it takes and shapes it must refuse
+              asked for shapes it takes and shapes it must refuse, the int8
+              variants at their dtype code too
   3. kernel   fused_mlp_softmax vs fused_mlp_softmax_reference at
               784-256-256-10 and 784-512-512-10 with non-zero biases,
               B in {1, 7, 32, 64, 128, 1024} (32 and 64 are the served
@@ -201,6 +203,44 @@ it serves the static lane it measured before that lane's switch:
               shown in /ready and /stats); a ROUTER with fallback 1 over the
               dead leaf; examples/torch_model/torch_mnist_deployment.json (a
               plain user object) against its object's predict
+ 10k. int8-kernels  the int8-K/V variants against their plain versions,
+              each call twice for the same bits: flash_decode_two_tier at
+              the flagship layer (main 512 + 1, 32 and 63 chunk tokens), one
+              row at 1, 17, 309 and 640 positions (clusters of 1-8) and the
+              int8 example's hd 16; flash_decode_paged at B=32 over 560
+              positions, a ragged batch (its blocks also permuted), one row
+              and hd 16; all with the step's K/V write fused in; the caches
+              quantized N(0, 1) bf16 rows, q at twice their spread, the
+              fresh key at twice and the fresh value spiked: o within
+              FLASH_O_ATOL of max(1, |o|), the written codes and scales bit
+              for bit against the plain quantizer (the pools outside the
+              scratch block); at the flagship's shapes the plain version
+              with a 16-position tile dropped or k_s read one position off
+              must miss that tolerance by 4x; kv_write_paged's int8
+              variant bit-exact at W=128 and 512 into (2049, 4, 16, 64) and
+              at hd 16, quantizing bf16 rows and copying int8 ones
+ 10l. int8-serve  examples/generator_int8_deployment.json as written (int8
+              weights and K/V, attention "flash") on the continuous and the
+              static lane over REST: 1 row, 8 rows and a 1-row SSE stream of
+              128-token prompts, counts reset before and read after (2 int8
+              flash_decode_paged a decode step and 2 int8 kv_write_paged a
+              prefill tick; 2 int8 flash_decode_two_tier a static step and 2
+              flash-attention launches a prefill; no bf16 decode launch);
+              tokens equal the same engine's on the CPU except where the two
+              part at a near tie of the plain int8 logits; the flagship
+              generator at quant / kv_quant int8 on both lanes, a 1-row and a
+              32-row 512-token request (12 launches a step or tick), every
+              token within INT8_TOKEN_DELTA of the plain int8 path's
+              maximum; QuantizedMnistClassifier 784-256-256-10 over REST, 64
+              rows: argmax agreement >= 0.95 with MnistClassifier
+ 10m. int8-times  each int8 variant cold beside the bf16 kernel at the same
+              shape, its plain version, dequantize + SDPA (two calls) and its
+              bound, at the served round (n=560) and the long-context shape
+              (n=4096+64); kv_write_paged int8 at W=128 and 512;
+              dequant_matmul against the dense bf16 matmul at the flagship's
+              decode shapes and one prefill shape; the static lane's
+              long-context decode tokens/s (B=32, S=4096, 64 new) with int8
+              against bf16 K/V in turns; a profiled int8 decode step
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at seven shapes (the training layer
               among them, a group of 8, and S=192: a ragged last 128-row
@@ -220,9 +260,10 @@ it serves the static lane it measured before that lane's switch:
               their bounds at the training layer and at S=2048 (B=4), and
               the whole flash_attention_bwd call (both launches) beside
               SDPA's backward; then the {"kernels": [...]} line with all
-              eight kernels and the float32 path of flash_decode_paged in a
-              row of its own, each row's launches those of every served
-              path (phases 4 and 8-10j), with a breakdown by path
+              eight kernels, the float32 path of flash_decode_paged in a
+              row of its own and the three int8 variants in rows of their
+              own, each row's launches those of every served path (phases 4
+              and 8-10l), with a breakdown by path
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -611,6 +652,16 @@ def decode_inputs(torch, shape, gen, dev):
             rnd(B, KV, C, hd))
 
 
+def head_views(torch, B, W, KV, hd, gen, dev):
+    """k, v [B, KV, W, hd] bf16 as strided head views of a qkv row, as the
+    served step makes them, drawn from ``gen`` on its own device."""
+    qkv = torch.randn(B, W, 6 * KV * hd, generator=gen, device=gen.device)
+    qkv = qkv.to(torch.bfloat16).to(dev)
+    k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
+    v = qkv[..., 5 * KV * hd:].reshape(B, W, KV, hd).transpose(1, 2)
+    return k, v
+
+
 def decode_kernel_phase(torch, fd, kw, dev) -> dict:
     """The decode-kernel phase: flash_decode_two_tier and flash_decode
     against their plain versions (each call one launch, a repeat the same
@@ -657,9 +708,7 @@ def decode_kernel_phase(torch, fd, kw, dev) -> dict:
     for pos in (0, C // 2, C - 1):
         ck, cv = (torch.randn(B, KV, C, hd, generator=gen).to(torch.bfloat16).to(dev)
                   for _ in range(2))
-        qkv = torch.randn(B, 1, (4 + 2) * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
-        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
-        v = qkv[..., 5 * KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+        k, v = head_views(torch, B, 1, KV, hd, gen, dev)
         want_k, want_v = kw.kv_write_reference(ck.clone(), cv.clone(), k, v, pos)
         ptrs, before = (ck.data_ptr(), cv.data_ptr()), kw.LAUNCHES
         out = kw.kv_write(ck, cv, k, v, pos)
@@ -673,9 +722,7 @@ def decode_kernel_phase(torch, fd, kw, dev) -> dict:
     for n_chunk in FUSED_CHUNKS:
         q, mk, mv, ck, cv = decode_inputs(torch, DECODE_SHAPES[0], gen, dev)
         n_main = DECODE_SHAPES[0][5]
-        qkv = torch.randn(B, 1, (4 + 2) * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
-        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, 1, KV, hd).transpose(1, 2)
-        v = qkv[..., 5 * KV * hd:].reshape(B, 1, KV, hd).transpose(1, 2)  # strided head views
+        k, v = head_views(torch, B, 1, KV, hd, gen, dev)
         ref = [t.clone() for t in (mk, mv, ck, cv)]
         want = fd.flash_decode_two_tier_reference(q, *ref[:2], n_main, *ref[2:], n_chunk, k, v)
         before = (fd.LAUNCHES, kw.LAUNCHES)
@@ -1316,20 +1363,37 @@ def host_us_per_call(torch, fn, calls: int = 500) -> float:
     return host / calls * 1e6
 
 
-def decode_sets(torch, shape, dev, seed: int) -> list:
+def decode_sets(torch, shape, dev, seed: int, fused: bool = False, int8: bool = False) -> list:
     """Input sets of one decode shape, made on the card, enough of them to
     hold DECODE_COLD_BYTES of K/V together: a run that walks them in turn
-    finds each set's K/V evicted from the 50 MB L2, as the served step does."""
+    finds each set's K/V evicted from the 50 MB L2, as the served step does.
+    A set is (q, main k, main v, chunk k, chunk v); ``fused`` adds the
+    step's fresh k, v and the scales (main k_s, v_s, chunk k_s, v_s), None
+    for bf16 K/V; ``int8`` (fused only) makes K/V int8 codes with their
+    scales (kv_write.int8_kv_rows)."""
+    from seldon_core_tpu_torch.ops.kv_write import int8_kv_rows
+
     B, KV, G, hd, Lm, _, C, _ = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
-    per_set = 2 * 2 * B * KV * (Lm + C) * hd
+    per_set = (2 * B * KV * (Lm + C) * (hd + 4)) if int8 else 2 * 2 * B * KV * (Lm + C) * hd
     n_sets = max(4, -(-DECODE_COLD_BYTES // per_set))
 
     def rnd(*dims):
         return torch.randn(*dims, generator=gen, device=dev).to(torch.bfloat16)
 
-    return [(rnd(B, KV, G, hd), rnd(B, KV, Lm, hd), rnd(B, KV, Lm, hd), rnd(B, KV, C, hd),
-             rnd(B, KV, C, hd)) for _ in range(n_sets)]
+    sets = []
+    for _ in range(n_sets):
+        q = rnd(B, KV, G, hd)
+        if not int8:
+            kv = (rnd(B, KV, Lm, hd), rnd(B, KV, Lm, hd), rnd(B, KV, C, hd), rnd(B, KV, C, hd))
+            sets.append((q, *kv, rnd(B, KV, 1, hd), rnd(B, KV, 1, hd), None) if fused
+                        else (q, *kv))
+            continue
+        (mk, mks), (mv, mvs), (ck, cks), (cv, cvs) = (
+            int8_kv_rows((B, KV, L, hd), gen, dev) for L in (Lm, Lm, C, C))
+        sets.append((q, mk, mv, ck, cv, rnd(B, KV, 1, hd), rnd(B, KV, 1, hd),
+                     (mks, mvs, cks, cvs)))
+    return sets
 
 
 def rotating(sets, fn):
@@ -1714,9 +1778,7 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
                   for _ in range(2))
         tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
         tables = tables.to(torch.int32).to(dev)
-        qkv = torch.randn(B, W, 6 * KV * hd, generator=gen).to(torch.bfloat16).to(dev)
-        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
-        v = qkv[..., 5 * KV * hd:].reshape(B, W, KV, hd).transpose(1, 2)  # strided head views
+        k, v = head_views(torch, B, W, KV, hd, gen, dev)
         if W == 1:
             start = torch.randint(0, nblk * PAGED_BS, (B,), generator=gen)
             valid = torch.arange(B)[:, None] < B - 3
@@ -1869,13 +1931,17 @@ def paged_decode_bound(B, KV, G, hd, nblk, lens, fused: bool = False, elt: int =
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def paged_sets(torch, B, KV, G, hd, nblk, lens, dev, seed: int) -> list:
+def paged_sets(torch, B, KV, G, hd, nblk, lens, dev, seed: int, int8: bool = False) -> list:
     """Input sets of one paged shape (q, pools, shuffled tables, lengths,
     fresh K/V), made on the card, enough of them to hold DECODE_COLD_BYTES
-    of pools together: walked in turn, each set's K/V is out of the L2."""
+    of pools together: walked in turn, each set's K/V is out of the L2.
+    ``int8`` makes the pools int8 codes (kv_write.int8_kv_rows) and adds
+    their scale planes (pool k_s, v_s) to each set."""
+    from seldon_core_tpu_torch.ops.kv_write import int8_kv_rows
+
     gen = torch.Generator(device=dev).manual_seed(seed)
     N = B * nblk + 1
-    per_set = 2 * 2 * N * KV * PAGED_BS * hd
+    per_set = 2 * N * KV * PAGED_BS * (hd + 4 if int8 else 2 * hd)
     n_sets = max(4, -(-DECODE_COLD_BYTES // per_set))
 
     def rnd(*dims):
@@ -1884,10 +1950,15 @@ def paged_sets(torch, B, KV, G, hd, nblk, lens, dev, seed: int) -> list:
     sets = []
     for _ in range(n_sets):
         tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
-        sets.append((rnd(B, KV, G, hd), rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd),
-                     tables.reshape(B, nblk).to(torch.int32),
+        q = rnd(B, KV, G, hd)
+        if int8:
+            (pk, pks), (pv, pvs) = (int8_kv_rows((N, KV, PAGED_BS, hd), gen, dev)
+                                    for _ in range(2))
+        else:
+            pk, pv = rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd)
+        sets.append((q, pk, pv, tables.reshape(B, nblk).to(torch.int32),
                      torch.tensor(lens, dtype=torch.int32, device=dev),
-                     rnd(B, KV, 1, hd), rnd(B, KV, 1, hd)))
+                     rnd(B, KV, 1, hd), rnd(B, KV, 1, hd)) + (((pks, pvs),) if int8 else ()))
     return sets
 
 
@@ -1982,9 +2053,7 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
     for KV, hd, W in KV_PAGED_TIMED:
         pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen, device=dev).to(torch.bfloat16)
                   for _ in range(2))
-        qkv = torch.randn(B, W, 6 * KV * hd, generator=gen, device=dev).to(torch.bfloat16)
-        k = qkv[..., 4 * KV * hd:5 * KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
-        v = qkv[..., 5 * KV * hd:].reshape(B, W, KV, hd).transpose(1, 2)  # as a tick has them
+        k, v = head_views(torch, B, W, KV, hd, gen, dev)  # as a tick has them
         start = torch.full((B,), 512 - W, dtype=torch.int32, device=dev)
         valid = torch.ones(B, W, dtype=torch.bool, device=dev)
         k_ms = device_ms(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid), 200)
@@ -4048,6 +4117,923 @@ def mnist_phases(torch, dev, smi) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# [2q]: int8 weights (W8A16) and the int8 K/V cache (phases 10k-10m)
+# ---------------------------------------------------------------------------
+
+# The int8-K/V variants against their plain versions, bf16 o: FLASH_O_ATOL,
+# for the bf16 kernels' reason (p, here p * v_s, rounds to bf16 at the
+# kernel's running row max and at the plain version's final one; the sums
+# run in another order).  The int8 path adds no rounding of its own to o:
+# codes are exact in bf16, their products with bf16 q exact in f32, and the
+# scales multiply f32 scores and p before p's one bf16 rounding on both
+# sides.  The written codes and scales are held bit for bit.
+# Two-tier shapes, (B, KV, G, hd, main slots, n_main, chunk slots, n_chunk),
+# each call with the step's write fused in: the flagship layer after 1, 32
+# and 63 chunk tokens; B=1 at 1, 17, 309 and 640 positions (clusters of 1,
+# 1, 4 and 8 blocks; the flagship layer's is 2); the int8 example's layer
+# (8 heads over 2 kv heads at d_model 128: hd 16, group 4)
+I8_DECODE_SHAPES = [(32, 4, 4, 64, 512, 512, 63, 1), (32, 4, 4, 64, 512, 512, 63, 32),
+                    (32, 4, 4, 64, 512, 512, 63, 63), (1, 4, 4, 64, 512, 0, 63, 1),
+                    (1, 4, 4, 64, 512, 0, 63, 17), (1, 4, 4, 64, 512, 300, 63, 9),
+                    (1, 4, 4, 64, 640, 640, 63, 0), (4, 2, 4, 16, 100, 100, 15, 9)]
+# the two-tier shape of check_sensitive: the flagship layer at n = 512 + 32
+I8_DEFECTS_AT = I8_DECODE_SHAPES[1]
+# paged shapes, (B, KV, G, hd, table blocks, lengths), each fused with the
+# last row inactive: the served round (B=32 at 560 positions), the ragged
+# batch (blocks also permuted), one row at 560, and the example's heads
+I8_PAGED_SHAPES = [(GEN_B, 4, 4, 64, PAGED_NBLK, [560] * GEN_B),
+                   (len(PAGED_RAGGED) + 1, 4, 4, 64, PAGED_NBLK, PAGED_RAGGED + [300]),
+                   (2, 4, 4, 64, PAGED_NBLK, [560, 17]), (5, 2, 4, 16, 16, [1, 60, 200, 256, 9])]
+# kv_write_paged's int8 variant, (KV, hd, W) into pools of 2,049 blocks: a
+# prefill tick's B=32 rows of W=128 and 512; and the example's heads
+I8_KV_CASES = [(4, 64, 128), (4, 64, 512), (2, 16, 128)]
+# the flagship generator with both quantizations stacked, as bench.py:533-535
+# stacks them on bench.py:3342-3344's config
+INT8_GEN = {"quant": "int8", "kv_quant": "int8"}
+# the long-context arm of bench.py:547-560: B=32, 4096 prompt positions and
+# 64 new tokens (the timed step reads 4096 + 64 positions)
+LC_B, LC_S, LC_NEW = 32, 4096, 64
+I8_TIMED_N = [560, LC_S + LC_NEW]
+# dequant_matmul (W8A16) against the dense bf16 matmul: the flagship's
+# decode-step products at B=32 (wqkv, wo, w1, w2) and one prefill product
+DEQUANT_SHAPES = [(32, 1024, 1536), (32, 1024, 1024), (32, 1024, 4096), (32, 4096, 1024),
+                  (16384, 1024, 4096)]
+# The served int8 generator against its lane's plain int8 path (the same
+# quantized weights; on the static lane a prefill over exact K/V stored
+# quantized, then the plain two-tier decode over the codes; on the
+# continuous lane one plain paged forward whose every position is written
+# quantized, then attended; every served token fed back).
+# Every rounding of the bf16 comparison (TOKEN_DELTA: 4 ulps of a logit in
+# [4, 8)) is there, and one more: the K/V rows that the two paths quantize
+# differ by those roundings, so a value at a rounding boundary takes the
+# neighbouring code on one side, moving that element by one step, 1/127 of
+# its row's absmax (~2 bf16 ulps of the row's largest element).  Twice the
+# bf16 margin: 8 ulps.
+INT8_TOKEN_DELTA = 0.25
+# the example's card tokens against its CPU twin's (the same engine and
+# states on the CPU, bf16 on another backend): a row may part only where the
+# card's plain int8 logits of the two tokens differ by at most 8 bf16 ulps
+# of the row's largest logit
+EXAMPLE_TIE_ULPS = 8
+I8_TURNS = 2               # ABBA turns of the long-context rate (4 walls each)
+# the int8 kernels' inputs: caches of N(0, 1) bf16 rows quantized as the
+# served path quantizes them (kv_write.int8_kv_rows), q at twice their
+# spread (scores of std ~2: each row's softmax is held by a handful of
+# positions, so the cache walk carries o and |o| ~ 1), the fresh key at
+# twice (it holds a few rows of each call)
+I8_Q_SPREAD = 2.0
+I8_FRESH_K_SPREAD = 2.0
+# a defect the kernel check must see (a 16-position tile dropped, k_s read
+# one position off) moves the plain o by at least this many tolerances
+I8_DEFECT_MARGIN = 4
+I8_DECODE_DESIGN = ("flash_decode.cu's kernel instantiated on int8 segments: the same "
+                    "cluster split, bulk-copy ring (rows of hd bytes) and slot walk, a lane "
+                    "8 codes; each slot's scales loaded before its stage lands; scores times "
+                    "k_s, p times v_s before its bf16 rounding; the fresh row quantized in the "
+                    "launch (kv_int8.cuh) and attended as codes: one launch")
+I8_PAGED_DESIGN = ("the bf16 path's share rule, warps, 16-position tiles and DSMEM combine; "
+                   "each warp's ring filled by bulk copies of contiguous pool runs (K codes, V "
+                   "codes, k_s, v_s); both products mma.sync m16n8k16 with B operands built "
+                   "from the codes in registers (q's k order permuted so a lane's K codes are "
+                   "one 32-bit load), k_s on the S fragment, v_s on p before its bf16 "
+                   "rounding; the fresh row quantized by a warp reduction and attended as "
+                   "codes: one launch")
+I8_KV_DESIGN = ("a group of hd/8 lanes a (row, kv head, position): 8 values of K and of V a "
+                "lane, the row's absmax by shuffles, IEEE divisions and rint to the codes, "
+                "the first lane writing both scales; int8 rows with their scales copied")
+
+
+def i8_bound(B, KV, G, hd, n_sum, fused: bool, extra: int = 0):
+    """Least time for one int8-K/V decode call: K and V codes (1 byte a
+    value) and their two f32 scales of every position read once, q read
+    and o written once in bf16 (with the fused write also the fresh bf16
+    rows read and their codes and scales written), ``extra`` bytes more
+    (tables and lengths), over HBM bandwidth, against the score and PV
+    FLOPs over the bf16 peak; the larger one bounds."""
+    nbytes = KV * n_sum * (2 * hd + 8) + 2 * 2 * B * KV * G * hd + extra
+    if fused:
+        nbytes += B * KV * (2 * 2 * hd + 2 * (hd + 4))
+    flops = 4 * KV * G * n_sum * hd
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def fresh_rows(torch, B, KV, hd, gen, dev):
+    """A decode step's fresh k, v [B, KV, 1, hd] bf16, strided head views:
+    k at I8_FRESH_K_SPREAD times the cache's spread (it holds most of the
+    softmax in a few rows of each call), v N(0, 1) with a spike of 32 at
+    column 0, so its scale is 32/127 and the other values round to
+    multiples of ~0.25: attending the exact row instead of its codes moves
+    o past FLASH_O_ATOL in those rows."""
+    k, v = head_views(torch, B, 1, KV, hd, gen, dev)
+    k = (I8_FRESH_K_SPREAD * k.float()).to(torch.bfloat16)
+    v[..., 0] = 32.0
+    return k, v
+
+
+def i8_query(torch, B, KV, G, hd, gen, dev):
+    """q [B, KV, G, hd] bf16 at I8_Q_SPREAD times the cache's spread."""
+    return (I8_Q_SPREAD * torch.randn(B, KV, G, hd, generator=gen)).to(torch.bfloat16).to(dev)
+
+
+def o_errs(got, want) -> tuple:
+    """(max |got - want|, max |got - want| / max(1, |want|)).  The second is
+    the one held to FLASH_O_ATOL, 2 bf16 ulps at |o| ~ 1: a bf16 o's
+    rounding grows with |o|, and the fresh value's spike makes o's column 0
+    reach ~30 in the rows it holds."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return float(d.max()), float((d / w.abs().clamp_min(1.0)).max())
+
+
+def check_sensitive(name: str, want, defects: dict) -> dict:
+    """Fails unless each defect (the plain version's o with it) misses
+    FLASH_O_ATOL by I8_DEFECT_MARGIN or more against ``want``, so the
+    kernel check above it can see such a defect; returns their errors."""
+    seen = {what: o_errs(o, want)[1] for what, o in defects.items()}
+    for what, err in seen.items():
+        if err < I8_DEFECT_MARGIN * FLASH_O_ATOL:
+            raise AssertionError(f"[int8-kernels] {name}: {what} moves the plain o by only "
+                                 f"{err:.3e}; the check at {FLASH_O_ATOL} could not see it")
+    log(f"[int8-kernels] {name}: the plain version with "
+        + ", ".join(f"{what} misses by {err:.3e}" for what, err in seen.items())
+        + f" (each at least {I8_DEFECT_MARGIN}x the tolerance)")
+    return seen
+
+
+def int8_kernel_phase(torch, fd, kw, dev) -> dict:
+    """10k. Each int8-K/V variant against its plain version on the same
+    inputs, a second call the same bits: flash_decode_two_tier at
+    I8_DECODE_SHAPES and flash_decode_paged at I8_PAGED_SHAPES, each with
+    the step's write fused in (the written codes and scales bit for bit
+    against the plain quantizer, o within FLASH_O_ATOL of max(1, |o|), the
+    paged pools outside the scratch block 0), the ragged paged batch also
+    with its blocks permuted; at the flagship's shapes the plain version
+    with a tile dropped or k_s one position off must miss that tolerance
+    (check_sensitive); kv_write_paged's int8 variant bit-exact at
+    I8_KV_CASES, quantizing bf16 rows and copying int8 ones.  Returns each
+    variant's largest error, absolute ("abs") and relative to max(1, |o|)
+    ("rel"), and the defects' errors."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 141)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {name: {"abs": 0.0, "rel": 0.0}
+            for name in ("flash_decode", "flash_decode_paged", "kv_write_paged")}
+    defects = {}
+    clusters = set()
+    for shape in I8_DECODE_SHAPES:
+        B, KV, G, hd, Lm, n_main, C, n_chunk = shape
+        q = i8_query(torch, B, KV, G, hd, gen, dev)
+        (mk, mks), (mv, mvs) = (kw.int8_kv_rows((B, KV, Lm, hd), gen, dev) for _ in range(2))
+        (ck, cks), (cv, cvs) = (kw.int8_kv_rows((B, KV, C, hd), gen, dev) for _ in range(2))
+        # the fresh row's absmax far from the rest: attended as the
+        # reference writes and reads it (codes times its scale), not exact
+        k, v = fresh_rows(torch, B, KV, hd, gen, dev)
+        caches = [mk, mv, mks, mvs, ck, cv, cks, cvs]
+        ref = [t.clone() for t in caches]
+
+        def plain(main, n_m):
+            # on copies (the plain write into them is the one already in ref)
+            c = [t.clone() for t in (*main, *ref[4:])]
+            return fd.flash_decode_two_tier_reference(q, c[0], c[1], n_m, c[4], c[5], n_chunk,
+                                                      k, v, (c[2], c[3], c[6], c[7]))
+
+        want = fd.flash_decode_two_tier_reference(q, ref[0], ref[1], n_main, ref[4], ref[5],
+                                                  n_chunk, k, v, (ref[2], ref[3], ref[6], ref[7]))
+        before = (fd.LAUNCHES, fd.I8_LAUNCHES)
+        got = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk, k, v,
+                                       (mks, mvs, cks, cvs))
+        again = fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk, k, v,
+                                         (mks, mvs, cks, cvs))
+        torch.cuda.synchronize()
+        abs_err, err = o_errs(got, want)
+        if ((fd.LAUNCHES - before[0], fd.I8_LAUNCHES - before[1]) != (2, 2) or err > FLASH_O_ATOL
+                or not bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"[int8-kernels] flash_decode_two_tier int8 at {shape}: o err "
+                                 f"{err:.3e}, launches {fd.LAUNCHES - before[0]}")
+        if not all(torch.equal(a, b) for a, b in zip(caches, ref)):
+            raise AssertionError(f"[int8-kernels] the int8 fused write at {shape} wrote other "
+                                 f"codes or scales than the plain quantizer")
+        if not torch.equal(got, again):
+            raise AssertionError(f"[int8-kernels] flash_decode_two_tier int8 at {shape} differs "
+                                 f"between two calls")
+        split, span = fd.decode_split_plan(B, KV, G, n_main + n_chunk, sm_count)
+        clusters.add(split)
+        errs["flash_decode"] = {"abs": max(errs["flash_decode"]["abs"], abs_err),
+                                "rel": max(errs["flash_decode"]["rel"], err)}
+        log(f"[int8-kernels] flash_decode_two_tier int8 (B,KV,G,hd,main,n_main,chunk,n_chunk)="
+            f"{shape}, a cluster of {split}, the fresh row (absmax far from its other values) "
+            f"quantized in: codes and scales bit-exact, o max err {err:.3e} relative to "
+            f"max(1, |o|) (tolerance {FLASH_O_ATOL}; {abs_err:.3e} absolute, |o| up to "
+            f"{float(want.float().abs().max()):.3g}), a repeat the same bits")
+        if shape == I8_DEFECTS_AT:
+            def drop(t):  # positions 32-47 of main
+                return torch.cat([t[:, :, :32], t[:, :, 48:]], dim=2)
+
+            defects["flash_decode"] = check_sensitive(
+                f"flash_decode_two_tier int8 at {shape}", want,
+                {"a 16-position tile dropped": plain([drop(t) for t in ref[:4]], n_main - 16),
+                 "k_s read one position off": plain(
+                     [*ref[:2], torch.roll(ref[2], -1, dims=2), ref[3]], n_main)})
+    if clusters != {1, 2, 4, 8}:
+        raise AssertionError(f"[int8-kernels] I8_DECODE_SHAPES planned clusters of "
+                             f"{sorted(clusters)}, not 1, 2, 4 and 8")
+    for case in I8_PAGED_SHAPES:
+        B, KV, G, hd, nblk, lens = case
+        N = B * nblk + 1
+        q = i8_query(torch, B, KV, G, hd, gen, dev)
+        (pk, pks), (pv, pvs) = (kw.int8_kv_rows((N, KV, PAGED_BS, hd), gen, dev)
+                                for _ in range(2))
+        tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+        tables = tables.to(torch.int32).to(dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        valid = (torch.arange(B) < B - 1).to(dev)
+        k, v = fresh_rows(torch, B, KV, hd, gen, dev)
+        moved = permuted_pool(torch, pk, pv, tables, gen, dev)
+        perm_tables = moved[2]
+        mks, mvs = pks.clone(), pvs.clone()
+        perm = torch.empty(N, dtype=torch.long, device=dev)
+        perm[0] = 0
+        # moved[0][perm[j]] = pk[j]: recover the permutation from the tables
+        perm[tables.long().flatten()] = perm_tables.long().flatten()
+        mks[perm[1:]], mvs[perm[1:]] = pks[1:], pvs[1:]
+        pools = [pk, pv, pks, pvs]
+        ref = [t.clone() for t in pools]
+
+        def plain(planes, tb, ln):
+            c = [t.clone() for t in (*ref[:2], *planes)]
+            return fd.flash_decode_paged_reference(q, c[0], c[1], tb, ln, k, v, valid,
+                                                   (c[2], c[3]))
+
+        want = fd.flash_decode_paged_reference(q, ref[0], ref[1], tables, lens_t, k, v, valid,
+                                               (ref[2], ref[3]))
+        before = (fd.PAGED_LAUNCHES, fd.PAGED_I8_LAUNCHES)
+        got = fd.flash_decode_paged(q, pk, pv, tables, lens_t, k, v, valid, (pks, pvs))
+        again = fd.flash_decode_paged(q, pk, pv, tables, lens_t, k, v, valid, (pks, pvs))
+        got_moved = fd.flash_decode_paged(q, moved[0], moved[1], perm_tables, lens_t, k, v,
+                                          valid, (mks, mvs))
+        torch.cuda.synchronize()
+        act = valid.cpu().nonzero()[:, 0].to(dev)
+        abs_err, err = o_errs(got[act], want[act])
+        if ((fd.PAGED_LAUNCHES - before[0], fd.PAGED_I8_LAUNCHES - before[1]) != (3, 3)
+                or err > FLASH_O_ATOL or not bool(torch.isfinite(got[act].float()).all())):
+            raise AssertionError(f"[int8-kernels] flash_decode_paged int8 at {case[:5]}: o err "
+                                 f"{err:.3e}, launches {fd.PAGED_LAUNCHES - before[0]}")
+        if not all(torch.equal(a[1:], b[1:]) for a, b in zip(pools, ref)):
+            raise AssertionError(f"[int8-kernels] the paged int8 fused write at {case[:5]} left "
+                                 f"other codes or scale planes than the plain quantizer outside "
+                                 f"block 0")
+        if not torch.equal(got, again) or not torch.equal(got[act], got_moved[act]):
+            raise AssertionError(f"[int8-kernels] flash_decode_paged int8 at {case[:5]}: a repeat "
+                                 f"or the blocks permuted gave other bits")
+        errs["flash_decode_paged"] = {"abs": max(errs["flash_decode_paged"]["abs"], abs_err),
+                                      "rel": max(errs["flash_decode_paged"]["rel"], err)}
+        log(f"[int8-kernels] flash_decode_paged int8 (B,KV,G,hd)={(B, KV, G, hd)} over "
+            f"{nblk} blocks of {PAGED_BS}, lengths {min(lens)}..{max(lens)}, the last row "
+            f"inactive, the fresh rows quantized in: pools and scale planes bit-exact outside "
+            f"block 0, o max err {err:.3e} relative to max(1, |o|) on the active rows "
+            f"(tolerance {FLASH_O_ATOL}; {abs_err:.3e} absolute, |o| up to "
+            f"{float(want[act].float().abs().max()):.3g}); a repeat and the blocks permuted the "
+            f"same bits")
+        if case == I8_PAGED_SHAPES[0]:  # the served round, B=32 at n=560
+            # the third table column (positions 32-47) left out of every row
+            short = torch.cat([tables[:, :2], tables[:, 3:]], dim=1)
+            found = check_sensitive(
+                f"flash_decode_paged int8 at {case[:4]}, n={lens[0]}", want[act],
+                {"a 16-position tile dropped": plain(ref[2:], short, lens_t - 16)[act],
+                 "k_s read one position off": plain(
+                     [torch.roll(ref[2], -1, dims=2), ref[3]], tables, lens_t)[act]})
+            defects["flash_decode_paged"] = found
+    B, nblk = 32, PAGED_NBLK
+    N = B * nblk + 1
+    for KV, hd, W in I8_KV_CASES:
+        for copy in (False, True):
+            (pk, pks), (pv, pvs) = (kw.int8_kv_rows((N, KV, PAGED_BS, hd), gen, dev)
+                                    for _ in range(2))
+            tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+            tables = tables.to(torch.int32).to(dev)
+            start = (torch.randint(0, nblk * PAGED_BS // W, (B,), generator=gen) * W)
+            valid = torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen)
+            start, valid = start.to(torch.int32).to(dev), valid.to(dev)
+            if copy:
+                (k, k_s), (v, v_s) = (kw.int8_kv_rows((B, KV, W, hd), gen, dev)
+                                      for _ in range(2))
+            else:
+                (k, v), k_s, v_s = head_views(torch, B, W, KV, hd, gen, dev), None, None
+            pools = [pk, pv, pks, pvs]
+            ref = [t.clone() for t in pools]
+            kw.kv_write_paged_reference(ref[0], ref[1], k, v, tables, start, valid,
+                                        (ref[2], ref[3]), k_s, v_s)
+            ptrs, before = [t.data_ptr() for t in pools], kw.PAGED_I8_LAUNCHES
+            kw.kv_write_paged(pk, pv, k, v, tables, start, valid, (pks, pvs), k_s, v_s)
+            torch.cuda.synchronize()
+            if (kw.PAGED_I8_LAUNCHES != before + 1 or [t.data_ptr() for t in pools] != ptrs
+                    or not all(torch.equal(a[1:], b[1:]) for a, b in zip(pools, ref))):
+                raise AssertionError(f"[int8-kernels] kv_write_paged int8 at KV={KV} hd={hd} "
+                                     f"W={W} ({'copy' if copy else 'quantize'}) is not the plain "
+                                     f"scatter")
+            log(f"[int8-kernels] kv_write_paged int8 into pools ({N},{KV},{PAGED_BS},{hd}) with "
+                f"their scale planes through [{B},{nblk}] tables, W={W}, "
+                f"{'int8 rows with their scales copied' if copy else 'bf16 head views quantized'}"
+                f": codes and scales bit-exact outside the scratch block, in place")
+    log(f"[int8-kernels] phase wall {time.perf_counter() - t0:.2f} s")
+    return {"errs": errs, "defects": defects}
+
+
+def plain_int8_logits(torch, params, cfg, prompts: np.ndarray, toks: np.ndarray, dev):
+    """The plain int8 path's logits [B, n, V] f32 at each served token's
+    position: the prompt's prefill (exact K/V attended, stored quantized),
+    then one plain two-tier step a token over the codes, each fed the
+    served token before it (use_flash off: no kernel)."""
+    from seldon_core_tpu_torch.models.generate import (decode_step_two_tier, init_cache,
+                                                       init_chunk, prefill)
+
+    B, S = prompts.shape
+    n = toks.shape[1]
+    with torch.inference_mode():
+        p = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+        logits, main = prefill(params, p, init_cache(cfg, B, S, dev), cfg, use_flash=False)
+        chunk = init_chunk(cfg, B, max(n - 1, 1), dev)
+        rows = [logits]
+        for i in range(n - 1):
+            tok = torch.as_tensor(toks[:, i], dtype=torch.int32, device=dev)
+            logits, chunk = decode_step_two_tier(params, tok, main, chunk, S, i, cfg,
+                                                 use_flash=False)
+            rows.append(logits)
+        return torch.stack(rows, dim=1)
+
+
+def plain_paged_int8_logits(torch, params, cfg, prompts: np.ndarray, toks: np.ndarray, dev):
+    """The continuous lane's plain int8 path, teacher-forced: one
+    paged_forward of prompt + served tokens over fresh int8 pools (use_flash
+    off), every position's K/V written quantized and then attended, as the
+    lane's prefill ticks and decode steps do (so how the lane chunked its
+    prefill does not matter); logits [B, n, V] f32 at each served token."""
+    from seldon_core_tpu_torch.models.generate import init_block_pool, paged_forward
+
+    B, S = prompts.shape
+    n = toks.shape[1]
+    W = S + n - 1
+    nblk = -(-W // PAGED_BS)
+    with torch.inference_mode():
+        seq = torch.as_tensor(np.concatenate([prompts, toks[:, :-1]], axis=1), dtype=torch.int32,
+                              device=dev)
+        pool = init_block_pool(cfg, B * nblk + 1, PAGED_BS, dev)
+        tables = (torch.arange(B * nblk, device=dev) + 1).reshape(B, nblk).to(torch.int32)
+        start = torch.zeros(B, dtype=torch.int32, device=dev)
+        width = torch.full((B,), W, dtype=torch.int32, device=dev)
+        logits, _ = paged_forward(params, seq, pool, tables, start, width, cfg, last_only=False,
+                                  use_flash=False)
+        return logits[:, S - 1:S - 1 + n]
+
+
+def plain_int8_gaps(torch, params, cfg, prompts, toks, dev, continuous: bool) -> np.ndarray:
+    """Each served token's gap to the maximum logit of its lane's plain
+    int8 path at its position."""
+    teacher = plain_paged_int8_logits if continuous else plain_int8_logits
+    rows = teacher(torch, params, cfg, prompts, toks, dev)
+    tok = torch.as_tensor(toks, dtype=torch.long, device=dev)
+    gap = rows.max(dim=-1).values - rows.gather(-1, tok[..., None])[..., 0]
+    return gap.cpu().numpy()
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def int8_counts(fa, fd, kw) -> dict:
+    return {**read_counts(fa, fd, kw), "flash_decode int8": fd.I8_LAUNCHES,
+            "flash_decode_paged int8": fd.PAGED_I8_LAUNCHES,
+            "kv_write_paged int8": kw.PAGED_I8_LAUNCHES}
+
+
+def int8_reset(fa, fd, kw) -> None:
+    reset_counts(fa, fd, kw)
+    fd.I8_LAUNCHES = fd.PAGED_I8_LAUNCHES = kw.PAGED_I8_LAUNCHES = 0
+
+
+def int8_lane_run(torch, dev, doc: dict, continuous: bool, prompts: dict, stream: bool):
+    """One int8 deployment on one lane over REST: each request of
+    ``prompts`` (name -> rows), then ``prompts["1-row"]`` as an SSE stream
+    when ``stream``, counts reset just before and read just after.
+    Returns (engine, answers, launches, decode steps and prefill ticks of
+    the continuous lane)."""
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    int8_reset(fa, fd, kw)
+    engine = mode_engine(torch, dev, doc, continuous=continuous)
+    probes = int8_counts(fa, fd, kw)
+    unit, g = engine.compiled.units["gen"], engine.genserver
+    cfg = unit.cfg
+    want_probes = ({"flash_decode_paged int8": 1, "kv_write_paged int8": 1} if continuous
+                   else {"flash_decode int8": 1})
+    if (not unit.use_flash or cfg.quant != "int8" or cfg.kv_quant != "int8"
+            or any(probes[k] != n for k, n in want_probes.items())
+            or "wqkv_q" not in engine.states()["gen"]["params"]["l0"]):
+        raise AssertionError(f"[int8-serve] the engine did not build the int8 generator over the "
+                             f"int8 variants (probe launches {probes})")
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    try:
+        int8_reset(fa, fd, kw)
+        snap0 = g.snapshot() if g is not None else None
+        answers = {name: request("POST", url, ndarray(p)) for name, p in prompts.items()}
+        if stream:
+            events, _, _ = sse_stream(port, {**ndarray(prompts["1-row"]), "chunk": STREAM_CHUNK})
+            if not events or events[-1].get("done") is not True:
+                raise AssertionError(f"[int8-serve] the stream did not end: {events[-1:]}")
+            answers["stream"] = np.concatenate(
+                [np.asarray(e["tokens"], dtype=np.int64) for e in events[:-1]], axis=1)
+        launches = int8_counts(fa, fd, kw)
+        snap1 = g.snapshot() if g is not None else None
+    finally:
+        server.stop(close_engine=False)
+    work = None
+    if g is not None:
+        work = (snap1["decode_steps_total"] - snap0["decode_steps_total"],
+                snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"])
+    return engine, answers, launches, work
+
+
+def check_int8_launches(launches: dict, cfg, continuous: bool, work, dispatches: int,
+                        new: int, flash_prefill: bool, what: str) -> str:
+    """The launches of an int8 lane's run: every decode step's attention
+    an int8-variant launch a layer (the step's write fused in), every
+    continuous prefill tick's write an int8 kv_write_paged a layer, none of
+    a bf16 decode kernel; the static lane's prefill one flash-attention
+    launch a layer where the prompt takes the kernel."""
+    L = cfg.n_layers
+    if continuous:
+        steps, ticks = work
+        want = {"flash_decode_paged": L * steps, "flash_decode_paged int8": L * steps,
+                "kv_write_paged": L * ticks, "kv_write_paged int8": L * ticks,
+                "flash_attention": 0, "flash_decode": 0, "flash_decode int8": 0, "kv_write": 0}
+        says = (f"{L} x {steps} int8 flash_decode_paged (the steps' writes fused in) and {L} x "
+                f"{ticks} int8 kv_write_paged (prefill ticks)")
+        ok = steps > 0 and ticks > 0
+    else:
+        want = {"flash_decode": L * (new - 1) * dispatches,
+                "flash_decode int8": L * (new - 1) * dispatches,
+                "flash_attention": L * dispatches if flash_prefill else 0,
+                "flash_decode_paged": 0, "flash_decode_paged int8": 0, "kv_write_paged": 0,
+                "kv_write_paged int8": 0, "kv_write": 0}
+        says = (f"{L} x {new - 1} x {dispatches} int8 flash_decode_two_tier (the steps' writes "
+                f"fused in), {want['flash_attention']} flash-attention prefill launches")
+        ok = True
+    if launches != want or not ok:
+        raise AssertionError(f"[int8-serve] {what}: launches {launches}, not {want} ({work})")
+    return says
+
+
+def int8_serve_phase(torch, dev, smi) -> dict:
+    """10l. examples/generator_int8_deployment.json as written (int8
+    weights and K/V, attention "flash", hd 16) on the continuous and the
+    static lane over REST (1 row, 8 rows, a 1-row SSE stream), launches
+    counted (check_int8_launches), tokens equal the same engine's on the
+    CPU except where the two part at a near tie (EXAMPLE_TIE_ULPS of the
+    plain int8 path's logits); then the flagship generator at quant /
+    kv_quant int8 (full width, 12 layers) on both lanes, a 1-row and a
+    32-row 512-token request, every token within INT8_TOKEN_DELTA of its
+    lane's plain int8 path's maximum; then QuantizedMnistClassifier (784-256-256-10)
+    over REST, 64 rows, against MnistClassifier at the same seed."""
+    t_phase = time.perf_counter()
+    out = {"example": {}, "flagship": {}}
+    doc = example_doc("generator_int8")
+    rng = np.random.default_rng(SEED + 151)
+    vocab = 256
+    # 128-token prompts: the static lane's prefill takes the flash kernel
+    ex_prompts = {"1-row": rng.integers(0, vocab, size=(1, 128)),
+                  "8-row": rng.integers(0, vocab, size=(8, 128))}
+    for continuous in (True, False):
+        lane = "continuous" if continuous else "static"
+        engine, answers, launches, work = int8_lane_run(torch, dev, doc, continuous, ex_prompts,
+                                                        stream=True)
+        unit = engine.compiled.units["gen"]
+        cfg, new = unit.cfg, unit.max_new_tokens
+        says = check_int8_launches(launches, cfg, continuous, work, 3, new, True,
+                                   f"the int8 example, {lane} lane")
+        params = engine.states()["gen"]["params"]
+        twin = cpu_twin(torch, engine, doc)
+        same = ties = total = 0
+        try:
+            for name, p in ex_prompts.items():
+                toks = check_tokens(*answers[name], p, "ndarray", new, vocab)
+                if name == "1-row" and not np.array_equal(answers["stream"], toks):
+                    raise AssertionError(f"[int8-serve] the {lane} stream differs from the "
+                                         f"unary answer")
+                text, st = asyncio.run(twin.predict_json(json.dumps(ndarray(p))))
+                cpu_toks = np.asarray(json.loads(text)["data"]["ndarray"], np.int64)
+                if st != 200 or cpu_toks.shape != toks.shape:
+                    raise AssertionError(f"[int8-serve] the CPU twin answered {st}")
+                total += toks.size
+                same += int((cpu_toks == toks).sum())
+                teacher = plain_paged_int8_logits if continuous else plain_int8_logits
+                rows = teacher(torch, params, cfg, p, toks, dev)
+                for r in np.nonzero((cpu_toks != toks).any(axis=1))[0]:
+                    j = int(np.argmax(cpu_toks[r] != toks[r]))
+                    lr = rows[r, j]
+                    d = abs(float(lr[int(toks[r, j])] - lr[int(cpu_toks[r, j])]))
+                    margin = EXAMPLE_TIE_ULPS * bf16_ulp(float(lr.abs().max()))
+                    if d > margin:
+                        raise AssertionError(f"[int8-serve] {lane} row {r} parts from the CPU "
+                                             f"twin at token {j} with a logit gap {d:.4f} > "
+                                             f"{margin:.4f}")
+                    ties += 1
+        finally:
+            twin.close()
+            engine.close()
+        out["example"][lane] = {"launches": launches, "work": work, "same_as_cpu": same,
+                                "tokens": total, "near_ties": ties}
+        log(f"[int8-serve] examples/generator_int8_deployment.json on the {lane} lane, a 1-row "
+            f"and an 8-row 128-token request and a 1-row stream (equal to the unary answer): "
+            f"launches {says}; {same} of {total} tokens equal the same engine's on the CPU, "
+            f"{ties} rows parted at a near tie (<= {EXAMPLE_TIE_ULPS} bf16 ulps)")
+
+    doc = gen_deployment(params=INT8_GEN)
+    fl_prompts = {"1-row": rng.integers(0, GEN_DIMS["vocab"], size=(1, GEN_S)),
+                  "32-row": rng.integers(0, GEN_DIMS["vocab"], size=(GEN_B, GEN_S))}
+    for continuous in (True, False):
+        lane = "continuous" if continuous else "static"
+        engine, answers, launches, work = int8_lane_run(torch, dev, doc, continuous, fl_prompts,
+                                                        stream=False)
+        cfg = engine.compiled.units["gen"].cfg
+        says = check_int8_launches(launches, cfg, continuous, work, 2, GEN_DIMS["max_new_tokens"],
+                                   True, f"the int8 flagship, {lane} lane")
+        params = engine.states()["gen"]["params"]
+        gaps = []
+        for name, p in fl_prompts.items():
+            toks = check_tokens(*answers[name], p, "ndarray")
+            gaps.append(plain_int8_gaps(torch, params, cfg, p, toks, dev, continuous).ravel())
+        gaps = np.concatenate(gaps)
+        engine.close()
+        out["flagship"][lane] = {"launches": launches, "work": work, "tokens": int(gaps.size),
+                                 "gap_max": float(gaps.max()),
+                                 "gap_p99": float(np.quantile(gaps, 0.99)),
+                                 "exact_share": float((gaps == 0).mean())}
+        log(f"[int8-serve] the flagship generator at quant/kv_quant int8 on the {lane} lane, a "
+            f"1-row and a 32-row {GEN_S}-token request: launches {says}; {gaps.size} tokens "
+            f"teacher-forced through the plain int8 path: gap to its maximum max "
+            f"{gaps.max():.5f}, p99 {np.quantile(gaps, 0.99):.5f} (delta {INT8_TOKEN_DELTA}), "
+            f"{(gaps == 0).mean() * 100:.2f}% its argmax")
+        if gaps.max() > INT8_TOKEN_DELTA:
+            raise AssertionError(f"[int8-serve] a served int8 token is {gaps.max():.4f} below the "
+                                 f"plain int8 path's maximum")
+    out["mnist"] = quantized_mnist_check(torch, dev)
+    log(f"[int8-serve] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def quantized_mnist_check(torch, dev) -> dict:
+    """QuantizedMnistClassifier (784-256-256-10, seed 0) over REST, 64 rows,
+    against MnistClassifier at the same seed in an engine of its own: the
+    same weights (the quantized state is quantize_mlp_params of the dense
+    one, bit for bit), argmax agreement >= 0.95 and probabilities within
+    0.05, as tests/test_quant.py:76 asks of the JAX units."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.ops.quant import quantize_mlp_params
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+
+    def doc(cls):
+        return {"spec": {"name": "q", "predictors": [{
+            "name": "p", "graph": {"name": "m", "type": "MODEL"},
+            "components": [{"name": "m", "runtime": "inprocess", "class_path": cls,
+                            "parameters": [{"name": "hidden", "value": "256", "type": "INT"}]}]}]}}
+
+    engines = [EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc(c))),
+                             device=dev) for c in ("QuantizedMnistClassifier", "MnistClassifier")]
+    qstate, dstate = (e.states()["m"] for e in engines)
+    want_state = quantize_mlp_params(dstate)
+    if set(qstate) != set(want_state) or not all(torch.equal(qstate[k], want_state[k])
+                                                 for k in qstate):
+        raise AssertionError("[int8-serve] the quantized MNIST unit's state is not the dense "
+                             "unit's quantized")
+    x = np.random.default_rng(SEED + 152).normal(size=(64, 784)).astype(np.float32)
+    probs = []
+    server = ServerThread(engines[0])
+    port = server.start()
+    try:
+        status, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                              ndarray(x))
+    finally:
+        server.stop()
+    if status != 200:
+        raise AssertionError(f"[int8-serve] quantized MNIST answered {status}: {raw[:200]!r}")
+    probs.append(np.asarray(json.loads(raw)["data"]["ndarray"], np.float64))
+    text, st = asyncio.run(engines[1].predict_json(json.dumps(ndarray(x))))
+    probs.append(np.asarray(json.loads(text)["data"]["ndarray"], np.float64))
+    engines[1].close()
+    agree = float((probs[0].argmax(1) == probs[1].argmax(1)).mean())
+    diff = float(np.abs(probs[0] - probs[1]).max())
+    log(f"[int8-serve] QuantizedMnistClassifier 784-256-256-10 over REST, 64 rows: argmax "
+        f"agreement {agree:.4f} with MnistClassifier at the same seed (>= 0.95), probabilities "
+        f"within {diff:.4f} (0.05); its state is the dense unit's quantized, bit for bit")
+    if st != 200 or agree < 0.95 or diff > 0.05:
+        raise AssertionError(f"[int8-serve] quantized MNIST: agreement {agree}, diff {diff}")
+    return {"argmax_agreement": agree, "max_prob_diff": diff}
+
+
+def dequant_times(torch, dev, smi) -> list:
+    """dequant_matmul (W8A16: bf16 x int8 weights, f32 accumulation and
+    output, the scale on the output) against the dense bf16 matmul at
+    DEQUANT_SHAPES, each rotating over copies of its weights that together
+    exceed the 50 MB L2 (the decode step streams 12 layers' weights), with
+    the bytes bound of each (x, weights, scales read once, y written once)."""
+    from seldon_core_tpu_torch.ops.quant import dequant_matmul, quantize_weight
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 161)
+    for M, K, N in DEQUANT_SHAPES:
+        copies = max(2, -(-DECODE_COLD_BYTES // (K * N * 2)))
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        dense = [torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16) / K ** 0.5
+                 for _ in range(copies)]
+        quant = [quantize_weight(w) for w in dense[:copies]]
+        i8_ms = device_ms(torch, rotating([(x, *q) for q in quant],
+                                          lambda a, wq, ws: dequant_matmul(a, wq, ws,
+                                                                           torch.bfloat16)), 50)
+        bf_ms = device_ms(torch, rotating([(x, w) for w in dense], lambda a, w: a @ w), 50)
+        flops = 2 * M * K * N
+        b_i8 = max((M * K * 2 + K * N + 4 * N + M * N * 2) / HBM_BYTES_PER_S,
+                   flops / BF16_FLOPS) * 1e3
+        b_bf = max((M * K * 2 + K * N * 2 + M * N * 2) / HBM_BYTES_PER_S,
+                   flops / BF16_FLOPS) * 1e3
+        rows.append({"shape": [M, K, N], "dequant_ms": i8_ms, "bf16_ms": bf_ms,
+                     "dequant_bound_ms": b_i8, "bf16_bound_ms": b_bf, "weight_copies": copies})
+        log(f"[int8-times] [{M},{K}] x [{K},{N}], cold weights ({copies} copies): dequant_matmul "
+            f"{i8_ms:.5f} ms (bound {b_i8:.6f}), dense bf16 matmul {bf_ms:.5f} ms (bound "
+            f"{b_bf:.6f}) on {smi}")
+        del dense, quant
+    return rows
+
+
+def int8_kernel_times(torch, fd, kw, dev, smi) -> dict:
+    """Device ms per call, cold L2, of each int8-K/V variant at the served
+    round (B=32, 4 kv heads of 4 query heads, hd 64, n=560: main 512 + 48
+    chunk tokens on the static lane) and at the long-context shape (n =
+    4096 + 64), the decode step's write fused in, beside the bf16 kernel at
+    the same shape, the int8 plain version, dequantize + SDPA (two calls:
+    no single PyTorch call computes int8-scaled decode) and the bound
+    (i8_bound); kv_write_paged's int8 variant at a prefill tick's W=128 and
+    512 into (2049, 4, 16, 64) beside the bf16 kernel, its plain version
+    and its bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"flash_decode": [], "flash_decode_paged": [], "kv_write_paged": []}
+    B, KV, G, hd = GEN_B, 4, 4, 64
+    for n in I8_TIMED_N:
+        C = 64 if n > 1024 else 63
+        n_chunk = n - (LC_S if n > 1024 else 512)
+        shape = (B, KV, G, hd, n - n_chunk, n - n_chunk, C, n_chunk)
+        t = {}
+        for int8 in (True, False):
+            sets = decode_sets(torch, shape, dev, SEED + 171, fused=True, int8=int8)
+            t["int8" if int8 else "bf16"] = device_ms(torch, rotating(
+                sets, lambda q, mk, mv, ck, cv, kn, vn, sc: fd.flash_decode_two_tier(
+                    q, mk, mv, shape[5], ck, cv, n_chunk, kn, vn, sc)), 50)
+            if int8:
+                t["plain"] = device_ms(torch, rotating(
+                    sets, lambda q, mk, mv, ck, cv, kn, vn, sc:
+                    fd.flash_decode_two_tier_reference(q, mk, mv, shape[5], ck, cv, n_chunk, kn,
+                                                       vn, sc)), 10)
+
+                def deq_sdpa(q, mk, mv, ck, cv, kn, vn, sc):
+                    k = torch.cat([mk.float() * sc[0][..., None], ck[:, :, :n_chunk].float()
+                                   * sc[2][:, :, :n_chunk, None]], dim=2).to(torch.bfloat16)
+                    v = torch.cat([mv.float() * sc[1][..., None], cv[:, :, :n_chunk].float()
+                                   * sc[3][:, :, :n_chunk, None]], dim=2).to(torch.bfloat16)
+                    return sdpa(q.reshape(B, KV * G, 1, hd), k, v, enable_gqa=True)
+
+                t["dequant_sdpa"] = device_ms(torch, rotating(sets, deq_sdpa), 10)
+            del sets
+        b_ms, b_by = i8_bound(B, KV, G, hd, B * n, True)
+        bf_ms, _ = decode_bound((B, KV, G, hd, 0, n - n_chunk, 0, n_chunk))
+        rows["flash_decode"].append({"shape": list(shape), "n": n, "ms": t["int8"],
+                                     "bf16_ms": t["bf16"], "plain_ms": t["plain"],
+                                     "dequant_sdpa_ms": t["dequant_sdpa"], "library_ms": None,
+                                     "bound_ms": b_ms, "bound_by": b_by,
+                                     "bf16_bound_ms": bf_ms})
+        log(f"[int8-times] flash_decode_two_tier int8 fused, (B,KV,G,hd)=({B},{KV},{G},{hd}), "
+            f"n={n} (main {n - n_chunk} + chunk {n_chunk}), cold L2: int8 {t['int8']:.5f} ms, "
+            f"bf16 kernel {t['bf16']:.5f} ms, int8 plain {t['plain']:.5f} ms, dequantize + SDPA "
+            f"(two calls) {t['dequant_sdpa']:.5f} ms, bound {b_ms:.6f} ms ({b_by}; bf16 "
+            f"{bf_ms:.6f}) on {smi}")
+        nblk = -(-n // PAGED_BS) + 4
+        t = {}
+        for int8 in (True, False):
+            sets = paged_sets(torch, B, KV, G, hd, nblk, [n] * B, dev, SEED + 172, int8)
+            t["int8" if int8 else "bf16"] = device_ms(torch, rotating(
+                sets, lambda q, pk, pv, tb, ln, kn, vn, sc=None: fd.flash_decode_paged(
+                    q, pk, pv, tb, ln, kn, vn, None, sc)), 50)
+            if int8:
+                t["plain"] = device_ms(torch, rotating(
+                    sets, lambda q, pk, pv, tb, ln, kn, vn, sc: fd.flash_decode_paged_reference(
+                        q, pk, pv, tb, ln, kn, vn, None, sc)), 10)
+
+                def deq_sdpa(q, pk, pv, tb, ln, kn, vn, sc):
+                    k, v = fd.paged_view(pk, pv, tb)
+                    ks, vs = (fd.paged_scale_view(s, tb) for s in sc)
+                    k = (k[:, :, :n].float() * ks[:, :, :n, None]).to(torch.bfloat16)
+                    v = (v[:, :, :n].float() * vs[:, :, :n, None]).to(torch.bfloat16)
+                    return sdpa(q.reshape(B, KV * G, 1, hd), k, v, enable_gqa=True)
+
+                t["dequant_sdpa"] = device_ms(torch, rotating(sets, deq_sdpa), 10)
+            del sets
+        b_ms, b_by = i8_bound(B, KV, G, hd, B * n, True, 4 * (B * nblk + B))
+        bf_ms, _ = paged_decode_bound(B, KV, G, hd, nblk, [n] * B, fused=True)
+        rows["flash_decode_paged"].append({"shape": [B, KV, G, hd, nblk, n], "n": n,
+                                           "ms": t["int8"], "bf16_ms": t["bf16"],
+                                           "plain_ms": t["plain"],
+                                           "dequant_sdpa_ms": t["dequant_sdpa"],
+                                           "library_ms": None, "bound_ms": b_ms,
+                                           "bound_by": b_by, "bf16_bound_ms": bf_ms})
+        log(f"[int8-times] flash_decode_paged int8 fused, (B,KV,G,hd)=({B},{KV},{G},{hd}), "
+            f"{nblk} blocks of {PAGED_BS}, n={n} in every row, cold L2: int8 {t['int8']:.5f} ms, "
+            f"bf16 kernel {t['bf16']:.5f} ms, int8 plain {t['plain']:.5f} ms, gather + dequantize "
+            f"+ SDPA (calls of their own) {t['dequant_sdpa']:.5f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}; bf16 {bf_ms:.6f}) on {smi}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 173)
+    Bw, nblk = 32, PAGED_NBLK
+    N = Bw * nblk + 1
+    for W in (128, 512):
+        (pk, pks), (pv, pvs) = (kw.int8_kv_rows((N, 4, PAGED_BS, 64), gen, dev)
+                                for _ in range(2))
+        bk, bv = (torch.zeros(N, 4, PAGED_BS, 64, dtype=torch.bfloat16, device=dev)
+                  for _ in range(2))
+        tables = (torch.randperm(N - 1, generator=gen, device=dev)[: Bw * nblk] + 1)
+        tables = tables.reshape(Bw, nblk).to(torch.int32)
+        start = (torch.randint(0, nblk * PAGED_BS // W, (Bw,), generator=gen, device=dev)
+                 * W).to(torch.int32)
+        valid = torch.ones(Bw, W, dtype=torch.bool, device=dev)
+        k, v = head_views(torch, Bw, W, 4, 64, torch.Generator().manual_seed(SEED + 174), dev)
+        i8_ms = device_ms(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid,
+                                                           (pks, pvs)), 100)
+        bf_ms = device_ms(torch, lambda: kw.kv_write_paged(bk, bv, k, v, tables, start, valid),
+                          100)
+        p_ms = device_ms(torch, lambda: kw.kv_write_paged_reference(pk, pv, k, v, tables, start,
+                                                                    valid, (pks, pvs)), 20)
+        nbytes = Bw * 4 * W * (2 * 64 * 2 + 2 * (64 + 4)) + 4 * (Bw * nblk + Bw) + Bw * W
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows["kv_write_paged"].append({"shape": [N, 4, PAGED_BS, 64, Bw, W], "ms": i8_ms,
+                                       "bf16_ms": bf_ms, "plain_ms": p_ms, "library_ms": None,
+                                       "bound_ms": b_ms, "bound_by": "bytes"})
+        log(f"[int8-times] kv_write_paged int8, {Bw} rows of W={W} bf16 into ({N},4,{PAGED_BS},"
+            f"64) int8 pools with scale planes: int8 {i8_ms:.5f} ms, bf16 kernel {bf_ms:.5f} ms, "
+            f"plain (quantize + index_put_) {p_ms:.5f} ms, bound {b_ms:.6f} ms (bytes) on {smi}")
+        del pk, pv, pks, pvs, bk, bv
+    return rows
+
+
+def long_context_rates(torch, dev, smi) -> dict:
+    """The static lane's long-context decode rate (bench.py:547-560: B=32,
+    S=4096, 64 new tokens), the flagship at int8 K/V against bf16 K/V in
+    turns (ABBA, I8_TURNS x 2 walls each): decode tokens/s from the wall of
+    generate(64) less the wall of generate(1) (the prefill and first
+    token), the same prompts and weights; then one profiled int8 decode
+    step (its launches and kernel ms)."""
+    from seldon_core_tpu_torch.models.generate import (decode_step_two_tier, generate,
+                                                       init_chunk, prefill, init_cache)
+    from seldon_core_tpu_torch.models.transformer import LMConfig, lm_init
+
+    dims = {k: v for k, v in GEN_DIMS.items() if k != "max_new_tokens"}
+    cfgs = {"int8": LMConfig(**dims, kv_quant="int8"), "bf16": LMConfig(**dims)}
+    params = lm_init(torch.Generator().manual_seed(SEED + 181), cfgs["bf16"], dev)
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, GEN_DIMS["vocab"],
+                                                               size=(LC_B, LC_S)),
+                             dtype=torch.int32, device=dev)
+    walls = {"int8": [], "bf16": []}
+
+    def wall(cfg, new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            generate(params, prompt, cfg, max_new_tokens=new, use_flash=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    for name in cfgs:  # warm-up
+        wall(cfgs[name], 2)
+    for _ in range(I8_TURNS):
+        for name in ("int8", "bf16", "bf16", "int8"):
+            walls[name].append((wall(cfgs[name], LC_NEW), wall(cfgs[name], 1)))
+    rates = {name: [LC_B * (LC_NEW - 1) / (a - b) for a, b in w] for name, w in walls.items()}
+    with torch.inference_mode():
+        cfg = cfgs["int8"]
+        _, main = prefill(params, prompt, init_cache(cfg, LC_B, LC_S, dev), cfg, True)
+        chunk = init_chunk(cfg, LC_B, LC_NEW, dev)
+        tok = prompt[:, -1]
+        prof = device_profile(torch, lambda: decode_step_two_tier(params, tok, main, chunk, LC_S,
+                                                                  0, cfg, True), "i8_step",
+                              by_name=True)
+    i8_ms = sum(v for k, v in prof["by_name"].items() if "flash_decode_kernel" in k)
+    del main, chunk
+    log(f"[int8-times] long-context static decode, B={LC_B}, S={LC_S}, {LC_NEW} new tokens, "
+        f"in turns (ABBA): int8 K/V {['%.1f' % r for r in rates['int8']]} tokens/s, bf16 K/V "
+        f"{['%.1f' % r for r in rates['bf16']]} tokens/s (decode only: generate(64) less "
+        f"generate(1)); a profiled int8 decode step: {prof['kernels']} kernels, "
+        f"{prof['kernel_ms']:.4f} ms of kernels in a {prof['wall_ms']:.3f} ms wall, the int8 "
+        f"decode kernel {i8_ms:.4f} ms ({12} launches) on {smi}")
+    return {"tokens_per_s": rates, "walls_s": walls,
+            "profiled_step": {k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
+                                                   "kernels", "top_ms")},
+            "int8_decode_kernel_ms_per_step": i8_ms}
+
+
+def int8_phases(torch, dev, smi) -> list:
+    """Phases 10k-10m, [2q] on the card: the int8-K/V variants against
+    their plain versions (10k), the int8 example and the flagship at int8
+    served on both lanes and the quantized MNIST (10l), their times (10m).
+    Returns the kernels line's three int8 rows, launches those of 10l."""
+    from seldon_core_tpu_torch.ops import flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    t_phase = time.perf_counter()
+    checked = int8_kernel_phase(torch, fd, kw, dev)
+    errs = checked["errs"]
+    served = int8_serve_phase(torch, dev, smi)
+    t0 = time.perf_counter()
+    times = int8_kernel_times(torch, fd, kw, dev, smi)
+    matmuls = dequant_times(torch, dev, smi)
+    rates = long_context_rates(torch, dev, smi)
+    log(f"[int8-times] phase wall {time.perf_counter() - t0:.2f} s")
+    log(json.dumps({"int8": {"served": served, "times": times, "dequant_matmul": matmuls,
+                             "long_context": rates, "card": smi}}))
+
+    def launches(name):
+        by = {f"{what} {lane}": run["launches"][name]
+              for what in ("example", "flagship") for lane, run in served[what].items()}
+        return sum(by.values()), by
+
+    rows = []
+    for name, kernel, design, err_key, replaces in (
+            ("flash_decode (int8 K/V)", "flash_decode int8", I8_DECODE_DESIGN, "flash_decode",
+             "seldon_core_tpu/ops/flash_decode.py:47"),
+            ("flash_decode_paged (int8 K/V)", "flash_decode_paged int8", I8_PAGED_DESIGN,
+             "flash_decode_paged", "seldon_core_tpu/ops/flash_decode.py:47"),
+            ("kv_write_paged (int8)", "kv_write_paged int8", I8_KV_DESIGN, "kv_write_paged",
+             "scripts/probe_inplace.py:55")):
+        top = times[err_key][0]
+        total, by = launches(kernel)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": ("seldon_core_tpu_torch/ops/csrc/"
+                       + {"flash_decode": "flash_decode.cu",
+                          "flash_decode_paged": "flash_decode_paged.cu",
+                          "kv_write_paged": "kv_write.cu"}[err_key]),
+            "replaces": replaces, "launches": total, "launches_by_path": by,
+            "max_abs_err": errs[err_key]["abs"], "max_rel_err": errs[err_key]["rel"],
+            "defects_rel_err": checked["defects"].get(err_key),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
+            "bf16_ms": top["bf16_ms"],
+            "library_note": ("no single PyTorch call computes int8-scaled decode; dequantize + "
+                             "SDPA (two calls) in 'at'" if err_key != "kv_write_paged" else
+                             "no PyTorch call quantizes and scatters"),
+            "shape": top["shape"], "design": design, "at": times[err_key]})
+    log(f"[int8] phases 10k-10m wall {time.perf_counter() - t_phase:.2f} s")
+    return rows
+
+
+def int8_build_checks(torch, fd) -> None:
+    """The int8-K/V variants' own shape checks, at the sources' dtype code
+    2: both take the flagship's (hd 64, group 4) and the example's (hd 16,
+    group 4) heads, refuse hd 8 and 40 (not a multiple of 16) and float32 q
+    over an int8 cache; the paged variant's shared memory equals
+    ops/flash_decode.py's statement of its layout (paged_i8_layout) at
+    every head dim and group it takes, and it refuses blocks of 12."""
+    i8 = torch.int8
+    for hd in (64, 16):
+        n, why = fd._smem_bytes(hd, 4, torch.bfloat16, i8)
+        if why is not None or n <= 0:
+            raise AssertionError(f"the int8 two-tier variant refused hd {hd}: {why!r}")
+    for hd, dtype, match in ((8, torch.bfloat16, "multiple of 16"),
+                             (40, torch.bfloat16, "multiple of 16"),
+                             (64, torch.float32, "int8 cache")):
+        why = fd.decode_kernel_shape_error(hd, dtype, 4, i8)
+        if why is None or match not in why:
+            raise AssertionError(f"the int8 two-tier variant let hd {hd} {dtype} through: {why!r}")
+    for hd in range(16, 257, 16):
+        for group in (1, 2, 3, 4, 8, 16):
+            n, why = fd._paged_smem_bytes(hd, group, PAGED_BS, torch.bfloat16, i8)
+            if why is not None or n != fd.paged_i8_layout(hd, group)["bytes"]:
+                raise AssertionError(f"the int8 paged layout's Python statement differs from the "
+                                     f"source at hd {hd}, group {group}: {n}, {why!r}")
+    for hd, bs, dtype, match in ((40, PAGED_BS, torch.bfloat16, "multiple of 16"),
+                                 (64, 12, torch.bfloat16, "multiple of 8"),
+                                 (64, PAGED_BS, torch.float32, "int8 pools")):
+        why = fd.paged_kernel_shape_error(hd, dtype, 4, bs, i8)
+        if why is None or match not in why:
+            raise AssertionError(f"the int8 paged variant let hd {hd}, blocks of {bs}, {dtype} "
+                                 f"through: {why!r}")
+    log(f"[build] int8-K/V variants (dtype code 2): hd 64 and 16 at group 4 taken by both; hd 8 "
+        f"and 40 and float32 q refused; the paged variant's shared memory equals "
+        f"paged_i8_layout at hd 16-256 x groups 1-16 ({fd.paged_i8_layout(64, 4)['bytes']} bytes "
+        f"at the flagship's heads), blocks of 12 refused")
+
+
 def main() -> int:
     import torch
 
@@ -4117,6 +5103,7 @@ def main() -> int:
     flash_build_checks(torch, flash_attention)
     decode_build_checks(torch, flash_decode)
     paged_build_checks(torch, flash_decode)
+    int8_build_checks(torch, flash_decode)
     log(f"[build] phase wall {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -4143,6 +5130,7 @@ def main() -> int:
     host_graphs = host_graph_phases(torch, dev, smi)
     log(json.dumps({"new_paths": {"speculative_example": spec_ex, "families": families,
                                   "router": router, "host_graphs": host_graphs, "card": smi}}))
+    int8_rows = int8_phases(torch, dev, smi)
     # the f32 example's verifies and prefill ticks write through kv_write_paged
     kv_paged_row["launches_by_path"]["speculative example (float32)"] = \
         spec_ex["launches"]["kv_write_paged"]
@@ -4179,7 +5167,7 @@ def main() -> int:
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,
-                                paged_row, f32_row, kv_paged_row]}))
+                                paged_row, f32_row, kv_paged_row, *int8_rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

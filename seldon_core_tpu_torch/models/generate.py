@@ -49,18 +49,32 @@ buffer, and ``merge_chunk`` copies the chunk into main in place.  The
 decode loop (``lax.scan`` in JAX) is a Python loop.  The JAX package's
 telemetry (TTFT, decode rate, the flight recorder) is not ported.
 
-Served here: greedy and sampled decoding, the shared prefix, float
-caches, seeded or trained weights (``weights_path``, loaded in
-``init_state`` as the JAX unit does).  The constructor refuses, with the
-ROADMAP item that will port each, ``quant`` / ``kv_quant`` other than
-"none" ([2]) and ``moe_every > 0`` ([5e]).  Speculative decoding is
-``models/speculative.py``.
+Served here: greedy and sampled decoding, the shared prefix, float and
+int8 caches, seeded or trained weights (``weights_path``, loaded in
+``init_state`` as the JAX unit does), dense or int8 weights (``quant``:
+``quantize_lm_params`` after the load, served through ``dequant_matmul``).
+The constructor refuses ``moe_every > 0``, naming ROADMAP item [5e].
+Speculative decoding is ``models/speculative.py``.
+
+The int8 K/V cache (``kv_quant="int8"``, the reference's
+``generate.py:133-447``): a layer holds int8 ``k``/``v`` and f32 scale
+planes ``k_s``/``v_s`` [B, KV, L], one scale per position and kv head
+(``_quantize_kv``: ``kv_write.quantize_kv``).  The prefill attends the
+exact K/V and stores them quantized; a decode step's K/V are quantized
+into the chunk slot and attended as codes times scales, its own row too;
+the merges, the stream's ``grow_merge`` and the prefix's
+``build_prefix_main`` carry the scales.  With ``use_flash`` each step is
+one launch of ``flash_decode_two_tier``'s int8-K/V variant, which
+quantizes in its launch.
 
 The paged KV pool of the continuous lane (``runtime/genserver.py``; the
 reference's ``generate.py:985-1351``): a per-layer pool of fixed-size
 blocks, block 0 the scratch block, and a block table per row.
 
-  * ``init_block_pool`` makes the pools; float pools only.  The port lays
+  * ``init_block_pool`` makes the pools (int8 pools with scale planes
+    ``[num_blocks, KV, block_size]`` f32, where the reference has
+    ``[num_blocks, block_size, KV]``; ``paged_scale_view`` gives its
+    views).  The port lays
     a pool out as ``[num_blocks, KV, block_size, hd]``, where the
     reference has ``[num_blocks, block_size, KV, hd]``: one kv head's rows
     of a block are then one contiguous run (2 KB at bs 16, hd 64, bf16),
@@ -130,14 +144,16 @@ from seldon_core_tpu_torch.ops.flash_decode import (
     flash_decode_reference,
     flash_decode_two_tier,
     flash_decode_two_tier_reference,
+    paged_scale_view,
     paged_view,
 )
 from seldon_core_tpu_torch.ops.kv_write import (
     kv_write_paged,
     kv_write_paged_reference,
     kv_write_reference,
+    quantize_kv as _quantize_kv,
 )
-from seldon_core_tpu_torch.ops.quant import lm_matmul
+from seldon_core_tpu_torch.ops.quant import lm_matmul, quantize_lm_params
 
 __all__ = ["init_cache", "init_chunk", "prefill", "decode_step",
            "decode_step_two_tier", "merge_chunk", "generate", "sample_token",
@@ -161,11 +177,16 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Zeroed K/V ``[batch, kv_heads, max_len, hd]`` per layer in the
     model dtype, at the grouped head count, on ``device`` (default
-    ``cuda``)."""
-    if cfg.kv_quant != "none":
-        refuse_unported(cfg)
+    ``cuda``); with ``kv_quant="int8"`` int8 K/V and f32 scale planes
+    ``k_s``/``v_s`` ``[batch, kv_heads, max_len]``."""
     dev = resolve_device(device)
     shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+    if cfg.kv_quant == "int8":
+        return {f"l{i}": {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "k_s": torch.zeros(shape[:3], device=dev),
+                          "v_s": torch.zeros(shape[:3], device=dev)}
+                for i in range(cfg.n_layers)}
     return {f"l{i}": {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                       "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
             for i in range(cfg.n_layers)}
@@ -189,6 +210,11 @@ def _grouped(q, kv_heads: int):
     return q.reshape(B, kv_heads, H // kv_heads, hd)
 
 
+def _scales(layer):
+    """An int8 layer's (k_s, v_s), or None for a float one."""
+    return (layer["k_s"], layer["v_s"]) if "k_s" in layer else None
+
+
 def _attend_two_tier(q, main_layer, chunk_layer, n_main: int, n_chunk: int,
                      use_flash: bool = False, k_new=None, v_new=None):
     """q [B,H,1,hd] over main[:n_main] + chunk[:n_chunk]: one softmax over
@@ -198,10 +224,13 @@ def _attend_two_tier(q, main_layer, chunk_layer, n_main: int, n_chunk: int,
     n_chunk - 1 (the chunk's last, or main's when the chunk is empty).
     ``use_flash`` takes ``flash_decode_two_tier`` (the kernel for CUDA
     tensors: one launch, the write fused in), else its plain version (the
-    slot's slice assignment, then the plain attention)."""
+    slot's slice assignment, then the plain attention).  Int8 layers pass
+    their scale planes: the write quantizes, the attention scales."""
     attend = flash_decode_two_tier if use_flash else flash_decode_two_tier_reference
+    ms = _scales(main_layer)
     out = attend(_grouped(q, main_layer["k"].shape[1]), main_layer["k"], main_layer["v"],
-                 n_main, chunk_layer["k"], chunk_layer["v"], n_chunk, k_new, v_new)
+                 n_main, chunk_layer["k"], chunk_layer["v"], n_chunk, k_new, v_new,
+                 None if ms is None else ms + _scales(chunk_layer))
     return out.reshape(q.shape)
 
 
@@ -216,12 +245,14 @@ def _attend_cached(q, cache_layer, n_valid: int, use_flash: bool = False, k_new=
     (``_attend_cached``'s arithmetic)."""
     qg = _grouped(q, cache_layer["k"].shape[1])
     k, v = cache_layer["k"], cache_layer["v"]
+    sc = _scales(cache_layer)
     if use_flash:
-        out = flash_decode_two_tier(qg, k, v, n_valid, k[:, :, :0], v[:, :, :0], 0, k_new, v_new)
+        out = flash_decode_two_tier(qg, k, v, n_valid, k[:, :, :0], v[:, :, :0], 0, k_new, v_new,
+                                    None if sc is None else sc + (sc[0][:, :, :0], sc[1][:, :, :0]))
     else:
         if k_new is not None:
-            kv_write_reference(k, v, k_new, v_new, n_valid - 1)
-        out = flash_decode_reference(qg, k, v, n_valid)
+            kv_write_reference(k, v, k_new, v_new, n_valid - 1, sc)
+        out = flash_decode_reference(qg, k, v, n_valid, *(sc or ()))
     return out.reshape(q.shape)
 
 
@@ -277,13 +308,13 @@ def decode_step_two_tier(params, token, main, chunk, n_main: int, n_chunk: int,
 
 def merge_chunk(main, chunk, n_main: int, cfg: LMConfig):
     """Copy a chunk buffer into the main cache at position ``n_main``, in
-    place (JAX rebuilds main with a donated ``dynamic_update_slice``).
-    Returns main."""
+    place (JAX rebuilds main with a donated ``dynamic_update_slice``), the
+    scale planes of an int8 cache too.  Returns main."""
     for i in range(cfg.n_layers):
         ml, cl = main[f"l{i}"], chunk[f"l{i}"]
         C = cl["k"].shape[2]
-        ml["k"][:, :, n_main:n_main + C] = cl["k"]
-        ml["v"][:, :, n_main:n_main + C] = cl["v"]
+        for kk in ml:
+            ml[kk][:, :, n_main:n_main + C] = cl[kk]
     return main
 
 
@@ -291,9 +322,11 @@ def _attend_cached_causal(q, cache_layer, start: int):
     """q [B,H,S,hd] for global positions start..start+S-1 over the whole
     cache: query i sees positions <= start + i (``_attend_cached_causal``,
     ``generate.py:387``: the prefix's suffix segment).  The plain attention
-    of the paged pool's views, with one start for every row."""
+    of the paged pool's views, with one start for every row (and an int8
+    cache's scales)."""
     starts = torch.full((q.shape[0],), int(start), dtype=torch.int32, device=q.device)
-    return attend_paged(q, cache_layer["k"], cache_layer["v"], starts)
+    return attend_paged(q, cache_layer["k"], cache_layer["v"], starts,
+                        *(_scales(cache_layer) or ()))
 
 
 def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
@@ -306,12 +339,20 @@ def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
     flash forward when ``use_flash`` and the shape contract holds), and
     S == 1 a cached step over cache[:n_valid], whose K/V go to slot
     ``start`` = n_valid - 1 (one ``flash_decode_two_tier`` launch, the
-    write fused in, when ``use_flash``)."""
+    write fused in, when ``use_flash``).  An int8 cache stores the K/V
+    quantized with their scales; the prefill still attends the exact K/V,
+    a segment and a step the stored codes."""
     S = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, start)
     if segment or S > 1:
-        cache_layer["k"][:, :, start:start + S] = k
-        cache_layer["v"][:, :, start:start + S] = v
+        if "k_s" in cache_layer:
+            (kw, k_s), (vw, v_s) = _quantize_kv(k), _quantize_kv(v)
+            cache_layer["k_s"][:, :, start:start + S] = k_s
+            cache_layer["v_s"][:, :, start:start + S] = v_s
+        else:
+            kw, vw = k, v
+        cache_layer["k"][:, :, start:start + S] = kw
+        cache_layer["v"][:, :, start:start + S] = vw
     if segment:
         a = _attend_cached_causal(q, cache_layer, start)
     elif S > 1:
@@ -358,13 +399,13 @@ def decode_step(params, token, cache, pos: int, cfg: LMConfig, use_flash: bool =
 def build_prefix_main(prefix_cache, batch: int, total_len: int, cfg: LMConfig):
     """A batched main cache [batch, KV, total_len, hd] per layer whose first
     P slots hold the shared B=1 prefix cache, the rest zeros
-    (``build_prefix_main``, ``generate.py:522``): each request then
-    prefills only its suffix."""
+    (``build_prefix_main``, ``generate.py:522``; an int8 cache's scale
+    planes likewise): each request then prefills only its suffix."""
     out = {}
     for li, layer in prefix_cache.items():
         out[li] = {}
         for kk, vv in layer.items():
-            t = vv.new_zeros((batch, vv.shape[1], total_len, vv.shape[3]))
+            t = vv.new_zeros((batch, vv.shape[1], total_len) + tuple(vv.shape[3:]))
             t[:, :, :vv.shape[2]] = vv
             out[li][kk] = t
     return out
@@ -529,9 +570,10 @@ def grow_merge(main, chunk, cfg: LMConfig, used: int):
     """main ++ chunk[:used] along the length axis (``torch.cat``): a new
     main cache that is exactly full, so every later step reads valid slots
     only.  The stream's counterpart of ``merge_chunk``; it copies main once
-    per ``STREAM_CHUNK_CAP`` tokens and briefly holds old and new main."""
+    per ``STREAM_CHUNK_CAP`` tokens and briefly holds old and new main
+    (an int8 cache's scale planes grow with it)."""
     return {f"l{i}": {kk: torch.cat([main[f"l{i}"][kk], chunk[f"l{i}"][kk][:, :, :used]], dim=2)
-                      for kk in ("k", "v")}
+                      for kk in main[f"l{i}"]}
             for i in range(cfg.n_layers)}
 
 
@@ -607,13 +649,19 @@ def stream_chunks(params, prompt, cfg: LMConfig, max_new_tokens: int, chunk: int
 def init_block_pool(cfg: LMConfig, num_blocks: int, block_size: int,
                     device: DeviceLike = None) -> Dict[str, Any]:
     """Per-layer {k, v} pools ``[num_blocks, KV, block_size, hd]`` in the
-    model dtype on ``device`` (default ``cuda``).  Block 0 is the scratch
-    block: the allocator hands out ids >= 1.  Float pools only: an int8
-    ``kv_quant`` is refused (ROADMAP Queue 1 item [2])."""
-    if cfg.kv_quant != "none":
-        refuse_unported(cfg)
+    model dtype on ``device`` (default ``cuda``); with ``kv_quant="int8"``
+    int8 pools and their f32 scale planes ``k_s``/``v_s`` ``[num_blocks,
+    KV, block_size]`` (the reference's are ``[num_blocks, block_size,
+    KV]``).  Block 0 is the scratch block: the allocator hands out ids >=
+    1."""
     dev = resolve_device(device)
     shape = (num_blocks, cfg.kv_heads, block_size, cfg.head_dim)
+    if cfg.kv_quant == "int8":
+        return {f"l{i}": {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "k_s": torch.zeros(shape[:3], device=dev),
+                          "v_s": torch.zeros(shape[:3], device=dev)}
+                for i in range(cfg.n_layers)}
     return {f"l{i}": {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                       "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
             for i in range(cfg.n_layers)}
@@ -621,19 +669,27 @@ def init_block_pool(cfg: LMConfig, num_blocks: int, block_size: int,
 
 def _paged_view(layer, tables):
     """One layer's blocks gathered into dense position-ordered views:
-    {"k", "v"} each [B, KV, nblk*bs, hd], the reference's view."""
+    {"k", "v"} each [B, KV, nblk*bs, hd], the reference's view, and an
+    int8 pool's {"k_s", "v_s"} [B, KV, nblk*bs]."""
     k, v = paged_view(layer["k"], layer["v"], tables)
-    return {"k": k, "v": v}
+    out = {"k": k, "v": v}
+    for kk in ("k_s", "v_s"):
+        if kk in layer:
+            out[kk] = paged_scale_view(layer[kk], tables)
+    return out
 
 
-def _paged_write(layer, tables, start, valid, k_new, v_new, use_flash: bool = False):
+def _paged_write(layer, tables, start, valid, k_new, v_new, use_flash: bool = False,
+                 k_s=None, v_s=None):
     """Fresh K/V [B, KV, W, hd] into the pool at positions start[b] + i of
     each row, through its table; ``valid`` [B, W] False routes a write to
-    the scratch block 0.  In place: ``kv_write_paged`` (the kernel for CUDA
-    tensors) when ``use_flash``, else its plain version.  Returns the
-    layer."""
+    the scratch block 0.  An int8 pool quantizes float rows, or takes int8
+    rows with their scales ``k_s``/``v_s`` [B, KV, W] as they are, and
+    writes the scales to its planes.  In place: ``kv_write_paged`` (the
+    kernel for CUDA tensors) when ``use_flash``, else its plain version.
+    Returns the layer."""
     write = kv_write_paged if use_flash else kv_write_paged_reference
-    write(layer["k"], layer["v"], k_new, v_new, tables, start, valid)
+    write(layer["k"], layer["v"], k_new, v_new, tables, start, valid, _scales(layer), k_s, v_s)
     return layer
 
 
@@ -641,7 +697,7 @@ def _attend_paged(q, view, start):
     """q [B, H, W, hd] over a dense paged view; query i of row b sees
     positions <= start[b] + i (its own fresh K/V is already in the pool).
     W == 1 with start == n_valid is the cached decode mask."""
-    return attend_paged(q, view["k"], view["v"], start)
+    return attend_paged(q, view["k"], view["v"], start, view.get("k_s"), view.get("v_s"))
 
 
 def _paged_block(lp, x, pool_layer, tables, start, valid, cfg: LMConfig,
@@ -659,7 +715,8 @@ def _paged_block(lp, x, pool_layer, tables, start, valid, cfg: LMConfig,
     if W == 1 and use_flash:
         lens = start + 1 if lens is None else lens
         a = flash_decode_paged(_grouped(q, cfg.kv_heads), pool_layer["k"], pool_layer["v"],
-                               tables, lens, k, v, valid[:, 0]).reshape(q.shape)
+                               tables, lens, k, v, valid[:, 0],
+                               _scales(pool_layer)).reshape(q.shape)
     else:
         _paged_write(pool_layer, tables, start, valid, k, v, use_flash)
         a = _attend_paged(q, _paged_view(pool_layer, tables), start)
@@ -785,15 +842,18 @@ def paged_spec_round(t_params, d_params, t_pool, d_pool, t_tables, d_tables, tok
 def _prefix_write(pool, prefix, tables: List[int], lo: int, hi: int, use_flash: bool):
     """Positions lo..hi-1 of the B=1 prefix cache into the pool through a
     one-row table, starting at the table's position 0: one
-    ``_paged_write`` a layer (``kv_write_paged`` with ``use_flash``)."""
+    ``_paged_write`` a layer (``kv_write_paged`` with ``use_flash``).  An
+    int8 prefix's codes and scales are copied as they are (the reference
+    copies them)."""
     dev = pool["l0"]["k"].device
     table = torch.tensor([tables], dtype=torch.int32, device=dev)
     start = torch.zeros(1, dtype=torch.int32, device=dev)
     valid = torch.ones(1, hi - lo, dtype=torch.bool, device=dev)
     for li, layer in pool.items():
         pl = prefix[li]
+        sc = _scales(pl)
         _paged_write(layer, table, start, valid, pl["k"][:, :, lo:hi], pl["v"][:, :, lo:hi],
-                     use_flash)
+                     use_flash, *(() if sc is None else (t[:, :, lo:hi] for t in sc)))
     return pool
 
 
@@ -880,6 +940,8 @@ class TransformerGenerator(Unit):
     def init_state(self, rng: Optional[torch.Generator]):
         params = lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
         params = load_lm_weights(params, self.weights_path)
+        if self.cfg.quant == "int8":  # after the load, as the reference
+            params = quantize_lm_params(params)
         state = {"params": params,
                  "requests": torch.zeros((), dtype=torch.int32, device=self.device)}
         if self.prefix_ids:

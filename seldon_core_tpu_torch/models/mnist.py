@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
 from seldon_core_tpu_torch.graph.units import Unit, register_unit
+from seldon_core_tpu_torch.ops.quant import QuantizedMLP, quantize_mlp_params
 from seldon_core_tpu_torch.models.transformer import seeded_generator
 from seldon_core_tpu_torch.ops.fused_mlp import (
     fused_mlp_softmax,
@@ -148,6 +149,28 @@ class MnistClassifier(Unit):
         if self.path == "reference":
             return fused_mlp_softmax_reference(state, X)
         return torch.softmax(mlp_apply(state, X), dim=-1)
+
+
+@register_unit("QuantizedMnistClassifier")
+class QuantizedMnistClassifier(MnistClassifier):
+    """Int8 serving variant (``mnist.py:152-168`` there): the MLP's weights
+    quantize once at init (``quantize_mlp_params``, symmetric per output
+    channel) and serve weight-only through ``QuantizedMLP``, every layer a
+    ``dequant_matmul``.  No kernel, as in the reference, whose int8 path is
+    XLA's: ``use_pallas`` is checked and has no other effect."""
+
+    def __init__(self, hidden: int = 512, depth: int = 2, seed: int = 0,
+                 dtype: str = "bfloat16", use_pallas: str = "auto", device: DeviceLike = None):
+        if str(use_pallas) not in ("auto", "interpret", "never"):
+            raise ValueError(f"use_pallas {use_pallas!r} not auto/interpret/never")
+        super().__init__(hidden, depth, seed, dtype, "never", device)
+        self.path = "int8"
+
+    def init_state(self, rng: Optional[torch.Generator]):
+        return quantize_mlp_params(super().init_state(rng))
+
+    def predict(self, state, X):
+        return QuantizedMLP.apply(state, X.reshape(X.shape[0], -1))
 
 
 def cnn_init(rng: torch.Generator, channels: int = 32, dtype: torch.dtype = torch.bfloat16,

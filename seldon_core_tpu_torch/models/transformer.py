@@ -34,7 +34,10 @@ A generator asks with ``decode=True``: then the decode lane's kernel
 asked and probed as well, and a refusal sends prefill and decode to the
 plain path ("auto", logged) or raises ("flash").  The decode kernel takes every
 config the forward takes (bf16, head dim a multiple of 16 up to 256), so
-in practice the forward decides.
+in practice the forward decides.  With ``kv_quant="int8"`` the question is
+the cache's: the int8-K/V variants of both decode kernels (two-tier and
+paged, dtype code 2) are asked, and the two-tier one probed, so an int8
+cache never reaches a bf16 kernel.
 
 The JAX package's length gates (``FLASH_AUTO_MIN_S`` = 4096 and
 ``FLASH_AUTO_MIN_S_GQA`` = 512, ``transformer.py:544-545``) were set from
@@ -55,8 +58,13 @@ bf16 only, so f32 training on CUDA takes the plain attention (logged).
 ``save_lm_weights`` / ``load_lm_weights`` and the units' ``weights_path``
 carry trained weights to serving in the JAX package's ``.npz`` format.
 
-Not ported yet (the units and ``lm_train_step`` raise ``ValueError``
-naming the ROADMAP item): int8 ``quant``, MoE layers and their
+Int8 weights (``quant="int8"``): the units quantize after loading their
+weights (``ops/quant.py`` ``quantize_lm_params``) and every layer matmul
+takes ``lm_matmul``'s W8A16 path; ``lm_train_step`` refuses them, as the
+reference does.
+
+Not ported yet (the units raise ``ValueError`` naming the ROADMAP item):
+MoE layers and their
 load-balance loss, meshes and ring attention, and the pipeline and sharded
 train steps.
 """
@@ -83,8 +91,9 @@ from seldon_core_tpu_torch.ops.flash_attention import (
     probe_kernel,
     shape_contract_error,
 )
-from seldon_core_tpu_torch.ops.flash_decode import decode_kernel_shape_error, probe_decode_kernel
-from seldon_core_tpu_torch.ops.quant import lm_matmul
+from seldon_core_tpu_torch.ops.flash_decode import (decode_kernel_shape_error,
+                                                    paged_kernel_shape_error, probe_decode_kernel)
+from seldon_core_tpu_torch.ops.quant import lm_matmul, quantize_lm_params
 from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
 from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
 
@@ -152,12 +161,6 @@ class LMConfig:
 def refuse_unported(cfg: LMConfig) -> None:
     """ValueError for the LM options the port does not serve yet, naming
     the ROADMAP item that will port each."""
-    if cfg.quant != "none" or cfg.kv_quant != "none":
-        raise ValueError(
-            f"quant={cfg.quant!r} / kv_quant={cfg.kv_quant!r}: the port serves "
-            f"dense bf16/f32 weights and caches only (int8 LM quantization: "
-            f"ROADMAP Queue 1 item [2q])"
-        )
     if cfg.moe_every > 0:
         raise ValueError(
             f"moe_every={cfg.moe_every}: MoE layers are not ported yet "
@@ -331,7 +334,10 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
     ``decode`` (a generator) the decode lane's kernels are asked and
     probed too (``decode_kernel_shape_error``, ``probe_decode_kernel``, with
     the step's K/V write fused in, as every cached step calls it), and
-    ``use_flash`` also sends every cached step through it."""
+    ``use_flash`` also sends every cached step through it.  An int8 cache
+    (``kv_quant="int8"``) asks and probes the int8-K/V variants (the paged
+    kernel asked at the continuous lane's default block size, 16; the
+    scheduler probes it at its own)."""
     if attention == "xla":
         return False
     if attention not in ("auto", "flash"):
@@ -341,9 +347,12 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
     if device.type != "cuda":
         return True  # the wrappers run the plain versions for CPU tensors
     group = cfg.n_heads // cfg.kv_heads
+    kv_dtype = torch.int8 if cfg.kv_quant == "int8" else None
     why = kernel_shape_error(cfg.head_dim, cfg.dtype)
     if why is None and decode:
-        why = decode_kernel_shape_error(cfg.head_dim, cfg.dtype, group)
+        why = decode_kernel_shape_error(cfg.head_dim, cfg.dtype, group, kv_dtype)
+    if why is None and decode and kv_dtype is not None:
+        why = paged_kernel_shape_error(cfg.head_dim, cfg.dtype, group, 16, kv_dtype)
     if why is not None:
         if attention == "flash":
             raise ValueError(f"attention='flash': {why}")
@@ -352,7 +361,7 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
         return False
     probe_kernel(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
     if decode:
-        probe_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, device)
+        probe_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, device, kv_dtype)
     return True
 
 
@@ -516,7 +525,8 @@ class TransformerLM(Unit):
 
     def init_state(self, rng):
         params = lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
-        return load_lm_weights(params, self.weights_path)
+        params = load_lm_weights(params, self.weights_path)
+        return quantize_lm_params(params) if self.cfg.quant == "int8" else params
 
     def predict(self, state, X):
         return lm_apply(state, X, self.cfg, use_flash=self.use_flash)

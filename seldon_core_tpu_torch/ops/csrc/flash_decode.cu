@@ -81,6 +81,27 @@
 // still depends only on n, so a stream's merge of its chunk into main
 // keeps its bits.
 //
+// The int8 K/V cache (kv_quant = "int8"; flash_decode_i8_launch).  The
+// same kernel over int8 segments with their scale planes k_s / v_s [B, KV,
+// L] f32, the reference's _attend_two_tier with scales (generate.py:162-227,
+// _grouped_qk and _pv_f32): a score is (q . k_int8) * (1/sqrt(D)) * k_s[j]
+// in f32 (int8 codes are exact in bf16 and f32, so every product is
+// exact), and V enters as p * v_s[j] rounded to bf16 times v_int8, in f32;
+// l sums the unscaled exp.  A lane takes 8 codes (8 bytes) of a row where
+// it takes 8 bf16 values (16 bytes), so the ring's stages carry half the
+// bytes (a row is D bytes: D a multiple of 16, the bulk copies' unit); a
+// slot reads its positions' two scales from global memory before it waits
+// on the stage.  The fused write quantizes: the lanes of the slot that
+// walks position n - 1 each take the whole fresh bf16 row's absmax (D / 8
+// loads of 16 bytes), so every lane of the group holds the same scale, and
+// quantize their own 8 values by kv_int8.cuh (the reference's quantizer,
+// bit for bit); the ring's empty slot gets those codes and the walk that
+// scale, so the fresh position is attended as the reference writes and
+// then reads it (codes times scale), never as the exact bf16 row; row tile
+// 0 stores codes and scales into the cache.  Bound: the bytes, now 2 D + 8
+// bytes a position and kv head for K and V with their scales (~9.75 MB,
+// ~2.91 us at 3.35 TB/s, at B=32, KV=4, D=64 and 560 positions).
+//
 // The continuous lane's block pool has a kernel of its own
 // (flash_decode_paged.cu), with both products on the tensor cores.
 //
@@ -95,6 +116,9 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <type_traits>
+
+#include "kv_int8.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -108,6 +132,7 @@ constexpr int MAX_SPLIT = 8;           // blocks per cluster: the portable limit
 constexpr int NSTAGE = 4;              // ring depth, in groups of U positions a slot
 constexpr int SMEM_LIMIT = 232448;     // 227 KB opt-in per block on sm_90
 constexpr int DTYPE_BF16 = 0;          // dtype codes of the wrappers
+constexpr int DTYPE_I8 = 2;            // int8 K/V with f32 scales, bf16 q and o
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -115,17 +140,22 @@ constexpr unsigned FULL = 0xffffffffu;
 // together; fewer at GT = 8 to stay clear of spills
 __host__ __device__ constexpr int positions_per_stage(int GT) { return GT >= 8 ? 1 : 2; }
 
-struct Segment {
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+template <typename E>       // E: the cache element, __nv_bfloat16 or int8_t
+struct SegmentT {
+  const E* k;
+  const E* v;
   long long ks[3], vs[3];  // element strides of b, kv head, position (d is 1)
+  const float* k_s;        // int8 caches: scales [B, KV, L] f32, unit stride along L
+  const float* v_s;
+  long long kss[2], vss[2];  // element strides of b, kv head of k_s, v_s
   int n;                   // positions read
 };
 
-struct Params {
+template <typename E>
+struct ParamsT {
   const __nv_bfloat16* q;
   long long qs[3];         // element strides of b, kv head, group row (d is 1)
-  Segment seg[2];
+  SegmentT<E> seg[2];
   const __nv_bfloat16* k_new;  // [B, KV, 1, D] or null: no fused write
   const __nv_bfloat16* v_new;
   long long kns[2], vns[2];    // element strides of b and kv head of k_new, v_new
@@ -180,17 +210,23 @@ __host__ __device__ inline Layout layout_for(int D, int GT) {
 }
 
 // The shape and type rules: bf16, a head dim that is a multiple of 8 up to
-// 256, a group of at least one row.  Returns the dynamic shared memory in
-// bytes, or -1 with the reason in why (why may be null when why_len is 0).
+// 256, a group of at least one row; the int8 cache (dtype code 2: int8 K/V,
+// bf16 q) a head dim that is a multiple of 16 (a row of codes is one bulk
+// copy's unit).  Returns the dynamic shared memory in bytes (the int8 walk
+// uses the bf16 layout, half of its ring), or -1 with the reason in why
+// (why may be null when why_len is 0).
 int plan(int head_dim, int group, int dtype_code, char* why, int why_len) {
-  if (dtype_code != DTYPE_BF16) {
-    snprintf(why, why_len, "the flash-decode kernel takes bfloat16 q/k/v only");
+  if (dtype_code != DTYPE_BF16 && dtype_code != DTYPE_I8) {
+    snprintf(why, why_len,
+             "the flash-decode kernel takes bfloat16 q/k/v, or bfloat16 q with an int8 cache, "
+             "only");
     return -1;
   }
-  if (head_dim < 8 || head_dim > MAX_D || head_dim % 8 != 0) {
+  const int unit = dtype_code == DTYPE_I8 ? 16 : 8;
+  if (head_dim < unit || head_dim > MAX_D || head_dim % unit != 0) {
     snprintf(why, why_len,
-             "head dim %d: the flash-decode kernel takes a multiple of 8 up to %d", head_dim,
-             MAX_D);
+             "head dim %d: the flash-decode kernel takes a multiple of %d up to %d%s", head_dim,
+             unit, MAX_D, dtype_code == DTYPE_I8 ? " with an int8 cache" : "");
     return -1;
   }
   if (group < 1) {
@@ -207,15 +243,8 @@ int plan(int head_dim, int group, int dtype_code, char* why, int why_len) {
   return smem;
 }
 
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) { kvq::bf16x8(u, f); }
+__device__ __forceinline__ void unpack8(const uint2& u, float (&f)[8]) { kvq::dequant8(u, f); }
 
 // 2^x on the SFU in one instruction: 0 for -inf (denormal results flush to 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -263,10 +292,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 // rows cache rows of row_bytes each, `stride` elements apart, into
 // consecutive rows of shared memory by the bulk-copy engine, completion on
 // bar: one copy when the rows are contiguous, else one a row
-__device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src, long long stride,
-                                          int rows, int row_bytes, uint32_t bar) {
-  const int runs = stride * 2 == row_bytes ? 1 : rows;
-  const int bytes = stride * 2 == row_bytes ? rows * row_bytes : row_bytes;
+template <typename E>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const E* src, long long stride, int rows,
+                                          int row_bytes, uint32_t bar) {
+  const bool whole = stride * static_cast<long long>(sizeof(E)) == row_bytes;
+  const int runs = whole ? 1 : rows;
+  const int bytes = whole ? rows * row_bytes : row_bytes;
   for (int r = 0; r < runs; ++r)
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
@@ -275,9 +306,13 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src
 }
 
 // FRESH: the launch takes the decode step's K/V write (k_new/v_new set);
-// without it the kernel is the plain attention, with none of the write's code
-template <int GT, bool FRESH>
-__global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) {
+// without it the kernel is the plain attention, with none of the write's
+// code.  E: the cache element (int8_t: the int8 cache, with its scales)
+template <int GT, bool FRESH, typename E>
+__global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E> p) {
+  constexpr bool I8 = std::is_same<E, int8_t>::value;
+  constexpr int CB = 8 * static_cast<int>(sizeof(E));  // bytes of a lane's 8 values
+  using Chunk = typename std::conditional<I8, uint2, uint4>::type;
   constexpr int U = positions_per_stage(GT);
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -302,8 +337,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   // into its shared memory: arrive now, wait before the first remote store
   if (p.split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  const Segment& s0 = p.seg[0];
-  const Segment& s1 = p.seg[1];
+  const SegmentT<E>& s0 = p.seg[0];
+  const SegmentT<E>& s1 = p.seg[1];
   const int n0 = s0.n;
   const int n = n0 + s1.n;
   // this block's share of the positions, by global index over both segments
@@ -316,7 +351,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   const int T = slots * U;                       // positions per ring stage
   const int n_groups = (cnt + T - 1) / T;        // block-uniform
   const Layout lay = layout_for(p.D, GT);
-  const int row_bytes = p.D * 2;
+  const int row_bytes = p.D * static_cast<int>(sizeof(E));
   const int stage_bytes = 2 * T * row_bytes;     // K rows, then V rows
   // where the fresh row sits in the ring: group, step and slot (-1: nowhere)
   const int fresh_grp = holds_fresh ? (cnt - 1) / T : -1;
@@ -337,7 +372,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
       const int j = p0 + i;
       const bool in0 = j < n0;
       const int end = in0 ? min(hi, n0 - p0) : hi;
-      const Segment& sg = in0 ? s0 : s1;
+      const SegmentT<E>& sg = in0 ? s0 : s1;
       const long long jj = in0 ? j : j - n0;
       const uint32_t off = (i - lo) * row_bytes;
       copy_rows(kdst + off, sg.k + b * sg.ks[0] + kvh * sg.ks[1] + jj * sg.ks[2], sg.ks[2],
@@ -353,26 +388,45 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   // slot (segment 1's last when it has positions, else segment 0's) as the
   // block leaves, after its last cluster barrier, whose release would
   // otherwise wait for the stores to reach memory
-  const bool fresh_lanes = holds_fresh && slot == fresh_slot && active;
-  uint4 fk = make_uint4(0u, 0u, 0u, 0u), fv = fk;
+  const bool fresh_group = holds_fresh && slot == fresh_slot;  // int8: every lane takes the scale
+  const bool fresh_lanes = fresh_group && active;
+  Chunk fk{}, fv{};
+  float fks = 0.f, fvs = 0.f;  // int8: the fresh row's scales
   auto load_fresh = [&]() {
-    if (!fresh_lanes) return;
-    fk = *reinterpret_cast<const uint4*>(p.k_new + b * p.kns[0] + kvh * p.kns[1] + d0);
-    fv = *reinterpret_cast<const uint4*>(p.v_new + b * p.vns[0] + kvh * p.vns[1] + d0);
+    if (!fresh_group) return;
+    const __nv_bfloat16* kr = p.k_new + b * p.kns[0] + kvh * p.kns[1];
+    const __nv_bfloat16* vr = p.v_new + b * p.vns[0] + kvh * p.vns[1];
+    if constexpr (I8) {
+      fks = kvq::bf16_row_scale(kr, p.D);
+      fvs = kvq::bf16_row_scale(vr, p.D);
+      if (!active) return;
+      float f[8];
+      kvq::bf16x8(*reinterpret_cast<const uint4*>(kr + d0), f);
+      fk = kvq::quant8(f, fks);
+      kvq::bf16x8(*reinterpret_cast<const uint4*>(vr + d0), f);
+      fv = kvq::quant8(f, fvs);
+    } else {
+      if (!active) return;
+      fk = *reinterpret_cast<const uint4*>(kr + d0);
+      fv = *reinterpret_cast<const uint4*>(vr + d0);
+    }
   };
   auto write_fresh = [&]() {
     if (!fresh_lanes || blockIdx.y != 0) return;
     load_fresh();
     const bool w1 = s1.n > 0;  // the segment written
+    const SegmentT<E>& sw = w1 ? s1 : s0;
     const long long j = (w1 ? s1.n : n0) - 1;
-    __nv_bfloat16* kd = const_cast<__nv_bfloat16*>(w1 ? s1.k : s0.k) +
-                        b * (w1 ? s1.ks[0] : s0.ks[0]) + kvh * (w1 ? s1.ks[1] : s0.ks[1]) +
-                        j * (w1 ? s1.ks[2] : s0.ks[2]);
-    __nv_bfloat16* vd = const_cast<__nv_bfloat16*>(w1 ? s1.v : s0.v) +
-                        b * (w1 ? s1.vs[0] : s0.vs[0]) + kvh * (w1 ? s1.vs[1] : s0.vs[1]) +
-                        j * (w1 ? s1.vs[2] : s0.vs[2]);
-    *reinterpret_cast<uint4*>(kd + d0) = fk;
-    *reinterpret_cast<uint4*>(vd + d0) = fv;
+    E* kd = const_cast<E*>(sw.k) + b * sw.ks[0] + kvh * sw.ks[1] + j * sw.ks[2];
+    E* vd = const_cast<E*>(sw.v) + b * sw.vs[0] + kvh * sw.vs[1] + j * sw.vs[2];
+    *reinterpret_cast<Chunk*>(kd + d0) = fk;
+    *reinterpret_cast<Chunk*>(vd + d0) = fv;
+    if constexpr (I8) {
+      if (c == 0) {
+        const_cast<float*>(sw.k_s)[b * sw.kss[0] + kvh * sw.kss[1] + j] = fks;
+        const_cast<float*>(sw.v_s)[b * sw.vss[0] + kvh * sw.vss[1] + j] = fvs;
+      }
+    }
   };
   if (fresh_grp == 0) load_fresh();
   float qr[GT][8];
@@ -407,16 +461,39 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     // the stage refilled here was read in the previous group, which ended
     // at a block barrier
     if (threadIdx.x == 0) fill(grp + NSTAGE - 1);
+    // int8: this slot's positions' scales, on their way while the stage
+    // lands (the fresh position's from the fresh row, not the cache)
+    float ksc[U], vsc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) ksc[u] = vsc[u] = 1.f;
+    if constexpr (I8) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int li = (grp * U + u) * slots + slot;
+        if (li >= cnt) continue;
+        if (holds_fresh && li == cnt - 1) {
+          ksc[u] = fks;
+          vsc[u] = fvs;
+          continue;
+        }
+        const int j = p0 + li;
+        const bool in0 = j < n0;
+        const SegmentT<E>& sg = in0 ? s0 : s1;
+        const long long jj = in0 ? j : j - n0;
+        ksc[u] = sg.k_s[b * sg.kss[0] + kvh * sg.kss[1] + jj];
+        vsc[u] = sg.v_s[b * sg.vss[0] + kvh * sg.vss[1] + jj];
+      }
+    }
     mbar_wait(bar0 + 8 * (grp % NSTAGE), (grp / NSTAGE) & 1);
     // the slot's u-th position of the group is row u*slots + slot of the stage
     const unsigned char* stage =
-        smem_bytes + (grp % NSTAGE) * stage_bytes + slot * row_bytes + c * 16;
+        smem_bytes + (grp % NSTAGE) * stage_bytes + slot * row_bytes + c * CB;
     if (grp == fresh_grp && fresh_lanes) {
-      // each lane stores its own 16-byte chunk, which it alone reads back
-      // (the last group: no copy refills this stage)
-      *reinterpret_cast<uint4*>(const_cast<unsigned char*>(stage) + fresh_u * slots * row_bytes) =
+      // each lane stores its own chunk, which it alone reads back (the last
+      // group: no copy refills this stage)
+      *reinterpret_cast<Chunk*>(const_cast<unsigned char*>(stage) + fresh_u * slots * row_bytes) =
           fk;
-      *reinterpret_cast<uint4*>(const_cast<unsigned char*>(stage) +
+      *reinterpret_cast<Chunk*>(const_cast<unsigned char*>(stage) +
                                 (T + fresh_u * slots) * row_bytes) = fv;
     }
     bool ok[U];
@@ -425,8 +502,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     for (int u = 0; u < U; ++u) {
       ok[u] = (grp * U + u) * slots + slot < cnt;
       float kf[8];
-      unpack8(ok[u] && active ? *reinterpret_cast<const uint4*>(stage + u * slots * row_bytes)
-                              : make_uint4(0u, 0u, 0u, 0u),
+      unpack8(ok[u] && active ? *reinterpret_cast<const Chunk*>(stage + u * slots * row_bytes)
+                              : Chunk{},
               kf);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
@@ -449,9 +526,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
       }
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u)
+    for (int u = 0; u < U; ++u) {
+      const float sc = I8 ? p.scale_log2 * ksc[u] : p.scale_log2;
 #pragma unroll
-      for (int g = 0; g < GT; ++g) s[u][g] = ok[u] ? s[u][g] * p.scale_log2 : -INFINITY;
+      for (int g = 0; g < GT; ++g) s[u][g] = ok[u] ? s[u][g] * sc : -INFINITY;
+    }
     // the online softmax over this group's U positions, row by row
     float pb[GT][U];
 #pragma unroll
@@ -470,7 +549,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
       for (int u = 0; u < U; ++u) {
         const float pu = exp2_approx(s[u][g] - mx);
         psum += pu;
-        pb[g][u] = round_bf16(pu);  // p cast to the cache dtype
+        pb[g][u] = round_bf16(I8 ? pu * vsc[u] : pu);  // p (times v_s) cast to bf16
       }
       l[g] = l[g] * alpha + psum;
       m[g] = mx;
@@ -481,8 +560,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
     for (int u = 0; u < U; ++u) {
       float vf[8];
       unpack8(ok[u] && active
-                  ? *reinterpret_cast<const uint4*>(stage + (T + u * slots) * row_bytes)
-                  : make_uint4(0u, 0u, 0u, 0u),
+                  ? *reinterpret_cast<const Chunk*>(stage + (T + u * slots) * row_bytes)
+                  : Chunk{},
               vf);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
@@ -595,17 +674,110 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) 
   }
 }
 
-// per group tile (1, 2, 4, 8), with or without the fused write, and device:
-// the shared-memory opt-in is set
-std::atomic<bool> g_smem_set[8][MAX_DEVICES];
+// per group tile (1, 2, 4, 8), with or without the fused write, cache
+// element (bf16, int8) and device: the shared-memory opt-in is set
+std::atomic<bool> g_smem_set[16][MAX_DEVICES];
+
+// Both entry points' launch: the checks, the parameters (scales and their
+// strides only for the int8 cache), the instance and the cluster launch.
+template <typename E>
+int launch(const void* q, const void* k0, const void* v0, int n0, const void* k1, const void* v1,
+           int n1, const void* k_new, const void* v_new, void* o, int B, int KV, int G, int D,
+           int split, int span, const long long* strides, const void* const* scales,
+           const long long* scale_strides, void* stream) {
+  constexpr bool I8 = std::is_same<E, int8_t>::value;
+  const int smem = plan(D, G, I8 ? DTYPE_I8 : DTYPE_BF16, nullptr, 0);
+  const int n = n0 + n1;  // split: 1, 2, 4 or 8, the portable cluster sizes
+  if (smem < 0 || B < 1 || KV < 1 || n0 < 0 || n1 < 0 || n < 1 ||
+      (split != 1 && split != 2 && split != 4 && split != 8) || span < 1 ||
+      static_cast<long long>(split) * span < n || static_cast<long long>(split - 1) * span >= n ||
+      (k_new == nullptr) != (v_new == nullptr))
+    return (int)cudaErrorInvalidValue;
+  ParamsT<E> p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.seg[0].k = static_cast<const E*>(k0);
+  p.seg[0].v = static_cast<const E*>(v0);
+  p.seg[0].n = n0;
+  p.seg[1].k = static_cast<const E*>(k1);
+  p.seg[1].v = static_cast<const E*>(v1);
+  p.seg[1].n = n1;
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = strides[i];
+    p.seg[0].ks[i] = strides[3 + i];
+    p.seg[0].vs[i] = strides[6 + i];
+    p.seg[1].ks[i] = strides[9 + i];
+    p.seg[1].vs[i] = strides[12 + i];
+  }
+  for (int sgi = 0; sgi < 2; ++sgi) {
+    SegmentT<E>& sg = p.seg[sgi];
+    sg.k_s = I8 ? static_cast<const float*>(scales[2 * sgi]) : nullptr;
+    sg.v_s = I8 ? static_cast<const float*>(scales[2 * sgi + 1]) : nullptr;
+    for (int i = 0; i < 2; ++i) {
+      sg.kss[i] = I8 ? scale_strides[4 * sgi + i] : 0;
+      sg.vss[i] = I8 ? scale_strides[4 * sgi + 2 + i] : 0;
+    }
+  }
+  p.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  p.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  for (int i = 0; i < 2; ++i) {
+    p.kns[i] = strides[15 + i];
+    p.vns[i] = strides[17 + i];
+  }
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.KV = KV;
+  p.G = G;
+  p.D = D;
+  p.lpr = lanes_per_row(D);
+  p.split = split;
+  p.span = span;
+  p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+
+  const int GT = group_tile(G);
+  const bool fresh = k_new != nullptr;
+  const int which = (GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3))) + 4 * fresh;
+  void (*const kernels[8])(const ParamsT<E>) = {
+      flash_decode_kernel<1, false, E>, flash_decode_kernel<2, false, E>,
+      flash_decode_kernel<4, false, E>, flash_decode_kernel<8, false, E>,
+      flash_decode_kernel<1, true, E>,  flash_decode_kernel<2, true, E>,
+      flash_decode_kernel<4, true, E>,  flash_decode_kernel<8, true, E>};
+  void (*kernel)(const ParamsT<E>) = kernels[which];
+  const int slot = which + 8 * I8;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!g_smem_set[slot][dev].load()) {
+    // the largest the kernel asks for at this tile, over every head dim
+    int most = 0;
+    for (int d = 8; d <= MAX_D; d += 8) most = std::max(most, layout_for(d, GT).bytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    g_smem_set[slot][dev].store(true);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * B * KV, (G + GT - 1) / GT);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 // The dynamic shared memory the kernel takes for this head dim, group
-// (query heads per kv head) and dtype code (0 = bfloat16), or -1 with the
-// reason in why.
+// (query heads per kv head) and dtype code (0 = bfloat16, 2 = an int8
+// cache with bfloat16 q), or -1 with the reason in why.
 int flash_decode_smem_bytes(int head_dim, int group, int dtype_code, char* why, int why_len) {
   return plan(head_dim, group, dtype_code, why, why_len);
 }
@@ -627,79 +799,27 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
                         const void* v1, int n1, const void* k_new, const void* v_new, void* o,
                         int B, int KV, int G, int D, int split, int span,
                         const long long* strides, void* stream) {
-  const int smem = plan(D, G, DTYPE_BF16, nullptr, 0);
-  const int n = n0 + n1;  // split: 1, 2, 4 or 8, the portable cluster sizes
-  if (smem < 0 || B < 1 || KV < 1 || n0 < 0 || n1 < 0 || n < 1 ||
-      (split != 1 && split != 2 && split != 4 && split != 8) || span < 1 ||
-      static_cast<long long>(split) * span < n || static_cast<long long>(split - 1) * span >= n ||
-      (k_new == nullptr) != (v_new == nullptr))
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.seg[0].k = static_cast<const __nv_bfloat16*>(k0);
-  p.seg[0].v = static_cast<const __nv_bfloat16*>(v0);
-  p.seg[0].n = n0;
-  p.seg[1].k = static_cast<const __nv_bfloat16*>(k1);
-  p.seg[1].v = static_cast<const __nv_bfloat16*>(v1);
-  p.seg[1].n = n1;
-  for (int i = 0; i < 3; ++i) {
-    p.qs[i] = strides[i];
-    p.seg[0].ks[i] = strides[3 + i];
-    p.seg[0].vs[i] = strides[6 + i];
-    p.seg[1].ks[i] = strides[9 + i];
-    p.seg[1].vs[i] = strides[12 + i];
-  }
-  p.k_new = static_cast<const __nv_bfloat16*>(k_new);
-  p.v_new = static_cast<const __nv_bfloat16*>(v_new);
-  for (int i = 0; i < 2; ++i) {
-    p.kns[i] = strides[15 + i];
-    p.vns[i] = strides[17 + i];
-  }
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.KV = KV;
-  p.G = G;
-  p.D = D;
-  p.lpr = lanes_per_row(D);
-  p.split = split;
-  p.span = span;
-  p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  return launch<__nv_bfloat16>(q, k0, v0, n0, k1, v1, n1, k_new, v_new, o, B, KV, G, D, split,
+                               span, strides, nullptr, nullptr, stream);
+}
 
-  const int GT = group_tile(G);
-  const bool fresh = k_new != nullptr;
-  const int which = (GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3))) + 4 * fresh;
-  void (*const kernels[8])(const Params) = {
-      flash_decode_kernel<1, false>, flash_decode_kernel<2, false>,
-      flash_decode_kernel<4, false>, flash_decode_kernel<8, false>,
-      flash_decode_kernel<1, true>,  flash_decode_kernel<2, true>,
-      flash_decode_kernel<4, true>,  flash_decode_kernel<8, true>};
-  void (*kernel)(const Params) = kernels[which];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!g_smem_set[which][dev].load()) {
-    // the largest the kernel asks for at this tile, over every head dim
-    int most = 0;
-    for (int d = 8; d <= MAX_D; d += 8) most = std::max(most, layout_for(d, GT).bytes);
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (e != cudaSuccess) return (int)e;
-    g_smem_set[which][dev].store(true);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split * B * KV, (G + GT - 1) / GT);
-  cfg.blockDim = dim3(NTHREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = split;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+// The int8 cache's launch: as flash_decode_launch, with the segments' K/V
+// int8 [B,KV,*,D] (D a multiple of 16, rows 16-byte aligned) and their
+// scale planes k0_s, v0_s, k1_s, v1_s [B,KV,*] f32 with unit stride along
+// the positions; scale_strides[8] = (b, kv head) element strides of k0_s,
+// v0_s, k1_s, v1_s.  k_new/v_new stay bf16: the launch quantizes them into
+// the written slot (codes and scales) and attends with the codes.
+int flash_decode_i8_launch(const void* q, const void* k0, const void* v0, const void* k0_s,
+                           const void* v0_s, int n0, const void* k1, const void* v1,
+                           const void* k1_s, const void* v1_s, int n1, const void* k_new,
+                           const void* v_new, void* o, int B, int KV, int G, int D, int split,
+                           int span, const long long* strides, const long long* scale_strides,
+                           void* stream) {
+  const void* scales[4] = {k0_s, v0_s, k1_s, v1_s};
+  for (int i = 0; i < 4; ++i)
+    if (scales[i] == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<int8_t>(q, k0, v0, n0, k1, v1, n1, k_new, v_new, o, B, KV, G, D, split, span,
+                        strides, scales, scale_strides, stream);
 }
 
 const char* flash_decode_error_string(int code) {

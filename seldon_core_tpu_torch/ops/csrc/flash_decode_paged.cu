@@ -121,12 +121,50 @@
 //     reference's; and at ~G/2 FLOP a byte the FMAs cost less than the
 //     bytes do.
 //
+// The int8 path (paged_decode_i8_kernel, flash_decode_paged_i8_launch)
+// serves the int8 K/V cache's pools (kv_quant = "int8"): codes int8 [N, KV,
+// bs, D] and scale planes f32 [N, KV, bs] (the reference's [N, bs, KV],
+// laid out so that a tile's scales are one contiguous run), q, the fresh
+// rows and o in bf16.  It computes the reference's _attend_paged with
+// scales (generate.py:1086, _grouped_qk / _grouped_pv): a score is (q .
+// k_int8) * (1/sqrt(D)) * k_s[j] in f32 (every product exact: int8 codes
+// are exact in bf16), V enters as p * v_s[j] rounded to bf16 times v_int8,
+// in f32, and l sums the unscaled exp.
+//   * Staging.  The bf16 walk's warps and tiles of 16 positions, each
+//     warp through its own ring of 2-4 stages.  A tile's rows of one pool
+//     block are contiguous runs of the pool (K codes, V codes, k_s, v_s),
+//     so bulk copies (cp.async.bulk, no tensor map) fill a stage, four a
+//     pool block the tile touches, completion on the stage's mbarrier.
+//     The pool's rows must be contiguous (a row stride of D bytes) and D
+//     a multiple of 16.
+//   * Both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//     out), as the bf16 walk's, with the B operands built from the codes
+//     in registers (an int8 code is exact in bf16).  S = Q K^T: q's k
+//     order is permuted within each 16-column step (logical k 2 tig + {0,
+//     1, 8, 9} is column 4 tig + {0..3}), so a lane's B elements of a K
+//     row are four neighbouring codes, one 32-bit load; the sum is the
+//     same.  O += P V: a lane's B elements are one code of each of four
+//     positions, four byte loads.  k_s multiplies the S fragment of its
+//     position, v_s the exp before it is rounded to bf16 as P (0 past the
+//     share's end); l sums the unscaled exp.
+//   * The fused write quantizes: the warp that walks position n - 1 loads
+//     the fresh bf16 rows (a lane 8 values), takes each row's absmax by a
+//     warp reduction and quantizes its values by kv_int8.cuh, bit for bit
+//     the reference's quantizer; the codes and scales replace that
+//     position in the last stage, so it is attended as the reference writes
+//     and reads it (codes times scale), and reach the pool after the walk.
+//   * Bound: the bytes, 2 D + 8 a position and kv head for K and V with
+//     their scales (~9.75 MB, ~2.91 us at 3.35 TB/s, at the served round:
+//     B=32, KV=4, D=64, 560 positions).  A first design: past the bytes,
+//     the byte loads of V and the conversions hold it back.
+//
 // Interface: plain C functions loaded with ctypes (no PyTorch headers); the
 // tensor maps are encoded on the host (flash_common.cuh), no -lcuda.
 
 #include <cooperative_groups.h>
 
 #include "flash_common.cuh"
+#include "kv_int8.cuh"
 
 #include <algorithm>
 #include <atomic>
@@ -151,6 +189,7 @@ constexpr int F32_BOX_COLS = 32;       // f32 columns in a 128-byte swizzle row
 constexpr int F32_BOX_BYTES = F32_TILE * 128;  // one f32 box: 8 rows of 128 bytes
 constexpr int F32_RING_BUDGET = 64 * 1024;     // bytes of f32 ring a block aims at
 constexpr int F32_MAX_DEPTH = 4;       // stages of an f32 warp's ring, at most (at least 2)
+constexpr int DTYPE_I8 = 2;            // the wrappers' code for int8 pools with bf16 q
 
 // warps per block: 8 up to a head dim of 128; 4 above, where the warps'
 // partial outputs would not fit beside the cluster's gather
@@ -175,6 +214,8 @@ struct ParamsT {
   const T* v_new;
   long long kns[2], vns[2];            // element strides of b, kv head
   const unsigned char* valid;          // [B] bool, or null: every row valid
+  float* k_scale;                      // int8 pools: scale planes [N, KV, bs] f32, contiguous
+  float* v_scale;                      // (null on the float paths)
   T* o;                                // [B, KV, G, D] contiguous
   int nblk, bs, nblocks;               // table width, rows per pool block, blocks in the pool
   int KV, G, D;
@@ -277,22 +318,52 @@ __host__ __device__ inline LayoutF32 layout_f32(int D, int GT) {
   return L;
 }
 
+// The int8 path's shared memory, in bytes from a 1024-aligned base: each
+// warp's ring of `depth` stages (a stage is a tile's K codes [TILE][D],
+// its V codes [TILE][D], then k_s [TILE] and v_s [TILE] f32); after the
+// walk, reusing the ring, the float32 path's scratch (m, l, acc, the
+// weights and rank 0's gather); last the mbarriers.  GT is the bf16
+// path's row tile (8, or 16 past 8 query heads).  paged_i8_layout in
+// ops/flash_decode.py is the same rule.
+__host__ __device__ inline LayoutF32 layout_i8(int D, int GT) {
+  LayoutF32 L;
+  L.nw = nwarps(D);
+  L.stage = 2 * TILE * D + 2 * TILE * 4;
+  const int depth = RING_BUDGET / (L.nw * L.stage);
+  L.depth = depth < 2 ? 2 : (depth > 4 ? 4 : depth);
+  const int ring = L.nw * L.depth * L.stage;
+  L.m = 0;
+  L.l = L.m + L.nw * GT * 4;
+  L.acc = L.l + L.nw * GT * 4;
+  L.weights = L.acc + L.nw * GT * D * 4;
+  L.gather = L.weights + (MAX_SPLIT + 2) * GT * 4;
+  const int end = L.gather + MAX_SPLIT * GT * (D + 2) * 4;
+  L.q = 0;
+  L.bars = ((ring > end ? ring : end) + 7) & ~7;
+  L.bytes = L.bars + 8 * L.nw * L.depth + 1024;  // 1024: the base's alignment
+  return L;
+}
+
 // 0..3 for 1, 2, 4, 8
 inline int log2_index(int x) { return x <= 1 ? 0 : (x <= 2 ? 1 : (x <= 4 ? 2 : 3)); }
 
-// The shape and type rules: bfloat16 or float32, a head dim that is a
-// multiple of 8 up to 256, a group of at least one row, pool blocks of a
-// multiple of 8 rows.  Returns the dynamic shared memory in bytes, or -1
-// with the reason in why (why may be null when why_len is 0).
+// The shape and type rules: bfloat16 or float32, or int8 pools with
+// bfloat16 q (code 2), a head dim that is a multiple of 8 up to 256 (of 16
+// for int8 pools), a group of at least one row, pool blocks of a multiple
+// of 8 rows.  Returns the dynamic shared memory in bytes, or -1 with the
+// reason in why (why may be null when why_len is 0).
 int plan(int head_dim, int group, int block_size, int dtype_code, char* why, int why_len) {
-  if (dtype_code != DTYPE_BF16 && dtype_code != DTYPE_F32) {
-    snprintf(why, why_len, "the paged flash-decode kernel takes bfloat16 or float32 q/k/v only");
+  if (dtype_code != DTYPE_BF16 && dtype_code != DTYPE_F32 && dtype_code != DTYPE_I8) {
+    snprintf(why, why_len,
+             "the paged flash-decode kernel takes bfloat16 or float32 q/k/v, or int8 pools with "
+             "bfloat16 q, only");
     return -1;
   }
-  if (head_dim < 8 || head_dim > MAX_D || head_dim % 8 != 0) {
+  const int unit = dtype_code == DTYPE_I8 ? 16 : 8;
+  if (head_dim < unit || head_dim > MAX_D || head_dim % unit != 0) {
     snprintf(why, why_len,
-             "head dim %d: the paged flash-decode kernel takes a multiple of 8 up to %d",
-             head_dim, MAX_D);
+             "head dim %d: the paged flash-decode kernel takes a multiple of %d up to %d%s",
+             head_dim, unit, MAX_D, dtype_code == DTYPE_I8 ? " with int8 pools" : "");
     return -1;
   }
   if (group < 1) {
@@ -306,7 +377,8 @@ int plan(int head_dim, int group, int block_size, int dtype_code, char* why, int
              block_size);
     return -1;
   }
-  const int smem = dtype_code == DTYPE_F32 ? layout_f32(head_dim, f32_rows(group)).bytes
+  const int smem = dtype_code == DTYPE_F32  ? layout_f32(head_dim, f32_rows(group)).bytes
+                   : dtype_code == DTYPE_I8 ? layout_i8(head_dim, group > 8 ? 16 : 8).bytes
                                             : layout_for(head_dim, group > 8 ? 16 : 8).bytes;
   if (smem > SMEM_LIMIT) {
     snprintf(why, why_len, "paged flash decode needs %d KiB shared memory (budget %d KiB)",
@@ -342,6 +414,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two int8 codes of a 32-bit word (bytes 2 half and 2 half + 1) as two
+// bf16, exactly, the lower byte in the lower half
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w, int half) {
+  const float lo = static_cast<float>(static_cast<int>(w << (24 - 16 * half)) >> 24);
+  const float hi = static_cast<float>(static_cast<int>(w << (16 - 16 * half)) >> 24);
+  return pack_f32(lo, hi);
 }
 
 // two bf16 of q at (row, col), (row, col + 1), or zeros off the tile
@@ -980,6 +1060,331 @@ __global__ void __launch_bounds__(f32_warps(32 * DW) * 32)
                                reinterpret_cast<float*>(smem + lay.gather));
 }
 
+// The int8 path.  A block is (row, kv head, rank, tile of GT query rows);
+// each warp walks every NW-th tile of TILE (16) positions of the rank's
+// share through its own ring of bulk copies (see the note at the top),
+// both products on mma.sync as the bf16 path's, their B operands built
+// from the int8 codes in registers.
+template <int DT, int GT>
+__global__ void __launch_bounds__(nwarps(DT) * 32)
+    paged_decode_i8_kernel(const Params p) {
+  constexpr int NW = nwarps(DT);
+  constexpr int KSTEPS = DT / 16;  // QK^T k-steps over the tile width
+  constexpr int NT = DT / 8;       // PV n-tiles of 8 columns
+  constexpr int NS = TILE / 8;     // S n-tiles of 8 positions
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;       // the accumulator rows of this lane: gid, gid + 8
+  const int tig = lane & 3;
+  const int cq = tig * 2;          // and its column pair within an 8-column tile
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bk = blockIdx.x / p.split;  // b * KV + kv head
+  const int b = bk / p.KV;
+  const int kvh = bk - b * p.KV;
+  const int g0 = blockIdx.y * GT;
+  const int gn = min(GT, p.G - g0);
+  const LayoutF32 lay = layout_i8(p.D, GT);
+  const int D = p.D;
+  int8_t* pool_k = reinterpret_cast<int8_t*>(p.pool_k);
+  int8_t* pool_v = reinterpret_cast<int8_t*>(p.pool_v);
+
+  // the row's length, at most the table's width, and whether its fresh
+  // row is written and attended from the input
+  const int len = p.lens[b];
+  const int width = p.nblk * p.bs;
+  const int n = min(max(len, 0), width);
+  const bool fresh = p.k_new != nullptr && (p.valid == nullptr || p.valid[b] != 0) && len >= 1 &&
+                     len <= width;
+  int p0, p1;
+  share_of(n, p.split, p.bs, rank, p0, p1);
+  const int cnt = p1 - p0;
+  const int ntiles = (cnt + TILE - 1) / TILE;
+  const int mine = warp < ntiles ? (ntiles - 1 - warp) / NW + 1 : 0;  // this warp's tiles
+  // the warp that walks the share's last tile holds position n - 1
+  const bool holds_fresh = fresh && cnt > 0 && p1 == n && warp == (ntiles - 1) % NW;
+
+  const uint32_t bar0 = base + lay.bars + 8 * warp * lay.depth;
+  const uint32_t ring = base + warp * lay.depth * lay.stage;
+  const int vbytes = TILE * D;       // a stage: K codes [TILE][D], V codes, k_s [TILE], v_s
+  const int sbytes = 2 * TILE * D;
+  if (lane == 0) {
+    for (int i = 0; i < lay.depth; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the fresh rows quantized (warp-uniform branch): lane c < D / 8 holds
+  // its 8 codes of K and of V, every lane both scales
+  uint2 fk = make_uint2(0u, 0u), fv = fk;
+  float fks = 0.f, fvs = 0.f;
+  if (holds_fresh) {
+    float kf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float vf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (lane < D / 8) {
+      kvq::bf16x8(
+          *reinterpret_cast<const uint4*>(p.k_new + b * p.kns[0] + kvh * p.kns[1] + lane * 8), kf);
+      kvq::bf16x8(
+          *reinterpret_cast<const uint4*>(p.v_new + b * p.vns[0] + kvh * p.vns[1] + lane * 8), vf);
+    }
+    float ka = kvq::absmax8(kf), va = kvq::absmax8(vf);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ka = fmaxf(ka, __shfl_xor_sync(FULL, ka, o));
+      va = fmaxf(va, __shfl_xor_sync(FULL, va, o));
+    }
+    fks = kvq::row_scale(ka);
+    fvs = kvq::row_scale(va);
+    fk = kvq::quant8(kf, fks);
+    fv = kvq::quant8(vf, fvs);
+  }
+
+  // q as the A operand of every k-step, its k order permuted: logical k
+  // 2 tig + {0, 1} is column 4 tig + {0, 1} of the step, 2 tig + {8, 9}
+  // column 4 tig + {2, 3}, so each lane's B elements of a K row are four
+  // neighbouring codes (one 32-bit load); the dot product is the same sum
+  uint32_t qa[KSTEPS][4];
+  {
+    const __nv_bfloat16* qb = p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2];
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int c = ks * 16 + 4 * tig;
+      qa[ks][0] = q_pair(qb, p.qs[2], gid, gn, c, D);
+      qa[ks][1] = GT == 16 ? q_pair(qb, p.qs[2], gid + 8, gn, c, D) : 0u;
+      qa[ks][2] = q_pair(qb, p.qs[2], gid, gn, c + 2, D);
+      qa[ks][3] = GT == 16 ? q_pair(qb, p.qs[2], gid + 8, gn, c + 2, D) : 0u;
+    }
+  }
+
+  // the pool blocks of this warp's tiles 32 at a time: lane l holds those
+  // of its tile batch * 32 + l, one per row box
+  constexpr int MAX_BOXES = TILE / 8;
+  const int R = p.box_rows;
+  int phys[MAX_BOXES];
+#pragma unroll
+  for (int rb = 0; rb < MAX_BOXES; ++rb) phys[rb] = 0;
+  auto load_blocks = [&](int batch) {
+    const int lo = p0 + (warp + (batch * 32 + lane) * NW) * TILE;
+#pragma unroll
+    for (int rb = 0; rb < MAX_BOXES; ++rb)
+      if (rb * R < TILE && lo + rb * R < p1)
+        phys[rb] = min(max(p.table[b * p.nblk + (lo + rb * R) / p.bs], 0), p.nblocks - 1);
+  };
+  // stage i % depth takes this warp's i-th tile: lane 0 arms the stage's
+  // barrier and issues, per row box (a run of one pool block), its K
+  // codes, V codes, k_s and v_s: contiguous runs of the pool
+  auto issue = [&](int i) {
+    if (i > 0 && (i & 31) == 0) load_blocks(i >> 5);
+    long long ph[MAX_BOXES];
+#pragma unroll
+    for (int rb = 0; rb < MAX_BOXES; ++rb) ph[rb] = __shfl_sync(FULL, phys[rb], i & 31);
+    if (lane != 0) return;
+    const int lo = p0 + (warp + i * NW) * TILE;
+    const int nbox = (min(p1, lo + TILE) - lo + R - 1) / R;
+    const uint32_t dst = ring + (i % lay.depth) * lay.stage;
+    const uint32_t bar = bar0 + 8 * (i % lay.depth);
+    mbar_expect_tx(bar, nbox * R * (2 * D + 8));
+#pragma unroll
+    for (int rb = 0; rb < MAX_BOXES; ++rb) {
+      if (rb >= nbox) break;
+      const int j = lo + rb * R;
+      const long long row = j - (j / p.bs) * p.bs;
+      bulk_load(dst + rb * R * D, pool_k + ph[rb] * p.ks[0] + kvh * p.ks[1] + row * D, R * D, bar);
+      bulk_load(dst + vbytes + rb * R * D, pool_v + ph[rb] * p.vs[0] + kvh * p.vs[1] + row * D,
+                R * D, bar);
+      const long long srow = (ph[rb] * p.KV + kvh) * p.bs + row;
+      bulk_load(dst + sbytes + rb * R * 4, p.k_scale + srow, R * 4, bar);
+      bulk_load(dst + sbytes + TILE * 4 + rb * R * 4, p.v_scale + srow, R * 4, bar);
+    }
+  };
+  __syncwarp();  // this warp's barriers are initialised
+  if (mine > 0) {
+    load_blocks(0);
+    for (int i = 0; i < lay.depth && i < mine; ++i) issue(i);
+  }
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < mine; ++i) {
+    const int s = i % lay.depth;
+    mbar_wait(bar0 + 8 * s, (i / lay.depth) & 1);
+    unsigned char* kt = smem + (ring - base) + s * lay.stage;
+    const unsigned char* vt = kt + vbytes;
+    float* ksc = reinterpret_cast<float*>(kt + sbytes);
+    float* vsc = ksc + TILE;
+    const int lo = (warp + i * NW) * TILE;  // local to the share
+    const int tcnt = min(TILE, cnt - lo);
+    if (holds_fresh && i == mine - 1) {     // position n - 1 from the fresh rows, not the pool
+      const int rr = n - 1 - (p0 + lo);
+      if (lane < D / 8) {
+        *reinterpret_cast<uint2*>(kt + rr * D + lane * 8) = fk;
+        *reinterpret_cast<uint2*>(kt + vbytes + rr * D + lane * 8) = fv;
+      }
+      if (lane == 0) {
+        ksc[rr] = fks;
+        vsc[rr] = fvs;
+      }
+      __syncwarp();
+    }
+    // S = Q K^T: NS tiles of 8 positions; the B operand of position
+    // t * 8 + gid is its four codes 4 tig .. 4 tig + 3 of the k-step,
+    // exact in bf16 (columns past D meet q's zeros)
+    float sc[NS][4];
+#pragma unroll
+    for (int t = 0; t < NS; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        const uint32_t w =
+            *reinterpret_cast<const uint32_t*>(kt + (t * 8 + gid) * D + ks * 16 + 4 * tig);
+        mma_bf16(sc[t], qa[ks], codes_bf16x2(w, 0), codes_bf16x2(w, 1));
+      }
+    }
+    // scaled to base 2 and by k_s; positions past the share's end masked
+#pragma unroll
+    for (int t = 0; t < NS; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = t * 8 + cq + (e & 1);
+        sc[t][e] = pos < tcnt ? sc[t][e] * p.scale_log2 * ksc[pos] : -INFINITY;
+      }
+    // the online softmax, once per tile; P as the A operand of the PV
+    // product: p times v_s, cast to bf16 (0 past the share's end)
+    uint32_t pa[4];
+    float vs[NS][2];
+#pragma unroll
+    for (int t = 0; t < NS; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pos = t * 8 + cq + e;
+        vs[t][e] = pos < tcnt ? vsc[pos] : 0.f;
+      }
+    {
+      float mx = m0;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) mx = fmaxf(mx, fmaxf(sc[t][0], sc[t][1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float alpha = exp2_approx(m0 - mx);  // 0 while m0 is still -inf
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        const float e0 = exp2_approx(sc[t][0] - mx), e1 = exp2_approx(sc[t][1] - mx);
+        sum += e0 + e1;
+        pa[t * 2] = pack_f32(e0 * vs[t][0], e1 * vs[t][1]);
+      }
+      l0 = l0 * alpha + sum;
+      m0 = mx;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][0] *= alpha;
+        acc[j][1] *= alpha;
+      }
+    }
+    if constexpr (GT == 16) {
+      float mx = m1;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) mx = fmaxf(mx, fmaxf(sc[t][2], sc[t][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float alpha = exp2_approx(m1 - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        const float e2 = exp2_approx(sc[t][2] - mx), e3 = exp2_approx(sc[t][3] - mx);
+        sum += e2 + e3;
+        pa[t * 2 + 1] = pack_f32(e2 * vs[t][0], e3 * vs[t][1]);
+      }
+      l1 = l1 * alpha + sum;
+      m1 = mx;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2] *= alpha;
+        acc[j][3] *= alpha;
+      }
+    } else {
+      pa[1] = pa[3] = 0u;
+    }
+    // O += P V: the B operand of column j * 8 + gid is the codes of
+    // positions 2 tig + {0, 1, 8, 9}, one byte each (rows past the
+    // share's end hold finite codes, and their p is 0)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const unsigned char* vc = vt + 2 * tig * D + j * 8 + gid;
+      const uint32_t w = static_cast<uint32_t>(vc[0]) | static_cast<uint32_t>(vc[D]) << 8 |
+                         static_cast<uint32_t>(vc[8 * D]) << 16 |
+                         static_cast<uint32_t>(vc[9 * D]) << 24;
+      mma_bf16(acc[j], pa, codes_bf16x2(w, 0), codes_bf16x2(w, 1));
+    }
+    __syncwarp();  // every lane has read the stage: it may be refilled
+    if (i + lay.depth < mine) issue(i + lay.depth);
+  }
+  // each lane's l covers its quad's columns: sum over the quad
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
+  // the fresh codes and scales into the pool, once this warp's copies have
+  // landed (a block that attends over that row takes it from its own
+  // registers over whatever its copy brought)
+  if (holds_fresh && blockIdx.y == 0) {
+    const int j = n - 1;
+    const int blk = j / p.bs;
+    const long long pb = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
+    const long long row = j - blk * p.bs;
+    if (lane < D / 8) {
+      *reinterpret_cast<uint2*>(pool_k + pb * p.ks[0] + kvh * p.ks[1] + row * p.ks[2] +
+                                lane * 8) = fk;
+      *reinterpret_cast<uint2*>(pool_v + pb * p.vs[0] + kvh * p.vs[1] + row * p.vs[2] +
+                                lane * 8) = fv;
+    }
+    if (lane == 0) {
+      p.k_scale[(pb * p.KV + kvh) * p.bs + row] = fks;
+      p.v_scale[(pb * p.KV + kvh) * p.bs + row] = fvs;
+    }
+  }
+  // rank 0's gather shares the ring's space: a rank writes it only once
+  // every rank of the cluster is past its walk
+  if (p.split > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  __syncthreads();  // every warp is done with its ring: the scratch reuses it
+
+  float* sm_m = reinterpret_cast<float*>(smem + lay.m);      // [NW][GT]
+  float* sm_l = reinterpret_cast<float*>(smem + lay.l);      // [NW][GT]
+  float* sm_acc = reinterpret_cast<float*>(smem + lay.acc);  // [NW][GT][D]
+  if (tig == 0) {
+    if (gid < gn) {
+      sm_m[warp * GT + gid] = m0;
+      sm_l[warp * GT + gid] = l0;
+    }
+    if (GT == 16 && gid + 8 < gn) {
+      sm_m[warp * GT + gid + 8] = m1;
+      sm_l[warp * GT + gid + 8] = l1;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int d = j * 8 + cq;
+    if (d < D) {
+      if (gid < gn)
+        *reinterpret_cast<float2*>(sm_acc + (warp * GT + gid) * D + d) =
+            make_float2(acc[j][0], acc[j][1]);
+      if (GT == 16 && gid + 8 < gn)
+        *reinterpret_cast<float2*>(sm_acc + (warp * GT + gid + 8) * D + d) =
+            make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+  combine_store<__nv_bfloat16, NW, GT>(p, rank, bk, g0, gn, sm_m, sm_l, sm_acc,
+                                       reinterpret_cast<float*>(smem + lay.weights),
+                                       reinterpret_cast<float*>(smem + lay.gather));
+}
+
 using KernelF32 = void (*)(const CUtensorMap, const CUtensorMap, const ParamsT<float>);
 
 // per (columns a lane, query rows) and device: the shared-memory opt-in is set
@@ -989,6 +1394,11 @@ using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const Params);
 
 // per (tile width, row tile) and device: the shared-memory opt-in is set
 std::atomic<bool> g_smem_set[3][2][MAX_DEVICES];
+
+using KernelI8 = void (*)(const Params);
+
+// per (tile width, row tile) and device: the int8 path's opt-in is set
+std::atomic<bool> g_smem_set_i8[3][2][MAX_DEVICES];
 
 }  // namespace
 
@@ -1029,6 +1439,7 @@ ParamsT<T> fill_params(const void* q, void* pool_k, void* pool_v, const int* tab
     p.vns[i] = strides[11 + i];
   }
   p.valid = static_cast<const unsigned char*>(valid);
+  p.k_scale = p.v_scale = nullptr;
   p.o = static_cast<T*>(o);
   p.nblk = nblk;
   p.bs = bs;
@@ -1182,6 +1593,56 @@ int flash_decode_paged_launch(const void* q, void* pool_k, void* pool_v, const i
   }
   e = launch_cluster(kernel, dim3(split * B * KV, (G + GT - 1) / GT), nwarps(D) * 32, smem, split,
                      stream, tk, tv, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The int8 pools' launch, on `stream`; returns cudaGetLastError() after the
+// launch (0: launched).  As flash_decode_paged_launch with q, k_new/v_new
+// and o bfloat16, the pools pool_k/pool_v int8 [nblocks,KV,bs,D] (D a
+// multiple of 16; contiguous rows: a row stride of D, block and kv-head
+// strides multiples of 16 bytes) and their scale planes pool_ks/pool_vs
+// [nblocks,KV,bs] f32 contiguous.  The fused write stores each valid row's
+// fresh K/V quantized (codes and scales) at position lens[b] - 1.
+int flash_decode_paged_i8_launch(const void* q, void* pool_k, void* pool_v, void* pool_ks,
+                                 void* pool_vs, const int* table, const int* lens,
+                                 const void* k_new, const void* v_new, const void* valid, void* o,
+                                 int nblocks, int nblk, int bs, int B, int KV, int G, int D,
+                                 int split, const long long* strides, void* stream) {
+  const int smem = plan(D, G, bs, DTYPE_I8, nullptr, 0);
+  if (smem < 0 || B < 1 || KV < 1 || nblocks < 1 || nblk < 1 ||
+      static_cast<long long>(nblk) * bs > (1 << 30) ||
+      (split != 1 && split != 2 && split != 4 && split != 8) ||
+      (k_new == nullptr) != (v_new == nullptr) || pool_ks == nullptr || pool_vs == nullptr ||
+      strides[5] != D || strides[8] != D)
+    return (int)cudaErrorInvalidValue;
+  Params p = fill_params<__nv_bfloat16>(q, pool_k, pool_v, table, lens, k_new, v_new, valid, o,
+                                        nblocks, nblk, bs, KV, G, D, split, strides);
+  p.k_scale = static_cast<float*>(pool_ks);
+  p.v_scale = static_cast<float*>(pool_vs);
+  const int GT = G > 8 ? 16 : 8;
+  const int DT = tile_cols(D);
+  const int wi = width_index(DT);
+  const int gi = GT == 16 ? 1 : 0;
+  const KernelI8 kernels[3][2] = {{paged_decode_i8_kernel<64, 8>, paged_decode_i8_kernel<64, 16>},
+                                  {paged_decode_i8_kernel<128, 8>, paged_decode_i8_kernel<128, 16>},
+                                  {paged_decode_i8_kernel<256, 8>, paged_decode_i8_kernel<256, 16>}};
+  const KernelI8 kernel = kernels[wi][gi];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!g_smem_set_i8[wi][gi][dev].load()) {
+    // the largest this instance asks for, over the head dims it serves
+    int most = 0;
+    for (int d = 16; d <= MAX_D; d += 16)
+      if (tile_cols(d) == DT) most = std::max(most, layout_i8(d, GT).bytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    g_smem_set_i8[wi][gi][dev].store(true);
+  }
+  e = launch_cluster(kernel, dim3(split * B * KV, (G + GT - 1) / GT), nwarps(D) * 32, smem, split,
+                     stream, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,19 @@ back on the host.  A position whose ``valid`` is False goes to block 0,
 the scratch block.  ``kv_write_paged_reference`` is the plain version
 (``index_put_``), ``PAGED_LAUNCHES`` its count and
 ``probe_kv_write_paged`` its probe.
+
+The int8 K/V cache (``kv_quant="int8"``): int8 pools ``[N, KV, bs, hd]``
+carry scale planes f32 ``[N, KV, bs]`` (``scales=(pool_ks, pool_vs)``), and
+``kv_write_paged`` quantizes fresh bf16 rows in its own launch (the int8
+variant of ``ops/csrc/kv_write.cu``, ``kv_write_paged_i8_launch``) with
+the reference's quantizer, ``quantize_kv`` here
+(``seldon_core_tpu/models/generate.py:133``), bit for bit; rows that are
+int8 already (the shared prefix's cache) come with their scales
+(``k_s``/``v_s``) and are copied.  ``PAGED_I8_LAUNCHES`` counts those
+launches (``PAGED_LAUNCHES`` counts them too).  The static caches' int8
+write has no kernel: the decode step's is fused into
+``flash_decode_two_tier``, and ``kv_write_reference`` with ``scales`` is
+its plain version.
 """
 
 from __future__ import annotations
@@ -47,14 +60,43 @@ import torch
 from seldon_core_tpu_torch.device import launch_on
 from seldon_core_tpu_torch.ops._build import load_library
 
-__all__ = ["LAUNCHES", "PAGED_LAUNCHES", "kv_write", "kv_write_reference", "probe_kv_write",
-           "kv_write_paged", "kv_write_paged_reference", "probe_kv_write_paged"]
+__all__ = ["LAUNCHES", "PAGED_LAUNCHES", "PAGED_I8_LAUNCHES", "kv_write", "kv_write_reference",
+           "probe_kv_write", "kv_write_paged", "kv_write_paged_reference", "probe_kv_write_paged",
+           "quantize_kv", "int8_kv_rows"]
 
 #: kernel launches since import (or since a caller last reset it to 0)
 LAUNCHES = 0
 #: the paged kernel's launches, counted the same way
 PAGED_LAUNCHES = 0
+#: those of them into int8 pools
+PAGED_I8_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
+
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t [..., hd] float -> (int8 codes [..., hd], f32 scales [...]): the
+    reference's ``_quantize_kv`` (``generate.py:133``), symmetric per token
+    and head.  The absmax over hd in f32, scale = max(absmax, 1e-12) / 127,
+    q = clip(round(t / scale), -127, 127) with true divisions and
+    ``torch.round``, which rounds half to even as ``jnp.round`` does.  The
+    127 is a 0-dim tensor on t's device: CUDA torch turns a division by a
+    Python number into a multiplication by its reciprocal, which rounds
+    differently."""
+    t32 = t.float()
+    absmax = t32.abs().amax(dim=-1)
+    scales = torch.clamp_min(absmax, 1e-12) / absmax.new_full((), 127.0)
+    q = torch.clamp(torch.round(t32 / scales[..., None]), -127, 127).to(torch.int8)
+    return q, scales
+
+
+def int8_kv_rows(shape, gen: torch.Generator, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random int8 K/V as a served cache holds them, for probes and kernel
+    checks: bf16 rows ``shape`` [..., hd] of N(0, 1) drawn from ``gen`` on
+    its own device, quantized by ``quantize_kv`` (codes filling +-127,
+    scales absmax / 127), then moved to ``device``."""
+    t = torch.randn(shape, generator=gen, device=gen.device).to(torch.bfloat16)
+    codes, scales = quantize_kv(t)
+    return codes.to(device), scales.to(device)
 
 
 def _validate(cache_k, cache_v, k, v, pos: int) -> None:
@@ -73,9 +115,17 @@ def _validate(cache_k, cache_v, k, v, pos: int) -> None:
 
 
 def kv_write_reference(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor, pos: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version, on any device: slice assignment in place.
-    Returns the caches."""
+                       v: torch.Tensor, pos: int,
+                       scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version, on any device: slice assignment in place.  With
+    ``scales`` (the int8 caches' planes [B, KV, C] f32) the float k/v are
+    quantized (``quantize_kv``) and their scales go to slot ``pos`` of the
+    planes too.  Returns the caches."""
+    if scales is not None:
+        (k, k_s), (v, v_s) = quantize_kv(k), quantize_kv(v)
+        scales[0][:, :, pos:pos + 1] = k_s
+        scales[1][:, :, pos:pos + 1] = v_s
     cache_k[:, :, pos:pos + 1] = k
     cache_v[:, :, pos:pos + 1] = v
     return cache_k, cache_v
@@ -100,10 +150,15 @@ def _library() -> SimpleNamespace:
             paged.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                               + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
             paged.restype = ctypes.c_int
+            paged_i8 = lib.kv_write_paged_i8_launch
+            paged_i8.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                                 + [ctypes.c_void_p, ctypes.c_void_p])
+            paged_i8.restype = ctypes.c_int
             err = lib.kv_write_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _lib = SimpleNamespace(launch=launch, paged=paged, error_string=err)
+            _lib = SimpleNamespace(launch=launch, paged=paged, paged_i8=paged_i8,
+                                   error_string=err)
         return _lib
 
 
@@ -178,19 +233,39 @@ def probe_kv_write(n_kv_heads: int, head_dim: int, dtype: torch.dtype,
                            f"wrote the wrong slots")
 
 
-def _validate_paged(pool_k, pool_v, k, v, tables, start, valid) -> None:
+def _validate_paged(pool_k, pool_v, k, v, tables, start, valid, scales=None, k_s=None,
+                    v_s=None) -> None:
     if pool_k.ndim != 4 or pool_k.shape != pool_v.shape:
         raise ValueError(f"pools must be [N, KV, bs, hd] of one shape, got "
                          f"{tuple(pool_k.shape)} {tuple(pool_v.shape)}")
-    _, KV, _, hd = pool_k.shape
+    N, KV, bs, hd = pool_k.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[1] != KV or k.shape[3] != hd:
         raise ValueError(f"k/v must be [B, {KV}, W, {hd}], got {tuple(k.shape)} "
                          f"{tuple(v.shape)}")
     B, _, W, _ = k.shape
+    int8 = pool_k.dtype == torch.int8
+    if int8 != (scales is not None):
+        raise ValueError("int8 pools take their scale planes (scales=(pool_ks, pool_vs)), and "
+                         "only int8 pools do")
+    # int8 pools take float rows (quantized) or int8 rows with their scales
+    if (k_s is None) != (v_s is None) or (k_s is not None) != (int8 and k.dtype == torch.int8):
+        raise ValueError("int8 rows into int8 pools come with their scales k_s and v_s, and "
+                         "nothing else does")
+    row_dtype = k.dtype if int8 else pool_k.dtype
     for name, t in (("pool_v", pool_v), ("k", k), ("v", v)):
-        if t.device != pool_k.device or t.dtype != pool_k.dtype:
+        want = pool_k.dtype if name == "pool_v" else row_dtype
+        if t.device != pool_k.device or t.dtype != want:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, pool_k {pool_k.dtype} on "
                              f"{pool_k.device}")
+    planes = []
+    if int8:
+        planes += [("pool_ks", scales[0], (N, KV, bs)), ("pool_vs", scales[1], (N, KV, bs))]
+    if k_s is not None:
+        planes += [("k_s", k_s, (B, KV, W)), ("v_s", v_s, (B, KV, W))]
+    for name, t, shape in planes:
+        if t.device != pool_k.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape} on {pool_k.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     for name, t, dtype, shape in (("tables", tables, torch.int32, None),
                                   ("start", start, torch.int32, (B,)),
                                   ("valid", valid, torch.bool, (B, W))):
@@ -205,16 +280,28 @@ def _validate_paged(pool_k, pool_v, k, v, tables, start, valid) -> None:
 
 def kv_write_paged_reference(pool_k: torch.Tensor, pool_v: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, tables: torch.Tensor, start: torch.Tensor,
-                             valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version, on any device: ``_paged_write``'s scatter for
-    float pools (``index_put_``, in place).  Position ``start[b] + i`` of
-    row b goes to block ``tables[b, clip(pos // bs, 0, nblk - 1)]`` (0
-    where ``valid`` is False), row ``pos % bs``.  Returns the pools."""
+                             valid: torch.Tensor,
+                             scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                             k_s: Optional[torch.Tensor] = None,
+                             v_s: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version, on any device: ``_paged_write``'s scatter
+    (``index_put_``, in place).  Position ``start[b] + i`` of row b goes to
+    block ``tables[b, clip(pos // bs, 0, nblk - 1)]`` (0 where ``valid`` is
+    False), row ``pos % bs``.  Int8 pools (``scales`` their planes [N, KV,
+    bs]) take float rows quantized by ``quantize_kv``, or int8 rows with
+    their scales ``k_s``/``v_s`` [B, KV, W] as they are, and the scales
+    scatter to the same (block, row).  Returns the pools."""
     bs, nblk, W = pool_k.shape[2], tables.shape[1], k.shape[2]
     pos = start.long()[:, None] + torch.arange(W, device=k.device)  # [B, W]
     idx = torch.clamp(torch.div(pos, bs, rounding_mode="floor"), 0, nblk - 1)
     blk = torch.where(valid, torch.gather(tables.long(), 1, idx), 0)
     off = torch.remainder(pos, bs)
+    if scales is not None:
+        if k_s is None:
+            (k, k_s), (v, v_s) = quantize_kv(k), quantize_kv(v)
+        scales[0][blk, :, off] = k_s.transpose(1, 2)  # [B, W, KV] at (blk, :, off)
+        scales[1][blk, :, off] = v_s.transpose(1, 2)
     pool_k[blk, :, off] = k.transpose(1, 2)  # [B, W, KV, hd] at (blk, :, off)
     pool_v[blk, :, off] = v.transpose(1, 2)
     return pool_k, pool_v
@@ -249,34 +336,109 @@ def _launch_paged(pool_k, pool_v, k, v, tables, start, valid) -> None:
         PAGED_LAUNCHES += 1
 
 
+def _aligned(t: torch.Tensor, unit: int) -> bool:
+    """Unit stride along hd, and the base and every byte stride a multiple
+    of ``unit``."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % unit == 0
+            and all(s * es % unit == 0 for s in t.stride()[:-1]))
+
+
+def _launch_paged_i8(pool_k, pool_v, k, v, tables, start, valid, scales, k_s, v_s) -> None:
+    N, KV, bs, hd = pool_k.shape
+    B, _, W, _ = k.shape
+    copy = k_s is not None
+    if k.dtype != (torch.int8 if copy else torch.bfloat16):
+        raise ValueError(f"the int8 pools' write takes bfloat16 rows (quantized in the launch) "
+                         f"or int8 rows with their scales, got {k.dtype}")
+    if hd % 8 != 0 or hd > 256:
+        raise ValueError(f"head dim {hd}: the int8 pools' write takes a multiple of 8 up to 256")
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+        if not _aligned(t, 8):  # written in place: no copy will do
+            raise ValueError(f"{name} needs unit stride along hd and 8-byte aligned rows, got "
+                             f"{t.stride()}")
+    for name, t in (("pool_ks", scales[0]), ("pool_vs", scales[1])):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (written in place)")
+    k, v = (t if _aligned(t, 16) else t.contiguous() for t in (k, v))
+    if copy:
+        k_s, v_s = k_s.contiguous(), v_s.contiguous()
+    tables, start, valid = tables.contiguous(), start.contiguous(), valid.contiguous()
+    if B == 0 or W == 0 or KV == 0:
+        return
+    strides = (ctypes.c_longlong * 12)(*(s for t in (pool_k, pool_v, k, v) for s in t.stride()[:3]))
+    lib = _library()
+    rc = launch_on(pool_k.device, lib.paged_i8, pool_k.data_ptr(), pool_v.data_ptr(),
+                   scales[0].data_ptr(), scales[1].data_ptr(), k.data_ptr(), v.data_ptr(),
+                   k_s.data_ptr() if copy else None, v_s.data_ptr() if copy else None,
+                   tables.data_ptr(), start.data_ptr(), valid.data_ptr(), B, KV, W,
+                   tables.shape[1], bs, N, hd, ctypes.addressof(strides))
+    if rc != 0:
+        raise RuntimeError(f"kv_write_paged int8 kernel launch failed: CUDA error {rc} "
+                           f"({lib.error_string(rc).decode()})")
+    global PAGED_LAUNCHES, PAGED_I8_LAUNCHES
+    with _LAUNCH_LOCK:
+        PAGED_LAUNCHES += 1
+        PAGED_I8_LAUNCHES += 1
+
+
 def kv_write_paged(pool_k: torch.Tensor, pool_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   tables: torch.Tensor, start: torch.Tensor,
-                   valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   tables: torch.Tensor, start: torch.Tensor, valid: torch.Tensor,
+                   scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   k_s: Optional[torch.Tensor] = None,
+                   v_s: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write k/v [B, KV, W, hd] into pools [N, KV, bs, hd] at per-row
     positions ``start[b] + i`` through ``tables`` [B, nblk] (block 0 where
     ``valid`` [B, W] is False), in place; returns the pools (the same
-    tensors).  ValueError for mismatched shapes, dtypes or devices; the
-    values of the tables and positions are the device's to read.  A CUDA
-    pool launches the kernel or raises; a CPU pool runs
-    ``kv_write_paged_reference``."""
-    _validate_paged(pool_k, pool_v, k, v, tables, start, valid)
+    tensors).  Int8 pools come with ``scales`` = (pool_ks, pool_vs), their
+    f32 planes [N, KV, bs], and take bf16 rows (quantized in the launch)
+    or int8 rows with their scales ``k_s``/``v_s`` [B, KV, W] (copied).
+    ValueError for mismatched shapes, dtypes or devices; the values of the
+    tables and positions are the device's to read.  A CUDA pool launches
+    the kernel (the int8 variant for int8 pools) or raises; a CPU pool
+    runs ``kv_write_paged_reference``."""
+    _validate_paged(pool_k, pool_v, k, v, tables, start, valid, scales, k_s, v_s)
     if pool_k.device.type == "cpu":
-        return kv_write_paged_reference(pool_k, pool_v, k, v, tables, start, valid)
+        return kv_write_paged_reference(pool_k, pool_v, k, v, tables, start, valid, scales, k_s,
+                                        v_s)
     if pool_k.device.type != "cuda":
         raise ValueError(f"kv_write_paged takes cpu or cuda tensors, got {pool_k.device}")
-    _launch_paged(pool_k, pool_v, k, v, tables, start, valid)
+    if scales is not None:
+        _launch_paged_i8(pool_k, pool_v, k, v, tables, start, valid, scales, k_s, v_s)
+    else:
+        _launch_paged(pool_k, pool_v, k, v, tables, start, valid)
     return pool_k, pool_v
 
 
 def probe_kv_write_paged(n_kv_heads: int, head_dim: int, dtype: torch.dtype,
-                         device: torch.device) -> None:
+                         device: torch.device, kv_dtype: Optional[torch.dtype] = None) -> None:
     """Build the library and write once through a table on a CUDA
     ``device``: into zero pools of 4 blocks of 2 rows, row 0 takes
     positions 1 and 2 through table [3, 1] (block 3 row 1, block 1 row 0);
     row 1's two positions are not valid and go to the scratch block 0.
     Blocks 1 and 3 must hold exactly the written k (ones) and v (twos) at
-    those rows, block 2 zeros.  Raises if the build or the launch fails or
-    the write is wrong."""
+    those rows, block 2 zeros.  With ``kv_dtype`` int8 the pools are int8
+    with their scale planes and the rows ``dtype`` values drawn from a
+    seed: blocks 1-3 and their scales must equal the plain version's
+    (``quantize_kv``) bit for bit.  Raises if the build or the launch fails
+    or the write is wrong."""
+    if kv_dtype == torch.int8:
+        gen = torch.Generator().manual_seed(0)
+        k = torch.randn(2, n_kv_heads, 2, head_dim, generator=gen).to(device, dtype)
+        v = 3 * torch.randn(2, n_kv_heads, 2, head_dim, generator=gen).to(device, dtype)
+        tables = torch.tensor([[3, 1], [2, 2]], dtype=torch.int32, device=device)
+        start = torch.tensor([1, 0], dtype=torch.int32, device=device)
+        valid = torch.tensor([[True, True], [False, False]], device=device)
+        pools = [torch.zeros(4, n_kv_heads, 2, head_dim, dtype=torch.int8, device=device)
+                 for _ in range(2)]
+        planes = [torch.zeros(4, n_kv_heads, 2, device=device) for _ in range(2)]
+        want = [t.clone() for t in pools + planes]
+        kv_write_paged(*pools, k, v, tables, start, valid, tuple(planes))
+        kv_write_paged_reference(*want[:2], k, v, tables, start, valid, tuple(want[2:]))
+        if not all(bool(torch.equal(a[1:], b[1:])) for a, b in zip(pools + planes, want)):
+            raise RuntimeError(f"kv_write_paged int8 probe at {n_kv_heads} kv heads, head dim "
+                               f"{head_dim} wrote other codes or scales than the plain version")
+        return
     pk = torch.zeros(4, n_kv_heads, 2, head_dim, dtype=dtype, device=device)
     pv = torch.zeros_like(pk)
     k = torch.ones(2, n_kv_heads, 2, head_dim, dtype=dtype, device=device)

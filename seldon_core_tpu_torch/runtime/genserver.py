@@ -1,6 +1,6 @@
 """Continuous-batching generation server over a paged KV pool — the port's
-counterpart of ``seldon_core_tpu/runtime/genserver.py`` (float pools, the
-unified role).
+counterpart of ``seldon_core_tpu/runtime/genserver.py`` (float and int8
+pools, the unified role).
 
 The static lane runs ``generate`` once per request: the request's batch
 holds the device for its whole life, and a late arrival waits for it.
@@ -10,7 +10,9 @@ by step on one worker thread:
   * **Paged KV pool**: one pool of fixed-size blocks per layer
     (``models/generate.py`` ``init_block_pool``; block 0 is the scratch
     block), a block table per sequence; ``BlockAllocator`` hands out and
-    takes back block ids on the host.
+    takes back block ids on the host.  An int8 cache's pools carry their
+    scale planes; the allocator, preemption and the prefix tails are the
+    same, the kernels their int8-K/V variants.
   * **Per-tick admission**: each tick admits waiting sequences FIFO into
     free slots, runs one prefill tick (one ``prefill_chunk`` piece of
     every prefilling sequence's prompt, batched) and one decode round
@@ -121,6 +123,11 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, "") or default)
     except ValueError:
         return default
+
+
+def _kv_dtype(cfg):
+    """The pools' dtype when it is not the model's: int8 for ``kv_quant``."""
+    return torch.int8 if cfg.kv_quant == "int8" else None
 
 
 def _pow2(n: int) -> int:
@@ -281,12 +288,13 @@ class GenServer:
             # missing compiler or a failing build raises at construction.
             # The decode kernel at the head shape the lane decodes (the
             # draft's in speculative mode), the write at every pool's
+            # (int8 pools probe the int8-K/V variants)
             decoder = draft_cfg if self.spec else cfg
             probe_paged_decode_kernel(decoder.kv_heads, decoder.n_heads // decoder.kv_heads,
                                       decoder.head_dim, decoder.dtype, self.device,
-                                      self.block_size)
+                                      self.block_size, _kv_dtype(decoder))
             for c in (cfg, draft_cfg) if self.spec else (cfg,):
-                probe_kv_write_paged(c.kv_heads, c.head_dim, c.dtype, self.device)
+                probe_kv_write_paged(c.kv_heads, c.head_dim, c.dtype, self.device, _kv_dtype(c))
         self._allocator = BlockAllocator(self.num_blocks)
         self._draft_allocator = BlockAllocator(self.num_blocks) if self.spec else None
         self._pool = None

@@ -706,3 +706,112 @@ def test_engine_answers_bad_prompts_with_400():
         assert status == 400 and "prompt token rows" in json.loads(text)["status"]["info"]
     finally:
         engine.close()
+
+
+# -- int8 weights and the int8 K/V cache (ROADMAP Queue 1 item [2q]) ---------
+
+
+def _int8_models(quant, kv_quant):
+    """The module's weights at ``quant`` (quantized on both sides from the
+    same dense tree) and the two configs."""
+    jp = jax_lm_init(jax.random.key(3), JCFG)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    if quant == "int8":
+        from seldon_core_tpu.ops.quant import quantize_lm_params as jquant
+        from seldon_core_tpu_torch.ops.quant import quantize_lm_params as tquant
+
+        jp, tp = jquant(jp), tquant(tp)
+    return (jp, tp, JConfig(**DIMS, dtype=jnp.float32, quant=quant, kv_quant=kv_quant),
+            TConfig(**DIMS, dtype=torch.float32, quant=quant, kv_quant=kv_quant))
+
+
+def _jax_scheduler_tokens(jp, jcfg, prompts, **kw):
+    """The reference scheduler's answer (runtime/genserver.py of the JAX
+    package) at the port's test knobs: with an int8 cache the continuous
+    lane attends a prefill's fresh tokens quantized (written, then
+    viewed), where the static generate attends them exact, so the lane's
+    reference is the reference's lane."""
+    from seldon_core_tpu.runtime.genserver import GenServer as JGenServer
+
+    kw = {"max_new_tokens": 10, "block_size": 4, "num_blocks": 64, "slots": 8, "span": 3,
+          "prefill_chunk": 4, **kw}
+    srv = JGenServer(jp, jcfg, **kw)
+    try:
+        return srv.submit(np.asarray(prompts, float)).future.result(timeout=WAIT_S)
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "kernel-wrappers"])
+@pytest.mark.parametrize("quant,kv_quant", [("none", "int8"), ("int8", "none"), ("int8", "int8")],
+                         ids=["kv", "weights", "both"])
+def test_scheduler_int8_tokens_identical_to_jax_generate(quant, kv_quant, use_flash):
+    """int8 pools (scale planes beside them), int8 weights and both: the
+    chunked prefill and the paged rounds reproduce the JAX scheduler at the
+    same quantization token for token, two requests co-scheduled; with
+    float pools also the JAX generate."""
+    jp, tp, jcfg, tcfg = _int8_models(quant, kv_quant)
+    prompts = _prompts(0, (3, 7))
+    ref = _jax_scheduler_tokens(jp, jcfg, prompts)
+    if kv_quant == "none":
+        np.testing.assert_array_equal(ref, np.asarray(jgen.generate(
+            jp, jnp.asarray(prompts, jnp.int32), jcfg, max_new_tokens=10)))
+    srv = _server(tp, cfg=tcfg, use_flash=use_flash)
+    try:
+        r1 = srv.submit(prompts[:2].astype(float))
+        r2 = srv.submit(prompts[2:].astype(float))
+        got = np.concatenate([r1.future.result(timeout=WAIT_S), r2.future.result(timeout=WAIT_S)])
+        if kv_quant == "int8":
+            assert srv._pool["l0"]["k"].dtype == torch.int8 and "k_s" in srv._pool["l0"]
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_scheduler_int8_preemption_recomputes_and_leaks_nothing():
+    """The allocator and preemption are the float pools': a pool too small
+    for both whole sequences preempts one, which resumes on int8 pools with
+    the reference's tokens, and no block leaks."""
+    jp, tp, jcfg, tcfg = _int8_models("none", "int8")
+    prompts = _prompts(13, (2, 4))
+    ref = _jax_scheduler_tokens(jp, jcfg, prompts, max_new_tokens=8)
+    srv = _server(tp, cfg=tcfg, block_size=2, num_blocks=9, span=4, prefill_chunk=4,
+                  max_new_tokens=8)
+    try:
+        r1 = srv.submit(prompts[:1].astype(float))
+        r2 = srv.submit(prompts[1:].astype(float))
+        np.testing.assert_array_equal(r1.future.result(timeout=WAIT_S), ref[:1])
+        np.testing.assert_array_equal(r2.future.result(timeout=WAIT_S), ref[1:])
+        s = _settle(srv)
+        assert s["preempted_total"] >= 1 and s["kv_blocks"]["used"] == 0
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("P", [6, 8], ids=["blocks+tail", "blocks"])
+def test_scheduler_int8_prefix_copies_codes_and_scales(P):
+    """An int8 prefix cache: the pinned blocks hold its codes and scales
+    bit for bit, the tails are copied as they are, and the answers equal
+    the JAX scheduler's with the same int8 prefix."""
+    jp, tp, jcfg, tcfg = _int8_models("int8", "int8")
+    ids = np.random.default_rng(11).integers(0, DIMS["vocab"], size=(1, P)).astype(np.int32)
+    _, jpc = jgen.prefill(jp, jnp.asarray(ids), jgen.init_cache(jcfg, 1, P), jcfg)
+    tpc = params_from_jax(jax.tree_util.tree_map(np.asarray, jpc), device="cpu")
+    sufs = _prompts(12, (3, 5))
+    ref = _jax_scheduler_tokens(jp, jcfg, sufs, prefix_cache=jpc)
+    srv = _server(tp, cfg=tcfg, prefix_cache=tpc)
+    try:
+        got = srv.submit(sufs.astype(float)).future.result(timeout=WAIT_S)
+        pinned = list(srv._prefix_blocks)
+        assert len(pinned) == P // 4
+        for li in srv._pool:
+            for kk in ("k", "v"):
+                want = tpc[li][kk][0, :, :len(pinned) * 4].reshape(
+                    tcfg.kv_heads, len(pinned), 4, tcfg.head_dim).transpose(0, 1)
+                assert torch.equal(srv._pool[li][kk][pinned], want)
+                want_s = tpc[li][kk + "_s"][0, :, :len(pinned) * 4].reshape(
+                    tcfg.kv_heads, len(pinned), 4).transpose(0, 1)
+                assert torch.equal(srv._pool[li][kk + "_s"][pinned], want_s)
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(got, ref)

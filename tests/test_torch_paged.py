@@ -95,8 +95,14 @@ def test_init_block_pool_layout_scratch_and_refusals(monkeypatch):
     assert set(pool) == {"l0", "l1"}
     assert pool["l0"]["k"].shape == (5, 2, 4, 8) and pool["l0"]["k"].dtype == torch.float32
     assert not pool["l0"]["v"].any()
-    with pytest.raises(ValueError, match=r"item \[2q\]"):
-        tgen.init_block_pool(TConfig(**GQA, kv_quant="int8"), 5, 4, "cpu")
+    # int8 pools (item [2q], refused until it was ported) carry scale
+    # planes, [N, KV, bs] where the reference's are [N, bs, KV]
+    ipool = tgen.init_block_pool(TConfig(**GQA, kv_quant="int8"), 5, 4, "cpu")
+    jpool = jgen.init_block_pool(JConfig(**GQA, kv_quant="int8"), 5, 4)
+    assert set(ipool["l0"]) == set(jpool["l0"]) == {"k", "v", "k_s", "v_s"}
+    assert ipool["l0"]["k"].dtype == torch.int8 and ipool["l0"]["k"].shape == (5, 2, 4, 8)
+    assert ipool["l0"]["v_s"].dtype == torch.float32 and ipool["l0"]["v_s"].shape == (5, 2, 4)
+    assert jpool["l0"]["v_s"].shape == (5, 4, 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tgen.init_block_pool(tcfg, 5, 4)
@@ -859,3 +865,215 @@ def test_paged_spec_round_matches_the_reference(k, use_flash):
                 np.testing.assert_allclose(
                     tpool[li][name].numpy()[1:],
                     np.asarray(layer[name]).transpose(0, 2, 1, 3)[1:], atol=ATOL, rtol=ATOL)
+
+
+# -- the int8 K/V cache's pools (ROADMAP Queue 1 item [2q]) ------------------
+
+
+def _i8_pool_pair(tcfg, N, bs, rng):
+    """The same random int8 pool contents in both layouts: (jax pool [N,
+    bs, KV, *], port pool [N, KV, bs, *]); N(0, 1) rows quantized as the
+    served path quantizes them (codes and scale planes)."""
+    KV, hd = tcfg.kv_heads, tcfg.head_dim
+    jpool, tpool = {}, {}
+    for i in range(tcfg.n_layers):
+        t, j = {}, {}
+        for name in ("k", "v"):
+            rows = torch.from_numpy(rng.standard_normal(size=(N, KV, bs, hd)).astype(np.float32))
+            t[name], t[name + "_s"] = kw.quantize_kv(rows.to(torch.bfloat16))
+            j[name] = jnp.asarray(t[name].numpy().transpose(0, 2, 1, 3))
+            j[name + "_s"] = jnp.asarray(t[name + "_s"].numpy().transpose(0, 2, 1))
+        tpool[f"l{i}"], jpool[f"l{i}"] = t, j
+    return jpool, tpool
+
+
+def _same_i8_pool(tlayer, jlayer, skip_scratch=False):
+    lo = 1 if skip_scratch else 0
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(tlayer[name].numpy()[lo:],
+                                      np.asarray(jlayer[name]).transpose(0, 2, 1, 3)[lo:])
+        np.testing.assert_array_equal(tlayer[name + "_s"].numpy()[lo:],
+                                      np.asarray(jlayer[name + "_s"]).transpose(0, 2, 1)[lo:])
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+def test_int8_paged_write_and_views_match_bit_for_bit(dims):
+    """An int8 pool's write (each row quantized by _quantize_kv, codes and
+    scales scattered through the table; invalid positions to the scratch
+    block at distinct offsets) and its views (codes and scale planes)
+    against the reference's, bit for bit; the wrapper on CPU tensors is the
+    same plain write."""
+    jcfg, tcfg = _cfgs(dims)
+    rng = np.random.default_rng(20)
+    N, bs, B, W, nblk = 12, 8, 3, 5, 3
+    jpool, tpool = _i8_pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    start = np.array([6, 0, 3], np.int32)
+    valid = np.ones((B, W), bool)
+    valid[1] = False
+    valid[2, 4] = False
+    KV, hd = tcfg.kv_heads, tcfg.head_dim
+    k = 3 * rng.normal(size=(B, KV, W, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, W, hd)).astype(np.float32)
+    pos = start[:, None] + np.arange(W)[None, :]
+    want = jgen._paged_write(jpool["l0"], jnp.asarray(tables), jnp.asarray(pos),
+                             jnp.asarray(valid), jnp.asarray(k), jnp.asarray(v))
+    again = {n: t.clone() for n, t in tpool["l0"].items()}
+    got = tgen._paged_write(tpool["l0"], _t32(tables), _t32(start), torch.from_numpy(valid),
+                            torch.from_numpy(k), torch.from_numpy(v))
+    assert got is tpool["l0"]  # in place
+    _same_i8_pool(got, want)
+    kw.kv_write_paged(again["k"], again["v"], torch.from_numpy(k), torch.from_numpy(v),
+                      _t32(tables), _t32(start), torch.from_numpy(valid),
+                      (again["k_s"], again["v_s"]))
+    assert all(torch.equal(again[n], got[n]) for n in got)
+    jview = jgen._paged_view(want, jnp.asarray(tables))
+    tview = tgen._paged_view(got, _t32(tables))
+    assert set(tview) == set(jview) == {"k", "v", "k_s", "v_s"}
+    for name, arr in jview.items():
+        np.testing.assert_array_equal(tview[name].numpy(), np.asarray(arr))
+
+
+def test_int8_kv_write_paged_refuses_mismatched_scales():
+    pk = torch.zeros(4, 2, 4, 8, dtype=torch.int8)
+    planes = (torch.zeros(4, 2, 4), torch.zeros(4, 2, 4))
+    k = torch.zeros(2, 2, 1, 8)
+    ok = dict(tables=torch.zeros(2, 1, dtype=torch.int32), start=torch.zeros(2, dtype=torch.int32),
+              valid=torch.ones(2, 1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="scale planes"):
+        kw.kv_write_paged(pk, pk.clone(), k, k, **ok)
+    with pytest.raises(ValueError, match="pool_ks must be"):
+        kw.kv_write_paged(pk, pk.clone(), k, k, **ok, scales=(torch.zeros(4, 4, 2),) * 2)
+    with pytest.raises(ValueError, match="come with their scales"):
+        kw.kv_write_paged(pk, pk.clone(), k.to(torch.int8), k.to(torch.int8), **ok,
+                          scales=planes)
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+@pytest.mark.parametrize("W", [1, 5])
+def test_int8_attend_paged_matches(dims, W):
+    """The plain attention over an int8 view (scores times k_s, p times v_s
+    before its cast) against _attend_paged over the reference's view."""
+    jcfg, tcfg = _cfgs(dims)
+    rng = np.random.default_rng(21 + W)
+    jpool, tpool = _i8_pool_pair(tcfg, 14, 4, rng)
+    tables = _tables(rng, 3, 4, 14)
+    start = np.array([0, 6, 10], np.int32)
+    q = rng.normal(size=(3, tcfg.n_heads, W, tcfg.head_dim)).astype(np.float32)
+    want = jgen._attend_paged(jnp.asarray(q), jgen._paged_view(jpool["l0"], jnp.asarray(tables)),
+                              jnp.asarray(start))
+    got = tgen._attend_paged(torch.from_numpy(q), tgen._paged_view(tpool["l0"], _t32(tables)),
+                             _t32(start))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("dims", [DIMS, GQA], ids=["mha", "gqa"])
+def test_int8_flash_decode_paged_fused_is_the_reference_write_and_attend(dims):
+    """The int8 fused call's plain version (the step's rows quantized into
+    the pools, then the attention over codes and scales) against
+    _paged_write + _attend_paged of the reference's int8 pool, two rows
+    inactive: the pools and planes bit for bit outside the scratch block,
+    o of the active rows within ATOL; the wrapper on CPU tensors is the
+    plain version."""
+    jcfg, tcfg = _cfgs(dims)
+    rng = np.random.default_rng(23)
+    N, bs, B, nblk = 30, 4, 5, 4
+    jpool, tpool = _i8_pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    tables[3] = 0
+    lens = np.array([1, 7, 16, 5, 10], np.int32)
+    active = np.array([True, True, True, False, False])
+    KV, G, hd = tcfg.kv_heads, tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim
+    q = rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+    k = 5 * rng.normal(size=(B, KV, 1, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, 1, hd)).astype(np.float32)
+    layer = jgen._paged_write(jpool["l0"], jnp.asarray(tables), jnp.asarray(lens[:, None] - 1),
+                              jnp.asarray(active[:, None]), jnp.asarray(k), jnp.asarray(v))
+    want = jgen._attend_paged(jnp.asarray(q.reshape(B, KV * G, 1, hd)),
+                              jgen._paged_view(layer, jnp.asarray(tables)),
+                              jnp.asarray(lens - 1))
+    want = np.asarray(want).reshape(B, KV, G, hd)
+    outs = []
+    for fn in (fd.flash_decode_paged_reference, fd.flash_decode_paged):
+        tl = {n: t.clone() for n, t in tpool["l0"].items()}
+        got = fn(torch.from_numpy(q), tl["k"], tl["v"], _t32(tables), _t32(lens),
+                 torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(active),
+                 (tl["k_s"], tl["v_s"]))
+        np.testing.assert_allclose(got.numpy()[active], want[active], atol=ATOL, rtol=ATOL)
+        _same_i8_pool(tl, layer, skip_scratch=True)
+        outs.append((got, tl))
+    assert torch.equal(outs[0][0], outs[1][0])
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"], ids=["kv", "both"])
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "fused"])
+def test_int8_paged_decode_round_tokens_identical(use_flash, quant):
+    """A round over int8 pools (rows at different lengths, an inactive pad
+    row), with dense or int8 weights: the reference's greedy tokens, cache
+    lengths and pools outside the scratch block."""
+    dims = dict(GQA)
+    jcfg = JConfig(**dims, dtype=jnp.float32, quant=quant, kv_quant="int8")
+    tcfg = TConfig(**dims, dtype=torch.float32, quant=quant, kv_quant="int8")
+    jp, tp = _weights(JConfig(**dims, dtype=jnp.float32), seed=7)
+    if quant == "int8":
+        from seldon_core_tpu.ops.quant import quantize_lm_params as jquant
+        from seldon_core_tpu_torch.ops.quant import quantize_lm_params as tquant
+
+        jp, tp = jquant(jp), tquant(tp)
+    rng = np.random.default_rng(24)
+    N, bs, B, nblk, span = 40, 4, 4, 5, 4
+    jpool, tpool = _i8_pool_pair(tcfg, N, bs, rng)
+    tables = _tables(rng, B, nblk, N)
+    tables[3] = 0
+    token = rng.integers(0, dims["vocab"], size=(B,)).astype(np.int32)
+    n_valid = np.array([3, 11, 7, 0], np.int32)
+    active = np.array([True, True, True, False])
+    jt, jpool, jtok, jnv, _, _ = jgen.paged_decode_round(
+        jp, dict(jpool), jnp.asarray(tables), jnp.asarray(token), jnp.asarray(n_valid),
+        jnp.asarray(active), jnp.zeros((B,), bool), jnp.zeros((B,), jnp.uint32), jcfg, span=span,
+        temperature=0.0, top_k=0, top_p=0.0, eos_token=-1)
+    tt, tpool, ttok, tnv, _, _ = tgen.paged_decode_round(
+        tp, tpool, _t32(tables), _t32(token), _t32(n_valid), torch.from_numpy(active),
+        torch.zeros(B, dtype=torch.bool), tcfg, span=span, use_flash=use_flash)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(tnv.numpy(), np.asarray(jnv))
+    for li in tpool:
+        # codes within one step and scales to f32 rounding: the written
+        # rows are computed in another order upstream
+        for name in ("k", "v"):
+            d = tpool[li][name].numpy()[1:].astype(int) - \
+                np.asarray(jpool[li][name]).transpose(0, 2, 1, 3)[1:].astype(int)
+            assert np.abs(d).max() <= 1
+            np.testing.assert_allclose(tpool[li][name + "_s"].numpy()[1:],
+                                       np.asarray(jpool[li][name + "_s"]).transpose(0, 2, 1)[1:],
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "kernel-wrapper"])
+@pytest.mark.parametrize("P", [6, 8, 3], ids=["blocks+tail", "blocks", "tail"])
+def test_int8_prefix_writes_copy_codes_and_scales(P, use_flash):
+    """An int8 prefix cache (prefilled quantized) into int8 pools: the full
+    blocks and the tail copy its codes and scales as they are, leaving the
+    reference's pool bit for bit."""
+    dims = dict(GQA)
+    jcfg = JConfig(**dims, dtype=jnp.float32, kv_quant="int8")
+    tcfg = TConfig(**dims, dtype=torch.float32, kv_quant="int8")
+    jp, _ = _weights(JConfig(**dims, dtype=jnp.float32), seed=9)
+    rng = np.random.default_rng(25)
+    N, bs = 12, 4
+    jpool, tpool = _i8_pool_pair(tcfg, N, bs, rng)
+    prefix = rng.integers(0, dims["vocab"], size=(1, P)).astype(np.int32)
+    _, jpc = jgen.prefill(jp, jnp.asarray(prefix), jgen.init_cache(jcfg, 1, P), jcfg)
+    tpc = params_from_jax(jax.tree_util.tree_map(np.asarray, jpc), device="cpu")
+    full = P // bs
+    blocks = [7, 2][:full]
+    if full:
+        jpool = jgen.paged_write_prefix_blocks(jpool, jpc, tuple(blocks), jcfg)
+        tpool = tgen.paged_write_prefix_blocks(tpool, tpc, blocks, tcfg, use_flash)
+    if P > full * bs:
+        jpool = jgen.paged_write_prefix_tail(jpool, jpc, jnp.int32(5), jcfg, p0=full * bs)
+        tpool = tgen.paged_write_prefix_tail(tpool, tpc, 5, tcfg, p0=full * bs,
+                                             use_flash=use_flash)
+    for li in tpool:
+        _same_i8_pool(tpool[li], jpool[li])
