@@ -4131,20 +4131,33 @@ def mnist_phases(torch, dev, smi) -> dict:
 # Two-tier shapes, (B, KV, G, hd, main slots, n_main, chunk slots, n_chunk),
 # each call with the step's write fused in: the flagship layer after 1, 32
 # and 63 chunk tokens; B=1 at 1, 17, 309 and 640 positions (clusters of 1,
-# 1, 4 and 8 blocks; the flagship layer's is 2); the int8 example's layer
-# (8 heads over 2 kv heads at d_model 128: hd 16, group 4)
+# 1, 4 and 8 blocks; the flagship layer's is 1 under the int8 plan); the
+# int8 example's layer (8 heads over 2 kv heads at d_model 128: hd 16,
+# group 4); B=1 at 150 + 3 (a cluster of 2; n_main not a multiple of 4, so
+# the tile across main's end and its scale runs are unaligned); hd 128 and
+# 256 (other k-step counts; 4 warps at 256); group 1 and group 16 (the m16
+# tile's rows 8-15)
 I8_DECODE_SHAPES = [(32, 4, 4, 64, 512, 512, 63, 1), (32, 4, 4, 64, 512, 512, 63, 32),
                     (32, 4, 4, 64, 512, 512, 63, 63), (1, 4, 4, 64, 512, 0, 63, 1),
                     (1, 4, 4, 64, 512, 0, 63, 17), (1, 4, 4, 64, 512, 300, 63, 9),
-                    (1, 4, 4, 64, 640, 640, 63, 0), (4, 2, 4, 16, 100, 100, 15, 9)]
+                    (1, 4, 4, 64, 640, 640, 63, 0), (4, 2, 4, 16, 100, 100, 15, 9),
+                    (1, 4, 4, 64, 512, 150, 63, 3), (4, 2, 4, 128, 256, 201, 31, 7),
+                    (2, 4, 1, 256, 256, 130, 15, 5), (8, 8, 1, 64, 512, 333, 31, 11),
+                    (2, 1, 16, 64, 512, 250, 31, 6)]
+# the same positions with the chunk merged into main at two points, neither
+# a multiple of 4, (B, KV, G, hd, n, (n_main, n_main')): the same bits
+I8_MERGES = [(2, 4, 4, 64, 440, (403, 298)), (GEN_B, 4, 4, 64, 560, (512, 517))]
 # the two-tier shape of check_sensitive: the flagship layer at n = 512 + 32
 I8_DEFECTS_AT = I8_DECODE_SHAPES[1]
 # paged shapes, (B, KV, G, hd, table blocks, lengths), each fused with the
 # last row inactive: the served round (B=32 at 560 positions), the ragged
 # batch (blocks also permuted), one row at 560, and the example's heads
+# (also hd 128 and 256, group 1 and group 16)
 I8_PAGED_SHAPES = [(GEN_B, 4, 4, 64, PAGED_NBLK, [560] * GEN_B),
                    (len(PAGED_RAGGED) + 1, 4, 4, 64, PAGED_NBLK, PAGED_RAGGED + [300]),
-                   (2, 4, 4, 64, PAGED_NBLK, [560, 17]), (5, 2, 4, 16, 16, [1, 60, 200, 256, 9])]
+                   (2, 4, 4, 64, PAGED_NBLK, [560, 17]), (5, 2, 4, 16, 16, [1, 60, 200, 256, 9]),
+                   (4, 2, 4, 128, 32, [1, 100, 333, 512]), (3, 2, 2, 256, 16, [17, 250, 256]),
+                   (6, 8, 1, 64, 40, [1, 15, 16, 17, 600, 640]), (3, 1, 16, 64, 40, [64, 300, 640])]
 # kv_write_paged's int8 variant, (KV, hd, W) into pools of 2,049 blocks: a
 # prefill tick's B=32 rows of W=128 and 512; and the example's heads
 I8_KV_CASES = [(4, 64, 128), (4, 64, 512), (2, 16, 128)]
@@ -4187,18 +4200,21 @@ I8_FRESH_K_SPREAD = 2.0
 # a defect the kernel check must see (a 16-position tile dropped, k_s read
 # one position off) moves the plain o by at least this many tolerances
 I8_DEFECT_MARGIN = 4
-I8_DECODE_DESIGN = ("flash_decode.cu's kernel instantiated on int8 segments: the same "
-                    "cluster split, bulk-copy ring (rows of hd bytes) and slot walk, a lane "
-                    "8 codes; each slot's scales loaded before its stage lands; scores times "
-                    "k_s, p times v_s before its bf16 rounding; the fresh row quantized in the "
-                    "launch (kv_int8.cuh) and attended as codes: one launch")
-I8_PAGED_DESIGN = ("the bf16 path's share rule, warps, 16-position tiles and DSMEM combine; "
-                   "each warp's ring filled by bulk copies of contiguous pool runs (K codes, V "
-                   "codes, k_s, v_s); both products mma.sync m16n8k16 with B operands built "
-                   "from the codes in registers (q's k order permuted so a lane's K codes are "
-                   "one 32-bit load), k_s on the S fragment, v_s on p before its bf16 "
-                   "rounding; the fresh row quantized by a warp reduction and attended as "
-                   "codes: one launch")
+I8_WALK = ("int8_walk.cuh's tile walk: each warp every 8th (4th at hd 256) tile of 16 "
+           "positions through its own ring of 2-4 stages filled by its lanes' cp.async "
+           "(16-byte chunks into a swizzled stage, the tile's k_s and v_s on the same stage "
+           "and mbarrier); both products mma.sync m16n8k16, q's k order and V's n order "
+           "permuted so a lane's K codes of a position are one 16-byte load and its V codes "
+           "one 8-byte load, conflict-free; codes to bf16 by two LOP3s and a bf16x2 add a pair "
+           "(no I2F or LDS.U8 in the walk, no F2FP but P's); k_s on the S fragment, v_s on p "
+           "before its bf16 rounding; the fresh row quantized once by a warp reduction and "
+           "attended as codes: one launch")
+I8_DECODE_DESIGN = (I8_WALK + "; the split a cluster of 1-8 blocks with shares a multiple of "
+                    "16 positions, doubled for long rows while two blocks an SM hold the grid "
+                    "(i8_split_plan), a tile across main's end taking rows of both segments; "
+                    "warps then ranks combined through DSMEM")
+I8_PAGED_DESIGN = (I8_WALK + "; the bf16 path's share rule by each row's length and DSMEM "
+                   "combine, the cluster doubled for long tables (i8_paged_cluster)")
 I8_KV_DESIGN = ("a group of hd/8 lanes a (row, kv head, position): 8 values of K and of V a "
                 "lane, the row's absmax by shuffles, IEEE divisions and rint to the codes, "
                 "the first lane writing both scales; int8 rows with their scales copied")
@@ -4270,7 +4286,8 @@ def int8_kernel_phase(torch, fd, kw, dev) -> dict:
     the step's write fused in (the written codes and scales bit for bit
     against the plain quantizer, o within FLASH_O_ATOL of max(1, |o|), the
     paged pools outside the scratch block 0), the ragged paged batch also
-    with its blocks permuted; at the flagship's shapes the plain version
+    with its blocks permuted, the two-tier variant the same bits with main
+    ending at two points (I8_MERGES); at the flagship's shapes the plain version
     with a tile dropped or k_s one position off must miss that tolerance
     (check_sensitive); kv_write_paged's int8 variant bit-exact at
     I8_KV_CASES, quantizing bf16 rows and copying int8 ones.  Returns each
@@ -4319,7 +4336,7 @@ def int8_kernel_phase(torch, fd, kw, dev) -> dict:
         if not torch.equal(got, again):
             raise AssertionError(f"[int8-kernels] flash_decode_two_tier int8 at {shape} differs "
                                  f"between two calls")
-        split, span = fd.decode_split_plan(B, KV, G, n_main + n_chunk, sm_count)
+        split, span = fd.i8_split_plan(B, KV, G, n_main + n_chunk, sm_count)
         clusters.add(split)
         errs["flash_decode"] = {"abs": max(errs["flash_decode"]["abs"], abs_err),
                                 "rel": max(errs["flash_decode"]["rel"], err)}
@@ -4340,6 +4357,39 @@ def int8_kernel_phase(torch, fd, kw, dev) -> dict:
     if clusters != {1, 2, 4, 8}:
         raise AssertionError(f"[int8-kernels] I8_DECODE_SHAPES planned clusters of "
                              f"{sorted(clusters)}, not 1, 2, 4 and 8")
+    for B, KV, G, hd, n, n_mains in I8_MERGES:
+        # one stream's positions: main[:n_main] ++ chunk[:n - n_main] at two
+        # merge points (the slots past them hold other codes)
+        q = i8_query(torch, B, KV, G, hd, gen, dev)
+        (gk, gks), (gv, gvs) = (kw.int8_kv_rows((B, KV, n, hd), gen, dev) for _ in range(2))
+        k, v = fresh_rows(torch, B, KV, hd, gen, dev)
+        outs, written = [], []
+        for n_main in n_mains:
+            segs = []
+            for t in (gk, gv, gks, gvs):
+                main, chunk = t.clone(), t.clone().roll(1, dims=2)
+                main[:, :, n_main:] = t.roll(7, dims=2)[:, :, n_main:]
+                chunk[:, :, :n - n_main] = t[:, :, n_main:]
+                segs.append((main, chunk))
+            (mk, ck), (mv, cv), (mks, cks), (mvs, cvs) = segs
+            outs.append(fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n - n_main, k, v,
+                                                 (mks, mvs, cks, cvs)))
+            written.append([t[:, :, n - n_main - 1] for t in (ck, cv, cks, cvs)])
+        torch.cuda.synchronize()
+        want = fd.flash_decode_two_tier_reference(q, gk.clone(), gv.clone(), n, gk[:, :, :0],
+                                                  gv[:, :, :0], 0, k, v,
+                                                  (gks.clone(), gvs.clone(), gks[:, :, :0],
+                                                   gvs[:, :, :0]))
+        err = o_errs(outs[0], want)[1]
+        if (not torch.equal(outs[0], outs[1]) or err > FLASH_O_ATOL
+                or not all(torch.equal(a, b) for a, b in zip(*written))):
+            raise AssertionError(f"[int8-kernels] flash_decode_two_tier int8, (B,KV,G,hd)="
+                                 f"{(B, KV, G, hd)}, n={n}: main ending at {n_mains} gave other "
+                                 f"bits or writes (o err {err:.3e})")
+        log(f"[int8-kernels] flash_decode_two_tier int8 (B,KV,G,hd)={(B, KV, G, hd)}, n={n} with "
+            f"main ending at {n_mains[0]} and at {n_mains[1]}: the same bits and the same "
+            f"written codes and scales, o max err {err:.3e} of max(1, |o|) against the plain "
+            f"version over one segment")
     for case in I8_PAGED_SHAPES:
         B, KV, G, hd, nblk, lens = case
         N = B * nblk + 1
@@ -4928,7 +4978,7 @@ def long_context_rates(torch, dev, smi) -> dict:
         prof = device_profile(torch, lambda: decode_step_two_tier(params, tok, main, chunk, LC_S,
                                                                   0, cfg, True), "i8_step",
                               by_name=True)
-    i8_ms = sum(v for k, v in prof["by_name"].items() if "flash_decode_kernel" in k)
+    i8_ms = sum(v for k, v in prof["by_name"].items() if "flash_decode_i8_kernel" in k)
     del main, chunk
     log(f"[int8-times] long-context static decode, B={LC_B}, S={LC_S}, {LC_NEW} new tokens, "
         f"in turns (ABBA): int8 K/V {['%.1f' % r for r in rates['int8']]} tokens/s, bf16 K/V "
@@ -5002,8 +5052,9 @@ def int8_build_checks(torch, fd) -> None:
     2: both take the flagship's (hd 64, group 4) and the example's (hd 16,
     group 4) heads, refuse hd 8 and 40 (not a multiple of 16) and float32 q
     over an int8 cache; the paged variant's shared memory equals
-    ops/flash_decode.py's statement of its layout (paged_i8_layout) at
-    every head dim and group it takes, and it refuses blocks of 12."""
+    ops/flash_decode.py's statement of the int8 walk's layout (i8_walk_layout,
+    both variants' plan) at every head dim and group it takes, and so does
+    the two-tier variant's; the paged variant refuses blocks of 12."""
     i8 = torch.int8
     for hd in (64, 16):
         n, why = fd._smem_bytes(hd, 4, torch.bfloat16, i8)
@@ -5017,10 +5068,13 @@ def int8_build_checks(torch, fd) -> None:
             raise AssertionError(f"the int8 two-tier variant let hd {hd} {dtype} through: {why!r}")
     for hd in range(16, 257, 16):
         for group in (1, 2, 3, 4, 8, 16):
+            want = fd.i8_walk_layout(hd, group)["bytes"]
             n, why = fd._paged_smem_bytes(hd, group, PAGED_BS, torch.bfloat16, i8)
-            if why is not None or n != fd.paged_i8_layout(hd, group)["bytes"]:
-                raise AssertionError(f"the int8 paged layout's Python statement differs from the "
-                                     f"source at hd {hd}, group {group}: {n}, {why!r}")
+            n2, why2 = fd._smem_bytes(hd, group, torch.bfloat16, i8)
+            if why is not None or why2 is not None or n != want or n2 != want:
+                raise AssertionError(f"the int8 walk's layout, stated in Python, differs from the "
+                                     f"sources at hd {hd}, group {group}: paged {n} {why!r}, "
+                                     f"two-tier {n2} {why2!r}, stated {want}")
     for hd, bs, dtype, match in ((40, PAGED_BS, torch.bfloat16, "multiple of 16"),
                                  (64, 12, torch.bfloat16, "multiple of 8"),
                                  (64, PAGED_BS, torch.float32, "int8 pools")):
@@ -5029,9 +5083,9 @@ def int8_build_checks(torch, fd) -> None:
             raise AssertionError(f"the int8 paged variant let hd {hd}, blocks of {bs}, {dtype} "
                                  f"through: {why!r}")
     log(f"[build] int8-K/V variants (dtype code 2): hd 64 and 16 at group 4 taken by both; hd 8 "
-        f"and 40 and float32 q refused; the paged variant's shared memory equals "
-        f"paged_i8_layout at hd 16-256 x groups 1-16 ({fd.paged_i8_layout(64, 4)['bytes']} bytes "
-        f"at the flagship's heads), blocks of 12 refused")
+        f"and 40 and float32 q refused; both variants' shared memory equals i8_walk_layout at "
+        f"hd 16-256 x groups 1-16 ({fd.i8_walk_layout(64, 4)['bytes']} bytes at the flagship's "
+        f"heads), blocks of 12 refused")
 
 
 def main() -> int:

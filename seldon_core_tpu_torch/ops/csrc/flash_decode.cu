@@ -81,26 +81,48 @@
 // still depends only on n, so a stream's merge of its chunk into main
 // keeps its bits.
 //
-// The int8 K/V cache (kv_quant = "int8"; flash_decode_i8_launch).  The
-// same kernel over int8 segments with their scale planes k_s / v_s [B, KV,
-// L] f32, the reference's _attend_two_tier with scales (generate.py:162-227,
-// _grouped_qk and _pv_f32): a score is (q . k_int8) * (1/sqrt(D)) * k_s[j]
-// in f32 (int8 codes are exact in bf16 and f32, so every product is
-// exact), and V enters as p * v_s[j] rounded to bf16 times v_int8, in f32;
-// l sums the unscaled exp.  A lane takes 8 codes (8 bytes) of a row where
-// it takes 8 bf16 values (16 bytes), so the ring's stages carry half the
-// bytes (a row is D bytes: D a multiple of 16, the bulk copies' unit); a
-// slot reads its positions' two scales from global memory before it waits
-// on the stage.  The fused write quantizes: the lanes of the slot that
-// walks position n - 1 each take the whole fresh bf16 row's absmax (D / 8
-// loads of 16 bytes), so every lane of the group holds the same scale, and
-// quantize their own 8 values by kv_int8.cuh (the reference's quantizer,
-// bit for bit); the ring's empty slot gets those codes and the walk that
-// scale, so the fresh position is attended as the reference writes and
-// then reads it (codes times scale), never as the exact bf16 row; row tile
-// 0 stores codes and scales into the cache.  Bound: the bytes, now 2 D + 8
-// bytes a position and kv head for K and V with their scales (~9.75 MB,
-// ~2.91 us at 3.35 TB/s, at B=32, KV=4, D=64 and 560 positions).
+// The int8 K/V cache (kv_quant = "int8"; flash_decode_i8_launch,
+// flash_decode_i8_kernel).  Segments of int8 codes with their scale planes
+// k_s / v_s [B, KV, L] f32; the reference's _attend_two_tier with scales
+// (generate.py:162-227, _grouped_qk and _pv_f32): a score is (q . k_int8) *
+// (1/sqrt(D)) * k_s[j] in f32, V enters as p * v_s[j] rounded to bf16
+// times v_int8, in f32; l sums the unscaled exp.
+//   * What bounds it: the bytes, 2 D + 8 a position and kv head for K and V
+//     with their scales (~9.75 MB, ~2.91 us at 3.35 TB/s at B=32, KV=4,
+//     D=64 and 560 positions; ~21.7 us at 4,160).
+//   * What held the first int8 design back (commit da270b9: this kernel's
+//     template instantiated on int8 segments): 1.3x the bf16 kernel's time
+//     at half its bytes, 31% of the byte bound at 4,160 positions.  Every
+//     code went through the conversion pipe (a shift and an I2F a code: 32
+//     I2F.S8 / I2FP.F32.S32 in the kernel's SASS at 4 rows, 16 results a
+//     clock an SM against 128 FMAs); each slot loaded its positions' two
+//     scales from global memory after its group's copies were issued, so
+//     every group waited one round trip; the CUDA-core walk is bound by its
+//     shuffle levels' latency; and every lane of the fresh row's group
+//     re-read the whole bf16 row for its absmax.
+//   * This design walks int8_walk.cuh's tiles, the paged kernel's int8 walk
+//     too: each warp takes every NW-th tile of 16 positions of the block's
+//     share through its own ring (2-4 stages, cp.async of 16-byte chunks
+//     into a swizzled stage, the tile's k_s and v_s on the same stage and
+//     mbarrier: no scale load in the walk); both products mma.sync
+//     m16n8k16 with q's k order and V's n order permuted so each operand is
+//     one or two vector loads without bank conflicts; the codes widened to
+//     bf16 by two LOP3s and a bf16x2 add a pair (kvq::codes_bf16x2).  The
+//     walk loop's SASS (hd 64, 8 rows) holds no I2F, no byte load and P's 2
+//     F2FP.  A tile that straddles the end of main takes its rows from both
+//     segments.  The split is i8_split_plan's (ops/flash_decode.py):
+//     decode_split_plan at this walk's row tile and grid aim with a span
+//     that is a multiple of 16, so tiles start at fixed global positions
+//     and a row's bits still depend on n and C only (the ranks past n take
+//     empty shares), doubled for long rows while two blocks an SM hold the
+//     grid (B=32 at 4,160 positions: C = 2).  The combine is the warps',
+//     then the cluster's through DSMEM, in a fixed order.
+//   * The fused write: the warp that walks position n - 1 quantizes the
+//     fresh bf16 rows once, spread over its 32 lanes with a warp reduction
+//     (i8w::Fresh, the reference's quantizer bit for bit) while its first
+//     copies fly, puts the codes and scales over that position's row of its
+//     last stage, so it is attended as the reference writes and then reads
+//     it, and in row tile 0 writes them into the slot after the walk.
 //
 // The continuous lane's block pool has a kernel of its own
 // (flash_decode_paged.cu), with both products on the tensor cores.
@@ -116,9 +138,8 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
-#include <type_traits>
 
-#include "kv_int8.cuh"
+#include "int8_walk.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -140,22 +161,17 @@ constexpr unsigned FULL = 0xffffffffu;
 // together; fewer at GT = 8 to stay clear of spills
 __host__ __device__ constexpr int positions_per_stage(int GT) { return GT >= 8 ? 1 : 2; }
 
-template <typename E>       // E: the cache element, __nv_bfloat16 or int8_t
-struct SegmentT {
-  const E* k;
-  const E* v;
+struct Segment {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
   long long ks[3], vs[3];  // element strides of b, kv head, position (d is 1)
-  const float* k_s;        // int8 caches: scales [B, KV, L] f32, unit stride along L
-  const float* v_s;
-  long long kss[2], vss[2];  // element strides of b, kv head of k_s, v_s
   int n;                   // positions read
 };
 
-template <typename E>
-struct ParamsT {
+struct Params {
   const __nv_bfloat16* q;
   long long qs[3];         // element strides of b, kv head, group row (d is 1)
-  SegmentT<E> seg[2];
+  Segment seg[2];
   const __nv_bfloat16* k_new;  // [B, KV, 1, D] or null: no fused write
   const __nv_bfloat16* v_new;
   long long kns[2], vns[2];    // element strides of b and kv head of k_new, v_new
@@ -211,10 +227,10 @@ __host__ __device__ inline Layout layout_for(int D, int GT) {
 
 // The shape and type rules: bf16, a head dim that is a multiple of 8 up to
 // 256, a group of at least one row; the int8 cache (dtype code 2: int8 K/V,
-// bf16 q) a head dim that is a multiple of 16 (a row of codes is one bulk
-// copy's unit).  Returns the dynamic shared memory in bytes (the int8 walk
-// uses the bf16 layout, half of its ring), or -1 with the reason in why
-// (why may be null when why_len is 0).
+// bf16 q) a head dim that is a multiple of 16 (a row of codes is whole
+// 16-byte copies).  Returns the dynamic shared memory in bytes (the int8
+// walk's is int8_walk.cuh's layout), or -1 with the reason in why (why may
+// be null when why_len is 0).
 int plan(int head_dim, int group, int dtype_code, char* why, int why_len) {
   if (dtype_code != DTYPE_BF16 && dtype_code != DTYPE_I8) {
     snprintf(why, why_len,
@@ -234,7 +250,9 @@ int plan(int head_dim, int group, int dtype_code, char* why, int why_len) {
              group);
     return -1;
   }
-  const int smem = layout_for(head_dim, group_tile(group)).bytes;
+  const int smem = dtype_code == DTYPE_I8
+                       ? i8w::layout(head_dim, i8w::row_tile(group)).bytes
+                       : layout_for(head_dim, group_tile(group)).bytes;
   if (smem > SMEM_LIMIT) {
     snprintf(why, why_len, "flash decode needs %d KiB shared memory (budget %d KiB)",
              smem >> 10, SMEM_LIMIT >> 10);
@@ -244,7 +262,6 @@ int plan(int head_dim, int group, int dtype_code, char* why, int why_len) {
 }
 
 __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) { kvq::bf16x8(u, f); }
-__device__ __forceinline__ void unpack8(const uint2& u, float (&f)[8]) { kvq::dequant8(u, f); }
 
 // 2^x on the SFU in one instruction: 0 for -inf (denormal results flush to 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -292,10 +309,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 // rows cache rows of row_bytes each, `stride` elements apart, into
 // consecutive rows of shared memory by the bulk-copy engine, completion on
 // bar: one copy when the rows are contiguous, else one a row
-template <typename E>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const E* src, long long stride, int rows,
-                                          int row_bytes, uint32_t bar) {
-  const bool whole = stride * static_cast<long long>(sizeof(E)) == row_bytes;
+__device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src, long long stride,
+                                          int rows, int row_bytes, uint32_t bar) {
+  const bool whole = stride * 2 == row_bytes;
   const int runs = whole ? 1 : rows;
   const int bytes = whole ? rows * row_bytes : row_bytes;
   for (int r = 0; r < runs; ++r)
@@ -307,12 +323,11 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const E* src, long long 
 
 // FRESH: the launch takes the decode step's K/V write (k_new/v_new set);
 // without it the kernel is the plain attention, with none of the write's
-// code.  E: the cache element (int8_t: the int8 cache, with its scales)
-template <int GT, bool FRESH, typename E>
-__global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E> p) {
-  constexpr bool I8 = std::is_same<E, int8_t>::value;
-  constexpr int CB = 8 * static_cast<int>(sizeof(E));  // bytes of a lane's 8 values
-  using Chunk = typename std::conditional<I8, uint2, uint4>::type;
+// code
+template <int GT, bool FRESH>
+__global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Params p) {
+  constexpr int CB = 16;  // bytes of a lane's 8 values
+  using Chunk = uint4;
   constexpr int U = positions_per_stage(GT);
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -337,8 +352,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
   // into its shared memory: arrive now, wait before the first remote store
   if (p.split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  const SegmentT<E>& s0 = p.seg[0];
-  const SegmentT<E>& s1 = p.seg[1];
+  const Segment& s0 = p.seg[0];
+  const Segment& s1 = p.seg[1];
   const int n0 = s0.n;
   const int n = n0 + s1.n;
   // this block's share of the positions, by global index over both segments
@@ -351,7 +366,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
   const int T = slots * U;                       // positions per ring stage
   const int n_groups = (cnt + T - 1) / T;        // block-uniform
   const Layout lay = layout_for(p.D, GT);
-  const int row_bytes = p.D * static_cast<int>(sizeof(E));
+  const int row_bytes = p.D * 2;
   const int stage_bytes = 2 * T * row_bytes;     // K rows, then V rows
   // where the fresh row sits in the ring: group, step and slot (-1: nowhere)
   const int fresh_grp = holds_fresh ? (cnt - 1) / T : -1;
@@ -372,7 +387,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
       const int j = p0 + i;
       const bool in0 = j < n0;
       const int end = in0 ? min(hi, n0 - p0) : hi;
-      const SegmentT<E>& sg = in0 ? s0 : s1;
+      const Segment& sg = in0 ? s0 : s1;
       const long long jj = in0 ? j : j - n0;
       const uint32_t off = (i - lo) * row_bytes;
       copy_rows(kdst + off, sg.k + b * sg.ks[0] + kvh * sg.ks[1] + jj * sg.ks[2], sg.ks[2],
@@ -388,45 +403,29 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
   // slot (segment 1's last when it has positions, else segment 0's) as the
   // block leaves, after its last cluster barrier, whose release would
   // otherwise wait for the stores to reach memory
-  const bool fresh_group = holds_fresh && slot == fresh_slot;  // int8: every lane takes the scale
+  const bool fresh_group = holds_fresh && slot == fresh_slot;
   const bool fresh_lanes = fresh_group && active;
   Chunk fk{}, fv{};
-  float fks = 0.f, fvs = 0.f;  // int8: the fresh row's scales
   auto load_fresh = [&]() {
     if (!fresh_group) return;
     const __nv_bfloat16* kr = p.k_new + b * p.kns[0] + kvh * p.kns[1];
     const __nv_bfloat16* vr = p.v_new + b * p.vns[0] + kvh * p.vns[1];
-    if constexpr (I8) {
-      fks = kvq::bf16_row_scale(kr, p.D);
-      fvs = kvq::bf16_row_scale(vr, p.D);
-      if (!active) return;
-      float f[8];
-      kvq::bf16x8(*reinterpret_cast<const uint4*>(kr + d0), f);
-      fk = kvq::quant8(f, fks);
-      kvq::bf16x8(*reinterpret_cast<const uint4*>(vr + d0), f);
-      fv = kvq::quant8(f, fvs);
-    } else {
-      if (!active) return;
-      fk = *reinterpret_cast<const uint4*>(kr + d0);
-      fv = *reinterpret_cast<const uint4*>(vr + d0);
-    }
+    if (!active) return;
+    fk = *reinterpret_cast<const uint4*>(kr + d0);
+    fv = *reinterpret_cast<const uint4*>(vr + d0);
   };
   auto write_fresh = [&]() {
     if (!fresh_lanes || blockIdx.y != 0) return;
     load_fresh();
     const bool w1 = s1.n > 0;  // the segment written
-    const SegmentT<E>& sw = w1 ? s1 : s0;
+    const Segment& sw = w1 ? s1 : s0;
     const long long j = (w1 ? s1.n : n0) - 1;
-    E* kd = const_cast<E*>(sw.k) + b * sw.ks[0] + kvh * sw.ks[1] + j * sw.ks[2];
-    E* vd = const_cast<E*>(sw.v) + b * sw.vs[0] + kvh * sw.vs[1] + j * sw.vs[2];
+    __nv_bfloat16* kd =
+        const_cast<__nv_bfloat16*>(sw.k) + b * sw.ks[0] + kvh * sw.ks[1] + j * sw.ks[2];
+    __nv_bfloat16* vd =
+        const_cast<__nv_bfloat16*>(sw.v) + b * sw.vs[0] + kvh * sw.vs[1] + j * sw.vs[2];
     *reinterpret_cast<Chunk*>(kd + d0) = fk;
     *reinterpret_cast<Chunk*>(vd + d0) = fv;
-    if constexpr (I8) {
-      if (c == 0) {
-        const_cast<float*>(sw.k_s)[b * sw.kss[0] + kvh * sw.kss[1] + j] = fks;
-        const_cast<float*>(sw.v_s)[b * sw.vss[0] + kvh * sw.vss[1] + j] = fvs;
-      }
-    }
   };
   if (fresh_grp == 0) load_fresh();
   float qr[GT][8];
@@ -461,29 +460,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
     // the stage refilled here was read in the previous group, which ended
     // at a block barrier
     if (threadIdx.x == 0) fill(grp + NSTAGE - 1);
-    // int8: this slot's positions' scales, on their way while the stage
-    // lands (the fresh position's from the fresh row, not the cache)
-    float ksc[U], vsc[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) ksc[u] = vsc[u] = 1.f;
-    if constexpr (I8) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int li = (grp * U + u) * slots + slot;
-        if (li >= cnt) continue;
-        if (holds_fresh && li == cnt - 1) {
-          ksc[u] = fks;
-          vsc[u] = fvs;
-          continue;
-        }
-        const int j = p0 + li;
-        const bool in0 = j < n0;
-        const SegmentT<E>& sg = in0 ? s0 : s1;
-        const long long jj = in0 ? j : j - n0;
-        ksc[u] = sg.k_s[b * sg.kss[0] + kvh * sg.kss[1] + jj];
-        vsc[u] = sg.v_s[b * sg.vss[0] + kvh * sg.vss[1] + jj];
-      }
-    }
     mbar_wait(bar0 + 8 * (grp % NSTAGE), (grp / NSTAGE) & 1);
     // the slot's u-th position of the group is row u*slots + slot of the stage
     const unsigned char* stage =
@@ -527,9 +503,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const float sc = I8 ? p.scale_log2 * ksc[u] : p.scale_log2;
 #pragma unroll
-      for (int g = 0; g < GT; ++g) s[u][g] = ok[u] ? s[u][g] * sc : -INFINITY;
+      for (int g = 0; g < GT; ++g) s[u][g] = ok[u] ? s[u][g] * p.scale_log2 : -INFINITY;
     }
     // the online softmax over this group's U positions, row by row
     float pb[GT][U];
@@ -549,7 +524,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
       for (int u = 0; u < U; ++u) {
         const float pu = exp2_approx(s[u][g] - mx);
         psum += pu;
-        pb[g][u] = round_bf16(I8 ? pu * vsc[u] : pu);  // p (times v_s) cast to bf16
+        pb[g][u] = round_bf16(pu);  // p cast to bf16
       }
       l[g] = l[g] * alpha + psum;
       m[g] = mx;
@@ -674,32 +649,277 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const ParamsT<E>
   }
 }
 
-// per group tile (1, 2, 4, 8), with or without the fused write, cache
-// element (bf16, int8) and device: the shared-memory opt-in is set
-std::atomic<bool> g_smem_set[16][MAX_DEVICES];
+// The int8 cache's kernel (see the note at the top).  A block is (b, kv
+// head, rank, tile of GT query rows); each warp walks every NW-th tile of
+// i8w::TILE positions of the rank's share through its own ring, staged and
+// stepped by int8_walk.cuh.
+struct SegmentI8 {
+  const int8_t* k;
+  const int8_t* v;
+  long long ks[3], vs[3];    // element strides of b, kv head, position (d is 1)
+  const float* k_s;          // scales [B, KV, L] f32, unit stride along L
+  const float* v_s;
+  long long kss[2], vss[2];  // element strides of b, kv head of k_s, v_s
+  int n;                     // positions read
+};
 
-// Both entry points' launch: the checks, the parameters (scales and their
-// strides only for the int8 cache), the instance and the cluster launch.
-template <typename E>
+struct ParamsI8 {
+  const __nv_bfloat16* q;
+  long long qs[3];             // element strides of b, kv head, group row (d is 1)
+  SegmentI8 seg[2];
+  const __nv_bfloat16* k_new;  // [B, KV, 1, D] bf16 or null: no fused write
+  const __nv_bfloat16* v_new;
+  long long kns[2], vns[2];    // element strides of b and kv head of k_new, v_new
+  __nv_bfloat16* o;            // [B, KV, G, D] contiguous
+  int KV, G, D;
+  int split;                   // C: blocks per cluster, one cluster per (b, kv head, row tile)
+  int span;                    // positions per block, a multiple of i8w::TILE
+  float scale_log2;            // (1/sqrt(D)) log2 e
+};
+
+// A block's end once its warps' (m, l, acc) per row are in shared memory:
+// per row the block's (M, L, O) with O = sum_w acc_w wt_w, L = sum_w l_w
+// wt_w, wt_w = exp(m_w - M), in warp order; then o, or with a cluster each
+// rank's (M, L, O) into rank 0's gather through DSMEM and rank 0's combine
+// in rank order.  Every block has arrived on the cluster barrier (split >
+// 1) after its walk, before any warp wrote its scratch.
+template <int NW, int GT>
+__device__ __forceinline__ void combine_i8(const ParamsI8& p, int rank, int bk, int g0, int gn,
+                                           const float* sm_m, const float* sm_l,
+                                           const float* sm_acc, float* sm_w, float* gather) {
+  constexpr int NT = NW * 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  __syncthreads();
+  if (threadIdx.x < gn) {
+    const int g = threadIdx.x;
+    float M = -INFINITY;
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w * GT + g]);
+    float L = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      const float mw = sm_m[w * GT + g];
+      const float wt = mw == -INFINITY ? 0.f : exp2_approx(mw - M);  // 0: a warp with no tile
+      sm_w[w * GT + g] = wt;
+      L = fmaf(sm_l[w * GT + g], wt, L);
+    }
+    sm_w[MAX_SPLIT * GT + g] = M;
+    sm_w[(MAX_SPLIT + 1) * GT + g] = L;
+  }
+  __syncthreads();
+  const int stride = GT * (p.D + 2);
+  float* mine_out = gather;
+  if (p.split > 1) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    mine_out = cluster.map_shared_rank(gather, 0) + rank * stride;
+    if (threadIdx.x < gn) {
+      mine_out[threadIdx.x] = sm_w[MAX_SPLIT * GT + threadIdx.x];
+      mine_out[GT + threadIdx.x] = sm_w[(MAX_SPLIT + 1) * GT + threadIdx.x];
+    }
+  }
+  for (int e = threadIdx.x; e < gn * p.D; e += NT) {
+    const int g = e / p.D;
+    const int d = e - g * p.D;
+    float O = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) O = fmaf(sm_acc[(w * GT + g) * p.D + d], sm_w[w * GT + g], O);
+    if (p.split == 1)
+      p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
+          __float2bfloat16(O / fmaxf(sm_w[(MAX_SPLIT + 1) * GT + g], 1e-30f));
+    else
+      mine_out[2 * GT + g * p.D + d] = O;
+  }
+  if (p.split == 1) return;
+
+  // rank 0 combines the cluster's blocks in rank order, from its own shared
+  // memory once the cluster barrier has made every rank's stores visible
+  cluster.sync();
+  if (rank != 0) return;
+  if (threadIdx.x < gn) {
+    const int g = threadIdx.x;
+    float M = -INFINITY;
+    for (int r = 0; r < p.split; ++r) M = fmaxf(M, gather[r * stride + g]);
+    float L = 0.f;
+    for (int r = 0; r < p.split; ++r) {
+      const float mr = gather[r * stride + g];
+      const float wt = mr == -INFINITY ? 0.f : exp2_approx(mr - M);  // 0: an empty share
+      sm_w[r * GT + g] = wt;
+      L = fmaf(gather[r * stride + GT + g], wt, L);
+    }
+    sm_w[MAX_SPLIT * GT + g] = L;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < gn * p.D; e += NT) {
+    const int g = e / p.D;
+    const int d = e - g * p.D;
+    float O = 0.f;
+    for (int r = 0; r < p.split; ++r)
+      O = fmaf(gather[r * stride + 2 * GT + g * p.D + d], sm_w[r * GT + g], O);
+    p.o[(static_cast<long long>(bk) * p.G + g0 + g) * p.D + d] =
+        __float2bfloat16(O / fmaxf(sm_w[MAX_SPLIT * GT + g], 1e-30f));
+  }
+}
+
+template <int DT, int GT, bool FRESH>
+__global__ void __launch_bounds__(i8w::nwarps(DT) * 32)
+    flash_decode_i8_kernel(const ParamsI8 p) {
+  constexpr int NW = i8w::nwarps(DT);
+  constexpr int TILE = i8w::TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 127) & ~127u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bk = blockIdx.x / p.split;  // b * KV + kv head
+  const int b = bk / p.KV;
+  const int kvh = bk - b * p.KV;
+  const int g0 = blockIdx.y * GT;
+  const int gn = min(GT, p.G - g0);
+  const i8w::Layout lay = i8w::layout(p.D, GT);
+
+  // this block's share [p0, hi) by global position over both segments;
+  // p0 is a multiple of TILE, so every tile starts at a fixed position and
+  // a row's bits depend on n and the split only, never on where main ends
+  const SegmentI8& s0 = p.seg[0];
+  const SegmentI8& s1 = p.seg[1];
+  const int n0 = s0.n;
+  const int n = n0 + s1.n;
+  const int p0 = rank * p.span;
+  const int hi = min(n, p0 + p.span);
+  const int cnt = max(0, hi - p0);
+  const int ntiles = (cnt + TILE - 1) / TILE;
+  const int mine = warp < ntiles ? (ntiles - 1 - warp) / NW + 1 : 0;  // this warp's tiles
+  // the warp that walks the share's last tile holds position n - 1
+  const bool holds_fresh = FRESH && cnt > 0 && hi == n && warp == (ntiles - 1) % NW;
+
+  const uint32_t bar0 = base + lay.bars + 8 * warp * lay.depth;
+  const uint32_t ring = base + warp * lay.depth * lay.stage;
+  if (lane == 0) {
+    for (int i = 0; i < lay.depth; ++i) mbar_init(bar0 + 8 * i, i8w::COPIERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();  // this warp's barriers are initialised
+  // (b, kv head)'s rows of each segment: codes, scales and row strides
+  const int8_t* const k0 = s0.k + b * s0.ks[0] + kvh * s0.ks[1];
+  const int8_t* const k1 = s1.k + b * s1.ks[0] + kvh * s1.ks[1];
+  const int8_t* const v0 = s0.v + b * s0.vs[0] + kvh * s0.vs[1];
+  const int8_t* const v1 = s1.v + b * s1.vs[0] + kvh * s1.vs[1];
+  const float* const ks0 = s0.k_s + b * s0.kss[0] + kvh * s0.kss[1];
+  const float* const ks1 = s1.k_s + b * s1.kss[0] + kvh * s1.kss[1];
+  const float* const vs0 = s0.v_s + b * s0.vss[0] + kvh * s0.vss[1];
+  const float* const vs1 = s1.v_s + b * s1.vss[0] + kvh * s1.vss[1];
+  const int kst0 = static_cast<int>(s0.ks[2]), kst1 = static_cast<int>(s1.ks[2]);
+  const int vst0 = static_cast<int>(s0.vs[2]), vst1 = static_cast<int>(s1.vs[2]);
+  // stage s takes this warp's i-th tile: global positions lo .., from
+  // segment 0 below n0, else from segment 1
+  auto issue = [&](int i, int s) {
+    const int lo = p0 + (warp + i * NW) * TILE;
+    i8w::stage_tile<DT>(ring + s * lay.stage, lane, p.D, bar0 + 8 * s,
+                        [&](int r, const int8_t*& k, const int8_t*& v, const float*& ks,
+                            const float*& vs) {
+                          const int j = lo + r;
+                          if (j >= hi) return false;
+                          const bool in0 = j < n0;
+                          const int jj = in0 ? j : j - n0;
+                          k = (in0 ? k0 : k1) + static_cast<long long>(jj) * (in0 ? kst0 : kst1);
+                          v = (in0 ? v0 : v1) + static_cast<long long>(jj) * (in0 ? vst0 : vst1);
+                          ks = (in0 ? ks0 : ks1) + jj;
+                          vs = (in0 ? vs0 : vs1) + jj;
+                          return true;
+                        });
+  };
+  // the fresh rows' loads go first, then the ring's copies, then q's loads,
+  // whose use waits for them while the copies fly; the fresh rows are
+  // quantized meanwhile
+  i8w::Fresh<DT> fresh;
+  if (holds_fresh)
+    fresh.load(p.k_new + b * p.kns[0] + kvh * p.kns[1], p.v_new + b * p.vns[0] + kvh * p.vns[1],
+               p.D, lane);
+  for (int i = 0; i < lay.depth && i < mine; ++i) issue(i, i);
+  i8w::Walk<DT, GT> walk;
+  walk.begin(p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2], p.qs[2], gn, p.D, lane);
+  if (holds_fresh) fresh.quantize();
+  for (int i = 0, s = 0, phase = 0; i < mine; ++i) {  // tile i in stage s = i % depth
+    mbar_wait(bar0 + 8 * s, phase);
+    unsigned char* tile = smem + (ring - base) + s * lay.stage;
+    const int lo = p0 + (warp + i * NW) * TILE;
+    if (holds_fresh && i == mine - 1) fresh.stage(tile, n - 1 - lo, p.D, lane);
+    walk.step(tile, min(TILE, hi - lo), p.scale_log2, lane);
+    __syncwarp();  // every lane has read the stage: it may be refilled
+    if (i + lay.depth < mine) issue(i + lay.depth, s);
+    if (++s == lay.depth) s = 0, phase ^= 1;
+  }
+  walk.finish();
+  // the fresh codes and scales into their slot (segment 1's last when it
+  // has positions, else segment 0's), in row tile 0, once this warp's
+  // copies have landed (another block's copy of that slot is replaced by
+  // its own fresh codes in its stage)
+  if (holds_fresh && blockIdx.y == 0) {
+    const bool w1 = s1.n > 0;
+    const SegmentI8& sw = w1 ? s1 : s0;
+    const long long j = (w1 ? s1.n : n0) - 1;
+    fresh.write(const_cast<int8_t*>(sw.k) + b * sw.ks[0] + kvh * sw.ks[1] + j * sw.ks[2],
+                const_cast<int8_t*>(sw.v) + b * sw.vs[0] + kvh * sw.vs[1] + j * sw.vs[2],
+                const_cast<float*>(sw.k_s) + b * sw.kss[0] + kvh * sw.kss[1] + j,
+                const_cast<float*>(sw.v_s) + b * sw.vss[0] + kvh * sw.vss[1] + j, p.D, lane);
+  }
+  // rank 0's gather shares the ring's space: a rank writes it only once
+  // every rank of the cluster is past its walk
+  if (p.split > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  __syncthreads();  // every warp is done with its ring: the scratch reuses it
+  float* sm_m = reinterpret_cast<float*>(smem + lay.m);      // [NW][GT]
+  float* sm_l = reinterpret_cast<float*>(smem + lay.l);      // [NW][GT]
+  float* sm_acc = reinterpret_cast<float*>(smem + lay.acc);  // [NW][GT][D]
+  walk.store(sm_m, sm_l, sm_acc, warp, gn, p.D, lane);
+  combine_i8<NW, GT>(p, rank, bk, g0, gn, sm_m, sm_l, sm_acc,
+                     reinterpret_cast<float*>(smem + lay.weights),
+                     reinterpret_cast<float*>(smem + lay.gather));
+}
+
+// per group tile (1, 2, 4, 8), with or without the fused write, and
+// device: the shared-memory opt-in is set
+std::atomic<bool> g_smem_set[8][MAX_DEVICES];
+// the int8 kernel's, per (tile width, row tile, fused write) and device
+std::atomic<bool> g_smem_set_i8[3][2][2][MAX_DEVICES];
+
+// a launch of a cluster of `split` blocks along x
+template <typename K, typename P>
+cudaError_t launch_cluster(K kernel, dim3 grid, int threads, int smem, int split, void* stream,
+                           const P& p) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
+// The bfloat16 launch: the checks, the parameters, the instance and the
+// cluster launch.
 int launch(const void* q, const void* k0, const void* v0, int n0, const void* k1, const void* v1,
            int n1, const void* k_new, const void* v_new, void* o, int B, int KV, int G, int D,
-           int split, int span, const long long* strides, const void* const* scales,
-           const long long* scale_strides, void* stream) {
-  constexpr bool I8 = std::is_same<E, int8_t>::value;
-  const int smem = plan(D, G, I8 ? DTYPE_I8 : DTYPE_BF16, nullptr, 0);
+           int split, int span, const long long* strides, void* stream) {
+  const int smem = plan(D, G, DTYPE_BF16, nullptr, 0);
   const int n = n0 + n1;  // split: 1, 2, 4 or 8, the portable cluster sizes
   if (smem < 0 || B < 1 || KV < 1 || n0 < 0 || n1 < 0 || n < 1 ||
       (split != 1 && split != 2 && split != 4 && split != 8) || span < 1 ||
       static_cast<long long>(split) * span < n || static_cast<long long>(split - 1) * span >= n ||
       (k_new == nullptr) != (v_new == nullptr))
     return (int)cudaErrorInvalidValue;
-  ParamsT<E> p;
+  Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.seg[0].k = static_cast<const E*>(k0);
-  p.seg[0].v = static_cast<const E*>(v0);
+  p.seg[0].k = static_cast<const __nv_bfloat16*>(k0);
+  p.seg[0].v = static_cast<const __nv_bfloat16*>(v0);
   p.seg[0].n = n0;
-  p.seg[1].k = static_cast<const E*>(k1);
-  p.seg[1].v = static_cast<const E*>(v1);
+  p.seg[1].k = static_cast<const __nv_bfloat16*>(k1);
+  p.seg[1].v = static_cast<const __nv_bfloat16*>(v1);
   p.seg[1].n = n1;
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];
@@ -707,15 +927,6 @@ int launch(const void* q, const void* k0, const void* v0, int n0, const void* k1
     p.seg[0].vs[i] = strides[6 + i];
     p.seg[1].ks[i] = strides[9 + i];
     p.seg[1].vs[i] = strides[12 + i];
-  }
-  for (int sgi = 0; sgi < 2; ++sgi) {
-    SegmentT<E>& sg = p.seg[sgi];
-    sg.k_s = I8 ? static_cast<const float*>(scales[2 * sgi]) : nullptr;
-    sg.v_s = I8 ? static_cast<const float*>(scales[2 * sgi + 1]) : nullptr;
-    for (int i = 0; i < 2; ++i) {
-      sg.kss[i] = I8 ? scale_strides[4 * sgi + i] : 0;
-      sg.vss[i] = I8 ? scale_strides[4 * sgi + 2 + i] : 0;
-    }
   }
   p.k_new = static_cast<const __nv_bfloat16*>(k_new);
   p.v_new = static_cast<const __nv_bfloat16*>(v_new);
@@ -735,38 +946,112 @@ int launch(const void* q, const void* k0, const void* v0, int n0, const void* k1
   const int GT = group_tile(G);
   const bool fresh = k_new != nullptr;
   const int which = (GT == 1 ? 0 : (GT == 2 ? 1 : (GT == 4 ? 2 : 3))) + 4 * fresh;
-  void (*const kernels[8])(const ParamsT<E>) = {
-      flash_decode_kernel<1, false, E>, flash_decode_kernel<2, false, E>,
-      flash_decode_kernel<4, false, E>, flash_decode_kernel<8, false, E>,
-      flash_decode_kernel<1, true, E>,  flash_decode_kernel<2, true, E>,
-      flash_decode_kernel<4, true, E>,  flash_decode_kernel<8, true, E>};
-  void (*kernel)(const ParamsT<E>) = kernels[which];
-  const int slot = which + 8 * I8;
+  void (*const kernels[8])(const Params) = {
+      flash_decode_kernel<1, false>, flash_decode_kernel<2, false>,
+      flash_decode_kernel<4, false>, flash_decode_kernel<8, false>,
+      flash_decode_kernel<1, true>,  flash_decode_kernel<2, true>,
+      flash_decode_kernel<4, true>,  flash_decode_kernel<8, true>};
+  void (*kernel)(const Params) = kernels[which];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!g_smem_set[slot][dev].load()) {
+  if (!g_smem_set[which][dev].load()) {
     // the largest the kernel asks for at this tile, over every head dim
     int most = 0;
     for (int d = 8; d <= MAX_D; d += 8) most = std::max(most, layout_for(d, GT).bytes);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
-    g_smem_set[slot][dev].store(true);
+    g_smem_set[which][dev].store(true);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split * B * KV, (G + GT - 1) / GT);
-  cfg.blockDim = dim3(NTHREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = split;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  e = launch_cluster(kernel, dim3(split * B * KV, (G + GT - 1) / GT), NTHREADS, smem, split,
+                     stream, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The int8 cache's launch: the checks (span a multiple of the tile; the
+// last ranks' shares may be empty), the parameters, the instance and the
+// cluster launch.
+int launch_i8(const void* q, const void* k0, const void* v0, int n0, const void* k1,
+              const void* v1, int n1, const void* k_new, const void* v_new, void* o, int B, int KV,
+              int G, int D, int split, int span, const long long* strides,
+              const void* const* scales, const long long* scale_strides, void* stream) {
+  const int smem = plan(D, G, DTYPE_I8, nullptr, 0);
+  const int n = n0 + n1;
+  if (smem < 0 || B < 1 || KV < 1 || n0 < 0 || n1 < 0 || n < 1 ||
+      (split != 1 && split != 2 && split != 4 && split != 8) || span < 1 ||
+      span % i8w::TILE != 0 || static_cast<long long>(split) * span < n ||
+      (k_new == nullptr) != (v_new == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int row_strides[4] = {5, 8, 11, 14};  // of the segments: the walk takes them as int
+  for (int i : row_strides)
+    if (strides[i] < 0 || strides[i] > INT32_MAX) return (int)cudaErrorInvalidValue;
+  ParamsI8 p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  const void* ks[2] = {k0, k1};
+  const void* vs[2] = {v0, v1};
+  const int ns[2] = {n0, n1};
+  for (int sgi = 0; sgi < 2; ++sgi) {
+    SegmentI8& sg = p.seg[sgi];
+    sg.k = static_cast<const int8_t*>(ks[sgi]);
+    sg.v = static_cast<const int8_t*>(vs[sgi]);
+    sg.n = ns[sgi];
+    for (int i = 0; i < 3; ++i) {
+      sg.ks[i] = strides[3 + 6 * sgi + i];
+      sg.vs[i] = strides[6 + 6 * sgi + i];
+    }
+    sg.k_s = static_cast<const float*>(scales[2 * sgi]);
+    sg.v_s = static_cast<const float*>(scales[2 * sgi + 1]);
+    for (int i = 0; i < 2; ++i) {
+      sg.kss[i] = scale_strides[4 * sgi + i];
+      sg.vss[i] = scale_strides[4 * sgi + 2 + i];
+    }
+  }
+  for (int i = 0; i < 3; ++i) p.qs[i] = strides[i];
+  p.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  p.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  for (int i = 0; i < 2; ++i) {
+    p.kns[i] = strides[15 + i];
+    p.vns[i] = strides[17 + i];
+  }
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.KV = KV;
+  p.G = G;
+  p.D = D;
+  p.split = split;
+  p.span = span;
+  p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+
+  const int GT = i8w::row_tile(G);
+  const int DT = i8w::tile_cols(D);
+  const int wi = DT == 64 ? 0 : (DT == 128 ? 1 : 2);
+  const int gi = GT == 16 ? 1 : 0;
+  const int fi = k_new != nullptr;
+  using Kernel = void (*)(const ParamsI8);
+  const Kernel kernels[3][2][2] = {
+      {{flash_decode_i8_kernel<64, 8, false>, flash_decode_i8_kernel<64, 8, true>},
+       {flash_decode_i8_kernel<64, 16, false>, flash_decode_i8_kernel<64, 16, true>}},
+      {{flash_decode_i8_kernel<128, 8, false>, flash_decode_i8_kernel<128, 8, true>},
+       {flash_decode_i8_kernel<128, 16, false>, flash_decode_i8_kernel<128, 16, true>}},
+      {{flash_decode_i8_kernel<256, 8, false>, flash_decode_i8_kernel<256, 8, true>},
+       {flash_decode_i8_kernel<256, 16, false>, flash_decode_i8_kernel<256, 16, true>}}};
+  const Kernel kernel = kernels[wi][gi][fi];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!g_smem_set_i8[wi][gi][fi][dev].load()) {
+    // the largest this instance asks for, over the head dims it serves
+    int most = 0;
+    for (int d = 16; d <= MAX_D; d += 16)
+      if (i8w::tile_cols(d) == DT) most = std::max(most, i8w::layout(d, GT).bytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    g_smem_set_i8[wi][gi][fi][dev].store(true);
+  }
+  e = launch_cluster(kernel, dim3(split * B * KV, (G + GT - 1) / GT), i8w::nwarps(D) * 32, smem,
+                     split, stream, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -799,8 +1084,8 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
                         const void* v1, int n1, const void* k_new, const void* v_new, void* o,
                         int B, int KV, int G, int D, int split, int span,
                         const long long* strides, void* stream) {
-  return launch<__nv_bfloat16>(q, k0, v0, n0, k1, v1, n1, k_new, v_new, o, B, KV, G, D, split,
-                               span, strides, nullptr, nullptr, stream);
+  return launch(q, k0, v0, n0, k1, v1, n1, k_new, v_new, o, B, KV, G, D, split, span, strides,
+                stream);
 }
 
 // The int8 cache's launch: as flash_decode_launch, with the segments' K/V
@@ -808,7 +1093,9 @@ int flash_decode_launch(const void* q, const void* k0, const void* v0, int n0, c
 // scale planes k0_s, v0_s, k1_s, v1_s [B,KV,*] f32 with unit stride along
 // the positions; scale_strides[8] = (b, kv head) element strides of k0_s,
 // v0_s, k1_s, v1_s.  k_new/v_new stay bf16: the launch quantizes them into
-// the written slot (codes and scales) and attends with the codes.
+// the written slot (codes and scales) and attends with the codes.  `span`
+// is a multiple of 16 (the walk's tile) with n0 + n1 <= split * span; the
+// shares of the last ranks may be empty.
 int flash_decode_i8_launch(const void* q, const void* k0, const void* v0, const void* k0_s,
                            const void* v0_s, int n0, const void* k1, const void* v1,
                            const void* k1_s, const void* v1_s, int n1, const void* k_new,
@@ -818,8 +1105,8 @@ int flash_decode_i8_launch(const void* q, const void* k0, const void* v0, const 
   const void* scales[4] = {k0_s, v0_s, k1_s, v1_s};
   for (int i = 0; i < 4; ++i)
     if (scales[i] == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<int8_t>(q, k0, v0, n0, k1, v1, n1, k_new, v_new, o, B, KV, G, D, split, span,
-                        strides, scales, scale_strides, stream);
+  return launch_i8(q, k0, v0, n0, k1, v1, n1, k_new, v_new, o, B, KV, G, D, split, span, strides,
+                   scales, scale_strides, stream);
 }
 
 const char* flash_decode_error_string(int code) {

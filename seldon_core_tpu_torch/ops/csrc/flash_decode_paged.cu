@@ -130,33 +130,41 @@
 // k_int8) * (1/sqrt(D)) * k_s[j] in f32 (every product exact: int8 codes
 // are exact in bf16), V enters as p * v_s[j] rounded to bf16 times v_int8,
 // in f32, and l sums the unscaled exp.
-//   * Staging.  The bf16 walk's warps and tiles of 16 positions, each
-//     warp through its own ring of 2-4 stages.  A tile's rows of one pool
-//     block are contiguous runs of the pool (K codes, V codes, k_s, v_s),
-//     so bulk copies (cp.async.bulk, no tensor map) fill a stage, four a
-//     pool block the tile touches, completion on the stage's mbarrier.
-//     The pool's rows must be contiguous (a row stride of D bytes) and D
-//     a multiple of 16.
-//   * Both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//     out), as the bf16 walk's, with the B operands built from the codes
-//     in registers (an int8 code is exact in bf16).  S = Q K^T: q's k
-//     order is permuted within each 16-column step (logical k 2 tig + {0,
-//     1, 8, 9} is column 4 tig + {0..3}), so a lane's B elements of a K
-//     row are four neighbouring codes, one 32-bit load; the sum is the
-//     same.  O += P V: a lane's B elements are one code of each of four
-//     positions, four byte loads.  k_s multiplies the S fragment of its
-//     position, v_s the exp before it is rounded to bf16 as P (0 past the
-//     share's end); l sums the unscaled exp.
-//   * The fused write quantizes: the warp that walks position n - 1 loads
-//     the fresh bf16 rows (a lane 8 values), takes each row's absmax by a
-//     warp reduction and quantizes its values by kv_int8.cuh, bit for bit
-//     the reference's quantizer; the codes and scales replace that
-//     position in the last stage, so it is attended as the reference writes
-//     and reads it (codes times scale), and reach the pool after the walk.
-//   * Bound: the bytes, 2 D + 8 a position and kv head for K and V with
-//     their scales (~9.75 MB, ~2.91 us at 3.35 TB/s, at the served round:
-//     B=32, KV=4, D=64, 560 positions).  A first design: past the bytes,
-//     the byte loads of V and the conversions hold it back.
+//   * What bounds it: the bytes, 2 D + 8 a position and kv head for K and V
+//     with their scales (~9.75 MB, ~2.91 us at 3.35 TB/s, at the served
+//     round: B=32, KV=4, D=64, 560 positions; ~21.7 us at 4,160).
+//   * What held the first int8 design back (commit da270b9: the bf16
+//     walk's tiles and mma.sync, the B operands built from codes in
+//     registers, bulk copies of the code and scale runs into unswizzled
+//     stages): 1.07-1.18x the bf16 kernel's time at half its bytes, 39% of
+//     the byte bound at 4,160 positions.
+//     Its walk loop (cuobjdump -sass, hd 64, 8 rows) held 64 code
+//     conversions (I2F.S8, I2FP.F32.S32, I2F.S16: 16 results a clock an SM,
+//     against 128 FMAs; at 4,160 positions the conversions alone outlast
+//     the byte bound), 36 F2FP and 32 byte loads (LDS.S8) a tile; K was
+//     read as 32-bit words 4-way bank-conflicted, V a byte a load, each
+//     4-way conflicted.
+//   * This design walks int8_walk.cuh's tiles, the two-tier kernel's int8
+//     walk too: the bf16 walk's warps, tiles of 16 positions and share
+//     rule; each warp's ring of 2-4 stages filled by its lanes' cp.async
+//     (16-byte chunks of the pool's rows into a swizzled stage, the tile's
+//     k_s and v_s on the same stage and mbarrier); both products mma.sync
+//     m16n8k16 with q's k order and V's n order permuted so a lane's K
+//     codes of a position are one 16-byte load and its V codes one 8-byte
+//     load (D = 64), conflict-free; the codes widened to bf16 by two LOP3s
+//     and a bf16x2 add a pair (kvq::codes_bf16x2).  Its walk loop holds no
+//     code conversion, no byte load and P's 2 F2FP (4 at 16 rows), as the
+//     bf16 walk's does; its two I2F.RP are load_blocks' division by bs, a
+//     table lookup once in 32 tiles.  The cluster is i8_paged_cluster's
+//     (ops/flash_decode.py): paged_cluster's, doubled for long tables while
+//     two blocks an SM hold the grid.  The pool's rows must be contiguous
+//     (a row stride of D bytes) and D a multiple of 16.
+//   * The fused write quantizes: the warp that walks position n - 1
+//     quantizes the fresh bf16 rows, spread over its 32 lanes with a warp
+//     reduction (i8w::Fresh, bit for bit the reference's quantizer), while
+//     its first copies fly; the codes and scales replace that position in
+//     its last stage, so it is attended as the reference writes and reads
+//     it (codes times scale), and reach the pool after the walk.
 //
 // Interface: plain C functions loaded with ctypes (no PyTorch headers); the
 // tensor maps are encoded on the host (flash_common.cuh), no -lcuda.
@@ -164,7 +172,7 @@
 #include <cooperative_groups.h>
 
 #include "flash_common.cuh"
-#include "kv_int8.cuh"
+#include "int8_walk.cuh"
 
 #include <algorithm>
 #include <atomic>
@@ -318,32 +326,6 @@ __host__ __device__ inline LayoutF32 layout_f32(int D, int GT) {
   return L;
 }
 
-// The int8 path's shared memory, in bytes from a 1024-aligned base: each
-// warp's ring of `depth` stages (a stage is a tile's K codes [TILE][D],
-// its V codes [TILE][D], then k_s [TILE] and v_s [TILE] f32); after the
-// walk, reusing the ring, the float32 path's scratch (m, l, acc, the
-// weights and rank 0's gather); last the mbarriers.  GT is the bf16
-// path's row tile (8, or 16 past 8 query heads).  paged_i8_layout in
-// ops/flash_decode.py is the same rule.
-__host__ __device__ inline LayoutF32 layout_i8(int D, int GT) {
-  LayoutF32 L;
-  L.nw = nwarps(D);
-  L.stage = 2 * TILE * D + 2 * TILE * 4;
-  const int depth = RING_BUDGET / (L.nw * L.stage);
-  L.depth = depth < 2 ? 2 : (depth > 4 ? 4 : depth);
-  const int ring = L.nw * L.depth * L.stage;
-  L.m = 0;
-  L.l = L.m + L.nw * GT * 4;
-  L.acc = L.l + L.nw * GT * 4;
-  L.weights = L.acc + L.nw * GT * D * 4;
-  L.gather = L.weights + (MAX_SPLIT + 2) * GT * 4;
-  const int end = L.gather + MAX_SPLIT * GT * (D + 2) * 4;
-  L.q = 0;
-  L.bars = ((ring > end ? ring : end) + 7) & ~7;
-  L.bytes = L.bars + 8 * L.nw * L.depth + 1024;  // 1024: the base's alignment
-  return L;
-}
-
 // 0..3 for 1, 2, 4, 8
 inline int log2_index(int x) { return x <= 1 ? 0 : (x <= 2 ? 1 : (x <= 4 ? 2 : 3)); }
 
@@ -378,7 +360,7 @@ int plan(int head_dim, int group, int block_size, int dtype_code, char* why, int
     return -1;
   }
   const int smem = dtype_code == DTYPE_F32  ? layout_f32(head_dim, f32_rows(group)).bytes
-                   : dtype_code == DTYPE_I8 ? layout_i8(head_dim, group > 8 ? 16 : 8).bytes
+                   : dtype_code == DTYPE_I8 ? i8w::layout(head_dim, i8w::row_tile(group)).bytes
                                             : layout_for(head_dim, group > 8 ? 16 : 8).bytes;
   if (smem > SMEM_LIMIT) {
     snprintf(why, why_len, "paged flash decode needs %d KiB shared memory (budget %d KiB)",
@@ -414,14 +396,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two int8 codes of a 32-bit word (bytes 2 half and 2 half + 1) as two
-// bf16, exactly, the lower byte in the lower half
-__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w, int half) {
-  const float lo = static_cast<float>(static_cast<int>(w << (24 - 16 * half)) >> 24);
-  const float hi = static_cast<float>(static_cast<int>(w << (16 - 16 * half)) >> 24);
-  return pack_f32(lo, hi);
 }
 
 // two bf16 of q at (row, col), (row, col + 1), or zeros off the tile
@@ -1061,34 +1035,28 @@ __global__ void __launch_bounds__(f32_warps(32 * DW) * 32)
 }
 
 // The int8 path.  A block is (row, kv head, rank, tile of GT query rows);
-// each warp walks every NW-th tile of TILE (16) positions of the rank's
-// share through its own ring of bulk copies (see the note at the top),
-// both products on mma.sync as the bf16 path's, their B operands built
-// from the int8 codes in registers.
+// each warp walks every NW-th tile of i8w::TILE positions of the rank's
+// share through its own ring, staged and stepped by int8_walk.cuh (see the
+// note at the top).
 template <int DT, int GT>
 __global__ void __launch_bounds__(nwarps(DT) * 32)
     paged_decode_i8_kernel(const Params p) {
   constexpr int NW = nwarps(DT);
-  constexpr int KSTEPS = DT / 16;  // QK^T k-steps over the tile width
-  constexpr int NT = DT / 8;       // PV n-tiles of 8 columns
-  constexpr int NS = TILE / 8;     // S n-tiles of 8 positions
+  constexpr int TILE = i8w::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t base = (smem_u32(smem_raw) + 127) & ~127u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   cg::cluster_group cluster = cg::this_cluster();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int gid = lane >> 2;       // the accumulator rows of this lane: gid, gid + 8
-  const int tig = lane & 3;
-  const int cq = tig * 2;          // and its column pair within an 8-column tile
   const int rank = static_cast<int>(cluster.block_rank());
   const int bk = blockIdx.x / p.split;  // b * KV + kv head
   const int b = bk / p.KV;
   const int kvh = bk - b * p.KV;
   const int g0 = blockIdx.y * GT;
   const int gn = min(GT, p.G - g0);
-  const LayoutF32 lay = layout_i8(p.D, GT);
+  const i8w::Layout lay = i8w::layout(p.D, GT);
   const int D = p.D;
   int8_t* pool_k = reinterpret_cast<int8_t*>(p.pool_k);
   int8_t* pool_v = reinterpret_cast<int8_t*>(p.pool_v);
@@ -1096,6 +1064,9 @@ __global__ void __launch_bounds__(nwarps(DT) * 32)
   // the row's length, at most the table's width, and whether its fresh
   // row is written and attended from the input
   const int len = p.lens[b];
+  // the table row's prefetch toward L2 flies while it comes
+  for (int c = threadIdx.x * 32; c < p.nblk; c += NW * 32 * 32)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p.table + b * p.nblk + c));
   const int width = p.nblk * p.bs;
   const int n = min(max(len, 0), width);
   const bool fresh = p.k_new != nullptr && (p.valid == nullptr || p.valid[b] != 0) && len >= 1 &&
@@ -1110,227 +1081,83 @@ __global__ void __launch_bounds__(nwarps(DT) * 32)
 
   const uint32_t bar0 = base + lay.bars + 8 * warp * lay.depth;
   const uint32_t ring = base + warp * lay.depth * lay.stage;
-  const int vbytes = TILE * D;       // a stage: K codes [TILE][D], V codes, k_s [TILE], v_s
-  const int sbytes = 2 * TILE * D;
   if (lane == 0) {
-    for (int i = 0; i < lay.depth; ++i) mbar_init(bar0 + 8 * i, 1);
+    for (int i = 0; i < lay.depth; ++i) mbar_init(bar0 + 8 * i, i8w::COPIERS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  // the fresh rows quantized (warp-uniform branch): lane c < D / 8 holds
-  // its 8 codes of K and of V, every lane both scales
-  uint2 fk = make_uint2(0u, 0u), fv = fk;
-  float fks = 0.f, fvs = 0.f;
-  if (holds_fresh) {
-    float kf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float vf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (lane < D / 8) {
-      kvq::bf16x8(
-          *reinterpret_cast<const uint4*>(p.k_new + b * p.kns[0] + kvh * p.kns[1] + lane * 8), kf);
-      kvq::bf16x8(
-          *reinterpret_cast<const uint4*>(p.v_new + b * p.vns[0] + kvh * p.vns[1] + lane * 8), vf);
-    }
-    float ka = kvq::absmax8(kf), va = kvq::absmax8(vf);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      ka = fmaxf(ka, __shfl_xor_sync(FULL, ka, o));
-      va = fmaxf(va, __shfl_xor_sync(FULL, va, o));
-    }
-    fks = kvq::row_scale(ka);
-    fvs = kvq::row_scale(va);
-    fk = kvq::quant8(kf, fks);
-    fv = kvq::quant8(vf, fvs);
-  }
-
-  // q as the A operand of every k-step, its k order permuted: logical k
-  // 2 tig + {0, 1} is column 4 tig + {0, 1} of the step, 2 tig + {8, 9}
-  // column 4 tig + {2, 3}, so each lane's B elements of a K row are four
-  // neighbouring codes (one 32-bit load); the dot product is the same sum
-  uint32_t qa[KSTEPS][4];
-  {
-    const __nv_bfloat16* qb = p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2];
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const int c = ks * 16 + 4 * tig;
-      qa[ks][0] = q_pair(qb, p.qs[2], gid, gn, c, D);
-      qa[ks][1] = GT == 16 ? q_pair(qb, p.qs[2], gid + 8, gn, c, D) : 0u;
-      qa[ks][2] = q_pair(qb, p.qs[2], gid, gn, c + 2, D);
-      qa[ks][3] = GT == 16 ? q_pair(qb, p.qs[2], gid + 8, gn, c + 2, D) : 0u;
-    }
-  }
-
-  // the pool blocks of this warp's tiles 32 at a time: lane l holds those
-  // of its tile batch * 32 + l, one per row box
-  constexpr int MAX_BOXES = TILE / 8;
-  const int R = p.box_rows;
-  int phys[MAX_BOXES];
-#pragma unroll
-  for (int rb = 0; rb < MAX_BOXES; ++rb) phys[rb] = 0;
+  // the pool blocks of this warp's tiles 32 at a time: lane l holds, for
+  // its tile batch * 32 + l, the block and first row of positions lo and lo
+  // + 8 (a tile's 8-row halves each lie in one pool block: shares start on
+  // a pool block and bs is a multiple of 8)
+  int phys[2] = {0, 0}, row0[2] = {0, 0};
   auto load_blocks = [&](int batch) {
     const int lo = p0 + (warp + (batch * 32 + lane) * NW) * TILE;
 #pragma unroll
-    for (int rb = 0; rb < MAX_BOXES; ++rb)
-      if (rb * R < TILE && lo + rb * R < p1)
-        phys[rb] = min(max(p.table[b * p.nblk + (lo + rb * R) / p.bs], 0), p.nblocks - 1);
-  };
-  // stage i % depth takes this warp's i-th tile: lane 0 arms the stage's
-  // barrier and issues, per row box (a run of one pool block), its K
-  // codes, V codes, k_s and v_s: contiguous runs of the pool
-  auto issue = [&](int i) {
-    if (i > 0 && (i & 31) == 0) load_blocks(i >> 5);
-    long long ph[MAX_BOXES];
-#pragma unroll
-    for (int rb = 0; rb < MAX_BOXES; ++rb) ph[rb] = __shfl_sync(FULL, phys[rb], i & 31);
-    if (lane != 0) return;
-    const int lo = p0 + (warp + i * NW) * TILE;
-    const int nbox = (min(p1, lo + TILE) - lo + R - 1) / R;
-    const uint32_t dst = ring + (i % lay.depth) * lay.stage;
-    const uint32_t bar = bar0 + 8 * (i % lay.depth);
-    mbar_expect_tx(bar, nbox * R * (2 * D + 8));
-#pragma unroll
-    for (int rb = 0; rb < MAX_BOXES; ++rb) {
-      if (rb >= nbox) break;
-      const int j = lo + rb * R;
-      const long long row = j - (j / p.bs) * p.bs;
-      bulk_load(dst + rb * R * D, pool_k + ph[rb] * p.ks[0] + kvh * p.ks[1] + row * D, R * D, bar);
-      bulk_load(dst + vbytes + rb * R * D, pool_v + ph[rb] * p.vs[0] + kvh * p.vs[1] + row * D,
-                R * D, bar);
-      const long long srow = (ph[rb] * p.KV + kvh) * p.bs + row;
-      bulk_load(dst + sbytes + rb * R * 4, p.k_scale + srow, R * 4, bar);
-      bulk_load(dst + sbytes + TILE * 4 + rb * R * 4, p.v_scale + srow, R * 4, bar);
+    for (int h = 0; h < 2; ++h) {
+      const int j = lo + 8 * h;
+      if (j < p1) {
+        const int blk = j / p.bs;
+        phys[h] = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
+        row0[h] = j - blk * p.bs;
+      }
     }
   };
+  // stage s takes this warp's i-th tile: rows 8 h .. 8 h + 7 from pool
+  // block ph[h], rows rw[h] .., codes and scales (K and V planes [N, KV, bs,
+  // D] and [N, KV, bs])
+  auto issue = [&](int i, int s) {
+    if (i > 0 && (i & 31) == 0) load_blocks(i >> 5);
+    const long long ph0 = __shfl_sync(FULL, phys[0], i & 31);
+    const long long ph1 = __shfl_sync(FULL, phys[1], i & 31);
+    const long long rw0 = __shfl_sync(FULL, row0[0], i & 31);
+    const long long rw1 = __shfl_sync(FULL, row0[1], i & 31);
+    const int8_t* const k0 = pool_k + ph0 * p.ks[0] + kvh * p.ks[1] + rw0 * D;
+    const int8_t* const k1 = pool_k + ph1 * p.ks[0] + kvh * p.ks[1] + rw1 * D;
+    const int8_t* const v0 = pool_v + ph0 * p.vs[0] + kvh * p.vs[1] + rw0 * D;
+    const int8_t* const v1 = pool_v + ph1 * p.vs[0] + kvh * p.vs[1] + rw1 * D;
+    const long long s0 = (ph0 * p.KV + kvh) * p.bs + rw0;
+    const long long s1 = (ph1 * p.KV + kvh) * p.bs + rw1;
+    const int lo = p0 + (warp + i * NW) * TILE;
+    i8w::stage_tile<DT>(ring + s * lay.stage, lane, D, bar0 + 8 * s,
+                        [&](int r, const int8_t*& k, const int8_t*& v, const float*& ks,
+                            const float*& vs) {
+                          if (lo + r >= p1) return false;
+                          const bool h = r >= 8;
+                          const int rr = r & 7;
+                          k = (h ? k1 : k0) + rr * D;
+                          v = (h ? v1 : v0) + rr * D;
+                          ks = p.k_scale + (h ? s1 : s0) + rr;
+                          vs = p.v_scale + (h ? s1 : s0) + rr;
+                          return true;
+                        });
+  };
+  // the fresh rows' loads go first, then the ring's copies, then q's loads,
+  // whose use waits for them while the copies fly; the fresh rows are
+  // quantized meanwhile
+  i8w::Fresh<DT> fr;
+  if (holds_fresh)
+    fr.load(p.k_new + b * p.kns[0] + kvh * p.kns[1], p.v_new + b * p.vns[0] + kvh * p.vns[1], D,
+            lane);
   __syncwarp();  // this warp's barriers are initialised
   if (mine > 0) {
     load_blocks(0);
-    for (int i = 0; i < lay.depth && i < mine; ++i) issue(i);
+    for (int i = 0; i < lay.depth && i < mine; ++i) issue(i, i);
   }
-
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int i = 0; i < mine; ++i) {
-    const int s = i % lay.depth;
-    mbar_wait(bar0 + 8 * s, (i / lay.depth) & 1);
-    unsigned char* kt = smem + (ring - base) + s * lay.stage;
-    const unsigned char* vt = kt + vbytes;
-    float* ksc = reinterpret_cast<float*>(kt + sbytes);
-    float* vsc = ksc + TILE;
-    const int lo = (warp + i * NW) * TILE;  // local to the share
-    const int tcnt = min(TILE, cnt - lo);
-    if (holds_fresh && i == mine - 1) {     // position n - 1 from the fresh rows, not the pool
-      const int rr = n - 1 - (p0 + lo);
-      if (lane < D / 8) {
-        *reinterpret_cast<uint2*>(kt + rr * D + lane * 8) = fk;
-        *reinterpret_cast<uint2*>(kt + vbytes + rr * D + lane * 8) = fv;
-      }
-      if (lane == 0) {
-        ksc[rr] = fks;
-        vsc[rr] = fvs;
-      }
-      __syncwarp();
-    }
-    // S = Q K^T: NS tiles of 8 positions; the B operand of position
-    // t * 8 + gid is its four codes 4 tig .. 4 tig + 3 of the k-step,
-    // exact in bf16 (columns past D meet q's zeros)
-    float sc[NS][4];
-#pragma unroll
-    for (int t = 0; t < NS; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const uint32_t w =
-            *reinterpret_cast<const uint32_t*>(kt + (t * 8 + gid) * D + ks * 16 + 4 * tig);
-        mma_bf16(sc[t], qa[ks], codes_bf16x2(w, 0), codes_bf16x2(w, 1));
-      }
-    }
-    // scaled to base 2 and by k_s; positions past the share's end masked
-#pragma unroll
-    for (int t = 0; t < NS; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int pos = t * 8 + cq + (e & 1);
-        sc[t][e] = pos < tcnt ? sc[t][e] * p.scale_log2 * ksc[pos] : -INFINITY;
-      }
-    // the online softmax, once per tile; P as the A operand of the PV
-    // product: p times v_s, cast to bf16 (0 past the share's end)
-    uint32_t pa[4];
-    float vs[NS][2];
-#pragma unroll
-    for (int t = 0; t < NS; ++t)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int pos = t * 8 + cq + e;
-        vs[t][e] = pos < tcnt ? vsc[pos] : 0.f;
-      }
-    {
-      float mx = m0;
-#pragma unroll
-      for (int t = 0; t < NS; ++t) mx = fmaxf(mx, fmaxf(sc[t][0], sc[t][1]));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float alpha = exp2_approx(m0 - mx);  // 0 while m0 is still -inf
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const float e0 = exp2_approx(sc[t][0] - mx), e1 = exp2_approx(sc[t][1] - mx);
-        sum += e0 + e1;
-        pa[t * 2] = pack_f32(e0 * vs[t][0], e1 * vs[t][1]);
-      }
-      l0 = l0 * alpha + sum;
-      m0 = mx;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        acc[j][0] *= alpha;
-        acc[j][1] *= alpha;
-      }
-    }
-    if constexpr (GT == 16) {
-      float mx = m1;
-#pragma unroll
-      for (int t = 0; t < NS; ++t) mx = fmaxf(mx, fmaxf(sc[t][2], sc[t][3]));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float alpha = exp2_approx(m1 - mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const float e2 = exp2_approx(sc[t][2] - mx), e3 = exp2_approx(sc[t][3] - mx);
-        sum += e2 + e3;
-        pa[t * 2 + 1] = pack_f32(e2 * vs[t][0], e3 * vs[t][1]);
-      }
-      l1 = l1 * alpha + sum;
-      m1 = mx;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        acc[j][2] *= alpha;
-        acc[j][3] *= alpha;
-      }
-    } else {
-      pa[1] = pa[3] = 0u;
-    }
-    // O += P V: the B operand of column j * 8 + gid is the codes of
-    // positions 2 tig + {0, 1, 8, 9}, one byte each (rows past the
-    // share's end hold finite codes, and their p is 0)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const unsigned char* vc = vt + 2 * tig * D + j * 8 + gid;
-      const uint32_t w = static_cast<uint32_t>(vc[0]) | static_cast<uint32_t>(vc[D]) << 8 |
-                         static_cast<uint32_t>(vc[8 * D]) << 16 |
-                         static_cast<uint32_t>(vc[9 * D]) << 24;
-      mma_bf16(acc[j], pa, codes_bf16x2(w, 0), codes_bf16x2(w, 1));
-    }
+  i8w::Walk<DT, GT> walk;
+  walk.begin(p.q + b * p.qs[0] + kvh * p.qs[1] + g0 * p.qs[2], p.qs[2], gn, D, lane);
+  if (holds_fresh) fr.quantize();
+  for (int i = 0, s = 0, phase = 0; i < mine; ++i) {  // tile i in stage s = i % depth
+    mbar_wait(bar0 + 8 * s, phase);
+    unsigned char* tile = smem + (ring - base) + s * lay.stage;
+    const int lo = p0 + (warp + i * NW) * TILE;
+    if (holds_fresh && i == mine - 1) fr.stage(tile, n - 1 - lo, D, lane);
+    walk.step(tile, min(TILE, p1 - lo), p.scale_log2, lane);
     __syncwarp();  // every lane has read the stage: it may be refilled
-    if (i + lay.depth < mine) issue(i + lay.depth);
+    if (i + lay.depth < mine) issue(i + lay.depth, s);
+    if (++s == lay.depth) s = 0, phase ^= 1;
   }
-  // each lane's l covers its quad's columns: sum over the quad
-  l0 += __shfl_xor_sync(FULL, l0, 1);
-  l0 += __shfl_xor_sync(FULL, l0, 2);
-  l1 += __shfl_xor_sync(FULL, l1, 1);
-  l1 += __shfl_xor_sync(FULL, l1, 2);
+  walk.finish();
   // the fresh codes and scales into the pool, once this warp's copies have
   // landed (a block that attends over that row takes it from its own
   // registers over whatever its copy brought)
@@ -1339,16 +1166,10 @@ __global__ void __launch_bounds__(nwarps(DT) * 32)
     const int blk = j / p.bs;
     const long long pb = min(max(p.table[b * p.nblk + blk], 0), p.nblocks - 1);
     const long long row = j - blk * p.bs;
-    if (lane < D / 8) {
-      *reinterpret_cast<uint2*>(pool_k + pb * p.ks[0] + kvh * p.ks[1] + row * p.ks[2] +
-                                lane * 8) = fk;
-      *reinterpret_cast<uint2*>(pool_v + pb * p.vs[0] + kvh * p.vs[1] + row * p.vs[2] +
-                                lane * 8) = fv;
-    }
-    if (lane == 0) {
-      p.k_scale[(pb * p.KV + kvh) * p.bs + row] = fks;
-      p.v_scale[(pb * p.KV + kvh) * p.bs + row] = fvs;
-    }
+    const long long srow = (pb * p.KV + kvh) * p.bs + row;
+    fr.write(pool_k + pb * p.ks[0] + kvh * p.ks[1] + row * p.ks[2],
+             pool_v + pb * p.vs[0] + kvh * p.vs[1] + row * p.vs[2], p.k_scale + srow,
+             p.v_scale + srow, D, lane);
   }
   // rank 0's gather shares the ring's space: a rank writes it only once
   // every rank of the cluster is past its walk
@@ -1358,28 +1179,7 @@ __global__ void __launch_bounds__(nwarps(DT) * 32)
   float* sm_m = reinterpret_cast<float*>(smem + lay.m);      // [NW][GT]
   float* sm_l = reinterpret_cast<float*>(smem + lay.l);      // [NW][GT]
   float* sm_acc = reinterpret_cast<float*>(smem + lay.acc);  // [NW][GT][D]
-  if (tig == 0) {
-    if (gid < gn) {
-      sm_m[warp * GT + gid] = m0;
-      sm_l[warp * GT + gid] = l0;
-    }
-    if (GT == 16 && gid + 8 < gn) {
-      sm_m[warp * GT + gid + 8] = m1;
-      sm_l[warp * GT + gid + 8] = l1;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int d = j * 8 + cq;
-    if (d < D) {
-      if (gid < gn)
-        *reinterpret_cast<float2*>(sm_acc + (warp * GT + gid) * D + d) =
-            make_float2(acc[j][0], acc[j][1]);
-      if (GT == 16 && gid + 8 < gn)
-        *reinterpret_cast<float2*>(sm_acc + (warp * GT + gid + 8) * D + d) =
-            make_float2(acc[j][2], acc[j][3]);
-    }
-  }
+  walk.store(sm_m, sm_l, sm_acc, warp, gn, D, lane);
   combine_store<__nv_bfloat16, NW, GT>(p, rank, bk, g0, gn, sm_m, sm_l, sm_acc,
                                        reinterpret_cast<float*>(smem + lay.weights),
                                        reinterpret_cast<float*>(smem + lay.gather));
@@ -1636,7 +1436,7 @@ int flash_decode_paged_i8_launch(const void* q, void* pool_k, void* pool_v, void
     // the largest this instance asks for, over the head dims it serves
     int most = 0;
     for (int d = 16; d <= MAX_D; d += 16)
-      if (tile_cols(d) == DT) most = std::max(most, layout_i8(d, GT).bytes);
+      if (tile_cols(d) == DT) most = std::max(most, i8w::layout(d, GT).bytes);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
     g_smem_set_i8[wi][gi][dev].store(true);

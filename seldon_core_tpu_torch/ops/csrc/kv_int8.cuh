@@ -6,8 +6,10 @@
 // max(absmax, 1e-12) / 127, q = clamp(round_half_even(x / scale), -127,
 // 127).  Both divisions are IEEE round-to-nearest (__fdiv_rn, whatever the
 // compiler's flags), never a reciprocal multiply, and rintf rounds half to
-// even as jnp.round does.  An int8 value is exact in f32 and bf16.
-// ops/_build.py hashes this header into every library's key.
+// even as jnp.round does.  An int8 value is exact in f32 and bf16.  Also
+// the walks' widening of codes to bf16 (codes_bf16x2), which needs no
+// conversion instruction.  ops/_build.py hashes this header into every
+// library's key.
 
 #pragma once
 
@@ -39,13 +41,21 @@ __device__ __forceinline__ uint2 quant8(const float (&f)[8], float scale) {
   return u;
 }
 
-// 8 int8 codes (byte i is value i) to f32
-__device__ __forceinline__ void dequant8(const uint2& u, float (&f)[8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[i] = static_cast<float>(static_cast<int>(u.x << (24 - 8 * i)) >> 24);
-    f[4 + i] = static_cast<float>(static_cast<int>(u.y << (24 - 8 * i)) >> 24);
-  }
+// Bytes 0 and 2 of w, two int8 codes, as a bf16x2 (byte 0 in the low
+// half), exactly and without the conversion pipe (no I2F, no F2FP): each
+// 16-bit half holds its code in its low byte, code = m - 128 s with m its
+// low 7 bits and s its sign bit; (h & 0x7f) | 0x4300 is the bf16 of 128 +
+// m and (h & 0x80) | 0xc300 that of -(128 + 128 s) (s lands on the
+// exponent's lowest bit: -128 or -256), so one bf16x2 FMA, a * 1 + n,
+// gives m - 128 s, an integer in [-128, 127] that bf16 holds exactly.  Two
+// LOP3s and one bf16x2 add (the compiler emits the FMA as a HADD2) for two
+// codes; bytes 1 and 3 are codes_bf16x2(w >> 8).
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w) {
+  const uint32_t a = (w & 0x007f007fu) | 0x43004300u;
+  const uint32_t n = (w & 0x00800080u) | 0xc300c300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(0x3f803f80u), "r"(n));
+  return d;
 }
 
 // 8 bf16 values (16 bytes) to f32
@@ -64,18 +74,6 @@ __device__ __forceinline__ float absmax8(const float (&f)[8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) a = fmaxf(a, fabsf(f[i]));
   return a;
-}
-
-// the scale of a whole bf16 row of D values (D a multiple of 8, the row
-// 16-byte aligned), read by one thread in 16-byte loads
-__device__ __forceinline__ float bf16_row_scale(const __nv_bfloat16* row, int D) {
-  float a = 0.f;
-  for (int c = 0; c < D / 8; ++c) {
-    float f[8];
-    bf16x8(*reinterpret_cast<const uint4*>(row + 8 * c), f);
-    a = fmaxf(a, absmax8(f));
-  }
-  return row_scale(a);
 }
 
 }  // namespace kvq

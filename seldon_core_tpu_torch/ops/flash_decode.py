@@ -103,7 +103,12 @@ times ``v_s`` before its cast).  A kernel's dtype code 2 names the int8
 cache (``decode_kernel_shape_error(..., kv_dtype=torch.int8)``,
 ``paged_kernel_shape_error`` likewise); ``I8_LAUNCHES`` and
 ``PAGED_I8_LAUNCHES`` count the int8 variants' launches, which
-``LAUNCHES`` and ``PAGED_LAUNCHES`` count too.
+``LAUNCHES`` and ``PAGED_LAUNCHES`` count too.  Both variants take one
+tile walk (``ops/csrc/int8_walk.cuh``), whose plan this module states:
+its shared memory (``i8_walk_layout``), its staged tile's swizzle
+(``i8_stage_offset``), q's k order and V's n order (``i8_k_dims``,
+``i8_v_dims``), and the clusters (``i8_split_plan`` for the two-tier
+variant, ``i8_paged_cluster`` for the paged one).
 """
 
 from __future__ import annotations
@@ -114,6 +119,7 @@ import threading
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from seldon_core_tpu_torch.device import launch_on
@@ -128,7 +134,12 @@ __all__ = [
     "I8_LAUNCHES",
     "PAGED_I8_LAUNCHES",
     "paged_scale_view",
-    "paged_i8_layout",
+    "i8_walk_layout",
+    "i8_split_plan",
+    "i8_paged_cluster",
+    "i8_stage_offset",
+    "i8_k_dims",
+    "i8_v_dims",
     "flash_decode",
     "flash_decode_two_tier",
     "flash_decode_reference",
@@ -182,6 +193,15 @@ _F32_RING_BUDGET = 64 * 1024
 _F32_MAX_DEPTH = 4
 _MAX_SPLIT = 8
 _I8 = 2  # the sources' dtype code of an int8 cache (bf16 q and o)
+# the int8 walk (ops/csrc/int8_walk.cuh: RING_BUDGET, MAX_DEPTH): a block's
+# aim in bytes of stages, and the deepest ring a warp
+_I8_RING_BUDGET = 64 * 1024
+_I8_MAX_DEPTH = 4
+# the int8 walk's long rows (both variants' cluster rule): blocks of 8
+# warps resident on an SM at once, and the fewest positions a block keeps
+# when a row is split further for them
+_I8_RESIDENT = 2
+_I8_LONG = 2048
 
 
 def _shapes_error(q, k, v) -> Optional[str]:
@@ -314,6 +334,32 @@ def decode_split_plan(B: int, KV: int, G: int, n_total: int, sm_count: int,
     return split, -(-n_total // split)
 
 
+def _i8_long(split: int, B: int, KV: int, G: int, n: int, sm_count: int) -> int:
+    """The int8 walk's cluster for long rows: ``split`` doubled while two
+    blocks an SM (``_I8_RESIDENT``) hold the grid and each block still
+    walks at least ``_I8_LONG`` of n positions: a block's warps wait on
+    their copies, and a second block an SM keeps twice the copies in
+    flight."""
+    groups = B * KV * -(-G // _PAGED_GT)
+    while (split < _MAX_SPLIT and groups * split * 2 <= _I8_RESIDENT * sm_count
+           and -(-n // (2 * split)) >= _I8_LONG):
+        split *= 2
+    return split
+
+
+@functools.lru_cache(maxsize=4096)
+def i8_split_plan(B: int, KV: int, G: int, n_total: int, sm_count: int) -> Tuple[int, int]:
+    """(C, span) of the two-tier kernel's int8 variant: ``decode_split_plan``
+    at the int8 walk's row tile (16) and grid aim (the paged kernel's 0.9:
+    its blocks have the paged walk's 8 warps), doubled for long rows
+    (``_i8_long``: B=32 at 4,160 positions takes C = 2, 256 blocks), with a
+    span that is a multiple of the tile (16), so a row's bits depend on
+    n_total and C only."""
+    split, _ = decode_split_plan(B, KV, G, n_total, sm_count, _PAGED_GT, _PAGED_BLOCKS_PER_SM)
+    split = _i8_long(split, B, KV, G, n_total, sm_count)
+    return split, -(-n_total // (split * _TILE)) * _TILE
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -422,7 +468,8 @@ def _launch(q, k0, v0, n0: int, k1, v1, n1: int, k_new=None, v_new=None,
                                        *k1.stride()[:3], *v1.stride()[:3], *fresh)
     lib = _library()
     index = torch.cuda.current_device() if q.device.index is None else q.device.index
-    split, span = decode_split_plan(B, KV, G, int(n0) + int(n1), _sm_count(index))
+    plan = i8_split_plan if int8 else decode_split_plan
+    split, span = plan(B, KV, G, int(n0) + int(n1), _sm_count(index))
     fresh_ptrs = (None if k_new is None else k_new.data_ptr(),
                   None if v_new is None else v_new.data_ptr())
     if int8:
@@ -690,6 +737,13 @@ def paged_cluster(B: int, KV: int, G: int, width: int, sm_count: int) -> int:
     return decode_split_plan(B, KV, G, width, sm_count, _PAGED_GT, _PAGED_BLOCKS_PER_SM)[0]
 
 
+def i8_paged_cluster(B: int, KV: int, G: int, width: int, sm_count: int) -> int:
+    """C of the paged kernel's int8 variant: ``paged_cluster``, doubled for
+    long rows by the two-tier variant's rule (``_i8_long``) on the table's
+    width (the host's bound on every row's length)."""
+    return _i8_long(paged_cluster(B, KV, G, width, sm_count), B, KV, G, width, sm_count)
+
+
 def paged_f32_layout(head_dim: int, group: int) -> dict:
     """The float32 walk's plan at this head dim and group (query heads per
     kv head), ``layout_f32`` in ``ops/csrc/flash_decode_paged.cu`` step by
@@ -718,24 +772,60 @@ def paged_f32_layout(head_dim: int, group: int) -> dict:
             "bytes": bars + 8 * warps * depth + 1024}
 
 
-def paged_i8_layout(head_dim: int, group: int) -> dict:
-    """The int8 walk's plan at this head dim and group, ``layout_i8`` in
-    ``ops/csrc/flash_decode_paged.cu`` step by step: the bf16 walk's row
-    tile (8 query rows, or 16 past 8) and warps (8 up to hd 128, else 4),
-    a stage of a tile's K and V codes (``_TILE`` = 16 rows of
-    ``head_dim`` bytes each) and its two scale runs (16 f32 each), a ring
-    as deep as 64 KB a block holds (2 to 4 stages), and the float32 walk's
-    scratch after it."""
+def i8_walk_layout(head_dim: int, group: int) -> dict:
+    """The int8 walk's plan at this head dim and group, both kernels' int8
+    variants (``layout`` in ``ops/csrc/int8_walk.cuh`` step by step; the card
+    holds the two to each other): ``rows`` query rows a block (8, or 16
+    past 8), ``warps`` (8 up to hd 128, else 4), ``cols`` bytes a staged
+    row (64, 128 or 256), a ``stage`` of a tile's K and V codes (``_TILE``
+    rows of ``cols`` each) and its k_s and v_s (16 f32 each), ``depth``
+    stages a warp (as many as 64 KB a block holds, 2 to 4), and the
+    float32 walk's scratch after it; ``bytes`` of dynamic shared memory."""
     rows = 16 if group > 8 else 8
     warps = 8 if head_dim <= 128 else 4
-    stage = 2 * _TILE * head_dim + 2 * _TILE * 4
-    depth = min(max(_F32_RING_BUDGET // (warps * stage), 2), 4)
+    cols = 64 if head_dim <= 64 else (128 if head_dim <= 128 else 256)
+    stage = 2 * _TILE * cols + 2 * _TILE * 4
+    depth = min(max(_I8_RING_BUDGET // (warps * stage), 2), _I8_MAX_DEPTH)
     ring = warps * depth * stage
     end = 4 * (2 * warps * rows + warps * rows * head_dim + (_MAX_SPLIT + 2) * rows
                + _MAX_SPLIT * rows * (head_dim + 2))
     bars = -(-max(ring, end) // 8) * 8
-    return {"rows": rows, "warps": warps, "tile": _TILE, "depth": depth, "stage": stage,
-            "bytes": bars + 8 * warps * depth + 1024}
+    return {"rows": rows, "warps": warps, "cols": cols, "tile": _TILE, "depth": depth,
+            "stage": stage, "bytes": bars + 8 * warps * depth + 128}
+
+
+def i8_stage_offset(cols: int, r: int, c: int) -> int:
+    """Byte offset of 16-byte chunk c of row r in a staged int8 tile of
+    ``_TILE`` rows of ``cols`` bytes (``chunk_off`` in int8_walk.cuh): at 64
+    columns chunk (4 (r & 1) + c) ^ (2 ((r >> 1) & 3)) of the 128-byte line r
+    >> 1; at 128, c ^ (r & 7) of row r; at 256, c ^ (r & 7) ^ (2 (c >> 3))."""
+    if cols == 64:
+        return (r >> 1) * 128 + 16 * ((((r & 1) << 2) | c) ^ (((r >> 1) & 3) << 1))
+    if cols == 128:
+        return r * 128 + 16 * (c ^ (r & 7))
+    return r * 256 + 16 * (c ^ ((r & 7) ^ ((c >> 3) << 1)))
+
+
+def i8_k_dims(cols: int) -> np.ndarray:
+    """q's k order in the int8 walk: [4, cols / 16, 4] -> the dim that k
+    slot (2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9) of k-step ks holds for
+    lane tig of a quad.  Lane tig's K codes of a position are the cols / 4
+    neighbouring dims from cols / 4 tig; step ks's four codes are bytes 4
+    ks .. 4 ks + 3 of that run, bytes 0 and 2 the low B register's pair,
+    1 and 3 the high one's."""
+    tig, ks = np.meshgrid(np.arange(4), np.arange(cols // 16), indexing="ij")
+    base = (cols // 4) * tig + 4 * ks
+    return np.stack([base, base + 2, base + 1, base + 3], axis=-1)
+
+
+def i8_v_dims(cols: int) -> np.ndarray:
+    """V's n order in the int8 walk: [8, cols / 8] -> the dim that column
+    gid of PV n-tile j holds: cols / 8 * gid + j, so a lane's codes of a
+    position for all its n-tiles are cols / 8 neighbouring bytes; the store
+    writes acc[j][e] (columns 2 tig + e) back to dim cols / 8 (2 tig + e) +
+    j."""
+    nt = cols // 8
+    return nt * np.arange(8)[:, None] + np.arange(nt)[None, :]
 
 
 def flash_decode_paged_reference(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -895,7 +985,8 @@ def _launch_paged(q, pool_k, pool_v, tables, lens, k_new, v_new, valid,
                                        *pool_v.stride()[:3], *fresh)
     lib = _paged_library()
     index = torch.cuda.current_device() if q.device.index is None else q.device.index
-    split = paged_cluster(B, KV, G, tables.shape[1] * bs, _sm_count(index))
+    split = (i8_paged_cluster if int8 else paged_cluster)(B, KV, G, tables.shape[1] * bs,
+                                                          _sm_count(index))
     fresh_ptrs = (None if k_new is None else k_new.data_ptr(),
                   None if v_new is None else v_new.data_ptr(),
                   None if valid is None else valid.data_ptr())

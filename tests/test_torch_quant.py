@@ -460,8 +460,11 @@ def _card_inputs(gen, B, KV, G, hd, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(32, 4, 4, 64, 512, 512, 63, 32), (1, 4, 4, 64, 640, 640, 63, 0),
-                                   (4, 2, 4, 16, 100, 100, 15, 9)],
-                         ids=["served", "one-row-main", "hd16"])
+                                   (4, 2, 4, 16, 100, 100, 15, 9), (1, 4, 4, 64, 512, 150, 63, 3),
+                                   (4, 2, 4, 128, 256, 201, 31, 7), (2, 4, 1, 256, 256, 130, 15, 5),
+                                   (8, 8, 1, 64, 512, 333, 31, 11), (2, 1, 16, 64, 512, 250, 31, 6)],
+                         ids=["served", "one-row-main", "hd16", "unaligned-main", "hd128",
+                              "hd256-group1", "group1", "group16"])
 def test_int8_two_tier_kernel_matches_plain_on_card(shape):
     """The int8-K/V variant of flash_decode_two_tier with the step's write
     fused in: the written codes and scales bit for bit, o within 2 bf16
@@ -489,9 +492,44 @@ def test_int8_two_tier_kernel_matches_plain_on_card(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_mains", [(403, 298), (512, 517)], ids=["cluster", "served"])
+def test_int8_two_tier_kernel_bits_do_not_depend_on_where_main_ends(n_mains):
+    """One stream's positions, main[:n_main] ++ chunk[:n - n_main], with
+    main ending at two points that are not multiples of 4 (the slots past
+    them hold other codes): the int8 variant gives the same bits and
+    writes the same fresh codes and scales, as its tiles start at fixed
+    positions of the stream."""
+    _need_card()
+    B, n = (2, 440) if n_mains[0] == 403 else (32, 560)
+    KV, G, hd = 4, 4, 64
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(n)
+    (gk, gks), (gv, gvs) = (kw.int8_kv_rows((B, KV, n, hd), gen, dev) for _ in range(2))
+    q, kn, vn = _card_inputs(gen, B, KV, G, hd, dev)
+    outs, written = [], []
+    for n_main in n_mains:
+        segs = []
+        for t in (gk, gv, gks, gvs):
+            main, chunk = t.clone(), t.clone().roll(1, dims=2)
+            main[:, :, n_main:] = t.roll(7, dims=2)[:, :, n_main:]
+            chunk[:, :, :n - n_main] = t[:, :, n_main:]
+            segs.append((main, chunk))
+        (mk, ck), (mv, cv), (mks, cks), (mvs, cvs) = segs
+        outs.append(fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n - n_main, kn, vn,
+                                             (mks, mvs, cks, cvs)))
+        written.append([t[:, :, n - n_main - 1] for t in (ck, cv, cks, cvs)])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*written))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", [(32, 4, 4, 64, 64, (560,) * 32), (5, 4, 4, 64, 64, (1, 17, 300, 560, 1009)),
-                                  (4, 2, 4, 16, 16, (1, 60, 200, 256))],
-                         ids=["served", "ragged", "hd16"])
+                                  (4, 2, 4, 16, 16, (1, 60, 200, 256)),
+                                  (4, 2, 4, 128, 32, (1, 100, 333, 512)),
+                                  (3, 2, 2, 256, 16, (17, 250, 256)),
+                                  (6, 8, 1, 64, 40, (1, 15, 16, 17, 600, 640)),
+                                  (3, 1, 16, 64, 40, (64, 300, 640))],
+                         ids=["served", "ragged", "hd16", "hd128", "hd256", "group1", "group16"])
 def test_int8_paged_kernel_matches_plain_on_card(case):
     """The int8-K/V variant of flash_decode_paged with the step's write
     fused in (the last row inactive): the pools and scale planes bit for
