@@ -106,9 +106,13 @@ it serves the static lane it measured before that lane's switch:
               fused in at the round's shape and the drafts' (three inactive
               rows): o of the active rows, the pools bit-exact outside the
               scratch block, a repeat and moved blocks the same bits;
-              kv_write_paged bit-exact and in place at W=1, at a prefill
-              tick's W=128 and 512, a verify's W=5 (16 kv heads) and at
-              hd 32
+              kv_write_paged bit-exact and in place at KV_PAGED_CASES
+              (W=1, a prefill tick's W=128 and 512, a verify's W=5 of 16
+              kv heads, W=127 and 130, hd 32 to 256, f32 at the
+              speculative example's verify, views misaligned to units of
+              8, 4 and 2 bytes; starts a multiple of neither bs nor W, a
+              row with every position invalid, a table entry outside the
+              pool), its launch plan in C equal to paged_write_plan
  10b. continuous  the flagship generator through the continuous lane
               (runtime/genserver.py, default knobs) over REST: a 1-row and
               a 32-row 512-token request (preemption must occur), 8 1-row
@@ -217,8 +221,10 @@ it serves the static lane it measured before that lane's switch:
               scratch block); at the flagship's shapes the plain version
               with a 16-position tile dropped or k_s read one position off
               must miss that tolerance by 4x; kv_write_paged's int8
-              variant bit-exact at W=128 and 512 into (2049, 4, 16, 64) and
-              at hd 16, quantizing bf16 rows and copying int8 ones
+              variant bit-exact at I8_KV_CASES (W=128 and 512 into (2049,
+              4, 16, 64), W=5, 127 and 130, hd 16 to 256, the same starts,
+              invalid row and out-of-pool entry as 10a's), quantizing bf16
+              rows and copying int8 ones, its plan in C equal to Python's
  10l. int8-serve  examples/generator_int8_deployment.json as written (int8
               weights and K/V, attention "flash") on the continuous and the
               static lane over REST: 1 row, 8 rows and a 1-row SSE stream of
@@ -1598,10 +1604,21 @@ PAGED_SHAPES = [(32, 4, 4, 64, PAGED_NBLK, (513, 577)), (1, 4, 4, 64, PAGED_NBLK
 # round and at the speculative lane's draft steps: the flagship target as
 # its own draft (MHA, hd 64) and its default draft (8 heads of 32)
 PAGED_FUSED = [(GEN_B, 4, 4, 64), (GEN_B, 16, 1, 64), (GEN_B, 8, 1, 32)]
-# kv_write_paged bit-exact: (KV, hd, W) at the served round (W = 1 and a
-# prefill tick's 128 and 512), a speculative verify of the MHA target (W =
-# k + 1) and a prefill tick of the default draft (hd 32)
-KV_PAGED_CASES = [(4, 64, 1), (4, 64, 128), (4, 64, 512), (16, 64, 5), (8, 32, 128)]
+# kv_write_paged bit-exact, (KV, hd, W, dtype, misalign): the served round
+# (W = 1 and a prefill tick's 128 and 512), a speculative verify of the MHA
+# target (W = k + 1), a prefill tick of the default draft (hd 32), the
+# float32 speculative example's verify (4 heads of 32), ragged widths
+# around a 128-position run (127, 130), hd 128 and 256, and head views
+# that start 1, 2 or 4 bf16 elements (1 f32) past an aligned address, so
+# that the copy's unit is 2, 4 or 8 bytes (kv_write.paged_write_inputs:
+# starts a multiple of neither bs nor W, one row all invalid, one table
+# entry outside the pool)
+KV_PAGED_CASES = [(4, 64, 1, "bf16", 0), (4, 64, 128, "bf16", 0), (4, 64, 512, "bf16", 0),
+                  (16, 64, 5, "bf16", 0), (8, 32, 128, "bf16", 0), (4, 32, 5, "f32", 0),
+                  (4, 64, 127, "bf16", 0), (4, 64, 130, "bf16", 0), (4, 128, 130, "bf16", 0),
+                  (2, 256, 127, "bf16", 0), (8, 32, 5, "bf16", 0), (4, 64, 128, "bf16", 1),
+                  (16, 64, 5, "bf16", 2), (4, 64, 130, "bf16", 4), (2, 256, 5, "bf16", 1),
+                  (4, 32, 5, "f32", 1)]
 # one batch whose rows' lengths span the table: the split follows each row
 PAGED_RAGGED = [1, 17, 300, 560, 1009]
 # the timed shapes: the served round at a late step (512 + 48 positions in
@@ -1614,6 +1631,14 @@ PAGED_TIMED = [(32, 4, 4, 64, PAGED_NBLK, 560), (1, 4, 4, 64, PAGED_NBLK, 560),
 # rows of W=128 (the chunk floor) and W=512 (its ceiling), and a
 # speculative verify's W = k + 1 = 5 of the MHA target
 KV_PAGED_TIMED = [(4, 64, 128), (4, 64, 512), (16, 64, 5)]
+KV_WRITE_PLAN = ("a block of P positions of one row (blockIdx.y) for every kv head, P a power "
+                 "of two with P * KV * lanes <= 256; a thread a (kv head, position, lane), "
+                 "lanes lowest, every index a shift or mask of a 32-bit number; each thread's "
+                 "K and V source loads started first, then lanes 0..P-1 look each position's "
+                 "slot up once (start, then the table entry at the clamped index, loaded "
+                 "unconditionally, block 0 selected after) into shared memory, one "
+                 "__syncthreads, then the stores")
+KV_PAGED_DESIGN = KV_WRITE_PLAN + "; K and V one 16-byte unit each a thread (else 8, 4, 2, 1)"
 CONT_BURST = 8            # 1-row requests sent CONT_GAP_S apart: they join a running batch
 CONT_GAP_S = 0.020
 CONT_TURNS = 2            # ABBA turns of the lane comparison (4 walls each)
@@ -1691,6 +1716,49 @@ def permuted_pool(torch, pk, pv, tables, gen, dev):
     return mk, mv, perm[(tables - 1).long()].to(torch.int32)
 
 
+def check_write_plan(kw, B, KV, W, lanes) -> tuple:
+    """kv_write_paged's launch plan as the source computes it
+    (kv_write_paged_plan) against paged_write_plan: the plan, or raises."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    rc = kw._library().plan(B, KV, W, lanes, ctypes.addressof(out))
+    want = kw.paged_write_plan(B, KV, W, lanes)
+    if rc != 0 or tuple(out) != want:
+        raise AssertionError(f"kv_write_paged_plan({B}, {KV}, {W}, {lanes}) gave {rc}, "
+                             f"{tuple(out)}; paged_write_plan {want}")
+    return want
+
+
+def kv_paged_checks(torch, kw, dev, gen) -> None:
+    """kv_write_paged bit-exact and in place at KV_PAGED_CASES (inputs from
+    kv_write.paged_write_inputs, drawn from the CPU generator ``gen``),
+    each launch plan in C equal to paged_write_plan; raises otherwise."""
+    for KV, hd, W, dt, misalign in KV_PAGED_CASES:
+        x = kw.paged_write_inputs(32, KV, W, hd, PAGED_NBLK, gen, dev,
+                                  dtype=torch.float32 if dt == "f32" else torch.bfloat16,
+                                  bs=PAGED_BS, misalign=misalign)
+        lanes = kw.paged_write_lanes(*x.pools, x.k, x.v)
+        unit = hd * x.pools[0].element_size() // lanes
+        if (misalign == 0) != (unit == 16):
+            raise AssertionError(f"kv_write_paged at KV={KV} hd={hd} W={W} {dt}, {misalign} "
+                                 f"elements off: a copy unit of {unit} bytes")
+        plan = check_write_plan(kw, 32, KV, W, lanes)
+        want = kw.paged_write_expected(x)
+        ptrs, before = [t.data_ptr() for t in x.pools], kw.PAGED_LAUNCHES
+        out = kw.kv_write_paged(*x.pools, x.k, x.v, x.tables, x.start, x.valid)
+        torch.cuda.synchronize()
+        # block 0 (scratch) takes several invalid writes to one row, in no order
+        if (kw.PAGED_LAUNCHES != before + 1 or [t.data_ptr() for t in out] != ptrs
+                or not all(torch.equal(a[1:], b[1:x.N]) for a, b in zip(x.pools, want))):
+            raise AssertionError(f"kv_write_paged at KV={KV} hd={hd} W={W} {dt}, {misalign} "
+                                 f"elements off, is not the plain scatter")
+        log(f"[paged-kernel] kv_write_paged into pools ({x.N},{KV},{PAGED_BS},{hd}) {dt} "
+            f"through [32,{PAGED_NBLK}] tables, W={W} from strided head views {misalign} "
+            f"elements off (units of {unit} bytes; plan {plan}): bit-exact outside the scratch "
+            f"block (an out-of-pool entry dropped, a row all invalid), in place")
+
+
 def paged_kernel_phase(torch, fd, kw, dev) -> dict:
     """flash_decode_paged against its plain version at PAGED_SHAPES and the
     ragged batch PAGED_RAGGED (one launch a call, a repeat the same bits,
@@ -1699,8 +1767,10 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
     inactive rows on scratch tables): o of the active rows against the
     plain fused version, the pools bit-exact outside the scratch block, a
     repeat and moved blocks the same bits.  kv_write_paged bit-exact and in
-    place at KV_PAGED_CASES (W=1 with three inactive rows, ragged widths
-    otherwise).  Returns each kernel's largest absolute error."""
+    place at KV_PAGED_CASES (kv_write.paged_write_inputs: unaligned starts,
+    a row all invalid, an out-of-pool entry, ragged widths), each launch
+    plan in C equal to paged_write_plan.  Returns each kernel's largest
+    absolute error."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 9)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1771,34 +1841,7 @@ def paged_kernel_phase(torch, fd, kw, dev) -> dict:
             f"{int(lens.min())}..{int(lens.max())}: o max abs err {err:.3e} on the active rows "
             f"(tolerance {FLASH_O_ATOL}); the pools bit-exact outside the scratch block; a repeat "
             f"and the blocks permuted bit-identical")
-    B, nblk = 32, PAGED_NBLK
-    N = B * nblk + 1
-    for KV, hd, W in KV_PAGED_CASES:
-        pk, pv = (torch.randn(N, KV, PAGED_BS, hd, generator=gen).to(torch.bfloat16).to(dev)
-                  for _ in range(2))
-        tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
-        tables = tables.to(torch.int32).to(dev)
-        k, v = head_views(torch, B, W, KV, hd, gen, dev)
-        if W == 1:
-            start = torch.randint(0, nblk * PAGED_BS, (B,), generator=gen)
-            valid = torch.arange(B)[:, None] < B - 3
-        else:
-            start = torch.randint(0, nblk * PAGED_BS // W, (B,), generator=gen) * W
-            valid = torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen)
-        start, valid = start.to(torch.int32).to(dev), valid.to(dev)
-        want_k, want_v = kw.kv_write_paged_reference(pk.clone(), pv.clone(), k, v, tables, start,
-                                                     valid)
-        ptrs, before = (pk.data_ptr(), pv.data_ptr()), kw.PAGED_LAUNCHES
-        out = kw.kv_write_paged(pk, pv, k, v, tables, start, valid)
-        torch.cuda.synchronize()
-        # block 0 (scratch) takes several invalid writes to one row, in no order
-        if (kw.PAGED_LAUNCHES != before + 1 or (out[0].data_ptr(), out[1].data_ptr()) != ptrs
-                or not torch.equal(pk[1:], want_k[1:]) or not torch.equal(pv[1:], want_v[1:])):
-            raise AssertionError(f"kv_write_paged at KV={KV} hd={hd} W={W} is not the plain "
-                                 f"scatter")
-        log(f"[paged-kernel] kv_write_paged into pools ({N},{KV},{PAGED_BS},{hd}) bf16 through "
-            f"[{B},{nblk}] tables, W={W} from strided head views: bit-exact outside the scratch "
-            f"block, in place")
+    kv_paged_checks(torch, kw, dev, gen)
     log(f"[paged-kernel] phase wall {time.perf_counter() - t0:.2f} s")
     return {"flash_decode_paged": max_err, "kv_write_paged": 0.0}
 
@@ -2056,6 +2099,7 @@ def paged_times(torch, fd, kw, dev, smi) -> dict:
         k, v = head_views(torch, B, W, KV, hd, gen, dev)  # as a tick has them
         start = torch.full((B,), 512 - W, dtype=torch.int32, device=dev)
         valid = torch.ones(B, W, dtype=torch.bool, device=dev)
+        check_write_plan(kw, B, KV, W, kw.paged_write_lanes(pk, pv, k, v))
         k_ms = device_ms(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid), 200)
         p_ms = device_ms(torch, lambda: kw.kv_write_paged_reference(pk, pv, k, v, tables, start,
                                                                     valid), 50)
@@ -2346,6 +2390,7 @@ def continuous_phases(torch, dev, smi) -> list:
             "at": rows_t[name],
         })
     out[0]["design"] = PAGED_DESIGN
+    out[1]["design"] = KV_PAGED_DESIGN
     out[0]["served"] = served
     return out
 
@@ -4159,8 +4204,12 @@ I8_PAGED_SHAPES = [(GEN_B, 4, 4, 64, PAGED_NBLK, [560] * GEN_B),
                    (4, 2, 4, 128, 32, [1, 100, 333, 512]), (3, 2, 2, 256, 16, [17, 250, 256]),
                    (6, 8, 1, 64, 40, [1, 15, 16, 17, 600, 640]), (3, 1, 16, 64, 40, [64, 300, 640])]
 # kv_write_paged's int8 variant, (KV, hd, W) into pools of 2,049 blocks: a
-# prefill tick's B=32 rows of W=128 and 512; and the example's heads
-I8_KV_CASES = [(4, 64, 128), (4, 64, 512), (2, 16, 128)]
+# prefill tick's B=32 rows of W=128 and 512; the example's heads; a verify's
+# W=5, ragged widths around a 128-position run, hd 32 to 256 (lanes a row
+# 4 to 32); kv_write.paged_write_inputs' starts, invalid row and
+# out-of-pool entry
+I8_KV_CASES = [(4, 64, 128), (4, 64, 512), (2, 16, 128), (4, 64, 5), (16, 64, 127),
+               (2, 128, 130), (2, 256, 127), (8, 32, 130), (16, 256, 5)]
 # the flagship generator with both quantizations stacked, as bench.py:533-535
 # stacks them on bench.py:3342-3344's config
 INT8_GEN = {"quant": "int8", "kv_quant": "int8"}
@@ -4215,9 +4264,11 @@ I8_DECODE_DESIGN = (I8_WALK + "; the split a cluster of 1-8 blocks with shares a
                     "warps then ranks combined through DSMEM")
 I8_PAGED_DESIGN = (I8_WALK + "; the bf16 path's share rule by each row's length and DSMEM "
                    "combine, the cluster doubled for long tables (i8_paged_cluster)")
-I8_KV_DESIGN = ("a group of hd/8 lanes a (row, kv head, position): 8 values of K and of V a "
-                "lane, the row's absmax by shuffles, IEEE divisions and rint to the codes, "
-                "the first lane writing both scales; int8 rows with their scales copied")
+I8_KV_DESIGN = ("kv_write_paged_plan's geometry (KV_WRITE_PLAN) with a row's hd/8 lanes one "
+                "aligned group of a warp: 8 values of K and of V a lane, both loads in flight "
+                "before the interleaved absmax shuffles, each value divided once (IEEE) and "
+                "rounded to its code while the lookup is in flight, the group's first lane "
+                "writing both scales; int8 rows with their scales copied")
 
 
 def i8_bound(B, KV, G, hd, n_sum, fused: bool, extra: int = 0):
@@ -4277,6 +4328,34 @@ def check_sensitive(name: str, want, defects: dict) -> dict:
         + ", ".join(f"{what} misses by {err:.3e}" for what, err in seen.items())
         + f" (each at least {I8_DEFECT_MARGIN}x the tolerance)")
     return seen
+
+
+def i8_kv_checks(torch, kw, dev, gen) -> None:
+    """kv_write_paged's int8 variant bit-exact and in place at I8_KV_CASES,
+    quantizing bf16 head views and copying int8 rows with their scales
+    (kv_write.paged_write_inputs, the CPU generator ``gen``), each plan in
+    C equal to Python's; raises otherwise."""
+    for KV, hd, W in I8_KV_CASES:
+        for copy in (False, True):
+            x = kw.paged_write_inputs(32, KV, W, hd, PAGED_NBLK, gen, dev, bs=PAGED_BS,
+                                      int8=True, copy=copy)
+            plan = check_write_plan(kw, 32, KV, W, kw.paged_write_lanes(*x.pools, x.k, x.v))
+            want = kw.paged_write_expected(x)
+            pools = x.pools + x.planes
+            ptrs, before = [t.data_ptr() for t in pools], kw.PAGED_I8_LAUNCHES
+            kw.kv_write_paged(*x.pools, x.k, x.v, x.tables, x.start, x.valid, tuple(x.planes),
+                              x.k_s, x.v_s)
+            torch.cuda.synchronize()
+            if (kw.PAGED_I8_LAUNCHES != before + 1 or [t.data_ptr() for t in pools] != ptrs
+                    or not all(torch.equal(a[1:], b[1:x.N]) for a, b in zip(pools, want))):
+                raise AssertionError(f"[int8-kernels] kv_write_paged int8 at KV={KV} hd={hd} "
+                                     f"W={W} ({'copy' if copy else 'quantize'}) is not the plain "
+                                     f"scatter")
+            log(f"[int8-kernels] kv_write_paged int8 into pools ({x.N},{KV},{PAGED_BS},{hd}) "
+                f"with their scale planes through [32,{PAGED_NBLK}] tables, W={W}, "
+                f"{'int8 rows with their scales copied' if copy else 'bf16 head views quantized'}"
+                f" (plan {plan}): codes and scales bit-exact outside the scratch block (an "
+                f"out-of-pool entry dropped, a row all invalid), in place")
 
 
 def int8_kernel_phase(torch, fd, kw, dev) -> dict:
@@ -4456,38 +4535,7 @@ def int8_kernel_phase(torch, fd, kw, dev) -> dict:
                  "k_s read one position off": plain(
                      [torch.roll(ref[2], -1, dims=2), ref[3]], tables, lens_t)[act]})
             defects["flash_decode_paged"] = found
-    B, nblk = 32, PAGED_NBLK
-    N = B * nblk + 1
-    for KV, hd, W in I8_KV_CASES:
-        for copy in (False, True):
-            (pk, pks), (pv, pvs) = (kw.int8_kv_rows((N, KV, PAGED_BS, hd), gen, dev)
-                                    for _ in range(2))
-            tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
-            tables = tables.to(torch.int32).to(dev)
-            start = (torch.randint(0, nblk * PAGED_BS // W, (B,), generator=gen) * W)
-            valid = torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen)
-            start, valid = start.to(torch.int32).to(dev), valid.to(dev)
-            if copy:
-                (k, k_s), (v, v_s) = (kw.int8_kv_rows((B, KV, W, hd), gen, dev)
-                                      for _ in range(2))
-            else:
-                (k, v), k_s, v_s = head_views(torch, B, W, KV, hd, gen, dev), None, None
-            pools = [pk, pv, pks, pvs]
-            ref = [t.clone() for t in pools]
-            kw.kv_write_paged_reference(ref[0], ref[1], k, v, tables, start, valid,
-                                        (ref[2], ref[3]), k_s, v_s)
-            ptrs, before = [t.data_ptr() for t in pools], kw.PAGED_I8_LAUNCHES
-            kw.kv_write_paged(pk, pv, k, v, tables, start, valid, (pks, pvs), k_s, v_s)
-            torch.cuda.synchronize()
-            if (kw.PAGED_I8_LAUNCHES != before + 1 or [t.data_ptr() for t in pools] != ptrs
-                    or not all(torch.equal(a[1:], b[1:]) for a, b in zip(pools, ref))):
-                raise AssertionError(f"[int8-kernels] kv_write_paged int8 at KV={KV} hd={hd} "
-                                     f"W={W} ({'copy' if copy else 'quantize'}) is not the plain "
-                                     f"scatter")
-            log(f"[int8-kernels] kv_write_paged int8 into pools ({N},{KV},{PAGED_BS},{hd}) with "
-                f"their scale planes through [{B},{nblk}] tables, W={W}, "
-                f"{'int8 rows with their scales copied' if copy else 'bf16 head views quantized'}"
-                f": codes and scales bit-exact outside the scratch block, in place")
+    i8_kv_checks(torch, kw, dev, gen)
     log(f"[int8-kernels] phase wall {time.perf_counter() - t0:.2f} s")
     return {"errs": errs, "defects": defects}
 
@@ -4919,6 +4967,8 @@ def int8_kernel_times(torch, fd, kw, dev, smi) -> dict:
                  * W).to(torch.int32)
         valid = torch.ones(Bw, W, dtype=torch.bool, device=dev)
         k, v = head_views(torch, Bw, W, 4, 64, torch.Generator().manual_seed(SEED + 174), dev)
+        for pools in ((pk, pv), (bk, bv)):
+            check_write_plan(kw, Bw, 4, W, kw.paged_write_lanes(*pools, k, v))
         i8_ms = device_ms(torch, lambda: kw.kv_write_paged(pk, pv, k, v, tables, start, valid,
                                                            (pks, pvs)), 100)
         bf_ms = device_ms(torch, lambda: kw.kv_write_paged(bk, bv, k, v, tables, start, valid),

@@ -32,7 +32,10 @@ the kernel reads the table and the positions itself, so nothing is read
 back on the host.  A position whose ``valid`` is False goes to block 0,
 the scratch block.  ``kv_write_paged_reference`` is the plain version
 (``index_put_``), ``PAGED_LAUNCHES`` its count and
-``probe_kv_write_paged`` its probe.
+``probe_kv_write_paged`` its probe.  ``paged_write_plan`` states the
+launch's geometry as ``kv_write_paged_plan`` in the source computes it
+(both paged kernels take it): a block of a row's positions for every kv
+head, a thread a (kv head, position, lane), lanes lowest.
 
 The int8 K/V cache (``kv_quant="int8"``): int8 pools ``[N, KV, bs, hd]``
 carry scale planes f32 ``[N, KV, bs]`` (``scales=(pool_ks, pool_vs)``), and
@@ -62,6 +65,7 @@ from seldon_core_tpu_torch.ops._build import load_library
 
 __all__ = ["LAUNCHES", "PAGED_LAUNCHES", "PAGED_I8_LAUNCHES", "kv_write", "kv_write_reference",
            "probe_kv_write", "kv_write_paged", "kv_write_paged_reference", "probe_kv_write_paged",
+           "paged_write_plan", "paged_write_lanes", "paged_write_inputs", "paged_write_expected",
            "quantize_kv", "int8_kv_rows"]
 
 #: kernel launches since import (or since a caller last reset it to 0)
@@ -71,6 +75,8 @@ PAGED_LAUNCHES = 0
 #: those of them into int8 pools
 PAGED_I8_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
+#: threads a block of the paged write at most (NTHREADS in the source)
+PAGED_THREADS = 256
 
 
 def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,10 +160,13 @@ def _library() -> SimpleNamespace:
             paged_i8.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                                  + [ctypes.c_void_p, ctypes.c_void_p])
             paged_i8.restype = ctypes.c_int
+            plan = lib.kv_write_paged_plan
+            plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            plan.restype = ctypes.c_int
             err = lib.kv_write_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _lib = SimpleNamespace(launch=launch, paged=paged, paged_i8=paged_i8,
+            _lib = SimpleNamespace(launch=launch, paged=paged, paged_i8=paged_i8, plan=plan,
                                    error_string=err)
         return _lib
 
@@ -307,6 +316,56 @@ def kv_write_paged_reference(pool_k: torch.Tensor, pool_v: torch.Tensor, k: torc
     return pool_k, pool_v
 
 
+def paged_write_plan(B: int, KV: int, W: int, lanes: int) -> Tuple[int, int, int, int, int, int]:
+    """The paged write's launch plan, as ``kv_write_paged_plan`` in
+    ``ops/csrc/kv_write.cu`` computes it: (lane_shift, pos_shift, threads,
+    grid x, grid y, grid z) for B rows of W positions, KV kv heads and
+    ``lanes`` lanes a row (the copy's units, row_bytes // unit, or the int8
+    variant's groups of 8 values, hd // 8).  A row's lanes are padded to
+    the power of two 1 << lane_shift; a block takes P = 1 << pos_shift
+    positions of one row (grid y) for every kv head, P at most the power of
+    two at or above W and P * KV * lanes at most PAGED_THREADS; grid x the
+    runs of P positions, grid z the blocks one run's lanes need (more than
+    one only where a position holds more than PAGED_THREADS lanes).  Thread
+    t of block (x, y, z) is lane ``i & (L - 1)`` of position ``x * P + (i >>
+    lane_shift) % P`` and kv head ``i >> (lane_shift + pos_shift)``, with i
+    = z * threads + t: a live thread is one whose kv head, lane and
+    position are in range.  ValueError where the shape has no plan within
+    CUDA's grid limits (the launch refuses it too)."""
+    if min(B, KV, W, lanes) < 1 or lanes > 1 << 30:
+        raise ValueError(f"no paged write plan for B={B}, KV={KV}, W={W}, lanes={lanes}")
+    ls = (lanes - 1).bit_length()
+    row = KV << ls
+    ps = 0
+    while (1 << ps) < W and row << (ps + 1) <= PAGED_THREADS:
+        ps += 1
+    items = row << ps
+    threads = -(-items // 32) * 32 if items < PAGED_THREADS else PAGED_THREADS
+    splits = -(-items // threads)
+    runs = (W + (1 << ps) - 1) >> ps
+    if B > 65535 or splits > 65535 or splits * threads > 2**31 - 1 or runs << ps > 2**31 - 1:
+        raise ValueError(f"no paged write plan within CUDA's grid limits for B={B}, KV={KV}, "
+                         f"W={W}, lanes={lanes}")
+    return ls, ps, threads, runs, B, splits
+
+
+def paged_write_lanes(pool_k: torch.Tensor, pool_v: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> int:
+    """The lanes a row that the launch plans with (``paged_write_plan``):
+    the int8 pools' hd // 8, else the row's bytes over the copy's unit (16
+    bytes where every pointer and byte stride allows it), as the launch
+    picks it."""
+    hd = pool_k.shape[3]
+    if pool_k.dtype == torch.int8:
+        return hd // 8
+    k = k if k.stride(3) == 1 else k.contiguous()
+    v = v if v.stride(3) == 1 else v.contiguous()
+    es = pool_k.element_size()
+    byte_strides = [s * es for t in (pool_k, pool_v, k, v) for s in t.stride()[:3]]
+    pointers = [pool_k.data_ptr(), pool_v.data_ptr(), k.data_ptr(), v.data_ptr()]
+    return hd * es // _copy_unit(hd * es, pointers + byte_strides)
+
+
 def _launch_paged(pool_k, pool_v, k, v, tables, start, valid) -> None:
     N, KV, bs, hd = pool_k.shape
     B, _, W, _ = k.shape
@@ -453,3 +512,75 @@ def probe_kv_write_paged(n_kv_heads: int, head_dim: int, dtype: torch.dtype,
             or not bool((pv[1:].float() == 2 * want[1:]).all().cpu())):
         raise RuntimeError(f"kv_write_paged probe at {n_kv_heads} kv heads, head dim {head_dim} "
                            f"wrote the wrong rows")
+
+
+def paged_write_inputs(B: int, KV: int, W: int, hd: int, nblk: int, gen: torch.Generator,
+                       device, *, dtype: torch.dtype = torch.bfloat16, bs: int = 16,
+                       misalign: int = 0, int8: bool = False, copy: bool = False
+                       ) -> SimpleNamespace:
+    """Inputs of a paged write through which a kernel check sees a wrong
+    kernel, drawn from the CPU generator ``gen`` and moved to ``device``.
+    Pools of N = B * nblk + 1 blocks of ``bs`` rows (int8 ones with their
+    scale planes where ``int8``; ``planes`` None otherwise) and tables that
+    hold their blocks in a shuffled order; B rows of W fresh positions of
+    KV kv heads of ``hd`` values: strided head views of a qkv row as the
+    served step makes them (``dtype``), starting ``misalign`` elements past
+    an aligned address, so that the copy's unit falls below 16 bytes; or,
+    with ``copy``, int8 rows with their scales (``int8_kv_rows``).  Every
+    start is a multiple of neither bs nor W, and every row's positions stay
+    inside its table, but row 0's cross into table entry 1 (its only entry
+    at W = 1), which is N + 1, outside the pool: those writes are dropped.
+    Row 1 has every position invalid (at W = 1 the last two rows too); the
+    others a random number of valid positions from the first.
+    ``paged_write_expected`` is the plain version's answer."""
+    N = B * nblk + 1
+    if nblk * bs < W + bs + 1:
+        raise ValueError(f"{nblk} blocks of {bs} rows do not hold W={W} positions and a start")
+    planes = None
+    if int8:
+        (pk, pks), (pv, pvs) = (int8_kv_rows((N, KV, bs, hd), gen, device) for _ in range(2))
+        planes = [pks, pvs]
+    else:
+        pk, pv = (torch.randn(N, KV, bs, hd, generator=gen).to(dtype).to(device)
+                  for _ in range(2))
+    tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
+    tables[0, 1 if W > 1 else 0] = N + 1
+    starts = []
+    for x in torch.randint(1, nblk * bs - W + 1, (B,), generator=gen).tolist():
+        while x % bs == 0 or (W > 1 and x % W == 0):
+            x = x + 1 if x < nblk * bs - W else 1
+        starts.append(x)
+    starts[0] = bs - 2 if W > 1 else 1
+    valid = torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen)
+    valid[0] = True
+    if B > 1:
+        valid[1] = False
+    if W == 1:  # the decode round's write: its empty slots too
+        valid[-2:] = False
+    k_s = v_s = None
+    if copy:
+        (k, k_s), (v, v_s) = (int8_kv_rows((B, KV, W, hd), gen, device) for _ in range(2))
+    else:
+        qkv = torch.randn(B, W, 6 * KV * hd + 16, generator=gen).to(dtype).to(device)
+        lo = 4 * KV * hd + misalign
+        k = qkv[..., lo:lo + KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
+        v = qkv[..., lo + KV * hd:lo + 2 * KV * hd].reshape(B, W, KV, hd).transpose(1, 2)
+    return SimpleNamespace(pools=[pk, pv], planes=planes, k=k, v=v, k_s=k_s, v_s=v_s,
+                           tables=tables.to(torch.int32).to(device),
+                           start=torch.tensor(starts, dtype=torch.int32).to(device),
+                           valid=valid.to(device), N=N)
+
+
+def paged_write_expected(x: SimpleNamespace) -> list:
+    """The plain version's pools (then scale planes) for
+    ``paged_write_inputs`` x, written into copies with two blocks past the
+    pool's end, where the out-of-pool entry's writes land (the kernel drops
+    them).  A kernel's pools are right when their blocks 1..N-1 equal
+    these copies': block 0 takes several scratch writes, in no order."""
+    def padded(t):
+        return torch.cat([t, t.new_zeros((2,) + tuple(t.shape[1:]))])
+
+    want = [padded(t) for t in x.pools + (x.planes or [])]
+    kv_write_paged_reference(want[0], want[1], x.k, x.v, x.tables, x.start, x.valid,
+                             tuple(want[2:]) if x.planes else None, x.k_s, x.v_s)
+    return want

@@ -1,6 +1,7 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
-chip_smoke.py or the turns scripts (paged_decode_turns.py,
-paged_f32_turns.py, int8_decode_turns.py), imports JAX or anything of the JAX package, nor
+chip_smoke.py or the turns scripts (paged_decode_turns.py, mlp_turns.py,
+paged_f32_turns.py, int8_decode_turns.py, kv_write_turns.py), imports JAX or anything of
+the JAX package, nor
 aiohttp or grpc (the card's machine has neither), and the port
 serves the MNIST and generator examples (the generator through the
 continuous lane, runtime/genserver.py, greedy and sampled), the iris
@@ -40,7 +41,8 @@ def _port_files():
             "graph/fuse.py", "runtime/client.py", "runtime/resilience.py",
             "runtime/microservice.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
-                                             "paged_f32_turns.py", "int8_decode_turns.py")]
+                                             "mlp_turns.py", "paged_f32_turns.py",
+                                             "int8_decode_turns.py", "kv_write_turns.py")]
 
 
 def _imports(tree):

@@ -698,43 +698,34 @@ def test_flash_decode_paged_f32_kernel_matches_plain_on_card(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [1, 128, 512])
-def test_kv_write_paged_kernel_is_bit_exact_on_card(W):
-    """The W = 1 write (a row routed to scratch), and the prefill tick's
-    W = 128 and 512 at ragged widths, where the kernel still runs."""
+@pytest.mark.parametrize("KV,hd,W,dtype,misalign", [
+    (4, 64, 1, torch.bfloat16, 0), (4, 64, 128, torch.bfloat16, 0),
+    (4, 64, 512, torch.bfloat16, 0), (16, 64, 5, torch.bfloat16, 0),
+    (4, 64, 127, torch.bfloat16, 0), (4, 64, 130, torch.bfloat16, 0),
+    (8, 32, 130, torch.bfloat16, 0), (4, 128, 127, torch.bfloat16, 0),
+    (2, 256, 5, torch.bfloat16, 0), (4, 32, 5, torch.float32, 0),
+    (4, 64, 130, torch.bfloat16, 1), (16, 64, 5, torch.bfloat16, 2),
+    (2, 256, 127, torch.bfloat16, 4), (4, 32, 5, torch.float32, 1)])
+def test_kv_write_paged_kernel_is_bit_exact_on_card(KV, hd, W, dtype, misalign):
+    """The W = 1 write, a prefill tick's W = 128 and 512, a verify's W = 5,
+    ragged widths (127, 130), hd 32 to 256, float32, and strided head views
+    misaligned to units of 2, 4 and 8 bytes; starts a multiple of neither
+    bs nor W, a row with every position invalid and a table entry outside
+    the pool (kv_write.paged_write_inputs): the pools bit for bit with the
+    plain version outside the scratch block, in place."""
     _need_card()
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(1)
-    if W == 1:
-        pk, pv = (torch.randn(9, 2, 4, 64, generator=gen).to(torch.bfloat16).to(dev)
-                  for _ in range(2))
-        k, v = (torch.randn(3, 2, 5, 64, generator=gen).to(torch.bfloat16).to(dev)
-                for _ in range(2))
-        tables = torch.tensor([[3, 1, 2], [5, 4, 6], [7, 8, 0]], dtype=torch.int32, device=dev)
-        start = torch.tensor([2, 0, 6], dtype=torch.int32, device=dev)
-        valid = torch.ones(3, 5, dtype=torch.bool, device=dev)
-        valid[1] = False
-    else:
-        B, KV, bs, hd, nblk = 4, 4, 16, 64, 512 // 16 * 2
-        N = B * nblk + 1
-        pk, pv = (torch.randn(N, KV, bs, hd, generator=gen).to(torch.bfloat16).to(dev)
-                  for _ in range(2))
-        k, v = (torch.randn(B, KV, W, hd, generator=gen).to(torch.bfloat16).to(dev)
-                for _ in range(2))
-        tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
-        tables = tables.to(torch.int32).to(dev)
-        start = (torch.randint(0, nblk * bs // W, (B,), generator=gen) * W).to(torch.int32)
-        start = start.to(dev)
-        valid = (torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen))
-        valid = valid.to(dev)
-    want_k, want_v = kw.kv_write_paged_reference(pk.clone(), pv.clone(), k, v, tables, start,
-                                                 valid)
-    before = kw.PAGED_LAUNCHES
-    kw.kv_write_paged(pk, pv, k, v, tables, start, valid)
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(KV + hd + W + misalign)
+    x = kw.paged_write_inputs(4, KV, W, hd, -(-(W + 40) // 16), gen, dev, dtype=dtype,
+                              misalign=misalign)
+    unit = hd * x.pools[0].element_size() // kw.paged_write_lanes(*x.pools, x.k, x.v)
+    assert (unit == 16) == (misalign == 0)
+    want = kw.paged_write_expected(x)
+    ptrs, before = [t.data_ptr() for t in x.pools], kw.PAGED_LAUNCHES
+    kw.kv_write_paged(*x.pools, x.k, x.v, x.tables, x.start, x.valid)
     torch.cuda.synchronize()
-    assert kw.PAGED_LAUNCHES == before + 1
+    assert kw.PAGED_LAUNCHES == before + 1 and [t.data_ptr() for t in x.pools] == ptrs
     # block 0 takes several scratch writes to one row: only live blocks are exact
-    assert torch.equal(pk[1:], want_k[1:]) and torch.equal(pv[1:], want_v[1:])
+    assert all(torch.equal(a[1:], b[1:x.N]) for a, b in zip(x.pools, want))
 
 
 # -- sampling, the shared prefix and the speculative round ------------------------

@@ -560,32 +560,25 @@ def test_int8_paged_kernel_matches_plain_on_card(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("copy", [False, True], ids=["quantize", "copy"])
-@pytest.mark.parametrize("W", [1, 128, 512])
-def test_int8_kv_write_paged_kernel_is_bit_exact_on_card(W, copy):
-    """kv_write_paged's int8 variant: bf16 rows quantized in the launch, or
-    int8 rows with their scales copied, codes and scales bit for bit with
+@pytest.mark.parametrize("KV,hd,W", [(4, 64, 1), (4, 64, 128), (4, 64, 512), (16, 64, 5),
+                                     (4, 64, 127), (2, 128, 130), (8, 32, 130), (2, 256, 127),
+                                     (16, 256, 5), (2, 16, 128)])
+def test_int8_kv_write_paged_kernel_is_bit_exact_on_card(KV, hd, W, copy):
+    """kv_write_paged's int8 variant: bf16 head views quantized in the
+    launch, or int8 rows with their scales copied, at W = 1, 5, 127, 128,
+    130 and 512 and hd 16 to 256, with starts a multiple of neither bs nor
+    W, a row with every position invalid and a table entry outside the
+    pool (kv_write.paged_write_inputs): codes and scales bit for bit with
     the plain version outside the scratch block, in place."""
     _need_card()
-    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(W + copy)
-    B, KV, hd, nblk = 32, 4, 64, 64
-    N = B * nblk + 1
-    pools = [t for _ in range(2) for t in kw.int8_kv_rows((N, KV, 16, hd), gen, dev)]
-    tables = (torch.randperm(N - 1, generator=gen)[: B * nblk] + 1).reshape(B, nblk)
-    tables = tables.to(torch.int32).to(dev)
-    start = (torch.randint(0, nblk * 16 // W, (B,), generator=gen) * W).to(torch.int32).to(dev)
-    valid = (torch.arange(W)[None, :] < torch.randint(1, W + 1, (B, 1), generator=gen)).to(dev)
-    if copy:
-        (k, k_s), (v, v_s) = (kw.int8_kv_rows((B, KV, W, hd), gen, dev) for _ in range(2))
-    else:
-        k, v = (torch.randn(B, KV, W, hd, generator=gen).to(torch.bfloat16).to(dev)
-                for _ in range(2))
-        k_s = v_s = None
-    ref = [t.clone() for t in pools]
-    kw.kv_write_paged_reference(ref[0], ref[2], k, v, tables, start, valid, (ref[1], ref[3]),
-                                k_s, v_s)
-    before = kw.PAGED_I8_LAUNCHES
-    kw.kv_write_paged(pools[0], pools[2], k, v, tables, start, valid, (pools[1], pools[3]), k_s,
-                      v_s)
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(KV + hd + W + copy)
+    x = kw.paged_write_inputs(32, KV, W, hd, -(-(W + 40) // 16), gen, dev, int8=True,
+                              copy=copy)
+    want = kw.paged_write_expected(x)
+    pools = x.pools + x.planes
+    ptrs, before = [t.data_ptr() for t in pools], kw.PAGED_I8_LAUNCHES
+    kw.kv_write_paged(*x.pools, x.k, x.v, x.tables, x.start, x.valid, tuple(x.planes), x.k_s,
+                      x.v_s)
     torch.cuda.synchronize()
-    assert kw.PAGED_I8_LAUNCHES == before + 1
-    assert all(torch.equal(a[1:], b[1:]) for a, b in zip(pools, ref))
+    assert kw.PAGED_I8_LAUNCHES == before + 1 and [t.data_ptr() for t in pools] == ptrs
+    assert all(torch.equal(a[1:], b[1:x.N]) for a, b in zip(pools, want))
