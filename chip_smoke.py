@@ -13,7 +13,9 @@ float32 speculative example; the int8 generator example and the flagship
 at int8 weights and K/V on both lanes, and the quantized MNIST; the iris, mean_transformer, gbm,
 outlier_pipeline and epsilon_greedy examples, the last with feedback; the
 ensemble4 example fused, compiled and in host mode with one node served by
-the unit microservice, partial fusion, quorum and fallback),
+the unit microservice, partial fusion, quorum and fallback; the MNIST
+example over the binary tensor wire, gRPC, a unix socket and the relay,
+and ensemble4 with a gRPC microservice and a unix: host),
 trains the flagship LM a few steps and serves its checkpoint, checks the
 answers, shows that each run went through its kernels, and times each
 kernel beside its plain version, a PyTorch library call and its bound.
@@ -247,6 +249,26 @@ it serves the static lane it measured before that lane's switch:
               decode shapes and one prefill shape; the static lane's
               long-context decode tokens/s (B=32, S=4096, 64 new) with int8
               against bf16 K/V in turns; a profiled int8 decode step
+ 10n. wire-grpc  examples/mnist_deployment.json behind one engine with its
+              REST lane, gRPC (serve_grpc_fast), its HTTP routes on a unix
+              socket and the relay: the same 1-row and 64-row X (seed 0),
+              each request alone, over JSON, the binary wire at float32,
+              float64 and int8 with its scale plane, gRPC's tensor and
+              object (ndarray) lanes, the HTTP socket and the relay: every
+              answer the JSON answer's float64 values bit for bit (int8:
+              within MNIST_ATOL, its rows within half a step of X), names,
+              puid and status alike, one dispatch and one fused-MLP launch a
+              request; a MULTI frame with a torn slot (its own 400 frame);
+              typed 400/413 (the connection serving on), 415 with
+              SELDON_TPU_WIRE=0, UNIMPLEMENTED, a malformed gRPC body's
+              FAILURE message; ensemble4 with m3 behind `microservice
+              MnistClassifier GRPC` (a subprocess) and behind a second
+              engine's ENGINE_HTTP_UDS_PATH (a unix: host) within HOST_ATOL
+              of fused, the remote launches counted in their processes; the
+              microservice stopped, a quorum-3 ensemble degrading until m3's
+              breaker opens; p50s over 200 keepalive requests a lane in turns
+              (JSON, wire, gRPC at 1 and 64 rows; gRPC- against REST-remote
+              ensemble4); a {"new_paths": {"wire_grpc": ...}} line
  11. flash-bwd the dQ and dK/dV kernels vs flash_attention_bwd_reference,
               dq/dk/dv, causal and not, at seven shapes (the training layer
               among them, a group of 8, and S=192: a ragged last 128-row
@@ -269,7 +291,7 @@ it serves the static lane it measured before that lane's switch:
               eight kernels, the float32 path of flash_decode_paged in a
               row of its own and the three int8 variants in rows of their
               own, each row's launches those of every served path (phases 4
-              and 8-10l), with a breakdown by path
+              and 8-10n), with a breakdown by path
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -5138,6 +5160,560 @@ def int8_build_checks(torch, fd) -> None:
         f"heads), blocks of 12 refused")
 
 
+# -- 10n. the binary wire and gRPC ---------------------------------------
+
+WIRE_P50_REQUESTS = 100   # keepalive requests a lane a turn; two turns (ABBA): 200 each
+# sockets under /tmp, short: sun_path holds 108 bytes
+WIRE_HTTP_UDS = "/tmp/sct_http_%d.sock"
+WIRE_RELAY_UDS = "/tmp/sct_relay_%d.sock"
+WIRE_M3_UDS = "/tmp/sct_m3_%d.sock"
+WIRE_LANES = ("json", "wire_f32", "wire_f64", "wire_i8", "grpc_tensor", "grpc_ndarray",
+              "http_uds", "relay")
+GRPC_PREDICT = b"/seldon.protos.Seldon/Predict"
+
+
+class UnixHTTPConnection(http.client.HTTPConnection):
+    """http.client over a unix socket (the engine's HTTP routes there)."""
+
+    def __init__(self, path: str, timeout: float = 120):
+        super().__init__("localhost", timeout=timeout)
+        self.unix_path = path
+
+    def connect(self):
+        import socket
+
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        sock.settimeout(self.timeout)
+        sock.connect(self.unix_path)
+        self.sock = sock
+
+
+class LanesThread:
+    """One engine's lanes on their own event loop and thread: REST (and its
+    routes on a unix socket), gRPC (``serve_grpc_fast``) and the relay
+    (``serve_uds``)."""
+
+    def __init__(self, engine, http_uds: str, relay_uds: str):
+        self.engine, self.http_uds, self.relay_uds = engine, http_uds, relay_uds
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.servers = []
+
+    def start(self):
+        from seldon_core_tpu_torch.runtime.grpcfast import serve_grpc_fast
+        from seldon_core_tpu_torch.runtime.rest import serve_fast
+        from seldon_core_tpu_torch.runtime.udsrelay import serve_uds
+
+        self.thread.start()
+
+        async def up():
+            rest = await serve_fast(self.engine, "127.0.0.1", 0, uds_path=self.http_uds)
+            grpc = await serve_grpc_fast(self.engine, "127.0.0.1", 0)
+            relay = await serve_uds(self.engine, self.relay_uds)
+            return [rest, grpc, relay]
+
+        self.servers = asyncio.run_coroutine_threadsafe(up(), self.loop).result(60)
+        return self.servers[0].port, self.servers[1].port
+
+    def stop(self):
+        for srv in self.servers:
+            asyncio.run_coroutine_threadsafe(srv.stop(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+
+
+class LaneClients:
+    """Keepalive clients of every lane of one engine, driven from this
+    thread: HTTP over TCP and over the unix socket, a ``FastGrpcChannel``
+    and a relay client on a client loop of their own."""
+
+    def __init__(self, rest_port: int, grpc_port: int, http_uds: str, relay_uds: str):
+        from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel
+        from seldon_core_tpu_torch.runtime.udsrelay import UdsRelayClient
+
+        self.http = http.client.HTTPConnection("127.0.0.1", rest_port, timeout=120)
+        self.uds = UnixHTTPConnection(http_uds)
+        self.loop = asyncio.new_event_loop()
+        self.grpc = self.loop.run_until_complete(
+            FastGrpcChannel().connect("127.0.0.1", grpc_port))
+        self.relay = UdsRelayClient(relay_uds, pool=1)
+
+    def post(self, body: bytes, ctype: str, conn=None, path="/api/v0.1/predictions"):
+        conn = conn or self.http
+        conn.request("POST", path, body, {"Content-Type": ctype})
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type", ""), r.read()
+
+    def grpc_call(self, body: bytes, path: bytes = GRPC_PREDICT) -> bytes:
+        return self.loop.run_until_complete(self.grpc.call(path, body))
+
+    def relay_call(self, op: int, body: bytes):
+        return self.loop.run_until_complete(self.relay.call(op, body))
+
+    def close(self):
+        self.http.close()
+        self.uds.close()
+        self.loop.run_until_complete(self.grpc.close())
+        self.loop.run_until_complete(self.relay.close())
+        self.loop.close()
+
+
+def lane_request(cl: LaneClients, lane: str, x: np.ndarray, puid: str):
+    """``x`` over ``lane``: (probabilities as float64, puid, names, status
+    200/SUCCESS) of the answer."""
+    from seldon_core_tpu_torch import protoconv
+    from seldon_core_tpu_torch.messages import Meta, SeldonMessage
+    from seldon_core_tpu_torch.runtime import udsrelay, wire
+
+    def frame_answer(status, raw):
+        f = wire.decode_frame(raw)
+        return (np.asarray(f.values(), dtype=np.float64), f.meta.get("puid"),
+                f.extra().get("names"), status == 200 and f.status == 200 and f.is_response)
+
+    def json_answer(status, raw):
+        doc = json.loads(raw)
+        data = doc["data"]
+        y = (np.asarray(data["ndarray"], dtype=np.float64) if "ndarray" in data else
+             np.asarray(data["tensor"]["values"], dtype=np.float64).reshape(
+                 data["tensor"]["shape"]))
+        return y, doc["meta"].get("puid"), data.get("names"), (
+            status == 200 and doc.get("status", {}).get("status", "SUCCESS") == "SUCCESS")
+
+    meta = wire.pack_wire_meta(puid=puid)
+    json_body = json.dumps({"data": {"tensor": {"shape": list(x.shape),
+                                                "values": x.ravel().tolist()}},
+                            "meta": {"puid": puid}}).encode()
+    if lane in ("json", "http_uds"):
+        st, _, raw = cl.post(json_body, "application/json",
+                             conn=cl.uds if lane == "http_uds" else None)
+        return json_answer(st, raw)
+    if lane in ("wire_f32", "wire_f64"):
+        a = x.astype(np.float32 if lane == "wire_f32" else np.float64)
+        st, ct, raw = cl.post(wire.join_parts(wire.encode_frame(a, meta_bytes=meta)),
+                              wire.WIRE_CONTENT_TYPE)
+        if ct != wire.WIRE_CONTENT_TYPE:
+            raise AssertionError(f"[wire] {lane}: HTTP {st} {ct}: {raw[:300]!r}")
+        return frame_answer(st, raw)
+    if lane == "wire_i8":
+        q, scales = wire.quantize_rows(x)
+        body = wire.join_parts(wire.encode_frame(q, meta_bytes=meta, scales=scales))
+        deq = wire.decode_frame(body).rows()
+        step = float((np.abs(deq - x) / scales[:, None]).max())
+        if step > 0.5 + 1e-6:
+            raise AssertionError(f"[wire] the int8 frame's rows are {step:.4f} steps from X")
+        st, ct, raw = cl.post(body, wire.WIRE_CONTENT_TYPE)
+        return frame_answer(st, raw)
+    if lane in ("grpc_tensor", "grpc_ndarray"):
+        kind = "tensor" if lane == "grpc_tensor" else "ndarray"
+        resp = protoconv.msg_from_proto(cl.grpc_call(protoconv.msg_to_proto(
+            SeldonMessage.from_array(x, kind=kind, meta=Meta(puid=puid)))))
+        ok = resp.status is not None and resp.status.status == "SUCCESS" \
+            and resp.status.code == 200 and resp.data is not None and resp.data.kind == kind
+        return (np.asarray(resp.array(), dtype=np.float64), resp.meta.puid,
+                resp.data.names if resp.data is not None else None, ok)
+    if lane == "relay":
+        raw, st = cl.relay_call(udsrelay.OP_WIRE, wire.join_parts(
+            wire.encode_frame(x, meta_bytes=meta)))
+        return frame_answer(st, raw)
+    raise ValueError(lane)
+
+
+def lane_walls(cl: LaneClients, lane: str, x: np.ndarray, runs: int) -> list:
+    """Walls (s) of ``runs`` requests of ``x`` over ``lane`` (JSON, the
+    float64 wire or gRPC's tensor lane) on its keepalive connection, each
+    request's bytes made beforehand and its answer read whole."""
+    from seldon_core_tpu_torch import protoconv
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime import wire
+
+    if lane == "grpc":
+        body = protoconv.msg_to_proto(SeldonMessage.from_array(x))
+    elif lane == "wire":
+        body, ctype = wire.join_parts(wire.encode_frame(x)), wire.WIRE_CONTENT_TYPE
+    else:
+        body, ctype = json.dumps(ndarray(x)).encode(), "application/json"
+    walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        if lane == "grpc":
+            cl.grpc_call(body)
+        else:
+            st, _, _ = cl.post(body, ctype)
+            if st != 200:
+                raise AssertionError(f"[wire] {lane} latency loop: HTTP {st}")
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def start_service(argv: list, env: dict, ready: str, timeout: float = 300):
+    """A subprocess of this package with its stdout piped; returns it once
+    its first line starts with ``ready``."""
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                            env={**os.environ, **env}, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    start = time.perf_counter()
+    while True:
+        line = proc.stdout.readline()
+        if line.startswith(ready):
+            return proc, line.strip()
+        if not line or time.perf_counter() - start > timeout:
+            proc.kill()
+            out = line + proc.stdout.read()
+            raise AssertionError(f"[wire] {' '.join(argv[:3])} did not come up: {out[-1500:]}")
+
+
+def stop_service(proc, timeout: float = 60) -> str:
+    """SIGTERM, then the rest of its output."""
+    if proc.poll() is None:
+        proc.send_signal(subprocess.signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wire_grpc_phase(torch, dev, smi) -> dict:
+    """10n. The binary tensor wire, gRPC and the unix sockets ([3]).
+    examples/mnist_deployment.json (bf16, seed 0) behind one engine with
+    its REST lane, gRPC (``serve_grpc_fast``), its HTTP routes on a unix
+    socket and the relay: the same 1-row and 64-row X (numpy, seed 0), each
+    request alone and in turn, over JSON, the binary wire at float32,
+    float64 and int8 with its scale plane, gRPC's tensor lane and its
+    object lane (an ndarray request), the HTTP socket and the relay; every
+    answer the JSON answer's float64 values exactly (int8: its rows within
+    half a quantization step of X, its answer within MNIST_ATOL), the JSON
+    answer within MNIST_ATOL of the plain version on the CPU, names, the
+    puid echo and the status agreeing; one fused-MLP launch a request on
+    every lane.  A MULTI frame of 8 sub-frames, one torn: 7 answers and
+    the torn slot's own 400 frame.  Typed errors: a torn frame 400, a
+    declared shape beyond the cap 413 (the connection serving on), 415
+    with SELDON_TPU_WIRE=0, UNIMPLEMENTED for an unknown gRPC path, a
+    FAILURE SeldonMessage for a malformed gRPC body.  ensemble4 in host
+    mode with m3 behind a gRPC microservice subprocess
+    (``microservice MnistClassifier GRPC`` on the card), then behind a
+    second engine's ``ENGINE_HTTP_UDS_PATH`` socket (a ``unix:`` host):
+    within HOST_ATOL of fused, the remote launches counted in the remote
+    process; with the microservice stopped, a quorum-3 ensemble degrades
+    until m3's breaker opens.  p50s over 200 keepalive requests a lane in
+    turns (JSON, wire, gRPC at 1 and 64 rows; gRPC-remote against
+    REST-remote ensemble4 at 1 row)."""
+    from seldon_core_tpu_torch import protoconv
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.models.mnist import MnistClassifier
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime import wire
+    from seldon_core_tpu_torch.runtime.grpcfast import GrpcCallError
+
+    t_phase = time.perf_counter()
+    counted = dev.type == "cuda"  # the plain version on the CPU counts nothing
+    pid = os.getpid()
+    out = {"launches": {}}
+    engine = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    dispatches = [0]
+    _count_calls(engine.compiled, "predict_arrays", dispatches)
+    lanes = LanesThread(engine, WIRE_HTTP_UDS % pid, WIRE_RELAY_UDS % pid)
+    rest_port, grpc_port = lanes.start()
+    cl = LaneClients(rest_port, grpc_port, WIRE_HTTP_UDS % pid, WIRE_RELAY_UDS % pid)
+    rng = np.random.default_rng(SEED)
+    xs = {1: rng.random((1, 784)), 64: rng.random((64, 784))}
+    try:
+        # -- one request, every transport ------------------------------------
+        answers = {}
+        launches = {lane: 0 for lane in WIRE_LANES}
+        for n, x in xs.items():
+            for lane in WIRE_LANES:
+                puid = f"{lane}-{n}"
+                fused_mlp.LAUNCHES = 0
+                dispatches[0] = 0
+                y, echo, names, ok = lane_request(cl, lane, x, puid)
+                got = fused_mlp.LAUNCHES
+                if (not ok or echo != puid or y.shape != (n, 10) or not np.isfinite(y).all()
+                        or dispatches[0] != 1 or (counted and got != 1)):
+                    raise AssertionError(f"[wire] {lane} at {n} rows: status ok {ok}, puid "
+                                         f"{echo!r}, shape {y.shape}, {dispatches[0]} "
+                                         f"dispatches, {got} launches")
+                launches[lane] += got
+                answers[lane, n] = (y, names)
+        want_names = answers["json", 1][1]
+        plain = {}
+        state = {k: v.cpu() for k, v in engine.states()["mnist"].items()}
+        for n, x in xs.items():
+            yj = answers["json", n][0]
+            plain[n] = float(np.abs(yj - fused_mlp.fused_mlp_softmax_reference(
+                state, torch.as_tensor(x, dtype=torch.float32)).numpy()).max())
+            for lane in WIRE_LANES:
+                y, names = answers[lane, n]
+                same = (np.abs(y - yj).max() <= MNIST_ATOL if lane == "wire_i8"
+                        else np.array_equal(y, yj))
+                if not same or names != want_names:
+                    raise AssertionError(f"[wire] {lane} at {n} rows vs JSON: "
+                                         f"{float(np.abs(y - yj).max()):.3e}, names {names}")
+        i8_err = max(float(np.abs(answers["wire_i8", n][0] - answers["json", n][0]).max())
+                     for n in xs)
+        if max(plain.values()) > MNIST_ATOL or not want_names:
+            raise AssertionError(f"[wire] JSON vs the plain version on the CPU {plain}")
+        out.update(json_vs_plain_cpu=plain, int8_vs_json=i8_err,
+                   launches_by_lane=launches)
+        out["launches"]["lanes"] = sum(launches.values())
+        log(f"[wire] 1 and 64 rows over {', '.join(WIRE_LANES)}: every answer the JSON "
+            f"answer's float64 values bit for bit (int8 with its scale plane within "
+            f"{i8_err:.3e}, its rows within half a step of X), names and puid echoed, status "
+            f"200; JSON vs the plain version on the CPU {max(plain.values()):.3e} "
+            f"(tolerance {MNIST_ATOL}); one dispatch and one fused-MLP launch a request: "
+            f"{sum(launches.values())} launches")
+
+        # -- a MULTI frame, one slot torn --------------------------------------
+        subs = []
+        for i in range(8):
+            f = wire.join_parts(wire.encode_frame(
+                xs[64][i:i + 1], meta_bytes=wire.pack_wire_meta(puid=f"m{i}")))
+            subs.append(f[:-8] if i == 5 else f)
+        fused_mlp.LAUNCHES = 0
+        st, ct, raw = cl.post(wire.join_parts(wire.encode_multi(subs)), wire.WIRE_CONTENT_TYPE)
+        n_multi = fused_mlp.LAUNCHES
+        multi = wire.decode_frame(raw)
+        slots = [wire.decode_frame(s) for s in multi.subframes]
+        good = [i for i in range(8) if i != 5]
+        errs = [float(np.abs(np.asarray(slots[i].values(), np.float64)
+                             - answers["json", 64][0][i]).max()) for i in good]
+        if (st != 200 or not multi.is_multi or len(slots) != 8 or slots[5].status != 400
+                or "payload" not in slots[5].extra().get("error", "")
+                or any(slots[i].status != 200 or slots[i].meta["puid"] != f"m{i}" for i in good)
+                or max(errs) > KERNEL_ATOL or (counted and not 1 <= n_multi <= 7)):
+            raise AssertionError(f"[wire] MULTI: HTTP {st}, statuses "
+                                 f"{[s.status for s in slots]}, vs JSON {errs}, {n_multi} "
+                                 f"launches")
+        out["launches"]["multi"] = n_multi
+        log(f"[wire] a MULTI frame of 8 one-row sub-frames, slot 5 torn: 7 answers within "
+            f"{max(errs):.3e} of the 64-row JSON answer's rows (the batcher merged them: "
+            f"{n_multi} launches), slot 5 its own 400 frame "
+            f"({slots[5].extra()['error'][:60]!r})")
+
+        # -- typed errors --------------------------------------------------------
+        good_body = wire.join_parts(wire.encode_frame(xs[1]))
+        torn = good_body[:-3]
+        big = bytearray(wire.join_parts(wire.encode_frame(np.zeros((1, 4)))))
+        big[14:22] = (70000).to_bytes(4, "big") + (70000).to_bytes(4, "big")  # f64 70000x70000
+        typed = [cl.post(b, wire.WIRE_CONTENT_TYPE)[0] for b in (torn, bytes(big), good_body)]
+        os.environ["SELDON_TPU_WIRE"] = "0"
+        try:
+            off = cl.post(good_body, wire.WIRE_CONTENT_TYPE)
+        finally:
+            del os.environ["SELDON_TPU_WIRE"]
+        try:
+            cl.grpc_call(protoconv.msg_to_proto(SeldonMessage.from_array(xs[1])),
+                         b"/seldon.protos.Nope/X")
+            unimplemented = None
+        except GrpcCallError as e:
+            unimplemented = e.code_name
+        bad = protoconv.msg_from_proto(cl.grpc_call(b"\xff\xff\xff\xffgarbage"))
+        if (typed != [400, 413, 200] or off[0] != 415 or unimplemented != "UNIMPLEMENTED"
+                or bad.status is None or bad.status.status != "FAILURE" or bad.status.code != 400):
+            raise AssertionError(f"[wire] typed errors: torn/oversized/then good {typed}, "
+                                 f"SELDON_TPU_WIRE=0 {off[0]}, unknown gRPC path "
+                                 f"{unimplemented}, malformed gRPC body {bad.status}")
+        log(f"[wire] typed errors: a torn frame 400, a declared 70000x70000 float64 413, the "
+            f"same keepalive connection then 200; SELDON_TPU_WIRE=0 415; an unknown gRPC path "
+            f"UNIMPLEMENTED; a malformed gRPC body the FAILURE message {bad.status.info[:50]!r}")
+
+        # -- p50s in turns: JSON, wire, gRPC at 1 and 64 rows ----------------------
+        walls = {(lane, n): [] for lane in ("json", "wire", "grpc") for n in xs}
+        for lane in ("json", "wire", "grpc", "grpc", "wire", "json"):
+            for n, x in xs.items():
+                walls[lane, n] += lane_walls(cl, lane, x, WIRE_P50_REQUESTS)
+        p50 = {f"{lane}_{n}": float(np.median(w)) * 1e3 for (lane, n), w in walls.items()}
+        out.update(p50_ms=p50, quartiles_ms={f"{lane}_{n}": quartiles_ms(w)
+                                             for (lane, n), w in walls.items()})
+        log(f"[times] MNIST p50 over {2 * WIRE_P50_REQUESTS} keepalive requests a lane, in "
+            f"turns: 1 row JSON {p50['json_1']:.3f} ms, wire {p50['wire_1']:.3f}, gRPC "
+            f"{p50['grpc_1']:.3f}; 64 rows JSON {p50['json_64']:.3f} ms, wire "
+            f"{p50['wire_64']:.3f}, gRPC {p50['grpc_64']:.3f}; on {smi}")
+    finally:
+        cl.close()
+        lanes.stop()
+        engine.close()
+    if any(os.path.exists(p % pid) for p in (WIRE_HTTP_UDS, WIRE_RELAY_UDS)):
+        raise AssertionError("[wire] a unix socket file outlived its server")
+
+    # -- ensemble4 across processes: gRPC, then a unix: host -------------------
+    doc = example_doc("ensemble4")
+    seed3 = json.dumps([p.to_json_dict() for p in _seed3()])
+    grpc_port, rest_port = free_port(), free_port()
+    m3_uds = WIRE_M3_UDS % pid
+    m3_doc = {"spec": {"name": "m3", "predictors": [{
+        "name": "main", "components": [c for c in doc["spec"]["predictors"][0]["components"]
+                                       if c["name"] == "m3"],
+        "graph": {"name": "m3", "type": "MODEL"}}]}}
+    m3_file = Path(f"/tmp/sct_m3_{pid}.json")
+    m3_file.write_text(json.dumps(m3_doc))
+    # the three remote processes start at once; any that came up is stopped
+    # if another did not
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(start_service, *a) for a in [
+            (["seldon_core_tpu_torch.runtime.microservice", "MnistClassifier", "GRPC",
+              "--port", str(grpc_port), "--parameters", seed3, "--device", dev.type], {},
+              "unit up:"),
+            (["seldon_core_tpu_torch.runtime.microservice", "MnistClassifier", "REST",
+              "--port", str(rest_port), "--parameters", seed3, "--device", dev.type], {},
+              "unit up:"),
+            (["seldon_core_tpu_torch.runtime.engine_main", "--file", str(m3_file), "--device",
+              dev.type, "--host", "127.0.0.1", "--rest-port", str(free_port())],
+             {"ENGINE_SERVER_GRPC_PORT": str(free_port()), "ENGINE_HTTP_UDS_PATH": m3_uds},
+             "engine up:")]]
+    errors = [f.exception() for f in futs]
+    if any(errors):
+        for f, e in zip(futs, errors):
+            if e is None:
+                stop_service(f.result()[0])
+        m3_file.unlink()
+        raise next(e for e in errors if e is not None)
+    (grpc_ms, _), (rest_ms, _), (m3_engine, m3_line) = [f.result() for f in futs]
+    if f"http-uds={m3_uds}" not in m3_line or "grpc=:" not in m3_line:
+        raise AssertionError(f"[wire] the unix engine's line: {m3_line}")
+
+    def remote_doc(binding, quorum=None):
+        d = json.loads(json.dumps(doc))
+        comps = d["spec"]["predictors"][0]["components"]
+        comps[[c["name"] for c in comps].index("m3")] = {"name": "m3", **binding}
+        if quorum is not None:
+            d["spec"]["predictors"][0]["graph"]["quorum"] = quorum
+        return d
+
+    fused, engines, servers = None, {}, {}
+    try:
+        fused = mode_engine(torch, dev, doc, continuous=False)
+        engines["unix"] = mode_engine(torch, dev, remote_doc(
+            {"runtime": "rest", "host": f"unix:{m3_uds}"}), continuous=False)
+        engines["grpc"] = mode_engine(torch, dev, remote_doc(
+            {"runtime": "grpc", "host": "127.0.0.1", "port": grpc_port}), continuous=False)
+        engines["rest"] = mode_engine(torch, dev, remote_doc(
+            {"runtime": "rest", "host": "127.0.0.1", "port": rest_port}), continuous=False)
+        engines["grpc_quorum"] = mode_engine(torch, dev, remote_doc(
+            {"runtime": "grpc", "host": "127.0.0.1", "port": grpc_port}, quorum=3),
+            continuous=False)
+        servers = {name: ServerThread(e) for name, e in engines.items()}
+        ports = {name: srv.start() for name, srv in servers.items()}
+        x1, x64 = xs[1], xs[64]
+        if any(e.mode != "host" for e in engines.values()) or fused.mode != "fused":
+            raise AssertionError(f"[wire] modes: fused {fused.mode}, "
+                                 f"{ {k: e.mode for k, e in engines.items()} }")
+        want_unix = np.concatenate([json_rows(asyncio.run(fused.predict_json(json.dumps(
+            ndarray(x))))[0]) for x in (x1, x64)])
+        # the microservices' m3: MnistClassifier(seed 3) built alone (no graph seed)
+        ms_unit = MnistClassifier(seed=3, device=dev)
+        fused.load_states({"m3": ms_unit.init_state(None)})
+        want_ms = np.concatenate([json_rows(asyncio.run(fused.predict_json(json.dumps(
+            ndarray(x))))[0]) for x in (x1, x64)])
+        if np.array_equal(want_unix, want_ms):
+            raise AssertionError("[wire] the two m3 weight sets are not distinct")
+
+        def served(name):
+            url = f"http://127.0.0.1:{ports[name]}/api/v0.1/predictions"
+            return np.concatenate([check_answer(*request("POST", url, ndarray(x)), len(x),
+                                                "ndarray") for x in (x1, x64)])
+
+        before_unix = remote_launches_uds(m3_uds)
+        fused_mlp.LAUNCHES = 0
+        got = {"unix": served("unix"), "grpc": served("grpc")}
+        local = fused_mlp.LAUNCHES
+        unix_remote = remote_launches_uds(m3_uds) - before_unix
+        errs = {"unix": float(np.abs(got["unix"] - want_unix).max()),
+                "grpc": float(np.abs(got["grpc"] - want_ms).max())}
+        if max(errs.values()) > HOST_ATOL or (counted and (local != 3 * 4 or unix_remote != 2)):
+            raise AssertionError(f"[wire] ensemble4 remote m3 vs fused {errs} (bound "
+                                 f"{HOST_ATOL}); {local} launches in this process, "
+                                 f"{unix_remote} in the unix engine")
+        # the 1-row p50s of the gRPC-remote and the REST-remote graph, in turns
+        walls = {"grpc": [], "rest": []}
+        for name in ("grpc", "rest", "rest", "grpc"):
+            walls[name] += keepalive_walls(ports[name], ndarray(x1), WIRE_P50_REQUESTS)
+        rest_err = float(np.abs(served("rest") - want_ms).max())
+        remote_p50 = {k: float(np.median(w)) * 1e3 for k, w in walls.items()}
+        grpc_remote_calls = 2 + len(walls["grpc"])
+        grpc_ms_out = stop_service(grpc_ms)
+        ms_launches = int(grpc_ms_out.split("fused_mlp_softmax launches: ")[1].split(")")[0])
+        # the probe at the unit's construction is its first launch
+        if rest_err > HOST_ATOL or (counted and ms_launches != 1 + grpc_remote_calls):
+            raise AssertionError(f"[wire] the REST-remote graph vs fused {rest_err:.3e}; the "
+                                 f"gRPC microservice launched {ms_launches} times for "
+                                 f"{grpc_remote_calls} calls: {grpc_ms_out[-300:]}")
+        # m3 stopped: the quorum-3 ensemble degrades until the breaker opens
+        url_q = f"http://127.0.0.1:{ports['grpc_quorum']}/api/v0.1/predictions"
+        degraded = 0
+        while engines["grpc_quorum"].open_breakers() != ["m3"]:
+            degraded += 1
+            if degraded > HOST_BREAKER_TRIES:
+                raise AssertionError(f"[wire] m3's breaker did not open in "
+                                     f"{HOST_BREAKER_TRIES} degraded requests")
+            st, raw = request("POST", url_q, ndarray(x1))
+            check_answer(st, raw, 1, "ndarray")
+            if json.loads(raw)["meta"].get("tags") != {"seldon.degraded.ensemble": ["m3"]}:
+                raise AssertionError(f"[wire] degraded answer's meta {json.loads(raw)['meta']}")
+        ready = request("GET", f"http://127.0.0.1:{ports['grpc_quorum']}/ready")
+        if ready != (200, b"ready (breakers open: m3)"):
+            raise AssertionError(f"[wire] /ready after the stop: {ready}")
+        out.update(remote_vs_fused=errs, rest_remote_vs_fused=rest_err,
+                   remote_p50_ms=remote_p50, degraded_requests_until_open=degraded,
+                   remote_launches={"grpc_microservice": ms_launches - 1,
+                                    "unix_engine": unix_remote})
+        out["launches"]["ensemble4"] = local
+        log(f"[wire] ensemble4 with m3 behind `microservice MnistClassifier GRPC` (a subprocess "
+            f"on {dev.type}) and behind a second engine's ENGINE_HTTP_UDS_PATH (unix:{m3_uds}): "
+            f"within {errs['grpc']:.3e} and {errs['unix']:.3e} of fused (bound {HOST_ATOL}); "
+            f"{local} launches here (3 a request), {unix_remote} in the unix engine, "
+            f"{ms_launches - 1} in the gRPC microservice for its {grpc_remote_calls} calls "
+            f"(its probe aside); after the microservice stopped, a quorum-3 ensemble answered "
+            f"{degraded} degraded requests tagged seldon.degraded.ensemble=['m3'] until m3's "
+            f"breaker opened, /ready {ready[1].decode()!r}")
+        log(f"[times] ensemble4 1-row p50 over {2 * WIRE_P50_REQUESTS} keepalive requests each, "
+            f"in turns: m3 over gRPC {remote_p50['grpc']:.3f} ms, over REST (the binary wire) "
+            f"{remote_p50['rest']:.3f} ms; on {smi}")
+    finally:
+        for srv in servers.values():
+            srv.stop(close_engine=False)
+        for e in (fused, *engines.values()):
+            if e is not None:
+                e.close()
+        for proc in (grpc_ms, rest_ms, m3_engine):
+            stop_service(proc)
+        m3_file.unlink()
+    out["card"] = smi
+    log(f"[wire] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def json_rows(text: str) -> np.ndarray:
+    """The rows of a JSON answer, ndarray or tensor, as float64."""
+    data = json.loads(text)["data"]
+    if "ndarray" in data:
+        return np.asarray(data["ndarray"], dtype=np.float64)
+    return np.asarray(data["tensor"]["values"], dtype=np.float64).reshape(
+        data["tensor"]["shape"])
+
+
+def remote_launches_uds(path: str) -> int:
+    """fused_mlp_softmax's launches in the engine behind the unix socket
+    ``path`` (its /stats)."""
+    conn = UnixHTTPConnection(path)
+    try:
+        conn.request("GET", "/stats")
+        doc = json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+    return int(doc["kernels"]["fused_mlp_softmax"]["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -5235,6 +5811,8 @@ def main() -> int:
     log(json.dumps({"new_paths": {"speculative_example": spec_ex, "families": families,
                                   "router": router, "host_graphs": host_graphs, "card": smi}}))
     int8_rows = int8_phases(torch, dev, smi)
+    wire_grpc = wire_grpc_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"wire_grpc": wire_grpc}}))
     # the f32 example's verifies and prefill ticks write through kv_write_paged
     kv_paged_row["launches_by_path"]["speculative example (float32)"] = \
         spec_ex["launches"]["kv_write_paged"]
@@ -5246,7 +5824,9 @@ def main() -> int:
         "epsilon_greedy": sum(router["fused_mlp_launches_by_branch"]),
         # ensemble4 fused, compiled and host (engine and microservice), the
         # partial-fusion graph up and degraded, and the fallback router
-        "host_graphs": sum(host_graphs["launches"].values())}
+        "host_graphs": sum(host_graphs["launches"].values()),
+        # every lane of 10n, its MULTI frame and ensemble4 with a remote m3
+        "wire_grpc": sum(wire_grpc["launches"].values())}
     mlp_row["launches"] = sum(mlp_row["launches_by_path"].values())
     top = spec_ex["times"][0]
     f32_row = {

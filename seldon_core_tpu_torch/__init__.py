@@ -8,13 +8,16 @@ imports nothing of it and nothing of JAX.
 Layout (mirrors the JAX package so each counterpart is easy to find):
   device          ``resolve_device``: CUDA by default, CPU only on request
   messages        SeldonMessage / Meta / Status / DefaultData codecs
+  protoconv       the same messages as protobuf bytes (a stdlib codec)
   convert         weights carried across from the JAX package's states
+  native/         the protobuf tensor scan and HPACK of the gRPC lane
   graph/          spec, defaulting, units, interpreter helpers, the
                   eager compiled-graph executor
   models/         model families (MnistClassifier)
   ops/            hand-written Hopper kernels with their plain versions
-  runtime/        micro-batcher, engine service, asyncio REST lane,
-                  engine entry point
+  runtime/        micro-batcher, engine service, the REST lane, the binary
+                  tensor wire, gRPC, the unix-socket relay, remote-node
+                  clients, the unit microservice, the engine entry point
 """
 
 __version__ = "0.1.0"

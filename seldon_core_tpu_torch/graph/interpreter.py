@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import asyncio
 import threading
+import warnings
 import zlib
 from concurrent.futures import Executor
 from typing import Any, Dict, Iterable, List, Optional
@@ -150,9 +151,21 @@ def to_device(state, device: torch.device):
 def as_input(X, device: torch.device) -> torch.Tensor:
     """Rows (numpy or a tensor) -> a tensor on the device.  float64 from the
     JSON codec becomes float32 and int64 int32, as ``jnp.asarray`` does with
-    64-bit mode off in the JAX package."""
+    64-bit mode off in the JAX package.  A read-only array (a binary frame's
+    view over its request bytes) is never written through: on the CPU it
+    is copied, on a card the tensor over it lives only until its
+    host-to-device copy (synchronous from pageable memory) has read it."""
     if not isinstance(X, torch.Tensor):
-        X = torch.from_numpy(np.ascontiguousarray(X))
+        X = np.ascontiguousarray(X)
+        if not X.flags.writeable:
+            if device.type == "cpu":
+                X = X.copy()
+            else:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)  # "not writable"
+                    view = torch.from_numpy(X)
+                return as_input(view.to(device), device)
+        X = torch.from_numpy(X)
     if X.dtype == torch.float64:
         X = X.float()
     elif X.dtype == torch.int64:

@@ -1,2 +1,3 @@
-"""Serving runtime: micro-batcher, engine service, asyncio REST lane and the
-engine entry point."""
+"""Serving runtime: micro-batcher, engine service, the REST lane (JSON and
+the binary tensor wire), gRPC, the unix-socket relay, remote-node clients,
+the unit microservice and the engine entry point."""

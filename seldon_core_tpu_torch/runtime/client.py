@@ -1,17 +1,25 @@
 """Remote-node client — the engine's outbound dispatch; the port's
-counterpart of ``seldon_core_tpu/runtime/client.py:55-447, 639-660``.
+counterpart of ``seldon_core_tpu/runtime/client.py:55-660``.
 
 ``RestNodeRuntime`` speaks the internal microservice API (``/predict``,
 ``/route``, ``/aggregate``, ``/transform-input``, ``/transform-output``,
-``/send-feedback``; docs/reference/internal-api.md) in JSON, on stdlib
-asyncio alone (the machines the port serves on have no ``aiohttp``):
+``/send-feedback``; docs/reference/internal-api.md) on stdlib asyncio
+alone (the port leans on no ``aiohttp``):
 
-* HTTP/1.1 over keep-alive connections pooled per node: a call takes an
-  idle connection (one the peer has closed is dropped first, read with a
-  non-blocking peek) or dials a new one, and hands it back after a whole
-  ``Content-Length`` response; the sockets are non-blocking and driven by
-  the running loop's ``sock_*`` calls, so a pool outlives the loop that
-  filled it and closes without one;
+* HTTP/1.1 over keep-alive connections pooled per node, to ``host:port``
+  or, for a ``unix:/path`` host, to that unix socket (an engine's
+  ``ENGINE_HTTP_UDS_PATH`` listener): a call takes an idle connection (one
+  the peer has closed is dropped first, read with a non-blocking peek) or
+  dials a new one, and hands it back after a whole ``Content-Length``
+  response; the sockets are non-blocking and driven by the running loop's
+  ``sock_*`` calls, so a pool outlives the loop that filled it and closes
+  without one;
+* a predict whose payload is numeric goes as a binary tensor frame
+  (``runtime/wire.py``, ``Content-Type: application/x-seldon-tensor``)
+  unless ``SELDON_TPU_WIRE=0``: the reference's negotiation, in which a
+  JSON answer to a frame, or a 400/404/405/415/501 that is not a frame,
+  turns the node's wire off for good and the same attempt goes again as
+  JSON; every other call is JSON;
 * each request body is encoded on the engine's dispatch executor (the
   loop's default one when none is given), never on the loop: a payload
   that is still a device tensor is read back there;
@@ -26,30 +34,43 @@ asyncio alone (the machines the port serves on have no ``aiohttp``):
   allow; a transport failure or a 5xx counts against the node's
   ``CircuitBreaker``, a 4xx does not; an open breaker refuses at once.
 
-A failure after the policy gives up is a ``RemoteCallError`` (502).  The
-binary tensor wire, ``GrpcNodeRuntime`` and ``unix:`` hosts raise
-``GraphSpecError`` until ROADMAP Queue 1 item [3] (gRPC and the binary
-wire); the client never swaps a remote node for a local unit.
+``GrpcNodeRuntime`` calls a gRPC microservice's node services
+(Model/Predict, Transformer/TransformInput, OutputTransformer/
+TransformOutput, Router/Route, Combiner/Aggregate, and SendFeedback on
+Router, or Generic for an untyped node) over one pooled connection of the
+port's own HTTP/2 client (``runtime/grpcfast.py`` ``FastGrpcChannel``, so
+no ``grpcio``), with the same policy: a call's status
+name (UNAVAILABLE, RESOURCE_EXHAUSTED) decides a retry, a refused or lost
+connection is UNAVAILABLE (and the next attempt dials again), a timed-out
+attempt DEADLINE_EXCEEDED; every failed call counts against the breaker.
+A FAILURE SeldonMessage is an answer, returned as it is and never retried.
+
+A failure after the policy gives up is a ``RemoteCallError`` (502); the
+client never swaps a remote node for a local unit.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import socket
 import threading
 from concurrent.futures import Executor
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from seldon_core_tpu_torch import protoconv
 from seldon_core_tpu_torch.graph.interpreter import NodeRuntime
-from seldon_core_tpu_torch.graph.spec import ComponentBinding, GraphSpecError, PredictiveUnit
+from seldon_core_tpu_torch.graph.spec import ComponentBinding, PredictiveUnit
 from seldon_core_tpu_torch.messages import (
     Feedback,
     SeldonMessage,
     SeldonMessageError,
     SeldonMessageList,
 )
+from seldon_core_tpu_torch.runtime import wire
+from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel, GrpcCallError
 from seldon_core_tpu_torch.runtime.resilience import (
     DEADLINE_HEADER,
     CircuitBreaker,
@@ -62,11 +83,15 @@ from seldon_core_tpu_torch.runtime.resilience import (
     remaining_s,
 )
 
-__all__ = ["RestNodeRuntime", "RemoteCallError", "make_node_runtime"]
+__all__ = ["RestNodeRuntime", "GrpcNodeRuntime", "RemoteCallError", "make_node_runtime"]
 
 DEFAULT_TIMEOUT_S = 5.0  # the reference's TIMEOUT, InternalPredictionService.java:77
 MAX_IDLE = 8  # idle keep-alive connections kept per node
 _MAX_HEAD = 64 * 1024
+_JSON = "application/json"
+# a peer that answers a frame with one of these, not as a frame, does not
+# speak the wire (a unit app, an older build, a kill-switched engine)
+_WIRE_NEGOTIATE_DOWN = (400, 404, 405, 415, 501)
 
 
 class RemoteCallError(SeldonMessageError):
@@ -149,26 +174,29 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
                  retry_budget: Optional[RetryBudget] = None,
                  executor: Optional[Executor] = None):
         host = binding.host or "localhost"
-        if host.startswith("unix:"):
-            raise GraphSpecError(f"node {node.name!r}: unix-socket hosts are not ported yet "
-                                 f"(ROADMAP Queue 1 item [3]: gRPC and the binary wire)")
         self.node = node
         self.binding = binding
         self.host = host
         self.port = int(binding.port)
+        # a "unix:/path" host dials that socket: the same HTTP surface
+        self._uds_path: Optional[str] = host[len("unix:"):] if host.startswith("unix:") else None
         self.timeout_s = float(timeout_s)
         self.retry_policy = retry_policy or RetryPolicy(max_attempts=retries)
         self.breaker = breaker
         self.retry_budget = retry_budget
         self.executor = executor
         image, _, version = (binding.image or "").partition(":")
+        authority = "localhost" if self._uds_path is not None else f"{host}:{self.port}"
         self._head_fixed = (
-            f"Host: {host}:{self.port}\r\nContent-Type: application/json\r\n"
+            f"Host: {authority}\r\n"
             f"Seldon-model-name: {node.name}\r\nSeldon-model-image: {image}\r\n"
             f"Seldon-model-version: {version}\r\n").encode("latin-1")
         self._idle: List[Tuple[socket.socket, bytearray]] = []
         self._pool_lock = threading.Lock()
         self._closed = False
+        # binary wire negotiation: predicts try the frame first; a peer that
+        # does not speak it is remembered as JSON-only
+        self._wire_ok = True
 
     # -- the connection pool ---------------------------------------------------
 
@@ -190,6 +218,15 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
 
     async def _dial(self) -> Tuple[socket.socket, bytearray]:
         loop = asyncio.get_running_loop()
+        if self._uds_path is not None:
+            sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            sock.setblocking(False)
+            try:
+                await loop.sock_connect(sock, self._uds_path)
+            except BaseException:
+                sock.close()
+                raise
+            return sock, bytearray()
         infos = await loop.getaddrinfo(self.host, self.port, type=socket.SOCK_STREAM)
         err: Optional[OSError] = None
         for family, type_, proto, _, addr in infos:
@@ -219,8 +256,9 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
     # -- one HTTP exchange --------------------------------------------------
 
     async def _exchange(self, conn, path: str, body: bytes, headers: Dict[str, str]
-                        ) -> Tuple[int, bytes, bool]:
-        """POST ``body`` on ``conn``: (status, response body, keep-alive)."""
+                        ) -> Tuple[int, bytes, bool, str]:
+        """POST ``body`` on ``conn``: (status, response body, keep-alive,
+        response content type)."""
         loop = asyncio.get_running_loop()
         sock, buf = conn
         extra = "".join(f"{k}: {v}\r\n" for k, v in headers.items()).encode("latin-1")
@@ -242,6 +280,7 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
             name, _, value = line.partition(":")
             fields[name.strip().lower()] = value.strip()
         keep = version == "HTTP/1.1" and fields.get("connection", "").lower() != "close"
+        ctype = fields.get("content-type", "").split(";", 1)[0].strip().lower()
         if "transfer-encoding" in fields:
             raise _BadResponse(f"Transfer-Encoding {fields['transfer-encoding']!r} responses "
                                f"are not read; the unit servers send Content-Length")
@@ -254,12 +293,12 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
                 await self._fill(loop, sock, buf)
             payload = bytes(buf[:n])
             del buf[:n]
-            return status, payload, keep and not buf
+            return status, payload, keep and not buf, ctype
         while await self._fill(loop, sock, buf, eof_ok=True):
             pass  # no length: the body runs to the connection's end
         payload = bytes(buf)
         buf.clear()
-        return status, payload, False
+        return status, payload, False, ctype
 
     @staticmethod
     async def _fill(loop, sock, buf: bytearray, eof_ok: bool = False) -> bool:
@@ -272,14 +311,15 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
         return True
 
     async def _attempt(self, path: str, body: bytes, headers: Dict[str, str],
-                       timeout_s: float) -> Tuple[int, bytes]:
-        """One attempt under its timeout, on a pooled or a new connection."""
+                       timeout_s: float) -> Tuple[int, bytes, str]:
+        """One attempt under its timeout, on a pooled or a new connection:
+        (status, response body, response content type)."""
         conn, keep = None, False
         try:
             async with asyncio.timeout(timeout_s):
                 conn = self._checkout() or await self._dial()
-                status, payload, keep = await self._exchange(conn, path, body, headers)
-            return status, payload
+                status, payload, keep, ctype = await self._exchange(conn, path, body, headers)
+            return status, payload, ctype
         finally:
             if conn is not None:
                 if keep:
@@ -289,15 +329,43 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
 
     # -- the resilient call ----------------------------------------------------
 
-    async def _post(self, path: str, encode: Callable[[], str], method: str) -> SeldonMessage:
-        """``encode()`` on the executor, then the attempt loop: per-attempt
-        breaker admission, a timeout clamped to the remaining budget (an
-        exhausted one raises ``DeadlineExceededError``, 504, before any
-        I/O), retries as the policy allows."""
-        body = (await asyncio.get_running_loop().run_in_executor(self.executor, encode)).encode()
+    async def _encoded(self, encode: Callable[[], Any]) -> bytes:
+        """``encode()`` on the executor, in the caller's context (a frame's
+        sidecar reads the deadline); a str comes back as UTF-8 bytes."""
+        ctx = contextvars.copy_context()
+        out = await asyncio.get_running_loop().run_in_executor(self.executor, ctx.run, encode)
+        return out.encode() if isinstance(out, str) else out
+
+    async def _post(self, path: str, encode: Callable[[], str], method: str,
+                    wire_msg: Optional[SeldonMessage] = None) -> SeldonMessage:
+        """The attempt loop: per-attempt breaker admission, a timeout
+        clamped to the remaining budget (an exhausted one raises
+        ``DeadlineExceededError``, 504, before any I/O), retries as the
+        policy allows.  ``wire_msg`` sends each attempt as a binary frame
+        while the node speaks the wire; the JSON body (``encode()``) is
+        made only if the node negotiates down."""
         policy = self.retry_policy
         guard = _BreakerGuard(self.breaker)
         attempt = 0
+        body = wire_body = None
+
+        def accept(raw: bytes, ctype: str) -> SeldonMessage:
+            # the one 200 acceptance rule of both transports: a malformed
+            # 200 is deterministic misbehaviour, a breaker failure, never
+            # retried; a first-attempt success deposits into the budget
+            try:
+                if ctype == wire.WIRE_CONTENT_TYPE:
+                    out = wire.message_from_frame(wire.decode_frame(raw))
+                else:
+                    out = SeldonMessage.from_json(raw)
+            except SeldonMessageError as e:
+                guard.record(False)
+                raise RemoteCallError(self.node.name, path, f"bad response: {e}") from e
+            guard.record(True)
+            if self.retry_budget is not None and attempt == 0:
+                self.retry_budget.deposit()
+            return out
+
         try:
             while True:
                 guard.gate(self.node.name)
@@ -306,21 +374,35 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
                 hdr = deadline_header_value()
                 if hdr is not None:
                     headers[DEADLINE_HEADER] = hdr
+                use_wire = wire_msg is not None and self._wire_ok
                 try:
-                    status, raw = await self._attempt(path, body, headers, timeout_s)
-                    if status == 200:
-                        try:
-                            out = SeldonMessage.from_json(raw)
-                        except SeldonMessageError as e:
-                            # a malformed 200 is deterministic misbehaviour:
-                            # a breaker failure, never retried
-                            guard.record(False)
-                            raise RemoteCallError(self.node.name, path,
-                                                  f"bad response: {e}") from e
-                        guard.record(True)
-                        if self.retry_budget is not None and attempt == 0:
-                            self.retry_budget.deposit()
-                        return out
+                    if use_wire:
+                        if wire_body is None:
+                            wire_body = await self._encoded(lambda: wire.join_parts(
+                                wire.frame_from_message(wire_msg, sidecar=True)))
+                        headers["Content-Type"] = wire.WIRE_CONTENT_TYPE
+                        status, raw, ctype = await self._attempt(path, wire_body, headers,
+                                                                 timeout_s)
+                        if status == 200:
+                            if ctype != wire.WIRE_CONTENT_TYPE:
+                                # a JSON answer to a frame: the peer ignored the
+                                # content type; take it and speak JSON from now on
+                                self._wire_ok = False
+                            return accept(raw, ctype)
+                        if status in _WIRE_NEGOTIATE_DOWN and ctype != wire.WIRE_CONTENT_TYPE:
+                            # the peer does not speak the wire: negotiate down
+                            # and send this attempt again as JSON; the answer
+                            # shows the node alive, a breaker success
+                            self._wire_ok = False
+                            guard.record(True)
+                            continue
+                    else:
+                        if body is None:
+                            body = await self._encoded(encode)
+                        headers["Content-Type"] = _JSON
+                        status, raw, ctype = await self._attempt(path, body, headers, timeout_s)
+                        if status == 200:
+                            return accept(raw, ctype)
                     # 5xx and 429 count against the breaker and may retry;
                     # a 4xx is the caller's fault: neither
                     retryable = policy.retryable_http(status)
@@ -343,6 +425,8 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
     # -- NodeRuntime API ----------------------------------------------------
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
+        if self._wire_ok and wire.wire_enabled() and wire.frame_eligible(msg):
+            return await self._post("/predict", msg.to_json, "predict", wire_msg=msg)
         return await self._post("/predict", msg.to_json, "predict")
 
     async def transform_input(self, msg: SeldonMessage) -> SeldonMessage:
@@ -365,18 +449,158 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
         await self._post("/send-feedback", feedback.to_json, "send_feedback")
 
 
+class GrpcNodeRuntime(_ResilientCallMixin, NodeRuntime):
+    """gRPC microservice client of one graph node, on one pooled
+    ``FastGrpcChannel`` (dialled on first use, again after a lost
+    connection, and again on another event loop); ``executor`` encodes
+    and decodes the messages (the loop's default executor when None).
+    Method routing follows the reference's type dispatch (engine
+    InternalPredictionService.java:111-161)."""
+
+    def __init__(self, node: PredictiveUnit, binding: ComponentBinding,
+                 timeout_s: float = DEFAULT_TIMEOUT_S,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 breaker: Optional[CircuitBreaker] = None,
+                 retry_budget: Optional[RetryBudget] = None,
+                 executor: Optional[Executor] = None):
+        self.node = node
+        self.binding = binding
+        self.host = binding.host or "localhost"
+        self.port = int(binding.port)
+        self.timeout_s = float(timeout_s)
+        self.retry_policy = retry_policy or RetryPolicy()
+        self.breaker = breaker
+        self.retry_budget = retry_budget
+        self.executor = executor
+        # feedback goes to Router/SendFeedback for a typed node and to
+        # Generic/SendFeedback for an untyped one (the Model service has no
+        # SendFeedback rpc)
+        fb_service = "Generic" if node.type is None else "Router"
+        self._paths = {
+            "predict": b"/seldon.protos.Model/Predict",
+            "transform_input": b"/seldon.protos.Transformer/TransformInput",
+            "transform_output": b"/seldon.protos.OutputTransformer/TransformOutput",
+            "route": b"/seldon.protos.Router/Route",
+            "aggregate": b"/seldon.protos.Combiner/Aggregate",
+            "send_feedback": f"/seldon.protos.{fb_service}/SendFeedback".encode(),
+        }
+        self._channel: Optional[FastGrpcChannel] = None
+        self._dialing: Optional[asyncio.Future] = None
+
+    async def _connection(self) -> FastGrpcChannel:
+        """The pooled channel on the running loop, dialled when there is
+        none open there (concurrent first calls share one dial)."""
+        loop = asyncio.get_running_loop()
+        ch = self._channel
+        if ch is not None and ch.loop is loop and ch.is_open:
+            return ch
+        if self._dialing is None or self._dialing.get_loop() is not loop:
+            self._drop()
+            dial = loop.create_task(FastGrpcChannel().connect(self.host, self.port))
+
+            def adopt(task):
+                # a dial outlives a caller's timeout (shielded): its channel
+                # is kept, and the dial's error is read here
+                if self._dialing is task:
+                    self._dialing = None
+                if not task.cancelled() and task.exception() is None:
+                    self._channel = task.result()
+
+            dial.add_done_callback(adopt)
+            self._dialing = dial
+        return await asyncio.shield(self._dialing)
+
+    def _drop(self) -> None:
+        ch, self._channel = self._channel, None
+        if ch is not None:
+            ch.close_nowait()
+
+    def close(self) -> None:
+        """Close the pooled connection."""
+        self._drop()
+
+    async def _call(self, method: str, encode: Callable[[], bytes]) -> SeldonMessage:
+        """One resilient call: the breaker gate, a timeout clamped to the
+        remaining budget, retries on a retryable status name as the policy
+        allows."""
+        loop = asyncio.get_running_loop()
+        path = self._paths[method]
+        request = await loop.run_in_executor(self.executor, encode)
+        policy = self.retry_policy
+        guard = _BreakerGuard(self.breaker)
+        attempt = 0
+        try:
+            while True:
+                guard.gate(self.node.name)
+                timeout_s = clamp_timeout(self.timeout_s, where=f"grpc:{self.node.name}")
+                try:
+                    async with asyncio.timeout(timeout_s):
+                        channel = await self._connection()
+                        raw = await channel.call(path, request)
+                except GrpcCallError as e:
+                    code_name, detail = e.code_name, e.grpc_message
+                    if e.status == 14:
+                        self._drop()  # the connection is gone: dial again
+                except TimeoutError:
+                    code_name, detail = "DEADLINE_EXCEEDED", f"attempt exceeded {timeout_s:.3f}s"
+                except OSError as e:
+                    self._drop()
+                    code_name, detail = "UNAVAILABLE", f"{type(e).__name__}: {e}"
+                else:
+                    try:
+                        out = await loop.run_in_executor(self.executor, protoconv.msg_from_proto,
+                                                         raw)
+                    except SeldonMessageError as e:
+                        guard.record(False)
+                        raise RemoteCallError(self.node.name, path.decode(),
+                                              f"bad response: {e}") from e
+                    guard.record(True)
+                    if self.retry_budget is not None and attempt == 0:
+                        self.retry_budget.deposit()
+                    return out
+                guard.record(False)
+                if not (policy.retryable_grpc(code_name) and self._retry_allowed(attempt, method)
+                        and await self._retry_after_backoff(attempt, method)):
+                    raise RemoteCallError(self.node.name, path.decode(), f"{code_name}: {detail}")
+                attempt += 1
+        finally:
+            guard.close()
+
+    # -- NodeRuntime API ----------------------------------------------------
+
+    async def predict(self, msg: SeldonMessage) -> SeldonMessage:
+        return await self._call("predict", lambda: protoconv.msg_to_proto(msg))
+
+    async def transform_input(self, msg: SeldonMessage) -> SeldonMessage:
+        return await self._call("transform_input", lambda: protoconv.msg_to_proto(msg))
+
+    async def transform_output(self, msg: SeldonMessage) -> SeldonMessage:
+        return await self._call("transform_output", lambda: protoconv.msg_to_proto(msg))
+
+    async def route(self, msg: SeldonMessage) -> int:
+        # not idempotent (a bandit moves its exploration state): one attempt
+        resp = await self._call("route", lambda: protoconv.msg_to_proto(msg))
+        return _branch_from_msg(self.node.name, resp, "Route")
+
+    async def aggregate(self, msgs: List[SeldonMessage]) -> SeldonMessage:
+        return await self._call("aggregate", lambda: protoconv.msg_list_to_proto(
+            SeldonMessageList(messages=msgs)))
+
+    async def send_feedback(self, feedback: Feedback, branch: int) -> None:
+        # never retried: a duplicated delivery trains the unit twice
+        await self._call("send_feedback", lambda: protoconv.feedback_to_proto(feedback))
+
+
 def make_node_runtime(node: PredictiveUnit, binding: ComponentBinding,
                       retry_policy: Optional[RetryPolicy] = None,
                       breaker: Optional[CircuitBreaker] = None,
                       retry_budget: Optional[RetryBudget] = None,
                       executor: Optional[Executor] = None) -> NodeRuntime:
-    """The remote runtime of a binding, wired into the predictor's shared
-    resilience state (the engine passes one ``RetryBudget`` for the graph,
-    one ``CircuitBreaker`` per node and its dispatch executor).  gRPC
-    raises ``GraphSpecError``."""
-    if binding.runtime == "grpc":
-        raise GraphSpecError(f"node {node.name!r} is a gRPC binding: gRPC nodes are not ported "
-                             f"yet (ROADMAP Queue 1 item [3]: gRPC and the binary wire)")
-    return RestNodeRuntime(node, binding, retry_policy=retry_policy,
-                           breaker=breaker or CircuitBreaker(node.name),
-                           retry_budget=retry_budget, executor=executor)
+    """The remote runtime of a binding (``rest`` or ``grpc``), wired into the
+    predictor's shared resilience state (the engine passes one
+    ``RetryBudget`` for the graph, one ``CircuitBreaker`` per node and its
+    dispatch executor)."""
+    cls = GrpcNodeRuntime if binding.runtime == "grpc" else RestNodeRuntime
+    return cls(node, binding, retry_policy=retry_policy,
+               breaker=breaker or CircuitBreaker(node.name),
+               retry_budget=retry_budget, executor=executor)

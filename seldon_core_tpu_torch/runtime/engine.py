@@ -48,8 +48,13 @@ kernels launch on that thread's current CUDA stream, and the ``.cpu()``
 readback synchronises it.  Rows arrive as float64 from the JSON codec and
 are cast to float32 on the way in.
 
-Kept from the JAX engine: ``predict`` / ``predict_json``, ``_submit``
-with the dispatch deadline (``DispatchTimeoutError``, 504), the
+Kept from the JAX engine: ``predict`` / ``predict_json``, the binary
+wire's ``predict_wire`` (one bad slot of a MULTI frame answers its own
+error frame; a graph without a batcher takes the object path, where the
+reference has none), the gRPC lanes' ``predict_proto_wire`` (the tensor
+scan, its failure echoing the puid) and ``predict_proto`` (bytes in and
+out, ``protoconv``), ``_submit`` with the dispatch deadline
+(``DispatchTimeoutError``, 504) clamped to the request's own, the
 known-good-width rule (a failure on a feature width that has served
 before is a server fault and propagates; on a novel width it is the
 client's shape error, a 400), ``ready`` / ``pause`` / ``drained``,
@@ -84,6 +89,8 @@ from seldon_core_tpu_torch.graph.spec import (
     SeldonDeploymentSpec,
 )
 from seldon_core_tpu_torch.messages import (
+    DeadlineExceededError,
+    DefaultData,
     DispatchTimeoutError,
     Feedback,
     Meta,
@@ -92,10 +99,18 @@ from seldon_core_tpu_torch.messages import (
     Status,
     new_puid,
 )
+from seldon_core_tpu_torch import protoconv
+from seldon_core_tpu_torch.native import protowire
 from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, kv_write
+from seldon_core_tpu_torch.runtime import wire
 from seldon_core_tpu_torch.runtime.batching import GenLane, MicroBatcher, graph_is_batchable
 from seldon_core_tpu_torch.runtime.genserver import GenServer
-from seldon_core_tpu_torch.runtime.resilience import CircuitBreaker, RetryBudget
+from seldon_core_tpu_torch.runtime.resilience import (
+    CircuitBreaker,
+    RetryBudget,
+    maybe_deadline_scope,
+    remaining_s,
+)
 
 __all__ = ["EngineService", "StreamRequest"]
 
@@ -208,6 +223,8 @@ class EngineService:
         self._static_names = (self.compiled._output_names(self.predictor.graph, {})
                               if self.compiled is not None
                               and graph_is_batchable(self.predictor.graph) else None)
+        # the names field of the gRPC tensor lane's answers, made once
+        self._proto_names_frag = protowire.names_fragment(self._static_names or [])
         self.genserver: Optional[GenServer] = None
         # the lane is chosen once: a later load_states rebuilds the same one
         self._continuous = os.environ.get("SELDON_TPU_GEN_CONTINUOUS", "1") != "0"
@@ -291,10 +308,24 @@ class EngineService:
 
     async def _submit(self, rows):
         """Batched dispatch under the engine's per-dispatch deadline: a hung
-        device surfaces as a 504 instead of a request that never returns."""
+        device surfaces as a 504 instead of a request that never returns.
+        The request's own deadline (a header's or a frame's sidecar's)
+        clamps the wait further, and an exhausted one is a 504 before any
+        dispatch (``engine.py:1035-1108`` there, without its admission
+        control, item [4])."""
+        timeout = self.dispatch_timeout_s
+        rem = remaining_s()
+        if rem is not None:
+            if rem <= 0:
+                raise DeadlineExceededError("request deadline exhausted before device dispatch")
+            timeout = min(timeout, rem)
         try:
-            return await asyncio.wait_for(self.batcher.submit(rows), self.dispatch_timeout_s)
+            return await asyncio.wait_for(self.batcher.submit(rows), timeout)
         except asyncio.TimeoutError:
+            if timeout < self.dispatch_timeout_s:
+                raise DeadlineExceededError(
+                    f"request deadline ({timeout:.2f}s remaining) exceeded during device "
+                    f"dispatch") from None
             raise DispatchTimeoutError(
                 f"device dispatch exceeded {self.dispatch_timeout_s:.0f}s"
             ) from None
@@ -352,6 +383,138 @@ class EngineService:
         resp = await self.predict(msg)
         ok = resp.status is None or resp.status.status == "SUCCESS"
         return resp.to_json(), 200 if ok else (resp.status.code or 400)
+
+    # -- the binary wire (runtime/wire.py) ------------------------------
+
+    async def predict_wire(self, payload) -> "tuple[int, list]":
+        """One binary frame in, ``(http status, response frame parts)`` out
+        (``engine.py:1341`` there).  The request tensor is a view over the
+        frame's bytes and the answer is framed from the dispatch's
+        readback.  A MULTI frame's sub-frames run at once (the batcher
+        merges their rows as it would separate arrivals), each answering
+        its own frame.  Raises ``WireError`` (400) or ``WireFrameTooLarge``
+        (413) for bytes that are not a frame at all."""
+        frame = wire.decode_frame(payload)
+        if frame.is_multi:
+            results = await asyncio.gather(*(self._predict_wire_sub(sub)
+                                             for sub in frame.subframes))
+            return 200, wire.encode_multi([wire.join_parts(parts) for _, parts in results])
+        return await self._predict_wire_single(frame)
+
+    async def _predict_wire_sub(self, buf) -> "tuple[int, list]":
+        """One sub-frame of a MULTI frame: any failure (torn bytes, an
+        unexpected exception) answers its own error frame, never its
+        co-travellers'."""
+        try:
+            frame = wire.decode_frame(buf)
+            if frame.is_multi:
+                raise wire.WireError("nested multi frames are not allowed")
+        except wire.WireError as e:
+            return self._wire_error_frame(None, e, e.http_code)
+        try:
+            return await self._predict_wire_single(frame)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 - slot-isolated 500
+            return self._wire_error_frame(frame.meta.get("puid"), e, 500)
+
+    @staticmethod
+    def _wire_error_frame(puid, e, code: int) -> "tuple[int, list]":
+        return code, wire.encode_frame(
+            None, status=code, response=True,
+            meta_bytes=wire.pack_wire_meta(puid=puid, extra={"error": str(e)}))
+
+    async def _predict_wire_single(self, frame) -> "tuple[int, list]":
+        """One frame under its sidecar's deadline (tighten-only).  Rows go
+        to the batcher; a graph without one (a router, host mode) takes the
+        object path, its answer framed on a dispatch thread."""
+        meta = frame.meta
+        puid = meta.get("puid") or new_puid()
+        dl = meta.get("deadline_ms")
+        with maybe_deadline_scope(dl / 1e3 if dl else None):
+            if self.batcher is None:
+                msg = wire.message_from_frame(frame)
+                msg.meta.puid = puid
+                resp = await self.predict(msg)
+                ok = resp.status is None or resp.status.status == "SUCCESS"
+                parts = await asyncio.get_running_loop().run_in_executor(
+                    self._executor, lambda: wire.frame_from_message(resp, response=True,
+                                                                    sidecar=False))
+                return (200 if ok else (resp.status.code or 400)), parts
+            try:
+                rows = frame.rows()
+            except wire.WireError as e:
+                return self._wire_error_frame(puid, e, 400)
+            try:
+                y_rows, (routing, tags) = await self._submit(rows)
+            except (SeldonMessageError, GraphSpecError) as e:
+                return self._wire_error_frame(puid, e, e.http_code)
+        in_extra = frame.extra()
+        extra: dict = {}
+        if self._static_names:
+            extra["names"] = list(self._static_names)
+        if in_extra.get("kind"):
+            extra["kind"] = in_extra["kind"]
+        if tags or in_extra.get("tags"):
+            extra["tags"] = {**(in_extra.get("tags") or {}), **pythonize_tags(tags or {})}
+        if routing or in_extra.get("routing"):
+            extra["routing"] = {**(in_extra.get("routing") or {}),
+                                **{k: int(v) for k, v in (routing or {}).items()}}
+        return 200, wire.encode_frame(np.asarray(y_rows), status=200, response=True,
+                                      meta_bytes=wire.pack_wire_meta(puid=puid,
+                                                                     extra=extra or None))
+
+    # -- the gRPC lanes (runtime/grpcfast.py) ------------------------------
+
+    async def predict_proto_wire(self, wire_bytes: bytes) -> bytes:
+        """SeldonMessage bytes in, SeldonMessage bytes out: the zero-object
+        gRPC lane (``engine.py:1498`` there).  A common tensor request is
+        scanned at the wire level (``native/protowire.py``) and answered
+        with composed bytes; anything else takes ``predict_proto``.  A
+        dispatch failure answers a FAILURE message echoing the puid."""
+        if self.batcher is not None:
+            parsed = protowire.parse_tensor_request(wire_bytes)
+            if parsed is not None:
+                puid, rows = parsed
+                return await self._proto_rows(puid or new_puid(), rows)
+        return await self.predict_proto(wire_bytes)
+
+    async def predict_proto(self, req: bytes) -> bytes:
+        """The object gRPC lane (``engine.py:1558`` there): the bytes decoded
+        by ``protoconv`` (``ProtoDecodeError`` if they do not parse); a
+        tensor request with a bare meta still skips the object path, the
+        rest goes through ``predict``."""
+        msg = protoconv.msg_from_proto(req)
+        meta = msg.meta
+        if (self.batcher is not None and msg.data is not None and msg.data.kind == "tensor"
+                and not (meta.tags or meta.routing or meta.requestPath)):
+            return await self._proto_rows(meta.puid or new_puid(), np.atleast_2d(msg.data.array))
+        resp = await self.predict(msg)
+        return await asyncio.get_running_loop().run_in_executor(
+            self._executor, protoconv.msg_to_proto, resp)
+
+    async def _proto_rows(self, puid: str, rows) -> bytes:
+        """Rows through the batcher, answered as SeldonMessage bytes: the
+        fixed tensor layout (``build_tensor_response``) when the answer
+        carries no routing or tags, else composed (the same bytes)."""
+        try:
+            y, (routing, tags) = await self._submit(rows)
+        except (SeldonMessageError, GraphSpecError) as e:
+            return protoconv.msg_to_proto(
+                SeldonMessage.failure(str(e), code=e.http_code, meta=Meta(puid=puid)))
+        if not routing and not tags:
+            return protowire.build_tensor_response(puid, y, self._proto_names_frag)
+        return self._compose_proto_response(puid, y, routing, tags)
+
+    def _compose_proto_response(self, puid, y, routing, tags) -> bytes:
+        """A SUCCESS SeldonMessage's bytes with a float64 tensor payload and
+        the meta merged (``engine.py:1617`` there)."""
+        return protoconv.msg_to_proto(SeldonMessage(
+            data=DefaultData(array=np.asarray(y, dtype=np.float64),
+                             names=list(self._static_names or []), kind="tensor"),
+            meta=Meta(puid=puid, routing={k: int(v) for k, v in (routing or {}).items()},
+                      tags=pythonize_tags(tags or {})),
+            status=Status()))
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
         if not msg.meta.puid:
@@ -511,6 +674,7 @@ class EngineService:
             "graph_fuse": {"enabled": self._fuse,
                            "plan": None if self.fusion_plan is None
                            else self.fusion_plan.summary()},
+            "wire": {"enabled": wire.wire_enabled(), "bytes_copied": wire.bytes_copied()},
             "resilience": {"retry_budget": self.retry_budget.snapshot(),
                            "breakers": {name: br.snapshot()
                                         for name, br in self.breakers.items()}},

@@ -21,6 +21,24 @@ by default; asking for CUDA without it exits with an error.  SIGTERM or
 SIGINT flips readiness to 503 and drains before exit; a second signal
 skips the drain.
 
+The data plane's lanes (``engine_main.py:99``, ``:147-228`` there):
+
+* REST on ``ENGINE_SERVER_PORT`` (JSON and the binary tensor wire);
+* gRPC on ``ENGINE_SERVER_GRPC_PORT`` (5001), by ``ENGINE_GRPC_IMPL``:
+  ``fast`` (the default: the stdlib HTTP/2 lane, ``runtime/grpcfast.py``),
+  ``native`` (no native plane is ported, ROADMAP Queue 1 item [4], so it
+  says so and serves ``fast``, as the reference does without a plane) or
+  ``aio`` (the stock ``grpcio`` server, refused: the port leans on no
+  ``grpcio``); another name serves ``fast`` with a line saying so;
+* the relay (``runtime/udsrelay.py``) on ``ENGINE_UDS_PATH`` /
+  ``--uds-path``, and the HTTP routes on a unix socket on
+  ``ENGINE_HTTP_UDS_PATH`` / ``--http-uds-path`` (the lane a ``unix:``
+  node binding dials); ``SELDON_TPU_UDS=0`` skips both.
+  ``ENGINE_RELAY_TCP_PORT`` (the KV hand-off lane) is refused, naming
+  item [6].
+
+The "engine up" line names every lane bound.
+
     python -m seldon_core_tpu_torch.runtime.engine_main --file examples/mnist_deployment.json
 """
 
@@ -38,7 +56,7 @@ from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.graph.defaulting import default_and_validate
 from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeploymentSpec
 
-__all__ = ["load_deployment_from_env", "serve", "main"]
+__all__ = ["load_deployment_from_env", "check_grpc_impl", "serve", "main"]
 
 DEFAULT_GRAPH = {
     "spec": {
@@ -76,13 +94,42 @@ def load_deployment_from_env(file_path: Optional[str] = None) -> SeldonDeploymen
     return default_and_validate(SeldonDeploymentSpec.from_json_dict(DEFAULT_GRAPH))
 
 
+def check_grpc_impl() -> None:
+    """Read ``ENGINE_GRPC_IMPL``: every name is served by the ``fast`` lane
+    (``native`` and an unknown name with a line saying so), and ``aio``
+    raises ``SystemExit`` (it needs ``grpcio``)."""
+    impl = os.environ.get("ENGINE_GRPC_IMPL", "fast").strip().lower()
+    if impl == "aio":
+        raise SystemExit("engine_main: ENGINE_GRPC_IMPL=aio is the stock grpcio server, which "
+                         "the port does not serve (it leans on no grpcio); use fast")
+    if impl == "native":
+        print("native gRPC lane unavailable (no native plane); serving the Python fast lane",
+              flush=True)
+    elif impl != "fast":
+        print(f"unknown ENGINE_GRPC_IMPL={impl!r}; serving fast lane", flush=True)
+
+
 async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
                 host: str = "0.0.0.0", rest_port: Optional[int] = None,
-                device=None) -> None:
+                device=None, grpc_port: Optional[int] = None,
+                uds_path: Optional[str] = None,
+                http_uds_path: Optional[str] = None) -> None:
     from seldon_core_tpu_torch.runtime.engine import EngineService
+    from seldon_core_tpu_torch.runtime.grpcfast import serve_grpc_fast
     from seldon_core_tpu_torch.runtime.rest import serve_fast
+    from seldon_core_tpu_torch.runtime.udsrelay import serve_uds
 
+    if int(os.environ.get("ENGINE_RELAY_TCP_PORT", "0") or 0):
+        raise SystemExit("engine_main: ENGINE_RELAY_TCP_PORT is the KV hand-off relay of "
+                         "disaggregated serving, not ported yet (ROADMAP Queue 1 item [6])")
+    check_grpc_impl()
     rest_port = rest_port or int(os.environ.get("ENGINE_SERVER_PORT", "8000"))
+    grpc_port = grpc_port if grpc_port is not None else int(
+        os.environ.get("ENGINE_SERVER_GRPC_PORT", "5001"))
+    uds_on = os.environ.get("SELDON_TPU_UDS", "1") != "0"
+    uds_path = (uds_path or os.environ.get("ENGINE_UDS_PATH", "").strip()) if uds_on else ""
+    http_uds_path = (http_uds_path or os.environ.get("ENGINE_HTTP_UDS_PATH", "").strip()
+                     if uds_on else "")
     engine = EngineService(
         deployment,
         predictor_name,
@@ -92,9 +139,13 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
         dispatch_timeout_s=float(os.environ.get("ENGINE_DISPATCH_TIMEOUT_S", "30")),
         device=device,
     )
-    server = await serve_fast(engine, host, rest_port)
+    server = await serve_fast(engine, host, rest_port, uds_path=http_uds_path or None)
+    grpc_server = await serve_grpc_fast(engine, host, grpc_port)
+    uds_server = await serve_uds(engine, uds_path) if uds_path else None
     print(f"engine up: predictor={engine.predictor.name} mode={engine.mode} "
-          f"device={engine.device} rest=:{server.port}", flush=True)
+          f"device={engine.device} rest=:{server.port} grpc=:{grpc_server.port}"
+          + (f" uds={uds_path}" if uds_server is not None else "")
+          + (f" http-uds={http_uds_path}" if http_uds_path else ""), flush=True)
 
     stop = asyncio.Event()
     hurry = asyncio.Event()  # second signal: skip the drain
@@ -125,6 +176,9 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
         except asyncio.TimeoutError:
             pass
     await server.stop()
+    await grpc_server.stop()
+    if uds_server is not None:
+        await uds_server.stop()
     engine.close()
     print("engine stopped", flush=True)
 
@@ -135,6 +189,10 @@ def main(argv=None) -> None:
     parser.add_argument("--predictor", default=None)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--rest-port", type=int, default=None)
+    parser.add_argument("--grpc-port", type=int, default=None)
+    parser.add_argument("--uds-path", default=None, help="the relay's unix socket")
+    parser.add_argument("--http-uds-path", default=None,
+                        help="the HTTP routes on this unix socket too")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card is an error")
     args = parser.parse_args(argv)
@@ -143,7 +201,9 @@ def main(argv=None) -> None:
     except RuntimeError as e:
         parser.exit(2, f"engine_main: {e}\n")
     deployment = load_deployment_from_env(args.file)
-    asyncio.run(serve(deployment, args.predictor, args.host, args.rest_port, device))
+    asyncio.run(serve(deployment, args.predictor, args.host, args.rest_port, device,
+                      grpc_port=args.grpc_port, uds_path=args.uds_path,
+                      http_uds_path=args.http_uds_path))
 
 
 if __name__ == "__main__":

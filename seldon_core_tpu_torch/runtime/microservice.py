@@ -6,10 +6,15 @@ counterpart of ``seldon_core_tpu/runtime/microservice.py``.
 
 serves the internal microservice API (``/predict``, ``/transform-input``,
 ``/transform-output``, ``/route``, ``/aggregate``, ``/send-feedback``,
-``runtime/rest.py``) on the port's stdlib HTTP server, on ``cuda`` unless
-``--device cpu`` is given (CUDA asked for and absent is an error).  An
-engine binds it as a component ``{"name": ..., "runtime": "rest", "host":
-..., "port": ...}``.
+``runtime/rest.py``; JSON, or a binary tensor frame where one message is
+the body) on the port's stdlib HTTP server, on ``cuda`` unless ``--device
+cpu`` is given (CUDA asked for and absent is an error).  An engine binds it
+as a component ``{"name": ..., "runtime": "rest", "host": ..., "port":
+...}``.  With ``GRPC`` in place of ``REST`` the unit's node services
+(Generic, Model, Router, Transformer, OutputTransformer, Combiner: the map
+of the reference's ``make_unit_grpc_server``) are served on the port's own
+HTTP/2 lane (``runtime/grpcfast.py`` ``FastGrpcServer.for_unit``; no
+``grpcio``), bound as ``{"runtime": "grpc", ...}``.
 
 Env contract (injected by defaulting, ``graph/defaulting.py``):
 ``PREDICTIVE_UNIT_SERVICE_PORT`` (default 5000), ``PREDICTIVE_UNIT_PARAMETERS``
@@ -22,8 +27,7 @@ Two kinds of class are served: a port ``Unit``, or a reference-style plain
 object (``predict(X, feature_names)``, ``route``, ``aggregate``,
 ``transform_input`` / ``transform_output``, ``send_feedback``, ``score`` for
 an OUTLIER_DETECTOR) behind ``UserObjectUnit``, which hands it numpy rows.
-``GRPC`` is refused until ROADMAP Queue 1 item [3] (gRPC and the binary
-wire), ``--persistence 1`` until item [4].
+``--persistence 1`` is refused until ROADMAP Queue 1 item [4].
 """
 
 from __future__ import annotations
@@ -64,10 +68,13 @@ _SERVICE_UNIT_TYPE = {
 
 
 def _host(X):
-    """Rows as numpy, read back from the device when they are a tensor."""
+    """Rows as numpy, read back from the device when they are a tensor; a
+    read-only array (a binary frame's view over its bytes) is copied, since
+    user code may write into what it is given."""
     if isinstance(X, torch.Tensor):
         return X.detach().cpu().numpy()
-    return np.asarray(X)
+    X = np.asarray(X)
+    return X if X.flags.writeable else X.copy()
 
 
 class UserObjectUnit(Unit):
@@ -167,13 +174,19 @@ def _env_parameters() -> List[Parameter]:
         raise ValueError(f"bad PREDICTIVE_UNIT_PARAMETERS: {e}") from e
 
 
-async def _serve(runtime: InProcessNodeRuntime, host: str, port: int) -> None:
-    """Serve until SIGTERM or SIGINT."""
-    from seldon_core_tpu_torch.runtime.rest import serve_unit
+async def _serve(runtime: InProcessNodeRuntime, host: str, port: int, api: str = "REST") -> None:
+    """Serve over ``api`` (REST or GRPC) until SIGTERM or SIGINT."""
+    if api == "GRPC":
+        from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcServer
 
-    server = await serve_unit(runtime, host, port)
+        server = FastGrpcServer.for_unit(runtime)
+        await server.start(host, port)
+    else:
+        from seldon_core_tpu_torch.runtime.rest import serve_unit
+
+        server = await serve_unit(runtime, host, port)
     print(f"unit up: {runtime.node.name} ({type(runtime.unit).__name__}) "
-          f"device={runtime.device} rest=:{server.port}", flush=True)
+          f"device={runtime.device} {api.lower()}=:{server.port}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -183,7 +196,10 @@ async def _serve(runtime: InProcessNodeRuntime, host: str, port: int) -> None:
             pass  # platforms without signal support: external kill only
     await stop.wait()
     await server.stop()
-    print("unit stopped", flush=True)
+    from seldon_core_tpu_torch.ops import fused_mlp
+
+    # a gRPC unit has no /stats: its kernel's launches are said here
+    print(f"unit stopped (fused_mlp_softmax launches: {fused_mlp.LAUNCHES})", flush=True)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -199,9 +215,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card is an error")
     args = parser.parse_args(argv)
-    if args.api == "GRPC":
-        parser.exit(2, "microservice: GRPC serving is not ported yet (ROADMAP Queue 1 item "
-                       "[3]: gRPC and the binary wire); use REST\n")
     if args.persistence:
         parser.exit(2, "microservice: --persistence 1 is not ported yet (ROADMAP Queue 1 "
                        "item [4])\n")
@@ -222,7 +235,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"smoke ok: {args.interface_name} as {args.service_type} on {device}",
                   flush=True)
             return
-        asyncio.run(_serve(runtime, args.host, port))
+        asyncio.run(_serve(runtime, args.host, port, args.api))
     finally:
         pool.shutdown(wait=True)
 

@@ -3,7 +3,10 @@
 
 Routes:
 
-  POST /api/v0.1/predictions       JSON body or form field ``json=``
+  POST /api/v0.1/predictions       JSON body or form field ``json=``; with
+                                   ``Content-Type: application/x-seldon-tensor``
+                                   a binary tensor frame (``runtime/wire.py``,
+                                   ``engine.predict_wire``) answered by a frame
   POST /predict                    internal-API alias (engine as a MODEL leaf)
   POST /api/v0.1/feedback          a Feedback JSON (reward, request, response
                                    with its meta.routing, truth): the graph's
@@ -25,9 +28,15 @@ The unit microservice's routes (``FastHttpServer(routes=_UnitRoutes(...))``,
 
 A request's ``Seldon-Deadline-Ms`` header becomes its deadline scope
 (``runtime/resilience.py``) for every route; a unit route whose budget is
-spent on arrival answers 504.  A unit route sent the binary tensor wire
-(``application/x-seldon-tensor``) answers 415: that wire is ROADMAP Queue 1
-item [3].
+spent on arrival answers 504.  The binary tensor wire: on the predictions
+route and on the unit routes that carry one SeldonMessage (``/predict``,
+``/transform-input``, ``/transform-output``, ``/route``) a frame in
+answers a frame (a unit's non-numeric answer goes back as JSON, which the
+caller's negotiation takes); a frame that does not parse answers a typed
+JSON 400 or 413; ``/aggregate`` and ``/send-feedback`` take no frame and,
+like every route with ``SELDON_TPU_WIRE=0``, answer a frame with 415.  A
+frame answer goes out as its parts (header, then the payload view).
+``FastHttpServer.start_uds`` serves the same routes on a unix socket.
 
 Protocol scope: HTTP/1.1 with keepalive and Content-Length request
 bodies.  Pipelined requests are answered in order (each request's handler
@@ -38,7 +47,7 @@ otherwise its response is chunked, one ``data: {...}`` SSE frame per
 token chunk, then the terminal ``{"done": true, "meta": {"puid": ...}}``
 frame.  A failure mid-stream sends a terminal error frame and closes the
 connection; a client that goes away closes the engine's generator.  Not
-ported: the binary wire lane, the trace and profile routes, and the
+ported: the trace and profile routes (ROADMAP Queue 1 item [4]) and the
 writer's transport flow control.
 """
 
@@ -47,7 +56,8 @@ from __future__ import annotations
 import asyncio
 import contextvars
 import json
-from typing import Awaitable, Callable, Dict, Optional, Tuple
+import os
+from typing import Any, Awaitable, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs
 
 import numpy as np
@@ -59,6 +69,7 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessageError,
     SeldonMessageList,
 )
+from seldon_core_tpu_torch.runtime import wire
 from seldon_core_tpu_torch.runtime.resilience import (
     DEADLINE_VAR,
     Deadline,
@@ -73,7 +84,10 @@ _MAX_BODY = 256 * 1024 * 1024
 _MAX_HEAD = 64 * 1024
 _MAX_INFLIGHT = 128  # per-connection pipelined requests before pause_reading
 
-Result = Tuple[int, bytes, str]  # (status, body, content-type)
+Result = Tuple[int, Any, str]  # (status, body: bytes or a list of parts, content-type)
+_WIRE = wire.WIRE_CONTENT_TYPE
+# unit routes whose body is one SeldonMessage: a frame may carry it
+_WIRE_UNIT_METHODS = ("predict", "transform_input", "transform_output", "route")
 Handler = Callable[[bytes, str], Awaitable[Result]]
 
 _STATUS_LINE = {
@@ -134,8 +148,25 @@ class _EngineRoutes:
         }
 
     async def _predictions(self, body, ctype) -> Result:
+        if ctype.startswith(_WIRE):
+            return await self._predictions_wire(body)
         text, status = await self.engine.predict_json(_payload_text(body, ctype))
         return status or 200, text.encode(), _JSON
+
+    async def _predictions_wire(self, body) -> Result:
+        """A binary frame in, a frame out (``httpfast.py:181-214`` there).
+        The receive buffer's copy is the lane's one copy, accounted; bytes
+        that are not a frame answer a typed JSON 400 or 413, which any peer
+        can read."""
+        if not wire.wire_enabled():
+            return 415, _failure(SeldonMessageError(
+                "binary wire lane disabled (SELDON_TPU_WIRE=0)"), 415), _JSON
+        wire.account_copy(len(body))
+        try:
+            status, parts = await self.engine.predict_wire(body)
+        except wire.WireError as e:
+            return e.http_code, _failure(e, e.http_code), _JSON
+        return status, parts, _WIRE
 
     async def _feedback(self, body, ctype) -> Result:
         try:
@@ -207,20 +238,33 @@ class _UnitRoutes:
 
     def _handler(self, method: str) -> Handler:
         async def handle(body, ctype) -> Result:
-            if "x-seldon-tensor" in ctype:
+            framed = ctype.startswith(_WIRE)
+            if framed and not wire.wire_enabled():
                 return 415, _failure(SeldonMessageError(
-                    "the binary tensor wire is not ported yet (ROADMAP Queue 1 item [3]); "
-                    "send JSON"), 415), _JSON
+                    "binary wire lane disabled (SELDON_TPU_WIRE=0)"), 415), _JSON
+            if framed and method not in _WIRE_UNIT_METHODS:
+                return 415, _failure(SeldonMessageError(
+                    f"{method} takes no binary tensor frame; send JSON"), 415), _JSON
             dl = current_deadline()
             if dl is not None and dl.expired:
                 return 504, _failure(SeldonMessageError(
                     "request deadline exhausted on arrival"), 504), _JSON
             try:
-                resp = await self._dispatch(method, _payload_text(body, ctype))
+                if framed:
+                    wire.account_copy(len(body))
+                    resp = await self._dispatch(method, wire.message_from_frame(
+                        wire.decode_frame(body)))
+                else:
+                    resp = await self._dispatch(method, _payload_text(body, ctype))
             except (SeldonMessageError, GraphSpecError) as e:
                 return e.http_code, _failure(e, e.http_code), _JSON
             except NotImplementedError as e:
                 return 501, _failure(e, 501), _JSON
+            if framed and (resp.data is None or wire.frame_eligible(resp)):
+                parts = await asyncio.get_running_loop().run_in_executor(
+                    getattr(self.runtime, "executor", None),
+                    lambda: wire.frame_from_message(resp, response=True, sidecar=False))
+                return 200, parts, _WIRE
             pool = getattr(self.runtime, "executor", None)
             if pool is None:
                 return 200, resp.to_json().encode(), _JSON
@@ -229,16 +273,18 @@ class _UnitRoutes:
 
         return handle
 
-    async def _dispatch(self, method: str, text: str) -> SeldonMessage:
+    async def _dispatch(self, method: str, payload) -> SeldonMessage:
+        """One call of the runtime; ``payload`` is the body's JSON text, or
+        a SeldonMessage a frame carried."""
         rt = self.runtime
         if method == "aggregate":
-            return await rt.aggregate(SeldonMessageList.from_json(text).messages)
+            return await rt.aggregate(SeldonMessageList.from_json(payload).messages)
         if method == "send_feedback":
-            fb = Feedback.from_json(text)
+            fb = Feedback.from_json(payload)
             routing = fb.response.meta.routing if fb.response is not None else {}
             await rt.send_feedback(fb, int(routing.get(rt.node.name, -1)))
             return SeldonMessage()
-        msg = SeldonMessage.from_json(text)
+        msg = payload if isinstance(payload, SeldonMessage) else SeldonMessage.from_json(payload)
         if method == "route":
             branch = await rt.route(msg)
             # the branch as a 1x1 tensor, as the reference's router wrapper
@@ -314,11 +360,18 @@ class _HttpProtocol(asyncio.Protocol):
             status, body, ctype = result
             if self.transport is None or self.transport.is_closing():
                 continue
+            parts = body if isinstance(body, list) else [body]
             head = (_STATUS_LINE.get(status) or f"HTTP/1.1 {status} X\r\n".encode()) + (
                 b"Content-Length: %d\r\nContent-Type: %s\r\n%s\r\n"
-                % (len(body), ctype.encode(), b"Connection: close\r\n" if close else b"")
+                % (sum(len(p) for p in parts), ctype.encode(),
+                   b"Connection: close\r\n" if close else b"")
             )
-            self.transport.write(head + body)
+            # a frame's parts go out one by one, its payload straight from
+            # the readback buffer
+            self.transport.write(head)
+            for p in parts:
+                if p:
+                    self.transport.write(p)
             if self.paused_read and self.queue.qsize() <= _MAX_INFLIGHT // 2:
                 self.paused_read = False
                 self.transport.resume_reading()
@@ -436,13 +489,18 @@ class _HttpProtocol(asyncio.Protocol):
 
 
 class FastHttpServer:
-    """Owns the listening socket: ``await start(host, port)`` /
-    ``await stop()``; ``port`` is the bound port (0 picks a free one).
-    Serves an engine's routes, or a given route table (``_UnitRoutes``)."""
+    """Owns the listening sockets: ``await start(host, port)``, and with
+    ``await start_uds(path)`` the same routes on a unix socket (the lane a
+    ``unix:`` node binding dials, ``httpfast.py:804`` there); ``await
+    stop()`` closes both and removes the socket file.  ``port`` is the
+    bound port (0 picks a free one).  Serves an engine's routes, or a
+    given route table (``_UnitRoutes``)."""
 
     def __init__(self, engine=None, routes=None):
         self.routes = routes if routes is not None else _EngineRoutes(engine)
         self._server: Optional[asyncio.AbstractServer] = None
+        self._uds_server: Optional[asyncio.AbstractServer] = None
+        self.uds_path: Optional[str] = None
         self._protocols: set = set()
         self.port: Optional[int] = None
 
@@ -453,25 +511,50 @@ class FastHttpServer:
         )
         self.port = self._server.sockets[0].getsockname()[1]
 
+    async def start_uds(self, path: str) -> None:
+        """Serve the routes on the unix socket ``path`` (a stale socket
+        file from a crashed predecessor is removed first)."""
+        try:
+            os.unlink(path)
+        except FileNotFoundError:
+            pass
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        loop = asyncio.get_running_loop()
+        self._uds_server = await loop.create_unix_server(
+            lambda: _HttpProtocol(self.routes, self._protocols), path=path)
+        self.uds_path = path
+
     async def stop(self) -> None:
-        if self._server is None:
-            return
-        self._server.close()
+        servers = [s for s in (self._server, self._uds_server) if s is not None]
+        for s in servers:
+            s.close()
         # idle keepalive connections never finish on their own: close their
         # transports first or wait_closed hangs
         for proto in list(self._protocols):
             if proto.transport is not None:
                 proto.transport.close()
-        try:
-            await asyncio.wait_for(self._server.wait_closed(), timeout=5.0)
-        except asyncio.TimeoutError:
-            pass  # the listener is closed either way
-        self._server = None
+        for s in servers:
+            try:
+                await asyncio.wait_for(s.wait_closed(), timeout=5.0)
+            except asyncio.TimeoutError:
+                pass  # the listener is closed either way
+        self._server = self._uds_server = None
+        if self.uds_path is not None:
+            try:
+                os.unlink(self.uds_path)
+            except FileNotFoundError:
+                pass
+            self.uds_path = None
 
 
-async def serve_fast(engine, host: str, port: int) -> FastHttpServer:
+async def serve_fast(engine, host: str, port: int,
+                     uds_path: Optional[str] = None) -> FastHttpServer:
+    """The engine's routes on ``host:port`` and, with ``uds_path``, on that
+    unix socket too."""
     server = FastHttpServer(engine)
     await server.start(host, port)
+    if uds_path:
+        await server.start_uds(uds_path)
     return server
 
 

@@ -370,7 +370,12 @@ def test_engine_main_serves_on_cpu_and_drains_on_sigterm(tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = {**os.environ, "ENGINE_SHUTDOWN_DRAIN_S": "5", "OMP_NUM_THREADS": "1"}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        grpc_port = s.getsockname()[1]
+    # the engine binds its gRPC lane too: a free port, not the default 5001
+    env = {**os.environ, "ENGINE_SHUTDOWN_DRAIN_S": "5", "OMP_NUM_THREADS": "1",
+           "ENGINE_SERVER_GRPC_PORT": str(grpc_port)}
     proc = subprocess.Popen(
         [sys.executable, "-m", "seldon_core_tpu_torch.runtime.engine_main",
          "--file", "examples/mnist_deployment.json", "--device", "cpu",

@@ -1,9 +1,11 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py or the turns scripts (paged_decode_turns.py, mlp_turns.py,
 paged_f32_turns.py, int8_decode_turns.py, kv_write_turns.py), imports JAX or anything of
-the JAX package, nor
-aiohttp or grpc (the card's machine has neither), and the port
-serves the MNIST and generator examples (the generator through the
+the JAX package, nor aiohttp, grpc, google.protobuf or ml_dtypes (its
+lanes are stdlib: the HTTP client and servers, HTTP/2 and HPACK, the
+protobuf codec, bf16 by bit pattern), and the port
+serves the MNIST and generator examples (MNIST also over the binary
+tensor wire and over gRPC) (the generator through the
 continuous lane, runtime/genserver.py, greedy and sampled), the iris
 example (its rows from the bundled csv) and the epsilon-greedy router
 example with a feedback, one host-mode request through a REST node served
@@ -18,8 +20,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "seldon_core_tpu")
-# not on the card's machine: the port's REST client and servers are stdlib
-SERVING_BLOCKED = ("aiohttp", "grpc")
+# the port's lanes need none of these (its REST and gRPC clients and
+# servers, its protobuf codec and its bf16 frames are stdlib and numpy)
+SERVING_BLOCKED = ("aiohttp", "grpc", "google", "ml_dtypes")
 
 
 def _blocked(name: str) -> bool:
@@ -39,7 +42,9 @@ def _port_files():
             "models/speculative.py", "models/prng.py", "models/tabular.py",
             "models/iris.py", "models/outlier.py", "models/mab.py",
             "graph/fuse.py", "runtime/client.py", "runtime/resilience.py",
-            "runtime/microservice.py"} <= names
+            "runtime/microservice.py", "native/protowire.py", "native/hpackcodec.py",
+            "runtime/wire.py", "protoconv.py", "runtime/grpcfast.py",
+            "runtime/udsrelay.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py")]
@@ -62,7 +67,7 @@ def _imports(tree):
 
 
 def test_blocker_names():
-    assert "aiohttp" in SERVING_BLOCKED and "grpc" in SERVING_BLOCKED
+    assert {"aiohttp", "grpc", "google", "ml_dtypes"} <= set(SERVING_BLOCKED)
     assert _blocked("jax") and _blocked("jax.numpy")
     assert _blocked("seldon_core_tpu") and _blocked("seldon_core_tpu.graph.spec")
     assert not _blocked("seldon_core_tpu_torch") and not _blocked("jaxlib_free")
@@ -84,7 +89,8 @@ import importlib.abc, json, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if any(name == b or name.startswith(b + ".")
-               for b in ("jax", "seldon_core_tpu", "aiohttp", "grpc")):
+               for b in ("jax", "seldon_core_tpu", "aiohttp", "grpc", "google.protobuf",
+                         "ml_dtypes")):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -97,6 +103,30 @@ from seldon_core_tpu_torch.runtime.engine_main import load_deployment_from_env
 
 engine = EngineService(load_deployment_from_env("examples/mnist_deployment.json"), device="cpu")
 text, status = asyncio.run(engine.predict_json(json.dumps({"data": {"ndarray": [[0.5] * 784]}})))
+import numpy as np
+from seldon_core_tpu_torch import protoconv
+from seldon_core_tpu_torch.messages import SeldonMessage
+from seldon_core_tpu_torch.runtime import wire
+from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel, serve_grpc_fast
+wire_status, parts = asyncio.run(engine.predict_wire(wire.join_parts(wire.encode_frame(
+    np.full((1, 784), 0.5)))))
+wire_rows = wire.decode_frame(wire.join_parts(parts)).values()
+
+async def grpc_call():
+    server = await serve_grpc_fast(engine, "127.0.0.1", 0)
+    ch = await FastGrpcChannel().connect("127.0.0.1", server.port)
+    try:
+        return protoconv.msg_from_proto(await ch.call(
+            b"/seldon.protos.Seldon/Predict",
+            protoconv.msg_to_proto(SeldonMessage.from_array(np.full((1, 784), 0.5)))))
+    finally:
+        await ch.close()
+        await server.stop()
+
+grpc_msg = asyncio.run(grpc_call())
+json_rows = json.loads(text)["data"]["ndarray"]
+lanes = [wire_status, grpc_msg.status.code, bool((wire_rows == json_rows).all()),
+         bool((grpc_msg.array() == json_rows).all())]
 engine.close()
 gen = EngineService(load_deployment_from_env("examples/generator_deployment.json"), device="cpu")
 gen_text, gen_status = asyncio.run(gen.predict_json(
@@ -174,13 +204,14 @@ async def host_mode():
 
 remote = asyncio.run(host_mode())
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc"))
+                if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc",
+                                       "ml_dtypes") or m.startswith("google.protobuf"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
                   "lane": lane, "sampled": sampled,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "new_examples": new_examples, "remote": remote,
-                  "leaked": leaked}))
+                  "lanes": lanes, "leaked": leaked}))
 """
 
 
@@ -195,4 +226,4 @@ def test_port_serves_with_jax_blocked():
         '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], '
         '"lane": ["genserver", 2], "sampled": [200, 16, 1], "streamed": true, "trained": true, '
         '"new_examples": [200, ["setosa", "versicolor", "virginica"], 200, true, 1.0], '
-        '"remote": ["host", 200, 10], "leaked": []}')
+        '"remote": ["host", 200, 10], "lanes": [200, 200, true, true], "leaked": []}')

@@ -188,7 +188,8 @@ def test_port_engine_dials_the_jax_unit_app():
 
 def test_jax_engine_dials_the_port_unit_microservice():
     """The JAX engine with four REST nodes served by the port's unit
-    microservice (its binary-wire attempt answered 415, so it speaks JSON)
+    microservice (its predicts ride the binary wire, which the port's unit
+    answers in kind)
     answers the port's all-in-process answer, and the JAX one."""
     x = _ints(1, (2, 4))
     body = json.dumps({"data": {"tensor": {"shape": [2, 4], "values": x.ravel().tolist()}}})
@@ -221,7 +222,10 @@ def test_a_transformer_tensor_crosses_the_wire_encoded_off_the_loop(monkeypatch)
     """An in-process TRANSFORMER in front of a REST MODEL: the transformer's
     output, still a tensor, is encoded on the engine's dispatch threads,
     never on the event loop, and the answer is the port's and the JAX
-    engine's all-in-process answer."""
+    engine's all-in-process answer.  The JSON lane (the binary wire's
+    switch off: its encoder is held the same way in
+    ``test_a_transformer_tensor_rides_the_binary_wire_encoded_off_the_loop``)."""
+    monkeypatch.setenv("SELDON_TPU_WIRE", "0")
     graph = {"name": "t", "type": "TRANSFORMER", "children": [{"name": "m", "type": "MODEL"}]}
     units = {"t": WIRE_UNITS["t"], "m": WIRE_UNITS["s1"]}
     x = _ints(5, (3, 4))
@@ -263,6 +267,52 @@ def test_a_transformer_tensor_crosses_the_wire_encoded_off_the_loop(monkeypatch)
     assert _answer(text) == _answer(want[0]) == _answer(jwant[0])
     tensor_threads = [thread for thread, tensor in encoded if tensor]
     assert tensor_threads and loop_thread not in tensor_threads
+
+
+def test_a_transformer_tensor_rides_the_binary_wire_encoded_off_the_loop(monkeypatch):
+    """The same graph with the binary wire on (the default): the REST
+    MODEL's predict goes as a frame, framed from the transformer's tensor
+    on the engine's dispatch threads, never on the event loop; the unit
+    answers a frame, and the answer is the JSON lane's."""
+    from seldon_core_tpu_torch.runtime import wire
+
+    graph = {"name": "t", "type": "TRANSFORMER", "children": [{"name": "m", "type": "MODEL"}]}
+    units = {"t": WIRE_UNITS["t"], "m": WIRE_UNITS["s1"]}
+    x = _ints(5, (3, 4))
+    body = json.dumps({"data": {"ndarray": x.tolist()}})
+    local = EngineService(SeldonDeploymentSpec.from_json_dict(_doc(graph, _components(units))),
+                          device="cpu", batching=False)
+    want = asyncio.run(local.predict_json(body))
+    local.close()
+    framed = []  # (thread, whether the payload was a tensor) of each request frame
+    frame_from_message = wire.frame_from_message
+
+    def spy(msg, **kw):
+        if not kw.get("response"):
+            framed.append((threading.get_ident(), isinstance(msg.data.array, torch.Tensor)))
+        return frame_from_message(msg, **kw)
+
+    monkeypatch.setattr(wire, "frame_from_message", spy)
+
+    async def run():
+        cls, params, typ = units["m"]
+        server = await serve_unit(build_runtime(
+            cls, typ, [Parameter.from_json_dict(p) for p in params], unit_name="m",
+            device="cpu", executor=pool), "127.0.0.1", 0)
+        engine = EngineService(SeldonDeploymentSpec.from_json_dict(
+            _doc(graph, _components(units, ("m",), {"m": server.port}))), device="cpu")
+        try:
+            return engine, threading.get_ident(), await engine.predict_json(body)
+        finally:
+            engine.close()
+            await server.stop()
+
+    with ThreadPoolExecutor(1) as pool:
+        engine, loop_thread, (text, status) = asyncio.run(run())
+    assert engine.executor.runtimes["m"]._wire_ok
+    assert status == 200 == want[1] and _answer(text) == _answer(want[0])
+    assert framed and all(tensor for _, tensor in framed)
+    assert loop_thread not in [thread for thread, _ in framed]
 
 
 @pytest.mark.parametrize("direction", ["port-engine", "jax-engine"])
@@ -328,7 +378,8 @@ def _post(port, path, body, headers=None):
 
 def test_unit_microservice_routes_deadline_and_media_type():
     """The unit API answers each route; a spent Seldon-Deadline-Ms budget on
-    arrival is a 504, the binary wire a 415, a malformed body a 400, a
+    arrival is a 504, a torn binary tensor frame a typed 400 (a whole one is
+    answered in kind: tests/test_torch_wire.py), a malformed body a 400, a
     method the unit lacks a 501; /ping and /stats answer."""
     async def run():
         servers, ports, _ = await _port_unit_servers(ROUTER_UNITS, ("r", "a"))
@@ -370,7 +421,7 @@ def test_unit_microservice_routes_deadline_and_media_type():
     assert json.loads(out["route"][1])["data"]["ndarray"] == [[0.0]]
     assert out["late"][0] == 504 and b"exhausted on arrival" in out["late"][1]
     assert out["budget"][0] == 200
-    assert out["wire"][0] == 415 and b"item [3]" in out["wire"][1]
+    assert out["wire"][0] == 400 and b"truncated wire header" in out["wire"][1]
     assert out["bad"][0] == 400 and out["lacking"][0] == 501
     assert out["feedback"][0] == 200
     assert ping == (200, b"pong")
@@ -452,10 +503,11 @@ def _msg():
     return SeldonMessage.from_array(np.ones((1, 2)))
 
 
-def test_transient_statuses_retry_idempotent_methods_only():
+def test_transient_statuses_retry_idempotent_methods_only(monkeypatch):
     """503s retry a predict to its answer, each request with the identity
     headers; a route and a send-feedback get one attempt; a 500 is never
-    retried."""
+    retried.  On the JSON lane (the wire's negotiation has its own test)."""
+    monkeypatch.setenv("SELDON_TPU_WIRE", "0")
     async def run():
         stub = await Stub([(503, b"busy"), (503, b"busy"), (200, OK),
                            (503, b"busy"), (503, b"busy"), (500, b"bug")]).start()
@@ -488,7 +540,46 @@ def test_transient_statuses_retry_idempotent_methods_only():
     assert breaker.snapshot()["window_failures"] == 5  # four 503s and the 500
 
 
-def test_a_4xx_is_the_callers_fault_and_the_budget_caps_retries():
+def test_the_binary_wire_negotiates_down_to_json():
+    """A predict goes as a frame first (the reference's negotiation): a 503
+    to a frame is retried as a frame; a JSON 415 turns the node's wire off
+    and the same attempt goes again as JSON (a breaker success, not a
+    failure); later predicts are JSON.  A JSON 200 to a frame is taken, and
+    also turns the wire off."""
+    from seldon_core_tpu_torch.runtime import wire
+
+    async def run():
+        stub = await Stub([(503, b"busy"), (415, b"no frames"), (200, OK), (200, OK),
+                           (200, OK)]).start()
+        lenient = await Stub([(200, OK)]).start()
+        breaker = CircuitBreaker("n")
+        rt = _client(stub.port, breaker=breaker, budget=RetryBudget())
+        rt2 = _client(lenient.port)
+        try:
+            first = await rt.predict(_msg())
+            second = await rt.predict(_msg())
+            taken = await rt2.predict(_msg())
+            return first, second, taken, stub.requests, lenient.requests, rt, rt2, breaker
+        finally:
+            rt.close()
+            rt2.close()
+            await stub.stop()
+            await lenient.stop()
+
+    first, second, taken, requests, lenient, rt, rt2, breaker = asyncio.run(run())
+    assert first.array().tolist() == second.array().tolist() == taken.array().tolist() == [[1.0]]
+    ctypes = [r[1]["content-type"] for r in requests]
+    assert ctypes == [wire.WIRE_CONTENT_TYPE] * 2 + ["application/json"] * 2
+    assert wire.decode_frame(requests[0][2]).array.tolist() == [[1.0, 1.0]]
+    assert not rt._wire_ok and not rt2._wire_ok
+    assert lenient[0][1]["content-type"] == wire.WIRE_CONTENT_TYPE
+    assert breaker.snapshot()["window_failures"] == 1  # the 503; the 415 is no failure
+
+
+def test_a_4xx_is_the_callers_fault_and_the_budget_caps_retries(monkeypatch):
+    # on the JSON lane: a 400 to a frame would negotiate the wire down
+    monkeypatch.setenv("SELDON_TPU_WIRE", "0")
+
     async def run():
         stub = await Stub([(400, b"bad"), (503, b"busy"), (503, b"busy")]).start()
         breaker = CircuitBreaker("n")
@@ -643,12 +734,16 @@ def test_quorum_absorbs_a_dead_node_and_the_breaker_shows_in_ready_and_stats():
     assert doc["graph_fuse"]["plan"]["blocked"]["comb"].startswith("quorum")
 
 
-def test_microservice_main_refuses_what_is_not_ported(capsys):
-    for argv, match in ((["MnistClassifier", "GRPC"], "item [3]"),
-                        (["MnistClassifier", "REST", "--persistence", "1"], "item [4]")):
+def test_microservice_main_refuses_what_is_not_ported(capsys, monkeypatch):
+    for api in ("REST", "GRPC"):
         with pytest.raises(SystemExit) as e:
-            microservice.main(argv)
-        assert e.value.code == 2 and match in capsys.readouterr().err
+            microservice.main(["MnistClassifier", api, "--persistence", "1"])
+        assert e.value.code == 2 and "item [4]" in capsys.readouterr().err
+    # GRPC is served now (tests/test_torch_grpc.py): the unit builds for it
+    monkeypatch.setenv("MICROSERVICE_SMOKE_EXIT", "1")
+    microservice.main(["MnistClassifier", "GRPC", "--device", "cpu"])
+    assert "smoke ok: MnistClassifier as MODEL on cpu" in capsys.readouterr().out
+    monkeypatch.delenv("MICROSERVICE_SMOKE_EXIT")
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as e:
             microservice.main(["MnistClassifier", "REST"])  # cuda by default
