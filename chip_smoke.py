@@ -16,7 +16,10 @@ ensemble4 example fused, compiled and in host mode with one node served by
 the unit microservice, partial fusion, quorum and fallback; the MNIST
 example over the binary tensor wire, gRPC, a unix socket and the relay,
 and ensemble4 with a gRPC microservice and a unix: host),
-trains the flagship LM a few steps and serves its checkpoint, checks the
+trains the flagship LM a few steps and serves its checkpoint, then serves
+the MNIST example, ensemble4 across processes and the flagship generator
+with every observatory on and reads them back through the observability
+routes (phase 10o, after every phase that opens a profiler), checks the
 answers, shows that each run went through its kernels, and times each
 kernel beside its plain version, a PyTorch library call and its bound.
 Weights are random, from a seed.  Phases, in order; any failure exits
@@ -290,8 +293,34 @@ it serves the static lane it measured before that lane's switch:
               SDPA's backward; then the {"kernels": [...]} line with all
               eight kernels, the float32 path of flash_decode_paged in a
               row of its own and the three int8 variants in rows of their
-              own, each row's launches those of every served path (phases 4
-              and 8-10n), with a breakdown by path
+              own, each row's launches those of every served path (phases 4,
+              8-10o), with a breakdown by path
+ 10o. observability (after phase 14, with no profiler open): MNIST with
+              every observatory on (SELDON_TPU_TRACE at sample 1,
+              telemetry and perf on), 200 1-row and 8 64-row keepalive
+              requests: /prometheus parsed here, its families
+              MetricsRegistry.family_names(), the server histogram's count
+              the requests, the dispatch histogram's the dispatches; /perf's
+              rows predict[1x784/float32] and predict[64x784/float32], calls
+              == dispatches == the fused MLP's launches, FLOPs the hand count,
+              MFU in (0, 1], the card's peaks not assumed, its memory rows;
+              one request's /trace a single tree (request -> batch_queue,
+              dispatch) whose critical path covers >= 90% of the root, and
+              /trace/export; a profile window over 20 requests in an
+              engine_main of its own (a process that has profiled nothing
+              before) naming the fused-MLP kernel once a dispatch, a
+              second start 409; the
+              1-row p50 with everything on and off in turns beside /overhead.
+              ensemble4 in host mode with m3 behind the microservice over
+              REST (the binary wire), gRPC and an engine's unix socket: m3's
+              spans of a traced request under the engine's client span.
+              The flagship generator, continuous lane, default knobs: 8
+              1-row 512-token requests 20 ms apart and one 32-row request;
+              /genperf's prefill and decode ticks, host + device + bubble
+              >= 95% of the scheduler's wall, served decode MFU and HBM
+              share in (0, 1], flash_decode_paged's launches 12 x the ticks'
+              decode steps, kv_write_paged's 12 x the prefill ticks; a
+              {"new_paths": {"observability": ...}} line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -5714,6 +5743,453 @@ def remote_launches_uds(path: str) -> int:
     return int(doc["kernels"]["fused_mlp_softmax"]["launches"])
 
 
+
+# ---------------------------------------------------------------------------
+# 10o. observability: the flight recorder, Prometheus, the tracer, the perf
+# observatory, the spine and /genperf on the card
+# ---------------------------------------------------------------------------
+
+OBS_ONE_ROW = 200          # keepalive 1-row requests with every observatory on
+OBS_BATCHES = 8            # 64-row requests after them
+OBS_PROFILED = 20          # requests inside the profile window
+OBS_TURNS = 2              # ABBA turns of the overhead comparison (200 requests a wall)
+OBS_TRACE_COVER = 0.9      # the critical path's share of the root span's wall, at least
+OBS_ACCOUNTED = 0.95       # host + device + bubble share of the scheduler's wall, at least
+MLP_SYMBOL = "fused_mlp_softmax_kernel"
+
+
+def parse_prometheus(text: str):
+    """The text format (0.0.4): ``({family: type}, [(sample, {label: value},
+    value)])``; enough of a parser for the port's own exposition."""
+    import re
+
+    types, samples = {}, []
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, typ = line.split(" ", 3)
+            types[name] = typ
+        elif line and not line.startswith("#"):
+            head, _, value = line.rpartition(" ")
+            name, _, labels = head.partition("{")
+            samples.append((name, dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', labels)),
+                            float(value)))
+    return types, samples
+
+
+def sample_sum(samples, name: str, **match) -> float:
+    return sum(v for n, lbl, v in samples
+               if n == name and all(lbl.get(k) == w for k, w in match.items()))
+
+
+def get_json(port: int, path: str, method: str = "GET", body=None):
+    status, raw = request(method, f"http://127.0.0.1:{port}{path}", body)
+    if status != 200:
+        raise AssertionError(f"[obs] {method} {path}: HTTP {status}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def observatories(on: bool) -> None:
+    """Every observatory of the process on (tracing at sample 1) or off:
+    what SELDON_TPU_TRACE=1 / SELDON_TPU_TRACE_SAMPLE=1 and
+    SELDON_TPU_TELEMETRY=0, SELDON_TPU_TRACE=0, SELDON_TPU_PERF=0 set at
+    import, set here on the live singletons."""
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+    from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+    from seldon_core_tpu_torch.utils.tracing import TRACER
+
+    TRACER.enabled = on
+    TRACER.sample = 1.0
+    SPINE.telemetry_enabled = on
+    OBSERVATORY.enabled = on
+
+
+def obs_mnist(torch, dev, fused_mlp, smi) -> dict:
+    """Part 1: MNIST with every observatory on, over REST."""
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+    from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
+    from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+    from seldon_core_tpu_torch.utils.tracing import TRACER
+
+    observatories(True)
+    SPINE.drain()
+    TRACER.clear()
+    OBSERVATORY.reset()
+    engine = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    unit = engine.compiled.units["mnist"]
+    server = ServerThread(engine)
+    port = server.start()
+    out = {}
+    try:
+        rng = np.random.default_rng(SEED + 41)
+        x1 = rng.random((1, 784))
+        x64 = rng.random((64, 784))
+        _, before = parse_prometheus(request("GET", f"http://127.0.0.1:{port}/prometheus")[1]
+                                     .decode())
+        fused_mlp.LAUNCHES = 0
+        walls = keepalive_walls(port, ndarray(x1), OBS_ONE_ROW)
+        walls64 = keepalive_walls(port, ndarray(x64), OBS_BATCHES)
+        launches = fused_mlp.LAUNCHES
+        sent = OBS_ONE_ROW + OBS_BATCHES
+        status, raw = request("GET", f"http://127.0.0.1:{port}/prometheus")
+        types, samples = parse_prometheus(raw.decode())
+        families = {n for n in types if not n.endswith("_created")}
+        if status != 200 or families != set(MetricsRegistry.family_names()):
+            raise AssertionError(f"[obs] /prometheus families differ from family_names(): "
+                                 f"{sorted(families ^ set(MetricsRegistry.family_names()))}")
+        served = sample_sum(samples, "seldon_api_engine_server_requests_duration_seconds_count",
+                            service="predictions")
+        dispatch_n = {k: sample_sum(samples, "seldon_tpu_dispatch_seconds_count",
+                                    executable=f"predict[{b}x784/float32]")
+                      - sample_sum(before, "seldon_tpu_dispatch_seconds_count",
+                                   executable=f"predict[{b}x784/float32]")
+                      for k, b in (("1", 1), ("64", 64))}
+        perf = get_json(port, "/perf")
+        rows = {r["executable"]: r for r in perf["executables"]}
+        r1, r64 = rows.get("predict[1x784/float32]"), rows.get("predict[64x784/float32]")
+        if r1 is None or r64 is None:
+            raise AssertionError(f"[obs] /perf rows: {sorted(rows)}")
+        calls = r1["calls"] + r64["calls"]
+        dims = unit.dims
+        hand = {b: 2.0 * b * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+                for b in (1, 64)}
+        peaks = perf["device"]
+        hbm = perf["hbm"][0]
+        limit = torch.cuda.mem_get_info(dev)[1]
+        checks = {
+            "served == sent": served == sent,
+            "dispatch histogram == dispatches": dispatch_n == {"1": OBS_ONE_ROW,
+                                                               "64": OBS_BATCHES},
+            "perf calls == launches == sent": calls == launches == sent,
+            "flops == hand count": (r1["flops"], r64["flops"]) == (hand[1], hand[64]),
+            "0 < mfu <= 1": all(0 < r["mfu"] <= 1 for r in (r1, r64)),
+            "peaks name the card": (peaks["device_kind"] == torch.cuda.get_device_name(dev)
+                                    and peaks["platform"] == "gpu"
+                                    and peaks["peak_assumed"] is False),
+            "hbm": hbm.get("bytes_in_use", 0) > 0 and hbm.get("bytes_limit") == limit,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"[obs] MNIST checks failed: {checks}; served {served}, "
+                                 f"dispatches {dispatch_n}, calls {calls}, launches {launches}, "
+                                 f"flops {(r1.get('flops'), r64.get('flops'))} vs {hand}, "
+                                 f"peaks {peaks}, hbm {hbm} vs limit {limit}")
+        log(f"[obs] MNIST ({dims}, bf16) over REST, every observatory on: {OBS_ONE_ROW} 1-row "
+            f"and {OBS_BATCHES} 64-row keepalive requests; /prometheus's {len(families)} families "
+            f"are family_names(), the server histogram counts {served:.0f} requests, the dispatch "
+            f"histogram {dispatch_n}; /perf: {calls} calls == {launches} fused-MLP launches, "
+            f"FLOPs the hand count, MFU {r1['mfu']} (1 row) and {r64['mfu']} (64 rows, "
+            f"{r64['bound']}-bound), p50 {r1['latency_ms']['p50']} / {r64['latency_ms']['p50']} ms "
+            f"wall to readback; peaks {peaks['peak_bf16_tflops']} TFLOP/s and "
+            f"{peaks['peak_hbm_gbs']} GB/s (not assumed); memory {hbm['bytes_in_use']} of "
+            f"{hbm['bytes_limit']} bytes, peak {hbm['peak_bytes_in_use']} ({smi})")
+        out["mnist"] = {"requests": sent, "dispatches": calls, "launches": launches,
+                        "mfu_1row": r1["mfu"], "mfu_64row": r64["mfu"],
+                        "bound_1row": r1.get("bound"), "bound_64row": r64.get("bound"),
+                        "dispatch_p50_ms": {"1": r1["latency_ms"]["p50"],
+                                            "64": r64["latency_ms"]["p50"]},
+                        "request_p50_ms": {"1": float(np.median(walls)) * 1e3,
+                                           "64": float(np.median(walls64)) * 1e3},
+                        "hbm": hbm, "families": len(families)}
+
+        # one request's tree, and the export
+        puid = "obs-trace"
+        status, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                              {"meta": {"puid": puid}, "data": {"ndarray": x1.tolist()}})
+        check_answer(status, raw, 1, "ndarray")
+        doc = get_json(port, f"/trace?puid={puid}")
+        spans = doc["spans"]
+        roots = [s for s in spans if not s.get("parent_span_id")]
+        root = roots[0] if len(roots) == 1 else None
+        names = sorted((s["name"], s.get("parent_span_id") == (root or {}).get("span_id"))
+                       for s in spans if s is not root)
+        covered = sum(seg["self_ms"] for seg in doc["critical_path"])
+        if (root is None or root["name"] != "request" or root["kind"] != "request"
+                or names != [("batch_queue", True), ("dispatch", True)]
+                or len({s["trace_id"] for s in spans}) != 1
+                or covered < OBS_TRACE_COVER * doc["root_duration_ms"]):
+            raise AssertionError(f"[obs] /trace?puid=: roots {roots}, children {names}, "
+                                 f"critical path {covered} of {doc.get('root_duration_ms')} ms")
+        export = get_json(port, f"/trace/export?puid={puid}")
+        if not export.get("traceEvents"):
+            raise AssertionError("[obs] /trace/export has no events")
+        log(f"[obs] /trace?puid={puid}: one tree, request -> (batch_queue, dispatch) across the "
+            f"batcher and the dispatch thread, trace {root['trace_id']}; critical path "
+            f"{covered:.3f} of {doc['root_duration_ms']} ms; phases {doc['phases']}; "
+            f"/trace/export {len(export['traceEvents'])} Chrome trace events")
+        out["trace"] = {"root_ms": doc["root_duration_ms"], "critical_path_ms": covered,
+                        "phases": doc["phases"]}
+
+        out["profile"] = obs_profile_window(dev, x1, smi)
+
+        # the overhead in turns: everything on, everything off, ABBA
+        p50 = {"on": [], "off": []}
+        for turn in range(OBS_TURNS):
+            for mode in (("on", "off") if turn % 2 == 0 else ("off", "on")):
+                observatories(mode == "on")
+                p50[mode].append(keepalive_p50_ms(port, ndarray(x1), OBS_ONE_ROW))
+        observatories(True)
+        over = get_json(port, "/overhead")
+        out["overhead"] = {"p50_ms_on": p50["on"], "p50_ms_off": p50["off"],
+                           "framework_p50_ms": over["framework_p50_ms"],
+                           "budget_ms": over["budget_ms"],
+                           "within_budget": over["within_budget"]}
+        log(f"[obs] MNIST 1-row p50 over {OBS_ONE_ROW} keepalive requests, ABBA: every "
+            f"observatory on {[round(v, 4) for v in p50['on']]} ms, all off "
+            f"{[round(v, 4) for v in p50['off']]} ms; /overhead framework_p50_ms "
+            f"{over['framework_p50_ms']} against the {over['budget_ms']} ms budget (reported, "
+            f"not gated; {smi})")
+        # the 208 requests', the traced one's and the turns'
+        out["launches"] = fused_mlp.LAUNCHES
+    finally:
+        server.stop()
+    return out
+
+
+def obs_profile_window(dev, x1, smi) -> dict:
+    """The profile window over 20 requests, in an engine of its own
+    (`engine_main` serving the MNIST example on the card, a process that
+    has run no profiler before): a process that has already traced many
+    launches loses some of a later session's device records (this script's
+    own phases 4-14 left half of them unrecorded), so the check of one
+    kernel event a dispatch is made where a window is the first session."""
+    pid = os.getpid()
+    port = free_port()
+    prof_dir = f"/tmp/sct_obs_prof_{pid}"
+    proc, _ = start_service(
+        ["seldon_core_tpu_torch.runtime.engine_main", "--file",
+         str(ROOT / "examples" / "mnist_deployment.json"), "--device", dev.type, "--host",
+         "127.0.0.1", "--rest-port", str(port)],
+        {"SELDON_TPU_PROFILE_DIR": prof_dir, "ENGINE_SERVER_GRPC_PORT": str(free_port()),
+         "SELDON_TPU_TRACE": "1"}, "engine up:")
+    try:
+        keepalive_walls(port, ndarray(x1), 3)  # the first calls' set-up outside the window
+
+        def launches() -> int:
+            return int(get_json(port, "/stats")["kernels"]["fused_mlp_softmax"]["launches"])
+
+        start = get_json(port, "/profile/start", "POST", {"duration_s": 120})
+        busy, _ = request("POST", f"http://127.0.0.1:{port}/profile/start", {})
+        before = launches()
+        keepalive_walls(port, ndarray(x1), OBS_PROFILED)
+        in_window = launches() - before
+        stop = get_json(port, "/profile/stop", "POST", {})["last"]
+        if busy != 409 or "error" in stop or not stop.get("artifact"):
+            raise AssertionError(f"[obs] profile window: second start {busy}, stop {stop}")
+        events = json.loads(Path(stop["artifact"]).read_text()).get("traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and MLP_SYMBOL in str(e.get("name", ""))]
+        if (len(kernels) != in_window or in_window != OBS_PROFILED
+                or stop["launch_records"] != in_window):
+            cats: dict = {}
+            for e in events:
+                cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+            raise AssertionError(f"[obs] the window's artifact names {MLP_SYMBOL} "
+                                 f"{len(kernels)} times for {in_window} dispatches "
+                                 f"(events by category {cats}; the window {stop})")
+        status = get_json(port, "/profile")
+        if status["active"] is not False:
+            raise AssertionError(f"[obs] /profile after stop: {status}")
+    finally:
+        stop_service(proc)
+    log(f"[obs] profile window {start['window']} in an engine_main of its own: a second start "
+        f"answered 409; {OBS_PROFILED} requests, {in_window} fused-MLP launches there, "
+        f"{len(kernels)} {MLP_SYMBOL} device events and {stop['launch_records']} launch "
+        f"calls in its artifact ({stop['events']} events, {stop['device_events']} on the card; "
+        f"{smi})")
+    return {"dispatches": in_window, "kernel_events": len(kernels), "events": stop["events"],
+            "device_events": stop["device_events"]}
+
+
+def obs_across_processes(torch, dev, fused_mlp, smi) -> dict:
+    """Part 2: ensemble4 in host mode with m3 behind the unit microservice
+    (REST, so the binary wire; gRPC) and behind an engine's unix socket:
+    one traced request each, its spans at m3's process under the engine's
+    client span."""
+    from seldon_core_tpu_torch.utils.tracing import TRACER
+
+    observatories(True)
+    doc = example_doc("ensemble4")
+    pid = os.getpid()
+    seed3 = json.dumps([p.to_json_dict() for p in _seed3()])
+    rest_port, grpc_port, grpc_http = free_port(), free_port(), free_port()
+    m3_rest, m3_uds = free_port(), f"/tmp/sct_obs_m3_{pid}.sock"
+    m3_file = Path(f"/tmp/sct_obs_m3_{pid}.json")
+    m3_file.write_text(json.dumps({"spec": {"name": "m3", "predictors": [{
+        "name": "main", "components": [c for c in doc["spec"]["predictors"][0]["components"]
+                                       if c["name"] == "m3"],
+        "graph": {"name": "m3", "type": "MODEL"}}]}}))
+    traced = {"SELDON_TPU_TRACE": "1", "SELDON_TPU_TRACE_SAMPLE": "1.0"}
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(start_service, *a) for a in [
+            (["seldon_core_tpu_torch.runtime.microservice", "MnistClassifier", "REST",
+              "--port", str(rest_port), "--parameters", seed3, "--device", dev.type], traced,
+             "unit up:"),
+            (["seldon_core_tpu_torch.runtime.microservice", "MnistClassifier", "GRPC",
+              "--port", str(grpc_port), "--http-port", str(grpc_http), "--parameters", seed3,
+              "--device", dev.type], traced, "unit up:"),
+            (["seldon_core_tpu_torch.runtime.engine_main", "--file", str(m3_file), "--device",
+              dev.type, "--host", "127.0.0.1", "--rest-port", str(m3_rest)],
+             {**traced, "ENGINE_SERVER_GRPC_PORT": str(free_port()),
+              "ENGINE_HTTP_UDS_PATH": m3_uds}, "engine up:")]]
+    errors = [f.exception() for f in futs]
+    procs = [f.result()[0] for f, e in zip(futs, errors) if e is None]
+    out = {}
+    engines = {}
+    try:
+        if any(errors):
+            raise next(e for e in errors if e is not None)
+        lanes = {
+            "rest (binary wire)": ({"runtime": "rest", "host": "127.0.0.1", "port": rest_port},
+                                   rest_port, "server"),
+            "grpc": ({"runtime": "grpc", "host": "127.0.0.1", "port": grpc_port}, grpc_http,
+                     "server"),
+            "unix": ({"runtime": "rest", "host": f"unix:{m3_uds}"}, m3_rest, "request"),
+        }
+        x = np.random.default_rng(SEED + 42).random((1, 784))
+        for lane, (binding, _, _) in lanes.items():
+            d = json.loads(json.dumps(doc))
+            comps = d["spec"]["predictors"][0]["components"]
+            comps[[c["name"] for c in comps].index("m3")] = {"name": "m3", **binding}
+            engines[lane] = mode_engine(torch, dev, d, continuous=False)
+            if engines[lane].mode != "host":
+                raise AssertionError(f"[obs] ensemble4 with a remote m3: mode "
+                                     f"{engines[lane].mode}")
+        fused_mlp.LAUNCHES = 0  # after the engines' probes: the requests' launches
+        for lane, (binding, trace_port, remote_kind) in lanes.items():
+            engine = engines[lane]
+            puid = f"obs-{lane.split()[0]}"
+            msg = json.dumps({"meta": {"puid": puid}, "data": {"ndarray": x.tolist()}})
+            text, status = asyncio.run(engine.predict_json(msg))
+            if status != 200:
+                raise AssertionError(f"[obs] {lane}: HTTP {status}: {text[:300]}")
+            spans = TRACER.trace(puid)
+            client = [s for s in spans if s.kind == "client" and s.name == "m3"]
+            if len(client) != 1:
+                raise AssertionError(f"[obs] {lane}: client spans {client}")
+            client = client[0]
+            remote = get_json(trace_port, f"/trace?trace_id={client.trace_id}")["spans"]
+            far = [s for s in remote if s["kind"] == remote_kind]
+            if (len(far) != 1 or far[0]["parent_span_id"] != client.span_id
+                    or any(s["trace_id"] != client.trace_id for s in remote)):
+                raise AssertionError(f"[obs] {lane}: m3's spans {remote} do not hang under the "
+                                     f"engine's client span {client.span_id}")
+            out[lane] = {"trace_id": client.trace_id, "remote_spans": len(remote),
+                         "client_ms": round(client.duration_ms, 3),
+                         "remote_ms": far[0]["duration_ms"],
+                         "transport": client.attrs.get("transport")}
+            log(f"[obs] ensemble4, m3 over {lane}: trace {client.trace_id}; at m3's process "
+                f"{len(remote)} span(s) of that trace, its {remote_kind} span "
+                f"({far[0]['duration_ms']} ms) the child of the engine's client span "
+                f"({client.duration_ms:.3f} ms, transport {client.attrs.get('transport')})")
+        out["launches"] = fused_mlp.LAUNCHES
+    finally:
+        for e in engines.values():
+            e.close()
+        for proc in procs:
+            stop_service(proc)
+        m3_file.unlink(missing_ok=True)
+    return out
+
+
+def obs_genperf(torch, dev, smi) -> dict:
+    """Part 3: the flagship generator on the continuous lane, default
+    knobs, behind /genperf."""
+    from seldon_core_tpu_torch.ops import flash_decode as fd, kv_write as kw
+    from seldon_core_tpu_torch.utils.genperf import GENPERF
+
+    engine = mode_engine(torch, dev, gen_deployment(), continuous=True)
+    g = engine.genserver
+    cfg = engine.compiled.units["gen"].cfg
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    rng = np.random.default_rng(SEED + 43)
+    vocab = GEN_DIMS["vocab"]
+    singles = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(CONT_BURST)]
+    batch = rng.integers(0, vocab, size=(GEN_B, GEN_S))
+    try:
+        GENPERF.reset()
+        snap0 = g.snapshot()
+        fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CONT_BURST + 1) as pool:
+            futs = []
+            for p in singles:
+                futs.append(pool.submit(request, "POST", url, ndarray(p)))
+                time.sleep(CONT_GAP_S)
+            futs.append(pool.submit(request, "POST", url, ndarray(batch)))
+            answers = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        paged, kvp = fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES
+        for (status, raw), p in zip(answers, singles + [batch]):
+            check_tokens(status, raw, p, "ndarray")
+        snap = g.snapshot()
+        doc = get_json(port, "/genperf")
+    finally:
+        server.stop()
+    ticks = doc["ticks"]
+    served = doc["served_decode"]
+    acc = doc["accounting"]
+    prefill_dispatches = snap["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+    steps = served["device_steps"]
+    mfu = (served["served_decode_mfu_pct"] or 0.0) / 100.0
+    bw = (served["served_decode_hbm_bw_util_pct"] or 0.0) / 100.0
+    checks = {
+        "prefill and decode ticks": ticks.get("prefill", 0) > 0 and (
+            ticks.get("decode", 0) + ticks.get("mixed", 0)) > 0,
+        "accounted": (acc["accounted_fraction"] or 0.0) >= OBS_ACCOUNTED,
+        "0 < decode MFU <= 1": 0 < mfu <= 1,
+        "0 < HBM share <= 1": 0 < bw <= 1,
+        "paged launches == layers x steps": paged == cfg.n_layers * steps and steps > 0,
+        "steps == the scheduler's": steps == snap["decode_steps_total"] - snap0[
+            "decode_steps_total"],
+        "kv_write_paged == layers x prefill ticks": (
+            kvp == cfg.n_layers * prefill_dispatches and 0 < prefill_dispatches
+            <= ticks.get("prefill", 0) + ticks.get("mixed", 0)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[obs] /genperf checks failed: {checks}; ticks {ticks}, "
+                             f"accounting {acc}, served {served}, launches paged {paged} "
+                             f"kv {kvp}, prefill dispatches {prefill_dispatches}")
+    bubbles = doc["bubbles"]
+    log(f"[obs] flagship generator, continuous lane (default knobs): {CONT_BURST} 1-row "
+        f"{GEN_S}-token requests {CONT_GAP_S * 1e3:.0f} ms apart and one {GEN_B}-row request in "
+        f"{wall:.3f} s; /genperf ticks {ticks}; host {acc['host_s']} + device {acc['device_s']} "
+        f"+ bubble {acc['bubble_s']} s = {acc['accounted_fraction']} of the scheduler's "
+        f"{acc['scheduler_wall_s']} s; served decode MFU {mfu:.6f}, HBM-bandwidth share "
+        f"{bw:.6f} ({served['real_tokens']} real tokens over {served['decode_device_s']} s "
+        f"of decode wall to readback, {served['served_decode_tok_s_device']} tok/s); bubble "
+        f"share {bubbles['fraction']} by cause {bubbles['by_cause_s']}; flash_decode_paged "
+        f"{paged} launches = {cfg.n_layers} x {steps} decode steps, kv_write_paged {kvp} = "
+        f"{cfg.n_layers} x {prefill_dispatches} prefill ticks ({smi})")
+    return {"ticks": ticks, "accounting": acc, "served_decode_mfu": mfu,
+            "served_decode_hbm_share": bw, "bubble_fraction": bubbles["fraction"],
+            "bubbles_s": bubbles["by_cause_s"], "decode_steps": steps,
+            "prefill_ticks": prefill_dispatches, "wall_s": wall,
+            "launches": {"flash_decode_paged": paged, "kv_write_paged": kvp},
+            "tok_s_device": served["served_decode_tok_s_device"]}
+
+
+def observability_phase(torch, dev, smi) -> dict:
+    """Phase 10o: the observability slice on the card, after every phase
+    that opens a torch.profiler session of its own."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+
+    t0 = time.perf_counter()
+    mnist = obs_mnist(torch, dev, fused_mlp, smi)
+    across = obs_across_processes(torch, dev, fused_mlp, smi)
+    across_launches = across.pop("launches")
+    gen = obs_genperf(torch, dev, smi)
+    observatories(False)
+    out = {"mnist": mnist.pop("mnist"), "trace": mnist.pop("trace"),
+           "profile": mnist.pop("profile"), "overhead": mnist.pop("overhead"),
+           "across_processes": across, "genperf": gen, "card": smi,
+           "launches": {"fused_mlp_softmax": mnist["launches"] + across_launches,
+                        **gen["launches"]},
+           "wall_s": time.perf_counter() - t0}
+    log(f"[obs] phase 10o wall {out['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5848,6 +6324,14 @@ def main() -> int:
         "at": spec_ex["times"],
     }
     dq_row, dkv_row = training_phases(torch, dev, smi)
+    # 10o: after every phase that opens a torch.profiler session of its own
+    obs = observability_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"observability": obs}}))
+    mlp_row["launches_by_path"]["observability"] = obs["launches"]["fused_mlp_softmax"]
+    mlp_row["launches"] += obs["launches"]["fused_mlp_softmax"]
+    for row, name in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
+        row["launches_by_path"]["observability (/genperf)"] = obs["launches"][name]
+        row["launches"] += obs["launches"][name]
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,

@@ -23,10 +23,21 @@ router it does not record).  A remote node, a node without a unit and an
 impure unit (a plain user object behind its adapter) are refused with a
 ``GraphSpecError``, which the engine takes as its cue to serve the graph
 through the host interpreter (``graph/interpreter.py``).
+
+The perf observatory (``utils/perf.py``) sees every walk under
+``executable_key`` (``predict[1x784/float32]``, the JAX package's key for
+the same request): the first walk of a shape registers the shape's cost
+features where the JAX executor's AOT capture does, with the first call's
+wall as its compile time, since the port runs eagerly.  The features are
+the analytic count the units give (``Unit.dispatch_cost``, the fused MLP's
+``2·B·Σ d_in·d_out``) when every unit of a router-free graph gives one,
+else none: a latency-only row, as on a JAX backend without cost
+analysis.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -57,6 +68,7 @@ from seldon_core_tpu_torch.graph.units import (
     normalize_output,
 )
 from seldon_core_tpu_torch.messages import Meta, SeldonMessage, Status
+from seldon_core_tpu_torch.utils.perf import OBSERVATORY, executable_key
 
 __all__ = ["CompiledGraph", "NOT_ROUTED", "build_units", "to_device"]
 
@@ -132,6 +144,13 @@ class CompiledGraph:
             if st is not None:
                 self.states[name] = to_device(st, self.device)
         self._all_routers = _routers_in(predictor.graph)
+        #: the perf observatory's program name (a fused subtree's is
+        #: ``fused:<root>``) and the shapes whose costs it has registered
+        self.key_name = "predict"
+        self._registered: set = set()
+        #: per-node share of a multi-node graph's cost, stamped on every
+        #: dispatch record (computed at the first registration)
+        self.phases: Optional[Dict[str, float]] = None
         self._predict_fn = self._build_predict(predictor.graph)
         self._feedback_fn = self._build_feedback(predictor.graph)
 
@@ -228,13 +247,71 @@ class CompiledGraph:
         advances the held unit states (not on a failure)."""
         return self._walk(X, None)
 
+    def executable_key(self, X) -> str:
+        """Stable per-shape executable identity (the perf observatory's
+        key); reads only the shape and dtype, never the values."""
+        dtype = getattr(X, "dtype", None)
+        if dtype is None:  # plain lists etc. — cold paths only
+            dtype = np.asarray(X).dtype
+        return executable_key(self.key_name, tuple(np.shape(X)), dtype)
+
+    def cost_features(self, rows: int) -> Optional[Dict[str, float]]:
+        """The analytic cost of one walk on ``rows`` rows: the sum of the
+        units' ``dispatch_cost`` when the graph has no router and every
+        unit gives one, else None (a latency-only row)."""
+        if self._all_routers:
+            return None
+        total: Dict[str, float] = {}
+        for name, unit in self.units.items():
+            cost = unit.dispatch_cost(self.states.get(name), rows)
+            if cost is None:
+                return None
+            for k, v in cost.items():
+                total[k] = total.get(k, 0.0) + float(v)
+        return total or None
+
+    def _phase_shares(self, rows: int) -> Optional[Dict[str, float]]:
+        """Each unit's share of a multi-node graph's FLOPs (a uniform split
+        when a unit gives no count); None for a single node."""
+        names = list(self.units)
+        if len(names) < 2:
+            return None
+        flops = {}
+        for n in names:
+            cost = self.units[n].dispatch_cost(self.states.get(n), rows)
+            flops[n] = float((cost or {}).get("flops", 0.0))
+        total = sum(flops.values())
+        if total <= 0:
+            return {n: round(1.0 / len(names), 4) for n in names}
+        return {n: round(v / total, 4) for n, v in flops.items()}
+
     def _walk(self, X, ctx) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
+        key = None
+        if OBSERVATORY.enabled:
+            key = self.executable_key(X)
+            if key in self._registered:
+                key = None
+            t0 = time.perf_counter()
         X = as_input(X, self.device)
         with torch.inference_mode():
             y, states, routing, tags = self._predict_fn(self.states, X, ctx)
+        if key is not None:
+            self._register(key, int(X.shape[0]) if X.ndim else 1,
+                           time.perf_counter() - t0)
         self.states = states
         routing = {r: routing.get(r, NOT_ROUTED) for r in self._all_routers}
         return y, {r: v for r, v in routing.items() if v != NOT_ROUTED}, tags
+
+    def _register(self, key: str, rows: int, first_call_s: float) -> None:
+        """A shape's first walk: its cost features and first-call wall into
+        the perf observatory (the JAX executor's ``_aot_build`` point),
+        and a multi-node graph's phase shares."""
+        self._registered.add(key)
+        OBSERVATORY.record_compile(key, self.cost_features(rows), first_call_s)
+        if self.phases is None:
+            self.phases = self._phase_shares(rows)
+        if self.phases is not None:
+            OBSERVATORY.note_phases(key, self.phases)
 
     def feedback_arrays(self, X, routing: Dict[str, Any], reward: float, truth=None) -> None:
         """The feedback pass: the units' state updates for a reward on rows

@@ -20,7 +20,7 @@ rules and branch-demotion rule are the reference's:
     neither trigger nor receive a move.  The rule runs on the branch the
     router already reads back once a request, so it adds no device sync.
     The per-router cost vectors come from the autopilot's learned model,
-    which is not ported yet (ROADMAP Queue 1 item [4]): until then they
+    which is not ported yet (ROADMAP Queue 1 item [4c]): until then they
     are NaN and the budget +inf, so the walk is the compiled one, never a
     numerics change; ``predict_arrays`` takes explicit ``costs`` and
     ``budget`` for a caller that has them.
@@ -32,10 +32,15 @@ rules and branch-demotion rule are the reference's:
     interpreter for any other); the predictor annotation
     ``seldon.io/graph-fuse: "false"`` opts one deployment out.
 
-Left out, having no eager counterpart: the phase decomposition of
-``_phase_weights`` (XLA's ``cost_analysis``), the per-shape AOT cache and
-the request buffer's donation.  The fused dispatch's hotrecord belongs to
-ROADMAP Queue 1 item [4].  Unit states derive from unit names
+The perf observatory keys a fused graph as the compiled executor does
+(``predict[...]`` for a whole graph, ``fused:<root>[...]`` for a
+subtree); its phase decomposition is each unit's share of the analytic
+FLOPs (``CompiledGraph._phase_shares``, a uniform split without counts),
+where the JAX package lowers each node for XLA's ``cost_analysis``.  A
+fused subtree's dispatch writes one telemetry-spine record
+(``utils/hotrecord.py``), as the JAX one does.  Left out, having no eager
+counterpart: the per-shape AOT cache and the request buffer's donation.
+Unit states derive from unit names
 (``unit_rngs``), so a fused subtree initialises exactly as the same units
 do under the interpreter.
 """
@@ -45,6 +50,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import time
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -64,6 +70,7 @@ from seldon_core_tpu_torch.graph.spec import (
 )
 from seldon_core_tpu_torch.graph.units import host_only_reason
 from seldon_core_tpu_torch.messages import Meta, SeldonMessage
+from seldon_core_tpu_torch.utils.hotrecord import SPINE
 
 __all__ = [
     "fuse_enabled",
@@ -242,7 +249,7 @@ class FusedGraph(CompiledGraph):
     def _cost_args(self) -> Tuple[Dict[str, np.ndarray], np.float32]:
         """The default (costs, budget): NaN vectors and +inf until the
         autopilot's learned branch costs and the request's remaining budget
-        are ported (ROADMAP Queue 1 item [4]), so no branch is ever demoted
+        are ported (ROADMAP Queue 1 item [4c]), so no branch is ever demoted
         by default."""
         costs = {r: np.full((n,), math.nan, np.float32) for r, n in self._router_children.items()}
         return costs, np.float32(math.inf)
@@ -291,10 +298,16 @@ class FusedSubtreeRuntime(_Serialized):
         super().__init__(executor)
         self.root = root
         self.graph = FusedGraph(_subtree_spec(predictor, root), rng=rng, device=device)
+        self.graph.key_name = f"fused:{root.name}"
 
     async def run(self, msg: SeldonMessage) -> SeldonMessage:
         X = _payload(msg)
         X = torch.atleast_2d(X) if isinstance(X, torch.Tensor) else np.atleast_2d(X)
+        # one fused dispatch record for the subtree (the perf observatory's
+        # row and the dispatch span under the node's ``fused`` span)
+        wants = SPINE.dispatch_wants()
+        t0 = time.perf_counter()
+        start_s = time.time()
         try:
             y, routing, tags = await self._run(self.graph.predict_arrays, X)
         except GraphSpecError:
@@ -303,6 +316,12 @@ class FusedSubtreeRuntime(_Serialized):
             # name the subtree, so the 400 stays actionable
             raise GraphSpecError(f"fused subtree {self.root.name!r} rejected input of shape "
                                  f"{tuple(X.shape)}: {e}") from e
+        if wants.any:
+            SPINE.record_dispatch(
+                wants, executable=self.graph.executable_key(X),
+                seconds=time.perf_counter() - t0, start_s=start_s,
+                rows=int(X.shape[0]), real_rows=int(X.shape[0]), method="fused",
+                quality_node=self.root.name, phases=self.graph.phases)
         resp = msg.with_array(y, names=self.graph._output_names(self.root, routing))
         resp.meta = Meta(puid=msg.meta.puid, tags={**msg.meta.tags, **pythonize_tags(tags)},
                          routing={**msg.meta.routing, **routing},

@@ -26,10 +26,17 @@ device tensor from hop to hop until a serialization edge reads it back.
 Given a thread pool, each in-process call runs there, under inference
 mode and the runtime's own lock, so a blocking unit (a kernel's readback,
 a user object) never holds the event loop and two requests never race on
-one unit's state.  Not ported yet: the tracer spans, the quality and
-telemetry records, and the autopilot's cost-aware branch demotion
-(``_autopilot_branch`` keeps the router's branch), all ROADMAP Queue 1
-item [4].
+one unit's state.  Each node method runs in a tracer span of the node's
+name (``method`` the unit method, ``fused`` for a fused subtree's one
+dispatch), children of the request's span, so the fan-out's branches,
+a ``quorum``'s and a ``fallback``'s appear as sibling subtrees; a
+fallback that served and a quorum that dropped branches add a span event
+(``fallback``, ``quorum_degraded``) and count in
+``seldon_tpu_degraded_requests_total``, and an expired deadline at a hop
+in ``seldon_tpu_deadline_exceeded_total``.  Not ported yet: the quality
+records (ROADMAP Queue 1 item [4b]) and the autopilot's cost-aware branch
+demotion (``_autopilot_branch`` keeps the router's branch; its learned
+costs stay NaN until item [4c]).
 
 The helpers shared with the compiled executors live here too: the
 method-dispatch table (engine PredictorConfigBean.java:33-82), tag
@@ -68,6 +75,8 @@ from seldon_core_tpu_torch.messages import (
     Status,
 )
 from seldon_core_tpu_torch.runtime.resilience import current_deadline
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import TRACER
 
 __all__ = [
     "NodeRuntime",
@@ -355,8 +364,9 @@ class GraphExecutor:
     def __init__(self, predictor: PredictorSpec,
                  extra_runtimes: Optional[Dict[str, NodeRuntime]] = None,
                  rng: Optional[int] = None, fuse: bool = False, device: DeviceLike = None,
-                 executor: Optional[Executor] = None):
+                 executor: Optional[Executor] = None, tracer=None):
         self.predictor = predictor
+        self.tracer = tracer if tracer is not None else TRACER
         self.device = resolve_device(device)
         self.runtimes: Dict[str, NodeRuntime] = {}
         self.fused: Dict[str, Any] = {}
@@ -407,26 +417,36 @@ class GraphExecutor:
         # here instead of starting work its caller has given up on
         dl = current_deadline()
         if dl is not None and dl.expired:
+            RECORDER.record_deadline_exceeded(f"node:{node.name}")
             raise DeadlineExceededError(f"request deadline exhausted before node {node.name!r}")
         frt = self.fused.get(node.name)
         if frt is not None:
-            return await frt.run(msg)  # one dispatch for the whole subtree
+            # one dispatch for the whole subtree
+            with self.tracer.span(msg.meta.puid, node.name, method="fused"):
+                return await frt.run(msg)
 
         methods = methods_for(node)
         rt = self.runtimes[node.name]
+        tracer = self.tracer
+        puid = msg.meta.puid
         # 1. transform input (a MODEL's predict, as InternalPredictionService's
         #    type switch, engine InternalPredictionService.java:132-161)
         if UnitMethod.TRANSFORM_INPUT in methods:
             if effective_type(node) is UnitType.MODEL:
-                msg = await rt.predict(msg)
+                with tracer.span(puid, node.name, method="predict"):
+                    msg = await rt.predict(msg)
             else:
-                msg = await rt.transform_input(msg)
+                with tracer.span(puid, node.name, method="transform_input"):
+                    msg = await rt.transform_input(msg)
 
         # 2. route + children (engine PredictiveUnitBean.java:91-112)
         if node.children:
             routed_branch: Optional[int] = None
             if UnitMethod.ROUTE in methods:
-                branch = await rt.route(msg)
+                with tracer.span(puid, node.name, method="route") as sp:
+                    branch = await rt.route(msg)
+                    if isinstance(sp, dict):
+                        sp["branch"] = branch
                 if branch >= len(node.children) or branch < -1:
                     # PredictiveUnitBean.java:244-250: -1 is broadcast, other
                     # negatives must never index a child from the end
@@ -446,7 +466,8 @@ class GraphExecutor:
                 merged_meta = msg.meta
                 for cm in child_msgs:
                     merged_meta = merged_meta.merged_with(cm.meta)
-                out = await rt.aggregate(list(child_msgs))
+                with tracer.span(puid, node.name, method="aggregate"):
+                    out = await rt.aggregate(list(child_msgs))
                 out.meta = merged_meta.merged_with(out.meta)
             else:
                 if len(child_msgs) != 1:
@@ -460,14 +481,15 @@ class GraphExecutor:
 
         # 4. transform output (engine PredictiveUnitBean.java:115-124)
         if UnitMethod.TRANSFORM_OUTPUT in methods:
-            out = await rt.transform_output(out)
+            with tracer.span(puid, node.name, method="transform_output"):
+                out = await rt.transform_output(out)
         return out
 
     def _autopilot_branch(self, node: PredictiveUnit, msg: SeldonMessage, branch: int) -> int:
         """The router's own branch.  The JAX package demotes a branch its
         learned costs predict to overrun the deadline here
         (``runtime/autopilot.py``); that model is not ported yet (ROADMAP
-        Queue 1 item [4]), so the router's choice always stands."""
+        Queue 1 item [4c]), so the router's choice always stands."""
         return branch
 
     # -- graceful degradation -----------------------------------------------
@@ -505,6 +527,12 @@ class GraphExecutor:
                 fb_msg = _fork_message(msg)
                 fb_msg.meta.routing[node.name] = fallback
                 out = await self._get_output(node.children[fallback], fb_msg)
+                RECORDER.record_degraded("fallback")
+                self.tracer.event(
+                    "fallback", node=node.name,
+                    from_branch=routed_branch, to_branch=int(fallback),
+                    reason=f"{type(e).__name__}: {str(e)[:120]}",
+                )
                 msg.meta.routing[node.name] = fallback
                 msg.meta.tags[f"seldon.fallback.{node.name}"] = int(fallback)
                 msg.meta.tags[f"seldon.fallback.{node.name}.reason"] = (
@@ -542,7 +570,9 @@ class GraphExecutor:
         if len(ok_msgs) < int(node.quorum):
             raise first_err
         if dropped:
+            RECORDER.record_degraded("quorum")
             msg.meta.tags[f"seldon.degraded.{node.name}"] = sorted(dropped)
+            self.tracer.event("quorum_degraded", node=node.name, dropped=sorted(dropped))
         return ok_msgs
 
     # -- feedback path ------------------------------------------------------

@@ -89,6 +89,13 @@ class Unit:
     #: static meta tags merged into every response this unit touches
     static_tags: Optional[dict] = None
 
+    def dispatch_cost(self, state, rows: int) -> Optional[dict]:
+        """The analytic cost of one call on ``rows`` rows in the perf
+        observatory's feature keys (``flops``, ``bytes_accessed``,
+        ``output_bytes``), or None when the unit gives no count (its
+        executables are latency-only rows on ``/perf``)."""
+        return None
+
     def init_state(self, rng: Optional[torch.Generator]) -> Any:
         return None
 

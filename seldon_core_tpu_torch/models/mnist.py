@@ -42,6 +42,7 @@ from seldon_core_tpu_torch.graph.units import Unit, register_unit
 from seldon_core_tpu_torch.ops.quant import QuantizedMLP, quantize_mlp_params
 from seldon_core_tpu_torch.models.transformer import seeded_generator
 from seldon_core_tpu_torch.ops.fused_mlp import (
+    dispatch_cost,
     fused_mlp_softmax,
     fused_mlp_softmax_reference,
     kernel_shape_error,
@@ -140,6 +141,11 @@ class MnistClassifier(Unit):
         return mlp_init(seeded_generator(rng, self.seed), hidden=self.hidden, depth=self.depth,
                         dtype=self.dtype, device=self.device)
 
+    def dispatch_cost(self, state, rows: int):
+        """The fused MLP's count (``ops/fused_mlp.py:dispatch_cost``): the
+        same arithmetic on every path, float32 rows in."""
+        return dispatch_cost(state, rows) if state is not None else None
+
     def predict(self, state, X):
         X = X.reshape(X.shape[0], -1)
         if X.shape[1] != INPUT_DIM:
@@ -168,6 +174,10 @@ class QuantizedMnistClassifier(MnistClassifier):
 
     def init_state(self, rng: Optional[torch.Generator]):
         return quantize_mlp_params(super().init_state(rng))
+
+    def dispatch_cost(self, state, rows: int):
+        """No count: the int8 path is not the fused MLP's arithmetic."""
+        return None
 
     def predict(self, state, X):
         return QuantizedMLP.apply(state, X.reshape(X.shape[0], -1))

@@ -13,7 +13,11 @@ file lock so two processes never build the same library at once.
 Nothing is built at import: the first call that needs a kernel builds it
 (a unit's construction, which probes its kernel, or a launch).
 ``build_all`` starts one nvcc per source, all at once.  Only sources in
-this package are built.
+this package are built.  Each library's first load reports to the flight
+recorder (``utils/telemetry.py``), the port's counterpart of the JAX
+package's compile-cache listener: ``record_compile_cache("hit")`` when the
+library keyed by the source hash was already on disk, ``"miss"`` and
+``record_compile_seconds`` with nvcc's wall when it was built.
 """
 
 from __future__ import annotations
@@ -117,4 +121,11 @@ def _build(name: str) -> Path:
             finally:
                 fcntl.flock(lock, fcntl.LOCK_UN)
     BUILD_INFO[name] = info
+    from seldon_core_tpu_torch.utils.telemetry import RECORDER
+
+    if info["seconds"] > 0.0:
+        RECORDER.record_compile_cache("miss")
+        RECORDER.record_compile_seconds(info["seconds"])
+    else:
+        RECORDER.record_compile_cache("hit")
     return out

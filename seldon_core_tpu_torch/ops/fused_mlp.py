@@ -49,6 +49,7 @@ from seldon_core_tpu_torch.ops._build import load_library
 
 __all__ = [
     "LAUNCHES",
+    "dispatch_cost",
     "fused_mlp_softmax",
     "fused_mlp_softmax_reference",
     "kernel_shape_error",
@@ -189,6 +190,25 @@ def fused_mlp_softmax_reference(params: Dict[str, torch.Tensor], x: torch.Tensor
         if i < len(layers) - 1:
             h = torch.relu(h)
     return torch.softmax(h, dim=-1)
+
+
+def dispatch_cost(params: Dict[str, torch.Tensor], rows: int,
+                  x_itemsize: int = 4) -> Dict[str, float]:
+    """The analytic cost of one ``fused_mlp_softmax`` call on ``rows`` rows,
+    in the perf observatory's cost-feature keys (``utils/perf.py``):
+    ``flops`` = 2·B·Σ d_in·d_out (the products; the bias, relu and softmax
+    are lower order), ``bytes_accessed`` = every weight and bias once, x
+    (``x_itemsize`` bytes an element) and the float32 probabilities, and
+    ``output_bytes`` = the probabilities."""
+    layers = _layer_params(params)
+    B = int(rows)
+    flops = sum(2.0 * B * w.shape[0] * w.shape[1] for w, _ in layers)
+    weights = sum(w.numel() * w.element_size() + b.numel() * b.element_size()
+                  for w, b in layers)
+    out_bytes = 4.0 * B * layers[-1][0].shape[1]
+    x_bytes = float(B * layers[0][0].shape[0] * int(x_itemsize))
+    return {"flops": flops, "bytes_accessed": float(weights) + x_bytes + out_bytes,
+            "output_bytes": out_bytes}
 
 
 _bind_lock = threading.Lock()

@@ -15,8 +15,21 @@ batch size grows with load.  A freshly runnable flush waits
 
 Batching is transparent only for graphs whose per-request decisions do
 not change under concatenation, so the engine batches router-free graphs
-only (``graph_is_batchable``).  The JAX package's autopilot flush
-planning, QoS tiers and telemetry records are not ported yet.
+only (``graph_is_batchable``).
+
+Telemetry (``batching.py:132``, ``:374``, ``:423``, ``:470`` there): each
+caller's trace context is captured at submit, and each flush writes one
+telemetry-spine record per caller (its queue wait, and its ``batch_queue``
+span under its request span) and one for the flush (occupancy, and the
+standalone ``flush`` span), in a ``finally`` so failed dispatches count
+too; the in-flight slots are the ``seldon_tpu_inflight_dispatches`` gauge
+and pad rows go to the perf observatory.  A flush that serves one caller
+runs its dispatch in that caller's context (its trace context and
+deadline), so the dispatch span joins the request's tree across the
+dispatch thread; a flush of several callers runs in a fresh context and
+its dispatch span stands alone, as every stacked dispatch does in the
+JAX package.  The autopilot's flush planning and QoS tiers are not
+ported yet (ROADMAP Queue 1 item [4c]).
 
 ``GenLane`` (``batching.py:507-563`` there) takes the batcher's place for
 a generator served by the continuous lane (``runtime/genserver.py``): each
@@ -27,6 +40,8 @@ request's rows become sequences of the scheduler, with the same
 from __future__ import annotations
 
 import asyncio
+import contextvars
+import time
 from collections import deque
 from typing import Any, Awaitable, Callable, Deque, Dict, Tuple
 
@@ -35,6 +50,10 @@ import numpy as np
 from seldon_core_tpu_torch.graph.interpreter import methods_for
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit, UnitMethod
 from seldon_core_tpu_torch.messages import DispatchTimeoutError
+from seldon_core_tpu_torch.utils.hotrecord import SPINE
+from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import current_trace_context
 
 __all__ = ["GenLane", "MicroBatcher", "graph_is_batchable"]
 
@@ -77,6 +96,7 @@ class MicroBatcher:
         self._buckets: Dict[Tuple, Deque] = {}
         self._pumps: Dict[Tuple, asyncio.Task] = {}
         self._inflight: set = set()  # strong refs: bare create_task is GC-able
+        self.recorder = RECORDER  # flight-recorder hub (occupancy/wait/slots)
 
     async def submit(self, x: np.ndarray):
         """x: [b, ...feature] rows of one request.  Returns (y_rows, aux)."""
@@ -86,7 +106,12 @@ class MicroBatcher:
             x = np.atleast_2d(x)
         key = (x.shape[1:], x.dtype)
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self._buckets.setdefault(key, deque()).append((x, fut))
+        # enqueue time, trace context and the caller's whole context: the
+        # flush records each caller's queue wait under ITS request span,
+        # and a one-caller flush dispatches in the caller's context
+        self._buckets.setdefault(key, deque()).append(
+            (x, fut, time.perf_counter(), current_trace_context(),
+             contextvars.copy_context()))
         if key not in self._pumps:
             self._pumps[key] = asyncio.create_task(self._pump(key))
         return await fut
@@ -131,9 +156,15 @@ class MicroBatcher:
                 if not take:
                     self._sem.release()
                     continue
-                t = asyncio.get_running_loop().create_task(self._run_batch(take))
+                # one caller: its own context; several: a fresh one (the
+                # pump itself runs in its first submitter's context)
+                ctx = take[0][4] if len(take) == 1 else contextvars.Context()
+                t = asyncio.get_running_loop().create_task(self._run_batch(take), context=ctx)
                 self._inflight.add(t)
+                self.recorder.set_inflight(len(self._inflight))
                 t.add_done_callback(self._inflight.discard)
+                t.add_done_callback(
+                    lambda _t: self.recorder.set_inflight(len(self._inflight)))
                 t.add_done_callback(lambda _t: self._sem.release())
         finally:
             # reached only with the bucket empty and no awaits since that
@@ -144,7 +175,7 @@ class MicroBatcher:
         """As many whole requests as fit under max_batch (a single oversized
         request may exceed it, and then rides alone)."""
         k, rows = 0, 0
-        for x, _ in bucket:
+        for x, *_ in bucket:
             if k and rows + len(x) > self.max_batch:
                 break
             k += 1
@@ -156,10 +187,24 @@ class MicroBatcher:
     async def _run_batch(self, entries) -> None:
         xs = [e[0] for e in entries]
         futs = [e[1] for e in entries]
+        now = time.perf_counter()
+        now_epoch = time.time()
+        for x, _, t_enq, ctx, _ in entries:
+            # ONE ring record per caller: the queue-wait observation and
+            # the caller's queue span, folded off-path from the same write
+            SPINE.record_queue(now - t_enq, ctx=ctx, rows=len(x),
+                               start_s=now_epoch - (now - t_enq))
         try:
             stacked = np.concatenate(xs, axis=0)
             total = len(stacked)
-            ys, aux = await self._dispatch_chunked(stacked)
+            t_flush = time.perf_counter()
+            try:
+                ys, aux = await self._dispatch_chunked(stacked)
+            finally:
+                # one record per flush: occupancy (real rows) and the
+                # standalone flush span, failed dispatches included
+                SPINE.record_flush(rows=total, requests=len(entries), start_s=now_epoch,
+                                   duration_s=time.perf_counter() - t_flush)
             # one walk decides whether the aux holds per-row arrays at all
             per_row = _aux_has_per_row(aux, total)
             offset = 0
@@ -188,6 +233,8 @@ class MicroBatcher:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], target - n, axis=0)], axis=0
                 )
+            # pad rows burn device work without serving traffic
+            OBSERVATORY.note_padding(n, len(chunk))
             dispatch = self.batch_fn(chunk)
             if self.dispatch_timeout_s > 0:
                 try:

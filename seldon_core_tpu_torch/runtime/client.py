@@ -45,6 +45,13 @@ connection is UNAVAILABLE (and the next attempt dials again), a timed-out
 attempt DEADLINE_EXCEEDED; every failed call counts against the breaker.
 A FAILURE SeldonMessage is an answer, returned as it is and never retried.
 
+Each call runs in a ``client`` span of the node's name (``transport``
+``rest``, ``wire`` or ``grpc``) and sends the W3C ``traceparent`` of that
+span (a header, gRPC metadata, and the frame's sidecar), so the remote
+server span is its child; a retry and an open breaker's refusal are span
+events, and each retry or exhausted retry counts in
+``seldon_tpu_retry_attempts_total``.
+
 A failure after the policy gives up is a ``RemoteCallError`` (502); the
 client never swaps a remote node for a local unit.
 """
@@ -81,6 +88,14 @@ from seldon_core_tpu_torch.runtime.resilience import (
     deadline_header_value,
     is_idempotent,
     remaining_s,
+)
+from seldon_core_tpu_torch.runtime.resilience import BreakerOpenError
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import (
+    TRACEPARENT_HEADER,
+    TRACER,
+    current_trace_puid,
+    traceparent_header_value,
 )
 
 __all__ = ["RestNodeRuntime", "GrpcNodeRuntime", "RemoteCallError", "make_node_runtime"]
@@ -119,6 +134,25 @@ def _branch_from_msg(node_name: str, resp: SeldonMessage, where: str) -> int:
         raise RemoteCallError(node_name, where, f"bad branch: {e}") from e
 
 
+def _client_span(node: str, puid: str, method: str, transport: str):
+    """A remote call's ``client`` span, with the request's remaining
+    deadline when one is in force."""
+    rem = remaining_s()
+    return TRACER.span(puid or current_trace_puid(), node, kind="client", method=method,
+                       transport=transport,
+                       **({} if rem is None else {"deadline_remaining_ms": round(rem * 1e3, 1)}))
+
+
+def _gate_traced(guard, node: str) -> None:
+    """Per-attempt breaker admission, a refusal recorded as a span event
+    (an open breaker's short circuit makes no network call to see)."""
+    try:
+        guard.gate(node)
+    except BreakerOpenError:
+        TRACER.event("breaker_open", node=node)
+        raise
+
+
 class _ResilientCallMixin:
     """The retry / breaker / deadline rules (the transport's own loop calls
     them); subclasses set ``node``, ``retry_policy``, ``breaker`` and
@@ -132,6 +166,7 @@ class _ResilientCallMixin:
     def _retry_allowed(self, attempt: int, method: str) -> bool:
         """The attempt-count and idempotency gate of the next attempt."""
         if attempt + 1 >= self.retry_policy.max_attempts:
+            RECORDER.record_retry(method, "exhausted")
             return False
         return is_idempotent(method)
 
@@ -143,9 +178,17 @@ class _ResilientCallMixin:
         delay = self.retry_policy.backoff_s(attempt)
         rem = remaining_s()
         if rem is not None and delay >= rem:
+            RECORDER.record_retry(method, "exhausted")
             return False
         if self.retry_budget is not None and not self.retry_budget.withdraw():
+            RECORDER.record_retry(method, "exhausted")
             return False
+        RECORDER.record_retry(method, "retry")
+        # the retry and its backoff are an event on the client span: the
+        # phase decomposition takes retry time out of "network" with it
+        TRACER.event("retry", method=method, attempt=attempt + 1,
+                     backoff_ms=round(delay * 1e3, 3),
+                     deadline_remaining_ms=None if rem is None else round(rem * 1e3, 1))
         if delay > 0:
             await asyncio.sleep(delay)
         return True
@@ -337,7 +380,14 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
         return out.encode() if isinstance(out, str) else out
 
     async def _post(self, path: str, encode: Callable[[], str], method: str,
-                    wire_msg: Optional[SeldonMessage] = None) -> SeldonMessage:
+                    wire_msg: Optional[SeldonMessage] = None, puid: str = "") -> SeldonMessage:
+        """One call in its client span (``client.py:219-230`` there)."""
+        with _client_span(self.node.name, puid, path.strip("/"),
+                          "wire" if wire_msg is not None else "rest"):
+            return await self._post_traced(path, encode, method, wire_msg)
+
+    async def _post_traced(self, path: str, encode: Callable[[], str], method: str,
+                           wire_msg: Optional[SeldonMessage] = None) -> SeldonMessage:
         """The attempt loop: per-attempt breaker admission, a timeout
         clamped to the remaining budget (an exhausted one raises
         ``DeadlineExceededError``, 504, before any I/O), retries as the
@@ -368,12 +418,17 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
 
         try:
             while True:
-                guard.gate(self.node.name)
+                _gate_traced(guard, self.node.name)
                 timeout_s = clamp_timeout(self.timeout_s, where=f"rest:{self.node.name}")
                 headers = {}
                 hdr = deadline_header_value()
                 if hdr is not None:
                     headers[DEADLINE_HEADER] = hdr
+                # the client span (active here) is the remote server span's
+                # parent
+                tp = traceparent_header_value()
+                if tp is not None:
+                    headers[TRACEPARENT_HEADER] = tp
                 use_wire = wire_msg is not None and self._wire_ok
                 try:
                     if use_wire:
@@ -381,6 +436,7 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
                             wire_body = await self._encoded(lambda: wire.join_parts(
                                 wire.frame_from_message(wire_msg, sidecar=True)))
                         headers["Content-Type"] = wire.WIRE_CONTENT_TYPE
+                        RECORDER.record_wire_request("node", "binary")
                         status, raw, ctype = await self._attempt(path, wire_body, headers,
                                                                  timeout_s)
                         if status == 200:
@@ -400,6 +456,7 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
                         if body is None:
                             body = await self._encoded(encode)
                         headers["Content-Type"] = _JSON
+                        RECORDER.record_wire_request("node", "json")
                         status, raw, ctype = await self._attempt(path, body, headers, timeout_s)
                         if status == 200:
                             return accept(raw, ctype)
@@ -426,27 +483,31 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
         if self._wire_ok and wire.wire_enabled() and wire.frame_eligible(msg):
-            return await self._post("/predict", msg.to_json, "predict", wire_msg=msg)
-        return await self._post("/predict", msg.to_json, "predict")
+            return await self._post("/predict", msg.to_json, "predict", wire_msg=msg,
+                                    puid=msg.meta.puid)
+        return await self._post("/predict", msg.to_json, "predict", puid=msg.meta.puid)
 
     async def transform_input(self, msg: SeldonMessage) -> SeldonMessage:
-        return await self._post("/transform-input", msg.to_json, "transform_input")
+        return await self._post("/transform-input", msg.to_json, "transform_input",
+                                puid=msg.meta.puid)
 
     async def transform_output(self, msg: SeldonMessage) -> SeldonMessage:
-        return await self._post("/transform-output", msg.to_json, "transform_output")
+        return await self._post("/transform-output", msg.to_json, "transform_output",
+                                puid=msg.meta.puid)
 
     async def route(self, msg: SeldonMessage) -> int:
         # not idempotent (a bandit moves its exploration state): one attempt
-        resp = await self._post("/route", msg.to_json, "route")
+        resp = await self._post("/route", msg.to_json, "route", puid=msg.meta.puid)
         return _branch_from_msg(self.node.name, resp, "/route")
 
     async def aggregate(self, msgs: List[SeldonMessage]) -> SeldonMessage:
         return await self._post("/aggregate", SeldonMessageList(messages=msgs).to_json,
-                                "aggregate")
+                                "aggregate", puid=msgs[0].meta.puid if msgs else "")
 
     async def send_feedback(self, feedback: Feedback, branch: int) -> None:
         # never retried: a duplicated delivery trains the unit twice
-        await self._post("/send-feedback", feedback.to_json, "send_feedback")
+        await self._post("/send-feedback", feedback.to_json, "send_feedback",
+                         puid=feedback.puid())
 
 
 class GrpcNodeRuntime(_ResilientCallMixin, NodeRuntime):
@@ -519,7 +580,13 @@ class GrpcNodeRuntime(_ResilientCallMixin, NodeRuntime):
         """Close the pooled connection."""
         self._drop()
 
-    async def _call(self, method: str, encode: Callable[[], bytes]) -> SeldonMessage:
+    async def _call(self, method: str, encode: Callable[[], bytes],
+                    puid: str = "") -> SeldonMessage:
+        """One call in its client span (``client.py:500-515`` there)."""
+        with _client_span(self.node.name, puid, method, "grpc"):
+            return await self._call_traced(method, encode)
+
+    async def _call_traced(self, method: str, encode: Callable[[], bytes]) -> SeldonMessage:
         """One resilient call: the breaker gate, a timeout clamped to the
         remaining budget, retries on a retryable status name as the policy
         allows."""
@@ -531,12 +598,14 @@ class GrpcNodeRuntime(_ResilientCallMixin, NodeRuntime):
         attempt = 0
         try:
             while True:
-                guard.gate(self.node.name)
+                _gate_traced(guard, self.node.name)
                 timeout_s = clamp_timeout(self.timeout_s, where=f"grpc:{self.node.name}")
+                tp = traceparent_header_value()
+                metadata = ((b"traceparent", tp.encode("latin-1")),) if tp is not None else ()
                 try:
                     async with asyncio.timeout(timeout_s):
                         channel = await self._connection()
-                        raw = await channel.call(path, request)
+                        raw = await channel.call(path, request, metadata)
                 except GrpcCallError as e:
                     code_name, detail = e.code_name, e.grpc_message
                     if e.status == 14:
@@ -569,26 +638,29 @@ class GrpcNodeRuntime(_ResilientCallMixin, NodeRuntime):
     # -- NodeRuntime API ----------------------------------------------------
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
-        return await self._call("predict", lambda: protoconv.msg_to_proto(msg))
+        return await self._call("predict", lambda: protoconv.msg_to_proto(msg), msg.meta.puid)
 
     async def transform_input(self, msg: SeldonMessage) -> SeldonMessage:
-        return await self._call("transform_input", lambda: protoconv.msg_to_proto(msg))
+        return await self._call("transform_input", lambda: protoconv.msg_to_proto(msg),
+                                msg.meta.puid)
 
     async def transform_output(self, msg: SeldonMessage) -> SeldonMessage:
-        return await self._call("transform_output", lambda: protoconv.msg_to_proto(msg))
+        return await self._call("transform_output", lambda: protoconv.msg_to_proto(msg),
+                                msg.meta.puid)
 
     async def route(self, msg: SeldonMessage) -> int:
         # not idempotent (a bandit moves its exploration state): one attempt
-        resp = await self._call("route", lambda: protoconv.msg_to_proto(msg))
+        resp = await self._call("route", lambda: protoconv.msg_to_proto(msg), msg.meta.puid)
         return _branch_from_msg(self.node.name, resp, "Route")
 
     async def aggregate(self, msgs: List[SeldonMessage]) -> SeldonMessage:
         return await self._call("aggregate", lambda: protoconv.msg_list_to_proto(
-            SeldonMessageList(messages=msgs)))
+            SeldonMessageList(messages=msgs)), msgs[0].meta.puid if msgs else "")
 
     async def send_feedback(self, feedback: Feedback, branch: int) -> None:
         # never retried: a duplicated delivery trains the unit twice
-        await self._call("send_feedback", lambda: protoconv.feedback_to_proto(feedback))
+        await self._call("send_feedback", lambda: protoconv.feedback_to_proto(feedback),
+                         feedback.puid())
 
 
 def make_node_runtime(node: PredictiveUnit, binding: ComponentBinding,

@@ -7,7 +7,7 @@ the JAX engine chooses (``engine.py:182-251`` there):
 * ``fused``: a multi-node graph whose every node is an in-process pure
   unit runs as one ``FusedGraph`` (``graph/fuse.py``) on the engine's
   device (its demotion budget, the request's remaining deadline there,
-  comes with the autopilot, ROADMAP Queue 1 item [4]);
+  comes with the autopilot, ROADMAP Queue 1 item [4c]);
 * ``compiled``: a single node, a graph the fusion pass refuses (a
   ``quorum`` or ``fallback`` over pure units, the predictor annotation
   ``seldon.io/graph-fuse: "false"``) or any eligible graph with
@@ -62,17 +62,39 @@ client's shape error, a 400), ``ready`` / ``pause`` / ``drained``,
 token streaming for a single generator node (``can_stream``,
 ``prepare_stream_request``, ``generate_stream``, ``engine.py:690-849``):
 each chunk is read on the dispatch executor, streams bypass the batcher
-and write no state back.  Not ported yet: the stream's tracer spans and
-audit log, admission control, QoS, the autopilot and the observatories
-(ROADMAP Queue 1 item [4]).
+and write no state back.
+
+Observability (``engine.py:122-134``, ``:417-592``, ``:940``,
+``:1134-1205`` there): each predictions, feedback and stream request is
+timed by the predictor's ``MetricsRegistry`` (the
+``seldon_api_engine_server_requests_duration_seconds`` family) and runs in
+a ``request`` span, the child of an incoming ``traceparent`` the lane
+bound; the request-audit log (``AuditLog``, off unless
+``SELDON_TPU_AUDIT=1``) gets one entry per request.  A dispatch writes
+one telemetry-spine record (``utils/hotrecord.py``), or a failed one's
+span, timed from its start to the end of the readback the response
+already makes, on the thread the dispatch ran on: the batcher hands a
+one-caller flush the caller's context, and ``_batched_predict`` carries
+it onto the dispatch thread (``run_in_executor`` does not), so the
+dispatch span is the request's child.  ``stats()`` adds the cached
+``telemetry`` / ``perf`` / ``quality`` / ``tracer`` walks with
+``staleness_s`` (``SELDON_TPU_STATS_TTL_S``), and ``audit``;
+``overhead_document``, ``perf_document``, ``genperf_document`` and
+``trace_json`` (the relay's ``OP_TRACE``) are the routes' documents.
+``quality`` is the reference's empty document until ROADMAP Queue 1 item
+[4b]; the ``autopilot``, ``brownout`` and ``routers`` keys, admission
+control and QoS come with items [4b] and [4c].
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import json
 import os
+import secrets
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, NamedTuple, Optional
 
@@ -111,18 +133,33 @@ from seldon_core_tpu_torch.runtime.resilience import (
     maybe_deadline_scope,
     remaining_s,
 )
+from seldon_core_tpu_torch.utils.genperf import GENPERF
+from seldon_core_tpu_torch.utils.hotrecord import SPINE
+from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
+from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.telemetry import RECORDER, AuditLog
+from seldon_core_tpu_torch.utils.tracing import (
+    TRACER,
+    current_trace_context,
+    parse_traceparent,
+    trace_document,
+    trace_scope,
+)
 
 __all__ = ["EngineService", "StreamRequest"]
 
 
 class StreamRequest(NamedTuple):
     """A validated streaming request: prompt rows [B, S] float64, puid,
-    tokens per frame, and the request's ``max_new`` (None: the unit's)."""
+    tokens per frame, the request's ``max_new`` (None: the unit's), and
+    the trace context the lane bound when it was prepared (the stream is
+    iterated by the connection's writer, outside the handler's context)."""
 
     rows: np.ndarray
     puid: str
     chunk: int
     max_new: Optional[int] = None
+    trace: Optional[object] = None
 
 
 def _max_new(value) -> int:
@@ -167,6 +204,7 @@ class EngineService:
         pipeline_depth: int = 8,
         dispatch_timeout_s: float = 30.0,
         device: DeviceLike = None,
+        audit: Optional[AuditLog] = None,
     ):
         # the disaggregated prefill/decode roles are not ported: a replica
         # told to take one is refused, never served as a unified one
@@ -175,8 +213,30 @@ class EngineService:
             raise ValueError(f"ENGINE_GEN_ROLE={role!r}: the disaggregated prefill/decode "
                              f"roles are not ported yet (ROADMAP Queue 1 item [6])")
         self.deployment = deployment
+        self.tracer = TRACER
         self.predictor: PredictorSpec = deployment.predictor(predictor_name)
         self.device = resolve_device(device)
+        # the perf observatory's peaks and memory watermarks read this card
+        OBSERVATORY.set_device(self.device)
+        self.metrics = MetricsRegistry(
+            deployment_name=deployment.name,
+            predictor_name=self.predictor.name,
+            project_name=str(deployment.annotations.get("project_name", "")),
+        )
+        # request-audit log: off unless configured (SELDON_TPU_AUDIT /
+        # SELDON_TPU_AUDIT_DIR)
+        self.audit = audit if audit is not None else AuditLog()
+        self._graph_path = "/".join(n.name for n in self.predictor.graph.walk())
+        # a fresh id per construction: a scraper that sees it change at the
+        # same URL knows the process restarted
+        self.boot_id = secrets.token_hex(8)
+        # /stats assembly cache: the observatory walks are rebuilt only when
+        # the folded state moved or the TTL passed
+        self._stats_cache = None
+        try:
+            self._stats_ttl_s = float(os.environ.get("SELDON_TPU_STATS_TTL_S", "") or 1.0)
+        except ValueError:
+            self._stats_ttl_s = 1.0
         self.paused = False
         self.dispatch_timeout_s = float(dispatch_timeout_s)
         # feature widths that have served successfully: a dispatch failure
@@ -312,17 +372,19 @@ class EngineService:
         The request's own deadline (a header's or a frame's sidecar's)
         clamps the wait further, and an exhausted one is a 504 before any
         dispatch (``engine.py:1035-1108`` there, without its admission
-        control, item [4])."""
+        control, item [4c])."""
         timeout = self.dispatch_timeout_s
         rem = remaining_s()
         if rem is not None:
             if rem <= 0:
+                RECORDER.record_deadline_exceeded("dispatch")
                 raise DeadlineExceededError("request deadline exhausted before device dispatch")
             timeout = min(timeout, rem)
         try:
             return await asyncio.wait_for(self.batcher.submit(rows), timeout)
         except asyncio.TimeoutError:
             if timeout < self.dispatch_timeout_s:
+                RECORDER.record_deadline_exceeded("dispatch")
                 raise DeadlineExceededError(
                     f"request deadline ({timeout:.2f}s remaining) exceeded during device "
                     f"dispatch") from None
@@ -331,9 +393,12 @@ class EngineService:
             ) from None
 
     async def _batched_predict(self, stacked):
-        # concurrency is bounded by the batcher's in-flight slots
+        # concurrency is bounded by the batcher's in-flight slots; the
+        # flush's context (a one-caller flush's is the caller's) rides
+        # onto the dispatch thread, which run_in_executor does not carry
+        ctx = contextvars.copy_context()
         return await asyncio.get_running_loop().run_in_executor(
-            self._executor, self._batched_predict_sync, stacked)
+            self._executor, ctx.run, self._batched_predict_sync, stacked)
 
     def _guarded(self, width, fn, *args):
         """Run a dispatch under the known-good-width rule."""
@@ -362,15 +427,40 @@ class EngineService:
             return fn(*args)
 
     def _batched_predict_sync(self, stacked):
-        # executor thread: the kernels launch on this thread's current stream
-        y, routing, tags = self._guarded(
-            stacked.shape[1:], self.compiled.predict_arrays, stacked
-        )
-        # the readback synchronises this thread's stream; tags come back as
-        # numpy, so the batcher can give each caller its rows of a per-row one
-        tags = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
-                for k, v in tags.items()}
-        return y.detach().cpu().numpy(), (routing, tags)
+        # executor thread: the kernels launch on this thread's current stream.
+        # Observability is ONE telemetry-spine record per dispatch: the
+        # sample verdict is decided once, the record carries the span
+        # identity, the wall and the executable key, and the folds (span,
+        # MFU, roofline) run in the drainer, off this path
+        wants = SPINE.dispatch_wants()
+        t_dispatch = time.perf_counter()
+        start_s = time.time()
+        try:
+            y, routing, tags = self._guarded(
+                stacked.shape[1:], self.compiled.predict_arrays, stacked
+            )
+            # the readback synchronises this thread's stream: the response
+            # needs it, and it is where the dispatch's wall ends (no sync is
+            # added to measure); tags come back as numpy, so the batcher can
+            # give each caller its rows of a per-row one
+            tags = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in tags.items()}
+            y = y.detach().cpu().numpy()
+        except BaseException as e:
+            if wants.trace:
+                SPINE.record_failed_dispatch(
+                    executable=self.compiled.executable_key(stacked),
+                    seconds=time.perf_counter() - t_dispatch, start_s=start_s,
+                    rows=len(stacked), method="predict", error=type(e).__name__)
+            raise
+        if wants.any:
+            SPINE.record_dispatch(
+                wants, executable=self.compiled.executable_key(stacked),
+                seconds=time.perf_counter() - t_dispatch, start_s=start_s,
+                rows=len(stacked), real_rows=len(stacked), method="predict",
+                # a fused graph's one record carries its per-node shares
+                phases=self.compiled.phases)
+        return y, (routing, tags)
 
     # -- request API ----------------------------------------------------
 
@@ -425,13 +515,15 @@ class EngineService:
             meta_bytes=wire.pack_wire_meta(puid=puid, extra={"error": str(e)}))
 
     async def _predict_wire_single(self, frame) -> "tuple[int, list]":
-        """One frame under its sidecar's deadline (tighten-only).  Rows go
-        to the batcher; a graph without one (a router, host mode) takes the
-        object path, its answer framed on a dispatch thread."""
+        """One frame under its sidecar's deadline (tighten-only) and trace
+        context (the caller's tree joined).  Rows go to the batcher; a
+        graph without one (a router, host mode) takes the object path, its
+        answer framed on a dispatch thread."""
         meta = frame.meta
         puid = meta.get("puid") or new_puid()
         dl = meta.get("deadline_ms")
-        with maybe_deadline_scope(dl / 1e3 if dl else None):
+        with maybe_deadline_scope(dl / 1e3 if dl else None), \
+                trace_scope(parse_traceparent(meta.get("traceparent"))):
             if self.batcher is None:
                 msg = wire.message_from_frame(frame)
                 msg.meta.puid = puid
@@ -441,14 +533,20 @@ class EngineService:
                     self._executor, lambda: wire.frame_from_message(resp, response=True,
                                                                     sidecar=False))
                 return (200 if ok else (resp.status.code or 400)), parts
-            try:
-                rows = frame.rows()
-            except wire.WireError as e:
-                return self._wire_error_frame(puid, e, 400)
-            try:
-                y_rows, (routing, tags) = await self._submit(rows)
-            except (SeldonMessageError, GraphSpecError) as e:
-                return self._wire_error_frame(puid, e, e.http_code)
+            t0 = time.perf_counter()
+            with self.metrics.time_server("predictions", "POST") as code, self.tracer.span(
+                    puid, "request", kind="request", method="predict", mode=self.mode):
+                try:
+                    rows = frame.rows()
+                except wire.WireError as e:
+                    code["code"] = "400"
+                    return self._wire_error_frame(puid, e, 400)
+                try:
+                    y_rows, (routing, tags) = await self._submit(rows)
+                except (SeldonMessageError, GraphSpecError) as e:
+                    self._request_failed(code, e, puid, t0, len(rows), "wire")
+                    return self._wire_error_frame(puid, e, e.http_code)
+                self._audit_request(puid, "predict", 200, t0, rows=len(rows), lane="wire")
         in_extra = frame.extra()
         extra: dict = {}
         if self._static_names:
@@ -497,11 +595,16 @@ class EngineService:
         """Rows through the batcher, answered as SeldonMessage bytes: the
         fixed tensor layout (``build_tensor_response``) when the answer
         carries no routing or tags, else composed (the same bytes)."""
-        try:
-            y, (routing, tags) = await self._submit(rows)
-        except (SeldonMessageError, GraphSpecError) as e:
-            return protoconv.msg_to_proto(
-                SeldonMessage.failure(str(e), code=e.http_code, meta=Meta(puid=puid)))
+        t0 = time.perf_counter()
+        with self.metrics.time_server("predictions", "POST") as code, self.tracer.span(
+                puid, "request", kind="request", method="predict", mode=self.mode):
+            try:
+                y, (routing, tags) = await self._submit(rows)
+            except (SeldonMessageError, GraphSpecError) as e:
+                self._request_failed(code, e, puid, t0, len(rows), "grpc")
+                return protoconv.msg_to_proto(
+                    SeldonMessage.failure(str(e), code=e.http_code, meta=Meta(puid=puid)))
+            self._audit_request(puid, "predict", 200, t0, rows=len(rows), lane="grpc")
         if not routing and not tags:
             return protowire.build_tensor_response(puid, y, self._proto_names_frag)
         return self._compose_proto_response(puid, y, routing, tags)
@@ -519,6 +622,19 @@ class EngineService:
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
         if not msg.meta.puid:
             msg.meta.puid = new_puid()
+        t0 = time.perf_counter()
+        with self.metrics.time_server("predictions", "POST") as code, self.tracer.span(
+                msg.meta.puid, "request", kind="request", method="predict", mode=self.mode):
+            resp, status, n_rows = await self._predict(msg)
+            if status != 200:
+                code["code"] = str(status)
+            self._audit_request(msg.meta.puid, "predict", status, t0, rows=n_rows,
+                                lane="object")
+            return resp
+
+    async def _predict(self, msg: SeldonMessage) -> "tuple[SeldonMessage, int, Optional[int]]":
+        """``predict``'s body: ``(response, http status, rows)``."""
+        n_rows = None
         try:
             if self.compiled is not None and msg.data is not None \
                     and msg.array().dtype == object:
@@ -526,6 +642,7 @@ class EngineService:
                 raise SeldonMessageError("data payload is not a numeric rectangular tensor")
             if self.batcher is not None and msg.data is not None:
                 rows = np.atleast_2d(msg.array())
+                n_rows = len(rows)
                 y_rows, (routing, tags) = await self._submit(rows)
                 resp = msg.with_array(y_rows, names=self._static_names)
                 resp.meta = Meta(
@@ -535,7 +652,7 @@ class EngineService:
                     requestPath=dict(msg.meta.requestPath),
                 )
                 resp.status = Status()
-                return resp
+                return resp, 200, n_rows
             loop = asyncio.get_running_loop()
             if self.compiled is None:
                 resp = await self.executor.predict(msg)
@@ -547,9 +664,34 @@ class EngineService:
                     self._executor, self._guarded, width, self._serial, self.compiled.predict,
                     msg)
         except (SeldonMessageError, GraphSpecError) as e:
-            return SeldonMessage.failure(str(e), code=e.http_code, meta=msg.meta)
+            self.tracer.annotate(status=e.http_code, error=type(e).__name__)
+            return (SeldonMessage.failure(str(e), code=e.http_code, meta=msg.meta),
+                    e.http_code, n_rows)
         resp.meta.puid = msg.meta.puid
-        return resp
+        ok = resp.status is None or resp.status.status == "SUCCESS"
+        return resp, 200 if ok else (resp.status.code or 400), n_rows
+
+    def _request_failed(self, code: dict, e, puid: str, t0: float, rows, lane: str) -> None:
+        """A typed failure inside a request span: the server timer's code,
+        the span's status and the audit entry."""
+        code["code"] = str(e.http_code)
+        self.tracer.annotate(status=e.http_code, error=type(e).__name__)
+        self._audit_request(puid, "predict", e.http_code, t0, rows=rows, lane=lane)
+
+    def _audit_request(self, puid: str, method: str, status: int, t0: float,
+                       rows: Optional[int] = None, **extra) -> None:
+        """One puid-correlated audit entry per served request (``engine.py
+        :417-440`` there); a disabled log costs one attribute load."""
+        if not self.audit.enabled:
+            return
+        # the trace id links an audit line to its /trace tree (sampled only)
+        ctx = current_trace_context()
+        if ctx is not None and ctx.sampled and "trace_id" not in extra:
+            extra["trace_id"] = ctx.trace_id
+        self.audit.record(
+            puid=puid, deployment=self.deployment.name, predictor=self.predictor.name,
+            graph=self._graph_path, method=method, status=int(status), rows=rows,
+            latency_ms=round((time.perf_counter() - t0) * 1e3, 3), mode=self.mode, **extra)
 
     async def send_feedback(self, feedback: Feedback) -> SeldonMessage:
         """The feedback pass (engine.py:1720-1760 there): replay the
@@ -558,21 +700,32 @@ class EngineService:
         through the executor's routed replay in host mode (remote nodes
         get ``/send-feedback``).  Answers an ack with the response's puid,
         or a 400 FAILURE for a feedback the graph cannot take."""
-        try:
-            if self.compiled is None:
-                return await self.executor.send_feedback(feedback)
-            routing = feedback.response.meta.routing if feedback.response is not None else {}
-            X = None
-            if feedback.request is not None and feedback.request.data is not None:
-                X = feedback.request.array()
-            await asyncio.get_running_loop().run_in_executor(
-                self._executor, self._locked, self.compiled.feedback_arrays, X, routing,
-                feedback.reward, feedback.truth_array())
-        except (SeldonMessageError, GraphSpecError) as e:
-            return SeldonMessage.failure(str(e), code=400)
-        ack = SeldonMessage()
-        if feedback.response is not None:
-            ack.meta.puid = feedback.response.meta.puid
+        fb_puid = feedback.puid()
+        t0 = time.perf_counter()
+        with self.metrics.time_server("feedback", "POST") as code, self.tracer.span(
+                fb_puid, "request", kind="request", method="feedback"):
+            try:
+                if self.compiled is None:
+                    ack = await self.executor.send_feedback(feedback)
+                else:
+                    routing = (feedback.response.meta.routing
+                               if feedback.response is not None else {})
+                    X = None
+                    if feedback.request is not None and feedback.request.data is not None:
+                        X = feedback.request.array()
+                    await asyncio.get_running_loop().run_in_executor(
+                        self._executor, self._locked, self.compiled.feedback_arrays, X,
+                        routing, feedback.reward, feedback.truth_array())
+                    ack = SeldonMessage()
+                    if feedback.response is not None:
+                        ack.meta.puid = feedback.response.meta.puid
+            except (SeldonMessageError, GraphSpecError) as e:
+                code["code"] = "400"
+                self._audit_request(fb_puid, "feedback", 400, t0,
+                                    reward=float(feedback.reward))
+                return SeldonMessage.failure(str(e), code=400)
+        self.metrics.record_feedback(feedback.reward)
+        self._audit_request(fb_puid, "feedback", 200, t0, reward=float(feedback.reward))
         return ack
 
     # -- streaming generation (engine.py:690-849) -----------------------
@@ -613,7 +766,8 @@ class EngineService:
             raise SeldonMessageError(
                 "graph does not support streaming generation (need a single generator node)")
         msg = SeldonMessage.from_json_dict(doc)
-        return StreamRequest(_prompt_rows(msg), msg.meta.puid or new_puid(), chunk, max_new)
+        return StreamRequest(_prompt_rows(msg), msg.meta.puid or new_puid(), chunk, max_new,
+                             current_trace_context())
 
     def _next_chunk(self, gen):
         """One chunk of a stream on the host, or None at its end.  Runs on
@@ -637,34 +791,91 @@ class EngineService:
         lane it runs the unit's ``stream_tokens`` and bypasses the batcher.
         Streams never write unit state back; closing this generator closes
         the lane's (a continuous stream's request is then cancelled)."""
-        if self.genserver is not None:
-            gen = self.genserver.stream(request.rows, chunk=request.chunk,
-                                        max_new=request.max_new)
-        else:
-            name, unit = next(iter(self.compiled.units.items()))
-            gen = unit.stream_tokens(self.compiled.states[name], request.rows,
-                                     chunk=request.chunk)
-        pending = None
+        gen = pending = None
+        t0 = time.perf_counter()
+        ttft_s, tokens, status = None, 0, 200
         try:
-            while True:
-                pending = self._executor.submit(self._next_chunk, gen)
-                toks = await asyncio.wrap_future(pending)
-                if toks is None:
-                    break
-                yield json.dumps({"tokens": toks.astype(float).tolist(), "done": False})
+            with trace_scope(request.trace), \
+                    self.metrics.time_server("generate-stream", "POST"), \
+                    self.tracer.span(request.puid, "request", kind="request",
+                                     method="generate_stream"):
+                # opened inside the span: the continuous lane's sequences
+                # take the request span's context at submit
+                if self.genserver is not None:
+                    gen = self.genserver.stream(request.rows, chunk=request.chunk,
+                                                max_new=request.max_new)
+                else:
+                    name, unit = next(iter(self.compiled.units.items()))
+                    gen = unit.stream_tokens(self.compiled.states[name], request.rows,
+                                             chunk=request.chunk)
+                try:
+                    while True:
+                        pending = self._executor.submit(self._next_chunk, gen)
+                        toks = await asyncio.wrap_future(pending)
+                        if toks is None:
+                            break
+                        if ttft_s is None:
+                            ttft_s = time.perf_counter() - t0
+                        tokens += int(toks.size)
+                        yield json.dumps({"tokens": toks.astype(float).tolist(),
+                                          "done": False})
+                except GeneratorExit:
+                    status = 499  # the client left mid-stream
+                    self.tracer.annotate(status=499)
+                    raise
+                except Exception as e:
+                    status = 500  # reported in-band by the lane's error frame
+                    self.tracer.annotate(status=500, error=type(e).__name__)
+                    raise
         finally:
             # closed when no chunk is running: now, or as soon as the one
             # still on the executor (a cancelled stream's) returns
-            if pending is None:
+            if gen is None:
+                pass
+            elif pending is None:
                 gen.close()
             else:
                 pending.add_done_callback(lambda _: gen.close())
+            elapsed = time.perf_counter() - t0
+            self._audit_request(
+                request.puid, "generate_stream", status, t0, rows=int(request.rows.shape[0]),
+                tokens=tokens, ttft_ms=None if ttft_s is None else round(ttft_s * 1e3, 3),
+                tokens_per_s=None if elapsed <= 0 else round(tokens / elapsed, 1),
+                **({"trace_id": request.trace.trace_id}
+                   if request.trace is not None and request.trace.sampled else {}))
         yield json.dumps({"done": True, "meta": {"puid": request.puid}})
 
     # -- admin (engine RestClientController.java:57-99) -------------------
 
     def stats(self) -> dict:
+        """The JSON behind ``GET /stats``: the engine's live blocks (mode,
+        batcher, fusion plan, wire, breakers, kernel launches, scheduler)
+        and the reference's observatory walks (``engine.py:446-531``
+        there).  The walks are served from a cached assembly after
+        draining the spine's pending records, reused while nothing under
+        them moved (the spine's fold generation and the recorder's
+        mutation generation unchanged) and younger than
+        ``SELDON_TPU_STATS_TTL_S``; ``staleness_s`` is the cache's age."""
+        SPINE.drain()
+        now = time.monotonic()
+        key = (SPINE.fold_generation, RECORDER._gen, TRACER.enabled, TRACER.sample,
+               OBSERVATORY.enabled)
+        cached = self._stats_cache
+        if cached is not None and cached[0] == key and now - cached[1] < self._stats_ttl_s:
+            walks, staleness = cached[2], now - cached[1]
+        else:
+            walks = {
+                "telemetry": RECORDER.snapshot(),
+                "perf": OBSERVATORY.snapshot(),
+                # the quality observatory comes with ROADMAP Queue 1 item
+                # [4b]: the reference's document with the observatory off
+                "quality": {"enabled": False},
+                "tracer": TRACER.snapshot(),
+            }
+            self._stats_cache = (key, now, walks)
+            staleness = 0.0
         out = {
+            "boot_id": self.boot_id,
             "mode": self.mode,
             "device": self.device.type,
             "predictor": self.predictor.name,
@@ -674,7 +885,8 @@ class EngineService:
             "graph_fuse": {"enabled": self._fuse,
                            "plan": None if self.fusion_plan is None
                            else self.fusion_plan.summary()},
-            "wire": {"enabled": wire.wire_enabled(), "bytes_copied": wire.bytes_copied()},
+            "wire": {"enabled": wire.wire_enabled(),
+                     "bytes_copied": RECORDER.wire_bytes_copied},
             "resilience": {"retry_budget": self.retry_budget.snapshot(),
                            "breakers": {name: br.snapshot()
                                         for name, br in self.breakers.items()}},
@@ -689,7 +901,57 @@ class EngineService:
         }
         if self.genserver is not None:
             out["genserver"] = self.genserver.snapshot()
+        out.update(walks)
+        out["audit"] = self.audit.snapshot()
+        out["staleness_s"] = round(staleness, 3)
         return out
+
+    def _identity(self) -> dict:
+        return {"deployment": self.deployment.name, "predictor": self.predictor.name,
+                "mode": self.mode}
+
+    def overhead_document(self) -> dict:
+        """``GET /overhead``: the telemetry budget as a self-observed SLO,
+        per-subsystem framework time from the spine's records."""
+        return {"engine": self._identity(), **SPINE.overhead_document()}
+
+    def perf_document(self) -> dict:
+        """``GET /perf``: the perf observatory's per-executable table, the
+        card's peaks and memory watermarks, under this engine's identity."""
+        return {"engine": self._identity(), **OBSERVATORY.document()}
+
+    def genperf_document(self) -> dict:
+        """``GET /genperf``: the generation-lane recorder (per-tick-kind
+        latency, host/device phase splits, the bubble ledger, served decode
+        MFU and HBM-bandwidth share over real rows, KV-block residency)
+        with the live scheduler picture and its prefill-chunk state.  A
+        lane without a scheduler answers an empty recorder, not a 500."""
+        SPINE.drain()  # pending tick records fold into GENPERF first
+        return {
+            "engine": self._identity(),
+            "scheduler": None if self.genserver is None else self.genserver.snapshot(),
+            "adaptive_chunk": (None if self.genserver is None
+                               else self.genserver.chunk_history()),
+            **GENPERF.document(),
+        }
+
+    def process_track_name(self) -> str:
+        """The Perfetto process-track label of ``/trace/export``."""
+        return f"{self.deployment.name}/{self.predictor.name} (unified)"
+
+    def trace_json(self, query: str) -> str:
+        """The relay's trace surface (``OP_TRACE``): the local trace
+        document for a JSON query ``{"trace_id"|"puid"|"limit"}``."""
+        try:
+            q = json.loads(query) if query.strip() else {}
+            if not isinstance(q, dict):
+                q = {}
+        except ValueError:
+            q = {}
+        doc = trace_document(TRACER, puid=str(q.get("puid", "") or ""),
+                             trace_id=str(q.get("trace_id", "") or ""),
+                             limit=int(q.get("limit", 100) or 100))
+        return json.dumps(doc)
 
     def close(self) -> None:
         """Stop the generation scheduler, close the remote nodes' pooled

@@ -73,10 +73,31 @@ and ``SELDON_TPU_GEN_MAX_WAITING`` (4096 sequences queued before a typed
 503).  ``SELDON_TPU_GEN_CONTINUOUS=0`` keeps the static lane
 (``runtime/engine.py``).
 
+Telemetry (``genserver.py:792``, ``:915-1000``, ``:1984-2141`` there):
+the scheduler registers the decode step's analytic cost features
+(``gen_decode_step``) with the perf observatory at device init, and every
+tick writes ONE telemetry-spine record carrying its decomposition: the
+host wall of each phase (admit, prefill, decode, retire), the device
+seconds of the prefill and decode phases, real and padded rows, the
+device steps the decode rounds ran, the cache positions they streamed,
+the blocks the tables covered and the KV blocks released with their age,
+and the bubble before it (the gap since the previous tick, by how that
+tick ended: host, admission stall, pool exhaustion or idle).  The
+``/genperf`` recorder (``utils/genperf.py``) folds it off-path.  A
+phase's device seconds run from its first launch to the end of the
+readback the phase already makes (the round reads its tokens back once,
+a prefill tick its first tokens): wall to readback, not kernel time, with
+no sync added to measure.  The recorder's gauges and counters move per
+tick (in-flight and waiting sequences, KV blocks, steps by kind,
+admissions, retirements by reason), a stream's TTFT and decode rate per
+stream, the speculative accept ratio per round; a sampled request's
+sequences each leave a ``gen_sequence`` span with their lifecycle as
+events.
+
 Not ported, with the ROADMAP item that ports each: the disaggregated
 prefill and decode roles and the KV handoff between them
-(``runtime/kvstream.py``; [6]), and the cost ledger, flight recorder,
-tracer spans, brownout, QoS tiers and ``prewarm`` ([4]).
+(``runtime/kvstream.py``; [6]), the cost ledger ([4b]), brownout, QoS
+tiers and ``prewarm`` ([4c]).
 """
 
 from __future__ import annotations
@@ -107,6 +128,10 @@ from seldon_core_tpu_torch.models.generate import (
 )
 from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
 from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
+from seldon_core_tpu_torch.utils.hotrecord import SPINE
+from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import TRACER, Span, current_trace_context, new_span_id
 
 __all__ = ["BlockAllocator", "GenRequest", "GenServer"]
 
@@ -194,7 +219,7 @@ class _Sequence:
 
     __slots__ = ("sid", "request", "prompt", "prompt0", "max_new", "n_valid", "blocks",
                  "draft_blocks", "pending", "prefill_pos", "emitted", "done", "key",
-                 "admit_order", "retire_reason")
+                 "admit_order", "retire_reason", "t_start", "events")
 
     def __init__(self, sid: int, request: "GenRequest", prompt: np.ndarray, max_new: int):
         self.sid = sid                  # arrival order: a round's row order
@@ -212,6 +237,8 @@ class _Sequence:
         self.key: Optional[np.ndarray] = None  # sampling: int64 [2] (models/prng.py)
         self.admit_order = -1
         self.retire_reason = ""
+        self.t_start = 0.0              # epoch at admission: KV-block age
+        self.events: List[dict] = []    # a sampled sequence's lifecycle
 
 
 class GenRequest:
@@ -229,6 +256,10 @@ class GenRequest:
         self.queue: "queue.Queue" = queue.Queue()
         self.delivered = 0              # stream tokens handed out per row
         self.cancelled = False
+        self.t_submit = time.perf_counter()
+        self.ttft_recorded = False
+        # the submitter's trace context: the sequences' spans join its tree
+        self.trace_ctx = current_trace_context()
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -320,6 +351,17 @@ class GenServer:
         self.steps_total: Dict[str, int] = {}
         self.tokens_emitted_total = 0
         self.tick_errors_total = 0
+        # the tick's flight-recorder decomposition (utils/genperf.py)
+        self._last_tick_end = 0.0
+        self._bubble_cause = "idle"
+        self._pool_dry = False               # _admit broke on a dry pool
+        self._dev_s: Dict[str, float] = {}   # phase -> device seconds
+        self._tick_rows = 0                  # padded rows dispatched
+        self._tick_real_rows = 0             # real rows dispatched
+        self._tick_dev_steps = 0             # single-token device steps
+        self._tick_kv_pos = 0                # cache positions streamed
+        self._tick_kv_blocks = 0             # blocks the tables covered
+        self._tick_kv_ages: List[tuple] = []  # (n_blocks, age_s) freed
         # device work dispatched: prefill ticks, single-token decode steps
         # (each step is one launch of each paged kernel per layer),
         # speculative rounds (k + 1 draft steps and one verify each), prefix
@@ -387,6 +429,7 @@ class GenServer:
             for p in prompts:
                 self._seq_counter += 1
                 seq = _Sequence(self._seq_counter, req, p, req.max_new)
+                self._seq_event(seq, "enqueue", prompt_len=len(p))
                 if self.temperature > 0.0:
                     # the sequence's own key: its draws never follow its
                     # place in a round or the rows batched with it
@@ -431,6 +474,19 @@ class GenServer:
             doc["spec_accepted_total"] = self.spec_accepted_total
         return doc
 
+    def chunk_history(self) -> Dict[str, Any]:
+        """The adaptive prefill chunk's state for ``GET /genperf``: floor,
+        ceiling, effective width, whether the probe latched, and the
+        per-width EMA walls the latch was decided from."""
+        return {
+            "floor": self.prefill_chunk,
+            "max": self.prefill_chunk_max,
+            "effective": self._chunk_eff,
+            "latched": self._chunk_latched,
+            "wall_ema_s": {str(c): {"ema_s": round(v[0], 6), "ticks": v[1]}
+                           for c, v in sorted(self._chunk_wall.items())},
+        }
+
     def stop(self) -> None:
         """Stop the worker thread; every request still queued or in flight
         fails with "generation scheduler stopped"."""
@@ -473,6 +529,14 @@ class GenServer:
                 except Exception as e:  # noqa: BLE001 - the scheduler must outlive a bad tick
                     logger.exception("genserver tick failed")
                     self.tick_errors_total += 1
+                    # a silently erroring scheduler must be visible: the
+                    # counter family, /genperf and a span under a sampled
+                    # request riding the failing tick
+                    RECORDER.record_gen_tick_error()
+                    from seldon_core_tpu_torch.utils.genperf import GENPERF
+
+                    GENPERF.observe_tick_error()
+                    self._stamp_tick_error(e)
                     self._fail_all(e)
                     progress = True
                 if not progress:
@@ -499,28 +563,143 @@ class GenServer:
 
     def _tick(self) -> bool:
         """One iteration: admit, one prefill tick, one decode round,
-        retire.  Returns False when no work could run (the loop then backs
-        off instead of spinning)."""
+        retire, account.  Exactly one telemetry-spine record per tick,
+        with the flight recorder's decomposition: each phase's host wall,
+        the device seconds the phases fenced at their readbacks, and the
+        bubble before the tick, classified by how the previous tick ended.
+        Returns False when no work could run (the loop then backs off
+        instead of spinning)."""
+        t0 = time.perf_counter()
+        bubble_s = max(t0 - self._last_tick_end, 0.0) if self._last_tick_end > 0.0 else 0.0
+        bubble_cause = self._bubble_cause
+        self._pool_dry = False
+        self._dev_s = {}
+        self._tick_rows = self._tick_real_rows = 0
+        self._tick_dev_steps = self._tick_kv_pos = self._tick_kv_blocks = 0
         if self._pool is None:
             self._init_device()
         self._drop_cancelled()
+        ta = time.perf_counter()
         admitted = self._admit()
+        phases = {"admit": time.perf_counter() - ta}
         kind = None
         tokens = 0
         if self._prefilling:
             kind = "prefill"
+            tp = time.perf_counter()
             tokens = self._prefill_tick()
+            phases["prefill"] = time.perf_counter() - tp
         # a first token can finish a sequence (eos, max_new 1): retire it
         # before the round, so it takes neither a slot nor a dispatch
+        tr = time.perf_counter()
         retired = self._retire_finished()
+        phases["retire"] = time.perf_counter() - tr
         if self._active:
             kind = ("spec" if self.spec else "decode") if kind is None else "mixed"
+            td = time.perf_counter()
             tokens += self._spec_round() if self.spec else self._decode_round()
+            phases["decode"] = time.perf_counter() - td
+        tr = time.perf_counter()
         retired += self._retire_finished()
+        phases["retire"] += time.perf_counter() - tr
+        # idle spins count: a hot-spinning scheduler reads as a bubble on
+        # /genperf, not as silence
         self.steps_total[kind or "idle"] = self.steps_total.get(kind or "idle", 0) + 1
         if kind is not None:
             self.tokens_emitted_total += tokens
-        return kind is not None or admitted > 0 or retired > 0
+        wall = time.perf_counter() - t0
+        ages, self._tick_kv_ages = self._tick_kv_ages, []
+        detail = {
+            "wall_s": wall,
+            "device_s": sum(self._dev_s.values()),
+            "phases": phases,
+            "device_phases": dict(self._dev_s),
+            "rows": self._tick_rows,
+            "real_rows": self._tick_real_rows,
+            "tokens": tokens,
+            "steps": self._tick_dev_steps,
+            "kv_positions": self._tick_kv_pos,
+            "kv_blocks": self._tick_kv_blocks,
+            "kv_ages": tuple(ages),
+        }
+        if bubble_s > 0.0:
+            detail["bubble_s"] = bubble_s
+            detail["bubble_cause"] = bubble_cause
+        self._publish(admitted, retired, kind or "idle", tokens, wall, detail)
+        progress = kind is not None or admitted > 0 or retired > 0
+        # the bubble ledger: what the gap before the NEXT tick will mean.
+        # Progress re-enters at once (host work); a dry pool idles the card
+        # until a retirement frees blocks; queued work that was not
+        # admitted is an admission stall; otherwise there is no work
+        self._last_tick_end = time.perf_counter()
+        if progress:
+            self._bubble_cause = "host"
+        elif self._pool_dry:
+            self._bubble_cause = "pool_exhaustion"
+        elif self._waiting or self._arrivals:
+            self._bubble_cause = "admission_stall"
+        else:
+            self._bubble_cause = "idle"
+        return progress
+
+    def _register_decode_costs(self) -> None:
+        """The served decode lane's analytic per-token cost features,
+        registered once at device init under ``gen_decode_step`` (the JAX
+        package's formula, ``genserver.py:792-828`` there): the matmul
+        FLOPs per generated token, the bytes one device step streams
+        whatever the batch (every matmul'd weight once, the unembed once),
+        and the bytes a step's attention reads per cache position.
+        ``utils/genperf.py`` prices served decode MFU and HBM-bandwidth
+        share with them against real tokens.  Never raises."""
+        try:
+            cfg = self.cfg
+            d, L = cfg.d_model, cfg.n_layers
+            ff, v = cfg.d_ff, cfg.vocab
+            kvh = getattr(cfg, "kv_heads", 0) or cfg.n_heads
+            hd = d // cfg.n_heads
+            qkv_out = d + 2 * kvh * hd
+            per_layer = d * qkv_out + d * d + 2 * d * ff
+            wb = 1 if getattr(cfg, "quant", "none") == "int8" else 2
+            kv_int8 = getattr(cfg, "kv_quant", "none") == "int8"
+            kvb = 1 if kv_int8 else 2
+            OBSERVATORY.record_compile("gen_decode_step", {
+                "flops": float(2 * (L * per_layer + d * v)),
+                "bytes_accessed": float(wb * L * per_layer + 2 * d * v),
+                "output_bytes": 0.0,
+                "kv_bytes_per_position": float(
+                    L * (2 * kvh * hd * kvb + (8 * kvh if kv_int8 else 0))),
+            }, None)
+        except Exception:  # noqa: BLE001 - accounting must not block serving
+            logger.debug("decode cost-feature registration failed", exc_info=True)
+
+    def _publish(self, admitted: int, retired: int, kind: str, tokens: int,
+                 duration_s: float, detail: Dict[str, Any]) -> None:
+        """The tick's gauges and counters, and its one spine record; a
+        traced sequence in the tick lends its trace id, which the tick's
+        ``seldon_tpu_dispatch_seconds`` observation carries as an
+        exemplar."""
+        alloc = self._allocator
+        used, total, hw = alloc.used, alloc.capacity, alloc.high_water
+        with self._lock:
+            waiting = len(self._waiting) + len(self._arrivals)
+        inflight = len(self._active) + len(self._prefilling)
+        RECORDER.set_gen_scheduler(inflight=inflight, waiting=waiting, blocks_used=used,
+                                   blocks_total=total, blocks_high_water=hw)
+        RECORDER.set_kv_slots(active=used * self.block_size,
+                              reserved=(total - used) * self.block_size)
+        RECORDER.record_gen_step(kind)
+        trace_id = ""
+        if kind != "idle" and TRACER.enabled:
+            for s in self._active + self._prefilling:
+                ctx = s.request.trace_ctx
+                if ctx is not None and ctx.sampled:
+                    trace_id = ctx.trace_id
+                    break
+        SPINE.record_gen_step(
+            kind=kind, duration_s=duration_s, active=inflight, waiting=waiting,
+            admitted=admitted, retired=retired, blocks_used=used, blocks_total=total,
+            tokens=tokens, executable="" if kind == "idle" else f"gen_step:{kind}",
+            trace_id=trace_id, detail=detail)
 
     def _init_device(self) -> None:
         """The pools, on the first tick; with a shared prefix its full
@@ -542,6 +721,7 @@ class GenServer:
                 self._allocator.pin(blocks)
                 self._prefix_blocks = blocks
         self._pool, self._draft_pool = pool, draft
+        self._register_decode_costs()
 
     def _drop_cancelled(self) -> None:
         for coll in (self._waiting, self._prefilling, self._active):
@@ -588,6 +768,8 @@ class GenServer:
             if seq in coll:
                 coll.remove(seq)
         self._release_blocks(seq)
+        RECORDER.record_gen_retired("preempted")
+        self._seq_event(seq, "preempt", n_valid=seq.n_valid, emitted=len(seq.emitted))
         if seq.emitted:
             # rebuilt from the ORIGINAL prompt: folding into an already
             # folded prompt would repeat context on a second preemption
@@ -604,6 +786,9 @@ class GenServer:
         """A sequence's private blocks back to their pools (the shared
         prefix blocks are not its own, and are pinned besides)."""
         if seq.blocks:
+            if seq.t_start > 0.0:
+                # KV residency at release: the pool-sizing histogram
+                self._tick_kv_ages.append((len(seq.blocks), time.time() - seq.t_start))
             self._allocator.free(seq.blocks)
         seq.blocks = []
         if seq.draft_blocks:
@@ -630,6 +815,7 @@ class GenServer:
                         f"KV pool ({self.num_blocks} blocks of {self.block_size}) cannot hold "
                         f"one prefill chunk (grow SELDON_TPU_GEN_POOL_BLOCKS)"))
                     continue
+                self._pool_dry = True  # the bubble ledger's pool_exhaustion
                 break  # pool dry: wait for a retirement
             self._waiting.popleft()
             seq.blocks = self._allocator.alloc(need) or []
@@ -648,6 +834,9 @@ class GenServer:
             seq.admit_order = self._admit_counter
             self._prefilling.append(seq)
             self.admitted_total += 1
+            RECORDER.record_gen_admitted()
+            seq.t_start = time.time()
+            self._seq_event(seq, "admit", blocks=len(seq.blocks))
             admitted += 1
         return admitted
 
@@ -710,6 +899,12 @@ class GenServer:
         tables = np.zeros((B, nblk), np.int32)
         for i, seq in enumerate(batch):
             tables[i] = self._table(seq, nblk)
+        OBSERVATORY.note_padding(len(batch), B)
+        self._tick_rows += B
+        self._tick_real_rows += len(batch)
+        self._tick_kv_blocks += sum(self._blocks_needed(int(start[i] + width[i]))
+                                    for i in range(len(batch)))
+        td = time.perf_counter()
         toks_t, tables_t, start_t, width_t = self._to_device(toks, tables, start, width)
         logits, self._pool = paged_forward(self.params, toks_t, self._pool, tables_t, start_t,
                                            width_t, self.cfg, last_only=True,
@@ -740,11 +935,14 @@ class GenServer:
             first, keys = host[:, 0], host[:, 1:]
         else:
             first = torch.argmax(logits, dim=-1).cpu().numpy()
+        # the tick's device seconds end at the readback it pays anyway
+        self._dev_s["prefill"] = self._dev_s.get("prefill", 0.0) + time.perf_counter() - td
         self.prefill_dispatches_total += 1
         emitted = 0
         for i, seq in enumerate(batch):
             seq.prefill_pos += int(width[i])
             seq.n_valid = int(start[i] + width[i])
+            self._seq_event(seq, "prefill_chunk", pos=seq.prefill_pos, width=int(width[i]))
             if seq.prefill_pos < len(seq.prompt):
                 continue
             # prompt consumed: its first token (or the restored pending one)
@@ -815,6 +1013,15 @@ class GenServer:
             n_valid[i] = s.n_valid
             active[i] = True
             seen[i] = self.eos_token >= 0 and self.eos_token in s.emitted
+        OBSERVATORY.note_padding(len(batch), B)
+        self._tick_rows += B
+        self._tick_real_rows += len(batch)
+        self._tick_kv_blocks += sum(self._blocks_needed(s.n_valid + self.span) for s in batch)
+        # cache positions the round streams (served HBM-bandwidth share):
+        # each of the span steps attends over ~n_valid + step positions
+        self._tick_kv_pos += sum(self.span * (s.n_valid + self.span // 2) for s in batch)
+        self._tick_dev_steps += self.span
+        td = time.perf_counter()
         dev = self._to_device(tables, token, n_valid, active, seen)
         keys = None
         if self.temperature > 0.0:
@@ -833,6 +1040,7 @@ class GenServer:
         else:
             host = torch.cat([toks.long(), keys], dim=1).cpu().numpy()
             toks, keys = host[:, :self.span], host[:, self.span:]
+        self._dev_s["decode"] = self._dev_s.get("decode", 0.0) + time.perf_counter() - td
         self.decode_steps_total += self.span
         self.decode_round_rows_max = max(self.decode_round_rows_max, len(batch))
         emitted = 0
@@ -843,6 +1051,7 @@ class GenServer:
             s.n_valid += self.span
             s.pending = int(toks[i, -1])
             self._emit_tokens(s, [int(t) for t in toks[i, :take]])
+            self._seq_event(s, "decode_round", n_valid=s.n_valid, tokens=take)
             emitted += take
         return emitted
 
@@ -878,23 +1087,36 @@ class GenServer:
             token[i] = s.pending
             n_valid[i] = s.n_valid
             active[i] = True
+        OBSERVATORY.note_padding(len(batch), B)
+        self._tick_rows += B
+        self._tick_real_rows += len(batch)
+        self._tick_kv_blocks += sum(self._blocks_needed(s.n_valid + W) for s in batch)
+        self._tick_kv_pos += sum(W * (s.n_valid + W // 2) for s in batch)
+        self._tick_dev_steps += W
+        td = time.perf_counter()
         new_toks, gained, corrected, self._pool, self._draft_pool = paged_spec_round(
             self.params, self.draft_params, self._pool, self._draft_pool,
             *self._to_device(tables, d_tables, token, n_valid, active), self.cfg,
             self.draft_cfg, k=self.spec_k, use_flash=self.use_flash)
         host = torch.cat([new_toks, gained[:, None], corrected[:, None]], dim=1).cpu().numpy()
+        self._dev_s["decode"] = self._dev_s.get("decode", 0.0) + time.perf_counter() - td
         self.spec_rounds_total += 1
         self.spec_row_rounds_total += len(batch)
         self.decode_round_rows_max = max(self.decode_round_rows_max, len(batch))
         emitted = 0
+        accept_sum = 0.0
         for i, s in enumerate(batch):
             g = int(host[i, W])
             take = min(g, s.max_new - len(s.emitted))
             s.n_valid += g
             s.pending = int(host[i, W + 1])
             self.spec_accepted_total += g - 1
+            accept_sum += (g - 1) / self.spec_k
             self._emit_tokens(s, [int(t) for t in host[i, :take]])
+            self._seq_event(s, "decode_round", n_valid=s.n_valid, tokens=take)
             emitted += take
+        # the speculative accept ratio: drafts accepted per row per round
+        RECORDER.observe_accept_ratio(accept_sum / len(batch))
         return emitted
 
     # -- emission / retirement --------------------------------------------
@@ -914,7 +1136,13 @@ class GenServer:
             seq.emitted = seq.emitted[: seq.max_new]
             seq.retire_reason = "length"
             seq.done = True
-        self._deliver(seq.request)
+        req = seq.request
+        if not req.ttft_recorded:
+            req.ttft_recorded = True
+            if req.chunk is not None:
+                # TTFT is a streaming metric, one observation a stream
+                RECORDER.observe_ttft(time.perf_counter() - req.t_submit)
+        self._deliver(req)
 
     def _deliver(self, req: GenRequest) -> None:
         """Stream chunks once every row has them; the whole array at the
@@ -931,7 +1159,12 @@ class GenServer:
                                           for s in req.seqs], np.int32))
                 req.delivered += n
         if all(s.done for s in req.seqs):
-            req.future.set_result(np.asarray([s.emitted for s in req.seqs], np.int32))
+            out = np.asarray([s.emitted for s in req.seqs], np.int32)
+            elapsed = time.perf_counter() - req.t_submit
+            if req.chunk is not None and elapsed > 0:
+                # the decode-rate family: once a stream, as TTFT
+                RECORDER.observe_decode_rate(out.size / elapsed)
+            req.future.set_result(out)
             if req.chunk is not None:
                 req.queue.put(None)
 
@@ -945,7 +1178,54 @@ class GenServer:
     def _retire(self, seq: _Sequence, reason: str) -> None:
         self._release_blocks(seq)
         self.retired_total[reason] = self.retired_total.get(reason, 0) + 1
+        RECORDER.record_gen_retired(reason)
+        self._seq_event(seq, "retire", reason=reason, emitted=len(seq.emitted))
+        self._emit_seq_timeline(seq, reason)
         self._deliver(seq.request)
+
+    # -- sequence spans (genserver.py:1984-2070 there) ----------------------
+
+    @staticmethod
+    def _seq_event(seq: _Sequence, name: str, **attrs: Any) -> None:
+        """One lifecycle event on a sampled sequence's timeline; a no-op
+        (one attribute read, one test) for an untraced request."""
+        ctx = seq.request.trace_ctx
+        if ctx is None or not ctx.sampled or not TRACER.enabled or len(seq.events) >= 512:
+            return
+        ev: Dict[str, Any] = {"name": name, "ts": round(time.time(), 6)}
+        if attrs:
+            ev["attrs"] = attrs
+        seq.events.append(ev)
+
+    def _emit_seq_timeline(self, seq: _Sequence, reason: str) -> None:
+        """One ``gen_sequence`` span per retired sampled sequence, its
+        lifecycle (enqueue, admit, prefill chunks, decode rounds,
+        preemptions, retire) as events, under the request's span."""
+        ctx = seq.request.trace_ctx
+        if not seq.events or ctx is None or not ctx.sampled or not TRACER.enabled:
+            return
+        start_s = seq.events[0]["ts"]
+        TRACER.add(Span(
+            puid=ctx.puid, name="gen_sequence", kind="gen_seq", method=reason,
+            start_s=start_s, duration_ms=(time.time() - start_s) * 1e3,
+            attrs={"sid": seq.sid, "tokens": len(seq.emitted), "n_valid": seq.n_valid,
+                   "role": "unified"},
+            trace_id=ctx.trace_id, span_id=new_span_id(), parent_span_id=ctx.span_id,
+            events=list(seq.events)))
+        seq.events = []
+
+    def _stamp_tick_error(self, exc: BaseException) -> None:
+        """One ``gen_tick_error`` span under a sampled request riding the
+        failing tick (the batch is about to fail as a whole)."""
+        if not TRACER.enabled:
+            return
+        for s in list(self._active) + list(self._prefilling):
+            ctx = s.request.trace_ctx
+            if ctx is not None and ctx.sampled:
+                TRACER.record_span("gen_tick_error", kind="gen_step", method="error",
+                                   start_s=time.time(), duration_ms=0.0, ctx=ctx,
+                                   error=repr(exc)[:200])
+                return
 
     def _finish_error(self, seq: _Sequence, exc: BaseException) -> None:
         self._retire(seq, "error")

@@ -14,6 +14,10 @@ up), so serving and calling gRPC needs no ``grpcio``.
   * client: ``FastGrpcChannel``, multiplexed unary calls over one
     connection (``GrpcCallError`` carries the status of a failed call).
 
+A request's ``traceparent`` metadata becomes its handler's trace context
+(the unit services each open a ``server`` span of the node's name in it),
+and ``FastGrpcChannel.call`` sends ``metadata`` pairs as request headers.
+
 Scope (the reference's): unary calls, identity encoding, trailers-only
 error responses; no streaming RPCs, no TLS.
 """
@@ -21,13 +25,21 @@ error responses; no streaming RPCs, no TLS.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import struct
-from typing import Awaitable, Callable, Dict, List, Optional, Tuple
+from typing import Awaitable, Callable, Dict, List, Optional, Sequence, Tuple
 
 from seldon_core_tpu_torch.native.hpackcodec import (
     HpackDecoder,
     HpackError,
     encode_headers,
+)
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import (
+    TRACE_VAR,
+    TRACER,
+    current_trace_puid,
+    parse_traceparent,
 )
 
 __all__ = ["FastGrpcServer", "FastGrpcChannel", "GrpcCallError", "serve_grpc_fast",
@@ -375,12 +387,13 @@ class _ServerConnection(_H2Endpoint):
         self.protocols.discard(self)
 
     def _on_headers(self, sid, headers, end_stream):
-        path = b""
+        path, traceparent = b"", None
         for name, value in headers:
             if name == b":path":
                 path = value
-                break
-        self.streams[sid] = (path, bytearray())
+            elif name == b"traceparent":
+                traceparent = value.decode("latin-1")
+        self.streams[sid] = (path, bytearray(), traceparent)
         if end_stream:  # unary call with no body: invalid -> trailers-only
             self._trailers_only(sid, GRPC_INTERNAL, b"missing request body")
             self.streams.pop(sid, None)
@@ -397,7 +410,7 @@ class _ServerConnection(_H2Endpoint):
             self.streams.pop(sid, None)
             return
         if end_stream:
-            path, buf = self.streams.pop(sid)
+            path, buf, traceparent = self.streams.pop(sid)
             handler = self.handlers.get(path)
             if handler is None:
                 self._trailers_only(
@@ -416,9 +429,14 @@ class _ServerConnection(_H2Endpoint):
                     sid, GRPC_INTERNAL, b"grpc frame length mismatch"
                 )
                 return
+            # the caller's trace context (the metadata's traceparent):
+            # the handler's spans join the caller's tree
+            ctx = contextvars.copy_context()
+            parent = parse_traceparent(traceparent)
+            if parent is not None:
+                ctx.run(TRACE_VAR.set, parent)
             task = asyncio.get_running_loop().create_task(
-                self._run(sid, handler, bytes(buf[5:]))
-            )
+                self._run(sid, handler, bytes(buf[5:])), context=ctx)
             self._tasks.add(task)
             task.add_done_callback(self._tasks.discard)
 
@@ -478,6 +496,7 @@ class FastGrpcServer:
         from seldon_core_tpu_torch import protoconv
 
         async def predict(wire: bytes) -> bytes:
+            RECORDER.record_lane_request("grpc")
             return await _failure_on_error(engine.predict_proto_wire(wire))
 
         async def send_feedback(wire: bytes) -> bytes:
@@ -515,12 +534,21 @@ class FastGrpcServer:
         async def off_loop(fn, *args):
             return await asyncio.get_running_loop().run_in_executor(loop_pool, fn, *args)
 
+        name = runtime.node.name
+
+        def server_span(puid: str, method: str):
+            # the call's server span, in the caller's trace (grpc_server.py
+            # _wrap there)
+            return TRACER.span(puid or current_trace_puid(), name, kind="server",
+                               method=method)
+
         def message(method):
             async def handle(wire: bytes) -> bytes:
                 async def run():
                     msg = await off_loop(protoconv.msg_from_proto, wire)
-                    return await off_loop(protoconv.msg_to_proto,
-                                          await getattr(runtime, method)(msg))
+                    with server_span(msg.meta.puid, method):
+                        out = await getattr(runtime, method)(msg)
+                    return await off_loop(protoconv.msg_to_proto, out)
 
                 return await _failure_on_error(run())
 
@@ -529,7 +557,10 @@ class FastGrpcServer:
         async def route(wire: bytes) -> bytes:
             async def run():
                 msg = await off_loop(protoconv.msg_from_proto, wire)
-                branch = await runtime.route(msg)
+                with server_span(msg.meta.puid, "route") as sp:
+                    branch = await runtime.route(msg)
+                    if isinstance(sp, dict):
+                        sp["branch"] = branch
                 return protoconv.msg_to_proto(
                     msg.with_array(np.array([[branch]], dtype=np.float64)))
 
@@ -538,8 +569,10 @@ class FastGrpcServer:
         async def aggregate(wire: bytes) -> bytes:
             async def run():
                 msgs = await off_loop(protoconv.msg_list_from_proto, wire)
-                return await off_loop(protoconv.msg_to_proto,
-                                      await runtime.aggregate(msgs.messages))
+                puid = msgs.messages[0].meta.puid if msgs.messages else ""
+                with server_span(puid, "aggregate"):
+                    out = await runtime.aggregate(msgs.messages)
+                return await off_loop(protoconv.msg_to_proto, out)
 
             return await _failure_on_error(run())
 
@@ -547,7 +580,8 @@ class FastGrpcServer:
             async def run():
                 fb = await off_loop(protoconv.feedback_from_proto, wire)
                 routing = fb.response.meta.routing if fb.response is not None else {}
-                await runtime.send_feedback(fb, int(routing.get(runtime.node.name, -1)))
+                with server_span(fb.puid(), "send_feedback"):
+                    await runtime.send_feedback(fb, int(routing.get(runtime.node.name, -1)))
                 return protoconv.msg_to_proto(SeldonMessage())
 
             return await _failure_on_error(run())
@@ -645,7 +679,8 @@ class _ClientConnection(_H2Endpoint):
                 call["future"].set_exception(err)
         self.calls.clear()
 
-    def start_call(self, path: bytes, message: bytes) -> asyncio.Future:
+    def start_call(self, path: bytes, message: bytes,
+                   metadata: Sequence[Tuple[bytes, bytes]] = ()) -> asyncio.Future:
         if self.transport is None or self.transport.is_closing():
             # fail fast: a write on a closed transport is a silent no-op and
             # the future would never resolve
@@ -661,6 +696,7 @@ class _ClientConnection(_H2Endpoint):
             (b":authority", self.authority),
             (b"content-type", b"application/grpc"),
             (b"te", b"trailers"),
+            *metadata,
         ])
         framed = _grpc_frame(message)
         self.transport.write(_frame(_HEADERS, _F_END_HEADERS, sid, block))
@@ -754,10 +790,13 @@ class FastGrpcChannel:
         return (self._conn is not None and self._conn.transport is not None
                 and not self._conn.transport.is_closing())
 
-    async def call(self, path: bytes, message: bytes) -> bytes:
+    async def call(self, path: bytes, message: bytes,
+                   metadata: Sequence[Tuple[bytes, bytes]] = ()) -> bytes:
+        """One unary call; ``metadata`` (lower-case name, value) pairs ride
+        the request headers (a ``traceparent``)."""
         if self._conn is None:
             raise GrpcCallError(14, "channel not connected")
-        return await self._conn.start_call(path, message)
+        return await self._conn.start_call(path, message, metadata)
 
     async def close(self) -> None:
         if self._conn is not None and self._conn.transport is not None:

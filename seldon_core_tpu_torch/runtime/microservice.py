@@ -27,7 +27,17 @@ Two kinds of class are served: a port ``Unit``, or a reference-style plain
 object (``predict(X, feature_names)``, ``route``, ``aggregate``,
 ``transform_input`` / ``transform_output``, ``send_feedback``, ``score`` for
 an OUTLIER_DETECTOR) behind ``UserObjectUnit``, which hands it numpy rows.
-``--persistence 1`` is refused until ROADMAP Queue 1 item [4].
+``--persistence 1`` is refused until ROADMAP Queue 1 item [4d].
+
+Observability: a REST unit also answers ``GET /stats`` (with the flight
+recorder's snapshot), ``/perf``, ``/overhead``, ``/trace`` and
+``/trace/export``, and each call runs in a ``server`` span of the node's
+name, the caller's child through its ``traceparent``
+(``SELDON_TPU_TRACE=1`` turns tracing on).  A gRPC unit takes the
+``traceparent`` metadata the same way, and with ``--http-port N`` (or
+``PREDICTIVE_UNIT_HTTP_PORT``) serves those GET routes over HTTP on port N
+too, so its ``/stats`` states its kernel launches and its ``/trace`` its
+spans.
 """
 
 from __future__ import annotations
@@ -174,19 +184,27 @@ def _env_parameters() -> List[Parameter]:
         raise ValueError(f"bad PREDICTIVE_UNIT_PARAMETERS: {e}") from e
 
 
-async def _serve(runtime: InProcessNodeRuntime, host: str, port: int, api: str = "REST") -> None:
-    """Serve over ``api`` (REST or GRPC) until SIGTERM or SIGINT."""
+async def _serve(runtime: InProcessNodeRuntime, host: str, port: int, api: str = "REST",
+                 http_port: Optional[int] = None) -> None:
+    """Serve over ``api`` (REST or GRPC) until SIGTERM or SIGINT; a gRPC
+    unit with ``http_port`` also serves its HTTP routes there."""
+    side = None
     if api == "GRPC":
         from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcServer
 
         server = FastGrpcServer.for_unit(runtime)
         await server.start(host, port)
+        if http_port:
+            from seldon_core_tpu_torch.runtime.rest import serve_unit
+
+            side = await serve_unit(runtime, host, http_port)
     else:
         from seldon_core_tpu_torch.runtime.rest import serve_unit
 
         server = await serve_unit(runtime, host, port)
     print(f"unit up: {runtime.node.name} ({type(runtime.unit).__name__}) "
-          f"device={runtime.device} {api.lower()}=:{server.port}", flush=True)
+          f"device={runtime.device} {api.lower()}=:{server.port}"
+          + (f" http=:{side.port}" if side is not None else ""), flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -196,6 +214,8 @@ async def _serve(runtime: InProcessNodeRuntime, host: str, port: int, api: str =
             pass  # platforms without signal support: external kill only
     await stop.wait()
     await server.stop()
+    if side is not None:
+        await side.stop()
     from seldon_core_tpu_torch.ops import fused_mlp
 
     # a gRPC unit has no /stats: its kernel's launches are said here
@@ -212,12 +232,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--persistence", type=int, default=0,
                         help="1: checkpoint the unit's state (not ported)")
+    parser.add_argument("--http-port", type=int, default=None,
+                        help="GRPC: also serve /stats /perf /overhead /trace on this port")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card is an error")
     args = parser.parse_args(argv)
     if args.persistence:
         parser.exit(2, "microservice: --persistence 1 is not ported yet (ROADMAP Queue 1 "
-                       "item [4])\n")
+                       "item [4], its slice [4d])\n")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -235,7 +257,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"smoke ok: {args.interface_name} as {args.service_type} on {device}",
                   flush=True)
             return
-        asyncio.run(_serve(runtime, args.host, port, args.api))
+        http_port = args.http_port or int(os.environ.get("PREDICTIVE_UNIT_HTTP_PORT", "0") or 0)
+        asyncio.run(_serve(runtime, args.host, port, args.api, http_port or None))
     finally:
         pool.shutdown(wait=True)
 

@@ -15,8 +15,12 @@ nodes — the port's copy of ``seldon_core_tpu/runtime/resilience.py:61-492``.
   and ``/ready``.
 
 Everything takes an injectable clock / rng, so tests are deterministic.
-The flight recorder's counters and the QoS, brownout and admission layers
-of the JAX package are not ported (ROADMAP Queue 1 item [4]).
+Breaker states and transitions, retry-budget exhaustion and deadline
+misses go to the flight recorder (``utils/telemetry.py``, the
+``seldon_tpu_breaker_*``, ``seldon_tpu_retry_budget_exhausted_total`` and
+``seldon_tpu_deadline_exceeded_total`` families); the remote clients
+record their retries.  The QoS, brownout and admission layers of the JAX
+package are not ported (ROADMAP Queue 1 item [4c]).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from seldon_core_tpu_torch.messages import DeadlineExceededError, SeldonMessageError
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
 
 __all__ = [
     "Deadline",
@@ -126,6 +131,7 @@ def clamp_timeout(timeout_s: float, where: str = "call") -> float:
     if rem is None:
         return timeout_s
     if rem <= 0.0:
+        RECORDER.record_deadline_exceeded(where)
         raise DeadlineExceededError(f"request deadline exhausted before {where}")
     return min(timeout_s, rem)
 
@@ -232,7 +238,8 @@ class RetryBudget:
                 self._tokens -= 1.0
                 return True
             self.exhausted_total += 1
-            return False
+        RECORDER.record_retry_budget_exhausted()
+        return False
 
     @property
     def tokens(self) -> float:
@@ -262,6 +269,8 @@ class CircuitBreaker:
     CLOSED = "closed"
     OPEN = "open"
     HALF_OPEN = "half_open"
+    #: the seldon_tpu_breaker_state gauge's value per state
+    _STATE_GAUGE = {CLOSED: 0.0, HALF_OPEN: 0.5, OPEN: 1.0}
 
     def __init__(self, node: str, window_s: float = 30.0, min_calls: int = 10,
                  failure_ratio: float = 0.5, open_s: float = 5.0, half_open_probes: int = 1,
@@ -278,6 +287,10 @@ class CircuitBreaker:
         self._opened_at = 0.0
         self._probes_inflight = 0
         self.transitions: Dict[str, int] = {}
+        self._publish_state()
+
+    def _publish_state(self) -> None:
+        RECORDER.set_breaker_state(self.node, self.state, self._STATE_GAUGE[self.state])
 
     def _transition(self, to: str) -> None:
         if to == self.state:
@@ -290,6 +303,8 @@ class CircuitBreaker:
             self._probes_inflight = 0
         if to == self.CLOSED:
             self._window = []
+        RECORDER.record_breaker_transition(self.node, to)
+        self._publish_state()
 
     def _failure_stats(self, now: float) -> Tuple[int, int]:
         cutoff = now - self.window_s

@@ -14,6 +14,18 @@ Routes:
   POST /api/v0.1/generate/stream   SSE token streaming (``httpfast.py:219-232``)
   ANY  /api/v0.1/events            the reference's stub: 200 "Not Implemented"
   GET  /ping /ready /pause /unpause /stats
+  GET  /prometheus                 the Prometheus text format, or OpenMetrics
+                                   (exemplars) on ``Accept:
+                                   application/openmetrics-text`` or
+                                   ``?format=openmetrics``
+  GET  /perf /genperf /overhead    the perf observatory, the generation-lane
+                                   recorder, the telemetry overhead budget
+  GET  /trace /trace/export        ``?puid=`` / ``?trace_id=`` / ``?limit=``:
+                                   the trace document, Chrome trace JSON
+  POST /trace/enable /trace/disable   (a GET answers 405)
+  GET  /profile, POST /profile/start /profile/stop   the torch.profiler
+                                   window (a second start answers 409, a
+                                   window that cannot start 503)
 
 The unit microservice's routes (``FastHttpServer(routes=_UnitRoutes(...))``,
 ``serve_unit``; ``make_unit_app`` of the JAX package's ``runtime/rest.py``):
@@ -24,7 +36,7 @@ The unit microservice's routes (``FastHttpServer(routes=_UnitRoutes(...))``,
                                Feedback), JSON body or form ``json=``;
                                the answer a SeldonMessage (/route's a 1x1
                                tensor holding the branch)
-  GET  /ping /stats
+  GET  /ping /stats /perf /overhead /trace /trace/export
 
 A request's ``Seldon-Deadline-Ms`` header becomes its deadline scope
 (``runtime/resilience.py``) for every route; a unit route whose budget is
@@ -46,9 +58,16 @@ stream route answers every problem with a plain 400 before any byte;
 otherwise its response is chunked, one ``data: {...}`` SSE frame per
 token chunk, then the terminal ``{"done": true, "meta": {"puid": ...}}``
 frame.  A failure mid-stream sends a terminal error frame and closes the
-connection; a client that goes away closes the engine's generator.  Not
-ported: the trace and profile routes (ROADMAP Queue 1 item [4]) and the
-writer's transport flow control.
+connection; a client that goes away closes the engine's generator.
+
+Every request's ``traceparent`` header is its trace context, as its
+``Seldon-Deadline-Ms`` header is its deadline scope: the engine's
+``request`` span and a unit's ``server`` span become the caller's
+children.  A unit route's latency lands in the recorder's
+``unit:<method>`` reservoir and histogram.  Not routed yet:
+``/quality``, ``/quality/reference``, ``/postmortems`` and ``/costs``
+(ROADMAP Queue 1 item [4b]), ``/autopilot`` and ``/corpus`` (item [4c]);
+not ported: the writer's transport flow control.
 """
 
 from __future__ import annotations
@@ -57,6 +76,7 @@ import asyncio
 import contextvars
 import json
 import os
+import time
 from typing import Any, Awaitable, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs
 
@@ -76,6 +96,26 @@ from seldon_core_tpu_torch.runtime.resilience import (
     current_deadline,
     deadline_ms_header,
 )
+from seldon_core_tpu_torch.utils.hotrecord import SPINE
+from seldon_core_tpu_torch.utils.metrics import (
+    CONTENT_TYPE_LATEST,
+    OPENMETRICS_CONTENT_TYPE,
+)
+from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import (
+    TRACE_VAR,
+    TRACER,
+    ProfileBusyError,
+    ProfileUnavailableError,
+    current_trace_puid,
+    export_document,
+    parse_traceparent,
+    profile_window_start_request,
+    profile_window_status,
+    profile_window_stop,
+    trace_document,
+)
 
 __all__ = ["FastHttpServer", "StreamResult", "serve_fast", "serve_unit"]
 
@@ -90,11 +130,17 @@ _WIRE = wire.WIRE_CONTENT_TYPE
 _WIRE_UNIT_METHODS = ("predict", "transform_input", "transform_output", "route")
 Handler = Callable[[bytes, str], Awaitable[Result]]
 
+#: the request's query string and lower-cased head, bound in the handler
+#: task's context (``_request_query``, ``_request_header``)
+_REQUEST: "contextvars.ContextVar[Tuple[str, bytes]]" = contextvars.ContextVar(
+    "seldon_torch_http_request", default=("", b""))
+
 _STATUS_LINE = {
     code: f"HTTP/1.1 {code} {text}\r\n".encode()
     for code, text in {
         200: "OK", 400: "Bad Request", 404: "Not Found",
-        405: "Method Not Allowed", 413: "Payload Too Large", 415: "Unsupported Media Type",
+        405: "Method Not Allowed", 409: "Conflict", 413: "Payload Too Large",
+        415: "Unsupported Media Type",
         500: "Internal Server Error", 501: "Not Implemented",
         503: "Service Unavailable", 504: "Gateway Timeout",
     }.items()
@@ -126,6 +172,35 @@ def _failure(e: Exception, code: int) -> bytes:
     return SeldonMessage.failure(str(e), code=code).to_json().encode()
 
 
+def _request_query() -> Dict[str, list]:
+    """The current request's query string, parsed."""
+    return parse_qs(_REQUEST.get()[0])
+
+
+def _request_header(name: bytes) -> Optional[str]:
+    """A header of the current request (``name`` lower-case with its
+    colon), or None."""
+    v = _header_value(_REQUEST.get()[1], name)
+    return None if v is None else v.decode("latin-1")
+
+
+def _json_doc(doc) -> Result:
+    return 200, json.dumps(doc).encode(), _JSON
+
+
+def _trace_doc(default_limit: int, process_name: Optional[str] = None) -> Result:
+    """``/trace`` (``process_name`` None) or ``/trace/export``."""
+    q = _request_query()
+    try:
+        limit = int(q.get("limit", [str(default_limit)])[0])
+    except ValueError:
+        return 400, _failure(SeldonMessageError("limit must be an integer"), 400), _JSON
+    args = dict(puid=q.get("puid", [""])[0], trace_id=q.get("trace_id", [""])[0], limit=limit)
+    if process_name is None:
+        return _json_doc(trace_document(TRACER, **args))
+    return _json_doc(export_document(TRACER, process_name=process_name, **args))
+
+
 class _EngineRoutes:
     """The engine route table shared by every connection."""
 
@@ -136,7 +211,14 @@ class _EngineRoutes:
             b"/predict": self._predictions,
             b"/api/v0.1/feedback": self._feedback,
             b"/api/v0.1/generate/stream": self._generate_stream,
+            b"/trace/enable": self._trace_enable,
+            b"/trace/disable": self._trace_disable,
+            b"/profile/start": self._profile_start,
+            b"/profile/stop": self._profile_stop,
         }
+        # mutations: a GET answers 405, not 404
+        self.post_only = frozenset((b"/trace/enable", b"/trace/disable", b"/profile/start",
+                                    b"/profile/stop"))
         # any method (engine RestClientController.java:177-180)
         self.any: Dict[bytes, Handler] = {b"/api/v0.1/events": self._events}
         self.get: Dict[bytes, Handler] = {
@@ -145,9 +227,17 @@ class _EngineRoutes:
             b"/pause": self._pause,
             b"/unpause": self._unpause,
             b"/stats": self._stats,
+            b"/prometheus": self._prometheus,
+            b"/perf": self._perf,
+            b"/genperf": self._genperf,
+            b"/overhead": self._overhead,
+            b"/trace": self._trace,
+            b"/trace/export": self._trace_export,
+            b"/profile": self._profile,
         }
 
     async def _predictions(self, body, ctype) -> Result:
+        RECORDER.record_lane_request("rest")
         if ctype.startswith(_WIRE):
             return await self._predictions_wire(body)
         text, status = await self.engine.predict_json(_payload_text(body, ctype))
@@ -161,6 +251,7 @@ class _EngineRoutes:
         if not wire.wire_enabled():
             return 415, _failure(SeldonMessageError(
                 "binary wire lane disabled (SELDON_TPU_WIRE=0)"), 415), _JSON
+        RECORDER.record_wire_request("fast", "binary")
         wire.account_copy(len(body))
         try:
             status, parts = await self.engine.predict_wire(body)
@@ -216,6 +307,64 @@ class _EngineRoutes:
     async def _stats(self, body, ctype) -> Result:
         return 200, json.dumps(self.engine.stats()).encode(), _JSON
 
+    # -- observability (httpfast.py:268-470 there) ------------------------
+
+    async def _prometheus(self, body, ctype) -> Result:
+        openmetrics = ("application/openmetrics-text" in (_request_header(b"accept:") or "")
+                       or _request_query().get("format", [""])[0] == "openmetrics")
+        if openmetrics:
+            return 200, self.engine.metrics.exposition(openmetrics=True), \
+                OPENMETRICS_CONTENT_TYPE
+        return 200, self.engine.metrics.exposition(), CONTENT_TYPE_LATEST
+
+    async def _perf(self, body, ctype) -> Result:
+        return _json_doc(self.engine.perf_document())
+
+    async def _genperf(self, body, ctype) -> Result:
+        return _json_doc(self.engine.genperf_document())
+
+    async def _overhead(self, body, ctype) -> Result:
+        return _json_doc(self.engine.overhead_document())
+
+    async def _trace(self, body, ctype) -> Result:
+        return _trace_doc(100)
+
+    async def _trace_export(self, body, ctype) -> Result:
+        return _trace_doc(1000, self.engine.process_track_name())
+
+    async def _trace_enable(self, body, ctype) -> Result:
+        TRACER.enable()
+        return 200, b"tracing enabled", "text/plain"
+
+    async def _trace_disable(self, body, ctype) -> Result:
+        TRACER.disable()
+        return 200, b"tracing disabled", "text/plain"
+
+    async def _profile(self, body, ctype) -> Result:
+        return _json_doc(profile_window_status())
+
+    async def _profile_start(self, body, ctype) -> Result:
+        """A bounded ``torch.profiler`` window in this process: 409 on
+        overlap, never queued; 503 when the profiler cannot start."""
+        try:
+            payload = json.loads(body.decode("utf-8", "replace") or "{}")
+        except ValueError:
+            payload = {}
+        if not isinstance(payload, dict):
+            payload = {}
+        try:
+            doc = profile_window_start_request(payload)
+        except ProfileBusyError as e:
+            return 409, json.dumps({"error": str(e)}).encode(), _JSON
+        except ProfileUnavailableError as e:
+            return 503, json.dumps({"error": str(e)}).encode(), _JSON
+        return _json_doc(doc)
+
+    async def _profile_stop(self, body, ctype) -> Result:
+        # the artifact is written here: off the loop
+        return _json_doc(await asyncio.get_running_loop().run_in_executor(
+            None, profile_window_stop))
+
 
 class _UnitRoutes:
     """The unit microservice's route table (``make_unit_app`` there): one
@@ -234,10 +383,21 @@ class _UnitRoutes:
             b"/send-feedback": self._handler("send_feedback"),
         }
         self.any: Dict[bytes, Handler] = {}
-        self.get: Dict[bytes, Handler] = {b"/ping": self._ping, b"/stats": self._stats}
+        self.get: Dict[bytes, Handler] = {
+            b"/ping": self._ping, b"/stats": self._stats, b"/perf": self._perf,
+            b"/overhead": self._overhead, b"/trace": self._trace,
+            b"/trace/export": self._trace_export,
+        }
 
     def _handler(self, method: str) -> Handler:
         async def handle(body, ctype) -> Result:
+            t0 = time.perf_counter()
+            try:
+                return await handle_timed(body, ctype)
+            finally:
+                RECORDER.request_latency(f"unit:{method}", time.perf_counter() - t0)
+
+        async def handle_timed(body, ctype) -> Result:
             framed = ctype.startswith(_WIRE)
             if framed and not wire.wire_enabled():
                 return 415, _failure(SeldonMessageError(
@@ -274,37 +434,64 @@ class _UnitRoutes:
         return handle
 
     async def _dispatch(self, method: str, payload) -> SeldonMessage:
-        """One call of the runtime; ``payload`` is the body's JSON text, or
-        a SeldonMessage a frame carried."""
+        """One call of the runtime in its ``server`` span (the caller's
+        child when a traceparent came in); ``payload`` is the body's JSON
+        text, or a SeldonMessage a frame carried."""
         rt = self.runtime
+        name = rt.node.name
         if method == "aggregate":
-            return await rt.aggregate(SeldonMessageList.from_json(payload).messages)
+            msgs = SeldonMessageList.from_json(payload).messages
+            puid = current_trace_puid() or (msgs[0].meta.puid if msgs else "")
+            with TRACER.span(puid, name, kind="server", method=method):
+                return await rt.aggregate(msgs)
         if method == "send_feedback":
             fb = Feedback.from_json(payload)
             routing = fb.response.meta.routing if fb.response is not None else {}
-            await rt.send_feedback(fb, int(routing.get(rt.node.name, -1)))
+            with TRACER.span(fb.puid() or current_trace_puid(), name, kind="server",
+                             method=method):
+                await rt.send_feedback(fb, int(routing.get(name, -1)))
             return SeldonMessage()
         msg = payload if isinstance(payload, SeldonMessage) else SeldonMessage.from_json(payload)
         if method == "route":
-            branch = await rt.route(msg)
+            with TRACER.span(msg.meta.puid, name, kind="server", method=method) as sp:
+                branch = await rt.route(msg)
+                if isinstance(sp, dict):
+                    sp["branch"] = branch
             # the branch as a 1x1 tensor, as the reference's router wrapper
             # answers (wrappers/python/router_microservice.py:39-56)
             return msg.with_array(np.array([[branch]], dtype=np.float64))
-        return await getattr(rt, method)(msg)
+        with TRACER.span(msg.meta.puid, name, kind="server", method=method):
+            return await getattr(rt, method)(msg)
 
     async def _ping(self, body, ctype) -> Result:
         return 200, b"pong", "text/plain"
 
+    def _unit(self) -> dict:
+        node = self.runtime.node
+        return {"name": node.name, "type": getattr(node.type, "name", None)}
+
     async def _stats(self, body, ctype) -> Result:
         from seldon_core_tpu_torch.ops import fused_mlp
 
-        node = self.runtime.node
-        return 200, json.dumps({
-            "unit": {"name": node.name, "type": getattr(node.type, "name", None),
-                     "class": type(self.runtime.unit).__name__},
+        return _json_doc({
+            "unit": {**self._unit(), "class": type(self.runtime.unit).__name__},
             "device": self.runtime.device.type,
             "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES}},
-        }).encode(), _JSON
+            # the process-level flight recorder (rest.py:599-605 there)
+            "telemetry": RECORDER.snapshot(),
+        })
+
+    async def _perf(self, body, ctype) -> Result:
+        return _json_doc({"unit": self._unit(), **OBSERVATORY.document()})
+
+    async def _overhead(self, body, ctype) -> Result:
+        return _json_doc({"unit": self._unit(), **SPINE.overhead_document()})
+
+    async def _trace(self, body, ctype) -> Result:
+        return _trace_doc(100)
+
+    async def _trace_export(self, body, ctype) -> Result:
+        return _trace_doc(1000, f"unit {self.runtime.node.name}")
 
 
 def _header_value(lower: bytes, name: bytes) -> Optional[bytes]:
@@ -462,12 +649,14 @@ class _HttpProtocol(asyncio.Protocol):
         except ValueError:
             self._reject(400, b"malformed request line", close=True)
             return
-        path = target.split(b"?", 1)[0]
+        path, _, query = target.partition(b"?")
         conn = _header_value(lower, b"connection:")
         close = conn is not None and b"close" in (p.strip() for p in conn.split(b","))
         table = {b"POST": self.routes.post, b"GET": self.routes.get}.get(method, {})
         handler = self.routes.any.get(path) or table.get(path)
-        if handler is None and not table:
+        if handler is None and (not table or path in getattr(self.routes, "post_only", ())):
+            # a method the lane does not serve, or a GET of a mutation
+            # route (/trace/enable: the reference's aiohttp lane answers 405)
             self._reject(405, b"method not allowed", close=close)
             return
         if handler is None:
@@ -475,16 +664,19 @@ class _HttpProtocol(asyncio.Protocol):
             return
         ctv = _header_value(lower, b"content-type:")
         coro = handler(body, ctv.decode("latin-1") if ctv is not None else "")
-        loop = asyncio.get_running_loop()
+        # the handler's task runs in a context of its own: the request's
+        # query and head, its deadline scope and its trace context; every
+        # task it starts inherits them
+        ctx = contextvars.copy_context()
+        ctx.run(_REQUEST.set, (query.decode("latin-1"), lower))
         budget = deadline_ms_header(_header_value(lower, b"seldon-deadline-ms:"))
-        if budget is None:
-            task = loop.create_task(coro)
-        else:
-            # the request's deadline scope: the handler's task, and every
-            # task it starts, inherit it
-            ctx = contextvars.copy_context()
+        if budget is not None:
             ctx.run(DEADLINE_VAR.set, Deadline.after(budget))
-            task = loop.create_task(coro, context=ctx)
+        tp = _header_value(lower, b"traceparent:")
+        parent = parse_traceparent(tp.decode("latin-1")) if tp is not None else None
+        if parent is not None:
+            ctx.run(TRACE_VAR.set, parent)
+        task = asyncio.get_running_loop().create_task(coro, context=ctx)
         self.queue.put_nowait((task, close))
 
 

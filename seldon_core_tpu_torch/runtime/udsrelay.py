@@ -17,17 +17,19 @@ Ops:
     OP_PING      empty                         -> b"pong", 200
     OP_KVSTREAM  the KV hand-off of disaggregated serving: the port's engine
                  takes none (503; ROADMAP Queue 1 item [6])
-    OP_TRACE     the trace document: the port's engine serves none (404;
-                 item [4])
+    OP_TRACE     payload = JSON query {"trace_id"|"puid"|"limit"} -> the
+                 engine's local trace document (``engine.trace_json``)
     OP_WIRE      payload = binary tensor frame (``runtime/wire.py``; single
                  or MULTI) -> binary response frame parts
 
 Metadata sidecar: the op byte's high bit (``op | 0x80``) marks the payload
 as ``uvarint(meta_len) | meta_block | body``; the block (version first)
 carries the request deadline, traceparent, tenant and tier.  The server
-binds the deadline around the handler, as the HTTP lane binds the
-``Seldon-Deadline-Ms`` header (trace, tenant and tier arrive with item
-[4]); a malformed block degrades to no metadata.
+binds the deadline and the trace context around the handler, as the HTTP
+lane binds the ``Seldon-Deadline-Ms`` and ``traceparent`` headers (tenant
+and tier arrive with the QoS layer, ROADMAP Queue 1 item [4c]); a
+malformed block degrades to no metadata.  The client packs the calling
+context's deadline and traceparent.
 
 Scope: unary predict, feedback and the binary wire.  The client pipelines
 nothing: each pooled connection carries one request at a time.  The
@@ -50,6 +52,12 @@ from seldon_core_tpu_torch.messages import (
 )
 from seldon_core_tpu_torch.runtime import wire as wirelib
 from seldon_core_tpu_torch.runtime.resilience import maybe_deadline_scope, remaining_s
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import (
+    parse_traceparent,
+    trace_scope,
+    traceparent_header_value,
+)
 
 __all__ = [
     "OP_PREDICT",
@@ -141,12 +149,15 @@ def unpack_relay_meta(view) -> dict:
 
 
 def current_relay_meta() -> "bytes | None":
-    """The calling context's deadline as a sidecar block, or None when none
-    is bound (the frame then goes out without one)."""
+    """The calling context's deadline and traceparent as a sidecar block,
+    or None when neither is bound (the frame then goes out without
+    one)."""
     rem = remaining_s()
-    if rem is None:
+    tp = traceparent_header_value()
+    if rem is None and tp is None:
         return None
-    return pack_relay_meta(deadline_ms=max(rem * 1e3, 1.0))
+    return pack_relay_meta(deadline_ms=None if rem is None else max(rem * 1e3, 1.0),
+                           traceparent=tp)
 
 
 class _UdsServerProtocol(asyncio.Protocol):
@@ -325,10 +336,14 @@ class _UdsServerProtocol(asyncio.Protocol):
     async def _handle(self, op: int, data, meta=None):
         if meta is not None:
             # the sidecar's deadline binds as the HTTP lane binds the
-            # header: it can only tighten an inherited one
+            # header (it can only tighten an inherited one), its trace
+            # context as the traceparent header does
             dl = meta.get("deadline_ms")
-            with maybe_deadline_scope(dl / 1e3 if dl else None):
+            with maybe_deadline_scope(dl / 1e3 if dl else None), \
+                    trace_scope(parse_traceparent(meta.get("traceparent"))):
                 return await self._handle(op, data, None)
+        if op in (OP_PREDICT, OP_WIRE):
+            RECORDER.record_lane_request("relay")
         if op == OP_PREDICT:
             text_out, status = await self.engine.predict_json(data)
             return status or 200, text_out.encode()
@@ -347,11 +362,16 @@ class _UdsServerProtocol(asyncio.Protocol):
             handler = getattr(self.engine, "predict_wire", None)
             if handler is None or not wirelib.wire_enabled():
                 return 415, b"binary wire lane unavailable"
+            RECORDER.record_wire_request("relay", "binary")
             wirelib.account_copy(len(data))
             status, parts = await handler(data)
             return status or 200, parts
         if op == OP_TRACE:
-            return 404, b"engine serves no trace surface (ROADMAP Queue 1 item [4])"
+            # the trace document of a replica that serves no HTTP lane
+            handler = getattr(self.engine, "trace_json", None)
+            if handler is None:
+                return 404, b"engine serves no trace surface"
+            return 200, handler(data).encode()
         if op == OP_PING:
             return 200, b"pong"
         return 400, SeldonMessage.failure(

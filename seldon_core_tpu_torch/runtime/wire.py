@@ -50,12 +50,13 @@ widens them to float32 exactly; ``encode_frame`` takes a
 "bfloat16", by its bits.  Any other dtype without a code (a plain uint16
 array among them) is the reference's ``WireError``.
 
-What the reference's sidecar fills from its telemetry, QoS and tracing
-layers (ROADMAP Queue 1 item [4]) the port packs as the reference does
-with none bound: the deadline comes from ``runtime/resilience.py``'s
-scope, tenant, tier and traceparent are empty.  Host-side byte copies
-the codec or a lane feeding it makes are counted in ``bytes_copied()``
-(the engine's ``/stats`` shows it).
+The sidecar carries the calling context's deadline
+(``runtime/resilience.py``) and W3C ``traceparent`` (``utils/tracing.py``);
+tenant and tier stay empty until the QoS layer (ROADMAP Queue 1 item
+[4c]).  Host-side byte copies the codec or a lane feeding it makes are
+counted by the flight recorder (``RECORDER.record_wire_copy``: the
+``seldon_tpu_wire_bytes_copied_total`` family, ``bytes_copied()``, the
+engine's ``/stats``).
 
 Content negotiation: HTTP lanes carry frames under ``Content-Type:
 application/x-seldon-tensor``; the framed relay (``runtime/udsrelay.py``)
@@ -68,7 +69,6 @@ from __future__ import annotations
 import json
 import os
 import struct
-import threading
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
@@ -82,6 +82,8 @@ from seldon_core_tpu_torch.messages import (
     Status,
 )
 from seldon_core_tpu_torch.runtime.resilience import remaining_s
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import traceparent_header_value
 
 __all__ = [
     "WIRE_CONTENT_TYPE",
@@ -176,21 +178,18 @@ def wire_enabled() -> bool:
 # copy accounting
 # ---------------------------------------------------------------------------
 
-_COPIED = [0]
-_COPIED_LOCK = threading.Lock()
-
-
 def account_copy(nbytes: int) -> None:
     """One host-side byte copy of ``nbytes`` made by the codec or a lane
-    feeding it (a receive buffer materialized, parts joined)."""
+    feeding it (a receive buffer materialized, parts joined), into the
+    flight recorder."""
     if nbytes > 0:
-        with _COPIED_LOCK:
-            _COPIED[0] += int(nbytes)
+        RECORDER.record_wire_copy(nbytes)
 
 
 def bytes_copied() -> int:
-    """Host-side bytes copied by the wire lanes since the process began."""
-    return _COPIED[0]
+    """Host-side bytes copied by the wire lanes since the process began
+    (or the recorder's last reset)."""
+    return RECORDER.wire_bytes_copied
 
 
 # ---------------------------------------------------------------------------
@@ -290,14 +289,14 @@ def unpack_wire_meta(view) -> dict:
 
 
 def current_wire_sidecar(extra: "dict | None" = None, puid: "str | None" = None) -> bytes:
-    """The calling context's deadline as sidecar bytes (traceparent, tenant
-    and tier stay empty, as a reference engine packs them with none bound):
-    what the JSON lanes forward as headers, for frames that hop node to
-    node."""
+    """The calling context's deadline and trace context as sidecar bytes
+    (tenant and tier stay empty until ROADMAP Queue 1 item [4c]): what the
+    JSON lanes forward as headers, for frames that hop node to node."""
     rem = remaining_s()
     return pack_wire_meta(
         puid=puid,
         deadline_ms=max(rem * 1e3, 1.0) if rem is not None else None,
+        traceparent=traceparent_header_value(),
         extra=extra,
     )
 

@@ -1,0 +1,321 @@
+"""Generation-lane flight recorder — the aggregator behind ``GET /genperf``;
+the port's counterpart of ``seldon_core_tpu/utils/genperf.py``.
+
+The continuous-batching scheduler (runtime/genserver.py) stamps ONE fused
+record per tick into the telemetry spine (utils/hotrecord.py
+HOP_GEN_STEP), with a full per-tick decomposition — host-schedule wall vs fenced device wall, admit/prefill/
+decode/retire phase splits, real-vs-padded rows, KV blocks touched, and
+an explicit **bubble ledger** (device-idle time between consecutive
+ticks, classified by cause) — and the spine's off-path drainer folds it
+HERE.  Nothing in this module ever runs on the scheduler's hot path: the
+tick loop's only added cost is a handful of ``perf_counter()`` stamps
+and the ``block_until_ready`` fence around work it was about to
+host-sync anyway.
+
+What the aggregator answers:
+
+  * per-tick-kind latency percentiles (prefill / decode / spec / mixed /
+    idle) and per-phase host/device totals;
+  * the bubble ledger — seconds of scheduler wall not covered by any
+    tick, by cause:
+      - ``host``: the scheduler loop's own bookkeeping between ticks;
+      - ``admission_stall``: sequences were waiting but none admitted
+        (slots full);
+      - ``pool_exhaustion``: admission broke on a dry KV pool;
+      - ``idle``: no work anywhere (the 5 ms backoff / blocking wait);
+  * served decode MFU and HBM-BW utilization — the perf observatory's
+    analytic cost features for the decode step
+    (``OBSERVATORY.cost_features("gen_decode_step")``, registered by the
+    scheduler at device init) priced against REAL (unpadded) tokens over
+    the fenced decode device time, normalized by ``OBSERVATORY.peaks()``;
+  * an idle-poll duty cycle (idle tick wall / scheduler wall) so a
+    hot-spinning scheduler reads as a bubble, not as silence;
+  * a KV-block age histogram (block residency at release) for pool
+    sizing.
+
+The host+device+bubble ledger accounts for scheduler wall BY
+CONSTRUCTION: per-tick host time is defined as tick wall minus fenced
+device time, and the bubble is the inter-tick gap — the demo artifact's
+>= 95 % accounting criterion checks the arithmetic stayed wired, not a
+lucky measurement.
+
+Kill switches: ``SELDON_TPU_TELEMETRY=0`` stops the spine record at the
+source (``record_gen_step`` returns before any ring write), and
+``SELDON_TPU_GEN_CONTINUOUS=0`` removes the scheduler entirely — either
+way this module sees zero observations.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional, Tuple
+
+from seldon_core_tpu_torch.utils.telemetry import RECORDER, Reservoir
+
+__all__ = ["GenPerf", "GENPERF", "BUBBLE_CAUSES", "TICK_PHASES"]
+
+#: the bubble ledger's closed cause vocabulary (labels on
+#: seldon_tpu_gen_bubble_seconds_total)
+BUBBLE_CAUSES = ("host", "admission_stall", "pool_exhaustion", "idle")
+
+#: per-tick phase vocabulary (labels on seldon_tpu_gen_step_seconds)
+TICK_PHASES = ("admit", "prefill", "decode", "retire", "host_other")
+
+
+class GenPerf:
+    """Process-global per-tick generation-lane accounting.  All observe
+    methods are called from the telemetry spine's off-path drainer only;
+    they are cheap and never raise."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.ticks: Dict[str, int] = {}             # kind -> count
+        self.tick_wall: Dict[str, Reservoir] = {}   # kind -> wall seconds
+        #: host/device seconds by (kind, phase); "host_other" is the
+        #: tick-wall residual no named phase covers
+        self.phase_host_s: Dict[Tuple[str, str], float] = {}
+        self.phase_device_s: Dict[Tuple[str, str], float] = {}
+        self.wall_s = 0.0            # sum of tick walls
+        self.host_s = 0.0            # wall - fenced device time
+        self.device_s = 0.0          # fenced device time
+        self.bubble_s: Dict[str, float] = {}        # cause -> seconds
+        self.bubble_ticks: Dict[str, int] = {}
+        self.idle_ticks = 0
+        self.idle_wall_s = 0.0
+        self.rows = 0                # padded rows dispatched
+        self.real_rows = 0           # real rows dispatched
+        self.kv_blocks_touched = 0
+        # served-decode accounting (decode/spec/mixed ticks only)
+        self.decode_device_s = 0.0
+        self.decode_tokens = 0       # REAL tokens emitted by decode ticks
+        self.decode_steps = 0        # single-token device steps run
+        self.decode_kv_positions = 0  # cache positions streamed per step
+        self.kv_block_age = Reservoir(1024)   # seconds held at release
+        self.kv_blocks_released = 0
+        self.tick_errors = 0
+
+    # -- feeding (spine drainer only) ------------------------------------
+
+    def observe_tick(self, kind: str, detail: Dict[str, Any]) -> None:
+        """Fold one enriched HOP_GEN_STEP record.  ``detail`` is the
+        dict the scheduler attached to ``SPINE.record_gen_step`` — see
+        runtime/genserver.py ``_publish`` for the producing side."""
+        wall = float(detail.get("wall_s", 0.0))
+        device = float(detail.get("device_s", 0.0))
+        host = max(wall - device, 0.0)
+        bubble = float(detail.get("bubble_s", 0.0))
+        cause = str(detail.get("bubble_cause", "") or "")
+        phases = detail.get("phases") or {}
+        dev_phases = detail.get("device_phases") or {}
+        kv_ages = detail.get("kv_ages") or ()
+        with self._lock:
+            self.ticks[kind] = self.ticks.get(kind, 0) + 1
+            res = self.tick_wall.get(kind)
+            if res is None:
+                res = self.tick_wall[kind] = Reservoir(512)
+            self.wall_s += wall
+            self.host_s += host
+            self.device_s += device
+            if kind == "idle":
+                self.idle_ticks += 1
+                self.idle_wall_s += wall
+            if cause in BUBBLE_CAUSES and bubble > 0:
+                self.bubble_s[cause] = self.bubble_s.get(cause, 0.0) + bubble
+                self.bubble_ticks[cause] = self.bubble_ticks.get(cause, 0) + 1
+            named_host = 0.0
+            for phase, secs in phases.items():
+                dev = float(dev_phases.get(phase, 0.0))
+                h = max(float(secs) - dev, 0.0)
+                named_host += float(secs)
+                key = (kind, phase)
+                self.phase_host_s[key] = self.phase_host_s.get(key, 0.0) + h
+                if dev > 0:
+                    self.phase_device_s[key] = (
+                        self.phase_device_s.get(key, 0.0) + dev)
+            residual = max(wall - named_host, 0.0)
+            if residual > 0:
+                key = (kind, "host_other")
+                self.phase_host_s[key] = (
+                    self.phase_host_s.get(key, 0.0) + residual)
+            self.rows += int(detail.get("rows", 0) or 0)
+            self.real_rows += int(detail.get("real_rows", 0) or 0)
+            self.kv_blocks_touched += int(detail.get("kv_blocks", 0) or 0)
+            if kind in ("decode", "spec", "mixed"):
+                self.decode_device_s += float(
+                    dev_phases.get("decode", 0.0))
+                self.decode_tokens += int(detail.get("tokens", 0) or 0)
+                self.decode_steps += int(detail.get("steps", 0) or 0)
+                self.decode_kv_positions += int(
+                    detail.get("kv_positions", 0) or 0)
+            for n_blocks, age_s in kv_ages:
+                self.kv_blocks_released += int(n_blocks)
+                self.kv_block_age.observe(float(age_s))
+        # reservoirs take their own lock; observe outside ours
+        res.observe(wall)
+
+    def observe_tick_error(self) -> None:
+        with self._lock:
+            self.tick_errors += 1
+
+    # -- derived figures --------------------------------------------------
+
+    def served_decode(self) -> Dict[str, Any]:
+        """Served decode MFU / HBM-BW utilization over the fenced decode
+        device time, priced with the perf observatory's registered
+        decode-step cost features against REAL tokens.  All-null when the
+        scheduler never registered features or no decode tick ran."""
+        from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+
+        with self._lock:
+            dev_s = self.decode_device_s
+            tokens = self.decode_tokens
+            steps = self.decode_steps
+            kv_pos = self.decode_kv_positions
+        out: Dict[str, Any] = {
+            "decode_device_s": round(dev_s, 4),
+            "real_tokens": tokens,
+            "device_steps": steps,
+            "served_decode_mfu_pct": None,
+            "served_decode_hbm_bw_util_pct": None,
+            "served_decode_tok_s_device": (
+                round(tokens / dev_s, 1) if dev_s > 0 else None
+            ),
+        }
+        cost = OBSERVATORY.cost_features("gen_decode_step")
+        if not cost or dev_s <= 0 or tokens <= 0:
+            return out
+        peaks = OBSERVATORY.peaks()
+        flops = tokens * float(cost.get("flops", 0.0))
+        if flops > 0 and peaks.get("peak_bf16_tflops"):
+            out["served_decode_mfu_pct"] = round(
+                100.0 * flops / dev_s / (peaks["peak_bf16_tflops"] * 1e12),
+                4)
+        # bytes: every device step streams the matmul'd weights once,
+        # plus the cache positions the batch's block tables cover
+        nbytes = (steps * float(cost.get("bytes_accessed", 0.0))
+                  + kv_pos * float(cost.get("kv_bytes_per_position", 0.0)))
+        if nbytes > 0 and peaks.get("peak_hbm_gbs"):
+            out["served_decode_hbm_bw_util_pct"] = round(
+                100.0 * nbytes / dev_s / (peaks["peak_hbm_gbs"] * 1e9), 4)
+        return out
+
+    def bubble_fraction(self) -> Optional[float]:
+        """Bubble seconds / (tick wall + bubble seconds) — the share of
+        scheduler wall the device spent waiting between ticks."""
+        with self._lock:
+            bubble = sum(self.bubble_s.values())
+            total = self.wall_s + bubble
+        if total <= 0:
+            return None
+        return bubble / total
+
+    def document(self) -> Dict[str, Any]:
+        """The aggregator's half of the ``GET /genperf`` body."""
+        with self._lock:
+            bubble = sum(self.bubble_s.values())
+            total_wall = self.wall_s + bubble
+            doc: Dict[str, Any] = {
+                "ticks": dict(self.ticks),
+                "tick_wall_ms": {
+                    kind: {
+                        k: round(v * 1e3, 3)
+                        for k, v in res.snapshot().items()
+                        if k in ("mean", "p50", "p95", "p99", "max")
+                    }
+                    for kind, res in self.tick_wall.items()
+                },
+                "phases": {
+                    "host_s": {
+                        f"{kind}/{phase}": round(v, 4)
+                        for (kind, phase), v in self.phase_host_s.items()
+                    },
+                    "device_s": {
+                        f"{kind}/{phase}": round(v, 4)
+                        for (kind, phase), v in self.phase_device_s.items()
+                    },
+                },
+                "accounting": {
+                    # host + device + bubble vs scheduler wall — the demo
+                    # artifact's >= 95 % criterion reads this block
+                    "scheduler_wall_s": round(total_wall, 4),
+                    "host_s": round(self.host_s, 4),
+                    "device_s": round(self.device_s, 4),
+                    "bubble_s": round(bubble, 4),
+                    "accounted_fraction": (
+                        round((self.host_s + self.device_s + bubble)
+                              / total_wall, 4)
+                        if total_wall > 0 else None
+                    ),
+                },
+                "bubbles": {
+                    "by_cause_s": {
+                        k: round(v, 4) for k, v in self.bubble_s.items()
+                    },
+                    "by_cause_ticks": dict(self.bubble_ticks),
+                    "fraction": (
+                        round(bubble / total_wall, 4)
+                        if total_wall > 0 else None
+                    ),
+                },
+                "idle": {
+                    "ticks": self.idle_ticks,
+                    "wall_s": round(self.idle_wall_s, 4),
+                    # a hot-spinning scheduler pushes this toward 1.0
+                    "duty_cycle": (
+                        round(self.idle_wall_s / total_wall, 4)
+                        if total_wall > 0 else None
+                    ),
+                },
+                "rows": {
+                    "padded_total": self.rows,
+                    "real_total": self.real_rows,
+                    "real_fraction": (
+                        round(self.real_rows / self.rows, 4)
+                        if self.rows > 0 else None
+                    ),
+                },
+                "kv": {
+                    "blocks_touched_total": self.kv_blocks_touched,
+                    "blocks_released_total": self.kv_blocks_released,
+                    "block_age_s": self.kv_block_age.snapshot(),
+                },
+                "tick_errors_total": self.tick_errors,
+            }
+        doc["served_decode"] = self.served_decode()
+        return doc
+
+    def publish_gauges(self) -> None:
+        """Refresh the derived Prometheus gauges — called from the
+        spine's throttled ``_refresh_gauges`` (~1/s), never per tick."""
+        served = self.served_decode()
+        mfu = served.get("served_decode_mfu_pct")
+        if mfu is not None:
+            RECORDER.set_gen_served_mfu(mfu / 100.0)
+
+    def reset(self) -> None:
+        """Fresh state — tests only."""
+        with self._lock:
+            self.ticks = {}
+            self.tick_wall = {}
+            self.phase_host_s = {}
+            self.phase_device_s = {}
+            self.wall_s = 0.0
+            self.host_s = 0.0
+            self.device_s = 0.0
+            self.bubble_s = {}
+            self.bubble_ticks = {}
+            self.idle_ticks = 0
+            self.idle_wall_s = 0.0
+            self.rows = 0
+            self.real_rows = 0
+            self.kv_blocks_touched = 0
+            self.decode_device_s = 0.0
+            self.decode_tokens = 0
+            self.decode_steps = 0
+            self.decode_kv_positions = 0
+            self.kv_block_age = Reservoir(1024)
+            self.kv_blocks_released = 0
+            self.tick_errors = 0
+
+
+GENPERF = GenPerf()

@@ -1,0 +1,2205 @@
+"""Serving flight recorder — the port's counterpart of
+``seldon_core_tpu/utils/telemetry.py``.
+
+The serving internals that govern throughput — micro-batch occupancy,
+queue wait, in-flight dispatch slots, time-to-first-token, decode rate,
+speculative acceptance, kernel-library builds, KV-cache occupancy — are
+process-level (one CUDA context per process), so they live in one
+process-global hub instead of the per-predictor ``MetricsRegistry``:
+
+  * ``FlightRecorder`` (module global ``RECORDER``) keeps every family
+    twice: a Prometheus metric in its own ``CollectorRegistry``
+    (``utils/promtext.py``, the port's own writer of the text and
+    OpenMetrics formats; merged into every ``MetricsRegistry``
+    exposition) and a plain-Python mirror — bounded reservoirs for
+    distributions, ints for gauges/counters — behind the ``/stats`` JSON.
+    Every family that ``TPU_METRIC_FAMILIES`` names is declared, so the
+    exposition contract (``family_names()``, the ``monitoring/``
+    dashboards and alerts) is whole; the families of subsystems the port
+    has not brought over yet (the KV hand-off, the fleet, brownout, costs,
+    the autopilot, quality: ROADMAP Queue 1 items [4b]-[4d], [6]) stay at
+    zero.
+  * ``AuditLog`` is the engine-side request-audit stream: an async
+    bounded-queue JSONL log (puid, graph path, batch size, latency,
+    token counts).  ``record()`` never blocks — a full queue counts a
+    drop.
+
+The compile counterpart of the JAX package's ``jax.monitoring`` listener
+is the kernel-library build: ``ops/_build.py`` reports each build's wall
+to ``record_compile_seconds`` and a ``hit`` (the library keyed by the
+source hash is already on disk) or ``miss`` (built) to
+``record_compile_cache``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from seldon_core_tpu_torch.utils.promtext import (
+    CollectorRegistry,
+    Counter,
+    Gauge,
+    Histogram,
+    generate_latest,
+    generate_latest_openmetrics,
+)
+
+HAVE_PROMETHEUS = True
+
+__all__ = [
+    "Reservoir",
+    "FlightRecorder",
+    "AuditLog",
+    "RECORDER",
+    "TPU_METRIC_FAMILIES",
+]
+
+#: every TPU-serving metric family the recorder exports, base name ->
+#: (kind, label names).  The single source of truth: the Prometheus
+#: constructions below and the dashboard-honesty test
+#: (tests/test_monitoring_configs.py) both read it.
+TPU_METRIC_FAMILIES: Dict[str, tuple] = {
+    "seldon_tpu_batch_occupancy": ("histogram", ()),
+    "seldon_tpu_batch_queue_wait_seconds": ("histogram", ()),
+    "seldon_tpu_inflight_dispatches": ("gauge", ()),
+    "seldon_tpu_ttft_seconds": ("histogram", ()),
+    "seldon_tpu_decode_tokens_per_second": ("histogram", ()),
+    "seldon_tpu_speculative_accept_ratio": ("histogram", ()),
+    "seldon_tpu_compile_cache_events_total": ("counter", ("outcome",)),
+    "seldon_tpu_kv_cache_slots": ("gauge", ("state",)),
+    "seldon_tpu_audit_events_total": ("counter", ("outcome",)),
+    # resilience layer (runtime/resilience.py): breaker state machine,
+    # unified retry policy, deadline propagation, graceful degradation
+    "seldon_tpu_breaker_state": ("gauge", ("node",)),
+    "seldon_tpu_breaker_transitions_total": ("counter", ("node", "to")),
+    "seldon_tpu_retry_attempts_total": ("counter", ("method", "outcome")),
+    "seldon_tpu_retry_budget_exhausted_total": ("counter", ()),
+    "seldon_tpu_deadline_exceeded_total": ("counter", ("where",)),
+    "seldon_tpu_degraded_requests_total": ("counter", ("mode",)),
+    # causal tracer (utils/tracing.py): spans recorded per kind — the
+    # signal that says whether sampling keeps trace volume sane under load
+    "seldon_tpu_trace_spans_total": ("counter", ("kind",)),
+    # performance observatory (utils/perf.py): per-executable dispatch
+    # latency (bucket observations carry trace_id exemplars in the
+    # OpenMetrics exposition), achieved MFU, roofline-drift anomalies,
+    # HBM watermarks, compile durations, and the per-service request
+    # latency promoted from the /stats reservoir to a real histogram
+    "seldon_tpu_dispatch_seconds": ("histogram", ("executable",)),
+    "seldon_tpu_mfu": ("gauge", ("executable",)),
+    "seldon_tpu_perf_anomaly_total": ("counter", ("kind",)),
+    "seldon_tpu_hbm_bytes_in_use": ("gauge", ("device",)),
+    "seldon_tpu_hbm_peak_bytes_in_use": ("gauge", ("device",)),
+    "seldon_tpu_hbm_bytes_limit": ("gauge", ("device",)),
+    "seldon_tpu_compile_seconds": ("histogram", ()),
+    "seldon_tpu_request_latency_seconds": ("histogram", ("service",)),
+    # prediction-quality observatory (utils/quality.py): live-vs-reference
+    # input/prediction drift, feedback reward + truth-agreement
+    # accounting, the Mahalanobis outlier-score bridge, and multi-window
+    # SLO burn rates
+    "seldon_tpu_drift_score": ("gauge", ("node", "method")),
+    "seldon_tpu_prediction_quantile": ("gauge", ("node", "q")),
+    "seldon_tpu_feedback_reward": ("histogram", ()),
+    "seldon_tpu_feedback_total": ("counter", ("outcome",)),
+    "seldon_tpu_outlier_score": ("histogram", ()),
+    "seldon_tpu_outlier_exceedances_total": ("counter", ()),
+    "seldon_tpu_slo_burn_rate": ("gauge", ("window",)),
+    "seldon_tpu_quality_sampled_total": ("counter", ("node",)),
+    # fused telemetry spine (utils/hotrecord.py): hot-path ring health and
+    # the self-observed per-subsystem overhead budget behind GET /overhead
+    "seldon_tpu_telemetry_ring_dropped_total": ("counter", ()),
+    "seldon_tpu_telemetry_records_total": ("counter", ("hop",)),
+    "seldon_tpu_framework_overhead_ms": ("gauge", ("subsystem",)),
+    # continuous-batching generation scheduler (runtime/genserver.py):
+    # in-flight/waiting sequence counts, paged-KV-pool occupancy
+    # (state=used|total|high_water — the SeldonTPUKVPoolPressure alert
+    # compares used against total), admission/retirement flow, and
+    # scheduler steps by kind (prefill|decode|spec|mixed)
+    "seldon_tpu_gen_inflight_sequences": ("gauge", ()),
+    "seldon_tpu_gen_waiting_sequences": ("gauge", ()),
+    "seldon_tpu_gen_kv_blocks": ("gauge", ("state",)),
+    "seldon_tpu_gen_admitted_total": ("counter", ()),
+    "seldon_tpu_gen_retired_total": ("counter", ("reason",)),
+    "seldon_tpu_gen_steps_total": ("counter", ("kind",)),
+    # generation-lane flight recorder (utils/genperf.py): per-tick
+    # host/device time by kind and phase (admit / prefill / decode /
+    # retire / host_other, with a "_device" suffix for the fenced device
+    # wall inside a phase), the bubble ledger by cause (host /
+    # admission_stall / pool_exhaustion / idle — the
+    # SeldonTPUDecodeBubbles alert's axis), served decode MFU over REAL
+    # tokens, KV-block residency at release, and scheduler tick-loop
+    # errors (a silently-erroring scheduler must be visible)
+    "seldon_tpu_gen_step_seconds": ("histogram", ("kind", "phase")),
+    "seldon_tpu_gen_bubble_seconds_total": ("counter", ("cause",)),
+    "seldon_tpu_gen_served_mfu": ("gauge", ()),
+    "seldon_tpu_gen_kv_block_age_seconds": ("histogram", ()),
+    "seldon_tpu_gen_tick_errors_total": ("counter", ()),
+    # serving-mesh data plane (gateway/balancer.py): per-replica gateway-
+    # side inflight and pick counts (the power-of-two-choices signal and
+    # its outcome — max/mean of the inflight gauge is the imbalance the
+    # SeldonTPUReplicaImbalance alert watches), hindsight mispicks (the
+    # chosen replica finished slower than the losing candidate's EWMA at
+    # decision time), and per-lane relay counters (uds vs tcp vs
+    # inprocess — says which transport the gateway->engine hop actually
+    # rode)
+    # the ``set`` label is the replica-set identity (deployment/predictor
+    # at the gateway): imbalance is only meaningful WITHIN one set — a
+    # 95/5 canary's idle second set would otherwise drag a cross-set
+    # average down and page the imbalance alert forever
+    "seldon_tpu_replica_inflight": ("gauge", ("set", "replica")),
+    "seldon_tpu_replica_picks_total": ("counter", ("set", "replica")),
+    "seldon_tpu_replica_mispicks_total": ("counter", ()),
+    "seldon_tpu_relay_lane_requests_total": ("counter", ("lane",)),
+    # binary tensor wire contract (runtime/wire.py): predict traffic per
+    # lane split by wire format (json vs binary — says which contract
+    # the bytes actually rode), host-side bytes copied by the codec and
+    # its feeding lanes (the bench's bytes_copied_per_request axis), and
+    # requests that rode a gateway-coalesced multi-tensor engine frame
+    "seldon_tpu_wire_requests_total": ("counter", ("lane", "format")),
+    "seldon_tpu_wire_bytes_copied_total": ("counter", ()),
+    "seldon_tpu_wire_coalesced_total": ("counter", ()),
+    # traffic lifecycle (gateway/shadow.py + operator/rollouts.py):
+    # shadow-mirror outcomes and live-vs-shadow divergence, the shadow
+    # hop's own latency (never on the live response path), canary
+    # auto-rollbacks by breached gate, and the active rollout's candidate
+    # traffic percent per deployment
+    "seldon_tpu_shadow_requests_total": ("counter", ("outcome",)),
+    "seldon_tpu_shadow_disagreement": ("histogram", ()),
+    "seldon_tpu_shadow_latency_seconds": ("histogram", ()),
+    "seldon_tpu_rollbacks_total": ("counter", ("reason",)),
+    "seldon_tpu_rollout_stage": ("gauge", ("deployment",)),
+    # learned cost-model autopilot (runtime/autopilot.py): predictive
+    # decisions taken (site = flush pad-bucket choice / p2c shape
+    # blending / router branch demotion), deadline-aware admission sheds
+    # (requests refused with a typed 503 BEFORE burning device time),
+    # the rolling |measured-predicted|/predicted p50 that audits the
+    # model (the SeldonTPUAutopilotMispredict alert's axis), and the
+    # model-table size
+    "seldon_tpu_autopilot_decisions_total": ("counter", ("site",)),
+    "seldon_tpu_autopilot_shed_total": ("counter", ("where",)),
+    "seldon_tpu_autopilot_mispredict_pct": ("gauge", ()),
+    "seldon_tpu_autopilot_keys": ("gauge", ()),
+    # multi-tenant QoS (runtime/qos.py + gateway/apife.py): per-tenant
+    # admission flow and token-bucket refusals (the
+    # SeldonTPUTenantThrottled alert's axis).  Tenant label cardinality
+    # is bounded at the source: the governor LRU-caps tenant rows at 256
+    # and the recorder folds everything beyond its own cap into an
+    # "overflow" label, so an id-spraying client cannot balloon the
+    # exposition
+    "seldon_tpu_tenant_requests_total": ("counter", ("tenant",)),
+    "seldon_tpu_tenant_throttled_total": ("counter", ("tenant",)),
+    # brownout ladder (runtime/brownout.py): the current degradation
+    # stage (0 = normal; SeldonTPUBrownoutActive pages on sustained > 0),
+    # stage transitions, and requests shed by tier while degraded
+    "seldon_tpu_brownout_stage": ("gauge", ()),
+    "seldon_tpu_brownout_transitions_total": ("counter", ("stage",)),
+    "seldon_tpu_brownout_shed_total": ("counter", ("tier",)),
+    # disaggregated prefill/decode serving mesh (runtime/servingmesh.py
+    # + runtime/kvstream.py): KV-block handoff outcomes (prefill side:
+    # ok|refused|torn|error; decode side: imported|reclaimed), the
+    # handoff wall-clock distribution, streamed bytes, and in-flight
+    # handoffs — the SeldonTPUKVHandoffStall alert pages when handoffs
+    # sit in flight with no completion for minutes
+    "seldon_tpu_kv_handoff_total": ("counter", ("outcome",)),
+    "seldon_tpu_kv_handoff_seconds": ("histogram", ()),
+    "seldon_tpu_kv_handoff_bytes_total": ("counter", ()),
+    "seldon_tpu_kv_handoff_inflight": ("gauge", ()),
+    # fleet observability plane (gateway/fleet.py): per-replica
+    # worse-than-set-median ratio (the worst metric's ratio — 2.0 reads
+    # "this replica is 2x worse than its siblings"; the
+    # SeldonTPUReplicaOutlier alert pages on it), replica count per set,
+    # and how stale each replica's scraped fleet documents are
+    "seldon_tpu_fleet_outlier_ratio": ("gauge", ("set", "replica")),
+    "seldon_tpu_fleet_replicas": ("gauge", ("set",)),
+    "seldon_tpu_fleet_staleness_seconds": ("gauge", ("set", "replica")),
+    # mesh fault recovery (gateway/federation.py + apife.py failover
+    # paths): work re-homed after a process death — kind=unary (hedged
+    # re-dispatch of an idempotent predict to a peer replica) or
+    # kind=stream (an SSE decode stream resumed on a peer by re-prefill)
+    # — and coordinator/engine lease tenure changes by kind (acquired /
+    # lost / released / store_error).  A lease_transitions spike reads
+    # "the fleet is re-electing"; failover_total says the recovery
+    # machinery actually fired
+    "seldon_tpu_failover_total": ("counter", ("kind",)),
+    "seldon_tpu_lease_transitions_total": ("counter", ("kind",)),
+    # durable perf corpus (utils/perfcorpus.py): dispatch rows appended
+    # this process, total on-disk footprint (segments + compacted
+    # sketches — rotation bounds it), and autopilot keys warm-started
+    # from a prior process's corpus at boot
+    "seldon_tpu_corpus_rows": ("gauge", ()),
+    "seldon_tpu_corpus_bytes": ("gauge", ()),
+    "seldon_tpu_corpus_warm_keys": ("gauge", ()),
+    # fleet-truth SLO burn (gateway/federation.py folding peer deltas
+    # from the shared store): the aggregate burn rate per window that
+    # the brownout ladder and rollout gates actually judge — the
+    # SeldonTPUFleetBurn alert's axis (local slice: slo_burn_rate)
+    "seldon_tpu_fleet_burn_rate": ("gauge", ("window",)),
+    # resource-attribution ledger (utils/costledger.py): per-tenant x
+    # deployment x phase fenced device-seconds, KV-block residency
+    # integrated at release, the pad tax (padded-remainder seconds a
+    # tenant's batch shape caused), and the accounting identity's
+    # honesty gauge — the SeldonTPUUnattributedDeviceTime alert pages
+    # when attributed_fraction sits below 0.97 (a lane is burning chip
+    # time the ledger cannot put a name on).  Tenant cardinality is
+    # bounded by the same overflow fold as the QoS families
+    "seldon_tpu_cost_device_seconds_total":
+        ("counter", ("tenant", "deployment", "phase")),
+    "seldon_tpu_cost_kv_block_seconds_total":
+        ("counter", ("tenant", "deployment")),
+    "seldon_tpu_cost_pad_tax_seconds_total":
+        ("counter", ("tenant", "deployment")),
+    "seldon_tpu_cost_attributed_fraction": ("gauge", ()),
+    # tail-sampled postmortem recorder (utils/postmortem.py): exemplars
+    # kept by retention reason (error / shed / slo / autopilot_excess /
+    # preemption / breaker / failover / lease / baseline), pending
+    # traces evicted without a keep verdict (buffer overflow or TTL),
+    # and spans currently pinned inside kept exemplar documents.  The
+    # SeldonTPUPostmortemFlood alert pages on a sustained kept rate —
+    # the anomaly detector itself saying most traffic is anomalous
+    "seldon_tpu_postmortem_kept_total": ("counter", ("reason",)),
+    "seldon_tpu_postmortem_dropped_total": ("counter", ()),
+    "seldon_tpu_postmortem_pinned_spans": ("gauge", ()),
+}
+
+_OCCUPANCY_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+_WAIT_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
+_TTFT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                 1.0, 2.5, 5.0, 10.0, 30.0)
+_RATE_BUCKETS = (1, 10, 50, 100, 250, 500, 1000, 2500, 5000, 10000,
+                 50000, 100000)
+_RATIO_BUCKETS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+# device dispatch spans ~1ms (tiny graphs) to tens of seconds (cold
+# compile riding a dispatch); request latency matches metrics.py _BUCKETS
+_DISPATCH_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+_COMPILE_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 20.0,
+                    40.0, 80.0, 160.0)
+_LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+# rewards are nominally [0,1] (models/mab.py) but the wire allows any
+# scalar; outlier scores are Mahalanobis distances (chi2-ish tails)
+_REWARD_BUCKETS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0,
+                   2.5, 10.0)
+_OUTLIER_BUCKETS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                    1000.0)
+# scheduler tick phases span tens of µs (CPU host bookkeeping) to whole
+# seconds (a cold-compile prefill chunk); KV-block residency spans one
+# short generation (~100 ms) to pinned-prefix lifetimes (minutes+)
+_GEN_STEP_BUCKETS = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025,
+                     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+_KV_AGE_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                   10.0, 30.0, 60.0, 300.0, 1800.0)
+
+
+class Reservoir:
+    """Bounded sample ring with percentile snapshots — the zero-dependency
+    distribution store behind ``/stats``.  A plain deque keeps the LAST
+    ``capacity`` observations (serving wants "recent behaviour", and a
+    sliding window is cheaper and more legible than decaying reservoirs);
+    thread-safe because observations arrive from the event loop and from
+    device-dispatch executor threads."""
+
+    def __init__(self, capacity: int = 2048):
+        self._samples: deque = deque(maxlen=int(capacity))
+        self._count = 0
+        self._total = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._samples.append(float(value))
+            self._count += 1
+            self._total += float(value)
+
+    def observe_many(self, values) -> None:
+        """Batch observe under ONE lock acquisition — per-row call sites
+        on the dispatch path (outlier-score bridging) must not pay a
+        lock per row."""
+        vals = [float(v) for v in values]
+        if not vals:
+            return
+        with self._lock:
+            self._samples.extend(vals)
+            self._count += len(vals)
+            self._total += sum(vals)
+
+    def __len__(self) -> int:
+        return len(self._samples)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """{count, mean, p50, p95, p99, max} over the retained window;
+        count/mean are lifetime (count is what rate() needs, the window
+        is what percentiles need)."""
+        with self._lock:
+            vals = sorted(self._samples)
+            count, total = self._count, self._total
+        if not vals:
+            return {"count": count, "mean": 0.0, "p50": 0.0, "p95": 0.0,
+                    "p99": 0.0, "max": 0.0}
+
+        def pct(p: float) -> float:
+            return vals[min(len(vals) - 1, int(p * len(vals)))]
+
+        return {
+            "count": count,
+            "mean": total / max(count, 1),
+            "p50": pct(0.50),
+            "p95": pct(0.95),
+            "p99": pct(0.99),
+            "max": vals[-1],
+        }
+
+
+class FlightRecorder:
+    """Process-global TPU-serving telemetry: Prometheus families plus
+    plain-Python mirrors (see module docstring).  All observe/set methods
+    are cheap (a deque append + a child .observe) and never raise — the
+    hot path must not grow failure modes from its own instrumentation."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.batch_occupancy = Reservoir()
+        self.batch_queue_wait = Reservoir()
+        self.ttft = Reservoir()
+        self.decode_rate = Reservoir()
+        self.accept_ratio = Reservoir()
+        self.inflight = 0
+        self.kv_slots: Dict[str, int] = {}
+        self.compile_cache_events: Dict[str, int] = {}
+        # resilience mirrors (runtime/resilience.py feeds these)
+        self.breaker_states: Dict[str, str] = {}
+        self.breaker_transitions: Dict[str, int] = {}  # "node:to" -> n
+        self.retry_attempts: Dict[str, int] = {}  # "method:outcome" -> n
+        self.retry_budget_exhausted = 0
+        self.deadline_exceeded: Dict[str, int] = {}
+        self.degraded_requests: Dict[str, int] = {}
+        self.trace_spans: Dict[str, int] = {}  # causal tracer, by span kind
+        # performance observatory mirrors (utils/perf.py feeds these; the
+        # per-executable tables live in OBSERVATORY, not here)
+        self.perf_anomalies: Dict[str, int] = {}
+        self.compile_seconds = Reservoir()
+        self.hbm: Dict[str, Dict[str, int]] = {}
+        #: per-service rolling request latencies feeding /stats percentiles;
+        #: bounded — an exploding label set must not grow memory
+        self._latency: Dict[str, Reservoir] = {}
+        self._latency_cap = 64
+        # prediction-quality observatory mirrors (utils/quality.py feeds
+        # these; the per-node windows live in QUALITY, not here)
+        self.drift_scores: Dict[str, float] = {}       # "node:method" -> v
+        self.prediction_quantiles: Dict[str, float] = {}  # "node:q" -> v
+        self.feedback_count = 0
+        self.feedback_reward = Reservoir()
+        self.feedback_truth = 0
+        self.feedback_agree = 0
+        self.feedback_disagree = 0
+        self.outlier_scores = Reservoir()
+        self.outlier_exceeded = 0
+        self.slo_burn: Dict[str, float] = {}           # window -> rate
+        self.quality_sampled: Dict[str, int] = {}      # node -> batches
+        # telemetry-spine mirrors (utils/hotrecord.py feeds these from the
+        # drainer: ring drops, folded records per hop, per-subsystem
+        # framework-overhead p50s behind GET /overhead)
+        self.telemetry_ring_dropped = 0
+        self.telemetry_records: Dict[str, int] = {}    # hop -> folded
+        # continuous-batching generation scheduler mirrors
+        # (runtime/genserver.py feeds these once per scheduler step)
+        self.gen_scheduler: Dict[str, int] = {}
+        self.gen_admitted = 0
+        self.gen_retired: Dict[str, int] = {}
+        self.gen_steps: Dict[str, int] = {}
+        # generation flight-recorder mirrors (utils/genperf.py feeds
+        # these off-path from the spine fold): per-kind/phase tick time,
+        # the bubble ledger by cause, KV-block residency at release,
+        # served decode MFU (throttled gauge) and tick-loop errors
+        self.gen_step_seconds: Dict[str, Reservoir] = {}   # "kind/phase"
+        self.gen_bubble_s: Dict[str, float] = {}           # cause -> s
+        self.gen_kv_block_age = Reservoir()
+        self.gen_served_mfu: Optional[float] = None
+        self.gen_tick_errors = 0
+        # disaggregated serving-mesh mirrors (runtime/servingmesh.py
+        # coordinator + runtime/genserver.py import path): handoff
+        # outcomes, latency reservoir, streamed bytes, in-flight gauge
+        self.kv_handoffs: Dict[str, int] = {}          # outcome -> n
+        self.kv_handoff_latency = Reservoir()
+        self.kv_handoff_bytes = 0
+        self.kv_handoff_inflight = 0
+        # serving-mesh mirrors (gateway/balancer.py feeds these): per-
+        # set per-replica gateway-side inflight + lifetime picks,
+        # hindsight mispicks, and gateway->engine requests by relay lane
+        self.replica_inflight: Dict[str, Dict[str, int]] = {}
+        self.replica_picks: Dict[str, Dict[str, int]] = {}
+        self.replica_mispicks = 0
+        self.lane_requests: Dict[str, int] = {}
+        # binary wire mirrors (runtime/wire.py): "lane/format" -> n,
+        # codec copy accounting, coalesced-request count
+        self.wire_requests: Dict[str, int] = {}
+        self.wire_bytes_copied = 0
+        self.wire_copies = 0
+        self.wire_coalesced = 0
+        # fleet observability mirrors (gateway/fleet.py): per-replica
+        # worst worse-than-median ratio + replica counts per set
+        self.fleet_outliers: Dict[str, Dict[str, float]] = {}
+        self.fleet_replicas: Dict[str, int] = {}
+        # mesh fault recovery (gateway/federation.py coordinator
+        # election + apife.py hedged-unary / stream-resume paths)
+        self.failovers: Dict[str, int] = {}            # kind -> n
+        self.lease_transitions: Dict[str, int] = {}    # kind -> n
+        # durable perf corpus (utils/perfcorpus.py publish_gauges) +
+        # fleet-truth burn (gateway/federation.py burn folds)
+        self.corpus_rows = 0
+        self.corpus_bytes = 0
+        self.corpus_warm_keys = 0
+        self.fleet_burn: Dict[str, float] = {}         # window -> rate
+        # tail-sampled postmortem mirrors (utils/postmortem.py: keeps by
+        # retention reason, pending-buffer drops, pinned exemplar spans)
+        self.postmortem_kept: Dict[str, int] = {}      # reason -> n
+        self.postmortem_dropped = 0
+        self.postmortem_pinned = 0
+        # traffic-lifecycle mirrors (gateway/shadow.py mirror outcomes +
+        # divergence, operator/rollouts.py rollbacks and stage weights)
+        self.shadow_requests: Dict[str, int] = {}      # outcome -> n
+        self.shadow_disagreement = Reservoir()
+        self.shadow_latency = Reservoir()
+        self.rollbacks: Dict[str, int] = {}            # reason -> n
+        self.rollout_stage: Dict[str, float] = {}      # deployment -> pct
+        # learned cost-model autopilot mirrors (runtime/autopilot.py
+        # feeds these: decision counters from the spine folds, shed
+        # counters from the admission gate, model gauges from the
+        # throttled gauge refresh)
+        self.autopilot_decisions: Dict[str, int] = {}  # site -> n
+        self.autopilot_sheds: Dict[str, int] = {}      # where -> n
+        self.autopilot_mispredict_p50_pct: Optional[float] = None
+        self.autopilot_keys = 0
+        # multi-tenant QoS mirrors (runtime/qos.py governor feeds these)
+        # + the brownout ladder's stage/transition/shed accounting
+        # (runtime/brownout.py).  Tenant label sets are capped here too
+        # (_TENANT_LABEL_CAP) independently of the governor's LRU — the
+        # recorder must stay bounded even if a future caller feeds it
+        # raw ids
+        self.tenant_requests: Dict[str, int] = {}      # tenant -> n
+        self.tenant_throttled: Dict[str, int] = {}     # tenant -> n
+        self.brownout_stage = 0
+        self.brownout_transitions: Dict[str, int] = {}  # stage -> n
+        self.brownout_sheds: Dict[str, int] = {}       # tier -> n
+        # resource-attribution mirrors (utils/costledger.py pushes
+        # deltas from the spine's throttled gauge refresh — the
+        # hot-path writers never touch these)
+        self.cost_device_s: Dict[Tuple[str, str, str], float] = {}
+        self.cost_kv_block_s: Dict[Tuple[str, str], float] = {}
+        self.cost_pad_tax_s: Dict[Tuple[str, str], float] = {}
+        self.cost_attributed_fraction: Optional[float] = None
+        # Prometheus high-water mark per hop: the counter is advanced by
+        # deltas against THIS, not the snapshot mirror above — reset()
+        # clears the mirror but must not rewind the monotone counter's
+        # baseline (it would re-add the whole lifetime total on next fold)
+        self._telemetry_records_published: Dict[str, int] = {}
+        self.framework_overhead: Dict[str, float] = {}  # subsystem -> ms
+        #: set on the process singleton by utils/hotrecord.py — snapshots
+        #: and expositions fold pending ring records before reading
+        self.drain_hook = None
+        #: mutation generation — bumped by state-ish recording methods
+        #: (breakers, drift, kv, hbm, feedback, spine mirrors...) so
+        #: Engine.stats() can serve its cached document while nothing
+        #: underneath it moved.  Pure per-request reservoir observes
+        #: (latency, occupancy, ttft...) deliberately do NOT bump it:
+        #: under traffic the telemetry-spine fold generation invalidates
+        #: the cache anyway, and the kill-switched case is bounded by
+        #: SELDON_TPU_STATS_TTL_S — bumping here would defeat the cache
+        #: under exactly the load it exists for
+        self._gen = 0
+        self.registry = None
+        if HAVE_PROMETHEUS:
+            self.registry = CollectorRegistry()
+            self._p_occupancy = Histogram(
+                "seldon_tpu_batch_occupancy",
+                "Rows per stacked device dispatch",
+                registry=self.registry, buckets=_OCCUPANCY_BUCKETS)
+            self._p_queue_wait = Histogram(
+                "seldon_tpu_batch_queue_wait_seconds",
+                "Submit-to-dispatch wait in the micro-batch queue",
+                registry=self.registry, buckets=_WAIT_BUCKETS)
+            self._p_inflight = Gauge(
+                "seldon_tpu_inflight_dispatches",
+                "Stacked dispatches currently riding the device",
+                registry=self.registry)
+            self._p_ttft = Histogram(
+                "seldon_tpu_ttft_seconds",
+                "Time to first generated token (prefill + first sample)",
+                registry=self.registry, buckets=_TTFT_BUCKETS)
+            self._p_decode_rate = Histogram(
+                "seldon_tpu_decode_tokens_per_second",
+                "Generated tokens per second per request (batch x length / "
+                "wall)", registry=self.registry, buckets=_RATE_BUCKETS)
+            self._p_accept = Histogram(
+                "seldon_tpu_speculative_accept_ratio",
+                "Per-request mean accepted-draft fraction per verify round",
+                registry=self.registry, buckets=_RATIO_BUCKETS)
+            self._p_compile = Counter(
+                "seldon_tpu_compile_cache_events_total",
+                "Kernel-library build cache events (hit: the library for the "
+                "source hash was on disk; miss: built)", ["outcome"],
+                registry=self.registry)
+            self._p_kv = Gauge(
+                "seldon_tpu_kv_cache_slots",
+                "KV cache slots by state (most recent generation dispatch)",
+                ["state"], registry=self.registry)
+            self._p_audit = Counter(
+                "seldon_tpu_audit_events_total",
+                "Request-audit firehose events", ["outcome"],
+                registry=self.registry)
+            self._p_breaker_state = Gauge(
+                "seldon_tpu_breaker_state",
+                "Per-remote-node circuit breaker state "
+                "(0=closed, 0.5=half-open, 1=open)", ["node"],
+                registry=self.registry)
+            self._p_breaker_transitions = Counter(
+                "seldon_tpu_breaker_transitions_total",
+                "Circuit breaker state transitions", ["node", "to"],
+                registry=self.registry)
+            self._p_retry = Counter(
+                "seldon_tpu_retry_attempts_total",
+                "Node-client retry events by graph method",
+                ["method", "outcome"], registry=self.registry)
+            self._p_retry_budget = Counter(
+                "seldon_tpu_retry_budget_exhausted_total",
+                "Retries refused because the global retry budget was empty",
+                registry=self.registry)
+            self._p_deadline = Counter(
+                "seldon_tpu_deadline_exceeded_total",
+                "Calls abandoned because the request deadline budget ran "
+                "out", ["where"], registry=self.registry)
+            self._p_degraded = Counter(
+                "seldon_tpu_degraded_requests_total",
+                "Requests served degraded (combiner quorum / router "
+                "fallback)", ["mode"], registry=self.registry)
+            self._p_trace_spans = Counter(
+                "seldon_tpu_trace_spans_total",
+                "Causal-tracer spans recorded, by span kind",
+                ["kind"], registry=self.registry)
+            self._p_dispatch = Histogram(
+                "seldon_tpu_dispatch_seconds",
+                "Measured device-dispatch wall time per compiled "
+                "executable (bucket observations carry trace_id exemplars "
+                "in the OpenMetrics exposition)",
+                ["executable"], registry=self.registry,
+                buckets=_DISPATCH_BUCKETS)
+            self._p_mfu = Gauge(
+                "seldon_tpu_mfu",
+                "Most recent achieved MFU per executable (fraction of the "
+                "device-kind-matched advertised bf16 peak, utils/chips.py)",
+                ["executable"], registry=self.registry)
+            self._p_perf_anomaly = Counter(
+                "seldon_tpu_perf_anomaly_total",
+                "Dispatches drifting past the per-executable baseline "
+                "(slow_dispatch: vs rolling p50; ratio_drift: vs rolling "
+                "measured/predicted)",
+                ["kind"], registry=self.registry)
+            self._p_hbm = {
+                "bytes_in_use": Gauge(
+                    "seldon_tpu_hbm_bytes_in_use",
+                    "Device HBM bytes currently in use "
+                    "(device.memory_stats)", ["device"],
+                    registry=self.registry),
+                "peak_bytes_in_use": Gauge(
+                    "seldon_tpu_hbm_peak_bytes_in_use",
+                    "Device HBM high-watermark bytes "
+                    "(device.memory_stats)", ["device"],
+                    registry=self.registry),
+                "bytes_limit": Gauge(
+                    "seldon_tpu_hbm_bytes_limit",
+                    "Device HBM capacity bytes (device.memory_stats)",
+                    ["device"], registry=self.registry),
+            }
+            self._p_compile_seconds = Histogram(
+                "seldon_tpu_compile_seconds",
+                "Kernel-library build wall time and first-call wall per "
+                "executable (ops/_build.py, graph/compiled.py)",
+                registry=self.registry, buckets=_COMPILE_BUCKETS)
+            self._p_request_latency = Histogram(
+                "seldon_tpu_request_latency_seconds",
+                "Per-service request latency (the Prometheus face of the "
+                "/stats request_latency_s reservoirs)",
+                ["service"], registry=self.registry,
+                buckets=_LATENCY_BUCKETS)
+            self._p_drift = Gauge(
+                "seldon_tpu_drift_score",
+                "Live-vs-reference drift per graph node (method=psi: max "
+                "per-feature PSI; ks: max per-feature KS distance; "
+                "prediction: PSI of the prediction distribution — "
+                "utils/quality.py)",
+                ["node", "method"], registry=self.registry)
+            self._p_pred_quantile = Gauge(
+                "seldon_tpu_prediction_quantile",
+                "Approximate live prediction-distribution quantiles per "
+                "graph node (binned sketch over reference edges)",
+                ["node", "q"], registry=self.registry)
+            self._p_feedback_reward = Histogram(
+                "seldon_tpu_feedback_reward",
+                "Reward value per send_feedback call",
+                registry=self.registry, buckets=_REWARD_BUCKETS)
+            self._p_feedback = Counter(
+                "seldon_tpu_feedback_total",
+                "Feedback calls by outcome (received / truth_provided / "
+                "agree / disagree)", ["outcome"], registry=self.registry)
+            self._p_outlier = Histogram(
+                "seldon_tpu_outlier_score",
+                "Mahalanobis outlier scores bridged out of "
+                "meta.tags['outlierScore'] (models/outlier.py)",
+                registry=self.registry, buckets=_OUTLIER_BUCKETS)
+            self._p_outlier_exceeded = Counter(
+                "seldon_tpu_outlier_exceedances_total",
+                "Rows whose outlier score exceeded "
+                "SELDON_TPU_OUTLIER_THRESHOLD",
+                registry=self.registry)
+            self._p_slo_burn = Gauge(
+                "seldon_tpu_slo_burn_rate",
+                "SLO error-budget burn rate per window (1.0 = burning "
+                "exactly at budget; 14.4x/5m and 6x/1h are the classic "
+                "page thresholds — utils/quality.py SloTracker)",
+                ["window"], registry=self.registry)
+            self._p_quality_sampled = Counter(
+                "seldon_tpu_quality_sampled_total",
+                "Dispatch batches sampled into the quality observatory "
+                "(SELDON_TPU_QUALITY_SAMPLE gates the rate)",
+                ["node"], registry=self.registry)
+            self._p_ring_dropped = Counter(
+                "seldon_tpu_telemetry_ring_dropped_total",
+                "Hot-path telemetry records dropped because a per-thread "
+                "ring was full (utils/hotrecord.py — raise "
+                "SELDON_TPU_TELEMETRY_RING or lower the drain interval)",
+                registry=self.registry)
+            self._p_telemetry_records = Counter(
+                "seldon_tpu_telemetry_records_total",
+                "Telemetry-spine records folded off-path, by hop kind",
+                ["hop"], registry=self.registry)
+            self._p_framework_overhead = Gauge(
+                "seldon_tpu_framework_overhead_ms",
+                "Self-observed framework overhead, milliseconds p50: "
+                "per-record off-path fold cost by consumer subsystem "
+                "(tracer/perf/quality/recorder), the on-path ring write "
+                "(ring), and the per-request framework estimate (total) "
+                "judged against SELDON_TPU_OVERHEAD_BUDGET_MS",
+                ["subsystem"], registry=self.registry)
+            self._p_gen_inflight = Gauge(
+                "seldon_tpu_gen_inflight_sequences",
+                "Sequences riding the continuous-batching generation "
+                "scheduler (prefilling + decoding — runtime/genserver.py)",
+                registry=self.registry)
+            self._p_gen_waiting = Gauge(
+                "seldon_tpu_gen_waiting_sequences",
+                "Sequences queued for admission into the generation "
+                "scheduler (free slot or free KV blocks pending)",
+                registry=self.registry)
+            self._p_gen_kv_blocks = Gauge(
+                "seldon_tpu_gen_kv_blocks",
+                "Paged KV-pool blocks by state (used / total / "
+                "high_water); used/total is the pool pressure the "
+                "SeldonTPUKVPoolPressure alert watches",
+                ["state"], registry=self.registry)
+            self._p_gen_admitted = Counter(
+                "seldon_tpu_gen_admitted_total",
+                "Sequences admitted into the in-flight decode batch",
+                registry=self.registry)
+            self._p_gen_retired = Counter(
+                "seldon_tpu_gen_retired_total",
+                "Sequences retired from the scheduler, by reason "
+                "(eos / length / cancelled / preempted / error)",
+                ["reason"], registry=self.registry)
+            self._p_gen_steps = Counter(
+                "seldon_tpu_gen_steps_total",
+                "Scheduler steps executed, by kind (prefill / decode / "
+                "spec / mixed / idle)",
+                ["kind"], registry=self.registry)
+            self._p_gen_step_seconds = Histogram(
+                "seldon_tpu_gen_step_seconds",
+                "Generation-tick time by kind and phase (flight "
+                "recorder): host phases admit / prefill / decode / "
+                "retire / host_other, plus fenced device wall under "
+                "the *_device phases",
+                ["kind", "phase"], registry=self.registry,
+                buckets=_GEN_STEP_BUCKETS)
+            self._p_gen_bubble = Counter(
+                "seldon_tpu_gen_bubble_seconds_total",
+                "Device-idle seconds between consecutive scheduler "
+                "ticks, by cause (host / admission_stall / "
+                "pool_exhaustion / idle) — the SeldonTPUDecodeBubbles "
+                "alert's axis",
+                ["cause"], registry=self.registry)
+            self._p_gen_served_mfu = Gauge(
+                "seldon_tpu_gen_served_mfu",
+                "Served decode MFU as a 0..1 fraction: real (unpadded) "
+                "token FLOPs over fenced decode device time against "
+                "the chip's peak — the figure the decode megastep is "
+                "judged by",
+                registry=self.registry)
+            self._p_gen_kv_block_age = Histogram(
+                "seldon_tpu_gen_kv_block_age_seconds",
+                "Residency of paged KV blocks at release (seconds from "
+                "sequence admission to block free)",
+                registry=self.registry, buckets=_KV_AGE_BUCKETS)
+            self._p_gen_tick_errors = Counter(
+                "seldon_tpu_gen_tick_errors_total",
+                "Generation scheduler tick-loop exceptions (each one "
+                "fails the whole in-flight batch — should be zero)",
+                registry=self.registry)
+            self._p_kv_handoff = Counter(
+                "seldon_tpu_kv_handoff_total",
+                "Disaggregated KV-block handoffs by outcome (prefill "
+                "side: ok / refused / torn / error; decode side: "
+                "imported / reclaimed — runtime/servingmesh.py)",
+                ["outcome"], registry=self.registry)
+            self._p_kv_handoff_seconds = Histogram(
+                "seldon_tpu_kv_handoff_seconds",
+                "Wall-clock of one prefill->decode handoff (export + "
+                "chunked block stream + remote decode admission)",
+                registry=self.registry, buckets=_DISPATCH_BUCKETS)
+            self._p_kv_handoff_bytes = Counter(
+                "seldon_tpu_kv_handoff_bytes_total",
+                "KV bytes streamed over the relay's OP_KVSTREAM frames",
+                registry=self.registry)
+            self._p_kv_handoff_inflight = Gauge(
+                "seldon_tpu_kv_handoff_inflight",
+                "Handoffs currently in flight on this prefill replica "
+                "(the SeldonTPUKVHandoffStall axis)",
+                registry=self.registry)
+            self._p_replica_inflight = Gauge(
+                "seldon_tpu_replica_inflight",
+                "Gateway-side in-flight requests per engine replica "
+                "(the power-of-two-choices load signal — "
+                "gateway/balancer.py; `set` = deployment/predictor)",
+                ["set", "replica"], registry=self.registry)
+            self._p_replica_picks = Counter(
+                "seldon_tpu_replica_picks_total",
+                "Requests routed to each engine replica by the gateway "
+                "balancer (`set` = deployment/predictor)",
+                ["set", "replica"], registry=self.registry)
+            self._p_replica_mispicks = Counter(
+                "seldon_tpu_replica_mispicks_total",
+                "p2c picks that finished slower than the losing "
+                "candidate's EWMA latency at decision time (ratio vs "
+                "seldon_tpu_replica_picks_total audits the balancer)",
+                registry=self.registry)
+            self._p_fleet_outlier = Gauge(
+                "seldon_tpu_fleet_outlier_ratio",
+                "Worst worse-than-set-median ratio of one replica "
+                "across the fleet outlier metrics (dispatch p99, "
+                "gateway EWMA, drift, MFU, free KV blocks — "
+                "gateway/fleet.py; 2.0 = this replica is 2x worse "
+                "than its siblings)",
+                ["set", "replica"], registry=self.registry)
+            self._p_fleet_replicas = Gauge(
+                "seldon_tpu_fleet_replicas",
+                "Replicas participating in one set's fleet rollup "
+                "(GET /fleet)",
+                ["set"], registry=self.registry)
+            self._p_fleet_staleness = Gauge(
+                "seldon_tpu_fleet_staleness_seconds",
+                "Age of one replica's scraped fleet documents at the "
+                "last rollup (how far behind the /fleet view may be)",
+                ["set", "replica"], registry=self.registry)
+            self._p_failovers = Counter(
+                "seldon_tpu_failover_total",
+                "Inflight work re-homed after a process death: "
+                "kind=unary (idempotent predict hedge-re-dispatched to "
+                "a peer replica) or kind=stream (SSE decode stream "
+                "resumed on a peer by re-prefill — gateway/apife.py)",
+                ["kind"], registry=self.registry)
+            self._p_lease_transitions = Counter(
+                "seldon_tpu_lease_transitions_total",
+                "Coordinator-lease tenure changes observed by this "
+                "gateway replica (acquired / lost / released / "
+                "store_error — gateway/federation.py)",
+                ["kind"], registry=self.registry)
+            self._p_corpus_rows = Gauge(
+                "seldon_tpu_corpus_rows",
+                "Dispatch rows appended to the durable perf corpus by "
+                "this process (utils/perfcorpus.py — the autopilot "
+                "warm-start / learned-cost-model training substrate)",
+                registry=self.registry)
+            self._p_corpus_bytes = Gauge(
+                "seldon_tpu_corpus_bytes",
+                "On-disk footprint of the perf corpus (raw segments + "
+                "compacted sketches; segment rotation bounds it at "
+                "~max_segments x segment_bytes)",
+                registry=self.registry)
+            self._p_corpus_warm_keys = Gauge(
+                "seldon_tpu_corpus_warm_keys",
+                "Autopilot keys warm-started from a prior process's "
+                "corpus at boot — priced before their first dispatch",
+                registry=self.registry)
+            self._p_postmortem_kept = Counter(
+                "seldon_tpu_postmortem_kept_total",
+                "Postmortem exemplars kept by retention reason (error / "
+                "shed / slo / autopilot_excess / preemption / breaker / "
+                "failover / lease / baseline — utils/postmortem.py); the "
+                "SeldonTPUPostmortemFlood alert pages on a sustained "
+                "kept rate",
+                ["reason"], registry=self.registry)
+            self._p_postmortem_dropped = Counter(
+                "seldon_tpu_postmortem_dropped_total",
+                "Pending postmortem traces evicted without a keep "
+                "verdict (buffer overflow or TTL — requests that never "
+                "completed, or capture outrunning the bounded buffer)",
+                registry=self.registry)
+            self._p_postmortem_pinned = Gauge(
+                "seldon_tpu_postmortem_pinned_spans",
+                "Spans currently pinned inside kept postmortem exemplar "
+                "documents (copied out of the trace ring at keep time)",
+                registry=self.registry)
+            self._p_fleet_burn = Gauge(
+                "seldon_tpu_fleet_burn_rate",
+                "Fleet-truth SLO burn rate per window: every gateway "
+                "replica's published counts folded through the shared "
+                "store (gateway/federation.py) — what the brownout "
+                "ladder and rollout gates judge; compare against the "
+                "per-replica seldon_tpu_slo_burn_rate slice",
+                ["window"], registry=self.registry)
+            self._p_lane_requests = Counter(
+                "seldon_tpu_relay_lane_requests_total",
+                "Gateway->engine dispatches by relay lane "
+                "(uds / tcp / inprocess — runtime/udsrelay.py)",
+                ["lane"], registry=self.registry)
+            self._p_wire_requests = Counter(
+                "seldon_tpu_wire_requests_total",
+                "Predict traffic by lane and wire format (json vs "
+                "binary application/x-seldon-tensor — runtime/wire.py)",
+                ["lane", "format"], registry=self.registry)
+            self._p_wire_bytes_copied = Counter(
+                "seldon_tpu_wire_bytes_copied_total",
+                "Host-side bytes copied by the binary wire codec and "
+                "the lanes feeding it (the bytes_copied_per_request "
+                "bench axis — docs/benchmarking.md)",
+                registry=self.registry)
+            self._p_wire_coalesced = Counter(
+                "seldon_tpu_wire_coalesced_total",
+                "Requests that rode a gateway-coalesced multi-tensor "
+                "engine frame (SELDON_TPU_WIRE_COALESCE_US window)",
+                registry=self.registry)
+            self._p_shadow_requests = Counter(
+                "seldon_tpu_shadow_requests_total",
+                "Shadow-mirror outcomes (gateway/shadow.py): mirrored / "
+                "sampled_out / capped (concurrency or budget) / "
+                "shadow_error — live traffic never appears here",
+                ["outcome"], registry=self.registry)
+            self._p_shadow_disagreement = Histogram(
+                "seldon_tpu_shadow_disagreement",
+                "Per-mirrored-request prediction disagreement between "
+                "the live and shadow predictors (0 = identical, 1 = "
+                "every row differs)",
+                registry=self.registry, buckets=_RATIO_BUCKETS)
+            self._p_shadow_latency = Histogram(
+                "seldon_tpu_shadow_latency_seconds",
+                "Shadow-hop wall time (off the live response path by "
+                "construction; compare against "
+                "seldon_tpu_request_latency_seconds for the delta)",
+                registry=self.registry, buckets=_LATENCY_BUCKETS)
+            self._p_rollbacks = Counter(
+                "seldon_tpu_rollbacks_total",
+                "Canary auto-rollbacks by breached gate "
+                "(drift / burn_rate / error_rate / shadow / manual — "
+                "operator/rollouts.py)",
+                ["reason"], registry=self.registry)
+            self._p_rollout_stage = Gauge(
+                "seldon_tpu_rollout_stage",
+                "Candidate traffic percent of the active rollout per "
+                "deployment (0 before stage 1 and after a rollback; "
+                "100 = fully promoted)",
+                ["deployment"], registry=self.registry)
+            self._p_autopilot_decisions = Counter(
+                "seldon_tpu_autopilot_decisions_total",
+                "Predictive decisions taken by the learned cost-model "
+                "autopilot, by site (flush = goodput-optimal pad-bucket "
+                "choice, p2c = shape-aware replica score, route = "
+                "deadline-driven branch demotion — runtime/autopilot.py)",
+                ["site"], registry=self.registry)
+            self._p_autopilot_shed = Counter(
+                "seldon_tpu_autopilot_shed_total",
+                "Requests shed with a typed 503 because predicted "
+                "queue+dispatch latency exceeded the remaining deadline "
+                "budget — refused BEFORE burning device time",
+                ["where"], registry=self.registry)
+            self._p_autopilot_mispredict = Gauge(
+                "seldon_tpu_autopilot_mispredict_pct",
+                "Rolling p50 of |measured - predicted| / predicted "
+                "dispatch wall, percent — the autopilot's honesty figure "
+                "(SeldonTPUAutopilotMispredict alerts on it)",
+                registry=self.registry)
+            self._p_autopilot_keys = Gauge(
+                "seldon_tpu_autopilot_keys",
+                "Per-executable/pad-bucket latency models in the "
+                "autopilot table (GET /autopilot lists them)",
+                registry=self.registry)
+            self._p_tenant_requests = Counter(
+                "seldon_tpu_tenant_requests_total",
+                "Admission attempts per tenant at the gateway "
+                "(runtime/qos.py governor; label cardinality bounded "
+                "at the source)",
+                ["tenant"], registry=self.registry)
+            self._p_tenant_throttled = Counter(
+                "seldon_tpu_tenant_throttled_total",
+                "Requests refused with a typed 429 because the tenant's "
+                "token bucket ran dry — a hog's excess, refused before "
+                "it queues anywhere (SeldonTPUTenantThrottled alerts "
+                "on it)",
+                ["tenant"], registry=self.registry)
+            self._p_brownout_stage = Gauge(
+                "seldon_tpu_brownout_stage",
+                "Current brownout degradation stage (0 = normal, 1 = "
+                "offline tier shed, 2 = generation degraded, 3 = batch "
+                "tier shed — runtime/brownout.py; "
+                "SeldonTPUBrownoutActive pages on sustained > 0)",
+                registry=self.registry)
+            self._p_brownout_transitions = Counter(
+                "seldon_tpu_brownout_transitions_total",
+                "Brownout stage transitions, labelled by the stage "
+                "ENTERED — escalations and reverts both count",
+                ["stage"], registry=self.registry)
+            self._p_brownout_shed = Counter(
+                "seldon_tpu_brownout_shed_total",
+                "Requests shed by the brownout ladder, by latency tier "
+                "— typed retryable 503s, never silent drops",
+                ["tier"], registry=self.registry)
+            self._p_cost_device_seconds = Counter(
+                "seldon_tpu_cost_device_seconds_total",
+                "Fenced device wall attributed to a tenant x deployment "
+                "x phase, proportional to real units in each shared "
+                "dispatch (utils/costledger.py; GET /costs)",
+                ["tenant", "deployment", "phase"], registry=self.registry)
+            self._p_cost_kv_block_seconds = Counter(
+                "seldon_tpu_cost_kv_block_seconds_total",
+                "Per-sequence KV-block residency (blocks x held-time), "
+                "integrated at retire/preempt, by tenant x deployment",
+                ["tenant", "deployment"], registry=self.registry)
+            self._p_cost_pad_tax_seconds = Counter(
+                "seldon_tpu_cost_pad_tax_seconds_total",
+                "Device wall spent on pow-2 padding, billed to the "
+                "tenants whose real units shared the dispatch",
+                ["tenant", "deployment"], registry=self.registry)
+            self._p_cost_attributed_fraction = Gauge(
+                "seldon_tpu_cost_attributed_fraction",
+                "(attributed + pad_tax + idle) / fenced device wall — "
+                "1.0 when every fold carried attribution; "
+                "SeldonTPUUnattributedDeviceTime alerts below 0.97",
+                registry=self.registry)
+
+    # -- batcher ---------------------------------------------------------
+
+    def observe_batch(self, rows: int,
+                      queue_wait_s: Optional[float] = None) -> None:
+        self.batch_occupancy.observe(rows)
+        if self.registry is not None:
+            self._p_occupancy.observe(rows)
+        if queue_wait_s is not None:
+            self.observe_queue_wait(queue_wait_s)
+
+    def observe_queue_wait(self, seconds: float) -> None:
+        self.batch_queue_wait.observe(seconds)
+        if self.registry is not None:
+            self._p_queue_wait.observe(seconds)
+
+    def set_inflight(self, n: int) -> None:
+        self.inflight = int(n)
+        if self.registry is not None:
+            self._p_inflight.set(n)
+
+    # -- generation ------------------------------------------------------
+
+    def observe_ttft(self, seconds: float) -> None:
+        self.ttft.observe(seconds)
+        if self.registry is not None:
+            self._p_ttft.observe(seconds)
+
+    def observe_decode_rate(self, tokens_per_s: float) -> None:
+        self.decode_rate.observe(tokens_per_s)
+        if self.registry is not None:
+            self._p_decode_rate.observe(tokens_per_s)
+
+    def observe_accept_ratio(self, ratio: float) -> None:
+        self.accept_ratio.observe(ratio)
+        if self.registry is not None:
+            self._p_accept.observe(ratio)
+
+    def set_kv_slots(self, **states: int) -> None:
+        """e.g. set_kv_slots(active=1040, reserved=256) — slot counts of
+        the most recent generation dispatch (a point-in-time gauge, not an
+        aggregate: TPU HBM pressure is about the current resident cache)."""
+        self._gen += 1
+        with self._lock:
+            self.kv_slots.update({k: int(v) for k, v in states.items()})
+        if self.registry is not None:
+            for k, v in states.items():
+                self._p_kv.labels(state=k).set(v)
+
+    # -- continuous-batching generation scheduler (runtime/genserver.py) -
+
+    def set_gen_scheduler(self, *, inflight: int, waiting: int,
+                          blocks_used: int, blocks_total: int,
+                          blocks_high_water: int) -> None:
+        """Point-in-time scheduler picture, refreshed once per scheduler
+        step: in-flight/waiting sequences + paged-KV-pool occupancy."""
+        self._gen += 1
+        with self._lock:
+            self.gen_scheduler.update({
+                "inflight": int(inflight), "waiting": int(waiting),
+                "blocks_used": int(blocks_used),
+                "blocks_total": int(blocks_total),
+                "blocks_high_water": int(blocks_high_water),
+            })
+        if self.registry is not None:
+            self._p_gen_inflight.set(inflight)
+            self._p_gen_waiting.set(waiting)
+            self._p_gen_kv_blocks.labels(state="used").set(blocks_used)
+            self._p_gen_kv_blocks.labels(state="total").set(blocks_total)
+            self._p_gen_kv_blocks.labels(state="high_water").set(
+                blocks_high_water)
+
+    def record_gen_admitted(self, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.gen_admitted += int(n)
+        if self.registry is not None:
+            self._p_gen_admitted.inc(n)
+
+    def record_gen_retired(self, reason: str, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.gen_retired[reason] = self.gen_retired.get(reason, 0) + n
+        if self.registry is not None:
+            self._p_gen_retired.labels(reason=reason).inc(n)
+
+    def record_gen_step(self, kind: str, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.gen_steps[kind] = self.gen_steps.get(kind, 0) + n
+        if self.registry is not None:
+            self._p_gen_steps.labels(kind=kind).inc(n)
+
+    # -- generation flight recorder (utils/genperf.py, fed off-path) -----
+
+    def record_gen_step_seconds(self, kind: str, phase: str,
+                                seconds: float) -> None:
+        """One tick's time in one phase; host phases carry the plain
+        phase name, fenced device wall arrives as ``<phase>_device``."""
+        self._gen += 1
+        key = f"{kind}/{phase}"
+        with self._lock:
+            res = self.gen_step_seconds.get(key)
+            if res is None:
+                res = self.gen_step_seconds[key] = Reservoir()
+        res.observe(seconds)
+        if self.registry is not None:
+            self._p_gen_step_seconds.labels(
+                kind=kind, phase=phase).observe(seconds)
+
+    def record_gen_bubble(self, cause: str, seconds: float) -> None:
+        self._gen += 1
+        with self._lock:
+            self.gen_bubble_s[cause] = \
+                self.gen_bubble_s.get(cause, 0.0) + float(seconds)
+        if self.registry is not None:
+            self._p_gen_bubble.labels(cause=cause).inc(seconds)
+
+    def record_gen_kv_block_age(self, seconds: float) -> None:
+        self._gen += 1
+        self.gen_kv_block_age.observe(seconds)
+        if self.registry is not None:
+            self._p_gen_kv_block_age.observe(seconds)
+
+    def set_gen_served_mfu(self, frac: float) -> None:
+        self._gen += 1
+        with self._lock:
+            self.gen_served_mfu = float(frac)
+        if self.registry is not None:
+            self._p_gen_served_mfu.set(frac)
+
+    def record_gen_tick_error(self, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.gen_tick_errors += int(n)
+        if self.registry is not None:
+            self._p_gen_tick_errors.inc(n)
+
+    # -- disaggregated serving mesh (runtime/servingmesh.py) -------------
+
+    def record_kv_handoff(self, outcome: str, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.kv_handoffs[outcome] = \
+                self.kv_handoffs.get(outcome, 0) + n
+        if self.registry is not None:
+            self._p_kv_handoff.labels(outcome=outcome).inc(n)
+
+    def observe_kv_handoff(self, seconds: float, nbytes: int) -> None:
+        self._gen += 1
+        with self._lock:
+            self.kv_handoff_latency.observe(seconds * 1e3)
+            self.kv_handoff_bytes += int(nbytes)
+        if self.registry is not None:
+            self._p_kv_handoff_seconds.observe(seconds)
+            self._p_kv_handoff_bytes.inc(nbytes)
+
+    def set_kv_handoff_inflight(self, n: int) -> None:
+        with self._lock:
+            self.kv_handoff_inflight = int(n)
+        if self.registry is not None:
+            self._p_kv_handoff_inflight.set(n)
+
+    # -- serving-mesh balancer (gateway/balancer.py feeds these) ---------
+
+    def set_replica_inflight(self, set_name: str, replica: str,
+                             n: int) -> None:
+        """Gateway-side outstanding requests on one replica of one
+        replica set (``set_name`` = deployment/predictor).  Deliberately
+        does NOT bump the stats-cache generation: it moves per request
+        under traffic, exactly when the cache exists to help."""
+        with self._lock:
+            self.replica_inflight.setdefault(set_name, {})[replica] = int(n)
+        if self.registry is not None:
+            self._p_replica_inflight.labels(
+                set=set_name, replica=replica
+            ).set(n)
+
+    def record_replica_pick(self, set_name: str, replica: str) -> None:
+        with self._lock:
+            picks = self.replica_picks.setdefault(set_name, {})
+            picks[replica] = picks.get(replica, 0) + 1
+        if self.registry is not None:
+            self._p_replica_picks.labels(
+                set=set_name, replica=replica
+            ).inc()
+
+    def set_fleet_outlier(self, set_name: str, replica: str,
+                          ratio: float) -> None:
+        """The replica's WORST worse-than-median ratio across the fleet
+        outlier metrics (gateway/fleet.py) — refreshed on the existing
+        scrape tick and on every /fleet query, never per request."""
+        with self._lock:
+            self.fleet_outliers.setdefault(set_name, {})[replica] = \
+                float(ratio)
+        if self.registry is not None:
+            self._p_fleet_outlier.labels(
+                set=set_name, replica=replica).set(ratio)
+
+    def set_fleet_replicas(self, set_name: str, n: int) -> None:
+        with self._lock:
+            self.fleet_replicas[set_name] = int(n)
+        if self.registry is not None:
+            self._p_fleet_replicas.labels(set=set_name).set(n)
+
+    def set_fleet_staleness(self, set_name: str, replica: str,
+                            seconds: float) -> None:
+        if self.registry is not None:
+            self._p_fleet_staleness.labels(
+                set=set_name, replica=replica).set(seconds)
+
+    def record_replica_mispick(self) -> None:
+        with self._lock:
+            self.replica_mispicks += 1
+        if self.registry is not None:
+            self._p_replica_mispicks.inc()
+
+    def record_lane_request(self, lane: str) -> None:
+        with self._lock:
+            self.lane_requests[lane] = self.lane_requests.get(lane, 0) + 1
+        if self.registry is not None:
+            self._p_lane_requests.labels(lane=lane).inc()
+
+    # -- binary wire contract (runtime/wire.py feeds these) --------------
+
+    def record_wire_request(self, lane: str, format: str) -> None:
+        """One predict served/dispatched on ``lane`` in ``format`` (json
+        or binary) — the A/B visibility for the wire rollout."""
+        key = f"{lane}/{format}"
+        with self._lock:
+            self.wire_requests[key] = self.wire_requests.get(key, 0) + 1
+        if self.registry is not None:
+            self._p_wire_requests.labels(lane=lane, format=format).inc()
+
+    def record_wire_copy(self, nbytes: int) -> None:
+        """One host-side byte copy made by the wire codec or a lane
+        feeding it (wire.account_copy) — deliberately does NOT bump the
+        stats-cache generation: it moves per request under traffic."""
+        with self._lock:
+            self.wire_bytes_copied += int(nbytes)
+            self.wire_copies += 1
+        if self.registry is not None:
+            self._p_wire_bytes_copied.inc(nbytes)
+
+    def record_wire_coalesced(self, n: int) -> None:
+        """``n`` requests rode one coalesced multi-tensor engine frame
+        (gateway/apife.py WireCoalescer)."""
+        with self._lock:
+            self.wire_coalesced += int(n)
+        if self.registry is not None:
+            self._p_wire_coalesced.inc(n)
+
+    # -- traffic lifecycle (gateway/shadow.py / operator/rollouts.py) ----
+
+    def record_shadow(self, outcome: str, n: int = 1) -> None:
+        """Shadow-mirror decision accounting: ``mirrored`` (a copy was
+        dispatched), ``sampled_out``, ``capped`` (concurrency/budget
+        guard dropped it), ``shadow_error`` (the shadow hop failed —
+        never a live failure by construction)."""
+        with self._lock:
+            self.shadow_requests[outcome] = (
+                self.shadow_requests.get(outcome, 0) + n)
+        if self.registry is not None:
+            self._p_shadow_requests.labels(outcome=outcome).inc(n)
+
+    def observe_shadow(self, disagreement: Optional[float],
+                       latency_s: float) -> None:
+        """One completed mirror: live-vs-shadow prediction disagreement
+        (None when the pair wasn't comparable — e.g. the shadow errored)
+        and the shadow hop's own wall time."""
+        self.shadow_latency.observe(latency_s)
+        if self.registry is not None:
+            self._p_shadow_latency.observe(latency_s)
+        if disagreement is not None:
+            self.shadow_disagreement.observe(float(disagreement))
+            if self.registry is not None:
+                self._p_shadow_disagreement.observe(float(disagreement))
+
+    def record_failover(self, kind: str) -> None:
+        """One piece of inflight work re-homed after a process death
+        (kind=unary|stream) — bumped by the gateway's recovery paths,
+        never on the happy path."""
+        self._gen += 1
+        with self._lock:
+            self.failovers[kind] = self.failovers.get(kind, 0) + 1
+        if self.registry is not None:
+            self._p_failovers.labels(kind=kind).inc()
+
+    def record_lease_transition(self, kind: str) -> None:
+        """One coordinator/engine lease tenure change as seen by this
+        process (acquired / lost / released / store_error)."""
+        self._gen += 1
+        with self._lock:
+            self.lease_transitions[kind] = (
+                self.lease_transitions.get(kind, 0) + 1)
+        if self.registry is not None:
+            self._p_lease_transitions.labels(kind=kind).inc()
+
+    def record_postmortem_kept(self, reason: str) -> None:
+        """One postmortem exemplar kept (utils/postmortem.py retention
+        verdict at request completion) — labelled by the FIRST reason,
+        so the rate per reason reads as 'what kind of anomaly is the
+        fleet producing right now'."""
+        self._gen += 1
+        with self._lock:
+            self.postmortem_kept[reason] = (
+                self.postmortem_kept.get(reason, 0) + 1)
+        if self.registry is not None:
+            self._p_postmortem_kept.labels(reason=reason).inc()
+
+    def record_postmortem_dropped(self, n: int = 1) -> None:
+        """Pending postmortem traces evicted without a keep verdict
+        (buffer overflow / TTL sweep) — bumped fold-side, never on the
+        request path."""
+        self._gen += 1
+        with self._lock:
+            self.postmortem_dropped += n
+        if self.registry is not None:
+            self._p_postmortem_dropped.inc(n)
+
+    def set_postmortem_pinned(self, n: int) -> None:
+        """Spans pinned inside kept exemplar documents — refreshed from
+        the spine's throttled gauge pass, never per keep."""
+        self._gen += 1
+        with self._lock:
+            self.postmortem_pinned = int(n)
+        if self.registry is not None:
+            self._p_postmortem_pinned.set(n)
+
+    def set_corpus(self, rows: int, disk_bytes: int,
+                   warm_keys: int) -> None:
+        """Perf-corpus accounting, refreshed from the spine's throttled
+        gauge pass (utils/hotrecord.py), never per-row."""
+        self._gen += 1
+        with self._lock:
+            self.corpus_rows = int(rows)
+            self.corpus_bytes = int(disk_bytes)
+            self.corpus_warm_keys = int(warm_keys)
+        if self.registry is not None:
+            self._p_corpus_rows.set(rows)
+            self._p_corpus_bytes.set(disk_bytes)
+            self._p_corpus_warm_keys.set(warm_keys)
+
+    def set_fleet_burn(self, window: str, rate: float) -> None:
+        """One window of the federated fleet-truth burn aggregate —
+        set by the gateway federation's burn fold, never per-request."""
+        self._gen += 1
+        with self._lock:
+            self.fleet_burn[window] = float(rate)
+        if self.registry is not None:
+            self._p_fleet_burn.labels(window=window).set(rate)
+
+    def record_rollback(self, reason: str) -> None:
+        self._gen += 1
+        with self._lock:
+            self.rollbacks[reason] = self.rollbacks.get(reason, 0) + 1
+        if self.registry is not None:
+            self._p_rollbacks.labels(reason=reason).inc()
+
+    def set_rollout_stage(self, deployment: str, percent: float) -> None:
+        self._gen += 1
+        with self._lock:
+            self.rollout_stage[deployment] = float(percent)
+        if self.registry is not None:
+            self._p_rollout_stage.labels(deployment=deployment).set(percent)
+
+    # -- learned cost-model autopilot (runtime/autopilot.py) -------------
+
+    def record_autopilot_decision(self, site: str, n: int = 1) -> None:
+        """One predictive decision taken (flush / p2c / route) — bumped
+        off-path (spine folds) or at low-rate decision sites, never per
+        hot-path dispatch."""
+        with self._lock:
+            self.autopilot_decisions[site] = (
+                self.autopilot_decisions.get(site, 0) + n)
+        if self.registry is not None:
+            self._p_autopilot_decisions.labels(site=site).inc(n)
+
+    def record_autopilot_shed(self, where: str) -> None:
+        self._gen += 1
+        with self._lock:
+            self.autopilot_sheds[where] = (
+                self.autopilot_sheds.get(where, 0) + 1)
+        if self.registry is not None:
+            self._p_autopilot_shed.labels(where=where).inc()
+
+    def autopilot_counters(self) -> "tuple[Dict[str, int], Dict[str, int]]":
+        """(sheds, decisions) copied under the lock — the /autopilot
+        page reads these concurrently with request threads writing."""
+        with self._lock:
+            return dict(self.autopilot_sheds), dict(self.autopilot_decisions)
+
+    # -- multi-tenant QoS + brownout (runtime/qos.py / brownout.py) ------
+
+    #: hard cap on distinct tenant labels the recorder itself will hold;
+    #: the governor's 256-row LRU is the primary bound, this is the
+    #: belt-and-braces one (everything beyond folds into "overflow")
+    _TENANT_LABEL_CAP = 512
+
+    def _tenant_label(self, table: Dict[str, int], tenant: str) -> str:
+        if tenant in table or len(table) < self._TENANT_LABEL_CAP:
+            return tenant
+        return "overflow"
+
+    def record_tenant_request(self, tenant: str) -> None:
+        with self._lock:
+            label = self._tenant_label(self.tenant_requests, tenant)
+            self.tenant_requests[label] = (
+                self.tenant_requests.get(label, 0) + 1)
+        if self.registry is not None:
+            self._p_tenant_requests.labels(tenant=label).inc()
+
+    def record_tenant_throttled(self, tenant: str) -> None:
+        self._gen += 1
+        with self._lock:
+            label = self._tenant_label(self.tenant_throttled, tenant)
+            self.tenant_throttled[label] = (
+                self.tenant_throttled.get(label, 0) + 1)
+        if self.registry is not None:
+            self._p_tenant_throttled.labels(tenant=label).inc()
+
+    def set_brownout_stage(self, stage: int) -> None:
+        self._gen += 1
+        with self._lock:
+            self.brownout_stage = int(stage)
+        if self.registry is not None:
+            self._p_brownout_stage.set(stage)
+
+    def record_brownout_transition(self, stage: int) -> None:
+        self._gen += 1
+        with self._lock:
+            key = str(int(stage))
+            self.brownout_transitions[key] = (
+                self.brownout_transitions.get(key, 0) + 1)
+        if self.registry is not None:
+            self._p_brownout_transitions.labels(stage=str(int(stage))).inc()
+
+    def record_brownout_shed(self, tier: str) -> None:
+        self._gen += 1
+        with self._lock:
+            self.brownout_sheds[tier] = (
+                self.brownout_sheds.get(tier, 0) + 1)
+        if self.registry is not None:
+            self._p_brownout_shed.labels(tier=tier).inc()
+
+    # -- resource-attribution ledger (utils/costledger.py) --------------
+    # All four are delta-fed from the spine's throttled gauge refresh
+    # (~1/s) — never per request.  The tenant label cap reuses the QoS
+    # overflow rule so the label set stays bounded.
+
+    def record_cost_device_seconds(self, tenant: str, deployment: str,
+                                   phase: str, seconds: float) -> None:
+        with self._lock:
+            label = self._tenant_label(
+                {t: 1 for (t, _d, _p) in self.cost_device_s}, tenant)
+            key = (label, deployment, phase)
+            self.cost_device_s[key] = (
+                self.cost_device_s.get(key, 0.0) + seconds)
+        if self.registry is not None:
+            self._p_cost_device_seconds.labels(
+                tenant=label, deployment=deployment, phase=phase,
+            ).inc(seconds)
+
+    def record_cost_kv_block_seconds(self, tenant: str, deployment: str,
+                                     block_seconds: float) -> None:
+        with self._lock:
+            label = self._tenant_label(
+                {t: 1 for (t, _d) in self.cost_kv_block_s}, tenant)
+            key = (label, deployment)
+            self.cost_kv_block_s[key] = (
+                self.cost_kv_block_s.get(key, 0.0) + block_seconds)
+        if self.registry is not None:
+            self._p_cost_kv_block_seconds.labels(
+                tenant=label, deployment=deployment,
+            ).inc(block_seconds)
+
+    def record_cost_pad_tax_seconds(self, tenant: str, deployment: str,
+                                    seconds: float) -> None:
+        with self._lock:
+            label = self._tenant_label(
+                {t: 1 for (t, _d) in self.cost_pad_tax_s}, tenant)
+            key = (label, deployment)
+            self.cost_pad_tax_s[key] = (
+                self.cost_pad_tax_s.get(key, 0.0) + seconds)
+        if self.registry is not None:
+            self._p_cost_pad_tax_seconds.labels(
+                tenant=label, deployment=deployment,
+            ).inc(seconds)
+
+    def record_cost_attributed_fraction(self, fraction: float) -> None:
+        with self._lock:
+            self.cost_attributed_fraction = float(fraction)
+        if self.registry is not None:
+            self._p_cost_attributed_fraction.set(fraction)
+
+    def set_autopilot_model(self, mispredict_p50_pct: Optional[float],
+                            keys: int) -> None:
+        """Model-health gauges, refreshed from the spine's throttled
+        gauge pass (utils/hotrecord.py), not per observation."""
+        with self._lock:
+            self.autopilot_mispredict_p50_pct = mispredict_p50_pct
+            self.autopilot_keys = int(keys)
+        if self.registry is not None:
+            if mispredict_p50_pct is not None:
+                self._p_autopilot_mispredict.set(mispredict_p50_pct)
+            self._p_autopilot_keys.set(keys)
+
+    # -- compile cache / audit accounting -------------------------------
+
+    def record_compile_cache(self, outcome: str, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.compile_cache_events[outcome] = (
+                self.compile_cache_events.get(outcome, 0) + n)
+        if self.registry is not None:
+            self._p_compile.labels(outcome=outcome).inc(n)
+
+    def record_audit(self, outcome: str) -> None:
+        if self.registry is not None:
+            self._p_audit.labels(outcome=outcome).inc()
+
+    # -- resilience layer (runtime/resilience.py) ------------------------
+
+    def set_breaker_state(self, node: str, state: str, gauge: float) -> None:
+        self._gen += 1
+        with self._lock:
+            self.breaker_states[node] = state
+        if self.registry is not None:
+            self._p_breaker_state.labels(node=node).set(gauge)
+
+    def record_breaker_transition(self, node: str, to: str) -> None:
+        self._gen += 1
+        key = f"{node}:{to}"
+        with self._lock:
+            self.breaker_transitions[key] = self.breaker_transitions.get(key, 0) + 1
+        if self.registry is not None:
+            self._p_breaker_transitions.labels(node=node, to=to).inc()
+
+    def record_retry(self, method: str, outcome: str) -> None:
+        """outcome: 'retry' (another attempt is being made) or 'exhausted'
+        (attempts/budget ran out and the failure surfaced)."""
+        self._gen += 1
+        key = f"{method}:{outcome}"
+        with self._lock:
+            self.retry_attempts[key] = self.retry_attempts.get(key, 0) + 1
+        if self.registry is not None:
+            self._p_retry.labels(method=method, outcome=outcome).inc()
+
+    def record_retry_budget_exhausted(self) -> None:
+        self._gen += 1
+        with self._lock:
+            self.retry_budget_exhausted += 1
+        if self.registry is not None:
+            self._p_retry_budget.inc()
+
+    def record_deadline_exceeded(self, where: str) -> None:
+        self._gen += 1
+        with self._lock:
+            self.deadline_exceeded[where] = self.deadline_exceeded.get(where, 0) + 1
+        if self.registry is not None:
+            self._p_deadline.labels(where=where).inc()
+
+    def record_trace_span(self, kind: str) -> None:
+        self._gen += 1
+        with self._lock:
+            self.trace_spans[kind] = self.trace_spans.get(kind, 0) + 1
+        if self.registry is not None:
+            self._p_trace_spans.labels(kind=kind).inc()
+
+    def record_degraded(self, mode: str) -> None:
+        """mode: 'quorum' (combiner served a subset) or 'fallback' (router
+        served the fallback branch)."""
+        self._gen += 1
+        with self._lock:
+            self.degraded_requests[mode] = self.degraded_requests.get(mode, 0) + 1
+        if self.registry is not None:
+            self._p_degraded.labels(mode=mode).inc()
+
+    # -- performance observatory (utils/perf.py) --------------------------
+
+    def observe_dispatch(self, executable: str, seconds: float,
+                         mfu: Optional[float] = None,
+                         trace_id: Optional[str] = None) -> None:
+        """Per-executable dispatch latency (+ most recent MFU).  A sampled
+        trace id rides the histogram observation as an OpenMetrics
+        exemplar so a slow bucket links straight to its trace."""
+        if self.registry is None:
+            return
+        child = self._p_dispatch.labels(executable=executable)
+        try:
+            child.observe(
+                seconds,
+                exemplar={"trace_id": trace_id} if trace_id else None,
+            )
+        except (TypeError, ValueError):  # pragma: no cover - old client
+            child.observe(seconds)
+        if mfu is not None:
+            self._p_mfu.labels(executable=executable).set(mfu)
+
+    def record_perf_anomaly(self, kind: str) -> None:
+        self._gen += 1
+        with self._lock:
+            self.perf_anomalies[kind] = self.perf_anomalies.get(kind, 0) + 1
+        if self.registry is not None:
+            self._p_perf_anomaly.labels(kind=kind).inc()
+
+    def set_hbm(self, device: str, **stats: int) -> None:
+        """HBM watermark gauges for one device (bytes_in_use /
+        peak_bytes_in_use / bytes_limit — utils/perf.py polls
+        ``device.memory_stats()``)."""
+        self._gen += 1
+        with self._lock:
+            self.hbm.setdefault(device, {}).update(
+                {k: int(v) for k, v in stats.items()}
+            )
+        if self.registry is not None:
+            for k, v in stats.items():
+                gauge = self._p_hbm.get(k)
+                if gauge is not None:
+                    gauge.labels(device=device).set(v)
+
+    def record_compile_seconds(self, seconds: float) -> None:
+        """One compile's wall time — fed by the kernel-library builds
+        (ops/_build.py) and each executable's first call
+        (graph/compiled.py)."""
+        self.compile_seconds.observe(seconds)
+        if self.registry is not None:
+            self._p_compile_seconds.observe(seconds)
+
+    # -- prediction-quality observatory (utils/quality.py) ----------------
+
+    def set_drift(self, node: str, method: str, score: float) -> None:
+        """Aggregate drift score for one node (method: psi|ks|prediction)."""
+        self._gen += 1
+        with self._lock:
+            self.drift_scores[f"{node}:{method}"] = float(score)
+        if self.registry is not None:
+            self._p_drift.labels(node=node, method=method).set(score)
+
+    def set_prediction_quantile(self, node: str, q: str,
+                                value: float) -> None:
+        self._gen += 1
+        with self._lock:
+            self.prediction_quantiles[f"{node}:{q}"] = float(value)
+        if self.registry is not None:
+            self._p_pred_quantile.labels(node=node, q=q).set(value)
+
+    def clear_drift(self, node: str) -> None:
+        """Drop one node's published drift scores + prediction quantiles
+        — called when its reference window is reset/refrozen, so a stale
+        score can't keep an alert firing through the recollection."""
+        self._gen += 1
+        with self._lock:
+            for method in ("psi", "ks", "prediction"):
+                self.drift_scores.pop(f"{node}:{method}", None)
+            for q in ("0.5", "0.9", "0.99"):
+                self.prediction_quantiles.pop(f"{node}:{q}", None)
+        if self.registry is not None:
+            for method in ("psi", "ks", "prediction"):
+                try:
+                    self._p_drift.remove(node, method)
+                except KeyError:
+                    pass
+            for q in ("0.5", "0.9", "0.99"):
+                try:
+                    self._p_pred_quantile.remove(node, q)
+                except KeyError:
+                    pass
+
+    def record_feedback_event(self, reward: float,
+                              truth_provided: bool = False,
+                              agreement: Optional[float] = None) -> None:
+        """One send_feedback call: reward into the histogram, outcome
+        counters (agree/disagree judged by majority row agreement when
+        truth was comparable to the served prediction)."""
+        self._gen += 1
+        self.feedback_reward.observe(reward)
+        with self._lock:
+            self.feedback_count += 1
+            if truth_provided:
+                self.feedback_truth += 1
+            if agreement is not None:
+                if agreement >= 0.5:
+                    self.feedback_agree += 1
+                else:
+                    self.feedback_disagree += 1
+        if self.registry is not None:
+            self._p_feedback_reward.observe(reward)
+            self._p_feedback.labels(outcome="received").inc()
+            if truth_provided:
+                self._p_feedback.labels(outcome="truth_provided").inc()
+            if agreement is not None:
+                self._p_feedback.labels(
+                    outcome="agree" if agreement >= 0.5 else "disagree"
+                ).inc()
+
+    def record_outlier_scores(self, scores) -> None:
+        self._gen += 1
+        self.outlier_scores.observe_many(scores)
+        if self.registry is not None:
+            # prometheus_client has no batch observe; this remaining
+            # per-value loop is lock-light (histogram child increments)
+            for v in scores:
+                self._p_outlier.observe(float(v))
+
+    def record_outlier_exceeded(self, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.outlier_exceeded += int(n)
+        if self.registry is not None:
+            self._p_outlier_exceeded.inc(n)
+
+    def set_slo_burn(self, window: str, rate: float) -> None:
+        self._gen += 1
+        with self._lock:
+            self.slo_burn[window] = float(rate)
+        if self.registry is not None:
+            self._p_slo_burn.labels(window=window).set(rate)
+
+    def record_quality_sampled(self, node: str) -> None:
+        self._gen += 1
+        with self._lock:
+            self.quality_sampled[node] = self.quality_sampled.get(node, 0) + 1
+        if self.registry is not None:
+            self._p_quality_sampled.labels(node=node).inc()
+
+    # -- telemetry spine (utils/hotrecord.py drainer feeds these) ---------
+
+    def record_ring_dropped(self, n: int = 1) -> None:
+        self._gen += 1
+        with self._lock:
+            self.telemetry_ring_dropped += int(n)
+        if self.registry is not None:
+            self._p_ring_dropped.inc(n)
+
+    def set_telemetry_records(self, hop: str, total: int) -> None:
+        """Lifetime folded-record count per hop kind; the Prometheus
+        counter is advanced by the delta so it stays monotone."""
+        self._gen += 1
+        with self._lock:
+            self.telemetry_records[hop] = int(total)
+            prev = self._telemetry_records_published.get(hop, 0)
+            if total > prev:
+                self._telemetry_records_published[hop] = int(total)
+        if self.registry is not None and total > prev:
+            self._p_telemetry_records.labels(hop=hop).inc(total - prev)
+
+    def set_framework_overhead(self, subsystem: str, ms: float) -> None:
+        self._gen += 1
+        with self._lock:
+            self.framework_overhead[subsystem] = round(float(ms), 4)
+        if self.registry is not None:
+            self._p_framework_overhead.labels(subsystem=subsystem).set(ms)
+
+    # -- request latencies (feeds /stats percentiles + the
+    # -- seldon_tpu_request_latency_seconds histogram) --------------------
+
+    def request_latency(self, service: str, seconds: float) -> None:
+        res = self._latency.get(service)
+        if res is None:
+            with self._lock:
+                res = self._latency.get(service)
+                if res is None:
+                    if len(self._latency) >= self._latency_cap:
+                        return  # bounded label space; drop novel keys
+                    res = self._latency[service] = Reservoir()
+        res.observe(seconds)
+        if self.registry is not None:
+            self._p_request_latency.labels(service=service).observe(seconds)
+
+    # -- snapshots -------------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The zero-dependency JSON body behind ``GET /stats``."""
+        if self.drain_hook is not None:
+            # fold pending telemetry-spine records first so the snapshot
+            # reflects every hop that already served
+            self.drain_hook()
+        with self._lock:
+            kv = dict(self.kv_slots)
+            gen_sched = {
+                "scheduler": dict(self.gen_scheduler),
+                "admitted": self.gen_admitted,
+                "retired": dict(self.gen_retired),
+                "steps": dict(self.gen_steps),
+                "bubble_seconds": dict(self.gen_bubble_s),
+                "tick_errors": self.gen_tick_errors,
+                "served_mfu": self.gen_served_mfu,
+            }
+            cc = dict(self.compile_cache_events)
+            latency_keys = list(self._latency)
+            resilience = {
+                "breaker_states": dict(self.breaker_states),
+                "breaker_transitions": dict(self.breaker_transitions),
+                "retry_attempts": dict(self.retry_attempts),
+                "retry_budget_exhausted": self.retry_budget_exhausted,
+                "deadline_exceeded": dict(self.deadline_exceeded),
+                "degraded_requests": dict(self.degraded_requests),
+            }
+            trace_spans = dict(self.trace_spans)
+            spine = {
+                "ring_dropped": self.telemetry_ring_dropped,
+                "records": dict(self.telemetry_records),
+                "overhead_ms": dict(self.framework_overhead),
+            }
+            perf = {
+                "anomalies": dict(self.perf_anomalies),
+                "hbm": {d: dict(v) for d, v in self.hbm.items()},
+            }
+            feedback = {
+                "count": self.feedback_count,
+                "truth_provided": self.feedback_truth,
+                "agree": self.feedback_agree,
+                "disagree": self.feedback_disagree,
+            }
+            replicas = {
+                "inflight": {
+                    s: dict(d) for s, d in self.replica_inflight.items()
+                },
+                "picks": {
+                    s: dict(d) for s, d in self.replica_picks.items()
+                },
+                "mispicks": self.replica_mispicks,
+                "lanes": dict(self.lane_requests),
+                "fleet_outliers": {
+                    s: dict(d) for s, d in self.fleet_outliers.items()
+                },
+                "failovers": dict(self.failovers),
+                "lease_transitions": dict(self.lease_transitions),
+                "fleet_burn": dict(self.fleet_burn),
+            }
+            corpus = {
+                "rows": self.corpus_rows,
+                "bytes": self.corpus_bytes,
+                "warm_keys": self.corpus_warm_keys,
+            }
+            wire = {
+                "requests": dict(self.wire_requests),
+                "bytes_copied": self.wire_bytes_copied,
+                "copies": self.wire_copies,
+                "coalesced": self.wire_coalesced,
+            }
+            lifecycle = {
+                "shadow": dict(self.shadow_requests),
+                "rollbacks": dict(self.rollbacks),
+                "rollout_stage": dict(self.rollout_stage),
+            }
+            postmortem = {
+                "kept": dict(self.postmortem_kept),
+                "dropped": self.postmortem_dropped,
+                "pinned_spans": self.postmortem_pinned,
+            }
+            autopilot = {
+                "decisions": dict(self.autopilot_decisions),
+                "sheds": dict(self.autopilot_sheds),
+                "mispredict_p50_pct": self.autopilot_mispredict_p50_pct,
+                "keys": self.autopilot_keys,
+            }
+            qos = {
+                "tenant_requests": dict(self.tenant_requests),
+                "tenant_throttled": dict(self.tenant_throttled),
+                "brownout_stage": self.brownout_stage,
+                "brownout_transitions": dict(self.brownout_transitions),
+                "brownout_sheds": dict(self.brownout_sheds),
+            }
+            cost = {
+                "device_s": {
+                    "/".join(k): round(v, 6)
+                    for k, v in self.cost_device_s.items()
+                },
+                "kv_block_s": {
+                    "/".join(k): round(v, 3)
+                    for k, v in self.cost_kv_block_s.items()
+                },
+                "pad_tax_s": {
+                    "/".join(k): round(v, 6)
+                    for k, v in self.cost_pad_tax_s.items()
+                },
+                "attributed_fraction": self.cost_attributed_fraction,
+            }
+            quality = {
+                "drift": dict(self.drift_scores),
+                "slo_burn": dict(self.slo_burn),
+                "sampled": dict(self.quality_sampled),
+                "outliers": {
+                    "count": self.outlier_scores.snapshot()["count"],
+                    "exceeded": self.outlier_exceeded,
+                },
+            }
+        lifecycle["shadow_disagreement"] = self.shadow_disagreement.snapshot()
+        lifecycle["shadow_latency_s"] = self.shadow_latency.snapshot()
+        perf["compile_s"] = self.compile_seconds.snapshot()
+        feedback["mean_reward"] = round(
+            self.feedback_reward.snapshot()["mean"], 6
+        )
+        return {
+            "resilience": resilience,
+            "perf": perf,
+            "feedback": feedback,
+            "quality": quality,
+            "replicas": replicas,
+            "wire": wire,
+            "traffic_lifecycle": lifecycle,
+            "autopilot": autopilot,
+            "qos": qos,
+            "cost": cost,
+            "corpus": corpus,
+            "postmortem": postmortem,
+            "batch": {
+                "occupancy": self.batch_occupancy.snapshot(),
+                "queue_wait_s": self.batch_queue_wait.snapshot(),
+                "inflight_dispatches": self.inflight,
+            },
+            "generation": {
+                "ttft_s": self.ttft.snapshot(),
+                "decode_tokens_per_s": self.decode_rate.snapshot(),
+                "speculative_accept_ratio": self.accept_ratio.snapshot(),
+                "kv_cache_slots": kv,
+                "continuous": gen_sched,
+                "kv_handoffs": dict(self.kv_handoffs),
+                "kv_handoff_ms": self.kv_handoff_latency.snapshot(),
+                "kv_handoff_bytes": self.kv_handoff_bytes,
+                "kv_handoff_inflight": self.kv_handoff_inflight,
+            },
+            "compile_cache_events": cc,
+            "trace_spans": trace_spans,
+            "telemetry_spine": spine,
+            "request_latency_s": {
+                k: self._latency[k].snapshot() for k in latency_keys
+            },
+        }
+
+    def exposition(self, openmetrics: bool = False) -> bytes:
+        """Prometheus text exposition.  ``openmetrics=True`` renders the
+        OpenMetrics format instead — the only exposition that carries the
+        trace_id exemplars on ``seldon_tpu_dispatch_seconds`` buckets.
+
+        Scrapes are the natural HBM-watermark poll point: refresh the
+        ``seldon_tpu_hbm_*`` gauges (throttled inside the observatory) so
+        a Prometheus-only deployment — nobody polling ``/perf`` — still
+        sees live watermarks and the HBM-pressure alert can fire."""
+        if self.drain_hook is not None:
+            # scrape-only deployments must see every folded hop too —
+            # the exposition is a query surface like /stats
+            self.drain_hook()
+        if self.registry is None:
+            return b""
+        try:
+            from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+
+            OBSERVATORY.hbm_watermarks()
+        except Exception:  # noqa: BLE001 - scrape must never fail on polling
+            pass
+        # the SLO burn gauges' scrape-time refresh (QUALITY.refresh_gauges)
+        # comes with the quality observatory, ROADMAP Queue 1 item [4b]
+        if openmetrics:
+            return generate_latest_openmetrics(self.registry)
+        return generate_latest(self.registry)
+
+    def reset(self) -> None:
+        """Fresh distributions/counters — tests only (Prometheus counters
+        are monotone by design and are left alone)."""
+        if self.drain_hook is not None:
+            # stale ring records from earlier traffic must fold BEFORE the
+            # reset, not leak into the fresh state afterwards
+            self.drain_hook()
+        self._gen += 1
+        self.batch_occupancy = Reservoir()
+        self.batch_queue_wait = Reservoir()
+        self.ttft = Reservoir()
+        self.decode_rate = Reservoir()
+        self.accept_ratio = Reservoir()
+        self.compile_seconds = Reservoir()
+        self.inflight = 0
+        with self._lock:
+            self.kv_slots = {}
+            self.compile_cache_events = {}
+            self._latency = {}
+            self.breaker_states = {}
+            self.breaker_transitions = {}
+            self.retry_attempts = {}
+            self.retry_budget_exhausted = 0
+            self.deadline_exceeded = {}
+            self.degraded_requests = {}
+            self.trace_spans = {}
+            self.perf_anomalies = {}
+            self.hbm = {}
+            self.drift_scores = {}
+            self.prediction_quantiles = {}
+            self.feedback_count = 0
+            self.feedback_reward = Reservoir()
+            self.feedback_truth = 0
+            self.feedback_agree = 0
+            self.feedback_disagree = 0
+            self.cost_device_s = {}
+            self.cost_kv_block_s = {}
+            self.cost_pad_tax_s = {}
+            self.cost_attributed_fraction = None
+            self.outlier_scores = Reservoir()
+            self.outlier_exceeded = 0
+            self.slo_burn = {}
+            self.quality_sampled = {}
+            self.telemetry_ring_dropped = 0
+            self.telemetry_records = {}
+            self.framework_overhead = {}
+            self.gen_scheduler = {}
+            self.gen_admitted = 0
+            self.gen_retired = {}
+            self.gen_steps = {}
+            self.gen_step_seconds = {}
+            self.gen_bubble_s = {}
+            self.gen_kv_block_age = Reservoir()
+            self.gen_served_mfu = None
+            self.gen_tick_errors = 0
+            self.kv_handoffs = {}
+            self.kv_handoff_latency = Reservoir()
+            self.kv_handoff_bytes = 0
+            self.kv_handoff_inflight = 0
+            self.replica_inflight = {}
+            self.replica_picks = {}
+            self.replica_mispicks = 0
+            self.lane_requests = {}
+            self.wire_requests = {}
+            self.wire_bytes_copied = 0
+            self.wire_copies = 0
+            self.wire_coalesced = 0
+            self.fleet_outliers = {}
+            self.fleet_replicas = {}
+            self.failovers = {}
+            self.lease_transitions = {}
+            self.corpus_rows = 0
+            self.corpus_bytes = 0
+            self.corpus_warm_keys = 0
+            self.fleet_burn = {}
+            self.shadow_requests = {}
+            self.shadow_disagreement = Reservoir()
+            self.shadow_latency = Reservoir()
+            self.rollbacks = {}
+            self.rollout_stage = {}
+            self.autopilot_decisions = {}
+            self.autopilot_sheds = {}
+            self.autopilot_mispredict_p50_pct = None
+            self.autopilot_keys = 0
+            self.tenant_requests = {}
+            self.tenant_throttled = {}
+            self.brownout_stage = 0
+            self.brownout_transitions = {}
+            self.brownout_sheds = {}
+            self.postmortem_kept = {}
+            self.postmortem_dropped = 0
+            self.postmortem_pinned = 0
+
+
+RECORDER = FlightRecorder()
+
+
+# ---------------------------------------------------------------------------
+# Request-audit firehose (engine side)
+# ---------------------------------------------------------------------------
+
+
+def _default_audit_dir() -> str:
+    return os.environ.get(
+        "SELDON_TPU_AUDIT_DIR", os.path.expanduser("~/.seldon_tpu_audit")
+    )
+
+
+class AuditLog:
+    """Async bounded-queue JSONL request-audit logger — the Kafka-firehose
+    analogue at the ENGINE edge (the gateway's firehose logs request/
+    response bodies; this logs the SERVING TELEMETRY of each request:
+    puid, graph path, batch rows, latency breakdown, token counts).
+
+    ``record()`` is non-blocking by construction: ``put_nowait`` into a
+    bounded queue; a full queue increments ``dropped`` and the event is
+    gone (matching the reference's fire-and-forget Kafka producer).  The
+    drain task writes JSONL lines off the hot path; it is started lazily
+    on the first ``record()`` made with a running event loop, so no lane
+    needs boot wiring.
+
+    Disabled (``enabled=False``, the default unless ``SELDON_TPU_AUDIT=1``
+    or a path/sink is given) the logger is a null object: ``record()``
+    returns False at the cost of one attribute load."""
+
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        sink: Optional[Callable[[dict], None]] = None,
+        max_queue: int = 4096,
+        enabled: Optional[bool] = None,
+    ):
+        if enabled is None:
+            enabled = (
+                path is not None
+                or sink is not None
+                or os.environ.get("SELDON_TPU_AUDIT", "") not in ("", "0")
+            )
+        self.enabled = bool(enabled)
+        self.path = path or os.path.join(_default_audit_dir(), "audit.jsonl")
+        self.sink = sink
+        self.max_queue = int(max_queue)
+        self.recorded = 0
+        self.dropped = 0
+        self.written = 0
+        self._queue: deque = deque()
+        self._wakeup: Optional[Any] = None  # asyncio.Event, loop-bound
+        self._task = None
+        self._loop = None  # the loop the drain task currently runs on
+
+    def record(self, **event: Any) -> bool:
+        """Enqueue one audit event; returns False when disabled or
+        dropped.  Never blocks, never raises."""
+        if not self.enabled:
+            return False
+        if len(self._queue) >= self.max_queue:
+            self.dropped += 1
+            RECORDER.record_audit("dropped")
+            return False
+        event.setdefault("ts", time.time())
+        self._queue.append(event)
+        self.recorded += 1
+        RECORDER.record_audit("recorded")
+        self._ensure_drain()
+        return True
+
+    def _ensure_drain(self) -> None:
+        import asyncio
+
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return  # no loop: events wait in the bounded deque
+        # the drain task binds to the loop that first recorded — which
+        # may be a SIDE loop (the disagg coordinator's thread records
+        # kv_handoff lines) or one a test already tore down.  Re-home
+        # ONLY when the bound task/loop is actually dead: two LIVE loops
+        # recording concurrently (serving + coordinator) must share one
+        # drain task, not cancel-and-recreate it per alternation
+        if (self._task is None or self._task.done()
+                or self._loop is None or self._loop.is_closed()):
+            self._wakeup = asyncio.Event()
+            self._loop = loop
+            self._task = loop.create_task(self._drain())
+        if self._wakeup is not None:
+            if self._loop is loop:
+                self._wakeup.set()
+            else:
+                # asyncio primitives are not thread-safe: wake the
+                # owning loop's drain from ITS thread
+                try:
+                    self._loop.call_soon_threadsafe(self._wakeup.set)
+                except RuntimeError:
+                    pass  # owner died between the check and the wake;
+                    # the next record re-homes the drain
+
+    async def _drain(self) -> None:
+        import asyncio
+
+        while True:
+            if not self._queue:
+                self._wakeup.clear()
+                await self._wakeup.wait()
+            batch: List[dict] = []
+            while self._queue and len(batch) < 256:
+                batch.append(self._queue.popleft())
+            if not batch:
+                continue
+            try:
+                if self.sink is not None:
+                    for ev in batch:
+                        self.sink(ev)
+                else:
+                    # one writev-sized append per batch, built off-queue
+                    lines = "".join(
+                        json.dumps(ev, separators=(",", ":"), default=str)
+                        + "\n"
+                        for ev in batch
+                    )
+                    await asyncio.get_running_loop().run_in_executor(
+                        None, self._append, lines
+                    )
+                self.written += len(batch)
+            except Exception:
+                self.dropped += len(batch)
+                RECORDER.record_audit("write_error")
+
+    def _append(self, lines: str) -> None:
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        with open(self.path, "a") as f:
+            f.write(lines)
+
+    async def flush(self, timeout_s: float = 5.0) -> None:
+        """Wait until everything recorded so far is written (tests and
+        graceful shutdown; serving never calls this)."""
+        import asyncio
+
+        self._ensure_drain()
+        deadline = time.monotonic() + timeout_s
+        while self._queue and time.monotonic() < deadline:
+            await asyncio.sleep(0.005)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "enabled": self.enabled,
+            "path": None if self.sink is not None else self.path,
+            "queued": len(self._queue),
+            "max_queue": self.max_queue,
+            "recorded": self.recorded,
+            "written": self.written,
+            "dropped": self.dropped,
+        }
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            await self.flush()
+            self._task.cancel()
+            self._task = None

@@ -1,16 +1,19 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py or the turns scripts (paged_decode_turns.py, mlp_turns.py,
 paged_f32_turns.py, int8_decode_turns.py, kv_write_turns.py), imports JAX or anything of
-the JAX package, nor aiohttp, grpc, google.protobuf or ml_dtypes (its
-lanes are stdlib: the HTTP client and servers, HTTP/2 and HPACK, the
-protobuf codec, bf16 by bit pattern), and the port
+the JAX package, nor aiohttp, grpc, google.protobuf, ml_dtypes or
+prometheus_client (its lanes are stdlib: the HTTP client and servers,
+HTTP/2 and HPACK, the protobuf codec, bf16 by bit pattern, the
+Prometheus text and OpenMetrics writer), and the port
 serves the MNIST and generator examples (MNIST also over the binary
 tensor wire and over gRPC) (the generator through the
 continuous lane, runtime/genserver.py, greedy and sampled), the iris
 example (its rows from the bundled csv) and the epsilon-greedy router
 example with a feedback, one host-mode request through a REST node served
 by the port's unit microservice, streams the generator's tokens, takes a
-training step and round-trips a checkpoint with both blocked."""
+training step, round-trips a checkpoint, and over its REST lane scrapes
+``/prometheus`` and reads a request's ``/trace`` with all of them
+blocked."""
 
 import ast
 import os
@@ -22,7 +25,7 @@ ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "seldon_core_tpu")
 # the port's lanes need none of these (its REST and gRPC clients and
 # servers, its protobuf codec and its bf16 frames are stdlib and numpy)
-SERVING_BLOCKED = ("aiohttp", "grpc", "google", "ml_dtypes")
+SERVING_BLOCKED = ("aiohttp", "grpc", "google", "ml_dtypes", "prometheus_client")
 
 
 def _blocked(name: str) -> bool:
@@ -44,7 +47,9 @@ def _port_files():
             "graph/fuse.py", "runtime/client.py", "runtime/resilience.py",
             "runtime/microservice.py", "native/protowire.py", "native/hpackcodec.py",
             "runtime/wire.py", "protoconv.py", "runtime/grpcfast.py",
-            "runtime/udsrelay.py"} <= names
+            "runtime/udsrelay.py", "utils/telemetry.py", "utils/promtext.py",
+            "utils/metrics.py", "utils/tracing.py", "utils/perf.py", "utils/hotrecord.py",
+            "utils/genperf.py", "utils/chips.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py")]
@@ -67,7 +72,8 @@ def _imports(tree):
 
 
 def test_blocker_names():
-    assert {"aiohttp", "grpc", "google", "ml_dtypes"} <= set(SERVING_BLOCKED)
+    assert {"aiohttp", "grpc", "google", "ml_dtypes", "prometheus_client"} <= set(
+        SERVING_BLOCKED)
     assert _blocked("jax") and _blocked("jax.numpy")
     assert _blocked("seldon_core_tpu") and _blocked("seldon_core_tpu.graph.spec")
     assert not _blocked("seldon_core_tpu_torch") and not _blocked("jaxlib_free")
@@ -90,7 +96,7 @@ class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if any(name == b or name.startswith(b + ".")
                for b in ("jax", "seldon_core_tpu", "aiohttp", "grpc", "google.protobuf",
-                         "ml_dtypes")):
+                         "ml_dtypes", "prometheus_client")):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -203,15 +209,48 @@ async def host_mode():
     return [host.mode, status, len(json.loads(text)["data"]["ndarray"][0])]
 
 remote = asyncio.run(host_mode())
+import urllib.request
+from seldon_core_tpu_torch.runtime.rest import serve_fast
+from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
+from seldon_core_tpu_torch.utils.tracing import TRACER
+
+async def observed():
+    TRACER.enable()
+    mnist = EngineService(load_deployment_from_env("examples/mnist_deployment.json"),
+                          device="cpu")
+    server = await serve_fast(mnist, "127.0.0.1", 0)
+    loop = asyncio.get_running_loop()
+
+    def get(path, body=None):
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{server.port}{path}", data=body), timeout=60) as r:
+            return r.status, r.read().decode()
+
+    try:
+        await loop.run_in_executor(None, get, "/api/v0.1/predictions", json.dumps(
+            {"meta": {"puid": "iso"}, "data": {"ndarray": [[0.5] * 784]}}).encode())
+        prom_status, prom = await loop.run_in_executor(None, get, "/prometheus")
+        trace_status, trace = await loop.run_in_executor(None, get, "/trace?puid=iso")
+    finally:
+        await server.stop()
+        mnist.close()
+    families = {line.split()[2] for line in prom.splitlines() if line.startswith("# TYPE ")}
+    want = {n[:-6] + "_total" if n.endswith("_total") else n
+            for n in MetricsRegistry.family_names()}
+    return [prom_status, want <= families, trace_status,
+            sorted({s["name"] for s in json.loads(trace)["spans"]})]
+
+obs = asyncio.run(observed())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc",
-                                       "ml_dtypes") or m.startswith("google.protobuf"))
+                                       "ml_dtypes", "prometheus_client")
+                or m.startswith("google.protobuf"))
 print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarray"][0]),
                   "gen_status": gen_status, "gen_shape": [len(gen_rows), len(gen_rows[0])],
                   "lane": lane, "sampled": sampled,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "new_examples": new_examples, "remote": remote,
-                  "lanes": lanes, "leaked": leaked}))
+                  "lanes": lanes, "obs": obs, "leaked": leaked}))
 """
 
 
@@ -226,4 +265,5 @@ def test_port_serves_with_jax_blocked():
         '{"status": 200, "shape": 10, "gen_status": 200, "gen_shape": [1, 16], '
         '"lane": ["genserver", 2], "sampled": [200, 16, 1], "streamed": true, "trained": true, '
         '"new_examples": [200, ["setosa", "versicolor", "virginica"], 200, true, 1.0], '
-        '"remote": ["host", 200, 10], "lanes": [200, 200, true, true], "leaked": []}')
+        '"remote": ["host", 200, 10], "lanes": [200, 200, true, true], '
+        '"obs": [200, true, 200, ["batch_queue", "dispatch", "request"]], "leaked": []}')

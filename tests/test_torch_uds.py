@@ -190,7 +190,9 @@ def test_relay_ops_on_the_port_server(sock_dir):
                           wire.decode_frame(body).array.astype(np.float64))
     assert out["feedback"][1] == 200
     assert out["kv"][1] == 503 and b"[6]" in out["kv"][0]
-    assert out["trace"][1] == 404 and out["unknown"][1] == 400 and out["torn"][1] == 400
+    # OP_TRACE answers the engine's local trace document
+    assert out["trace"][1] == 200 and "spans" in json.loads(out["trace"][0])
+    assert out["unknown"][1] == 400 and out["torn"][1] == 400
     # the sidecar's spent deadline: a 504 frame before any dispatch
     assert out["late"][1] == 504 and wire.decode_frame(out["late"][0]).status == 504
     assert out["too_large"] == 413 and out["closed"] and not os.path.exists(path)
