@@ -321,6 +321,32 @@ it serves the static lane it measured before that lane's switch:
               share in (0, 1], flash_decode_paged's launches 12 x the ticks'
               decode steps, kv_write_paged's 12 x the prefill ticks; a
               {"new_paths": {"observability": ...}} line
+ 10p. quality, postmortems and costs (after 10o, engines of its own):
+              MNIST with quality on at sample 1 and an SLO p99 target: 256
+              reference rows as 64-row requests from a seeded normal, 8
+              such requests, then 8 shifted (x1.5 + 0.3): /quality's window
+              frozen, no significant drift after the first 8 (psi_max under
+              0.25, psi_mean under 0.1), psi_mean up by half after the
+              shift; the live x counts equal _summarize_np's recomputed
+              here, and the 64-row batches went through the device
+              summarizer (its row counter, errors 0); /prometheus's drift
+              and burn gauges non-zero; POST /quality/reference resets;
+              fused-MLP launches == dispatches.  epsilon_greedy with 12
+              feedbacks: /quality's and /stats' routers rows from the
+              card's router state, the mean reward.  outlier_pipeline: the
+              outlier block counts the rows scored.  The flagship generator
+              on the continuous lane: 8 1-row 512-token requests (acme and
+              globex) and one 32-row (globex): /costs' identity within
+              1e-6 s, accounted_fraction 1.0, both tenants with prefill and
+              decode device-seconds and KV-block-seconds, flash_decode_paged
+              12 x the decode steps, kv_write_paged 12 x the prefill ticks.
+              Tracing at sample 0, a postmortem SLO below the 32-row
+              request's wall and a pool that preempts: /postmortems keeps
+              that request (reasons slo and preemption, a guilty phase, its
+              gen_sequence slice and /costs row; ?puid= the exemplar).  The
+              1-row MNIST p50 with quality, the ledger and postmortems on
+              and off in turns, beside /overhead's fold costs; a
+              {"new_paths": {"quality_costs": ...}} line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -1164,9 +1190,9 @@ def generation_phases(torch, dev, smi) -> list:
     dispatches = []
     batched = engine._batched_predict_sync
 
-    def counted(stacked):  # every stacked dispatch's shape, in order
+    def counted(stacked, *rest):  # every stacked dispatch's shape, in order
         dispatches.append(tuple(stacked.shape))
-        return batched(stacked)
+        return batched(stacked, *rest)
 
     engine._batched_predict_sync = counted
     server = ServerThread(engine)
@@ -6190,6 +6216,511 @@ def observability_phase(torch, dev, smi) -> dict:
     return out
 
 
+QC_BATCH = 64              # rows a request in the drift part
+QC_REF_BATCHES = 4         # 256 reference rows: SELDON_TPU_QUALITY_REF_ROWS' default
+QC_LIVE_BATCHES = 8        # requests from the reference's distribution, then shifted
+QC_SLO_P99_MS = 1.0        # the latency objective: a 64-row request's wall is over it
+QC_NO_DRIFT_PSI_MAX = 0.25     # the classic "significant shift" PSI, per feature
+QC_NO_DRIFT_PSI_MEAN = 0.1     # the classic "no shift" PSI, over the 784 features
+QC_SHIFT_RATIO = 1.5           # psi_mean after the shift against before it, at least
+QC_ROUTER_REQUESTS = 12
+QC_OUTLIER_REQUESTS = 6
+QC_IDENTITY_S = 1e-6       # /costs' accounting identity, seconds
+QC_PM_POOL_BLOCKS = 640    # the 32-row 512-token request needs up to 1,152 blocks of 16
+QC_PM_SLO_SHARE = 0.5      # the postmortem SLO budget: this share of the 32-row wall
+
+
+def request_headers(method: str, url: str, body, headers: dict):
+    """``request`` with extra headers (a tenant)."""
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(), method=method,
+        headers={"Content-Type": "application/json", **headers})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def qc_switches(on: bool) -> None:
+    """The [4b] consumers on or off, what SELDON_TPU_QUALITY,
+    SELDON_TPU_COSTLEDGER and SELDON_TPU_POSTMORTEM set at import, set here
+    on the live singletons (the ledger's switch is read per flush)."""
+    from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM
+    from seldon_core_tpu_torch.utils.quality import QUALITY
+    from seldon_core_tpu_torch.utils.tracing import TRACER
+
+    QUALITY.enabled = on
+    QUALITY.sample = 1.0
+    os.environ["SELDON_TPU_COSTLEDGER"] = "1" if on else "0"
+    POSTMORTEM.enabled = on
+    TRACER.pm_hook = POSTMORTEM.offer if on else None
+
+
+class FoldWalls:
+    """The wall of each quality fold on the drainer thread (the window's
+    state and the batch's rows beside it), while the block runs: what
+    ``/overhead``'s single quality reservoir mixes together."""
+
+    def __enter__(self):
+        from seldon_core_tpu_torch.utils.quality import QUALITY
+
+        self.rows, self._q = [], QUALITY
+        orig = self._orig = QUALITY._observe
+
+        def timed(node, X, Y, real_rows, ready=None):
+            ent = QUALITY._nodes.get(node)
+            frozen = bool(ent is not None and ent.frozen)
+            t0 = time.perf_counter()
+            try:
+                return orig(node, X, Y, real_rows, ready)
+            finally:
+                self.rows.append((frozen, int(np.shape(X)[0]), time.perf_counter() - t0))
+
+        QUALITY._observe = timed
+        return self
+
+    def __exit__(self, *exc):
+        from seldon_core_tpu_torch.utils.hotrecord import SPINE
+
+        SPINE.drain()
+        self._q._observe = self._orig
+
+    def p50_us(self, frozen: bool, rows: int) -> dict:
+        w = np.asarray([r[2] for r in self.rows if r[0] == frozen and r[1] == rows]) * 1e6
+        return {"folds": len(w), "p50_us": round(float(np.median(w)), 1) if len(w) else None,
+                "p90_us": round(float(np.percentile(w, 90)), 1) if len(w) else None}
+
+
+def qc_node_row(doc: dict, node: str) -> dict:
+    rows = [r for r in doc["nodes"] if r["node"] == node]
+    if len(rows) != 1:
+        raise AssertionError(f"[quality] /quality has no single {node!r} row: {doc['nodes']}")
+    return rows[0]
+
+
+def qc_drift(torch, dev, smi, counted: bool) -> dict:
+    """Part 1: MNIST's drift window, the device summarizer and the SLO
+    burn, over REST."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+    from seldon_core_tpu_torch.utils.quality import QUALITY, _summarize_np
+
+    SPINE.drain()
+    QUALITY.reset()
+    QUALITY.ref_target = QC_REF_BATCHES * QC_BATCH
+    QUALITY.slo.p99_ms = QC_SLO_P99_MS  # SELDON_TPU_SLO_P99_MS, read at import
+    engine = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    server = ServerThread(engine)
+    port = server.start()
+    rng = np.random.default_rng(SEED + 91)
+    ref = [rng.normal(size=(QC_BATCH, 784)) for _ in range(QC_REF_BATCHES)]
+    same = [rng.normal(size=(QC_BATCH, 784)) for _ in range(QC_LIVE_BATCHES)]
+    shifted = [rng.normal(size=(QC_BATCH, 784)) * 1.5 + 0.3 for _ in range(QC_LIVE_BATCHES)]
+    try:
+        fused_mlp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with FoldWalls() as folds:
+            for x in ref + same:
+                keepalive_walls(port, ndarray(x), 1)
+            after_same = get_json(port, "/quality")
+            for x in shifted:
+                keepalive_walls(port, ndarray(x), 1)
+        wall = time.perf_counter() - t0
+        device_fold = folds.p50_us(True, QC_BATCH)
+        after_shift = get_json(port, "/quality")
+        launches = fused_mlp.LAUNCHES
+        _, samples = parse_prometheus(request("GET", f"http://127.0.0.1:{port}/prometheus")[1]
+                                      .decode())
+        drift_gauge = sample_sum(samples, "seldon_tpu_drift_score", node="mnist", method="psi")
+        burn_gauge = sample_sum(samples, "seldon_tpu_slo_burn_rate", window="5m")
+        ent = QUALITY._nodes["mnist"]
+        zeros = np.zeros((QC_BATCH, 10))
+        want = sum(_summarize_np(x, zeros, ent.x_thr, ent.y_thr, QC_BATCH)[0]
+                   for x in same + shifted)
+        qs = np.arange(1, QUALITY.n_bins) / QUALITY.n_bins
+        thr = np.quantile(np.concatenate(ref), qs, axis=0).T.astype(np.float32)
+        counts_equal = bool(np.array_equal(ent.live_x_counts, want)
+                            and np.array_equal(ent.x_thr, thr))
+        rows_by_path = dict(QUALITY.summarizer_rows)
+        errors = QUALITY.errors
+        reset = get_json(port, "/quality/reference?action=reset", "POST", {})
+        after_reset = qc_node_row(get_json(port, "/quality"), "mnist")
+        stats = get_json(port, "/stats")
+    finally:
+        server.stop()
+    r1, r2 = qc_node_row(after_same, "mnist"), qc_node_row(after_shift, "mnist")
+    d1, d2 = r1["drift"], r2["drift"]
+    sent = QC_REF_BATCHES + 2 * QC_LIVE_BATCHES
+    checks = {
+        "frozen window": (r1["status"] == "live" and r1["ref_rows"] == QC_REF_BATCHES * QC_BATCH
+                          and r2["live_rows"] == 2 * QC_LIVE_BATCHES * QC_BATCH),
+        "no drift before the shift": (d1["psi_max"] < QC_NO_DRIFT_PSI_MAX
+                                      and d1["psi_mean"] < QC_NO_DRIFT_PSI_MEAN),
+        "drift after the shift": (d2["psi_mean"] > QC_SHIFT_RATIO * d1["psi_mean"]
+                                  and d2["psi_max"] > d1["psi_max"]
+                                  and d2["ks_max"] > d1["ks_max"]),
+        "x counts == _summarize_np's": counts_equal,
+        "64-row batches on the device summarizer": (
+            rows_by_path == {"torch": 2 * QC_LIVE_BATCHES * QC_BATCH, "numpy": 0}
+            and errors == 0),
+        "gauges non-zero": drift_gauge > 0 and burn_gauge > 0,
+        "reset": (reset["nodes"] == {"mnist": "reset"}
+                  and after_reset["status"] == "collecting_reference"
+                  and after_reset["ref_rows"] == 0),
+        "stats quality": stats["quality"]["nodes"]["mnist"]["status"] == "collecting_reference",
+        "launches == dispatches": (launches == sent) if counted else True,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[quality] MNIST drift checks failed: {checks}; after the first "
+                             f"{QC_LIVE_BATCHES} {r1}; after the shift {r2}; summarizer rows "
+                             f"{rows_by_path}, errors {errors}; gauges drift {drift_gauge} burn "
+                             f"{burn_gauge}; reset {reset} -> {after_reset}; launches {launches}")
+    null_psi = (QUALITY.n_bins - 1) * (1 / (QC_REF_BATCHES * QC_BATCH)
+                                       + 1 / (QC_LIVE_BATCHES * QC_BATCH))
+    log(f"[quality] MNIST over REST, quality on at sample 1: {QC_REF_BATCHES} x {QC_BATCH} "
+        f"reference rows (seeded normal) froze the window; after {QC_LIVE_BATCHES} more such "
+        f"requests psi_max {d1['psi_max']} psi_mean {d1['psi_mean']} ks_max {d1['ks_max']} "
+        f"prediction_psi {d1['prediction_psi']} (no shift: the null's expected psi_mean "
+        f"{null_psi:.4f}); after {QC_LIVE_BATCHES} shifted (x1.5 + 0.3) psi_max {d2['psi_max']} "
+        f"psi_mean {d2['psi_mean']} ks_max {d2['ks_max']} prediction_psi "
+        f"{d2['prediction_psi']}; the live x counts equal _summarize_np's on the same rows, "
+        f"the device summarizer served {rows_by_path['torch']} rows (numpy {rows_by_path['numpy']}), "
+        f"errors {errors}; a {QC_BATCH}-row live fold (the device summarizer, wall on the "
+        f"drainer thread) p50 {device_fold['p50_us']} us, p90 {device_fold['p90_us']}; "
+        f"/prometheus drift {drift_gauge:.6f} burn(5m) {burn_gauge} at a "
+        f"{QC_SLO_P99_MS} ms p99 target; reset -> {after_reset['status']}; {launches} fused-MLP "
+        f"launches for {sent} dispatches; {wall:.3f} s ({smi})")
+    return {"after_same": d1, "after_shift": d2, "null_psi_mean": null_psi,
+            "summarizer_rows": rows_by_path, "device_fold_us": device_fold, "drift_gauge": drift_gauge, "burn_5m": burn_gauge,
+            "launches": launches, "requests": sent}
+
+
+def qc_router(torch, dev, smi, counted: bool) -> dict:
+    """Part 2: epsilon_greedy with feedback, the routers rows from the
+    card's router state."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+    from seldon_core_tpu_torch.utils.quality import QUALITY
+
+    SPINE.drain()
+    QUALITY.reset()
+    engine = mode_engine(torch, dev, example_doc("epsilon_greedy"), continuous=False)
+    server = ServerThread(engine)
+    port = server.start()
+    base = f"http://127.0.0.1:{port}/api/v0.1"
+    rng = np.random.default_rng(SEED + 92)
+    rewards, rows = [], 0
+    try:
+        fused_mlp.LAUNCHES = 0
+        for i in range(QC_ROUTER_REQUESTS):
+            x = rng.random((1 + i % 4, 784))
+            st, raw = request("POST", f"{base}/predictions", ndarray(x))
+            reward = round(float(rng.random()), 3)
+            fst, _ = request("POST", f"{base}/feedback",
+                             {"request": ndarray(x), "response": json.loads(raw),
+                              "reward": reward})
+            if st != 200 or fst != 200:
+                raise AssertionError(f"[quality] router request {i}: HTTP {st}/{fst}")
+            rewards.append(reward)
+            rows += len(x)
+        launches = fused_mlp.LAUNCHES
+        qd = get_json(port, "/quality")
+        stats = get_json(port, "/stats")
+    finally:
+        server.stop()
+    state = engine.states()["eg-router"]
+    tries = state["tries"].cpu().numpy().tolist()
+    routers = qd["routers"]
+    row = routers.get("eg-router", {})
+    fb = qd["feedback"].get(engine.predictor.name, {})
+    checks = {
+        "one row, both branches": list(routers) == ["eg-router"] and len(row["branches"]) == 2,
+        "state on the card": state["tries"].device.type == dev.type,
+        "tries == the router's": [b["tries"] for b in row["branches"]] == tries
+        and row["total_tries"] == rows,
+        "/stats routers == /quality's": stats["routers"] == routers,
+        "mean reward": (fb.get("count") == QC_ROUTER_REQUESTS
+                        and fb.get("mean_reward") == round(float(np.mean(rewards)), 6)),
+        "a launch a request": (launches == QC_ROUTER_REQUESTS) if counted else True,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[quality] router checks failed: {checks}; routers {routers}, "
+                             f"state tries {tries}, feedback {fb}, rewards {rewards}")
+    log(f"[quality] epsilon_greedy: {QC_ROUTER_REQUESTS} requests ({rows} rows) and feedbacks; "
+        f"routers row read from the router's {state['tries'].device} state: tries {tries}, best "
+        f"branch {row['best_branch']}, regret {row['total_regret']}; /stats' routers the same; "
+        f"feedback mean reward {fb['mean_reward']} = the mean sent; {launches} fused-MLP "
+        f"launches ({smi})")
+    return {"routers": routers, "feedback": fb, "launches": launches}
+
+
+def qc_outlier(torch, dev, smi, counted: bool) -> dict:
+    """Part 3: outlier_pipeline, the outlier block counting the rows
+    scored."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+    from seldon_core_tpu_torch.utils.quality import QUALITY
+
+    SPINE.drain()
+    QUALITY.reset()
+    engine = mode_engine(torch, dev, example_doc("outlier_pipeline"), continuous=False)
+    server = ServerThread(engine)
+    port = server.start()
+    rng = np.random.default_rng(SEED + 93)
+    rows = 0
+    try:
+        fused_mlp.LAUNCHES = 0
+        for i in range(QC_OUTLIER_REQUESTS):
+            x = rng.random((3 + i, 784))
+            st, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                              ndarray(x))
+            check_answer(st, raw, len(x), "ndarray")
+            rows += len(x)
+        launches = fused_mlp.LAUNCHES
+        block = get_json(port, "/quality")["outliers"]
+    finally:
+        server.stop()
+    if block["total"] != rows or block["scores"]["count"] != rows or (
+            counted and launches != QC_OUTLIER_REQUESTS):
+        raise AssertionError(f"[quality] outlier block {block} for {rows} rows scored, "
+                             f"{launches} launches")
+    log(f"[quality] outlier_pipeline: {QC_OUTLIER_REQUESTS} requests, {rows} rows scored, the "
+        f"outlier block counts {block['total']} (score p50 {block['scores']['p50']:.3f}, max "
+        f"{block['scores']['max']:.3f}); {launches} fused-MLP launches ({smi})")
+    return {"rows": rows, "outliers": block, "launches": launches}
+
+
+def qc_generator(torch, dev, smi, counted: bool, env=None, tenants=("acme", "globex"),
+                 puid: str = "") -> tuple:
+    """The flagship generator on the continuous lane: a warm-up request,
+    then (the ledger and the postmortems reset) CONT_BURST 1-row
+    GEN_S-token requests CONT_GAP_S apart, the tenants in turn, then one
+    GEN_B-row request as the last tenant; returns the engine's /costs and
+    /postmortems documents, the launches, the scheduler's deltas and the
+    walls.  Without the warm-up the fresh engine's first prefill tick (the
+    pool's allocation, the first calls of each op) is billed to whoever
+    sends first."""
+    from seldon_core_tpu_torch.ops import flash_decode as fd, kv_write as kw
+    from seldon_core_tpu_torch.utils.costledger import LEDGER
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+    from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM
+
+    engine = mode_engine(torch, dev, gen_deployment(), continuous=True, env=env)
+    g = engine.genserver
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    rng = np.random.default_rng(SEED + 94)
+    vocab = GEN_DIMS["vocab"]
+    singles = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(CONT_BURST)]
+    batch = rng.integers(0, vocab, size=(GEN_B, GEN_S))
+
+    def send(rows, tenant, req_puid=""):
+        body = ndarray(rows)
+        if req_puid:
+            body["meta"] = {"puid": req_puid}
+        t = time.perf_counter()
+        st, raw = request_headers("POST", url, body, {"Seldon-Tenant": tenant})
+        return st, raw, time.perf_counter() - t
+
+    try:
+        check_tokens(*send(singles[0], "warmup")[:2], singles[0], "ndarray",
+                     new=GEN_DIMS["max_new_tokens"], vocab=vocab)
+        SPINE.drain()  # the warm-up's ticks and spans fold before the resets
+        LEDGER.reset()
+        POSTMORTEM.reset()
+        snap0 = g.snapshot()
+        fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
+        with ThreadPoolExecutor(CONT_BURST + 1) as pool:
+            futs = []
+            for i, p in enumerate(singles):
+                futs.append(pool.submit(send, p, tenants[i % len(tenants)]))
+                time.sleep(CONT_GAP_S)
+            futs.append(pool.submit(send, batch, tenants[-1], puid))
+            answers = [f.result() for f in futs]
+        paged, kvp = fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES
+        for (status, raw, _), p in zip(answers, singles + [batch]):
+            check_tokens(status, raw, p, "ndarray", new=GEN_DIMS["max_new_tokens"],
+                         vocab=vocab)
+        snap = g.snapshot()
+        costs = get_json(port, "/costs")
+        pms = get_json(port, f"/postmortems?puid={puid}") if puid else None
+        pm_list = get_json(port, "/postmortems") if puid else None
+    finally:
+        server.stop()
+    steps = snap["decode_steps_total"] - snap0["decode_steps_total"]
+    prefill = snap["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+    preempted = snap["preempted_total"] - snap0["preempted_total"]
+    n_layers = GEN_DIMS["n_layers"]
+    if counted and (paged != n_layers * steps or kvp != n_layers * prefill or steps == 0):
+        raise AssertionError(f"[costs] flash_decode_paged {paged} launches for {steps} decode "
+                             f"steps, kv_write_paged {kvp} for {prefill} prefill ticks")
+    return (costs, (pms, pm_list), {"flash_decode_paged": paged, "kv_write_paged": kvp},
+            {"decode_steps": steps, "prefill_ticks": prefill, "preempted": preempted},
+            [a[2] for a in answers])
+
+
+def qc_costs(torch, dev, smi, counted: bool) -> dict:
+    """Part 4: /costs bills both tenants through the continuous lane."""
+    from seldon_core_tpu_torch.utils.costledger import LEDGER
+
+    costs, _, launches, sched, walls = qc_generator(torch, dev, smi, counted)
+    gap = abs(sum(LEDGER.device_s.values()) + sum(LEDGER.pad_tax_s.values()) + LEDGER.idle_s
+              + LEDGER.unattributed_s - LEDGER.wall_s)
+    acct = costs["accounting"]
+    doc_gap = abs(acct["attributed_s"] + acct["pad_tax_s"] + acct["idle_s"]
+                  + acct["unattributed_s"] - acct["device_wall_s"])
+    rows = {r["tenant"]: r for r in costs["tenants"]}
+    checks = {
+        "identity": gap <= QC_IDENTITY_S,
+        "accounted_fraction 1.0": acct["accounted_fraction"] == 1.0
+        and acct["unattributed_s"] == 0.0,
+        "both tenants billed": set(rows) == {"acme", "globex"} and all(
+            r["device_s"].get("prefill", 0) > 0 and r["device_s"].get("decode", 0) > 0
+            and r["kv_block_s"] > 0 for r in rows.values()),
+        "devices": costs["capacity"]["chips"] == (torch.cuda.device_count()
+                                                  if dev.type == "cuda" else 1),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[costs] checks failed: {checks}; identity gap {gap} s (document "
+                             f"{doc_gap}); {costs}")
+    log(f"[costs] flagship generator, continuous lane: {CONT_BURST} 1-row {GEN_S}-token "
+        f"requests (acme, globex in turn) and one {GEN_B}-row (globex); /costs device wall "
+        f"{acct['device_wall_s']} s = attributed {acct['attributed_s']} + pad tax "
+        f"{acct['pad_tax_s']} + idle {acct['idle_s']} + unattributed {acct['unattributed_s']} "
+        f"(identity gap {gap:.3e} s in the ledger, {doc_gap:.3e} s in the rounded document), "
+        f"accounted_fraction {acct['accounted_fraction']}, {acct['folds']} folds; "
+        + "; ".join(f"{t}: device_s {r['device_s']} pad {r['pad_tax_s']} kv_block_s "
+                    f"{r['kv_block_s']} tokens {r['served_tokens']}" for t, r in rows.items())
+        + f"; utilization {costs['capacity']['utilization']}; flash_decode_paged "
+        f"{launches['flash_decode_paged']} = {GEN_DIMS['n_layers']} x {sched['decode_steps']} "
+        f"decode steps, kv_write_paged {launches['kv_write_paged']} = {GEN_DIMS['n_layers']} x "
+        f"{sched['prefill_ticks']} prefill ticks; the {GEN_B}-row request's wall "
+        f"{walls[-1]:.3f} s ({smi})")
+    return {"accounting": acct, "tenants": rows, "capacity": costs["capacity"],
+            "identity_gap_s": gap, "launches": launches, "scheduler": sched,
+            "walls_s": walls}
+
+
+def qc_postmortem(torch, dev, smi, counted: bool, batch_wall_s: float) -> dict:
+    """Part 5: tracing at sample 0, a postmortem SLO budget below the
+    GEN_B-row request's wall and a pool small enough that it preempts: the
+    request is kept though the head sampler dropped it."""
+    from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM
+    from seldon_core_tpu_torch.utils.tracing import TRACER
+
+    TRACER.enabled, TRACER.sample = True, 0.0
+    budget_ms = QC_PM_SLO_SHARE * batch_wall_s * 1e3
+    POSTMORTEM.slo_ms = budget_ms  # SELDON_TPU_POSTMORTEM_SLO_MS, read at import
+    puid = "qc-pm-32"
+    try:
+        _, (pms, pm_list), launches, sched, walls = qc_generator(
+            torch, dev, smi, counted, env={"SELDON_TPU_GEN_POOL_BLOCKS": str(QC_PM_POOL_BLOCKS)},
+            tenants=("globex",), puid=puid)
+        dropped = TRACER.trace(puid)
+    finally:
+        TRACER.sample = 1.0
+    doc = pms.get("postmortem") or {}
+    explain = doc.get("explain") or {}
+    ledger = explain.get("gen_ledger") or []
+    preempts = sum(1 for e in ledger for ev in e["events"] if ev["name"] == "preempt")
+    kept = {s["puid"]: s for s in pm_list["kept"]}
+    checks = {
+        "sampled out at the head": dropped == [],
+        "kept": pms["found"] and puid in kept and walls[-1] * 1e3 > budget_ms,
+        "reasons": {"slo", "preemption"} <= set(doc.get("reasons", ())),
+        "preempted": sched["preempted"] > 0 and preempts > 0,
+        "guilty phase": explain.get("guilty_phase") is not None,
+        "gen_seq slice": len(ledger) == GEN_B and all(e["name"] == "gen_sequence"
+                                                      for e in ledger),
+        "cost row": (explain.get("cost_row") or {}).get("tenant") == "globex",
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[postmortem] checks failed: {checks}; summary {kept.get(puid)}; "
+                             f"reasons {doc.get('reasons')}; explain "
+                             f"{ {k: v for k, v in explain.items() if k != 'gen_ledger'} }; "
+                             f"{len(ledger)} gen_seq spans; scheduler {sched}; walls {walls}")
+    log(f"[postmortem] tracing at sample 0, SELDON_TPU_POSTMORTEM_SLO_MS {budget_ms:.1f} "
+        f"({QC_PM_SLO_SHARE} x the {GEN_B}-row wall of part 4), a pool of {QC_PM_POOL_BLOCKS} "
+        f"blocks: the {GEN_B}-row request ({walls[-1]:.3f} s, {sched['preempted']} preemptions) "
+        f"is absent from the trace ring and kept: reasons {doc['reasons']}, guilty phase "
+        f"{explain['guilty_phase']} (+{explain['excess_ms']} ms; phases {doc['phases']}), "
+        f"{len(ledger)} gen_sequence spans ({preempts} preempt events), cost row "
+        f"{explain['cost_row']['device_s']}; {doc['pinned_spans']} spans pinned; counters "
+        f"{pm_list['counters']}; capture p50 {pm_list['capture_overhead_ms']} ms ({smi})")
+    return {"reasons": doc["reasons"], "guilty_phase": explain["guilty_phase"],
+            "excess_ms": explain["excess_ms"], "gen_seq_spans": len(ledger),
+            "preempt_events": preempts, "counters": pm_list["counters"],
+            "capture_overhead_ms": pm_list["capture_overhead_ms"], "launches": launches,
+            "scheduler": sched, "budget_ms": budget_ms, "wall_s": walls[-1]}
+
+
+def qc_overhead(torch, dev, smi, counted: bool) -> dict:
+    """Part 6: the 1-row MNIST p50 with quality, the cost ledger and
+    postmortem capture on and off, in turns (tracing on at sample 1 in
+    both), beside /overhead's fold costs."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+
+    engine = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    server = ServerThread(engine)
+    port = server.start()
+    x1 = np.random.default_rng(SEED + 95).random((1, 784))
+    try:
+        keepalive_walls(port, ndarray(x1), 5)
+        fused_mlp.LAUNCHES = 0
+        p50 = {"on": [], "off": []}
+        with FoldWalls() as folds:
+            for turn in range(OBS_TURNS):
+                for mode in (("on", "off") if turn % 2 == 0 else ("off", "on")):
+                    qc_switches(mode == "on")
+                    p50[mode].append(keepalive_p50_ms(port, ndarray(x1), OBS_ONE_ROW))
+        qc_switches(True)
+        one_row = {"collecting": folds.p50_us(False, 1), "live": folds.p50_us(True, 1)}
+        launches = fused_mlp.LAUNCHES
+        over = get_json(port, "/overhead")
+    finally:
+        server.stop()
+    fold = over["off_path_fold"]
+    log(f"[quality] MNIST 1-row p50 over {OBS_ONE_ROW} keepalive requests, ABBA, tracing on at "
+        f"sample 1: quality + costs + postmortems on {[round(v, 4) for v in p50['on']]} ms, off "
+        f"{[round(v, 4) for v in p50['off']]} ms; /overhead off-path fold p50 quality "
+        f"{fold['quality']['p50_us']} us, ledger {fold['ledger']['p50_us']} us, tracer "
+        f"{fold['tracer']['p50_us']} us; a 1-row quality fold's wall while the window collects "
+        f"p50 {one_row['collecting']['p50_us']} us ({one_row['collecting']['folds']} folds), live "
+        f"(the numpy twin) {one_row['live']['p50_us']} us ({one_row['live']['folds']}); "
+        f"framework_p50_ms {over['framework_p50_ms']} ({smi})")
+    return {"p50_ms_on": p50["on"], "p50_ms_off": p50["off"], "fold_us": fold,
+            "one_row_fold_us": one_row,
+            "framework_p50_ms": over["framework_p50_ms"], "launches": launches}
+
+
+def quality_costs_phase(torch, dev, smi) -> dict:
+    """Phase 10p: quality, postmortems and the cost ledger on the card, in
+    engines of their own, after 10o."""
+    t0 = time.perf_counter()
+    counted = dev.type == "cuda"  # the plain versions on the CPU count nothing
+    observatories(True)
+    qc_switches(True)
+    drift = qc_drift(torch, dev, smi, counted)
+    router = qc_router(torch, dev, smi, counted)
+    outlier = qc_outlier(torch, dev, smi, counted)
+    costs = qc_costs(torch, dev, smi, counted)
+    pm = qc_postmortem(torch, dev, smi, counted, costs["walls_s"][-1])
+    over = qc_overhead(torch, dev, smi, counted)
+    observatories(False)
+    out = {"drift": drift, "router": router, "outlier": outlier, "costs": costs,
+           "postmortem": pm, "overhead": over, "card": smi,
+           "launches": {
+               "fused_mlp_softmax": (drift["launches"] + router["launches"]
+                                     + outlier["launches"] + over["launches"]),
+               **{k: costs["launches"][k] + pm["launches"][k]
+                  for k in ("flash_decode_paged", "kv_write_paged")}},
+           "wall_s": time.perf_counter() - t0}
+    log(f"[quality] phase 10p wall {out['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6332,6 +6863,14 @@ def main() -> int:
     for row, name in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
         row["launches_by_path"]["observability (/genperf)"] = obs["launches"][name]
         row["launches"] += obs["launches"][name]
+    # 10p: after 10o, each path's counts set to 0 just before it
+    qc = quality_costs_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"quality_costs": qc}}))
+    mlp_row["launches_by_path"]["quality_costs"] = qc["launches"]["fused_mlp_softmax"]
+    mlp_row["launches"] += qc["launches"]["fused_mlp_softmax"]
+    for row, name in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
+        row["launches_by_path"]["quality_costs (/costs, /postmortems)"] = qc["launches"][name]
+        row["launches"] += qc["launches"][name]
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,

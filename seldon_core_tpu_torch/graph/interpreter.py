@@ -33,10 +33,15 @@ a ``quorum``'s and a ``fallback``'s appear as sibling subtrees; a
 fallback that served and a quorum that dropped branches add a span event
 (``fallback``, ``quorum_degraded``) and count in
 ``seldon_tpu_degraded_requests_total``, and an expired deadline at a hop
-in ``seldon_tpu_deadline_exceeded_total``.  Not ported yet: the quality
-records (ROADMAP Queue 1 item [4b]) and the autopilot's cost-aware branch
-demotion (``_autopilot_branch`` keeps the router's branch; its learned
-costs stay NaN until item [4c]).
+in ``seldon_tpu_deadline_exceeded_total``.  Quality (``interpreter.py:188``,
+``:215-225`` there): every unit method's tags pass ``_respond``, where the
+outlier scores bridge into the quality observatory, and each in-process
+``predict`` writes one telemetry-spine quality record of the node's own
+input and output (device tensors; the drainer summarizes them), so the
+drift table of a host-mode engine or a unit pod resolves to the node that
+drifted.  Not ported yet: the autopilot's cost-aware branch demotion
+(``_autopilot_branch`` keeps the router's branch; its learned costs stay
+NaN until ROADMAP Queue 1 item [4c]).
 
 The helpers shared with the compiled executors live here too: the
 method-dispatch table (engine PredictorConfigBean.java:33-82), tag
@@ -75,6 +80,8 @@ from seldon_core_tpu_torch.messages import (
     Status,
 )
 from seldon_core_tpu_torch.runtime.resilience import current_deadline
+from seldon_core_tpu_torch.utils.hotrecord import SPINE
+from seldon_core_tpu_torch.utils.quality import QUALITY
 from seldon_core_tpu_torch.utils.telemetry import RECORDER
 from seldon_core_tpu_torch.utils.tracing import TRACER
 
@@ -258,6 +265,9 @@ class InProcessNodeRuntime(_Serialized, NodeRuntime):
         resp = req.with_array(y, names=self.unit.class_names)
         all_tags = dict(self.unit.static_tags or {})
         all_tags.update(pythonize_tags(tags))
+        # the outlier TRANSFORMER's scores bridge out of the tags here:
+        # every unit method's tags pass this one spot
+        QUALITY.record_outlier_tags(all_tags)
         if all_tags:
             resp.meta = Meta(puid=req.meta.puid, tags={**req.meta.tags, **all_tags},
                              routing=dict(req.meta.routing),
@@ -276,8 +286,12 @@ class InProcessNodeRuntime(_Serialized, NodeRuntime):
         return fn(self.state, X)
 
     def _apply(self, method: str, msg: SeldonMessage) -> SeldonMessage:
-        out = self._call(method, msg, self._input_array(msg))
+        X = self._input_array(msg)
+        out = self._call(method, msg, X)
         y, self.state, tags = normalize_output(out, self.state)
+        if method == "predict" and QUALITY.enabled:
+            # one quality record a sampled batch, keyed on this node
+            SPINE.record_quality(self.node.name, X, y)
         return self._respond(msg, y, tags)
 
     def _route(self, msg: SeldonMessage) -> int:

@@ -411,6 +411,13 @@ class Feedback:
             return self.request.meta.puid
         return ""
 
+    def prediction_array(self) -> Optional[np.ndarray]:
+        """The served prediction tensor (``response.data``) as numpy, or
+        None: what the quality observatory compares the truth with."""
+        if self.response is not None and self.response.data is not None:
+            return np.asarray(self.response.array())
+        return None
+
     def truth_array(self) -> Optional[np.ndarray]:
         """The ground-truth tensor (``truth.data``) as numpy, or None."""
         if self.truth is not None and self.truth.data is not None:

@@ -28,7 +28,12 @@ runs its dispatch in that caller's context (its trace context and
 deadline), so the dispatch span joins the request's tree across the
 dispatch thread; a flush of several callers runs in a fresh context and
 its dispatch span stands alone, as every stacked dispatch does in the
-JAX package.  The autopilot's flush planning and QoS tiers are not
+JAX package.  Each entry carries its caller's tenant and tier
+(``runtime/qos.py``), and with the cost ledger on (``SELDON_TPU_COSTLEDGER``)
+the flush record carries the attribution payload (``batching.py:378-402``
+there): real rows and requests per (tenant, tier) and the padded capacity
+the chunks run at (``utils/costledger.py``).  The autopilot's flush
+planning and the tiers' scheduling effect (tier-keyed buckets) are not
 ported yet (ROADMAP Queue 1 item [4c]).
 
 ``GenLane`` (``batching.py:507-563`` there) takes the batcher's place for
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import asyncio
 import contextvars
+import inspect
 import time
 from collections import deque
 from typing import Any, Awaitable, Callable, Deque, Dict, Tuple
@@ -50,6 +56,8 @@ import numpy as np
 from seldon_core_tpu_torch.graph.interpreter import methods_for
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit, UnitMethod
 from seldon_core_tpu_torch.messages import DispatchTimeoutError
+from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier
+from seldon_core_tpu_torch.utils.costledger import costledger_enabled
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
 from seldon_core_tpu_torch.utils.telemetry import RECORDER
@@ -97,6 +105,10 @@ class MicroBatcher:
         self._pumps: Dict[Tuple, asyncio.Task] = {}
         self._inflight: set = set()  # strong refs: bare create_task is GC-able
         self.recorder = RECORDER  # flight-recorder hub (occupancy/wait/slots)
+        #: deployment identity on /costs rows; the engine stamps it
+        self.cost_deployment = ""
+        self._rows_fn = None
+        self._rows_kw = False
 
     async def submit(self, x: np.ndarray):
         """x: [b, ...feature] rows of one request.  Returns (y_rows, aux)."""
@@ -108,10 +120,12 @@ class MicroBatcher:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         # enqueue time, trace context and the caller's whole context: the
         # flush records each caller's queue wait under ITS request span,
-        # and a one-caller flush dispatches in the caller's context
+        # and a one-caller flush dispatches in the caller's context; the
+        # tenant and tier let the flush record split its wall across the
+        # tenants whose rows shared the dispatch
         self._buckets.setdefault(key, deque()).append(
             (x, fut, time.perf_counter(), current_trace_context(),
-             contextvars.copy_context()))
+             contextvars.copy_context(), current_tenant() or "", current_tier()))
         if key not in self._pumps:
             self._pumps[key] = asyncio.create_task(self._pump(key))
         return await fut
@@ -189,11 +203,12 @@ class MicroBatcher:
         futs = [e[1] for e in entries]
         now = time.perf_counter()
         now_epoch = time.time()
-        for x, _, t_enq, ctx, _ in entries:
+        for x, _, t_enq, ctx, *_ in entries:
             # ONE ring record per caller: the queue-wait observation and
             # the caller's queue span, folded off-path from the same write
             SPINE.record_queue(now - t_enq, ctx=ctx, rows=len(x),
                                start_s=now_epoch - (now - t_enq))
+        cost = self._cost_payload(entries) if costledger_enabled() else None
         try:
             stacked = np.concatenate(xs, axis=0)
             total = len(stacked)
@@ -204,7 +219,7 @@ class MicroBatcher:
                 # one record per flush: occupancy (real rows) and the
                 # standalone flush span, failed dispatches included
                 SPINE.record_flush(rows=total, requests=len(entries), start_s=now_epoch,
-                                   duration_s=time.perf_counter() - t_flush)
+                                   duration_s=time.perf_counter() - t_flush, cost=cost)
             # one walk decides whether the aux holds per-row arrays at all
             per_row = _aux_has_per_row(aux, total)
             offset = 0
@@ -217,6 +232,34 @@ class MicroBatcher:
             for fut in futs:
                 if not fut.done():
                     fut.set_exception(e)
+
+    def _takes_real_rows(self) -> bool:
+        """Whether ``batch_fn`` has a ``real_rows`` parameter (read once a
+        function)."""
+        fn = self.batch_fn
+        if fn is not self._rows_fn:
+            self._rows_fn = fn
+            try:
+                self._rows_kw = "real_rows" in inspect.signature(fn).parameters
+            except (TypeError, ValueError):
+                self._rows_kw = False
+        return self._rows_kw
+
+    def _cost_payload(self, entries) -> dict:
+        """The flush record's attribution payload: real rows and requests
+        per (tenant, tier), and the capacity the chunks are padded to
+        (``_dispatch_chunked``'s arithmetic)."""
+        agg: Dict[Tuple[str, str], list] = {}
+        for e in entries:
+            row = agg.setdefault((e[5], e[6]), [0.0, 0.0])
+            row[0] += len(e[0])
+            row[1] += 1.0
+        n_rows = sum(len(e[0]) for e in entries)
+        padded = sum(pad_rows(min(self.max_batch, n_rows - start), self.max_batch)
+                     for start in range(0, n_rows, self.max_batch))
+        return {"dep": self.cost_deployment, "padded": padded,
+                "tenants": [(tenant, tier, units, requests, 0)
+                            for (tenant, tier), (units, requests) in agg.items()]}
 
     async def _dispatch_chunked(self, stacked: np.ndarray):
         """Dispatch in <= max_batch chunks, each padded up to a power of two
@@ -235,7 +278,10 @@ class MicroBatcher:
                 )
             # pad rows burn device work without serving traffic
             OBSERVATORY.note_padding(n, len(chunk))
-            dispatch = self.batch_fn(chunk)
+            # a dispatch that takes ``real_rows`` learns the chunk's real
+            # rows, which keeps the pad rows out of its quality statistics
+            dispatch = (self.batch_fn(chunk, real_rows=n) if self._takes_real_rows()
+                        else self.batch_fn(chunk))
             if self.dispatch_timeout_s > 0:
                 try:
                     ys, chunk_aux = await asyncio.wait_for(dispatch, self.dispatch_timeout_s)

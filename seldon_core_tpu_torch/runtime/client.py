@@ -48,9 +48,10 @@ A FAILURE SeldonMessage is an answer, returned as it is and never retried.
 Each call runs in a ``client`` span of the node's name (``transport``
 ``rest``, ``wire`` or ``grpc``) and sends the W3C ``traceparent`` of that
 span (a header, gRPC metadata, and the frame's sidecar), so the remote
-server span is its child; a retry and an open breaker's refusal are span
-events, and each retry or exhausted retry counts in
-``seldon_tpu_retry_attempts_total``.
+server span is its child, and the bound tenant and tier (``Seldon-Tenant``
+/ ``Seldon-Tier``, ``runtime/qos.py``) the same three ways; a retry and an
+open breaker's refusal are span events, and each retry or exhausted retry
+counts in ``seldon_tpu_retry_attempts_total``.
 
 A failure after the policy gives up is a ``RemoteCallError`` (502); the
 client never swaps a remote node for a local unit.
@@ -78,6 +79,12 @@ from seldon_core_tpu_torch.messages import (
 )
 from seldon_core_tpu_torch.runtime import wire
 from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel, GrpcCallError
+from seldon_core_tpu_torch.runtime.qos import (
+    TENANT_HEADER,
+    TIER_HEADER,
+    current_tenant,
+    current_tier,
+)
 from seldon_core_tpu_torch.runtime.resilience import (
     DEADLINE_HEADER,
     CircuitBreaker,
@@ -132,6 +139,20 @@ def _branch_from_msg(node_name: str, resp: SeldonMessage, where: str) -> int:
         return int(np.asarray(resp.array()).ravel()[0])
     except (SeldonMessageError, IndexError, ValueError) as e:
         raise RemoteCallError(node_name, where, f"bad branch: {e}") from e
+
+
+def _qos_headers() -> Dict[str, str]:
+    """The bound tenant and tier as request headers (gRPC metadata
+    lower-cased), forwarded to a remote node as the gateway forwards them;
+    the default tier, with no tenant, sends nothing."""
+    out: Dict[str, str] = {}
+    tenant = current_tenant()
+    if tenant is not None:
+        out[TENANT_HEADER] = tenant
+    tier = current_tier()
+    if tenant is not None or tier != "interactive":
+        out[TIER_HEADER] = tier
+    return out
 
 
 def _client_span(node: str, puid: str, method: str, transport: str):
@@ -429,6 +450,7 @@ class RestNodeRuntime(_ResilientCallMixin, NodeRuntime):
                 tp = traceparent_header_value()
                 if tp is not None:
                     headers[TRACEPARENT_HEADER] = tp
+                headers.update(_qos_headers())
                 use_wire = wire_msg is not None and self._wire_ok
                 try:
                     if use_wire:
@@ -602,6 +624,8 @@ class GrpcNodeRuntime(_ResilientCallMixin, NodeRuntime):
                 timeout_s = clamp_timeout(self.timeout_s, where=f"grpc:{self.node.name}")
                 tp = traceparent_header_value()
                 metadata = ((b"traceparent", tp.encode("latin-1")),) if tp is not None else ()
+                metadata += tuple((k.lower().encode(), v.encode("latin-1"))
+                                  for k, v in _qos_headers().items())
                 try:
                     async with asyncio.timeout(timeout_s):
                         channel = await self._connection()

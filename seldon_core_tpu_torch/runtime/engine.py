@@ -78,17 +78,32 @@ one-caller flush the caller's context, and ``_batched_predict`` carries
 it onto the dispatch thread (``run_in_executor`` does not), so the
 dispatch span is the request's child.  ``stats()`` adds the cached
 ``telemetry`` / ``perf`` / ``quality`` / ``tracer`` walks with
-``staleness_s`` (``SELDON_TPU_STATS_TTL_S``), and ``audit``;
-``overhead_document``, ``perf_document``, ``genperf_document`` and
+``staleness_s`` (``SELDON_TPU_STATS_TTL_S``), ``routers`` (the MAB router
+state read back, ``utils/quality.py`` ``router_quality``) and ``audit``;
+``overhead_document``, ``perf_document``, ``genperf_document``,
+``quality_document``, ``costs_document``, ``postmortems_document`` and
 ``trace_json`` (the relay's ``OP_TRACE``) are the routes' documents.
-``quality`` is the reference's empty document until ROADMAP Queue 1 item
-[4b]; the ``autopilot``, ``brownout`` and ``routers`` keys, admission
-control and QoS come with items [4b] and [4c].
+
+Quality, postmortems and costs (``engine.py:155-158``, ``:427-430``,
+``:620-676``, ``:1187-1205``, ``:1759-1763`` there): the compiled and fused
+lanes dispatch the whole graph as one program, so their drift windows key
+on the graph root (``_quality_node``): each dispatch record carries the
+stacked rows and the readback the dispatch already holds (host arrays) for
+the drainer's summarize, and the outlier scores in its tags bridge inline.
+Audit lines carry the last drift score, ``send_feedback`` folds its reward
+and truth, the binary wire lane binds its sidecar's tenant and tier
+(``runtime/qos.py``) and bills its bytes to them, and the request span
+carries the bound tenant and tier (a postmortem's cost row and SLO
+budget).  ``LEDGER.devices`` is ``torch.cuda.device_count()`` on a CUDA
+engine, 1 on the CPU.  The ``autopilot`` and ``brownout`` keys, admission
+control and the tiers' scheduling effect come with ROADMAP Queue 1 item
+[4c].
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import contextvars
 import json
 import os
@@ -127,16 +142,20 @@ from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, 
 from seldon_core_tpu_torch.runtime import wire
 from seldon_core_tpu_torch.runtime.batching import GenLane, MicroBatcher, graph_is_batchable
 from seldon_core_tpu_torch.runtime.genserver import GenServer
+from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier, qos_scope
 from seldon_core_tpu_torch.runtime.resilience import (
     CircuitBreaker,
     RetryBudget,
     maybe_deadline_scope,
     remaining_s,
 )
+from seldon_core_tpu_torch.utils.costledger import LEDGER, costledger_enabled
 from seldon_core_tpu_torch.utils.genperf import GENPERF
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
 from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM
+from seldon_core_tpu_torch.utils.quality import QUALITY, router_quality
 from seldon_core_tpu_torch.utils.telemetry import RECORDER, AuditLog
 from seldon_core_tpu_torch.utils.tracing import (
     TRACER,
@@ -152,14 +171,17 @@ __all__ = ["EngineService", "StreamRequest"]
 class StreamRequest(NamedTuple):
     """A validated streaming request: prompt rows [B, S] float64, puid,
     tokens per frame, the request's ``max_new`` (None: the unit's), and
-    the trace context the lane bound when it was prepared (the stream is
-    iterated by the connection's writer, outside the handler's context)."""
+    the trace context, tenant and tier the lane bound when it was prepared
+    (the stream is iterated by the connection's writer, outside the
+    handler's context)."""
 
     rows: np.ndarray
     puid: str
     chunk: int
     max_new: Optional[int] = None
     trace: Optional[object] = None
+    tenant: Optional[str] = None
+    tier: Optional[str] = None
 
 
 def _max_new(value) -> int:
@@ -216,8 +238,10 @@ class EngineService:
         self.tracer = TRACER
         self.predictor: PredictorSpec = deployment.predictor(predictor_name)
         self.device = resolve_device(device)
-        # the perf observatory's peaks and memory watermarks read this card
+        # the perf observatory's peaks and memory watermarks read this card,
+        # and the quality observatory summarizes host batches on it
         OBSERVATORY.set_device(self.device)
+        QUALITY.set_device(self.device)
         self.metrics = MetricsRegistry(
             deployment_name=deployment.name,
             predictor_name=self.predictor.name,
@@ -227,6 +251,10 @@ class EngineService:
         # SELDON_TPU_AUDIT_DIR)
         self.audit = audit if audit is not None else AuditLog()
         self._graph_path = "/".join(n.name for n in self.predictor.graph.walk())
+        # the compiled and fused lanes dispatch the whole graph as one
+        # program: their drift windows key on the graph root (host mode and
+        # unit pods record per node)
+        self._quality_node = self.predictor.graph.name
         # a fresh id per construction: a scraper that sees it change at the
         # same URL knows the process restarted
         self.boot_id = secrets.token_hex(8)
@@ -316,6 +344,7 @@ class EngineService:
                 # their 504s
                 dispatch_timeout_s=self.dispatch_timeout_s * 1.5,
             )
+            self.batcher.cost_deployment = self.deployment.name
 
     def _build_host(self, extra_runtimes, rng) -> None:
         """Host mode: a pooled client for each REST node the caller did not
@@ -363,6 +392,7 @@ class EngineService:
         spec = None if spec_fn is None else spec_fn(self.compiled.states[name])
         if spec is not None:
             self.genserver = GenServer(**spec, **(knobs or {}))
+            self.genserver.cost_deployment = self.deployment.name
 
     # -- dispatch -------------------------------------------------------
 
@@ -392,13 +422,13 @@ class EngineService:
                 f"device dispatch exceeded {self.dispatch_timeout_s:.0f}s"
             ) from None
 
-    async def _batched_predict(self, stacked):
+    async def _batched_predict(self, stacked, real_rows=None):
         # concurrency is bounded by the batcher's in-flight slots; the
         # flush's context (a one-caller flush's is the caller's) rides
         # onto the dispatch thread, which run_in_executor does not carry
         ctx = contextvars.copy_context()
         return await asyncio.get_running_loop().run_in_executor(
-            self._executor, ctx.run, self._batched_predict_sync, stacked)
+            self._executor, ctx.run, self._batched_predict_sync, stacked, real_rows)
 
     def _guarded(self, width, fn, *args):
         """Run a dispatch under the known-good-width rule."""
@@ -426,7 +456,7 @@ class EngineService:
         with self._state_lock:
             return fn(*args)
 
-    def _batched_predict_sync(self, stacked):
+    def _batched_predict_sync(self, stacked, real_rows=None):
         # executor thread: the kernels launch on this thread's current stream.
         # Observability is ONE telemetry-spine record per dispatch: the
         # sample verdict is decided once, the record carries the span
@@ -453,11 +483,20 @@ class EngineService:
                     seconds=time.perf_counter() - t_dispatch, start_s=start_s,
                     rows=len(stacked), method="predict", error=type(e).__name__)
             raise
+        seconds = time.perf_counter() - t_dispatch
+        n_real = real_rows if real_rows is not None else len(stacked)
+        # the outlier-score bridge stays inline: a key check when absent,
+        # and the scores are host tags the callers slice anyway
+        if QUALITY.enabled and tags:
+            QUALITY.record_outlier_tags(tags, real_rows=n_real)
         if wants.any:
             SPINE.record_dispatch(
                 wants, executable=self.compiled.executable_key(stacked),
-                seconds=time.perf_counter() - t_dispatch, start_s=start_s,
-                rows=len(stacked), real_rows=len(stacked), method="predict",
+                seconds=seconds, start_s=start_s,
+                rows=len(stacked), real_rows=n_real, method="predict",
+                # the drainer's quality fold reads the host arrays the
+                # dispatch already holds: the stacked rows and the readback
+                quality_node=self._quality_node, X=stacked, Y=y,
                 # a fused graph's one record carries its per-node shares
                 phases=self.compiled.phases)
         return y, (routing, tags)
@@ -522,25 +561,34 @@ class EngineService:
         meta = frame.meta
         puid = meta.get("puid") or new_puid()
         dl = meta.get("deadline_ms")
+        # the sidecar's tenant and tier bind as the headers do on the JSON
+        # lanes; a sidecar without them keeps the lane's binding
+        qos = (qos_scope(meta.get("tenant"), meta.get("tier"))
+               if meta.get("tenant") is not None or meta.get("tier") is not None
+               else contextlib.nullcontext())
         with maybe_deadline_scope(dl / 1e3 if dl else None), \
-                trace_scope(parse_traceparent(meta.get("traceparent"))):
+                trace_scope(parse_traceparent(meta.get("traceparent"))), qos:
             if self.batcher is None:
                 msg = wire.message_from_frame(frame)
                 msg.meta.puid = puid
                 resp = await self.predict(msg)
                 ok = resp.status is None or resp.status.status == "SUCCESS"
-                parts = await asyncio.get_running_loop().run_in_executor(
-                    self._executor, lambda: wire.frame_from_message(resp, response=True,
-                                                                    sidecar=False))
+                parts = await self._in_executor(
+                    lambda: wire.frame_from_message(resp, response=True, sidecar=False))
                 return (200 if ok else (resp.status.code or 400)), parts
             t0 = time.perf_counter()
-            with self.metrics.time_server("predictions", "POST") as code, self.tracer.span(
-                    puid, "request", kind="request", method="predict", mode=self.mode):
+            with self.metrics.time_server("predictions", "POST") as code, self._request_span(
+                    puid, "predict", mode=self.mode):
                 try:
                     rows = frame.rows()
                 except wire.WireError as e:
                     code["code"] = "400"
                     return self._wire_error_frame(puid, e, 400)
+                if costledger_enabled():
+                    # tenant-attributed ingress bytes of the wire lane: the
+                    # tensor's bytes, billed to the tenant that shipped it
+                    LEDGER.note_bytes(current_tenant() or "", self.deployment.name, "wire",
+                                      int(getattr(rows, "nbytes", 0)))
                 try:
                     y_rows, (routing, tags) = await self._submit(rows)
                 except (SeldonMessageError, GraphSpecError) as e:
@@ -588,16 +636,15 @@ class EngineService:
                 and not (meta.tags or meta.routing or meta.requestPath)):
             return await self._proto_rows(meta.puid or new_puid(), np.atleast_2d(msg.data.array))
         resp = await self.predict(msg)
-        return await asyncio.get_running_loop().run_in_executor(
-            self._executor, protoconv.msg_to_proto, resp)
+        return await self._in_executor(protoconv.msg_to_proto, resp)
 
     async def _proto_rows(self, puid: str, rows) -> bytes:
         """Rows through the batcher, answered as SeldonMessage bytes: the
         fixed tensor layout (``build_tensor_response``) when the answer
         carries no routing or tags, else composed (the same bytes)."""
         t0 = time.perf_counter()
-        with self.metrics.time_server("predictions", "POST") as code, self.tracer.span(
-                puid, "request", kind="request", method="predict", mode=self.mode):
+        with self.metrics.time_server("predictions", "POST") as code, self._request_span(
+                puid, "predict", mode=self.mode):
             try:
                 y, (routing, tags) = await self._submit(rows)
             except (SeldonMessageError, GraphSpecError) as e:
@@ -623,8 +670,8 @@ class EngineService:
         if not msg.meta.puid:
             msg.meta.puid = new_puid()
         t0 = time.perf_counter()
-        with self.metrics.time_server("predictions", "POST") as code, self.tracer.span(
-                msg.meta.puid, "request", kind="request", method="predict", mode=self.mode):
+        with self.metrics.time_server("predictions", "POST") as code, self._request_span(
+                msg.meta.puid, "predict", mode=self.mode):
             resp, status, n_rows = await self._predict(msg)
             if status != 200:
                 code["code"] = str(status)
@@ -653,16 +700,18 @@ class EngineService:
                 )
                 resp.status = Status()
                 return resp, 200, n_rows
-            loop = asyncio.get_running_loop()
             if self.compiled is None:
                 resp = await self.executor.predict(msg)
                 # the answer's readback on a dispatch thread, off the loop
-                resp = await loop.run_in_executor(self._executor, _host_payload, resp)
+                resp = await self._in_executor(_host_payload, resp)
             else:
                 width = np.shape(msg.array())[1:] if msg.data is not None else None
-                resp = await loop.run_in_executor(
-                    self._executor, self._guarded, width, self._serial, self.compiled.predict,
-                    msg)
+                resp = await self._in_executor(
+                    self._guarded, width, self._serial, self.compiled.predict, msg)
+                # the outlier bridge of a dispatch that takes no batcher (a
+                # unit that updates its state on predict, a router graph)
+                if QUALITY.enabled and resp.meta.tags:
+                    QUALITY.record_outlier_tags(resp.meta.tags)
         except (SeldonMessageError, GraphSpecError) as e:
             self.tracer.annotate(status=e.http_code, error=type(e).__name__)
             return (SeldonMessage.failure(str(e), code=e.http_code, meta=msg.meta),
@@ -670,6 +719,23 @@ class EngineService:
         resp.meta.puid = msg.meta.puid
         ok = resp.status is None or resp.status.status == "SUCCESS"
         return resp, 200 if ok else (resp.status.code or 400), n_rows
+
+    async def _in_executor(self, fn, *args):
+        """``fn(*args)`` on a dispatch thread in the caller's context (its
+        tenant, tier, deadline and trace), which ``run_in_executor`` alone
+        does not carry."""
+        ctx = contextvars.copy_context()
+        return await asyncio.get_running_loop().run_in_executor(
+            self._executor, ctx.run, fn, *args)
+
+    def _request_span(self, puid: str, method: str, **attrs):
+        """The request's ``request`` span; a bound tenant and tier ride it
+        as attributes (the postmortem explainer's cost row and SLO budget
+        read them)."""
+        tenant = current_tenant()
+        if tenant is not None:
+            attrs.update(tenant=tenant, tier=current_tier())
+        return self.tracer.span(puid, "request", kind="request", method=method, **attrs)
 
     def _request_failed(self, code: dict, e, puid: str, t0: float, rows, lane: str) -> None:
         """A typed failure inside a request span: the server timer's code,
@@ -688,6 +754,11 @@ class EngineService:
         ctx = current_trace_context()
         if ctx is not None and ctx.sampled and "trace_id" not in extra:
             extra["trace_id"] = ctx.trace_id
+        # the drift score inline, as the dispatch span carries it
+        if method == "predict" and "drift" not in extra:
+            drift = QUALITY.last_drift(self._quality_node)
+            if drift is not None:
+                extra["drift"] = drift
         self.audit.record(
             puid=puid, deployment=self.deployment.name, predictor=self.predictor.name,
             graph=self._graph_path, method=method, status=int(status), rows=rows,
@@ -702,6 +773,7 @@ class EngineService:
         or a 400 FAILURE for a feedback the graph cannot take."""
         fb_puid = feedback.puid()
         t0 = time.perf_counter()
+        truth_arr = feedback.truth_array()
         with self.metrics.time_server("feedback", "POST") as code, self.tracer.span(
                 fb_puid, "request", kind="request", method="feedback"):
             try:
@@ -713,9 +785,8 @@ class EngineService:
                     X = None
                     if feedback.request is not None and feedback.request.data is not None:
                         X = feedback.request.array()
-                    await asyncio.get_running_loop().run_in_executor(
-                        self._executor, self._locked, self.compiled.feedback_arrays, X,
-                        routing, feedback.reward, feedback.truth_array())
+                    await self._in_executor(self._locked, self.compiled.feedback_arrays, X,
+                                            routing, feedback.reward, truth_arr)
                     ack = SeldonMessage()
                     if feedback.response is not None:
                         ack.meta.puid = feedback.response.meta.puid
@@ -725,7 +796,11 @@ class EngineService:
                                     reward=float(feedback.reward))
                 return SeldonMessage.failure(str(e), code=400)
         self.metrics.record_feedback(feedback.reward)
-        self._audit_request(fb_puid, "feedback", 200, t0, reward=float(feedback.reward))
+        # rolling per-predictor reward and truth-vs-prediction accuracy
+        QUALITY.record_feedback(self.predictor.name, feedback.reward, truth=truth_arr,
+                                prediction=feedback.prediction_array())
+        self._audit_request(fb_puid, "feedback", 200, t0, reward=float(feedback.reward),
+                            truth_provided=truth_arr is not None)
         return ack
 
     # -- streaming generation (engine.py:690-849) -----------------------
@@ -767,7 +842,7 @@ class EngineService:
                 "graph does not support streaming generation (need a single generator node)")
         msg = SeldonMessage.from_json_dict(doc)
         return StreamRequest(_prompt_rows(msg), msg.meta.puid or new_puid(), chunk, max_new,
-                             current_trace_context())
+                             current_trace_context(), current_tenant(), current_tier())
 
     def _next_chunk(self, gen):
         """One chunk of a stream on the host, or None at its end.  Runs on
@@ -795,10 +870,9 @@ class EngineService:
         t0 = time.perf_counter()
         ttft_s, tokens, status = None, 0, 200
         try:
-            with trace_scope(request.trace), \
+            with trace_scope(request.trace), qos_scope(request.tenant, request.tier), \
                     self.metrics.time_server("generate-stream", "POST"), \
-                    self.tracer.span(request.puid, "request", kind="request",
-                                     method="generate_stream"):
+                    self._request_span(request.puid, "generate_stream"):
                 # opened inside the span: the continuous lane's sequences
                 # take the request span's context at submit
                 if self.genserver is not None:
@@ -859,7 +933,7 @@ class EngineService:
         SPINE.drain()
         now = time.monotonic()
         key = (SPINE.fold_generation, RECORDER._gen, TRACER.enabled, TRACER.sample,
-               OBSERVATORY.enabled)
+               OBSERVATORY.enabled, QUALITY.enabled, QUALITY.sample)
         cached = self._stats_cache
         if cached is not None and cached[0] == key and now - cached[1] < self._stats_ttl_s:
             walks, staleness = cached[2], now - cached[1]
@@ -867,9 +941,7 @@ class EngineService:
             walks = {
                 "telemetry": RECORDER.snapshot(),
                 "perf": OBSERVATORY.snapshot(),
-                # the quality observatory comes with ROADMAP Queue 1 item
-                # [4b]: the reference's document with the observatory off
-                "quality": {"enabled": False},
+                "quality": QUALITY.snapshot(),
                 "tracer": TRACER.snapshot(),
             }
             self._stats_cache = (key, now, walks)
@@ -902,6 +974,9 @@ class EngineService:
         if self.genserver is not None:
             out["genserver"] = self.genserver.snapshot()
         out.update(walks)
+        # the MAB router state read back from the card (per-branch
+        # success and tries)
+        out["routers"] = router_quality(self.states())
         out["audit"] = self.audit.snapshot()
         out["staleness_s"] = round(staleness, 3)
         return out
@@ -934,6 +1009,30 @@ class EngineService:
                                else self.genserver.chunk_history()),
             **GENPERF.document(),
         }
+
+    def quality_document(self) -> dict:
+        """``GET /quality``: the quality observatory (per-node drift table,
+        feedback reward and accuracy, the outlier bridge, SLO burn rates)
+        under this engine's identity, with the MAB router state read back."""
+        return {"engine": self._identity(), "routers": router_quality(self.states()),
+                **QUALITY.document()}
+
+    def costs_document(self) -> dict:
+        """``GET /costs``: the resource ledger (device-seconds per tenant x
+        deployment x phase, pad tax, KV-block-seconds, attributed bytes,
+        the accounting identity and the capacity block) under this
+        engine's identity."""
+        LEDGER.devices = max(1, torch.cuda.device_count()) if self.device.type == "cuda" else 1
+        SPINE.drain()  # pending flush and tick records land in the ledger first
+        return {"engine": self._identity(), **LEDGER.document()}
+
+    def postmortems_document(self, puid: str = "") -> dict:
+        """``GET /postmortems``: the tail-sampled postmortem recorder (kept
+        exemplars and their explanations, retention counters, the pending
+        buffer) under this engine's identity; ``puid`` (or a trace id)
+        answers one full exemplar."""
+        SPINE.drain()  # pending request spans complete their verdicts first
+        return {"engine": self._identity(), **POSTMORTEM.document(puid=puid)}
 
     def process_track_name(self) -> str:
         """The Perfetto process-track label of ``/trace/export``."""

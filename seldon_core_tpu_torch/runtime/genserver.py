@@ -94,10 +94,21 @@ stream, the speculative accept ratio per round; a sampled request's
 sequences each leave a ``gen_sequence`` span with their lifecycle as
 events.
 
+Cost attribution (``genserver.py:457-463``, ``:987-1000``, ``:1104-1130``
+there): each request carries its submitter's tenant and tier
+(``runtime/qos.py``); with the cost ledger on (``SELDON_TPU_COSTLEDGER``)
+each tick's record carries per-phase tenant splits (prefill: the chunk's
+real prompt tokens against the B x C capacity; decode: one unit a live
+sequence against the B rows; the first token and the served tokens noted
+besides) and the KV-block-seconds of the blocks released at retire and
+preempt, for ``utils/costledger.py`` to fold.  A sequence under postmortem
+tail capture (a sampled-out trace whose ``pm`` bit is set) keeps its
+lifecycle events and leaves its ``gen_sequence`` span ``pm_only``.
+
 Not ported, with the ROADMAP item that ports each: the disaggregated
 prefill and decode roles and the KV handoff between them
-(``runtime/kvstream.py``; [6]), the cost ledger ([4b]), brownout, QoS
-tiers and ``prewarm`` ([4c]).
+(``runtime/kvstream.py``; [6]), brownout, the tiers' scheduling effect
+(admission and preemption by tier) and ``prewarm`` ([4c]).
 """
 
 from __future__ import annotations
@@ -128,6 +139,8 @@ from seldon_core_tpu_torch.models.generate import (
 )
 from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
 from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
+from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier
+from seldon_core_tpu_torch.utils.costledger import costledger_enabled
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
 from seldon_core_tpu_torch.utils.telemetry import RECORDER
@@ -219,7 +232,7 @@ class _Sequence:
 
     __slots__ = ("sid", "request", "prompt", "prompt0", "max_new", "n_valid", "blocks",
                  "draft_blocks", "pending", "prefill_pos", "emitted", "done", "key",
-                 "admit_order", "retire_reason", "t_start", "events")
+                 "admit_order", "retire_reason", "t_start", "events", "retired")
 
     def __init__(self, sid: int, request: "GenRequest", prompt: np.ndarray, max_new: int):
         self.sid = sid                  # arrival order: a round's row order
@@ -237,6 +250,7 @@ class _Sequence:
         self.key: Optional[np.ndarray] = None  # sampling: int64 [2] (models/prng.py)
         self.admit_order = -1
         self.retire_reason = ""
+        self.retired = False            # its blocks freed, its timeline emitted
         self.t_start = 0.0              # epoch at admission: KV-block age
         self.events: List[dict] = []    # a sampled sequence's lifecycle
 
@@ -246,9 +260,14 @@ class GenRequest:
     future holding the eos-padded ``[B, max_new]`` int32 tokens (unary) or
     a queue of ``[B, <=chunk]`` arrays ending in None (streaming)."""
 
-    def __init__(self, chunk: Optional[int], max_new: int):
+    def __init__(self, chunk: Optional[int], max_new: int, tier: Optional[str] = None,
+                 tenant: Optional[str] = None):
         self.chunk = chunk              # None: unary
         self.max_new = int(max_new)
+        # the submitter's QoS identity, captured on ITS thread (contextvars
+        # do not cross into the scheduler thread): the cost ledger bills it
+        self.tier = tier or current_tier()
+        self.tenant = (tenant if tenant is not None else current_tenant()) or ""
         self.seqs: List[_Sequence] = []
         self.future: concurrent.futures.Future = concurrent.futures.Future()
         # unbounded on purpose: a stream buffers at most max_new tokens a
@@ -256,6 +275,7 @@ class GenRequest:
         self.queue: "queue.Queue" = queue.Queue()
         self.delivered = 0              # stream tokens handed out per row
         self.cancelled = False
+        self.finished = False           # every row retired: answered at tick end
         self.t_submit = time.perf_counter()
         self.ttft_recorded = False
         # the submitter's trace context: the sequences' spans join its tree
@@ -362,6 +382,16 @@ class GenServer:
         self._tick_kv_pos = 0                # cache positions streamed
         self._tick_kv_blocks = 0             # blocks the tables covered
         self._tick_kv_ages: List[tuple] = []  # (n_blocks, age_s) freed
+        # requests a tick finished, answered when it ends (``_tick``)
+        self._in_tick = False
+        self._tick_done: List[tuple] = []
+        # cost-ledger scratch: per-phase tenant splits of the tick's padded
+        # capacity and the KV-block-seconds freed this tick; None with the
+        # ledger off (the tick record then carries no "attr")
+        self._tick_attr: Optional[Dict[str, Any]] = None
+        self._tick_kv_attr: List[tuple] = []   # (tenant, block_s) freed
+        #: deployment identity on /costs rows; the engine stamps it
+        self.cost_deployment = ""
         # device work dispatched: prefill ticks, single-token decode steps
         # (each step is one launch of each paged kernel per layer),
         # speculative rounds (k + 1 draft steps and one verify each), prefix
@@ -562,6 +592,20 @@ class GenServer:
     # -- the scheduler step ----------------------------------------------
 
     def _tick(self) -> bool:
+        """``_tick_body``, with the requests it completed answered after it
+        (and its telemetry record) ends: a request's answer never overtakes
+        the record of the tick that finished it, so ``/genperf``, ``/costs``
+        and a postmortem read after the answer see that tick."""
+        self._in_tick = True
+        try:
+            return self._tick_body()
+        finally:
+            self._in_tick = False
+            done, self._tick_done = self._tick_done, []
+            for req, out in done:
+                self._complete(req, out)
+
+    def _tick_body(self) -> bool:
         """One iteration: admit, one prefill tick, one decode round,
         retire, account.  Exactly one telemetry-spine record per tick,
         with the flight recorder's decomposition: each phase's host wall,
@@ -576,6 +620,8 @@ class GenServer:
         self._dev_s = {}
         self._tick_rows = self._tick_real_rows = 0
         self._tick_dev_steps = self._tick_kv_pos = self._tick_kv_blocks = 0
+        self._tick_attr = {} if costledger_enabled() else None
+        self._tick_kv_attr = []
         if self._pool is None:
             self._init_device()
         self._drop_cancelled()
@@ -625,6 +671,20 @@ class GenServer:
         if bubble_s > 0.0:
             detail["bubble_s"] = bubble_s
             detail["bubble_cause"] = bubble_cause
+        if self._tick_attr is not None:
+            # the cost ledger's payload, on idle ticks too: their bubbles
+            # fold to the ledger's idle bucket (its identity needs every
+            # second of wall)
+            detail["attr"] = {
+                "dep": self.cost_deployment,
+                "phases": {
+                    phase: {"padded": d["padded"],
+                            "tenants": [(t, tr, u, r, tok) for (t, tr), (u, r, tok)
+                                        in d["tenants"].items()]}
+                    for phase, d in self._tick_attr.items()
+                },
+                "kv": tuple(self._tick_kv_attr),
+            }
         self._publish(admitted, retired, kind or "idle", tokens, wall, detail)
         progress = kind is not None or admitted > 0 or retired > 0
         # the bubble ledger: what the gap before the NEXT tick will mean.
@@ -782,13 +842,32 @@ class GenServer:
         self.preempted_total += 1
         self.retired_total["preempted"] = self.retired_total.get("preempted", 0) + 1
 
+    def _attr_note(self, phase: str, padded_units: float, rows) -> None:
+        """Cost-ledger accumulation: ``rows`` of ``(tenant, tier,
+        real_units, requests, tokens)`` against the tick's ``phase``
+        bucket.  A no-op with the ledger off."""
+        if self._tick_attr is None:
+            return
+        d = self._tick_attr.setdefault(phase, {"padded": 0.0, "tenants": {}})
+        d["padded"] += padded_units
+        for tenant, tier, units, requests, toks in rows:
+            row = d["tenants"].setdefault((tenant, tier), [0.0, 0.0, 0])
+            row[0] += units
+            row[1] += requests
+            row[2] += toks
+
     def _release_blocks(self, seq: _Sequence) -> None:
         """A sequence's private blocks back to their pools (the shared
         prefix blocks are not its own, and are pinned besides)."""
         if seq.blocks:
             if seq.t_start > 0.0:
+                held = time.time() - seq.t_start
                 # KV residency at release: the pool-sizing histogram
-                self._tick_kv_ages.append((len(seq.blocks), time.time() - seq.t_start))
+                self._tick_kv_ages.append((len(seq.blocks), held))
+                if self._tick_attr is not None:
+                    # KV-block-seconds land on the owning tenant at retire
+                    # and preempt: the ledger's memory-residency axis
+                    self._tick_kv_attr.append((seq.request.tenant, len(seq.blocks) * held))
             self._allocator.free(seq.blocks)
         seq.blocks = []
         if seq.draft_blocks:
@@ -902,6 +981,10 @@ class GenServer:
         OBSERVATORY.note_padding(len(batch), B)
         self._tick_rows += B
         self._tick_real_rows += len(batch)
+        # cost attribution: the real units are each chunk's real prompt
+        # tokens, the capacity B x C (pad rows and pad columns alike)
+        self._attr_note("prefill", B * C, [(s.request.tenant, s.request.tier, int(width[i]), 0, 0)
+                                           for i, s in enumerate(batch)])
         self._tick_kv_blocks += sum(self._blocks_needed(int(start[i] + width[i]))
                                     for i in range(len(batch)))
         td = time.perf_counter()
@@ -953,6 +1036,9 @@ class GenServer:
                 seq.pending = int(first[i])
                 self._emit_tokens(seq, [seq.pending])
                 emitted += 1
+                # one completed prefill: one request for the ledger, and
+                # the first served token
+                self._attr_note("prefill", 0, [(seq.request.tenant, seq.request.tier, 0, 1, 1)])
             self._active.append(seq)
         if int(width.max()) == C:
             # only saturated ticks say anything about width-C compute
@@ -1016,6 +1102,9 @@ class GenServer:
         OBSERVATORY.note_padding(len(batch), B)
         self._tick_rows += B
         self._tick_real_rows += len(batch)
+        # cost attribution: one real unit a live sequence, capacity B
+        self._attr_note("decode", B, [(s.request.tenant, s.request.tier, 1, 0, 0)
+                                      for s in batch])
         self._tick_kv_blocks += sum(self._blocks_needed(s.n_valid + self.span) for s in batch)
         # cache positions the round streams (served HBM-bandwidth share):
         # each of the span steps attends over ~n_valid + step positions
@@ -1053,6 +1142,8 @@ class GenServer:
             self._emit_tokens(s, [int(t) for t in toks[i, :take]])
             self._seq_event(s, "decode_round", n_valid=s.n_valid, tokens=take)
             emitted += take
+            if take > 0:
+                self._attr_note("decode", 0, [(s.request.tenant, s.request.tier, 0, 0, take)])
         return emitted
 
     def _spec_round(self) -> int:
@@ -1090,6 +1181,8 @@ class GenServer:
         OBSERVATORY.note_padding(len(batch), B)
         self._tick_rows += B
         self._tick_real_rows += len(batch)
+        self._attr_note("decode", B, [(s.request.tenant, s.request.tier, 1, 0, 0)
+                                      for s in batch])
         self._tick_kv_blocks += sum(self._blocks_needed(s.n_valid + W) for s in batch)
         self._tick_kv_pos += sum(W * (s.n_valid + W // 2) for s in batch)
         self._tick_dev_steps += W
@@ -1115,6 +1208,8 @@ class GenServer:
             self._emit_tokens(s, [int(t) for t in host[i, :take]])
             self._seq_event(s, "decode_round", n_valid=s.n_valid, tokens=take)
             emitted += take
+            if take > 0:
+                self._attr_note("decode", 0, [(s.request.tenant, s.request.tier, 0, 0, take)])
         # the speculative accept ratio: drafts accepted per row per round
         RECORDER.observe_accept_ratio(accept_sum / len(batch))
         return emitted
@@ -1158,15 +1253,28 @@ class GenServer:
                 req.queue.put(np.asarray([s.emitted[req.delivered:req.delivered + n]
                                           for s in req.seqs], np.int32))
                 req.delivered += n
-        if all(s.done for s in req.seqs):
+        # the whole answer once every row is retired (in the same tick as
+        # its last token): each row's gen_sequence span then precedes the
+        # request span's close, so a postmortem of the request holds them
+        if not req.finished and all(s.done and s.retired for s in req.seqs):
+            req.finished = True
             out = np.asarray([s.emitted for s in req.seqs], np.int32)
-            elapsed = time.perf_counter() - req.t_submit
-            if req.chunk is not None and elapsed > 0:
-                # the decode-rate family: once a stream, as TTFT
-                RECORDER.observe_decode_rate(out.size / elapsed)
-            req.future.set_result(out)
-            if req.chunk is not None:
-                req.queue.put(None)
+            if self._in_tick:
+                self._tick_done.append((req, out))
+            else:
+                self._complete(req, out)
+
+    def _complete(self, req: GenRequest, out: np.ndarray) -> None:
+        """Hand a finished request its tokens (the stream its end)."""
+        if req.future.done():
+            return
+        elapsed = time.perf_counter() - req.t_submit
+        if req.chunk is not None and elapsed > 0:
+            # the decode-rate family: once a stream, as TTFT
+            RECORDER.observe_decode_rate(out.size / elapsed)
+        req.future.set_result(out)
+        if req.chunk is not None:
+            req.queue.put(None)
 
     def _retire_finished(self) -> int:
         finished = [s for s in self._active if s.done]
@@ -1176,6 +1284,7 @@ class GenServer:
         return len(finished)
 
     def _retire(self, seq: _Sequence, reason: str) -> None:
+        seq.retired = True
         self._release_blocks(seq)
         self.retired_total[reason] = self.retired_total.get(reason, 0) + 1
         RECORDER.record_gen_retired(reason)
@@ -1187,10 +1296,13 @@ class GenServer:
 
     @staticmethod
     def _seq_event(seq: _Sequence, name: str, **attrs: Any) -> None:
-        """One lifecycle event on a sampled sequence's timeline; a no-op
-        (one attribute read, one test) for an untraced request."""
+        """One lifecycle event on a sampled sequence's timeline, or one
+        under postmortem tail capture; a no-op (an attribute read and a
+        test or two) for an untraced request."""
         ctx = seq.request.trace_ctx
-        if ctx is None or not ctx.sampled or not TRACER.enabled or len(seq.events) >= 512:
+        if ctx is None or not (ctx.sampled or (ctx.pm and TRACER.pm_hook is not None)):
+            return
+        if not TRACER.enabled or len(seq.events) >= 512:
             return
         ev: Dict[str, Any] = {"name": name, "ts": round(time.time(), 6)}
         if attrs:
@@ -1202,7 +1314,11 @@ class GenServer:
         lifecycle (enqueue, admit, prefill chunks, decode rounds,
         preemptions, retire) as events, under the request's span."""
         ctx = seq.request.trace_ctx
-        if not seq.events or ctx is None or not ctx.sampled or not TRACER.enabled:
+        if not seq.events or ctx is None or not TRACER.enabled:
+            return
+        # a sampled-out sequence under tail capture: pending buffer only
+        pm_only = not ctx.sampled
+        if pm_only and not (ctx.pm and TRACER.pm_hook is not None):
             return
         start_s = seq.events[0]["ts"]
         TRACER.add(Span(
@@ -1211,7 +1327,7 @@ class GenServer:
             attrs={"sid": seq.sid, "tokens": len(seq.emitted), "n_valid": seq.n_valid,
                    "role": "unified"},
             trace_id=ctx.trace_id, span_id=new_span_id(), parent_span_id=ctx.span_id,
-            events=list(seq.events)))
+            events=list(seq.events), pm_only=pm_only))
         seq.events = []
 
     def _stamp_tick_error(self, exc: BaseException) -> None:

@@ -16,7 +16,9 @@ up), so serving and calling gRPC needs no ``grpcio``.
 
 A request's ``traceparent`` metadata becomes its handler's trace context
 (the unit services each open a ``server`` span of the node's name in it),
-and ``FastGrpcChannel.call`` sends ``metadata`` pairs as request headers.
+its ``seldon-tenant`` / ``seldon-tier`` metadata its QoS identity
+(``runtime/qos.py``), as the REST lane binds those headers; and
+``FastGrpcChannel.call`` sends ``metadata`` pairs as request headers.
 
 Scope (the reference's): unary calls, identity encoding, trailers-only
 error responses; no streaming RPCs, no TLS.
@@ -34,6 +36,7 @@ from seldon_core_tpu_torch.native.hpackcodec import (
     HpackError,
     encode_headers,
 )
+from seldon_core_tpu_torch.runtime.qos import bind_qos
 from seldon_core_tpu_torch.utils.telemetry import RECORDER
 from seldon_core_tpu_torch.utils.tracing import (
     TRACE_VAR,
@@ -387,13 +390,17 @@ class _ServerConnection(_H2Endpoint):
         self.protocols.discard(self)
 
     def _on_headers(self, sid, headers, end_stream):
-        path, traceparent = b"", None
+        path, traceparent, qos = b"", None, [None, None]
         for name, value in headers:
             if name == b":path":
                 path = value
             elif name == b"traceparent":
                 traceparent = value.decode("latin-1")
-        self.streams[sid] = (path, bytearray(), traceparent)
+            elif name == b"seldon-tenant":
+                qos[0] = value.decode("latin-1").strip()
+            elif name == b"seldon-tier":
+                qos[1] = value.decode("latin-1").strip()
+        self.streams[sid] = (path, bytearray(), traceparent, qos)
         if end_stream:  # unary call with no body: invalid -> trailers-only
             self._trailers_only(sid, GRPC_INTERNAL, b"missing request body")
             self.streams.pop(sid, None)
@@ -410,7 +417,7 @@ class _ServerConnection(_H2Endpoint):
             self.streams.pop(sid, None)
             return
         if end_stream:
-            path, buf, traceparent = self.streams.pop(sid)
+            path, buf, traceparent, qos = self.streams.pop(sid)
             handler = self.handlers.get(path)
             if handler is None:
                 self._trailers_only(
@@ -435,6 +442,8 @@ class _ServerConnection(_H2Endpoint):
             parent = parse_traceparent(traceparent)
             if parent is not None:
                 ctx.run(TRACE_VAR.set, parent)
+            if qos[0] is not None or qos[1] is not None:
+                ctx.run(bind_qos, *qos)
             task = asyncio.get_running_loop().create_task(
                 self._run(sid, handler, bytes(buf[5:])), context=ctx)
             self._tasks.add(task)

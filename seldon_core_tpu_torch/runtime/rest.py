@@ -20,6 +20,14 @@ Routes:
                                    ``?format=openmetrics``
   GET  /perf /genperf /overhead    the perf observatory, the generation-lane
                                    recorder, the telemetry overhead budget
+  GET  /quality                    the quality observatory (drift, feedback,
+                                   outliers, SLO burn) and the router state
+  POST /quality/reference          ``?action=freeze|reset`` / ``?node=`` or a
+                                   JSON body: the drift reference window (a
+                                   bad action answers 400)
+  GET  /postmortems                the tail-sampled postmortems; ``?puid=``
+                                   one full exemplar
+  GET  /costs                      the resource ledger
   GET  /trace /trace/export        ``?puid=`` / ``?trace_id=`` / ``?limit=``:
                                    the trace document, Chrome trace JSON
   POST /trace/enable /trace/disable   (a GET answers 405)
@@ -36,7 +44,8 @@ The unit microservice's routes (``FastHttpServer(routes=_UnitRoutes(...))``,
                                Feedback), JSON body or form ``json=``;
                                the answer a SeldonMessage (/route's a 1x1
                                tensor holding the branch)
-  GET  /ping /stats /perf /overhead /trace /trace/export
+  GET  /ping /stats /perf /overhead /quality /trace /trace/export
+  POST /quality/reference
 
 A request's ``Seldon-Deadline-Ms`` header becomes its deadline scope
 (``runtime/resilience.py``) for every route; a unit route whose budget is
@@ -61,13 +70,15 @@ frame.  A failure mid-stream sends a terminal error frame and closes the
 connection; a client that goes away closes the engine's generator.
 
 Every request's ``traceparent`` header is its trace context, as its
-``Seldon-Deadline-Ms`` header is its deadline scope: the engine's
-``request`` span and a unit's ``server`` span become the caller's
-children.  A unit route's latency lands in the recorder's
-``unit:<method>`` reservoir and histogram.  Not routed yet:
-``/quality``, ``/quality/reference``, ``/postmortems`` and ``/costs``
-(ROADMAP Queue 1 item [4b]), ``/autopilot`` and ``/corpus`` (item [4c]);
-not ported: the writer's transport flow control.
+``Seldon-Deadline-Ms`` header is its deadline scope and its
+``Seldon-Tenant`` / ``Seldon-Tier`` headers its QoS identity
+(``runtime/qos.py``, bound in the handler task's own context, so the
+binding ends with the request): the engine's ``request`` span and a unit's
+``server`` span become the caller's children, and the cost ledger bills the
+tenant.  A unit route's latency lands in the recorder's ``unit:<method>``
+reservoir and histogram.  Not routed yet: ``/autopilot`` and ``/corpus``
+(ROADMAP Queue 1 item [4c]); not ported: the writer's transport flow
+control.
 """
 
 from __future__ import annotations
@@ -90,6 +101,7 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessageList,
 )
 from seldon_core_tpu_torch.runtime import wire
+from seldon_core_tpu_torch.runtime.qos import bind_qos
 from seldon_core_tpu_torch.runtime.resilience import (
     DEADLINE_VAR,
     Deadline,
@@ -102,6 +114,7 @@ from seldon_core_tpu_torch.utils.metrics import (
     OPENMETRICS_CONTENT_TYPE,
 )
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.quality import QUALITY, parse_reference_action
 from seldon_core_tpu_torch.utils.telemetry import RECORDER
 from seldon_core_tpu_torch.utils.tracing import (
     TRACE_VAR,
@@ -188,6 +201,18 @@ def _json_doc(doc) -> Result:
     return 200, json.dumps(doc).encode(), _JSON
 
 
+async def _quality_reference(body, ctype) -> Result:
+    """``POST /quality/reference``: freeze or reset the drift reference
+    window (one handler for the engine and unit routes)."""
+    q = _request_query()
+    try:
+        action, node = parse_reference_action(body, q.get("action", [None])[0],
+                                              q.get("node", [None])[0])
+    except ValueError as e:
+        return 400, _failure(SeldonMessageError(str(e)), 400), _JSON
+    return _json_doc(QUALITY.reference_control(action, node=node))
+
+
 def _trace_doc(default_limit: int, process_name: Optional[str] = None) -> Result:
     """``/trace`` (``process_name`` None) or ``/trace/export``."""
     q = _request_query()
@@ -215,10 +240,11 @@ class _EngineRoutes:
             b"/trace/disable": self._trace_disable,
             b"/profile/start": self._profile_start,
             b"/profile/stop": self._profile_stop,
+            b"/quality/reference": _quality_reference,
         }
         # mutations: a GET answers 405, not 404
         self.post_only = frozenset((b"/trace/enable", b"/trace/disable", b"/profile/start",
-                                    b"/profile/stop"))
+                                    b"/profile/stop", b"/quality/reference"))
         # any method (engine RestClientController.java:177-180)
         self.any: Dict[bytes, Handler] = {b"/api/v0.1/events": self._events}
         self.get: Dict[bytes, Handler] = {
@@ -231,6 +257,9 @@ class _EngineRoutes:
             b"/perf": self._perf,
             b"/genperf": self._genperf,
             b"/overhead": self._overhead,
+            b"/quality": self._quality,
+            b"/postmortems": self._postmortems,
+            b"/costs": self._costs,
             b"/trace": self._trace,
             b"/trace/export": self._trace_export,
             b"/profile": self._profile,
@@ -326,6 +355,16 @@ class _EngineRoutes:
     async def _overhead(self, body, ctype) -> Result:
         return _json_doc(self.engine.overhead_document())
 
+    async def _quality(self, body, ctype) -> Result:
+        return _json_doc(self.engine.quality_document())
+
+    async def _postmortems(self, body, ctype) -> Result:
+        return _json_doc(self.engine.postmortems_document(
+            puid=_request_query().get("puid", [""])[0]))
+
+    async def _costs(self, body, ctype) -> Result:
+        return _json_doc(self.engine.costs_document())
+
     async def _trace(self, body, ctype) -> Result:
         return _trace_doc(100)
 
@@ -381,11 +420,13 @@ class _UnitRoutes:
             b"/route": self._handler("route"),
             b"/aggregate": self._handler("aggregate"),
             b"/send-feedback": self._handler("send_feedback"),
+            b"/quality/reference": _quality_reference,
         }
+        self.post_only = frozenset((b"/quality/reference",))
         self.any: Dict[bytes, Handler] = {}
         self.get: Dict[bytes, Handler] = {
             b"/ping": self._ping, b"/stats": self._stats, b"/perf": self._perf,
-            b"/overhead": self._overhead, b"/trace": self._trace,
+            b"/overhead": self._overhead, b"/quality": self._quality, b"/trace": self._trace,
             b"/trace/export": self._trace_export,
         }
 
@@ -421,8 +462,9 @@ class _UnitRoutes:
             except NotImplementedError as e:
                 return 501, _failure(e, 501), _JSON
             if framed and (resp.data is None or wire.frame_eligible(resp)):
+                # in the request's context: the frame's copies bill its tenant
                 parts = await asyncio.get_running_loop().run_in_executor(
-                    getattr(self.runtime, "executor", None),
+                    getattr(self.runtime, "executor", None), contextvars.copy_context().run,
                     lambda: wire.frame_from_message(resp, response=True, sidecar=False))
                 return 200, parts, _WIRE
             pool = getattr(self.runtime, "executor", None)
@@ -487,6 +529,11 @@ class _UnitRoutes:
     async def _overhead(self, body, ctype) -> Result:
         return _json_doc({"unit": self._unit(), **SPINE.overhead_document()})
 
+    async def _quality(self, body, ctype) -> Result:
+        # the node's own drift window: InProcessNodeRuntime.predict records
+        # it in the process-global observatory
+        return _json_doc({"unit": self._unit(), **QUALITY.document()})
+
     async def _trace(self, body, ctype) -> Result:
         return _trace_doc(100)
 
@@ -494,15 +541,16 @@ class _UnitRoutes:
         return _trace_doc(1000, f"unit {self.runtime.node.name}")
 
 
-def _header_value(lower: bytes, name: bytes) -> Optional[bytes]:
+def _header_value(lower: bytes, name: bytes, head: Optional[bytes] = None) -> Optional[bytes]:
     """Value of header ``name`` (lower-case, colon included) anchored at a
-    line start, so it never matches inside another header's name."""
+    line start, so it never matches inside another header's name; cut from
+    ``head`` (the head as received) when given, else lower-cased."""
     j = lower.find(b"\r\n" + name)
     if j < 0:
         return None
     start = j + 2 + len(name)
     stop = lower.find(b"\r", start)
-    return lower[start: stop if stop > 0 else None].strip()
+    return (lower if head is None else head)[start: stop if stop > 0 else None].strip()
 
 
 class _HttpProtocol(asyncio.Protocol):
@@ -676,6 +724,13 @@ class _HttpProtocol(asyncio.Protocol):
         parent = parse_traceparent(tp.decode("latin-1")) if tp is not None else None
         if parent is not None:
             ctx.run(TRACE_VAR.set, parent)
+        # the tenant id as sent (ids are case-sensitive); the tier is
+        # case-folded by parse_tier
+        tenant = _header_value(lower, b"seldon-tenant:", head)
+        tier = _header_value(lower, b"seldon-tier:")
+        if tenant is not None or tier is not None:
+            ctx.run(bind_qos, None if tenant is None else tenant.decode("latin-1"),
+                    None if tier is None else tier.decode("latin-1"))
         task = asyncio.get_running_loop().create_task(coro, context=ctx)
         self.queue.put_nowait((task, close))
 

@@ -25,11 +25,13 @@ Ops:
 Metadata sidecar: the op byte's high bit (``op | 0x80``) marks the payload
 as ``uvarint(meta_len) | meta_block | body``; the block (version first)
 carries the request deadline, traceparent, tenant and tier.  The server
-binds the deadline and the trace context around the handler, as the HTTP
-lane binds the ``Seldon-Deadline-Ms`` and ``traceparent`` headers (tenant
-and tier arrive with the QoS layer, ROADMAP Queue 1 item [4c]); a
+binds the deadline, the trace context, the tenant and the tier around the
+handler, as the HTTP lane binds the ``Seldon-Deadline-Ms``,
+``traceparent``, ``Seldon-Tenant`` and ``Seldon-Tier`` headers; a
 malformed block degrades to no metadata.  The client packs the calling
-context's deadline and traceparent.
+context's deadline, traceparent, tenant and tier, and with the cost ledger
+on bills each frame's bytes to the bound tenant (lane ``relay``,
+``udsrelay.py:608-619`` there).
 
 Scope: unary predict, feedback and the binary wire.  The client pipelines
 nothing: each pooled connection carries one request at a time.  The
@@ -51,7 +53,9 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessageError,
 )
 from seldon_core_tpu_torch.runtime import wire as wirelib
+from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier, qos_scope
 from seldon_core_tpu_torch.runtime.resilience import maybe_deadline_scope, remaining_s
+from seldon_core_tpu_torch.utils.costledger import LEDGER, costledger_enabled
 from seldon_core_tpu_torch.utils.telemetry import RECORDER
 from seldon_core_tpu_torch.utils.tracing import (
     parse_traceparent,
@@ -149,15 +153,17 @@ def unpack_relay_meta(view) -> dict:
 
 
 def current_relay_meta() -> "bytes | None":
-    """The calling context's deadline and traceparent as a sidecar block,
-    or None when neither is bound (the frame then goes out without
-    one)."""
+    """The calling context's deadline, traceparent, tenant and tier as a
+    sidecar block, or None when nothing is bound (the frame then goes out
+    without one)."""
     rem = remaining_s()
     tp = traceparent_header_value()
-    if rem is None and tp is None:
+    tenant = current_tenant()
+    tier = current_tier()
+    if rem is None and tp is None and tenant is None and tier == "interactive":
         return None
     return pack_relay_meta(deadline_ms=None if rem is None else max(rem * 1e3, 1.0),
-                           traceparent=tp)
+                           traceparent=tp, tenant=tenant, tier=tier)
 
 
 class _UdsServerProtocol(asyncio.Protocol):
@@ -337,10 +343,11 @@ class _UdsServerProtocol(asyncio.Protocol):
         if meta is not None:
             # the sidecar's deadline binds as the HTTP lane binds the
             # header (it can only tighten an inherited one), its trace
-            # context as the traceparent header does
+            # context, tenant and tier as those headers do
             dl = meta.get("deadline_ms")
             with maybe_deadline_scope(dl / 1e3 if dl else None), \
-                    trace_scope(parse_traceparent(meta.get("traceparent"))):
+                    trace_scope(parse_traceparent(meta.get("traceparent"))), \
+                    qos_scope(meta.get("tenant"), meta.get("tier")):
                 return await self._handle(op, data, None)
         if op in (OP_PREDICT, OP_WIRE):
             RECORDER.record_lane_request("relay")
@@ -442,6 +449,8 @@ class UdsRelayClient:
         self._open = 0
         self._lock = asyncio.Lock()
         self.closed = False
+        #: deployment identity on the ledger's relay-byte rows
+        self.cost_deployment = ""
 
     async def _connect(self):
         return await asyncio.open_unix_connection(self.path)
@@ -509,6 +518,11 @@ class UdsRelayClient:
             op |= META_FLAG
             prefix = _uvarint(len(meta)) + meta
             payload = prefix + payload
+        if costledger_enabled():
+            # tenant-attributed relay bytes; a call with no tenant bound
+            # books under the anonymous one, so lane totals stay complete
+            LEDGER.note_bytes(current_tenant() or "", self.cost_deployment, "relay",
+                              len(payload))
         try:
             writer.write(_REQ_HEAD.pack(len(payload), op))
             if payload:

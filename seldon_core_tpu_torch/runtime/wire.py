@@ -51,12 +51,14 @@ widens them to float32 exactly; ``encode_frame`` takes a
 array among them) is the reference's ``WireError``.
 
 The sidecar carries the calling context's deadline
-(``runtime/resilience.py``) and W3C ``traceparent`` (``utils/tracing.py``);
-tenant and tier stay empty until the QoS layer (ROADMAP Queue 1 item
-[4c]).  Host-side byte copies the codec or a lane feeding it makes are
-counted by the flight recorder (``RECORDER.record_wire_copy``: the
+(``runtime/resilience.py``), W3C ``traceparent`` (``utils/tracing.py``),
+tenant and tier (``runtime/qos.py``; the default tier is left empty).
+Host-side byte copies the codec or a lane feeding it makes are counted by
+the flight recorder (``RECORDER.record_wire_copy``: the
 ``seldon_tpu_wire_bytes_copied_total`` family, ``bytes_copied()``, the
-engine's ``/stats``).
+engine's ``/stats``) and, with the cost ledger on, billed to the bound
+tenant (lane ``wire_copy``; a dispatch-thread copy with no tenant bound
+books under the anonymous one, so lane totals stay complete).
 
 Content negotiation: HTTP lanes carry frames under ``Content-Type:
 application/x-seldon-tensor``; the framed relay (``runtime/udsrelay.py``)
@@ -81,7 +83,9 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessageError,
     Status,
 )
+from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier
 from seldon_core_tpu_torch.runtime.resilience import remaining_s
+from seldon_core_tpu_torch.utils.costledger import LEDGER, costledger_enabled
 from seldon_core_tpu_torch.utils.telemetry import RECORDER
 from seldon_core_tpu_torch.utils.tracing import traceparent_header_value
 
@@ -181,9 +185,12 @@ def wire_enabled() -> bool:
 def account_copy(nbytes: int) -> None:
     """One host-side byte copy of ``nbytes`` made by the codec or a lane
     feeding it (a receive buffer materialized, parts joined), into the
-    flight recorder."""
+    flight recorder and, with the cost ledger on, billed to the bound
+    tenant."""
     if nbytes > 0:
         RECORDER.record_wire_copy(nbytes)
+        if costledger_enabled():
+            LEDGER.note_bytes(current_tenant() or "", "", "wire_copy", int(nbytes))
 
 
 def bytes_copied() -> int:
@@ -289,14 +296,17 @@ def unpack_wire_meta(view) -> dict:
 
 
 def current_wire_sidecar(extra: "dict | None" = None, puid: "str | None" = None) -> bytes:
-    """The calling context's deadline and trace context as sidecar bytes
-    (tenant and tier stay empty until ROADMAP Queue 1 item [4c]): what the
-    JSON lanes forward as headers, for frames that hop node to node."""
+    """The calling context's deadline, trace context, tenant and tier as
+    sidecar bytes: what the JSON lanes forward as headers, for frames that
+    hop node to node."""
     rem = remaining_s()
+    tier = current_tier()
     return pack_wire_meta(
         puid=puid,
         deadline_ms=max(rem * 1e3, 1.0) if rem is not None else None,
         traceparent=traceparent_header_value(),
+        tenant=current_tenant(),
+        tier=None if tier == "interactive" else tier,
         extra=extra,
     )
 

@@ -2,12 +2,12 @@
 consumers, and an enforced overhead budget; the port's counterpart of
 ``seldon_core_tpu/utils/hotrecord.py``.
 
-Not ported yet: the quality fold (``HOP_QUALITY``, ``record_quality``, the
-per-dispatch drift summarize) and the postmortem tail capture, both
-ROADMAP Queue 1 item [4b], so ``Wants.quality`` is always False and
-``TRACER.pm_hook`` stays None; the autopilot's and the perf corpus's
-learning from the dispatch record and the QoS tier ([4c]); the cost
-ledger's attribution payloads ([4b]).
+The quality observatory folds the dispatch records' batches
+(``WANT_QUALITY``) and the host-mode / unit-pod quality hop
+(``HOP_QUALITY``), the cost ledger the flush and tick records' attribution
+payloads (``WANT_COST``), and the postmortem recorder every folded span
+(``TRACER.pm_hook``).  Not ported yet: the autopilot's and the perf
+corpus's learning from the dispatch record (ROADMAP Queue 1 item [4c]).
 
 Inline observability puts per-request work on the dispatch path — a span
 append under the tracer lock, a label lookup per span kind, a
@@ -69,7 +69,9 @@ import time
 import weakref
 from typing import Any, Dict, List, Optional
 
+from seldon_core_tpu_torch.runtime.qos import current_tier
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.quality import QUALITY
 from seldon_core_tpu_torch.utils.telemetry import RECORDER, Reservoir
 from seldon_core_tpu_torch.utils.tracing import (
     TRACER,
@@ -110,9 +112,22 @@ def _env_float(name: str, default: float) -> float:
 
 
 def _dispatch_tier() -> str:
-    """The QoS tier bound to the calling context: '' until the QoS layer
-    comes with ROADMAP Queue 1 item [4c]."""
-    return ""
+    """The QoS tier bound to the calling context (``runtime/qos.py``)."""
+    return current_tier() or ""
+
+
+def _ready_event(*tensors):
+    """A CUDA event recorded on the current stream after ``tensors`` when
+    any of them lives on a card, else None."""
+    for t in tensors:
+        dev = getattr(t, "device", None)
+        if getattr(dev, "type", None) == "cuda":
+            import torch
+
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            return ev
+    return None
 
 
 class HotRecord:
@@ -137,6 +152,8 @@ class HotRecord:
         "requests",       # callers coalesced into a flush
         "predicted_s",    # autopilot-predicted wall of a planned flush
         "quality_node", "batch_x", "batch_y",
+        "ready",          # CUDA event recorded after device batch tensors
+                          # (the drainer's summarize waits on it)
         "phases",         # fused-graph per-node phase decomposition
                           # ({node: share}, graph/fuse.py) — one record
                           # still explains a whole-graph dispatch
@@ -178,6 +195,7 @@ class HotRecord:
         self.quality_node = ""
         self.batch_x = None
         self.batch_y = None
+        self.ready = None
         self.phases = None
         self.error = None
         self.span = None
@@ -403,9 +421,10 @@ class TelemetrySpine:
             trace = TRACER.enabled and (
                 TRACER.sample >= 1.0 or u < TRACER.sample
             )
-        # the quality draw (u < QUALITY.sample) joins with the quality
-        # observatory, ROADMAP Queue 1 item [4b]
-        return Wants(trace, False, OBSERVATORY.enabled, False, pm=pm)
+        quality = QUALITY.enabled and QUALITY.sample > 0.0 and (
+            QUALITY.sample >= 1.0 or u < QUALITY.sample
+        )
+        return Wants(trace, quality, OBSERVATORY.enabled, False, pm=pm)
 
     # -- hot-path record sites ---------------------------------------------
 
@@ -607,8 +626,22 @@ class TelemetrySpine:
         rec.gen_detail = detail
         return self._append(rec)
 
-    # record_quality (the host-mode / unit-pod quality hop) comes with the
-    # quality observatory, ROADMAP Queue 1 item [4b]
+    def record_quality(self, node: str, X, Y,
+                       real_rows: Optional[int] = None) -> bool:
+        """Host-mode / unit-pod quality hop: per-node batch references,
+        folded off-path.  Device tensors (a node's input and output on the
+        card) get a CUDA event recorded after them on the calling thread's
+        stream, which the drainer's summarize waits on: no sync here."""
+        wants = self.dispatch_wants()
+        if not wants.quality:
+            return False
+        rec = HotRecord(HOP_QUALITY, WANT_QUALITY)
+        rec.quality_node = node
+        rec.batch_x = X
+        rec.batch_y = Y
+        rec.ready = _ready_event(X, Y)
+        rec.real_rows = -1 if real_rows is None else int(real_rows)
+        return self._append(rec)
 
     # -- drain (the off-path consumers) ------------------------------------
 
@@ -735,8 +768,13 @@ class TelemetrySpine:
                     span_id=new_span_id(),
                 ))
                 self.fold_cost["tracer"].observe(pc() - t0)
-            # the cost ledger's flush fold (WANT_COST) comes with ROADMAP
-            # Queue 1 item [4b]
+            if rec.flags & WANT_COST and rec.cost is not None:
+                # tenant attribution of the flush's wall, off-path
+                t0 = pc()
+                from seldon_core_tpu_torch.utils.costledger import LEDGER
+
+                LEDGER.fold_flush(rec.cost, rec.duration_s)
+                self.fold_cost["ledger"].observe(pc() - t0)
             return
         if rec.hop == HOP_GEN_STEP:
             # gauges/counters were set by the scheduler itself (one call
@@ -780,6 +818,14 @@ class TelemetrySpine:
                 for _n_blocks, age_s in (detail.get("kv_ages") or ()):
                     RECORDER.record_gen_kv_block_age(float(age_s))
                 self.fold_cost["recorder"].observe(pc() - t0)
+            if detail is not None and rec.flags & WANT_COST:
+                # per-tenant split of the tick's device wall and the
+                # KV-block-seconds released: the ledger's generation lane
+                t0 = pc()
+                from seldon_core_tpu_torch.utils.costledger import LEDGER
+
+                LEDGER.fold_gen_tick(detail)
+                self.fold_cost["ledger"].observe(pc() - t0)
             if rec.flags & WANT_TRACE:
                 t0 = pc()
                 admitted, retired, used, total, tokens = rec.gen
@@ -808,6 +854,15 @@ class TelemetrySpine:
                 ))
                 self.fold_cost["tracer"].observe(pc() - t0)
             return
+        if rec.hop == HOP_QUALITY:
+            t0 = pc()
+            QUALITY.fold_batch(
+                rec.quality_node, rec.batch_x, rec.batch_y,
+                real_rows=None if rec.real_rows < 0 else rec.real_rows,
+                ready=rec.ready,
+            )
+            self.fold_cost["quality"].observe(pc() - t0)
+            return
         if rec.hop == HOP_DISPATCH:
             self.hop_ms["dispatch"].observe(rec.duration_s * 1e3)
             attrs: Dict[str, Any] = {"rows": rec.rows}
@@ -824,6 +879,15 @@ class TelemetrySpine:
                 # the autopilot's and the perf corpus's learning from the
                 # same record come with ROADMAP Queue 1 item [4c]
                 self.fold_cost["perf"].observe(pc() - t0)
+            if rec.flags & WANT_QUALITY:
+                t0 = pc()
+                drift = QUALITY.fold_batch(
+                    rec.quality_node, rec.batch_x, rec.batch_y,
+                    real_rows=rec.real_rows,
+                )
+                if drift is not None:
+                    attrs["drift"] = round(drift, 4)
+                self.fold_cost["quality"].observe(pc() - t0)
             if rec.flags & (WANT_TRACE | WANT_PM):
                 t0 = pc()
                 if rec.error:
@@ -877,13 +941,28 @@ class TelemetrySpine:
             RECORDER.set_telemetry_records(hop, n)
         # derived generation-lane gauges (served decode MFU) ride the
         # same throttle — computed from GENPERF's fold-side totals; the
-        # autopilot's, the corpus's, the cost ledger's and the
-        # postmortems' gauges join here with ROADMAP Queue 1 items [4b]
-        # and [4c]
+        # autopilot's and the corpus's join here with ROADMAP Queue 1 item
+        # [4c]
         try:
             from seldon_core_tpu_torch.utils.genperf import GENPERF
 
             GENPERF.publish_gauges()
+        except Exception:  # noqa: BLE001 - gauges must not wedge a drain
+            pass
+        # resource-attribution counters (cost_device_seconds /
+        # kv_block_seconds / pad_tax / attributed_fraction): deltas computed
+        # fold-side, pushed on the same 1/s throttle
+        try:
+            from seldon_core_tpu_torch.utils.costledger import LEDGER
+
+            LEDGER.publish_gauges()
+        except Exception:  # noqa: BLE001 - gauges must not wedge a drain
+            pass
+        # postmortem pinned-span accounting rides the same throttle
+        try:
+            from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM
+
+            POSTMORTEM.publish_gauges()
         except Exception:  # noqa: BLE001 - gauges must not wedge a drain
             pass
 
@@ -949,13 +1028,12 @@ class TelemetrySpine:
                 "recorder": self.telemetry_enabled,
                 "tracer": TRACER.enabled,
                 "perf": OBSERVATORY.enabled,
-                # the quality observatory comes with ROADMAP Queue 1 [4b]
-                "quality": False,
+                "quality": QUALITY.enabled,
             },
             "sampling": {
                 "unified": True,
                 "trace": TRACER.sample,
-                "quality": 0.0,
+                "quality": QUALITY.sample,
             },
         }
 
@@ -991,6 +1069,14 @@ TRACER.sink = SPINE.offer_span
 TRACER.drain_hook = SPINE.drain
 RECORDER.drain_hook = SPINE.drain
 OBSERVATORY.drain_hook = SPINE.drain
-# the quality observatory's drain hook and the postmortem tail capture
-# (TRACER.pm_hook = POSTMORTEM.offer) come with ROADMAP Queue 1 item [4b];
-# until then pm_hook stays None, which is head sampling bit for bit
+QUALITY.drain_hook = SPINE.drain
+
+# tail-sampled postmortem capture (utils/postmortem.py): every folded span,
+# sampled or pm_only, is offered to the pending buffer so the keep/drop
+# verdict can wait for request completion.  SELDON_TPU_POSTMORTEM=0 leaves
+# pm_hook None, which is head sampling bit for bit: no pm_only span is
+# ever recorded.
+from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM  # noqa: E402
+
+if POSTMORTEM.enabled:
+    TRACER.pm_hook = POSTMORTEM.offer

@@ -38,6 +38,7 @@ from seldon_core_tpu_torch.utils.promtext import (
     generate_latest,
     generate_latest_openmetrics,
 )
+from seldon_core_tpu_torch.utils.quality import QUALITY
 from seldon_core_tpu_torch.utils.telemetry import RECORDER, TPU_METRIC_FAMILIES
 
 HAVE_PROMETHEUS = True
@@ -146,9 +147,15 @@ class MetricsRegistry:
             dt = time.perf_counter() - start
             # /stats percentile reservoirs run even without prometheus_client
             RECORDER.request_latency(f"server:{service}", dt)
-            # the SLO burn feed (QUALITY.record_request on "predictions",
-            # utils/quality.py there) comes with the quality observatory,
-            # ROADMAP Queue 1 item [4b]
+            if service == "predictions":
+                # the SLO engine (utils/quality.py): burn rates ride the
+                # request stream this histogram observes; a 5xx burns the
+                # error budget, anything over SELDON_TPU_SLO_P99_MS the
+                # latency budget.  A policy refusal (code["shed"]) is flow
+                # control, not a failure
+                QUALITY.record_request(
+                    dt, error=(code_holder["code"].startswith("5")
+                               and not code_holder.get("shed")))
             if self.registry is not None:
                 self._server_child(service, method, code_holder["code"]).observe(dt)
 

@@ -168,6 +168,15 @@ class _Metric:
                     child = self._children[values] = self._new_child()
         return child
 
+    def remove(self, *values) -> None:
+        """Drop one labelled child (``prometheus_client``'s ``remove``): its
+        series leaves the exposition.  KeyError when there is none."""
+        values = tuple(str(v) for v in values)
+        if len(values) != len(self.labelnames) or not self.labelnames:
+            raise ValueError(f"{self.name}: wrong label count")
+        with self._lock:
+            del self._children[values]
+
     def _root(self) -> _Child:
         if self.labelnames:
             raise ValueError(f"{self.name} has labels: call .labels(...) first")

@@ -16,9 +16,11 @@ process-global hub instead of the per-predictor ``MetricsRegistry``:
     Every family that ``TPU_METRIC_FAMILIES`` names is declared, so the
     exposition contract (``family_names()``, the ``monitoring/``
     dashboards and alerts) is whole; the families of subsystems the port
-    has not brought over yet (the KV hand-off, the fleet, brownout, costs,
-    the autopilot, quality: ROADMAP Queue 1 items [4b]-[4d], [6]) stay at
-    zero.
+    has not brought over yet (the KV hand-off, the fleet, brownout, the
+    tenant governor, the autopilot: ROADMAP Queue 1 items [4c], [4d], [6])
+    stay at zero; quality, postmortem and cost families move with
+    ``utils/quality.py``, ``utils/postmortem.py`` and
+    ``utils/costledger.py``.
   * ``AuditLog`` is the engine-side request-audit stream: an async
     bounded-queue JSONL log (puid, graph path, batch size, latency,
     token counts).  ``record()`` never blocks — a full queue counts a
@@ -1939,8 +1941,14 @@ class FlightRecorder:
             OBSERVATORY.hbm_watermarks()
         except Exception:  # noqa: BLE001 - scrape must never fail on polling
             pass
-        # the SLO burn gauges' scrape-time refresh (QUALITY.refresh_gauges)
-        # comes with the quality observatory, ROADMAP Queue 1 item [4b]
+        try:
+            # the SLO burn and drift gauges: a Prometheus-only deployment
+            # sees live scores at scrape time
+            from seldon_core_tpu_torch.utils.quality import QUALITY
+
+            QUALITY.refresh_gauges()
+        except Exception:  # noqa: BLE001 - scrape must never fail here
+            pass
         if openmetrics:
             return generate_latest_openmetrics(self.registry)
         return generate_latest(self.registry)

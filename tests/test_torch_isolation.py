@@ -12,8 +12,9 @@ example (its rows from the bundled csv) and the epsilon-greedy router
 example with a feedback, one host-mode request through a REST node served
 by the port's unit microservice, streams the generator's tokens, takes a
 training step, round-trips a checkpoint, and over its REST lane scrapes
-``/prometheus`` and reads a request's ``/trace`` with all of them
-blocked."""
+``/prometheus``, reads a request's ``/trace`` and, after a request sent
+with a ``Seldon-Tenant`` header, ``/quality``, ``/costs`` and
+``/postmortems``, with all of them blocked."""
 
 import ast
 import os
@@ -49,7 +50,8 @@ def _port_files():
             "runtime/wire.py", "protoconv.py", "runtime/grpcfast.py",
             "runtime/udsrelay.py", "utils/telemetry.py", "utils/promtext.py",
             "utils/metrics.py", "utils/tracing.py", "utils/perf.py", "utils/hotrecord.py",
-            "utils/genperf.py", "utils/chips.py"} <= names
+            "utils/genperf.py", "utils/chips.py", "utils/quality.py", "utils/postmortem.py",
+            "utils/costledger.py", "runtime/qos.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py")]
@@ -221,24 +223,32 @@ async def observed():
     server = await serve_fast(mnist, "127.0.0.1", 0)
     loop = asyncio.get_running_loop()
 
-    def get(path, body=None):
+    def get(path, body=None, headers=None):
         with urllib.request.urlopen(urllib.request.Request(
-                f"http://127.0.0.1:{server.port}{path}", data=body), timeout=60) as r:
+                f"http://127.0.0.1:{server.port}{path}", data=body, headers=headers or {}),
+                timeout=60) as r:
             return r.status, r.read().decode()
 
     try:
         await loop.run_in_executor(None, get, "/api/v0.1/predictions", json.dumps(
-            {"meta": {"puid": "iso"}, "data": {"ndarray": [[0.5] * 784]}}).encode())
+            {"meta": {"puid": "iso"}, "data": {"ndarray": [[0.5] * 784]}}).encode(),
+            {"Seldon-Tenant": "iso-t"})
         prom_status, prom = await loop.run_in_executor(None, get, "/prometheus")
         trace_status, trace = await loop.run_in_executor(None, get, "/trace?puid=iso")
+        quality_status, quality = await loop.run_in_executor(None, get, "/quality")
+        costs_status, costs = await loop.run_in_executor(None, get, "/costs")
+        pm_status, pm = await loop.run_in_executor(None, get, "/postmortems")
     finally:
         await server.stop()
         mnist.close()
     families = {line.split()[2] for line in prom.splitlines() if line.startswith("# TYPE ")}
     want = {n[:-6] + "_total" if n.endswith("_total") else n
             for n in MetricsRegistry.family_names()}
+    tenants = {r["tenant"] for r in json.loads(costs)["tenants"]}
     return [prom_status, want <= families, trace_status,
-            sorted({s["name"] for s in json.loads(trace)["spans"]})]
+            sorted({s["name"] for s in json.loads(trace)["spans"]}),
+            quality_status, [n["node"] for n in json.loads(quality)["nodes"]],
+            costs_status, "iso-t" in tenants, pm_status, "counters" in json.loads(pm)]
 
 obs = asyncio.run(observed())
 leaked = sorted(m for m in sys.modules
@@ -266,4 +276,5 @@ def test_port_serves_with_jax_blocked():
         '"lane": ["genserver", 2], "sampled": [200, 16, 1], "streamed": true, "trained": true, '
         '"new_examples": [200, ["setosa", "versicolor", "virginica"], 200, true, 1.0], '
         '"remote": ["host", 200, 10], "lanes": [200, 200, true, true], '
-        '"obs": [200, true, 200, ["batch_queue", "dispatch", "request"]], "leaked": []}')
+        '"obs": [200, true, 200, ["batch_queue", "dispatch", "request"], 200, ["iris", "m", "mnist"], '
+        '200, true, 200, true], "leaked": []}')

@@ -26,6 +26,7 @@ from seldon_core_tpu_torch.runtime.engine import EngineService
 from seldon_core_tpu_torch.utils import genperf as pgp
 from seldon_core_tpu_torch.utils import hotrecord as phr
 from seldon_core_tpu_torch.utils import perf as pperf
+from seldon_core_tpu_torch.utils import quality as pquality
 from seldon_core_tpu_torch.utils import telemetry as ptel
 from seldon_core_tpu_torch.utils import tracing as ptr
 
@@ -173,9 +174,14 @@ def _drive(engine, n=3, rows=2):
 
 
 def _counted(monkeypatch):
-    counts = {"ring": 0, "perf": 0, "tracer": 0}
+    counts = {"ring": 0, "perf": 0, "quality": 0, "tracer": 0}
     spine, obs, tracer = phr.SPINE, pperf.OBSERVATORY, ptr.TRACER
     real_append, real_perf, real_fold = spine._append, obs.observe_dispatch, tracer._fold
+    real_quality = pquality.QUALITY.fold_batch
+
+    def quality(*a, **k):
+        counts["quality"] += 1
+        return real_quality(*a, **k)
 
     def append(rec):
         counts["ring"] += 1
@@ -192,14 +198,16 @@ def _counted(monkeypatch):
     monkeypatch.setattr(spine, "_append", append)
     monkeypatch.setattr(obs, "observe_dispatch", perf)
     monkeypatch.setattr(tracer, "_fold", fold)
+    monkeypatch.setattr(pquality.QUALITY, "fold_batch", quality)
     return counts
 
 
-def _switch(monkeypatch, telemetry, trace, perf):
+def _switch(monkeypatch, telemetry, trace, perf, quality=False):
     monkeypatch.setattr(phr.SPINE, "telemetry_enabled", telemetry)
     monkeypatch.setattr(ptr.TRACER, "enabled", trace)
     monkeypatch.setattr(ptr.TRACER, "sample", 1.0)
     monkeypatch.setattr(pperf.OBSERVATORY, "enabled", perf)
+    monkeypatch.setattr(pquality.QUALITY, "enabled", quality)
 
 
 @pytest.fixture
@@ -216,19 +224,22 @@ def engine():
 
 
 def test_all_kill_switches_mean_zero_ring_writes(engine, monkeypatch):
-    """SELDON_TPU_TELEMETRY=0, SELDON_TPU_TRACE=0 and SELDON_TPU_PERF=0:
-    the served path performs zero ring writes and zero observatory calls
-    (the quality observatory is not ported, so it is off by nature)."""
+    """SELDON_TPU_TELEMETRY=0, SELDON_TPU_TRACE=0, SELDON_TPU_PERF=0,
+    SELDON_TPU_QUALITY=0 and SELDON_TPU_COSTLEDGER=0: the served path
+    performs zero ring writes and zero observatory calls (the cost ledger
+    is the fifth consumer: its flush payloads keep records flowing with
+    the other four off, so it is cut here too)."""
     _switch(monkeypatch, False, False, False)
+    monkeypatch.setenv("SELDON_TPU_COSTLEDGER", "0")
     counts = _counted(monkeypatch)
     _drive(engine)
     phr.SPINE.drain()
-    assert counts == {"ring": 0, "perf": 0, "tracer": 0}
+    assert counts == {"ring": 0, "perf": 0, "quality": 0, "tracer": 0}
 
 
-@pytest.mark.parametrize("on", ["telemetry", "trace", "perf"])
+@pytest.mark.parametrize("on", ["telemetry", "trace", "perf", "quality"])
 def test_each_consumer_degrades_on_its_own(engine, monkeypatch, on):
-    _switch(monkeypatch, on == "telemetry", on == "trace", on == "perf")
+    _switch(monkeypatch, on == "telemetry", on == "trace", on == "perf", on == "quality")
     counts = _counted(monkeypatch)
     batches = ptel.RECORDER.batch_occupancy.snapshot()["count"]
     _drive(engine)
@@ -236,6 +247,7 @@ def test_each_consumer_degrades_on_its_own(engine, monkeypatch, on):
     assert counts["ring"] >= 3
     assert (counts["perf"] > 0) == (on == "perf")
     assert (counts["tracer"] > 0) == (on == "trace")
+    assert (counts["quality"] > 0) == (on == "quality")
     grew = ptel.RECORDER.batch_occupancy.snapshot()["count"] > batches
     assert grew == (on == "telemetry")
 
