@@ -347,6 +347,36 @@ it serves the static lane it measured before that lane's switch:
               1-row MNIST p50 with quality, the ledger and postmortems on
               and off in turns, beside /overhead's fold costs; a
               {"new_paths": {"quality_costs": ...}} line
+ 10q. the autopilot and the policies (after 10p, engines of their own, the
+              deciding singletons reset): MNIST prewarmed in process (a seed
+              prior for every bucket), then 6 requests of each of 1, 8, 32
+              and 64 rows: /autopilot's learned estimate of each pad
+              bucket within 3x of /perf's p50 of the same key, dispatch
+              spans carrying autopilot_predicted_ms, the keys gauge, the
+              fused MLP's launches the dispatches.  3 bursts of 48
+              concurrent 1-24-row requests (half with a deadline): flush
+              decisions rise, every answer bit for bit a
+              SELDON_TPU_AUTOPILOT=0 engine's.  8 binary frames whose
+              Seldon-Deadline-Ms is the 64-row (else the 1,024-row)
+              estimate / 1.25 answer 503 "autopilot load shed" with no
+              launch, 8 ample ones are served, and postmortems keep the
+              sheds and, at a low excess factor, autopilot_excess.  A
+              fused RANDOM_ABTEST over outlier -> MNIST and MNIST: under a
+              deadline between the learned branch walls every branch-0
+              pick is served by branch 1 and tagged (the kill switch
+              follows the router).  The flagship generator (16 slots, 384
+              blocks) under a brownout ladder at depth 4: a batch-tier
+              32-row request and 4 interactive ones, the ladder 0 -> 1 ->
+              2 -> 3 and back one step a tick, offline and batch MNIST
+              shed at stages 1 and 3, a stage-2 request half as long,
+              prefill at the floor, batch-tier victims only, interactive
+              admitted first; paged launches 12 x the steps and ticks.
+              Two engine_main processes, one with ENGINE_PREWARM_WIDTHS:
+              shapes and launches before binding, first-request walls and
+              p50s; the perf corpus warming a restarted engine_main and
+              rotating; the 1-row p50 with the policies on and off in
+              turns beside /overhead; a {"new_paths": {"policies": ...}}
+              line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -6702,6 +6732,10 @@ def quality_costs_phase(torch, dev, smi) -> dict:
     counted = dev.type == "cuda"  # the plain versions on the CPU count nothing
     observatories(True)
     qc_switches(True)
+    # 10p's 1 ms SLO target burns its budget, and the brownout ladder would
+    # answer that burn by halving its generations: 10p measures quality and
+    # costs at full length, so the ladder is off until 10q
+    os.environ["SELDON_TPU_BROWNOUT"] = "0"
     drift = qc_drift(torch, dev, smi, counted)
     router = qc_router(torch, dev, smi, counted)
     outlier = qc_outlier(torch, dev, smi, counted)
@@ -6709,6 +6743,7 @@ def quality_costs_phase(torch, dev, smi) -> dict:
     pm = qc_postmortem(torch, dev, smi, counted, costs["walls_s"][-1])
     over = qc_overhead(torch, dev, smi, counted)
     observatories(False)
+    os.environ["SELDON_TPU_BROWNOUT"] = "1"
     out = {"drift": drift, "router": router, "outlier": outlier, "costs": costs,
            "postmortem": pm, "overhead": over, "card": smi,
            "launches": {
@@ -6718,6 +6753,775 @@ def quality_costs_phase(torch, dev, smi) -> dict:
                   for k in ("flash_decode_paged", "kv_write_paged")}},
            "wall_s": time.perf_counter() - t0}
     log(f"[quality] phase 10p wall {out['wall_s']:.2f} s")
+    return out
+
+
+PQ_BUCKETS = (1, 8, 32, 64)   # the pad buckets the model learns in part 1
+PQ_BURSTS = 3              # bursts of PQ_BURST concurrent requests in part 2
+PQ_BURST = 48
+PQ_SHEDS = 8               # requests under a deadline the model says they miss
+PQ_ROUTED = 24             # requests under the demotion deadline
+PQ_EST_X = 3.0             # a learned estimate within this factor of /perf's p50
+PQ_MAX_NEW_SCALE = 0.5     # SELDON_TPU_BROWNOUT_MAXNEW_SCALE's default
+# the ladder's knobs (SELDON_TPU_BROWNOUT_{DEPTH,DWELL_S,TICK_MS,REVERT_S}) and the
+# scheduler's in part 5: 16 slots, so the batch request's other 16 rows wait
+# (pressure 16 / 4 = 4: stage 3), and a pool that preempts the 16 admitted
+PQ_LADDER = {"enter_depth": 4.0, "dwell_s": 0.05, "tick_interval_s": 0.010, "revert_s": 1.0}
+PQ_GEN_ENV = {"SELDON_TPU_GEN_SLOTS": "16", "SELDON_TPU_GEN_POOL_BLOCKS": "384"}
+PQ_P50_REQUESTS = 50       # keepalive requests after a process's first
+PQ_CORPUS_REQUESTS = 40
+PQ_OVER_RUNS = 100         # requests a wall in part 9 (each of 32 clients: a share)
+PQ_ROUTER = "ab"
+
+
+def post_bytes(url: str, data: bytes, headers: dict):
+    """A POST of raw bytes; (status, body)."""
+    req = urllib.request.Request(url, data=data, method="POST", headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def policy_switches(on: bool) -> None:
+    """The autopilot and the brownout ladder on or off: their kill switches
+    are read at every decision."""
+    os.environ["SELDON_TPU_AUTOPILOT"] = "1" if on else "0"
+    os.environ["SELDON_TPU_BROWNOUT"] = "1" if on else "0"
+
+
+def settle_spine() -> None:
+    """Every pending record folded: a drain, then the drain lock once, so a
+    fold the drainer thread had in hand when the rings looked empty has
+    finished too."""
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+
+    SPINE.drain()
+    with SPINE._drain_lock:
+        pass
+
+
+def prom_samples(port: int):
+    """/prometheus's samples, every pending record folded first."""
+    settle_spine()
+    status, raw = request("GET", f"http://127.0.0.1:{port}/prometheus")
+    if status != 200:
+        raise AssertionError(f"[policies] /prometheus: HTTP {status}")
+    return parse_prometheus(raw.decode())[1]
+
+
+def pq_learn(torch, dev, smi, engine, port, counted: bool) -> dict:
+    """Part 1: the model learns the fused MLP's walls, bucket by bucket."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.autopilot import AUTOPILOT
+
+    n = 2 * AUTOPILOT.min_samples + 2
+    fused_mlp.LAUNCHES = 0
+    sent = 0
+    bodies = {b: ndarray(np.random.default_rng(SEED + 100 + b).random((b, 784)))
+              for b in PQ_BUCKETS}
+    # two dispatches a bucket first, then the model starts from nothing: a
+    # cold first wall (a dispatch thread's first call) would stay in the EWMA
+    # for many samples (0.7^(n-1) of it after n)
+    for b in PQ_BUCKETS:
+        keepalive_walls(port, bodies[b], 2)
+        sent += 2
+    settle_spine()
+    AUTOPILOT.reset()
+    for b in PQ_BUCKETS:
+        keepalive_walls(port, bodies[b], n)
+        sent += n
+    launches = fused_mlp.LAUNCHES
+    time.sleep(1.1)  # the spine's gauge refresh runs at most once a second
+    get_json(port, "/stats")
+    ap = get_json(port, "/autopilot")
+    perf = {r["executable"]: r for r in get_json(port, "/perf")["executables"]}
+    trace = get_json(port, "/trace?limit=400")
+    samples = prom_samples(port)
+    table = {r["key"]: r for r in ap["keys"]}
+    rows = {}
+    for b in PQ_BUCKETS:
+        key = engine.compiled.shape_key((b, 784), np.float64)
+        r, p = table.get(key), perf.get(key)
+        if r is None or p is None:
+            raise AssertionError(f"[policies] no /autopilot or /perf row for {key}: "
+                                 f"{sorted(table)} / {sorted(perf)}")
+        rows[b] = {"key": key, "samples": r["samples"], "learned_ms": r["learned_ms"],
+                   "seed_ms": r["seed_ms"], "perf_p50_ms": p["latency_ms"]["p50"]}
+    spans = [s for s in trace["spans"] if s["name"] == "dispatch"]
+    predicted = [s for s in spans if "autopilot_predicted_ms" in (s.get("attrs") or {})]
+    checks = {
+        "every bucket n >= min_samples": all(r["samples"] >= AUTOPILOT.min_samples
+                                             for r in rows.values()),
+        f"learned within {PQ_EST_X}x of /perf p50": all(
+            r["perf_p50_ms"] / PQ_EST_X <= r["learned_ms"] <= r["perf_p50_ms"] * PQ_EST_X
+            for r in rows.values()),
+        "dispatch spans carry autopilot_predicted_ms": len(predicted) > 0,
+        "seldon_tpu_autopilot_keys > 0": sample_sum(samples, "seldon_tpu_autopilot_keys") > 0,
+        "launches == dispatches": (launches == sent) if counted else True,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[policies] part 1 checks failed: {checks}; {rows}; "
+                             f"{len(predicted)}/{len(spans)} dispatch spans predicted; "
+                             f"launches {launches}, dispatches {sent}")
+    log(f"[policies] MNIST, {n} requests a pad bucket over one keepalive connection: "
+        + "; ".join(f"{b} rows: learned {r['learned_ms']} ms (seed {r['seed_ms']}, /perf p50 "
+                    f"{r['perf_p50_ms']}, {r['samples']} samples)" for b, r in rows.items())
+        + f"; {len(predicted)} of {len(spans)} dispatch spans in /trace carry "
+        f"autopilot_predicted_ms; seldon_tpu_autopilot_keys "
+        f"{sample_sum(samples, 'seldon_tpu_autopilot_keys')}; fused-MLP launches {launches} == "
+        f"{sent} dispatches ({smi})")
+    return {"buckets": rows, "launches": launches, "dispatches": sent,
+            "predicted_spans": len(predicted)}
+
+
+def pq_bursts(port: int, seed: int) -> list:
+    """PQ_BURSTS bursts of PQ_BURST concurrent 1- to 24-row requests, half
+    with a generous Seldon-Deadline-Ms; the answers, in order."""
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.random((int(rng.integers(1, 25)), 784)), i % 2 == 0)
+            for i in range(PQ_BURSTS * PQ_BURST)]
+    out = []
+    with ThreadPoolExecutor(PQ_BURST) as pool:
+        for k in range(PQ_BURSTS):
+            burst = reqs[k * PQ_BURST:(k + 1) * PQ_BURST]
+            futs = [pool.submit(request_headers, "POST", url, ndarray(x),
+                                {"Seldon-Deadline-Ms": "5000"} if dl else {})
+                    for x, dl in burst]
+            for (x, _), f in zip(burst, futs):
+                status, raw = f.result()
+                out.append(check_answer(status, raw, len(x), "ndarray"))
+    return out
+
+
+def pq_flush(torch, dev, smi, engine, port) -> dict:
+    """Part 2: the planner sizes the bursts' flushes; every answer equals the
+    same rows' answer in a kill-switch engine, bit for bit."""
+    before = sample_sum(prom_samples(port), "seldon_tpu_autopilot_decisions_total", site="flush")
+    planned = pq_bursts(port, SEED + 120)
+    after = sample_sum(prom_samples(port), "seldon_tpu_autopilot_decisions_total", site="flush")
+    twin = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    twin.load_states(engine.states())
+    server = ServerThread(twin)
+    tport = server.start()
+    os.environ["SELDON_TPU_AUTOPILOT"] = "0"
+    try:
+        tbefore = sample_sum(prom_samples(tport), "seldon_tpu_autopilot_decisions_total",
+                             site="flush")
+        legacy = pq_bursts(tport, SEED + 120)
+        tdec = sample_sum(prom_samples(tport), "seldon_tpu_autopilot_decisions_total",
+                          site="flush") - tbefore
+    finally:
+        os.environ["SELDON_TPU_AUTOPILOT"] = "1"
+        server.stop()
+    same = all(np.array_equal(a, b) for a, b in zip(planned, legacy))
+    checks = {"flush decisions rose": after > before,
+              "the kill switch plans nothing": tdec == 0,
+              "answers bit for bit": same and len(planned) == len(legacy)}
+    if not all(checks.values()):
+        raise AssertionError(f"[policies] part 2 checks failed: {checks}; decisions "
+                             f"{before} -> {after}, twin {tdec}")
+    log(f"[policies] {PQ_BURSTS} bursts of {PQ_BURST} concurrent 1-24-row requests, half with "
+        f"Seldon-Deadline-Ms 5000: seldon_tpu_autopilot_decisions_total{{site=\"flush\"}} "
+        f"{before} -> {after}; {len(planned)} answers equal bit for bit to a "
+        f"SELDON_TPU_AUTOPILOT=0 engine's ({smi})")
+    return {"flush_decisions": after - before, "answers": len(planned)}
+
+
+def pq_shed(torch, dev, smi, port, learned: dict, counted: bool) -> dict:
+    """Part 3: requests whose deadline sits below the learned estimate / 1.25
+    answer 503 before any dispatch; ample ones are served.  Binary frames, so
+    the deadline is not spent decoding JSON before admission."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime import wire
+    from seldon_core_tpu_torch.runtime.autopilot import SHED_INFO_PREFIX, shed_margin
+
+    from seldon_core_tpu_torch.runtime.autopilot import AUTOPILOT
+
+    coalesce_ms = 0.5  # the engine's MicroBatcher default, in the admission estimate
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    bucket = 64
+    est_ms = learned[64]["learned_ms"]
+    if est_ms + coalesce_ms < shed_margin():
+        # a 1 ms deadline cannot undercut the 64-row estimate: the 1,024-row
+        # bucket, learned here from binary frames
+        bucket = 1024
+        x = np.random.default_rng(SEED + 131).random((bucket, 784)).astype(np.float32)
+        body = wire.join_parts(wire.encode_frame(x))
+        for _ in range(AUTOPILOT.min_samples + 1):
+            status, _ = post_bytes(url, body, {"Content-Type": wire.WIRE_CONTENT_TYPE})
+            if status != 200:
+                raise AssertionError(f"[policies] a 1,024-row frame: HTTP {status}")
+        table = {r["key"]: r for r in get_json(port, "/autopilot")["keys"]}
+        est_ms = table["predict[1024x784/float32]"]["learned_ms"]
+    if est_ms + coalesce_ms < shed_margin():
+        raise AssertionError(f"[policies] the {bucket}-row estimate {est_ms} ms is too small "
+                             f"for a 1 ms deadline to undercut")
+    deadline_ms = max(1, int(est_ms / shed_margin()))
+    x = np.random.default_rng(SEED + 130).random((bucket, 784)).astype(np.float32)
+    before = sample_sum(prom_samples(port), "seldon_tpu_autopilot_shed_total", where="admission")
+    fused_mlp.LAUNCHES = 0
+    shed, puids = [], []
+    for i in range(PQ_SHEDS):
+        puid = f"pq-shed-{i}"
+        puids.append(puid)
+        body = wire.join_parts(wire.encode_frame(x, meta_bytes=wire.pack_wire_meta(puid=puid)))
+        status, raw = post_bytes(url, body, {"Content-Type": wire.WIRE_CONTENT_TYPE,
+                                             "Seldon-Deadline-Ms": str(deadline_ms)})
+        err = wire.decode_frame(raw).extra().get("error", "") if status != 200 else ""
+        shed.append((status, err.startswith(SHED_INFO_PREFIX)))
+    launches_shed = fused_mlp.LAUNCHES
+    after = sample_sum(prom_samples(port), "seldon_tpu_autopilot_shed_total", where="admission")
+    served = []
+    for i in range(PQ_SHEDS):
+        body = wire.join_parts(wire.encode_frame(x))
+        status, raw = post_bytes(url, body, {"Content-Type": wire.WIRE_CONTENT_TYPE,
+                                             "Seldon-Deadline-Ms": "10000"})
+        served.append(status)
+    checks = {
+        "every tight request 503 with the shed prefix": shed == [(503, True)] * PQ_SHEDS,
+        "no launch across the sheds": launches_shed == 0 if counted else True,
+        f"shed_total{{admission}} +{PQ_SHEDS}": after - before == PQ_SHEDS,
+        "ample deadlines served": served == [200] * PQ_SHEDS,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[policies] part 3 checks failed: {checks}; {shed}; served "
+                             f"{served}; launches {launches_shed}; sheds {before} -> {after}")
+    log(f"[policies] admission: the {bucket}-row bucket's learned estimate {est_ms} ms, "
+        f"Seldon-Deadline-Ms {deadline_ms} (estimate / {shed_margin()} rounded down): "
+        f"{PQ_SHEDS} binary frames answered 503 '{SHED_INFO_PREFIX}: ...' with "
+        f"{launches_shed} fused-MLP launches, seldon_tpu_autopilot_shed_total{{where="
+        f"\"admission\"}} {before} -> {after}; {PQ_SHEDS} at 10000 ms served ({smi})")
+    return {"bucket": bucket, "estimate_ms": est_ms, "deadline_ms": deadline_ms,
+            "sheds": after - before, "puids": puids}
+
+
+def demotion_doc() -> dict:
+    """A RANDOM_ABTEST router (ratioA 0.5) over the outlier_pipeline's
+    outlier -> MNIST (branch 0) and MNIST (branch 1)."""
+    out = example_doc("outlier_pipeline")["spec"]["predictors"][0]["components"]
+    outlier = next(c for c in out if c["name"] == "outlier")
+    mnist = {"runtime": "inprocess", "class_path": "MnistClassifier"}
+    return {"spec": {"name": "policies-ab", "predictors": [{
+        "name": "main",
+        "components": [outlier, {"name": "mnist-a", **mnist}, {"name": "mnist-b", **mnist}],
+        "graph": {"name": PQ_ROUTER, "implementation": "RANDOM_ABTEST",
+                  "parameters": [{"name": "ratioA", "value": "0.5", "type": "FLOAT"}],
+                  "children": [{"name": "outlier", "type": "TRANSFORMER",
+                                "children": [{"name": "mnist-a", "type": "MODEL"}]},
+                               {"name": "mnist-b", "type": "MODEL"}]}}]}}
+
+
+def pq_routes(engine, port, n: int, headers: dict, seed: int) -> list:
+    """n 1-row requests; each answer's (routing, reroute tag, probabilities)."""
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        status, raw = request_headers("POST", url, ndarray(rng.random((1, 784))), headers)
+        check_answer(status, raw, 1, "ndarray")
+        meta = json.loads(raw)["meta"]
+        out.append((meta["routing"].get(PQ_ROUTER),
+                    meta.get("tags", {}).get(f"seldon.autopilot.reroute.{PQ_ROUTER}")))
+    return out
+
+
+def pq_demotion(torch, dev, smi, counted: bool) -> dict:
+    """Part 4: the router's branch predicted past the deadline is demoted in
+    fused mode; with the kill switch the same requests follow the router."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.autopilot import AUTOPILOT, branch_key, shed_margin
+
+    keys = [branch_key(PQ_ROUTER, b, 1) for b in (0, 1)]
+    runs = {}
+    # the warm-up (both branches' first, cold calls), then the training; the
+    # off run replays them all, so its router draws the same branches
+    chunks = [(8, SEED + 139), (20, SEED + 140)]
+    for mode in ("on", "off"):
+        engine = mode_engine(torch, dev, demotion_doc(), continuous=False)
+        if engine.mode != "fused":
+            raise AssertionError(f"[policies] the demotion graph served in {engine.mode} mode")
+        server = ServerThread(engine)
+        port = server.start()
+        try:
+            fused_mlp.LAUNCHES = 0
+            warm = pq_routes(engine, port, chunks[0][0], {}, chunks[0][1])
+            if mode == "on":
+                if {b for b, _ in warm} != {0, 1}:
+                    raise AssertionError(f"[policies] the warm-up missed a branch: {warm}")
+                # the model learns from warm branches only: a cold first wall
+                # would hold the estimate up for many samples
+                AUTOPILOT.reset()
+            for n, seed in chunks[1:]:
+                pq_routes(engine, port, n, {}, seed)
+            while mode == "on" and min(AUTOPILOT._models[k].n if k in AUTOPILOT._models else 0
+                                       for k in keys) < 2 * AUTOPILOT.min_samples:
+                chunks.append((4, SEED + 141 + len(chunks)))
+                pq_routes(engine, port, chunks[-1][0], {}, chunks[-1][1])
+                if len(chunks) > 30:
+                    raise AssertionError("[policies] a branch was never routed")
+            if mode == "on":
+                ap = {r["key"]: r for r in get_json(port, "/autopilot")["keys"]}
+                est = [ap[k]["learned_ms"] for k in keys]
+                n_train = sum(n for n, _ in chunks[1:])
+                # rem x margin three quarters of the way from branch 1's
+                # estimate to branch 0's: branch 0 overruns, branch 1 fits with
+                # room for the time spent before the budget is read
+                deadline_ms = (est[1] + 0.75 * (est[0] - est[1])) / shed_margin()
+                before = sample_sum(prom_samples(port), "seldon_tpu_autopilot_decisions_total",
+                                    site="route")
+            else:
+                os.environ["SELDON_TPU_AUTOPILOT"] = "0"
+            try:
+                routed = pq_routes(engine, port, PQ_ROUTED,
+                                   {"Seldon-Deadline-Ms": f"{deadline_ms:.3f}"}, SEED + 150)
+            finally:
+                os.environ["SELDON_TPU_AUTOPILOT"] = "1"
+            decisions = sample_sum(prom_samples(port), "seldon_tpu_autopilot_decisions_total",
+                                   site="route")
+            runs[mode] = {"routed": routed, "launches": fused_mlp.LAUNCHES,
+                          "decisions": decisions}
+        finally:
+            server.stop()
+    on, off = runs["on"]["routed"], runs["off"]["routed"]
+    to0 = [i for i, (b, _) in enumerate(off) if b == 0]
+    demoted = runs["on"]["decisions"] - before
+    checks = {
+        "estimates apart": est[0] > est[1],
+        "the kill switch follows the router": all(t is None for _, t in off) and bool(to0),
+        "every branch-0 pick served by branch 1": all(on[i] == (1, 1) for i in to0),
+        "branch-1 picks untagged": all(on[i] == (1, None) for i in range(PQ_ROUTED)
+                                       if i not in to0),
+        "decisions{route} count the demotions": demoted == len(to0),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[policies] part 4 checks failed: {checks}; estimates {est}; "
+                             f"deadline {deadline_ms} ms; on {on}; off {off}; route decisions "
+                             f"+{demoted}")
+    launches = runs["on"]["launches"] + runs["off"]["launches"]
+    log(f"[policies] fused RANDOM_ABTEST (ratioA 0.5) over outlier -> MNIST | MNIST: learned "
+        f"branch walls {est[0]} ms and {est[1]} ms after {n_train} requests; at "
+        f"Seldon-Deadline-Ms {deadline_ms:.3f} the router picked branch 0 for {len(to0)} of "
+        f"{PQ_ROUTED}, each served by branch 1 and tagged seldon.autopilot.reroute.{PQ_ROUTER}"
+        f" (decisions{{route}} +{demoted}); with SELDON_TPU_AUTOPILOT=0 the same requests "
+        f"follow the router; fused-MLP launches {launches} ({smi})")
+    return {"estimates_ms": est, "deadline_ms": deadline_ms, "demoted": len(to0),
+            "launches": launches}
+
+
+def pq_brownout(torch, dev, smi, mnist_port, counted: bool) -> dict:
+    """Part 5: the ladder and the tiers on the continuous lane.  A batch-tier
+    32-row request in a pool that preempts, 4 interactive 1-row requests
+    while it runs; 1-row MNIST requests on the second engine tick the ladder
+    meanwhile (the ladder moves at admission, as traffic arrives)."""
+    from seldon_core_tpu_torch.ops import flash_decode as fd, kv_write as kw
+    from seldon_core_tpu_torch.runtime import genserver as gs
+    from seldon_core_tpu_torch.runtime.brownout import BROWNOUT, BROWNOUT_INFO_PREFIX
+
+    for k, v in PQ_LADDER.items():  # SELDON_TPU_BROWNOUT_* are read at import
+        setattr(BROWNOUT, k, v)
+    BROWNOUT.reset()
+    engine = mode_engine(torch, dev, gen_deployment(), continuous=True, env=PQ_GEN_ENV)
+    g = engine.genserver
+    victims, admits, widths = [], [], []
+    orig_preempt, orig_next = g._preempt, g._next_waiting_index
+
+    def preempt(seq):
+        victims.append(seq.request.tier)
+        return orig_preempt(seq)
+
+    def next_index():
+        i = orig_next()
+        waiting = {s.request.tier for s in g._waiting}
+        admits.append((g._waiting[i].request.tier, waiting))
+        return i
+
+    orig_forward = gs.paged_forward
+
+    def forward(params, toks, *a, **kwargs):
+        widths.append((int(toks.shape[1]), BROWNOUT.stage()))
+        return orig_forward(params, toks, *a, **kwargs)
+
+    g._preempt, g._next_waiting_index = preempt, next_index
+    gs.paged_forward = forward
+    server = ServerThread(engine)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/api/v0.1/predictions"
+    murl = f"http://127.0.0.1:{mnist_port}/api/v0.1/predictions"
+    rng = np.random.default_rng(SEED + 160)
+    vocab, new = GEN_DIMS["vocab"], GEN_DIMS["max_new_tokens"]
+    batch = rng.integers(0, vocab, size=(GEN_B, GEN_S))
+    singles = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(4)]
+    x1 = ndarray(np.random.default_rng(SEED + 161).random((1, 784)))
+    stages, tier_sheds = [], {}
+    stage2 = None
+    try:
+        check_tokens(*request("POST", url, ndarray(singles[0][:, :64])), singles[0][:, :64],
+                     "ndarray", new=new, vocab=vocab)  # warm-up: the pool, the first ops
+        victims.clear(), admits.clear(), widths.clear()
+        snap0 = g.snapshot()
+        moves0 = sample_sum(prom_samples(mnist_port), "seldon_tpu_brownout_transitions_total")
+        fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            fb = pool.submit(request_headers, "POST", url, ndarray(batch),
+                             {"Seldon-Tier": "batch"})
+            fi = []
+            while not fb.done() or BROWNOUT.stage() > 0:
+                status, _ = request_headers("POST", murl, x1, {})  # the tick
+                st = BROWNOUT.stage()
+                if not stages or stages[-1][1] != st:
+                    stages.append((round(time.perf_counter() - t0, 3), st))
+                if status != 200:
+                    raise AssertionError(f"[policies] an interactive MNIST request: {status}")
+                if len(fi) < len(singles) and time.perf_counter() - t0 > 0.05 * (len(fi) + 1):
+                    fi.append(pool.submit(request, "POST", url, ndarray(singles[len(fi)])))
+                for tier, at in (("offline", 1), ("batch", 3)):
+                    if st >= at and tier not in tier_sheds:
+                        s2, raw = request_headers("POST", murl, x1, {"Seldon-Tier": tier})
+                        info = json.loads(raw)["status"]["info"] if s2 == 503 else ""
+                        tier_sheds[tier] = (s2, info.startswith(BROWNOUT_INFO_PREFIX), st)
+                if st >= 2 and stage2 is None:
+                    stage2 = pool.submit(request, "POST", url, ndarray(singles[0]))
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError(f"[policies] the ladder did not return to 0: {stages}")
+                time.sleep(0.005)
+            answers = [f.result() for f in fi]
+            s2_status, s2_raw = stage2.result() if stage2 is not None else (None, b"")
+            b_status, b_raw = fb.result()
+        paged, kvp = fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES
+        snap = g.snapshot()
+        stats = get_json(port, "/stats")
+        moves = sample_sum(prom_samples(mnist_port),
+                           "seldon_tpu_brownout_transitions_total") - moves0
+    finally:
+        g._preempt, g._next_waiting_index = orig_preempt, orig_next
+        gs.paged_forward = orig_forward
+        server.stop()
+    check_tokens(b_status, b_raw, batch, "ndarray", new=new, vocab=vocab)
+    short = max(1, int(new * PQ_MAX_NEW_SCALE))
+    if s2_status != 200 or np.asarray(json.loads(s2_raw)["data"]["ndarray"]).shape != (1, short):
+        raise AssertionError(f"[policies] the stage-2 request: HTTP {s2_status}, "
+                             f"{s2_raw[:200]!r}")
+    lengths = [np.asarray(json.loads(raw)["data"]["ndarray"]).shape[1] for _, raw in answers]
+    trans = [(t.from_stage, t.to_stage) for t in BROWNOUT.transitions]
+    steps = [b for _, b in stages]
+    sched = {k: snap[k] - snap0[k] for k in ("decode_steps_total", "prefill_dispatches_total",
+                                              "preempted_total")}
+    n_layers = GEN_DIMS["n_layers"]
+    floor = engine.genserver.prefill_chunk
+    both_waiting = [t for t, w in admits if {"interactive", "batch"} <= w]
+    checks = {
+        "interactive answers": all(st == 200 for st, _ in answers)
+        and all(n in (new, short) for n in lengths),
+        "no interactive victim": "interactive" not in victims and "batch" in victims,
+        "interactive admitted first while batch waits": bool(both_waiting)
+        and all(t == "interactive" for t in both_waiting),
+        "0 -> 1 -> 2 -> 3, one step a tick": trans[:3] == [(0, 1), (1, 2), (2, 3)]
+        and all(b - a in (-1, 1) for a, b in trans),
+        "back to 0 one stage at a time": trans[-1] == (1, 0) and steps[-1] == 0,
+        "every move counted": moves == len(trans),
+        "offline shed at stage >= 1": tier_sheds.get("offline", (0, False))[:2] == (503, True),
+        "batch shed at stage 3": tier_sheds.get("batch", (0, False))[:2] == (503, True),
+        "prefill at the floor at stage >= 2": all(w == floor for w, st in widths if st >= 2)
+        and any(st >= 2 for _, st in widths),
+        "/stats brownout": stats["brownout"]["stage"] == 0
+        and len(stats["brownout"]["transitions"]) == min(8, len(trans)),
+        "launches": (paged == n_layers * sched["decode_steps_total"]
+                     and kvp == n_layers * sched["prefill_dispatches_total"]) if counted
+        else True,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[policies] part 5 checks failed: {checks}; stages {stages}; "
+                             f"transitions {trans}; victims {victims}; tier sheds "
+                             f"{tier_sheds}; lengths {lengths}; admissions with both tiers "
+                             f"waiting {both_waiting}; widths {widths[:40]}; scheduler "
+                             f"{sched}; launches {paged}, {kvp}")
+    log(f"[policies] brownout on the continuous lane (depth {PQ_LADDER['enter_depth']}, dwell "
+        f"0.05 s, tick 10 ms, revert 1 s; {PQ_GEN_ENV}): a batch-tier {GEN_B}-row {GEN_S}-token "
+        f"request and "
+        f"4 interactive 1-row ones; stages over time {stages}; transitions {trans}; "
+        f"{len(victims)} preemptions, all batch tier ({victims.count('interactive')} "
+        f"interactive); {len(both_waiting)} admissions with both tiers waiting, all "
+        f"interactive; tier sheds {tier_sheds}; the stage-2 request {short} tokens, the "
+        f"interactive ones {lengths}; prefill widths at stage >= 2 "
+        f"{sorted({w for w, st in widths if st >= 2})} (floor {floor}); flash_decode_paged "
+        f"{paged} = {n_layers} x {sched['decode_steps_total']} decode steps, kv_write_paged "
+        f"{kvp} = {n_layers} x {sched['prefill_dispatches_total']} prefill ticks ({smi})")
+    return {"stages": stages, "transitions": trans, "victims": victims,
+            "tier_sheds": tier_sheds, "lengths": lengths, "short": short,
+            "launches": {"flash_decode_paged": paged, "kv_write_paged": kvp},
+            "scheduler": sched}
+
+
+def engine_proc(dev, env: dict, port: int):
+    """An engine_main serving MNIST; its lines before "engine up"."""
+    argv = ["seldon_core_tpu_torch.runtime.engine_main", "--file",
+            str(ROOT / "examples" / "mnist_deployment.json"), "--device", dev.type,
+            "--host", "127.0.0.1", "--rest-port", str(port)]
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                            env={**os.environ, "ENGINE_SERVER_GRPC_PORT": str(free_port()),
+                                 **env},
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    start = time.perf_counter()
+    while True:
+        line = proc.stdout.readline()
+        lines.append(line.strip())
+        if line.startswith("engine up:"):
+            return proc, lines
+        if not line or time.perf_counter() - start > 300:
+            proc.kill()
+            raise AssertionError(f"[policies] engine_main did not come up: "
+                                 f"{(''.join(lines) + proc.stdout.read())[-1500:]}")
+
+
+def pq_prewarm(torch, dev, smi, counted: bool) -> dict:
+    """Part 6: two fresh engine_main processes, one with
+    ENGINE_PREWARM_WIDTHS=784: its shapes and launches before it binds, and
+    each process's first-request wall and p50 over the next requests."""
+    ports = {"prewarm": free_port(), "cold": free_port()}
+    envs = {"prewarm": {"ENGINE_PREWARM_WIDTHS": "784"}, "cold": {}}
+    with ThreadPoolExecutor(2) as pool:
+        futs = {k: pool.submit(engine_proc, dev, envs[k], ports[k]) for k in ports}
+        procs = {k: f.result() for k, f in futs.items()}
+    out = {}
+    x1 = ndarray(np.random.default_rng(SEED + 170).random((1, 784)))
+    try:
+        for k in ("prewarm", "cold"):
+            proc, lines = procs[k]
+            launches0 = get_json(ports[k], "/stats")["kernels"]["fused_mlp_softmax"]["launches"]
+            t = time.perf_counter()
+            check_answer(*request("POST", f"http://127.0.0.1:{ports[k]}/api/v0.1/predictions",
+                                  x1), 1, "ndarray")
+            first_ms = (time.perf_counter() - t) * 1e3
+            p50 = keepalive_p50_ms(ports[k], x1, PQ_P50_REQUESTS)
+            line = next((ln for ln in lines if ln.startswith("prewarmed ")), None)
+            out[k] = {"first_ms": first_ms, "p50_ms": p50, "launches_before_bind": launches0,
+                      "line": line}
+    finally:
+        for proc, _ in procs.values():
+            stop_service(proc)
+    shapes = (1024).bit_length()
+    line = out["prewarm"]["line"] or ""
+    checks = {
+        "the prewarm line": line.startswith(f"prewarmed {shapes} batch shapes for widths [784]"),
+        "no line without the knob": out["cold"]["line"] is None,
+        # the unit's construction probes the kernel once in both
+        "launches before bind": (out["prewarm"]["launches_before_bind"] == 1 + shapes
+                                 and out["cold"]["launches_before_bind"] == 1) if counted
+        else True,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[policies] part 6 checks failed: {checks}; {out}")
+    log(f"[policies] prewarm: '{line}'; fused-MLP launches before binding "
+        f"{out['prewarm']['launches_before_bind']} (1 probe + {shapes} shapes) against "
+        f"{out['cold']['launches_before_bind']}; first-request wall "
+        f"{out['prewarm']['first_ms']:.3f} ms prewarmed, {out['cold']['first_ms']:.3f} ms not; "
+        f"p50 over the next {PQ_P50_REQUESTS} {out['prewarm']['p50_ms']:.4f} and "
+        f"{out['cold']['p50_ms']:.4f} ms (the kernel build cache warm in both) ({smi})")
+    return out
+
+
+def corpus_env(d: Path) -> dict:
+    return {"SELDON_TPU_CORPUS_DIR": str(d), "SELDON_TPU_CORPUS": "1"}
+
+
+def pq_corpus(torch, dev, smi, writer, port: int, d: Path) -> dict:
+    """Part 7: an engine_main (``writer``, started beside part 6's pair on
+    ``port`` with ``corpus_env(d)``) writes the corpus; a second one on the
+    same directory prices the keys before its first request; small
+    segments rotate, write sketch.json and unlink the oldest."""
+    env = corpus_env(d)
+    rng = np.random.default_rng(SEED + 180)
+    bodies = [ndarray(rng.random((int(rng.choice([1, 8])), 784)))
+              for _ in range(PQ_CORPUS_REQUESTS)]
+    proc, _ = writer
+    try:
+        for body in bodies:
+            status, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions", body)
+            if status != 200:
+                raise AssertionError(f"[policies] corpus writer: HTTP {status}")
+        first = get_json(port, "/autopilot")
+        written = get_json(port, "/corpus")  # drains: every row on disk
+    finally:
+        stop_service(proc)
+    port = free_port()
+    env2 = {**env, "SELDON_TPU_CORPUS_SEGMENT_BYTES": "4096",
+            "SELDON_TPU_CORPUS_MAX_SEGMENTS": "2"}
+    proc, _ = engine_proc(dev, env2, port)
+    try:
+        warm = get_json(port, "/autopilot")
+        warm_stats = get_json(port, "/stats")["autopilot"]
+        warm_corpus = get_json(port, "/corpus")
+        keepalive_walls(port, bodies[0], 120)
+        rotated = get_json(port, "/corpus")
+    finally:
+        stop_service(proc)
+    keys = lambda doc: sorted(r["key"] for r in doc["keys"])  # noqa: E731
+    segs = sorted(p.name for p in d.glob("corpus-*.jsonl"))
+    checks = {
+        "written": written["rows_total"] == PQ_CORPUS_REQUESTS and written["keys"],
+        "warm keys before the first request": keys(warm) == keys(first)
+        and warm_stats["warm_keys"] == len(keys(first)) > 0
+        and all(r["trusted"] for r in warm["keys"]),
+        "/corpus rows and sketches": sum(k["n"] for k in warm_corpus["keys"])
+        == PQ_CORPUS_REQUESTS and warm_corpus["warm_keys"] > 0,
+        "rotation": rotated["rotations"] > 0 and (d / "sketch.json").exists()
+        and len(segs) <= 3 and "corpus-000001.jsonl" not in segs,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[policies] part 7 checks failed: {checks}; first {keys(first)}; "
+                             f"warm {keys(warm)} {warm_stats}; segments {segs}; "
+                             f"{ {k: rotated[k] for k in ('rotations', 'segments')} }")
+    log(f"[policies] perf corpus: an engine_main served {PQ_CORPUS_REQUESTS} requests "
+        f"({written['rows_total']} rows, {len(written['keys'])} keys, {written['disk_bytes']} "
+        f"bytes); the next one on the same directory listed {keys(warm)} in /autopilot before "
+        f"its first request (warm_keys {warm_stats['warm_keys']}, trusted); at 4096-byte "
+        f"segments, 120 more requests rotated {rotated['rotations']} times: {segs} and "
+        f"sketch.json left ({smi})")
+    return {"keys": keys(warm), "warm_keys": warm_stats["warm_keys"],
+            "rotations": rotated["rotations"], "segments": segs}
+
+
+def pq_postmortem(torch, dev, smi, port, shed_puids: list) -> dict:
+    """Part 8: with the excess factor low, a trained 1-row dispatch is kept
+    for autopilot_excess; part 3's sheds are kept for shed."""
+    from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM
+
+    before = dict(get_json(port, "/postmortems")["counters"]["kept"])
+    prev = POSTMORTEM.excess_x
+    POSTMORTEM.excess_x = 0.01  # SELDON_TPU_POSTMORTEM_EXCESS_X, read at import
+    try:
+        keepalive_walls(port, ndarray(np.random.default_rng(SEED + 190).random((1, 784))), 5)
+        doc = get_json(port, "/postmortems")
+    finally:
+        POSTMORTEM.excess_x = prev
+    kept = doc["counters"]["kept"]
+    reasons = {s["puid"]: s["reasons"] for s in doc["kept"]}
+    excess = kept.get("autopilot_excess", 0) - before.get("autopilot_excess", 0)
+    shed = [p for p in shed_puids if "shed" in reasons.get(p, ())]
+    if excess < 1 or len(shed) != len(shed_puids):
+        raise AssertionError(f"[policies] part 8: autopilot_excess +{excess}; sheds kept "
+                             f"{shed} of {shed_puids}; counters {kept}")
+    log(f"[policies] postmortems: at SELDON_TPU_POSTMORTEM_EXCESS_X 0.01, {excess} requests "
+        f"kept for autopilot_excess; part 3's {len(shed)} sheds kept for shed; counters "
+        f"{kept} ({smi})")
+    return {"autopilot_excess": excess, "sheds_kept": len(shed)}
+
+
+def concurrent_p50_ms(port: int, body: dict, clients: int, runs: int) -> float:
+    """The p50 wall of ``runs`` requests from each of ``clients`` keepalive
+    connections at once."""
+    with ThreadPoolExecutor(clients) as pool:
+        walls = [w for f in [pool.submit(keepalive_walls, port, body, runs)
+                             for _ in range(clients)] for w in f.result()]
+    return float(np.median(walls)) * 1e3
+
+
+def pq_overhead(torch, dev, smi, port) -> dict:
+    """Part 9: the 32-concurrent and the keepalive 1-row MNIST p50 with the
+    autopilot and the ladder on and off, in turns, beside /overhead."""
+    x1 = ndarray(np.random.default_rng(SEED + 200).random((1, 784)))
+    p50 = {"on": {"c32": [], "one": []}, "off": {"c32": [], "one": []}}
+    try:
+        for turn in range(OBS_TURNS):
+            for mode in (("on", "off") if turn % 2 == 0 else ("off", "on")):
+                policy_switches(mode == "on")
+                p50[mode]["c32"].append(concurrent_p50_ms(port, x1, 32, PQ_OVER_RUNS // 32 + 1))
+                p50[mode]["one"].append(keepalive_p50_ms(port, x1, PQ_OVER_RUNS))
+    finally:
+        policy_switches(True)
+    fold = get_json(port, "/overhead")["off_path_fold"]
+    log(f"[policies] MNIST 1-row p50, ABBA: 32 concurrent clients autopilot + brownout on "
+        f"{[round(v, 4) for v in p50['on']['c32']]} ms, off "
+        f"{[round(v, 4) for v in p50['off']['c32']]}; one keepalive client on "
+        f"{[round(v, 4) for v in p50['on']['one']]}, off "
+        f"{[round(v, 4) for v in p50['off']['one']]}; /overhead perf fold (observatory + "
+        f"autopilot + corpus) p50 {fold['perf']['p50_us']} us ({smi})")
+    return {"p50_ms": p50, "perf_fold_us": fold["perf"]}
+
+
+def policies_phase(torch, dev, smi) -> dict:
+    """Phase 10q: the autopilot and the engine's policies ([4c]) on the
+    card, after 10p, in engines of their own, the deciding singletons reset
+    first."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
+
+    from seldon_core_tpu_torch.utils.quality import QUALITY
+
+    t0 = time.perf_counter()
+    counted = dev.type == "cuda"  # the plain versions on the CPU count nothing
+    # no SLO target (10p set one, and its burn would drive the ladder): the
+    # ladder here moves on queue depth alone
+    QUALITY.slo.p99_ms = QUALITY.slo.error_rate = None
+    reset_learned_singletons()
+    observatories(True)
+    qc_switches(True)
+    # the drift summarizer off: its device folds hold the drainer thread's
+    # GIL for tens of ms, and the dispatch walls the model learns would
+    # carry that contention (on an H100, a 32-row estimate of 6.6 ms against
+    # a p50 of 1.06 in one run); the postmortems and the ledger stay on
+    QUALITY.enabled = False
+    policy_switches(True)
+    engine = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    fused_mlp.LAUNCHES = 0
+    n_pre = engine.prewarm([784])  # a seed prior for every bucket the planner may price
+    pre_launches = fused_mlp.LAUNCHES
+    server = ServerThread(engine)
+    port = server.start()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            walls[name] = round(time.perf_counter() - t, 2)
+
+    try:
+        learn = timed("learn", pq_learn, torch, dev, smi, engine, port, counted)
+        fused_mlp.LAUNCHES = 0
+        flush = timed("flush", pq_flush, torch, dev, smi, engine, port)
+        flush["launches"] = fused_mlp.LAUNCHES  # both engines'
+        shed = timed("shed", pq_shed, torch, dev, smi, port, learn["buckets"], counted)
+        shed["launches"] = fused_mlp.LAUNCHES
+        pm = timed("postmortem", pq_postmortem, torch, dev, smi, port, shed["puids"])
+        demo = timed("demotion", pq_demotion, torch, dev, smi, counted)
+        brown = timed("brownout", pq_brownout, torch, dev, smi, port, counted)
+        fused_mlp.LAUNCHES = 0
+        over = timed("overhead", pq_overhead, torch, dev, smi, port)
+        over["launches"] = fused_mlp.LAUNCHES
+    finally:
+        server.stop()
+        observatories(False)
+        QUALITY.enabled = True
+    import tempfile
+
+    # the corpus writer's process starts beside part 6's pair
+    cdir, cport = Path(tempfile.mkdtemp(prefix="sct_corpus_")), free_port()
+    with ThreadPoolExecutor(1) as pool:
+        writer = pool.submit(engine_proc, dev, corpus_env(cdir), cport)
+        try:
+            prewarm = timed("prewarm", pq_prewarm, torch, dev, smi, counted)
+            corpus = timed("corpus", pq_corpus, torch, dev, smi, writer.result(), cport, cdir)
+        finally:
+            if writer.done() and writer.exception() is None:
+                stop_service(writer.result()[0])
+    mlp = {"prewarm (in process)": pre_launches, "learn": learn["launches"],
+           "flush planner (both engines)": flush["launches"],
+           "admission (served after the sheds)": shed["launches"],
+           "demotion": demo["launches"], "overhead": over["launches"]}
+    out = {"learn": learn, "flush": flush, "shed": shed, "demotion": demo,
+           "brownout": brown, "prewarm": prewarm, "corpus": corpus, "postmortem": pm,
+           "overhead": over, "prewarmed_shapes_in_process": n_pre, "card": smi,
+           "launches": {"fused_mlp_softmax": sum(mlp.values()),
+                        "fused_mlp_by_part": mlp, **brown["launches"]},
+           "walls_s": walls, "wall_s": time.perf_counter() - t0}
+    log(f"[policies] phase 10q wall {out['wall_s']:.2f} s: {walls}")
     return out
 
 
@@ -6871,6 +7675,14 @@ def main() -> int:
     for row, name in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
         row["launches_by_path"]["quality_costs (/costs, /postmortems)"] = qc["launches"][name]
         row["launches"] += qc["launches"][name]
+    # 10q: after 10p, each path's counts set to 0 just before it
+    pol = policies_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"policies": pol}}))
+    mlp_row["launches_by_path"]["policies"] = pol["launches"]["fused_mlp_softmax"]
+    mlp_row["launches"] += pol["launches"]["fused_mlp_softmax"]
+    for row, name in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
+        row["launches_by_path"]["policies (brownout, tiers)"] = pol["launches"][name]
+        row["launches"] += pol["launches"][name]
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,

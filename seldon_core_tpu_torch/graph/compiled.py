@@ -242,10 +242,12 @@ class CompiledGraph:
         ``FusedGraph`` applies its demotion rule here."""
         return branch
 
-    def predict_arrays(self, X) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
+    def predict_arrays(self, X, update_states: bool = True
+                       ) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
         """Run the graph; returns (Y on the device, routing, tags) and
-        advances the held unit states (not on a failure)."""
-        return self._walk(X, None)
+        advances the held unit states (not on a failure, nor with
+        ``update_states=False``: a prewarm's walk)."""
+        return self._walk(X, None, update_states)
 
     def executable_key(self, X) -> str:
         """Stable per-shape executable identity (the perf observatory's
@@ -253,7 +255,13 @@ class CompiledGraph:
         dtype = getattr(X, "dtype", None)
         if dtype is None:  # plain lists etc. — cold paths only
             dtype = np.asarray(X).dtype
-        return executable_key(self.key_name, tuple(np.shape(X)), dtype)
+        return self.shape_key(tuple(np.shape(X)), dtype)
+
+    def shape_key(self, shape, dtype) -> str:
+        """``executable_key`` of an input of ``shape`` and ``dtype`` that
+        does not exist yet: the key the autopilot prices a planned pad
+        bucket by is the one the dispatch's record will train."""
+        return executable_key(self.key_name, tuple(shape), dtype)
 
     def cost_features(self, rows: int) -> Optional[Dict[str, float]]:
         """The analytic cost of one walk on ``rows`` rows: the sum of the
@@ -285,7 +293,8 @@ class CompiledGraph:
             return {n: round(1.0 / len(names), 4) for n in names}
         return {n: round(v / total, 4) for n, v in flops.items()}
 
-    def _walk(self, X, ctx) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
+    def _walk(self, X, ctx, update_states: bool = True
+              ) -> Tuple[torch.Tensor, Dict[str, int], Dict[str, Any]]:
         key = None
         if OBSERVATORY.enabled:
             key = self.executable_key(X)
@@ -298,7 +307,8 @@ class CompiledGraph:
         if key is not None:
             self._register(key, int(X.shape[0]) if X.ndim else 1,
                            time.perf_counter() - t0)
-        self.states = states
+        if update_states:
+            self.states = states
         routing = {r: routing.get(r, NOT_ROUTED) for r in self._all_routers}
         return y, {r: v for r, v in routing.items() if v != NOT_ROUTED}, tags
 

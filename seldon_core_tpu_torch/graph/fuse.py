@@ -19,11 +19,18 @@ rules and branch-demotion rule are the reference's:
     the cheapest alternative predicted within budget; NaN predictions
     neither trigger nor receive a move.  The rule runs on the branch the
     router already reads back once a request, so it adds no device sync.
-    The per-router cost vectors come from the autopilot's learned model,
-    which is not ported yet (ROADMAP Queue 1 item [4c]): until then they
-    are NaN and the budget +inf, so the walk is the compiled one, never a
-    numerics change; ``predict_arrays`` takes explicit ``costs`` and
-    ``budget`` for a caller that has them.
+    The per-router cost vectors are the autopilot's learned branch walls
+    (``runtime/autopilot.py`` ``branch_cost_vector``) and the budget the
+    request's remaining deadline times ``shed_margin()`` (``_cost_args``,
+    ``fuse.py:514-545`` there), when a budget is in force and the kill
+    switch is on; otherwise NaN and +inf, and the walk is the compiled one.
+    A demoted router is counted (``seldon_tpu_autopilot_decisions_total
+    {site="route"}``), marked by an ``autopilot_reroute`` span event and
+    tagged ``seldon.autopilot.reroute.<router>``.  Each served branch
+    learns its wall (``learn_branches``) from a wall that ends at the
+    readback the response pays: ``predict``'s own, or a fused subtree's
+    dispatch wall (never the launch time ``predict_arrays`` returns
+    after, with Y still on the device).
   * **Partial fusion** (``build_partial_fusion``): in a host-mode graph
     each maximal fusible subtree of 2 or more nodes becomes one
     ``FusedSubtreeRuntime``; the interpreter's recursion stops at its root.
@@ -47,6 +54,7 @@ do under the interpreter.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -69,8 +77,18 @@ from seldon_core_tpu_torch.graph.spec import (
     UnitMethod,
 )
 from seldon_core_tpu_torch.graph.units import host_only_reason
-from seldon_core_tpu_torch.messages import Meta, SeldonMessage
+from seldon_core_tpu_torch.messages import Meta, SeldonMessage, Status
+from seldon_core_tpu_torch.runtime.autopilot import (
+    AUTOPILOT,
+    autopilot_enabled,
+    branch_cost_vector,
+    branch_key,
+    shed_margin,
+)
+from seldon_core_tpu_torch.runtime.resilience import remaining_s
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
+from seldon_core_tpu_torch.utils.telemetry import RECORDER
+from seldon_core_tpu_torch.utils.tracing import TRACER
 
 __all__ = [
     "fuse_enabled",
@@ -246,32 +264,76 @@ class FusedGraph(CompiledGraph):
         ctx.raw[name] = branch
         return demoted_branch(branch, ctx.costs.get(name), ctx.budget)
 
-    def _cost_args(self) -> Tuple[Dict[str, np.ndarray], np.float32]:
-        """The default (costs, budget): NaN vectors and +inf until the
-        autopilot's learned branch costs and the request's remaining budget
-        are ported (ROADMAP Queue 1 item [4c]), so no branch is ever demoted
-        by default."""
-        costs = {r: np.full((n,), math.nan, np.float32) for r, n in self._router_children.items()}
-        return costs, np.float32(math.inf)
+    def _cost_args(self, rows: int = 1, budget_s: Optional[float] = None
+                   ) -> Tuple[Dict[str, np.ndarray], np.float32]:
+        """The request's (costs, budget): each router's learned branch walls
+        at the request's pad bucket and ``budget_s * shed_margin()`` when a
+        budget is in force and the autopilot is on, else (no budget, the
+        default) NaN vectors and +inf: no branch is demoted."""
+        active = (budget_s is not None and budget_s > 0 and autopilot_enabled()
+                  and bool(self._router_children))
+        costs = {}
+        for r, n in self._router_children.items():
+            if active:
+                costs[r] = np.asarray([math.nan if v is None else float(v)
+                                       for v in branch_cost_vector(r, n, rows)], np.float32)
+            else:
+                costs[r] = np.full((n,), math.nan, np.float32)
+        return costs, np.float32(budget_s * shed_margin() if active else math.inf)
 
     def predict_arrays(self, X, costs: Optional[Dict[str, Any]] = None,
-                       budget: Optional[float] = None):
+                       budget: Optional[float] = None, update_states: bool = True,
+                       budget_s: Optional[float] = None, rows: Optional[int] = None):
         """Run the fused walk; returns ``(Y on the device, routing, tags)``
         as the compiled executor does, ``routing`` holding the branches that
-        served.  ``costs`` (router name -> per-branch predicted walls) and
-        ``budget`` override the defaults of ``_cost_args``."""
-        default_costs, default_budget = self._cost_args()
+        served.  ``budget_s`` is the request's remaining deadline (read on
+        the request's side: the dispatch thread is another), ``rows`` its
+        row count for the branch keys (X's by default); ``costs`` (router
+        name -> per-branch predicted walls) and ``budget`` override what
+        ``_cost_args`` makes of them."""
+        if rows is None:
+            shape = np.shape(X)
+            rows = int(shape[0]) if len(shape) >= 2 else 1
+        default_costs, default_budget = self._cost_args(rows, budget_s)
         if costs is not None:
             default_costs.update({r: np.asarray(c, np.float32) for r, c in costs.items()})
         ctx = _Demotion(default_costs, default_budget if budget is None else np.float32(budget),
                         {})
-        y, routing, tags = self._walk(X, ctx)
+        y, routing, tags = self._walk(X, ctx, update_states)
         demoted = {r: b for r, b in routing.items() if ctx.raw[r] != b}
         if demoted:
             tags = dict(tags)
             for r, b in demoted.items():
+                RECORDER.record_autopilot_decision("route")
+                TRACER.event("autopilot_reroute", node=r, from_branch=int(ctx.raw[r]),
+                             to_branch=int(b), in_program=True)
                 tags[f"seldon.autopilot.reroute.{r}"] = int(b)
         return y, routing, tags
+
+    @staticmethod
+    def learn_branches(routing: Dict[str, int], rows: int, seconds: float) -> None:
+        """Fold one request's wall into each served branch's model at its
+        pad bucket (learning is not gated by the kill switch).  ``seconds``
+        must end at a readback the response pays: the walk returns with Y
+        still on the device, so its own wall is launch time."""
+        for r, b in routing.items():
+            AUTOPILOT.observe(branch_key(r, b, rows), seconds)
+
+    def predict(self, msg: SeldonMessage, budget_s: Optional[float] = None) -> SeldonMessage:
+        """SeldonMessage in and out under the demotion ``budget_s``; the
+        served branches learn the wall that ends at the answer's readback."""
+        X = np.atleast_2d(msg.array())
+        t0 = time.perf_counter()
+        y, routing, tags = self.predict_arrays(X, budget_s=budget_s)
+        y = y.detach().cpu().numpy()
+        if routing:
+            self.learn_branches(routing, len(X), time.perf_counter() - t0)
+        resp = msg.with_array(y, names=self._output_names(self.predictor.graph, routing))
+        resp.meta = Meta(puid=msg.meta.puid, tags={**msg.meta.tags, **pythonize_tags(tags)},
+                         routing={**msg.meta.routing, **routing},
+                         requestPath=dict(msg.meta.requestPath))
+        resp.status = Status()
+        return resp
 
 
 # ---------------------------------------------------------------------------
@@ -308,18 +370,25 @@ class FusedSubtreeRuntime(_Serialized):
         wants = SPINE.dispatch_wants()
         t0 = time.perf_counter()
         start_s = time.time()
+        # the demotion budget is read here, on the request's side, and handed
+        # across to the dispatch thread
+        call = functools.partial(self.graph.predict_arrays, budget_s=remaining_s(),
+                                 rows=int(X.shape[0]))
         try:
-            y, routing, tags = await self._run(self.graph.predict_arrays, X)
+            y, routing, tags = await self._run(call, X)
         except GraphSpecError:
             raise
         except (TypeError, ValueError) as e:
             # name the subtree, so the 400 stays actionable
             raise GraphSpecError(f"fused subtree {self.root.name!r} rejected input of shape "
                                  f"{tuple(X.shape)}: {e}") from e
+        seconds = time.perf_counter() - t0
+        if routing:
+            self.graph.learn_branches(routing, int(X.shape[0]), seconds)
         if wants.any:
             SPINE.record_dispatch(
                 wants, executable=self.graph.executable_key(X),
-                seconds=time.perf_counter() - t0, start_s=start_s,
+                seconds=seconds, start_s=start_s,
                 rows=int(X.shape[0]), real_rows=int(X.shape[0]), method="fused",
                 quality_node=self.root.name, phases=self.graph.phases)
         resp = msg.with_array(y, names=self.graph._output_names(self.root, routing))

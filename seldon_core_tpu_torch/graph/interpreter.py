@@ -39,9 +39,11 @@ outlier scores bridge into the quality observatory, and each in-process
 ``predict`` writes one telemetry-spine quality record of the node's own
 input and output (device tensors; the drainer summarizes them), so the
 drift table of a host-mode engine or a unit pod resolves to the node that
-drifted.  Not ported yet: the autopilot's cost-aware branch demotion
-(``_autopilot_branch`` keeps the router's branch; its learned costs stay
-NaN until ROADMAP Queue 1 item [4c]).
+drifted.  The autopilot (``interpreter.py:441-536`` there): a router's
+branch predicted to overrun the request's deadline is demoted to the
+fastest branch predicted to fit (``_autopilot_branch``), and each served
+branch learns the wall of its children's dispatch for the request's pad
+bucket (its children answer host messages, so that wall is whole).
 
 The helpers shared with the compiled executors live here too: the
 method-dispatch table (engine PredictorConfigBean.java:33-82), tag
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import asyncio
 import threading
+import time
 import warnings
 import zlib
 from concurrent.futures import Executor
@@ -78,6 +81,13 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessage,
     SeldonMessageError,
     Status,
+)
+from seldon_core_tpu_torch.runtime.autopilot import (
+    AUTOPILOT,
+    autopilot_enabled,
+    branch_key,
+    message_rows,
+    shed_margin,
 )
 from seldon_core_tpu_torch.runtime.resilience import current_deadline
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
@@ -473,8 +483,17 @@ class GraphExecutor:
                 selected = node.children if branch == -1 else [node.children[branch]]
             else:
                 selected = node.children
+            t_children = time.perf_counter()
             child_msgs = await self._dispatch_children(node, msg, selected, routed_branch,
                                                        methods)
+            if routed_branch is not None and routed_branch != -1:
+                # per-branch learning for the request's shape; a fallback
+                # mid-dispatch updates meta.routing, so the branch that
+                # served gets the sample
+                AUTOPILOT.observe(
+                    branch_key(node.name, msg.meta.routing.get(node.name, routed_branch),
+                               message_rows(msg)),
+                    time.perf_counter() - t_children)
             # 3. merge (engine PredictiveUnitBean.java:115-124)
             if UnitMethod.AGGREGATE in methods:
                 merged_meta = msg.meta
@@ -500,11 +519,42 @@ class GraphExecutor:
         return out
 
     def _autopilot_branch(self, node: PredictiveUnit, msg: SeldonMessage, branch: int) -> int:
-        """The router's own branch.  The JAX package demotes a branch its
-        learned costs predict to overrun the deadline here
-        (``runtime/autopilot.py``); that model is not ported yet (ROADMAP
-        Queue 1 item [4c]), so the router's choice always stands."""
-        return branch
+        """Cost-aware routing: price the routed branch with its learned
+        wall for this request's pad bucket.  When a deadline is in force
+        and the prediction says the branch cannot answer within
+        ``remaining * shed_margin()`` while another branch can, demote to
+        the fastest predicted branch that fits: counted, marked by an
+        ``autopilot_reroute`` span event and tagged
+        ``seldon.autopilot.reroute.<router>`` in ``meta.tags``.  No
+        deadline, no prediction or the kill switch off: the router's choice
+        stands."""
+        if not autopilot_enabled():
+            return branch
+        dl = current_deadline()
+        if dl is None:
+            return branch
+        rows = message_rows(msg)
+        pred = AUTOPILOT.predict_s(branch_key(node.name, branch, rows))
+        rem = dl.remaining_s()
+        margin = shed_margin()
+        if pred is None or pred <= rem * margin:
+            return branch
+        best = None
+        for b in range(len(node.children)):
+            if b == branch:
+                continue
+            p = AUTOPILOT.predict_s(branch_key(node.name, b, rows))
+            if p is not None and p <= rem * margin and (best is None or p < best[1]):
+                best = (b, p)
+        if best is None:
+            return branch  # nothing predicted to fit: the pick rides
+        RECORDER.record_autopilot_decision("route")
+        self.tracer.event("autopilot_reroute", node=node.name, from_branch=int(branch),
+                          to_branch=int(best[0]), predicted_ms=round(pred * 1e3, 3),
+                          to_predicted_ms=round(best[1] * 1e3, 3),
+                          remaining_ms=round(rem * 1e3, 3))
+        msg.meta.tags[f"seldon.autopilot.reroute.{node.name}"] = int(best[0])
+        return best[0]
 
     # -- graceful degradation -----------------------------------------------
 

@@ -32,9 +32,22 @@ JAX package.  Each entry carries its caller's tenant and tier
 (``runtime/qos.py``), and with the cost ledger on (``SELDON_TPU_COSTLEDGER``)
 the flush record carries the attribution payload (``batching.py:378-402``
 there): real rows and requests per (tenant, tier) and the padded capacity
-the chunks run at (``utils/costledger.py``).  The autopilot's flush
-planning and the tiers' scheduling effect (tier-keyed buckets) are not
-ported yet (ROADMAP Queue 1 item [4c]).
+the chunks run at (``utils/costledger.py``).
+
+The autopilot (``runtime/autopilot.py``; ``batching.py:80-361`` there):
+with a ``predict_s_fn`` (``(padded_rows, sample_x) -> seconds or None``,
+the engine's ``_predict_dispatch_s``) each flush takes the queue prefix
+with the best predicted goodput (real rows per predicted second, so pad
+waste prices itself) among those whose predicted wall fits the included
+requests' tightest remaining deadline (``_plan_flush``); its prediction
+rides the flush record (``predicted_s``), which the spine counts as a
+``flush`` decision.  ``predicted_latency_s`` prices a request before it
+enqueues, for the engine's admission shed.  With the kill switch off, no
+``predict_s_fn`` or a bucket the model does not cover, the flush takes
+everything that fits under ``max_batch``, as before.  The latency tier is
+part of the bucket key, so tiers never share a flush, and a lower tier's
+pump hands a dispatch slot back while a higher tier's bucket waits
+(``_higher_tier_waiting``); all-interactive traffic buckets as it did.
 
 ``GenLane`` (``batching.py:507-563`` there) takes the batcher's place for
 a generator served by the continuous lane (``runtime/genserver.py``): each
@@ -49,14 +62,22 @@ import contextvars
 import inspect
 import time
 from collections import deque
-from typing import Any, Awaitable, Callable, Deque, Dict, Tuple
+from itertools import islice
+from typing import Any, Awaitable, Callable, Deque, Dict, Optional, Tuple
 
 import numpy as np
 
 from seldon_core_tpu_torch.graph.interpreter import methods_for
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit, UnitMethod
 from seldon_core_tpu_torch.messages import DispatchTimeoutError
-from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier
+from seldon_core_tpu_torch.runtime.autopilot import autopilot_enabled, pad_bucket
+from seldon_core_tpu_torch.runtime.qos import (
+    TIER_INTERACTIVE,
+    current_tenant,
+    current_tier,
+    tier_rank,
+)
+from seldon_core_tpu_torch.runtime.resilience import current_deadline
 from seldon_core_tpu_torch.utils.costledger import costledger_enabled
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
@@ -91,8 +112,12 @@ class MicroBatcher:
         max_inflight: int = 1,
         coalesce_ms: float = 0.5,
         dispatch_timeout_s: float = 0.0,
+        predict_s_fn: Optional[Callable[[int, Any], Optional[float]]] = None,
     ):
         self.batch_fn = batch_fn
+        # the autopilot's hook: predicted dispatch wall of one pad bucket;
+        # None keeps the flush-all take
+        self.predict_s_fn = predict_s_fn
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)
         self.coalesce_s = min(float(coalesce_ms), float(max_wait_ms)) / 1e3
@@ -104,6 +129,9 @@ class MicroBatcher:
         self._buckets: Dict[Tuple, Deque] = {}
         self._pumps: Dict[Tuple, asyncio.Task] = {}
         self._inflight: set = set()  # strong refs: bare create_task is GC-able
+        # rolling wall of recent flushes (any bucket): what a busy dispatch
+        # slot costs to wait out, the admission predictor's slot-wait term
+        self._flush_ewma_s = 0.0
         self.recorder = RECORDER  # flight-recorder hub (occupancy/wait/slots)
         #: deployment identity on /costs rows; the engine stamps it
         self.cost_deployment = ""
@@ -116,43 +144,90 @@ class MicroBatcher:
         if x.ndim < 2:
             # a 1-D payload is one sample, not len(x) scalar rows
             x = np.atleast_2d(x)
-        key = (x.shape[1:], x.dtype)
+        # the tier is part of the key: tiers never share a flush
+        tier = current_tier()
+        key = (x.shape[1:], x.dtype, tier)
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         # enqueue time, trace context and the caller's whole context: the
         # flush records each caller's queue wait under ITS request span,
         # and a one-caller flush dispatches in the caller's context; the
         # tenant and tier let the flush record split its wall across the
-        # tenants whose rows shared the dispatch
+        # tenants whose rows shared the dispatch; the deadline is what the
+        # flush planner reads
         self._buckets.setdefault(key, deque()).append(
             (x, fut, time.perf_counter(), current_trace_context(),
-             contextvars.copy_context(), current_tenant() or "", current_tier()))
+             contextvars.copy_context(), current_tenant() or "", tier, current_deadline()))
         if key not in self._pumps:
             self._pumps[key] = asyncio.create_task(self._pump(key))
         return await fut
 
+    def predicted_latency_s(self, x) -> Optional[float]:
+        """Predicted submit-to-response latency of a request shaped like
+        ``x`` before it enqueues (``batching.py:168-202`` there): the
+        predicted dispatch wall of the pad bucket it would land in (the
+        rows already waiting included), one flush rotation for each full
+        flush queued ahead and one more when every slot is busy, plus the
+        coalesce window.  None when no model covers the bucket."""
+        if self.predict_s_fn is None:
+            return None
+        x = np.asarray(x)
+        if x.ndim < 2:
+            x = np.atleast_2d(x)
+        key = (x.shape[1:], x.dtype, current_tier())
+        waiting = sum(len(e[0]) for e in self._buckets.get(key, ()))
+        flushes_ahead = waiting // self.max_batch
+        total = min(waiting - flushes_ahead * self.max_batch + len(x), self.max_batch)
+        disp = self.predict_s_fn(min(pad_bucket(total), self.max_batch), x)
+        if disp is None or disp <= 0:
+            return None
+        # a rotation is whatever has been flushing lately, not our bucket
+        rotation = self._flush_ewma_s or disp
+        wait = flushes_ahead * rotation
+        if len(self._inflight) >= self.max_inflight:
+            wait += rotation
+        return wait + disp + self.coalesce_s
+
     def snapshot(self) -> dict:
-        """Queued rows per shape bucket plus the dispatch-slot picture."""
+        """Queued rows per shape bucket plus the dispatch-slot picture; a
+        non-interactive tier's bucket label ends in ``/<tier>``."""
+        buckets = {}
+        for (shape, dtype, tier), entries in self._buckets.items():
+            label = f"{tuple(shape)}/{dtype}"
+            if tier != TIER_INTERACTIVE:
+                label += f"/{tier}"
+            buckets[label] = {"requests": len(entries),
+                              "rows": sum(len(e[0]) for e in entries)}
         return {
-            "buckets": {
-                f"{tuple(shape)}/{dtype}": {
-                    "requests": len(entries),
-                    "rows": sum(len(e[0]) for e in entries),
-                }
-                for (shape, dtype), entries in self._buckets.items()
-            },
+            "buckets": buckets,
             "inflight_dispatches": len(self._inflight),
             "max_inflight": self.max_inflight,
             "max_batch": self.max_batch,
             "coalesce_ms": self.coalesce_s * 1e3,
         }
 
+    def _higher_tier_waiting(self, tier: str) -> bool:
+        """Whether a bucket of a strictly higher tier has queued requests;
+        interactive (rank 0) answers False at once."""
+        rank = tier_rank(tier)
+        if rank == 0:
+            return False
+        return any(entries and tier_rank(k[2]) < rank for k, entries in self._buckets.items())
+
     async def _pump(self, key) -> None:
-        """One pump per shape bucket: take a dispatch slot, give same-burst
-        submitters a beat to land, stack what is waiting, dispatch, repeat.
+        """One pump per (shape, tier) bucket: take a dispatch slot, give
+        same-burst submitters a beat to land, stack what is waiting,
+        dispatch, repeat.  A lower tier's pump hands a slot it just took
+        back while a higher tier's bucket waits, so interactive traffic
+        takes freed slots first and lower tiers drain when it is idle.
         Exits when its bucket drains (a later submit restarts it)."""
         try:
             while self._buckets.get(key):
                 await self._sem.acquire()
+                if self._higher_tier_waiting(key[2]):
+                    # the sleep bounds re-contention instead of spinning
+                    self._sem.release()
+                    await asyncio.sleep(self.coalesce_s or 0.0005)
+                    continue
                 if self.coalesce_s > 0:
                     # a lone request on an idle device pays no window; one
                     # zero-sleep yield still lets same-tick submitters land
@@ -162,9 +237,10 @@ class MicroBatcher:
                     else:
                         await asyncio.sleep(0)
                 bucket = self._buckets.get(key)
-                take = []
+                take, predicted_s = [], None
                 if bucket:
-                    take = [bucket.popleft() for _ in range(self._take_count(bucket))]
+                    n_take, predicted_s = self._plan_flush(bucket)
+                    take = [bucket.popleft() for _ in range(n_take)]
                 if bucket is not None and not bucket:
                     del self._buckets[key]
                 if not take:
@@ -173,7 +249,8 @@ class MicroBatcher:
                 # one caller: its own context; several: a fresh one (the
                 # pump itself runs in its first submitter's context)
                 ctx = take[0][4] if len(take) == 1 else contextvars.Context()
-                t = asyncio.get_running_loop().create_task(self._run_batch(take), context=ctx)
+                t = asyncio.get_running_loop().create_task(self._run_batch(take, predicted_s),
+                                                           context=ctx)
                 self._inflight.add(t)
                 self.recorder.set_inflight(len(self._inflight))
                 t.add_done_callback(self._inflight.discard)
@@ -198,7 +275,44 @@ class MicroBatcher:
                 break
         return k
 
-    async def _run_batch(self, entries) -> None:
+    def _plan_flush(self, bucket) -> Tuple[int, Optional[float]]:
+        """How many waiting requests this flush takes, and the predicted
+        wall of that choice (None: the legacy take).  Every prefix of the
+        queue (FIFO: a flush cannot skip the head) is scored by predicted
+        goodput, real rows per predicted second at its pad bucket; among
+        the prefixes whose predicted wall fits the tightest remaining
+        deadline of the requests they include (all of them when none
+        fits) the best goodput wins, the longer of equals.  The kill
+        switch, a one-request take, no model or a bucket the model does
+        not cover: the legacy take, bit for bit."""
+        k_max = self._take_count(bucket)
+        if self.predict_s_fn is None or k_max <= 1 or not autopilot_enabled():
+            return k_max, None
+        sample = bucket[0][0]
+        rows = 0
+        tightest = None
+        preds: Dict[int, float] = {}  # padded rows -> predicted seconds
+        scored = []  # (k, rows, predicted, tightest remaining)
+        # islice: indexing a deque is O(n), enumeration would go quadratic
+        for k, entry in enumerate(islice(bucket, k_max), 1):
+            rows += len(entry[0])
+            dl = entry[7]
+            if dl is not None:
+                rem = dl.remaining_s()
+                tightest = rem if tightest is None else min(tightest, rem)
+            padded = min(pad_bucket(rows), self.max_batch)
+            t = preds.get(padded)
+            if t is None:
+                t = self.predict_s_fn(padded, sample)
+                if t is None or t <= 0:
+                    return k_max, None
+                preds[padded] = t
+            scored.append((k, rows, t, tightest))
+        fits = [sc for sc in scored if sc[3] is None or sc[2] <= sc[3]]
+        k, _rows, t, _dl = max(fits or scored, key=lambda sc: (sc[1] / sc[2], sc[0]))
+        return k, t
+
+    async def _run_batch(self, entries, predicted_s: Optional[float] = None) -> None:
         xs = [e[0] for e in entries]
         futs = [e[1] for e in entries]
         now = time.perf_counter()
@@ -216,10 +330,14 @@ class MicroBatcher:
             try:
                 ys, aux = await self._dispatch_chunked(stacked)
             finally:
-                # one record per flush: occupancy (real rows) and the
-                # standalone flush span, failed dispatches included
+                # one record per flush: occupancy (real rows), the standalone
+                # flush span and a planned flush's prediction, failed
+                # dispatches included
+                flush_s = time.perf_counter() - t_flush
+                self._flush_ewma_s = (flush_s if self._flush_ewma_s == 0.0
+                                      else 0.7 * self._flush_ewma_s + 0.3 * flush_s)
                 SPINE.record_flush(rows=total, requests=len(entries), start_s=now_epoch,
-                                   duration_s=time.perf_counter() - t_flush, cost=cost)
+                                   duration_s=flush_s, predicted_s=predicted_s, cost=cost)
             # one walk decides whether the aux holds per-row arrays at all
             per_row = _aux_has_per_row(aux, total)
             offset = 0
@@ -355,6 +473,12 @@ class GenLane:
             req.cancel()
             raise
         return y.astype(np.float64), ({}, {})
+
+    def predicted_latency_s(self, x) -> Optional[float]:
+        """The admission shed's hook: None, as on the reference's unified
+        replica (``batching.py:548-558`` there; only a prefill replica prices
+        its hand-off chain, and the port has no disaggregated roles)."""
+        return None
 
     def snapshot(self) -> dict:
         # the scheduler's own block is stats()["genserver"]

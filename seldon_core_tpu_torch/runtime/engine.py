@@ -6,8 +6,8 @@ the JAX engine chooses (``engine.py:182-251`` there):
 
 * ``fused``: a multi-node graph whose every node is an in-process pure
   unit runs as one ``FusedGraph`` (``graph/fuse.py``) on the engine's
-  device (its demotion budget, the request's remaining deadline there,
-  comes with the autopilot, ROADMAP Queue 1 item [4c]);
+  device, its routers' demotion budget the request's remaining deadline,
+  read on the request's side and handed to the dispatch thread;
 * ``compiled``: a single node, a graph the fusion pass refuses (a
   ``quorum`` or ``fallback`` over pure units, the predictor annotation
   ``seldon.io/graph-fuse: "false"``) or any eligible graph with
@@ -95,9 +95,24 @@ and truth, the binary wire lane binds its sidecar's tenant and tier
 (``runtime/qos.py``) and bills its bytes to them, and the request span
 carries the bound tenant and tier (a postmortem's cost row and SLO
 budget).  ``LEDGER.devices`` is ``torch.cuda.device_count()`` on a CUDA
-engine, 1 on the CPU.  The ``autopilot`` and ``brownout`` keys, admission
-control and the tiers' scheduling effect come with ROADMAP Queue 1 item
-[4c].
+engine, 1 on the CPU.
+
+The autopilot and the policies (``engine.py:400-407``, ``:523-618``,
+``:851-909``, ``:1026-1110`` there): the batcher prices a pad bucket by
+``_predict_dispatch_s``, whose key is the one the dispatch's record trains
+(``CompiledGraph.shape_key``).  ``_submit`` ticks the brownout ladder,
+sheds a tier the ladder sheds, and sheds a request whose predicted queue +
+dispatch wall exceeds its remaining budget times ``shed_margin()`` times the
+ladder's margin scale: a typed 503 (``LoadShedError``) before any dispatch
+slot, queue entry or device time, counted by
+``seldon_tpu_brownout_shed_total{tier}`` or
+``seldon_tpu_autopilot_shed_total{where="admission"}``, marked ``shed`` on
+the request span (the postmortem keeps it for ``shed``) and left out of the
+SLO feed.  The engine warms the autopilot from the perf corpus at
+construction (``SELDON_TPU_CORPUS_DIR``), ``prewarm`` runs every batch
+bucket before the server binds, and ``autopilot_document`` /
+``corpus_document`` are ``GET /autopilot`` / ``/corpus``; ``/stats`` has
+``autopilot`` and ``brownout``.
 """
 
 from __future__ import annotations
@@ -105,7 +120,9 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import contextvars
+import functools
 import json
+import logging
 import os
 import secrets
 import threading
@@ -130,6 +147,7 @@ from seldon_core_tpu_torch.messages import (
     DefaultData,
     DispatchTimeoutError,
     Feedback,
+    LoadShedError,
     Meta,
     SeldonMessage,
     SeldonMessageError,
@@ -140,7 +158,14 @@ from seldon_core_tpu_torch import protoconv
 from seldon_core_tpu_torch.native import protowire
 from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, kv_write
 from seldon_core_tpu_torch.runtime import wire
+from seldon_core_tpu_torch.runtime.autopilot import (
+    AUTOPILOT,
+    SHED_INFO_PREFIX,
+    autopilot_enabled,
+    shed_margin,
+)
 from seldon_core_tpu_torch.runtime.batching import GenLane, MicroBatcher, graph_is_batchable
+from seldon_core_tpu_torch.runtime.brownout import BROWNOUT, BROWNOUT_INFO_PREFIX
 from seldon_core_tpu_torch.runtime.genserver import GenServer
 from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier, qos_scope
 from seldon_core_tpu_torch.runtime.resilience import (
@@ -154,6 +179,7 @@ from seldon_core_tpu_torch.utils.genperf import GENPERF
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
 from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.perfcorpus import CORPUS
 from seldon_core_tpu_torch.utils.postmortem import POSTMORTEM
 from seldon_core_tpu_torch.utils.quality import QUALITY, router_quality
 from seldon_core_tpu_torch.utils.telemetry import RECORDER, AuditLog
@@ -166,6 +192,8 @@ from seldon_core_tpu_torch.utils.tracing import (
 )
 
 __all__ = ["EngineService", "StreamRequest"]
+
+logger = logging.getLogger(__name__)
 
 
 class StreamRequest(NamedTuple):
@@ -343,8 +371,16 @@ class EngineService:
                 # frees the slot of a wedged dispatch after callers got
                 # their 504s
                 dispatch_timeout_s=self.dispatch_timeout_s * 1.5,
+                predict_s_fn=self._predict_dispatch_s,
             )
             self.batcher.cost_deployment = self.deployment.name
+        # warm the autopilot from the durable perf corpus, so a restarted
+        # engine prices the keys it has seen before its first dispatch (a
+        # no-op when SELDON_TPU_CORPUS_DIR is unset)
+        try:
+            CORPUS.warm_start_autopilot()
+        except Exception:  # noqa: BLE001 - the corpus must never block serving
+            logger.exception("perf-corpus warm start failed (serving anyway)")
 
     def _build_host(self, extra_runtimes, rng) -> None:
         """Host mode: a pooled client for each REST node the caller did not
@@ -396,19 +432,46 @@ class EngineService:
 
     # -- dispatch -------------------------------------------------------
 
+    def _predict_dispatch_s(self, padded_rows: int, x) -> Optional[float]:
+        """The autopilot's predicted dispatch wall of this graph at one pad
+        bucket of ``x``'s feature shape and dtype, keyed as the dispatch's
+        record will be (``shape_key``), so the prediction reads the row
+        that the record trains."""
+        shape = (int(padded_rows),) + tuple(np.shape(x)[1:])
+        return AUTOPILOT.predict_s(self.compiled.shape_key(shape, getattr(x, "dtype", np.float64)))
+
     async def _submit(self, rows):
         """Batched dispatch under the engine's per-dispatch deadline: a hung
         device surfaces as a 504 instead of a request that never returns.
         The request's own deadline (a header's or a frame's sidecar's)
         clamps the wait further, and an exhausted one is a 504 before any
-        dispatch (``engine.py:1035-1108`` there, without its admission
-        control, item [4c])."""
+        dispatch (``engine.py:1035-1108`` there).  Admission control first:
+        a tier the brownout ladder sheds, and a request the autopilot
+        predicts cannot finish inside its budget, answer a typed 503 before
+        they take a dispatch slot or device time."""
+        BROWNOUT.maybe_tick()
+        tier = current_tier()
+        if BROWNOUT.sheds_tier(tier):
+            RECORDER.record_brownout_shed(tier)
+            raise LoadShedError(f"{BROWNOUT_INFO_PREFIX}: {tier!r}-tier request shed at "
+                                f"brownout stage {BROWNOUT.stage()} — retry later")
         timeout = self.dispatch_timeout_s
         rem = remaining_s()
         if rem is not None:
             if rem <= 0:
                 RECORDER.record_deadline_exceeded("dispatch")
                 raise DeadlineExceededError("request deadline exhausted before device dispatch")
+            if autopilot_enabled():
+                est = self.batcher.predicted_latency_s(rows)
+                # brownout stage 3 tightens the margin: marginal requests
+                # shed earlier, certain ones still run
+                if est is not None and est > rem * shed_margin() * BROWNOUT.shed_margin_scale():
+                    RECORDER.record_autopilot_shed("admission")
+                    self.tracer.event("autopilot_shed", predicted_ms=round(est * 1e3, 3),
+                                      remaining_ms=round(rem * 1e3, 3))
+                    raise LoadShedError(
+                        f"{SHED_INFO_PREFIX}: predicted queue+dispatch {est * 1e3:.1f} ms "
+                        f"exceeds the remaining deadline budget ({rem * 1e3:.1f} ms)")
             timeout = min(timeout, rem)
         try:
             return await asyncio.wait_for(self.batcher.submit(rows), timeout)
@@ -672,15 +735,18 @@ class EngineService:
         t0 = time.perf_counter()
         with self.metrics.time_server("predictions", "POST") as code, self._request_span(
                 msg.meta.puid, "predict", mode=self.mode):
-            resp, status, n_rows = await self._predict(msg)
+            resp, status, n_rows, shed = await self._predict(msg)
             if status != 200:
                 code["code"] = str(status)
+                # a shed is flow control, not an SLO error (time_server)
+                code["shed"] = shed
             self._audit_request(msg.meta.puid, "predict", status, t0, rows=n_rows,
                                 lane="object")
             return resp
 
-    async def _predict(self, msg: SeldonMessage) -> "tuple[SeldonMessage, int, Optional[int]]":
-        """``predict``'s body: ``(response, http status, rows)``."""
+    async def _predict(self, msg: SeldonMessage
+                       ) -> "tuple[SeldonMessage, int, Optional[int], bool]":
+        """``predict``'s body: ``(response, http status, rows, shed)``."""
         n_rows = None
         try:
             if self.compiled is not None and msg.data is not None \
@@ -699,26 +765,31 @@ class EngineService:
                     requestPath=dict(msg.meta.requestPath),
                 )
                 resp.status = Status()
-                return resp, 200, n_rows
+                return resp, 200, n_rows, False
             if self.compiled is None:
                 resp = await self.executor.predict(msg)
                 # the answer's readback on a dispatch thread, off the loop
                 resp = await self._in_executor(_host_payload, resp)
             else:
                 width = np.shape(msg.array())[1:] if msg.data is not None else None
-                resp = await self._in_executor(
-                    self._guarded, width, self._serial, self.compiled.predict, msg)
+                call = self.compiled.predict
+                if isinstance(self.compiled, FusedGraph):
+                    # the demotion budget, read on the request's side and
+                    # passed across to the dispatch thread
+                    call = functools.partial(call, budget_s=remaining_s())
+                resp = await self._in_executor(self._guarded, width, self._serial, call, msg)
                 # the outlier bridge of a dispatch that takes no batcher (a
                 # unit that updates its state on predict, a router graph)
                 if QUALITY.enabled and resp.meta.tags:
                     QUALITY.record_outlier_tags(resp.meta.tags)
         except (SeldonMessageError, GraphSpecError) as e:
-            self.tracer.annotate(status=e.http_code, error=type(e).__name__)
+            shed = isinstance(e, LoadShedError)
+            self.tracer.annotate(status=e.http_code, error=type(e).__name__, shed=shed)
             return (SeldonMessage.failure(str(e), code=e.http_code, meta=msg.meta),
-                    e.http_code, n_rows)
+                    e.http_code, n_rows, shed)
         resp.meta.puid = msg.meta.puid
         ok = resp.status is None or resp.status.status == "SUCCESS"
-        return resp, 200 if ok else (resp.status.code or 400), n_rows
+        return resp, 200 if ok else (resp.status.code or 400), n_rows, False
 
     async def _in_executor(self, fn, *args):
         """``fn(*args)`` on a dispatch thread in the caller's context (its
@@ -741,7 +812,9 @@ class EngineService:
         """A typed failure inside a request span: the server timer's code,
         the span's status and the audit entry."""
         code["code"] = str(e.http_code)
-        self.tracer.annotate(status=e.http_code, error=type(e).__name__)
+        # a shed is flow control, not an SLO error (time_server)
+        code["shed"] = isinstance(e, LoadShedError)
+        self.tracer.annotate(status=e.http_code, error=type(e).__name__, shed=code["shed"])
         self._audit_request(puid, "predict", e.http_code, t0, rows=rows, lane=lane)
 
     def _audit_request(self, puid: str, method: str, status: int, t0: float,
@@ -919,6 +992,56 @@ class EngineService:
                    if request.trace is not None and request.trace.sampled else {}))
         yield json.dumps({"done": True, "meta": {"puid": request.puid}})
 
+    # -- prewarm (engine.py:851-909) --------------------------------------
+
+    def prewarm(self, widths) -> int:
+        """Run every batch-bucket shape of the given feature widths once
+        before the server binds; returns the number of shapes run.
+
+        The batcher pads to powers of two capped at ``max_batch``, so a
+        stateless graph's shapes per width are {1, 2, 4, ..., max_batch}; a
+        stateful graph takes no batcher (its rows are not padded) and runs
+        one row.  Each walk leaves the unit states as they were
+        (``update_states=False``) and reads its answer back.  The port
+        compiles nothing here, as XLA would: what a prewarm buys is the
+        kernels' first-use cost (the ``ops/_build.py`` load, a source-hash
+        hit or nvcc on a cold cache, the CUDA context, cuBLAS handles and
+        the caching allocator's first blocks), and a perf-observatory row
+        for every bucket, which is the autopilot's seed prior before the
+        bucket's first dispatch.  A width the graph rejects is logged and
+        skipped.  The continuous lane prewarms through its scheduler
+        (``GenServer.prewarm``)."""
+        if self.compiled is None:
+            return 0
+        if self.genserver is not None:
+            return self.genserver.prewarm(widths)
+        if isinstance(self.batcher, MicroBatcher):
+            mb = self.batcher.max_batch
+            # a non-power-of-two max_batch is itself a bucket
+            sizes = [1 << i for i in range(mb.bit_length()) if (1 << i) < mb] + [mb]
+        elif self._stateful:
+            sizes = [1]
+        else:
+            return 0
+        done = 0
+        for width in widths:
+            shape = (width,) if isinstance(width, int) else tuple(width)
+            # the smallest batch first: a width the graph cannot take must
+            # not stop the server from binding
+            for b in sizes:
+                x = np.zeros((b,) + shape, dtype=np.float64)
+                try:
+                    y, _, _ = self.compiled.predict_arrays(x, update_states=False)
+                    y.detach().cpu()
+                except Exception as e:  # noqa: BLE001 - any shape error
+                    logger.warning("prewarm: width %s rejected by the graph at batch %d "
+                                   "(%s: %s); skipping this width", shape, b,
+                                   type(e).__name__, e)
+                    break
+                self._known_good_widths.add(x.shape[1:])
+                done += 1
+        return done
+
     # -- admin (engine RestClientController.java:57-99) -------------------
 
     def stats(self) -> dict:
@@ -977,6 +1100,10 @@ class EngineService:
         # the MAB router state read back from the card (per-branch
         # success and tries)
         out["routers"] = router_quality(self.states())
+        # the learned cost model's health (the table is GET /autopilot) and
+        # the brownout ladder: stage, live signals, recent transitions
+        out["autopilot"] = AUTOPILOT.snapshot()
+        out["brownout"] = BROWNOUT.snapshot()
         out["audit"] = self.audit.snapshot()
         out["staleness_s"] = round(staleness, 3)
         return out
@@ -1009,6 +1136,20 @@ class EngineService:
                                else self.genserver.chunk_history()),
             **GENPERF.document(),
         }
+
+    def autopilot_document(self) -> dict:
+        """``GET /autopilot``: the learned cost model (the per-key latency
+        table, knobs, misprediction distribution, shed and decision
+        counters) under this engine's identity."""
+        SPINE.drain()  # pending dispatch records train the model first
+        return {"engine": self._identity(), **AUTOPILOT.document()}
+
+    def corpus_document(self) -> dict:
+        """``GET /corpus``: the durable perf corpus (per-key sketches,
+        segments, rotations, warm-start counters) under this engine's
+        identity."""
+        SPINE.drain()  # pending dispatch records land in the corpus first
+        return {"engine": self._identity(), **CORPUS.document()}
 
     def quality_document(self) -> dict:
         """``GET /quality``: the quality observatory (per-node drift table,

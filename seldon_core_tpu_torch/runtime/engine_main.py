@@ -16,7 +16,12 @@ remote node through a pooled client.
 Env knobs, as in the JAX package: ``ENGINE_SERVER_PORT`` (8000),
 ``ENGINE_MAX_BATCH`` (1024), ``ENGINE_BATCH_WAIT_MS`` (2.0),
 ``ENGINE_PIPELINE_DEPTH`` (8), ``ENGINE_DISPATCH_TIMEOUT_S`` (30) and
-``ENGINE_SHUTDOWN_DRAIN_S`` (20).  ``--device`` picks the device: ``cuda``
+``ENGINE_SHUTDOWN_DRAIN_S`` (20).  ``ENGINE_PREWARM_WIDTHS`` (comma-separated
+feature widths, e.g. ``784``) runs every batch bucket of those widths
+before the server binds (``EngineService.prewarm``; ``engine_main.py:120-131``
+there), with the reference's "prewarmed ..." line.  ``SELDON_TPU_CORPUS_DIR``
+names the perf corpus's directory, which warms the autopilot at start
+(``utils/perfcorpus.py``).  ``--device`` picks the device: ``cuda``
 by default; asking for CUDA without it exits with an error.  SIGTERM or
 SIGINT flips readiness to 503 and drains before exit; a second signal
 skips the drain.
@@ -139,6 +144,15 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
         dispatch_timeout_s=float(os.environ.get("ENGINE_DISPATCH_TIMEOUT_S", "30")),
         device=device,
     )
+    # every batch bucket of these feature widths runs once before the server
+    # binds: live traffic never pays a kernel's first use
+    prewarm_raw = os.environ.get("ENGINE_PREWARM_WIDTHS", "")
+    if prewarm_raw.strip():
+        widths = [int(w) for w in prewarm_raw.split(",") if w.strip()]
+        t0 = asyncio.get_running_loop().time()
+        n = engine.prewarm(widths)
+        print(f"prewarmed {n} batch shapes for widths {widths} in "
+              f"{asyncio.get_running_loop().time() - t0:.1f}s", flush=True)
     server = await serve_fast(engine, host, rest_port, uds_path=http_uds_path or None)
     grpc_server = await serve_grpc_fast(engine, host, grpc_port)
     uds_server = await serve_uds(engine, uds_path) if uds_path else None

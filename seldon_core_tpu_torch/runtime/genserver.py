@@ -13,14 +13,15 @@ by step on one worker thread:
     takes back block ids on the host.  An int8 cache's pools carry their
     scale planes; the allocator, preemption and the prefix tails are the
     same, the kernels their int8-K/V variants.
-  * **Per-tick admission**: each tick admits waiting sequences FIFO into
-    free slots, runs one prefill tick (one ``prefill_chunk`` piece of
+  * **Per-tick admission**: each tick admits waiting sequences into free
+    slots, the highest latency tier first and FIFO within a tier, runs one prefill tick (one ``prefill_chunk`` piece of
     every prefilling sequence's prompt, batched) and one decode round
     (``span`` steps of every running sequence,
     ``paged_decode_round``), retires finished rows and hands their tokens
     to the requests' futures and stream queues.
-  * **Preemption**: when the pool runs dry the youngest sequence (running
-    or prefilling) gives its blocks back and waits at the front of the
+  * **Preemption**: when the pool runs dry a sequence of the lowest tier
+    present, the youngest of that tier (running or prefilling), gives its
+    blocks back and waits at the front of the
     queue; it re-prefills its prompt and the tokens it already emitted,
     and resumes with the token it had pending, never re-sampled.
 
@@ -105,10 +106,21 @@ preempt, for ``utils/costledger.py`` to fold.  A sequence under postmortem
 tail capture (a sampled-out trace whose ``pm`` bit is set) keeps its
 lifecycle events and leaves its ``gen_sequence`` span ``pm_only``.
 
-Not ported, with the ROADMAP item that ports each: the disaggregated
-prefill and decode roles and the KV handoff between them
-(``runtime/kvstream.py``; [6]), brownout, the tiers' scheduling effect
-(admission and preemption by tier) and ``prewarm`` ([4c]).
+The policies (``genserver.py:466-620``, ``:1059-1150``, ``:1250-1254``
+there): ``submit`` and ``stream`` take the request's ``tier`` (the bound
+one by default); the brownout ladder (``runtime/brownout.py``) sheds a tier
+it sheds at admission with a typed 503, scales ``max_new`` at stage 2 and
+above (so the answer's ``[B, max_new]`` shape follows the scaled length),
+and holds the prefill chunk at its floor (the adaptive probe pauses); the
+waiting queue is one of the ladder's depth signals, registered through a
+weak reference and unregistered at ``stop``; a full queue's shed counts in
+``seldon_tpu_autopilot_shed_total{where="gen_queue"}``; ``prewarm`` runs
+one probe request a width end to end before the server binds, and the
+snapshot counts sequences by tier.
+
+Not ported, with the ROADMAP item that ports it: the disaggregated prefill
+and decode roles and the KV handoff between them (``runtime/kvstream.py``;
+[6]).
 """
 
 from __future__ import annotations
@@ -120,6 +132,7 @@ import os
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional
 
@@ -139,7 +152,9 @@ from seldon_core_tpu_torch.models.generate import (
 )
 from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
 from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
-from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier
+from seldon_core_tpu_torch.runtime.autopilot import SHED_INFO_PREFIX
+from seldon_core_tpu_torch.runtime.brownout import BROWNOUT, BROWNOUT_INFO_PREFIX
+from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier, tier_rank
 from seldon_core_tpu_torch.utils.costledger import costledger_enabled
 from seldon_core_tpu_torch.utils.hotrecord import SPINE
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
@@ -149,11 +164,6 @@ from seldon_core_tpu_torch.utils.tracing import TRACER, Span, current_trace_cont
 __all__ = ["BlockAllocator", "GenRequest", "GenServer"]
 
 logger = logging.getLogger(__name__)
-
-#: the wire prefix of a deliberate load shed (the reference's
-#: ``runtime/autopilot.py`` ``SHED_INFO_PREFIX``): a gateway reads it as
-#: backpressure, not as a replica fault
-SHED_INFO_PREFIX = "autopilot load shed"
 
 
 def _env_int(name: str, default: int) -> int:
@@ -392,6 +402,19 @@ class GenServer:
         self._tick_kv_attr: List[tuple] = []   # (tenant, block_s) freed
         #: deployment identity on /costs rows; the engine stamps it
         self.cost_deployment = ""
+        # the waiting queue is a brownout depth signal, read through a weak
+        # reference (and unregistered when the scheduler is collected), so
+        # the ladder never pins a scheduler dropped without stop()
+        self._brownout_key = f"genserver:{id(self)}"
+        ref = weakref.ref(self)
+
+        def _depth() -> int:
+            sched = ref()
+            # len() of a deque needs no lock: a signal read, not an invariant
+            return 0 if sched is None else len(sched._waiting) + len(sched._arrivals)
+
+        BROWNOUT.register_depth(self._brownout_key, _depth)
+        weakref.finalize(self, BROWNOUT.unregister_depth, self._brownout_key)
         # device work dispatched: prefill ticks, single-token decode steps
         # (each step is one launch of each paged kernel per layer),
         # speculative rounds (k + 1 draft steps and one verify each), prefix
@@ -406,18 +429,21 @@ class GenServer:
 
     # -- client surface (any thread) ------------------------------------
 
-    def submit(self, rows, max_new: Optional[int] = None) -> GenRequest:
+    def submit(self, rows, max_new: Optional[int] = None,
+               tier: Optional[str] = None) -> GenRequest:
         """Unary generation: rows [B, S] (float wire rows: NaN to 0, then
         clamped to [0, vocab) and truncated, as ``sanitize_prompt``).  The
         request's ``future`` resolves to the eos-padded int32 [B, max_new]
-        array, ``generate``'s output."""
-        return self._enqueue(rows, chunk=None, max_new=max_new)
+        array, ``generate``'s output (``max_new`` as admission scaled it).
+        ``tier`` defaults to the one bound to the calling context."""
+        return self._enqueue(rows, chunk=None, max_new=max_new, tier=tier)
 
-    def stream(self, rows, chunk: int = 8, max_new: Optional[int] = None):
+    def stream(self, rows, chunk: int = 8, max_new: Optional[int] = None,
+               tier: Optional[str] = None):
         """Streaming generation: a generator of [B, <=chunk] int32 arrays
         whose concatenation equals the unary output.  Closing it early
         cancels the request, which frees its blocks at the next tick."""
-        req = self._enqueue(rows, chunk=max(1, int(chunk)), max_new=max_new)
+        req = self._enqueue(rows, chunk=max(1, int(chunk)), max_new=max_new, tier=tier)
 
         def _iter():
             try:
@@ -436,7 +462,14 @@ class GenServer:
 
         return _iter()
 
-    def _enqueue(self, rows, chunk, max_new) -> GenRequest:
+    def _enqueue(self, rows, chunk, max_new, tier: Optional[str] = None) -> GenRequest:
+        tier = tier or current_tier()
+        if BROWNOUT.sheds_tier(tier):
+            # typed and retryable, before anything is allocated or queued
+            RECORDER.record_brownout_shed(tier)
+            raise LoadShedError(
+                f"{BROWNOUT_INFO_PREFIX}: {tier!r}-tier generation shed at brownout stage "
+                f"{BROWNOUT.stage()} — retry later or resubmit as a higher tier")
         rows = np.asarray(rows, dtype=np.float64)
         if rows.ndim < 2:
             rows = rows.reshape(1, -1)
@@ -446,12 +479,19 @@ class GenServer:
                 f"{rows.shape}")
         # sanitize_prompt's clamp, on the host: NaN to 0, clip to the vocab
         prompts = np.clip(np.nan_to_num(rows), 0, self.cfg.vocab - 1).astype(np.int32)
-        req = GenRequest(chunk, int(max_new or self.max_new_tokens))
+        max_new = int(max_new or self.max_new_tokens)
+        scale = BROWNOUT.gen_max_new_scale()
+        if scale < 1.0:
+            # stage 2: shorter generations free blocks and slots sooner;
+            # scaled at admission, so the answer's [B, max_new] shape holds
+            max_new = max(1, int(max_new * scale))
+        req = GenRequest(chunk, max_new, tier=tier)
         with self._wake:
             if self._stopped:
                 raise RuntimeError("generation scheduler stopped")
             waiting = len(self._waiting) + len(self._arrivals)
             if self.max_waiting > 0 and waiting + len(prompts) > self.max_waiting:
+                RECORDER.record_autopilot_shed("gen_queue")
                 raise LoadShedError(
                     f"{SHED_INFO_PREFIX}: generation admission queue full ({waiting}/"
                     f"{self.max_waiting} sequences waiting; grow SELDON_TPU_GEN_MAX_WAITING "
@@ -470,16 +510,40 @@ class GenServer:
             self._wake.notify_all()
         return req
 
+    def prewarm(self, widths=()) -> int:
+        """One probe request a prompt width (4 tokens when none is given,
+        at most 4,096), run end to end through admission, the prefill tick
+        and a decode round, before the server binds: the lane's kernels
+        (``kv_write_paged`` and ``flash_decode_paged``), the pool's
+        allocation and the first calls of each op pay their first-use cost
+        here.  Returns the number of probes served."""
+        count = 0
+        for width in list(widths) or [4]:
+            w = width if isinstance(width, int) else int(np.prod(width))
+            probe = np.zeros((1, max(1, min(w, 4096))))
+            req = self.submit(probe, max_new=min(self.span + 1, self.max_new_tokens))
+            try:
+                req.future.result(timeout=900)
+                count += 1
+            except Exception as e:  # noqa: BLE001 - prewarm is best effort
+                logger.warning("genserver prewarm width %s failed: %s", width, e)
+        return count
+
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             waiting = len(self._waiting) + len(self._arrivals)
             inflight = len(self._active) + len(self._prefilling)
+            tiers: Dict[str, int] = {}
+            for coll in (self._waiting, self._arrivals, self._prefilling, self._active):
+                for seq in coll:
+                    tiers[seq.request.tier] = tiers.get(seq.request.tier, 0) + 1
         doc = {
             "mode": "speculative" if self.spec else "decode",
             "slots": self.slots,
             "inflight_sequences": inflight,
             "waiting_sequences": waiting,
             "max_waiting": self.max_waiting,
+            "sequences_by_tier": tiers,
             "kv_blocks": self._allocator.snapshot(),
             "block_size": self.block_size,
             "span": self.span,
@@ -519,7 +583,9 @@ class GenServer:
 
     def stop(self) -> None:
         """Stop the worker thread; every request still queued or in flight
-        fails with "generation scheduler stopped"."""
+        fails with "generation scheduler stopped".  The waiting queue stops
+        being a brownout signal."""
+        BROWNOUT.unregister_depth(self._brownout_key)
         with self._wake:
             self._stopped = True
             self._wake.notify_all()
@@ -814,10 +880,13 @@ class GenServer:
         return True
 
     def _pick_victim(self, exclude: _Sequence) -> Optional[_Sequence]:
-        """The youngest admitted sequence, running or prefilling, but
-        ``exclude``."""
+        """A sequence of the lowest tier present (offline, then batch, then
+        interactive), the youngest admitted of that tier, running or
+        prefilling, but ``exclude``: interactive sequences keep their blocks
+        while a lower-tier victim exists."""
         pool = [s for s in self._active + self._prefilling if s is not exclude]
-        return max(pool, key=lambda s: s.admit_order) if pool else None
+        return (max(pool, key=lambda s: (tier_rank(s.request.tier), s.admit_order))
+                if pool else None)
 
     def _preempt(self, seq: _Sequence) -> None:
         """Evict a sequence: free its blocks and put it at the front of the
@@ -874,14 +943,29 @@ class GenServer:
             self._draft_allocator.free(seq.draft_blocks)
         seq.draft_blocks = []
 
+    def _next_waiting_index(self) -> int:
+        """Admission order: the highest tier first, FIFO within a tier; with
+        every sequence interactive (the default) it is index 0, plain
+        FIFO."""
+        best, best_rank = 0, None
+        for i, seq in enumerate(self._waiting):
+            r = tier_rank(seq.request.tier)
+            if best_rank is None or r < best_rank:
+                best, best_rank = i, r
+                if r == 0:
+                    break  # nothing outranks interactive
+        return best
+
     def _admit(self) -> int:
-        """FIFO admission into free slots.  A sequence whose first chunk's
-        blocks cannot be allocated stays queued (pool exhaustion queues, it
-        never crashes); one that cannot fit with the scheduler otherwise
-        empty can never be served and fails with a typed error."""
+        """Tier-first FIFO admission into free slots.  A sequence whose
+        first chunk's blocks cannot be allocated stays queued (pool
+        exhaustion queues, it never crashes); one that cannot fit with the
+        scheduler otherwise empty can never be served and fails with a typed
+        error."""
         admitted = 0
         while self._waiting and len(self._active) + len(self._prefilling) < self.slots:
-            seq = self._waiting[0]
+            idx = self._next_waiting_index()
+            seq = self._waiting[idx]
             first = min(len(seq.prompt), self.prefill_chunk)
             need = self._blocks_needed(self._prefix_len + first) - len(self._prefix_blocks)
             d_need = self._blocks_needed(first) if self.spec else 0
@@ -889,14 +973,14 @@ class GenServer:
                     self.spec and not self._draft_allocator.can_alloc(d_need)):
                 if not self._active and not self._prefilling:
                     # nothing will ever retire to free blocks
-                    self._waiting.popleft()
+                    del self._waiting[idx]
                     self._finish_error(seq, RuntimeError(
                         f"KV pool ({self.num_blocks} blocks of {self.block_size}) cannot hold "
                         f"one prefill chunk (grow SELDON_TPU_GEN_POOL_BLOCKS)"))
                     continue
                 self._pool_dry = True  # the bubble ledger's pool_exhaustion
                 break  # pool dry: wait for a retirement
-            self._waiting.popleft()
+            del self._waiting[idx]
             seq.blocks = self._allocator.alloc(need) or []
             if self.spec:
                 seq.draft_blocks = self._draft_allocator.alloc(d_need) or []
@@ -937,7 +1021,10 @@ class GenServer:
         ``paged_forward``: a long prompt stalls the running decode for about
         one chunk, and co-arriving prompts prefill together."""
         t0 = time.perf_counter()
-        C = self._chunk_eff
+        # brownout stage >= 2: the floor grain, so in-flight decode stalls
+        # least; the adaptive probe pauses rather than learn degraded walls
+        floored = BROWNOUT.gen_chunk_floor()
+        C = self.prefill_chunk if floored else self._chunk_eff
         # the capacity pass first: an eviction in it may requeue another
         # prefilling sequence, so the batch is built only afterwards
         for seq in list(self._prefilling):
@@ -1040,7 +1127,7 @@ class GenServer:
                 # the first served token
                 self._attr_note("prefill", 0, [(seq.request.tenant, seq.request.tier, 0, 1, 1)])
             self._active.append(seq)
-        if int(width.max()) == C:
+        if int(width.max()) == C and not floored:
             # only saturated ticks say anything about width-C compute
             self._adapt_chunk(C, time.perf_counter() - t0)
         return emitted

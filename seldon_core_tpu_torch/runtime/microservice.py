@@ -32,7 +32,9 @@ an OUTLIER_DETECTOR) behind ``UserObjectUnit``, which hands it numpy rows.
 Observability: a REST unit also answers ``GET /stats`` (with the flight
 recorder's snapshot), ``/perf``, ``/overhead``, ``/quality`` (the unit's
 own drift window: each ``predict`` records one, ``rest.py:564-573`` there),
-``POST /quality/reference``, ``/trace`` and ``/trace/export``, and each call
+``POST /quality/reference``, ``/autopilot`` (the per-key model that the
+unit's own dispatches train, ``rest.py:587-598`` there), ``/trace`` and
+``/trace/export``, and each call
 runs in a ``server`` span of the node's name, the caller's child through
 its ``traceparent`` (``SELDON_TPU_TRACE=1`` turns tracing on), with the
 caller's ``Seldon-Tenant`` / ``Seldon-Tier`` bound.  A gRPC unit takes the
@@ -235,7 +237,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--persistence", type=int, default=0,
                         help="1: checkpoint the unit's state (not ported)")
     parser.add_argument("--http-port", type=int, default=None,
-                        help="GRPC: also serve /stats /perf /overhead /quality /trace on this port")
+                        help="GRPC: also serve /stats /perf /overhead /quality /autopilot /trace "
+                             "on this port")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card is an error")
     args = parser.parse_args(argv)

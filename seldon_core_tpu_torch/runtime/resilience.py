@@ -19,8 +19,11 @@ Breaker states and transitions, retry-budget exhaustion and deadline
 misses go to the flight recorder (``utils/telemetry.py``, the
 ``seldon_tpu_breaker_*``, ``seldon_tpu_retry_budget_exhausted_total`` and
 ``seldon_tpu_deadline_exceeded_total`` families); the remote clients
-record their retries.  The QoS, brownout and admission layers of the JAX
-package are not ported (ROADMAP Queue 1 item [4c]).
+record their retries.  The policies that act on these budgets live beside
+them: admission control and the brownout ladder (``runtime/engine.py``
+``_submit``, ``runtime/brownout.py``) shed with a typed 503
+(``LoadShedError``) that this module's retry policy classifies transient,
+and the tenant governor (``runtime/qos.py``) refuses with a 429.
 """
 
 from __future__ import annotations

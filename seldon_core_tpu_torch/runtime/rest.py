@@ -28,6 +28,8 @@ Routes:
   GET  /postmortems                the tail-sampled postmortems; ``?puid=``
                                    one full exemplar
   GET  /costs                      the resource ledger
+  GET  /autopilot                  the learned cost model's per-key table
+  GET  /corpus                     the durable perf corpus's sketches
   GET  /trace /trace/export        ``?puid=`` / ``?trace_id=`` / ``?limit=``:
                                    the trace document, Chrome trace JSON
   POST /trace/enable /trace/disable   (a GET answers 405)
@@ -44,7 +46,8 @@ The unit microservice's routes (``FastHttpServer(routes=_UnitRoutes(...))``,
                                Feedback), JSON body or form ``json=``;
                                the answer a SeldonMessage (/route's a 1x1
                                tensor holding the branch)
-  GET  /ping /stats /perf /overhead /quality /trace /trace/export
+  GET  /ping /stats /perf /overhead /quality /autopilot /trace
+       /trace/export
   POST /quality/reference
 
 A request's ``Seldon-Deadline-Ms`` header becomes its deadline scope
@@ -76,9 +79,10 @@ Every request's ``traceparent`` header is its trace context, as its
 binding ends with the request): the engine's ``request`` span and a unit's
 ``server`` span become the caller's children, and the cost ledger bills the
 tenant.  A unit route's latency lands in the recorder's ``unit:<method>``
-reservoir and histogram.  Not routed yet: ``/autopilot`` and ``/corpus``
-(ROADMAP Queue 1 item [4c]); not ported: the writer's transport flow
-control.
+reservoir and histogram.  A load shed (the autopilot's admission, the
+brownout ladder, a full generation queue) answers 503 with its prefix on
+every lane: a FAILURE message on the JSON and gRPC lanes, an error frame on
+the binary wire.  Not ported: the writer's transport flow control.
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessageList,
 )
 from seldon_core_tpu_torch.runtime import wire
+from seldon_core_tpu_torch.runtime.autopilot import AUTOPILOT
 from seldon_core_tpu_torch.runtime.qos import bind_qos
 from seldon_core_tpu_torch.runtime.resilience import (
     DEADLINE_VAR,
@@ -260,6 +265,8 @@ class _EngineRoutes:
             b"/quality": self._quality,
             b"/postmortems": self._postmortems,
             b"/costs": self._costs,
+            b"/autopilot": self._autopilot,
+            b"/corpus": self._corpus,
             b"/trace": self._trace,
             b"/trace/export": self._trace_export,
             b"/profile": self._profile,
@@ -365,6 +372,12 @@ class _EngineRoutes:
     async def _costs(self, body, ctype) -> Result:
         return _json_doc(self.engine.costs_document())
 
+    async def _autopilot(self, body, ctype) -> Result:
+        return _json_doc(self.engine.autopilot_document())
+
+    async def _corpus(self, body, ctype) -> Result:
+        return _json_doc(self.engine.corpus_document())
+
     async def _trace(self, body, ctype) -> Result:
         return _trace_doc(100)
 
@@ -427,7 +440,7 @@ class _UnitRoutes:
         self.get: Dict[bytes, Handler] = {
             b"/ping": self._ping, b"/stats": self._stats, b"/perf": self._perf,
             b"/overhead": self._overhead, b"/quality": self._quality, b"/trace": self._trace,
-            b"/trace/export": self._trace_export,
+            b"/trace/export": self._trace_export, b"/autopilot": self._autopilot,
         }
 
     def _handler(self, method: str) -> Handler:
@@ -528,6 +541,11 @@ class _UnitRoutes:
 
     async def _overhead(self, body, ctype) -> Result:
         return _json_doc({"unit": self._unit(), **SPINE.overhead_document()})
+
+    async def _autopilot(self, body, ctype) -> Result:
+        # what this unit process dispatched trains the process-global model
+        SPINE.drain()
+        return _json_doc({"unit": self._unit(), **AUTOPILOT.document()})
 
     async def _quality(self, body, ctype) -> Result:
         # the node's own drift window: InProcessNodeRuntime.predict records

@@ -36,9 +36,10 @@ and prices a ``capacity`` block (consumed vs available chip-seconds;
 ``devices`` is ``torch.cuda.device_count()`` for a CUDA engine, 1 on the
 CPU).
 
-``SELDON_TPU_QOS_USAGE_WEIGHTED=1`` is read by ``usage_weighted_enabled``
-for the fair queue's cost-weighted clock (:meth:`CostLedger.usage_advance`),
-which comes with ROADMAP Queue 1 item [4c].  ``SELDON_TPU_COSTLEDGER=0`` is
+``SELDON_TPU_QOS_USAGE_WEIGHTED=1`` makes the tenant governor's fair queue
+(``runtime/qos.py`` ``TenantGovernor._tag``) advance each tenant's virtual
+clock by :meth:`CostLedger.usage_advance`, its device-seconds a request
+against the fleet average: fair share in card-seconds, not requests.  ``SELDON_TPU_COSTLEDGER=0`` is
 the kill switch: producers build no payload and this module sees nothing;
 serving is unchanged.
 """

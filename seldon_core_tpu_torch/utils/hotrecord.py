@@ -6,8 +6,11 @@ The quality observatory folds the dispatch records' batches
 (``WANT_QUALITY``) and the host-mode / unit-pod quality hop
 (``HOP_QUALITY``), the cost ledger the flush and tick records' attribution
 payloads (``WANT_COST``), and the postmortem recorder every folded span
-(``TRACER.pm_hook``).  Not ported yet: the autopilot's and the perf
-corpus's learning from the dispatch record (ROADMAP Queue 1 item [4c]).
+(``TRACER.pm_hook``).  The dispatch record's wall also trains the
+autopilot (``runtime/autopilot.py``: the prediction in force before it
+lands on the dispatch span as ``autopilot_predicted_ms``, which the
+postmortem's ``autopilot_excess`` reads) and appends one row to the durable
+perf corpus (``utils/perfcorpus.py``), both on the drainer thread.
 
 Inline observability puts per-request work on the dispatch path — a span
 append under the tracer lock, a label lookup per span kind, a
@@ -69,8 +72,10 @@ import time
 import weakref
 from typing import Any, Dict, List, Optional
 
+from seldon_core_tpu_torch.runtime.autopilot import AUTOPILOT, pad_bucket
 from seldon_core_tpu_torch.runtime.qos import current_tier
 from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+from seldon_core_tpu_torch.utils.perfcorpus import CORPUS
 from seldon_core_tpu_torch.utils.quality import QUALITY
 from seldon_core_tpu_torch.utils.telemetry import RECORDER, Reservoir
 from seldon_core_tpu_torch.utils.tracing import (
@@ -876,8 +881,19 @@ class TelemetrySpine:
                 for k in ("flops", "mfu", "bound"):
                     if k in derived:
                         attrs[k] = derived[k]
-                # the autopilot's and the perf corpus's learning from the
-                # same record come with ROADMAP Queue 1 item [4c]
+                # the autopilot learns from the same record; the prediction
+                # in force before this wall lands on the dispatch span, so
+                # mispredictions read off traces
+                pred = AUTOPILOT.observe(rec.executable, rec.duration_s)
+                if pred is not None:
+                    attrs["autopilot_predicted_ms"] = round(pred * 1e3, 3)
+                # the durable corpus appends the same record: a disk write on
+                # this thread, a flag read when it is off
+                if CORPUS.enabled and not rec.error:
+                    CORPUS.record(
+                        rec.executable, pad_bucket=pad_bucket(rec.rows), tier=rec.tier,
+                        wall_s=rec.duration_s, rows=rec.real_rows or rec.rows,
+                        features=OBSERVATORY.cost_features(rec.executable))
                 self.fold_cost["perf"].observe(pc() - t0)
             if rec.flags & WANT_QUALITY:
                 t0 = pc()
@@ -939,10 +955,19 @@ class TelemetrySpine:
         RECORDER.set_framework_overhead("budget", self.budget_ms)
         for hop, n in self.records_total.items():
             RECORDER.set_telemetry_records(hop, n)
+        # autopilot model health shares the throttled refresh: one gauge
+        # pass per second, never per observation
+        try:
+            AUTOPILOT.publish_gauges()
+        except Exception:  # noqa: BLE001 - gauges must not wedge a drain
+            pass
+        # durable perf-corpus accounting (rows, disk bytes, warm keys)
+        try:
+            CORPUS.publish_gauges()
+        except Exception:  # noqa: BLE001 - gauges must not wedge a drain
+            pass
         # derived generation-lane gauges (served decode MFU) ride the
-        # same throttle — computed from GENPERF's fold-side totals; the
-        # autopilot's and the corpus's join here with ROADMAP Queue 1 item
-        # [4c]
+        # same throttle — computed from GENPERF's fold-side totals
         try:
             from seldon_core_tpu_torch.utils.genperf import GENPERF
 

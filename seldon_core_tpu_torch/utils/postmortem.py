@@ -19,9 +19,9 @@ COMPLETION:
     5xx, a shed, latency over the tier's SLO budget
     (``SELDON_TPU_POSTMORTEM_SLO_MS``, else ``SELDON_TPU_SLO_P99_MS``, times
     the tier factor), a leg over ``SELDON_TPU_POSTMORTEM_EXCESS_X`` times the
-    autopilot's prediction (no span carries ``autopilot_predicted_ms`` until
-    the autopilot comes with ROADMAP Queue 1 item [4c], so that reason does
-    not fire yet), a generation-scheduler preemption (the ``preempt`` event
+    autopilot's prediction (the ``autopilot_predicted_ms`` that the spine
+    stamps on a dispatch span once the key has a prediction), a
+    generation-scheduler preemption (the ``preempt`` event
     of a ``gen_seq`` span), a breaker-open short-circuit (the client's
     ``breaker_open`` event), an out-of-band note (:meth:`note`), or a small
     reservoir-sampled healthy baseline.
@@ -385,9 +385,8 @@ class PostmortemRecorder:
         budget = self._slo_budget_ms(attrs.get("tier"))
         if budget and root.duration_ms > budget:
             reasons.append("slo")
-        # autopilot_excess: no dispatch span carries autopilot_predicted_ms
-        # until the autopilot comes with ROADMAP Queue 1 item [4c], so this
-        # reason cannot fire yet; nothing here fakes a prediction
+        # autopilot_excess: a leg (the dispatch span the spine stamped with
+        # the prediction in force) over EXCESS_X times its prediction
         for s in spans:
             pred = (s.attrs or {}).get("autopilot_predicted_ms")
             try:

@@ -16,11 +16,14 @@ process-global hub instead of the per-predictor ``MetricsRegistry``:
     Every family that ``TPU_METRIC_FAMILIES`` names is declared, so the
     exposition contract (``family_names()``, the ``monitoring/``
     dashboards and alerts) is whole; the families of subsystems the port
-    has not brought over yet (the KV hand-off, the fleet, brownout, the
-    tenant governor, the autopilot: ROADMAP Queue 1 items [4c], [4d], [6])
-    stay at zero; quality, postmortem and cost families move with
-    ``utils/quality.py``, ``utils/postmortem.py`` and
-    ``utils/costledger.py``.
+    has not brought over yet (the KV hand-off, the fleet: ROADMAP Queue 1
+    items [4d], [6]) stay at zero; quality, postmortem and cost families
+    move with ``utils/quality.py``, ``utils/postmortem.py`` and
+    ``utils/costledger.py``, the ``seldon_tpu_autopilot_*`` and
+    ``seldon_tpu_corpus_*`` families with ``runtime/autopilot.py`` and
+    ``utils/perfcorpus.py``, the ``seldon_tpu_brownout_*`` families with
+    ``runtime/brownout.py`` and ``seldon_tpu_tenant_throttled_total`` with
+    the tenant governor (``runtime/qos.py``).
   * ``AuditLog`` is the engine-side request-audit stream: an async
     bounded-queue JSONL log (puid, graph path, batch size, latency,
     token counts).  ``record()`` never blocks — a full queue counts a

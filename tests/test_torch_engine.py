@@ -27,6 +27,7 @@ from seldon_core_tpu_torch.runtime import engine_main
 from seldon_core_tpu_torch.runtime.batching import MicroBatcher, pad_rows
 from seldon_core_tpu_torch.runtime.engine import EngineService
 from seldon_core_tpu_torch.runtime.rest import serve_fast
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 ATOL = 2e-2  # bf16 weights: the reference's tolerance (tests/test_ops_pallas.py:56)
 
@@ -37,6 +38,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 def _mnist_doc(hidden=32):

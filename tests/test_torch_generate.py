@@ -31,6 +31,7 @@ from seldon_core_tpu_torch.models.transformer import LMConfig as TConfig
 from seldon_core_tpu_torch.models.transformer import lm_init as ttr_lm_init
 from seldon_core_tpu_torch.runtime.batching import MicroBatcher
 from seldon_core_tpu_torch.runtime.engine import EngineService
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 # the modules themselves: the packages re-export functions of the same names
 jgen = importlib.import_module("seldon_core_tpu.models.generate")
@@ -48,6 +49,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 @pytest.fixture

@@ -34,6 +34,7 @@ from seldon_core_tpu_torch.graph.spec import GraphSpecError, SeldonDeploymentSpe
 from seldon_core_tpu_torch.messages import DeadlineExceededError, Feedback, SeldonMessage
 from seldon_core_tpu_torch.runtime.engine import EngineService
 from seldon_core_tpu_torch.runtime.resilience import deadline_scope
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -44,6 +45,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ from seldon_core_tpu_torch.runtime.resilience import (
     RetryBudget,
     RetryPolicy,
 )
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 grpc = pytest.importorskip("grpc")
 
@@ -71,6 +72,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 def _free_port():

@@ -13,8 +13,10 @@ example with a feedback, one host-mode request through a REST node served
 by the port's unit microservice, streams the generator's tokens, takes a
 training step, round-trips a checkpoint, and over its REST lane scrapes
 ``/prometheus``, reads a request's ``/trace`` and, after a request sent
-with a ``Seldon-Tenant`` header, ``/quality``, ``/costs`` and
-``/postmortems``, with all of them blocked."""
+with a ``Seldon-Tenant`` header, ``/quality``, ``/costs``,
+``/postmortems``, ``/autopilot`` and ``/corpus``, and answers one request
+the autopilot predicts past its deadline with a 503 shed, with all of them
+blocked."""
 
 import ast
 import os
@@ -51,7 +53,8 @@ def _port_files():
             "runtime/udsrelay.py", "utils/telemetry.py", "utils/promtext.py",
             "utils/metrics.py", "utils/tracing.py", "utils/perf.py", "utils/hotrecord.py",
             "utils/genperf.py", "utils/chips.py", "utils/quality.py", "utils/postmortem.py",
-            "utils/costledger.py", "runtime/qos.py"} <= names
+            "utils/costledger.py", "runtime/qos.py", "runtime/autopilot.py",
+            "runtime/brownout.py", "utils/perfcorpus.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py")]
@@ -211,6 +214,7 @@ async def host_mode():
     return [host.mode, status, len(json.loads(text)["data"]["ndarray"][0])]
 
 remote = asyncio.run(host_mode())
+import urllib.error
 import urllib.request
 from seldon_core_tpu_torch.runtime.rest import serve_fast
 from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
@@ -238,6 +242,16 @@ async def observed():
         quality_status, quality = await loop.run_in_executor(None, get, "/quality")
         costs_status, costs = await loop.run_in_executor(None, get, "/costs")
         pm_status, pm = await loop.run_in_executor(None, get, "/postmortems")
+        ap_status, ap = await loop.run_in_executor(None, get, "/autopilot")
+        corpus_status, corpus = await loop.run_in_executor(None, get, "/corpus")
+        # one shed: a dispatch predicted far past the request's deadline
+        mnist.batcher.predict_s_fn = lambda padded, x: 10.0
+        try:
+            await loop.run_in_executor(None, get, "/api/v0.1/predictions", json.dumps(
+                {"data": {"ndarray": [[0.5] * 784]}}).encode(), {"Seldon-Deadline-Ms": "1000"})
+            shed = None
+        except urllib.error.HTTPError as e:
+            shed = [e.code, json.loads(e.read())["status"]["info"].split(":")[0]]
     finally:
         await server.stop()
         mnist.close()
@@ -248,7 +262,10 @@ async def observed():
     return [prom_status, want <= families, trace_status,
             sorted({s["name"] for s in json.loads(trace)["spans"]}),
             quality_status, [n["node"] for n in json.loads(quality)["nodes"]],
-            costs_status, "iso-t" in tenants, pm_status, "counters" in json.loads(pm)]
+            costs_status, "iso-t" in tenants, pm_status, "counters" in json.loads(pm),
+            ap_status, "predict[1x784/float32]" in {r["key"] for r in json.loads(ap)["keys"]},
+            corpus_status,
+            json.loads(corpus)["enabled"], shed]
 
 obs = asyncio.run(observed())
 leaked = sorted(m for m in sys.modules
@@ -277,4 +294,5 @@ def test_port_serves_with_jax_blocked():
         '"new_examples": [200, ["setosa", "versicolor", "virginica"], 200, true, 1.0], '
         '"remote": ["host", 200, 10], "lanes": [200, 200, true, true], '
         '"obs": [200, true, 200, ["batch_queue", "dispatch", "request"], 200, ["iris", "m", "mnist"], '
-        '200, true, 200, true], "leaked": []}')
+        '200, true, 200, true, 200, true, 200, false, '
+        '[503, "autopilot load shed"]], "leaked": []}')

@@ -47,6 +47,7 @@ from seldon_core_tpu_torch.utils import perf as pperf
 from seldon_core_tpu_torch.utils import tracing as ptr
 from seldon_core_tpu_torch.utils.genperf import GENPERF
 from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 WAIT_S = 60
 
@@ -57,6 +58,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 @pytest.fixture

@@ -28,6 +28,7 @@ from seldon_core_tpu_torch.utils import costledger as pcl
 from seldon_core_tpu_torch.utils import hotrecord as phr
 from seldon_core_tpu_torch.utils import postmortem as ppm
 from seldon_core_tpu_torch.utils import tracing as ptr
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 PKGS = {"jax": (jpm, jtr, jcl), "port": (ppm, ptr, pcl)}
 T0 = 1_700_000_000.0
@@ -39,6 +40,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 def _span(tr, name, kind, method, start, dur, tid, sid, parent="", attrs=None, events=None,

@@ -29,6 +29,7 @@ from seldon_core_tpu_torch.utils import perf as pperf
 from seldon_core_tpu_torch.utils import quality as pquality
 from seldon_core_tpu_torch.utils import telemetry as ptel
 from seldon_core_tpu_torch.utils import tracing as ptr
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 PEAKS = {"device_kind": "test card", "platform": "gpu", "peak_bf16_tflops": 989.0,
          "peak_hbm_gbs": 3350.0, "peak_assumed": False}
@@ -41,6 +42,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 @pytest.fixture

@@ -25,6 +25,7 @@ from seldon_core_tpu_torch.messages import SeldonMessageError
 from seldon_core_tpu_torch.models.transformer import LMConfig as TConfig
 from seldon_core_tpu_torch.runtime.engine import EngineService
 from seldon_core_tpu_torch.runtime.rest import serve_fast
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 jgen = importlib.import_module("seldon_core_tpu.models.generate")
 tgen = importlib.import_module("seldon_core_tpu_torch.models.generate")
@@ -40,6 +41,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 def _weights(seed=0):

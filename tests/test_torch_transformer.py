@@ -11,6 +11,7 @@ import torch
 from seldon_core_tpu.models import transformer as jtr
 from seldon_core_tpu_torch.convert import params_from_jax
 from seldon_core_tpu_torch.models import transformer as ttr
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 
 @pytest.fixture(autouse=True)
@@ -20,6 +21,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 DIMS = dict(vocab=64, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=128)

@@ -25,6 +25,7 @@ from seldon_core_tpu_torch.runtime import wire
 from seldon_core_tpu_torch.runtime.engine import EngineService
 from seldon_core_tpu_torch.runtime.microservice import build_runtime
 from seldon_core_tpu_torch.runtime.rest import serve_fast, serve_unit
+from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
 
 ATOL = 2e-2  # bf16 MNIST weights: the reference's tolerance (tests/test_ops_pallas.py:56)
 
@@ -35,6 +36,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _reset_learned_singletons():
+    # the autopilot's table, the brownout ladder, the fleet burn view and the
+    # cost ledger are process-global and change decisions: what one test
+    # trained must not steer the next
+    reset_learned_singletons()
+    yield
 
 
 def _arrays():
