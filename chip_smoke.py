@@ -377,6 +377,19 @@ it serves the static lane it measured before that lane's switch:
               rotating; the 1-row p50 with the policies on and off in
               turns beside /overhead; a {"new_paths": {"policies": ...}}
               line
+ 10r. the native data plane ([4d]): examples/mnist_deployment.json behind
+              the C++ plane (runtime/nativeplane.py) and a second engine
+              with the same weights behind the Python lane: 1-row, 64-row,
+              32 concurrent and 200 keepalive requests and gRPC calls,
+              every answer the Python lane's bits; fused-MLP launches equal
+              to the plane's batches; dp_stats; /stats http_impl and codec
+              native; the misc lane, 1e300 as NaN, a too-narrow row's 400;
+              the plane and the Python lane in turns under a C++
+              closed-loop client (requests/s, p50, p99, one connection's
+              p50); engine_main with ENGINE_HTTP_IMPL unset; a persisted
+              EpsilonGreedyRouter microservice on the card restarted from
+              its checkpoint; a {"new_paths": {"native": ...}} line.  The
+              engine_mains of earlier phases run with ENGINE_HTTP_IMPL=fast
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -3757,7 +3770,7 @@ def host_graph_phases(torch, dev, smi) -> dict:
         stats = json.loads(request("GET", f"http://127.0.0.1:{port_p}/stats")[1])
         leaf = stats["resilience"]["breakers"]["leaf"]
         if (ready != (200, b"ready (breakers open: leaf)") or leaf["state"] != "open"
-                or n_down != degraded or stats["mode"] != "host"):
+                or n_down != degraded or stats["engine"]["mode"] != "host"):
             raise AssertionError(f"[host] after the stop: /ready {ready}, breaker {leaf}, "
                                  f"{n_down} launches in {degraded} requests")
         log(f"[host] microservice stopped: {degraded} requests answered 200 tagged "
@@ -7525,6 +7538,529 @@ def policies_phase(torch, dev, smi) -> dict:
     return out
 
 
+# -- 10r. the native data plane, its codec and unit-state persistence ([4d]) ----
+
+NP_SEQUENTIAL = 200        # 1-row requests on one keepalive connection
+NP_CONCURRENT = 32         # concurrent 1-row requests
+NP_LOAD_CLIENTS = 64       # keepalive connections of the throughput step
+NP_LOAD_S = 1.5            # seconds a throughput run measures
+NP_ONE_S = 0.8             # seconds a one-connection run measures
+NP_WARMUP_S = 0.3
+NP_ROUNDS = (("native", "fast"), ("fast", "native"), ("native", "fast"))  # ABBA..
+NP_ROUTES = 20             # /route calls of the persistence part
+NP_SAVE_S = 0.5            # PERSISTENCE_FREQUENCY of the persisted microservice
+
+
+def _count_rows(compiled, counter: list) -> None:
+    """Count ``compiled.predict_arrays``'s calls in ``counter[0]`` and the
+    rows it was given (padded) in ``counter[1]``."""
+    orig = compiled.predict_arrays
+
+    def counted(x, *a, **k):
+        counter[0] += 1
+        counter[1] += len(x)
+        return orig(x, *a, **k)
+
+    compiled.predict_arrays = counted
+
+
+class PlaneThread:
+    """One engine behind the native data plane (``serve_native``, with its
+    gRPC lane) on an event loop and thread of its own: the misc lane's
+    routes run there."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.plane = None
+
+    def start(self):
+        from seldon_core_tpu_torch.runtime.nativeplane import serve_native
+
+        self.thread.start()
+        self.plane = asyncio.run_coroutine_threadsafe(
+            serve_native(self.engine, "127.0.0.1", 0, grpc_port=0), self.loop).result(120)
+        return self.plane
+
+    def stop(self):
+        asyncio.run_coroutine_threadsafe(self.plane.stop(), self.loop).result(60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+
+
+def np_answer(status: int, raw: bytes):
+    """(float64 rows, puid, names, status) of a JSON answer; NaN and the
+    infinities must be json's literals (``json.loads`` reads them)."""
+    doc = json.loads(raw)
+    data = doc.get("data") or {}
+    y = (np.asarray(data["ndarray"], dtype=np.float64) if "ndarray" in data else
+         np.asarray(data["tensor"]["values"], dtype=np.float64).reshape(data["tensor"]["shape"])
+         if "tensor" in data else None)
+    return y, doc.get("meta", {}).get("puid"), data.get("names"), status, doc.get("status")
+
+
+def np_post(conn, body) -> tuple:
+    payload = body if isinstance(body, bytes) else json.dumps(body).encode()
+    conn.request("POST", "/api/v0.1/predictions", payload, {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def np_same(a, b, what: str) -> None:
+    """Two answers (``np_answer``) alike: the float64 values bit for bit
+    (NaN where NaN), names, puid (a generated one: 26 characters on both)
+    and status."""
+    if a[1] != b[1] and len(a[1] or "") == len(b[1] or "") == 26:
+        a, b = a[:1] + ("generated",) + a[2:], b[:1] + ("generated",) + b[2:]
+    ya, yb = a[0], b[0]
+    same = (ya is None and yb is None) or (
+        ya is not None and yb is not None and ya.shape == yb.shape
+        and np.array_equal(np.isnan(ya), np.isnan(yb))
+        and ya[~np.isnan(ya)].tobytes() == yb[~np.isnan(yb)].tobytes())
+    if not same or a[1:] != b[1:]:
+        diff = (float(np.nanmax(np.abs(ya - yb))) if ya is not None and yb is not None
+                and ya.shape == yb.shape else None)
+        raise AssertionError(f"[native] {what}: the plane's answer is not the Python lane's "
+                             f"(max diff {diff}, {a[1:]} vs {b[1:]})")
+
+
+def np_mnist(torch, dev, smi, engine, twin, plane, fast_port, fast_grpc) -> dict:
+    """Part a: MNIST through the plane against the Python fast lane of a
+    second engine with the same weights."""
+    from seldon_core_tpu_torch import protoconv
+    from seldon_core_tpu_torch.messages import Meta, SeldonMessage
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel
+
+    counted = dev.type == "cuda"
+    rng = np.random.default_rng(SEED)
+    x1, x64 = rng.random((1, 784)), rng.random((64, 784))
+    xc, xs = rng.random((NP_CONCURRENT, 784)), rng.random((NP_SEQUENTIAL, 784))
+    bodies = ([("1-row ndarray", {"meta": {"puid": "np-1"}, "data": {"ndarray": x1.tolist()}}),
+               ("64-row tensor", {"meta": {"puid": "np-64"}, "data": {"tensor": {
+                   "shape": [64, 784], "values": x64.ravel().tolist()}}})]
+              + [(f"concurrent {i}", {"data": {"ndarray": xc[i:i + 1].tolist()}})
+                 for i in range(NP_CONCURRENT)]
+              + [(f"sequential {i}", {"data": {"ndarray": xs[i:i + 1].tolist()}})
+                 for i in range(NP_SEQUENTIAL)])
+    grpc_xs = [("gRPC 1-row", x1, "np-g1"), ("gRPC 64-row", x64, "np-g64")]
+    dispatches = [0]
+    _count_calls(engine.compiled, "predict_arrays", dispatches)
+    before = plane.stats()
+
+    def grpc_calls(port):
+        async def run():
+            ch = await FastGrpcChannel().connect("127.0.0.1", port)
+            try:
+                return [protoconv.msg_from_proto(await ch.call(GRPC_PREDICT, protoconv.msg_to_proto(
+                    SeldonMessage.from_array(x, meta=Meta(puid=puid))))) for _, x, puid in grpc_xs]
+            finally:
+                await ch.close()
+        return asyncio.run(run())
+
+    # the plane's requests: every count set to 0 just before, read just after
+    fused_mlp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", plane.port, timeout=120)
+    got = [np_post(conn, body) for _, body in bodies[:2]]
+
+    def one(body):
+        c = http.client.HTTPConnection("127.0.0.1", plane.port, timeout=120)
+        try:
+            return np_post(c, body)
+        finally:
+            c.close()
+
+    with ThreadPoolExecutor(NP_CONCURRENT) as pool:
+        got += list(pool.map(one, [b for _, b in bodies[2:2 + NP_CONCURRENT]]))
+    got += [np_post(conn, body) for _, body in bodies[2 + NP_CONCURRENT:]]
+    grpc_got = grpc_calls(plane.grpc_port)
+    launches, batches = fused_mlp.LAUNCHES, dispatches[0]
+    plane_s = time.perf_counter() - t0
+    after = plane.stats()
+    n_http, n_grpc = int(after[0] - before[0]), int(after[19] - before[19])
+    n_requests = len(bodies) + len(grpc_xs)
+    if n_http != len(bodies) or n_grpc != len(grpc_xs):
+        raise AssertionError(f"[native] dp_stats counted {n_http} HTTP and {n_grpc} gRPC answers "
+                             f"of {len(bodies)} and {len(grpc_xs)} sent")
+    if not 1 <= batches <= n_requests or (counted and launches != batches):
+        raise AssertionError(f"[native] {launches} fused-MLP launches in {batches} native "
+                             f"batches for {n_requests} requests")
+    # the same X through the Python fast lane of the twin engine
+    fast = http.client.HTTPConnection("127.0.0.1", fast_port, timeout=120)
+    for (what, body), (st, raw) in zip(bodies, got):
+        np_same(np_answer(st, raw), np_answer(*np_post(fast, body)), what)
+    for (what, _, puid), a, b in zip(grpc_xs, grpc_got, grpc_calls(fast_grpc)):
+        if (not np.array_equal(a.array(), b.array()) or a.meta.puid != puid != b.meta.puid
+                or a.status.code != 200 or a.data.names != b.data.names):
+            raise AssertionError(f"[native] {what}: the plane's answer is not the Python lane's")
+    stats = json.loads(request("GET", f"http://127.0.0.1:{plane.port}/stats")[1])["engine"]
+    if stats["http_impl"] != "native" or stats["codec"] != "native":
+        raise AssertionError(f"[native] /stats engine block {stats}")
+    # the misc lane, each answer the Python lane's
+    misc = {}
+    ping = request("GET", f"http://127.0.0.1:{plane.port}/ping")
+    prom = request("GET", f"http://127.0.0.1:{plane.port}/prometheus")[1].decode()
+    counts = [float(line.rsplit(" ", 1)[1]) for line in prom.splitlines()
+              if line.startswith("seldon_api_engine_server_requests_duration_seconds_count")
+              and 'service="predictions"' in line]
+    if ping != (200, b"pong") or sum(counts) < n_requests:
+        raise AssertionError(f"[native] /ping {ping}, /prometheus predictions count {counts}")
+    for what, body, path in (
+            ("strData", {"strData": "hello"}, "/api/v0.1/predictions"),
+            ("names", {"data": {"names": [f"f{i}" for i in range(784)],
+                                "ndarray": x1.tolist()}}, "/api/v0.1/predictions"),
+            ("feedback", {"request": {"data": {"ndarray": x1.tolist()}},
+                          "response": json.loads(got[0][1]), "reward": 1.0},
+             "/api/v0.1/feedback"),
+            ("1e300", {"data": {"ndarray": [[1e300] * 784]}}, "/api/v0.1/predictions"),
+            ("too narrow", {"data": {"ndarray": [[1.0, 2.0]]}}, "/api/v0.1/predictions")):
+        a = request("POST", f"http://127.0.0.1:{plane.port}{path}", body)
+        b = request("POST", f"http://127.0.0.1:{fast_port}{path}", body)
+        ya, yb = np_answer(*a), np_answer(*b)
+        if what == "feedback":
+            ya, yb = ya[1:], yb[1:]
+            if ya != yb:
+                raise AssertionError(f"[native] feedback: {a} vs {b}")
+        else:
+            np_same(ya, yb, what)
+        misc[what] = a[0]
+    if misc["too narrow"] != 400 or not np_answer(*request(
+            "POST", f"http://127.0.0.1:{plane.port}/api/v0.1/predictions",
+            {"data": {"ndarray": [[1.0, 2.0]]}}))[4]["info"].startswith(
+                "graph rejected input of shape"):
+        raise AssertionError(f"[native] a too-narrow row answered {misc['too narrow']}")
+    huge = np_answer(*request("POST", f"http://127.0.0.1:{plane.port}/api/v0.1/predictions",
+                              {"data": {"ndarray": [[1e300] * 784]}}))[0]
+    sse = [request("POST", f"http://127.0.0.1:{p}/api/v0.1/generate/stream",
+                   {"data": {"ndarray": [[1, 2, 3]]}}) for p in (plane.port, fast_port)]
+    if sse[0] != sse[1] or sse[0][0] != 400:  # MNIST cannot stream, on either lane
+        raise AssertionError(f"[native] the SSE route of MNIST: {sse}")
+    conn.close()
+    fast.close()
+    log(f"[native] MNIST through the C++ plane: {len(bodies)} HTTP requests (a 1-row ndarray, "
+        f"a 64-row tensor, {NP_CONCURRENT} concurrent 1-row, {NP_SEQUENTIAL} sequential 1-row "
+        f"on one keepalive connection) and {len(grpc_xs)} gRPC in {plane_s:.3f} s: every "
+        f"answer the Python fast lane's float64 values bit for bit, names, puid and status "
+        f"alike; {batches} native batches, {launches} fused-MLP launches; dp_stats "
+        f"{n_http} + {n_grpc}; /stats http_impl {stats['http_impl']}, codec {stats['codec']} "
+        f"({stats['codec_binding']}); misc lane {misc} and SSE {sse[0][0]} (as the Python "
+        f"lane), a row "
+        f"of 1e300 {int(np.isnan(huge).sum())} NaN read by json.loads; {smi}")
+    return {"launches": launches, "batches": batches, "requests": n_requests,
+            "dp_http": n_http, "dp_grpc": n_grpc, "codec_binding": stats["codec_binding"],
+            "native_errors": stats["native_errors"], "misc": misc}
+
+
+def np_sse(torch, dev, smi) -> int:
+    """The SSE route of a graph that streams (a small generator on the
+    static lane, which the plane takes) answers 501 on the plane, naming
+    the Python lane."""
+    dims = {"vocab": 256, "d_model": 64, "n_heads": 4, "n_layers": 2, "d_ff": 128,
+            "max_new_tokens": 4}
+    params = [{"name": k, "value": str(v), "type": "INT"} for k, v in dims.items()]
+    doc = {"spec": {"name": "sse", "predictors": [{
+        "name": "p", "graph": {"name": "g", "type": "MODEL"},
+        "components": [{"name": "g", "runtime": "inprocess", "class_path": "TransformerGenerator",
+                        "parameters": params}]}]}}
+    engine = mode_engine(torch, dev, doc, continuous=False)
+    planes = PlaneThread(engine)
+    plane = planes.start()
+    try:
+        status, raw = request("POST", f"http://127.0.0.1:{plane.port}/api/v0.1/generate/stream",
+                              {"data": {"ndarray": [[1, 2, 3]]}})
+    finally:
+        planes.stop()
+        engine.close()
+    if status != 501 or "ENGINE_HTTP_IMPL=fast" not in json.loads(raw)["status"]["reason"]:
+        raise AssertionError(f"[native] a generator's SSE route on the plane: {status} {raw!r}")
+    log(f"[native] a static-lane generator behind the plane: its SSE route answers 501 naming "
+        f"the Python lane; {smi}")
+    return status
+
+
+def np_loadgen(exe: str, port: int, request_file: str, clients: int, seconds: float) -> dict:
+    """One closed-loop run of the C++ load generator; its JSON line, with
+    the client's CPU share (its user + system seconds over its wall)."""
+    import resource
+
+    before = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    out = subprocess.run([exe, "--host", "127.0.0.1", "--port", str(port), "--api", "rest",
+                          "--clients", str(clients), "--duration", str(seconds),
+                          "--warmup", str(NP_WARMUP_S), "--request-file", request_file],
+                         capture_output=True, text=True, timeout=60)
+    wall = time.perf_counter() - t0
+    after = resource.getrusage(resource.RUSAGE_CHILDREN)
+    if out.returncode != 0:
+        raise AssertionError(f"[native] loadgen exit {out.returncode}: {out.stderr[-500:]}")
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    cpu = (after.ru_utime - before.ru_utime) + (after.ru_stime - before.ru_stime)
+    doc["client_cpu_share"] = cpu / wall
+    if doc["failures"] or not doc["requests"]:
+        raise AssertionError(f"[native] loadgen on :{port}: {doc}")
+    return doc
+
+
+def np_throughput(dev, smi, plane_port: int, fast_port: int, dispatches: dict) -> dict:
+    """Part b: 1-row requests from NP_LOAD_CLIENTS keepalive connections
+    and from one, the native plane and the Python fast lane in turns;
+    ``dispatches`` holds each lane's engine's [dispatches, padded rows]."""
+    from seldon_core_tpu_torch.native import _build
+
+    exe = str(_build.build("loadgen"))
+    body = json.dumps({"data": {"ndarray": np.random.default_rng(SEED + 1).random(
+        (1, 784)).tolist()}}).encode()
+    req = (b"POST /api/v0.1/predictions HTTP/1.1\r\nHost: b\r\nContent-Type: application/json\r\n"
+           b"Content-Length: %d\r\n\r\n" % len(body) + body)
+    path = ROOT / "build" / "native" / f"np_request_{os.getpid()}.http"
+    path.write_bytes(req)
+    ports = {"native": plane_port, "fast": fast_port}
+    runs = {"native": [], "fast": []}
+    server_cpu = {"native": [], "fast": []}
+    try:
+        for order in NP_ROUNDS:
+            for lane in order:
+                t = os.times()
+                calls0, rows0 = dispatches[lane]
+                many = np_loadgen(exe, ports[lane], str(path), NP_LOAD_CLIENTS, NP_LOAD_S)
+                t2 = os.times()
+                calls, rows = dispatches[lane]
+                per_dispatch = (rows - rows0) / max(1, calls - calls0)
+                one = np_loadgen(exe, ports[lane], str(path), 1, NP_ONE_S)
+                # this process's CPU (the plane's threads or the Python lane) over
+                # the 64-client run's wall
+                server_cpu[lane].append(((t2.user - t.user) + (t2.system - t.system))
+                                        / (t2.elapsed - t.elapsed))
+                runs[lane].append({"qps": many["qps"], "p50_ms": many["p50_ms"],
+                                   "p99_ms": many["p99_ms"], "one_p50_ms": one["p50_ms"],
+                                   "one_p99_ms": one["p99_ms"],
+                                   "client_cpu_share": many["client_cpu_share"],
+                                   "rows_per_dispatch": per_dispatch})
+    finally:
+        path.unlink(missing_ok=True)
+    out = {}
+    for lane, rs in runs.items():
+        out[lane] = {"runs": rs, "qps_median": float(np.median([r["qps"] for r in rs])),
+                     "p50_ms_median": float(np.median([r["p50_ms"] for r in rs])),
+                     "p99_ms_median": float(np.median([r["p99_ms"] for r in rs])),
+                     "one_conn_p50_ms_median": float(np.median([r["one_p50_ms"] for r in rs])),
+                     "client_cpu_share_max": max(r["client_cpu_share"] for r in rs),
+                     "server_process_cpu_share": [round(c, 3) for c in server_cpu[lane]]}
+        saturated = out[lane]["client_cpu_share_max"] > 0.9
+        out[lane]["client_saturated"] = saturated
+        log(f"[native] {lane} lane, 1-row requests from {NP_LOAD_CLIENTS} keepalive "
+            f"connections (C++ closed-loop client, {len(rs)} runs of {NP_LOAD_S} s in turns): "
+            f"{[r['qps'] for r in rs]} requests/s, p50 {[r['p50_ms'] for r in rs]} ms, p99 "
+            f"{[r['p99_ms'] for r in rs]} ms, {[round(r['rows_per_dispatch'], 2) for r in rs]} "
+            f"padded rows a dispatch; one connection p50 "
+            f"{[r['one_p50_ms'] for r in rs]} ms; the client's CPU share "
+            f"{[round(r['client_cpu_share'], 3) for r in rs]} of a core "
+            f"({'saturated' if saturated else 'not saturated'}), this process's "
+            f"{out[lane]['server_process_cpu_share']} cores; {smi}")
+    out["qps_ratio_native_over_fast"] = out["native"]["qps_median"] / out["fast"]["qps_median"]
+    return out
+
+
+def np_engine_main(dev, smi) -> dict:
+    """Part c: engine_main with ENGINE_HTTP_IMPL unset serves the native
+    lane and says so; one request over REST and one over gRPC."""
+    from seldon_core_tpu_torch import protoconv
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel
+
+    rest, grpc_port = free_port(), free_port()
+    t0 = time.perf_counter()
+    proc, line = start_service(
+        ["seldon_core_tpu_torch.runtime.engine_main", "--file",
+         str(ROOT / "examples" / "mnist_deployment.json"), "--device", dev.type, "--host",
+         "127.0.0.1", "--rest-port", str(rest)],
+        {"ENGINE_SERVER_GRPC_PORT": str(grpc_port)}, "engine up:")
+    up_s = time.perf_counter() - t0
+    try:
+        x = np.random.default_rng(SEED + 2).random((1, 784))
+        y_rest = np_answer(*request("POST", f"http://127.0.0.1:{rest}/api/v0.1/predictions",
+                                    ndarray(x)))
+
+        async def call():
+            ch = await FastGrpcChannel().connect("127.0.0.1", grpc_port)
+            try:
+                return protoconv.msg_from_proto(await ch.call(
+                    GRPC_PREDICT, protoconv.msg_to_proto(SeldonMessage.from_array(x))))
+            finally:
+                await ch.close()
+
+        y_grpc = asyncio.run(call())
+        stats = json.loads(request("GET", f"http://127.0.0.1:{rest}/stats")[1])["engine"]
+    finally:
+        tail = stop_service(proc)
+    if ("http=native" not in line or f"grpc=:{grpc_port} (native)" not in line
+            or stats["http_impl"] != "native" or y_rest[3] != 200
+            or y_grpc.status.code != 200 or not np.array_equal(y_rest[0], y_grpc.array())):
+        raise AssertionError(f"[native] engine_main: {line!r}, /stats {stats}, REST "
+                             f"{y_rest[3]}, gRPC {y_grpc.status}; {tail[-500:]}")
+    log(f"[native] engine_main with ENGINE_HTTP_IMPL unset: {line!r} (up in {up_s:.2f} s); "
+        f"one REST and one gRPC request answered alike; {smi}")
+    return {"line": line, "up_s": up_s}
+
+
+def np_persistence(torch, dev, smi) -> dict:
+    """Part d: ``microservice EpsilonGreedyRouter ROUTER --persistence 1``
+    on the card: routes and rewards, a periodic save, a restart, and the
+    restarted unit's routes against an in-process unit on the card
+    restored from the same file."""
+    import tempfile
+
+    from seldon_core_tpu_torch.graph.spec import Parameter
+    from seldon_core_tpu_torch.runtime import persistence
+    from seldon_core_tpu_torch.runtime.microservice import build_runtime
+
+    params = [{"name": "n_branches", "value": "3", "type": "INT"},
+              {"name": "epsilon", "value": "0.5", "type": "FLOAT"}]
+    state_dir = tempfile.mkdtemp(prefix="sct_state_")
+    env = {"SELDON_TPU_STATE_DIR": state_dir, "PERSISTENCE_FREQUENCY": str(NP_SAVE_S),
+           "PREDICTIVE_UNIT_ID": "eg", "SELDON_DEPLOYMENT_ID": "smoke", "PREDICTOR_ID": "p",
+           "PREDICTIVE_UNIT_PARAMETERS": json.dumps(params)}
+    ckpt = Path(state_dir) / "smoke_p_eg.ckpt.npz"
+    body = {"data": {"ndarray": [[0.0] * 4]}}
+
+    def serve(feedback: bool):
+        port = free_port()
+        proc, _ = start_service(
+            ["seldon_core_tpu_torch.runtime.microservice", "EpsilonGreedyRouter", "REST",
+             "--service-type", "ROUTER", "--persistence", "1", "--device", dev.type,
+             "--host", "127.0.0.1", "--port", str(port)], env, "unit up:")
+        url = f"http://127.0.0.1:{port}"
+        try:
+            routes, success, tries = [], np.zeros(3, np.float32), np.zeros(3, np.float32)
+            for i in range(NP_ROUTES):
+                st, raw = request("POST", f"{url}/route", body)
+                routes.append(int(json.loads(raw)["data"]["ndarray"][0][0]))
+                if feedback:
+                    reward = float(routes[-1] == i % 3)
+                    request("POST", f"{url}/send-feedback", {
+                        "request": body, "reward": reward,
+                        "response": {"meta": {"routing": {"eg": routes[-1]}},
+                                     "data": {"ndarray": [[routes[-1]]]}}})
+                    success[routes[-1]] += np.floor(np.float32(reward) * 1)
+                    tries[routes[-1]] += 1
+            t0 = time.perf_counter()
+            while feedback:  # a save that holds every reward
+                if ckpt.exists():
+                    with np.load(ckpt) as data:
+                        if float(data["['tries']"].sum()) == NP_ROUTES:
+                            break
+                if time.perf_counter() - t0 > 30:
+                    raise AssertionError("[native] no checkpoint held the rewards in 30 s")
+                time.sleep(0.1)
+            return routes, success, tries
+        finally:
+            stop_service(proc)
+
+    t0 = time.perf_counter()
+    _, success, tries = serve(feedback=True)
+    with np.load(ckpt) as data:
+        saved = {k: np.array(data[k]) for k in data.files}
+    if (saved["['success']"].tobytes() != success.tobytes()
+            or saved["['tries']"].tobytes() != tries.tobytes()
+            or saved["__prngkey__:['key']"].dtype != np.uint32):
+        raise AssertionError(f"[native] the checkpoint {saved} is not the state before the "
+                             f"stop: success {success}, tries {tries}")
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        twin = build_runtime("EpsilonGreedyRouter", "ROUTER",
+                             [Parameter.from_json_dict(p) for p in params], unit_name="eg",
+                             device=dev)
+        persistence.restore_runtime(twin)
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    if twin.state["tries"].device.type != dev.type:
+        raise AssertionError(f"[native] the restored state is on {twin.state['tries'].device}")
+    want = []
+    for _ in range(NP_ROUTES):
+        branch, aux = twin.unit.route(twin.state, torch.zeros(1, 4, device=dev))
+        twin.state = aux.state
+        want.append(int(branch))
+    routes, _, _ = serve(feedback=False)
+    if routes != want:
+        raise AssertionError(f"[native] the restarted unit routed {routes}, the unit restored "
+                             f"in process {want}")
+    log(f"[native] persistence on the card: {NP_ROUTES} routes with rewards, a save every "
+        f"{NP_SAVE_S} s held success {success.tolist()} and tries {tries.tolist()} exactly, "
+        f"the key as uint32 words; the restarted microservice's next {NP_ROUTES} routes are "
+        f"those of a unit on the card restored from the file ({time.perf_counter() - t0:.2f} "
+        f"s); {smi}")
+    return {"success": success.tolist(), "tries": tries.tolist(), "routes_after": routes}
+
+
+def native_phase(torch, dev, smi) -> dict:
+    """10r. The native data plane, its codec and unit-state persistence
+    ([4d]).  examples/mnist_deployment.json (bf16, seed 0) behind
+    ``serve_native`` with its gRPC lane, prewarmed, and a second engine
+    with the same weights behind the Python fast lane: (a) a 1-row ndarray,
+    a 64-row tensor, 32 concurrent and 200 sequential keepalive 1-row
+    requests and two gRPC calls through the plane, every answer the Python
+    lane's float64 values bit for bit with names, puid and status alike;
+    fused-MLP launches equal to the plane's batches (at least 1, at most
+    the requests); dp_stats counting every request; /stats http_impl and
+    codec "native"; the misc lane's /ping, /prometheus, strData, names,
+    feedback, a row of 1e300 (NaN read by json.loads) and a too-narrow
+    row's 400 as the Python lane answers them, and a static-lane
+    generator's SSE route 501 on a plane of its own; (b) the
+    plane and the Python lane in turns under a C++ closed-loop client
+    (NP_LOAD_CLIENTS connections, and one); (c) engine_main with
+    ENGINE_HTTP_IMPL unset on the native lane, REST and gRPC; (d) a
+    persisted EpsilonGreedyRouter microservice on the card restarted from
+    its checkpoint."""
+    from seldon_core_tpu_torch.native import fastcodec
+
+    t_phase = time.perf_counter()
+    # the earlier phases pin their engine_mains to the Python lane; this one
+    # takes the default
+    os.environ.pop("ENGINE_HTTP_IMPL", None)
+    pid = os.getpid()
+    engine = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    twin = mode_engine(torch, dev, example_doc("mnist"), continuous=False)
+    same = all(torch.equal(a, twin.states()["mnist"][k])
+               for k, a in engine.states()["mnist"].items())
+    if not same or not engine._pipelined or engine.codec != "native":
+        raise AssertionError(f"[native] engines: same weights {same}, pipelined "
+                             f"{engine._pipelined}, codec {engine.codec} "
+                             f"{fastcodec.codec_status()}")
+    t0 = time.perf_counter()
+    n_warm = engine.prewarm([784])
+    warm_s = time.perf_counter() - t0
+    planes = PlaneThread(engine)
+    plane = planes.start()
+    lanes = LanesThread(twin, WIRE_HTTP_UDS % pid, WIRE_RELAY_UDS % pid)
+    fast_port, fast_grpc = lanes.start()
+    out = {"prewarm": {"shapes": n_warm, "s": warm_s}}
+    try:
+        out["mnist"] = np_mnist(torch, dev, smi, engine, twin, plane, fast_port, fast_grpc)
+        dispatches = {"native": [0, 0], "fast": [0, 0]}
+        for lane, eng in (("native", engine), ("fast", twin)):
+            _count_rows(eng.compiled, dispatches[lane])
+        out["throughput"] = np_throughput(dev, smi, plane.port, fast_port, dispatches)
+    finally:
+        planes.stop()
+        lanes.stop()
+        engine.close()
+        twin.close()
+    out["launches"] = {"fused_mlp_softmax": out["mnist"]["launches"]}
+    out["sse"] = np_sse(torch, dev, smi)
+    out["engine_main"] = np_engine_main(dev, smi)
+    out["persistence"] = np_persistence(torch, dev, smi)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[native] phase 10r wall {out['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7545,6 +8081,11 @@ def main() -> int:
     # measure the static lane, as they did before that lane became the
     # engine's default; continuous_phases lifts the switch for its engine
     os.environ["SELDON_TPU_GEN_CONTINUOUS"] = "0"
+    # the engine_mains before 10r (10o's window engine, 10q's MNIST ones, the
+    # unix-socket peers of 10n and 10o) serve and measure the Python lane, as
+    # they did before the native plane became engine_main's default; 10r
+    # lifts the pin
+    os.environ["ENGINE_HTTP_IMPL"] = "fast"
     # the plain version's f32 products must be true f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7683,6 +8224,12 @@ def main() -> int:
     for row, name in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
         row["launches_by_path"]["policies (brownout, tiers)"] = pol["launches"][name]
         row["launches"] += pol["launches"][name]
+    # 10r: after 10q, the fused MLP's count set to 0 just before the plane's
+    # requests and read just after
+    nat = native_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"native": nat}}))
+    mlp_row["launches_by_path"]["native"] = nat["launches"]["fused_mlp_softmax"]
+    mlp_row["launches"] += nat["launches"]["fused_mlp_softmax"]
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,

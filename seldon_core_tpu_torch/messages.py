@@ -10,9 +10,11 @@ from its request, ``Meta{puid, tags, routing, requestPath}`` and
 package talk to the port unchanged.
 
 The payload array may be a numpy array or a torch tensor (on any device);
-it becomes numpy only at a serialization edge.  Codecs are plain
-``json``: the port has no native codec yet, and ``json`` already writes
-NaN/Infinity literals the way the reference's fallback path does.
+it becomes numpy only at a serialization edge.  ``to_json`` and
+``from_json`` take the native codec (``native/fastcodec.py``, the
+reference's ``messages.py:405-427,492-500``) where it applies and plain
+``json`` otherwise; both write the same document, NaN and the infinities
+as ``json``'s ``NaN`` / ``Infinity`` literals.
 """
 
 from __future__ import annotations
@@ -320,7 +322,44 @@ class SeldonMessage:
         return out
 
     def to_json(self) -> str:
+        fast = self._to_json_fast()
+        if fast is not None:
+            return fast
         return json.dumps(self.to_json_dict(), separators=(",", ":"))
+
+    def _to_json_fast(self) -> Optional[str]:
+        """The native codec's document: the numeric payload formatted in
+        C++ and spliced into the (small) rest, which ``json`` writes.  None
+        (the caller writes it all with ``json``) for a small or non-numeric
+        payload and for an integer or bool ndarray, which ``json`` writes
+        as integers."""
+        if self.data is None or self.data.array is None:
+            return None
+        a = _to_numpy(self.data.array)
+        if a.dtype == object or a.dtype.kind not in "fiub" or a.size < 32:
+            return None  # a small payload: json.dumps costs less than the call
+        if self.data.kind == "ndarray" and a.dtype.kind != "f":
+            return None
+        from seldon_core_tpu_torch.native.fastcodec import format_data_fragment
+
+        frag = format_data_fragment(a, self.data.kind)
+        if frag is None:
+            return None
+        out: dict = {"meta": self.meta.to_json_dict()}
+        if self.status is not None:
+            out["status"] = self.status.to_json_dict()
+        data_obj: dict = {}
+        if self.data.names:
+            data_obj["names"] = list(self.data.names)
+        data_obj["__payload__"] = 0
+        out["data"] = data_obj
+        s = json.dumps(out, separators=(",", ":"))
+        # the marker inside "data", the last member, is the last occurrence:
+        # a tag KEY of that name is written earlier, and a string value
+        # cannot match (its quotes are escaped)
+        marker = '"__payload__":0'
+        idx = s.rfind(marker)
+        return s[:idx] + frag.decode("ascii") + s[idx + len(marker):]
 
     @staticmethod
     def from_json_dict(d: Mapping[str, Any], dtype=np.float64) -> "SeldonMessage":
@@ -356,11 +395,37 @@ class SeldonMessage:
 
     @staticmethod
     def from_json(s: Union[str, bytes], dtype=np.float64) -> "SeldonMessage":
+        fast = SeldonMessage._from_json_fast(s, dtype)
+        if fast is not None:
+            return fast
         try:
             d = json.loads(s)
         except json.JSONDecodeError as e:
             raise SeldonMessageError(f"invalid JSON: {e}") from e
         return SeldonMessage.from_json_dict(d, dtype=dtype)
+
+    @staticmethod
+    def _from_json_fast(s: Union[str, bytes], dtype) -> Optional["SeldonMessage"]:
+        """The native codec's parse: the envelope (the message without its
+        numeric payload) through ``from_json_dict``, the payload as one
+        float64 buffer.  None for whatever the codec declines, invalid
+        JSON included, so the ``json`` path owns every error."""
+        from seldon_core_tpu_torch.native.fastcodec import parse_message_fast
+
+        fast = parse_message_fast(s)
+        if fast is None:
+            return None
+        envelope, kind, arr = fast
+        data_env = envelope.pop("data", None)
+        msg = SeldonMessage.from_json_dict(envelope, dtype=dtype)
+        if kind is not None:
+            names = list((data_env or {}).get("names", []) or [])
+            msg.data = DefaultData(array=arr if np.dtype(dtype) == arr.dtype
+                                   else arr.astype(dtype), names=names, kind=kind)
+        elif data_env is not None:
+            # a data object with no payload member fails as the json path's
+            raise SeldonMessageError("data must contain 'tensor' or 'ndarray'")
+        return msg
 
 
 @dataclass

@@ -50,6 +50,7 @@ __all__ = [
     "feedback_from_proto",
     "msg_list_to_proto",
     "msg_list_from_proto",
+    "status_field",
 ]
 
 _F64 = struct.Struct("<d")
@@ -141,6 +142,12 @@ def _status_bytes(st: Status) -> bytes:
     return out
 
 
+def status_field(st: Status) -> bytes:
+    """A SeldonMessage's ``status`` field (field 1, tag included): what a
+    message with this status and nothing else starts with."""
+    return _len(1, _status_bytes(st))
+
+
 def _meta_bytes(meta: Meta) -> bytes:
     out = bytearray(_str(1, meta.puid))
     for k, v in meta.tags.items():
@@ -176,7 +183,7 @@ def msg_to_proto(msg: SeldonMessage) -> bytes:
     """A SeldonMessage as ``seldon.protos.SeldonMessage`` bytes."""
     out = bytearray()
     if msg.status is not None:
-        out += _len(1, _status_bytes(msg.status))
+        out += status_field(msg.status)
     out += _len(2, _meta_bytes(msg.meta))
     if msg.data is not None:
         out += _len(3, _data_bytes(msg.data))

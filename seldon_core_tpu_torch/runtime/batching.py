@@ -203,6 +203,11 @@ class MicroBatcher:
             "max_inflight": self.max_inflight,
             "max_batch": self.max_batch,
             "coalesce_ms": self.coalesce_s * 1e3,
+            # the reference's knobs (batching.py there): the port gives a
+            # unit that updates state on predict no batcher, so a batcher
+            # always pads to the buckets and never needs atomic chunks
+            "pad_to_buckets": True,
+            "atomic_chunks": False,
         }
 
     def _higher_tier_waiting(self, tier: str) -> bool:

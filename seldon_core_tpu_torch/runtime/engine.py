@@ -155,7 +155,7 @@ from seldon_core_tpu_torch.messages import (
     new_puid,
 )
 from seldon_core_tpu_torch import protoconv
-from seldon_core_tpu_torch.native import protowire
+from seldon_core_tpu_torch.native import fastcodec, protowire
 from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, kv_write
 from seldon_core_tpu_torch.runtime import wire
 from seldon_core_tpu_torch.runtime.autopilot import (
@@ -191,9 +191,48 @@ from seldon_core_tpu_torch.utils.tracing import (
     trace_scope,
 )
 
-__all__ = ["EngineService", "StreamRequest"]
+__all__ = ["EngineService", "StreamRequest", "is_client_shape_error"]
 
 logger = logging.getLogger(__name__)
+
+# words of a RuntimeError raised by the card, its runtime or its libraries,
+# never by a tensor's shape
+_DEVICE_ERROR_WORDS = ("cuda", "cublas", "cudnn", "cufft", "curand", "cusolver", "cusparse",
+                       "nccl", "device", "out of memory", "kernel", "illegal", "driver",
+                       "launch")
+
+
+def _plane_errors() -> dict:
+    """The native plane's build or load error, if its load failed."""
+    from seldon_core_tpu_torch.runtime import nativeplane
+
+    return nativeplane.build_errors()
+
+
+def is_client_shape_error(e: BaseException) -> bool:
+    """Whether a dispatch failure is what torch raises on an input of the
+    wrong shape, so that on a feature width that has never served it is
+    the client's error (a 400, as the reference's trace-time ``TypeError``
+    / ``ValueError`` is, ``engine.py:1157-1176`` there).
+
+    ``TypeError``, ``ValueError`` and ``IndexError`` (an out-of-range index
+    into a too-narrow row) are; so is a plain ``RuntimeError`` (torch's
+    broadcast and matmul shape mismatches), unless it comes from the card:
+    a ``torch.cuda`` error class, a ``NotImplementedError`` or
+    ``RecursionError``, or a message that names CUDA, a CUDA library, the
+    device, memory, a kernel or a launch stays a server fault (a 500)."""
+    if isinstance(e, (TypeError, ValueError, IndexError)):
+        return True
+    if not isinstance(e, RuntimeError) or isinstance(e, (NotImplementedError, RecursionError)):
+        return False
+    cuda_errors = tuple(t for t in (getattr(torch.cuda, "OutOfMemoryError", None),
+                                    getattr(torch.cuda, "CudaError", None),
+                                    getattr(torch, "AcceleratorError", None))
+                        if isinstance(t, type))
+    if cuda_errors and isinstance(e, cuda_errors):
+        return False
+    text = str(e).lower()
+    return not any(word in text for word in _DEVICE_ERROR_WORDS)
 
 
 class StreamRequest(NamedTuple):
@@ -374,6 +413,23 @@ class EngineService:
                 predict_s_fn=self._predict_dispatch_s,
             )
             self.batcher.cost_deployment = self.deployment.name
+        # the reference's meaning (engine.py:346 there): a batcher whose
+        # dispatches are order-independent reads (no unit updates state on
+        # predict) with more than one in flight; the native plane's
+        # eligibility reads it
+        self._pipelined = isinstance(self.batcher, MicroBatcher) and int(pipeline_depth) > 1
+        # the answer's names field as JSON text, for the composed answers of
+        # the codec's fast path and the native plane
+        self._names_fragment = ('"names":%s,' % json.dumps(list(self._static_names),
+                                                          separators=(",", ":"))
+                                if self._static_names else "")
+        # the native codec, built (g++, at its first use in the process) and
+        # loaded here, at construction: a first-call build inside a request
+        # coroutine would block the event loop (engine.py:390-399 there)
+        self.codec = "native" if fastcodec.native_available() else "python"
+        # the lane serving the engine's HTTP routes: the native plane sets
+        # "native" while it serves (runtime/nativeplane.py)
+        self.http_impl = "python"
         # warm the autopilot from the durable perf corpus, so a restarted
         # engine prices the keys it has seen before its first dispatch (a
         # no-op when SELDON_TPU_CORPUS_DIR is unset)
@@ -493,16 +549,22 @@ class EngineService:
         return await asyncio.get_running_loop().run_in_executor(
             self._executor, ctx.run, self._batched_predict_sync, stacked, real_rows)
 
-    def _guarded(self, width, fn, *args):
-        """Run a dispatch under the known-good-width rule."""
+    def _guarded(self, shape, fn, *args):
+        """Run a dispatch of rows of ``shape`` (None: no array payload) under
+        the known-good-width rule: on a feature width (``shape[1:]``) that
+        has never served, a shape error (``is_client_shape_error``) is the
+        client's, a 400 "graph rejected input of shape ..."; on one that
+        has, it is the server's and propagates (a 500)."""
+        width = None if shape is None else tuple(shape[1:])
         try:
             out = fn(*args)
         except SeldonMessageError:
             raise
-        except (TypeError, ValueError) as e:
-            if width in self._known_good_widths:
+        except Exception as e:  # noqa: BLE001 - split by the predicate
+            if width in self._known_good_widths or not is_client_shape_error(e):
                 raise
-            raise SeldonMessageError(f"graph rejected input of feature shape {width}: {e}") from e
+            raise SeldonMessageError(
+                f"graph rejected input of shape {tuple(shape or ())}: {e}") from e
         self._known_good_widths.add(width)
         return out
 
@@ -530,7 +592,7 @@ class EngineService:
         start_s = time.time()
         try:
             y, routing, tags = self._guarded(
-                stacked.shape[1:], self.compiled.predict_arrays, stacked
+                tuple(stacked.shape), self.compiled.predict_arrays, stacked
             )
             # the readback synchronises this thread's stream: the response
             # needs it, and it is where the dispatch's wall ends (no sync is
@@ -567,7 +629,20 @@ class EngineService:
     # -- request API ----------------------------------------------------
 
     async def predict_json(self, raw) -> "tuple[str, int]":
-        """Wire-to-wire predict: JSON in, ``(JSON out, http_status)``."""
+        """Wire-to-wire predict: JSON in, ``(JSON out, http_status)``.
+
+        A graph with a batcher takes the codec's fast path
+        (``engine.py:1219-1320`` there) when the native codec parses the
+        body and it holds nothing but a numeric payload and a meta: the
+        rows go to the batcher without a SeldonMessage, and the answer is
+        composed from the payload fragment the C++ formatter writes.  It
+        is the object path's answer (the same meta, names, status and
+        values; a request's own ``names`` or any other member takes the
+        object path, as does an answer whose values are not floats)."""
+        if self.batcher is not None and self.codec == "native":
+            fast = self._parse_fast(raw)
+            if fast is not None:
+                return await self._predict_rows_json(*fast)
         try:
             msg = SeldonMessage.from_json(raw)
         except SeldonMessageError as e:
@@ -575,6 +650,54 @@ class EngineService:
         resp = await self.predict(msg)
         ok = resp.status is None or resp.status.status == "SUCCESS"
         return resp.to_json(), 200 if ok else (resp.status.code or 400)
+
+    @staticmethod
+    def _parse_fast(raw):
+        """``(meta, kind, rows)`` of a body whose only members are a numeric
+        ``data`` payload (no ``names``) and a well-formed ``meta``, or None
+        (the object path answers)."""
+        fast = fastcodec.parse_message_fast(raw)
+        if fast is None:
+            return None
+        envelope, kind, arr = fast
+        if kind is None or envelope.get("data") or not set(envelope) <= {"meta", "data"}:
+            return None
+        meta_in = envelope.get("meta") or {}
+        if not isinstance(meta_in, dict):
+            return None
+        try:
+            meta = Meta.from_json_dict(meta_in)
+        except SeldonMessageError:
+            return None
+        meta.puid = meta.puid or new_puid()
+        return meta, kind, np.atleast_2d(arr)
+
+    async def _predict_rows_json(self, meta: Meta, kind: str, rows) -> "tuple[str, int]":
+        """The fast path's request: ``predict``'s timing, span and audit
+        around ``_submit``, the answer written as the object path writes
+        it."""
+        t0 = time.perf_counter()
+        with self.metrics.time_server("predictions", "POST") as code, self._request_span(
+                meta.puid, "predict", mode=self.mode):
+            try:
+                y_rows, (routing, tags) = await self._submit(rows)
+            except (SeldonMessageError, GraphSpecError) as e:
+                self._request_failed(code, e, meta.puid, t0, len(rows), "rest")
+                return SeldonMessage.failure(str(e), code=e.http_code, meta=meta).to_json(), \
+                    e.http_code
+            self._audit_request(meta.puid, "predict", 200, t0, rows=len(rows), lane="rest")
+        out_meta = Meta(puid=meta.puid, tags={**meta.tags, **pythonize_tags(tags)},
+                        routing={**meta.routing, **routing}, requestPath=dict(meta.requestPath))
+        y = np.asarray(y_rows)
+        frag = (fastcodec.format_data_fragment(y, kind)
+                if y.dtype.kind == "f" and y.ndim == 2 else None)
+        if frag is None:
+            resp = SeldonMessage(data=DefaultData(array=y_rows, names=list(self._static_names or []),
+                                                  kind=kind), meta=out_meta, status=Status())
+            return resp.to_json(), 200
+        return ('{"meta":%s,"status":{"code":200,"status":"SUCCESS"},"data":{%s%s}}'
+                % (json.dumps(out_meta.to_json_dict(), separators=(",", ":")),
+                   self._names_fragment, frag.decode("ascii"))), 200
 
     # -- the binary wire (runtime/wire.py) ------------------------------
 
@@ -771,13 +894,14 @@ class EngineService:
                 # the answer's readback on a dispatch thread, off the loop
                 resp = await self._in_executor(_host_payload, resp)
             else:
-                width = np.shape(msg.array())[1:] if msg.data is not None else None
+                # rows as the batcher stacks them: a 1-D payload is one row
+                shape = np.shape(np.atleast_2d(msg.array())) if msg.data is not None else None
                 call = self.compiled.predict
                 if isinstance(self.compiled, FusedGraph):
                     # the demotion budget, read on the request's side and
                     # passed across to the dispatch thread
                     call = functools.partial(call, budget_s=remaining_s())
-                resp = await self._in_executor(self._guarded, width, self._serial, call, msg)
+                resp = await self._in_executor(self._guarded, shape, self._serial, call, msg)
                 # the outlier bridge of a dispatch that takes no batcher (a
                 # unit that updates its state on predict, a router graph)
                 if QUALITY.enabled and resp.meta.tags:
@@ -1069,22 +1193,37 @@ class EngineService:
             }
             self._stats_cache = (key, now, walks)
             staleness = 0.0
+        codec = fastcodec.codec_status()
         out = {
             "boot_id": self.boot_id,
-            "mode": self.mode,
-            "device": self.device.type,
-            "predictor": self.predictor.name,
+            "engine": {
+                "deployment": self.deployment.name,
+                "predictor": self.predictor.name,
+                "mode": self.mode,
+                "paused": self.paused,
+                "pipelined": self._pipelined,
+                "dispatch_timeout_s": self.dispatch_timeout_s,
+                "known_good_widths": sorted(str(w) for w in self._known_good_widths),
+                # the fusion pass and its plan: fused roots, blocked nodes
+                # and the per-request hops saved
+                "graph_fuse": {"enabled": self._fuse,
+                               "plan": None if self.fusion_plan is None
+                               else self.fusion_plan.summary()},
+                # the port's additions: the lane serving the HTTP routes,
+                # the JSON codec and its binding, and any native build error
+                "http_impl": self.http_impl,
+                "codec": self.codec,
+                "codec_binding": codec["binding"],
+                "native_errors": {**codec["errors"], **_plane_errors()},
+            },
             "batcher": self.batcher.snapshot() if self.batcher is not None else None,
-            # the fusion pass and its plan: fused roots, blocked nodes and
-            # the per-request hops saved
-            "graph_fuse": {"enabled": self._fuse,
-                           "plan": None if self.fusion_plan is None
-                           else self.fusion_plan.summary()},
-            "wire": {"enabled": wire.wire_enabled(),
-                     "bytes_copied": RECORDER.wire_bytes_copied},
+            "genserver": None if self.genserver is None else self.genserver.snapshot(),
             "resilience": {"retry_budget": self.retry_budget.snapshot(),
                            "breakers": {name: br.snapshot()
                                         for name, br in self.breakers.items()}},
+            "device": self.device.type,
+            "wire": {"enabled": wire.wire_enabled(),
+                     "bytes_copied": RECORDER.wire_bytes_copied},
             "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES},
                         "flash_attention": {"launches": flash_attention.LAUNCHES},
                         "flash_decode": {"launches": flash_decode.LAUNCHES},
@@ -1094,8 +1233,6 @@ class EngineService:
                             "float32_launches": flash_decode.PAGED_F32_LAUNCHES},
                         "kv_write_paged": {"launches": kv_write.PAGED_LAUNCHES}},
         }
-        if self.genserver is not None:
-            out["genserver"] = self.genserver.snapshot()
         out.update(walks)
         # the MAB router state read back from the card (per-branch
         # success and tries)

@@ -26,15 +26,21 @@ by default; asking for CUDA without it exits with an error.  SIGTERM or
 SIGINT flips readiness to 503 and drains before exit; a second signal
 skips the drain.
 
-The data plane's lanes (``engine_main.py:99``, ``:147-228`` there):
+The data plane's lanes (``engine_main.py:99``, ``:133-228`` there):
 
-* REST on ``ENGINE_SERVER_PORT`` (JSON and the binary tensor wire);
-* gRPC on ``ENGINE_SERVER_GRPC_PORT`` (5001), by ``ENGINE_GRPC_IMPL``:
-  ``fast`` (the default: the stdlib HTTP/2 lane, ``runtime/grpcfast.py``),
-  ``native`` (no native plane is ported, ROADMAP Queue 1 item [4], so it
-  says so and serves ``fast``, as the reference does without a plane) or
-  ``aio`` (the stock ``grpcio`` server, refused: the port leans on no
-  ``grpcio``); another name serves ``fast`` with a line saying so;
+* REST on ``ENGINE_SERVER_PORT`` (JSON and the binary tensor wire), by
+  ``ENGINE_HTTP_IMPL``: ``native`` (the default: the C++ data plane,
+  ``runtime/nativeplane.py``; when the plane is unavailable or the graph
+  is ineligible, a line says why and ``fast`` serves), ``fast`` (the
+  Python lane, ``runtime/rest.py``) or ``aiohttp`` (refused: the port
+  leans on no ``aiohttp``); another name serves ``fast`` with a line
+  saying so;
+* gRPC on ``ENGINE_SERVER_GRPC_PORT`` (5001), by ``ENGINE_GRPC_IMPL``
+  (default ``native`` when the HTTP lane is native, else ``fast``):
+  ``native`` rides the plane's h2 lane, ``fast`` is the stdlib HTTP/2 lane
+  (``runtime/grpcfast.py``), ``aio`` (the stock ``grpcio`` server) is
+  refused; ``native`` without a plane says so and serves ``fast``, as
+  does another name;
 * the relay (``runtime/udsrelay.py``) on ``ENGINE_UDS_PATH`` /
   ``--uds-path``, and the HTTP routes on a unix socket on
   ``ENGINE_HTTP_UDS_PATH`` / ``--http-uds-path`` (the lane a ``unix:``
@@ -42,7 +48,9 @@ The data plane's lanes (``engine_main.py:99``, ``:147-228`` there):
   ``ENGINE_RELAY_TCP_PORT`` (the KV hand-off lane) is refused, naming
   item [6].
 
-The "engine up" line names every lane bound.
+The "engine up" line names every lane bound and which serves HTTP
+(``http=native`` or ``http=fast``); ``/stats`` has it as
+``engine.http_impl``, beside the JSON codec's ``engine.codec``.
 
     python -m seldon_core_tpu_torch.runtime.engine_main --file examples/mnist_deployment.json
 """
@@ -61,7 +69,7 @@ from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.graph.defaulting import default_and_validate
 from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeploymentSpec
 
-__all__ = ["load_deployment_from_env", "check_grpc_impl", "serve", "main"]
+__all__ = ["load_deployment_from_env", "check_http_impl", "check_grpc_impl", "serve", "main"]
 
 DEFAULT_GRAPH = {
     "spec": {
@@ -99,19 +107,41 @@ def load_deployment_from_env(file_path: Optional[str] = None) -> SeldonDeploymen
     return default_and_validate(SeldonDeploymentSpec.from_json_dict(DEFAULT_GRAPH))
 
 
-def check_grpc_impl() -> None:
-    """Read ``ENGINE_GRPC_IMPL``: every name is served by the ``fast`` lane
-    (``native`` and an unknown name with a line saying so), and ``aio``
-    raises ``SystemExit`` (it needs ``grpcio``)."""
-    impl = os.environ.get("ENGINE_GRPC_IMPL", "fast").strip().lower()
+_NO_PLANE_GRPC = "native gRPC lane unavailable (no native plane); serving the Python fast lane"
+
+
+def check_http_impl() -> str:
+    """``ENGINE_HTTP_IMPL`` (default ``native``): ``native`` or ``fast``; an
+    unknown name is ``fast`` with a line saying so, and ``aiohttp`` raises
+    ``SystemExit`` (it needs ``aiohttp``)."""
+    impl = os.environ.get("ENGINE_HTTP_IMPL", "native").strip().lower()
+    if impl == "aiohttp":
+        raise SystemExit("engine_main: ENGINE_HTTP_IMPL=aiohttp is the aiohttp app, which the "
+                         "port does not serve (it leans on no aiohttp); use native or fast")
+    if impl not in ("native", "fast"):
+        print(f"unknown ENGINE_HTTP_IMPL={impl!r}; serving the Python fast lane", flush=True)
+        impl = "fast"
+    return impl
+
+
+def check_grpc_impl(http_impl: str = "fast") -> str:
+    """``ENGINE_GRPC_IMPL`` (default ``native`` when the HTTP lane is
+    ``native``, else ``fast``): ``native`` or ``fast``.  ``native`` rides
+    the plane, so without a native HTTP lane it is ``fast`` with a line
+    saying so, as is an unknown name; ``aio`` raises ``SystemExit`` (it
+    needs ``grpcio``)."""
+    impl = os.environ.get("ENGINE_GRPC_IMPL",
+                          "native" if http_impl == "native" else "fast").strip().lower()
     if impl == "aio":
         raise SystemExit("engine_main: ENGINE_GRPC_IMPL=aio is the stock grpcio server, which "
                          "the port does not serve (it leans on no grpcio); use fast")
-    if impl == "native":
-        print("native gRPC lane unavailable (no native plane); serving the Python fast lane",
-              flush=True)
-    elif impl != "fast":
+    if impl not in ("native", "fast"):
         print(f"unknown ENGINE_GRPC_IMPL={impl!r}; serving fast lane", flush=True)
+        impl = "fast"
+    if impl == "native" and http_impl != "native":
+        print(_NO_PLANE_GRPC, flush=True)
+        impl = "fast"
+    return impl
 
 
 async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
@@ -127,7 +157,8 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
     if int(os.environ.get("ENGINE_RELAY_TCP_PORT", "0") or 0):
         raise SystemExit("engine_main: ENGINE_RELAY_TCP_PORT is the KV hand-off relay of "
                          "disaggregated serving, not ported yet (ROADMAP Queue 1 item [6])")
-    check_grpc_impl()
+    http_impl = check_http_impl()
+    grpc_impl = check_grpc_impl(http_impl)
     rest_port = rest_port or int(os.environ.get("ENGINE_SERVER_PORT", "8000"))
     grpc_port = grpc_port if grpc_port is not None else int(
         os.environ.get("ENGINE_SERVER_GRPC_PORT", "5001"))
@@ -153,11 +184,39 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
         n = engine.prewarm(widths)
         print(f"prewarmed {n} batch shapes for widths {widths} in "
               f"{asyncio.get_running_loop().time() - t0:.1f}s", flush=True)
-    server = await serve_fast(engine, host, rest_port, uds_path=http_uds_path or None)
-    grpc_server = await serve_grpc_fast(engine, host, grpc_port)
+    plane = None
+    if http_impl == "native":
+        from seldon_core_tpu_torch.runtime.nativeplane import serve_native
+
+        try:
+            # the C++ listener binds one IPv4 address; 0.0.0.0 is any
+            plane = await serve_native(engine, host, rest_port,
+                                       grpc_port=grpc_port if grpc_impl == "native" else None)
+        except (RuntimeError, OSError) as e:
+            print(f"native data plane unavailable ({e}); serving the Python fast lane",
+                  flush=True)
+            http_impl = "fast"
+    if grpc_impl == "native" and plane is None:
+        print(_NO_PLANE_GRPC, flush=True)
+        grpc_impl = "fast"
+    # the plane cannot listen on a unix socket (engine_main.py:220 there):
+    # the HTTP routes there are the Python lane's, whichever serves TCP
+    if plane is None:
+        http_server = await serve_fast(engine, host, rest_port, uds_path=http_uds_path or None)
+    elif http_uds_path:
+        from seldon_core_tpu_torch.runtime.rest import FastHttpServer
+
+        http_server = FastHttpServer(engine)
+        await http_server.start_uds(http_uds_path)
+    else:
+        http_server = None
+    grpc_server = await serve_grpc_fast(engine, host, grpc_port) if grpc_impl == "fast" else None
     uds_server = await serve_uds(engine, uds_path) if uds_path else None
     print(f"engine up: predictor={engine.predictor.name} mode={engine.mode} "
-          f"device={engine.device} rest=:{server.port} grpc=:{grpc_server.port}"
+          f"device={engine.device} http={http_impl} "
+          f"rest=:{plane.port if plane is not None else http_server.port} "
+          f"grpc=:{plane.grpc_port if grpc_server is None else grpc_server.port} ({grpc_impl}) "
+          f"codec={engine.codec}"
           + (f" uds={uds_path}" if uds_server is not None else "")
           + (f" http-uds={http_uds_path}" if http_uds_path else ""), flush=True)
 
@@ -189,10 +248,9 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
             await asyncio.wait_for(hurry.wait(), min(0.1, max(deadline - loop.time(), 0.01)))
         except asyncio.TimeoutError:
             pass
-    await server.stop()
-    await grpc_server.stop()
-    if uds_server is not None:
-        await uds_server.stop()
+    for srv in (plane, http_server, grpc_server, uds_server):
+        if srv is not None:
+            await srv.stop()
     engine.close()
     print("engine stopped", flush=True)
 

@@ -530,21 +530,39 @@ class GenServer:
         return count
 
     def snapshot(self) -> Dict[str, Any]:
+        now = time.time()
         with self._lock:
             waiting = len(self._waiting) + len(self._arrivals)
             inflight = len(self._active) + len(self._prefilling)
             tiers: Dict[str, int] = {}
-            for coll in (self._waiting, self._arrivals, self._prefilling, self._active):
+            ledger: List[Dict[str, Any]] = []
+            for coll, state in ((self._waiting, "waiting"), (self._arrivals, "waiting"),
+                                (self._prefilling, "prefill"), (self._active, "running")):
                 for seq in coll:
                     tiers[seq.request.tier] = tiers.get(seq.request.tier, 0) + 1
+                    # the sequence ledger (genserver.py:626-687 there): where
+                    # each live sequence stands, for an operator or a
+                    # failover peer's re-prefill
+                    ledger.append({
+                        "sid": seq.sid, "tier": seq.request.tier, "state": state,
+                        "prompt_len": int(seq.prompt0.shape[-1]),
+                        "emitted": len(seq.emitted), "max_new": seq.max_new,
+                        "streaming": seq.request.chunk is not None,
+                        "age_s": round(now - seq.t_start, 3) if seq.t_start else None,
+                    })
         doc = {
             "mode": "speculative" if self.spec else "decode",
+            # one card serves the whole generation: the disaggregated roles
+            # and the device mesh are [6]
+            "role": "unified",
+            "mesh": None,
             "slots": self.slots,
             "inflight_sequences": inflight,
             "waiting_sequences": waiting,
             "max_waiting": self.max_waiting,
             "sequences_by_tier": tiers,
-            "kv_blocks": self._allocator.snapshot(),
+            # no blocks are reserved for a KV hand-off until [6]
+            "kv_blocks": {**self._allocator.snapshot(), "reserved": 0},
             "block_size": self.block_size,
             "span": self.span,
             "prefill_chunk": self.prefill_chunk,
@@ -560,6 +578,7 @@ class GenServer:
             "decode_round_rows_max": self.decode_round_rows_max,
             "prefix_len": self._prefix_len,
             "prefix_tail_writes_total": self.prefix_tail_writes_total,
+            "sequence_ledger": ledger,
         }
         if self.spec:
             doc["draft_kv_blocks"] = self._draft_allocator.snapshot()

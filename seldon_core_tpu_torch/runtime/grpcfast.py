@@ -436,16 +436,9 @@ class _ServerConnection(_H2Endpoint):
                     sid, GRPC_INTERNAL, b"grpc frame length mismatch"
                 )
                 return
-            # the caller's trace context (the metadata's traceparent):
-            # the handler's spans join the caller's tree
-            ctx = contextvars.copy_context()
-            parent = parse_traceparent(traceparent)
-            if parent is not None:
-                ctx.run(TRACE_VAR.set, parent)
-            if qos[0] is not None or qos[1] is not None:
-                ctx.run(bind_qos, *qos)
             task = asyncio.get_running_loop().create_task(
-                self._run(sid, handler, bytes(buf[5:])), context=ctx)
+                self._run(sid, handler, bytes(buf[5:])),
+                context=call_context(traceparent, *qos))
             self._tasks.add(task)
             task.add_done_callback(self._tasks.discard)
 
@@ -483,6 +476,20 @@ class _ServerConnection(_H2Endpoint):
         self.transport.write(
             _frame(_HEADERS, _F_END_HEADERS | _F_END_STREAM, sid, block)
         )
+
+
+def call_context(traceparent: Optional[str], tenant: Optional[str],
+                 tier: Optional[str]) -> contextvars.Context:
+    """The context a call's handler runs in: the caller's trace context
+    (the metadata's ``traceparent``: the handler's spans join the caller's
+    tree) and the ``seldon-tenant`` / ``seldon-tier`` QoS identity."""
+    ctx = contextvars.copy_context()
+    parent = parse_traceparent(traceparent)
+    if parent is not None:
+        ctx.run(TRACE_VAR.set, parent)
+    if tenant is not None or tier is not None:
+        ctx.run(bind_qos, tenant, tier)
+    return ctx
 
 
 class FastGrpcServer:

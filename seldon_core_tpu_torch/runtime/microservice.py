@@ -27,7 +27,11 @@ Two kinds of class are served: a port ``Unit``, or a reference-style plain
 object (``predict(X, feature_names)``, ``route``, ``aggregate``,
 ``transform_input`` / ``transform_output``, ``send_feedback``, ``score`` for
 an OUTLIER_DETECTOR) behind ``UserObjectUnit``, which hands it numpy rows.
-``--persistence 1`` is refused until ROADMAP Queue 1 item [4d].
+With ``--persistence 1`` (REST or GRPC, as the reference's
+``microservice.py:211-221`` and ``grpc_server.py:340-344`` wire it) the
+unit's state is restored from its checkpoint at boot and saved every
+``PERSISTENCE_FREQUENCY`` seconds (``runtime/persistence.py``:
+``SELDON_TPU_STATE_DIR``, ``SELDON_DEPLOYMENT_ID``, ``PREDICTOR_ID``).
 
 Observability: a REST unit also answers ``GET /stats`` (with the flight
 recorder's snapshot), ``/perf``, ``/overhead``, ``/quality`` (the unit's
@@ -189,10 +193,18 @@ def _env_parameters() -> List[Parameter]:
 
 
 async def _serve(runtime: InProcessNodeRuntime, host: str, port: int, api: str = "REST",
-                 http_port: Optional[int] = None) -> None:
+                 http_port: Optional[int] = None, persistence: int = 0) -> None:
     """Serve over ``api`` (REST or GRPC) until SIGTERM or SIGINT; a gRPC
-    unit with ``http_port`` also serves its HTTP routes there."""
+    unit with ``http_port`` also serves its HTTP routes there.  With
+    ``persistence`` the state is restored first and checkpointed in the
+    background while serving."""
     side = None
+    saver = None
+    if persistence:
+        from seldon_core_tpu_torch.runtime.persistence import persist_loop, restore_runtime
+
+        restore_runtime(runtime)
+        saver = asyncio.get_running_loop().create_task(persist_loop(runtime))
     if api == "GRPC":
         from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcServer
 
@@ -217,6 +229,8 @@ async def _serve(runtime: InProcessNodeRuntime, host: str, port: int, api: str =
         except (NotImplementedError, RuntimeError):
             pass  # platforms without signal support: external kill only
     await stop.wait()
+    if saver is not None:
+        saver.cancel()
     await server.stop()
     if side is not None:
         await side.stop()
@@ -235,16 +249,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--port", type=int, default=None)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--persistence", type=int, default=0,
-                        help="1: checkpoint the unit's state (not ported)")
+                        help="1: restore the unit's state at boot and checkpoint it every "
+                             "PERSISTENCE_FREQUENCY seconds")
     parser.add_argument("--http-port", type=int, default=None,
                         help="GRPC: also serve /stats /perf /overhead /quality /autopilot /trace "
                              "on this port")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card is an error")
     args = parser.parse_args(argv)
-    if args.persistence:
-        parser.exit(2, "microservice: --persistence 1 is not ported yet (ROADMAP Queue 1 "
-                       "item [4], its slice [4d])\n")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -263,7 +275,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                   flush=True)
             return
         http_port = args.http_port or int(os.environ.get("PREDICTIVE_UNIT_HTTP_PORT", "0") or 0)
-        asyncio.run(_serve(runtime, args.host, port, args.api, http_port or None))
+        asyncio.run(_serve(runtime, args.host, port, args.api, http_port or None,
+                           persistence=args.persistence))
     finally:
         pool.shutdown(wait=True)
 

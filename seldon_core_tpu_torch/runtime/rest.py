@@ -135,7 +135,8 @@ from seldon_core_tpu_torch.utils.tracing import (
     trace_document,
 )
 
-__all__ = ["FastHttpServer", "StreamResult", "serve_fast", "serve_unit"]
+__all__ = ["FastHttpServer", "StreamResult", "serve_fast", "serve_unit", "request_context",
+           "route_handler"]
 
 _JSON = "application/json"
 _MAX_BODY = 256 * 1024 * 1024
@@ -571,6 +572,43 @@ def _header_value(lower: bytes, name: bytes, head: Optional[bytes] = None) -> Op
     return (lower if head is None else head)[start: stop if stop > 0 else None].strip()
 
 
+def route_handler(routes, method: bytes, path: bytes) -> "Tuple[Optional[Handler], int]":
+    """``(handler, 200)`` for a request, or ``(None, 405)`` for a method the
+    lane does not serve or a GET of a mutation route (``/trace/enable``:
+    the reference's aiohttp lane answers 405), or ``(None, 404)``."""
+    table = {b"POST": routes.post, b"GET": routes.get}.get(method, {})
+    handler = getattr(routes, "any", {}).get(path) or table.get(path)
+    if handler is not None:
+        return handler, 200
+    if not table or path in getattr(routes, "post_only", ()):
+        return None, 405
+    return None, 404
+
+
+def request_context(query: bytes, lower: bytes, head: bytes) -> contextvars.Context:
+    """The context a request's handler task runs in: the request's query
+    and lower-cased head, its ``Seldon-Deadline-Ms`` deadline scope, its
+    ``traceparent`` trace context and its ``Seldon-Tenant`` /
+    ``Seldon-Tier`` QoS identity; every task it starts inherits them."""
+    ctx = contextvars.copy_context()
+    ctx.run(_REQUEST.set, (query.decode("latin-1"), lower))
+    budget = deadline_ms_header(_header_value(lower, b"seldon-deadline-ms:"))
+    if budget is not None:
+        ctx.run(DEADLINE_VAR.set, Deadline.after(budget))
+    tp = _header_value(lower, b"traceparent:")
+    parent = parse_traceparent(tp.decode("latin-1")) if tp is not None else None
+    if parent is not None:
+        ctx.run(TRACE_VAR.set, parent)
+    # the tenant id as sent (ids are case-sensitive); the tier is
+    # case-folded by parse_tier
+    tenant = _header_value(lower, b"seldon-tenant:", head)
+    tier = _header_value(lower, b"seldon-tier:")
+    if tenant is not None or tier is not None:
+        ctx.run(bind_qos, None if tenant is None else tenant.decode("latin-1"),
+                None if tier is None else tier.decode("latin-1"))
+    return ctx
+
+
 class _HttpProtocol(asyncio.Protocol):
     def __init__(self, routes: _EngineRoutes, protocols: set):
         self.routes = routes
@@ -718,37 +756,14 @@ class _HttpProtocol(asyncio.Protocol):
         path, _, query = target.partition(b"?")
         conn = _header_value(lower, b"connection:")
         close = conn is not None and b"close" in (p.strip() for p in conn.split(b","))
-        table = {b"POST": self.routes.post, b"GET": self.routes.get}.get(method, {})
-        handler = self.routes.any.get(path) or table.get(path)
-        if handler is None and (not table or path in getattr(self.routes, "post_only", ())):
-            # a method the lane does not serve, or a GET of a mutation
-            # route (/trace/enable: the reference's aiohttp lane answers 405)
-            self._reject(405, b"method not allowed", close=close)
-            return
+        handler, status = route_handler(self.routes, method, path)
         if handler is None:
-            self._reject(404, b"not found", close=close)
+            self._reject(status, b"method not allowed" if status == 405 else b"not found",
+                         close=close)
             return
         ctv = _header_value(lower, b"content-type:")
         coro = handler(body, ctv.decode("latin-1") if ctv is not None else "")
-        # the handler's task runs in a context of its own: the request's
-        # query and head, its deadline scope and its trace context; every
-        # task it starts inherits them
-        ctx = contextvars.copy_context()
-        ctx.run(_REQUEST.set, (query.decode("latin-1"), lower))
-        budget = deadline_ms_header(_header_value(lower, b"seldon-deadline-ms:"))
-        if budget is not None:
-            ctx.run(DEADLINE_VAR.set, Deadline.after(budget))
-        tp = _header_value(lower, b"traceparent:")
-        parent = parse_traceparent(tp.decode("latin-1")) if tp is not None else None
-        if parent is not None:
-            ctx.run(TRACE_VAR.set, parent)
-        # the tenant id as sent (ids are case-sensitive); the tier is
-        # case-folded by parse_tier
-        tenant = _header_value(lower, b"seldon-tenant:", head)
-        tier = _header_value(lower, b"seldon-tier:")
-        if tenant is not None or tier is not None:
-            ctx.run(bind_qos, None if tenant is None else tenant.decode("latin-1"),
-                    None if tier is None else tier.decode("latin-1"))
+        ctx = request_context(query, lower, head)
         task = asyncio.get_running_loop().create_task(coro, context=ctx)
         self.queue.put_nowait((task, close))
 

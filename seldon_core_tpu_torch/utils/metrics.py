@@ -159,6 +159,14 @@ class MetricsRegistry:
             if self.registry is not None:
                 self._server_child(service, method, code_holder["code"]).observe(dt)
 
+    def merge_server_counts(self, service: str, method: str, code: str, bucket_counts,
+                            sum_s: float) -> None:
+        """Add observations counted elsewhere (the native data plane's C++
+        lanes) to the server histogram's child: ``bucket_counts`` per
+        bucket (not cumulative, +Inf last) and their sum in seconds."""
+        if self.registry is not None:
+            self._server_child(service, method, code).add_counts(bucket_counts, sum_s)
+
     @contextmanager
     def time_client(self, model_name: str, method: str, model_image: str = "",
                     model_version: str = ""):

@@ -130,6 +130,18 @@ class _Child:
                     break
 
 
+    def add_counts(self, counts: Sequence[float], total: float) -> None:
+        """Add ``counts[i]`` observations to bucket i (per bucket, not
+        cumulative) and ``total`` to the sum: a histogram observed
+        elsewhere, merged whole."""
+        if len(counts) != len(self._bounds):
+            raise ValueError(f"{len(counts)} bucket counts for {len(self._bounds)} buckets")
+        with self._lock:
+            for i, n in enumerate(counts):
+                self.buckets[i] += float(n)
+            self.sum += float(total)
+
+
 class _Metric:
     kind = ""
 

@@ -313,7 +313,7 @@ def test_rest_lane_routes():
     assert out["pause"][0] == 200 and out["paused"] == (503, b"paused")
     assert out["unpause"][0] == 200
     stats = json.loads(out["stats"][1])
-    assert stats["mode"] == "compiled" and stats["device"] == "cpu"
+    assert stats["engine"]["mode"] == "compiled" and stats["device"] == "cpu"
     assert stats["kernels"]["fused_mlp_softmax"]["launches"] >= 0
     assert out["missing"][0] == 404 and out["method"][0] == 405
     assert out["chunked"].startswith(b"HTTP/1.1 501")
@@ -406,3 +406,118 @@ def test_engine_main_serves_on_cpu_and_drains_on_sigterm(tmp_path):
             proc.wait(10)
     assert proc.returncode == 0
     assert "engine stopped" in rest
+
+
+# -- a wrong width is the client's error (ROADMAP Queue 3 item 4) -------------
+
+# per example: a good request, then payloads of the wrong shape: too narrow,
+# too wide, 3-D, empty
+_WRONG_WIDTH = {
+    "iris": ([[1.0, 2.0, 3.0, 4.0]], [[[1.0, 2.0]], [[1.0] * 7], [], [[]]]),
+    "outlier_pipeline": ([[0.5] * 784], [[[1.0, 2.0]], [[1.0] * 787], [[[0.0] * 784] * 2], []]),
+    "gbm": ([[0.0] * 8], [[[1.0, 2.0]], [[[0.0] * 8] * 2], []]),
+    # a 1-D request serves first: then `[]` is a width that never served
+    "epsilon_greedy": ([0.0] * 784, [[[1.0, 2.0]], []]),
+}
+
+
+def _example_engines(name):
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", f"{name}_deployment.json")
+    with open(path) as f:
+        doc = json.load(f)
+    return (JaxEngine(JaxSpec.from_json_dict(doc)),
+            EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc)),
+                          device="cpu"))
+
+
+@pytest.mark.parametrize("after", [False, True], ids=["fresh", "after_a_good_request"])
+@pytest.mark.parametrize("name", sorted(_WRONG_WIDTH))
+def test_a_wrong_width_answers_400_on_every_lane(name, after):
+    """Queue 3 item 4: each wrong-shape payload answers 400 "graph rejected
+    input of shape ..." on the port's JSON, binary-wire and gRPC lanes, on
+    a fresh engine and after a good request; the reference answers 400
+    too, but for gbm's too-narrow row, which it answers 200 (its own
+    fault: XLA's gather clamps the feature indices)."""
+    from seldon_core_tpu_torch import protoconv
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime import wire
+
+    good, bad = _WRONG_WIDTH[name]
+    jax_engine, engine = _example_engines(name)
+
+    async def run():
+        out = []
+        if after:
+            body = json.dumps({"data": {"ndarray": good}})
+            assert (await jax_engine.predict_json(body))[1] == 200
+            assert (await engine.predict_json(body))[1] == 200
+        for x in bad:
+            body = json.dumps({"data": {"ndarray": x}})
+            ref = (await jax_engine.predict_json(body))[1]
+            text, status = await engine.predict_json(body)
+            arr = np.asarray(x, dtype=np.float64)
+            w_status, parts = await engine.predict_wire(wire.join_parts(wire.encode_frame(arr)))
+            frame = wire.decode_frame(wire.join_parts(parts))
+            proto = protoconv.msg_from_proto(await engine.predict_proto_wire(
+                protoconv.msg_to_proto(SeldonMessage.from_array(arr))))
+            out.append((np.shape(arr), ref, status, json.loads(text)["status"], w_status,
+                        frame.extra().get("error", ""), proto.status))
+        return out
+
+    try:
+        results = asyncio.run(run())
+    finally:
+        engine.close()
+    for shape, ref, status, st, w_status, w_error, proto_status in results:
+        assert ref == (200 if name == "gbm" and shape == (1, 2) else 400), (shape, ref)
+        assert status == 400 and st["info"].startswith("graph rejected input of shape"), st
+        assert w_status == 400 and w_error.startswith("graph rejected input of shape"), w_error
+        assert proto_status.code == 400 and proto_status.status == "FAILURE"
+        assert proto_status.info.startswith("graph rejected input of shape"), proto_status
+
+
+def test_a_width_that_has_served_still_answers_500_and_a_card_error_is_never_400():
+    """The known-good-width rule: a shape error on a width that has served
+    is the server's fault (the lane's 500), and so is an error of the card
+    on any width, while the same error text of a shape mismatch on a new
+    width is a 400."""
+    from seldon_core_tpu_torch.runtime.engine import is_client_shape_error
+
+    _, engine = _example_engines("iris")
+    mismatch = RuntimeError("The size of tensor a (4) must match the size of tensor b (3) at "
+                            "non-singleton dimension 1")
+
+    def failing(err):
+        def predict_arrays(*args, **kwargs):
+            raise err
+        return predict_arrays
+
+    async def run():
+        assert (await engine.predict_json('{"data":{"ndarray":[[1,2,3,4]]}}'))[1] == 200
+        engine.compiled.predict_arrays = failing(mismatch)
+        with pytest.raises(RuntimeError, match="size of tensor"):
+            await engine.predict_json('{"data":{"ndarray":[[1,2,3,5]]}}')  # served width
+        novel = await engine.predict_json('{"data":{"ndarray":[[1,2,3]]}}')
+        engine.compiled.predict_arrays = failing(RuntimeError(
+            "CUDA error: an illegal memory access was encountered"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            await engine.predict_json('{"data":{"ndarray":[[1,2]]}}')  # novel width
+        return novel
+
+    try:
+        text, status = asyncio.run(run())
+    finally:
+        engine.close()
+    assert status == 400 and "graph rejected input of shape (1, 3)" in text
+    for e in (TypeError("x"), ValueError("x"), IndexError("index 2 is out of bounds"),
+              mismatch, RuntimeError("mat1 and mat2 shapes cannot be multiplied (1x2 and 4x8)")):
+        assert is_client_shape_error(e), e
+    for e in (RuntimeError("CUDA error: device-side assert triggered"),
+              RuntimeError("CUBLAS_STATUS_EXECUTION_FAILED when calling cublasGemmEx"),
+              RuntimeError("fused_mlp kernel launch failed: invalid argument"),
+              RuntimeError("Expected all tensors to be on the same device"),
+              torch.cuda.OutOfMemoryError("out of memory"), NotImplementedError("x"),
+              KeyError("x"), OSError("x")):
+        assert not is_client_shape_error(e), e

@@ -338,7 +338,7 @@ def test_matrix_kill_switch_restores_the_compiled_path_bit_for_bit(monkeypatch):
     for e in (on, off, mixed):
         e.close()
     assert mixed.mode == jax_mixed.mode == "host" and mixed.executor.fused == {}
-    assert mixed.stats()["graph_fuse"] == {"enabled": False, "plan": None}
+    assert mixed.stats()["engine"]["graph_fuse"] == {"enabled": False, "plan": None}
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +368,7 @@ def test_quorum_and_fallback_subtrees_never_fuse():
                       device="cpu")
     e.close()
     assert e.mode == "compiled" and not isinstance(e.compiled, FusedGraph)
-    assert "comb" in e.stats()["graph_fuse"]["plan"]["blocked"]
+    assert "comb" in e.stats()["engine"]["graph_fuse"]["plan"]["blocked"]
 
 
 def test_fuse_annotation_opts_a_predictor_out():

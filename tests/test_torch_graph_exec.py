@@ -589,7 +589,7 @@ def test_the_engine_picks_the_mode_the_jax_engine_picks(case, monkeypatch):
     engine = EngineService(SeldonDeploymentSpec.from_json_dict(doc), device="cpu")
     engine.close()
     assert engine.mode == jax_engine.mode
-    assert engine.stats()["graph_fuse"] == jax_engine.stats()["engine"]["graph_fuse"]
+    assert engine.stats()["engine"]["graph_fuse"] == jax_engine.stats()["engine"]["graph_fuse"]
     assert engine.open_breakers() == jax_engine.open_breakers() == []
     if engine.mode == "host":
         assert set(engine.breakers) == set(jax_engine.breakers)

@@ -464,10 +464,13 @@ def test_a_lost_connection_is_dialled_again():
     assert np.array_equal(first.array(), second.array()) and first.array().tolist() == [[1, 1]]
 
 
-def test_microservice_grpc_serves_and_refuses_persistence(capsys):
-    with pytest.raises(SystemExit) as e:
-        microservice.main(["MnistClassifier", "GRPC", "--persistence", "1", "--device", "cpu"])
-    assert e.value.code == 2 and "item [4]" in capsys.readouterr().err
+def test_microservice_grpc_serves_and_refuses_persistence(capsys, monkeypatch):
+    # --persistence 1 is taken now (runtime/persistence.py): the unit builds
+    # for it; the served restore and checkpoints are in
+    # tests/test_torch_persistence.py
+    monkeypatch.setenv("MICROSERVICE_SMOKE_EXIT", "1")
+    microservice.main(["MnistClassifier", "GRPC", "--persistence", "1", "--device", "cpu"])
+    assert "smoke ok: MnistClassifier as MODEL on cpu" in capsys.readouterr().out
 
 
 @pytest.mark.cuda

@@ -14,12 +14,15 @@ by the port's unit microservice, streams the generator's tokens, takes a
 training step, round-trips a checkpoint, and over its REST lane scrapes
 ``/prometheus``, reads a request's ``/trace`` and, after a request sent
 with a ``Seldon-Tenant`` header, ``/quality``, ``/costs``,
-``/postmortems``, ``/autopilot`` and ``/corpus``, and answers one request
-the autopilot predicts past its deadline with a 503 shed, with all of them
-blocked."""
+``/postmortems``, ``/autopilot`` and ``/corpus``, answers one request
+the autopilot predicts past its deadline with a 503 shed, and serves one
+request through the native data plane, with all of them blocked.  The
+port's native sources are its own: nothing of it names or builds the JAX
+package's ``native/`` directory."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -54,7 +57,8 @@ def _port_files():
             "utils/metrics.py", "utils/tracing.py", "utils/perf.py", "utils/hotrecord.py",
             "utils/genperf.py", "utils/chips.py", "utils/quality.py", "utils/postmortem.py",
             "utils/costledger.py", "runtime/qos.py", "runtime/autopilot.py",
-            "runtime/brownout.py", "utils/perfcorpus.py"} <= names
+            "runtime/brownout.py", "utils/perfcorpus.py", "native/fastcodec.py",
+            "native/_build.py", "runtime/nativeplane.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py")]
@@ -91,6 +95,59 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         bad += [f"{path.relative_to(ROOT)}:{line} {name}"
                 for line, name in _imports(tree)
                 if _blocked(name) or name.split(".")[0] in SERVING_BLOCKED]
+    assert bad == []
+
+
+def _docstrings(tree):
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+
+
+def _path_parts(node):
+    """The string constants of a path expression: ``a / "b" / "c"`` or
+    ``os.path.join(a, "b", "c")``."""
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+        return _path_parts(node.left) + _path_parts(node.right)
+    if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "join"
+            and getattr(getattr(node.func, "value", None), "attr", "") == "path"):
+        return [p for a in node.args for p in _path_parts(a)]
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return [node.value]
+    return []
+
+
+def test_no_port_source_or_build_path_names_the_jax_package_s_native_sources():
+    """The codec and the plane build from ``seldon_core_tpu_torch/native/
+    csrc`` into ``build/native`` only: no path the port or the smoke makes
+    names the root ``native/`` directory or ``seldon_core_tpu/native``,
+    and the C++ sources include nothing outside their own directory."""
+    from seldon_core_tpu_torch.native import _build
+
+    csrc = ROOT / "seldon_core_tpu_torch" / "native" / "csrc"
+    assert _build.CSRC == csrc and _build.BUILD_DIR == ROOT / "build" / "native"
+    for name in ("fastcodec", "fastcodec_pymod", "dataplane"):
+        srcs, args, _ = _build._recipe(name)
+        assert srcs and all(p.parent == csrc for p in srcs), name
+        assert all(not a.endswith(".cpp") or Path(a).parent == csrc for a in args), name
+    named = re.compile(r"(^|[^\w])(native/[\w.]+\.(cpp|so)|seldon_core_tpu/native)")
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        docs = _docstrings(tree)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs and named.search(node.value)):
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {node.value!r}")
+            parts = _path_parts(node) if isinstance(node, (ast.BinOp, ast.Call)) else []
+            if "native" in parts and parts[parts.index("native") - 1:][:1] != ["build"]:
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno} path {parts}")
+    for src in sorted(csrc.glob("*.cpp")):
+        for line in src.read_text().splitlines():
+            m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+            if m and not (csrc / m.group(1)).exists():
+                bad.append(f"{src.name}: {line.strip()}")
     assert bad == []
 
 
@@ -268,6 +325,28 @@ async def observed():
             json.loads(corpus)["enabled"], shed]
 
 obs = asyncio.run(observed())
+from seldon_core_tpu_torch.runtime.nativeplane import serve_native
+
+async def native_plane():
+    mnist = EngineService(load_deployment_from_env("examples/mnist_deployment.json"),
+                          device="cpu")
+    plane = await serve_native(mnist, "127.0.0.1", 0)
+    try:
+        reader, writer = await asyncio.open_connection("127.0.0.1", plane.port)
+        body = json.dumps({"data": {"ndarray": [[0.5] * 784]}}).encode()
+        writer.write(b"POST /api/v0.1/predictions HTTP/1.1\r\nContent-Length: %d\r\n\r\n"
+                     % len(body) + body)
+        head = await reader.readuntil(b"\r\n\r\n")
+        n = int(head.lower().split(b"content-length:")[1].split(b"\r\n")[0])
+        doc = json.loads(await reader.readexactly(n))
+        writer.close()
+        return [int(head.split()[1]), doc["data"]["ndarray"] == json_rows,
+                mnist.stats()["engine"]["http_impl"], int(plane.stats()[0])]
+    finally:
+        await plane.stop()
+        mnist.close()
+
+native = asyncio.run(native_plane())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc",
                                        "ml_dtypes", "prometheus_client")
@@ -277,7 +356,7 @@ print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarr
                   "lane": lane, "sampled": sampled,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "new_examples": new_examples, "remote": remote,
-                  "lanes": lanes, "obs": obs, "leaked": leaked}))
+                  "lanes": lanes, "obs": obs, "native": native, "leaked": leaked}))
 """
 
 
@@ -295,4 +374,4 @@ def test_port_serves_with_jax_blocked():
         '"remote": ["host", 200, 10], "lanes": [200, 200, true, true], '
         '"obs": [200, true, 200, ["batch_queue", "dispatch", "request"], 200, ["iris", "m", "mnist"], '
         '200, true, 200, true, 200, true, 200, false, '
-        '[503, "autopilot load shed"]], "leaked": []}')
+        '[503, "autopilot load shed"]], "native": [200, true, "native", 1], "leaked": []}')

@@ -488,3 +488,69 @@ def test_genperf_accounts_for_the_scheduler_s_wall(traced, monkeypatch):
     assert len(seqs) == 4 and all(s.events[0]["name"] == "enqueue" for s in seqs)
     root = next(s for s in ptr.TRACER.trace("g-batch") if s.kind == "request")
     assert all(s.parent_span_id == root.span_id for s in seqs)
+
+
+# -- /stats and /genperf are the reference's documents (Queue 3 item 5) --------
+
+
+# the engine's own blocks, whose keys are fixed three levels down; the
+# observatory walks' deeper maps are keyed by data (nodes, executables,
+# tenants) that other tests' process-global singletons also fill
+_FIXED_BLOCKS = ("engine", "batcher", "genserver", "scheduler", "resilience")
+
+
+def _key_tree(doc, depth=3, prefix=""):
+    """The document's keys as paths: two levels, three under the engine's
+    own blocks."""
+    out = set()
+    if isinstance(doc, dict) and depth:
+        for k, v in doc.items():
+            out.add(f"{prefix}/{k}")
+            sub = depth - 1 if prefix or k in _FIXED_BLOCKS else min(depth - 1, 1)
+            out |= _key_tree(v, sub, f"{prefix}/{k}")
+    return out
+
+
+@pytest.mark.parametrize("which", ["mnist", "generator"])
+def test_stats_and_genperf_have_every_key_of_the_reference(which):
+    """Both engines' ``stats()`` and ``genperf_document()`` after one
+    request: every key of the reference's is in the port's (the port's
+    ``kernels``, ``wire``, ``device``, ``engine.http_impl`` /
+    ``codec`` and its scheduler counters are additions), and the
+    reference's readers of ``engine.graph_fuse``, ``engine.paused`` and
+    ``engine.dispatch_timeout_s`` resolve."""
+    if which == "mnist":
+        doc = _mnist_doc()
+        jax_engine = JaxEngine(JaxSpec.from_json_dict(doc))
+        engine = EngineService(SeldonDeploymentSpec.from_json_dict(doc), device="cpu")
+        body = json.dumps({"data": {"ndarray": np.zeros((1, 784)).tolist()}})
+    else:
+        jax_engine = JaxEngine(JaxSpec.from_json_dict(_gen_spec().to_json_dict()))
+        engine = EngineService(_gen_spec(), device="cpu")
+        body = json.dumps({"data": {"ndarray": [[1, 2, 3]]}})
+
+    async def run():
+        assert (await jax_engine.predict_json(body))[1] == 200
+        assert (await engine.predict_json(body))[1] == 200
+
+    try:
+        asyncio.run(run())
+        docs = [(jax_engine.stats(), engine.stats()),
+                (jax_engine.genperf_document(), engine.genperf_document())]
+    finally:
+        engine.close()
+    for ref, port in docs:
+        assert _key_tree(ref) <= _key_tree(port), sorted(_key_tree(ref) - _key_tree(port))
+    stats = docs[0][1]
+    assert stats["engine"]["graph_fuse"] == {"enabled": True, "plan": None}
+    assert stats["engine"]["paused"] is False and stats["engine"]["dispatch_timeout_s"] == 30.0
+    assert stats["engine"]["http_impl"] == "python" and stats["engine"]["codec"] == "native"
+    assert stats["engine"]["pipelined"] is (which == "mnist")
+    if which == "mnist":
+        assert stats["genserver"] is None and stats["engine"]["known_good_widths"] == ["(784,)"]
+        assert stats["batcher"]["pad_to_buckets"] is True
+        assert stats["batcher"]["atomic_chunks"] is False
+    else:
+        gen = stats["genserver"]
+        assert gen["role"] == "unified" and gen["mesh"] is None
+        assert gen["kv_blocks"]["reserved"] == 0 and gen["sequence_ledger"] == []

@@ -739,18 +739,19 @@ def test_quorum_absorbs_a_dead_node_and_the_breaker_shows_in_ready_and_stats():
     assert engine.mode == "host" and engine.open_breakers() == ["s2"]
     assert ready == (200, b"ready (breakers open: s2)")
     doc = json.loads(stats[1])
-    assert doc["mode"] == "host"
+    assert doc["engine"]["mode"] == "host"
     assert doc["resilience"]["breakers"]["s2"]["state"] == "open"
-    assert doc["graph_fuse"]["plan"]["blocked"]["comb"].startswith("quorum")
+    assert doc["engine"]["graph_fuse"]["plan"]["blocked"]["comb"].startswith("quorum")
 
 
 def test_microservice_main_refuses_what_is_not_ported(capsys, monkeypatch):
-    for api in ("REST", "GRPC"):
-        with pytest.raises(SystemExit) as e:
-            microservice.main(["MnistClassifier", api, "--persistence", "1"])
-        assert e.value.code == 2 and "item [4]" in capsys.readouterr().err
-    # GRPC is served now (tests/test_torch_grpc.py): the unit builds for it
+    # --persistence 1 is served now (tests/test_torch_persistence.py): the
+    # unit builds for it on both APIs
     monkeypatch.setenv("MICROSERVICE_SMOKE_EXIT", "1")
+    for api in ("REST", "GRPC"):
+        microservice.main(["MnistClassifier", api, "--persistence", "1", "--device", "cpu"])
+        assert "smoke ok: MnistClassifier as MODEL on cpu" in capsys.readouterr().out
+    # GRPC is served now (tests/test_torch_grpc.py): the unit builds for it
     microservice.main(["MnistClassifier", "GRPC", "--device", "cpu"])
     assert "smoke ok: MnistClassifier as MODEL on cpu" in capsys.readouterr().out
     monkeypatch.delenv("MICROSERVICE_SMOKE_EXIT")
