@@ -390,6 +390,35 @@ it serves the static lane it measured before that lane's switch:
               EpsilonGreedyRouter microservice on the card restarted from
               its checkpoint; a {"new_paths": {"native": ...}} line.  The
               engine_mains of earlier phases run with ENGINE_HTTP_IMPL=fast
+ 10s. MoE layers ([5e]): the flagship generator with every 2nd layer a
+              mixture of 8 experts, top-2, bf16, served by EngineService on
+              the static lane with the continuous switch on (genserver
+              null): B=4 prompts of 128 and 100 tokens, 12 flash_attention
+              launches at 128 and none at 100, 12 x 63 flash_decode a
+              dispatch; the tokens held to the plain path (a replay that
+              takes the kernel path's routing, the teacher-forced gap
+              rule), each MoE layer's routing flip share with every flip's
+              gate margin within the two paths' gate difference; the
+              request wall p50 and an MoE FFN's device ms a decode step
+              beside a dense one's; examples/generator_ep_deployment.json
+              without mesh_axes against its CPU twin; 5 steps of
+              lm_train_step at B=16, S=512 (12 forward, 12 dQ and 12 dK/dV
+              launches a step, a falling loss, the router and the experts
+              moved, step 0's loss against the plain path, the step wall
+              p50 and max_memory_allocated); the checkpoint served through
+              weights_path; a {"new_paths": {"moe": ...}} line
+ 10t. the disaggregated roles ([6d]) on one card: engine_main --gen-role
+              decode (the relay on ENGINE_RELAY_TCP_PORT and a unix socket)
+              and two --gen-role prefill replicas handing off to it over
+              tcp: and uds:, the flagship generator; a pair for
+              examples/generator_int8_deployment.json over tcp:; greedy
+              tokens equal to an in-process unified engine's; from each
+              side's /stats, kv_write_paged launches on the prefill side
+              (12 a tick), flash_decode_paged on the decode side (12 a
+              step) and no kv_write_paged there; the hand-off bytes and ms
+              a sequence, TTFT and request wall p50 against the unified
+              engine's in turns; SELDON_TPU_DISAGG=0 serving both roles as
+              unified; a {"new_paths": {"disagg": ...}} line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -8061,6 +8090,656 @@ def native_phase(torch, dev, smi) -> dict:
     return out
 
 
+# -- 10s. MoE layers ([5e]) on the flagship width -------------------------------
+
+#: the flagship generator with every 2nd layer a mixture of 8 experts, top-2
+#: (LMConfig's defaults): 6 MoE layers, about 0.8 GB of expert stacks in bf16
+MOE_PARAMS = {"moe_every": 2, "n_experts": 8, "moe_k": 2}
+MOE_B = 4
+MOE_PROMPTS = (128, 100)   # prompt lengths: the flash forward at 128, the plain one at 100
+MOE_TRAIN_STEPS = 5
+#: step 0's training loss, kernel path against the plain path: the mean over
+#: 8,192 tokens of f32 nll, the MoE routing included (a near-tie routed
+#: otherwise moves a token's FFN output, not the mean)
+MOE_LOSS_RTOL = 1e-2
+
+
+def forced_route(torch, moe, gates, cfg, capacity: int, expert):
+    """``moe._route`` with the experts chosen given (``expert`` [T, k]):
+    the same queue slots, capacity and combine weights from ``gates``."""
+    import torch.nn.functional as F
+
+    T, E = gates.shape
+    rows = torch.arange(T, device=gates.device)
+    used = torch.zeros(E, dtype=torch.int64, device=gates.device)
+    slots, keeps, vals = [], [], []
+    for j in range(cfg.k):
+        idx = expert[:, j]
+        onehot = F.one_hot(idx, E)
+        pos = (torch.cumsum(onehot, dim=0) - 1)[rows, idx] + used[idx]
+        keep = pos < capacity
+        slots.append(pos)
+        keeps.append(keep)
+        vals.append(gates[rows, idx])
+        used += (onehot * keep[:, None]).sum(0)
+    slot, kept = torch.stack(slots, dim=1), torch.stack(keeps, dim=1)
+    weight = torch.stack(vals, dim=1) * kept
+    if cfg.k > 1:
+        weight = weight / torch.clamp(weight.sum(dim=1, keepdim=True), min=1e-9)
+    return moe.Routing(expert, slot, weight, kept)
+
+
+class RoutingTape:
+    """Records each MoE call's gates and chosen experts (``moe._route``
+    wrapped); with ``force`` (another tape's calls) each call takes that
+    call's experts instead and records the ones it would have chosen."""
+
+    def __init__(self, torch, moe, force=None):
+        self.torch, self.moe = torch, moe
+        self.force = None if force is None else [c["expert"] for c in force]
+        self.calls = []
+
+    def __enter__(self):
+        orig = self._orig = self.moe._route
+
+        def route(gates, cfg, capacity):
+            own = orig(gates, cfg, capacity)
+            self.calls.append({"gates": gates.detach().float(), "expert": own.expert})
+            if self.force is None:
+                return own
+            return forced_route(self.torch, self.moe, gates, cfg, capacity,
+                                self.force[len(self.calls) - 1])
+
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self._orig
+
+
+def moe_replay(torch, gm, params, cfg, prompts, toks, dev, use_flash: bool):
+    """A static-lane generation's logits [B, n, V] with its tokens forced:
+    the prefill over the prompts, then one cached step a token, as
+    ``generate`` runs them (the same B*S and B token streams, so the same
+    capacities)."""
+    B, S = prompts.shape
+    n = toks.shape[1]
+    with torch.inference_mode():
+        main = gm.init_cache(cfg, B, S, dev)
+        logits, main = gm.prefill(params, torch.as_tensor(prompts, dtype=torch.int32, device=dev),
+                                  main, cfg, use_flash)
+        out = [logits]
+        chunk = gm.init_chunk(cfg, B, n - 1, dev)
+        t = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+        for i in range(n - 1):
+            logits, chunk = gm.decode_step_two_tier(params, t[:, i], main, chunk, S, i, cfg,
+                                                    use_flash)
+            out.append(logits)
+        return torch.stack(out, dim=1)
+
+
+def moe_held(torch, gm, moe, params, cfg, prompts, toks, dev, what: str) -> dict:
+    """The served tokens against the plain path (attention="xla") on the
+    same weights: the kernel path's replay records its routing; the plain
+    replay takes that routing, and each served token must be within
+    TOKEN_DELTA of its maximum logit (the teacher-forced gap rule).  Where
+    the plain path's own gates would route a token otherwise (a flip), its
+    gate margin must be within twice the token's largest gate difference
+    between the two paths: a near-tie that the input's rounding decides."""
+    with RoutingTape(torch, moe) as kern:
+        k_logits = moe_replay(torch, gm, params, cfg, prompts, toks, dev, True)
+    with RoutingTape(torch, moe, force=kern.calls) as plain:
+        p_logits = moe_replay(torch, gm, params, cfg, prompts, toks, dev, False)
+    tok = torch.as_tensor(toks, dtype=torch.long, device=dev)
+    gap = (p_logits.max(dim=-1).values - p_logits.gather(-1, tok[..., None])[..., 0]).float()
+    same = float((k_logits.argmax(dim=-1) == tok).float().mean())
+    layers = [i for i in range(cfg.n_layers) if cfg.is_moe_layer(i)]
+    flips = {f"l{i}": [0, 0] for i in layers}
+    worst_margin, worst_delta = 0.0, 0.0
+    for c, (kc, pc) in enumerate(zip(kern.calls, plain.calls)):
+        ks = kc["expert"].sort(dim=1).values
+        ps = pc["expert"].sort(dim=1).values
+        flipped = (ks != ps).any(dim=1)
+        row = flips[f"l{layers[c % len(layers)]}"]
+        row[0] += int(flipped.sum())
+        row[1] += int(ks.shape[0])
+        delta = (kc["gates"] - pc["gates"]).abs().max(dim=1).values
+        worst_delta = max(worst_delta, float(delta.max()))
+        for t in flipped.nonzero().flatten().tolist():
+            g = pc["gates"][t]
+            kset, pset = set(ks[t].tolist()), set(ps[t].tolist())
+            margin = max(float(g[o] - g[k]) for o in pset - kset for k in kset - pset)
+            worst_margin = max(worst_margin, margin)
+            if margin > 2 * float(delta[t]) + 1e-6:
+                raise AssertionError(f"[moe] {what}: a routing flip at call {c}, token {t} has "
+                                     f"gate margin {margin:.3e}, more than twice the paths' gate "
+                                     f"difference {float(delta[t]):.3e}")
+    share = {k: (v[0] / v[1] if v[1] else 0.0) for k, v in flips.items()}
+    log(f"[moe] {what}: {gap.numel()} tokens, plain path on the kernel path's routing: the "
+        f"maximum minus the token's logit max {float(gap.max()):.5f} (delta {TOKEN_DELTA}); "
+        f"the kernel replay's argmax equals {same * 100:.2f}% of the served tokens; routing "
+        f"flips by layer (tokens whose expert set differs) {share}, largest flipped gate "
+        f"margin {worst_margin:.3e}, largest gate difference {worst_delta:.3e}")
+    if float(gap.max()) > TOKEN_DELTA:
+        raise AssertionError(f"[moe] {what}: a served token is {float(gap.max()):.4f} below "
+                             f"the plain path's maximum")
+    return {"tokens": int(gap.numel()), "gap_max": float(gap.max()), "replay_argmax_share": same,
+            "flip_share": share, "flips": {k: v[0] for k, v in flips.items()},
+            "flip_margin_max": worst_margin, "gate_delta_max": worst_delta}
+
+
+def moe_serve(torch, dev, smi, counts: dict) -> tuple:
+    """The flagship MoE generator through EngineService with the continuous
+    switch on: the static lane serves it (no continuous_spec; /stats
+    genserver null), B=4 prompts of 128 and 100 tokens, each dispatch's
+    launches counted, the tokens held to the plain path, the request wall
+    p50, and an MoE FFN's device ms a decode step beside a dense FFN's.
+    Returns (the phase's record, the engine's params)."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models.transformer import _ffn
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+    from seldon_core_tpu_torch.parallel import moe
+
+    doc = gen_deployment(params=MOE_PARAMS)
+    t0 = time.perf_counter()
+    engine = mode_engine(torch, dev, doc, continuous=False,
+                         env={"SELDON_TPU_GEN_CONTINUOUS": "1"})
+    build_s = time.perf_counter() - t0
+    unit = engine.compiled.units["gen"]
+    cfg, params = unit.cfg, engine.states()["gen"]["params"]
+    if not (unit.batch_coupled and unit.use_flash and engine.batcher is None
+            and engine.stats()["genserver"] is None):
+        raise AssertionError("[moe] the MoE generator is not served batch-coupled on the "
+                             "static lane through the kernels")
+    experts = sum(t.numel() * t.element_size() for i in range(cfg.n_layers)
+                  if cfg.is_moe_layer(i) for t in params[f"l{i}"]["moe"].values())
+    if params["l1"]["moe"]["wg"].dtype != torch.float32:
+        raise AssertionError("[moe] the router is not f32 in the bf16 model")
+    new = GEN_DIMS["max_new_tokens"]
+    rng = np.random.default_rng(SEED + 22)
+    served, launches = {}, {}
+    server = ServerThread(engine)
+    port = server.start()
+    try:
+        for S in MOE_PROMPTS:
+            prompts = rng.integers(0, cfg.vocab, size=(MOE_B, S))
+            reset_counts(fa, fd, kw)
+            st, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                              ndarray(prompts))
+            got = read_counts(fa, fd, kw)
+            served[S] = (prompts, check_tokens(st, raw, prompts, "ndarray", new, cfg.vocab))
+            launches[S] = got
+            for name, n in got.items():
+                counts[name] = counts.get(name, 0) + n
+            want = {"flash_attention": cfg.n_layers if S % 128 == 0 else 0,
+                    "flash_decode": cfg.n_layers * (new - 1), "kv_write": 0,
+                    "flash_decode_paged": 0, "kv_write_paged": 0}
+            if got != want:
+                raise AssertionError(f"[moe] a {MOE_B}x{S} dispatch launched {got}, not {want}")
+        body = ndarray(served[100][0])
+        walls = []
+        for _ in range(4):
+            t = time.perf_counter()
+            st, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions", body)
+            walls.append(time.perf_counter() - t)
+            check_tokens(st, raw, served[100][0], "ndarray", new, cfg.vocab)
+    finally:
+        server.stop()
+    held = {S: moe_held(torch, gm, moe, params, cfg, p, y, dev, f"{MOE_B}x{S} served")
+            for S, (p, y) in served.items()}
+    # one decode step's FFNs at B = 4: the MoE layer against the dense one
+    h = torch.randn(MOE_B, 1, cfg.d_model, generator=torch.Generator().manual_seed(SEED),
+                    dtype=torch.float32).to(dev, cfg.dtype)
+    moe_lp = params["l1"]
+    dense_lp = params["l0"]
+    with torch.inference_mode():
+        # the MoE layer reads nothing back to the host: a sync would raise
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _ffn(moe_lp, h, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # the kernels' device time from the profiler: the MoE layer's ~70
+        # small launches take longer to enqueue than to run, so events
+        # around a run of calls would time the host
+        ffn = {}
+        for name, lp in (("moe", moe_lp), ("dense", dense_lp)):
+            prof = device_profile(torch, lambda lp=lp: [_ffn(lp, h, cfg) for _ in range(20)],
+                                  f"{name}_ffn")
+            ffn[name] = {"device_ms": prof["kernel_ms"] / 20, "host_wall_ms": prof["wall_ms"] / 20,
+                         "launches": prof["kernels"] / 20}
+        moe_ms, dense_ms = ffn["moe"]["device_ms"], ffn["dense"]["device_ms"]
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    rec = {"build_s": build_s, "expert_bytes": experts, "launches": launches,
+           "held": held, "request_wall_p50_ms": float(np.median(walls) * 1e3),
+           "request_walls_ms": [w * 1e3 for w in walls],
+           "ffn_per_layer": ffn,
+           "ffn_device_ms_per_decode_step": {"moe": moe_ms * n_moe, "dense": dense_ms * n_moe},
+           "card": smi}
+    log(f"[moe] flagship MoE ({n_moe} of {cfg.n_layers} layers, {cfg.n_experts} experts "
+        f"top-{cfg.moe_k}, {experts / 1e9:.3f} GB of expert "
+        f"stacks) on the static lane with the continuous switch on (genserver null); launches "
+        f"{launches}; {MOE_B}x100 request wall p50 {rec['request_wall_p50_ms']:.3f} ms; one "
+        f"decode step's FFN at B={MOE_B}, device ms from the profiler: MoE {moe_ms:.5f} a layer "
+        f"({moe_ms * n_moe:.5f} a step over {n_moe} layers; {ffn['moe']['launches']:.0f} "
+        f"launches and {ffn['moe']['host_wall_ms']:.4f} ms of host wall a layer) against dense "
+        f"{dense_ms:.5f} ({ffn['dense']['launches']:.0f} launches, "
+        f"{ffn['dense']['host_wall_ms']:.4f} ms) on {smi}")
+    engine.close()
+    return rec, params, cfg
+
+
+def moe_example(torch, dev, smi) -> dict:
+    """examples/generator_ep_deployment.json's parameters (f32) without its
+    mesh_axes on one card, its tokens held to its CPU twin's."""
+    doc = example_doc("generator_ep")
+    del doc["spec"]["predictors"][0]["components"][0]["mesh_axes"]
+    engine = mode_engine(torch, dev, doc, continuous=False, env={"SELDON_TPU_GEN_CONTINUOUS": "1"})
+    twin = cpu_twin(torch, engine, doc)
+    prompts = np.random.default_rng(SEED + 23).integers(0, 256, size=(3, 9))
+    try:
+        answers = [asyncio.run(e.predict_json(json.dumps(ndarray(prompts)))) for e in
+                   (engine, twin)]
+    finally:
+        engine.close()
+        twin.close()
+    card, cpu = (check_tokens(st, raw.encode() if isinstance(raw, str) else raw, prompts,
+                              "ndarray", new=12, vocab=256) for raw, st in answers)
+    if not np.array_equal(card, cpu):
+        raise AssertionError(f"[moe] the ep example's tokens differ from its CPU twin's: "
+                             f"{int((card != cpu).sum())} of {card.size}")
+    log(f"[moe] examples/generator_ep_deployment.json without mesh_axes (4 experts top-2 in "
+        f"every layer, f32): 3x9 prompts -> 3x12 tokens, identical to its CPU twin's on {smi}")
+    return {"tokens": int(card.size), "identical": True}
+
+
+def moe_train(torch, dev, smi, params, cfg) -> dict:
+    """5 steps of lm_train_step at B=16, S=512 from the served weights, on
+    one batch of the copy task (so the loss falls if the gradients are
+    right; fresh batches' losses move more between batches than 5 steps
+    learn): launches, a falling finite loss, the router and the experts
+    moved, step 0's loss against the plain path; then the checkpoint
+    served through weights_path."""
+    from seldon_core_tpu_torch.models.generate import generate
+    from seldon_core_tpu_torch.models.transformer import (
+        lm_loss, lm_train_step, resolve_train_flash, save_lm_weights)
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.optim import adam
+    from seldon_core_tpu_torch.tree import leaves_with_paths, tree_map
+
+    if not resolve_train_flash(cfg, dev):
+        raise AssertionError("[moe] training did not take the flash kernels")
+    params = tree_map(lambda t: t.detach().clone(), params)  # the served ones stay as they were
+    first = {"tokens": torch.as_tensor(copy_batch(np.random.default_rng(SEED + 24), cfg.vocab),
+                                       dtype=torch.int32, device=dev)}
+    with torch.no_grad():
+        loss_k = float(lm_loss(params, first, cfg, use_flash=True))
+        loss_p = float(lm_loss(params, first, cfg, use_flash=False))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if loss_rel > MOE_LOSS_RTOL:
+        raise AssertionError(f"[moe] step 0's loss: kernel path {loss_k}, plain path {loss_p}")
+    opt = adam(TRAIN_LR)
+    state = opt.init(params)
+    start = params
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    for _ in range(MOE_TRAIN_STEPS):
+        t = time.perf_counter()
+        params, state, loss = lm_train_step(params, state, first, opt, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    launches = {"fwd": fa.LAUNCHES, "dq": fa.DQ_LAUNCHES, "dkv": fa.DKV_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = cfg.n_layers * MOE_TRAIN_STEPS
+    if launches != {"fwd": want, "dq": want, "dkv": want}:
+        raise AssertionError(f"[moe] {MOE_TRAIN_STEPS} steps launched {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[moe] training losses {losses}")
+    moved = {name: not torch.equal(start["l1"]["moe"][name], params["l1"]["moe"][name])
+             for name in ("wg", "w1", "w2")}
+    if not all(moved.values()) or params["l1"]["moe"]["wg"].dtype != torch.float32:
+        raise AssertionError(f"[moe] training moved {moved}")
+    rec = {"step0_loss": {"kernel": loss_k, "plain": loss_p, "rel": loss_rel,
+                          "rtol": MOE_LOSS_RTOL},
+           "losses": losses, "launches": launches, "step_wall_p50_ms": float(np.median(walls) * 1e3),
+           "step_walls_ms": [w * 1e3 for w in walls], "max_memory_allocated": peak, "card": smi}
+    log(f"[moe] step 0's loss at B={TRAIN_B}, S={first['tokens'].shape[1] - 1}: kernel path "
+        f"{loss_k:.6f}, plain path "
+        f"{loss_p:.6f} (relative {loss_rel:.3e}, tolerance {MOE_LOSS_RTOL}); {MOE_TRAIN_STEPS} "
+        f"steps of adam({TRAIN_LR}) on that batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"{launches}; wg, w1 and w2 moved; step wall p50 {rec['step_wall_p50_ms']:.3f} ms, "
+        f"max_memory_allocated {peak / 1e9:.3f} GB on {smi}")
+    # the hand-off: the trained checkpoint through weights_path
+    path = ROOT / "build" / "chip_smoke_trained_moe.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        save_lm_weights(params, str(path))
+        engine = mode_engine(torch, dev, gen_deployment(weights_path=str(path), params=MOE_PARAMS),
+                             continuous=False, env={"SELDON_TPU_GEN_CONTINUOUS": "1"})
+    finally:
+        path.unlink(missing_ok=True)
+    try:
+        served_params = engine.states()["gen"]["params"]
+        for (key, a), (_, b) in zip(leaves_with_paths(served_params), leaves_with_paths(params)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"[moe] the served weights differ from the trained at {key}")
+        prompt = copy_batch(np.random.default_rng(SEED + 25), cfg.vocab)[:2, :100]
+        text, st = asyncio.run(engine.predict_json(json.dumps(ndarray(prompt))))
+    finally:
+        engine.close()
+    served = check_tokens(st, text.encode(), prompt, "ndarray", GEN_DIMS["max_new_tokens"],
+                          cfg.vocab)
+    with torch.inference_mode():
+        local = generate(params, torch.as_tensor(prompt, dtype=torch.int32, device=dev), cfg,
+                         GEN_DIMS["max_new_tokens"], use_flash=True).cpu().numpy()
+    if not np.array_equal(served, local):
+        raise AssertionError(f"[moe] the checkpoint's served tokens differ from generate on the "
+                             f"trained params: {int((served != local).sum())}")
+    log(f"[moe] the trained checkpoint served through weights_path (every leaf bit-identical, "
+        f"wg f32): 2x100 -> 2x{served.shape[1]} tokens identical to generate on the trained "
+        f"params")
+    rec["handoff_identical"] = True
+    return rec
+
+
+def moe_phase(torch, dev, smi) -> dict:
+    """10s. MoE layers ([5e]) at the flagship width: served, the ep example
+    on one card, trained 5 steps, the checkpoint served."""
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    out = {}
+    out["serve"], params, cfg = moe_serve(torch, dev, smi, counts)
+    out["example"] = moe_example(torch, dev, smi)
+    out["train"] = moe_train(torch, dev, smi, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    out["launches"] = {**counts, "flash_attention_bwd_dq": out["train"]["launches"]["dq"],
+                       "flash_attention_bwd_dkv": out["train"]["launches"]["dkv"],
+                       "flash_attention_train": out["train"]["launches"]["fwd"]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[moe] phase 10s wall {out['wall_s']:.2f} s")
+    return out
+
+
+# -- 10t. the disaggregated prefill/decode roles ([6d]) on one card ---------------
+
+#: the prefill chunk fixed (floor = ceiling), so every replica prefills a
+#: prompt in the same chunks and the greedy tokens can be compared exactly
+DISAGG_ENV = {"SELDON_TPU_GEN_CONTINUOUS": "1", "SELDON_TPU_GEN_PREFILL_CHUNK": "128",
+              "SELDON_TPU_GEN_PREFILL_CHUNK_MAX": "128"}
+
+
+def disagg_socket(pid: int) -> str:
+    path = ROOT / "build" / f"kv_{pid}.sock"
+    return str(path) if len(str(path)) < 100 else f"/tmp/sct_kv_{pid}.sock"
+
+
+def start_engines(specs: dict, dev) -> dict:
+    """engine_main processes started together: ``specs`` maps a name to
+    (deployment file, extra argv, env); returns name -> (proc, rest port,
+    "engine up" line) once every one is up."""
+    procs = {}
+    for name, (doc_path, argv, env) in specs.items():
+        port = free_port()
+        cmd = [sys.executable, "-m", "seldon_core_tpu_torch.runtime.engine_main", "--file",
+               str(doc_path), "--device", dev.type, "--host", "127.0.0.1", "--rest-port",
+               str(port), *argv]
+        procs[name] = (subprocess.Popen(
+            cmd, cwd=ROOT, env={**os.environ, **DISAGG_ENV,
+                                "ENGINE_SERVER_GRPC_PORT": str(free_port()), **env},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), port)
+    up = {}
+    try:
+        for name, (proc, port) in procs.items():
+            start = time.perf_counter()
+            while True:
+                line = proc.stdout.readline()
+                if line.startswith("engine up:"):
+                    up[name] = (proc, port, line.strip())
+                    break
+                if not line or time.perf_counter() - start > 300:
+                    raise AssertionError(f"[disagg] {name} did not come up: "
+                                         f"{(line + proc.stdout.read())[-1500:]}")
+    except BaseException:
+        for proc, _ in procs.values():
+            proc.kill()
+        raise
+    return up
+
+
+def kernel_counts(port: int) -> tuple:
+    st, raw = request("GET", f"http://127.0.0.1:{port}/stats")
+    if st != 200:
+        raise AssertionError(f"[disagg] /stats answered {st}")
+    doc = json.loads(raw)
+    return ({k: v["launches"] for k, v in doc["kernels"].items()}, doc["genserver"])
+
+
+def sse_ttft(port: int, prompt) -> tuple:
+    """Seconds to the first frame of a 1-token-chunk stream, and its tokens
+    once it ends."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    t0 = time.perf_counter()
+    conn.request("POST", "/api/v0.1/generate/stream",
+                 json.dumps({**ndarray(prompt), "chunk": 1}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"[disagg] a stream answered {resp.status}")
+    first, toks = None, []
+    for line in resp:
+        if not line.startswith(b"data: "):
+            continue
+        if first is None:
+            first = time.perf_counter() - t0
+        ev = json.loads(line[6:])
+        if ev.get("done"):
+            break
+        toks += ev["tokens"][0]
+    conn.close()
+    return first, toks
+
+
+def disagg_pair(torch, dev, smi, what: str, doc: dict, procs: dict, prefills: list,
+                decode: str, prompts: list) -> dict:
+    """Greedy tokens through each prefill replica against an in-process
+    unified engine on the same (seeded) weights; each side's launches from
+    its /stats (after the traffic minus before it); the hand-off bytes and
+    ms a sequence; TTFT and the request wall p50 against the unified
+    engine's, in turns."""
+    unified = mode_engine(torch, dev, doc, continuous=True, env=DISAGG_ENV)
+    server = ServerThread(unified)
+    uport = server.start()
+    out = {"prefill": {}}
+    try:
+        want = []
+        for p in prompts:
+            st, raw = request("POST", f"http://127.0.0.1:{uport}/api/v0.1/predictions",
+                              ndarray(p))
+            want.append(check_tokens(st, raw, p, "ndarray", new=unified.genserver.max_new_tokens,
+                                     vocab=unified.genserver.cfg.vocab))
+        n_layers = unified.genserver.cfg.n_layers
+        d_port = procs[decode][1]
+        d_before, d_gen0 = kernel_counts(d_port)
+        for name in prefills:
+            port = procs[name][1]
+            before, gen0 = kernel_counts(port)
+            for p, w in zip(prompts, want):
+                st, raw = request("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                                  ndarray(p))
+                got = check_tokens(st, raw, p, "ndarray", new=w.shape[1],
+                                   vocab=unified.genserver.cfg.vocab)
+                if not np.array_equal(got, w):
+                    raise AssertionError(f"[disagg] {what} via {name}: tokens differ from the "
+                                         f"unified engine's in {int((got != w).sum())} places")
+            after, gen1 = kernel_counts(port)
+            delta = {k: after[k] - before[k] for k in after}
+            ticks = gen1["prefill_dispatches_total"] - gen0["prefill_dispatches_total"]
+            disagg = gen1["disagg"]
+            if (gen1["role"] != "prefill" or delta["kv_write_paged"] != n_layers * ticks
+                    or ticks < len(prompts) or delta["flash_decode_paged"] != 0):
+                raise AssertionError(f"[disagg] {what} via {name}: role {gen1['role']}, "
+                                     f"launches {delta} over {ticks} prefill ticks")
+            ok = disagg["handoffs"].get("ok", 0)
+            out["prefill"][name] = {
+                "launches": delta, "prefill_ticks": ticks, "handoffs": disagg["handoffs"],
+                "bytes_per_sequence": disagg["bytes_total"] / max(ok, 1),
+                "handoff_ms_p50": disagg["handoff_ms_p50"], "peers": disagg["peers"]}
+        d_after, d_gen1 = kernel_counts(d_port)
+        d_delta = {k: d_after[k] - d_before[k] for k in d_after}
+        steps = d_gen1["decode_steps_total"] - d_gen0["decode_steps_total"]
+        imported = (d_gen1["imports"]["committed_total"]
+                    - d_gen0["imports"]["committed_total"])
+        if (d_gen1["role"] != "decode" or d_delta["kv_write_paged"] != 0
+                or d_delta["flash_decode_paged"] != n_layers * steps or steps == 0
+                or imported != len(prompts) * len(prefills)):
+            raise AssertionError(f"[disagg] {what} decode side: role {d_gen1['role']}, "
+                                 f"launches {d_delta} over {steps} decode steps, {imported} "
+                                 f"imports")
+        out["decode"] = {"launches": d_delta, "decode_steps": steps, "imports": imported}
+        # TTFT and the request wall, the unified engine and the first prefill
+        # replica in turns
+        port = procs[prefills[0]][1]
+        p = prompts[0]
+        timing = {"unified": {"ttft": [], "wall": []}, "disagg": {"ttft": [], "wall": []}}
+        for lane in ("unified", "disagg", "disagg", "unified", "unified", "disagg"):
+            lp = uport if lane == "unified" else port
+            ttft, toks = sse_ttft(lp, p)
+            if toks != want[0][0].tolist():
+                raise AssertionError(f"[disagg] {what}: the {lane} stream's tokens differ")
+            t = time.perf_counter()
+            st, raw = request("POST", f"http://127.0.0.1:{lp}/api/v0.1/predictions", ndarray(p))
+            timing[lane]["wall"].append(time.perf_counter() - t)
+            timing[lane]["ttft"].append(ttft)
+        out["timing_ms"] = {lane: {k: float(np.median(v) * 1e3) for k, v in d.items()}
+                            for lane, d in timing.items()}
+        # the chain's ms (export, stream, the remote decode), over every
+        # hand-off of that replica: the first (cold) two and the turns' six
+        disagg = kernel_counts(port)[1]["disagg"]
+        out["prefill"][prefills[0]]["handoff_ms_all"] = {
+            "handoffs": disagg["handoffs"], "p50": disagg["handoff_ms_p50"],
+            "p99": disagg["handoff_ms_p99"]}
+    finally:
+        server.stop()
+        unified.close()
+    first = out["prefill"][prefills[0]]
+    log(f"[disagg] {what}: greedy tokens through {prefills} identical to a unified engine's "
+        f"({len(prompts)} prompts of {[p.shape[1] for p in prompts]} tokens each); prefill "
+        f"side launches {first['launches']} over {first['prefill_ticks']} ticks; decode side "
+        f"{out['decode']['launches']} over {out['decode']['decode_steps']} steps; hand-off "
+        f"{first['bytes_per_sequence']:.0f} bytes a sequence, chain p50 "
+        f"{first['handoff_ms_p50']:.3f} ms over the first two, "
+        f"{first['handoff_ms_all']['p50']:.3f} over all {first['handoff_ms_all']['handoffs']}; "
+        f"TTFT p50 {out['timing_ms']['disagg']['ttft']:.3f} ms against unified "
+        f"{out['timing_ms']['unified']['ttft']:.3f}, request wall p50 "
+        f"{out['timing_ms']['disagg']['wall']:.3f} against {out['timing_ms']['unified']['wall']:.3f}"
+        f" on {smi}")
+    return out
+
+
+def disagg_kill_switch(torch, dev, doc: dict, peer: str, prompt) -> dict:
+    """SELDON_TPU_DISAGG=0: replicas told to take either role serve as
+    unified, the unified engine's tokens."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+
+    prev = {k: os.environ.get(k) for k in ("SELDON_TPU_DISAGG", *DISAGG_ENV)}
+    os.environ.update({"SELDON_TPU_DISAGG": "0", **DISAGG_ENV})
+    try:
+        answers = {}
+        for role in ("unified", "prefill", "decode"):
+            engine = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc)),
+                                   device=dev, gen_role=role, decode_peers=[peer])
+            try:
+                if engine.gen_role != "unified" or engine.genserver.role != "unified":
+                    raise AssertionError(f"[disagg] SELDON_TPU_DISAGG=0: role {role} serves "
+                                         f"as {engine.gen_role}")
+                text, st = asyncio.run(engine.predict_json(json.dumps(ndarray(prompt))))
+                answers[role] = check_tokens(st, text.encode(), prompt, "ndarray",
+                                             new=engine.genserver.max_new_tokens,
+                                             vocab=engine.genserver.cfg.vocab)
+            finally:
+                engine.close()
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not all(np.array_equal(a, answers["unified"]) for a in answers.values()):
+        raise AssertionError("[disagg] SELDON_TPU_DISAGG=0: the roles' tokens differ")
+    log("[disagg] SELDON_TPU_DISAGG=0: engines told to take the prefill and the decode role "
+        "serve as unified, the unified engine's tokens")
+    return {"unified": True}
+
+
+def disagg_phase(torch, dev, smi) -> dict:
+    """10t. [6d] on one card: a decode replica (engine_main --gen-role
+    decode, the relay on ENGINE_RELAY_TCP_PORT and a unix socket) and
+    prefill replicas handing off to it over tcp: and uds:, for the flagship
+    generator; a pair for examples/generator_int8_deployment.json over tcp:;
+    then the kill switch."""
+    t_phase = time.perf_counter()
+    pid = os.getpid()
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    flagship, int8 = gen_deployment(), example_doc("generator_int8")
+    files = {}
+    for name, doc in (("flagship", flagship), ("int8", int8)):
+        files[name] = build / f"disagg_{name}_{pid}.json"
+        files[name].write_text(json.dumps(doc))
+    sock = disagg_socket(pid)
+    tcp, tcp8 = free_port(), free_port()
+    specs = {
+        "decode": (files["flagship"], ["--gen-role", "decode"],
+                   {"ENGINE_RELAY_TCP_PORT": str(tcp), "ENGINE_UDS_PATH": sock}),
+        "prefill_tcp": (files["flagship"], ["--gen-role", "prefill", "--decode-peers",
+                                            f"tcp:127.0.0.1:{tcp}"], {}),
+        "prefill_uds": (files["flagship"], ["--gen-role", "prefill", "--decode-peers",
+                                            f"uds:{sock}"], {}),
+        "decode_int8": (files["int8"], ["--gen-role", "decode"],
+                        {"ENGINE_RELAY_TCP_PORT": str(tcp8)}),
+        "prefill_int8": (files["int8"], ["--gen-role", "prefill", "--decode-peers",
+                                          f"tcp:127.0.0.1:{tcp8}"], {}),
+    }
+    t0 = time.perf_counter()
+    procs = start_engines(specs, dev)
+    out = {"start_s": time.perf_counter() - t0, "up": {k: v[2] for k, v in procs.items()}}
+    rng = np.random.default_rng(SEED + 26)
+    try:
+        out["flagship"] = disagg_pair(
+            torch, dev, smi, "flagship", flagship, procs, ["prefill_tcp", "prefill_uds"], "decode",
+            [rng.integers(0, GEN_DIMS["vocab"], size=(1, S)) for S in (128, 100)])
+        out["int8"] = disagg_pair(
+            torch, dev, smi, "generator_int8 example", int8, procs, ["prefill_int8"],
+            "decode_int8", [rng.integers(0, 256, size=(1, S)) for S in (40, 17)])
+        out["kill_switch"] = disagg_kill_switch(torch, dev, int8, f"tcp:127.0.0.1:{tcp8}",
+                                                rng.integers(0, 256, size=(1, 12)))
+    finally:
+        for proc, _, _ in procs.values():
+            stop_service(proc, timeout=30)
+        for f in files.values():
+            f.unlink(missing_ok=True)
+        Path(sock).unlink(missing_ok=True)
+    out["launches"] = {
+        "flash_decode_paged": out["flagship"]["decode"]["launches"]["flash_decode_paged"],
+        "kv_write_paged": sum(v["launches"]["kv_write_paged"]
+                              for v in out["flagship"]["prefill"].values()),
+        "flash_decode_paged int8": out["int8"]["decode"]["launches"]["flash_decode_paged"],
+        "kv_write_paged int8": out["int8"]["prefill"]["prefill_int8"]["launches"]["kv_write_paged"],
+    }
+    out["card"] = smi
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[disagg] phase 10t wall {out['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8230,6 +8909,31 @@ def main() -> int:
     log(json.dumps({"new_paths": {"native": nat}}))
     mlp_row["launches_by_path"]["native"] = nat["launches"]["fused_mlp_softmax"]
     mlp_row["launches"] += nat["launches"]["fused_mlp_softmax"]
+    # 10s: after 10r, each dispatch's counts set to 0 just before it and read
+    # just after; the training steps' set to 0 before the first
+    moe_out = moe_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"moe": moe_out}}))
+    for row, n in ((flash_row, moe_out["launches"]["flash_attention"]
+                    + moe_out["launches"]["flash_attention_train"]),
+                   (decode_row, moe_out["launches"]["flash_decode"]),
+                   (dq_row, moe_out["launches"]["flash_attention_bwd_dq"]),
+                   (dkv_row, moe_out["launches"]["flash_attention_bwd_dkv"])):
+        row["launches_by_path"] = {**row.get("launches_by_path", {"earlier phases":
+                                                                  row["launches"]}),
+                                   "moe (served, trained)": n}
+        row["launches"] += n
+    # 10t: after 10s, each replica's counts read from its /stats before and
+    # after the traffic
+    dis = disagg_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"disagg": dis}}))
+    rows_by_name = {r["name"]: r for r in (paged_row, kv_paged_row, *int8_rows)}
+    for name, key in (("flash_decode_paged", "flash_decode_paged"),
+                      ("kv_write_paged", "kv_write_paged"),
+                      ("flash_decode_paged (int8 K/V)", "flash_decode_paged int8"),
+                      ("kv_write_paged (int8)", "kv_write_paged int8")):
+        rows_by_name[name]["launches_by_path"]["disagg (prefill/decode replicas)"] = \
+            dis["launches"][key]
+        rows_by_name[name]["launches"] += dis["launches"][key]
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,

@@ -52,9 +52,13 @@ telemetry (TTFT, decode rate, the flight recorder) is not ported.
 Served here: greedy and sampled decoding, the shared prefix, float and
 int8 caches, seeded or trained weights (``weights_path``, loaded in
 ``init_state`` as the JAX unit does), dense or int8 weights (``quant``:
-``quantize_lm_params`` after the load, served through ``dequant_matmul``).
-The constructor refuses ``moe_every > 0``, naming ROADMAP item [5e].
-Speculative decoding is ``models/speculative.py``.
+``quantize_lm_params`` after the load, served through ``dequant_matmul``),
+dense or MoE layers (``moe_every``: ``_finish_block`` takes the MoE FFN
+over each call's B*S tokens, so a prefill, a prefix's own prefill in
+``init_state``, a suffix segment and each cached step of B rows each set
+their own capacity, as the reference's).  An MoE generator is
+``batch_coupled`` and has no ``continuous_spec``: it serves on the static
+lane.  Speculative decoding is ``models/speculative.py``.
 
 The int8 K/V cache (``kv_quant="int8"``, the reference's
 ``generate.py:133-447``): a layer holds int8 ``k``/``v`` and f32 scale
@@ -134,7 +138,6 @@ from seldon_core_tpu_torch.models.transformer import (
     heads,
     lm_init,
     load_lm_weights,
-    refuse_unported,
     resolve_flash,
     seeded_generator,
 )
@@ -272,11 +275,13 @@ def _qkv(lp, x, cfg: LMConfig, start):
     return q, k, v
 
 
-def _finish_block(lp, x, a):
-    """Attention output projection and the dense FFN, with residuals."""
+def _finish_block(lp, x, a, cfg: LMConfig):
+    """Attention output projection and the FFN (dense, or MoE over this
+    call's B*S tokens: the capacity is set by them), with residuals; the
+    load-balance loss is dropped, as the reference's serving paths drop it."""
     B, S, D = x.shape
     x = x + lm_matmul(lp, "wo", a.transpose(1, 2).reshape(B, S, D), out_dtype=x.dtype)
-    return x + _ffn(lp, _rmsnorm(x, lp["ln2"]))
+    return x + _ffn(lp, _rmsnorm(x, lp["ln2"]), cfg)[0]
 
 
 def _block_two_tier(lp, x, main_layer, chunk_layer, n_main: int, n_chunk: int,
@@ -288,7 +293,7 @@ def _block_two_tier(lp, x, main_layer, chunk_layer, n_main: int, n_chunk: int,
     attention in one launch."""
     q, k, v = _qkv(lp, x, cfg, n_main + n_chunk)
     a = _attend_two_tier(q, main_layer, chunk_layer, n_main, n_chunk + 1, use_flash, k, v)
-    return _finish_block(lp, x, a), chunk_layer
+    return _finish_block(lp, x, a, cfg), chunk_layer
 
 
 def decode_step_two_tier(params, token, main, chunk, n_main: int, n_chunk: int,
@@ -359,7 +364,7 @@ def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
         a = _attention(q, k, v, causal=True, use_flash=use_flash)
     else:
         a = _attend_cached(q, cache_layer, n_valid, use_flash, k, v)
-    return _finish_block(lp, x, a), cache_layer
+    return _finish_block(lp, x, a, cfg), cache_layer
 
 
 def segment_forward(params, tokens, cache, start: int, cfg: LMConfig,
@@ -720,7 +725,7 @@ def _paged_block(lp, x, pool_layer, tables, start, valid, cfg: LMConfig,
     else:
         _paged_write(pool_layer, tables, start, valid, k, v, use_flash)
         a = _attend_paged(q, _paged_view(pool_layer, tables), start)
-    return _finish_block(lp, x, a), pool_layer
+    return _finish_block(lp, x, a, cfg), pool_layer
 
 
 def paged_forward(params, tokens, pool, tables, start, width, cfg: LMConfig,
@@ -886,8 +891,10 @@ class TransformerGenerator(Unit):
     under the JAX unit's name with its parameters.  Prompt values are
     truncated to int32 and clamped to [0, vocab).
 
-    Greedy decoding is a pure function of (weights, prompt) and each row
-    is independent, so the engine's batcher may stack and pad requests.
+    Greedy dense decoding is a pure function of (weights, prompt) and each
+    row is independent, so the engine's batcher may stack and pad requests;
+    MoE layers share their capacity over the batch, so an MoE unit is
+    ``batch_coupled`` and the engine neither coalesces nor pads its rows.
     Sampled decoding (``temperature > 0``) draws a request's noise from one
     key, ``fold_in(key(seed), requests)``, so a row's tokens depend on its
     place in the batch, and the request counter in state advances with
@@ -918,7 +925,6 @@ class TransformerGenerator(Unit):
             moe_k=int(moe_k), quant=str(quant), kv_quant=str(kv_quant),
             n_kv_heads=int(n_kv_heads), rope=bool(rope), rope_base=float(rope_base),
         )
-        refuse_unported(self.cfg)
         self.seed = int(seed)
         self.weights_path = str(weights_path)
         self.max_new_tokens = int(max_new_tokens)
@@ -931,7 +937,10 @@ class TransformerGenerator(Unit):
         for t in self.prefix_ids:
             if not 0 <= t < self.cfg.vocab:
                 raise ValueError(f"prefix token {t} outside vocab [0, {self.cfg.vocab})")
-        self.batch_coupled = self.temperature > 0.0
+        # sampled rows depend on their place in the batch, and MoE capacity
+        # is shared by the flattened token stream: either way co-batching
+        # other callers' rows would change this caller's answer
+        self.batch_coupled = self.temperature > 0.0 or self.cfg.moe_every > 0
         self.updates_state_on_predict = self.temperature > 0.0
         self.device = resolve_device(device)
         self.use_flash = resolve_flash(str(attention), self.cfg, self.device, decode=True)
@@ -969,9 +978,9 @@ class TransformerGenerator(Unit):
         """What the continuous lane (``runtime/genserver.py``) needs to
         serve this unit: the params, the config, the sampling knobs and
         seed, ``eos_token``, ``max_new_tokens``, the shared-prefix cache and
-        whether to take the kernels.  None where the reference returns None
-        (MoE couples co-batched rows; the port refuses MoE at construction
-        already)."""
+        whether to take the kernels.  None where the reference returns None:
+        MoE capacity couples co-scheduled rows, so an MoE generator serves
+        on the static lane."""
         if self.cfg.moe_every > 0:
             return None
         return {"params": state["params"], "cfg": self.cfg, "temperature": self.temperature,

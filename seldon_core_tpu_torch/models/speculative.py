@@ -98,7 +98,7 @@ def _forward_seg(params, tokens, cache, off: int, pos0, valid, cfg: LMConfig):
         q, k, v = _qkv(lp, x, cfg, pos0[:, None])
         cl["k"][:, :, off:off + W] = k
         cl["v"][:, :, off:off + W] = v
-        x = _finish_block(lp, x, _attend_masked(q, cl["k"], cl["v"], mask_add))
+        x = _finish_block(lp, x, _attend_masked(q, cl["k"], cl["v"], mask_add), cfg)
     x = _rmsnorm(x, params["ln_f"])
     return (x @ params["embed"].T).float(), cache
 

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM — the port's counterpart of
-``seldon_core_tpu/models/transformer.py``, single device, dense FFN.
+``seldon_core_tpu/models/transformer.py``, single device, dense or MoE FFN.
 
 Public functions keep the JAX layout: heads ``[B, H, S, hd]``, weights
 ``W`` as ``[in, out]``, params as nested dicts ``{"embed", "l0": {"ln1",
@@ -63,10 +63,18 @@ weights (``ops/quant.py`` ``quantize_lm_params``) and every layer matmul
 takes ``lm_matmul``'s W8A16 path; ``lm_train_step`` refuses them, as the
 reference does.
 
-Not ported yet (the units raise ``ValueError`` naming the ROADMAP item):
-MoE layers and their
-load-balance loss, meshes and ring attention, and the pipeline and sharded
-train steps.
+MoE layers (``moe_every > 0``): every ``moe_every``-th block (1-indexed)
+swaps its dense FFN for ``parallel/moe.py``'s mixture of ``n_experts``
+experts, top-``moe_k`` routed, whose subtree ``l{i}/moe/{wg, w1, w2}``
+keeps the router ``wg`` in f32 in a bf16 model (int8 weights leave it
+unquantized, as the reference).  ``_block`` returns the layer's
+load-balance loss beside its output, ``lm_apply(return_lb=True)`` their
+sum, and ``lm_loss`` adds ``LB_LOSS_COEF`` times it.  Capacity is set over
+the whole flattened batch, so an MoE unit is ``batch_coupled``: co-batched
+rows change each other's overflow.
+
+Not ported (ROADMAP item [6]): meshes and ring attention, expert
+parallelism, and the pipeline and sharded train steps.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ from seldon_core_tpu_torch.ops.flash_attention import (
 from seldon_core_tpu_torch.ops.flash_decode import (decode_kernel_shape_error,
                                                     paged_kernel_shape_error, probe_decode_kernel)
 from seldon_core_tpu_torch.ops.quant import lm_matmul, quantize_lm_params
+from seldon_core_tpu_torch.parallel.moe import MoEConfig, moe_apply, moe_init
 from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
 from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
 
@@ -149,6 +158,9 @@ class LMConfig:
                 f"{self.d_model // self.n_heads}"
             )
 
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe_every > 0 and (i + 1) % self.moe_every == 0
+
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
@@ -157,15 +169,11 @@ class LMConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
-
-def refuse_unported(cfg: LMConfig) -> None:
-    """ValueError for the LM options the port does not serve yet, naming
-    the ROADMAP item that will port each."""
-    if cfg.moe_every > 0:
-        raise ValueError(
-            f"moe_every={cfg.moe_every}: MoE layers are not ported yet "
-            f"(ROADMAP Queue 1 item 5e)"
-        )
+    @property
+    def moe(self) -> MoEConfig:
+        """The MoE layers' config (``transformer.py:198-204``, ``:351``)."""
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+                         k=self.moe_k, dtype=self.dtype)
 
 
 def _rmsnorm(x, w, eps=1e-6):
@@ -205,25 +213,27 @@ def _dense(rng: torch.Generator, shape, fan_in: int, dtype: torch.dtype) -> torc
 def lm_init(rng: torch.Generator, cfg: LMConfig, device: DeviceLike = None) -> Dict[str, Any]:
     """Parameters as ``lm_init`` lays them out, drawn on the CPU from
     ``rng`` (a CPU ``torch.Generator``) in the order embed, then per layer
-    wqkv, wo, w1, w2, and moved to ``device`` (default ``cuda``).  The
-    draws differ from ``jax.random``'s; parity tests carry JAX weights
-    across instead."""
-    if cfg.moe_every > 0:
-        refuse_unported(cfg)
+    wqkv, wo and w1, w2 (an MoE layer: its ``moe`` subtree, ``moe_init``),
+    and moved to ``device`` (default ``cuda``).  The draws differ from
+    ``jax.random``'s; parity tests carry JAX weights across instead."""
     dev = resolve_device(device)
     dt = cfg.dtype
     hd = cfg.head_dim
     qkv_out = cfg.d_model + 2 * cfg.kv_heads * hd  # q | k | v segments
     params: Dict[str, Any] = {"embed": _dense(rng, (cfg.vocab, cfg.d_model), cfg.d_model, dt).to(dev)}
     for i in range(cfg.n_layers):
-        params[f"l{i}"] = {
+        lp = {
             "ln1": torch.ones(cfg.d_model, dtype=dt, device=dev),
             "wqkv": _dense(rng, (cfg.d_model, qkv_out), cfg.d_model, dt).to(dev),
             "wo": _dense(rng, (cfg.d_model, cfg.d_model), cfg.d_model, dt).to(dev),
             "ln2": torch.ones(cfg.d_model, dtype=dt, device=dev),
-            "w1": _dense(rng, (cfg.d_model, cfg.d_ff), cfg.d_model, dt).to(dev),
-            "w2": _dense(rng, (cfg.d_ff, cfg.d_model), cfg.d_ff, dt).to(dev),
         }
+        if cfg.is_moe_layer(i):
+            lp["moe"] = moe_init(rng, cfg.moe, dev)
+        else:
+            lp["w1"] = _dense(rng, (cfg.d_model, cfg.d_ff), cfg.d_model, dt).to(dev)
+            lp["w2"] = _dense(rng, (cfg.d_ff, cfg.d_model), cfg.d_ff, dt).to(dev)
+        params[f"l{i}"] = lp
     params["ln_f"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
     return params
 
@@ -272,17 +282,21 @@ def heads(t, B, S, n, hd):
     return t.reshape(B, S, n, hd).transpose(1, 2)
 
 
-def _ffn(lp, h):
-    """Dense feed-forward on h [B, S, D]: gelu (tanh form, as
-    ``jax.nn.gelu``) between the two layer matmuls."""
+def _ffn(lp, h, cfg: LMConfig):
+    """Dense or MoE feed-forward on h [B, S, D] -> (y, lb_loss): the dense
+    FFN is gelu (tanh form, as ``jax.nn.gelu``) between the two layer
+    matmuls, with a load-balance loss of 0.0 (a float: no device work); an MoE layer routes the whole
+    [B*S] token stream (``moe_apply``)."""
     if "moe" in lp:
-        raise ValueError("MoE layers are not ported yet (ROADMAP Queue 1 item 5e)")
+        y, aux = moe_apply(lp["moe"], h, cfg.moe)
+        return y, aux["lb_loss"]
     u = F.gelu(lm_matmul(lp, "w1", h, out_dtype=h.dtype), approximate="tanh")
-    return lm_matmul(lp, "w2", u, out_dtype=h.dtype)
+    return lm_matmul(lp, "w2", u, out_dtype=h.dtype), 0.0
 
 
 def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
-    """One decoder block: attention + dense FFN with residuals."""
+    """One decoder block: attention + FFN (dense or MoE) with residuals ->
+    (x', lb_loss)."""
     B, S, D = x.shape
     hd = cfg.head_dim
     kv = cfg.kv_heads
@@ -297,7 +311,8 @@ def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
     a = _attention(q, k, v, causal, use_flash)
     a = a.transpose(1, 2).reshape(B, S, D)
     x = x + lm_matmul(lp, "wo", a, out_dtype=x.dtype)
-    return x + _ffn(lp, _rmsnorm(x, lp["ln2"]))
+    y, lb = _ffn(lp, _rmsnorm(x, lp["ln2"]), cfg)
+    return x + y, lb
 
 
 def token_rows(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -315,14 +330,19 @@ def token_rows(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.where(t < 0, t + vocab, t).clamp(0, vocab - 1)
 
 
-def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool = False):
+def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool = False,
+             return_lb: bool = False):
     """tokens [B, S] (ids, or wire values: ``token_rows``) -> logits
-    [B, S, V] f32."""
+    [B, S, V] f32; with ``return_lb`` also the summed MoE load-balance
+    loss (f32 scalar, 0 for a dense config)."""
     x = params["embed"][token_rows(tokens, cfg.vocab)]
+    lb_total = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
-        x = _block(params[f"l{i}"], x, cfg, causal, use_flash)
+        x, lb = _block(params[f"l{i}"], x, cfg, causal, use_flash)
+        lb_total = lb_total + lb
     x = _rmsnorm(x, params["ln_f"])
-    return (x @ params["embed"].T).float()
+    logits = (x @ params["embed"].T).float()
+    return (logits, lb_total) if return_lb else logits
 
 
 def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
@@ -392,25 +412,24 @@ def resolve_train_flash(cfg: LMConfig, device: torch.device) -> bool:
     return _train_kernels(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
 
 
-#: weight of the MoE load-balance loss in ``lm_loss`` (``transformer.py:409``);
-#: dense configs have none, and MoE waits for ROADMAP Queue 1 item 5e
+#: weight of the MoE load-balance loss in ``lm_loss`` (``transformer.py:409``)
 LB_LOSS_COEF = 0.01
 
 
 def lm_loss(params, batch, cfg: LMConfig, use_flash: Optional[bool] = None):
-    """Next-token cross-entropy, f32 scalar; ``batch = {"tokens": [B,
-    S+1]}``: the mean over positions of ``-log_softmax(logits)`` at the next
-    token, as ``transformer.py:412-442``.  ``use_flash=None`` asks
+    """Next-token cross-entropy plus ``LB_LOSS_COEF`` times the MoE
+    load-balance loss, f32 scalar; ``batch = {"tokens": [B, S+1]}``: the
+    mean over positions of ``-log_softmax(logits)`` at the next token, as
+    ``transformer.py:409-442``.  ``use_flash=None`` asks
     ``resolve_train_flash``."""
-    if cfg.moe_every > 0:
-        refuse_unported(cfg)
     tokens = batch["tokens"]
     if use_flash is None:
         use_flash = resolve_train_flash(cfg, params["embed"].device)
-    logits = lm_apply(params, tokens[:, :-1], cfg, use_flash=use_flash)
+    logits, lb_total = lm_apply(params, tokens[:, :-1], cfg, use_flash=use_flash,
+                                return_lb=True)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
-    return nll.mean()
+    return nll.mean() + LB_LOSS_COEF * lb_total
 
 
 def _grad_update(loss_fn: Callable, params, opt_state, batch, optimizer):
@@ -517,11 +536,13 @@ class TransformerLM(Unit):
             moe_k=int(moe_k), quant=str(quant), n_kv_heads=int(n_kv_heads),
             rope=bool(rope), rope_base=float(rope_base),
         )
-        refuse_unported(self.cfg)
         self.weights_path = str(weights_path)
         self.seed = int(seed)
         self.device = resolve_device(device)
         self.use_flash = resolve_flash(str(attention), self.cfg, self.device)
+        # capacity routing flattens the stacked batch into one token stream,
+        # so co-batched rows change each other's overflow: no coalescing
+        self.batch_coupled = self.cfg.moe_every > 0
 
     def init_state(self, rng):
         params = lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)

@@ -35,7 +35,12 @@ A single generator node is served by the continuous lane instead
 unit's ``continuous_spec`` and puts the ``GenLane`` in the batcher's
 place, and streams join the running batch (``genserver.stream``).
 ``SELDON_TPU_GEN_CONTINUOUS=0`` keeps the static lane (``MicroBatcher``
-and the unit's ``stream_tokens``).  A ``batch_coupled`` unit (a
+and the unit's ``stream_tokens``).  The scheduler takes the engine's
+generation role (``gen_role`` or ``ENGINE_GEN_ROLE``; ``decode_peers`` or
+``ENGINE_DECODE_PEERS`` give a prefill replica its ``DisaggCoordinator``,
+``engine.py:261-315`` there), and ``kv_frame`` answers the relay's KV
+hand-off frames (``runtime/servingmesh.py``); an engine with no scheduler
+reports the unified role.  A ``batch_coupled`` unit (a
 sampled generator) gets no ``MicroBatcher``, as in the reference
 (``engine.py:323-338`` there); nor does a unit that
 ``updates_state_on_predict``, whose dispatches run one at a time, each
@@ -157,7 +162,7 @@ from seldon_core_tpu_torch.messages import (
 from seldon_core_tpu_torch import protoconv
 from seldon_core_tpu_torch.native import fastcodec, protowire
 from seldon_core_tpu_torch.ops import flash_attention, flash_decode, fused_mlp, kv_write
-from seldon_core_tpu_torch.runtime import wire
+from seldon_core_tpu_torch.runtime import kvstream, wire
 from seldon_core_tpu_torch.runtime.autopilot import (
     AUTOPILOT,
     SHED_INFO_PREFIX,
@@ -168,6 +173,11 @@ from seldon_core_tpu_torch.runtime.batching import GenLane, MicroBatcher, graph_
 from seldon_core_tpu_torch.runtime.brownout import BROWNOUT, BROWNOUT_INFO_PREFIX
 from seldon_core_tpu_torch.runtime.genserver import GenServer
 from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier, qos_scope
+from seldon_core_tpu_torch.runtime.servingmesh import (
+    DisaggCoordinator,
+    parse_decode_peers,
+    resolve_gen_role,
+)
 from seldon_core_tpu_torch.runtime.resilience import (
     CircuitBreaker,
     RetryBudget,
@@ -294,13 +304,15 @@ class EngineService:
         dispatch_timeout_s: float = 30.0,
         device: DeviceLike = None,
         audit: Optional[AuditLog] = None,
+        gen_role: Optional[str] = None,
+        decode_peers: Optional[list] = None,
     ):
-        # the disaggregated prefill/decode roles are not ported: a replica
-        # told to take one is refused, never served as a unified one
-        role = os.environ.get("ENGINE_GEN_ROLE", "").strip().lower() or "unified"
-        if role != "unified":
-            raise ValueError(f"ENGINE_GEN_ROLE={role!r}: the disaggregated prefill/decode "
-                             f"roles are not ported yet (ROADMAP Queue 1 item [6])")
+        # the replica's generation role (runtime/servingmesh.py): "prefill"
+        # hands finished KV blocks to decode peers over the relay, "decode"
+        # only imports hand-offs; SELDON_TPU_DISAGG=0 forces "unified"
+        self.gen_role = resolve_gen_role(gen_role)
+        self._decode_peers = (list(decode_peers) if decode_peers is not None
+                              else parse_decode_peers())
         self.deployment = deployment
         self.tracer = TRACER
         self.predictor: PredictorSpec = deployment.predictor(predictor_name)
@@ -384,6 +396,10 @@ class EngineService:
         # the lane is chosen once: a later load_states rebuilds the same one
         self._continuous = os.environ.get("SELDON_TPU_GEN_CONTINUOUS", "1") != "0"
         self._build_genserver()
+        if self.genserver is None:
+            # a role without a scheduler cannot serve its contract: unified,
+            # so routing and metrics stay truthful
+            self.gen_role = "unified"
         units = list(self.compiled.units.values()) if self.compiled is not None else []
         # a unit whose predict moves its state (a sampled generator's
         # request counter, an outlier's running covariance) runs one
@@ -483,7 +499,12 @@ class EngineService:
         spec_fn = getattr(unit, "continuous_spec", None)
         spec = None if spec_fn is None else spec_fn(self.compiled.states[name])
         if spec is not None:
-            self.genserver = GenServer(**spec, **(knobs or {}))
+            coordinator = None
+            if self.gen_role == "prefill" and self._decode_peers:
+                coordinator = DisaggCoordinator(self._decode_peers,
+                                                event_sink=self._handoff_event)
+            self.genserver = GenServer(**spec, **(knobs or {}), role=self.gen_role,
+                                       coordinator=coordinator)
             self.genserver.cost_deployment = self.deployment.name
 
     # -- dispatch -------------------------------------------------------
@@ -1315,6 +1336,64 @@ class EngineService:
     def process_track_name(self) -> str:
         """The Perfetto process-track label of ``/trace/export``."""
         return f"{self.deployment.name}/{self.predictor.name} (unified)"
+
+    async def kv_frame(self, payload: bytes) -> "tuple[int, bytes]":
+        """One KV-stream frame off the relay (``runtime/kvstream.py``,
+        ``engine.py:966-1019`` there).  Only a decode replica imports
+        blocks; any other answers a typed 503.  KV_STATS answers on every
+        role."""
+        try:
+            sub_op, hid, body = kvstream.parse_frame(payload)
+        except kvstream.KvWireError as e:
+            return 400, str(e).encode()
+        gs = self.genserver
+        if gs is None:
+            return 503, (b"this replica runs no generation scheduler "
+                         b"(KV handoffs need --gen-role decode)")
+        if sub_op == kvstream.KV_STATS:
+            st = gs.kv_stats()
+            return 200, kvstream.pack_stats(st["free"], st["total"], st["waiting"],
+                                            st["inflight"])
+        if gs.role != "decode":
+            RECORDER.record_kv_handoff("refused")
+            return 503, (f"role misconfig: this replica is {gs.role!r}, KV handoffs import "
+                         f"only at --gen-role decode replicas").encode()
+        try:
+            if sub_op == kvstream.KV_BEGIN:
+                gs.kv_reserve(hid, kvstream.parse_begin(body))
+                return 200, b""
+            if sub_op == kvstream.KV_BLOCKS:
+                imp = gs._imports.get(hid)
+                if imp is None:
+                    raise kvstream.KvWireError("unknown or expired handoff id")
+                first, layers = kvstream.parse_blocks(body, imp.meta)
+                gs.kv_receive(hid, first, layers)
+                return 200, b""
+            if sub_op == kvstream.KV_COMMIT:
+                req = gs.kv_commit(hid)
+                toks = await asyncio.wrap_future(req.future)
+                return 200, kvstream.pack_tokens(toks[0])
+            if sub_op == kvstream.KV_ABORT:
+                gs.kv_abort(hid)
+                return 200, b""
+        except LoadShedError as e:
+            return 503, str(e).encode()
+        except kvstream.KvWireError as e:
+            return 409, str(e).encode()
+        except Exception as e:  # noqa: BLE001 - answered typed, the engine keeps serving
+            logger.exception("KV handoff frame failed")
+            return 500, f"{type(e).__name__}: {e}".encode()
+        return 400, f"unknown KV sub-op {sub_op}".encode()
+
+    def _handoff_event(self, **fields) -> None:
+        """One audit line per completed hand-off (none with the audit log
+        off); the coordinator stamps the trace, puid, tenant and tier."""
+        if not self.audit.enabled:
+            return
+        self.audit.record(puid=fields.pop("puid", "") or "", deployment=self.deployment.name,
+                          predictor=self.predictor.name, method="kv_handoff", status=200,
+                          rows=None, latency_ms=fields.pop("latency_ms", None), mode=self.mode,
+                          **fields)
 
     def trace_json(self, query: str) -> str:
         """The relay's trace surface (``OP_TRACE``): the local trace

@@ -44,9 +44,14 @@ The data plane's lanes (``engine_main.py:99``, ``:133-228`` there):
 * the relay (``runtime/udsrelay.py``) on ``ENGINE_UDS_PATH`` /
   ``--uds-path``, and the HTTP routes on a unix socket on
   ``ENGINE_HTTP_UDS_PATH`` / ``--http-uds-path`` (the lane a ``unix:``
-  node binding dials); ``SELDON_TPU_UDS=0`` skips both.
-  ``ENGINE_RELAY_TCP_PORT`` (the KV hand-off lane) is refused, naming
-  item [6].
+  node binding dials); ``SELDON_TPU_UDS=0`` skips both.  The same relay on
+  a TCP port with ``ENGINE_RELAY_TCP_PORT`` / ``--relay-tcp-port``: the
+  lane a decode replica receives KV hand-offs on from another host;
+* the generation role, ``--gen-role {unified,prefill,decode}``
+  (``ENGINE_GEN_ROLE``, default unified; ``SELDON_TPU_DISAGG=0`` forces
+  unified), and a prefill replica's decode peers, ``--decode-peers``
+  (``ENGINE_DECODE_PEERS``, comma-separated ``uds:/path`` or
+  ``tcp:host:port`` relay specs): ``runtime/servingmesh.py``.
 
 The "engine up" line names every lane bound and which serves HTTP
 (``http=native`` or ``http=fast``); ``/stats`` has it as
@@ -68,6 +73,7 @@ from typing import Optional
 from seldon_core_tpu_torch.device import resolve_device
 from seldon_core_tpu_torch.graph.defaulting import default_and_validate
 from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeploymentSpec
+from seldon_core_tpu_torch.runtime.servingmesh import parse_decode_peers
 
 __all__ = ["load_deployment_from_env", "check_http_impl", "check_grpc_impl", "serve", "main"]
 
@@ -148,15 +154,14 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
                 host: str = "0.0.0.0", rest_port: Optional[int] = None,
                 device=None, grpc_port: Optional[int] = None,
                 uds_path: Optional[str] = None,
-                http_uds_path: Optional[str] = None) -> None:
+                http_uds_path: Optional[str] = None, gen_role: Optional[str] = None,
+                decode_peers: Optional[list] = None,
+                relay_tcp_port: Optional[int] = None) -> None:
     from seldon_core_tpu_torch.runtime.engine import EngineService
     from seldon_core_tpu_torch.runtime.grpcfast import serve_grpc_fast
     from seldon_core_tpu_torch.runtime.rest import serve_fast
-    from seldon_core_tpu_torch.runtime.udsrelay import serve_uds
+    from seldon_core_tpu_torch.runtime.udsrelay import serve_relay_tcp, serve_uds
 
-    if int(os.environ.get("ENGINE_RELAY_TCP_PORT", "0") or 0):
-        raise SystemExit("engine_main: ENGINE_RELAY_TCP_PORT is the KV hand-off relay of "
-                         "disaggregated serving, not ported yet (ROADMAP Queue 1 item [6])")
     http_impl = check_http_impl()
     grpc_impl = check_grpc_impl(http_impl)
     rest_port = rest_port or int(os.environ.get("ENGINE_SERVER_PORT", "8000"))
@@ -174,6 +179,8 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
         pipeline_depth=int(os.environ.get("ENGINE_PIPELINE_DEPTH", "8")),
         dispatch_timeout_s=float(os.environ.get("ENGINE_DISPATCH_TIMEOUT_S", "30")),
         device=device,
+        gen_role=gen_role,
+        decode_peers=decode_peers,
     )
     # every batch bucket of these feature widths runs once before the server
     # binds: live traffic never pays a kernel's first use
@@ -212,13 +219,20 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
         http_server = None
     grpc_server = await serve_grpc_fast(engine, host, grpc_port) if grpc_impl == "fast" else None
     uds_server = await serve_uds(engine, uds_path) if uds_path else None
+    # the relay on a TCP port: the lane decode replicas take KV hand-offs on
+    relay_tcp_port = relay_tcp_port if relay_tcp_port is not None else int(
+        os.environ.get("ENGINE_RELAY_TCP_PORT", "0") or 0)
+    relay_tcp_server = (await serve_relay_tcp(engine, host, relay_tcp_port)
+                        if relay_tcp_port else None)
     print(f"engine up: predictor={engine.predictor.name} mode={engine.mode} "
           f"device={engine.device} http={http_impl} "
           f"rest=:{plane.port if plane is not None else http_server.port} "
           f"grpc=:{plane.grpc_port if grpc_server is None else grpc_server.port} ({grpc_impl}) "
           f"codec={engine.codec}"
           + (f" uds={uds_path}" if uds_server is not None else "")
-          + (f" http-uds={http_uds_path}" if http_uds_path else ""), flush=True)
+          + (f" http-uds={http_uds_path}" if http_uds_path else "")
+          + (f" relay-tcp=:{relay_tcp_server.port}" if relay_tcp_server is not None else "")
+          + f" role={engine.gen_role}", flush=True)
 
     stop = asyncio.Event()
     hurry = asyncio.Event()  # second signal: skip the drain
@@ -248,7 +262,7 @@ async def serve(deployment: SeldonDeploymentSpec, predictor_name=None,
             await asyncio.wait_for(hurry.wait(), min(0.1, max(deadline - loop.time(), 0.01)))
         except asyncio.TimeoutError:
             pass
-    for srv in (plane, http_server, grpc_server, uds_server):
+    for srv in (plane, http_server, grpc_server, uds_server, relay_tcp_server):
         if srv is not None:
             await srv.stop()
     engine.close()
@@ -267,15 +281,28 @@ def main(argv=None) -> None:
                         help="the HTTP routes on this unix socket too")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; cuda without a card is an error")
+    parser.add_argument("--gen-role", default=None, choices=["unified", "prefill", "decode"],
+                        help="generation role in a disaggregated pair (env ENGINE_GEN_ROLE; "
+                             "SELDON_TPU_DISAGG=0 forces unified)")
+    parser.add_argument("--decode-peers", default=None,
+                        help="comma-separated relay specs (uds:/path or tcp:host:port) of the "
+                             "decode replicas a prefill replica hands KV blocks to (env "
+                             "ENGINE_DECODE_PEERS)")
+    parser.add_argument("--relay-tcp-port", type=int, default=None,
+                        help="also serve the relay on this TCP port, the KV hand-off "
+                             "receiver (env ENGINE_RELAY_TCP_PORT)")
     args = parser.parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         parser.exit(2, f"engine_main: {e}\n")
     deployment = load_deployment_from_env(args.file)
+    decode_peers = (parse_decode_peers(args.decode_peers) if args.decode_peers is not None
+                    else None)
     asyncio.run(serve(deployment, args.predictor, args.host, args.rest_port, device,
                       grpc_port=args.grpc_port, uds_path=args.uds_path,
-                      http_uds_path=args.http_uds_path))
+                      http_uds_path=args.http_uds_path, gen_role=args.gen_role,
+                      decode_peers=decode_peers, relay_tcp_port=args.relay_tcp_port))
 
 
 if __name__ == "__main__":

@@ -118,9 +118,26 @@ weak reference and unregistered at ``stop``; a full queue's shed counts in
 one probe request a width end to end before the server binds, and the
 snapshot counts sequences by tier.
 
-Not ported, with the ROADMAP item that ports it: the disaggregated prefill
-and decode roles and the KV handoff between them (``runtime/kvstream.py``;
-[6]).
+The disaggregated roles (``genserver.py:99-160``, ``:225-290``,
+``:333-360``, ``:521-531``, ``:1385-1391``, ``:1615-1900`` there; ``role``,
+``coordinator``): a ``prefill`` scheduler hands each sequence whose
+prompt it consumed to its ``DisaggCoordinator`` (``runtime/servingmesh.py``)
+instead of decoding it: the blocks are read back in the wire's layout
+(``runtime/kvstream.py`` ``export_blocks``) and go straight back to the
+pool, and the decode peer's tokens finish the request when they come
+back (``_drain_handoff_done``).  A ``decode`` scheduler serves hand-offs
+only (a client generation answers a typed 503): the relay's handlers
+reserve blocks (``kv_reserve``: RESERVED in the allocator, out of the
+free list and refused by ``free``), stage the streamed blocks on the host
+(``kv_receive``) and queue the sequence at commit (``kv_commit``); the
+scheduler thread scatters the staged blocks into its pool
+(``_import_admit``) and the sequence joins the decode loop where a local
+prefill would have put it.  A reservation not committed within
+``SELDON_TPU_KV_HANDOFF_TTL_S`` (30 s), an abort, or a commit before every
+block arrived gives its blocks back.  Speculative mode under a role is
+refused with the reference's words.  Prefill ticks launch
+``kv_write_paged``, decode rounds ``flash_decode_paged`` (with the step's
+write fused in), so a decode replica launches no ``kv_write_paged``.
 """
 
 from __future__ import annotations
@@ -152,6 +169,7 @@ from seldon_core_tpu_torch.models.generate import (
 )
 from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
 from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
+from seldon_core_tpu_torch.runtime import kvstream
 from seldon_core_tpu_torch.runtime.autopilot import SHED_INFO_PREFIX
 from seldon_core_tpu_torch.runtime.brownout import BROWNOUT, BROWNOUT_INFO_PREFIX
 from seldon_core_tpu_torch.runtime.qos import current_tenant, current_tier, tier_rank
@@ -189,7 +207,12 @@ class BlockAllocator:
     back on the list FIFO; any free block serves any sequence (the table
     adds the indirection), so the pool cannot fragment.  ``pin`` marks
     blocks that ``free`` must never take back (the shared prefix's full
-    blocks).  Every mutation takes the lock."""
+    blocks).  ``reserve`` puts blocks in a RESERVED state for an in-flight
+    KV import: out of the free list, owned by no sequence (so no eviction
+    can take them), refused by ``free`` until ``commit_reserved`` makes
+    them a sequence's or ``release_reserved`` gives them back.  Every
+    mutation takes the lock: the relay's handlers reserve while the
+    scheduler thread allocates."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 2:
@@ -197,6 +220,7 @@ class BlockAllocator:
         self.num_blocks = int(num_blocks)
         self._free: deque = deque(range(1, self.num_blocks))
         self._pinned: set = set()
+        self._reserved: set = set()
         self._lock = threading.Lock()
         self.high_water = 0
 
@@ -215,11 +239,36 @@ class BlockAllocator:
         """n blocks, or None: the caller queues on a full pool, it never
         crashes."""
         with self._lock:
-            if n < 0 or len(self._free) < n:
-                return None
-            out = [self._free.popleft() for _ in range(n)]
-            self.high_water = max(self.high_water, self.used)
-            return out
+            return self._alloc_locked(n)
+
+    def _alloc_locked(self, n: int) -> Optional[List[int]]:
+        if n < 0 or len(self._free) < n:
+            return None
+        out = [self._free.popleft() for _ in range(n)]
+        self.high_water = max(self.high_water, self.used)
+        return out
+
+    def reserve(self, n: int) -> Optional[List[int]]:
+        """n blocks in the RESERVED state, or None."""
+        with self._lock:
+            blocks = self._alloc_locked(n)
+            if blocks is not None:
+                self._reserved.update(blocks)
+            return blocks
+
+    def commit_reserved(self, blocks: List[int]) -> None:
+        """Reserved -> owned: the import committed into a live sequence."""
+        with self._lock:
+            self._reserved.difference_update(blocks)
+
+    def release_reserved(self, blocks: List[int]) -> None:
+        """A torn hand-off's reservation back to the free list (a block not
+        reserved is left alone: a double release is harmless)."""
+        with self._lock:
+            for b in blocks:
+                if b in self._reserved:
+                    self._reserved.discard(b)
+                    self._free.append(b)
 
     def pin(self, blocks: List[int]) -> None:
         with self._lock:
@@ -228,13 +277,13 @@ class BlockAllocator:
     def free(self, blocks: List[int]) -> None:
         with self._lock:
             for b in blocks:
-                if b not in self._pinned:
+                if b not in self._pinned and b not in self._reserved:
                     self._free.append(b)
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             return {"total": self.capacity, "used": self.used, "pinned": len(self._pinned),
-                    "high_water": self.high_water}
+                    "reserved": len(self._reserved), "high_water": self.high_water}
 
 
 class _Sequence:
@@ -263,6 +312,40 @@ class _Sequence:
         self.retired = False            # its blocks freed, its timeline emitted
         self.t_start = 0.0              # epoch at admission: KV-block age
         self.events: List[dict] = []    # a sampled sequence's lifecycle
+
+
+class _KvImport:
+    """One in-flight KV import at a decode replica: its reserved blocks and
+    host staging arrays (the wire's layout), keyed by hand-off id.
+    Reserve, receive, commit; a torn hand-off gives every block back."""
+
+    __slots__ = ("hid", "meta", "blocks", "staged", "received", "created", "created_epoch",
+                 "seq", "trace_ctx")
+
+    def __init__(self, hid: bytes, meta, blocks: List[int], staged):
+        self.hid = hid
+        self.meta = meta
+        self.blocks = blocks
+        self.staged = staged          # per-layer host arrays [n, bs, ...]
+        self.received = np.zeros((meta.n_blocks,), bool)
+        self.created = time.monotonic()
+        self.created_epoch = time.time()
+        self.seq: Optional[_Sequence] = None
+        #: the hand-off span's context off the BEGIN frame's sidecar
+        self.trace_ctx = None
+
+    def receive(self, first: int, layers) -> None:
+        n = layers[0]["k"].shape[0] if layers else 0
+        if first < 0 or first + n > self.meta.n_blocks:
+            raise kvstream.KvWireError(f"block chunk [{first}, {first + n}) outside the "
+                                       f"announced {self.meta.n_blocks} blocks")
+        for stage, chunk in zip(self.staged, layers):
+            for name, arr in chunk.items():
+                stage[name][first:first + n] = arr
+        self.received[first:first + n] = True
+
+    def complete(self) -> bool:
+        return bool(self.received.all())
 
 
 class GenRequest:
@@ -307,7 +390,8 @@ class GenServer:
                  prefix_cache=None, draft_params=None, draft_cfg=None, spec_k: int = 4,
                  seed: int = 0, use_flash: bool = False, block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None, slots: Optional[int] = None,
-                 span: Optional[int] = None, prefill_chunk: Optional[int] = None):
+                 span: Optional[int] = None, prefill_chunk: Optional[int] = None,
+                 role: str = "unified", coordinator=None):
         self.params = params
         self.cfg = cfg
         self.temperature = float(temperature)
@@ -325,6 +409,27 @@ class GenServer:
                           or prefix_cache is not None):
             # speculative_generate's guards: greedy, float KV
             raise ValueError("speculative continuous mode is greedy/float-KV only")
+        if self.spec and role in ("prefill", "decode"):
+            # a hand-off would need the draft pool streamed too
+            raise ValueError("speculative decoding does not compose with disaggregated "
+                             "prefill/decode roles")
+        self.role = role if role in ("unified", "prefill", "decode") else "unified"
+        #: what runs the prefill role's hand-offs (runtime/servingmesh.py)
+        self.coordinator = coordinator
+        #: finished hand-offs back from the coordinator's thread: (seq,
+        #: tokens or exception), drained on the scheduler thread
+        self._handoff_done: deque = deque()
+        #: sequences whose hand-off is in flight: in no scheduler list, so
+        #: _fail_all fails them from here
+        self._handoff_seqs: Dict[_Sequence, bool] = {}
+        self._handoff_inflight = 0
+        #: the decode role's in-flight imports by hand-off id, and the
+        #: committed ones awaiting admission
+        self._imports: Dict[bytes, _KvImport] = {}
+        self._remote_arrivals: deque = deque()
+        self._import_ttl_s = float(_env_int("SELDON_TPU_KV_HANDOFF_TTL_S", 30))
+        self.imports_committed_total = 0
+        self.imports_reclaimed_total = 0
         self.use_flash = bool(use_flash)
         self.device = params["embed"].device
         self.block_size = block_size or _env_int("SELDON_TPU_GEN_BLOCK_SIZE", 16)
@@ -463,6 +568,14 @@ class GenServer:
         return _iter()
 
     def _enqueue(self, rows, chunk, max_new, tier: Optional[str] = None) -> GenRequest:
+        if self.role == "decode":
+            # a decode replica serves hand-offs only: a client generation
+            # here is a routing fault, answered typed and retryable
+            from seldon_core_tpu_torch.runtime.servingmesh import RoleMismatchError
+
+            raise RoleMismatchError(
+                "this replica is decode-only (--gen-role decode): client generation requests "
+                "route to prefill/unified replicas")
         tier = tier or current_tier()
         if BROWNOUT.sheds_tier(tier):
             # typed and retryable, before anything is allocated or queued
@@ -516,7 +629,11 @@ class GenServer:
         and a decode round, before the server binds: the lane's kernels
         (``kv_write_paged`` and ``flash_decode_paged``), the pool's
         allocation and the first calls of each op pay their first-use cost
-        here.  Returns the number of probes served."""
+        here.  Returns the number of probes served.  A prefill or decode
+        replica probes nothing (a prefill probe would hand off to peers
+        that may not be up; a decode replica takes no submits)."""
+        if self.role != "unified":
+            return 0
         count = 0
         for width in list(widths) or [4]:
             w = width if isinstance(width, int) else int(np.prod(width))
@@ -552,17 +669,15 @@ class GenServer:
                     })
         doc = {
             "mode": "speculative" if self.spec else "decode",
-            # one card serves the whole generation: the disaggregated roles
-            # and the device mesh are [6]
-            "role": "unified",
+            # the device mesh is [6]
+            "role": self.role,
             "mesh": None,
             "slots": self.slots,
             "inflight_sequences": inflight,
             "waiting_sequences": waiting,
             "max_waiting": self.max_waiting,
             "sequences_by_tier": tiers,
-            # no blocks are reserved for a KV hand-off until [6]
-            "kv_blocks": {**self._allocator.snapshot(), "reserved": 0},
+            "kv_blocks": self._allocator.snapshot(),
             "block_size": self.block_size,
             "span": self.span,
             "prefill_chunk": self.prefill_chunk,
@@ -585,6 +700,13 @@ class GenServer:
             doc["spec_rounds_total"] = self.spec_rounds_total
             doc["spec_row_rounds_total"] = self.spec_row_rounds_total
             doc["spec_accepted_total"] = self.spec_accepted_total
+        if self.role == "prefill":
+            doc["disagg"] = self.coordinator.snapshot() if self.coordinator is not None else None
+            doc["handoff_inflight"] = self._handoff_inflight
+        if self.role == "decode":
+            doc["imports"] = {"pending": len(self._imports),
+                              "committed_total": self.imports_committed_total,
+                              "reclaimed_total": self.imports_reclaimed_total}
         return doc
 
     def chunk_history(self) -> Dict[str, Any]:
@@ -611,6 +733,8 @@ class GenServer:
         t = self._thread
         if t is not None and t.is_alive():
             t.join(timeout=10)
+        if self.coordinator is not None:
+            self.coordinator.close()
 
     # -- worker thread ---------------------------------------------------
 
@@ -633,7 +757,14 @@ class GenServer:
             while True:
                 with self._wake:
                     while (not self._stopped and not self._arrivals and not self._waiting
-                           and not self._prefilling and not self._active):
+                           and not self._prefilling and not self._active
+                           and not self._remote_arrivals and not self._handoff_done):
+                        if self._imports:
+                            # a reservation is out: wake now and then, so the
+                            # TTL reaper reclaims a torn hand-off with no
+                            # other work arriving
+                            self._wake.wait(1.0)
+                            break
                         self._wake.wait()
                     if self._stopped:
                         break
@@ -662,11 +793,22 @@ class GenServer:
 
     def _fail_all(self, exc: BaseException) -> None:
         with self._lock:
+            committed = list(self._remote_arrivals)
             seqs = (list(self._waiting) + list(self._prefilling) + list(self._active)
-                    + list(self._arrivals))
+                    + list(self._arrivals) + [imp.seq for imp in committed]
+                    + list(self._handoff_seqs))
+            seqs = list(dict.fromkeys(seqs))
             self._waiting.clear()
             self._arrivals.clear()
+            self._remote_arrivals.clear()
+            self._handoff_seqs.clear()
+            self._handoff_done.clear()
             self._prefilling, self._active = [], []
+            imports = list(self._imports.values())
+            self._imports.clear()
+        for imp in imports + committed:
+            # a committed import not yet admitted still holds RESERVED blocks
+            self._allocator.release_reserved(imp.blocks)
         for seq in seqs:
             self._release_blocks(seq)
             req = seq.request
@@ -712,6 +854,9 @@ class GenServer:
         self._drop_cancelled()
         ta = time.perf_counter()
         admitted = self._admit()
+        admitted += self._import_admit()
+        handed_back = self._drain_handoff_done()
+        self._reap_stale_imports()
         phases = {"admit": time.perf_counter() - ta}
         kind = None
         tokens = 0
@@ -771,7 +916,7 @@ class GenServer:
                 "kv": tuple(self._tick_kv_attr),
             }
         self._publish(admitted, retired, kind or "idle", tokens, wall, detail)
-        progress = kind is not None or admitted > 0 or retired > 0
+        progress = kind is not None or admitted > 0 or retired > 0 or handed_back > 0
         # the bubble ledger: what the gap before the NEXT tick will mean.
         # Progress re-enters at once (host work); a dry pool idles the card
         # until a retirement frees blocks; queued work that was not
@@ -1145,7 +1290,12 @@ class GenServer:
                 # one completed prefill: one request for the ledger, and
                 # the first served token
                 self._attr_note("prefill", 0, [(seq.request.tenant, seq.request.tier, 0, 1, 1)])
-            self._active.append(seq)
+            if self.role != "prefill":
+                self._active.append(seq)
+            elif seq.done:  # the first token finished it: nothing to hand off
+                self._retire(seq, seq.retire_reason or "length")
+            else:
+                self._handoff_out(seq)
         if int(width.max()) == C and not floored:
             # only saturated ticks say anything about width-C compute
             self._adapt_chunk(C, time.perf_counter() - t0)
@@ -1322,6 +1472,230 @@ class GenServer:
 
     # -- emission / retirement --------------------------------------------
 
+    # -- the hand-off: the prefill side (scheduler thread) --------------------
+
+    def _geometry(self):
+        """(n_layers, block_size, kv_heads, head_dim, dtype name) of the pool."""
+        return (self.cfg.n_layers, self.block_size, self.cfg.kv_heads, self.cfg.head_dim,
+                kvstream.dtype_name(self.cfg.dtype, self.cfg.kv_quant))
+
+    def _handoff_out(self, seq: _Sequence) -> None:
+        """Export a finished prefill (its private blocks, read back in the
+        wire's layout, and its sampling state) to the coordinator; the
+        blocks go straight back to the pool."""
+        from seldon_core_tpu_torch.runtime.servingmesh import HandoffError
+
+        if self.coordinator is None:
+            self._finish_error(seq, HandoffError(
+                "prefill-role replica has no decode peers configured "
+                "(--decode-peers / ENGINE_DECODE_PEERS)"))
+            return
+        n_layers, block_size, kv, hd, dtype = self._geometry()
+        meta = kvstream.KvBeginMeta(
+            n_layers=n_layers, block_size=block_size, kv_heads=kv, head_dim=hd, dtype=dtype,
+            n_blocks=len(seq.blocks), n_valid=seq.n_valid, pending=int(seq.pending),
+            max_new=int(seq.max_new), prefix_len=self._prefix_len,
+            prompt=np.asarray(seq.prompt, np.int32), emitted=list(seq.emitted),
+            key_data=None if seq.key is None else np.asarray(seq.key).astype(np.uint32),
+            tier=seq.request.tier)
+        export = kvstream.KvExport(meta=meta, layers=kvstream.export_blocks(self._pool, seq.blocks),
+                                   tenant=seq.request.tenant)
+        # the hand-off span's identity is minted now: its traceparent rides
+        # every frame's sidecar, so the decode side's spans parent under an
+        # id that exists before the coordinator records the span
+        req_ctx = seq.request.trace_ctx
+        if req_ctx is not None and req_ctx.sampled and TRACER.enabled:
+            export.trace_ctx = req_ctx.child(req_ctx.puid)
+            export.parent_span_id = req_ctx.span_id
+            export.puid = req_ctx.puid
+        self._seq_event(seq, "handoff", n_valid=seq.n_valid)
+        self._release_blocks(seq)
+        self._handoff_inflight += 1
+        self._handoff_seqs[seq] = True
+
+        def _done(result, seq=seq):
+            self._handoff_done.append((seq, result))
+            with self._wake:
+                self._wake.notify_all()
+
+        self.coordinator.submit(export, _done)
+
+    def _drain_handoff_done(self) -> int:
+        """Completed hand-offs back into their requests: the decode peer's
+        tokens become the sequence's (the first token unchanged), or a
+        typed failure fails the request."""
+        n = 0
+        while self._handoff_done:
+            seq, result = self._handoff_done.popleft()
+            self._handoff_seqs.pop(seq, None)
+            self._handoff_inflight -= 1
+            n += 1
+            if isinstance(result, BaseException):
+                self._finish_error(seq, result)
+                continue
+            toks = [int(t) for t in np.asarray(result).reshape(-1)]
+            prev = len(seq.emitted)
+            seq.emitted = toks[: seq.max_new]
+            if len(seq.emitted) < seq.max_new:
+                # defensive eos padding; the decode side pads already
+                pad = (self.eos_token if self.eos_token >= 0
+                       else (seq.emitted[-1] if seq.emitted else 0))
+                seq.emitted += [pad] * (seq.max_new - len(seq.emitted))
+            self.tokens_emitted_total += max(0, len(seq.emitted) - prev)
+            seq.done = True
+            self._retire(seq, "handoff")
+        return n
+
+    # -- the hand-off: the decode side (the relay's handler threads) -----------
+
+    def kv_reserve(self, hid: bytes, meta) -> None:
+        """BEGIN: check the hand-off against this pool and reserve its
+        blocks.  Raises ``KvWireError`` on a geometry, dtype or prefix
+        mismatch (a deployment fault), ``LoadShedError`` when the pool
+        cannot hold the blocks (retryable: the prefill side tries another
+        peer)."""
+        kvstream.validate_against_pool(meta, self._geometry(), self._prefix_len)
+        blocks = self._allocator.reserve(meta.n_blocks)
+        if blocks is None:
+            RECORDER.record_kv_handoff("refused")
+            raise LoadShedError(
+                f"{SHED_INFO_PREFIX}: decode KV pool cannot hold {meta.n_blocks} handoff blocks "
+                f"({self._allocator.used}/{self._allocator.capacity} used) — try another "
+                "decode replica")
+        int8 = meta.dtype == "int8"
+        dt = np.int8 if int8 else kvstream.host_dtype(meta.dtype)
+        kv_shape = (meta.n_blocks, meta.block_size, meta.kv_heads, meta.head_dim)
+        staged = []
+        for _ in range(meta.n_layers):
+            layer = {"k": np.zeros(kv_shape, dt), "v": np.zeros(kv_shape, dt)}
+            if int8:
+                layer["k_s"] = np.zeros(kv_shape[:3], np.float32)
+                layer["v_s"] = np.zeros(kv_shape[:3], np.float32)
+            staged.append(layer)
+        imp = _KvImport(hid, meta, blocks, staged)
+        # the relay bound the BEGIN's traceparent around this handler: the
+        # import and decode spans parent under the prefill side's span
+        imp.trace_ctx = current_trace_context()
+        with self._wake:
+            if self._stopped:
+                self._allocator.release_reserved(blocks)
+                raise RuntimeError("generation scheduler stopped")
+            self._imports[hid] = imp
+            # the scheduler thread runs while a reservation is out: it is
+            # the TTL reaper of torn hand-offs
+            self._ensure_thread()
+            self._wake.notify_all()
+
+    def kv_receive(self, hid: bytes, first: int, layers) -> None:
+        """KV_BLOCKS: stage one chunk on the host (the pool is the
+        scheduler thread's: nothing touches it before the commit)."""
+        imp = self._imports.get(hid)
+        if imp is None:
+            raise kvstream.KvWireError("unknown or expired handoff id")
+        imp.receive(first, layers)
+
+    def kv_commit(self, hid: bytes) -> GenRequest:
+        """KV_COMMIT: build the sequence and queue it for admission; the
+        returned request's future resolves to its [1, max_new] tokens."""
+        # pop first: the claim is atomic against the TTL reaper, which pops
+        # before it releases
+        imp = self._imports.pop(hid, None)
+        if imp is None:
+            raise kvstream.KvWireError("unknown or expired handoff id")
+        if not imp.complete():
+            self._allocator.release_reserved(imp.blocks)
+            self.imports_reclaimed_total += 1
+            RECORDER.record_kv_handoff("reclaimed")
+            raise kvstream.KvWireError(
+                "commit before every block was received — torn handoff reclaimed")
+        meta = imp.meta
+        req = GenRequest(None, meta.max_new, tier=meta.tier)
+        if imp.trace_ctx is not None:
+            # the BEGIN's context is the hand-off's (the COMMIT may come on
+            # another relay connection)
+            req.trace_ctx = imp.trace_ctx
+            if TRACER.enabled:
+                TRACER.record_span(
+                    "kv_import", kind="kv_import", method="kv_handoff",
+                    start_s=imp.created_epoch, duration_ms=(time.time() - imp.created_epoch) * 1e3,
+                    ctx=imp.trace_ctx, blocks=len(imp.blocks), n_valid=int(meta.n_valid))
+        with self._wake:
+            if self._stopped:
+                self._allocator.release_reserved(imp.blocks)
+                raise RuntimeError("generation scheduler stopped")
+            self._seq_counter += 1
+            seq = _Sequence(self._seq_counter, req, np.asarray(meta.prompt, np.int32),
+                            meta.max_new)
+            seq.n_valid = int(meta.n_valid)
+            seq.pending = int(meta.pending)
+            seq.emitted = list(meta.emitted)
+            if meta.key_data is not None:
+                seq.key = np.asarray(meta.key_data).astype(np.int64)
+            req.seqs.append(seq)
+            imp.seq = seq
+            self._remote_arrivals.append(imp)
+            self._ensure_thread()
+            self._wake.notify_all()
+        return req
+
+    def kv_abort(self, hid: bytes) -> bool:
+        imp = self._imports.pop(hid, None)
+        if imp is None:
+            return False
+        self._allocator.release_reserved(imp.blocks)
+        self.imports_reclaimed_total += 1
+        RECORDER.record_kv_handoff("reclaimed")
+        return True
+
+    def kv_stats(self) -> Dict[str, int]:
+        """The free-block score a prefill coordinator's p2c reads."""
+        snap = self._allocator.snapshot()
+        with self._lock:
+            waiting = len(self._waiting) + len(self._arrivals)
+            inflight = len(self._active) + len(self._prefilling)
+        return {"free": snap["total"] - snap["used"], "total": snap["total"],
+                "waiting": waiting, "inflight": inflight}
+
+    # -- the hand-off: the decode side (scheduler thread) ----------------------
+
+    def _import_admit(self) -> int:
+        """Committed imports join the decode loop: the staged blocks are
+        copied into the pool, the reservation becomes the sequence's, and
+        it runs from where a local prefill would have left it."""
+        n = 0
+        while self._remote_arrivals:
+            imp = self._remote_arrivals.popleft()
+            kvstream.scatter_staged(self._pool, imp.blocks, imp.staged)
+            self._allocator.commit_reserved(imp.blocks)
+            seq = imp.seq
+            seq.blocks = list(imp.blocks)
+            seq.t_start = time.time()
+            self._seq_event(seq, "admit", blocks=len(seq.blocks), imported=True)
+            self._admit_counter += 1
+            seq.admit_order = self._admit_counter
+            self._active.append(seq)
+            self.admitted_total += 1
+            self.imports_committed_total += 1
+            RECORDER.record_gen_admitted()
+            RECORDER.record_kv_handoff("imported")
+            n += 1
+        return n
+
+    def _reap_stale_imports(self) -> None:
+        """The torn hand-off's backstop: a reservation not committed within
+        the TTL goes back to the pool."""
+        if not self._imports:
+            return
+        now = time.monotonic()
+        for hid, imp in list(self._imports.items()):
+            if now - imp.created > self._import_ttl_s and \
+                    self._imports.pop(hid, None) is not None:
+                self._allocator.release_reserved(imp.blocks)
+                self.imports_reclaimed_total += 1
+                RECORDER.record_kv_handoff("reclaimed")
+                logger.warning("reclaimed torn KV handoff (%d blocks) after %.0fs TTL",
+                               len(imp.blocks), self._import_ttl_s)
+
     def _emit_tokens(self, seq: _Sequence, toks: List[int]) -> None:
         if not toks or seq.done:
             return
@@ -1431,7 +1805,7 @@ class GenServer:
             puid=ctx.puid, name="gen_sequence", kind="gen_seq", method=reason,
             start_s=start_s, duration_ms=(time.time() - start_s) * 1e3,
             attrs={"sid": seq.sid, "tokens": len(seq.emitted), "n_valid": seq.n_valid,
-                   "role": "unified"},
+                   "role": self.role},
             trace_id=ctx.trace_id, span_id=new_span_id(), parent_span_id=ctx.span_id,
             events=list(seq.events), pm_only=pm_only))
         seq.events = []

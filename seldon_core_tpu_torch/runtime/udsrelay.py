@@ -15,8 +15,8 @@ Ops:
     OP_PREDICT   payload = SeldonMessage JSON  -> response JSON + status
     OP_FEEDBACK  payload = Feedback JSON       -> ack JSON + status
     OP_PING      empty                         -> b"pong", 200
-    OP_KVSTREAM  the KV hand-off of disaggregated serving: the port's engine
-                 takes none (503; ROADMAP Queue 1 item [6])
+    OP_KVSTREAM  payload = binary KV hand-off frame (``runtime/kvstream.py``)
+                 -> the engine's ``kv_frame`` answer (503 where it has none)
     OP_TRACE     payload = JSON query {"trace_id"|"puid"|"limit"} -> the
                  engine's local trace document (``engine.trace_json``)
     OP_WIRE      payload = binary tensor frame (``runtime/wire.py``; single
@@ -33,11 +33,11 @@ context's deadline, traceparent, tenant and tier, and with the cost ledger
 on bills each frame's bytes to the bound tenant (lane ``relay``,
 ``udsrelay.py:608-619`` there).
 
-Scope: unary predict, feedback and the binary wire.  The client pipelines
-nothing: each pooled connection carries one request at a time.  The
-reference's TCP relay (``TcpRelayServer``, ``TcpRelayClient``,
-``serve_relay_tcp``) is the KV hand-off lane of item [6] and is not
-ported: a ``tcp:`` relay spec is refused naming it.
+Scope: unary predict, feedback, the binary wire and the KV hand-off.  The
+client pipelines nothing: each pooled connection carries one request at a
+time.  The same protocol runs on a TCP port (``TcpRelayServer``,
+``TcpRelayClient``, ``serve_relay_tcp``; ``tcp:host:port`` relay specs):
+the cross-host lane of the prefill-to-decode hand-off.
 """
 
 from __future__ import annotations
@@ -74,6 +74,9 @@ __all__ = [
     "RELAY_META_VERSION",
     "UdsEngineServer",
     "UdsRelayClient",
+    "TcpRelayServer",
+    "TcpRelayClient",
+    "serve_relay_tcp",
     "make_relay_client",
     "pack_relay_meta",
     "unpack_relay_meta",
@@ -361,7 +364,11 @@ class _UdsServerProtocol(asyncio.Protocol):
             status = 200 if ok else (ack.status.code or 200)
             return status or 200, ack.to_json().encode()
         if op == OP_KVSTREAM:
-            return 503, b"engine does not accept KV handoffs (ROADMAP Queue 1 item [6])"
+            handler = getattr(self.engine, "kv_frame", None)
+            if handler is None:
+                return 503, b"engine does not accept KV handoffs"
+            status, body = await handler(data)
+            return status or 200, body
         if op == OP_WIRE:
             # binary tensor predict: bytes in, frame parts out.  Frame
             # errors surface typed through the writer's SeldonMessageError
@@ -421,6 +428,8 @@ class UdsEngineServer:
         except asyncio.TimeoutError:
             pass
         self._server = None
+        if self.path is None:  # a TCP server
+            return
         try:
             os.unlink(self.path)
         except FileNotFoundError:
@@ -429,6 +438,30 @@ class UdsEngineServer:
 
 async def serve_uds(engine, path: str) -> UdsEngineServer:
     server = UdsEngineServer(engine, path)
+    await server.start()
+    return server
+
+
+class TcpRelayServer(UdsEngineServer):
+    """The same framed relay protocol on a TCP port: the cross-host lane
+    of the KV hand-off (a decode replica on another host shares no unix
+    socket).  Everything above the transport is the unix server's."""
+
+    def __init__(self, engine, host: str, port: int):
+        super().__init__(engine, None)
+        self.host = host
+        self.port = port
+
+    async def start(self) -> None:
+        loop = asyncio.get_running_loop()
+        self._server = await loop.create_server(
+            lambda: _UdsServerProtocol(self.engine, self._protocols), self.host, self.port)
+        if self.port == 0:
+            self.port = self._server.sockets[0].getsockname()[1]
+
+
+async def serve_relay_tcp(engine, host: str, port: int) -> TcpRelayServer:
+    server = TcpRelayServer(engine, host, port)
     await server.start()
     return server
 
@@ -567,14 +600,28 @@ class UdsRelayClient:
             conn[1].close()
 
 
+class TcpRelayClient(UdsRelayClient):
+    """The pooled relay client over TCP: dial semantics aside, identical
+    to the unix-socket client."""
+
+    def __init__(self, host: str, port: int, pool: int = 8):
+        super().__init__(f"tcp:{host}:{port}", pool=pool)
+        self.host = host
+        self.port = int(port)
+
+    async def _connect(self):
+        return await asyncio.open_connection(self.host, self.port)
+
+
 def make_relay_client(spec: str, pool: int = 8) -> UdsRelayClient:
-    """Relay client for a peer spec: ``uds:/path`` (or a bare path) dials the
-    unix socket.  ``tcp:host:port``, the reference's cross-host KV hand-off
-    lane, raises ``ValueError`` (ROADMAP Queue 1 item [6])."""
+    """Relay client for a peer spec: ``uds:/path`` (or a bare path) dials
+    the unix socket, ``tcp:host:port`` the TCP lane."""
     spec = spec.strip()
     if spec.startswith("tcp:"):
-        raise ValueError(f"relay spec {spec!r}: the TCP relay is the KV hand-off lane of "
-                         f"disaggregated serving, not ported yet (ROADMAP Queue 1 item [6])")
+        host, _, port = spec[len("tcp:"):].rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(f"bad tcp relay spec {spec!r}")
+        return TcpRelayClient(host, int(port), pool=pool)
     if spec.startswith("uds:"):
         spec = spec[len("uds:"):]
     if not spec:

@@ -185,14 +185,14 @@ def test_eos_masking_and_prompt_clamping():
     ({"prefix_tokens": "1,2,99"}, r"prefix token 99 outside vocab \[0, 48\)"),
     ({"quant": "int8"}, None),
     ({"kv_quant": "int8"}, None),
-    ({"moe_every": 2}, "item 5e"),
+    ({"moe_every": 2, "n_experts": 4}, None),
     ({"attention": "ring"}, "not supported"),
 ])
 def test_constructor_refuses_what_is_not_served(kw, match):
     """What the port does not serve is refused naming its ROADMAP item;
-    int8 weights and the int8 K/V cache (item [2q], refused until it was
-    ported) are served: the unit's greedy f32 tokens equal the JAX unit's
-    on the same state."""
+    int8 weights and the int8 K/V cache (item [2q]) and MoE layers (item
+    [5e]), each refused until it was ported, are served: the unit's greedy
+    f32 tokens equal the JAX unit's on the same state."""
     if match is not None:
         with pytest.raises(ValueError, match=match):
             tgen.TransformerGenerator(**DIMS, dtype="float32", device="cpu", **kw)

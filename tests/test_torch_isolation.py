@@ -16,7 +16,9 @@ training step, round-trips a checkpoint, and over its REST lane scrapes
 with a ``Seldon-Tenant`` header, ``/quality``, ``/costs``,
 ``/postmortems``, ``/autopilot`` and ``/corpus``, answers one request
 the autopilot predicts past its deadline with a 503 shed, and serves one
-request through the native data plane, with all of them blocked.  The
+request through the native data plane, hands a generation from a prefill
+engine to a decode engine over the unix relay (the unified engine's
+tokens), and serves an MoE generator, with all of them blocked.  The
 port's native sources are its own: nothing of it names or builds the JAX
 package's ``native/`` directory."""
 
@@ -58,7 +60,8 @@ def _port_files():
             "utils/genperf.py", "utils/chips.py", "utils/quality.py", "utils/postmortem.py",
             "utils/costledger.py", "runtime/qos.py", "runtime/autopilot.py",
             "runtime/brownout.py", "utils/perfcorpus.py", "native/fastcodec.py",
-            "native/_build.py", "runtime/nativeplane.py"} <= names
+            "native/_build.py", "runtime/nativeplane.py", "parallel/moe.py",
+            "runtime/kvstream.py", "runtime/servingmesh.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py")]
@@ -347,6 +350,37 @@ async def native_plane():
         mnist.close()
 
 native = asyncio.run(native_plane())
+import threading
+from seldon_core_tpu_torch.runtime.udsrelay import serve_uds
+gdoc = json.load(open("examples/generator_deployment.json"))
+gdoc["spec"]["predictors"][0]["components"][0]["parameters"] = [
+    {"name": k, "value": v, "type": t} for k, v, t in (
+        ("vocab", "64", "INT"), ("d_model", "32", "INT"), ("n_heads", "2", "INT"),
+        ("n_layers", "2", "INT"), ("d_ff", "64", "INT"), ("max_new_tokens", "8", "INT"),
+        ("dtype", "float32", "STRING"))]
+gspec = lambda: default_and_validate(SeldonDeploymentSpec.from_json_dict(gdoc))
+decode = EngineService(gspec(), device="cpu", gen_role="decode")
+relay_loop = asyncio.new_event_loop()
+threading.Thread(target=relay_loop.run_forever, daemon=True).start()
+sock = os.path.join(tempfile.mkdtemp(), "d.sock")
+relay = asyncio.run_coroutine_threadsafe(serve_uds(decode, sock), relay_loop).result(10)
+prefill = EngineService(gspec(), device="cpu", gen_role="prefill", decode_peers=[f"uds:{sock}"])
+unified = EngineService(gspec(), device="cpu")
+body = json.dumps({"data": {"ndarray": [list(range(1, 20))]}})
+(h_text, h_status), (u_text, _) = [asyncio.run(e.predict_json(body)) for e in (prefill, unified)]
+handoff = [h_status, json.loads(h_text)["data"] == json.loads(u_text)["data"],
+           decode.stats()["genserver"]["imports"]["committed_total"]]
+asyncio.run_coroutine_threadsafe(relay.stop(), relay_loop).result(10)
+for e in (decode, prefill, unified):
+    e.close()
+gdoc["spec"]["predictors"][0]["components"][0]["parameters"] += [
+    {"name": "moe_every", "value": "1", "type": "INT"},
+    {"name": "n_experts", "value": "4", "type": "INT"}]
+moe_engine = EngineService(gspec(), device="cpu")
+m_text, m_status = asyncio.run(moe_engine.predict_json(json.dumps(
+    {"data": {"ndarray": [[1, 2, 3], [4, 5, 6]]}})))
+moe = [m_status, len(json.loads(m_text)["data"]["ndarray"]), moe_engine.genserver is None]
+moe_engine.close()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc",
                                        "ml_dtypes", "prometheus_client")
@@ -356,7 +390,8 @@ print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarr
                   "lane": lane, "sampled": sampled,
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "new_examples": new_examples, "remote": remote,
-                  "lanes": lanes, "obs": obs, "native": native, "leaked": leaked}))
+                  "lanes": lanes, "obs": obs, "native": native, "handoff": handoff,
+                  "moe": moe, "leaked": leaked}))
 """
 
 
@@ -374,4 +409,5 @@ def test_port_serves_with_jax_blocked():
         '"remote": ["host", 200, 10], "lanes": [200, 200, true, true], '
         '"obs": [200, true, 200, ["batch_queue", "dispatch", "request"], 200, ["iris", "m", "mnist"], '
         '200, true, 200, true, 200, true, 200, false, '
-        '[503, "autopilot load shed"]], "native": [200, true, "native", 1], "leaked": []}')
+        '[503, "autopilot load shed"]], "native": [200, true, "native", 1], '
+        '"handoff": [200, true, 1], "moe": [200, 2, true], "leaked": []}')

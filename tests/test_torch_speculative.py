@@ -270,12 +270,14 @@ def test_speculative_guards_raise_as_the_reference_does(models, kw):
 
 @pytest.mark.parametrize("role", ["prefill", "decode"])
 def test_the_disaggregated_roles_name_their_item(role, monkeypatch):
-    """A replica told to take a disaggregated role (the reference's
-    ENGINE_GEN_ROLE) is refused, naming the item that ports the roles,
-    rather than served as a unified one."""
+    """A speculative replica told to take a disaggregated role (the
+    reference's ENGINE_GEN_ROLE, ported in [6d]) is refused in the
+    reference's words, rather than served as a unified one: a hand-off
+    would need the draft's pool too."""
     monkeypatch.setenv("ENGINE_GEN_ROLE", role)
     doc = json.loads((ROOT / "examples" / "speculative_deployment.json").read_text())
-    with pytest.raises(ValueError, match=r"item \[6\]"):
+    with pytest.raises(ValueError, match="speculative decoding does not compose with "
+                                         "disaggregated prefill/decode roles"):
         EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc)),
                       device="cpu")
     monkeypatch.setenv("ENGINE_GEN_ROLE", "unified")

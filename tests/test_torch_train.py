@@ -145,11 +145,23 @@ def test_train_step_refuses_what_jax_refuses_and_moe():
     jcfg = jtr.LMConfig(**GQA, dtype=jnp.float32, quant="int8")
     with pytest.raises(ValueError, match="lm_train_step requires quant='none'"):
         jtr.lm_train_step({}, {}, {}, optax.adam(1e-3), jcfg)
-    tp = _setup(GQA)[3]
-    moe = ttr.LMConfig(**GQA, dtype=torch.float32, moe_every=2)
-    with pytest.raises(ValueError, match="item 5e"):
-        ttr.lm_train_step(tp, adam(1e-3).init(tp), {"tokens": torch.zeros(1, 9, dtype=torch.int32)},
-                          adam(1e-3), moe)
+    # MoE layers (item [5e], refused until ported) train: one step's loss
+    # and updated weights against JAX's on the same weights and batch
+    dims = dict(GQA, moe_every=2, n_experts=4, moe_k=2)
+    jcfg, tcfg, jp, tp = _setup(dims, seed=4)
+    lr = 1e-3
+    tokens = _tokens((2, 17), 5)
+    jp2, _, jloss = jtr.lm_train_step(jp, optax.adam(lr).init(jp), {"tokens": jnp.asarray(tokens)},
+                                      optax.adam(lr), jcfg, use_flash=False)
+    tp2, _, loss = ttr.lm_train_step(tp, adam(lr).init(tp), {"tokens": torch.from_numpy(tokens)},
+                                     adam(lr), tcfg)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    want = _jax_leaves(jp2)
+    assert sorted(want) == [k for k, _ in leaves_with_paths(tp2)]
+    assert "['l1']['moe']['wg']" in want
+    for key, p in leaves_with_paths(tp2):
+        # one Adam step: within 2 lr where a gradient is near zero (above)
+        assert np.abs(p.numpy() - want[key]).max() <= 2 * lr, key
 
 
 def test_use_flash_none_takes_the_plain_attention_on_the_cpu():

@@ -1,9 +1,10 @@
 """Unix sockets and the engine's lanes on the CPU: ``FastHttpServer.start_uds``
 (the engine's routes, JSON and the binary wire, on a socket), the relay
 (``runtime/udsrelay.py``) against the JAX package's both ways, a ``unix:``
-node in a graph, and ``engine_main``'s lane contract (gRPC, the relay and
-the HTTP socket from the env, ``SELDON_TPU_UDS=0``, and the refusals of
-``ENGINE_GRPC_IMPL=aio`` and ``ENGINE_RELAY_TCP_PORT``)."""
+node in a graph, and ``engine_main``'s lane contract (gRPC, the relay on
+its socket and on ``ENGINE_RELAY_TCP_PORT``, the HTTP socket from the
+env, ``SELDON_TPU_UDS=0``, and the refusals of ``ENGINE_GRPC_IMPL=aio`` and
+of an unknown generation role)."""
 
 import asyncio
 import http.client
@@ -27,7 +28,7 @@ from seldon_core_tpu_torch import protoconv
 from seldon_core_tpu_torch.convert import params_from_jax
 from seldon_core_tpu_torch.graph.spec import Parameter, SeldonDeploymentSpec
 from seldon_core_tpu_torch.messages import SeldonMessage
-from seldon_core_tpu_torch.runtime import engine_main, udsrelay, wire
+from seldon_core_tpu_torch.runtime import engine_main, kvstream, udsrelay, wire
 from seldon_core_tpu_torch.runtime.engine import EngineService
 from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel
 from seldon_core_tpu_torch.runtime.microservice import build_runtime
@@ -170,6 +171,7 @@ def test_relay_ops_on_the_port_server(sock_dir):
                 "feedback": await client.feedback(json.dumps(
                     {"request": {"data": {"ndarray": x[:1].tolist()}}, "reward": 1.0})),
                 "kv": await client.call(udsrelay.OP_KVSTREAM, b"x"),
+                "kv_stats": await client.call(udsrelay.OP_KVSTREAM, kvstream.stats_frame()),
                 "trace": await client.call(udsrelay.OP_TRACE, b"{}"),
                 "unknown": await client.call(42, b""),
                 "torn": await client.call(udsrelay.OP_WIRE, b"SLDT\x01"),
@@ -199,7 +201,10 @@ def test_relay_ops_on_the_port_server(sock_dir):
     assert np.array_equal(np.asarray(json.loads(text)["data"]["ndarray"]),
                           wire.decode_frame(body).array.astype(np.float64))
     assert out["feedback"][1] == 200
-    assert out["kv"][1] == 503 and b"[6]" in out["kv"][0]
+    # KV frames reach the engine's kv_frame: a torn one is a 400, and an
+    # engine with no generation scheduler takes no hand-off
+    assert out["kv"][1] == 400 and b"short KV-stream frame" in out["kv"][0]
+    assert out["kv_stats"][1] == 503 and b"no generation scheduler" in out["kv_stats"][0]
     # OP_TRACE answers the engine's local trace document
     assert out["trace"][1] == 200 and "spans" in json.loads(out["trace"][0])
     assert out["unknown"][1] == 400 and out["torn"][1] == 400
@@ -247,8 +252,14 @@ def test_relay_interoperates_with_the_reference(direction, sock_dir):
 
 
 def test_tcp_relay_specs_are_refused_naming_item_6():
-    with pytest.raises(ValueError, match=r"item \[6\]"):
-        udsrelay.make_relay_client("tcp:127.0.0.1:9")
+    """Since the TCP relay was ported ([6d]) a ``tcp:host:port`` spec dials
+    it; a malformed one is still refused."""
+    client = udsrelay.make_relay_client("tcp:127.0.0.1:9")
+    assert isinstance(client, udsrelay.TcpRelayClient)
+    assert (client.host, client.port, client.path) == ("127.0.0.1", 9, "tcp:127.0.0.1:9")
+    for bad in ("tcp:127.0.0.1", "tcp::9", "tcp:h:x"):
+        with pytest.raises(ValueError, match="bad tcp relay spec"):
+            udsrelay.make_relay_client(bad)
     assert udsrelay.make_relay_client("uds:/tmp/x.sock").path == "/tmp/x.sock"
     assert udsrelay.make_relay_client("/tmp/y.sock").path == "/tmp/y.sock"
     with pytest.raises(ValueError):
@@ -309,8 +320,12 @@ def test_engine_main_refuses_aio_and_the_tcp_relay(monkeypatch, capsys):
     engine_main.check_grpc_impl()
     assert "native gRPC lane unavailable" in capsys.readouterr().out
     monkeypatch.setenv("ENGINE_GRPC_IMPL", "fast")
-    monkeypatch.setenv("ENGINE_RELAY_TCP_PORT", "7777")
-    with pytest.raises(SystemExit, match=r"item \[6\]"):
+    # ENGINE_RELAY_TCP_PORT binds the relay since [6d] (the lane test
+    # below); an unknown generation role is refused, by the flag and the env
+    with pytest.raises(SystemExit):
+        engine_main.main(["--gen-role", "both"])
+    monkeypatch.setenv("ENGINE_GEN_ROLE", "both")
+    with pytest.raises(ValueError, match="unknown generation role 'both'"):
         asyncio.run(engine_main.serve(deployment, device="cpu"))
 
 
@@ -326,11 +341,12 @@ def test_engine_main_binds_every_lane_from_the_env(uds, sock_dir):
     ENGINE_HTTP_UDS_PATH: the "engine up" line names every lane, each
     answers, and SIGTERM removes the sockets; with SELDON_TPU_UDS=0 neither
     socket is bound."""
-    rest, grpc_port = _free_port(), _free_port()
+    rest, grpc_port, relay_tcp = _free_port(), _free_port(), _free_port()
     relay, http_uds = os.path.join(sock_dir, "r.sock"), os.path.join(sock_dir, "h.sock")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", ENGINE_SHUTDOWN_DRAIN_S="5",
-               ENGINE_SERVER_GRPC_PORT=str(grpc_port), ENGINE_UDS_PATH=relay,
+               ENGINE_SERVER_GRPC_PORT=str(grpc_port), ENGINE_RELAY_TCP_PORT=str(relay_tcp),
+               ENGINE_UDS_PATH=relay,
                ENGINE_HTTP_UDS_PATH=http_uds, SELDON_TPU_UDS="1" if uds == "on" else "0")
     proc = subprocess.Popen(
         [sys.executable, "-m", "seldon_core_tpu_torch.runtime.engine_main", "--file",
@@ -341,6 +357,7 @@ def test_engine_main_binds_every_lane_from_the_env(uds, sock_dir):
     try:
         line = proc.stdout.readline()
         assert line.startswith("engine up:") and f"grpc=:{grpc_port}" in line, line
+        assert f"relay-tcp=:{relay_tcp}" in line and "role=unified" in line, line
         assert (f"uds={relay}" in line and f"http-uds={http_uds}" in line) == (uds == "on")
         assert os.path.exists(relay) == os.path.exists(http_uds) == (uds == "on")
 
@@ -352,6 +369,13 @@ def test_engine_main_binds_every_lane_from_the_env(uds, sock_dir):
                     protoconv.msg_to_proto(SeldonMessage.from_array(x)))).array()]
             finally:
                 await ch.close()
+            client = udsrelay.make_relay_client(f"tcp:127.0.0.1:{relay_tcp}")
+            try:
+                body, st = await client.call(udsrelay.OP_WIRE, wire.join_parts(
+                    wire.encode_frame(x)))
+                out.append(wire.decode_frame(body).array)
+            finally:
+                await client.close()
             if uds == "on":
                 client = udsrelay.UdsRelayClient(relay)
                 try:
@@ -373,7 +397,7 @@ def test_engine_main_binds_every_lane_from_the_env(uds, sock_dir):
             answers.append(np.asarray(json.loads(_post(conn, json.dumps(
                 {"data": {"ndarray": x.tolist()}}), "application/json")[2])["data"]["ndarray"]))
             conn.close()
-        assert st == 200 and len(answers) == (3 if uds == "on" else 1)
+        assert st == 200 and len(answers) == (4 if uds == "on" else 2)
         for a in answers:
             assert np.array_equal(np.asarray(a, np.float64), want)
         proc.send_signal(signal.SIGTERM)
