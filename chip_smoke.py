@@ -419,6 +419,24 @@ it serves the static lane it measured before that lane's switch:
               a sequence, TTFT and request wall p50 against the unified
               engine's in turns; SELDON_TPU_DISAGG=0 serving both roles as
               unified; a {"new_paths": {"disagg": ...}} line
+ 10u. device meshes held by one process ([6a]), on four cards when the
+              machine has four, else four shards of cuda:0: (a) a
+              SharedEnsembleUnit of 8 MnistClassifier members over
+              {"ens": 4} held to the plain members' mean (fused_mlp on
+              every shard); (b) the flagship over {"tp": 4}, each shard's
+              params its own blocks (bytes and memory_allocated a card),
+              prefill logits held to the one-device unit's, both lanes'
+              tokens teacher-forced, flash_attention, flash_decode,
+              kv_write_paged and flash_decode_paged counted on every
+              shard, request walls against one device in turns, a
+              profile and a collective round's host cost; (c)
+              examples/generator_tp (both lanes; its continuous lane
+              through kv_write_paged and the paged kernel's f32 path on
+              every shard) and generator_ep (static lane), f32 tokens
+              identical to the one-device unit's; (d)
+              examples/ensemble4_deployment.json over engine_main --node
+              processes, bit-identical to the collapsed engine; a
+              {"new_paths": {"mesh": ...}} line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -459,6 +477,11 @@ FLASH_LSE_ATOL = 1e-4   # lse is an f32 max + log of an f32 sum on both sides
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 SERVE_P50_REQUESTS = 200
+# ABBA turns of the static lane's TTFT and generate walls, kernels against
+# attention="xla" (2 walls a side a turn); the whole smoke must stay well
+# inside its time limit as phases are added, so the earlier timings keep
+# the fewest turns that still alternate the two arms
+GEN_WALL_TURNS = 2
 # bench.py:3342-3344, gen_lm_deployment(smoke=False), quant none
 GEN_DIMS = {"vocab": 32768, "d_model": 1024, "n_heads": 16, "n_kv_heads": 4,
             "n_layers": 12, "d_ff": 4096, "max_new_tokens": 64}
@@ -1393,7 +1416,7 @@ def generation_phases(torch, dev, smi) -> list:
         for name, fn in fns.items():
             for uf in (True, False):
                 fn(uf)  # warm-up
-            for _ in range(4):
+            for _ in range(GEN_WALL_TURNS):
                 for uf in (True, False, False, True):
                     torch.cuda.synchronize()
                     t = time.perf_counter()
@@ -1426,7 +1449,7 @@ def generation_phases(torch, dev, smi) -> list:
     log(f"[times] attention=\"xla\" (no kernel), in turns with the above: TTFT p50 "
         f"{ttft_xla_ms:.3f} ms; generate p50 {gen_xla_ms:.3f} ms; decode "
         f"{served['xla_decode_tokens_per_s']:.1f} tokens/s, on {smi}")
-    log(f"[times] generate walls p25/p50/p75 over 8 each: kernels "
+    log(f"[times] generate walls p25/p50/p75 over {2 * GEN_WALL_TURNS} each: kernels "
         f"{'/'.join(f'{q:.3f}' for q in quart['generate'][0])} ms, xla "
         f"{'/'.join(f'{q:.3f}' for q in quart['generate'][1])} ms")
     log(json.dumps({"served_generation": served}))
@@ -1790,7 +1813,7 @@ KV_WRITE_PLAN = ("a block of P positions of one row (blockIdx.y) for every kv he
 KV_PAGED_DESIGN = KV_WRITE_PLAN + "; K and V one 16-byte unit each a thread (else 8, 4, 2, 1)"
 CONT_BURST = 8            # 1-row requests sent CONT_GAP_S apart: they join a running batch
 CONT_GAP_S = 0.020
-CONT_TURNS = 2            # ABBA turns of the lane comparison (4 walls each)
+CONT_TURNS = 1            # ABBA turns of the lane comparison (2 walls each)
 PAGED_DESIGN = ("a cluster of 1-8 blocks per (row, kv head); each block reads the row's "
                 "length and block table on the device and takes a share of whole pool blocks "
                 "of that length (paged_shares); 8 warps, each with its own TMA ring of "
@@ -2556,7 +2579,7 @@ SPEC_K = 4
 # the plain one it is timed against too, gets the same larger pool
 SPEC_POOL_BLOCKS = 2048
 SPEC_ENV = {"SELDON_TPU_GEN_POOL_BLOCKS": str(SPEC_POOL_BLOCKS)}
-MODE_TURNS = 2            # ABBA turns of each timing below (4 walls a side)
+MODE_TURNS = 1            # ABBA turns of each timing below (2 walls a side)
 COUNTED = ("flash_attention", "flash_decode", "kv_write", "flash_decode_paged", "kv_write_paged")
 
 
@@ -3167,7 +3190,7 @@ def serving_modes_phases(torch, dev, smi):
 
 F32_TOKEN_DELTA = 1e-3    # an f32 token within this of the target's teacher-forced maximum
 SPEC_EX_P = 24            # prompt tokens of the speculative example's requests
-SPEC_EX_TURNS = 4         # walls of the example's 32-row request
+SPEC_EX_TURNS = 2         # walls of the example's 32-row request
 FAMILY_P50_REQUESTS = 30  # 1-row requests a family example's p50 is read over
 MNIST_ATOL = 2e-2         # the bf16 MNIST probabilities, card kernel vs the CPU's plain version
 FAMILY_ATOL = 1e-5        # the f32 families, card vs CPU: f32 sums in other orders
@@ -4387,7 +4410,7 @@ INT8_TOKEN_DELTA = 0.25
 # card's plain int8 logits of the two tokens differ by at most 8 bf16 ulps
 # of the row's largest logit
 EXAMPLE_TIE_ULPS = 8
-I8_TURNS = 2               # ABBA turns of the long-context rate (4 walls each)
+I8_TURNS = 1               # ABBA turns of the long-context rate (2 walls each)
 # the int8 kernels' inputs: caches of N(0, 1) bf16 rows quantized as the
 # served path quantizes them (kv_write.int8_kv_rows), q at twice their
 # spread (scores of std ~2: each row's softmax is held by a handful of
@@ -8740,6 +8763,507 @@ def disagg_phase(torch, dev, smi) -> dict:
     return out
 
 
+# -- 10u. [6a] device meshes held by one process --------------------------------
+
+MESH_SHARDS = 4
+MESH_ENS_MEMBERS = 8      # SharedEnsembleUnit members at the MNIST example's widths
+MESH_ENS_ROWS = 64
+MESH_B = 4                # the flagship over tp=4: B=4 prompts of 128 tokens
+MESH_S = 128
+MESH_TURNS = 1            # ABBA turns of the request walls, sharded against one device
+MESH_PROFILE_NEW = 8      # new tokens of the profiled generations (sharded and one device)
+# prefill logits over tp=4 against one device: each shard's wo and w2
+# products are rounded to bf16 before the tp sum (the one-device product
+# rounds once), so the residual stream moves by bf16 ulps (2^-8 relative)
+# a layer and 12 layers compound them; logits of |x| ~ 5 then differ by a
+# few bf16 ulps at that magnitude (0.0625 is 4 ulps at 4-8)
+MESH_LOGIT_ATOL = 0.25
+MESH_NODES = ("m0", "m1", "m2", "m3")
+
+
+def mesh_devices(torch) -> list:
+    """Four cards when the machine has four, else four shards of cuda:0."""
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        return [f"cuda:{i}" for i in range(MESH_SHARDS)]
+    return ["cuda:0"] * MESH_SHARDS
+
+
+def sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_ensemble(torch, dev, smi, devices) -> dict:
+    """(a) SharedEnsembleUnit, 8 MnistClassifier members (784-256-256-10,
+    bf16) over {"ens": 4}: 64 rows, the mean held to the plain members'
+    mean (each member's fused_mlp_softmax_reference), the kernel's
+    launches a dispatch."""
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.parallel.ensemble import SharedEnsembleUnit
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh({"ens": MESH_SHARDS}, devices=devices)
+    unit = SharedEnsembleUnit(member="MnistClassifier", n_members=MESH_ENS_MEMBERS,
+                              member_hidden=256, mesh=mesh, device=devices[0])
+    if unit.members[0].path != "kernel":
+        raise AssertionError(f"[mesh] the ensemble's members serve through "
+                             f"{unit.members[0].path}, not the fused-MLP kernel")
+    state = unit.init_state(torch.Generator().manual_seed(SEED))
+    x = torch.rand(MESH_ENS_ROWS, 784, generator=torch.Generator().manual_seed(SEED + 30)).to(dev)
+    with torch.inference_mode():
+        fused_mlp.LAUNCHES = 0
+        y = unit.predict(state, x)
+        sync_all(torch)
+        launches = fused_mlp.LAUNCHES
+        plain = None
+        for shard in state.shards[:MESH_SHARDS]:
+            for m in range(MESH_ENS_MEMBERS // MESH_SHARDS):
+                member = {k: v[m].to(dev) for k, v in shard.items()}
+                p = fused_mlp.fused_mlp_softmax_reference(member, x)
+                plain = p if plain is None else plain + p
+        plain = plain / MESH_ENS_MEMBERS
+        walls = []
+        for _ in range(20):
+            t = time.perf_counter()
+            unit.predict(state, x)
+            sync_all(torch)
+            walls.append(time.perf_counter() - t)
+    err = float((y - plain).abs().max())
+    if launches != MESH_ENS_MEMBERS or err > KERNEL_ATOL or y.device != torch.device(devices[0]):
+        raise AssertionError(f"[mesh] ensemble: {launches} fused_mlp launches a dispatch (want "
+                             f"{MESH_ENS_MEMBERS}), max |mean - plain mean| {err:.3e} (bound "
+                             f"{KERNEL_ATOL}), answer on {y.device}")
+    rec = {"launches": launches, "max_abs_err": err, "dispatch_p50_ms":
+           float(np.median(walls) * 1e3), "shards": [str(d) for d in mesh.device_list]}
+    log(f"[mesh] (a) SharedEnsembleUnit of {MESH_ENS_MEMBERS} MnistClassifier members "
+        f"(784-256-256-10, bf16) over {mesh.shape} on {rec['shards']}: {MESH_ENS_ROWS} rows, "
+        f"{launches} fused_mlp launches a dispatch ({MESH_ENS_MEMBERS // MESH_SHARDS} a shard), "
+        f"the mean within {err:.3e} of the plain members' mean (bound {KERNEL_ATOL}); dispatch "
+        f"wall p50 {rec['dispatch_p50_ms']:.3f} ms on {smi}")
+    return rec
+
+
+def shard_paths(unit, mesh, what: str) -> list:
+    """Which path each shard takes on each lane, decided once at the unit's
+    construction at the shard's shape: the static lane by ``use_flash``,
+    the continuous lane by ``paged_flash`` (its paged kernels take f32)."""
+    from seldon_core_tpu_torch.parallel.mesh import Shard
+
+    cfg = unit.cfg
+    static = ("kernels (flash_attention, flash_decode)" if unit.use_flash
+              else "plain attention")
+    continuous = ("kernels (kv_write_paged, flash_decode_paged)" if unit.paged_flash
+                  else "plain attention")
+    out = []
+    for i, d in enumerate(mesh.device_list):
+        local = cfg.for_shard(Shard(mesh, i))
+        out.append({"shard": i, "device": str(d), "heads": local.n_heads,
+                    "kv_heads": local.kv_heads, "head_dim": local.head_dim,
+                    "dtype": str(local.dtype), "static": static, "continuous": continuous})
+        log(f"[mesh] {what} shard {i} on {d}: {local.n_heads} heads over {local.kv_heads} kv "
+            f"heads, hd {local.head_dim}, {str(local.dtype).replace('torch.', '')}: static lane "
+            f"{static}, continuous lane {continuous}")
+    return out
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the distinct storages a tree of tensors holds."""
+    seen = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+
+    walk(tree)
+    return sum(seen.values())
+
+
+def shard_memory(torch, params, sstate, mesh) -> dict:
+    """Each shard's params hold their own blocks and no more: the bytes of
+    a shard's distinct storages equal the whole tree's bytes with every
+    split leaf divided over its axes (a view of the whole leaf would hold
+    it all), and torch.cuda.memory_allocated on every card of the mesh."""
+    from seldon_core_tpu_torch.models.transformer import param_shardings
+
+    specs = param_shardings(mesh, params)
+
+    def want(tree, spec):
+        if isinstance(tree, dict):
+            return sum(want(tree[k], spec[k]) for k in tree)
+        n = int(np.prod([mesh.shape[a] for a in spec if a is not None] or [1]))
+        return tree.numel() * tree.element_size() // n
+
+    expect = want(params, specs)
+    got = [tree_bytes(t) for t in sstate["params"].shards]
+    if any(g != expect for g in got):
+        raise AssertionError(f"[mesh] the shards' params hold {got} bytes, want {expect} each "
+                             f"(the whole tree {tree_bytes(params)})")
+    return {"whole_params_bytes": tree_bytes(params), "shard_params_bytes": got,
+            "memory_allocated_bytes": {str(d): torch.cuda.memory_allocated(d)
+                                       for d in mesh.distinct_devices}}
+
+
+def mesh_flagship(torch, dev, smi, devices) -> dict:
+    """(b) the flagship generator at full width over {"tp": 4} with the
+    one-device unit's weights: prefill logits held to the one-device unit's,
+    the static lane's and the continuous lane's greedy tokens teacher-forced
+    through the plain path, every shard's launches counted, and the request
+    walls against the one-device unit's in turns."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    kwargs = {**GEN_DIMS, "dtype": "bfloat16"}
+    one = gm.TransformerGenerator(**kwargs, device=dev)
+    state = one.init_state(torch.Generator().manual_seed(SEED))
+    mesh = build_mesh({"tp": MESH_SHARDS}, devices=devices)
+    t0 = time.perf_counter()
+    tp = gm.TransformerGenerator(**kwargs, mesh=mesh, device=devices[0])
+    sstate = tp.shard_state(state)
+    build_s = time.perf_counter() - t0
+    if not (tp.use_flash and one.use_flash and tp.paged_flash):
+        raise AssertionError("[mesh] the flagship over tp=4 does not take the kernels")
+    paths = shard_paths(tp, mesh, "flagship")
+    memory = shard_memory(torch, state["params"], sstate, mesh)
+    log(f"[mesh] flagship params: {memory['whole_params_bytes']} bytes on one device, "
+        f"{memory['shard_params_bytes']} a shard over tp=4 (each its own blocks); "
+        f"memory_allocated {memory['memory_allocated_bytes']} (one-device state included)")
+    cfg, L, new = one.cfg, GEN_DIMS["n_layers"], GEN_DIMS["max_new_tokens"]
+    rng = np.random.default_rng(SEED + 31)
+    prompts = rng.integers(0, cfg.vocab, size=(MESH_B, MESH_S))
+    P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    out = {"build_s": build_s, "paths": paths, "shards": [str(d) for d in mesh.device_list],
+           "memory": memory}
+    with torch.inference_mode():
+        l1, _ = gm.prefill(state["params"], P, gm.init_cache(cfg, MESH_B, MESH_S, dev), cfg, True)
+        cache = mesh.map_shards(lambda s: gm.init_cache(cfg.for_shard(s), MESH_B, MESH_S,
+                                                        s.device))
+        reset_counts(fa, fd, kw)
+        lN, _ = gm.prefill(sstate["params"], P, cache, cfg, True)
+        sync_all(torch)
+        pre = read_counts(fa, fd, kw)
+        logit_err = float((lN - l1).abs().max())
+        logit_scale = float(l1.abs().max())
+        same_argmax = float((lN.argmax(-1) == l1.argmax(-1)).float().mean())
+        reset_counts(fa, fd, kw)
+        y = tp.predict(sstate, P.float())
+        sync_all(torch)
+        static = read_counts(fa, fd, kw)
+    want_pre = {"flash_attention": L * MESH_SHARDS, "flash_decode": 0, "kv_write": 0,
+                "flash_decode_paged": 0, "kv_write_paged": 0}
+    want_static = {**want_pre, "flash_decode": L * MESH_SHARDS * (new - 1)}
+    if pre != want_pre or static != want_static:
+        raise AssertionError(f"[mesh] flagship tp=4: prefill launched {pre} (want {want_pre}), "
+                             f"the static request {static} (want {want_static})")
+    if logit_err > MESH_LOGIT_ATOL:
+        raise AssertionError(f"[mesh] flagship tp=4 prefill logits {logit_err:.4f} from the "
+                             f"one-device unit's (bound {MESH_LOGIT_ATOL})")
+    toks = y.long().cpu().numpy()
+    out["prefill"] = {"launches": pre, "max_abs_logit_err": logit_err,
+                      "max_abs_logit": logit_scale, "argmax_share": same_argmax}
+    out["static"] = {"launches": static, "held": check_gaps(
+        torch, lm_apply, state["params"], cfg, [(prompts, toks)], dev, 1, "mesh static")}
+    # the continuous lane over the same mesh: the pool's KV heads over tp
+    server = GenServer(**tp.continuous_spec(sstate))
+    try:
+        reset_counts(fa, fd, kw)
+        t = time.perf_counter()
+        ctoks = np.asarray(server.submit(prompts.astype(np.float32)).future.result(600))
+        cont_wall = time.perf_counter() - t
+        sync_all(torch)
+        cont = read_counts(fa, fd, kw)
+        snap = server.snapshot()
+        ticks, steps = server.prefill_dispatches_total, server.decode_steps_total
+    finally:
+        server.stop()
+    want_cont = {"flash_attention": 0, "flash_decode": 0, "kv_write": 0,
+                 "flash_decode_paged": L * MESH_SHARDS * steps,
+                 "kv_write_paged": L * MESH_SHARDS * ticks}
+    if cont != want_cont or snap["mesh"] != {"tp": MESH_SHARDS} or not ticks or not steps:
+        raise AssertionError(f"[mesh] flagship tp=4 continuous lane launched {cont} (want "
+                             f"{want_cont}: {ticks} prefill ticks, {steps} decode steps); "
+                             f"/stats mesh {snap['mesh']}")
+    out["continuous"] = {"launches": cont, "prefill_ticks": ticks, "decode_steps": steps,
+                         "mesh": snap["mesh"], "wall_ms": cont_wall * 1e3,
+                         "held": check_gaps(torch, lm_apply, state["params"], cfg,
+                                            [(prompts, ctoks.astype(np.int64))], dev, 1,
+                                            "mesh continuous")}
+    # the static request's wall, sharded against one device, in turns
+    walls = {"tp4": [], "one": []}
+    X = P.float()
+    with torch.inference_mode():
+        for turn in range(MESH_TURNS):
+            for name in (("tp4", "one") if turn % 2 == 0 else ("one", "tp4")):
+                unit, st = (tp, sstate) if name == "tp4" else (one, state)
+                for _ in range(2):
+                    t = time.perf_counter()
+                    unit.predict(st, X)
+                    sync_all(torch)
+                    walls[name].append(time.perf_counter() - t)
+    out["request_wall_p50_ms"] = {k: float(np.median(v) * 1e3) for k, v in walls.items()}
+    out["request_walls_ms"] = {k: [w * 1e3 for w in v] for k, v in walls.items()}
+    # where the sharded request's wall goes: its kernels' device time and
+    # count against one device's (torch.profiler), and the host cost of one
+    # collective round of four shards (the baton passed round the ring and
+    # a 4-element sum on the host: no device work)
+    with torch.inference_mode():
+        out["profile"] = {name: device_profile(
+            torch, lambda p=p: gm.generate(p, P, cfg, MESH_PROFILE_NEW, use_flash=True),
+            f"mesh_{name}") for name, p in (("tp4", sstate["params"]), ("one", state["params"]))}
+    out["ring_round_us"] = ring_round_us(torch, mesh)
+    log(f"[mesh] (b) flagship over {mesh.shape} on {out['shards']} (built and probed in "
+        f"{build_s:.2f} s): a {MESH_B}x{MESH_S} prefill launched {pre['flash_attention']} "
+        f"flash_attention ({L} layers x {MESH_SHARDS} shards), its logits within "
+        f"{logit_err:.4f} of the one-device unit's (|logit| <= {logit_scale:.3f}; bound "
+        f"{MESH_LOGIT_ATOL}; argmax equal in {same_argmax * 100:.1f}% of rows); the static "
+        f"request {static['flash_decode']} flash_decode ({L} x {MESH_SHARDS} x {new - 1} steps); "
+        f"the continuous lane {cont['kv_write_paged']} kv_write_paged over {ticks} prefill "
+        f"ticks and {cont['flash_decode_paged']} flash_decode_paged over {steps} decode steps "
+        f"({L} x {MESH_SHARDS} each), genserver mesh {snap['mesh']}; static request wall p50 "
+        f"{out['request_wall_p50_ms']['tp4']:.3f} ms over tp=4 against "
+        f"{out['request_wall_p50_ms']['one']:.3f} ms on one device, in turns "
+        f"(recorded, not claimed); profiled, a {MESH_B}x{MESH_S} generation of "
+        f"{MESH_PROFILE_NEW} tokens over tp=4 ran {out['profile']['tp4']['kernels']} kernels for "
+        f"{out['profile']['tp4']['kernel_ms']:.3f} ms of device time in "
+        f"{out['profile']['tp4']['wall_ms']:.3f} ms of wall against "
+        f"{out['profile']['one']['kernels']} for {out['profile']['one']['kernel_ms']:.3f} ms in "
+        f"{out['profile']['one']['wall_ms']:.3f} ms on one device; a collective round of four "
+        f"shards costs "
+        f"{out['ring_round_us']:.1f} us of host time on {smi}")
+    out["launches"] = {k: pre[k] + static[k] + cont[k] for k in pre}
+    return out
+
+
+def ring_round_us(torch, mesh, rounds: int = 2000) -> float:
+    """Host microseconds a round of ``all_reduce`` over the mesh's first
+    axis takes, on a 4-element CPU tensor (the baton's cost and three
+    host adds a shard)."""
+    from seldon_core_tpu_torch.parallel.mesh import DeviceMesh, all_reduce
+
+    axis = mesh.axis_names[0]
+    cpu = DeviceMesh(np.array([torch.device("cpu")] * mesh.size, dtype=object)
+                     .reshape(mesh.devices.shape), mesh.axis_names)
+    x = torch.ones(4)
+
+    def body(_shard):
+        for _ in range(rounds):
+            all_reduce(x, axis)
+
+    t = time.perf_counter()
+    cpu.run(body)
+    return (time.perf_counter() - t) / rounds * 1e6
+
+
+def example_kwargs(doc: dict) -> dict:
+    comp = doc["spec"]["predictors"][0]["components"][0]
+    cast = {"INT": int, "FLOAT": float, "STRING": str}
+    return {p["name"]: cast[p["type"]](p["value"]) for p in comp["parameters"]}
+
+
+def mesh_examples(torch, dev, smi, devices) -> dict:
+    """(c) examples/generator_tp (both lanes) and generator_ep (static lane)
+    through EngineService when four cards exist, else their units over four
+    shards of cuda:0: f32 greedy tokens identical to the one-device unit's
+    with the same weights.  Both are f32, which the prefill and two-tier
+    decode kernels refuse, so their static lanes run the plain attention on
+    every shard; generator_tp's continuous lane takes kv_write_paged and the
+    paged kernel's float32 path on every shard at its (., 1, 1, 32) shape,
+    counted from just before the sharded request to just after it."""
+    from seldon_core_tpu_torch.models.generate import TransformerGenerator
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    four = len(set(devices)) == MESH_SHARDS
+    rng = np.random.default_rng(SEED + 32)
+    out = {}
+    for name, lanes in (("generator_tp", (False, True)), ("generator_ep", (False,))):
+        doc = example_doc(name)
+        axes = doc["spec"]["predictors"][0]["components"][0]["mesh_axes"]
+        kwargs = example_kwargs(doc)
+        one = TransformerGenerator(**kwargs, device=dev)
+        state = one.init_state(torch.Generator().manual_seed(SEED))
+        prompts = rng.integers(0, kwargs["vocab"], size=(3, 9)).astype(np.float32)
+        n_layers = kwargs["n_layers"]
+        for continuous in lanes:
+            lane = "continuous" if continuous else "static"
+            if continuous:
+                ref = GenServer(**one.continuous_spec(state))
+                try:
+                    want = np.asarray(ref.submit(prompts).future.result(300))
+                finally:
+                    ref.stop()
+            else:
+                with torch.inference_mode():
+                    want = one.predict(state, torch.as_tensor(prompts, device=dev)).cpu().numpy()
+            if four:
+                engine = mode_engine(torch, dev, doc, continuous=continuous)
+                try:
+                    unit = engine.compiled.units["gen"]
+                    if [str(d) for d in unit.mesh.device_list] != devices:
+                        raise AssertionError(f"[mesh] {name}'s engine mesh is on "
+                                             f"{unit.mesh.device_list}")
+                    engine.load_states({"gen": unit.shard_state(state)})
+                    g = engine.genserver
+                    work0 = (g.prefill_dispatches_total, g.decode_steps_total) if g else (0, 0)
+                    reset_counts(fa, fd, kw)
+                    fd.PAGED_F32_LAUNCHES = 0
+                    text, st = asyncio.run(engine.predict_json(json.dumps(ndarray(prompts))))
+                    sync_all(torch)
+                    launches, f32 = read_counts(fa, fd, kw), fd.PAGED_F32_LAUNCHES
+                    ticks, steps = ((g.prefill_dispatches_total - work0[0],
+                                     g.decode_steps_total - work0[1]) if g else (0, 0))
+                    got = check_tokens(st, text.encode(), prompts, "ndarray",
+                                       kwargs["max_new_tokens"], kwargs["vocab"])
+                    mesh_shape = engine.stats()["meshes"]["gen"]["axes"]
+                finally:
+                    engine.close()
+                route = "EngineService"
+                mesh = unit.mesh
+            else:
+                mesh = build_mesh(axes, devices=devices)
+                unit = TransformerGenerator(**kwargs, mesh=mesh, device=devices[0])
+                sstate = unit.shard_state(state)
+                if continuous:
+                    server = GenServer(**unit.continuous_spec(sstate))
+                    try:
+                        reset_counts(fa, fd, kw)
+                        fd.PAGED_F32_LAUNCHES = 0
+                        got = np.asarray(server.submit(prompts).future.result(300))
+                        sync_all(torch)
+                        launches, f32 = read_counts(fa, fd, kw), fd.PAGED_F32_LAUNCHES
+                        ticks, steps = server.prefill_dispatches_total, server.decode_steps_total
+                    finally:
+                        server.stop()
+                else:
+                    with torch.inference_mode():
+                        reset_counts(fa, fd, kw)
+                        fd.PAGED_F32_LAUNCHES = 0
+                        got = unit.predict(sstate, torch.as_tensor(prompts, device=dev))
+                        sync_all(torch)
+                        launches, f32 = read_counts(fa, fd, kw), fd.PAGED_F32_LAUNCHES
+                        ticks = steps = 0
+                    got = got.cpu().numpy()
+                mesh_shape = dict(mesh.shape)
+                route = "the unit over four shards of cuda:0"
+            paths = shard_paths(unit, mesh, name)
+            shards = mesh.shape.get("tp", 1) * mesh.shape.get("ep", 1) * mesh.shape.get("dp", 1)
+            want_launches = {k: 0 for k in COUNTED}
+            if continuous:
+                if not unit.paged_flash:
+                    raise AssertionError(f"[mesh] {name}'s continuous lane does not take the "
+                                         f"paged kernels at its shard shape")
+                want_launches.update(flash_decode_paged=n_layers * shards * steps,
+                                     kv_write_paged=n_layers * shards * ticks)
+            same = np.array_equal(np.asarray(got, np.float32), np.asarray(want, np.float32))
+            if (not same or mesh_shape != axes or launches != want_launches
+                    or f32 != want_launches["flash_decode_paged"]
+                    or (continuous and not (ticks and steps))):
+                raise AssertionError(f"[mesh] {name} ({lane} lane, {route}): tokens identical "
+                                     f"to one device: {same}; mesh {mesh_shape}; launches "
+                                     f"{launches} ({f32} on the f32 path; want {want_launches}: "
+                                     f"{ticks} prefill ticks, {steps} decode steps)")
+            out[f"{name} {lane}"] = {"route": route, "mesh": mesh_shape, "identical": True,
+                                     "tokens": int(np.asarray(got).size), "paths": paths,
+                                     "launches": launches, "f32_launches": f32,
+                                     "prefill_ticks": ticks, "decode_steps": steps}
+            log(f"[mesh] (c) examples/{name}_deployment.json over {axes}, {lane} lane through "
+                f"{route}: 3x9 prompts -> {np.asarray(got).shape} f32 greedy tokens, identical "
+                f"to the one-device unit's; launches {launches} ({f32} on the paged kernel's "
+                f"float32 path; {ticks} prefill ticks, {steps} decode steps) on {smi}")
+    return out
+
+
+def mesh_nodes(torch, dev, smi) -> dict:
+    """(d) examples/ensemble4_deployment.json as a root engine (host mode,
+    shard_predictor) over one engine_main --node process a leaf: answers
+    bit-identical to the collapsed engine's, each node's fused_mlp launches
+    from its /stats."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.sharding import shard_predictor
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+
+    path = ROOT / "examples" / "ensemble4_deployment.json"
+    spec = default_and_validate(SeldonDeploymentSpec.from_json(path.read_text()))
+    t0 = time.perf_counter()
+    procs = start_engines({m: (path, ["--node", m], {"SELDON_TPU_UDS": "0"})
+                           for m in MESH_NODES}, dev)
+    out = {"start_s": time.perf_counter() - t0, "up": {k: v[2] for k, v in procs.items()}}
+    root = collapsed = None
+    try:
+        root = EngineService(shard_predictor(spec, {m: ("127.0.0.1", procs[m][1])
+                                                    for m in MESH_NODES}), device=dev)
+        collapsed = EngineService(spec, device=dev)
+        if root.mode != "host" or collapsed.mode != "fused":
+            raise AssertionError(f"[mesh] root mode {root.mode}, collapsed {collapsed.mode}")
+        before = {m: kernel_counts(procs[m][1])[0]["fused_mlp_softmax"] for m in MESH_NODES}
+        rng = np.random.default_rng(SEED + 33)
+        answers = []
+        for rows in (1, 64):
+            body = json.dumps(ndarray(rng.random((rows, 784))))
+            got, want = (asyncio.run(e.predict_json(body)) for e in (root, collapsed))
+            if got[1] != 200 or want[1] != 200:
+                raise AssertionError(f"[mesh] node engines answered {got[1]}, collapsed {want[1]}")
+            g, w = json_rows(got[0]), json_rows(want[0])
+            if not np.array_equal(g, w):
+                raise AssertionError(f"[mesh] the node engines' {rows}-row answer is not the "
+                                     f"collapsed engine's: max |diff| {np.abs(g - w).max():.3e}")
+            answers.append(rows)
+        after = {m: kernel_counts(procs[m][1])[0]["fused_mlp_softmax"] for m in MESH_NODES}
+    finally:
+        for e in (root, collapsed):
+            if e is not None:
+                e.close()
+        for proc, _, _ in procs.values():
+            stop_service(proc, timeout=30)
+    launches = {m: after[m] - before[m] for m in MESH_NODES}
+    if any(n != len(answers) for n in launches.values()):
+        raise AssertionError(f"[mesh] node engines' fused_mlp launches {launches}, want "
+                             f"{len(answers)} each")
+    out.update({"launches": launches, "requests": answers, "bit_identical": True})
+    log(f"[mesh] (d) examples/ensemble4_deployment.json: a root engine (host mode) over "
+        f"{len(MESH_NODES)} engine_main --node processes ({out['start_s']:.2f} s to come up): "
+        f"1- and 64-row answers bit-identical to the collapsed (fused) engine's; each node's "
+        f"/stats counted {launches} fused_mlp launches on {smi}")
+    return out
+
+
+def mesh_phase(torch, dev, smi) -> dict:
+    """10u. [6a]: device meshes held by one process: the sharded ensemble,
+    the flagship over tp=4 through the kernels on every shard, the two
+    multi-device examples, and the node engines of a sharded graph."""
+    t_phase = time.perf_counter()
+    devices = mesh_devices(torch)
+    cards, shards = len(set(devices)), len(devices)
+    log(f"[mesh] phase 10u: {cards} card(s), {shards} shards ({devices}); "
+        f"torch.cuda.device_count() {torch.cuda.device_count()}")
+    out = {"cards": cards, "shards": shards, "devices": devices}
+    out["ensemble"] = mesh_ensemble(torch, dev, smi, devices)
+    out["flagship"] = mesh_flagship(torch, dev, smi, devices)
+    out["examples"] = mesh_examples(torch, dev, smi, devices)
+    out["nodes"] = mesh_nodes(torch, dev, smi)
+    examples = out["examples"].values()
+    out["launches"] = {**out["flagship"]["launches"],
+                       "fused_mlp_softmax": out["ensemble"]["launches"],
+                       "fused_mlp_softmax nodes": sum(out["nodes"]["launches"].values()),
+                       "flash_decode_paged f32 examples": sum(e["f32_launches"] for e in examples),
+                       "kv_write_paged examples": sum(e["launches"]["kv_write_paged"]
+                                                      for e in examples)}
+    out["card"] = smi
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 10u wall {out['wall_s']:.2f} s ({cards} card(s), {shards} shards)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8934,6 +9458,31 @@ def main() -> int:
         rows_by_name[name]["launches_by_path"]["disagg (prefill/decode replicas)"] = \
             dis["launches"][key]
         rows_by_name[name]["launches"] += dis["launches"][key]
+
+    # 10u: after 10t, each path's counts set to 0 just before it and read
+    # just after; the node engines' fused MLP read from their /stats
+    mesh = mesh_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"mesh": mesh}}))
+    mlp_row["launches_by_path"]["mesh (ensemble over ens=4)"] = \
+        mesh["launches"]["fused_mlp_softmax"]
+    mlp_row["launches_by_path"]["mesh (node engines)"] = mesh["launches"]["fused_mlp_softmax nodes"]
+    mlp_row["launches"] += (mesh["launches"]["fused_mlp_softmax"]
+                            + mesh["launches"]["fused_mlp_softmax nodes"])
+    for row in (flash_row, decode_row, paged_row, kv_paged_row):
+        n = mesh["launches"][row["name"]]
+        row["launches_by_path"] = {**row.get("launches_by_path", {"earlier phases":
+                                                                  row["launches"]}),
+                                   "mesh (flagship over tp=4)": n}
+        row["launches"] += n
+    # generator_tp's continuous lane: the paged kernel's f32 path and the
+    # paged write on every shard
+    f32_row["launches_by_path"] = {"speculative example (float32)": f32_row["launches"],
+                                   "mesh (generator_tp over tp=4)":
+                                   mesh["launches"]["flash_decode_paged f32 examples"]}
+    f32_row["launches"] += mesh["launches"]["flash_decode_paged f32 examples"]
+    kv_paged_row["launches_by_path"]["mesh (generator_tp over tp=4)"] = \
+        mesh["launches"]["kv_write_paged examples"]
+    kv_paged_row["launches"] += mesh["launches"]["kv_write_paged examples"]
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,

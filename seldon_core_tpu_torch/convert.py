@@ -14,6 +14,13 @@ port's keys (``models/prng.py``) are not ``jax.random``'s, so keep the
 port's own, ``{**port_state, **params_from_jax({"success": ..., "tries":
 ...})}``.
 
+A state the reference holds over a mesh (a ``mesh_axes`` unit's params
+sharded by ``param_shardings``, a ``SharedEnsembleUnit``'s stacked member
+states split over ``ens``) carries the same way: ``np.array`` of a sharded
+``jax.Array`` gathers it whole, and ``layout`` (the port unit's
+``shard_state``) then splits it over the port unit's mesh by the port's
+layout, which is the reference's.
+
 bf16 arrays arrive with an ``ml_dtypes`` dtype whose name is "bfloat16".
 They are taken by bit pattern (uint16 view -> torch -> bfloat16 view), so
 the values are identical and ``ml_dtypes`` is never imported.
@@ -21,7 +28,7 @@ the values are identical and ``ml_dtypes`` is never imported.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,9 +38,11 @@ from seldon_core_tpu_torch.device import DeviceLike, resolve_device
 __all__ = ["params_from_jax"]
 
 
-def params_from_jax(arrays: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+def params_from_jax(arrays: Mapping[str, Any], device: DeviceLike = None,
+                    layout: Optional[Callable[[Any], Any]] = None) -> Any:
     dev = resolve_device(device)
-    return {name: _convert(arr, dev) for name, arr in arrays.items()}
+    state = {name: _convert(arr, dev) for name, arr in arrays.items()}
+    return state if layout is None else layout(state)
 
 
 def _convert(arr, dev: torch.device):

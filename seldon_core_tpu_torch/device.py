@@ -9,6 +9,7 @@ the card's.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
@@ -43,14 +44,37 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+#: the devices whose context each thread has made current (``launch_on``)
+_THREAD = threading.local()
+
+
+def _context_current(index: int) -> None:
+    """Make device ``index``'s primary context current on this thread, once
+    a thread.  A thread whose current device already is ``index`` and that
+    has made no CUDA call of its own (a mesh shard's thread whose tensors
+    already lie on its card) has no context current; a kernel library's
+    launch there fails its TMA encode with "invalid argument".  A stream
+    query is a runtime call that makes the context current, and waits on
+    nothing."""
+    seen = getattr(_THREAD, "devices", None)
+    if seen is None:
+        seen = _THREAD.devices = set()
+    if index not in seen:
+        with torch.cuda.device(index):
+            torch.cuda.current_stream(index).query()
+        seen.add(index)
+
+
 def launch_on(device: torch.device, launch, *args) -> int:
     """``launch(*args, stream)``: a kernel's ctypes launch on ``device``'s
-    current CUDA stream, with ``device`` current while it runs; returns its
+    current CUDA stream, with ``device`` current while it runs (and its
+    context current on this thread, ``_context_current``); returns its
     code.  Reads the raw stream handle, and enters a device context only
     when ``device`` is not current already: the ``torch.cuda.device``
     context and ``current_stream(device).cuda_stream`` cost the host more
     than the rest of a decode wrapper, which runs 24 times per step."""
     index = torch.cuda.current_device() if device.index is None else device.index
+    _context_current(index)
     if torch.cuda.current_device() == index:
         return launch(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):

@@ -262,9 +262,10 @@ class ComponentBinding:
     * ``rest`` / ``grpc`` — node is a remote microservice, reference-style;
       ``host``/``port`` filled by defaulting.
 
-    ``device`` and ``mesh_axes`` are parsed and kept so the JSON round-trips
-    unchanged; the port places every unit on the engine's device, and a
-    ``mesh_axes`` binding is refused until multi-device serving is ported.
+    ``device`` is parsed and kept so the JSON round-trips unchanged; the
+    port places every unit on the engine's device.  ``mesh_axes`` builds a
+    device mesh on the engine's platform for a unit that takes one
+    (``graph/units.py`` ``instantiate_bound_unit``).
     """
 
     name: str

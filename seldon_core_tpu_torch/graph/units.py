@@ -196,7 +196,11 @@ def host_only_reason(node, binding) -> Optional[str]:
 def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None) -> Unit:
     """Build the in-process Unit of a component binding.  A unit class whose
     constructor takes ``device`` gets the engine's device, so it can choose
-    its kernel path at construction from static shapes.  A reference-style
+    its kernel path at construction from static shapes.  A binding's
+    ``mesh_axes`` (``{"tp": 4}``, ``{"ens": 8}``) builds a device mesh on
+    the engine's platform (``parallel/mesh.py``) and hands it to a unit
+    whose constructor takes ``mesh``; any other unit is refused, in the
+    reference's words, and so are the ``sp`` and ``pp`` axes ([6b]).  A reference-style
     plain user object (``predict(X, feature_names)``, a torch or sklearn
     model) gets the microservice's ``as_unit`` adapter, whose ``pure =
     False`` keeps it out of the compiled and fused executors: the engine
@@ -205,19 +209,37 @@ def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None)
         cls = resolve_unit_class(binding.class_path)
     except ValueError as e:
         raise GraphSpecError(f"component {binding.name!r}: {e}") from e
+    mesh = None
     if binding.mesh_axes:
-        raise GraphSpecError(
-            f"component {binding.name!r} declares mesh_axes "
-            f"{dict(binding.mesh_axes)}: multi-device units are not ported "
-            f"yet (ROADMAP Queue 1 item [6]: multi-device meshes)"
-        )
+        import inspect
+
+        axes = dict(binding.mesh_axes)
+        if "mesh" not in inspect.signature(cls.__init__).parameters:
+            raise GraphSpecError(
+                f"component {binding.name!r} declares mesh_axes "
+                f"{axes} but unit {cls.__name__} takes no "
+                f"mesh; drop mesh_axes or use a mesh-capable unit"
+            )
+        unported = sorted(set(axes) & {"sp", "pp"})
+        if unported:
+            raise GraphSpecError(
+                f"component {binding.name!r} declares mesh_axes {axes}: the "
+                f"{unported} axes (ring attention, the pipeline) are not ported "
+                f"yet (ROADMAP Queue 1 item [6b])"
+            )
+        from seldon_core_tpu_torch.parallel.mesh import build_mesh
+
+        # over the engine's platform: cuda:0..n-1, or the CPU's device count;
+        # too few devices raise "needs N devices, have M", never a smaller mesh
+        mesh = build_mesh(axes, platform="cpu" if device is not None
+                          and torch.device(device).type == "cpu" else "cuda")
     from seldon_core_tpu_torch.graph.interpreter import effective_type
     from seldon_core_tpu_torch.runtime.microservice import build_unit
 
     # the implementation-implied type, as the interpreter's dispatch reads it
     etype = effective_type(node)
     return build_unit(cls, binding.parameters or node.parameters,
-                      etype.name if etype is not None else "MODEL", device)
+                      etype.name if etype is not None else "MODEL", device, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ Ported: ``MnistClassifier``, ``QuantizedMnistClassifier``, ``MnistCNN``,
 the shared prefix, int8 weights and the int8 K/V cache),
 ``SpeculativeGenerator``, ``IrisClassifier``, the tabular families
 (``MeanClassifier``, ``SigmoidPredictor``, ``MeanTransformer``,
-``ObliviousTreeEnsemble``), ``MahalanobisOutlier`` and
-``EpsilonGreedyRouter``.
+``ObliviousTreeEnsemble``), ``MahalanobisOutlier``,
+``EpsilonGreedyRouter`` and ``SharedEnsembleUnit``
+(``parallel/ensemble.py``).
 """
 
 from seldon_core_tpu_torch.models.generate import TransformerGenerator  # noqa: F401
@@ -27,3 +28,4 @@ from seldon_core_tpu_torch.models.tabular import (  # noqa: F401
     SigmoidPredictor,
 )
 from seldon_core_tpu_torch.models.transformer import TransformerLM  # noqa: F401
+from seldon_core_tpu_torch.parallel.ensemble import SharedEnsembleUnit  # noqa: F401

@@ -20,6 +20,14 @@ token rows out, over the same REST data plane as every other model.  Its
   * generations longer than ``GEN_CHUNK_CAP`` fold each full chunk into
     main (``merge_chunk``) between chunks.
 
+Over a device mesh (``TransformerGenerator(mesh=)``, a binding's
+``mesh_axes``) the params are a ``ShardedTree`` laid out by the
+reference's tp layout (``models/transformer.py`` ``param_shardings``), and
+``prefill``, ``generate``, ``stream_chunks`` and the paged programs below
+run once per shard (``parallel/mesh.py`` ``spmd``): each shard holds its
+heads' caches or pool blocks on its own device and launches the same
+kernels at its shape; shard 0's answer is returned.
+
 ``stream_chunks`` (and the unit's ``stream_tokens``, which the engine's
 SSE route drives) yields the same tokens chunk by chunk: the same decode
 steps, a ``STREAM_CHUNK_CAP``-slot chunk buffer that ``grow_merge`` folds
@@ -135,12 +143,17 @@ from seldon_core_tpu_torch.models.transformer import (
     _ffn,
     _rmsnorm,
     apply_rope,
+    attn_out,
     heads,
     lm_init,
     load_lm_weights,
     resolve_flash,
+    resolve_paged_flash,
     seeded_generator,
+    shard_params,
+    split_qkv,
 )
+from seldon_core_tpu_torch.parallel.mesh import DeviceMesh, ShardedTree, spmd, spmd_stream
 from seldon_core_tpu_torch.ops.flash_decode import (
     attend_paged,
     flash_decode_paged,
@@ -263,10 +276,10 @@ def _qkv(lp, x, cfg: LMConfig, start):
     """ln1, the qkv matmul, the head split and RoPE at global positions
     start.. (an int, or a [B, 1] tensor of per-row starts) -> (q, k, v),
     each [B, n, S, hd]."""
-    B, S, D = x.shape
+    B, S, _ = x.shape
     hd, kv = cfg.head_dim, cfg.kv_heads
     qkv = lm_matmul(lp, "wqkv", _rmsnorm(x, lp["ln1"]), out_dtype=x.dtype)
-    q, k, v = torch.split(qkv, [D, kv * hd, kv * hd], dim=-1)
+    q, k, v = split_qkv(qkv, cfg)
     q, k, v = heads(q, B, S, cfg.n_heads, hd), heads(k, B, S, kv, hd), heads(v, B, S, kv, hd)
     if cfg.rope:
         positions = start + torch.arange(S, device=x.device)
@@ -278,9 +291,11 @@ def _qkv(lp, x, cfg: LMConfig, start):
 def _finish_block(lp, x, a, cfg: LMConfig):
     """Attention output projection and the FFN (dense, or MoE over this
     call's B*S tokens: the capacity is set by them), with residuals; the
-    load-balance loss is dropped, as the reference's serving paths drop it."""
-    B, S, D = x.shape
-    x = x + lm_matmul(lp, "wo", a.transpose(1, 2).reshape(B, S, D), out_dtype=x.dtype)
+    load-balance loss is dropped, as the reference's serving paths drop it.
+    On a tp shard both products are summed over ``tp`` (``attn_out``,
+    ``_ffn``)."""
+    B, S, _ = x.shape
+    x = attn_out(lp, x, a.transpose(1, 2).reshape(B, S, -1))
     return x + _ffn(lp, _rmsnorm(x, lp["ln2"]), cfg)[0]
 
 
@@ -382,6 +397,7 @@ def segment_forward(params, tokens, cache, start: int, cfg: LMConfig,
     return (x @ params["embed"].T).float(), cache
 
 
+@spmd
 def prefill(params, tokens, cache, cfg: LMConfig, use_flash: bool = False):
     """Consume the prompt in one pass, filling the cache.
     tokens [B, S] -> (last-position logits [B, V] f32, cache)."""
@@ -525,6 +541,7 @@ def _prefill_or_prefix(params, prompt, cfg: LMConfig, main_len: int, use_flash: 
     return logits[:, -1, :], main
 
 
+@spmd
 def generate(params, prompt, cfg: LMConfig, max_new_tokens: int = 32,
              temperature: float = 0.0, use_flash: bool = False,
              eos_token: int = -1, rng=None, top_k: int = 0, top_p: float = 0.0,
@@ -595,7 +612,13 @@ def stream_chunks(params, prompt, cfg: LMConfig, max_new_tokens: int, chunk: int
     With ``eos_token`` set, masking runs on the device
     (``_chunk_eos_mask``) and only the all-done flag is read back; once
     every row has stopped, the host pads the remaining chunks with eos and
-    the device does no more work."""
+    the device does no more work.  Over a mesh (``params`` a
+    ``ShardedTree``) every shard's stream advances in lockstep and shard
+    0's chunks are yielded."""
+    if isinstance(params, ShardedTree):
+        yield from spmd_stream(stream_chunks, params, prompt, cfg, max_new_tokens, chunk,
+                               temperature, use_flash, eos_token, prefix, rng, top_k, top_p)
+        return
     B, S = prompt.shape
     dev = prompt.device
     cap = STREAM_CHUNK_CAP
@@ -728,6 +751,7 @@ def _paged_block(lp, x, pool_layer, tables, start, valid, cfg: LMConfig,
     return _finish_block(lp, x, a, cfg), pool_layer
 
 
+@spmd
 def paged_forward(params, tokens, pool, tables, start, width, cfg: LMConfig,
                   last_only: bool = True, use_flash: bool = False):
     """W tokens a row at per-row offsets over the paged pool: the chunked
@@ -752,6 +776,7 @@ def paged_forward(params, tokens, pool, tables, start, width, cfg: LMConfig,
     return (logits[:, 0, :] if last_only else logits), pool
 
 
+@spmd
 def paged_decode_round(params, pool, tables, token, n_valid, active, seen_eos, cfg: LMConfig,
                        *, span: int, keys=None, temperature: float = 0.0, top_k: int = 0,
                        top_p: float = 0.0, eos_token: int = -1, use_flash: bool = False):
@@ -862,6 +887,7 @@ def _prefix_write(pool, prefix, tables: List[int], lo: int, hi: int, use_flash: 
     return pool
 
 
+@spmd
 def paged_write_prefix_blocks(pool, prefix, blocks: List[int], cfg: LMConfig,
                               use_flash: bool = False):
     """Write the full-block part of a shared prefix into pool ``blocks``
@@ -874,6 +900,7 @@ def paged_write_prefix_blocks(pool, prefix, blocks: List[int], cfg: LMConfig,
     return _prefix_write(pool, prefix, list(blocks), 0, len(blocks) * bs, use_flash)
 
 
+@spmd
 def paged_write_prefix_tail(pool, prefix, blk: int, cfg: LMConfig, *, p0: int,
                             use_flash: bool = False):
     """Copy the shared prefix's tail (positions p0..P-1, short of a whole
@@ -917,7 +944,7 @@ class TransformerGenerator(Unit):
                  kv_quant: str = "none",
                  n_kv_heads: int = 0, weights_path: str = "",
                  rope: bool = True, rope_base: float = 10000.0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[DeviceMesh] = None):
         self.cfg = LMConfig(
             vocab=int(vocab), d_model=int(d_model), n_heads=int(n_heads),
             n_layers=int(n_layers), d_ff=int(d_ff), dtype=parse_dtype(dtype),
@@ -942,8 +969,22 @@ class TransformerGenerator(Unit):
         # other callers' rows would change this caller's answer
         self.batch_coupled = self.temperature > 0.0 or self.cfg.moe_every > 0
         self.updates_state_on_predict = self.temperature > 0.0
+        # mesh (a binding's mesh_axes, e.g. {"tp": 4}): the params laid out
+        # by param_shardings, every shard's heads and K/V on its own device,
+        # prefill and decode run by every shard through the same kernels
+        # (decided once here at the shard's shape); the answers come back
+        # on the mesh's first device, and the continuous lane's pool is
+        # laid out over the same mesh (runtime/servingmesh.py)
+        self.mesh = mesh
+        if mesh is not None:
+            self.cfg.tp_local(mesh.shape.get("tp", 1))  # refuses an indivisible tp now
+            device = mesh.device_list[0]
         self.device = resolve_device(device)
-        self.use_flash = resolve_flash(str(attention), self.cfg, self.device, decode=True)
+        self.use_flash = resolve_flash(str(attention), self.cfg, self.device, decode=True,
+                                       mesh=mesh)
+        # the continuous lane's kernels, decided apart: they take float32
+        self.paged_flash = resolve_paged_flash(str(attention), self.cfg, self.device,
+                                               self.use_flash, mesh=mesh)
         self._root_key = prng.key(self.seed, self.device)
 
     def init_state(self, rng: Optional[torch.Generator]):
@@ -951,14 +992,34 @@ class TransformerGenerator(Unit):
         params = load_lm_weights(params, self.weights_path)
         if self.cfg.quant == "int8":  # after the load, as the reference
             params = quantize_lm_params(params)
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh)
         state = {"params": params,
                  "requests": torch.zeros((), dtype=torch.int32, device=self.device)}
         if self.prefix_ids:
             prompt = torch.tensor([self.prefix_ids], dtype=torch.int32, device=self.device)
-            _, state["prefix_cache"] = prefill(
-                params, prompt, init_cache(self.cfg, 1, len(self.prefix_ids), self.device),
-                self.cfg, self.use_flash)
+            P = len(self.prefix_ids)
+            cache = (init_cache(self.cfg, 1, P, self.device) if self.mesh is None else
+                     self.mesh.map_shards(lambda sh: init_cache(self.cfg.for_shard(sh), 1, P,
+                                                                sh.device)))
+            _, state["prefix_cache"] = prefill(params, prompt, cache, self.cfg, self.use_flash)
         return state
+
+    def shard_state(self, state):
+        """A whole state (``convert.params_from_jax`` of the reference
+        unit's gathered state) laid out over the unit's mesh: the params by
+        ``param_shardings``, a prefix cache's K/V heads over ``tp``;
+        unchanged without a mesh."""
+        if self.mesh is None:
+            return state
+        out = dict(state)
+        out["params"] = shard_params(state["params"], self.mesh)
+        if state.get("prefix_cache") is not None:
+            pc = state["prefix_cache"]
+            specs = {li: {kk: (None, "tp") if "tp" in self.mesh.shape else ()
+                          for kk in layer} for li, layer in pc.items()}
+            out["prefix_cache"] = shard_params(pc, self.mesh, specs)
+        return out
 
     def predict(self, state, X):
         prompt = sanitize_prompt(X, self.cfg.vocab)
@@ -978,16 +1039,16 @@ class TransformerGenerator(Unit):
         """What the continuous lane (``runtime/genserver.py``) needs to
         serve this unit: the params, the config, the sampling knobs and
         seed, ``eos_token``, ``max_new_tokens``, the shared-prefix cache and
-        whether to take the kernels.  None where the reference returns None:
-        MoE capacity couples co-scheduled rows, so an MoE generator serves
-        on the static lane."""
+        whether to take the lane's kernels (``paged_flash``).  None where the
+        reference returns None: MoE capacity couples co-scheduled rows, so
+        an MoE generator serves on the static lane."""
         if self.cfg.moe_every > 0:
             return None
         return {"params": state["params"], "cfg": self.cfg, "temperature": self.temperature,
                 "top_k": self.top_k, "top_p": self.top_p, "eos_token": self.eos_token,
                 "max_new_tokens": self.max_new_tokens,
                 "prefix_cache": state.get("prefix_cache"), "seed": self.seed,
-                "use_flash": self.use_flash}
+                "use_flash": self.paged_flash, "mesh": self.mesh}
 
     def stream_tokens(self, state, X, chunk: int = 8):
         """Incremental serving: yields int32 token tensors [B, <=chunk]

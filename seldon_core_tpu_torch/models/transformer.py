@@ -73,8 +73,18 @@ sum, and ``lm_loss`` adds ``LB_LOSS_COEF`` times it.  Capacity is set over
 the whole flattened batch, so an MoE unit is ``batch_coupled``: co-batched
 rows change each other's overflow.
 
-Not ported (ROADMAP item [6]): meshes and ring attention, expert
-parallelism, and the pipeline and sharded train steps.
+Meshes ([6a]): ``param_shardings`` is the reference's tp layout and
+``shard_params`` places a tree by it over a ``parallel/mesh.py`` mesh (a
+``ShardedTree``).  ``lm_apply`` on such params runs every shard on its
+own device with its ``LMConfig.tp_local`` config: the fused projection's
+columns regrouped to the shard's heads (``split_qkv``), attention over
+those heads through the same kernels as one device, one ``all_reduce``
+over ``tp`` after ``wo`` and one after ``w2`` (``attn_out``, ``_ffn``), and
+MoE experts over ``ep`` (``moe_apply``).  The collectives read the calling
+shard from its thread, so ``_block``, ``_ffn`` and the generator's blocks
+take no mesh argument: outside a shard they are the single-device code.
+Not ported (ROADMAP item [6b]): ring attention over ``sp``, the pipeline
+and the sharded train steps.
 """
 
 from __future__ import annotations
@@ -82,7 +92,7 @@ from __future__ import annotations
 import functools
 import logging
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -102,13 +112,16 @@ from seldon_core_tpu_torch.ops.flash_attention import (
 from seldon_core_tpu_torch.ops.flash_decode import (decode_kernel_shape_error,
                                                     paged_kernel_shape_error, probe_decode_kernel)
 from seldon_core_tpu_torch.ops.quant import lm_matmul, quantize_lm_params
-from seldon_core_tpu_torch.parallel.moe import MoEConfig, moe_apply, moe_init
+from seldon_core_tpu_torch.parallel.mesh import (DeviceMesh, ShardedTree, all_reduce, axis_index,
+                                                 axis_size, gather_slices)
+from seldon_core_tpu_torch.parallel.moe import MoEConfig, moe_apply, moe_init, moe_leaf_spec
 from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
 from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["LMConfig", "lm_init", "lm_apply", "token_rows", "apply_rope", "gqa_attention",
-           "resolve_flash", "resolve_train_flash", "lm_loss", "lm_train_step",
-           "save_lm_weights", "load_lm_weights", "LB_LOSS_COEF", "TransformerLM"]
+           "resolve_flash", "resolve_paged_flash", "resolve_train_flash", "lm_loss",
+           "lm_train_step", "save_lm_weights", "load_lm_weights", "LB_LOSS_COEF", "TransformerLM",
+           "param_shardings", "shard_params"]
 
 logger = logging.getLogger(__name__)
 
@@ -168,6 +181,26 @@ class LMConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    def tp_local(self, tp: int) -> "LMConfig":
+        """The config one of ``tp`` tensor-parallel shards computes with:
+        its ``n_heads / tp`` query heads over ``kv_heads / tp`` KV heads
+        (the head dim kept) and its ``d_ff / tp`` FFN columns; ``d_model``
+        is the width of its heads' attention output, ``n_heads *
+        head_dim`` (the residual stream keeps the full width).  Refuses a
+        count that ``tp`` does not divide."""
+        if tp == 1:
+            return self
+        for name, n in (("n_heads", self.n_heads), ("n_kv_heads", self.kv_heads),
+                        ("d_ff", self.d_ff)):
+            if n % tp:
+                raise ValueError(f"{name}={n} not divisible over the tp axis of size {tp}")
+        return replace(self, n_heads=self.n_heads // tp, n_kv_heads=self.kv_heads // tp,
+                       d_model=self.d_model // tp, d_ff=self.d_ff // tp)
+
+    def for_shard(self, shard) -> "LMConfig":
+        """``tp_local`` at the shard's mesh (``parallel/mesh.py`` ``spmd``)."""
+        return self.tp_local(shard.mesh.shape.get("tp", 1))
 
     @property
     def moe(self) -> MoEConfig:
@@ -238,6 +271,85 @@ def lm_init(rng: torch.Generator, cfg: LMConfig, device: DeviceLike = None) -> D
     return params
 
 
+def param_shardings(mesh: DeviceMesh, params) -> Any:
+    """The tp layout of ``transformer.py:214-245``, as a tree of partition
+    specs (a tuple of mesh axis names or None per dimension, ``()``
+    replicated): ``wqkv`` and ``w1`` split by columns over ``tp``, ``wo``
+    and ``w2`` by rows; the int8 ``_q`` leaves as their weights, the
+    scales ``_s`` along the output axis of ``wqkv``/``w1`` and replicated
+    for ``wo``/``w2``; ``moe`` leaves by ``moe_leaf_spec``; everything
+    else replicated."""
+    has_tp = "tp" in mesh.shape
+
+    def spec_for(names, leaf):
+        name = names[-1]
+        if "moe" in names:
+            return moe_leaf_spec(name, leaf, mesh)
+        if name.endswith("_q") or name.endswith("_s"):
+            base, kind = name[:-2], name[-1]
+            if base in ("wqkv", "w1"):
+                if kind == "q":
+                    return (None, "tp") if has_tp else ()
+                return ("tp",) if has_tp else ()
+            if base in ("wo", "w2"):
+                return ("tp", None) if (has_tp and kind == "q") else ()
+            return ()
+        if name in ("wqkv", "w1"):
+            return (None, "tp") if has_tp else ()
+        if name in ("wo", "w2"):
+            return ("tp", None) if has_tp else ()
+        return ()
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            return {k: walk(v, names + (k,)) for k, v in tree.items()}
+        return spec_for(names, tree)
+
+    return walk(params, ())
+
+
+def _place(leaf: torch.Tensor, spec, coords: Dict[str, int], mesh: DeviceMesh,
+           device: torch.device) -> torch.Tensor:
+    """One device's block of ``leaf`` under ``spec`` (the contiguous slice
+    that the reference's ``NamedSharding`` gives that device).  A split
+    leaf is always a copy of its own, also on the whole leaf's device: a
+    view would keep the whole leaf's storage alive there."""
+    t = leaf
+    split = False
+    for dim, axis in enumerate(spec):
+        if axis is None or mesh.shape[axis] == 1:
+            continue
+        n = mesh.shape[axis]
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {t.shape[dim]} not divisible over "
+                             f"{axis!r} of size {n}")
+        w = t.shape[dim] // n
+        t = t.narrow(dim, coords[axis] * w, w)
+        split = True
+    if split:
+        return t.to(device, copy=True, memory_format=torch.contiguous_format)
+    t = t.to(device)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def shard_params(params, mesh: DeviceMesh, specs=None) -> ShardedTree:
+    """``params`` (one device's whole tree) placed over ``mesh`` by
+    ``specs`` (default ``param_shardings``): each device's tree holds its
+    blocks.  A replicated leaf whose device is the shard's is shared, not
+    copied."""
+    specs = param_shardings(mesh, params) if specs is None else specs
+
+    def place(leaf, spec, i):
+        return _place(leaf, spec, mesh.coords(i), mesh, mesh.device_list[i])
+
+    def walk(tree, spec, i):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], spec[k], i) for k in tree}
+        return place(tree, spec, i)
+
+    return ShardedTree(mesh, [walk(params, specs, i) for i in range(mesh.size)])
+
+
 def gqa_attention(q, k, v, causal: bool):
     """Grouped-query attention without repeating K/V: q [B, H, S, hd],
     k/v [B, KV, S_k, hd], H = KV * g, group heads folded into the row
@@ -282,35 +394,67 @@ def heads(t, B, S, n, hd):
     return t.reshape(B, S, n, hd).transpose(1, 2)
 
 
+def split_qkv(qkv, cfg: LMConfig):
+    """The fused projection's output -> (q, k, v) columns of this shard's
+    heads.  On one device (or a tp axis of 1) a split at [D, kv*hd].  On a
+    tp shard, ``qkv`` holds the shard's contiguous block of the reference
+    layout's columns (``param_shardings``: ``wqkv`` split by columns over
+    ``tp``), which does not follow the q | k | v boundaries, so the shard
+    reads the columns of its own heads from the group's blocks
+    (``gather_slices``): the reshard GSPMD inserts there."""
+    hd = cfg.head_dim
+    dq, dkv = cfg.n_heads * hd, cfg.kv_heads * hd
+    tp = axis_size("tp")
+    if tp == 1:
+        return torch.split(qkv, [dq, dkv, dkv], dim=-1)
+    t = axis_index("tp")
+    D, KV = dq * tp, dkv * tp
+    qkv = gather_slices(qkv, "tp", qkv.ndim - 1,
+                        [(t * dq, (t + 1) * dq), (D + t * dkv, D + (t + 1) * dkv),
+                         (D + KV + t * dkv, D + KV + (t + 1) * dkv)])
+    return torch.split(qkv, [dq, dkv, dkv], dim=-1)
+
+
+def attn_out(lp, x, a):
+    """x + the attention output projection of a [B, S, n_heads*hd]; on a
+    tp shard ``wo`` holds its heads' rows, so the partial products are
+    summed over ``tp`` (``all_reduce``) before the residual."""
+    return x + all_reduce(lm_matmul(lp, "wo", a, out_dtype=x.dtype), "tp")
+
+
 def _ffn(lp, h, cfg: LMConfig):
     """Dense or MoE feed-forward on h [B, S, D] -> (y, lb_loss): the dense
     FFN is gelu (tanh form, as ``jax.nn.gelu``) between the two layer
     matmuls, with a load-balance loss of 0.0 (a float: no device work); an MoE layer routes the whole
-    [B*S] token stream (``moe_apply``)."""
+    [B*S] token stream (``moe_apply``; its experts split over ``ep`` on
+    a mesh).  On a tp shard ``w1`` holds its columns and ``w2`` its rows,
+    so the dense output is summed over ``tp``; MoE leaves replicate over
+    ``tp``."""
     if "moe" in lp:
         y, aux = moe_apply(lp["moe"], h, cfg.moe)
         return y, aux["lb_loss"]
     u = F.gelu(lm_matmul(lp, "w1", h, out_dtype=h.dtype), approximate="tanh")
-    return lm_matmul(lp, "w2", u, out_dtype=h.dtype), 0.0
+    return all_reduce(lm_matmul(lp, "w2", u, out_dtype=h.dtype), "tp"), 0.0
 
 
 def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
     """One decoder block: attention + FFN (dense or MoE) with residuals ->
-    (x', lb_loss)."""
-    B, S, D = x.shape
+    (x', lb_loss).  On a tp shard (``cfg`` the shard's, ``LMConfig.tp_local``)
+    the block attends its heads and reduces twice over ``tp``: after
+    ``wo`` and after ``w2``."""
+    B, S, _ = x.shape
     hd = cfg.head_dim
     kv = cfg.kv_heads
     h = _rmsnorm(x, lp["ln1"])
     qkv = lm_matmul(lp, "wqkv", h, out_dtype=x.dtype)
-    q, k, v = torch.split(qkv, [D, kv * hd, kv * hd], dim=-1)
+    q, k, v = split_qkv(qkv, cfg)
     q, k, v = heads(q, B, S, cfg.n_heads, hd), heads(k, B, S, kv, hd), heads(v, B, S, kv, hd)
     if cfg.rope:
         positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, cfg.rope_base)
         k = apply_rope(k, positions, cfg.rope_base)
     a = _attention(q, k, v, causal, use_flash)
-    a = a.transpose(1, 2).reshape(B, S, D)
-    x = x + lm_matmul(lp, "wo", a, out_dtype=x.dtype)
+    x = attn_out(lp, x, a.transpose(1, 2).reshape(B, S, -1))
     y, lb = _ffn(lp, _rmsnorm(x, lp["ln2"]), cfg)
     return x + y, lb
 
@@ -331,10 +475,19 @@ def token_rows(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool = False,
-             return_lb: bool = False):
+             return_lb: bool = False, mesh: Optional[DeviceMesh] = None):
     """tokens [B, S] (ids, or wire values: ``token_rows``) -> logits
     [B, S, V] f32; with ``return_lb`` also the summed MoE load-balance
-    loss (f32 scalar, 0 for a dense config)."""
+    loss (f32 scalar, 0 for a dense config).  ``params`` a ``ShardedTree``
+    (``shard_params``) runs over its mesh (``mesh``, if given, must be
+    it): each shard on its device, its heads and FFN columns over ``tp``,
+    its experts over ``ep``, and the rows split over ``dp`` when ``dp``
+    divides them and no MoE layer couples them (else every ``dp`` group
+    takes all rows); the logits come back on the mesh's first device."""
+    if isinstance(params, ShardedTree):
+        if mesh is not None and mesh is not params.mesh:
+            raise ValueError("lm_apply: mesh differs from the params' mesh")
+        return _lm_apply_sharded(params, tokens, cfg, causal, use_flash, return_lb)
     x = params["embed"][token_rows(tokens, cfg.vocab)]
     lb_total = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
@@ -345,8 +498,34 @@ def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool
     return (logits, lb_total) if return_lb else logits
 
 
+def _lm_apply_sharded(params: ShardedTree, tokens, cfg: LMConfig, causal: bool,
+                      use_flash: bool, return_lb: bool):
+    mesh = params.mesh
+    dp = mesh.shape.get("dp", 1)
+    split = dp > 1 and tokens.shape[0] % dp == 0 and cfg.moe_every == 0
+    rows = tokens.shape[0] // dp if split else tokens.shape[0]
+
+    def body(shard):
+        t = tokens
+        if split:
+            d = shard.coords["dp"]
+            t = tokens[d * rows:(d + 1) * rows]
+        return lm_apply(params.shards[shard.index], t.to(shard.device), cfg.for_shard(shard),
+                        causal, use_flash, return_lb)
+
+    outs = mesh.run(body)
+    if not split:
+        return outs[0]
+    # each dp group's first shard, in dp order
+    leads = [i for i in range(mesh.size)
+             if all(v == 0 for k, v in mesh.coords(i).items() if k != "dp")]
+    dev = mesh.device_list[0]
+    logits = torch.cat([(outs[i][0] if return_lb else outs[i]).to(dev) for i in leads])
+    return (logits, outs[0][1]) if return_lb else logits
+
+
 def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
-                  decode: bool = False) -> bool:
+                  decode: bool = False, mesh: Optional[DeviceMesh] = None) -> bool:
     """Deployment-parameter attention mode -> ``use_flash``, decided once
     at construction (table in the module docstring).  On CUDA the kernel
     is built and launched once here (``probe_kernel``), so a missing nvcc
@@ -357,7 +536,18 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
     ``use_flash`` also sends every cached step through it.  An int8 cache
     (``kv_quant="int8"``) asks and probes the int8-K/V variants (the paged
     kernel asked at the continuous lane's default block size, 16; the
-    scheduler probes it at its own)."""
+    scheduler probes it at its own).
+
+    With a ``mesh`` the question is asked at one shard's shape
+    (``LMConfig.tp_local``: its heads, the same head dim and group) and
+    the kernels probed on every device of the mesh: each shard launches
+    the kernels on its own heads.  The reference keeps a multi-device mesh
+    off its Pallas kernels (GSPMD cannot partition a ``pallas_call``); the
+    port's shards are single-device programs and do not inherit that."""
+    if mesh is not None:
+        local = cfg.tp_local(mesh.shape.get("tp", 1))
+        return {resolve_flash(attention, local, d, decode)
+                for d in mesh.distinct_devices}.pop()
     if attention == "xla":
         return False
     if attention not in ("auto", "flash"):
@@ -382,6 +572,30 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
     probe_kernel(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
     if decode:
         probe_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, device, kv_dtype)
+    return True
+
+
+def resolve_paged_flash(attention: str, cfg: LMConfig, device: torch.device,
+                        use_flash: bool, mesh: Optional[DeviceMesh] = None) -> bool:
+    """Whether the continuous lane takes its kernels (``kv_write_paged``
+    for a prefill tick, ``flash_decode_paged`` for a decode step): the
+    unit's ``use_flash``, and also where ``resolve_flash`` refused only for
+    kernels that lane never runs.  The lane launches no ``flash_attention``
+    and no two-tier decode, and the paged kernel takes float32, so an f32
+    config (a bf16-only refusal) still serves the lane through its
+    kernels, as the speculative draft's f32 steps do.  Asked at one shard's
+    shape over a ``mesh``; the scheduler probes both kernels at its
+    construction.  The plain path stays for ``attention="xla"``, an int8
+    cache whose variants ``resolve_flash`` already asked, and a shape the
+    paged kernel refuses."""
+    if use_flash or attention == "xla" or cfg.kv_quant != "none" or device.type != "cuda":
+        return use_flash
+    if mesh is not None:
+        cfg = cfg.tp_local(mesh.shape.get("tp", 1))
+    why = paged_kernel_shape_error(cfg.head_dim, cfg.dtype, cfg.n_heads // cfg.kv_heads, 16)
+    if why is not None:
+        logger.info("paged kernels not used (%s); the continuous lane runs the plain path", why)
+        return False
     return True
 
 
@@ -528,6 +742,7 @@ class TransformerLM(Unit):
         rope: bool = True,
         rope_base: float = 10000.0,
         device: DeviceLike = None,
+        mesh: Optional[DeviceMesh] = None,
     ):
         self.cfg = LMConfig(
             vocab=int(vocab), d_model=int(d_model), n_heads=int(n_heads),
@@ -538,8 +753,14 @@ class TransformerLM(Unit):
         )
         self.weights_path = str(weights_path)
         self.seed = int(seed)
+        # mesh (a binding's mesh_axes): params laid out by param_shardings,
+        # every shard on its own device (the first holds the answers)
+        self.mesh = mesh
+        if mesh is not None:
+            self.cfg.tp_local(mesh.shape.get("tp", 1))  # refuses an indivisible tp now
+            device = mesh.device_list[0]
         self.device = resolve_device(device)
-        self.use_flash = resolve_flash(str(attention), self.cfg, self.device)
+        self.use_flash = resolve_flash(str(attention), self.cfg, self.device, mesh=mesh)
         # capacity routing flattens the stacked batch into one token stream,
         # so co-batched rows change each other's overflow: no coalescing
         self.batch_coupled = self.cfg.moe_every > 0
@@ -547,7 +768,14 @@ class TransformerLM(Unit):
     def init_state(self, rng):
         params = lm_init(seeded_generator(rng, self.seed), self.cfg, self.device)
         params = load_lm_weights(params, self.weights_path)
-        return quantize_lm_params(params) if self.cfg.quant == "int8" else params
+        params = quantize_lm_params(params) if self.cfg.quant == "int8" else params
+        return self.shard_state(params)
+
+    def shard_state(self, params):
+        """A whole params tree (one device's, or ``convert.params_from_jax``
+        of the reference unit's gathered state) laid out over the unit's
+        mesh; unchanged without one."""
+        return params if self.mesh is None else shard_params(params, self.mesh)
 
     def predict(self, state, X):
         return lm_apply(state, X, self.cfg, use_flash=self.use_flash)

@@ -1,3 +1,4 @@
-"""Parallel layers of the port.  Only the mixture-of-experts layer's
-single-device half is here (``moe.py``); meshes, sharding, expert and
-pipeline parallelism and ring attention are ROADMAP item [6]."""
+"""Parallel layers of the port: device meshes held by one process
+(``mesh.py``), the sharded ensemble (``ensemble.py``) and the
+mixture-of-experts layer with its expert-parallel layout (``moe.py``).
+Ring attention, the pipeline and ``multihost`` are ROADMAP item [6b]."""

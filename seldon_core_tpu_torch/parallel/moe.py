@@ -29,8 +29,15 @@ step reads a device value back to the host (no boolean-mask indexing, no
 ``one_hot`` or ``bincount``, whose CUDA versions sync), so a decode
 step's MoE layers enqueue without waiting on the card.
 
-``moe_leaf_spec`` and ``moe_param_shardings`` (mesh layouts) are ROADMAP
-item [6].
+Expert parallelism (``moe.py:60-79``, ``:129-173``): ``moe_leaf_spec`` is
+the one source of the MoE layout (the expert stacks ``w1``/``w2`` split
+along their expert axis over ``ep``, the router replicated), used here
+and by the LM's ``param_shardings``; ``moe_param_shardings`` is it over a
+tree.  On an ``ep`` shard (``parallel/mesh.py``) the routing is computed
+on every shard (the router and the tokens are replicated), each shard
+runs its ``E / ep`` experts' products on its slice of the ``[E, C, D]``
+dispatch, and ``all_gather`` over ``ep`` joins the slices before the
+combine: the all-to-all GSPMD inserts in the reference.
 """
 
 from __future__ import annotations
@@ -42,7 +49,11 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["MoEConfig", "Routing", "moe_init", "moe_apply"]
+from seldon_core_tpu_torch.parallel.mesh import (ShardedTree, all_gather, axis_index, axis_size,
+                                                 spmd_call)
+
+__all__ = ["MoEConfig", "Routing", "moe_init", "moe_apply", "moe_leaf_spec",
+           "moe_param_shardings"]
 
 
 @dataclass(frozen=True)
@@ -121,10 +132,47 @@ def _route(gates: torch.Tensor, cfg: MoEConfig, capacity: int) -> Routing:
     return Routing(expert, slot, weight, kept)
 
 
-def moe_apply(params: Dict[str, Any], x: torch.Tensor,
-              cfg: MoEConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def moe_leaf_spec(name: str, leaf, mesh, axis: str = "ep") -> Tuple:
+    """The partition spec of one MoE leaf (a tuple of mesh axis names or
+    None per dimension, ``()`` replicated): the expert stacks split over
+    ``axis``, the router replicated."""
+    if name in ("w1", "w2") and axis in mesh.shape:
+        return (axis,) + (None,) * (leaf.ndim - 1)
+    return ()
+
+
+def moe_param_shardings(mesh, params, axis: str = "ep") -> Dict[str, Tuple]:
+    """``moe_leaf_spec`` of every leaf of one MoE layer's params."""
+    return {name: moe_leaf_spec(name, leaf, mesh, axis) for name, leaf in params.items()}
+
+
+def _experts(params: Dict[str, Any], xin: torch.Tensor, axis: str = "ep") -> torch.Tensor:
+    """The expert FFN over the dispatch ``[E, C, D]`` -> ``[E*C, D]``.  On
+    an ``ep`` shard ``w1``/``w2`` hold its experts: it multiplies their
+    slice of the dispatch, and the slices are gathered in expert order."""
+    E, C, D = xin.shape
+    n = axis_size(axis)
+    if n > 1:
+        el = params["w1"].shape[0]
+        xin = xin.narrow(0, axis_index(axis) * el, el)
+    h = F.gelu(torch.bmm(xin, params["w1"]), approximate="tanh")
+    out = torch.bmm(h, params["w2"])                                     # [E_l, C, D]
+    if n > 1:
+        out = all_gather(out, axis, 0)
+    return out.reshape(E * C, D)
+
+
+def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig, mesh=None,
+              axis: str = "ep") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [..., D] -> (y [..., D], {"lb_loss", "overflow"}), as
-    ``moe_apply`` (``moe.py:129-173``) on one device."""
+    ``moe_apply`` (``moe.py:129-173``); on an ``axis`` shard its experts'
+    products only (``_experts``).  ``params`` a ``ShardedTree`` (laid out
+    by ``moe_param_shardings``) runs over its mesh, which ``mesh`` (if
+    given) must be, and answers on its first device."""
+    if isinstance(params, ShardedTree):
+        if mesh is not None and mesh is not params.mesh:
+            raise ValueError("moe_apply: mesh differs from the params' mesh")
+        return spmd_call(moe_apply, params, x, cfg, axis=axis)
     orig_shape = x.shape
     D = orig_shape[-1]
     xt = x.reshape(-1, D)                                                 # [T, D]
@@ -141,8 +189,7 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor,
     tok = torch.arange(T, device=x.device)[:, None].expand_as(flat)
     src.scatter_(0, torch.where(r.kept, flat, E * C).flatten(), tok.flatten())
     xin = torch.cat([xt, xt.new_zeros(1, D)])[src[:E * C]].view(E, C, D)
-    h = F.gelu(torch.bmm(xin, params["w1"]), approximate="tanh")
-    out = torch.bmm(h, params["w2"]).view(E * C, D)                      # [E*C, D]
+    out = _experts(params, xin, axis)                                        # [E*C, D]
 
     # combine in the activation dtype, accumulated in f32 as the einsum
     w = r.weight.to(x.dtype).float()[..., None]

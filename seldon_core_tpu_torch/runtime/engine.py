@@ -1243,6 +1243,13 @@ class EngineService:
                            "breakers": {name: br.snapshot()
                                         for name, br in self.breakers.items()}},
             "device": self.device.type,
+            # each unit's device mesh (a binding's mesh_axes): its axes and
+            # its devices in the flat order its shards follow
+            "meshes": {name: {"axes": dict(unit.mesh.shape),
+                              "devices": [str(d) for d in unit.mesh.device_list]}
+                       for name, unit in (self.compiled.units.items()
+                                          if self.compiled is not None else ())
+                       if getattr(unit, "mesh", None) is not None},
             "wire": {"enabled": wire.wire_enabled(),
                      "bytes_copied": RECORDER.wire_bytes_copied},
             "kernels": {"fused_mlp_softmax": {"launches": fused_mlp.LAUNCHES},

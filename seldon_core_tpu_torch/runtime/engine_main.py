@@ -51,7 +51,11 @@ The data plane's lanes (``engine_main.py:99``, ``:133-228`` there):
   (``ENGINE_GEN_ROLE``, default unified; ``SELDON_TPU_DISAGG=0`` forces
   unified), and a prefill replica's decode peers, ``--decode-peers``
   (``ENGINE_DECODE_PEERS``, comma-separated ``uds:/path`` or
-  ``tcp:host:port`` relay specs): ``runtime/servingmesh.py``.
+  ``tcp:host:port`` relay specs): ``runtime/servingmesh.py``;
+* ``--node NAME`` (``ENGINE_GRAPH_NODE``): serve ONE leaf of the loaded
+  deployment's graph as a standalone node engine (``graph/sharding.py``
+  ``node_subspec``), the pod-per-node topology: a root engine whose spec
+  ``shard_predictor`` rewrote dispatches to it over ``POST /predict``.
 
 The "engine up" line names every lane bound and which serves HTTP
 (``http=native`` or ``http=fast``); ``/stats`` has it as
@@ -291,12 +295,22 @@ def main(argv=None) -> None:
     parser.add_argument("--relay-tcp-port", type=int, default=None,
                         help="also serve the relay on this TCP port, the KV hand-off "
                              "receiver (env ENGINE_RELAY_TCP_PORT)")
+    parser.add_argument("--node", default=None,
+                        help="serve ONE graph node of the deployment as a standalone node "
+                             "engine (graph sharding; env ENGINE_GRAPH_NODE)")
     args = parser.parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         parser.exit(2, f"engine_main: {e}\n")
     deployment = load_deployment_from_env(args.file)
+    node = args.node or os.environ.get("ENGINE_GRAPH_NODE", "").strip()
+    if node:
+        # this process serves one leaf: every node engine is shipped the
+        # whole deployment, and the node name selects its slice
+        from seldon_core_tpu_torch.graph.sharding import node_subspec
+
+        deployment = default_and_validate(node_subspec(deployment, node, args.predictor))
     decode_peers = (parse_decode_peers(args.decode_peers) if args.decode_peers is not None
                     else None)
     asyncio.run(serve(deployment, args.predictor, args.host, args.rest_port, device,

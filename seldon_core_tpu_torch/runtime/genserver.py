@@ -37,7 +37,13 @@ each decode step's K/V write and is probed at the pool's block size and
 the head shape it decodes, the draft's in speculative mode, and
 ``kv_write_paged``, the prefill tick's, the prefix's and the verify's
 write) and raises if either fails: the engine never falls back to the
-static lane quietly.
+static lane quietly.  A unit over a device mesh hands its mesh over
+(``continuous_spec``): the pool's KV heads lie over its ``tp`` axis
+(``runtime/servingmesh.py`` ``shard_gen_pool``), every tick's paged
+program runs on every shard from the scheduler thread (its tables and
+tokens copied to each shard's device), both kernels are probed on every
+device of the mesh at one shard's head shape, and ``snapshot()["mesh"]``
+is the mesh's axes.
 
 Three serving modes beside greedy decoding, as the reference composes
 them:
@@ -168,6 +174,7 @@ from seldon_core_tpu_torch.models.generate import (
     sample_token,
 )
 from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
+from seldon_core_tpu_torch.parallel.mesh import first_shard
 from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
 from seldon_core_tpu_torch.runtime import kvstream
 from seldon_core_tpu_torch.runtime.autopilot import SHED_INFO_PREFIX
@@ -391,7 +398,7 @@ class GenServer:
                  seed: int = 0, use_flash: bool = False, block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None, slots: Optional[int] = None,
                  span: Optional[int] = None, prefill_chunk: Optional[int] = None,
-                 role: str = "unified", coordinator=None):
+                 role: str = "unified", coordinator=None, mesh=None):
         self.params = params
         self.cfg = cfg
         self.temperature = float(temperature)
@@ -413,6 +420,13 @@ class GenServer:
             # a hand-off would need the draft pool streamed too
             raise ValueError("speculative decoding does not compose with disaggregated "
                              "prefill/decode roles")
+        #: the unit's device mesh (``params`` a ShardedTree over it): the
+        #: pool's K/V heads lie over its ``tp`` axis (``shard_gen_pool``)
+        #: and every paged call runs on every shard
+        self.mesh = mesh
+        if mesh is not None and (self.spec or role in ("prefill", "decode")):
+            raise ValueError("a generator over a device mesh serves unified and "
+                             "non-speculative on the continuous lane (ROADMAP item [6b])")
         self.role = role if role in ("unified", "prefill", "decode") else "unified"
         #: what runs the prefill role's hand-offs (runtime/servingmesh.py)
         self.coordinator = coordinator
@@ -431,7 +445,7 @@ class GenServer:
         self.imports_committed_total = 0
         self.imports_reclaimed_total = 0
         self.use_flash = bool(use_flash)
-        self.device = params["embed"].device
+        self.device = first_shard(params)["embed"].device
         self.block_size = block_size or _env_int("SELDON_TPU_GEN_BLOCK_SIZE", 16)
         self.num_blocks = num_blocks or _env_int("SELDON_TPU_GEN_POOL_BLOCKS", 1024)
         self.slots = slots or _env_int("SELDON_TPU_GEN_SLOTS", 64)
@@ -455,18 +469,24 @@ class GenServer:
             # The decode kernel at the head shape the lane decodes (the
             # draft's in speculative mode), the write at every pool's
             # (int8 pools probe the int8-K/V variants)
+            # (over a mesh at one shard's heads, on every device of it)
             decoder = draft_cfg if self.spec else cfg
-            probe_paged_decode_kernel(decoder.kv_heads, decoder.n_heads // decoder.kv_heads,
-                                      decoder.head_dim, decoder.dtype, self.device,
-                                      self.block_size, _kv_dtype(decoder))
-            for c in (cfg, draft_cfg) if self.spec else (cfg,):
-                probe_kv_write_paged(c.kv_heads, c.head_dim, c.dtype, self.device, _kv_dtype(c))
+            tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+            for dev in [self.device] if mesh is None else mesh.distinct_devices:
+                local = decoder.tp_local(tp)
+                probe_paged_decode_kernel(local.kv_heads, local.n_heads // local.kv_heads,
+                                          local.head_dim, local.dtype, dev,
+                                          self.block_size, _kv_dtype(local))
+                for c in (cfg, draft_cfg) if self.spec else (cfg,):
+                    c = c.tp_local(tp)
+                    probe_kv_write_paged(c.kv_heads, c.head_dim, c.dtype, dev, _kv_dtype(c))
         self._allocator = BlockAllocator(self.num_blocks)
         self._draft_allocator = BlockAllocator(self.num_blocks) if self.spec else None
         self._pool = None
         self._draft_pool = None
         self._prefix_blocks: List[int] = []  # the shared full blocks, pinned
-        self._prefix_len = 0 if prefix_cache is None else int(prefix_cache["l0"]["k"].shape[2])
+        self._prefix_len = (0 if prefix_cache is None
+                            else int(first_shard(prefix_cache)["l0"]["k"].shape[2]))
         self._root_key = prng.key(self.seed)  # on the host: sequences' keys fold in here
         # scheduler state: the worker thread's, except arrivals
         self._arrivals: deque = deque()
@@ -669,9 +689,8 @@ class GenServer:
                     })
         doc = {
             "mode": "speculative" if self.spec else "decode",
-            # the device mesh is [6]
             "role": self.role,
-            "mesh": None,
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
             "slots": self.slots,
             "inflight_sequences": inflight,
             "waiting_sequences": waiting,
@@ -997,6 +1016,10 @@ class GenServer:
         only when all of it succeeded, so a failure fails every tick rather
         than serving without the prefix."""
         pool = init_block_pool(self.cfg, self.num_blocks, self.block_size, self.device)
+        if self.mesh is not None:
+            from seldon_core_tpu_torch.runtime.servingmesh import shard_gen_pool
+
+            pool = shard_gen_pool(self.mesh, pool)
         draft = (init_block_pool(self.draft_cfg, self.num_blocks, self.block_size, self.device)
                  if self.spec else None)
         if self.prefix_cache is not None:

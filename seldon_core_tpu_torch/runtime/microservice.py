@@ -158,13 +158,16 @@ def as_unit(obj: Any, service_type: str = "MODEL") -> Unit:
 
 
 def build_unit(user_class, parameters: List[Parameter], service_type: str,
-               device: Optional[torch.device] = None) -> Unit:
+               device: Optional[torch.device] = None, mesh=None) -> Unit:
     """The class built from typed parameters (and ``device``, when its
     constructor takes one, so it can choose its kernel path at
-    construction from static shapes), as a Unit."""
+    construction from static shapes; and ``mesh``, a binding's device
+    mesh, for a unit that takes one), as a Unit."""
     kwargs = params_to_kwargs(parameters)
     if device is not None and "device" in inspect.signature(user_class.__init__).parameters:
         kwargs["device"] = device
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     return as_unit(user_class(**kwargs), service_type)
 
 

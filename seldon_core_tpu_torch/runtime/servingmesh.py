@@ -1,5 +1,6 @@
-"""The disaggregated prefill/decode roles and their KV hand-off — the
-single-device half of ``seldon_core_tpu/runtime/servingmesh.py``.
+"""The disaggregated prefill/decode roles and their KV hand-off, and the
+generation lane's tensor-parallel pool — the port's counterpart of
+``seldon_core_tpu/runtime/servingmesh.py``.
 
 * **Roles.** ``engine_main --gen-role {prefill,decode,unified}``
   (``ENGINE_GEN_ROLE``) boots a role-specialised ``GenServer``
@@ -22,8 +23,14 @@ peer answer a typed, retryable 503 (``RoleMismatchError``,
 ``HandoffError``).  Two replicas on one card run side by side: each has
 its own pool and process.
 
-Not ported (ROADMAP item [6]): ``resolve_gen_mesh`` and
-``shard_gen_pool``, the tensor-parallel pool over a device mesh.
+* **Tensor-parallel dispatch.** ``shard_gen_pool`` lays a paged pool out
+  over the generator unit's mesh (a binding's ``mesh_axes``,
+  ``graph/units.py``): its K/V heads over ``tp`` when ``tp`` divides them,
+  so each shard holds its heads' blocks beside its params
+  (``models/transformer.py`` ``param_shardings``), everything else
+  replicated.  The reference's ``resolve_gen_mesh`` (a mesh built from an
+  env knob, called by no code of either package) has no counterpart: the
+  binding is the one way to give a generator a mesh.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ from seldon_core_tpu_torch.runtime import kvstream
 from seldon_core_tpu_torch.utils.telemetry import RECORDER, Reservoir
 
 __all__ = ["GEN_ROLES", "RoleMismatchError", "HandoffError", "disagg_enabled",
-           "resolve_gen_role", "parse_decode_peers", "DisaggCoordinator"]
+           "resolve_gen_role", "parse_decode_peers", "DisaggCoordinator",
+           "shard_gen_pool"]
 
 logger = logging.getLogger(__name__)
 
@@ -91,6 +99,22 @@ def _env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, "") or default)
     except ValueError:
         return default
+
+
+def shard_gen_pool(mesh, pool):
+    """A paged pool (``init_block_pool``: per layer {k, v} ``[blocks, KV,
+    block_size, hd]``, an int8 pool's scale planes ``[blocks, KV,
+    block_size]``) laid out over ``mesh`` as a ``ShardedTree``: the KV
+    axis split over ``tp`` when ``tp`` divides it, each device holding its
+    heads' blocks; otherwise replicated."""
+    from seldon_core_tpu_torch.models.transformer import shard_params
+
+    tp = mesh.shape.get("tp", 1)
+    specs = {li: {name: ((None, "tp") if tp > 1 and arr.ndim >= 3 and arr.shape[1] % tp == 0
+                         else ())
+                  for name, arr in layer.items()}
+             for li, layer in pool.items()}
+    return shard_params(pool, mesh, specs)
 
 
 class DisaggCoordinator:

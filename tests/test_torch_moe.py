@@ -27,7 +27,7 @@ from seldon_core_tpu.models import transformer as jtr
 from seldon_core_tpu.runtime.engine import EngineService as JaxEngine
 from seldon_core_tpu_torch.convert import params_from_jax
 from seldon_core_tpu_torch.graph.defaulting import default_and_validate
-from seldon_core_tpu_torch.graph.spec import GraphSpecError, SeldonDeploymentSpec
+from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
 from seldon_core_tpu_torch.models import transformer as ttr
 from seldon_core_tpu_torch.ops.quant import quantize_lm_params
 from seldon_core_tpu_torch.parallel import moe as tmoe
@@ -395,12 +395,18 @@ def _ep_doc():
 
 
 def test_the_ep_example_is_refused_for_its_mesh_and_serves_without_it(monkeypatch):
-    """As written it is refused naming [6]; without ``mesh_axes`` both
-    engines build, the continuous switch on, and on the same state answer
-    the same tokens for a batch (capacity over both rows) and one row: the
-    port serves on the static lane (``genserver`` null), with no batcher."""
+    """As written, on one device it is refused for its mesh in the
+    reference's words ("needs 4 devices, have 1"; tests/test_torch_mesh.py
+    and test_torch_tensor_parallel.py serve it over 4 of 8 CPU devices);
+    without ``mesh_axes`` both engines build, the continuous switch on, and
+    on the same state answer the same tokens for a batch (capacity over
+    both rows) and one row: the port serves on the static lane
+    (``genserver`` null), with no batcher."""
+    from seldon_core_tpu_torch.parallel import mesh as pmesh
+
     monkeypatch.setenv("SELDON_TPU_GEN_CONTINUOUS", "1")
-    with pytest.raises(GraphSpecError, match=r"\[6\]"):
+    monkeypatch.setattr(pmesh, "_CPU_DEVICES", 1)
+    with pytest.raises(ValueError, match=r"mesh \{'ep': 4\} needs 4 devices, have 1"):
         EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(_ep_doc())),
                       device="cpu")
     doc = _ep_doc()

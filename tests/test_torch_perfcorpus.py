@@ -10,6 +10,7 @@ its first request."""
 
 import asyncio
 import json
+import threading
 import time
 
 import numpy as np
@@ -41,16 +42,29 @@ def _reset_learned_singletons():
     jap.AUTOPILOT.reset()
 
 
+class _CorpusClock:
+    """A ``time`` module stand-in that only the two corpora read: each
+    ``time()`` call advances the shared counter by 0.125 s."""
+
+    def __init__(self, now):
+        self.now = now
+
+    def time(self):
+        self.now[0] += 0.125
+        return self.now[0]
+
+
 @pytest.fixture()
 def clock(monkeypatch):
-    """One wall clock for both packages' row and sketch timestamps."""
+    """One wall clock for both packages' row and sketch timestamps.  It
+    replaces each corpus module's ``time`` attribute, not the process-wide
+    ``time.time``: another thread of the process (a scheduler, a drainer)
+    that reads the wall clock must not move the counter between the two
+    corpora's records."""
     now = [1_700_000_000.0]
-
-    def fake():
-        now[0] += 0.125
-        return now[0]
-
-    monkeypatch.setattr(time, "time", fake)
+    fake = _CorpusClock(now)
+    monkeypatch.setattr(jpc, "time", fake)
+    monkeypatch.setattr(ppc, "time", fake)
     return now
 
 
@@ -107,6 +121,41 @@ def test_same_records_same_document_and_sketch(seed, segment_bytes, tmp_path, mo
         (tmp_path / "jax" / "sketch.json").read_bytes()
     assert _doc(p) == _doc(j)
     assert p.snapshot() == j.snapshot()
+
+
+def test_a_thread_reading_the_wall_clock_moves_neither_corpus(tmp_path, monkeypatch, clock):
+    """Another thread of the process reads ``time.time()`` in a loop while
+    both corpora record, and each record waits until it has read again:
+    the documents and sketches still agree, because the fixture's clock is
+    read by the two corpora alone."""
+    j, p = _corpora(tmp_path, monkeypatch, 4096, max_segments=2)
+    reads = [0]
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            time.time()
+            reads[0] += 1
+
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    try:
+        t0 = clock[0]
+        for corpus in (j, p):
+            clock[0] = t0
+            for key, kw in _rows(3):
+                assert corpus.record(key, **kw) is True
+                seen = reads[0]
+                while reads[0] == seen:  # the reader reads between records
+                    threading.Event().wait(1e-4)
+    finally:
+        stop.set()
+        t.join(timeout=5)
+    assert _doc(p) == _doc(j)
+    j.flush()
+    p.flush()
+    assert (tmp_path / "port" / "sketch.json").read_bytes() == \
+        (tmp_path / "jax" / "sketch.json").read_bytes()
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

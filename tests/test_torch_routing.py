@@ -511,8 +511,9 @@ def test_rest_feedback_and_events_routes():
 # -- the examples the port builds --------------------------------------------------
 
 EXAMPLES = sorted(p.name for p in (ROOT / "examples").glob("*_deployment.json"))
-REFUSED = {"generator_tp_deployment.json": r"item \[6\]",
-           "generator_ep_deployment.json": r"item \[6\]"}
+# the two multi-device generators declare mesh_axes over four devices
+MESH = {"generator_tp_deployment.json": {"tp": 4},
+        "generator_ep_deployment.json": {"ep": 4}}
 # the multi-node examples, all in-process and pure, serve fused as the JAX
 # engine's do; every other example is a single node, served compiled
 FUSED = {"ensemble4_deployment.json", "epsilon_greedy_deployment.json",
@@ -520,20 +521,19 @@ FUSED = {"ensemble4_deployment.json", "epsilon_greedy_deployment.json",
 
 
 @pytest.mark.parametrize("example", EXAMPLES)
-def test_the_port_builds_thirteen_of_fifteen_examples(example):
-    """Thirteen of the fifteen examples build an engine on the CPU, in the
-    mode the JAX engine picks, generator_int8 among them since [2q] was
-    ported; the two multi-device generators are refused naming their
-    ROADMAP item, in every mode."""
+def test_the_port_builds_fifteen_of_fifteen_examples(example, monkeypatch):
+    """All fifteen examples build an engine on the CPU, in the mode the JAX
+    engine picks: generator_int8 among them since [2q] was ported, and
+    the two multi-device generators since [6a], on 8 CPU devices (their
+    unit holds the mesh its binding declares)."""
+    from seldon_core_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "_CPU_DEVICES", 8)
     assert len(EXAMPLES) == 15
     doc = json.loads((ROOT / "examples" / example).read_text())
     spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(doc))
-    if example in REFUSED:
-        with pytest.raises((ValueError, GraphSpecError), match=REFUSED[example]):
-            EngineService(spec, device="cpu")
-        with pytest.raises((ValueError, GraphSpecError), match=REFUSED[example]):
-            EngineService(spec, device="cpu", force_host=True)
-    else:
-        engine = EngineService(spec, device="cpu")
-        engine.close()
-        assert engine.mode == ("fused" if example in FUSED else "compiled")
+    engine = EngineService(spec, device="cpu")
+    engine.close()
+    if example in MESH:
+        assert engine.compiled.units["gen"].mesh.shape == MESH[example]
+    assert engine.mode == ("fused" if example in FUSED else "compiled")
