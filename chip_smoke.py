@@ -437,6 +437,26 @@ it serves the static lane it measured before that lane's switch:
               examples/ensemble4_deployment.json over engine_main --node
               processes, bit-identical to the collapsed engine; a
               {"new_paths": {"mesh": ...}} line
+ 10v. [6b] part 1, on four cards when the machine has four, else four
+              shards of cuda:0: (a) ring_attention_sharded over {"sp": 4},
+              4 causal blocks of (2, 16, 512, 64) bf16, the kernel path
+              (RingFlash) against the plain ring in f32: o within
+              FLASH_O_ATOL, dq/dk/dv within BWD_REL_TOL, 10 launches of
+              each kernel (none above the diagonal); (b) TransformerLM at
+              the flagship's widths with 16 kv heads over {"sp": 4}, a
+              [2, 2048] request's logits against the one-device unit's,
+              12 x 10 flash_attention launches, and a small binding with
+              mesh_axes {"sp": 4}; (c) lm_train_step over {"tp": 2,
+              "sp": 2} on the copy task (B=16, S=512): step 0's gradients
+              against one device's kernel path, 3 steps, a falling loss,
+              replicated copies bit-identical, 72 launches of each flash
+              kernel a step; (d) the GQA flagship's pipeline over
+              {"pp": 4}, 4 microbatches: logits against lm_apply, step 0's
+              gradients, 3 steps, 48 forward launches a forward and 48 of
+              each a step, each stage's bytes; (e) MNIST's train_step over
+              {"dp": 4} against one device's; each path's walls against
+              one device in turns (recorded, not claimed); a
+              {"new_paths": {"sharded_train": ...}} line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -6394,6 +6414,21 @@ def qc_node_row(doc: dict, node: str) -> dict:
     return rows[0]
 
 
+def qc_quality_after(port: int, live_rows: int, timeout_s: float = 30.0) -> dict:
+    """``/quality`` once MNIST's window holds ``live_rows`` live rows: the
+    drainer summarizes each sampled batch on the card after its answer is
+    sent, so a read right after the last request can see only some of them
+    (a card run read 192 of 512 rows and so a noisier psi).  Returns the
+    last document read when ``timeout_s`` passes first."""
+    end = time.perf_counter() + timeout_s
+    while True:
+        doc = get_json(port, "/quality")
+        if (qc_node_row(doc, "mnist").get("live_rows", 0) >= live_rows
+                or time.perf_counter() > end):
+            return doc
+        time.sleep(0.01)
+
+
 def qc_drift(torch, dev, smi, counted: bool) -> dict:
     """Part 1: MNIST's drift window, the device summarizer and the SLO
     burn, over REST."""
@@ -6418,12 +6453,12 @@ def qc_drift(torch, dev, smi, counted: bool) -> dict:
         with FoldWalls() as folds:
             for x in ref + same:
                 keepalive_walls(port, ndarray(x), 1)
-            after_same = get_json(port, "/quality")
+            after_same = qc_quality_after(port, QC_LIVE_BATCHES * QC_BATCH)
             for x in shifted:
                 keepalive_walls(port, ndarray(x), 1)
         wall = time.perf_counter() - t0
         device_fold = folds.p50_us(True, QC_BATCH)
-        after_shift = get_json(port, "/quality")
+        after_shift = qc_quality_after(port, 2 * QC_LIVE_BATCHES * QC_BATCH)
         launches = fused_mlp.LAUNCHES
         _, samples = parse_prometheus(request("GET", f"http://127.0.0.1:{port}/prometheus")[1]
                                       .decode())
@@ -6997,8 +7032,11 @@ def pq_flush(torch, dev, smi, engine, port) -> dict:
 
 def pq_shed(torch, dev, smi, port, learned: dict, counted: bool) -> dict:
     """Part 3: requests whose deadline sits below the learned estimate / 1.25
-    answer 503 before any dispatch; ample ones are served.  Binary frames, so
-    the deadline is not spent decoding JSON before admission."""
+    answer 503 before any dispatch; ample ones are served.  Binary frames
+    whose sidecar carries the deadline: its clock starts where the frame is
+    handled, so no host delay before admission (reading the body, a thread
+    switch) spends a 1 ms budget first, which would answer 504 instead (a
+    card run saw one of 8 header deadlines do so)."""
     from seldon_core_tpu_torch.ops import fused_mlp
     from seldon_core_tpu_torch.runtime import wire
     from seldon_core_tpu_torch.runtime.autopilot import SHED_INFO_PREFIX, shed_margin
@@ -7032,9 +7070,9 @@ def pq_shed(torch, dev, smi, port, learned: dict, counted: bool) -> dict:
     for i in range(PQ_SHEDS):
         puid = f"pq-shed-{i}"
         puids.append(puid)
-        body = wire.join_parts(wire.encode_frame(x, meta_bytes=wire.pack_wire_meta(puid=puid)))
-        status, raw = post_bytes(url, body, {"Content-Type": wire.WIRE_CONTENT_TYPE,
-                                             "Seldon-Deadline-Ms": str(deadline_ms)})
+        body = wire.join_parts(wire.encode_frame(x, meta_bytes=wire.pack_wire_meta(
+            puid=puid, deadline_ms=deadline_ms)))
+        status, raw = post_bytes(url, body, {"Content-Type": wire.WIRE_CONTENT_TYPE})
         err = wire.decode_frame(raw).extra().get("error", "") if status != 200 else ""
         shed.append((status, err.startswith(SHED_INFO_PREFIX)))
     launches_shed = fused_mlp.LAUNCHES
@@ -7055,7 +7093,7 @@ def pq_shed(torch, dev, smi, port, learned: dict, counted: bool) -> dict:
         raise AssertionError(f"[policies] part 3 checks failed: {checks}; {shed}; served "
                              f"{served}; launches {launches_shed}; sheds {before} -> {after}")
     log(f"[policies] admission: the {bucket}-row bucket's learned estimate {est_ms} ms, "
-        f"Seldon-Deadline-Ms {deadline_ms} (estimate / {shed_margin()} rounded down): "
+        f"the sidecar's deadline_ms {deadline_ms} (estimate / {shed_margin()} rounded down): "
         f"{PQ_SHEDS} binary frames answered 503 '{SHED_INFO_PREFIX}: ...' with "
         f"{launches_shed} fused-MLP launches, seldon_tpu_autopilot_shed_total{{where="
         f"\"admission\"}} {before} -> {after}; {PQ_SHEDS} at 10000 ms served ({smi})")
@@ -9264,6 +9302,545 @@ def mesh_phase(torch, dev, smi) -> dict:
     return out
 
 
+# -- 10v. [6b] part 1: ring attention, the sharded train steps, the pipeline ----
+
+SHARDED_SHARDS = 4
+RING_SHAPE = (2, 16, 16, 512, 64)   # (B, H, KV, S_local, D): 4 blocks over sp=4, S = 2048
+SP_B, SP_S = 2, 2048                # the flagship made MHA over sp=4: tokens [2, 2048]
+# the flagship's widths with full heads: the ring takes n_kv_heads == n_heads
+SP_DIMS = {**{k: v for k, v in GEN_DIMS.items() if k != "max_new_tokens"}, "n_kv_heads": 16}
+SP_SMALL = {"vocab": 256, "d_model": 128, "n_heads": 4, "n_layers": 2, "d_ff": 512}
+SP_SMALL_S = 512                    # S_local 128 over sp=4: the ring's kernel path
+SHARD_STEPS = 3                     # train steps of each sharded path, on one batch
+PIPE_STAGES, PIPE_MICRO = 4, 4
+MNIST_DP_B, MNIST_DP_LR = 256, 1e-3
+SHARD_TURNS = 1                     # ABBA turns of each path's walls against one device
+
+
+class GradCapture:
+    """An optimizer whose update is zero and keeps the gradients it is
+    given: ``optim.grad_update`` with it returns a step's gradients as its
+    train step computes them (the copies of a replicated leaf summed)."""
+
+    def __init__(self):
+        self.grads = None
+
+    def update(self, grads, state, params=None):
+        self.grads = grads
+        return grads, state
+
+
+def step_grads(torch, loss_fn, params, batch):
+    from seldon_core_tpu_torch.optim import grad_update
+    from seldon_core_tpu_torch.parallel.mesh import ShardedTree
+
+    cap = GradCapture()
+    state = (ShardedTree(params.mesh, [None] * params.mesh.size)
+             if isinstance(params, ShardedTree) else None)
+    _, _, loss = grad_update(loss_fn, params, state, batch, cap)
+    return float(loss), cap.grads
+
+
+def gather_sharded(torch, tree) -> dict:
+    """{keystr path: whole leaf} from a ShardedTree: each split leaf
+    concatenated along its split dims in coordinate order, a replicated one
+    from shard 0."""
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    mesh = tree.mesh
+    specs = dict(leaves_with_paths(tree.specs))
+    shards = [dict(leaves_with_paths(s)) for s in tree.shards]
+    out = {}
+    for path in shards[0]:
+        leaves = [s[path] for s in shards]
+        t = leaves[0]
+        for dim, axis in enumerate(specs.get(path, ())):
+            if axis is None or mesh.shape.get(axis, 1) == 1:
+                continue
+            parts = {}
+            for i, leaf in enumerate(leaves):
+                parts.setdefault(mesh.coords(i)[axis], leaf)
+            t = torch.cat([parts[c].to(t.device) for c in sorted(parts)], dim=dim)
+        out[path] = t
+    return out
+
+
+def copies_identical(torch, tree) -> int:
+    """The number of leaf copies checked bit-identical to the first shard
+    holding the same block; raises on any that differs."""
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    mesh = tree.mesh
+    specs = dict(leaves_with_paths(tree.specs))
+    shards = [dict(leaves_with_paths(s)) for s in tree.shards]
+    checked = 0
+    for path in shards[0]:
+        axes = [a for a in specs.get(path, ()) if a is not None]
+        first = {}
+        for i, s in enumerate(shards):
+            key = tuple(mesh.coords(i)[a] for a in axes)
+            if key in first:
+                if not torch.equal(first[key], s[path].to(first[key].device)):
+                    raise AssertionError(f"[sharded] copy of {path} on shard {i} differs")
+                checked += 1
+            else:
+                first[key] = s[path]
+    return checked
+
+
+def rel_l2(torch, got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| a leaf, on want's device."""
+    return {k: float((got[k].to(want[k].device).float() - want[k].float()).norm()
+                     / want[k].float().norm()) for k in want}
+
+
+def flash_counts(fa) -> dict:
+    return {"fwd": fa.LAUNCHES, "dq": fa.DQ_LAUNCHES, "dkv": fa.DKV_LAUNCHES}
+
+
+def flash_reset(fa) -> None:
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+
+
+def turns_p50(torch, fns: dict, turns: int = SHARD_TURNS, runs: int = 2) -> dict:
+    """Each named call's wall p50 in ms (ending in a synchronize of every
+    card), taken in ABBA turns of ``runs`` calls, after one warm call."""
+    walls = {k: [] for k in fns}
+    names = list(fns)
+    for fn in fns.values():
+        fn()
+    sync_all(torch)
+    for turn in range(turns):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            for _ in range(runs):
+                t = time.perf_counter()
+                fns[name]()
+                sync_all(torch)
+                walls[name].append(time.perf_counter() - t)
+    return {k: float(np.median(v) * 1e3) for k, v in walls.items()}
+
+
+def ring_alone(torch, dev, smi, devices) -> dict:
+    """(a) ring_attention_sharded over {"sp": 4}, 4 causal blocks of
+    RING_SHAPE in bf16: the kernel path (RingFlash) against the plain ring's
+    arithmetic in f32 on the same bf16 inputs, o within FLASH_O_ATOL and
+    dq/dk/dv within BWD_REL_TOL of their largest element, with 1+2+3+4
+    launches of each kernel (no block above the diagonal)."""
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    B, H, KV, Sl, D = RING_SHAPE
+    n = SHARDED_SHARDS
+    mesh = build_mesh({"sp": n}, devices=devices)
+    g = torch.Generator().manual_seed(SEED + 40)
+    q, k, v, do = (torch.randn(B, H, n * Sl, D, generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    kern = ring_attention_sharded(mesh, "sp", True, use_flash=True)
+    plain = ring_attention_sharded(mesh, "sp", True, use_flash=False)
+
+    def fwd_bwd(fn, ins, cot):
+        ts = [t.detach().requires_grad_() for t in ins]
+        o = fn(*ts)
+        return o.detach(), torch.autograd.grad(o, ts, cot)
+
+    flash_reset(fa)
+    o_k, g_k = fwd_bwd(kern, (q, k, v), do)
+    sync_all(torch)
+    launches = flash_counts(fa)
+    o_p, g_p = fwd_bwd(plain, [t.float() for t in (q, k, v)], do.float())
+    o_err = float((o_k.float() - o_p).abs().max())
+    rel = {name: float((a.float() - b).abs().max() / b.abs().max())
+           for name, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
+    want = n * (n + 1) // 2
+    if launches != {"fwd": want, "dq": want, "dkv": want}:
+        raise AssertionError(f"[sharded] the ring launched {launches}, want {want} of each "
+                             f"(1+2+...+{n} blocks: none above the diagonal)")
+    if o_err > FLASH_O_ATOL or max(rel.values()) > BWD_REL_TOL:
+        raise AssertionError(f"[sharded] the ring's kernel path: o {o_err:.3e} from the plain "
+                             f"ring (bound {FLASH_O_ATOL}), gradients {rel} (bound {BWD_REL_TOL} "
+                             f"of the largest element)")
+    del g_p, o_p
+    walls = turns_p50(torch, {"kernel": lambda: fwd_bwd(kern, (q, k, v), do),
+                              "plain_bf16": lambda: fwd_bwd(plain, (q, k, v), do)})
+    rec = {"shape": list(RING_SHAPE), "launches": launches, "max_abs_err_o": o_err,
+           "bwd_rel_err": rel, "fwd_bwd_wall_p50_ms": walls,
+           "shards": [str(d) for d in mesh.device_list]}
+    log(f"[sharded] (a) ring over {mesh.shape}, 4 causal blocks of (B, H, S_local, D) = "
+        f"({B}, {H}, {Sl}, {D}) bf16: launches {launches} (1+2+3+4 blocks; none above the "
+        f"diagonal); o within {o_err:.3e} of the plain ring in f32 (bound {FLASH_O_ATOL}), "
+        f"dq/dk/dv within {rel} of their largest element (bound {BWD_REL_TOL}); forward + "
+        f"backward wall p50 {walls['kernel']:.3f} ms through the kernels against "
+        f"{walls['plain_bf16']:.3f} ms for the plain ring in bf16 (recorded, not claimed) "
+        f"on {smi}")
+    return rec
+
+
+def serve_sp(torch, dev, smi, devices) -> dict:
+    """(b) TransformerLM at the flagship's widths made MHA over {"sp": 4}:
+    a [2, 2048] request's logits held to the one-device unit's (flash at S
+    = 2048) within MESH_LOGIT_ATOL, 12 x (1+2+3+4) flash_attention launches
+    a request; then a small-width binding with mesh_axes {"sp": 4} (through
+    EngineService on four cards, else the unit over four shards of
+    cuda:0), 2 x 10 launches, logits against its one-device self."""
+    from seldon_core_tpu_torch.models.transformer import TransformerLM
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+
+    n = SHARDED_SHARDS
+    blocks = n * (n + 1) // 2
+    kwargs = {**SP_DIMS, "dtype": "bfloat16"}
+    one = TransformerLM(**kwargs, device=dev)
+    state = one.init_state(torch.Generator().manual_seed(SEED))
+    mesh = build_mesh({"sp": n}, devices=devices)
+    sp = TransformerLM(**kwargs, mesh=mesh, device=devices[0])
+    sstate = sp.shard_state(state)
+    if not (sp.use_flash and one.use_flash):
+        raise AssertionError("[sharded] the flagship over sp=4 does not take the kernels")
+    rng = np.random.default_rng(SEED + 42)
+    X = torch.as_tensor(rng.integers(0, SP_DIMS["vocab"], size=(SP_B, SP_S)), device=dev).float()
+    with torch.inference_mode():
+        want = one.predict(state, X)
+        flash_reset(fa)
+        got = sp.predict(sstate, X)
+        sync_all(torch)
+        launches = fa.LAUNCHES
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        del got, want
+        walls = turns_p50(torch, {"sp4": lambda: sp.predict(sstate, X),
+                                  "one": lambda: one.predict(state, X)})
+    L = SP_DIMS["n_layers"]
+    if launches != L * blocks or err > MESH_LOGIT_ATOL:
+        raise AssertionError(f"[sharded] flagship MHA over sp=4: {launches} flash_attention "
+                             f"launches (want {L * blocks}), logits {err:.4f} from one device's "
+                             f"(bound {MESH_LOGIT_ATOL})")
+    out = {"launches": launches, "max_abs_logit_err": err, "max_abs_logit": scale,
+           "argmax_share": argmax, "request_wall_p50_ms": walls,
+           "shards": [str(d) for d in mesh.device_list]}
+    log(f"[sharded] (b) TransformerLM at the flagship's widths with 16 kv heads over "
+        f"{mesh.shape}: a {SP_B}x{SP_S} request launched {launches} flash_attention ({L} layers "
+        f"x (1+2+3+4) ring blocks), its logits within {err:.4f} of the one-device unit's "
+        f"(|logit| <= {scale:.3f}; bound {MESH_LOGIT_ATOL}; argmax equal at "
+        f"{argmax * 100:.1f}% of positions); request wall p50 {walls['sp4']:.3f} ms over sp=4 "
+        f"against {walls['one']:.3f} ms on one device, in turns (recorded, not claimed) on {smi}")
+    # the small binding
+    small = {**SP_SMALL, "dtype": "bfloat16"}
+    one_s = TransformerLM(**small, device=dev)
+    st_s = one_s.init_state(torch.Generator().manual_seed(SEED + 1))
+    Xs = rng.integers(0, SP_SMALL["vocab"], size=(1, SP_SMALL_S)).astype(np.float32)
+    with torch.inference_mode():
+        want_s = one_s.predict(st_s, torch.as_tensor(Xs, device=dev)).float().cpu().numpy()
+    if len(set(devices)) == n:
+        from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+        from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+        from seldon_core_tpu_torch.runtime.engine import EngineService
+
+        doc = {"spec": {"name": "sp", "predictors": [{"name": "p", "graph": {
+            "name": "lm", "type": "MODEL"}, "components": [{
+                "name": "lm", "runtime": "inprocess", "class_path": "TransformerLM",
+                "mesh_axes": {"sp": n}, "parameters": [
+                    {"name": k, "value": str(v), "type": "INT"} for k, v in SP_SMALL.items()]}]}]}}
+        engine = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(doc)),
+                               device=dev)
+        try:
+            unit = engine.compiled.units["lm"]
+            engine.load_states({"lm": unit.shard_state(st_s)})
+            flash_reset(fa)
+            text, status = asyncio.run(engine.predict_json(json.dumps(ndarray(Xs))))
+            sync_all(torch)
+            small_launches = fa.LAUNCHES
+            if status != 200:
+                raise AssertionError(f"[sharded] the sp binding answered {status}: {text[:200]}")
+            got_s = json_rows(text)
+        finally:
+            engine.close()
+        route = "EngineService"
+    else:
+        unit = TransformerLM(**small, mesh=build_mesh({"sp": n}, devices=devices),
+                             device=devices[0])
+        with torch.inference_mode():
+            flash_reset(fa)
+            got_s = unit.predict(unit.shard_state(st_s), torch.as_tensor(Xs, device=dev))
+            sync_all(torch)
+            small_launches = fa.LAUNCHES
+            got_s = got_s.float().cpu().numpy()
+        route = "the unit over four shards of cuda:0"
+    err_s = float(np.abs(got_s.reshape(want_s.shape) - want_s).max())
+    want_l = SP_SMALL["n_layers"] * blocks
+    if small_launches != want_l or err_s > MESH_LOGIT_ATOL:
+        raise AssertionError(f"[sharded] the small sp binding through {route}: "
+                             f"{small_launches} flash_attention launches (want {want_l}), logits "
+                             f"{err_s:.4f} from one device's (bound {MESH_LOGIT_ATOL})")
+    out["binding"] = {"route": route, "launches": small_launches, "max_abs_logit_err": err_s}
+    log(f"[sharded] (b) a TransformerLM binding ({SP_SMALL}, bf16) with mesh_axes "
+        f"{{'sp': {n}}} through {route}: a 1x{SP_SMALL_S} request launched {small_launches} "
+        f"flash_attention, logits within {err_s:.4f} of its one-device self's")
+    out["total_launches"] = launches + small_launches
+    return out
+
+
+def train_tp_sp(torch, dev, smi, devices) -> dict:
+    """(c) lm_train_step over {"tp": 2, "sp": 2} at the flagship's train
+    config made MHA on the copy task (B = 16, S = 512: S_local 256, 8 heads
+    a shard): step 0's per-leaf gradients against one device's kernel path
+    within TRAIN_GRAD_REL_L2, then SHARD_STEPS steps on that batch (a
+    falling loss, the replicated copies bit-identical after each step),
+    12 x (1+2) x 2 launches of each flash kernel a step."""
+    from seldon_core_tpu_torch.models.transformer import (LMConfig, lm_init, lm_loss,
+                                                          lm_train_step, shard_params)
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.optim import adam
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    cfg = LMConfig(**SP_DIMS, dtype=torch.bfloat16)
+    params = lm_init(torch.Generator().manual_seed(SEED), cfg, dev)
+    mesh = build_mesh({"tp": 2, "sp": 2}, devices=devices)
+    sparams = shard_params(params, mesh)
+    rng = np.random.default_rng(SEED + 43)
+    batch = {"tokens": torch.as_tensor(copy_batch(rng, cfg.vocab), dtype=torch.int32,
+                                       device=dev)}
+    loss_1, g1 = step_grads(torch, lambda p, b: lm_loss(p, b, cfg), params, batch)
+    loss_n, gn = step_grads(torch, lambda p, b: lm_loss(p, b, cfg), sparams, batch)
+    rel = rel_l2(torch, gather_sharded(torch, gn), dict(leaves_with_paths(g1)))
+    worst = max(rel, key=rel.get)
+    del g1, gn
+    if rel[worst] > TRAIN_GRAD_REL_L2 or abs(loss_n - loss_1) / loss_1 > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"[sharded] tp x sp step 0: loss {loss_n} against one device's "
+                             f"{loss_1}; gradient relative L2 {rel[worst]:.3e} at {worst} "
+                             f"(bound {TRAIN_GRAD_REL_L2})")
+    opt = adam(TRAIN_LR)
+    state = opt.init(sparams)
+    losses, copies = [], 0
+    flash_reset(fa)
+    p = sparams
+    for _ in range(SHARD_STEPS):
+        p, state, loss = lm_train_step(p, state, batch, opt, cfg)
+        losses.append(float(loss))
+        copies = copies_identical(torch, p)
+    sync_all(torch)
+    launches = flash_counts(fa)
+    per = cfg.n_layers * 3 * 2
+    want = {k: per * SHARD_STEPS for k in launches}
+    if launches != want or not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        raise AssertionError(f"[sharded] tp x sp: {SHARD_STEPS} steps launched {launches} (want "
+                             f"{want}), losses {losses}")
+    one_state = opt.init(params)
+    walls = turns_p50(torch, {
+        "tp2_sp2": lambda: lm_train_step(p, state, batch, opt, cfg),
+        "one": lambda: lm_train_step(params, one_state, batch, opt, cfg)}, runs=1)
+    out = {"launches": launches, "launches_a_step": per, "losses": losses,
+           "step0": {"loss": loss_n, "loss_one_device": loss_1, "grad_rel_l2_max": rel[worst],
+                     "worst_leaf": worst,
+                     "grad_rel_l2_median": float(np.median(list(rel.values())))},
+           "copies_bit_identical": copies, "step_wall_p50_ms": walls}
+    log(f"[sharded] (c) lm_train_step over {mesh.shape} (MHA flagship, bf16, B={TRAIN_B}, "
+        f"S={batch['tokens'].shape[1] - 1}): step 0 loss {loss_n:.6f} against one device's "
+        f"{loss_1:.6f}, gradients within {rel[worst]:.3e} relative L2 at {worst} (median "
+        f"{out['step0']['grad_rel_l2_median']:.3e}; bound {TRAIN_GRAD_REL_L2}); {SHARD_STEPS} "
+        f"steps of adam({TRAIN_LR}): loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches "
+        f"{launches} ({per} of each a step: {cfg.n_layers} layers x (1+2) blocks x 2 tp shards), "
+        f"{copies} replicated copies bit-identical; step wall p50 {walls['tp2_sp2']:.3f} ms "
+        f"over tp x sp against {walls['one']:.3f} ms on one device (recorded, not claimed) "
+        f"on {smi}")
+    return out
+
+
+def train_pipeline(torch, dev, smi, devices) -> dict:
+    """(d) the pipeline over {"pp": 4} at the flagship's GQA train config (3
+    layers a stage), tokens [16, 513], 4 microbatches: the forward's logits
+    against lm_apply on one device, step 0's gradients against one device's
+    kernel path, SHARD_STEPS train steps (a falling loss, the embedding and
+    final norm's copies bit-identical); 12 x 4 forward launches a forward,
+    48 dQ and 48 dK/dV a step; each stage's parameter bytes and
+    memory_allocated on each card."""
+    from seldon_core_tpu_torch.models.transformer import (LMConfig, lm_apply, lm_init, lm_loss,
+                                                          lm_pipeline_apply, lm_pipeline_loss,
+                                                          lm_pipeline_params,
+                                                          lm_pipeline_train_step, lm_train_step)
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.optim import adam
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    dims = {k: v for k, v in GEN_DIMS.items() if k != "max_new_tokens"}
+    cfg = LMConfig(**dims, dtype=torch.bfloat16)
+    params = lm_init(torch.Generator().manual_seed(SEED), cfg, dev)
+    mesh = build_mesh({"pp": PIPE_STAGES}, devices=devices)
+    pp = lm_pipeline_params(params, cfg, PIPE_STAGES, mesh)
+    stage_bytes = [tree_bytes(s["stages"]) for s in pp.shards]
+    memory = {str(d): torch.cuda.memory_allocated(d) for d in mesh.distinct_devices}
+    rng = np.random.default_rng(SEED + 44)
+    batch = {"tokens": torch.as_tensor(copy_batch(rng, cfg.vocab), dtype=torch.int32,
+                                       device=dev)}
+    x = batch["tokens"][:, :-1]
+    lps = cfg.n_layers // PIPE_STAGES
+    with torch.inference_mode():
+        want = lm_apply(params, x, cfg, use_flash=True)
+        flash_reset(fa)
+        got = lm_pipeline_apply(pp, x, cfg, n_micro=PIPE_MICRO, use_flash=True)
+        sync_all(torch)
+        fwd_launches = fa.LAUNCHES
+        err = float((got - want).abs().max())
+        del got, want
+    loss_1, g1 = step_grads(torch, lambda p, b: lm_loss(p, b, cfg), params, batch)
+    loss_n, gn = step_grads(torch, lambda p, b: lm_pipeline_loss(p, b, cfg, n_micro=PIPE_MICRO),
+                            pp, batch)
+    whole = {}
+    for i, shard in enumerate(gn.shards):
+        s = mesh.coords(i)["pp"]
+        for key, leaf in leaves_with_paths(shard["stages"]):
+            for j in range(lps):
+                whole[f"['l{s * lps + j}']{key}"] = leaf[0, j]
+    for key in ("embed", "ln_f"):
+        whole[f"[{key!r}]"] = gn.shards[0][key]
+    rel = rel_l2(torch, whole, dict(leaves_with_paths(g1)))
+    worst = max(rel, key=rel.get)
+    del g1, gn, whole
+    if (fwd_launches != cfg.n_layers * PIPE_MICRO or err > MESH_LOGIT_ATOL
+            or rel[worst] > TRAIN_GRAD_REL_L2 or abs(loss_n - loss_1) / loss_1 > TRAIN_LOSS_RTOL):
+        raise AssertionError(f"[sharded] pipeline: forward launched {fwd_launches} (want "
+                             f"{cfg.n_layers * PIPE_MICRO}), logits {err:.4f} from one device's "
+                             f"(bound {MESH_LOGIT_ATOL}); step 0 loss {loss_n} against {loss_1}, "
+                             f"gradient relative L2 {rel[worst]:.3e} at {worst}")
+    opt = adam(TRAIN_LR)
+    state = opt.init(pp)
+    losses = []
+    flash_reset(fa)
+    p = pp
+    for _ in range(SHARD_STEPS):
+        p, state, loss = lm_pipeline_train_step(p, state, batch, opt, cfg, n_micro=PIPE_MICRO)
+        losses.append(float(loss))
+        copies = copies_identical(torch, p)
+    sync_all(torch)
+    launches = flash_counts(fa)
+    per = cfg.n_layers * PIPE_MICRO
+    want_l = {k: per * SHARD_STEPS for k in launches}
+    if launches != want_l or not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        raise AssertionError(f"[sharded] pipeline: {SHARD_STEPS} steps launched {launches} "
+                             f"(want {want_l}), losses {losses}")
+    one_state = opt.init(params)
+    walls = turns_p50(torch, {
+        "pp4": lambda: lm_pipeline_train_step(p, state, batch, opt, cfg, n_micro=PIPE_MICRO),
+        "one": lambda: lm_train_step(params, one_state, batch, opt, cfg)}, runs=1)
+    out = {"forward_launches": fwd_launches, "max_abs_logit_err": err, "launches": launches,
+           "launches_a_step": per, "losses": losses, "copies_bit_identical": copies,
+           "step0": {"loss": loss_n, "loss_one_device": loss_1, "grad_rel_l2_max": rel[worst],
+                     "worst_leaf": worst},
+           "stage_param_bytes": stage_bytes, "whole_layer_bytes": tree_bytes(
+               {k: v for k, v in params.items() if k.startswith("l")}),
+           "memory_allocated_bytes": memory, "step_wall_p50_ms": walls}
+    log(f"[sharded] (d) the pipeline over {mesh.shape} (flagship GQA, bf16, {lps} layers a "
+        f"stage, {PIPE_MICRO} microbatches of {TRAIN_B // PIPE_MICRO} rows): stage params "
+        f"{stage_bytes} bytes (the whole stack {out['whole_layer_bytes']}), memory_allocated "
+        f"{memory}; the forward launched {fwd_launches} flash_attention, logits within "
+        f"{err:.4f} of lm_apply on one device (bound {MESH_LOGIT_ATOL}); step 0 gradients "
+        f"within {rel[worst]:.3e} relative L2 at {worst} (bound {TRAIN_GRAD_REL_L2}); "
+        f"{SHARD_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches} "
+        f"({per} of each a step), {copies} replicated copies bit-identical; step wall p50 "
+        f"{walls['pp4']:.3f} ms over pp=4 against {walls['one']:.3f} ms on one device "
+        f"(recorded, not claimed) on {smi}")
+    return out
+
+
+def mnist_dp(torch, dev, smi, devices) -> dict:
+    """(e) MNIST's train_step over {"dp": 4} at the example's widths
+    (784-256-256-10, bf16), B = 256: step 0's per-leaf gradients (the dp
+    shards' sum) against one device's within TRAIN_GRAD_REL_L2, then
+    SHARD_STEPS steps against the one-device step on the same batches:
+    losses within TRAIN_LOSS_RTOL, the copies bit-identical, and, as a
+    sanity bound only (Adam moves an element about lr a step whatever its
+    gradient), the parameters within 2 lr a step and a bf16 ulp."""
+    from seldon_core_tpu_torch.models.mnist import loss_fn, mlp_init, train_step
+    from seldon_core_tpu_torch.optim import adam
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh, place_tree
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    params = mlp_init(torch.Generator().manual_seed(SEED), hidden=256, device=dev)
+    mesh = build_mesh({"dp": SHARDED_SHARDS}, devices=devices)
+    sp = place_tree(params, mesh)
+    opt = adam(MNIST_DP_LR)
+    s1, sn = opt.init(params), opt.init(sp)
+    rng = np.random.default_rng(SEED + 45)
+
+    def mnist_batch():
+        return {"image": torch.as_tensor(rng.random((MNIST_DP_B, 784)), dtype=torch.float32,
+                                         device=dev),
+                "label": torch.as_tensor(rng.integers(0, 10, MNIST_DP_B), device=dev)}
+
+    batches = [mnist_batch() for _ in range(SHARD_STEPS)]
+    _, g1 = step_grads(torch, loss_fn, params, batches[0])
+    _, gn = step_grads(torch, loss_fn, sp, batches[0])
+    grel = rel_l2(torch, gather_sharded(torch, gn), dict(leaves_with_paths(g1)))
+    gworst = max(grel, key=grel.get)
+    del g1, gn
+    losses = []
+    p1, pn = params, sp
+    for b in batches:
+        p1, s1, l1 = train_step(p1, s1, b, opt)
+        pn, sn, ln = train_step(pn, sn, b, opt)
+        losses.append((float(l1), float(ln)))
+    copies = copies_identical(torch, pn)
+    diff = max(float((pn.shards[0][k].float() - p1[k].float()).abs().max()) for k in p1)
+    scale = max(float(p1[k].float().abs().max()) for k in p1)
+    bound = SHARD_STEPS * 2 * MNIST_DP_LR + bf16_ulp(scale)
+    loss_rel = max(abs(b - a) / a for a, b in losses)
+    if grel[gworst] > TRAIN_GRAD_REL_L2 or loss_rel > TRAIN_LOSS_RTOL or diff > bound:
+        raise AssertionError(f"[sharded] MNIST over dp=4: step 0 gradients {grel[gworst]:.3e} "
+                             f"relative L2 at {gworst} (bound {TRAIN_GRAD_REL_L2}), losses "
+                             f"{losses} (rtol {TRAIN_LOSS_RTOL}), parameters {diff:.3e} from "
+                             f"one device's (bound {bound:.3e})")
+    b = mnist_batch()
+    walls = turns_p50(torch, {"dp4": lambda: train_step(pn, sn, b, opt),
+                              "one": lambda: train_step(p1, s1, b, opt)}, runs=3)
+    out = {"losses": losses, "step0_grad_rel_l2_max": grel[gworst], "worst_leaf": gworst,
+           "max_param_diff": diff, "bound": bound, "copies_bit_identical": copies,
+           "step_wall_p50_ms": walls}
+    log(f"[sharded] (e) MNIST train_step over {mesh.shape} (784-256-256-10 bf16, B="
+        f"{MNIST_DP_B}, adam({MNIST_DP_LR})): step 0 gradients within {grel[gworst]:.3e} "
+        f"relative L2 at {gworst} (bound {TRAIN_GRAD_REL_L2}); losses (one device, dp=4) "
+        f"{losses}, parameters "
+        f"within {diff:.3e} of one device's after {SHARD_STEPS} steps (bound {bound:.3e}), "
+        f"{copies} copies bit-identical; step wall p50 {walls['dp4']:.3f} ms over dp=4 against "
+        f"{walls['one']:.3f} ms on one device (recorded, not claimed) on {smi}")
+    return out
+
+
+def sharded_phase(torch, dev, smi) -> dict:
+    """10v. [6b] part 1: the ring alone, serving over sp, the train step over
+    tp x sp, the pipeline over pp, MNIST over dp, on four cards when the
+    machine has four, else four shards of cuda:0."""
+    t_phase = time.perf_counter()
+    devices = mesh_devices(torch)
+    log(f"[sharded] phase 10v: {len(set(devices))} card(s), {len(devices)} shards ({devices})")
+    out = {"devices": devices}
+    walls = {}
+    for name, fn in (("ring", ring_alone), ("serve_sp", serve_sp), ("train_tp_sp", train_tp_sp),
+                     ("pipeline", train_pipeline), ("mnist_dp", mnist_dp)):
+        t = time.perf_counter()
+        out[name] = fn(torch, dev, smi, devices)
+        walls[name] = time.perf_counter() - t
+    # the main path's launches: each path's counted from 0 just before it
+    # and read just after (the ring alone and the step-0 comparisons are
+    # checks against the plain versions, not counted)
+    out["launches"] = {
+        "flash_attention": (out["serve_sp"]["total_launches"]
+                            + out["train_tp_sp"]["launches"]["fwd"]
+                            + out["pipeline"]["forward_launches"]
+                            + out["pipeline"]["launches"]["fwd"]),
+        "flash_attention_bwd_dq": (out["train_tp_sp"]["launches"]["dq"]
+                                   + out["pipeline"]["launches"]["dq"]),
+        "flash_attention_bwd_dkv": (out["train_tp_sp"]["launches"]["dkv"]
+                                    + out["pipeline"]["launches"]["dkv"])}
+    out["card"] = smi
+    out["part_walls_s"] = walls
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[sharded] phase 10v wall {out['wall_s']:.2f} s: {walls}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9483,6 +10060,18 @@ def main() -> int:
     kv_paged_row["launches_by_path"]["mesh (generator_tp over tp=4)"] = \
         mesh["launches"]["kv_write_paged examples"]
     kv_paged_row["launches"] += mesh["launches"]["kv_write_paged examples"]
+
+    # 10v: after 10u, each path's counts set to 0 just before it and read
+    # just after
+    sharded = sharded_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"sharded_train": sharded}}))
+    for row, key in ((flash_row, "flash_attention"), (dq_row, "flash_attention_bwd_dq"),
+                     (dkv_row, "flash_attention_bwd_dkv")):
+        n = sharded["launches"][key]
+        row["launches_by_path"] = {**row.get("launches_by_path", {"earlier phases":
+                                                                  row["launches"]}),
+                                   "sharded (ring over sp, tp x sp step, pipeline)": n}
+        row["launches"] += n
 
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,

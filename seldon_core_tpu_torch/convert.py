@@ -19,7 +19,11 @@ sharded by ``param_shardings``, a ``SharedEnsembleUnit``'s stacked member
 states split over ``ens``) carries the same way: ``np.array`` of a sharded
 ``jax.Array`` gathers it whole, and ``layout`` (the port unit's
 ``shard_state``) then splits it over the port unit's mesh by the port's
-layout, which is the reference's.
+layout, which is the reference's.  The reference's pipeline tree
+(``lm_pipeline_params``: ``{embed, ln_f, stages}``, the stages stacked
+``[pp, layers_per_stage, ...]``) carries with ``layout=lambda t:
+shard_pipeline_params(t, mesh)`` (``models/transformer.py``): each ``pp``
+shard then holds its stage.
 
 bf16 arrays arrive with an ``ml_dtypes`` dtype whose name is "bfloat16".
 They are taken by bit pattern (uint16 view -> torch -> bfloat16 view), so

@@ -200,7 +200,7 @@ def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None)
     ``mesh_axes`` (``{"tp": 4}``, ``{"ens": 8}``) builds a device mesh on
     the engine's platform (``parallel/mesh.py``) and hands it to a unit
     whose constructor takes ``mesh``; any other unit is refused, in the
-    reference's words, and so are the ``sp`` and ``pp`` axes ([6b]).  A reference-style
+    reference's words.  A reference-style
     plain user object (``predict(X, feature_names)``, a torch or sklearn
     model) gets the microservice's ``as_unit`` adapter, whose ``pure =
     False`` keeps it out of the compiled and fused executors: the engine
@@ -219,13 +219,6 @@ def instantiate_bound_unit(binding, node, device: Optional[torch.device] = None)
                 f"component {binding.name!r} declares mesh_axes "
                 f"{axes} but unit {cls.__name__} takes no "
                 f"mesh; drop mesh_axes or use a mesh-capable unit"
-            )
-        unported = sorted(set(axes) & {"sp", "pp"})
-        if unported:
-            raise GraphSpecError(
-                f"component {binding.name!r} declares mesh_axes {axes}: the "
-                f"{unported} axes (ring attention, the pipeline) are not ported "
-                f"yet (ROADMAP Queue 1 item [6b])"
             )
         from seldon_core_tpu_torch.parallel.mesh import build_mesh
 

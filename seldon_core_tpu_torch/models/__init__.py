@@ -8,7 +8,10 @@ the shared prefix, int8 weights and the int8 K/V cache),
 (``MeanClassifier``, ``SigmoidPredictor``, ``MeanTransformer``,
 ``ObliviousTreeEnsemble``), ``MahalanobisOutlier``,
 ``EpsilonGreedyRouter`` and ``SharedEnsembleUnit``
-(``parallel/ensemble.py``).
+(``parallel/ensemble.py``).  The training functions beside them: the LM's
+``lm_train_step`` (one device or a ``dp x tp x sp`` mesh) and
+``lm_pipeline_train_step`` (``pp``), MNIST's ``train_step`` (one device or
+``dp``).
 """
 
 from seldon_core_tpu_torch.models.generate import TransformerGenerator  # noqa: F401

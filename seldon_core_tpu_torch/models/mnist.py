@@ -13,6 +13,12 @@ static shapes and the device, as the JAX unit chooses:
   "interpret"     the kernel's plain version         the kernel's plain version
   "never"         ``mlp_apply`` (torch.matmul)       ``mlp_apply``
 
+Training (``mnist.py:75-92``): ``loss_fn`` is the mean cross-entropy of
+``mlp_apply``'s logits, and ``train_step`` one optimizer step on it
+(``optim.grad_update``); on params placed over a ``dp`` mesh
+(``parallel/mesh.py`` ``place_tree``) the rows split over ``dp`` and the
+gradients are summed over the copies.
+
 "auto" on CUDA with shapes or dtypes the kernel cannot take serves through
 ``mlp_apply`` and says so once in the log, as the JAX unit falls back to
 its XLA path.  When the kernel is taken, the constructor builds and
@@ -41,6 +47,8 @@ from seldon_core_tpu_torch.device import DeviceLike, parse_dtype, resolve_device
 from seldon_core_tpu_torch.graph.units import Unit, register_unit
 from seldon_core_tpu_torch.ops.quant import QuantizedMLP, quantize_mlp_params
 from seldon_core_tpu_torch.models.transformer import seeded_generator
+from seldon_core_tpu_torch.optim import grad_update
+from seldon_core_tpu_torch.parallel.mesh import ShardedTree, lead_shards, sum_onto
 from seldon_core_tpu_torch.ops.fused_mlp import (
     dispatch_cost,
     fused_mlp_softmax,
@@ -49,7 +57,8 @@ from seldon_core_tpu_torch.ops.fused_mlp import (
     probe_kernel,
 )
 
-__all__ = ["MnistClassifier", "MnistCNN", "mlp_init", "mlp_apply", "cnn_init", "cnn_apply"]
+__all__ = ["MnistClassifier", "MnistCNN", "mlp_init", "mlp_apply", "loss_fn", "train_step",
+           "cnn_init", "cnn_apply"]
 
 logger = logging.getLogger(__name__)
 
@@ -88,6 +97,45 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(h @ params[f"w{i}"] + params[f"b{i}"])
     last = n_layers - 1
     return (h @ params[f"w{last}"]).float() + params[f"b{last}"].float()
+
+
+def loss_fn(params, batch) -> torch.Tensor:
+    """Mean cross-entropy of ``mlp_apply``'s logits at ``batch["label"]``
+    for ``batch["image"]`` (``mnist.py:75-80``), f32.  ``params`` a
+    ``ShardedTree`` (``parallel/mesh.py`` ``place_tree``: every leaf
+    replicated) runs over its mesh: the rows split over ``dp``, each
+    ``dp`` group's nll summed on its shard, the sum of those over the
+    batch's rows on the mesh's first device."""
+    x, y = batch["image"], batch["label"]
+    if not isinstance(params, ShardedTree):
+        logp = torch.log_softmax(mlp_apply(params, x), dim=-1)
+        return -torch.mean(torch.gather(logp, 1, y[:, None].long()))
+    mesh = params.mesh
+    dp = mesh.shape.get("dp", 1)
+    if x.shape[0] % dp:
+        raise ValueError(f"batch of {x.shape[0]} rows not divisible over 'dp' of size {dp}")
+    rows = x.shape[0] // dp
+    leads = lead_shards(mesh, ("dp",))
+
+    def body(shard):
+        if shard.index not in leads:
+            return None
+        d = shard.coords.get("dp", 0)
+        xs, ys = (t[d * rows:(d + 1) * rows].to(shard.device) for t in (x, y))
+        logp = torch.log_softmax(mlp_apply(params.shards[shard.index], xs), dim=-1)
+        return -torch.gather(logp, 1, ys[:, None].long()).sum()
+
+    outs = mesh.run(body)
+    return sum_onto([outs[i] for i in leads], mesh.device_list[0]) / x.shape[0]
+
+
+def train_step(params, opt_state, batch, optimizer):
+    """One optimizer step on ``loss_fn`` (``mnist.py:83-92``): returns
+    (params, opt_state, loss).  Over a ``dp`` mesh (``params`` and
+    ``opt_state`` ``ShardedTree``s) each shard's rows take the forward and
+    the gradients are summed over ``dp`` (``optim.grad_update``), so every
+    copy of the weights takes the same update."""
+    return grad_update(loss_fn, params, opt_state, batch, optimizer)
 
 
 @register_unit("MnistClassifier")

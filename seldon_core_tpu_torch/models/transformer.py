@@ -80,11 +80,19 @@ own device with its ``LMConfig.tp_local`` config: the fused projection's
 columns regrouped to the shard's heads (``split_qkv``), attention over
 those heads through the same kernels as one device, one ``all_reduce``
 over ``tp`` after ``wo`` and one after ``w2`` (``attn_out``, ``_ffn``), and
-MoE experts over ``ep`` (``moe_apply``).  The collectives read the calling
-shard from its thread, so ``_block``, ``_ffn`` and the generator's blocks
-take no mesh argument: outside a shard they are the single-device code.
-Not ported (ROADMAP item [6b]): ring attention over ``sp``, the pipeline
-and the sharded train steps.
+MoE experts over ``ep`` (``moe_apply``), and the sequence over ``sp``: each
+shard holds a block of positions, rotates them at their global positions
+and attends through the ring (``parallel/ring_attention.py``, the flash
+kernels on every block when ``use_flash``).  The collectives read the
+calling shard from its thread, so ``_block``, ``_ffn`` and the generator's
+blocks take no mesh argument: outside a shard they are the single-device
+code.  ``lm_loss`` and ``lm_train_step`` train over such params (``dp x tp
+x sp``): the forward over the mesh, the backward once over the run's one
+autograd graph, replicated leaves' gradients summed over their copies
+(``optim.grad_update``).  ``lm_pipeline_params`` / ``_apply`` / ``_loss``
+/ ``_train_step`` run the layer stack as a GPipe pipeline over ``pp``
+(``parallel/pipeline.py``), composable with ``dp``, each stage through
+the same kernels as one device.
 """
 
 from __future__ import annotations
@@ -112,16 +120,23 @@ from seldon_core_tpu_torch.ops.flash_attention import (
 from seldon_core_tpu_torch.ops.flash_decode import (decode_kernel_shape_error,
                                                     paged_kernel_shape_error, probe_decode_kernel)
 from seldon_core_tpu_torch.ops.quant import lm_matmul, quantize_lm_params
-from seldon_core_tpu_torch.parallel.mesh import (DeviceMesh, ShardedTree, all_reduce, axis_index,
-                                                 axis_size, gather_slices)
+from seldon_core_tpu_torch.optim import grad_update
+from seldon_core_tpu_torch.parallel.mesh import (DeviceMesh, ShardedTree, all_gather, all_reduce,
+                                                 axis_index, axis_size, gather_slices,
+                                                 lead_shards, place_tree, sum_onto)
+from seldon_core_tpu_torch.parallel.pipeline import (merge_microbatches, pipeline_map,
+                                                     split_microbatches, stack_stage_params,
+                                                     stage_param_shardings)
+from seldon_core_tpu_torch.parallel.ring_attention import ring_attention
 from seldon_core_tpu_torch.parallel.moe import MoEConfig, moe_apply, moe_init, moe_leaf_spec
 from seldon_core_tpu_torch.runtime.persistence import save_state_to_path, state_from_host
-from seldon_core_tpu_torch.tree import leaves_with_paths, tree_leaves, tree_map, tree_unflatten
+from seldon_core_tpu_torch.tree import leaves_with_paths, tree_map
 
 __all__ = ["LMConfig", "lm_init", "lm_apply", "token_rows", "apply_rope", "gqa_attention",
            "resolve_flash", "resolve_paged_flash", "resolve_train_flash", "lm_loss",
            "lm_train_step", "save_lm_weights", "load_lm_weights", "LB_LOSS_COEF", "TransformerLM",
-           "param_shardings", "shard_params"]
+           "param_shardings", "shard_params", "lm_pipeline_params", "shard_pipeline_params",
+           "lm_pipeline_apply", "lm_pipeline_loss", "lm_pipeline_train_step"]
 
 logger = logging.getLogger(__name__)
 
@@ -308,46 +323,12 @@ def param_shardings(mesh: DeviceMesh, params) -> Any:
     return walk(params, ())
 
 
-def _place(leaf: torch.Tensor, spec, coords: Dict[str, int], mesh: DeviceMesh,
-           device: torch.device) -> torch.Tensor:
-    """One device's block of ``leaf`` under ``spec`` (the contiguous slice
-    that the reference's ``NamedSharding`` gives that device).  A split
-    leaf is always a copy of its own, also on the whole leaf's device: a
-    view would keep the whole leaf's storage alive there."""
-    t = leaf
-    split = False
-    for dim, axis in enumerate(spec):
-        if axis is None or mesh.shape[axis] == 1:
-            continue
-        n = mesh.shape[axis]
-        if t.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of size {t.shape[dim]} not divisible over "
-                             f"{axis!r} of size {n}")
-        w = t.shape[dim] // n
-        t = t.narrow(dim, coords[axis] * w, w)
-        split = True
-    if split:
-        return t.to(device, copy=True, memory_format=torch.contiguous_format)
-    t = t.to(device)
-    return t if t.is_contiguous() else t.contiguous()
-
-
 def shard_params(params, mesh: DeviceMesh, specs=None) -> ShardedTree:
     """``params`` (one device's whole tree) placed over ``mesh`` by
-    ``specs`` (default ``param_shardings``): each device's tree holds its
-    blocks.  A replicated leaf whose device is the shard's is shared, not
-    copied."""
-    specs = param_shardings(mesh, params) if specs is None else specs
-
-    def place(leaf, spec, i):
-        return _place(leaf, spec, mesh.coords(i), mesh, mesh.device_list[i])
-
-    def walk(tree, spec, i):
-        if isinstance(tree, dict):
-            return {k: walk(tree[k], spec[k], i) for k in tree}
-        return place(tree, spec, i)
-
-    return ShardedTree(mesh, [walk(params, specs, i) for i in range(mesh.size)])
+    ``specs`` (default ``param_shardings``; ``parallel/mesh.py``
+    ``place_tree``): each device's tree holds its blocks, and the result
+    keeps the specs (which shards hold copies of a leaf)."""
+    return place_tree(params, mesh, param_shardings(mesh, params) if specs is None else specs)
 
 
 def gqa_attention(q, k, v, causal: bool):
@@ -441,21 +422,40 @@ def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
     """One decoder block: attention + FFN (dense or MoE) with residuals ->
     (x', lb_loss).  On a tp shard (``cfg`` the shard's, ``LMConfig.tp_local``)
     the block attends its heads and reduces twice over ``tp``: after
-    ``wo`` and after ``w2``."""
+    ``wo`` and after ``w2``.  On an sp shard ``x`` holds positions
+    ``axis_index("sp") * S`` on: rope rotates at those global positions (the
+    reference rotates the whole sequence before its ring), attention is
+    the ring (``parallel/ring_attention.py``; grouped K/V refused in the
+    reference's words), and an MoE FFN routes the whole sequence (its
+    capacity is set over every token), gathered over ``sp`` and sliced
+    back."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     kv = cfg.kv_heads
+    sp = axis_size("sp")
     h = _rmsnorm(x, lp["ln1"])
     qkv = lm_matmul(lp, "wqkv", h, out_dtype=x.dtype)
     q, k, v = split_qkv(qkv, cfg)
     q, k, v = heads(q, B, S, cfg.n_heads, hd), heads(k, B, S, kv, hd), heads(v, B, S, kv, hd)
     if cfg.rope:
-        positions = torch.arange(S, device=x.device)
+        positions = torch.arange(S, device=x.device) + axis_index("sp") * S
         q = apply_rope(q, positions, cfg.rope_base)
         k = apply_rope(k, positions, cfg.rope_base)
-    a = _attention(q, k, v, causal, use_flash)
+    if sp > 1:
+        if kv != cfg.n_heads:
+            raise ValueError(
+                "sequence-parallel ring attention requires "
+                "n_kv_heads == n_heads"
+            )
+        a = ring_attention(q, k, v, "sp", causal, use_flash)
+    else:
+        a = _attention(q, k, v, causal, use_flash)
     x = attn_out(lp, x, a.transpose(1, 2).reshape(B, S, -1))
-    y, lb = _ffn(lp, _rmsnorm(x, lp["ln2"]), cfg)
+    h = _rmsnorm(x, lp["ln2"])
+    if sp > 1 and "moe" in lp:
+        y, lb = _ffn(lp, all_gather(h, "sp", dim=1), cfg)
+        return x + y.narrow(1, axis_index("sp") * S, S), lb
+    y, lb = _ffn(lp, h, cfg)
     return x + y, lb
 
 
@@ -481,47 +481,98 @@ def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool
     loss (f32 scalar, 0 for a dense config).  ``params`` a ``ShardedTree``
     (``shard_params``) runs over its mesh (``mesh``, if given, must be
     it): each shard on its device, its heads and FFN columns over ``tp``,
-    its experts over ``ep``, and the rows split over ``dp`` when ``dp``
-    divides them and no MoE layer couples them (else every ``dp`` group
-    takes all rows); the logits come back on the mesh's first device."""
+    its experts over ``ep``, its columns of ``tokens`` over ``sp`` (the
+    ring), and the rows split over ``dp`` when ``dp`` divides them and no
+    MoE layer couples them (else every ``dp`` group takes all rows); the
+    logits come back on the mesh's first device."""
     if isinstance(params, ShardedTree):
         if mesh is not None and mesh is not params.mesh:
             raise ValueError("lm_apply: mesh differs from the params' mesh")
-        return _lm_apply_sharded(params, tokens, cfg, causal, use_flash, return_lb)
+        outs, lay = _lm_sharded(params, tokens, cfg, causal, use_flash,
+                                lambda p, x, sl: _lm_head(p, x))
+        logits = lay.gather([outs[i][0] for i in lay.leads])
+        return (logits, outs[0][1]) if return_lb else logits
+    x, lb_total = _lm_trunk(params, tokens, cfg, causal, use_flash)
+    logits = _lm_head(params, x)
+    return (logits, lb_total) if return_lb else logits
+
+
+def _lm_trunk(params, tokens, cfg: LMConfig, causal: bool, use_flash: bool):
+    """The embedding and every block: (x [B, S, D], summed lb loss)."""
     x = params["embed"][token_rows(tokens, cfg.vocab)]
     lb_total = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
         x, lb = _block(params[f"l{i}"], x, cfg, causal, use_flash)
         lb_total = lb_total + lb
-    x = _rmsnorm(x, params["ln_f"])
-    logits = (x @ params["embed"].T).float()
-    return (logits, lb_total) if return_lb else logits
+    return x, lb_total
 
 
-def _lm_apply_sharded(params: ShardedTree, tokens, cfg: LMConfig, causal: bool,
-                      use_flash: bool, return_lb: bool):
+def _lm_head(params, x):
+    """The final norm and the unembedding: logits f32."""
+    return (_rmsnorm(x, params["ln_f"]) @ params["embed"].T).float()
+
+
+@dataclass(frozen=True)
+class _Layout:
+    """How a sharded LM call splits [B, S] over its mesh: rows over ``dp``
+    (when ``split_rows``) and columns over ``sp``; ``leads`` are the shards
+    that hold one block each of the answer, in (dp, sp) order."""
+
+    mesh: DeviceMesh
+    split_rows: bool
+    rows: int
+    cols: int
+
+    @property
+    def leads(self):
+        return lead_shards(self.mesh, ("dp", "sp") if self.split_rows else ("sp",))
+
+    def slice(self, t: torch.Tensor, coords: Dict[str, int]) -> torch.Tensor:
+        """A shard's block of a [B, S, ...] tensor."""
+        if self.split_rows:
+            d = coords["dp"]
+            t = t[d * self.rows:(d + 1) * self.rows]
+        if "sp" in coords:
+            c = coords["sp"]
+            t = t[:, c * self.cols:(c + 1) * self.cols]
+        return t
+
+    def gather(self, blocks):
+        """The leads' blocks (in ``leads``' order: dp slowest, whatever the
+        mesh's axis order) reassembled on the mesh's first device."""
+        dev = self.mesh.device_list[0]
+        sp = self.mesh.shape.get("sp", 1)
+        rows = [torch.cat([b.to(dev) for b in blocks[r:r + sp]], dim=1)
+                for r in range(0, len(blocks), sp)]
+        return torch.cat(rows)
+
+
+def _layout(mesh: DeviceMesh, B: int, S: int, cfg: LMConfig) -> _Layout:
+    dp, sp = mesh.shape.get("dp", 1), mesh.shape.get("sp", 1)
+    if S % sp:
+        raise ValueError(f"sequence of {S} tokens not divisible over 'sp' of size {sp}")
+    split = dp > 1 and B % dp == 0 and cfg.moe_every == 0
+    return _Layout(mesh, split, B // dp if split else B, S // sp)
+
+
+def _lm_sharded(params: ShardedTree, tokens, cfg: LMConfig, causal: bool, use_flash: bool,
+                head: Callable):
+    """Every shard runs the trunk on its block of ``tokens`` (``_Layout``);
+    each lead then runs ``head(params, x, block_slice)``, the others
+    nothing.  Returns ([(head's answer or None, lb)] in shard order, the
+    layout)."""
     mesh = params.mesh
-    dp = mesh.shape.get("dp", 1)
-    split = dp > 1 and tokens.shape[0] % dp == 0 and cfg.moe_every == 0
-    rows = tokens.shape[0] // dp if split else tokens.shape[0]
+    lay = _layout(mesh, tokens.shape[0], tokens.shape[1], cfg)
+    leads = set(lay.leads)
 
     def body(shard):
-        t = tokens
-        if split:
-            d = shard.coords["dp"]
-            t = tokens[d * rows:(d + 1) * rows]
-        return lm_apply(params.shards[shard.index], t.to(shard.device), cfg.for_shard(shard),
-                        causal, use_flash, return_lb)
+        p = params.shards[shard.index]
+        sl = functools.partial(lay.slice, coords=shard.coords)
+        x, lb = _lm_trunk(p, sl(tokens).to(shard.device), cfg.for_shard(shard), causal,
+                          use_flash)
+        return (head(p, x, sl) if shard.index in leads else None), lb
 
-    outs = mesh.run(body)
-    if not split:
-        return outs[0]
-    # each dp group's first shard, in dp order
-    leads = [i for i in range(mesh.size)
-             if all(v == 0 for k, v in mesh.coords(i).items() if k != "dp")]
-    dev = mesh.device_list[0]
-    logits = torch.cat([(outs[i][0] if return_lb else outs[i]).to(dev) for i in leads])
-    return (logits, outs[0][1]) if return_lb else logits
+    return mesh.run(body), lay
 
 
 def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
@@ -630,13 +681,25 @@ def resolve_train_flash(cfg: LMConfig, device: torch.device) -> bool:
 LB_LOSS_COEF = 0.01
 
 
+def _nll_sum(logits, targets):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0].sum()
+
+
 def lm_loss(params, batch, cfg: LMConfig, use_flash: Optional[bool] = None):
     """Next-token cross-entropy plus ``LB_LOSS_COEF`` times the MoE
     load-balance loss, f32 scalar; ``batch = {"tokens": [B, S+1]}``: the
     mean over positions of ``-log_softmax(logits)`` at the next token, as
     ``transformer.py:409-442``.  ``use_flash=None`` asks
-    ``resolve_train_flash``."""
+    ``resolve_train_flash`` (over a mesh at one shard's shape on each of its
+    devices).  ``params`` a ``ShardedTree`` over ``dp x tp x sp`` (and
+    ``ep``): inputs ``tokens[:, :-1]`` and targets ``tokens[:, 1:]`` split
+    alike (``_Layout``), each lead's nll summed on its shard, the sum of
+    those over every token's count on the mesh's first device; the one
+    autograd graph of the run reaches every shard's leaves."""
     tokens = batch["tokens"]
+    if isinstance(params, ShardedTree):
+        return _lm_loss_sharded(params, tokens, cfg, use_flash)
     if use_flash is None:
         use_flash = resolve_train_flash(cfg, params["embed"].device)
     logits, lb_total = lm_apply(params, tokens[:, :-1], cfg, use_flash=use_flash,
@@ -646,28 +709,139 @@ def lm_loss(params, batch, cfg: LMConfig, use_flash: Optional[bool] = None):
     return nll.mean() + LB_LOSS_COEF * lb_total
 
 
-def _grad_update(loss_fn: Callable, params, opt_state, batch, optimizer):
-    """(params', opt_state', loss): the loss and its gradient over every
-    leaf, the optimizer's updates, ``p + u`` in each param's dtype.
-    Functional, as in JAX: the inputs are not changed."""
-    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss = loss_fn(live, batch)
-    grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(live)))
-    updates, opt_state = optimizer.update(grads, opt_state, params)
-    params = tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
-    return params, opt_state, loss.detach()
+def _lm_loss_sharded(params: ShardedTree, tokens, cfg: LMConfig, use_flash: Optional[bool]):
+    mesh = params.mesh
+    if use_flash is None:
+        local = cfg.tp_local(mesh.shape.get("tp", 1))
+        use_flash = all(resolve_train_flash(local, d) for d in mesh.distinct_devices)
+    targets = tokens[:, 1:]
+    outs, lay = _lm_sharded(params, tokens[:, :-1], cfg, True, use_flash,
+                            lambda p, x, sl: _nll_sum(_lm_head(p, x),
+                                                      sl(targets).to(x.device)))
+    dev = mesh.device_list[0]
+    total = sum_onto([outs[i][0] for i in lay.leads], dev)
+    return total / targets.numel() + LB_LOSS_COEF * outs[0][1].to(dev)
 
 
 def lm_train_step(params, opt_state, batch, optimizer, cfg: LMConfig,
                   use_flash: Optional[bool] = None):
-    """One training step, ``transformer.py:452-462`` on one device:
-    returns (params, opt_state, loss)."""
+    """One training step, ``transformer.py:452-462``: returns (params,
+    opt_state, loss).  ``params`` and ``opt_state`` a ``ShardedTree``
+    (``shard_params``, ``optimizer.init`` of it) train over their mesh:
+    the forward over every shard, the backward once over the run's graph,
+    each replicated leaf's gradient summed over its copies
+    (``optim.grad_update``)."""
     if cfg.quant != "none":
         # int8 weights are not differentiable: quantization is a serving
         # transform, applied after training
         raise ValueError("lm_train_step requires quant='none'")
-    return _grad_update(lambda p, b: lm_loss(p, b, cfg, use_flash=use_flash),
-                        params, opt_state, batch, optimizer)
+    return grad_update(lambda p, b: lm_loss(p, b, cfg, use_flash=use_flash),
+                       params, opt_state, batch, optimizer)
+
+
+# -- the pipeline over pp (transformer.py:465-537) ------------------------------
+# The layer stack splits into pp stages, one stage a shard
+# (parallel/pipeline.py); the embedding and the head stay outside the
+# pipeline, replicated: stage 0 embeds, the last stage runs the head.
+
+
+def lm_pipeline_params(params, cfg: LMConfig, n_stages: int, mesh: DeviceMesh) -> ShardedTree:
+    """``lm_init`` params re-laid out for an ``n_stages``-stage pipeline
+    over ``mesh``: ``{embed, ln_f, stages}``, ``stages``' leaves stacked
+    ``[n_stages, layers_per_stage, ...]`` and split over ``pp`` (each shard
+    holds its stage's layers), ``embed`` and ``ln_f`` replicated."""
+    if cfg.n_layers % n_stages != 0:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} not divisible by pp={n_stages}"
+        )
+    if cfg.moe_every:
+        # MoE layers have another param tree than dense ones, so they
+        # cannot stack into one per-stage tree; their lb loss would be
+        # dropped by the schedule too
+        raise ValueError("pipeline parallelism does not support MoE layers")
+    lps = cfg.n_layers // n_stages
+    stages = stack_stage_params([
+        tree_map(lambda *ls: torch.stack(ls, 0),
+                 *[params[f"l{s * lps + j}"] for j in range(lps)])
+        for s in range(n_stages)])
+    return shard_pipeline_params({"embed": params["embed"], "ln_f": params["ln_f"],
+                                  "stages": stages}, mesh)
+
+
+def shard_pipeline_params(pp_params, mesh: DeviceMesh) -> ShardedTree:
+    """A whole ``{embed, ln_f, stages}`` tree (``convert.params_from_jax`` of
+    the reference's ``lm_pipeline_params``) placed over ``mesh``."""
+    specs = {"embed": (), "ln_f": (),
+             "stages": stage_param_shardings(mesh, pp_params["stages"])}
+    return place_tree(pp_params, mesh, specs)
+
+
+def _pipeline_sharded(pp_params: ShardedTree, tokens, cfg: LMConfig, n_micro: int,
+                      causal: bool, use_flash: bool, head: Callable):
+    """The GPipe forward over the params' mesh (``pipeline_map``): stage 0
+    embeds each ``dp`` group's rows of each microbatch, each stage runs its
+    layers, each group's last stage answers ``head(params, y, rows)``.
+    Returns the answers in dp order."""
+
+    def stage_fn(stage, x):
+        for j in range(stage["wqkv"].shape[0]):
+            x, _ = _block({k: v[j] for k, v in stage.items()}, x, cfg, causal, use_flash)
+        return x
+
+    return pipeline_map(
+        stage_fn, pp_params, split_microbatches(tokens, n_micro), stages=lambda p: p["stages"],
+        enter=lambda p, t: p["embed"][token_rows(t, cfg.vocab)], leave=head)
+
+
+def lm_pipeline_apply(pp_params: ShardedTree, tokens, cfg: LMConfig,
+                      mesh: Optional[DeviceMesh] = None, n_micro: int = 4,
+                      causal: bool = True, use_flash: bool = False):
+    """Pipelined forward: tokens [B, S] -> logits [B, S, V] f32 on the
+    mesh's first device.  Each stage runs its layers through ``_block``,
+    with the flash kernels when ``use_flash`` (on the card, decided at the
+    stage's shape as one device decides; the reference's stages take the
+    plain attention, since GSPMD cannot partition its Pallas kernel)."""
+    if mesh is not None and mesh is not pp_params.mesh:
+        raise ValueError("lm_pipeline_apply: mesh differs from the params' mesh")
+    outs = _pipeline_sharded(pp_params, tokens, cfg, n_micro, causal, use_flash,
+                             lambda p, y, rows: _lm_head(p, y))
+    dev = pp_params.mesh.device_list[0]
+    return merge_microbatches(torch.cat([o.to(dev) for o in outs], dim=1))
+
+
+def lm_pipeline_loss(pp_params: ShardedTree, batch, cfg: LMConfig,
+                     mesh: Optional[DeviceMesh] = None, n_micro: int = 4,
+                     use_flash: Optional[bool] = None):
+    """``lm_loss`` through the pipelined forward (``transformer.py:514``):
+    each ``dp`` group's last stage sums its rows' nll, the sum of those
+    over every token's count.  ``use_flash=None`` asks
+    ``resolve_train_flash`` on each of the mesh's devices."""
+    if cfg.moe_every:
+        # a custom forward cannot report the lb loss; training without it
+        # collapses the router
+        raise ValueError("lm_loss(apply_fn=...) does not support MoE configs")
+    pmesh = pp_params.mesh
+    if mesh is not None and mesh is not pmesh:
+        raise ValueError("lm_pipeline_loss: mesh differs from the params' mesh")
+    if use_flash is None:
+        use_flash = all(resolve_train_flash(cfg, d) for d in pmesh.distinct_devices)
+    tokens = batch["tokens"]
+    targets = split_microbatches(tokens[:, 1:], n_micro)
+    outs = _pipeline_sharded(
+        pp_params, tokens[:, :-1], cfg, n_micro, True, use_flash,
+        lambda p, y, rows: _nll_sum(_lm_head(p, y), rows(targets).to(y.device)))
+    return sum_onto(outs, pmesh.device_list[0]) / targets.numel()
+
+
+def lm_pipeline_train_step(pp_params: ShardedTree, opt_state, batch, optimizer,
+                           cfg: LMConfig, mesh: Optional[DeviceMesh] = None,
+                           n_micro: int = 4, use_flash: Optional[bool] = None):
+    """One pipeline-parallel train step (``transformer.py:527-537``): the
+    backward once over the schedule's graph, the replicated embedding's
+    and final norm's gradients summed over their copies (stage 0's lookup
+    and the last stage's head), ``optim.grad_update``."""
+    return grad_update(lambda p, b: lm_pipeline_loss(p, b, cfg, mesh, n_micro, use_flash),
+                       pp_params, opt_state, batch, optimizer)
 
 
 def save_lm_weights(params, path: str) -> str:

@@ -3,8 +3,9 @@
 
 Axis conventions are the reference's: ``dp`` (data parallel: rows),
 ``tp`` (tensor parallel: weight matrices split, activations reduced),
-``ens`` (ensemble members), ``ep`` (MoE experts).  ``sp`` (ring attention)
-and the pipeline are ROADMAP item [6b].
+``sp`` (sequence parallel: ring attention, ``ring_attention.py``), ``pp``
+(pipeline stages, ``pipeline.py``), ``ens`` (ensemble members), ``ep``
+(MoE experts).
 
 The reference is single-controller: one engine owns a ``jax.sharding.Mesh``
 and GSPMD partitions each jitted program across it.  The port has no
@@ -20,15 +21,32 @@ shard enqueues at a time (the GIL allows no more) and no thread waits on
 another for the interpreter's switch interval.  When the baton comes back
 every shard has deposited, and the shard reads the others' tensors onto
 its own device in a fixed shard order (``all_reduce``, ``all_gather``,
-``gather_slices`` over its group: the shards that differ only along the
-axis), so every shard of a group holds the same bits.  The slots of a
-round are kept until the next round's are written, which no shard reaches
-before every other has read them.  Outside a shard (no mesh, or an axis of
-size 1) every collective is the identity, so the single-device code paths
-run unchanged.  No process group is used: that is ``multihost`` ([6b]).
+``gather_slices``, ``ring_shift`` over its group: the
+shards that differ only along the axis), so every shard of a group holds
+the same bits.  The slots of a round are kept until the next round's are
+written, which no shard reaches before every other has read them.  Outside
+a shard (no mesh, or an axis of size 1, or an axis hidden by
+``only_axes``) every collective is the identity, so the single-device code
+paths run unchanged.  No process group is used: that is ``multihost``
+([6b]).
+
+Autograd: a collective is plain tensor operations on the deposited
+tensors (a copy onto the reader's device, a sum, a concatenation), so a
+forward run with grad enabled records ONE autograd graph across all the
+shards of a run, whose edges between shards are those copies.  The
+backward of a sharded program is taken once, by the caller, outside any
+shard, over that graph (``optim.grad_update``): it needs no collective of
+its own, since each collective's adjoint is already in the graph (the
+copy's adjoint carries a gradient back to the shard that deposited the
+tensor).  Calling ``torch.autograd.grad`` inside a shard would be wrong on
+CUDA: PyTorch runs a CUDA backward on its own per-device threads, where
+``current_shard()`` is None.  A leaf that several shards hold (a
+replicated parameter) is one leaf per shard; its gradient is the sum over
+its copies (``sum_replicas``), the all-reduce that GSPMD inserts.
 
 A sharded state is a ``ShardedTree``: one tree per mesh device, in the
-mesh's flat device order.  ``spmd`` wraps a function so that a
+mesh's flat device order, with the partition specs it was placed by
+(``place_tree``) when it has them.  ``spmd`` wraps a function so that a
 ``ShardedTree`` argument runs it over the tree's mesh: each shard gets its
 own tree, every tensor argument copied to its device, and every argument
 with a ``for_shard`` method (``LMConfig``) that method's answer; the
@@ -55,10 +73,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from seldon_core_tpu_torch.tree import tree_leaves, tree_unflatten
+
 __all__ = ["MeshSpec", "DeviceMesh", "Shard", "ShardedTree", "build_mesh",
            "local_device_count", "local_devices", "set_cpu_device_count",
            "shard_batch", "current_shard", "axis_size", "axis_index",
-           "all_reduce", "all_gather", "gather_slices", "spmd", "spmd_call",
+           "all_reduce", "all_gather", "gather_slices", "ring_shift",
+           "only_axes", "place_tree", "sum_replicas", "sum_onto", "lead_shards", "spmd",
+           "spmd_call",
            "first_shard"]
 
 _CPU_DEVICES = 1
@@ -347,13 +369,16 @@ def build_mesh(spec: "MeshSpec | Dict[str, int] | None" = None,
 
 class ShardedTree:
     """A state split over a mesh: ``shards[i]`` is the tree that flat
-    device ``i`` holds (a dict of tensors, or a tensor)."""
+    device ``i`` holds (a dict of tensors, or a tensor).  ``specs``, when
+    known, is the tree of partition specs it was placed by (``place_tree``):
+    which mesh axes split each leaf, so which shards hold copies of it."""
 
-    def __init__(self, mesh: DeviceMesh, shards: Sequence[Any]):
+    def __init__(self, mesh: DeviceMesh, shards: Sequence[Any], specs: Any = None):
         if len(shards) != mesh.size:
             raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size} devices")
         self.mesh = mesh
         self.shards = list(shards)
+        self.specs = specs
 
     def __repr__(self) -> str:
         return f"ShardedTree({self.mesh.shape}, {len(self.shards)} shards)"
@@ -379,17 +404,131 @@ def shard_batch(mesh: DeviceMesh, x, axis: str = "dp") -> ShardedTree:
                               .to(d) for i, d in enumerate(mesh.device_list)])
 
 
+def _place(leaf: torch.Tensor, spec, coords: Dict[str, int], mesh: DeviceMesh,
+           device: torch.device) -> torch.Tensor:
+    """One device's block of ``leaf`` under ``spec`` (the contiguous slice
+    that the reference's ``NamedSharding`` gives that device).  A split
+    leaf is always a copy of its own, also on the whole leaf's device: a
+    view would keep the whole leaf's storage alive there."""
+    t = leaf
+    split = False
+    for dim, axis in enumerate(spec):
+        if axis is None or mesh.shape.get(axis, 1) == 1:
+            continue
+        n = mesh.shape[axis]
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {t.shape[dim]} not divisible over "
+                             f"{axis!r} of size {n}")
+        w = t.shape[dim] // n
+        t = t.narrow(dim, coords[axis] * w, w)
+        split = True
+    if split:
+        return t.to(device, copy=True, memory_format=torch.contiguous_format)
+    t = t.to(device)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _replicated_specs(tree):
+    if isinstance(tree, dict):
+        return {k: _replicated_specs(v) for k, v in tree.items()}
+    return ()
+
+
+def place_tree(tree, mesh: DeviceMesh, specs=None) -> ShardedTree:
+    """``tree`` (one device's whole tree) placed over ``mesh`` by ``specs``
+    (a tree of partition specs: a tuple of mesh axis names or None per
+    dimension, ``()`` replicated; default every leaf replicated): each
+    device's tree holds its blocks.  A replicated leaf whose device is the
+    shard's is shared, not copied."""
+    specs = _replicated_specs(tree) if specs is None else specs
+
+    def walk(t, spec, i):
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k], i) for k in t}
+        return _place(t, spec, mesh.coords(i), mesh, mesh.device_list[i])
+
+    return ShardedTree(mesh, [walk(tree, specs, i) for i in range(mesh.size)], specs)
+
+
+def sum_replicas(tree: ShardedTree) -> ShardedTree:
+    """Each leaf replaced, on every shard, by the sum of the copies of that
+    leaf over the shards that hold the same block of it (those that agree
+    on every axis its spec in ``tree.specs`` splits by; no specs: every
+    leaf replicated), added in flat shard order: the same bits on every
+    copy.  The gradient of a replicated parameter is that sum (the
+    all-reduce GSPMD inserts)."""
+    mesh = tree.mesh
+    specs = tree_leaves(_replicated_specs(tree.shards[0]) if tree.specs is None else tree.specs)
+    flat = [tree_leaves(s) for s in tree.shards]
+    out = [list(f) for f in flat]
+    for n, spec in enumerate(specs):
+        axes = [a for a in spec if a is not None and mesh.shape.get(a, 1) > 1]
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        for i in range(mesh.size):
+            groups.setdefault(tuple(mesh.coords(i)[a] for a in axes), []).append(i)
+        for members in groups.values():
+            sums: Dict[torch.device, torch.Tensor] = {}
+            for i in members:
+                dev = flat[i][n].device
+                if dev not in sums:
+                    sums[dev] = sum_onto([flat[j][n] for j in members], dev)
+                out[i][n] = sums[dev]
+    return ShardedTree(mesh, [tree_unflatten(s, o) for s, o in zip(tree.shards, out)],
+                       tree.specs)
+
+
+def sum_onto(tensors: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The tensors (a sharded program's per-shard partial sums) read onto
+    ``device`` and added there in order: differentiable, so a loss built so
+    reaches every shard's graph."""
+    out = tensors[0].to(device)
+    for t in tensors[1:]:
+        out = out + t.to(device)
+    return out
+
+
+def lead_shards(mesh: DeviceMesh, split: Sequence[str] = ()) -> List[int]:
+    """The flat indices of the shards whose coordinate is 0 on every axis
+    not in ``split``: one shard for each block of a result split over
+    ``split`` and replicated over the rest (the shards whose answers a
+    sharded program gathers, or whose losses it counts).  Ordered by their
+    coordinates along ``split``, the first axis slowest, whatever order the
+    mesh's axes were given in."""
+    leads = [i for i in range(mesh.size)
+             if all(v == 0 for k, v in mesh.coords(i).items() if k not in split)]
+    return sorted(leads, key=lambda i: tuple(mesh.coords(i).get(a, 0) for a in split))
+
+
 # -- collectives, read from the calling shard ------------------------------
 
 def current_shard() -> Optional[Shard]:
     return getattr(_TLS, "shard", None)
 
 
+def _hidden(axis: str) -> bool:
+    keep = getattr(_TLS, "only", None)
+    return keep is not None and axis not in keep
+
+
+@contextlib.contextmanager
+def only_axes(*axes: str):
+    """Inside it, the calling shard sees only ``axes``: every other axis
+    reads as size 1 (``axis_size``, ``axis_index``) and its collectives are
+    the identity, as code the reference runs with ``mesh=None`` inside a
+    ``shard_map`` over ``axes`` (a pipeline stage) sees no other axis."""
+    prev = getattr(_TLS, "only", None)
+    _TLS.only = frozenset(axes) if prev is None else frozenset(axes) & prev
+    try:
+        yield
+    finally:
+        _TLS.only = prev
+
+
 def _exchange(t, axis: str) -> Optional[List[Any]]:
     """The group's tensors of this round along ``axis``, in shard order
     (None outside a shard or on an axis of size 1)."""
     shard = current_shard()
-    if shard is None or shard.mesh.shape.get(axis, 1) == 1:
+    if shard is None or shard.mesh.shape.get(axis, 1) == 1 or _hidden(axis):
         return None
     mesh = shard.mesh
     return mesh._exchange(shard, mesh.group(axis, shard.index), mesh._coords[shard.index][axis], t)
@@ -398,13 +537,13 @@ def _exchange(t, axis: str) -> Optional[List[Any]]:
 def axis_size(axis: str) -> int:
     """The calling shard's mesh size along ``axis`` (1 outside a shard)."""
     shard = current_shard()
-    return 1 if shard is None else shard.mesh.shape.get(axis, 1)
+    return 1 if shard is None or _hidden(axis) else shard.mesh.shape.get(axis, 1)
 
 
 def axis_index(axis: str) -> int:
     """The calling shard's coordinate along ``axis`` (0 outside a shard)."""
     shard = current_shard()
-    return 0 if shard is None or axis not in shard.mesh.shape else \
+    return 0 if shard is None or axis not in shard.mesh.shape or _hidden(axis) else \
         shard.mesh._coords[shard.index][axis]
 
 
@@ -443,6 +582,26 @@ def gather_slices(t: torch.Tensor, axis: str, dim: int,
             a, b = max(lo, j * w) - j * w, min(hi, (j + 1) * w) - j * w
             pieces.append(slots[j].narrow(dim, a, b - a).to(t.device))
     return torch.cat(pieces, dim=dim)
+
+
+def _onto(x, device: torch.device):
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_onto(e, device) for e in x)
+    return x.to(device)
+
+
+def ring_shift(t, axis: str):
+    """``lax.ppermute`` over ``axis`` with the permutation i -> i + 1: the
+    calling shard gets the ``t`` of its predecessor along ``axis``
+    (cyclically), read onto its device, in one baton round.  ``t`` is a
+    tensor, a tuple of tensors (moved together in that one round), or None
+    (a shard with nothing to send; its successor gets None)."""
+    slots = _exchange(t, axis)
+    if slots is None:
+        return t
+    return _onto(slots[(axis_index(axis) - 1) % len(slots)], current_shard().device)
 
 
 # -- running single-device code over a ShardedTree -------------------------

@@ -62,7 +62,8 @@ def _port_files():
             "runtime/brownout.py", "utils/perfcorpus.py", "native/fastcodec.py",
             "native/_build.py", "runtime/nativeplane.py", "parallel/moe.py",
             "runtime/kvstream.py", "runtime/servingmesh.py", "parallel/mesh.py",
-            "parallel/ensemble.py", "graph/sharding.py"} <= names
+            "parallel/ensemble.py", "graph/sharding.py", "parallel/ring_attention.py",
+            "parallel/pipeline.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py")]

@@ -5,8 +5,9 @@ same dicts and the same errors; the collectives equal their plain
 arithmetic; ``SharedEnsembleUnit`` with the reference unit's stacked state
 carried across (``convert.params_from_jax`` with the unit's layout) gives
 the reference's mean within 2e-6, alone and through the engine; a
-binding's ``mesh_axes`` is refused on a meshless unit, on the ``sp`` axis
-and when it asks for more devices than exist, in the reference's words."""
+binding's ``mesh_axes`` is refused on a meshless unit and when it asks
+for more devices than exist, in the reference's words, and a
+TransformerLM bound over ``sp`` or ``pp`` answers the reference's logits."""
 
 import asyncio
 import json
@@ -116,6 +117,58 @@ def test_collectives_are_their_plain_arithmetic():
     t = parts[0]
     assert pmesh.all_reduce(t, "tp") is t and pmesh.all_gather(t, "tp") is t
     assert pmesh.axis_size("tp") == 1 and pmesh.axis_index("tp") == 0
+
+
+def test_ring_shift_and_only_axes_are_their_plain_arithmetic():
+    """``ring_shift`` gives each shard its predecessor's tensor along the
+    axis (cyclically; a tuple moves together, None stays None); inside
+    ``only_axes`` another axis reads as size 1 and its collectives are
+    identities."""
+    mesh = pmesh.build_mesh({"dp": 2, "sp": 4}, platform="cpu")
+    parts = [torch.full((2,), float(i)) for i in range(8)]
+
+    def body(shard):
+        t = parts[shard.index]
+        shifted = pmesh.ring_shift((t, t + 100), "sp")
+        none = pmesh.ring_shift(None if shard.coords["sp"] == 1 else t, "sp")
+        with pmesh.only_axes("dp"):
+            hidden = (pmesh.axis_size("sp"), pmesh.axis_index("sp"),
+                      pmesh.all_reduce(t, "sp") is t)
+        return shifted, none, hidden
+
+    for i, (shifted, none, hidden) in enumerate(mesh.run(body)):
+        d, c = mesh.coords(i)["dp"], mesh.coords(i)["sp"]
+        src = parts[4 * d + (c - 1) % 4]
+        assert torch.equal(shifted[0], src) and torch.equal(shifted[1], src + 100)
+        assert (none is None) == (c == 2)
+        assert hidden == (1, 0, True)
+
+
+@pytest.mark.parametrize("axes", [{"dp": 2, "sp": 2, "tp": 2}, {"tp": 2, "sp": 2, "dp": 2}],
+                         ids=["dp_first", "tp_first"])
+def test_lead_shards_ordered_by_split_coordinates(axes):
+    """The lead shards are those at 0 on every axis outside ``split``,
+    ordered by their ``split`` coordinates with the first axis slowest,
+    whatever order the mesh's axes were given in."""
+    mesh = pmesh.build_mesh(axes, platform="cpu")
+    leads = pmesh.lead_shards(mesh, ("dp", "sp"))
+    assert [(mesh.coords(i)["dp"], mesh.coords(i)["sp"]) for i in leads] == [
+        (d, c) for d in range(2) for c in range(2)]
+    assert all(mesh.coords(i)["tp"] == 0 for i in leads)
+    assert [mesh.coords(i)["sp"] for i in pmesh.lead_shards(mesh, ("sp",))] == [0, 1]
+
+
+def test_sum_replicas_sums_each_leafs_copies():
+    """A leaf split over ``tp`` is summed over its ``dp`` copies only, a
+    replicated leaf over every shard, in shard order, the same bits on
+    each copy."""
+    mesh = pmesh.build_mesh({"dp": 2, "tp": 2}, platform="cpu")
+    tree = pmesh.ShardedTree(mesh, [{"w": torch.full((1,), 10.0 ** i),
+                                     "r": torch.full((1,), i + 1.0)} for i in range(4)],
+                             {"w": ("tp",), "r": ()})
+    out = pmesh.sum_replicas(tree)
+    assert [float(s["w"]) for s in out.shards] == [101.0, 1010.0, 101.0, 1010.0]
+    assert [float(s["r"]) for s in out.shards] == [10.0] * 4
 
 
 def test_a_failing_shard_fails_the_run_and_frees_the_others():
@@ -265,14 +318,63 @@ def test_mesh_axes_on_meshless_unit_rejected_in_reference_words():
 
 
 @pytest.mark.parametrize("axes", [{"sp": 2}, {"dp": 2, "sp": 4}, {"pp": 2}])
-def test_sp_and_pipeline_axes_refused_naming_6b(axes):
+def test_sp_and_pipeline_axes_refused_naming_6b(axes, devices8):
+    """Formerly the refusal of these bindings (ROADMAP item [6b]); the
+    axes are served now, as the reference serves them: a TransformerLM
+    bound over ``sp`` attends through the ring, over ``pp`` it is
+    replicated (the reference's unit shards nothing over ``pp``).  Both
+    engines built from the same spec, the reference engine's state carried
+    across, answer the same logits within 2e-4."""
     comps = [{"name": "lm", "runtime": "inprocess", "class_path": "TransformerLM",
               "mesh_axes": axes,
               "parameters": [{"name": "vocab", "value": "64", "type": "INT"},
-                             {"name": "d_model", "value": "32", "type": "INT"}]}]
-    with pytest.raises(GraphSpecError, match=r"item \[6b\]"):
-        EngineService(_spec(SeldonDeploymentSpec, comps, {"name": "lm", "type": "MODEL"}),
-                      device="cpu")
+                             {"name": "d_model", "value": "32", "type": "INT"},
+                             {"name": "dtype", "value": "float32", "type": "STRING"}]}]
+    graph = {"name": "lm", "type": "MODEL"}
+    jeng = JEngine(_spec(JSpec, comps, graph))
+    peng = EngineService(_spec(SeldonDeploymentSpec, comps, graph), device="cpu")
+    try:
+        unit = peng.compiled.units["lm"]
+        assert unit.mesh.shape == axes
+        peng.load_states({"lm": params_from_jax(jeng.compiled.states["lm"], "cpu",
+                                                layout=unit.shard_state)})
+        tokens = np.random.default_rng(3).integers(0, 64, size=(2, 16))
+        payload = json.dumps({"data": {"ndarray": tokens.tolist()}})
+        (jtext, jstatus), (ptext, pstatus) = (asyncio.run(e.predict_json(payload))
+                                              for e in (jeng, peng))
+        assert pstatus == jstatus == 200
+        got, want = (np.asarray(json.loads(t)["data"]["ndarray"]) for t in (ptext, jtext))
+        assert got.shape == (2, 16, 64)
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+    finally:
+        peng.close()
+        asyncio.run(jeng.close())
+
+
+@pytest.mark.parametrize("axes", [{"sp": 2}, {"pp": 2}])
+def test_generator_over_sp_or_pp_is_replicated(axes, devices8):
+    """The reference's generator shards nothing over ``sp`` or ``pp``
+    (``param_shardings``; GSPMD replicates): the port's, bound so, answers
+    its one-device self's greedy tokens, on the static lane and the
+    continuous one."""
+    from seldon_core_tpu_torch.models.generate import TransformerGenerator
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    kw = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, dtype="float32",
+              max_new_tokens=6, device="cpu")
+    one = TransformerGenerator(**kw)
+    state = one.init_state(torch.Generator().manual_seed(0))
+    gen = TransformerGenerator(**kw, mesh=pmesh.build_mesh(axes, platform="cpu"))
+    sstate = gen.shard_state(state)
+    X = torch.randint(0, 64, (2, 8), generator=torch.Generator().manual_seed(1)).float()
+    want = one.predict(state, X)
+    assert torch.equal(gen.predict(sstate, X), want)
+    server = GenServer(**gen.continuous_spec(sstate), num_blocks=32, block_size=8)
+    try:
+        out = server.submit(X.numpy()).future.result(timeout=120)
+        assert np.array_equal(np.asarray(out, np.float32), want.numpy())
+    finally:
+        server.stop()
 
 
 def test_more_devices_than_exist_raise_the_reference_error(devices8):
