@@ -457,6 +457,34 @@ it serves the static lane it measured before that lane's switch:
               {"dp": 4} against one device's; each path's walls against
               one device in turns (recorded, not claimed); a
               {"new_paths": {"sharded_train": ...}} line
+ 10w. [6b] part 2, one process a card: four worker processes over NCCL
+              on four cards (CUDA_VISIBLE_DEVICES=i), else two sharing
+              cuda:0 over gloo with two shards each, started through the
+              SELDON_* env contract (this script with --multihost-worker),
+              each with its own timeout, held to this process's
+              one-process meshes of the same shapes: (a) all_reduce,
+              all_gather, gather_slices and ring_shift over sp=4, tp=4
+              and dp=2 x tp=2 across processes bit for bit, then 10v's
+              ring over a cross-process sp=4 (10 launches of each kernel
+              over the processes, o within FLASH_O_ATOL, dq/dk/dv within
+              BWD_REL_TOL of the plain ring); (b) the flagship generator
+              over a cross-process tp=4: prefill logits bit for bit the
+              one-process mesh's and within MESH_LOGIT_ATOL of one
+              device's, the static request's tokens teacher-forced,
+              flash_attention and flash_decode on every process, the
+              request wall against one device in turns and against 10u's
+              one-process mesh (recorded, not claimed), a cross-process
+              round's host cost; (c) lm_train_step over dp=2 x tp=2 at
+              the GQA flagship on the copy task: step 0's loss bit for
+              bit the one-process mesh's, its gradients within
+              TRAIN_GRAD_REL_L2 of one device's, 3 steps, a falling loss,
+              48 launches of each flash kernel a step, the replicated
+              copies bit-identical across processes; (d) MNIST over a
+              cross-process dp=4 against one device; (e) ensemble4 in host
+              mode, quorum 3, m3 behind the port's FaultyNodeRuntime at
+              error_rate 1.0: answers bit for bit the healthy three's,
+              calls and injections as seeded, fused_mlp on the healthy
+              members; a {"new_paths": {"multihost": ...}} line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -9841,6 +9869,662 @@ def sharded_phase(torch, dev, smi) -> dict:
     return out
 
 
+# -- 10w. [6b] part 2: one process a card (multihost) ----------------------------
+
+MH_SHARDS = 4                  # every path's mesh: 4 shards over the processes
+MH_WORKER_TIMEOUT_S = 300      # each worker process's own limit
+MH_ROUND_CALLS = 200           # collective rounds timed for their host cost
+MH_COLL_SHAPE = (64, 256)      # a shard's bf16 input of the collectives check
+# the collectives check's meshes: (axes, dcn_axes) of multihost.global_mesh
+MH_COLL_MESHES = {"sp4": ({"sp": 4}, None), "tp4": ({"tp": 4}, None),
+                  "dp2_tp2": ({"tp": 2}, {"dp": 2})}
+MH_FAULT_REQUESTS = 8          # (e): 1-row requests, then one of 64 rows
+
+
+def mh_layout(torch) -> dict:
+    """Four processes with a card each (CUDA_VISIBLE_DEVICES=i, NCCL) when
+    the machine has four cards, else two processes sharing cuda:0 (gloo),
+    two shards each."""
+    if torch.cuda.device_count() >= MH_SHARDS:
+        return {"procs": MH_SHARDS, "local": 1, "visible": [str(i) for i in range(MH_SHARDS)]}
+    return {"procs": 2, "local": MH_SHARDS // 2, "visible": None}
+
+
+def mh_collectives(torch, mesh) -> dict:
+    """{collective/axis/shard: sha1 of its answer}: all_reduce, all_gather,
+    gather_slices and ring_shift over every axis of ``mesh``, each shard's
+    bf16 input drawn from its index."""
+    import hashlib
+
+    from seldon_core_tpu_torch.parallel import mesh as pm
+
+    def body(shard):
+        x = torch.randn(MH_COLL_SHAPE, generator=torch.Generator().manual_seed(
+            SEED + 200 + shard.index)).to(shard.device, torch.bfloat16)
+        w, out = MH_COLL_SHAPE[1], {}
+        for axis in mesh.axis_names:
+            n = mesh.shape[axis]
+            out[f"all_reduce/{axis}"] = pm.all_reduce(x, axis)
+            out[f"all_gather/{axis}"] = pm.all_gather(x, axis, dim=1)
+            out[f"gather_slices/{axis}"] = pm.gather_slices(x, axis, 1,
+                                                            [(3, w + 5), (n * w - 7, n * w)])
+            k, v = pm.ring_shift((x, x * 2), axis)
+            out[f"ring_shift/{axis}"] = torch.cat([k, v])
+        return out
+
+    outs = mesh.run(body)
+    return {f"{k}/{i}": hashlib.sha1(v.float().cpu().numpy().tobytes()).hexdigest()
+            for i in mesh.owned for k, v in outs[i].items()}
+
+
+def mh_flagship_inputs(torch, dev):
+    """The flagship generator (10u's weights, seed SEED) and 10u's B=4,
+    S=128 prompts."""
+    from seldon_core_tpu_torch.models import generate as gm
+
+    one = gm.TransformerGenerator(**GEN_DIMS, dtype="bfloat16", device=dev)
+    state = one.init_state(torch.Generator().manual_seed(SEED))
+    prompts = np.random.default_rng(SEED + 31).integers(0, one.cfg.vocab, size=(MESH_B, MESH_S))
+    return one, state, prompts
+
+
+def mh_train_inputs(torch, dev):
+    """The GQA flagship's train config in bf16 and 10v's copy-task batch."""
+    from seldon_core_tpu_torch.models.transformer import LMConfig, lm_init
+
+    cfg = LMConfig(**{k: v for k, v in GEN_DIMS.items() if k != "max_new_tokens"},
+                   dtype=torch.bfloat16)
+    params = lm_init(torch.Generator().manual_seed(SEED), cfg, dev)
+    batch = {"tokens": torch.as_tensor(copy_batch(np.random.default_rng(SEED + 43), cfg.vocab),
+                                       dtype=torch.int32, device=dev)}
+    return cfg, params, batch
+
+
+def mh_prefill(torch, gm, params, cfg, mesh, P):
+    cache = mesh.map_shards(lambda s: gm.init_cache(cfg.for_shard(s), MESH_B, MESH_S, s.device))
+    return gm.prefill(params, P, cache, cfg, True)[0]
+
+
+def mh_references(torch, dev) -> dict:
+    """What 10w holds the processes to, on this process's one-process meshes
+    of the same shapes (10u's devices): the collectives' answers, the
+    flagship's prefill logits over tp=4 and on one device, and step 0's
+    loss over dp=2 x tp=2."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models.transformer import lm_loss, shard_params
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+
+    devices = mesh_devices(torch)
+    ref = {"collectives": {}}
+    for name, (axes, dcn) in MH_COLL_MESHES.items():
+        ref["collectives"].update({f"{name}/{k}": v for k, v in mh_collectives(
+            torch, build_mesh({**(dcn or {}), **axes}, devices=devices)).items()})
+    one, state, prompts = mh_flagship_inputs(torch, dev)
+    mesh = build_mesh({"tp": MH_SHARDS}, devices=devices)
+    tp = gm.TransformerGenerator(**GEN_DIMS, dtype="bfloat16", mesh=mesh)
+    P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        ref["l1"] = gm.prefill(state["params"], P, gm.init_cache(one.cfg, MESH_B, MESH_S, dev),
+                               one.cfg, True)[0].float().cpu().numpy()
+        ref["lN"] = mh_prefill(torch, gm, tp.shard_state(state)["params"], one.cfg, mesh,
+                               P).float().cpu().numpy()
+    ref["flagship"] = (one, state, prompts)
+    cfg, params, batch = mh_train_inputs(torch, dev)
+    tmesh = build_mesh({"dp": 2, "tp": 2}, devices=devices)
+    ref["train_loss"], _ = step_grads(torch, lambda p, b: lm_loss(p, b, cfg),
+                                      shard_params(params, tmesh), batch)
+    del params, batch
+    return ref
+
+
+def mh_ring(torch, mh, local, dev) -> dict:
+    """(a) ring_attention_sharded over a cross-process {"sp": 4}: 10v's 4
+    causal blocks through RingFlash against the plain ring in f32 on the
+    same mesh; each process's gradients cover its own blocks."""
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    B, H, KV, Sl, D = RING_SHAPE
+    mesh = mh.global_mesh({"sp": MH_SHARDS}, devices=local)
+    g = torch.Generator().manual_seed(SEED + 40)
+    q, k, v, do = (torch.randn(B, H, MH_SHARDS * Sl, D, generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    kern = ring_attention_sharded(mesh, "sp", True, use_flash=True)
+    plain = ring_attention_sharded(mesh, "sp", True, use_flash=False)
+
+    def fwd_bwd(fn, ins, cot):
+        ts = [t.detach().requires_grad_() for t in ins]
+        return mesh.value_and_grad(lambda: fn(*ts), ts, cot)
+
+    flash_reset(fa)
+    o_k, g_k = fwd_bwd(kern, (q, k, v), do)
+    sync_all(torch)
+    launches = flash_counts(fa)
+    o_p, g_p = fwd_bwd(plain, [t.float() for t in (q, k, v)], do.float())
+    out = {"launches": launches, "o_err": float((o_k.float() - o_p).abs().max()),
+           "grad_diff_max": {n: float((a.float() - b).abs().max())
+                             for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)},
+           "grad_ref_max": {n: float(b.abs().max()) for n, b in zip(("dq", "dk", "dv"), g_p)}}
+    del g_p, o_p
+    out["fwd_bwd_wall_p50_ms"] = turns_p50(torch, {
+        "kernel": lambda: fwd_bwd(kern, (q, k, v), do),
+        "plain_bf16": lambda: fwd_bwd(plain, (q, k, v), do)})
+    return out
+
+
+def mh_round_us(torch, mesh) -> float:
+    """Host microseconds a round of ``all_reduce`` over the cross-process
+    tp axis takes, on a 4-element tensor on each shard's card."""
+    from seldon_core_tpu_torch.parallel.mesh import all_reduce
+
+    def body(shard):
+        x = torch.ones(4, device=shard.device)
+        for _ in range(10):
+            all_reduce(x, "tp")
+        torch.cuda.synchronize(shard.device)
+        t = time.perf_counter()
+        for _ in range(MH_ROUND_CALLS):
+            y = all_reduce(x, "tp")
+        y.sum().item()
+        return (time.perf_counter() - t) / MH_ROUND_CALLS * 1e6
+
+    return float(mesh.run(body)[mesh.owned[0]])
+
+
+def mh_flagship(torch, mh, local, dev, rank: int, out_dir: Path) -> dict:
+    """(b) the flagship generator over a cross-process {"tp": 4}: the
+    prefill's logits and the static request's tokens (to the parent), every
+    process's launches, the request wall against one device in turns (the
+    one-device requests on process 0 only)."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    one, state, prompts = mh_flagship_inputs(torch, dev)
+    mesh = mh.global_mesh({"tp": MH_SHARDS}, devices=local)
+    t0 = time.perf_counter()
+    tp = gm.TransformerGenerator(**GEN_DIMS, dtype="bfloat16", mesh=mesh)
+    sstate = tp.shard_state(state)
+    build_s = time.perf_counter() - t0
+    P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        reset_counts(fa, fd, kw)
+        lN = mh_prefill(torch, gm, sstate["params"], one.cfg, mesh, P)
+        sync_all(torch)
+        pre = read_counts(fa, fd, kw)
+        reset_counts(fa, fd, kw)
+        y = tp.predict(sstate, P.float())
+        sync_all(torch)
+        static = read_counts(fa, fd, kw)
+        np.savez(out_dir / f"rank{rank}_flagship.npz", lN=lN.float().cpu().numpy(),
+                 toks=y.long().cpu().numpy())
+        # in turns (ABBA), the request above being the multihost side's warm
+        # call; the one-device requests on process 0 only
+        X = P.float()
+        fns = {"multihost": lambda: tp.predict(sstate, X), "one": lambda: one.predict(state, X)}
+        walls = {"multihost": [], "one": []}
+        if rank == 0:
+            fns["one"]()
+        for name in ("multihost", "one", "one", "multihost"):
+            if name == "one" and rank != 0:
+                continue
+            sync_all(torch)
+            t = time.perf_counter()
+            fns[name]()
+            sync_all(torch)
+            walls[name].append(time.perf_counter() - t)
+        walls = {k: float(np.median(v) * 1e3) if v else None for k, v in walls.items()}
+    return {"build_s": build_s, "tp_use_flash": tp.use_flash, "prefill_launches": pre,
+            "static_launches": static, "request_wall_p50_ms": walls,
+            "round_us": mh_round_us(torch, mesh), "owned": mesh.owned,
+            "shard_devices": [str(mesh.device_list[i]) for i in mesh.owned]}
+
+
+def mh_blocks(torch, tree, whole: dict) -> list:
+    """[(leaf, block key, sum of squared differences, sum of squares of the
+    one-device block)] for each of this process's shards of ``tree``
+    against ``whole`` (one device's leaves)."""
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    mesh, specs = tree.mesh, dict(leaves_with_paths(tree.specs))
+    rows = []
+    for i in mesh.owned:
+        for path, t in leaves_with_paths(tree.shards[i]):
+            ref, key = whole[path], []
+            for dim, axis in enumerate(specs.get(path, ())):
+                if axis is None or mesh.shape.get(axis, 1) == 1:
+                    continue
+                n, c = mesh.shape[axis], mesh.coords(i)[axis]
+                ref = ref.narrow(dim, c * (ref.shape[dim] // n), ref.shape[dim] // n)
+                key.append(f"{axis}{c}")
+            d = t.float() - ref.float().to(t.device)
+            rows.append([path, "/".join(key), float((d * d).sum()),
+                         float((ref.float() ** 2).sum())])
+    return rows
+
+
+def mh_hashes(torch, tree) -> list:
+    """[(leaf, block key, sha1)] of this process's shards of ``tree``."""
+    import hashlib
+
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    mesh, specs = tree.mesh, dict(leaves_with_paths(tree.specs or {}))
+    rows = []
+    for i in mesh.owned:
+        for path, t in leaves_with_paths(tree.shards[i]):
+            key = "/".join(f"{a}{mesh.coords(i)[a]}" for a in specs.get(path, ())
+                           if a is not None and mesh.shape.get(a, 1) > 1)
+            rows.append([path, key, hashlib.sha1(
+                t.detach().float().cpu().numpy().tobytes()).hexdigest()])
+    return rows
+
+
+def mh_train(torch, mh, local, dev) -> dict:
+    """(c) lm_train_step over dp=2 (over processes) x tp=2 at the GQA
+    flagship's train config on the copy task: step 0's loss and per-block
+    gradients against one device's, SHARD_STEPS steps with their launches,
+    the replicated copies' hashes."""
+    from seldon_core_tpu_torch.models.transformer import lm_loss, lm_train_step, shard_params
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.optim import adam
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    cfg, params, batch = mh_train_inputs(torch, dev)
+    mesh = mh.global_mesh({"tp": 2}, {"dp": 2}, devices=local)
+    sparams = shard_params(params, mesh)
+    loss_1, g1 = step_grads(torch, lambda p, b: lm_loss(p, b, cfg), params, batch)
+    loss_n, gn = step_grads(torch, lambda p, b: lm_loss(p, b, cfg), sparams, batch)
+    blocks = mh_blocks(torch, gn, dict(leaves_with_paths(g1)))
+    del g1, gn
+    opt = adam(TRAIN_LR)
+    state = opt.init(sparams)
+    losses, p = [], sparams
+    flash_reset(fa)
+    for _ in range(SHARD_STEPS):
+        p, state, loss = lm_train_step(p, state, batch, opt, cfg)
+        losses.append(float(loss))
+    sync_all(torch)
+    launches = flash_counts(fa)
+    one_state = opt.init(params)
+    walls = turns_p50(torch, {"multihost": lambda: lm_train_step(p, state, batch, opt, cfg),
+                              "one": lambda: lm_train_step(params, one_state, batch, opt, cfg)},
+                      runs=1)
+    return {"loss": loss_n, "loss_one_device": loss_1, "blocks": blocks, "losses": losses,
+            "launches": launches, "hashes": mh_hashes(torch, p), "step_wall_p50_ms": walls}
+
+
+def mh_mnist(torch, mh, local, dev) -> dict:
+    """(d) MNIST's train_step over a cross-process {"dp": 4}, 10v's widths
+    and batches: step 0's gradients and SHARD_STEPS steps against one
+    device's, the copies' hashes."""
+    from seldon_core_tpu_torch.models.mnist import loss_fn, mlp_init, train_step
+    from seldon_core_tpu_torch.optim import adam
+    from seldon_core_tpu_torch.parallel.mesh import place_tree
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    params = mlp_init(torch.Generator().manual_seed(SEED), hidden=256, device=dev)
+    mesh = mh.global_mesh({"dp": MH_SHARDS}, devices=local)
+    sp = place_tree(params, mesh)
+    opt = adam(MNIST_DP_LR)
+    s1, sn = opt.init(params), opt.init(sp)
+    rng = np.random.default_rng(SEED + 45)
+    batches = [{"image": torch.as_tensor(rng.random((MNIST_DP_B, 784)), dtype=torch.float32,
+                                         device=dev),
+                "label": torch.as_tensor(rng.integers(0, 10, MNIST_DP_B), device=dev)}
+               for _ in range(SHARD_STEPS)]
+    _, g1 = step_grads(torch, loss_fn, params, batches[0])
+    _, gn = step_grads(torch, loss_fn, sp, batches[0])
+    grel = rel_l2(torch, dict(leaves_with_paths(gn.shards[mesh.owned[0]])),
+                  dict(leaves_with_paths(g1)))
+    losses, p1, pn = [], params, sp
+    for b in batches:
+        p1, s1, l1 = train_step(p1, s1, b, opt)
+        pn, sn, ln = train_step(pn, sn, b, opt)
+        losses.append((float(l1), float(ln)))
+    first = pn.shards[mesh.owned[0]]
+    diff = max(float((first[k].float() - p1[k].float()).abs().max()) for k in p1)
+    scale = max(float(p1[k].float().abs().max()) for k in p1)
+    return {"grad_rel_l2": grel, "losses": losses, "max_param_diff": diff,
+            "bound": SHARD_STEPS * 2 * MNIST_DP_LR + bf16_ulp(scale),
+            "hashes": mh_hashes(torch, pn)}
+
+
+def multihost_worker(out_dir: str) -> int:
+    """One process of phase 10w: joins the others through the SELDON_* env
+    contract (parallel/multihost.py) and runs (a)-(d) over global meshes,
+    writing its results under ``out_dir`` for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from seldon_core_tpu_torch.parallel import multihost as mh
+
+    os.environ["SELDON_TPU_GEN_CONTINUOUS"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    plan = json.loads((Path(out_dir) / "plan.json").read_text())
+    if not mh.initialize():
+        raise RuntimeError("multihost worker: no coordinator address in the environment")
+    info = mh.process_info()
+    rank = info["process_index"]
+    dev = torch.device("cuda", 0)
+    local = ["cuda:0"] * plan["local"]
+    out = {"rank": rank, "backend": mh.backend(), "info": info,
+           "card": torch.cuda.get_device_name(0), "join_s": time.perf_counter() - t0,
+           "collectives": {}}
+    walls = {}
+    for name, (axes, dcn) in MH_COLL_MESHES.items():
+        out["collectives"].update({f"{name}/{k}": v for k, v in mh_collectives(
+            torch, mh.global_mesh(axes, dcn, devices=local)).items()})
+    for name, fn in (("ring", lambda: mh_ring(torch, mh, local, dev)),
+                     ("flagship", lambda: mh_flagship(torch, mh, local, dev, rank,
+                                                      Path(out_dir))),
+                     ("train", lambda: mh_train(torch, mh, local, dev)),
+                     ("mnist", lambda: mh_mnist(torch, mh, local, dev))):
+        t = time.perf_counter()
+        out[name] = fn()
+        walls[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    mh.barrier("10w")
+    out["part_walls_s"] = walls
+    out["wall_s"] = time.perf_counter() - t0
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def mh_spawn(torch, lay: dict, out_dir: Path) -> list:
+    """Start the workers through the env contract, each with its own
+    timeout; a worker that fails or times out fails the phase (the others
+    are killed)."""
+    port = free_port()
+    procs = []
+    for pid in range(lay["procs"]):
+        env = {**os.environ, "SELDON_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "SELDON_NUM_PROCESSES": str(lay["procs"]), "SELDON_PROCESS_ID": str(pid)}
+        if lay["visible"] is not None:
+            env["CUDA_VISIBLE_DEVICES"] = lay["visible"][pid]
+        log_f = open(out_dir / f"rank{pid}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                        "--multihost-worker", str(out_dir)], env=env,
+                                       stdout=log_f, stderr=subprocess.STDOUT), log_f))
+    deadline = time.perf_counter() + MH_WORKER_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            for pid, (p, _) in enumerate(procs):
+                if p.poll() not in (None, 0):  # the others would wait for it
+                    tail = (out_dir / f"rank{pid}.log").read_text()[-3000:]
+                    raise AssertionError(f"[multihost] worker {pid} exited {p.poll()}:\n{tail}")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"[multihost] the workers ran past {MH_WORKER_TIMEOUT_S} s")
+            time.sleep(0.2)
+        for pid, (p, _) in enumerate(procs):
+            if p.returncode != 0:
+                tail = (out_dir / f"rank{pid}.log").read_text()[-3000:]
+                raise AssertionError(f"[multihost] worker {pid} exited {p.returncode}:\n{tail}")
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    return [json.loads((out_dir / f"rank{pid}.json").read_text())
+            for pid in range(lay["procs"])]
+
+
+def mh_faults(torch, dev, smi) -> dict:
+    """(e) examples/ensemble4_deployment.json in host mode, its combiner
+    given a quorum of 3 and m3 wrapped in the port's
+    FaultyNodeRuntime(FaultSpec(error_rate=1.0), seed=7): every answer equals
+    the healthy members' combination (the same graph without m3, the same
+    weights), bit for bit; the wrapper's calls and injections as seeded;
+    fused_mlp launched by the three healthy members only."""
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.interpreter import GraphExecutor
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+    from seldon_core_tpu_torch.testing.faults import FaultSpec, FaultyNodeRuntime
+
+    doc = example_doc("ensemble4")
+    doc["spec"]["predictors"][0]["graph"]["quorum"] = 3
+    healthy = json.loads(json.dumps(doc))
+    healthy["spec"]["predictors"][0]["graph"]["children"] = \
+        healthy["spec"]["predictors"][0]["graph"]["children"][:3]
+    spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(doc))
+    executor = GraphExecutor(spec.predictor(), device=dev)
+    faulty = FaultyNodeRuntime(executor.runtimes["m3"], FaultSpec(error_rate=1.0), seed=7)
+    executor.runtimes["m3"] = faulty
+    engine = EngineService(spec, extra_runtimes=executor.runtimes, force_host=True, device=dev)
+    ref = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(healthy)),
+                        force_host=True, device=dev)
+    ref.load_states({k: v for k, v in engine.states().items() if k != "m3"})
+    rng = np.random.default_rng(SEED + 150)
+    xs = [rng.random((1, 784)) for _ in range(MH_FAULT_REQUESTS)] + [rng.random((64, 784))]
+    try:
+        if engine.mode != "host" or ref.mode != "host":
+            raise AssertionError(f"[multihost] (e) modes {engine.mode}, {ref.mode}")
+        fused_mlp.LAUNCHES = 0
+        got = [json.loads(asyncio.run(engine.predict_json(json.dumps(ndarray(x))))[0])
+               for x in xs]
+        launches = fused_mlp.LAUNCHES
+        want = [json.loads(asyncio.run(ref.predict_json(json.dumps(ndarray(x))))[0])
+                for x in xs]
+    finally:
+        engine.close()
+        ref.close()
+    n = len(xs)
+    same = all(np.array_equal(np.asarray(g["data"]["ndarray"]), np.asarray(w["data"]["ndarray"]))
+               for g, w in zip(got, want))
+    tags = [g["meta"]["tags"].get("seldon.degraded.ensemble") for g in got]
+    if (not same or tags != [["m3"]] * n or faulty.calls != {"predict": n}
+            or faulty.injected != {"predict": n} or launches != 3 * n):
+        raise AssertionError(f"[multihost] (e) ensemble4 with m3 failing: answers equal to the "
+                             f"healthy members' {same}, degraded tags {tags}, calls "
+                             f"{faulty.calls}, injected {faulty.injected}, fused_mlp launches "
+                             f"{launches} (want {3 * n})")
+    log(f"[multihost] (e) ensemble4 in host mode, quorum 3, m3 behind "
+        f"FaultyNodeRuntime(FaultSpec(error_rate=1.0), seed=7): {n} requests ({n - 1} of 1 row, "
+        f"1 of 64) answered 200, bit for bit the healthy three's combination, each tagged "
+        f"seldon.degraded.ensemble=['m3']; calls {faulty.calls}, injected {faulty.injected}; "
+        f"{launches} fused_mlp launches (3 healthy members x {n}) on {smi}")
+    return {"requests": n, "calls": faulty.calls, "injected": faulty.injected,
+            "fused_mlp_launches": launches}
+
+
+def multihost_phase(torch, dev, smi, mesh_walls: dict) -> dict:
+    """10w. [6b] part 2: the paths of 10u and 10v over meshes that span
+    processes, one process a card (four processes over NCCL on four cards,
+    else two sharing cuda:0 over gloo, two shards each), held to this
+    process's one-process meshes and to one device; then (e) the fault
+    harness on ensemble4."""
+    import shutil
+    import tempfile
+
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+
+    t_phase = time.perf_counter()
+    lay = mh_layout(torch)
+    ref = mh_references(torch, dev)
+    one, state, prompts = ref.pop("flagship")
+    cfg, L, new = one.cfg, GEN_DIMS["n_layers"], GEN_DIMS["max_new_tokens"]
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    out_dir = Path(tempfile.mkdtemp(prefix="sct_multihost_"))
+    (out_dir / "plan.json").write_text(json.dumps(lay))
+    t = time.perf_counter()
+    res = mh_spawn(torch, lay, out_dir)
+    spawn_s = time.perf_counter() - t
+    backends = sorted({r["backend"] for r in res})
+    want_backend = "nccl" if lay["visible"] else "gloo"
+    if backends != [want_backend]:
+        raise AssertionError(f"[multihost] backends {backends}, want {want_backend}")
+    log(f"[multihost] phase 10w: {lay['procs']} processes over {backends[0]}, "
+        f"{lay['local']} shard(s) each "
+        f"({'a card each, CUDA_VISIBLE_DEVICES=i' if lay['visible'] else 'all on cuda:0'}); "
+        f"joined in {[round(r['join_s'], 2) for r in res]} s; one-process references "
+        f"{ref_s:.2f} s, workers {spawn_s:.2f} s")
+    out = {"layout": lay, "backend": backends[0], "worker_walls_s": [r["wall_s"] for r in res],
+           "worker_part_walls_s": [r["part_walls_s"] for r in res]}
+
+    # (a) the collectives, then the ring
+    got = {k: v for r in res for k, v in r["collectives"].items()}
+    differ = sorted(k for k, v in ref["collectives"].items() if got.get(k) != v)
+    if differ or len(got) != len(ref["collectives"]):
+        raise AssertionError(f"[multihost] (a) collectives differ from the one-process mesh's "
+                             f"at {differ[:8]} ({len(got)} answers, want "
+                             f"{len(ref['collectives'])})")
+    ring = [r["ring"] for r in res]
+    launches = {k: sum(x["launches"][k] for x in ring) for k in ("fwd", "dq", "dkv")}
+    o_err = max(x["o_err"] for x in ring)
+    rel = {n: max(x["grad_diff_max"][n] for x in ring) / max(x["grad_ref_max"][n] for x in ring)
+           for n in ("dq", "dk", "dv")}
+    want = MH_SHARDS * (MH_SHARDS + 1) // 2
+    if launches != {"fwd": want, "dq": want, "dkv": want} or o_err > FLASH_O_ATOL \
+            or max(rel.values()) > BWD_REL_TOL:
+        raise AssertionError(f"[multihost] (a) the ring over processes: launches {launches} "
+                             f"(want {want} of each), o {o_err:.3e} (bound {FLASH_O_ATOL}), "
+                             f"gradients {rel} (bound {BWD_REL_TOL})")
+    out["collectives"] = len(got)
+    out["ring"] = {"launches": launches, "launches_by_process": [x["launches"] for x in ring],
+                   "max_abs_err_o": o_err, "bwd_rel_err": rel,
+                   "fwd_bwd_wall_p50_ms": ring[0]["fwd_bwd_wall_p50_ms"]}
+    log(f"[multihost] (a) {len(got)} collective answers (all_reduce, all_gather, gather_slices, "
+        f"ring_shift over sp=4, tp=4 and dp=2 x tp=2 across processes) bit for bit the "
+        f"one-process mesh's; the ring over a cross-process sp=4, 4 causal blocks of "
+        f"{RING_SHAPE} bf16: launches {launches} ({[x['launches'] for x in ring]} by process), "
+        f"o within {o_err:.3e} of the plain ring in f32 (bound {FLASH_O_ATOL}), dq/dk/dv within "
+        f"{rel} of their largest element (bound {BWD_REL_TOL}); forward + backward wall p50 "
+        f"{out['ring']['fwd_bwd_wall_p50_ms']} (recorded, not claimed) on {smi}")
+
+    # (b) the flagship over a cross-process tp=4
+    fl = [r["flagship"] for r in res]
+    arrays = [np.load(out_dir / f"rank{r['rank']}_flagship.npz") for r in res]
+    lNs, toks = [a["lN"] for a in arrays], [a["toks"] for a in arrays]
+    for a in arrays:
+        a.close()
+    same_bits = all(np.array_equal(x, ref["lN"]) for x in lNs)
+    logit_err = float(np.abs(lNs[0] - ref["l1"]).max())
+    pre = {k: sum(f["prefill_launches"][k] for f in fl) for k in COUNTED}
+    static = {k: sum(f["static_launches"][k] for f in fl) for k in COUNTED}
+    want_pre = {"flash_attention": L * MH_SHARDS, "flash_decode": 0, "kv_write": 0,
+                "flash_decode_paged": 0, "kv_write_paged": 0}
+    want_static = {**want_pre, "flash_decode": L * MH_SHARDS * (new - 1)}
+    per_proc = [(f["prefill_launches"]["flash_attention"], f["static_launches"]["flash_decode"])
+                for f in fl]
+    if (not same_bits or logit_err > MESH_LOGIT_ATOL or pre != want_pre or static != want_static
+            or any(a != L * len(f["owned"]) or b != L * len(f["owned"]) * (new - 1)
+                   for (a, b), f in zip(per_proc, fl))
+            or not all(f["tp_use_flash"] for f in fl)
+            or any(not np.array_equal(t, toks[0]) for t in toks)):
+        raise AssertionError(f"[multihost] (b) flagship over tp=4 across processes: logits the "
+                             f"one-process mesh's bits {same_bits}, {logit_err:.4f} from one "
+                             f"device's (bound {MESH_LOGIT_ATOL}); prefill launched {pre} (want "
+                             f"{want_pre}), the request {static} (want {want_static}); by "
+                             f"process {per_proc}")
+    held = check_gaps(torch, lm_apply, state["params"], cfg, [(prompts, toks[0])], dev, 1,
+                      "multihost static")
+    walls = fl[0]["request_wall_p50_ms"]
+    out["flagship"] = {"prefill": {"launches": pre, "bit_identical_to_one_process_mesh": same_bits,
+                                   "max_abs_logit_err_vs_one_device": logit_err},
+                       "static": {"launches": static, "held": held},
+                       "launches_by_process": per_proc,
+                       "request_wall_p50_ms": {**walls, "one_process_mesh_10u":
+                                               mesh_walls.get("tp4")},
+                       "round_us_by_process": [f["round_us"] for f in fl],
+                       "build_s": [f["build_s"] for f in fl]}
+    log(f"[multihost] (b) flagship over a cross-process tp=4: a {MESH_B}x{MESH_S} prefill "
+        f"launched {pre['flash_attention']} flash_attention ({L} x {MH_SHARDS} shards; by process "
+        f"{[a for a, _ in per_proc]}), its logits on every process bit for bit the one-process "
+        f"mesh's and {logit_err:.4f} from one device's (bound {MESH_LOGIT_ATOL}); the static "
+        f"request {static['flash_decode']} flash_decode ({L} x {MH_SHARDS} x {new - 1} steps; by "
+        f"process {[b for _, b in per_proc]}), the same tokens on every process; request wall "
+        f"p50 {walls['multihost']:.3f} ms across processes against {walls['one']:.3f} ms on one "
+        f"device, in turns, and {mesh_walls.get('tp4')} ms on 10u's one-process mesh in the same "
+        f"run (recorded, not claimed); a cross-process all_reduce round on a 4-element tensor "
+        f"costs {[round(f['round_us'], 1) for f in fl]} us of host time by process, on {smi}")
+
+    # (c) lm_train_step over dp=2 x tp=2 across processes
+    tr = [r["train"] for r in res]
+    sums: dict = {}
+    for r in tr:
+        for path, key, dsq, rsq in r["blocks"]:
+            sums.setdefault(path, {})[key] = (dsq, rsq)
+    grel = {p: float(np.sqrt(sum(d for d, _ in b.values()) / sum(r for _, r in b.values())))
+            for p, b in sums.items()}
+    worst = max(grel, key=grel.get)
+    copies = {}
+    for r in tr:
+        for path, key, h in r["hashes"]:
+            copies.setdefault((path, key), set()).add(h)
+    mixed = sorted(k for k, v in copies.items() if len(v) > 1)
+    tl = {k: sum(r["launches"][k] for r in tr) for k in ("fwd", "dq", "dkv")}
+    per = L * MH_SHARDS
+    losses = tr[0]["losses"]
+    if (any(r["loss"] != ref["train_loss"] for r in tr) or grel[worst] > TRAIN_GRAD_REL_L2
+            or mixed or tl != {k: per * SHARD_STEPS for k in tl}
+            or any(r["losses"] != losses for r in tr) or not losses[-1] < losses[0]):
+        raise AssertionError(f"[multihost] (c) dp x tp across processes: step 0 losses "
+                             f"{[r['loss'] for r in tr]} against the one-process mesh's "
+                             f"{ref['train_loss']}; gradients {grel[worst]:.3e} relative L2 at "
+                             f"{worst}; copies that differ {mixed[:4]}; launches {tl} (want "
+                             f"{per} of each a step); losses {[r['losses'] for r in tr]}")
+    out["train"] = {"loss": tr[0]["loss"], "loss_one_process_mesh": ref["train_loss"],
+                    "loss_one_device": tr[0]["loss_one_device"], "grad_rel_l2_max": grel[worst],
+                    "worst_leaf": worst,
+                    "grad_rel_l2_median": float(np.median(list(grel.values()))),
+                    "losses": losses, "launches": tl, "launches_a_step": per,
+                    "copies_checked": len(copies),
+                    "step_wall_p50_ms": tr[0]["step_wall_p50_ms"]}
+    log(f"[multihost] (c) lm_train_step over dp=2 x tp=2 across processes (GQA flagship, bf16, "
+        f"B={TRAIN_B}, S={TRAIN_HALF * 3 - 1}): step 0 loss {tr[0]['loss']:.6f} on every process, "
+        f"bit for bit the one-process mesh's, against {tr[0]['loss_one_device']:.6f} on one "
+        f"device; gradients within {grel[worst]:.3e} relative L2 of one device's at {worst} "
+        f"(median {out['train']['grad_rel_l2_median']:.3e}; bound {TRAIN_GRAD_REL_L2}); "
+        f"{SHARD_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {tl} ({per} of "
+        f"each a step: {L} layers x {MH_SHARDS} shards), {len(copies)} blocks' copies "
+        f"bit-identical across processes; step wall p50 {tr[0]['step_wall_p50_ms']} "
+        f"(recorded, not claimed) on {smi}")
+
+    # (d) MNIST over a cross-process dp=4
+    mn = [r["mnist"] for r in res]
+    mcopies = {}
+    for r in mn:
+        for path, key, h in r["hashes"]:
+            mcopies.setdefault(path, set()).add(h)
+    mg = max(max(r["grad_rel_l2"].values()) for r in mn)
+    loss_rel = max(abs(b - a) / a for r in mn for a, b in r["losses"])
+    if (mg > TRAIN_GRAD_REL_L2 or loss_rel > TRAIN_LOSS_RTOL
+            or any(len(v) > 1 for v in mcopies.values())
+            or any(r["max_param_diff"] > r["bound"] for r in mn)):
+        raise AssertionError(f"[multihost] (d) MNIST over dp=4 across processes: gradients "
+                             f"{mg:.3e}, losses {[r['losses'] for r in mn]}, parameter "
+                             f"differences {[r['max_param_diff'] for r in mn]}, copies "
+                             f"{ {k: len(v) for k, v in mcopies.items()} }")
+    out["mnist"] = {"grad_rel_l2_max": mg, "losses": mn[0]["losses"],
+                    "max_param_diff": max(r["max_param_diff"] for r in mn), "bound": mn[0]["bound"]}
+    log(f"[multihost] (d) MNIST train_step over a cross-process dp=4: step 0 gradients within "
+        f"{mg:.3e} relative L2 of one device's (bound {TRAIN_GRAD_REL_L2}); losses (one device, "
+        f"across processes) {mn[0]['losses']}; parameters within "
+        f"{out['mnist']['max_param_diff']:.3e} of one device's (bound {mn[0]['bound']:.3e}); "
+        f"copies bit-identical across processes")
+
+    # (e) the fault harness
+    out["faults"] = mh_faults(torch, dev, smi)
+    out["launches"] = {"flash_attention": pre["flash_attention"] + static["flash_attention"]
+                       + tl["fwd"],
+                       "flash_attention_bwd_dq": tl["dq"], "flash_attention_bwd_dkv": tl["dkv"],
+                       "flash_decode": static["flash_decode"],
+                       "fused_mlp_softmax": out["faults"]["fused_mlp_launches"]}
+    out["card"] = smi
+    out["wall_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[multihost] phase 10w wall {out['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -10073,6 +10757,19 @@ def main() -> int:
                                    "sharded (ring over sp, tp x sp step, pipeline)": n}
         row["launches"] += n
 
+    # 10w: after 10v, each worker's counts set to 0 just before each path and
+    # read just after; (e)'s fused MLP likewise in this process
+    multihost = multihost_phase(torch, dev, smi, mesh["flagship"]["request_wall_p50_ms"])
+    log(json.dumps({"new_paths": {"multihost": multihost}}))
+    for row, key in ((flash_row, "flash_attention"), (dq_row, "flash_attention_bwd_dq"),
+                     (dkv_row, "flash_attention_bwd_dkv"), (decode_row, "flash_decode"),
+                     (mlp_row, "fused_mlp_softmax")):
+        n = multihost["launches"][key]
+        row["launches_by_path"] = {**row.get("launches_by_path", {"earlier phases":
+                                                                  row["launches"]}),
+                                   "multihost (processes over tp, dp x tp; ensemble4 faults)": n}
+        row["launches"] += n
+
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,
                                 paged_row, f32_row, kv_paged_row, *int8_rows]}))
@@ -10086,6 +10783,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--multihost-worker"]:
+            sys.exit(multihost_worker(sys.argv[2]))
         sys.exit(main())
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -26,7 +26,10 @@ reference's tp layout (``models/transformer.py`` ``param_shardings``), and
 ``prefill``, ``generate``, ``stream_chunks`` and the paged programs below
 run once per shard (``parallel/mesh.py`` ``spmd``): each shard holds its
 heads' caches or pool blocks on its own device and launches the same
-kernels at its shape; shard 0's answer is returned.
+kernels at its shape; shard 0's answer is returned.  Over a mesh that
+spans processes (``parallel/multihost.py``) every process runs its own
+shards of the static lane and returns its first shard's answer, the
+same bits on each; the continuous lane refuses such a mesh.
 
 ``stream_chunks`` (and the unit's ``stream_tokens``, which the engine's
 SSE route drives) yields the same tokens chunk by chunk: the same decode
@@ -144,6 +147,7 @@ from seldon_core_tpu_torch.models.transformer import (
     _rmsnorm,
     apply_rope,
     attn_out,
+    check_mesh,
     heads,
     lm_init,
     load_lm_weights,
@@ -977,8 +981,8 @@ class TransformerGenerator(Unit):
         # laid out over the same mesh (runtime/servingmesh.py)
         self.mesh = mesh
         if mesh is not None:
-            self.cfg.tp_local(mesh.shape.get("tp", 1))  # refuses an indivisible tp now
-            device = mesh.device_list[0]
+            check_mesh(self.cfg, mesh, "TransformerGenerator")
+            device = mesh.first_device
         self.device = resolve_device(device)
         self.use_flash = resolve_flash(str(attention), self.cfg, self.device, decode=True,
                                        mesh=mesh)

@@ -105,7 +105,8 @@ def loss_fn(params, batch) -> torch.Tensor:
     ``ShardedTree`` (``parallel/mesh.py`` ``place_tree``: every leaf
     replicated) runs over its mesh: the rows split over ``dp``, each
     ``dp`` group's nll summed on its shard, the sum of those over the
-    batch's rows on the mesh's first device."""
+    batch's rows on this process's first device (every process's copy the
+    same bits over a mesh that spans processes)."""
     x, y = batch["image"], batch["label"]
     if not isinstance(params, ShardedTree):
         logp = torch.log_softmax(mlp_apply(params, x), dim=-1)
@@ -126,7 +127,7 @@ def loss_fn(params, batch) -> torch.Tensor:
         return -torch.gather(logp, 1, ys[:, None].long()).sum()
 
     outs = mesh.run(body)
-    return sum_onto([outs[i] for i in leads], mesh.device_list[0]) / x.shape[0]
+    return sum_onto(mesh.collect(outs, leads), mesh.first_device) / x.shape[0]
 
 
 def train_step(params, opt_state, batch, optimizer):

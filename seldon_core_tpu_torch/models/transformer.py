@@ -92,7 +92,11 @@ autograd graph, replicated leaves' gradients summed over their copies
 (``optim.grad_update``).  ``lm_pipeline_params`` / ``_apply`` / ``_loss``
 / ``_train_step`` run the layer stack as a GPipe pipeline over ``pp``
 (``parallel/pipeline.py``), composable with ``dp``, each stage through
-the same kernels as one device.
+the same kernels as one device.  Over a mesh that spans processes
+(``parallel/multihost.py``, one process a card) ``lm_apply``, ``lm_loss``
+and ``lm_train_step`` run each process's shards and gather the answer or
+the loss onto every process (``DeviceMesh.collect``); the pipeline and
+MoE experts over a cross-process ``ep`` are refused (``check_mesh``).
 """
 
 from __future__ import annotations
@@ -323,6 +327,15 @@ def param_shardings(mesh: DeviceMesh, params) -> Any:
     return walk(params, ())
 
 
+def check_mesh(cfg: LMConfig, mesh: DeviceMesh, what: str) -> None:
+    """A unit's mesh refused at construction: a tp that does not divide the
+    heads, and MoE experts over an ``ep`` that spans processes (not run
+    across processes)."""
+    cfg.tp_local(mesh.shape.get("tp", 1))
+    if cfg.moe_every:
+        mesh.refuse_spanning(("ep",), f"{what}'s MoE layers")
+
+
 def shard_params(params, mesh: DeviceMesh, specs=None) -> ShardedTree:
     """``params`` (one device's whole tree) placed over ``mesh`` by
     ``specs`` (default ``param_shardings``; ``parallel/mesh.py``
@@ -490,8 +503,8 @@ def lm_apply(params, tokens, cfg: LMConfig, causal: bool = True, use_flash: bool
             raise ValueError("lm_apply: mesh differs from the params' mesh")
         outs, lay = _lm_sharded(params, tokens, cfg, causal, use_flash,
                                 lambda p, x, sl: _lm_head(p, x))
-        logits = lay.gather([outs[i][0] for i in lay.leads])
-        return (logits, outs[0][1]) if return_lb else logits
+        logits = lay.gather([None if o is None else o[0] for o in outs])
+        return (logits, outs[params.mesh.owned[0]][1]) if return_lb else logits
     x, lb_total = _lm_trunk(params, tokens, cfg, causal, use_flash)
     logits = _lm_head(params, x)
     return (logits, lb_total) if return_lb else logits
@@ -538,12 +551,13 @@ class _Layout:
         return t
 
     def gather(self, blocks):
-        """The leads' blocks (in ``leads``' order: dp slowest, whatever the
-        mesh's axis order) reassembled on the mesh's first device."""
-        dev = self.mesh.device_list[0]
+        """The leads' blocks of a run's per-shard ``blocks`` (in ``leads``'
+        order: dp slowest, whatever the mesh's axis order) reassembled on
+        this process's first device (``DeviceMesh.collect``: over a mesh
+        that spans processes every process gets the whole answer)."""
+        blocks = self.mesh.collect(blocks, self.leads)
         sp = self.mesh.shape.get("sp", 1)
-        rows = [torch.cat([b.to(dev) for b in blocks[r:r + sp]], dim=1)
-                for r in range(0, len(blocks), sp)]
+        rows = [torch.cat(blocks[r:r + sp], dim=1) for r in range(0, len(blocks), sp)]
         return torch.cat(rows)
 
 
@@ -718,9 +732,9 @@ def _lm_loss_sharded(params: ShardedTree, tokens, cfg: LMConfig, use_flash: Opti
     outs, lay = _lm_sharded(params, tokens[:, :-1], cfg, True, use_flash,
                             lambda p, x, sl: _nll_sum(_lm_head(p, x),
                                                       sl(targets).to(x.device)))
-    dev = mesh.device_list[0]
-    total = sum_onto([outs[i][0] for i in lay.leads], dev)
-    return total / targets.numel() + LB_LOSS_COEF * outs[0][1].to(dev)
+    dev = mesh.first_device
+    total = sum_onto(mesh.collect([None if o is None else o[0] for o in outs], lay.leads), dev)
+    return total / targets.numel() + LB_LOSS_COEF * outs[mesh.owned[0]][1].to(dev)
 
 
 def lm_train_step(params, opt_state, batch, optimizer, cfg: LMConfig,
@@ -770,7 +784,9 @@ def lm_pipeline_params(params, cfg: LMConfig, n_stages: int, mesh: DeviceMesh) -
 
 def shard_pipeline_params(pp_params, mesh: DeviceMesh) -> ShardedTree:
     """A whole ``{embed, ln_f, stages}`` tree (``convert.params_from_jax`` of
-    the reference's ``lm_pipeline_params``) placed over ``mesh``."""
+    the reference's ``lm_pipeline_params``) placed over ``mesh``; a mesh
+    that spans processes is refused (the pipeline runs in one process)."""
+    mesh.refuse_spanning(mesh.axis_names, "the pipeline")
     specs = {"embed": (), "ln_f": (),
              "stages": stage_param_shardings(mesh, pp_params["stages"])}
     return place_tree(pp_params, mesh, specs)
@@ -931,8 +947,8 @@ class TransformerLM(Unit):
         # every shard on its own device (the first holds the answers)
         self.mesh = mesh
         if mesh is not None:
-            self.cfg.tp_local(mesh.shape.get("tp", 1))  # refuses an indivisible tp now
-            device = mesh.device_list[0]
+            check_mesh(self.cfg, mesh, "TransformerLM")
+            device = mesh.first_device
         self.device = resolve_device(device)
         self.use_flash = resolve_flash(str(attention), self.cfg, self.device, mesh=mesh)
         # capacity routing flattens the stacked batch into one token stream,

@@ -45,7 +45,8 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 
     def init(params) -> Dict[str, Any]:
         if isinstance(params, ShardedTree):
-            return ShardedTree(params.mesh, [init(p) for p in params.shards])
+            return ShardedTree(params.mesh, [None if p is None else init(p)
+                                             for p in params.shards])
         device = tree_leaves(params)[0].device
         return {"count": torch.zeros((), dtype=torch.int32, device=device),
                 "mu": tree_map(torch.zeros_like, params),
@@ -53,7 +54,8 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 
     def update(grads, state, params=None):
         if isinstance(grads, ShardedTree):
-            pairs = [update(g, st) for g, st in zip(grads.shards, state.shards)]
+            pairs = [(None, None) if g is None else update(g, st)
+                     for g, st in zip(grads.shards, state.shards)]
             return (ShardedTree(grads.mesh, [u for u, _ in pairs], grads.specs),
                     ShardedTree(grads.mesh, [st for _, st in pairs]))
         del params
@@ -88,7 +90,11 @@ def grad_update(loss_fn: Callable, params, opt_state, batch, optimizer):
     gets a zero gradient; each replicated leaf's gradient is summed over
     its copies (``sum_replicas``, by the params' specs), so every copy takes
     the same update and the copies stay bit-identical; then the optimizer
-    runs shard by shard."""
+    runs shard by shard.  Over a mesh that spans processes each process
+    does all of this for its own shards: the forward under the mesh's tape
+    and the backward over its part of the graph, seeded on the process
+    that owns shard 0 (``DeviceMesh.value_and_grad``), the exchanges'
+    adjoints carrying the gradients between processes."""
     if not isinstance(params, ShardedTree):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(live, batch)
@@ -96,16 +102,19 @@ def grad_update(loss_fn: Callable, params, opt_state, batch, optimizer):
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return tree_map(lambda p, u: p + u.to(p.dtype), params, updates), opt_state, loss.detach()
     mesh = params.mesh
-    live = ShardedTree(mesh, [tree_map(lambda p: p.detach().requires_grad_(True), s)
+    live = ShardedTree(mesh, [None if s is None else
+                              tree_map(lambda p: p.detach().requires_grad_(True), s)
                               for s in params.shards], params.specs)
-    loss = loss_fn(live, batch)
-    flat = [tree_leaves(s) for s in live.shards]
-    got = iter(torch.autograd.grad(loss, [t for f in flat for t in f], allow_unused=True))
-    grads = [tree_unflatten(s, [g if (g := next(got)) is not None else torch.zeros_like(t)
-                                for t in f])
-             for s, f in zip(live.shards, flat)]
+    flat = {i: tree_leaves(live.shards[i]) for i in mesh.owned}
+    loss, got = mesh.value_and_grad(lambda: loss_fn(live, batch),
+                                    [t for f in flat.values() for t in f])
+    got = iter(got)
+    grads = [tree_unflatten(live.shards[i],
+                            [g if (g := next(got)) is not None else torch.zeros_like(t)
+                             for t in flat[i]]) if i in flat else None
+             for i in range(mesh.size)]
     grads = sum_replicas(ShardedTree(mesh, grads, params.specs))
     updates, opt_state = optimizer.update(grads, opt_state, params)
-    return (ShardedTree(mesh, [tree_map(lambda p, u: p + u.to(p.dtype), p, u)
+    return (ShardedTree(mesh, [None if p is None else tree_map(lambda p, u: p + u.to(p.dtype), p, u)
                                for p, u in zip(params.shards, updates.shards)], params.specs),
-            opt_state, loss.detach())
+            opt_state, loss)

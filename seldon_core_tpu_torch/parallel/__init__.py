@@ -1,5 +1,8 @@
-"""Parallel layers of the port: device meshes held by one process
-(``mesh.py``), the sharded ensemble (``ensemble.py``), the mixture-of-
-experts layer with its expert-parallel layout (``moe.py``), ring attention
-over ``sp`` (``ring_attention.py``) and the GPipe pipeline over ``pp``
-(``pipeline.py``).  ``multihost`` (a process a card) is ROADMAP item [6b]."""
+"""Parallel layers of the port: device meshes (``mesh.py``), the sharded
+ensemble (``ensemble.py``), the mixture-of-experts layer with its
+expert-parallel layout (``moe.py``), ring attention over ``sp``
+(``ring_attention.py``), the GPipe pipeline over ``pp`` (``pipeline.py``)
+and processes that run one sharded program together, one process a card
+(``multihost.py``)."""
+
+from seldon_core_tpu_torch.parallel import multihost  # noqa: F401

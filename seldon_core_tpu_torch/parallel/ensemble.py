@@ -37,7 +37,8 @@ def stack_member_states(member_states: Sequence[Any]):
 
 def _split(stacked, mesh: DeviceMesh, axis: str) -> ShardedTree:
     """The stacked states split along their member axis over ``axis``:
-    each device holds its slice (replicated along any other axis)."""
+    each device holds its slice (replicated along any other axis; this
+    process's devices only, over a mesh that spans processes)."""
     n = mesh.shape[axis]
 
     def block(i):
@@ -50,7 +51,7 @@ def _split(stacked, mesh: DeviceMesh, axis: str) -> ShardedTree:
 
         return tree_map(take, stacked)
 
-    return ShardedTree(mesh, [block(i) for i in range(mesh.size)])
+    return ShardedTree(mesh, [block(i) if mesh.owns(i) else None for i in range(mesh.size)])
 
 
 def ensemble_mean_fn(member_apply: Callable, mesh: DeviceMesh, n_members: int,
@@ -73,7 +74,7 @@ def ensemble_mean_fn(member_apply: Callable, mesh: DeviceMesh, n_members: int,
                 y = ym if y is None else y + ym
             return all_reduce(y, axis) / n_members
 
-        return mesh.run(body)[0]
+        return mesh.run(body)[mesh.owned[0]]
 
     return fn
 
@@ -111,7 +112,7 @@ class SharedEnsembleUnit(Unit):
                 f"ensemble of {self.n} members not divisible over mesh axis "
                 f"{self.axis!r} of size {mesh.shape[self.axis]}"
             )
-        self.device = mesh.device_list[0]
+        self.device = mesh.first_device
         takes_device = "device" in inspect.signature(member_cls.__init__).parameters
         extra = {"device": self.device} if takes_device else {}
         self.members = [member_cls(**{**self.member_kwargs, "seed": base_seed + i, **extra})

@@ -120,6 +120,7 @@ def pipeline_map(stage_fn: Callable[[Any, Any], Any], params: ShardedTree, x_mic
     answers, one a group, in ``batch_axis`` order.  Differentiable: the
     graph runs through every stage."""
     mesh = params.mesh
+    mesh.refuse_spanning(mesh.axis_names, "the pipeline")
     n = stage_count(mesh, stages(params.shards[0]), axis)
     n_micro = x_micro.shape[0]
     dp = mesh.shape.get(batch_axis, 1) if batch_axis is not None else 1

@@ -34,7 +34,8 @@ failure is never caught):
   yields that block's exact share of dQ and its whole dK and dV.  The dQ
   shares are summed in f32.  Each block's dK/dV flows back to the shard
   that owns it through the copy edges of the run's one autograd graph
-  (``mesh.py``, Autograd).  On the CPU the wrappers run their plain
+  (``mesh.py``, Autograd), and across processes through ``ring_shift``'s
+  adjoint.  On the CPU the wrappers run their plain
   versions, so this path's arithmetic is testable there.
 
 Memory: a shard keeps every K/V block it launched for the backward (on
@@ -176,7 +177,10 @@ def ring_attention_sharded(mesh: DeviceMesh, axis: str = "sp", causal: bool = Tr
                            use_flash: Optional[bool] = None):
     """Standalone ring attention on global [B, H, S, D] q/k/v with S split
     over ``axis`` (every other mesh axis replicated); returns the global
-    output on the mesh's first device, differentiable.  ``use_flash=None``
+    output on this process's first device (``DeviceMesh.collect``),
+    differentiable (across processes under ``DeviceMesh.value_and_grad``,
+    each process's input gradients covering its own blocks).
+    ``use_flash=None``
     takes the kernel path for bf16 inputs whose block meets the contract."""
     n = mesh.shape[axis]
 
@@ -193,7 +197,6 @@ def ring_attention_sharded(mesh: DeviceMesh, axis: str = "sp", causal: bool = Tr
             return ring_attention(qs, ks, vs, axis, causal, flash)
 
         outs = mesh.run(body)
-        dev = mesh.device_list[0]
-        return torch.cat([outs[i].to(dev) for i in lead_shards(mesh, (axis,))], dim=2)
+        return torch.cat(mesh.collect(outs, lead_shards(mesh, (axis,))), dim=2)
 
     return fn

@@ -424,6 +424,10 @@ class GenServer:
         #: pool's K/V heads lie over its ``tp`` axis (``shard_gen_pool``)
         #: and every paged call runs on every shard
         self.mesh = mesh
+        if mesh is not None and mesh.spans_processes:
+            # the JAX package runs no scheduler multi-controller either
+            raise ValueError("the continuous lane over a mesh that spans processes is not "
+                             "supported: serve the static lane (SELDON_TPU_GEN_CONTINUOUS=0)")
         if mesh is not None and (self.spec or role in ("prefill", "decode")):
             raise ValueError("a generator over a device mesh serves unified and "
                              "non-speculative on the continuous lane (ROADMAP item [6b])")

@@ -63,10 +63,11 @@ def _port_files():
             "native/_build.py", "runtime/nativeplane.py", "parallel/moe.py",
             "runtime/kvstream.py", "runtime/servingmesh.py", "parallel/mesh.py",
             "parallel/ensemble.py", "graph/sharding.py", "parallel/ring_attention.py",
-            "parallel/pipeline.py"} <= names
+            "parallel/pipeline.py", "parallel/multihost.py", "testing/faults.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
-                                             "int8_decode_turns.py", "kv_write_turns.py")]
+                                             "int8_decode_turns.py", "kv_write_turns.py",
+                                             "multihost_turns.py")]
 
 
 def _imports(tree):
@@ -383,6 +384,13 @@ m_text, m_status = asyncio.run(moe_engine.predict_json(json.dumps(
     {"data": {"ndarray": [[1, 2, 3], [4, 5, 6]]}})))
 moe = [m_status, len(json.loads(m_text)["data"]["ndarray"]), moe_engine.genserver is None]
 moe_engine.close()
+from seldon_core_tpu_torch.parallel import mesh as pmesh, multihost
+from seldon_core_tpu_torch.testing import faults
+os.environ.pop(multihost.ENV_COORDINATOR, None)
+pmesh.set_cpu_device_count(2)
+gmesh = multihost.global_mesh({"tp": 2}, platform="cpu")
+mh = [multihost.initialize(), multihost.process_info("cpu")["global_device_count"],
+      gmesh.shape, gmesh.spans_processes, faults.FaultSpec(error_rate=0.5).total_failure_rate]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc",
                                        "ml_dtypes", "prometheus_client")
@@ -393,7 +401,7 @@ print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarr
                   "streamed": streamed == gen_rows[0] and events[-1]["done"],
                   "trained": trained, "new_examples": new_examples, "remote": remote,
                   "lanes": lanes, "obs": obs, "native": native, "handoff": handoff,
-                  "moe": moe, "leaked": leaked}))
+                  "moe": moe, "multihost": mh, "leaked": leaked}))
 """
 
 
@@ -412,4 +420,5 @@ def test_port_serves_with_jax_blocked():
         '"obs": [200, true, 200, ["batch_queue", "dispatch", "request"], 200, ["iris", "m", "mnist"], '
         '200, true, 200, true, 200, true, 200, false, '
         '[503, "autopilot load shed"]], "native": [200, true, "native", 1], '
-        '"handoff": [200, true, 1], "moe": [200, 2, true], "leaked": []}')
+        '"handoff": [200, true, 1], "moe": [200, 2, true], '
+        '"multihost": [false, 2, {"tp": 2}, false, 0.5], "leaked": []}')
