@@ -417,8 +417,16 @@ it serves the static lane it measured before that lane's switch:
               (12 a tick), flash_decode_paged on the decode side (12 a
               step) and no kv_write_paged there; the hand-off bytes and ms
               a sequence, TTFT and request wall p50 against the unified
-              engine's in turns; SELDON_TPU_DISAGG=0 serving both roles as
-              unified; a {"new_paths": {"disagg": ...}} line
+              engine's in turns; a request to the tcp: prefill replica
+              whose Seldon-Deadline-Ms budget is below its warm chain mean
+              shed with a 503 and no prefill tick; SELDON_TPU_DISAGG=0
+              serving both roles as unified; then decode replicas over
+              {"tp": 4} (four cards, else four shards of cuda:0) fed by a
+              one-device prefill replica over the wire's frames in process:
+              examples/generator_tp (f32) with tokens identical to a
+              one-device unified replica's and the flagship teacher-forced,
+              flash_decode_paged on every shard of the decode side and no
+              kv_write_paged there; a {"new_paths": {"disagg": ...}} line
  10u. device meshes held by one process ([6a]), on four cards when the
               machine has four, else four shards of cuda:0: (a) a
               SharedEnsembleUnit of 8 MnistClassifier members over
@@ -429,7 +437,15 @@ it serves the static lane it measured before that lane's switch:
               tokens teacher-forced, flash_attention, flash_decode,
               kv_write_paged and flash_decode_paged counted on every
               shard, request walls against one device in turns, a
-              profile and a collective round's host cost; (c)
+              profile and a collective round's host cost; (b') the
+              flagship over {"tp": 8} (two shards a card on four cards,
+              else eight shards of cuda:0), a tp twice its 4 kv heads: each
+              shard 2 query heads on the one kv head they read, a 4x128
+              request of 16 tokens, prefill logits and both lanes' tokens as
+              (b), every shard's launches, each shard's pool bytes, the
+              request wall against one device in turns, and each kernel
+              held to its plain version and timed cold at its shard
+              shape; (c)
               examples/generator_tp (both lanes; its continuous lane
               through kv_write_paged and the paged kernel's f32 path on
               every shard) and generator_ep (static lane), f32 tokens
@@ -8768,12 +8784,190 @@ def disagg_kill_switch(torch, dev, doc: dict, peer: str, prompt) -> dict:
     return {"unified": True}
 
 
+def disagg_shed(port: int, prompt) -> dict:
+    """The prefill replica at ``port``, its chain mean warm from the
+    hand-offs before: a request whose Seldon-Deadline-Ms budget is a
+    quarter of that mean answers a typed 503 with the autopilot's prefix
+    before any prefill (no tick, no kv_write_paged launch)."""
+    from seldon_core_tpu_torch.runtime.autopilot import SHED_INFO_PREFIX
+
+    before, gen0 = kernel_counts(port)
+    chain_ms = gen0["disagg"]["chain_ewma_ms"]
+    if not chain_ms:
+        raise AssertionError("[disagg] the prefill replica's chain mean is not warm")
+    budget = max(1, int(chain_ms / 4))
+    st, raw = request_headers("POST", f"http://127.0.0.1:{port}/api/v0.1/predictions",
+                              ndarray(prompt), {"Seldon-Deadline-Ms": str(budget)})
+    after, gen1 = kernel_counts(port)
+    info = json.loads(raw).get("status", {}).get("info", "") if raw.startswith(b"{") else ""
+    ticks = gen1["prefill_dispatches_total"] - gen0["prefill_dispatches_total"]
+    writes = after["kv_write_paged"] - before["kv_write_paged"]
+    if st != 503 or not info.startswith(SHED_INFO_PREFIX) or ticks or writes:
+        raise AssertionError(f"[disagg] a {budget} ms budget under a {chain_ms} ms chain "
+                             f"answered {st} {raw[:200]!r}; {ticks} prefill ticks, {writes} "
+                             f"kv_write_paged launches")
+    log(f"[disagg] shed: the prefill replica's chain mean {chain_ms:.3f} ms, a request with "
+        f"Seldon-Deadline-Ms {budget} answered 503 ({info[:60]}...), 0 prefill ticks and 0 "
+        f"kv_write_paged launches")
+    return {"chain_ewma_ms": chain_ms, "budget_ms": budget, "status": st, "prefill_ticks": 0,
+            "kv_write_paged": 0}
+
+
+DISAGG_MESH_NEW = 16   # the flagship's decode replica over tp=4: 16 new tokens a prompt
+
+
+class WireLoopback:
+    """A prefill replica's coordinator in process: each export goes to a
+    decode ``GenServer`` as the relay carries it (every frame encoded and
+    parsed: BEGIN, the KV_BLOCKS chunks, COMMIT), without the socket; the
+    frames' bytes are counted."""
+
+    def __init__(self, decode):
+        self.decode = decode
+        self.bytes = []
+
+    def submit(self, export, done_cb):
+        threading.Thread(target=self._run, args=(export, done_cb), daemon=True).start()
+
+    def _run(self, export, done_cb):
+        from seldon_core_tpu_torch.runtime import kvstream
+
+        hid = os.urandom(16)
+        try:
+            begin = kvstream.begin_frame(export, hid)
+            _, h, body = kvstream.parse_frame(begin)
+            meta = kvstream.parse_begin(body)
+            self.decode.kv_reserve(h, meta)
+            nbytes = len(begin)
+            for frame in kvstream.block_frames(export, hid):
+                nbytes += len(frame)
+                _, h2, b2 = kvstream.parse_frame(frame)
+                first, layers = kvstream.parse_blocks(b2, meta)
+                self.decode.kv_receive(h2, first, layers)
+            req = self.decode.kv_commit(h)
+            self.bytes.append(nbytes + len(kvstream.commit_frame(hid)))
+            done_cb(np.asarray(req.future.result(600))[0])
+        except BaseException as e:  # noqa: BLE001 - surfaced per request
+            done_cb(e)
+
+    def chain_estimate_s(self):
+        return None
+
+    def snapshot(self):
+        return {}
+
+    def close(self):
+        pass
+
+
+def disagg_mesh(torch, dev, smi) -> dict:
+    """Decode replicas over {"tp": 4} (four cards, else four shards of
+    cuda:0), each fed by a one-device prefill replica over the wire's
+    frames (``WireLoopback``): examples/generator_tp (f32) with tokens
+    identical to a one-device unified replica's, and the bf16 flagship
+    teacher-forced against the one-device unit.  The launch counters are
+    the process's: kv_write_paged comes from the one-device prefill side
+    only (n_layers a tick), flash_decode_paged from the decode side only
+    (n_layers a step on each of its 4 shards)."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models.transformer import lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    devices = mesh_devices(torch)
+    rng = np.random.default_rng(SEED + 37)
+    knobs = {"prefill_chunk": 128}
+    out = {}
+    cases = (("generator_tp", example_kwargs(example_doc("generator_tp")), (3, 9)),
+             ("flagship", {**GEN_DIMS, "dtype": "bfloat16", "max_new_tokens": DISAGG_MESH_NEW},
+              (2, 128)))
+    for name, kwargs, (B, S) in cases:
+        one = gm.TransformerGenerator(**kwargs, device=dev)
+        state = one.init_state(torch.Generator().manual_seed(SEED))
+        tp = gm.TransformerGenerator(**kwargs, mesh=build_mesh({"tp": MESH_SHARDS},
+                                                               devices=devices),
+                                     device=devices[0])
+        sstate = tp.shard_state(state)
+        prompts = rng.integers(0, kwargs["vocab"], size=(B, S)).astype(np.float32)
+        unified = GenServer(**one.continuous_spec(state), **knobs)
+        try:
+            want = np.asarray(unified.submit(prompts).future.result(600))
+        finally:
+            unified.stop()
+        decode = GenServer(**tp.continuous_spec(sstate), role="decode", **knobs)
+        wire = WireLoopback(decode)
+        prefill = GenServer(**one.continuous_spec(state), role="prefill", coordinator=wire,
+                            **knobs)
+        try:
+            reset_counts(fa, fd, kw)
+            fd.PAGED_F32_LAUNCHES = 0
+            t = time.perf_counter()
+            got = np.asarray(prefill.submit(prompts).future.result(600))
+            wall = time.perf_counter() - t
+            sync_all(torch)
+            launches, f32 = read_counts(fa, fd, kw), fd.PAGED_F32_LAUNCHES
+            ticks, steps = prefill.prefill_dispatches_total, decode.decode_steps_total
+            imported = decode.imports_committed_total
+            pools = [s["l0"]["k"].shape[1] for s in decode._pool.shards]
+        finally:
+            prefill.stop()
+            decode.stop()
+        L = kwargs["n_layers"]
+        paged = launches["flash_decode_paged"]  # the f32 path's launches counted in it too
+        local_kv = tp.cfg.tp_local(MESH_SHARDS).kv_heads
+        if (paged != L * MESH_SHARDS * steps or f32 != (paged if name == "generator_tp" else 0)
+                or not steps
+                or launches["kv_write_paged"] != L * ticks or imported != B
+                or launches["flash_attention"] or launches["flash_decode"]
+                or pools != [local_kv] * MESH_SHARDS):
+            raise AssertionError(f"[disagg] {name}: a decode replica over tp=4 launched {launches} "
+                                 f"({f32} on the f32 path) over {ticks} prefill ticks and "
+                                 f"{steps} decode steps; {imported} imports; pool kv heads by "
+                                 f"shard {pools}")
+        rec = {"launches": launches, "f32_launches": f32, "prefill_ticks": ticks,
+               "decode_steps": steps, "imports": imported, "wall_ms": wall * 1e3,
+               "bytes_per_sequence": float(np.mean(wire.bytes)),
+               "pool_kv_heads_by_shard": pools, "shards": devices}
+        if name == "generator_tp":
+            if not np.array_equal(got, want):
+                raise AssertionError(f"[disagg] generator_tp via a tp=4 decode replica: tokens "
+                                     f"differ from the unified replica's in "
+                                     f"{int((got != want).sum())} places")
+            rec["identical"] = True
+        else:
+            rec["held"] = check_gaps(torch, lm_apply, state["params"], one.cfg,
+                                     [(prompts.astype(np.int64), got.astype(np.int64))], dev, 1,
+                                     "disagg tp=4 decode")
+            rec["same_as_unified"] = float((got == want).mean())
+        out[name] = rec
+        log(f"[disagg] {name}: a decode replica over {{'tp': {MESH_SHARDS}}} on {devices} fed by "
+            f"a one-device prefill replica, {B}x{S} prompts: {launches['kv_write_paged']} "
+            f"kv_write_paged on the prefill side ({L} x {ticks} ticks), "
+            f"{paged} flash_decode_paged{' (float32 path)' if name == 'generator_tp' else ''} "
+            f"on the decode side ({L} x {MESH_SHARDS} shards x {steps} steps), none of the "
+            f"others; {imported} imports, {rec['bytes_per_sequence']:.0f} wire bytes a sequence; "
+            + ("tokens identical to the one-device unified replica's"
+               if name == "generator_tp" else
+               f"tokens teacher-forced ({rec['same_as_unified'] * 100:.1f}% equal the "
+               f"one-device unified replica's)")
+            + f"; request wall {wall * 1e3:.3f} ms (recorded, not claimed) on {smi}")
+    out["launches"] = {  # the bf16 kernel's row counts the flagship, the f32 row the example
+        "flash_decode_paged": out["flagship"]["launches"]["flash_decode_paged"],
+        "flash_decode_paged f32": out["generator_tp"]["f32_launches"],
+        "kv_write_paged": sum(out[k]["launches"]["kv_write_paged"] for k in ("flagship",
+                                                                             "generator_tp"))}
+    return out
+
+
 def disagg_phase(torch, dev, smi) -> dict:
     """10t. [6d] on one card: a decode replica (engine_main --gen-role
     decode, the relay on ENGINE_RELAY_TCP_PORT and a unix socket) and
     prefill replicas handing off to it over tcp: and uds:, for the flagship
-    generator; a pair for examples/generator_int8_deployment.json over tcp:;
-    then the kill switch."""
+    generator, and a short-budget request shed by the tcp: one; a pair for
+    examples/generator_int8_deployment.json over tcp:; the kill switch;
+    then decode replicas over {"tp": 4} in process (``disagg_mesh``)."""
     t_phase = time.perf_counter()
     pid = os.getpid()
     build = ROOT / "build"
@@ -8789,7 +8983,8 @@ def disagg_phase(torch, dev, smi) -> dict:
         "decode": (files["flagship"], ["--gen-role", "decode"],
                    {"ENGINE_RELAY_TCP_PORT": str(tcp), "ENGINE_UDS_PATH": sock}),
         "prefill_tcp": (files["flagship"], ["--gen-role", "prefill", "--decode-peers",
-                                            f"tcp:127.0.0.1:{tcp}"], {}),
+                                            f"tcp:127.0.0.1:{tcp}"],
+                        {"SELDON_TPU_AUTOPILOT": "1"}),
         "prefill_uds": (files["flagship"], ["--gen-role", "prefill", "--decode-peers",
                                             f"uds:{sock}"], {}),
         "decode_int8": (files["int8"], ["--gen-role", "decode"],
@@ -8805,6 +9000,8 @@ def disagg_phase(torch, dev, smi) -> dict:
         out["flagship"] = disagg_pair(
             torch, dev, smi, "flagship", flagship, procs, ["prefill_tcp", "prefill_uds"], "decode",
             [rng.integers(0, GEN_DIMS["vocab"], size=(1, S)) for S in (128, 100)])
+        out["shed"] = disagg_shed(procs["prefill_tcp"][1],
+                                  rng.integers(0, GEN_DIMS["vocab"], size=(1, 128)))
         out["int8"] = disagg_pair(
             torch, dev, smi, "generator_int8 example", int8, procs, ["prefill_int8"],
             "decode_int8", [rng.integers(0, 256, size=(1, S)) for S in (40, 17)])
@@ -8823,6 +9020,7 @@ def disagg_phase(torch, dev, smi) -> dict:
         "flash_decode_paged int8": out["int8"]["decode"]["launches"]["flash_decode_paged"],
         "kv_write_paged int8": out["int8"]["prefill"]["prefill_int8"]["launches"]["kv_write_paged"],
     }
+    out["mesh"] = disagg_mesh(torch, dev, smi)
     out["card"] = smi
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[disagg] phase 10t wall {out['wall_s']:.2f} s")
@@ -9107,6 +9305,306 @@ def mesh_flagship(torch, dev, smi, devices) -> dict:
     return out
 
 
+MESH8_SHARDS = 8
+MESH8_NEW = 16            # (b'): B=4 prompts of 128 tokens, 16 new tokens
+TP8_HELD_SETS = 4         # input sets on which each kernel is held to its plain version
+
+
+def mesh8_devices(torch) -> list:
+    """Two shards a card on four cards, else eight shards of cuda:0."""
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        return [f"cuda:{i * MESH_SHARDS // MESH8_SHARDS}" for i in range(MESH8_SHARDS)]
+    return ["cuda:0"] * MESH8_SHARDS
+
+
+def mesh_flagship_tp8(torch, dev, smi, devices) -> dict:
+    """(b') the flagship over {"tp": 8}, twice its 4 kv heads: each shard
+    holds its 2 query heads and the one kv head they read (kv head t // 2,
+    models/transformer.py kv_head_range), so two shards hold each kv
+    head.  Prefill logits held to the one-device unit's, both lanes'
+    tokens teacher-forced, every shard's launches counted, each shard's
+    pool bytes, the request wall against one device in turns (recorded,
+    not claimed)."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models.transformer import kv_head_range, lm_apply
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    kwargs = {**GEN_DIMS, "dtype": "bfloat16", "max_new_tokens": MESH8_NEW}
+    one = gm.TransformerGenerator(**kwargs, device=dev)
+    state = one.init_state(torch.Generator().manual_seed(SEED))
+    mesh = build_mesh({"tp": MESH8_SHARDS}, devices=devices)
+    t0 = time.perf_counter()
+    tp = gm.TransformerGenerator(**kwargs, mesh=mesh, device=devices[0])
+    sstate = tp.shard_state(state)
+    build_s = time.perf_counter() - t0
+    cfg, L, new, n = one.cfg, GEN_DIMS["n_layers"], MESH8_NEW, MESH8_SHARDS
+    if not (tp.use_flash and tp.paged_flash):
+        raise AssertionError("[mesh] the flagship over tp=8 does not take the kernels")
+    paths = shard_paths(tp, mesh, "flagship tp=8")
+    heads = [kv_head_range(cfg.kv_heads, n, t) for t in range(n)]
+    if any((p["heads"], p["kv_heads"]) != (cfg.n_heads // n, 1) for p in paths) or \
+            heads != [(t // 2, t // 2 + 1) for t in range(n)]:
+        raise AssertionError(f"[mesh] flagship tp=8 shards: {paths}, kv heads {heads}")
+    rng = np.random.default_rng(SEED + 33)
+    prompts = rng.integers(0, cfg.vocab, size=(MESH_B, MESH_S))
+    P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    out = {"build_s": build_s, "paths": paths, "kv_heads_by_shard": heads,
+           "shards": [str(d) for d in mesh.device_list]}
+    with torch.inference_mode():
+        l1, _ = gm.prefill(state["params"], P, gm.init_cache(cfg, MESH_B, MESH_S, dev), cfg, True)
+        cache = mesh.map_shards(lambda s: gm.init_cache(cfg.for_shard(s), MESH_B, MESH_S,
+                                                        s.device))
+        reset_counts(fa, fd, kw)
+        lN, cache = gm.prefill(sstate["params"], P, cache, cfg, True)
+        sync_all(torch)
+        pre = read_counts(fa, fd, kw)
+        cache_shapes = {tuple(c["l0"]["k"].shape) for c in cache.shards}
+        logit_err = float((lN - l1).abs().max())
+        logit_scale = float(l1.abs().max())
+        same_argmax = float((lN.argmax(-1) == l1.argmax(-1)).float().mean())
+        reset_counts(fa, fd, kw)
+        t = time.perf_counter()
+        y = tp.predict(sstate, P.float())
+        sync_all(torch)
+        static_wall = time.perf_counter() - t
+        static = read_counts(fa, fd, kw)
+    want_pre = {"flash_attention": L * n, "flash_decode": 0, "kv_write": 0,
+                "flash_decode_paged": 0, "kv_write_paged": 0}
+    want_static = {**want_pre, "flash_decode": L * n * (new - 1)}
+    if pre != want_pre or static != want_static or \
+            cache_shapes != {(MESH_B, 1, MESH_S, cfg.head_dim)}:
+        raise AssertionError(f"[mesh] flagship tp=8: prefill launched {pre} (want {want_pre}), "
+                             f"the static request {static} (want {want_static}); shard caches "
+                             f"{cache_shapes}")
+    if logit_err > MESH_LOGIT_ATOL:
+        raise AssertionError(f"[mesh] flagship tp=8 prefill logits {logit_err:.4f} from the "
+                             f"one-device unit's (bound {MESH_LOGIT_ATOL})")
+    out["prefill"] = {"launches": pre, "max_abs_logit_err": logit_err,
+                      "max_abs_logit": logit_scale, "argmax_share": same_argmax,
+                      "cache_shape_by_shard": list(cache_shapes)[0]}
+    out["static"] = {"launches": static, "held": check_gaps(
+        torch, lm_apply, state["params"], cfg, [(prompts, y.long().cpu().numpy())], dev, 1,
+        "mesh tp=8 static")}
+    server = GenServer(**tp.continuous_spec(sstate))
+    try:
+        reset_counts(fa, fd, kw)
+        t = time.perf_counter()
+        ctoks = np.asarray(server.submit(prompts.astype(np.float32)).future.result(600))
+        cont_wall = time.perf_counter() - t
+        sync_all(torch)
+        cont = read_counts(fa, fd, kw)
+        ticks, steps = server.prefill_dispatches_total, server.decode_steps_total
+        pool_bytes = [tree_bytes(s) for s in server._pool.shards]
+        blocks, bs = server.num_blocks, server.block_size
+    finally:
+        server.stop()
+    want_pool = L * 2 * blocks * bs * cfg.head_dim * 2  # k and v, one kv head, bf16
+    want_cont = {"flash_attention": 0, "flash_decode": 0, "kv_write": 0,
+                 "flash_decode_paged": L * n * steps, "kv_write_paged": L * n * ticks}
+    if cont != want_cont or not ticks or not steps or set(pool_bytes) != {want_pool}:
+        raise AssertionError(f"[mesh] flagship tp=8 continuous lane launched {cont} (want "
+                             f"{want_cont}: {ticks} prefill ticks, {steps} decode steps); pool "
+                             f"bytes by shard {pool_bytes} (want {want_pool} each)")
+    out["continuous"] = {"launches": cont, "prefill_ticks": ticks, "decode_steps": steps,
+                         "wall_ms": cont_wall * 1e3, "pool_bytes_by_shard": pool_bytes,
+                         "pool_bytes_whole": want_pool * cfg.kv_heads,
+                         "held": check_gaps(torch, lm_apply, state["params"], cfg,
+                                            [(prompts, ctoks.astype(np.int64))], dev, 1,
+                                            "mesh tp=8 continuous")}
+    # in turns, ABBA: the counted static request is the first tp=8 turn
+    walls = {"tp8": [static_wall], "one": []}
+    X = P.float()
+    with torch.inference_mode():
+        for name in ("one", "one", "tp8"):
+            unit, st = (tp, sstate) if name == "tp8" else (one, state)
+            t = time.perf_counter()
+            unit.predict(st, X)
+            sync_all(torch)
+            walls[name].append(time.perf_counter() - t)
+    out["request_wall_p50_ms"] = {k: float(np.median(v) * 1e3) for k, v in walls.items()}
+    out["request_walls_ms"] = {k: [w * 1e3 for w in v] for k, v in walls.items()}
+    log(f"[mesh] (b') flagship over {mesh.shape} on {out['shards']} (built and probed in "
+        f"{build_s:.2f} s), kv heads by shard {heads}: a {MESH_B}x{MESH_S} prefill launched "
+        f"{pre['flash_attention']} flash_attention ({L} layers x {n} shards, "
+        f"({MESH_B}, {cfg.n_heads // n}, 1, {MESH_S}, {cfg.head_dim}) a shard), its logits "
+        f"within {logit_err:.4f} of the one-device unit's (|logit| <= {logit_scale:.3f}; bound "
+        f"{MESH_LOGIT_ATOL}; argmax equal in {same_argmax * 100:.1f}% of rows); the static "
+        f"request {static['flash_decode']} flash_decode ({L} x {n} x {new - 1} steps); the "
+        f"continuous lane {cont['kv_write_paged']} kv_write_paged over {ticks} prefill ticks and "
+        f"{cont['flash_decode_paged']} flash_decode_paged over {steps} decode steps; each "
+        f"shard's pool {pool_bytes[0]} bytes ({blocks} blocks of {bs}, one kv head; the whole "
+        f"pool {want_pool * cfg.kv_heads}, the shards together {sum(pool_bytes)}); static "
+        f"request wall p50 {out['request_wall_p50_ms']['tp8']:.3f} ms over tp=8 against "
+        f"{out['request_wall_p50_ms']['one']:.3f} ms on one device, in turns (recorded, not "
+        f"claimed) on {smi}")
+    out["launches"] = {k: pre[k] + static[k] + cont[k] for k in pre}
+    return out
+
+
+def tp8_shard_times(torch, fa, fd, kw, dev, smi) -> dict:
+    """Each kernel of (b') timed cold (rotating over DECODE_COLD_BYTES of
+    inputs) at its shard's shape, 2 query heads on one kv head: the
+    forward at (4, 2, 1, 128, 64), the two-tier decode at B=4 over 128
+    main and 8 chunk positions, the paged decode at B=4 over 136 positions
+    of 16-slot blocks (with and without the step's write fused in), the
+    paged write of a 4x128 prefill tick; beside the plain version, a
+    library call and the bound.  First each kernel is held to its plain
+    version on the first TP8_HELD_SETS of those input sets: o within
+    FLASH_O_ATOL (the decode kernels with and without the step's write
+    fused in, the write then bit-exact), lse within FLASH_LSE_ATOL, the
+    paged write bit-exact; a mismatch fails the run."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    rows = {}
+
+    def o_err(got, want, what):
+        err = float((got.float() - want.float()).abs().max())
+        if err > FLASH_O_ATOL or not bool(torch.isfinite(got.float()).all()) \
+                or got.dtype != want.dtype:
+            raise AssertionError(f"[mesh] (b') {what} vs plain at the tp=8 shard shape: o err "
+                                 f"{err:.3e} (tolerance {FLASH_O_ATOL}), dtype {got.dtype}")
+        return err
+
+    def same_pools(got, want, what):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"[mesh] (b') {what} at the tp=8 shard shape did not write the "
+                                 f"pools or caches as its plain version does")
+
+    def rnd(*dims):
+        return torch.randn(*dims, generator=gen, device=dev).to(torch.bfloat16)
+
+    shape = (MESH_B, 2, 1, MESH_S, 64)
+    B, H, KV, S, D = shape
+    per_set = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    sets = [(rnd(B, H, S, D), rnd(B, KV, S, D), rnd(B, KV, S, D))
+            for _ in range(max(4, -(-DECODE_COLD_BYTES // per_set)))]
+    err = lse_err = 0.0
+    for q, k, v in sets[:TP8_HELD_SETS]:
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+        err = max(err, o_err(o, ro, "flash_attention"))
+        lse_err = max(lse_err, float((lse - rlse).abs().max()))
+    if lse_err > FLASH_LSE_ATOL:
+        raise AssertionError(f"[mesh] (b') flash_attention vs plain at the tp=8 shard shape: "
+                             f"lse err {lse_err:.3e} (tolerance {FLASH_LSE_ATOL})")
+    b_ms, b_by = flash_bound(shape)
+    rows["flash_attention"] = {
+        "shape": list(shape), "input_sets": len(sets), "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err, "lse_err": lse_err,
+        "ms": device_ms(torch, rotating(sets, lambda q, k, v: fa.flash_attention_fwd(
+            q, k, v, True)), 200),
+        "plain_ms": device_ms(torch, rotating(sets, lambda q, k, v: fa.flash_attention_reference(
+            q, k, v, True)), 50),
+        "library_ms": device_ms(torch, rotating(sets, lambda q, k, v: sdpa(
+            q, k, v, is_causal=True, enable_gqa=True)), 200)}
+    del sets
+    dshape = (MESH_B, 1, 2, 64, MESH_S, MESH_S, MESH8_NEW, MESH8_NEW // 2)
+    B, KV, G, hd, _, n_main, _, n_chunk = dshape
+    sets = decode_sets(torch, dshape, dev, SEED + 35)
+    dense = [(q.reshape(B, KV * G, 1, hd), torch.cat([mk, ck[:, :, :n_chunk]], dim=2),
+              torch.cat([mv, cv[:, :, :n_chunk]], dim=2)) for q, mk, mv, ck, cv in sets]
+    err = 0.0
+    for q, mk, mv, ck, cv in sets[:TP8_HELD_SETS]:
+        err = max(err, o_err(fd.flash_decode_two_tier(q, mk, mv, n_main, ck, cv, n_chunk),
+                             fd.flash_decode_two_tier_reference(q, mk, mv, n_main, ck, cv,
+                                                                n_chunk), "flash_decode"))
+        kn, vn = rnd(B, KV, 1, hd), rnd(B, KV, 1, hd)
+        got, want = [t.clone() for t in (mk, mv, ck, cv)], [t.clone() for t in (mk, mv, ck, cv)]
+        err = max(err, o_err(
+            fd.flash_decode_two_tier(q, got[0], got[1], n_main, got[2], got[3], n_chunk, kn, vn),
+            fd.flash_decode_two_tier_reference(q, want[0], want[1], n_main, want[2], want[3],
+                                               n_chunk, kn, vn), "flash_decode (write fused)"))
+        same_pools(got, want, "flash_decode (write fused)")
+    b_ms, b_by = decode_bound(dshape)
+    rows["flash_decode"] = {
+        "shape": list(dshape), "input_sets": len(sets), "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err,
+        "ms": device_ms(torch, rotating(sets, lambda q, mk, mv, ck, cv: fd.flash_decode_two_tier(
+            q, mk, mv, n_main, ck, cv, n_chunk)), 200),
+        "plain_ms": device_ms(torch, rotating(sets, lambda q, mk, mv, ck, cv:
+                                              fd.flash_decode_two_tier_reference(
+                                                  q, mk, mv, n_main, ck, cv, n_chunk)), 50),
+        "library_ms": device_ms(torch, rotating(dense, lambda q, k, v: sdpa(
+            q, k, v, enable_gqa=True)), 200)}
+    del sets, dense
+    n = MESH_S + MESH8_NEW // 2
+    nblk = MESH_S // PAGED_BS + MESH8_NEW // PAGED_BS + 1
+    sets = paged_sets(torch, B, KV, G, hd, nblk, [n] * B, dev, SEED + 36)
+    attend = [x[:5] for x in sets]
+
+    def gather_sdpa(q, pk, pv, t, _lens):
+        k, v = fd.paged_view(pk, pv, t)
+        return sdpa(q.reshape(B, KV * G, 1, hd), k[:, :, :n], v[:, :, :n], enable_gqa=True)
+
+    err = 0.0
+    for q, pk, pv, t, lens, kn, vn in sets[:TP8_HELD_SETS]:
+        err = max(err, o_err(fd.flash_decode_paged(q, pk, pv, t, lens),
+                             fd.flash_decode_paged_reference(q, pk, pv, t, lens),
+                             "flash_decode_paged"))
+        got, want = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+        err = max(err, o_err(fd.flash_decode_paged(q, *got, t, lens, kn, vn),
+                             fd.flash_decode_paged_reference(q, *want, t, lens, kn, vn),
+                             "flash_decode_paged (write fused)"))
+        same_pools(got, want, "flash_decode_paged (write fused)")
+    b_ms, b_by = paged_decode_bound(B, KV, G, hd, nblk, [n] * B)
+    fb_ms, _ = paged_decode_bound(B, KV, G, hd, nblk, [n] * B, fused=True)
+    rows["flash_decode_paged"] = {
+        "shape": [B, KV, G, hd, nblk, n], "input_sets": len(sets), "bound_ms": b_ms,
+        "bound_by": b_by, "fused_bound_ms": fb_ms, "max_abs_err": err,
+        "ms": device_ms(torch, rotating(attend, fd.flash_decode_paged), 200),
+        "fused_ms": device_ms(torch, rotating(sets, fd.flash_decode_paged), 200),
+        "plain_ms": device_ms(torch, rotating(attend, fd.flash_decode_paged_reference), 20),
+        "library_ms": device_ms(torch, rotating(attend, gather_sdpa), 100)}
+    del sets, attend
+    W, N = MESH_S, B * nblk + 1
+    tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
+    tables = tables.reshape(B, nblk).to(torch.int32)
+    per_set = 2 * N * KV * PAGED_BS * hd * 2
+    sets = []
+    for _ in range(max(4, -(-DECODE_COLD_BYTES // per_set))):
+        k, v = head_views(torch, B, W, KV, hd, gen, dev)
+        sets.append((rnd(N, KV, PAGED_BS, hd), rnd(N, KV, PAGED_BS, hd), k, v))
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    valid = torch.ones(B, W, dtype=torch.bool, device=dev)
+    pos = torch.arange(W, device=dev)
+    blk = tables[:, pos // PAGED_BS].long()
+    off = (pos % PAGED_BS)[None, :].expand(B, W)
+
+    def index_put(pk, pv, k, v):
+        pk[blk, :, off] = k.transpose(1, 2)
+        pv[blk, :, off] = v.transpose(1, 2)
+
+    for pk, pv, k, v in sets[:TP8_HELD_SETS]:
+        got, want = (pk.clone(), pv.clone()), (pk.clone(), pv.clone())
+        kw.kv_write_paged(*got, k, v, tables, start, valid)
+        kw.kv_write_paged_reference(*want, k, v, tables, start, valid)
+        same_pools(got, want, "kv_write_paged")
+    rows["kv_write_paged"] = {
+        "shape": [N, KV, PAGED_BS, hd, B, W], "input_sets": len(sets), "bound_by": "bytes",
+        "max_abs_err": 0.0,
+        "bound_ms": 2 * 2 * B * KV * W * hd * 2 / HBM_BYTES_PER_S * 1e3,
+        "ms": device_ms(torch, rotating(sets, lambda pk, pv, k, v: kw.kv_write_paged(
+            pk, pv, k, v, tables, start, valid)), 200),
+        "plain_ms": device_ms(torch, rotating(sets, lambda pk, pv, k, v:
+                                              kw.kv_write_paged_reference(
+                                                  pk, pv, k, v, tables, start, valid)), 50),
+        "library_ms": device_ms(torch, rotating(sets, index_put), 200)}
+    del sets
+    for name, r in rows.items():
+        log(f"[mesh] (b') {name} at the tp=8 shard shape {r['shape']}: held to its plain "
+            f"version on {TP8_HELD_SETS} input sets, max abs err {r['max_abs_err']:.3e}"
+            + (" (bit-exact)" if name == "kv_write_paged" else f" (tolerance {FLASH_O_ATOL})")
+            + f"; cold L2 ({r['input_sets']} input sets): kernel {r['ms']:.5f} ms"
+            + (f" (the step's write fused in {r['fused_ms']:.5f} ms, bound "
+               f"{r['fused_bound_ms']:.6f})" if "fused_ms" in r else "")
+            + f", plain {r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}) on {smi}")
+    return rows
+
+
 def ring_round_us(torch, mesh, rounds: int = 2000) -> float:
     """Host microseconds a round of ``all_reduce`` over the mesh's first
     axis takes, on a 4-element CPU tensor (the baton's cost and three
@@ -9305,8 +9803,10 @@ def mesh_nodes(torch, dev, smi) -> dict:
 
 def mesh_phase(torch, dev, smi) -> dict:
     """10u. [6a]: device meshes held by one process: the sharded ensemble,
-    the flagship over tp=4 through the kernels on every shard, the two
-    multi-device examples, and the node engines of a sharded graph."""
+    the flagship over tp=4 and over tp=8 (twice its kv heads) through the
+    kernels on every shard, the two multi-device examples, and the node
+    engines of a sharded graph; then each kernel of the tp=8 shards timed
+    at its shard shape."""
     t_phase = time.perf_counter()
     devices = mesh_devices(torch)
     cards, shards = len(set(devices)), len(devices)
@@ -9315,6 +9815,7 @@ def mesh_phase(torch, dev, smi) -> dict:
     out = {"cards": cards, "shards": shards, "devices": devices}
     out["ensemble"] = mesh_ensemble(torch, dev, smi, devices)
     out["flagship"] = mesh_flagship(torch, dev, smi, devices)
+    out["flagship_tp8"] = mesh_flagship_tp8(torch, dev, smi, mesh8_devices(torch))
     out["examples"] = mesh_examples(torch, dev, smi, devices)
     out["nodes"] = mesh_nodes(torch, dev, smi)
     examples = out["examples"].values()
@@ -9324,6 +9825,11 @@ def mesh_phase(torch, dev, smi) -> dict:
                        "flash_decode_paged f32 examples": sum(e["f32_launches"] for e in examples),
                        "kv_write_paged examples": sum(e["launches"]["kv_write_paged"]
                                                       for e in examples)}
+    out["launches_tp8"] = out["flagship_tp8"]["launches"]
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    out["tp8_shard_times"] = tp8_shard_times(torch, fa, fd, kw, dev, smi)
     out["card"] = smi
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[mesh] phase 10u wall {out['wall_s']:.2f} s ({cards} card(s), {shards} shards)")
@@ -10719,6 +11225,10 @@ def main() -> int:
         rows_by_name[name]["launches_by_path"]["disagg (prefill/decode replicas)"] = \
             dis["launches"][key]
         rows_by_name[name]["launches"] += dis["launches"][key]
+    for row, key in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
+        row["launches_by_path"]["disagg (decode replicas over tp=4)"] = \
+            dis["mesh"]["launches"][key]
+        row["launches"] += dis["mesh"]["launches"][key]
 
     # 10u: after 10t, each path's counts set to 0 just before it and read
     # just after; the node engines' fused MLP read from their /stats
@@ -10730,17 +11240,23 @@ def main() -> int:
     mlp_row["launches"] += (mesh["launches"]["fused_mlp_softmax"]
                             + mesh["launches"]["fused_mlp_softmax nodes"])
     for row in (flash_row, decode_row, paged_row, kv_paged_row):
-        n = mesh["launches"][row["name"]]
+        n, n8 = mesh["launches"][row["name"]], mesh["launches_tp8"][row["name"]]
         row["launches_by_path"] = {**row.get("launches_by_path", {"earlier phases":
                                                                   row["launches"]}),
-                                   "mesh (flagship over tp=4)": n}
-        row["launches"] += n
+                                   "mesh (flagship over tp=4)": n,
+                                   "mesh (flagship over tp=8)": n8}
+        row["launches"] += n + n8
+        row["at_tp8_shard"] = mesh["tp8_shard_times"][row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"], row["at_tp8_shard"]["max_abs_err"])
     # generator_tp's continuous lane: the paged kernel's f32 path and the
     # paged write on every shard
     f32_row["launches_by_path"] = {"speculative example (float32)": f32_row["launches"],
+                                   "disagg (generator_tp decode replica over tp=4)":
+                                   dis["mesh"]["launches"]["flash_decode_paged f32"],
                                    "mesh (generator_tp over tp=4)":
                                    mesh["launches"]["flash_decode_paged f32 examples"]}
-    f32_row["launches"] += mesh["launches"]["flash_decode_paged f32 examples"]
+    f32_row["launches"] += (mesh["launches"]["flash_decode_paged f32 examples"]
+                            + dis["mesh"]["launches"]["flash_decode_paged f32"])
     kv_paged_row["launches_by_path"]["mesh (generator_tp over tp=4)"] = \
         mesh["launches"]["kv_write_paged examples"]
     kv_paged_row["launches"] += mesh["launches"]["kv_write_paged examples"]
@@ -10770,6 +11286,8 @@ def main() -> int:
                                    "multihost (processes over tp, dp x tp; ensemble4 faults)": n}
         row["launches"] += n
 
+    alive = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
+    log(f"[exit] {len(alive)} threads still alive at the end of the run: {alive}")
     log(smi)
     log(json.dumps({"kernels": [mlp_row, flash_row, dq_row, dkv_row, decode_row, kv_row,
                                 paged_row, f32_row, kv_paged_row, *int8_rows]}))
@@ -10785,7 +11303,15 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--multihost-worker"]:
             sys.exit(multihost_worker(sys.argv[2]))
-        sys.exit(main())
+        code = main()
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()
         sys.exit(1)
+    # every phase has stopped the processes it started.  Exit without
+    # finalizing the interpreter: its teardown has aborted the process
+    # (std::terminate) after every phase had passed, with daemon threads
+    # of the in-process engines and mesh shards (each idles up to
+    # parallel/mesh.py WORKER_IDLE_S) still alive; "[exit]" names them
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -154,6 +154,7 @@ from seldon_core_tpu_torch.models.transformer import (
     resolve_flash,
     resolve_paged_flash,
     seeded_generator,
+    shard_kv_heads,
     shard_params,
     split_qkv,
 )
@@ -1012,17 +1013,14 @@ class TransformerGenerator(Unit):
     def shard_state(self, state):
         """A whole state (``convert.params_from_jax`` of the reference
         unit's gathered state) laid out over the unit's mesh: the params by
-        ``param_shardings``, a prefix cache's K/V heads over ``tp``;
-        unchanged without a mesh."""
+        ``param_shardings``, a prefix cache's K/V heads over ``tp`` by
+        ``kv_head_range`` (``shard_kv_heads``); unchanged without a mesh."""
         if self.mesh is None:
             return state
         out = dict(state)
         out["params"] = shard_params(state["params"], self.mesh)
         if state.get("prefix_cache") is not None:
-            pc = state["prefix_cache"]
-            specs = {li: {kk: (None, "tp") if "tp" in self.mesh.shape else ()
-                          for kk in layer} for li, layer in pc.items()}
-            out["prefix_cache"] = shard_params(pc, self.mesh, specs)
+            out["prefix_cache"] = shard_kv_heads(state["prefix_cache"], self.mesh)
         return out
 
     def predict(self, state, X):

@@ -77,7 +77,9 @@ Meshes ([6a]): ``param_shardings`` is the reference's tp layout and
 ``shard_params`` places a tree by it over a ``parallel/mesh.py`` mesh (a
 ``ShardedTree``).  ``lm_apply`` on such params runs every shard on its
 own device with its ``LMConfig.tp_local`` config: the fused projection's
-columns regrouped to the shard's heads (``split_qkv``), attention over
+columns regrouped to the shard's heads (``split_qkv``; a ``tp`` that is a
+multiple of the kv heads gives each shard the one kv head its query heads
+read, ``kv_head_range``), attention over
 those heads through the same kernels as one device, one ``all_reduce``
 over ``tp`` after ``wo`` and one after ``w2`` (``attn_out``, ``_ffn``), and
 MoE experts over ``ep`` (``moe_apply``), and the sequence over ``sp``: each
@@ -105,7 +107,7 @@ import functools
 import logging
 import os
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,7 +141,9 @@ from seldon_core_tpu_torch.tree import leaves_with_paths, tree_map
 __all__ = ["LMConfig", "lm_init", "lm_apply", "token_rows", "apply_rope", "gqa_attention",
            "resolve_flash", "resolve_paged_flash", "resolve_train_flash", "lm_loss",
            "lm_train_step", "save_lm_weights", "load_lm_weights", "LB_LOSS_COEF", "TransformerLM",
-           "param_shardings", "shard_params", "lm_pipeline_params", "shard_pipeline_params",
+           "param_shardings", "shard_params", "kv_head_range", "kv_heads_held",
+           "shard_kv_heads",
+           "lm_pipeline_params", "shard_pipeline_params",
            "lm_pipeline_apply", "lm_pipeline_loss", "lm_pipeline_train_step"]
 
 logger = logging.getLogger(__name__)
@@ -203,18 +207,22 @@ class LMConfig:
 
     def tp_local(self, tp: int) -> "LMConfig":
         """The config one of ``tp`` tensor-parallel shards computes with:
-        its ``n_heads / tp`` query heads over ``kv_heads / tp`` KV heads
-        (the head dim kept) and its ``d_ff / tp`` FFN columns; ``d_model``
-        is the width of its heads' attention output, ``n_heads *
-        head_dim`` (the residual stream keeps the full width).  Refuses a
-        count that ``tp`` does not divide."""
+        its ``n_heads / tp`` query heads over the kv heads it holds
+        (``kv_head_range``: ``kv_heads / tp`` of them when ``tp`` divides
+        the kv heads, the one kv head its query heads read when ``tp`` is
+        a multiple of them), the head dim kept, and its ``d_ff / tp`` FFN
+        columns; ``d_model`` is the width of its heads' attention output,
+        ``n_heads * head_dim`` (the residual stream keeps the full width).
+        Refuses a head or FFN count that ``tp`` does not divide, and a
+        ``tp`` that neither divides nor is a multiple of the kv heads."""
         if tp == 1:
             return self
-        for name, n in (("n_heads", self.n_heads), ("n_kv_heads", self.kv_heads),
-                        ("d_ff", self.d_ff)):
-            if n % tp:
-                raise ValueError(f"{name}={n} not divisible over the tp axis of size {tp}")
-        return replace(self, n_heads=self.n_heads // tp, n_kv_heads=self.kv_heads // tp,
+        if self.n_heads % tp:
+            raise ValueError(f"n_heads={self.n_heads} not divisible over the tp axis of size {tp}")
+        lo, hi = kv_head_range(self.kv_heads, tp, 0)
+        if self.d_ff % tp:
+            raise ValueError(f"d_ff={self.d_ff} not divisible over the tp axis of size {tp}")
+        return replace(self, n_heads=self.n_heads // tp, n_kv_heads=hi - lo,
                        d_model=self.d_model // tp, d_ff=self.d_ff // tp)
 
     def for_shard(self, shard) -> "LMConfig":
@@ -226,6 +234,63 @@ class LMConfig:
         """The MoE layers' config (``transformer.py:198-204``, ``:351``)."""
         return MoEConfig(d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
                          k=self.moe_k, dtype=self.dtype)
+
+
+def kv_head_range(kv_heads: int, tp: int, t: int) -> Tuple[int, int]:
+    """The kv heads [lo, hi) that shard ``t`` of a ``tp`` axis holds, the
+    one layout rule of the K/V heads over ``tp`` (the projection's columns
+    a shard reads, ``split_qkv``; its caches and pool blocks,
+    ``shard_kv_heads``; the hand-off's reads and writes,
+    ``runtime/kvstream.py``).  When ``tp`` divides the kv heads, shard
+    ``t`` holds the ``kv_heads / tp`` heads of its block.  When ``tp`` is a
+    multiple ``r`` of them, shard ``t``'s query heads all read kv head
+    ``t // r``, which the ``r`` shards of its group each hold, so every
+    shard attends one kv head with a uniform group.  Any other ``tp`` is
+    refused: a shard's query heads would span two kv heads unevenly."""
+    if kv_heads % tp == 0:
+        n = kv_heads // tp
+        return t * n, (t + 1) * n
+    if tp % kv_heads == 0:
+        h = t // (tp // kv_heads)
+        return h, h + 1
+    raise ValueError(f"n_kv_heads={kv_heads} not divisible over the tp axis of size {tp}, "
+                     f"nor a divisor of it: a tp that neither divides nor is a multiple of "
+                     f"the kv heads is not supported yet (ROADMAP item [6b-kv] part 2)")
+
+
+def kv_heads_held(kv_heads: int, mesh: DeviceMesh, i: int) -> Tuple[int, int]:
+    """The kv heads [lo, hi) of a K/V tree (a pool, a cache) that shard
+    ``i`` of ``mesh`` holds: every head without a ``tp`` axis, else
+    ``kv_head_range`` at its ``tp`` coordinate, which refuses a ``tp``
+    that neither divides nor is a multiple of the heads, as ``tp_local``
+    does."""
+    tp = mesh.shape.get("tp", 1)
+    if tp == 1:
+        return 0, kv_heads
+    return kv_head_range(kv_heads, tp, mesh.coords(i)["tp"])
+
+
+def shard_kv_heads(tree, mesh: DeviceMesh) -> ShardedTree:
+    """A whole tree of K/V tensors whose dim 1 is the kv heads (a paged
+    pool's ``[blocks, KV, block_size, hd]`` and scale planes, a cache's
+    ``[B, KV, S, hd]``) placed over ``mesh``: each shard holds its
+    ``kv_heads_held``, a copy of its own where that is not every head
+    (a prefix cache; a paged pool is allocated by shard,
+    ``runtime/servingmesh.py`` ``shard_gen_pool``)."""
+
+    def block(leaf, i):
+        kv = leaf.shape[1]
+        lo, hi = kv_heads_held(kv, mesh, i)
+        if (lo, hi) == (0, kv):
+            return leaf.to(mesh.device_list[i])
+        return leaf.narrow(1, lo, hi - lo).to(mesh.device_list[i], copy=True,
+                                              memory_format=torch.contiguous_format)
+
+    def walk(t, i):
+        return {k: walk(v, i) for k, v in t.items()} if isinstance(t, dict) else block(t, i)
+
+    return ShardedTree(mesh, [walk(tree, i) if mesh.owns(i) else None
+                              for i in range(mesh.size)])
 
 
 def _rmsnorm(x, w, eps=1e-6):
@@ -394,18 +459,24 @@ def split_qkv(qkv, cfg: LMConfig):
     tp shard, ``qkv`` holds the shard's contiguous block of the reference
     layout's columns (``param_shardings``: ``wqkv`` split by columns over
     ``tp``), which does not follow the q | k | v boundaries, so the shard
-    reads the columns of its own heads from the group's blocks
-    (``gather_slices``): the reshard GSPMD inserts there."""
+    reads the columns of its own query heads and of the kv heads it holds
+    (``kv_head_range``) from the group's blocks (``gather_slices``): the
+    reshard GSPMD inserts there.  The whole layout's widths come from the
+    block's: ``tp`` blocks of ``D + 2 KV`` columns.  Where ``tp`` is a
+    multiple of the kv heads, the shards of a group read the same K/V
+    columns, so the backward sums their gradients onto that block."""
     hd = cfg.head_dim
     dq, dkv = cfg.n_heads * hd, cfg.kv_heads * hd
     tp = axis_size("tp")
     if tp == 1:
         return torch.split(qkv, [dq, dkv, dkv], dim=-1)
     t = axis_index("tp")
-    D, KV = dq * tp, dkv * tp
+    D = dq * tp
+    KV = (qkv.shape[-1] * tp - D) // 2
+    lo, hi = kv_head_range(KV // hd, tp, t)
     qkv = gather_slices(qkv, "tp", qkv.ndim - 1,
-                        [(t * dq, (t + 1) * dq), (D + t * dkv, D + (t + 1) * dkv),
-                         (D + KV + t * dkv, D + KV + (t + 1) * dkv)])
+                        [(t * dq, (t + 1) * dq), (D + lo * hd, D + hi * hd),
+                         (D + KV + lo * hd, D + KV + hi * hd)])
     return torch.split(qkv, [dq, dkv, dkv], dim=-1)
 
 

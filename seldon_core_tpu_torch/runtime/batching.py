@@ -480,10 +480,16 @@ class GenLane:
         return y.astype(np.float64), ({}, {})
 
     def predicted_latency_s(self, x) -> Optional[float]:
-        """The admission shed's hook: None, as on the reference's unified
-        replica (``batching.py:548-558`` there; only a prefill replica prices
-        its hand-off chain, and the port has no disaggregated roles)."""
-        return None
+        """The admission shed's hook (``batching.py:548-558`` there): on a
+        prefill replica a request pays the whole prefill, hand-off and
+        remote decode chain, so admission prices the coordinator's running
+        mean of it (``DisaggCoordinator.chain_estimate_s``), and a budget
+        that cannot cover the chain sheds before any prefill; None on a
+        unified or decode replica, which has no coordinator."""
+        coord = getattr(self.genserver, "coordinator", None)
+        if coord is None:
+            return None
+        return coord.chain_estimate_s()
 
     def snapshot(self) -> dict:
         # the scheduler's own block is stats()["genserver"]

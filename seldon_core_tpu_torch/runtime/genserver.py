@@ -38,12 +38,13 @@ the head shape it decodes, the draft's in speculative mode, and
 ``kv_write_paged``, the prefill tick's, the prefix's and the verify's
 write) and raises if either fails: the engine never falls back to the
 static lane quietly.  A unit over a device mesh hands its mesh over
-(``continuous_spec``): the pool's KV heads lie over its ``tp`` axis
-(``runtime/servingmesh.py`` ``shard_gen_pool``), every tick's paged
-program runs on every shard from the scheduler thread (its tables and
-tokens copied to each shard's device), both kernels are probed on every
-device of the mesh at one shard's head shape, and ``snapshot()["mesh"]``
-is the mesh's axes.
+(``continuous_spec``): the pool is allocated by shard, its KV heads over
+the ``tp`` axis (``runtime/servingmesh.py`` ``shard_gen_pool``), every
+tick's paged program runs on every shard from the scheduler thread (its
+tables and tokens copied to each shard's device), both kernels are probed
+on every device of the mesh at one shard's head shape, either
+disaggregated role serves over it, and ``snapshot()["mesh"]`` is the
+mesh's axes.
 
 Three serving modes beside greedy decoding, as the reference composes
 them:
@@ -421,16 +422,17 @@ class GenServer:
             raise ValueError("speculative decoding does not compose with disaggregated "
                              "prefill/decode roles")
         #: the unit's device mesh (``params`` a ShardedTree over it): the
-        #: pool's K/V heads lie over its ``tp`` axis (``shard_gen_pool``)
-        #: and every paged call runs on every shard
+        #: pool's K/V heads lie over its ``tp`` axis (``shard_gen_pool``),
+        #: every paged call runs on every shard, and either role hands the
+        #: blocks off in the wire's global layout (``kvstream``)
         self.mesh = mesh
         if mesh is not None and mesh.spans_processes:
             # the JAX package runs no scheduler multi-controller either
             raise ValueError("the continuous lane over a mesh that spans processes is not "
                              "supported: serve the static lane (SELDON_TPU_GEN_CONTINUOUS=0)")
-        if mesh is not None and (self.spec or role in ("prefill", "decode")):
-            raise ValueError("a generator over a device mesh serves unified and "
-                             "non-speculative on the continuous lane (ROADMAP item [6b])")
+        if mesh is not None and self.spec:
+            raise ValueError("a generator over a device mesh serves non-speculative on "
+                             "the continuous lane (ROADMAP item [6b])")
         self.role = role if role in ("unified", "prefill", "decode") else "unified"
         #: what runs the prefill role's hand-offs (runtime/servingmesh.py)
         self.coordinator = coordinator
@@ -1019,11 +1021,12 @@ class GenServer:
         blocks are written once and pinned (block 0 stays scratch).  Bound
         only when all of it succeeded, so a failure fails every tick rather
         than serving without the prefix."""
-        pool = init_block_pool(self.cfg, self.num_blocks, self.block_size, self.device)
-        if self.mesh is not None:
+        if self.mesh is None:
+            pool = init_block_pool(self.cfg, self.num_blocks, self.block_size, self.device)
+        else:
             from seldon_core_tpu_torch.runtime.servingmesh import shard_gen_pool
 
-            pool = shard_gen_pool(self.mesh, pool)
+            pool = shard_gen_pool(self.mesh, self.cfg, self.num_blocks, self.block_size)
         draft = (init_block_pool(self.draft_cfg, self.num_blocks, self.block_size, self.device)
                  if self.spec else None)
         if self.prefix_cache is not None:
@@ -1525,8 +1528,10 @@ class GenServer:
             prompt=np.asarray(seq.prompt, np.int32), emitted=list(seq.emitted),
             key_data=None if seq.key is None else np.asarray(seq.key).astype(np.uint32),
             tier=seq.request.tier)
-        export = kvstream.KvExport(meta=meta, layers=kvstream.export_blocks(self._pool, seq.blocks),
-                                   tenant=seq.request.tenant)
+        # on the scheduler thread, after the tick's mesh run has returned:
+        # every shard's kernels are queued ahead of the reads on its device
+        layers = kvstream.export_blocks(self._pool, seq.blocks, kv)
+        export = kvstream.KvExport(meta=meta, layers=layers, tenant=seq.request.tenant)
         # the hand-off span's identity is minted now: its traceparent rides
         # every frame's sidecar, so the decode side's spans parent under an
         # id that exists before the coordinator records the span

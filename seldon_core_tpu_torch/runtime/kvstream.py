@@ -152,28 +152,66 @@ def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def export_blocks(pool, blocks: List[int]) -> List[Dict[str, np.ndarray]]:
+def export_blocks(pool, blocks: List[int], kv_heads: Optional[int] = None
+                  ) -> List[Dict[str, np.ndarray]]:
     """``blocks`` of every layer of a port pool, read back to host arrays
-    in the wire's layout: ``[n, bs, KV, hd]``, scales ``[n, bs, KV]``."""
+    in the wire's layout: ``[n, bs, KV, hd]``, scales ``[n, bs, KV]``.  A
+    ``ShardedTree`` pool (a generator over a mesh) answers the same arrays
+    at the whole pool's ``kv_heads``: each kv head read once, from the
+    first shard that holds it along ``tp`` (every other coordinate 0;
+    ``models/transformer.py`` ``kv_heads_held``), the heads concatenated in
+    order; no whole pool is built on a device."""
+    from seldon_core_tpu_torch.models.transformer import kv_heads_held
+    from seldon_core_tpu_torch.parallel.mesh import ShardedTree, lead_shards
+
+    if not isinstance(pool, ShardedTree):
+        return _export_layers(pool, blocks, 0, pool["l0"]["k"].shape[1])
+    reads, nxt = [], 0
+    for i in lead_shards(pool.mesh, ("tp",)):
+        lo, hi = kv_heads_held(kv_heads, pool.mesh, i)
+        if hi > nxt:  # heads not read yet: nxt..hi-1, all on this shard
+            reads.append((i, nxt - lo, hi - lo))
+            nxt = hi
+    parts = [_export_layers(pool.shards[i], blocks, a, b) for i, a, b in reads]
+    return [{name: np.concatenate([p[li][name] for p in parts], axis=2)
+             for name in parts[0][li]} for li in range(len(parts[0]))]
+
+
+def _export_layers(pool, blocks: List[int], a: int, b: int) -> List[Dict[str, np.ndarray]]:
+    """One device's pool: ``blocks`` of its local kv heads [a, b), in the
+    wire's layout."""
     idx = torch.as_tensor(blocks, dtype=torch.long, device=pool["l0"]["k"].device)
-    out: List[Dict[str, np.ndarray]] = []
-    for li in range(len(pool)):
-        layer = pool[f"l{li}"]
-        out.append({name: _to_host(layer[name][idx].transpose(1, 2)) for name in layer})
-    return out
+    return [{name: _to_host(t[idx].narrow(1, a, b - a).transpose(1, 2))
+             for name, t in pool[f"l{li}"].items()} for li in range(len(pool))]
 
 
 def scatter_staged(pool, local_blocks: List[int], staged: List[Dict[str, np.ndarray]]):
-    """Write a fully staged import (wire layout) into the pool's blocks
-    ``local_blocks``, in place.  Runs on the scheduler thread only: the
-    pool has one owner."""
+    """Write a fully staged import (wire layout, the whole pool's kv heads)
+    into the pool's blocks ``local_blocks``, in place.  A ``ShardedTree``
+    pool takes each kv head into every shard that holds it
+    (``kv_heads_held``), int8 scale planes too.  Runs on the
+    scheduler thread only: the pool has one owner."""
+    from seldon_core_tpu_torch.models.transformer import kv_heads_held
+    from seldon_core_tpu_torch.parallel.mesh import ShardedTree
+
+    kv = staged[0]["k"].shape[2]
+    if not isinstance(pool, ShardedTree):
+        _scatter_layers(pool, local_blocks, staged, 0, kv)
+        return pool
+    for i in pool.mesh.owned:
+        _scatter_layers(pool.shards[i], local_blocks, staged, *kv_heads_held(kv, pool.mesh, i))
+    return pool
+
+
+def _scatter_layers(pool, local_blocks: List[int], staged, lo: int, hi: int) -> None:
+    """One device's pool: kv heads [lo, hi) of the staged arrays into its
+    blocks ``local_blocks``."""
     idx = torch.as_tensor(local_blocks, dtype=torch.long, device=pool["l0"]["k"].device)
     for li, layer in enumerate(staged):
         dst = pool[f"l{li}"]
         for name, arr in layer.items():
-            t = _from_host(arr, dst[name].dtype).to(dst[name].device)
+            t = _from_host(arr[:, :, lo:hi], dst[name].dtype).to(dst[name].device)
             dst[name][idx] = t.transpose(1, 2)
-    return pool
 
 
 # -- frame building (the sender) ------------------------------------------

@@ -343,6 +343,12 @@ class CircuitBreaker:
             if calls >= self.min_calls and failures / calls >= self.failure_ratio:
                 self._transition(self.OPEN)
 
+    def record_success(self) -> None:
+        self.record(True)
+
+    def record_failure(self) -> None:
+        self.record(False)
+
     def release(self) -> None:
         """Undo an ``allow()`` that produced no outcome (an expired deadline
         or a cancellation between the gate and the call), so a half-open

@@ -23,14 +23,19 @@ peer answer a typed, retryable 503 (``RoleMismatchError``,
 ``HandoffError``).  Two replicas on one card run side by side: each has
 its own pool and process.
 
-* **Tensor-parallel dispatch.** ``shard_gen_pool`` lays a paged pool out
-  over the generator unit's mesh (a binding's ``mesh_axes``,
-  ``graph/units.py``): its K/V heads over ``tp`` when ``tp`` divides them,
-  so each shard holds its heads' blocks beside its params
-  (``models/transformer.py`` ``param_shardings``), everything else
-  replicated.  The reference's ``resolve_gen_mesh`` (a mesh built from an
-  env knob, called by no code of either package) has no counterpart: the
-  binding is the one way to give a generator a mesh.
+* **Tensor-parallel dispatch.** ``shard_gen_pool`` allocates the
+  genserver's paged pool by shard over the generator unit's mesh (a
+  binding's ``mesh_axes``, ``graph/units.py``): its K/V heads over ``tp``
+  by ``kv_head_range`` (``models/transformer.py`` ``tp_local``), so each
+  shard holds the blocks of the kv heads its query heads read beside its
+  params (``param_shardings``); a head is held by every shard of its
+  group when ``tp`` is a multiple of the kv heads, and a ``tp`` that
+  neither divides nor is a multiple of them is refused.  Either role runs over such a mesh: the hand-off reads
+  each head once and writes it into every shard that holds it
+  (``kvstream.export_blocks``, ``scatter_staged``).  The reference's
+  ``resolve_gen_mesh`` (a mesh built from an env knob, called by no code of
+  either package) has no counterpart: the binding is the one way to give a
+  generator a mesh.
 """
 
 from __future__ import annotations
@@ -101,20 +106,21 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
-def shard_gen_pool(mesh, pool):
-    """A paged pool (``init_block_pool``: per layer {k, v} ``[blocks, KV,
-    block_size, hd]``, an int8 pool's scale planes ``[blocks, KV,
-    block_size]``) laid out over ``mesh`` as a ``ShardedTree``: the KV
-    axis split over ``tp`` when ``tp`` divides it, each device holding its
-    heads' blocks; otherwise replicated."""
-    from seldon_core_tpu_torch.models.transformer import shard_params
+def shard_gen_pool(mesh, cfg, num_blocks: int, block_size: int):
+    """The genserver's paged pool over ``mesh``, a ``ShardedTree``
+    allocated by shard on each shard's device (``init_block_pool`` at
+    ``cfg.for_shard``: per layer {k, v} ``[num_blocks, KV_local,
+    block_size, hd]``, an int8 pool's scale planes ``[num_blocks,
+    KV_local, block_size]``); no whole pool is built.  Shard ``i`` holds
+    the kv heads ``kv_heads_held`` names (its block of them when ``tp``
+    divides them; the one head its query heads read, held by each shard
+    of its group, when ``tp`` is a multiple of them); any other ``tp``
+    is refused.  The reference replicates the pool unless ``tp`` divides
+    the heads."""
+    from seldon_core_tpu_torch.models.generate import init_block_pool
 
-    tp = mesh.shape.get("tp", 1)
-    specs = {li: {name: ((None, "tp") if tp > 1 and arr.ndim >= 3 and arr.shape[1] % tp == 0
-                         else ())
-                  for name, arr in layer.items()}
-             for li, layer in pool.items()}
-    return shard_params(pool, mesh, specs)
+    return mesh.map_shards(lambda sh: init_block_pool(cfg.for_shard(sh), num_blocks,
+                                                      block_size, sh.device))
 
 
 class DisaggCoordinator:
@@ -162,6 +168,10 @@ class DisaggCoordinator:
         """Fire one hand-off; ``done_cb`` gets the decoded int32 tokens
         [max_new] or an exception."""
         asyncio.run_coroutine_threadsafe(self._handoff(export, done_cb), self._loop)
+
+    def chain_estimate_s(self) -> Optional[float]:
+        """The chain's running mean, None until a hand-off has completed."""
+        return self.chain_ewma_s or None
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:

@@ -392,31 +392,66 @@ def test_more_devices_than_exist_raise_the_reference_error(devices8):
 
 
 def test_gen_pool_layout_matches_reference(devices8):
-    """``shard_gen_pool`` gives each device of a ``{"dp": 2, "tp": 2}``
+    """The port's one K/V layout rule (``kv_heads_held``, by which
+    ``shard_kv_heads`` places a whole K/V tree) gives each device of the
     mesh the reference's block of the pool: its KV heads over ``tp`` (the
     port's pool is ``[blocks, KV, block_size, hd]``, the reference's
-    ``[blocks, block_size, KV, hd]``), everything replicated when ``tp``
-    does not divide the heads."""
+    ``[blocks, block_size, KV, hd]``).  Where ``tp`` is a multiple of the
+    kv heads (1 head over ``tp=2``, 2 over ``{"tp": 4}``) the reference
+    replicates the pool and each port shard holds the one head its query
+    heads read: the reference's pool narrowed to ``kv_head_range``.  The
+    genserver's pool (``shard_gen_pool``, allocated by shard) has each
+    shard's blocks at the same shape, dtype and device.  Where ``tp``
+    neither divides nor is a multiple of the heads (3 over ``tp=2``) the
+    reference replicates the pool and the port refuses both."""
     from seldon_core_tpu.runtime import servingmesh as jsm
+    from seldon_core_tpu_torch.models.generate import init_block_pool
+    from seldon_core_tpu_torch.models.transformer import (LMConfig, kv_head_range,
+                                                           shard_kv_heads)
     from seldon_core_tpu_torch.runtime import servingmesh as psm
 
-    pm = pmesh.build_mesh({"dp": 2, "tp": 2}, platform="cpu")
-    jm = jmesh.build_mesh({"dp": 2, "tp": 2})
-    assert pm.shape == dict(jm.shape) == {"dp": 2, "tp": 2}
     rng = np.random.default_rng(4)
-    for kv in (4, 3):
+    for axes, kv in (({"dp": 2, "tp": 2}, 4), ({"dp": 2, "tp": 2}, 3),
+                     ({"dp": 2, "tp": 2}, 1), ({"tp": 4}, 2)):
+        pm = pmesh.build_mesh(axes, platform="cpu")
+        jm = jmesh.build_mesh(axes)
+        assert pm.shape == dict(jm.shape) == axes
+        tp = axes["tp"]
+        heads = max(kv, tp) * (2 if kv % tp and tp % kv else 1)
+        cfg = LMConfig(vocab=16, d_model=16 * heads, n_heads=heads, n_kv_heads=kv, n_layers=1,
+                       d_ff=32, dtype=torch.float32, kv_quant="int8")
         jpool = {"l0": {"k": rng.normal(size=(6, 8, kv, 16)).astype(np.float32),
                         "k_s": rng.normal(size=(6, 8, kv)).astype(np.float32)}}
         jplaced = jsm.shard_gen_pool(jm, jpool)
         port = {"l0": {"k": torch.from_numpy(jpool["l0"]["k"]).permute(0, 2, 1, 3).contiguous(),
                        "k_s": torch.from_numpy(jpool["l0"]["k_s"]).permute(0, 2, 1).contiguous()}}
-        placed = psm.shard_gen_pool(pm, port)
+        if kv % tp and tp % kv:
+            for shard in jplaced["l0"]["k"].addressable_shards:
+                assert np.asarray(shard.data).shape[2] == kv  # the reference's copy is whole
+            for place in (lambda: shard_kv_heads(port, pm),
+                          lambda: psm.shard_gen_pool(pm, cfg, 6, 8)):
+                with pytest.raises(ValueError, match=r"\[6b-kv\] part 2"):
+                    place()
+            continue
+        placed = shard_kv_heads(port, pm)
         for name in ("k", "k_s"):
             for shard in jplaced["l0"][name].addressable_shards:
                 want = np.asarray(shard.data)
+                if kv % tp:
+                    lo, hi = kv_head_range(kv, tp, pm.coords(shard.device.id)["tp"])
+                    assert want.shape[2] == kv  # the reference's copy is whole
+                    want = want[:, :, lo:hi]
                 want = want.transpose(0, 2, 1, 3) if name == "k" else want.transpose(0, 2, 1)
                 got = placed.shards[shard.device.id]["l0"][name].numpy()
                 assert np.array_equal(got, want), (kv, name, shard.device.id)
+        served = psm.shard_gen_pool(pm, cfg, 6, 8)
+        laid = shard_kv_heads(init_block_pool(cfg, 6, 8, "cpu"), pm)
+        for got, want in zip(served.shards, laid.shards):
+            assert got.keys() == want.keys() == {"l0"}
+            for name, t in want["l0"].items():
+                g = got["l0"][name]
+                assert (g.shape, g.dtype, g.device) == (t.shape, t.dtype, t.device), (kv, name)
+                assert not g.any()
 
 
 def test_the_ring_loses_no_round_under_a_short_switch_interval():

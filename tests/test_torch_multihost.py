@@ -167,10 +167,10 @@ def ensemble(mesh):
     return unit.predict(unit.init_state(None), x).numpy()
 
 
-def _lm_cfg():
+def _lm_cfg(**over):
     from seldon_core_tpu_torch.models import transformer as ttr
 
-    return ttr.LMConfig(**DIMS, dtype=torch.float32)
+    return ttr.LMConfig(**{**DIMS, **over}, dtype=torch.float32)
 
 
 def _tokens(seed, shape):
@@ -210,6 +210,13 @@ def run_cases(make_mesh, weights_path):
     out.update({f"train/dp2/{k}": v for k, v in
                 seeded_everywhere(make_mesh("dp2"), params, _tokens(2, TRAIN_TOKENS),
                                   cfg).items()})
+    # DIMS's widths over 2 kv heads: tp=4 is a multiple of them, so the two
+    # shards of a group (one on each process) read the same kv head
+    gqa = _lm_cfg(n_kv_heads=2)
+    gp = ttr.lm_init(torch.Generator().manual_seed(1), gqa, "cpu")
+    out["logits/tp4_kv2"] = lm_logits(make_mesh("tp4"), gp, _tokens(1, TOKENS), gqa)
+    out.update({f"train/tp4_kv2/{k}": v for k, v in
+                train_step0(make_mesh("tp4"), gp, _tokens(2, TRAIN_TOKENS), gqa).items()})
     out.update({f"mnist/dp4/{k}": v for k, v in mnist_steps(make_mesh("dp4")).items()})
     out["ensemble/ens4"] = ensemble(make_mesh("ens4"))
     return out
@@ -538,6 +545,23 @@ def test_train_step0_over_dp_tp_across_processes(one_process, two_processes, jax
         whole = np.concatenate(parts, axis=0 if path.endswith(("['wo']", "['w2']")) else 1) \
             if split else parts[0]
         np.testing.assert_allclose(whole, g.numpy(), rtol=1e-5, atol=1e-6, err_msg=path)
+
+
+def test_a_tp_multiple_of_the_kv_heads_across_processes(one_process, two_processes):
+    """Over a tp=4 that spans the processes at 4 heads and 2 kv heads (the
+    two shards of each kv head's group on two processes): the logits and
+    the step-0 loss on both processes are the one-process mesh's bits, and
+    every shard's step-0 gradients, the shared K/V columns' summed onto
+    their owner across the processes, within 1e-6 relative of it."""
+    _, want = one_process
+    for pid in range(2):
+        np.testing.assert_array_equal(two_processes.at("logits/tp4_kv2", pid),
+                                      want["logits/tp4_kv2"])
+        assert two_processes.at("train/tp4_kv2/loss", pid) == want["train/tp4_kv2/loss"]
+    keys = _keys(want, "train/tp4_kv2/g/")
+    assert len(keys) == 4 * (2 * 6 + 2)
+    for k in keys:
+        assert _rel(two_processes[k], want[k]) <= 1e-6, k
 
 
 def test_seeding_the_loss_on_every_process_counts_it_twice(one_process, two_processes):

@@ -645,6 +645,22 @@ def test_deadline_is_forwarded_and_clamps_each_attempt():
     assert len(requests) == 2 and "exhausted before rest:n" in expired
 
 
+@pytest.mark.parametrize("case", ["test_breaker_opens_on_failure_rate",
+                                  "test_breaker_half_open_probe_closes_or_reopens",
+                                  "test_breaker_window_slides"])
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_the_references_breaker_cases_pass_on_both_breakers(case, package, monkeypatch):
+    """``tests/test_resilience.py``'s three breaker cases, which call
+    ``record_success`` and ``record_failure`` (the reference's aliases of
+    ``record(True)`` and ``record(False)``), run against the reference's
+    ``CircuitBreaker`` and against the port's in its place."""
+    import tests.test_resilience as ref
+
+    if package == "torch":
+        monkeypatch.setattr(ref, "CircuitBreaker", CircuitBreaker)
+    getattr(ref, case)()
+
+
 def test_breaker_opens_fails_fast_and_closes_on_a_probe():
     """Failures open the breaker; an open breaker refuses with no request
     (503); after its cooldown one probe is let through and its success

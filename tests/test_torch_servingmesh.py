@@ -1,8 +1,9 @@
 """The port's disaggregated prefill/decode roles (seldon_core_tpu_torch/
 runtime/servingmesh.py, runtime/kvstream.py, the genserver's role and
 import machinery, the relay's OP_KVSTREAM and TCP lane) on the CPU: the
-single-device cases of tests/test_servingmesh.py, where the port serves
-them, and the wire both ways against the JAX package's kvstream.
+cases of tests/test_servingmesh.py, either role over a tp mesh among
+them, the admission shed of a prefill replica, and the wire both ways
+against the JAX package's kvstream.
 
 The contracts: a hand-off is greedy-token-identical to the unified
 scheduler (f32 and an int8 K/V pool, in process and over the unix and TCP
@@ -108,6 +109,9 @@ class LoopbackCoordinator:
     def snapshot(self):
         return {"loopback": True}
 
+    def chain_estimate_s(self):
+        return None
+
 
 class Capture:
     """A coordinator that keeps the export instead of handing it off."""
@@ -123,6 +127,9 @@ class Capture:
 
     def snapshot(self):
         return {}
+
+    def chain_estimate_s(self):
+        return None
 
 
 _PROMPT = (np.arange(22) % 13 + 1).reshape(1, -1)
@@ -586,6 +593,48 @@ def test_a_pool_exports_in_the_wire_layout_and_scatters_back(dtype, kv_quant):
                                pool[f"l{li}"][nm][[3, 1]].view(torch.uint8))
 
 
+@pytest.mark.parametrize("axes,kv", [({"tp": 4}, 2), ({"dp": 2, "tp": 2}, 4), ({"tp": 2}, 1)])
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_a_sharded_pool_exports_each_head_once_and_scatters_into_every_copy(axes, kv,
+                                                                           kv_quant):
+    """A ``ShardedTree`` pool (each kv head on every shard of its ``tp``
+    group, or split; ``shard_kv_heads``) exports the whole pool's wire
+    arrays, and a scatter into the genserver's pool (``shard_gen_pool``,
+    allocated by shard) writes each head into every shard that holds it,
+    the int8 scale planes too."""
+    from seldon_core_tpu_torch.models.transformer import (LMConfig, kv_head_range,
+                                                           shard_kv_heads)
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.runtime.servingmesh import shard_gen_pool
+
+    heads = max(kv, axes["tp"])
+    cfg = LMConfig(vocab=16, d_model=8 * heads, n_heads=heads, n_kv_heads=kv, n_layers=2,
+                   d_ff=32, dtype=torch.float32, kv_quant=kv_quant)
+    whole = init_block_pool(cfg, 8, 4, "cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in whole.values():
+        for t in layer.values():
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, dtype=torch.int8)
+                    if t.dtype == torch.int8 else torch.randn(t.shape, generator=g))
+    mesh = build_mesh(axes, devices=["cpu"] * (2 if axes == {"tp": 2} else 4))
+    pool = shard_kv_heads(whole, mesh)
+    want = kvstream.export_blocks(whole, [3, 1])
+    got = kvstream.export_blocks(pool, [3, 1], kv)
+    for w, o in zip(want, got):
+        assert w.keys() == o.keys()
+        for nm in w:
+            np.testing.assert_array_equal(o[nm], w[nm])
+    fresh = shard_gen_pool(mesh, cfg, 8, 4)
+    kvstream.scatter_staged(fresh, [5, 6], got)
+    tp = mesh.shape["tp"]
+    for i, shard in enumerate(fresh.shards):
+        lo, hi = kv_head_range(kv, tp, mesh.coords(i)["tp"])
+        for li in range(2):
+            for nm, t in shard[f"l{li}"].items():
+                assert t.shape[1] == hi - lo
+                assert torch.equal(t[[5, 6]], whole[f"l{li}"][nm][[3, 1]][:, lo:hi]), (i, nm)
+
+
 def test_geometry_mismatch_refused_typed():
     decode = _genserver(role="decode")
     prefill = _genserver(role="prefill")
@@ -748,3 +797,147 @@ def test_inprocess_endpoint_reads_engine_role():
         assert ReplicaEndpoint(engine).role == "decode"
     finally:
         engine.close()
+
+
+# -- the admission shed of a prefill replica (Queue 3 item 8) -----------------------
+
+
+class _Chain:
+    """A stand-in genserver holding only a coordinator."""
+
+    def __init__(self, coordinator):
+        self.coordinator = coordinator
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_the_gen_lane_prices_the_chain_on_a_prefill_replica(package):
+    """Both packages' ``GenLane``s answer their prefill coordinator's
+    running chain mean (``chain_estimate_s``: None until a hand-off
+    completed) and None on a replica with no coordinator."""
+    if package == "jax":
+        from seldon_core_tpu.runtime.batching import GenLane as Lane
+        from seldon_core_tpu.runtime.servingmesh import DisaggCoordinator as Coordinator
+    else:
+        from seldon_core_tpu_torch.runtime.batching import GenLane as Lane
+        Coordinator = DisaggCoordinator
+    coord = Coordinator(["uds:/nonexistent/decode.sock"])
+    try:
+        lane = Lane(_Chain(coord))
+        assert lane.predicted_latency_s(_PROMPT) is None
+        coord.chain_ewma_s = 5.0
+        assert lane.predicted_latency_s(_PROMPT) == 5.0
+        assert Lane(_Chain(None)).predicted_latency_s(_PROMPT) is None
+    finally:
+        coord.close()
+
+
+class _WarmLoopback(LoopbackCoordinator):
+    def chain_estimate_s(self):
+        return 50.0
+
+
+@pytest.mark.parametrize("autopilot", ["1", "0"])
+def test_a_prefill_replica_sheds_a_budget_below_its_chain(autopilot, monkeypatch):
+    """A prefill engine whose coordinator prices the chain at 50 s sheds a
+    request with a 20 s budget before any prefill: a typed 503 with the
+    autopilot's prefix and no prefill tick.  ``SELDON_TPU_AUTOPILOT=0``
+    admits it, and the hand-off answers the unified tokens."""
+    from seldon_core_tpu_torch.runtime import autopilot as pap
+    from seldon_core_tpu_torch.runtime.resilience import deadline_scope
+
+    monkeypatch.setenv("SELDON_TPU_AUTOPILOT", autopilot)
+    decode = _genserver(role="decode", block_size=16)  # the engine's default
+    engine = EngineService(_gen_spec(), device="cpu", gen_role="prefill")
+    engine.genserver.coordinator = _WarmLoopback(decode)
+    payload = json.dumps({"data": {"ndarray": _PROMPT.tolist()}})
+
+    async def ask():
+        with deadline_scope(20.0):
+            return await engine.predict_json(payload)
+
+    try:
+        text, status = asyncio.run(ask())
+        if autopilot == "1":
+            assert status == 503, text
+            assert json.loads(text)["status"]["info"].startswith(pap.SHED_INFO_PREFIX)
+            assert engine.genserver.prefill_dispatches_total == 0
+        else:
+            assert status == 200, text
+            assert engine.genserver.prefill_dispatches_total >= 1
+            assert decode.imports_committed_total == 1
+    finally:
+        engine.close()
+        decode.stop()
+
+
+# -- either role over a tensor-parallel mesh ([6b-disagg]) ---------------------------
+
+_DIMS = {"mha": dict(n_heads=2, n_kv_heads=0, d_model=32),
+         "gqa": dict(n_heads=8, n_kv_heads=2, d_model=64)}
+
+
+@pytest.fixture(scope="module")
+def _reference_unified():
+    """Per config: the JAX unit's params and its greedy f32 tokens for
+    ``_PROMPT`` (its static lane, jitted: its unified scheduler answers the
+    same tokens, ``tests/test_servingmesh.py``)."""
+    out = {}
+    for name, dims in _DIMS.items():
+        junit = JaxGenerator(vocab=64, n_layers=2, d_ff=64, max_new_tokens=16,
+                             dtype="float32", eos_token=-1, **dims)
+        jstate = junit.init_state(jax.random.key(0))
+        want = np.asarray(jax.jit(junit.predict)(jstate, _PROMPT.astype(np.float32)))
+        out[name] = (jax.tree_util.tree_map(np.asarray, jstate["params"]), want)
+    return out
+
+
+def _replica(name, params, axes, role, coordinator=None):
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.models.transformer import shard_params
+
+    mesh = None if axes is None else build_mesh(axes, devices=["cpu"] * 4)
+    unit = _unit(**_DIMS[name], mesh=mesh)
+    placed = params_from_jax(params, device="cpu")
+    spec = {**unit.continuous_spec(unit.init_state(None)),
+            "params": placed if mesh is None else shard_params(placed, mesh)}
+    return GenServer(**spec, role=role, coordinator=coordinator, num_blocks=64, block_size=4,
+                     span=4, prefill_chunk=8)
+
+
+@pytest.mark.parametrize("name,prefill_axes,decode_axes", [
+    ("mha", None, {"tp": 2}), ("mha", {"tp": 2}, None), ("gqa", None, {"tp": 4})],
+    ids=["decode_tp2", "prefill_tp2", "decode_tp4_kv2"])
+def test_mesh_disagg_composes(name, prefill_axes, decode_axes, _reference_unified):
+    """``tests/test_servingmesh.py::test_mesh_disagg_composes`` on the
+    port, with the reference unit's weights: a decode replica over ``tp=2``
+    imports a one-device prefill's hand-off, a prefill replica over
+    ``tp=2`` feeds a one-device decode replica, and a decode replica over
+    ``tp=4`` at 8 heads and 2 kv heads (each head on the two shards of its
+    group) does the same; each answers the reference's f32 greedy tokens
+    bit for bit."""
+    params, want = _reference_unified[name]
+    decode = _replica(name, params, decode_axes, "decode")
+    prefill = _replica(name, params, prefill_axes, "prefill", LoopbackCoordinator(decode))
+    try:
+        got = prefill.submit(_PROMPT).future.result(timeout=WAIT_S)
+        np.testing.assert_array_equal(got, want)
+        assert decode.imports_committed_total == 1
+        assert (prefill.mesh, decode.mesh) != (None, None)
+        _wait_blocks_freed(prefill)
+        _wait_blocks_freed(decode)
+    finally:
+        prefill.stop()
+        decode.stop()
+
+
+def test_a_mesh_still_refuses_speculative_mode():
+    """Speculative mode over a mesh stays refused (the reference's
+    ``SpeculativeGenerator`` takes no mesh)."""
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+
+    unit = _unit(mesh=build_mesh({"tp": 2}, devices=["cpu"] * 2))
+    spec = unit.continuous_spec(unit.init_state(None))
+    draft = _unit()
+    with pytest.raises(ValueError, match="non-speculative"):
+        GenServer(**spec, draft_params=draft.init_state(None)["params"], draft_cfg=draft.cfg,
+                  num_blocks=16, block_size=4)

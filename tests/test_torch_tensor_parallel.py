@@ -3,8 +3,9 @@
 ``models/generate.py`` and ``runtime/genserver.py`` over a mesh) against
 the JAX package on 8 CPU devices: every port shard of the tp and ep
 layout is the reference array's block on that device; ``TransformerLM``
-over ``{"tp": 4}`` and ``{"dp": 2, "tp": 2}`` gives the reference's
-logits within 3e-4 (``test_parallel.py:139``); the MoE layer over ``ep``
+over ``{"tp": 4}``, ``{"dp": 2, "tp": 2}`` and a ``tp`` that is a multiple
+of the kv heads (``{"tp": 8}`` over 4) gives the reference's logits within
+3e-4 (``test_parallel.py:139``); the MoE layer over ``ep``
 equals the unsharded layer within 1e-5 (``test_moe.py:72``); and the two
 multi-device examples served by both engines give identical f32 greedy
 tokens, with the reference's ``genserver.mesh`` in ``/stats``."""
@@ -139,7 +140,8 @@ def _lm_pair(axes, quant="none", n_heads=4, n_kv_heads=0, d_model=32):
 @pytest.mark.parametrize("axes,quant,heads,ref_atol", [
     ({"tp": 4}, "none", (4, 0, 32), 3e-4), ({"dp": 2, "tp": 2}, "none", (4, 0, 32), 3e-4),
     ({"tp": 4}, "none", (8, 4, 64), 3e-4), ({"tp": 4}, "int8", (4, 0, 32), 3e-4),
-    ({"dp": 2, "tp": 2}, "int8", (8, 4, 64), 1e-2)])
+    ({"dp": 2, "tp": 2}, "int8", (8, 4, 64), 1e-2), ({"tp": 8}, "none", (16, 4, 128), 3e-4),
+    ({"tp": 4}, "none", (8, 2, 64), 3e-4), ({"tp": 4}, "int8", (8, 2, 64), 1e-2)])
 def test_transformer_lm_over_a_mesh_matches_reference(axes, quant, heads, ref_atol, devices8):
     """The reference unit's sharded state gathered and re-split by the
     port's layout: logits within 3e-4 of the port's unsharded unit with the
@@ -147,8 +149,10 @@ def test_transformer_lm_over_a_mesh_matches_reference(axes, quant, heads, ref_at
     weights' W8A16 products round their f32 activations to bf16 in both
     packages, so a last-bit difference of the f32 sums before them moves
     a bf16 rounding: at d_model 64 the unsharded port already stands
-    6.3e-3 from the reference, and that case holds the reference at 1e-2
-    (``test_torch_quant.py``'s bound on the int8 path's outputs)."""
+    6.3e-3 from the reference, and those cases hold the reference at 1e-2
+    (``test_torch_quant.py``'s bound on the int8 path's outputs).  A ``tp``
+    that is a multiple of the kv heads (8 over 4, 4 over 2) gives each
+    shard the one kv head its query heads read (``kv_head_range``)."""
     junit, jstate, punit, pstate = _lm_pair(axes, quant, *heads)
     assert isinstance(pstate, pmesh.ShardedTree) and pstate.mesh is punit.mesh
     tokens = np.random.default_rng(7).integers(0, 64, size=(4, 16)).astype(np.int32)
@@ -172,9 +176,10 @@ def test_lm_apply_checks_its_mesh_and_splits_dp_rows(devices8):
     torch.testing.assert_close(odd, whole[:3], atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="mesh differs"):
         ptr.lm_apply(pstate, x, punit.cfg, mesh=pmesh.build_mesh({"tp": 2}, platform="cpu"))
-    with pytest.raises(ValueError, match="not divisible over the tp axis"):
-        ptr.TransformerLM(vocab=64, d_model=32, n_heads=4, n_kv_heads=2, device="cpu",
-                          mesh=pmesh.build_mesh({"tp": 4}, platform="cpu"))
+    # a tp that neither divides nor is a multiple of the kv heads (4 over 6)
+    with pytest.raises(ValueError, match=r"not divisible over the tp axis.*\[6b-kv\] part 2"):
+        ptr.TransformerLM(vocab=64, d_model=48, n_heads=12, n_kv_heads=4, d_ff=96,
+                          device="cpu", mesh=pmesh.build_mesh({"tp": 6}, platform="cpu"))
 
 
 def test_moe_over_ep_matches_unsharded_and_reference(devices8):
@@ -254,6 +259,49 @@ def test_mesh_examples_serve_the_reference_tokens(example, continuous, monkeypat
     finally:
         peng.close()
         asyncio.run(jeng.close())
+
+
+@pytest.fixture(scope="module")
+def _gqa_tp4_reference():
+    """The reference generator at 8 heads and 2 kv heads over its
+    ``{"tp": 4}`` mesh: its state and its jitted greedy f32 tokens for two
+    prompt rows."""
+    from seldon_core_tpu.models.generate import TransformerGenerator as JaxGenerator
+
+    junit = JaxGenerator(**_GQA, mesh=jmesh.build_mesh({"tp": 4}))
+    jstate = junit.init_state(jax.random.key(3))
+    prompt = np.random.default_rng(6).integers(0, 64, size=(2, 9)).astype(np.float32)
+    return jstate, prompt, np.asarray(jax.jit(junit.predict)(jstate, prompt))
+
+
+_GQA = dict(vocab=64, d_model=64, n_heads=8, n_kv_heads=2, n_layers=2, d_ff=64,
+            max_new_tokens=8, dtype="float32")
+
+
+@pytest.mark.parametrize("continuous", [True, False], ids=["continuous", "static"])
+def test_a_gqa_generator_over_a_multiple_of_its_kv_heads_serves_the_reference_tokens(
+        continuous, _gqa_tp4_reference, devices8):
+    """A generator at 8 heads and 2 kv heads over ``{"tp": 4}`` (each kv
+    head on the two shards of its group), with the reference unit's
+    weights, answers the reference's f32 greedy tokens on both lanes; the
+    continuous lane's pool holds one kv head a shard."""
+    jstate, prompt, want = _gqa_tp4_reference
+    unit = TransformerGenerator(**_GQA, device="cpu",
+                                mesh=pmesh.build_mesh({"tp": 4}, platform="cpu"))
+    state = params_from_jax(jstate, "cpu", layout=unit.shard_state)
+    if not continuous:
+        np.testing.assert_array_equal(unit.predict(state, torch.from_numpy(prompt)).numpy(),
+                                      want)
+        return
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    server = GenServer(**unit.continuous_spec(state), num_blocks=64, block_size=8)
+    try:
+        got = server.submit(prompt).future.result(timeout=120)
+        np.testing.assert_array_equal(np.asarray(got, np.float32), want)
+        assert [s["l0"]["k"].shape[1] for s in server._pool.shards] == [1] * 4
+    finally:
+        server.stop()
 
 
 def test_generator_stream_and_prefix_over_tp_match_one_device(devices8):

@@ -46,9 +46,9 @@ def _jax_leaves(tree):
             for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _setup(seed):
-    jcfg = jtr.LMConfig(**DIMS, dtype=jnp.float32)
-    tcfg = ttr.LMConfig(**DIMS, dtype=torch.float32)
+def _setup(seed, dims=DIMS):
+    jcfg = jtr.LMConfig(**dims, dtype=jnp.float32)
+    tcfg = ttr.LMConfig(**dims, dtype=torch.float32)
     jp = jtr.lm_init(jax.random.key(seed), jcfg)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
@@ -155,6 +155,75 @@ def test_sharded_train_steps_match_reference(use_flash, devices8):
         jp, jstate, jloss = jstep(jp, jstate, jbatch)
         params, state, loss = ttr.lm_train_step(params, state, {"tokens": torch.from_numpy(tokens)},
                                                 opt, tcfg, use_flash=use_flash)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        _copies_identical(params)
+    want = _jax_leaves(jax.device_get(jp))
+    for key, p in leaves_with_paths(_gather(params)):
+        diff = np.abs(p.numpy() - want[key])
+        assert diff.max() <= 3 * 2 * lr, key
+        assert (diff > 1e-2 * lr).mean() <= 1e-3, key
+
+
+#: 8 heads over 2 kv heads: a tp of 4 is a multiple of the kv heads
+GQA = dict(vocab=64, d_model=64, n_heads=8, n_kv_heads=2, n_layers=2, d_ff=64)
+
+
+def _capture_grads(tcfg, params, mesh, batch):
+    """(loss, gradients) of one ``lm_loss`` through ``grad_update``."""
+    from seldon_core_tpu_torch.optim import grad_update
+
+    seen = {}
+
+    class Capture:
+        def update(self, grads, state, params=None):
+            seen["g"] = grads
+            return grads, state
+
+    state = None if mesh is None else pmesh.ShardedTree(mesh, [None] * mesh.size)
+    _, _, loss = grad_update(lambda p, b: ttr.lm_loss(p, b, tcfg), params, state, batch,
+                             Capture())
+    return loss, seen["g"]
+
+
+def test_shared_kv_columns_sum_their_readers_gradients_as_one_device(devices8):
+    """Over {"tp": 4} at 8 heads and 2 kv heads two shards read each kv
+    head's ``wqkv`` columns (``kv_head_range``): the loss and every leaf's
+    gradient, those shared columns' summed over both readers by the run's
+    one autograd graph, equal the one-device port's within this file's
+    bounds (loss 1e-6 relative, gradients 1e-5 relative and 1e-6
+    absolute), the copies bit-identical."""
+    _, tcfg, _, tp = _setup(2, GQA)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(0, 64, size=(4, 17)))}
+    loss1, g1 = _capture_grads(tcfg, tp, None, batch)
+    mesh = pmesh.build_mesh({"tp": 4}, platform="cpu")
+    loss4, g4 = _capture_grads(tcfg, ttr.shard_params(tp, mesh), mesh, batch)
+    np.testing.assert_allclose(float(loss4), float(loss1), rtol=1e-6)
+    _copies_identical(g4)
+    whole = dict(leaves_with_paths(_gather(g4)))
+    for key, g in leaves_with_paths(g1):
+        np.testing.assert_allclose(whole[key].numpy(), g.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=key)
+
+
+def test_a_tp_multiple_of_the_kv_heads_trains_as_the_reference(devices8):
+    """Two ``lm_train_step``s over {"tp": 4} at 8 heads and 2 kv heads
+    against the reference's step jitted over the same mesh: the loss at
+    rtol 1e-5 and every leaf by ``test_sharded_train_steps_match_reference``'s
+    rule."""
+    lr = 1e-2
+    jcfg, tcfg, jp, tp = _setup(3, GQA)
+    jm = jmesh.build_mesh({"tp": 4})
+    jp = jax.device_put(jp, jtr.param_shardings(jm, jp))
+    jopt, opt = optax.adam(lr), adam(lr)
+    jstate = jopt.init(jp)
+    jstep = jax.jit(lambda p, o, b: jtr.lm_train_step(p, o, b, jopt, jcfg, jm, use_flash=False))
+    params = ttr.shard_params(tp, pmesh.build_mesh({"tp": 4}, platform="cpu"))
+    state = opt.init(params)
+    for step in range(2):
+        tokens = np.random.default_rng(20 + step).integers(0, 64, size=(4, 17)).astype(np.int32)
+        jp, jstate, jloss = jstep(jp, jstate, {"tokens": jnp.asarray(tokens)})
+        params, state, loss = ttr.lm_train_step(params, state, {"tokens": torch.from_numpy(tokens)},
+                                                opt, tcfg)
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
         _copies_identical(params)
     want = _jax_leaves(jax.device_get(jp))
