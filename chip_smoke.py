@@ -1473,7 +1473,7 @@ def generation_phases(torch, dev, smi) -> list:
             return sample_token(logits)
 
         # the kernels and attention="xla" (the plain path) in turns, ABBA,
-        # 8 walls each: the host's launch rate moves between runs and calls
+        # 2 walls each: the host's launch rate moves between runs and calls
         walls = {"ttft": ([], []), "generate": ([], [])}
         fns = {"ttft": lambda uf: first_token(uf),
                "generate": lambda uf: generate(params, tok32, cfg, new, use_flash=uf)}
@@ -5938,6 +5938,7 @@ OBS_ONE_ROW = 200          # keepalive 1-row requests with every observatory on
 OBS_BATCHES = 8            # 64-row requests after them
 OBS_PROFILED = 20          # requests inside the profile window
 OBS_TURNS = 2              # ABBA turns of the overhead comparison (200 requests a wall)
+OBS_SPAN_WAIT_S = 5.0      # how long a remote call's client span may take to be recorded
 OBS_TRACE_COVER = 0.9      # the critical path's share of the root span's wall, at least
 OBS_ACCOUNTED = 0.95       # host + device + bubble share of the scheduler's wall, at least
 MLP_SYMBOL = "fused_mlp_softmax_kernel"
@@ -6246,8 +6247,17 @@ def obs_across_processes(torch, dev, fused_mlp, smi) -> dict:
             text, status = asyncio.run(engine.predict_json(msg))
             if status != 200:
                 raise AssertionError(f"[obs] {lane}: HTTP {status}: {text[:300]}")
-            spans = TRACER.trace(puid)
-            client = [s for s in spans if s.kind == "client" and s.name == "m3"]
+            # the client span is recorded when the remote call's context
+            # exits, which may come after the answer is handed back: wait
+            # (bounded) for it to land before counting
+            deadline = time.perf_counter() + OBS_SPAN_WAIT_S
+            while True:
+                settle_spine()
+                spans = TRACER.trace(puid)
+                client = [s for s in spans if s.kind == "client" and s.name == "m3"]
+                if client or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.01)
             if len(client) != 1:
                 raise AssertionError(f"[obs] {lane}: client spans {client}")
             client = client[0]
@@ -6912,6 +6922,13 @@ PQ_MAX_NEW_SCALE = 0.5     # SELDON_TPU_BROWNOUT_MAXNEW_SCALE's default
 # (pressure 16 / 4 = 4: stage 3), and a pool that preempts the 16 admitted
 PQ_LADDER = {"enter_depth": 4.0, "dwell_s": 0.05, "tick_interval_s": 0.010, "revert_s": 1.0}
 PQ_GEN_ENV = {"SELDON_TPU_GEN_SLOTS": "16", "SELDON_TPU_GEN_POOL_BLOCKS": "384"}
+# part 5's generator engine: the batch-tier request waits behind the interactive
+# ones and is preempted ~49 times by design, so its one HTTP answer spans every
+# tick of its 32 rows (10-18 s inside the whole run on an H100's host, past the
+# engine's 30 s default once on a slower one); a hung device still answers 504
+# at this limit
+PQ_DISPATCH_TIMEOUT_S = 180.0
+PQ_LADDER_RETURN_S = 60.0  # the ladder back at 0 this long after the load ends
 PQ_P50_REQUESTS = 50       # keepalive requests after a process's first
 PQ_CORPUS_REQUESTS = 40
 PQ_OVER_RUNS = 100         # requests a wall in part 9 (each of 32 clients: a share)
@@ -7271,6 +7288,7 @@ def pq_brownout(torch, dev, smi, mnist_port, counted: bool) -> dict:
         setattr(BROWNOUT, k, v)
     BROWNOUT.reset()
     engine = mode_engine(torch, dev, gen_deployment(), continuous=True, env=PQ_GEN_ENV)
+    engine.dispatch_timeout_s = PQ_DISPATCH_TIMEOUT_S  # read at each request (GenLane)
     g = engine.genserver
     victims, admits, widths = [], [], []
     orig_preempt, orig_next = g._preempt, g._next_waiting_index
@@ -7303,7 +7321,14 @@ def pq_brownout(torch, dev, smi, mnist_port, counted: bool) -> dict:
     singles = [rng.integers(0, vocab, size=(1, GEN_S)) for _ in range(4)]
     x1 = ndarray(np.random.default_rng(SEED + 161).random((1, 784)))
     stages, tier_sheds = [], {}
-    stage2 = None
+    stage2 = answered = None
+    threads = threading.active_count()
+
+    def batch_request():
+        t = time.perf_counter()
+        out = request_headers("POST", url, ndarray(batch), {"Seldon-Tier": "batch"})
+        return (*out, time.perf_counter() - t)
+
     try:
         check_tokens(*request("POST", url, ndarray(singles[0][:, :64])), singles[0][:, :64],
                      "ndarray", new=new, vocab=vocab)  # warm-up: the pool, the first ops
@@ -7313,8 +7338,7 @@ def pq_brownout(torch, dev, smi, mnist_port, counted: bool) -> dict:
         fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(8) as pool:
-            fb = pool.submit(request_headers, "POST", url, ndarray(batch),
-                             {"Seldon-Tier": "batch"})
+            fb = pool.submit(batch_request)
             fi = []
             while not fb.done() or BROWNOUT.stage() > 0:
                 status, _ = request_headers("POST", murl, x1, {})  # the tick
@@ -7332,12 +7356,16 @@ def pq_brownout(torch, dev, smi, mnist_port, counted: bool) -> dict:
                         tier_sheds[tier] = (s2, info.startswith(BROWNOUT_INFO_PREFIX), st)
                 if st >= 2 and stage2 is None:
                     stage2 = pool.submit(request, "POST", url, ndarray(singles[0]))
-                if time.perf_counter() - t0 > 60:
-                    raise AssertionError(f"[policies] the ladder did not return to 0: {stages}")
+                if answered is None and fb.done():
+                    answered = time.perf_counter()
+                if answered is not None and time.perf_counter() - answered > PQ_LADDER_RETURN_S:
+                    raise AssertionError(f"[policies] the ladder did not return to 0 within "
+                                         f"{PQ_LADDER_RETURN_S} s of the batch request's "
+                                         f"answer: {stages}")
                 time.sleep(0.005)
             answers = [f.result() for f in fi]
             s2_status, s2_raw = stage2.result() if stage2 is not None else (None, b"")
-            b_status, b_raw = fb.result()
+            b_status, b_raw, batch_s = fb.result()
         paged, kvp = fd.PAGED_LAUNCHES, kw.PAGED_LAUNCHES
         snap = g.snapshot()
         stats = get_json(port, "/stats")
@@ -7389,7 +7417,9 @@ def pq_brownout(torch, dev, smi, mnist_port, counted: bool) -> dict:
     log(f"[policies] brownout on the continuous lane (depth {PQ_LADDER['enter_depth']}, dwell "
         f"0.05 s, tick 10 ms, revert 1 s; {PQ_GEN_ENV}): a batch-tier {GEN_B}-row {GEN_S}-token "
         f"request and "
-        f"4 interactive 1-row ones; stages over time {stages}; transitions {trans}; "
+        f"4 interactive 1-row ones; the batch request answered in {batch_s:.3f} s "
+        f"(dispatch limit {PQ_DISPATCH_TIMEOUT_S:.0f} s; {threads} threads live at its "
+        f"start); stages over time {stages}; transitions {trans}; "
         f"{len(victims)} preemptions, all batch tier ({victims.count('interactive')} "
         f"interactive); {len(both_waiting)} admissions with both tiers waiting, all "
         f"interactive; tier sheds {tier_sheds}; the stage-2 request {short} tokens, the "
@@ -7397,7 +7427,7 @@ def pq_brownout(torch, dev, smi, mnist_port, counted: bool) -> dict:
         f"{sorted({w for w, st in widths if st >= 2})} (floor {floor}); flash_decode_paged "
         f"{paged} = {n_layers} x {sched['decode_steps_total']} decode steps, kv_write_paged "
         f"{kvp} = {n_layers} x {sched['prefill_dispatches_total']} prefill ticks ({smi})")
-    return {"stages": stages, "transitions": trans, "victims": victims,
+    return {"stages": stages, "transitions": trans, "victims": victims, "batch_s": batch_s,
             "tier_sheds": tier_sheds, "lengths": lengths, "short": short,
             "launches": {"flash_decode_paged": paged, "kv_write_paged": kvp},
             "scheduler": sched}
@@ -9035,6 +9065,7 @@ MESH_ENS_ROWS = 64
 MESH_B = 4                # the flagship over tp=4: B=4 prompts of 128 tokens
 MESH_S = 128
 MESH_TURNS = 1            # ABBA turns of the request walls, sharded against one device
+MESH_NEW = 16             # the flagship over tp=4 (10u (b), 10w (b)): 16 new tokens a request
 MESH_PROFILE_NEW = 8      # new tokens of the profiled generations (sharded and one device)
 # prefill logits over tp=4 against one device: each shard's wo and w2
 # products are rounded to bf16 before the tp sum (the one-device product
@@ -9184,7 +9215,7 @@ def mesh_flagship(torch, dev, smi, devices) -> dict:
     from seldon_core_tpu_torch.parallel.mesh import build_mesh
     from seldon_core_tpu_torch.runtime.genserver import GenServer
 
-    kwargs = {**GEN_DIMS, "dtype": "bfloat16"}
+    kwargs = {**GEN_DIMS, "dtype": "bfloat16", "max_new_tokens": MESH_NEW}
     one = gm.TransformerGenerator(**kwargs, device=dev)
     state = one.init_state(torch.Generator().manual_seed(SEED))
     mesh = build_mesh({"tp": MESH_SHARDS}, devices=devices)
@@ -9199,7 +9230,7 @@ def mesh_flagship(torch, dev, smi, devices) -> dict:
     log(f"[mesh] flagship params: {memory['whole_params_bytes']} bytes on one device, "
         f"{memory['shard_params_bytes']} a shard over tp=4 (each its own blocks); "
         f"memory_allocated {memory['memory_allocated_bytes']} (one-device state included)")
-    cfg, L, new = one.cfg, GEN_DIMS["n_layers"], GEN_DIMS["max_new_tokens"]
+    cfg, L, new = one.cfg, GEN_DIMS["n_layers"], MESH_NEW
     rng = np.random.default_rng(SEED + 31)
     prompts = rng.integers(0, cfg.vocab, size=(MESH_B, MESH_S))
     P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
@@ -9344,7 +9375,7 @@ def mesh_flagship_tp8(torch, dev, smi, devices) -> dict:
     if not (tp.use_flash and tp.paged_flash):
         raise AssertionError("[mesh] the flagship over tp=8 does not take the kernels")
     paths = shard_paths(tp, mesh, "flagship tp=8")
-    heads = [kv_head_range(cfg.kv_heads, n, t) for t in range(n)]
+    heads = [kv_head_range(cfg.kv_heads, n, t, cfg.n_heads) for t in range(n)]
     if any((p["heads"], p["kv_heads"]) != (cfg.n_heads // n, 1) for p in paths) or \
             heads != [(t // 2, t // 2 + 1) for t in range(n)]:
         raise AssertionError(f"[mesh] flagship tp=8 shards: {paths}, kv heads {heads}")
@@ -9605,6 +9636,239 @@ def tp8_shard_times(torch, fa, fd, kw, dev, smi) -> dict:
     return rows
 
 
+# (c) [6b-kv] part 2: a tp that neither divides nor is a multiple of the kv
+# heads.  No model of the repo has such a layout, so the flagship's vocab,
+# depth, head dim and FFN ratio take Phi-3-medium's head layout (its
+# published config.json: num_attention_heads 40, num_key_value_heads 10):
+# d_model 2,560, d_ff 10,240, about 0.9 B parameters, over tp=4
+UNEVEN_DIMS = {"vocab": 32768, "d_model": 2560, "n_heads": 40, "n_kv_heads": 10,
+               "n_layers": 12, "d_ff": 10240, "max_new_tokens": MESH8_NEW}
+UNEVEN_SHARDS = 4
+UNEVEN_RUNS = [((2, 4), (1, 2)), ((1, 2), (2, 4))] * 2   # (kv heads, group) a run, by shard
+
+
+def mesh_flagship_uneven(torch, dev, smi, devices) -> dict:
+    """(c) UNEVEN_DIMS over {"tp": 4}: each shard's ten query heads read
+    three kv heads, kv heads 2 and 7 on two shards each
+    (models/transformer.py kv_head_range), in two runs of groups 4 and 2,
+    one launch of each attention kernel a run (per_run).  Prefill logits
+    held to the one-device unit's, both lanes' tokens teacher-forced, every
+    shard's launches counted against the prediction, each shard's pool
+    bytes."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models.transformer import kv_head_range, lm_apply, shard_configs
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    kwargs = {**UNEVEN_DIMS, "dtype": "bfloat16"}
+    one = gm.TransformerGenerator(**kwargs, device=dev)
+    state = one.init_state(torch.Generator().manual_seed(SEED))
+    mesh = build_mesh({"tp": UNEVEN_SHARDS}, devices=devices)
+    t0 = time.perf_counter()
+    tp = gm.TransformerGenerator(**kwargs, mesh=mesh, device=devices[0])
+    sstate = tp.shard_state(state)
+    build_s = time.perf_counter() - t0
+    cfg, L, n = one.cfg, UNEVEN_DIMS["n_layers"], UNEVEN_SHARDS
+    new = UNEVEN_DIMS["max_new_tokens"]
+    if not (tp.use_flash and tp.paged_flash):
+        raise AssertionError("[mesh] the uneven layout over tp=4 does not take the kernels")
+    heads = [kv_head_range(cfg.kv_heads, n, t, cfg.n_heads) for t in range(n)]
+    runs = [c.kv_runs for c in shard_configs(cfg, mesh)]
+    paths = shard_paths(tp, mesh, "uneven tp=4")
+    if heads != [(0, 3), (2, 5), (5, 8), (7, 10)] or runs != UNEVEN_RUNS[:2]:
+        raise AssertionError(f"[mesh] uneven tp=4 shards: kv heads {heads}, runs {runs}")
+    runs_a_layer = sum(len(r) for r in UNEVEN_RUNS)   # a layer's launches over the shards
+    rng = np.random.default_rng(SEED + 37)
+    prompts = rng.integers(0, cfg.vocab, size=(MESH_B, MESH_S))
+    P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    out = {"build_s": build_s, "paths": paths, "kv_heads_by_shard": heads,
+           "runs_by_shard": UNEVEN_RUNS, "shards": [str(d) for d in mesh.device_list]}
+    with torch.inference_mode():
+        l1, _ = gm.prefill(state["params"], P, gm.init_cache(cfg, MESH_B, MESH_S, dev), cfg, True)
+        cache = mesh.map_shards(lambda s: gm.init_cache(cfg.for_shard(s), MESH_B, MESH_S,
+                                                        s.device))
+        reset_counts(fa, fd, kw)
+        lN, cache = gm.prefill(sstate["params"], P, cache, cfg, True)
+        sync_all(torch)
+        pre = read_counts(fa, fd, kw)
+        cache_heads = [c["l0"]["k"].shape[1] for c in cache.shards]
+        logit_err = float((lN - l1).abs().max())
+        logit_scale = float(l1.abs().max())
+        same_argmax = float((lN.argmax(-1) == l1.argmax(-1)).float().mean())
+        del cache, l1, lN
+        reset_counts(fa, fd, kw)
+        t = time.perf_counter()
+        y = tp.predict(sstate, P.float())
+        sync_all(torch)
+        static_wall = time.perf_counter() - t
+        static = read_counts(fa, fd, kw)
+    want_pre = {"flash_attention": L * runs_a_layer, "flash_decode": 0, "kv_write": 0,
+                "flash_decode_paged": 0, "kv_write_paged": 0}
+    want_static = {**want_pre, "flash_decode": L * runs_a_layer * (new - 1)}
+    if pre != want_pre or static != want_static or cache_heads != [3] * n:
+        raise AssertionError(f"[mesh] uneven tp=4: prefill launched {pre} (want {want_pre}), "
+                             f"the static request {static} (want {want_static}); shard caches' "
+                             f"kv heads {cache_heads}")
+    if logit_err > MESH_LOGIT_ATOL:
+        raise AssertionError(f"[mesh] uneven tp=4 prefill logits {logit_err:.4f} from the "
+                             f"one-device unit's (bound {MESH_LOGIT_ATOL})")
+    out["prefill"] = {"launches": pre, "max_abs_logit_err": logit_err,
+                      "max_abs_logit": logit_scale, "argmax_share": same_argmax,
+                      "cache_kv_heads_by_shard": cache_heads}
+    out["static"] = {"launches": static, "wall_ms": static_wall * 1e3, "held": check_gaps(
+        torch, lm_apply, state["params"], cfg, [(prompts, y.long().cpu().numpy())], dev, 1,
+        "mesh uneven static")}
+    server = GenServer(**tp.continuous_spec(sstate))
+    try:
+        reset_counts(fa, fd, kw)
+        t = time.perf_counter()
+        ctoks = np.asarray(server.submit(prompts.astype(np.float32)).future.result(600))
+        cont_wall = time.perf_counter() - t
+        sync_all(torch)
+        cont = read_counts(fa, fd, kw)
+        ticks, steps = server.prefill_dispatches_total, server.decode_steps_total
+        pool_bytes = [tree_bytes(s) for s in server._pool.shards]
+        blocks, bs = server.num_blocks, server.block_size
+    finally:
+        server.stop()
+    want_pool = L * 2 * blocks * 3 * bs * cfg.head_dim * 2  # k and v, three kv heads, bf16
+    want_cont = {"flash_attention": 0, "flash_decode": 0, "kv_write": 0,
+                 "flash_decode_paged": L * runs_a_layer * steps, "kv_write_paged": L * n * ticks}
+    if cont != want_cont or not ticks or not steps or set(pool_bytes) != {want_pool}:
+        raise AssertionError(f"[mesh] uneven tp=4 continuous lane launched {cont} (want "
+                             f"{want_cont}: {ticks} prefill ticks, {steps} decode steps); pool "
+                             f"bytes by shard {pool_bytes} (want {want_pool} each)")
+    out["continuous"] = {"launches": cont, "prefill_ticks": ticks, "decode_steps": steps,
+                         "wall_ms": cont_wall * 1e3, "pool_bytes_by_shard": pool_bytes,
+                         "held": check_gaps(torch, lm_apply, state["params"], cfg,
+                                            [(prompts, ctoks.astype(np.int64))], dev, 1,
+                                            "mesh uneven continuous")}
+    log(f"[mesh] (c) {UNEVEN_DIMS['n_heads']} heads over {UNEVEN_DIMS['n_kv_heads']} kv heads "
+        f"(d_model {cfg.d_model}, {L} layers) over {mesh.shape} on {out['shards']} (built and "
+        f"probed in {build_s:.2f} s): kv heads by shard {heads}, runs (kv heads, group) by "
+        f"shard {UNEVEN_RUNS}; a {MESH_B}x{MESH_S} prefill launched {pre['flash_attention']} "
+        f"flash_attention ({L} layers x {runs_a_layer} runs over the shards), its logits within "
+        f"{logit_err:.4f} of the one-device unit's (|logit| <= {logit_scale:.3f}; bound "
+        f"{MESH_LOGIT_ATOL}; argmax equal in {same_argmax * 100:.1f}% of rows); the static "
+        f"request {static['flash_decode']} flash_decode ({L} x {runs_a_layer} x {new - 1} "
+        f"steps), wall {static_wall * 1e3:.3f} ms; the continuous lane "
+        f"{cont['kv_write_paged']} kv_write_paged ({L} x {n} shards x {ticks} prefill ticks) and "
+        f"{cont['flash_decode_paged']} flash_decode_paged ({L} x {runs_a_layer} x {steps} decode "
+        f"steps), wall {cont_wall * 1e3:.3f} ms; each shard's pool {pool_bytes[0]} bytes "
+        f"({blocks} blocks of {bs}, three kv heads) on {smi}")
+    out["launches"] = {k: pre[k] + static[k] + cont[k] for k in pre}
+    return out
+
+
+def uneven_kernel_checks(torch, fa, fd, kw, dev, smi) -> dict:
+    """(c)'s kernels held to their plain versions on the views the path
+    hands them: a shard's ten query heads and three kv heads as strided
+    views of its projection row, narrowed to each run of shard 0 (kv heads
+    0-1 at group 4, kv head 2 at group 2) and of shard 1 (the same runs in
+    the other order), on TP8_HELD_SETS input sets: the forward (o within
+    FLASH_O_ATOL, lse within FLASH_LSE_ATOL) and its backward (each
+    gradient within BWD_REL_TOL of its largest element) at (4, 8, 2, 128,
+    64) and (4, 2, 1, 128, 64); the two-tier and the paged decode with the
+    step's write fused in (o within FLASH_O_ATOL, the written caches and
+    pools bit-exact) at q (4, 2, 4, 64) and (4, 1, 2, 64); the paged write
+    of a prefill tick at the shard's three heads and at each run's,
+    bit-exact."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    B, S, hd, KV3, H10 = MESH_B, MESH_S, 64, 3, 10
+    names = ("flash_attention", "flash_attention_bwd", "flash_decode", "flash_decode_paged",
+             "kv_write_paged")
+    errs, shapes = dict.fromkeys(names, 0.0), {k: set() for k in names}
+
+    def rnd(*dims):
+        return torch.randn(*dims, generator=gen, device=dev).to(torch.bfloat16)
+
+    def held(name, err, tol):
+        if not err <= tol:
+            raise AssertionError(f"[mesh] (c) {name} vs plain on a run's views: err {err:.3e} "
+                                 f"(tolerance {tol})")
+        errs[name] = max(errs[name], err)
+
+    def same(got, want, what):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"[mesh] (c) {what} on a run's views did not write as its plain "
+                                 f"version does")
+
+    def o_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    orders = [[(0, 2, 4), (2, 1, 2)], [(0, 1, 2), (1, 2, 4)]]  # (first kv head, kv heads, group)
+    n_main, C, n_chunk = S, MESH8_NEW, MESH8_NEW // 2
+    nblk = S // PAGED_BS + MESH8_NEW // PAGED_BS + 1
+    N, n = B * nblk + 1, S + MESH8_NEW // 2
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+    for _ in range(TP8_HELD_SETS):
+        qkv = rnd(B, S, (H10 + 2 * KV3) * hd)
+        q10 = qkv[..., :H10 * hd].reshape(B, S, H10, hd).transpose(1, 2)
+        k3 = qkv[..., H10 * hd:(H10 + KV3) * hd].reshape(B, S, KV3, hd).transpose(1, 2)
+        v3 = qkv[..., (H10 + KV3) * hd:].reshape(B, S, KV3, hd).transpose(1, 2)
+        caches = [rnd(B, KV3, S, hd), rnd(B, KV3, S, hd), rnd(B, KV3, C, hd), rnd(B, KV3, C, hd)]
+        fresh = [rnd(B, KV3, 1, hd), rnd(B, KV3, 1, hd)]
+        pools = [rnd(N, KV3, PAGED_BS, hd), rnd(N, KV3, PAGED_BS, hd)]
+        tables = (torch.randperm(N - 1, generator=gen, device=dev)[: B * nblk] + 1)
+        tables = tables.reshape(B, nblk).to(torch.int32)
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        for runs in orders:
+            qh = 0
+            for lo, m, g in runs:
+                q = q10.narrow(1, qh, m * g)
+                k, v = k3.narrow(1, lo, m), v3.narrow(1, lo, m)
+                qh += m * g
+                shapes["flash_attention"].add((B, m * g, m, S, hd))
+                shapes["flash_attention_bwd"].add((B, m * g, m, S, hd))
+                o, lse = fa.flash_attention_fwd(q, k, v, True)
+                ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+                held("flash_attention", o_err(o, ro), FLASH_O_ATOL)
+                if float((lse - rlse).abs().max()) > FLASH_LSE_ATOL:
+                    raise AssertionError("[mesh] (c) flash_attention lse vs plain on a run's "
+                                         f"views: {float((lse - rlse).abs().max()):.3e}")
+                do = rnd(B, m * g, S, hd)
+                for a, b in zip(fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+                                fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do, True)):
+                    held("flash_attention_bwd", o_err(a, b) / float(b.float().abs().max()),
+                         BWD_REL_TOL)
+                qg = rnd(B, m, g, hd)
+                kn, vn = (t.narrow(1, lo, m) for t in fresh)
+                shapes["flash_decode"].add((B, m, g, hd))
+                shapes["flash_decode_paged"].add((B, m, g, hd))
+                got, want = ([t.clone() for t in caches] for _ in range(2))
+                gv, wv = ([t.narrow(1, lo, m) for t in c] for c in (got, want))
+                held("flash_decode", o_err(
+                    fd.flash_decode_two_tier(qg, gv[0], gv[1], n_main, gv[2], gv[3], n_chunk,
+                                             kn, vn),
+                    fd.flash_decode_two_tier_reference(qg, wv[0], wv[1], n_main, wv[2], wv[3],
+                                                       n_chunk, kn, vn)), FLASH_O_ATOL)
+                same(got, want, "flash_decode (write fused)")
+                got, want = ([t.clone() for t in pools] for _ in range(2))
+                gv, wv = ([t.narrow(1, lo, m) for t in c] for c in (got, want))
+                held("flash_decode_paged", o_err(
+                    fd.flash_decode_paged(qg, *gv, tables, lens, kn, vn),
+                    fd.flash_decode_paged_reference(qg, *wv, tables, lens, kn, vn)), FLASH_O_ATOL)
+                same(got, want, "flash_decode_paged (write fused)")
+        for lo, m in ((0, KV3), (0, 2), (2, 1)):
+            shapes["kv_write_paged"].add((N, m, PAGED_BS, hd, B, S))
+            got, want = ([t.clone() for t in pools] for _ in range(2))
+            kw.kv_write_paged(*(t.narrow(1, lo, m) for t in got), k3.narrow(1, lo, m),
+                              v3.narrow(1, lo, m), tables, start, valid)
+            kw.kv_write_paged_reference(*(t.narrow(1, lo, m) for t in want), k3.narrow(1, lo, m),
+                                        v3.narrow(1, lo, m), tables, start, valid)
+            same(got, want, "kv_write_paged")
+    out = {k: {"max_abs_err": errs[k], "shapes": sorted(shapes[k])} for k in names}
+    for k, r in out.items():
+        log(f"[mesh] (c) {k} held to its plain version on {TP8_HELD_SETS} input sets at the runs' "
+            f"views {r['shapes']}: max {'relative ' if k.endswith('bwd') else 'abs '}err "
+            f"{r['max_abs_err']:.3e}" + (" (bit-exact)" if k == "kv_write_paged" else "")
+            + f" on {smi}")
+    return out
+
+
 def ring_round_us(torch, mesh, rounds: int = 2000) -> float:
     """Host microseconds a round of ``all_reduce`` over the mesh's first
     axis takes, on a 4-element CPU tensor (the baton's cost and three
@@ -9806,7 +10070,9 @@ def mesh_phase(torch, dev, smi) -> dict:
     the flagship over tp=4 and over tp=8 (twice its kv heads) through the
     kernels on every shard, the two multi-device examples, and the node
     engines of a sharded graph; then each kernel of the tp=8 shards timed
-    at its shard shape."""
+    at its shard shape; then (c) a tp that neither divides nor is a
+    multiple of the kv heads: each kernel held to its plain version on its
+    runs' views, and 40 heads over 10 kv heads served over tp=4."""
     t_phase = time.perf_counter()
     devices = mesh_devices(torch)
     cards, shards = len(set(devices)), len(devices)
@@ -9830,6 +10096,11 @@ def mesh_phase(torch, dev, smi) -> dict:
     from seldon_core_tpu_torch.ops import kv_write as kw
 
     out["tp8_shard_times"] = tp8_shard_times(torch, fa, fd, kw, dev, smi)
+    torch.cuda.empty_cache()
+    out["uneven_kernels"] = uneven_kernel_checks(torch, fa, fd, kw, dev, smi)
+    out["flagship_uneven"] = mesh_flagship_uneven(torch, dev, smi, devices)
+    out["launches_uneven"] = out["flagship_uneven"]["launches"]
+    torch.cuda.empty_cache()
     out["card"] = smi
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[mesh] phase 10u wall {out['wall_s']:.2f} s ({cards} card(s), {shards} shards)")
@@ -10385,6 +10656,13 @@ MH_COLL_SHAPE = (64, 256)      # a shard's bf16 input of the collectives check
 MH_COLL_MESHES = {"sp4": ({"sp": 4}, None), "tp4": ({"tp": 4}, None),
                   "dp2_tp2": ({"tp": 2}, {"dp": 2})}
 MH_FAULT_REQUESTS = 8          # (e): 1-row requests, then one of 64 rows
+# (f), (g): a step-0 gradient block across processes against the one-process
+# mesh's, as relative L2.  A block whose readers' shares meet in another
+# order across processes (each expert output read by every ep shard, summed
+# through the exchange's adjoint, and what flows back from it) rounds its
+# bf16 sums elsewhere: each element moves by an ulp (2^-8 of itself) at
+# most a few times; 2^-6 still catches a wrong or missing share (O(1))
+MH_GRAD_REL_L2 = 2.0 ** -6
 
 
 def mh_layout(torch) -> dict:
@@ -10428,7 +10706,8 @@ def mh_flagship_inputs(torch, dev):
     S=128 prompts."""
     from seldon_core_tpu_torch.models import generate as gm
 
-    one = gm.TransformerGenerator(**GEN_DIMS, dtype="bfloat16", device=dev)
+    one = gm.TransformerGenerator(**{**GEN_DIMS, "max_new_tokens": MESH_NEW}, dtype="bfloat16",
+                                  device=dev)
     state = one.init_state(torch.Generator().manual_seed(SEED))
     prompts = np.random.default_rng(SEED + 31).integers(0, one.cfg.vocab, size=(MESH_B, MESH_S))
     return one, state, prompts
@@ -10454,8 +10733,9 @@ def mh_prefill(torch, gm, params, cfg, mesh, P):
 def mh_references(torch, dev) -> dict:
     """What 10w holds the processes to, on this process's one-process meshes
     of the same shapes (10u's devices): the collectives' answers, the
-    flagship's prefill logits over tp=4 and on one device, and step 0's
-    loss over dp=2 x tp=2."""
+    flagship's prefill logits over tp=4 and on one device, step 0's loss
+    over dp=2 x tp=2, and (f)'s pipeline over pp=4 and (g)'s MoE over ep=4
+    with their step 0 gradient blocks."""
     from seldon_core_tpu_torch.models import generate as gm
     from seldon_core_tpu_torch.models.transformer import lm_loss, shard_params
     from seldon_core_tpu_torch.parallel.mesh import build_mesh
@@ -10480,6 +10760,11 @@ def mh_references(torch, dev) -> dict:
     ref["train_loss"], _ = step_grads(torch, lambda p, b: lm_loss(p, b, cfg),
                                       shard_params(params, tmesh), batch)
     del params, batch
+    torch.cuda.empty_cache()
+    ref["pipeline"] = mh_pipeline(torch, lambda a: build_mesh(a, devices=devices), dev)
+    torch.cuda.empty_cache()
+    ref["moe"] = mh_moe(torch, lambda a: build_mesh(a, devices=devices), dev)
+    torch.cuda.empty_cache()
     return ref
 
 
@@ -10549,7 +10834,8 @@ def mh_flagship(torch, mh, local, dev, rank: int, out_dir: Path) -> dict:
     one, state, prompts = mh_flagship_inputs(torch, dev)
     mesh = mh.global_mesh({"tp": MH_SHARDS}, devices=local)
     t0 = time.perf_counter()
-    tp = gm.TransformerGenerator(**GEN_DIMS, dtype="bfloat16", mesh=mesh)
+    tp = gm.TransformerGenerator(**{**GEN_DIMS, "max_new_tokens": MESH_NEW}, dtype="bfloat16",
+                                 mesh=mesh)
     sstate = tp.shard_state(state)
     build_s = time.perf_counter() - t0
     P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
@@ -10696,9 +10982,254 @@ def mh_mnist(torch, mh, local, dev) -> dict:
             "hashes": mh_hashes(torch, pn)}
 
 
+def tree_blocks(torch, tree) -> dict:
+    """{"leaf|block key": tensor} of this process's shards of a ShardedTree,
+    each block once (a replicated leaf's first copy)."""
+    from seldon_core_tpu_torch.tree import leaves_with_paths
+
+    mesh, specs = tree.mesh, dict(leaves_with_paths(tree.specs or {}))
+    out = {}
+    for i in mesh.owned:
+        for path, t in leaves_with_paths(tree.shards[i]):
+            key = "/".join(f"{a}{mesh.coords(i)[a]}" for a in specs.get(path, ())
+                           if a is not None and mesh.shape.get(a, 1) > 1)
+            out.setdefault(f"{path}|{key}", t.detach())
+    return out
+
+
+def mh_grad_blocks(torch, tree, out_path: Path) -> int:
+    """This process's gradient blocks (``tree_blocks``) written to
+    ``out_path`` (.npz, each block's bytes) for the parent."""
+    blocks = tree_blocks(torch, tree)
+    np.savez(out_path, **{k: t.contiguous().view(torch.uint8).cpu().numpy()
+                          for k, t in blocks.items()})
+    return len(blocks)
+
+
+def mh_same_blocks(torch, want: dict, paths: list, what: str) -> dict:
+    """The workers' gradient blocks (their .npz files) against the
+    one-process mesh's ``want``: every block present, the bit-identical
+    ones counted, each block's relative L2 difference; fails above
+    MH_GRAD_REL_L2."""
+    got = {}
+    for p in paths:
+        with np.load(p) as z:
+            for k in z.files:
+                got.setdefault(k, z[k])
+    if set(got) != set(want):
+        raise AssertionError(f"[multihost] {what}: gradient blocks {sorted(set(got) ^ set(want))[:4]} "
+                             f"on one side only")
+    same, rel = 0, {}
+    for k, w in want.items():
+        g = torch.from_numpy(got[k]).to(w.device).view(w.dtype)
+        if torch.equal(g.view(torch.uint8), w.contiguous().view(torch.uint8)):
+            same += 1
+            rel[k] = 0.0
+            continue
+        rel[k] = float((g.float() - w.float()).norm() / w.float().norm())
+    worst = max(rel, key=rel.get)
+    if rel[worst] > MH_GRAD_REL_L2:
+        raise AssertionError(f"[multihost] {what}: step 0 gradient block {worst} {rel[worst]:.3e} "
+                             f"relative L2 from the one-process mesh's (bound {MH_GRAD_REL_L2})")
+    return {"blocks": len(want), "bit_identical": same, "rel_l2_max": rel[worst],
+            "worst_block": worst}
+
+
+def mh_pipeline(torch, make_mesh, dev, out_dir=None, rank: int = 0) -> dict:
+    """(f) the GPipe pipeline over {"pp": 4} at the GQA flagship's train
+    config (3 layers a stage): a forward of 10u's B=4, S=128 shape in
+    PIPE_MICRO microbatches (its logits' hash, its launches, the bytes a
+    hand-off tick received, DeviceMesh.crossed_bytes), then a train step's
+    forward and backward on the copy task (optim.grad_update, as
+    lm_pipeline_train_step calls it, with a capturing optimizer): step 0's
+    loss, gradient blocks and launches.  ``make_mesh(axes)`` is a global mesh in a worker, a
+    one-process mesh of the same shape for the reference."""
+    import hashlib
+
+    from seldon_core_tpu_torch.models.transformer import (lm_pipeline_apply, lm_pipeline_loss,
+                                                          lm_pipeline_params)
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    cfg, params, batch = mh_train_inputs(torch, dev)
+    mesh = make_mesh({"pp": MH_SHARDS})
+    pp = lm_pipeline_params(params, cfg, MH_SHARDS, mesh)
+    del params
+    x = batch["tokens"][:MESH_B, :MESH_S]
+    before = mesh.crossed_bytes.get("pp", 0)
+    with torch.inference_mode():
+        flash_reset(fa)
+        logits = lm_pipeline_apply(pp, x, cfg, n_micro=PIPE_MICRO, use_flash=True)
+        sync_all(torch)
+        fwd = flash_counts(fa)
+        sha = hashlib.sha1(logits.float().cpu().numpy().tobytes()).hexdigest()
+        del logits
+    ticks = PIPE_MICRO + MH_SHARDS - 2   # the ticks that hand an activation on
+    tick_bytes = (mesh.crossed_bytes.get("pp", 0) - before) / ticks
+    flash_reset(fa)
+    loss, grads = step_grads(torch, lambda p, b: lm_pipeline_loss(p, b, cfg, n_micro=PIPE_MICRO),
+                             pp, batch)
+    sync_all(torch)
+    step = flash_counts(fa)
+    if out_dir is not None:
+        mh_grad_blocks(torch, grads, out_dir / f"rank{rank}_pipeline_grads.npz")
+        grads = None
+    out = {"logits_sha": sha, "fwd_launches": fwd, "tick_bytes": tick_bytes, "loss": loss,
+           "step_launches": step, "owned": mesh.owned}
+    if grads is not None:
+        out["grad_blocks"] = tree_blocks(torch, grads)
+    return out
+
+
+def mh_moe(torch, make_mesh, dev, out_dir=None, rank: int = 0) -> dict:
+    """(g) the flagship with MoE layers (MOE_PARAMS: every second layer, 8
+    experts top 2) over {"ep": 4}, two experts a shard: a 4x128 static
+    request of MESH8_NEW tokens (the prefill's logits hashed, the tokens,
+    the launches), then at the train config a train step's forward and
+    backward on the copy task (grad_update with a capturing optimizer, as
+    in (f)): step 0's loss, gradient blocks and launches."""
+    import hashlib
+
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models.transformer import LMConfig, lm_loss, shard_params
+    from seldon_core_tpu_torch.ops import flash_attention as fa, flash_decode as fd
+    from seldon_core_tpu_torch.ops import kv_write as kw
+
+    kwargs = {**GEN_DIMS, **MOE_PARAMS, "dtype": "bfloat16", "max_new_tokens": MESH8_NEW}
+    one = gm.TransformerGenerator(**kwargs, device=dev)
+    state = one.init_state(torch.Generator().manual_seed(SEED))
+    mesh = make_mesh({"ep": MH_SHARDS})
+    unit = gm.TransformerGenerator(**kwargs, mesh=mesh)
+    sstate = unit.shard_state(state)
+    prompts = np.random.default_rng(SEED + 39).integers(0, GEN_DIMS["vocab"],
+                                                        size=(MESH_B, MESH_S))
+    P = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    cfg = unit.cfg
+    with torch.inference_mode():
+        cache = mesh.map_shards(lambda s: gm.init_cache(cfg.for_shard(s), MESH_B, MESH_S,
+                                                        s.device))
+        reset_counts(fa, fd, kw)
+        lN = gm.prefill(sstate["params"], P, cache, cfg, True)[0]
+        sync_all(torch)
+        pre = read_counts(fa, fd, kw)
+        sha = hashlib.sha1(lN.float().cpu().numpy().tobytes()).hexdigest()
+        del cache, lN
+        reset_counts(fa, fd, kw)
+        y = unit.predict(sstate, P.float())
+        sync_all(torch)
+        static = read_counts(fa, fd, kw)
+    toks = y.long().cpu().numpy().tolist()
+    del sstate, unit
+    torch.cuda.empty_cache()
+    # the train config is the generator's: its seeded weights (seed SEED) train
+    tcfg = LMConfig(**{k: v for k, v in GEN_DIMS.items() if k != "max_new_tokens"},
+                    **MOE_PARAMS, dtype=torch.bfloat16)
+    params = shard_params(state["params"], mesh)
+    del state, one
+    batch = {"tokens": torch.as_tensor(copy_batch(np.random.default_rng(SEED + 43), tcfg.vocab),
+                                       dtype=torch.int32, device=dev)}
+    flash_reset(fa)
+    loss, grads = step_grads(torch, lambda p, b: lm_loss(p, b, tcfg), params, batch)
+    sync_all(torch)
+    step = flash_counts(fa)
+    if out_dir is not None:
+        mh_grad_blocks(torch, grads, out_dir / f"rank{rank}_moe_grads.npz")
+        grads = None
+    out = {"prefill_sha": sha, "prefill_launches": pre, "static_launches": static,
+           "tokens": toks, "loss": loss, "step_launches": step, "owned": mesh.owned}
+    if grads is not None:
+        out["grad_blocks"] = tree_blocks(torch, grads)
+    return out
+
+
+def mh_new_paths(torch, res: list, ref: dict, out_dir: Path, smi) -> dict:
+    """(f) and (g): the pipeline over pp=4 and MoE experts over ep=4 across
+    processes, held to the one-process meshes (``ref``): logits' and
+    tokens' bits, step 0's loss bits, every gradient block, launches
+    against the prediction, the bytes a hand-off tick received."""
+    L = GEN_DIMS["n_layers"]
+    out = {}
+    pipe = [r["pipeline"] for r in res]
+    rp = ref["pipeline"]
+    fwd = {k: sum(p["fwd_launches"][k] for p in pipe) for k in ("fwd", "dq", "dkv")}
+    step = {k: sum(p["step_launches"][k] for p in pipe) for k in ("fwd", "dq", "dkv")}
+    want_fwd, want_step = {"fwd": L * PIPE_MICRO, "dq": 0, "dkv": 0}, \
+        {k: L * PIPE_MICRO for k in ("fwd", "dq", "dkv")}
+    grads = mh_same_blocks(torch, rp["grad_blocks"],
+                           [out_dir / f"rank{r['rank']}_pipeline_grads.npz" for r in res],
+                           "(f) the pipeline")
+    if (any(p["logits_sha"] != rp["logits_sha"] or p["loss"] != rp["loss"] for p in pipe)
+            or fwd != want_fwd or step != want_step or fwd != rp["fwd_launches"]):
+        raise AssertionError(f"[multihost] (f) the pipeline over pp=4 across processes: logits "
+                             f"{[p['logits_sha'][:8] for p in pipe]} against "
+                             f"{rp['logits_sha'][:8]}, step 0 losses {[p['loss'] for p in pipe]} "
+                             f"against {rp['loss']}; the forward launched {fwd} (want "
+                             f"{want_fwd}), the step {step} (want {want_step})")
+    ticks = [p["tick_bytes"] for p in pipe]
+    out["pipeline"] = {"forward_launches": fwd, "step_launches": step,
+                       "forward_launches_by_process": [p["fwd_launches"]["fwd"] for p in pipe],
+                       "step_launches_by_process": [p["step_launches"] for p in pipe],
+                       "loss": rp["loss"], "grads": grads, "tick_bytes_by_process": ticks}
+    log(f"[multihost] (f) the pipeline over a cross-process pp=4 (GQA flagship, bf16, "
+        f"{L // MH_SHARDS} layers a stage, stages {[p['owned'] for p in pipe]} by process): a "
+        f"{MESH_B}x{MESH_S} forward in {PIPE_MICRO} microbatches launched {fwd['fwd']} "
+        f"flash_attention ({[p['fwd_launches']['fwd'] for p in pipe]} by process), its logits on "
+        f"every process bit for bit the one-process mesh's; a hand-off tick received "
+        f"{[round(t) for t in ticks]} bytes by process (DeviceMesh.crossed_bytes over "
+        f"{PIPE_MICRO + MH_SHARDS - 2} ticks: one all_gather of the senders' activations of "
+        f"{MESH_B // PIPE_MICRO}x{MESH_S}x{GEN_DIMS['d_model']} bf16); step 0 loss "
+        f"{rp['loss']:.6f} on every process bit for bit, {grads['bit_identical']} of "
+        f"{grads['blocks']} gradient blocks bit-identical (worst {grads['rel_l2_max']:.3e} "
+        f"relative L2, bound {MH_GRAD_REL_L2}); the step launched {step} "
+        f"({[p['step_launches'] for p in pipe]} by process) on {smi}")
+
+    moe = [r["moe"] for r in res]
+    rm = ref["moe"]
+    pre = {k: sum(m["prefill_launches"][k] for m in moe) for k in COUNTED}
+    static = {k: sum(m["static_launches"][k] for m in moe) for k in COUNTED}
+    mstep = {k: sum(m["step_launches"][k] for m in moe) for k in ("fwd", "dq", "dkv")}
+    want_pre = {"flash_attention": L * MH_SHARDS, "flash_decode": 0, "kv_write": 0,
+                "flash_decode_paged": 0, "kv_write_paged": 0}
+    want_static = {**want_pre, "flash_decode": L * MH_SHARDS * (MESH8_NEW - 1)}
+    want_mstep = {k: L * MH_SHARDS for k in ("fwd", "dq", "dkv")}
+    mgrads = mh_same_blocks(torch, rm["grad_blocks"],
+                            [out_dir / f"rank{r['rank']}_moe_grads.npz" for r in res],
+                            "(g) MoE over ep")
+    if (any(m["prefill_sha"] != rm["prefill_sha"] or m["tokens"] != rm["tokens"]
+            or m["loss"] != rm["loss"] for m in moe)
+            or pre != want_pre or static != want_static or mstep != want_mstep):
+        raise AssertionError(f"[multihost] (g) MoE over ep=4 across processes: prefill logits "
+                             f"{[m['prefill_sha'][:8] for m in moe]} against "
+                             f"{rm['prefill_sha'][:8]}, tokens equal "
+                             f"{[m['tokens'] == rm['tokens'] for m in moe]}, step 0 losses "
+                             f"{[m['loss'] for m in moe]} against {rm['loss']}; launched {pre} "
+                             f"(want {want_pre}), {static} (want {want_static}), a step {mstep} "
+                             f"(want {want_mstep})")
+    out["moe"] = {"prefill_launches": pre, "static_launches": static, "step_launches": mstep,
+                  "launches_by_process": [[m["static_launches"]["flash_decode"],
+                                           m["step_launches"]] for m in moe],
+                  "loss": rm["loss"], "grads": mgrads}
+    log(f"[multihost] (g) the flagship with MoE layers ({MOE_PARAMS}) over a cross-process "
+        f"ep=4, two experts a shard: a {MESH_B}x{MESH_S} prefill launched "
+        f"{pre['flash_attention']} flash_attention, its logits on every process bit for bit the "
+        f"one-process mesh's; the static request of {MESH8_NEW} tokens {static['flash_decode']} "
+        f"flash_decode ({L} x {MH_SHARDS} x {MESH8_NEW - 1}; "
+        f"{[m['static_launches']['flash_decode'] for m in moe]} by process), the tokens on every "
+        f"process the one-process mesh's; step 0 loss {rm['loss']:.6f} bit for bit, "
+        f"{mgrads['bit_identical']} of {mgrads['blocks']} gradient blocks bit-identical (worst "
+        f"{mgrads['rel_l2_max']:.3e} relative L2 at {mgrads['worst_block']}, bound "
+        f"{MH_GRAD_REL_L2}); the step launched {mstep} on {smi}")
+    out["launches"] = {"flash_attention": fwd["fwd"] + step["fwd"] + pre["flash_attention"]
+                       + static["flash_attention"] + mstep["fwd"],
+                       "flash_attention_bwd_dq": step["dq"] + mstep["dq"],
+                       "flash_attention_bwd_dkv": step["dkv"] + mstep["dkv"],
+                       "flash_decode": static["flash_decode"]}
+    return out
+
+
 def multihost_worker(out_dir: str) -> int:
     """One process of phase 10w: joins the others through the SELDON_* env
-    contract (parallel/multihost.py) and runs (a)-(d) over global meshes,
+    contract (parallel/multihost.py) and runs (a)-(d), (f) and (g) over
+    global meshes,
     writing its results under ``out_dir`` for the parent."""
     import torch
     import torch.distributed as dist
@@ -10724,11 +11255,24 @@ def multihost_worker(out_dir: str) -> int:
     for name, (axes, dcn) in MH_COLL_MESHES.items():
         out["collectives"].update({f"{name}/{k}": v for k, v in mh_collectives(
             torch, mh.global_mesh(axes, dcn, devices=local)).items()})
+    # the parent computes its one-process references while the workers
+    # start; the timed parts wait for them to be done (the card is shared)
+    t = time.perf_counter()
+    while not (Path(out_dir) / "go").exists():
+        if time.perf_counter() - t > MH_WORKER_TIMEOUT_S:
+            raise RuntimeError("multihost worker: the parent never said go")
+        time.sleep(0.05)
+    out["waited_s"] = time.perf_counter() - t
     for name, fn in (("ring", lambda: mh_ring(torch, mh, local, dev)),
                      ("flagship", lambda: mh_flagship(torch, mh, local, dev, rank,
                                                       Path(out_dir))),
                      ("train", lambda: mh_train(torch, mh, local, dev)),
-                     ("mnist", lambda: mh_mnist(torch, mh, local, dev))):
+                     ("mnist", lambda: mh_mnist(torch, mh, local, dev)),
+                     ("pipeline", lambda: mh_pipeline(
+                         torch, lambda a: mh.global_mesh(a, devices=local), dev, Path(out_dir),
+                         rank)),
+                     ("moe", lambda: mh_moe(torch, lambda a: mh.global_mesh(a, devices=local),
+                                            dev, Path(out_dir), rank))):
         t = time.perf_counter()
         out[name] = fn()
         walls[name] = time.perf_counter() - t
@@ -10741,10 +11285,12 @@ def multihost_worker(out_dir: str) -> int:
     return 0
 
 
-def mh_spawn(torch, lay: dict, out_dir: Path) -> list:
+def mh_spawn(torch, lay: dict, out_dir: Path, meanwhile):
     """Start the workers through the env contract, each with its own
-    timeout; a worker that fails or times out fails the phase (the others
-    are killed)."""
+    timeout, run ``meanwhile()`` while they start, then tell them to go
+    on (the ``go`` file) and wait; a worker that fails or times out fails
+    the phase (the others are killed).  Returns ``meanwhile``'s answer and
+    the workers' results."""
     port = free_port()
     procs = []
     for pid in range(lay["procs"]):
@@ -10758,6 +11304,8 @@ def mh_spawn(torch, lay: dict, out_dir: Path) -> list:
                                        stdout=log_f, stderr=subprocess.STDOUT), log_f))
     deadline = time.perf_counter() + MH_WORKER_TIMEOUT_S
     try:
+        early = meanwhile()
+        (out_dir / "go").write_text("")
         while any(p.poll() is None for p, _ in procs):
             for pid, (p, _) in enumerate(procs):
                 if p.poll() not in (None, 0):  # the others would wait for it
@@ -10776,8 +11324,8 @@ def mh_spawn(torch, lay: dict, out_dir: Path) -> list:
                 p.kill()
                 p.wait()
             f.close()
-    return [json.loads((out_dir / f"rank{pid}.json").read_text())
-            for pid in range(lay["procs"])]
+    return early, [json.loads((out_dir / f"rank{pid}.json").read_text())
+                   for pid in range(lay["procs"])]
 
 
 def mh_faults(torch, dev, smi) -> dict:
@@ -10844,7 +11392,8 @@ def multihost_phase(torch, dev, smi, mesh_walls: dict) -> dict:
     """10w. [6b] part 2: the paths of 10u and 10v over meshes that span
     processes, one process a card (four processes over NCCL on four cards,
     else two sharing cuda:0 over gloo, two shards each), held to this
-    process's one-process meshes and to one device; then (e) the fault
+    process's one-process meshes and to one device, (f) the pipeline over
+    pp=4 and (g) MoE experts over ep=4 among them; then (e) the fault
     harness on ensemble4."""
     import shutil
     import tempfile
@@ -10853,16 +11402,22 @@ def multihost_phase(torch, dev, smi, mesh_walls: dict) -> dict:
 
     t_phase = time.perf_counter()
     lay = mh_layout(torch)
-    ref = mh_references(torch, dev)
-    one, state, prompts = ref.pop("flagship")
-    cfg, L, new = one.cfg, GEN_DIMS["n_layers"], GEN_DIMS["max_new_tokens"]
-    torch.cuda.empty_cache()
-    ref_s = time.perf_counter() - t_phase
     out_dir = Path(tempfile.mkdtemp(prefix="sct_multihost_"))
     (out_dir / "plan.json").write_text(json.dumps(lay))
+    timed = {}
+
+    def references():
+        t = time.perf_counter()
+        ref = mh_references(torch, dev)
+        torch.cuda.empty_cache()
+        timed["ref_s"] = time.perf_counter() - t
+        return ref
+
     t = time.perf_counter()
-    res = mh_spawn(torch, lay, out_dir)
-    spawn_s = time.perf_counter() - t
+    ref, res = mh_spawn(torch, lay, out_dir, references)
+    spawn_s, ref_s = time.perf_counter() - t, timed["ref_s"]
+    one, state, prompts = ref.pop("flagship")
+    cfg, L, new = one.cfg, GEN_DIMS["n_layers"], MESH_NEW
     backends = sorted({r["backend"] for r in res})
     want_backend = "nccl" if lay["visible"] else "gloo"
     if backends != [want_backend]:
@@ -10871,7 +11426,8 @@ def multihost_phase(torch, dev, smi, mesh_walls: dict) -> dict:
         f"{lay['local']} shard(s) each "
         f"({'a card each, CUDA_VISIBLE_DEVICES=i' if lay['visible'] else 'all on cuda:0'}); "
         f"joined in {[round(r['join_s'], 2) for r in res]} s; one-process references "
-        f"{ref_s:.2f} s, workers {spawn_s:.2f} s")
+        f"{ref_s:.2f} s while the workers started (they waited "
+        f"{[round(r['waited_s'], 2) for r in res]} s for them), workers {spawn_s:.2f} s")
     out = {"layout": lay, "backend": backends[0], "worker_walls_s": [r["wall_s"] for r in res],
            "worker_part_walls_s": [r["part_walls_s"] for r in res]}
 
@@ -11017,12 +11573,18 @@ def multihost_phase(torch, dev, smi, mesh_walls: dict) -> dict:
         f"{out['mnist']['max_param_diff']:.3e} of one device's (bound {mn[0]['bound']:.3e}); "
         f"copies bit-identical across processes")
 
+    # (f) the pipeline over pp=4, (g) MoE experts over ep=4
+    new = mh_new_paths(torch, res, ref, out_dir, smi)
+    out["pipeline"], out["moe"] = new["pipeline"], new["moe"]
+
     # (e) the fault harness
     out["faults"] = mh_faults(torch, dev, smi)
     out["launches"] = {"flash_attention": pre["flash_attention"] + static["flash_attention"]
-                       + tl["fwd"],
-                       "flash_attention_bwd_dq": tl["dq"], "flash_attention_bwd_dkv": tl["dkv"],
-                       "flash_decode": static["flash_decode"],
+                       + tl["fwd"] + new["launches"]["flash_attention"],
+                       "flash_attention_bwd_dq": tl["dq"] + new["launches"]["flash_attention_bwd_dq"],
+                       "flash_attention_bwd_dkv": tl["dkv"]
+                       + new["launches"]["flash_attention_bwd_dkv"],
+                       "flash_decode": static["flash_decode"] + new["launches"]["flash_decode"],
                        "fused_mlp_softmax": out["faults"]["fused_mlp_launches"]}
     out["card"] = smi
     out["wall_s"] = time.perf_counter() - t_phase
@@ -11245,9 +11807,15 @@ def main() -> int:
                                                                   row["launches"]}),
                                    "mesh (flagship over tp=4)": n,
                                    "mesh (flagship over tp=8)": n8}
-        row["launches"] += n + n8
+        nu = mesh["launches_uneven"][row["name"]]
+        row["launches_by_path"]["mesh (40 heads over 10 kv heads, tp=4)"] = nu
+        row["launches"] += n + n8 + nu
+        row["at_uneven_runs"] = mesh["uneven_kernels"][row["name"]]
         row["at_tp8_shard"] = mesh["tp8_shard_times"][row["name"]]
-        row["max_abs_err"] = max(row["max_abs_err"], row["at_tp8_shard"]["max_abs_err"])
+        row["max_abs_err"] = max(row["max_abs_err"], row["at_tp8_shard"]["max_abs_err"],
+                                 row["at_uneven_runs"]["max_abs_err"])
+    for row in (dq_row, dkv_row):  # (c)'s backward at its runs' views, relative to each max
+        row["at_uneven_runs"] = mesh["uneven_kernels"]["flash_attention_bwd"]
     # generator_tp's continuous lane: the paged kernel's f32 path and the
     # paged write on every shard
     f32_row["launches_by_path"] = {"speculative example (float32)": f32_row["launches"],
@@ -11283,7 +11851,8 @@ def main() -> int:
         n = multihost["launches"][key]
         row["launches_by_path"] = {**row.get("launches_by_path", {"earlier phases":
                                                                   row["launches"]}),
-                                   "multihost (processes over tp, dp x tp; ensemble4 faults)": n}
+                                   "multihost (processes over tp, dp x tp, pp, ep; "
+                                   "ensemble4 faults)": n}
         row["launches"] += n
 
     alive = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())

@@ -5,10 +5,11 @@ one-process mesh it replaces, on the card(s) of this machine.
     python3 multihost_turns.py
 
 It builds the port's kernels, times the flagship generator's 4x128 static
-request (64 new tokens) over 10u's one-process ``{"tp": 4}`` mesh (four
-cards when the machine has four, else four shards of ``cuda:0``) and on
-one device, in turns (a warm call each, then two turns of two walls a
-side, ABBA), frees them, and runs ``chip_smoke.multihost_phase`` with that wall: its
+request (``chip_smoke.MESH_NEW`` new tokens) over 10u's one-process
+``{"tp": 4}`` mesh (four cards when the machine has four, else four
+shards of ``cuda:0``) and on one device, in turns (a warm call each, then
+two turns of two walls a side, ABBA), frees them, and runs
+``chip_smoke.multihost_phase`` with that wall: its
 workers (four processes over NCCL on four cards, else two sharing
 ``cuda:0`` over gloo) hold every path to the one-process meshes and time
 the same request across processes.  It prints the card, the phase's
@@ -53,7 +54,8 @@ def main() -> int:
     t = time.perf_counter()
     one, state, prompts = cs.mh_flagship_inputs(torch, dev)
     mesh = build_mesh({"tp": cs.MH_SHARDS}, devices=cs.mesh_devices(torch))
-    tp = gm.TransformerGenerator(**cs.GEN_DIMS, dtype="bfloat16", mesh=mesh)
+    tp = gm.TransformerGenerator(**{**cs.GEN_DIMS, "max_new_tokens": cs.MESH_NEW},
+                                 dtype="bfloat16", mesh=mesh)
     sstate = tp.shard_state(state)
     X = torch.as_tensor(prompts, dtype=torch.float32, device=dev)
     with torch.inference_mode():

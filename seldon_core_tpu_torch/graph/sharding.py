@@ -20,8 +20,9 @@ reference topology back at process granularity:
   retries, breakers, deadline propagation, traceparent) wires the graph
   with no new transport code.
 
-The reference's operator half (its manifest renderer) is not ported: the
-GPU manifest renderer is ROADMAP item [6b].
+The operator half, the manifest renderer that materializes one node
+engine Deployment+Service per sharded leaf under ``seldon.io/shard-graph``,
+is ``seldon_core_tpu_torch/operator/manifests.py``.
 """
 
 from __future__ import annotations

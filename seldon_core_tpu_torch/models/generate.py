@@ -26,10 +26,16 @@ reference's tp layout (``models/transformer.py`` ``param_shardings``), and
 ``prefill``, ``generate``, ``stream_chunks`` and the paged programs below
 run once per shard (``parallel/mesh.py`` ``spmd``): each shard holds its
 heads' caches or pool blocks on its own device and launches the same
-kernels at its shape; shard 0's answer is returned.  Over a mesh that
+kernels at its shape; shard 0's answer is returned.  Where a shard's query
+heads read their kv heads in unequal groups (a ``tp`` that neither divides
+nor is a multiple of the kv heads, ``LMConfig.kv_runs``) every attention
+call, two-tier, cached or paged, is one call a run of one group size
+(``models/transformer.py`` ``per_run``), each kernel launched at that
+run's uniform group on views of the run's kv heads.  Over a mesh that
 spans processes (``parallel/multihost.py``) every process runs its own
-shards of the static lane and returns its first shard's answer, the
-same bits on each; the continuous lane refuses such a mesh.
+shards of the static lane (dense or MoE, its experts over ``ep``) and
+returns its first shard's answer, the same bits on each; the continuous
+lane refuses such a mesh.
 
 ``stream_chunks`` (and the unit's ``stream_tokens``, which the engine's
 SSE route drives) yields the same tokens chunk by chunk: the same decode
@@ -150,6 +156,7 @@ from seldon_core_tpu_torch.models.transformer import (
     check_mesh,
     heads,
     lm_init,
+    per_run,
     load_lm_weights,
     resolve_flash,
     resolve_paged_flash,
@@ -312,7 +319,9 @@ def _block_two_tier(lp, x, main_layer, chunk_layer, n_main: int, n_chunk: int,
     is n_main + n_chunk.  ``use_flash`` takes the decode kernel, write and
     attention in one launch."""
     q, k, v = _qkv(lp, x, cfg, n_main + n_chunk)
-    a = _attend_two_tier(q, main_layer, chunk_layer, n_main, n_chunk + 1, use_flash, k, v)
+    a = per_run(cfg, lambda q, m, c, k, v: _attend_two_tier(q, m, c, n_main, n_chunk + 1,
+                                                            use_flash, k, v),
+                q, main_layer, chunk_layer, k, v)
     return _finish_block(lp, x, a, cfg), chunk_layer
 
 
@@ -379,11 +388,13 @@ def _block_cached(lp, x, cache_layer, start: int, n_valid: int, cfg: LMConfig,
         cache_layer["k"][:, :, start:start + S] = kw
         cache_layer["v"][:, :, start:start + S] = vw
     if segment:
-        a = _attend_cached_causal(q, cache_layer, start)
+        a = per_run(cfg, lambda q, c: _attend_cached_causal(q, c, start), q, cache_layer)
     elif S > 1:
-        a = _attention(q, k, v, causal=True, use_flash=use_flash)
+        a = per_run(cfg, lambda q, k, v: _attention(q, k, v, causal=True, use_flash=use_flash),
+                    q, k, v)
     else:
-        a = _attend_cached(q, cache_layer, n_valid, use_flash, k, v)
+        a = per_run(cfg, lambda q, c, k, v: _attend_cached(q, c, n_valid, use_flash, k, v),
+                    q, cache_layer, k, v)
     return _finish_block(lp, x, a, cfg), cache_layer
 
 
@@ -747,12 +758,13 @@ def _paged_block(lp, x, pool_layer, tables, start, valid, cfg: LMConfig,
     q, k, v = _qkv(lp, x, cfg, start[:, None])
     if W == 1 and use_flash:
         lens = start + 1 if lens is None else lens
-        a = flash_decode_paged(_grouped(q, cfg.kv_heads), pool_layer["k"], pool_layer["v"],
-                               tables, lens, k, v, valid[:, 0],
-                               _scales(pool_layer)).reshape(q.shape)
+        a = per_run(cfg, lambda q, p, k, v: flash_decode_paged(
+            _grouped(q, p["k"].shape[1]), p["k"], p["v"], tables, lens, k, v, valid[:, 0],
+            _scales(p)).reshape(q.shape), q, pool_layer, k, v)
     else:
         _paged_write(pool_layer, tables, start, valid, k, v, use_flash)
-        a = _attend_paged(q, _paged_view(pool_layer, tables), start)
+        a = per_run(cfg, lambda q, view: _attend_paged(q, view, start), q,
+                    _paged_view(pool_layer, tables))
     return _finish_block(lp, x, a, cfg), pool_layer
 
 
@@ -1020,7 +1032,8 @@ class TransformerGenerator(Unit):
         out = dict(state)
         out["params"] = shard_params(state["params"], self.mesh)
         if state.get("prefix_cache") is not None:
-            out["prefix_cache"] = shard_kv_heads(state["prefix_cache"], self.mesh)
+            out["prefix_cache"] = shard_kv_heads(state["prefix_cache"], self.mesh,
+                                                 self.cfg.n_heads)
         return out
 
     def predict(self, state, X):

@@ -77,10 +77,12 @@ Meshes ([6a]): ``param_shardings`` is the reference's tp layout and
 ``shard_params`` places a tree by it over a ``parallel/mesh.py`` mesh (a
 ``ShardedTree``).  ``lm_apply`` on such params runs every shard on its
 own device with its ``LMConfig.tp_local`` config: the fused projection's
-columns regrouped to the shard's heads (``split_qkv``; a ``tp`` that is a
-multiple of the kv heads gives each shard the one kv head its query heads
-read, ``kv_head_range``), attention over
-those heads through the same kernels as one device, one ``all_reduce``
+columns regrouped to the shard's heads (``split_qkv``; each shard holds
+the kv heads its query heads read, ``kv_head_range``, a kv head whose
+readers lie on two shards held by both), attention over those heads
+through the same kernels as one device (one launch a run of one group
+size where a shard's heads read their kv heads in unequal groups,
+``per_run``), one ``all_reduce``
 over ``tp`` after ``wo`` and one after ``w2`` (``attn_out``, ``_ffn``), and
 MoE experts over ``ep`` (``moe_apply``), and the sequence over ``sp``: each
 shard holds a block of positions, rotates them at their global positions
@@ -95,10 +97,10 @@ autograd graph, replicated leaves' gradients summed over their copies
 / ``_train_step`` run the layer stack as a GPipe pipeline over ``pp``
 (``parallel/pipeline.py``), composable with ``dp``, each stage through
 the same kernels as one device.  Over a mesh that spans processes
-(``parallel/multihost.py``, one process a card) ``lm_apply``, ``lm_loss``
-and ``lm_train_step`` run each process's shards and gather the answer or
-the loss onto every process (``DeviceMesh.collect``); the pipeline and
-MoE experts over a cross-process ``ep`` are refused (``check_mesh``).
+(``parallel/multihost.py``, one process a card) ``lm_apply``, ``lm_loss``,
+``lm_train_step``, MoE experts over ``ep`` and the ``lm_pipeline_*``
+functions over ``pp`` run each process's shards and gather the answer or
+the loss onto every process (``DeviceMesh.collect``).
 """
 
 from __future__ import annotations
@@ -142,7 +144,7 @@ __all__ = ["LMConfig", "lm_init", "lm_apply", "token_rows", "apply_rope", "gqa_a
            "resolve_flash", "resolve_paged_flash", "resolve_train_flash", "lm_loss",
            "lm_train_step", "save_lm_weights", "load_lm_weights", "LB_LOSS_COEF", "TransformerLM",
            "param_shardings", "shard_params", "kv_head_range", "kv_heads_held",
-           "shard_kv_heads",
+           "shard_kv_heads", "shard_configs", "per_run",
            "lm_pipeline_params", "shard_pipeline_params",
            "lm_pipeline_apply", "lm_pipeline_loss", "lm_pipeline_train_step"]
 
@@ -167,6 +169,10 @@ class LMConfig:
     kv_quant: str = "none"
     rope: bool = True
     rope_base: float = 10000.0
+    #: a tp shard's runs of query heads, one (kv heads, group) each, where
+    #: its heads read kv heads with unequal groups (``tp_local``); () for
+    #: one uniform group, ``n_heads / kv_heads``
+    kv_runs: Tuple[Tuple[int, int], ...] = ()
 
     def __post_init__(self):
         if self.d_model % self.n_heads != 0:
@@ -183,7 +189,12 @@ class LMConfig:
                 f"kv_quant={self.kv_quant!r} not supported (none | int8)"
             )
         kv = self.kv_heads
-        if self.n_heads % kv != 0:
+        if self.kv_runs:
+            if (sum(n * g for n, g in self.kv_runs) != self.n_heads
+                    or sum(n for n, _ in self.kv_runs) != kv):
+                raise ValueError(f"kv_runs={self.kv_runs} do not cover n_heads={self.n_heads} "
+                                 f"over n_kv_heads={kv}")
+        elif self.n_heads % kv != 0:
             raise ValueError(
                 f"n_heads={self.n_heads} not divisible by "
                 f"n_kv_heads={kv}"
@@ -205,29 +216,47 @@ class LMConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
-    def tp_local(self, tp: int) -> "LMConfig":
-        """The config one of ``tp`` tensor-parallel shards computes with:
-        its ``n_heads / tp`` query heads over the kv heads it holds
-        (``kv_head_range``: ``kv_heads / tp`` of them when ``tp`` divides
-        the kv heads, the one kv head its query heads read when ``tp`` is
-        a multiple of them), the head dim kept, and its ``d_ff / tp`` FFN
+    @property
+    def runs(self) -> Tuple[Tuple[int, int], ...]:
+        """The runs of query heads that share one group size, in head
+        order, one (kv heads, group) each: ``kv_runs``, or the one uniform
+        run.  Attention takes one call a run (``per_run``)."""
+        return self.kv_runs or ((self.kv_heads, self.n_heads // self.kv_heads),)
+
+    def tp_local(self, tp: int, t: int = 0) -> "LMConfig":
+        """The config shard ``t`` of ``tp`` tensor-parallel shards computes
+        with: its ``n_heads / tp`` query heads over the kv heads they read
+        (``kv_head_range``), the head dim kept, and its ``d_ff / tp`` FFN
         columns; ``d_model`` is the width of its heads' attention output,
         ``n_heads * head_dim`` (the residual stream keeps the full width).
-        Refuses a head or FFN count that ``tp`` does not divide, and a
-        ``tp`` that neither divides nor is a multiple of the kv heads."""
+        Where ``tp`` divides the kv heads or is a multiple of them every
+        shard's config is the same, one uniform group; otherwise a shard's
+        heads may read kv heads with unequal groups, and its config lists
+        their runs (``kv_runs``: 40 heads over 10 kv heads at tp=4 give
+        shard 0 runs (2, 4) and (1, 2), shard 1 (1, 2) and (2, 4)).
+        Refuses a head or FFN count that ``tp`` does not divide, and an
+        int8 K/V cache at such unequal runs (its paged kernel reads whole
+        scale planes)."""
         if tp == 1:
             return self
         if self.n_heads % tp:
             raise ValueError(f"n_heads={self.n_heads} not divisible over the tp axis of size {tp}")
-        lo, hi = kv_head_range(self.kv_heads, tp, 0)
         if self.d_ff % tp:
             raise ValueError(f"d_ff={self.d_ff} not divisible over the tp axis of size {tp}")
+        lo, hi = kv_head_range(self.kv_heads, tp, t, self.n_heads)
+        runs = _shard_runs(self.n_heads, self.kv_heads, tp, t)
+        if len(runs) > 1 and self.kv_quant != "none":
+            raise ValueError(f"kv_quant={self.kv_quant!r} at n_heads={self.n_heads} over "
+                             f"n_kv_heads={self.kv_heads} and tp={tp} is not supported: the "
+                             f"shards' query heads read their kv heads in unequal groups")
         return replace(self, n_heads=self.n_heads // tp, n_kv_heads=hi - lo,
-                       d_model=self.d_model // tp, d_ff=self.d_ff // tp)
+                       d_model=self.d_model // tp, d_ff=self.d_ff // tp,
+                       kv_runs=runs if len(runs) > 1 else ())
 
     def for_shard(self, shard) -> "LMConfig":
-        """``tp_local`` at the shard's mesh (``parallel/mesh.py`` ``spmd``)."""
-        return self.tp_local(shard.mesh.shape.get("tp", 1))
+        """``tp_local`` at the shard's mesh and ``tp`` coordinate
+        (``parallel/mesh.py`` ``spmd``)."""
+        return self.tp_local(shard.mesh.shape.get("tp", 1), shard.coords.get("tp", 0))
 
     @property
     def moe(self) -> MoEConfig:
@@ -236,51 +265,105 @@ class LMConfig:
                          k=self.moe_k, dtype=self.dtype)
 
 
-def kv_head_range(kv_heads: int, tp: int, t: int) -> Tuple[int, int]:
+def kv_head_range(kv_heads: int, tp: int, t: int, n_heads: int) -> Tuple[int, int]:
     """The kv heads [lo, hi) that shard ``t`` of a ``tp`` axis holds, the
     one layout rule of the K/V heads over ``tp`` (the projection's columns
     a shard reads, ``split_qkv``; its caches and pool blocks,
     ``shard_kv_heads``; the hand-off's reads and writes,
-    ``runtime/kvstream.py``).  When ``tp`` divides the kv heads, shard
-    ``t`` holds the ``kv_heads / tp`` heads of its block.  When ``tp`` is a
-    multiple ``r`` of them, shard ``t``'s query heads all read kv head
-    ``t // r``, which the ``r`` shards of its group each hold, so every
-    shard attends one kv head with a uniform group.  Any other ``tp`` is
-    refused: a shard's query heads would span two kv heads unevenly."""
-    if kv_heads % tp == 0:
-        n = kv_heads // tp
-        return t * n, (t + 1) * n
-    if tp % kv_heads == 0:
-        h = t // (tp // kv_heads)
-        return h, h + 1
-    raise ValueError(f"n_kv_heads={kv_heads} not divisible over the tp axis of size {tp}, "
-                     f"nor a divisor of it: a tp that neither divides nor is a multiple of "
-                     f"the kv heads is not supported yet (ROADMAP item [6b-kv] part 2)")
+    ``runtime/kvstream.py``): the kv heads that its ``n_heads / tp`` query
+    heads read, query head h reading kv head ``h // (n_heads /
+    kv_heads)``.  When ``tp`` divides the kv heads that is the ``kv_heads
+    / tp`` heads of its block; when ``tp`` is a multiple ``r`` of them,
+    the one kv head ``t // r``, which the ``r`` shards of its group each
+    hold; otherwise its query heads read their kv heads in unequal groups,
+    and a kv head whose readers lie on two shards is held by both (40
+    heads over 10 kv heads at tp=4: shard 0 holds kv heads 0-2, shard 1
+    2-4).  Refuses a head count that ``tp`` does not divide."""
+    if n_heads % tp:
+        raise ValueError(f"n_heads={n_heads} not divisible over the tp axis of size {tp}")
+    hq, g = n_heads // tp, n_heads // kv_heads
+    return t * hq // g, ((t + 1) * hq - 1) // g + 1
 
 
-def kv_heads_held(kv_heads: int, mesh: DeviceMesh, i: int) -> Tuple[int, int]:
+def _shard_runs(n_heads: int, kv_heads: int, tp: int, t: int) -> Tuple[Tuple[int, int], ...]:
+    """Shard ``t``'s query heads as runs of one group size, in head order:
+    ((kv heads, group), ...), neighbouring kv heads with as many readers
+    on the shard merged into one run."""
+    hq, g = n_heads // tp, n_heads // kv_heads
+    lo, hi = kv_head_range(kv_heads, tp, t, n_heads)
+    runs: list = []
+    for j in range(lo, hi):
+        c = min((t + 1) * hq, (j + 1) * g) - max(t * hq, j * g)
+        if runs and runs[-1][1] == c:
+            runs[-1] = (runs[-1][0] + 1, c)
+        else:
+            runs.append((1, c))
+    return tuple(runs)
+
+
+def shard_configs(cfg: LMConfig, mesh: Optional[DeviceMesh]):
+    """The distinct configs the shards of ``mesh`` compute with
+    (``tp_local`` at every ``tp`` coordinate): one where the layout is even,
+    more where the shards' runs differ; ``[cfg]`` without a mesh.  Raises
+    ``tp_local``'s refusals."""
+    if mesh is None:
+        return [cfg]
+    tp = mesh.shape.get("tp", 1)
+    return list(dict.fromkeys(cfg.tp_local(tp, t) for t in range(tp)))
+
+
+def _narrow_heads(x, lo: int, n: int):
+    """Heads [lo, lo + n) along dim 1 of a tensor, or of every tensor of a
+    tuple or dict (a cache or pool layer); None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _narrow_heads(v, lo, n) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_narrow_heads(v, lo, n) for v in x)
+    return x.narrow(1, lo, n)
+
+
+def per_run(cfg: LMConfig, attend: Callable, q, *kv):
+    """``attend(q, *kv)`` [B, H, ...] -> [B, H, ...] over the shard's query
+    heads ``q`` (dim 1) and its kv heads' tensors ``kv`` (dim 1 of each,
+    or of each tensor of a layer dict or tuple): one call a run of
+    ``cfg.runs`` (its query heads and the kv heads they read, one group
+    size, so one launch of a kernel at a uniform group), the outputs
+    concatenated in head order; a single call where the config has one
+    run.  A kernel that writes a kv head in place writes it through the
+    run's view."""
+    if not cfg.kv_runs:
+        return attend(q, *kv)
+    outs, qh, kh = [], 0, 0
+    for n, g in cfg.kv_runs:
+        outs.append(attend(q.narrow(1, qh, n * g), *(_narrow_heads(t, kh, n) for t in kv)))
+        qh, kh = qh + n * g, kh + n
+    return torch.cat(outs, dim=1)
+
+
+def kv_heads_held(kv_heads: int, mesh: DeviceMesh, i: int, n_heads: int) -> Tuple[int, int]:
     """The kv heads [lo, hi) of a K/V tree (a pool, a cache) that shard
     ``i`` of ``mesh`` holds: every head without a ``tp`` axis, else
-    ``kv_head_range`` at its ``tp`` coordinate, which refuses a ``tp``
-    that neither divides nor is a multiple of the heads, as ``tp_local``
-    does."""
+    ``kv_head_range`` at its ``tp`` coordinate (``n_heads``, the model's
+    query heads)."""
     tp = mesh.shape.get("tp", 1)
     if tp == 1:
         return 0, kv_heads
-    return kv_head_range(kv_heads, tp, mesh.coords(i)["tp"])
+    return kv_head_range(kv_heads, tp, mesh.coords(i)["tp"], n_heads)
 
 
-def shard_kv_heads(tree, mesh: DeviceMesh) -> ShardedTree:
+def shard_kv_heads(tree, mesh: DeviceMesh, n_heads: int) -> ShardedTree:
     """A whole tree of K/V tensors whose dim 1 is the kv heads (a paged
     pool's ``[blocks, KV, block_size, hd]`` and scale planes, a cache's
     ``[B, KV, S, hd]``) placed over ``mesh``: each shard holds its
-    ``kv_heads_held``, a copy of its own where that is not every head
-    (a prefix cache; a paged pool is allocated by shard,
-    ``runtime/servingmesh.py`` ``shard_gen_pool``)."""
+    ``kv_heads_held`` (``n_heads``, the model's query heads), a copy of
+    its own where that is not every head (a prefix cache; a paged pool is
+    allocated by shard, ``runtime/servingmesh.py`` ``shard_gen_pool``)."""
 
     def block(leaf, i):
         kv = leaf.shape[1]
-        lo, hi = kv_heads_held(kv, mesh, i)
+        lo, hi = kv_heads_held(kv, mesh, i, n_heads)
         if (lo, hi) == (0, kv):
             return leaf.to(mesh.device_list[i])
         return leaf.narrow(1, lo, hi - lo).to(mesh.device_list[i], copy=True,
@@ -323,8 +406,8 @@ def apply_rope(x, positions, base: float = 10000.0):
 
 
 def _dense(rng: torch.Generator, shape, fan_in: int, dtype: torch.dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=rng, dtype=torch.float32)
-            * (fan_in ** -0.5)).to(dtype)
+    # scaled in place: the same bits as a product, one f32 buffer fewer
+    return torch.randn(shape, generator=rng, dtype=torch.float32).mul_(fan_in ** -0.5).to(dtype)
 
 
 def lm_init(rng: torch.Generator, cfg: LMConfig, device: DeviceLike = None) -> Dict[str, Any]:
@@ -393,12 +476,12 @@ def param_shardings(mesh: DeviceMesh, params) -> Any:
 
 
 def check_mesh(cfg: LMConfig, mesh: DeviceMesh, what: str) -> None:
-    """A unit's mesh refused at construction: a tp that does not divide the
-    heads, and MoE experts over an ``ep`` that spans processes (not run
-    across processes)."""
-    cfg.tp_local(mesh.shape.get("tp", 1))
-    if cfg.moe_every:
-        mesh.refuse_spanning(("ep",), f"{what}'s MoE layers")
+    """A unit's mesh refused at construction, in ``what``'s name: a tp
+    that does not divide the query heads or the FFN (``tp_local``)."""
+    try:
+        shard_configs(cfg, mesh)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
 
 
 def shard_params(params, mesh: DeviceMesh, specs=None) -> ShardedTree:
@@ -462,9 +545,10 @@ def split_qkv(qkv, cfg: LMConfig):
     reads the columns of its own query heads and of the kv heads it holds
     (``kv_head_range``) from the group's blocks (``gather_slices``): the
     reshard GSPMD inserts there.  The whole layout's widths come from the
-    block's: ``tp`` blocks of ``D + 2 KV`` columns.  Where ``tp`` is a
-    multiple of the kv heads, the shards of a group read the same K/V
-    columns, so the backward sums their gradients onto that block."""
+    block's: ``tp`` blocks of ``D + 2 KV`` columns.  Where two shards hold
+    one kv head (``tp`` a multiple of the kv heads, or a kv head whose
+    readers lie on both), they read the same K/V columns, so the backward
+    sums their gradients onto that block."""
     hd = cfg.head_dim
     dq, dkv = cfg.n_heads * hd, cfg.kv_heads * hd
     tp = axis_size("tp")
@@ -473,7 +557,7 @@ def split_qkv(qkv, cfg: LMConfig):
     t = axis_index("tp")
     D = dq * tp
     KV = (qkv.shape[-1] * tp - D) // 2
-    lo, hi = kv_head_range(KV // hd, tp, t)
+    lo, hi = kv_head_range(KV // hd, tp, t, D // hd)
     qkv = gather_slices(qkv, "tp", qkv.ndim - 1,
                         [(t * dq, (t + 1) * dq), (D + lo * hd, D + hi * hd),
                          (D + KV + lo * hd, D + KV + hi * hd)])
@@ -505,8 +589,9 @@ def _ffn(lp, h, cfg: LMConfig):
 def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
     """One decoder block: attention + FFN (dense or MoE) with residuals ->
     (x', lb_loss).  On a tp shard (``cfg`` the shard's, ``LMConfig.tp_local``)
-    the block attends its heads and reduces twice over ``tp``: after
-    ``wo`` and after ``w2``.  On an sp shard ``x`` holds positions
+    the block attends its heads (one call a run of one group size,
+    ``per_run``) and reduces twice over ``tp``: after ``wo`` and after
+    ``w2``.  On an sp shard ``x`` holds positions
     ``axis_index("sp") * S`` on: rope rotates at those global positions (the
     reference rotates the whole sequence before its ring), attention is
     the ring (``parallel/ring_attention.py``; grouped K/V refused in the
@@ -533,7 +618,7 @@ def _block(lp, x, cfg: LMConfig, causal: bool, use_flash: bool = False):
             )
         a = ring_attention(q, k, v, "sp", causal, use_flash)
     else:
-        a = _attention(q, k, v, causal, use_flash)
+        a = per_run(cfg, lambda q, k, v: _attention(q, k, v, causal, use_flash), q, k, v)
     x = attn_out(lp, x, a.transpose(1, 2).reshape(B, S, -1))
     h = _rmsnorm(x, lp["ln2"])
     if sp > 1 and "moe" in lp:
@@ -674,16 +759,17 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
     kernel asked at the continuous lane's default block size, 16; the
     scheduler probes it at its own).
 
-    With a ``mesh`` the question is asked at one shard's shape
-    (``LMConfig.tp_local``: its heads, the same head dim and group) and
-    the kernels probed on every device of the mesh: each shard launches
-    the kernels on its own heads.  The reference keeps a multi-device mesh
+    With a ``mesh`` the question is asked at every shard's shapes
+    (``shard_configs``: its heads, the same head dim, and each run's group
+    and kv heads, ``LMConfig.runs``) and the kernels probed on every device
+    of the mesh: each shard launches the kernels on its own heads, one
+    launch a run.  One refused shape sends every shard to the plain path
+    ("auto") or raises ("flash").  The reference keeps a multi-device mesh
     off its Pallas kernels (GSPMD cannot partition a ``pallas_call``); the
     port's shards are single-device programs and do not inherit that."""
     if mesh is not None:
-        local = cfg.tp_local(mesh.shape.get("tp", 1))
-        return {resolve_flash(attention, local, d, decode)
-                for d in mesh.distinct_devices}.pop()
+        return all(resolve_flash(attention, local, d, decode)
+                   for local in shard_configs(cfg, mesh) for d in mesh.distinct_devices)
     if attention == "xla":
         return False
     if attention not in ("auto", "flash"):
@@ -692,22 +778,23 @@ def resolve_flash(attention: str, cfg: LMConfig, device: torch.device,
         )
     if device.type != "cuda":
         return True  # the wrappers run the plain versions for CPU tensors
-    group = cfg.n_heads // cfg.kv_heads
     kv_dtype = torch.int8 if cfg.kv_quant == "int8" else None
     why = kernel_shape_error(cfg.head_dim, cfg.dtype)
-    if why is None and decode:
-        why = decode_kernel_shape_error(cfg.head_dim, cfg.dtype, group, kv_dtype)
-    if why is None and decode and kv_dtype is not None:
-        why = paged_kernel_shape_error(cfg.head_dim, cfg.dtype, group, 16, kv_dtype)
+    for _, group in cfg.runs:
+        if why is None and decode:
+            why = decode_kernel_shape_error(cfg.head_dim, cfg.dtype, group, kv_dtype)
+        if why is None and decode and kv_dtype is not None:
+            why = paged_kernel_shape_error(cfg.head_dim, cfg.dtype, group, 16, kv_dtype)
     if why is not None:
         if attention == "flash":
             raise ValueError(f"attention='flash': {why}")
         logger.info("flash kernels not used (%s); attention and decode run the "
                     "plain path", why)
         return False
-    probe_kernel(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
-    if decode:
-        probe_decode_kernel(cfg.kv_heads, group, cfg.head_dim, cfg.dtype, device, kv_dtype)
+    for n, group in cfg.runs:
+        probe_kernel(n * group, n, cfg.head_dim, cfg.dtype, device)
+        if decode:
+            probe_decode_kernel(n, group, cfg.head_dim, cfg.dtype, device, kv_dtype)
     return True
 
 
@@ -719,16 +806,17 @@ def resolve_paged_flash(attention: str, cfg: LMConfig, device: torch.device,
     kernels that lane never runs.  The lane launches no ``flash_attention``
     and no two-tier decode, and the paged kernel takes float32, so an f32
     config (a bf16-only refusal) still serves the lane through its
-    kernels, as the speculative draft's f32 steps do.  Asked at one shard's
-    shape over a ``mesh``; the scheduler probes both kernels at its
+    kernels, as the speculative draft's f32 steps do.  Asked at every
+    shard's runs over a ``mesh``; the scheduler probes both kernels at its
     construction.  The plain path stays for ``attention="xla"``, an int8
     cache whose variants ``resolve_flash`` already asked, and a shape the
     paged kernel refuses."""
     if use_flash or attention == "xla" or cfg.kv_quant != "none" or device.type != "cuda":
         return use_flash
-    if mesh is not None:
-        cfg = cfg.tp_local(mesh.shape.get("tp", 1))
-    why = paged_kernel_shape_error(cfg.head_dim, cfg.dtype, cfg.n_heads // cfg.kv_heads, 16)
+    whys = [paged_kernel_shape_error(local.head_dim, local.dtype, g, 16)
+            for local in shard_configs(cfg, mesh)
+            for _, g in local.runs]
+    why = next((w for w in whys if w is not None), None)
     if why is not None:
         logger.info("paged kernels not used (%s); the continuous lane runs the plain path", why)
         return False
@@ -759,7 +847,7 @@ def resolve_train_flash(cfg: LMConfig, device: torch.device) -> bool:
         return False
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return _train_kernels(cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype, device)
+    return all(_train_kernels(n * g, n, cfg.head_dim, cfg.dtype, device) for n, g in cfg.runs)
 
 
 #: weight of the MoE load-balance loss in ``lm_loss`` (``transformer.py:409``)
@@ -797,8 +885,8 @@ def lm_loss(params, batch, cfg: LMConfig, use_flash: Optional[bool] = None):
 def _lm_loss_sharded(params: ShardedTree, tokens, cfg: LMConfig, use_flash: Optional[bool]):
     mesh = params.mesh
     if use_flash is None:
-        local = cfg.tp_local(mesh.shape.get("tp", 1))
-        use_flash = all(resolve_train_flash(local, d) for d in mesh.distinct_devices)
+        use_flash = all(resolve_train_flash(local, d) for local in shard_configs(cfg, mesh)
+                        for d in mesh.distinct_devices)
     targets = tokens[:, 1:]
     outs, lay = _lm_sharded(params, tokens[:, :-1], cfg, True, use_flash,
                             lambda p, x, sl: _nll_sum(_lm_head(p, x),
@@ -855,9 +943,8 @@ def lm_pipeline_params(params, cfg: LMConfig, n_stages: int, mesh: DeviceMesh) -
 
 def shard_pipeline_params(pp_params, mesh: DeviceMesh) -> ShardedTree:
     """A whole ``{embed, ln_f, stages}`` tree (``convert.params_from_jax`` of
-    the reference's ``lm_pipeline_params``) placed over ``mesh``; a mesh
-    that spans processes is refused (the pipeline runs in one process)."""
-    mesh.refuse_spanning(mesh.axis_names, "the pipeline")
+    the reference's ``lm_pipeline_params``) placed over ``mesh`` (this
+    process's shards, over a mesh that spans processes)."""
     specs = {"embed": (), "ln_f": (),
              "stages": stage_param_shardings(mesh, pp_params["stages"])}
     return place_tree(pp_params, mesh, specs)
@@ -877,22 +964,24 @@ def _pipeline_sharded(pp_params: ShardedTree, tokens, cfg: LMConfig, n_micro: in
 
     return pipeline_map(
         stage_fn, pp_params, split_microbatches(tokens, n_micro), stages=lambda p: p["stages"],
-        enter=lambda p, t: p["embed"][token_rows(t, cfg.vocab)], leave=head)
+        enter=lambda p, t: p["embed"][token_rows(t, cfg.vocab)], leave=head,
+        handoff=lambda p, shape, dtype: (shape + p["embed"].shape[1:], p["embed"].dtype))
 
 
 def lm_pipeline_apply(pp_params: ShardedTree, tokens, cfg: LMConfig,
                       mesh: Optional[DeviceMesh] = None, n_micro: int = 4,
                       causal: bool = True, use_flash: bool = False):
-    """Pipelined forward: tokens [B, S] -> logits [B, S, V] f32 on the
-    mesh's first device.  Each stage runs its layers through ``_block``,
-    with the flash kernels when ``use_flash`` (on the card, decided at the
-    stage's shape as one device decides; the reference's stages take the
-    plain attention, since GSPMD cannot partition its Pallas kernel)."""
+    """Pipelined forward: tokens [B, S] -> logits [B, S, V] f32 on this
+    process's first device (every process the same bits).  Each stage runs
+    its layers through ``_block``, with the flash kernels when
+    ``use_flash`` (on the card, decided at the stage's shape as one device
+    decides; the reference's stages take the plain attention, since GSPMD
+    cannot partition its Pallas kernel)."""
     if mesh is not None and mesh is not pp_params.mesh:
         raise ValueError("lm_pipeline_apply: mesh differs from the params' mesh")
     outs = _pipeline_sharded(pp_params, tokens, cfg, n_micro, causal, use_flash,
                              lambda p, y, rows: _lm_head(p, y))
-    dev = pp_params.mesh.device_list[0]
+    dev = pp_params.mesh.first_device
     return merge_microbatches(torch.cat([o.to(dev) for o in outs], dim=1))
 
 
@@ -917,7 +1006,7 @@ def lm_pipeline_loss(pp_params: ShardedTree, batch, cfg: LMConfig,
     outs = _pipeline_sharded(
         pp_params, tokens[:, :-1], cfg, n_micro, True, use_flash,
         lambda p, y, rows: _nll_sum(_lm_head(p, y), rows(targets).to(y.device)))
-    return sum_onto(outs, pmesh.device_list[0]) / targets.numel()
+    return sum_onto(outs, pmesh.first_device) / targets.numel()
 
 
 def lm_pipeline_train_step(pp_params: ShardedTree, opt_state, batch, optimizer,

@@ -75,7 +75,11 @@ fixed order), so every member reads the whole slot list and computes the
 collective from it in flat shard order, exactly as above: the same bits
 as the one-process mesh of the same shape.  The process groups are made
 once, when the mesh is built, in one order on every process.  Every
-member's deposit in a group has the same shapes and dtypes.
+member's deposit in a group has the same shapes and dtypes; a round where
+some members deposit None (a pipeline's bubble ticks) names its senders
+and their deposit's shapes in a ``RoundPlan``, which every process knows
+from its static schedule, and exchanges only the senders' deposits.
+``crossed_bytes`` counts what this process received.
 
 Autograd across processes: the graph is cut at every exchange between
 processes.  Each becomes a ``torch.autograd.Function`` whose backward is
@@ -84,13 +88,14 @@ summed onto their owners (one ``all_reduce`` over the group).  So that
 every process enters every adjoint, in one order, the exchanges of a
 forward are chained by a token (``open_tape``): each takes the previous
 one's token and gives the next, and the backward starts from the last
-token as well as from the result, so it runs the exchanges' adjoints one
-after another, last first, on every process, whichever results the
-process's own loss reads.  Every process holds a copy of a replicated
-result (``collect``); the backward seeds it with 1 on the process that
-owns shard 0 and with 0 on the others (``value_and_grad``), so the
-gradients equal the one-process mesh's: seeding every copy with 1 would
-count the result once per process.
+token as well as from the result and asks for the first token's gradient
+too, so it runs every exchange's adjoint one after another, last first,
+on every process, whichever results the process's own loss reads and
+whether or not this process's deposits reach a parameter.  Every process
+holds a copy of a replicated result (``collect``); the backward seeds it
+with 1 on the process that owns shard 0 and with 0 on the others
+(``value_and_grad``), so the gradients equal the one-process mesh's:
+seeding every copy with 1 would count the result once per process.
 """
 
 from __future__ import annotations
@@ -109,7 +114,7 @@ from torch.autograd.function import once_differentiable
 
 from seldon_core_tpu_torch.tree import tree_leaves, tree_unflatten
 
-__all__ = ["MeshSpec", "DeviceMesh", "Shard", "ShardedTree", "build_mesh",
+__all__ = ["MeshSpec", "DeviceMesh", "Shard", "ShardedTree", "RoundPlan", "build_mesh",
            "local_device_count", "local_devices", "set_cpu_device_count",
            "shard_batch", "current_shard", "axis_size", "axis_index",
            "all_reduce", "all_gather", "gather_slices", "ring_shift",
@@ -267,12 +272,14 @@ class _SharePlan:
     every process the others' entries (one ``all_gather`` of each process's
     entries as bytes, onto ``device``); ``reduce`` sums every process's
     gradients for each entry onto its owner (one ``all_reduce`` a float
-    dtype), the adjoint of ``gather``."""
+    dtype), the adjoint of ``gather``.  ``moved`` is the size of the
+    gathered buffer this process received (its own part included)."""
 
     def __init__(self, procs: Tuple[int, ...], me: int, entries, device: torch.device):
         self.group = _process_group(procs)
         self.procs, self.me, self.entries, self.device = procs, me, entries, device
         self.comm = _comm_device()
+        self.moved = 0
 
     def gather(self, mine: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
         """The entries in order, None for this process's own (``mine``, in
@@ -294,6 +301,7 @@ class _SharePlan:
                                      device=self.comm))
         out = torch.empty(len(self.procs) * width, dtype=torch.uint8, device=self.comm)
         dist.all_gather(list(out.split(width)), torch.cat(parts), group=self.group)
+        self.moved = out.numel()
         out = out.to(self.device)
         got: List[Optional[torch.Tensor]] = []
         for (owner, shape, dtype), off in zip(self.entries, offsets):
@@ -366,6 +374,19 @@ def _flat(deposit) -> Tuple[List[torch.Tensor], Callable[[List[torch.Tensor]], A
                      f"from every shard, got {type(deposit).__name__}")
 
 
+@dataclass(frozen=True)
+class RoundPlan:
+    """What every member of a group deposits in one round, known to every
+    process without asking (a static schedule's): ``sends[r]`` whether the
+    member of rank ``r`` along the axis deposits a tensor (the others
+    deposit None), ``like`` that tensor's (shape, dtype).  A round across
+    processes then exchanges only the senders' tensors, and a process none
+    of whose members sends still knows what it receives."""
+
+    sends: Tuple[bool, ...]
+    like: Tuple[Tuple[int, ...], torch.dtype]
+
+
 @dataclass
 class _CrossGroup:
     """A group of one axis that spans processes: its slots, its members in
@@ -431,6 +452,10 @@ class DeviceMesh:
         self._spans = dict.fromkeys(self.axis_names, False)
         self._cross: Dict[str, List[_CrossGroup]] = {a: [] for a in self.axis_names}
         self._token: Optional[torch.Tensor] = None
+        #: bytes this process received from the exchanges between processes
+        #: (``_SharePlan.moved``) since the mesh was built, by the axis whose
+        #: collective exchanged them ("collect" for ``collect``)
+        self.crossed_bytes: Dict[str, int] = {}
         if self.spans_processes:
             self._join_processes()
 
@@ -500,14 +525,6 @@ class DeviceMesh:
     def spans(self, axis: str) -> bool:
         """Whether ``axis``'s groups cross processes."""
         return self._spans.get(axis, False)
-
-    def refuse_spanning(self, axes: Sequence[str], what: str) -> None:
-        """Raise for ``what`` when one of ``axes`` spans processes: a path
-        the port does not run across processes."""
-        for a in axes:
-            if self.spans(a):
-                raise ValueError(f"{what} across processes is not supported: the mesh's "
-                                 f"{a!r} axis spans processes (mesh {self.shape})")
 
     @property
     def distinct_devices(self) -> List[torch.device]:
@@ -589,12 +606,14 @@ class DeviceMesh:
         if self._aborted:
             raise _Aborted(f"shard {i} stopped: another shard of the run failed")
 
-    def _exchange(self, shard: "Shard", axis: str, t) -> List[Any]:
+    def _exchange(self, shard: "Shard", axis: str, t,
+                  plan: Optional[RoundPlan] = None) -> List[Any]:
         """Deposit ``t`` in this round's slots of the shard's group along
         ``axis``, pass the baton round the ring and take it back: then every
         shard of this process has deposited.  The first shard back fills in
         the other processes' deposits of every group of the axis that spans
-        processes (``_cross_round``)."""
+        processes (``_cross_round``, by ``plan`` when the round has one:
+        every shard of the round passes the same)."""
         i = shard.index
         r = self._rounds[i]
         self._rounds[i] = r + 1
@@ -604,36 +623,59 @@ class DeviceMesh:
         self._take(i)
         if self._cross[axis] and self._crossed < r:
             self._crossed = r
-            self._cross_round(axis, r % 2)
+            self._cross_round(axis, r % 2, plan)
         return slots
 
-    def _cross_round(self, axis: str, parity: int) -> None:
+    def _cross_round(self, axis: str, parity: int, plan: Optional[RoundPlan] = None) -> None:
+        """The other processes' deposits into every group of ``axis`` that
+        spans processes: every member's without a ``plan`` (each deposit
+        shaped like this process's first), else the senders' only (None in
+        the others' slots)."""
         for cg in self._cross[axis]:
             slots = cg.group.slots[parity]
-            like, rebuild = _flat(slots[cg.local_ranks[0]])
-            mine = [t for r in cg.local_ranks for t in _flat(slots[r])[0]]
-            entries = [(self.process_of[m], tuple(t.shape), t.dtype)
-                       for m in cg.members for t in like]
-            got = self._share(cg.procs, entries, mine, like[0].device)
-            k = len(like)
+            if plan is None:
+                sends = [True] * len(cg.members)
+                first, rebuild = _flat(slots[cg.local_ranks[0]])
+                like = [(tuple(t.shape), t.dtype) for t in first]
+            else:
+                sends, like, rebuild = plan.sends, [plan.like], lambda ts: ts[0]
+            mine = []
+            for r in cg.local_ranks:
+                if sends[r]:
+                    ts = _flat(slots[r])[0]
+                    if [(tuple(t.shape), t.dtype) for t in ts] != list(like):
+                        raise ValueError(f"a deposit along {axis!r} across processes is "
+                                         f"{[(tuple(t.shape), t.dtype) for t in ts]}, the round "
+                                         f"expects {list(like)}")
+                    mine += ts
+            entries = [(self.process_of[m], shape, dtype)
+                       for r, m in enumerate(cg.members) if sends[r] for shape, dtype in like]
+            got = iter(self._share(cg.procs, entries, mine,
+                                   self.device_list[cg.members[cg.local_ranks[0]]], axis)
+                       if entries else ())
             for r, m in enumerate(cg.members):
+                part = [next(got) for _ in like] if sends[r] else None
                 if not self.owns(m):
-                    slots[r] = rebuild(got[r * k:(r + 1) * k])
+                    slots[r] = None if part is None else rebuild(part)
 
     def _share(self, procs: Tuple[int, ...], entries, mine: Sequence[torch.Tensor],
-               device: torch.device) -> List[Optional[torch.Tensor]]:
+               device: torch.device, what: str) -> List[Optional[torch.Tensor]]:
         """``_SharePlan.gather``, in the graph (``_ShareFn``, chained by the
-        token) while a tape is open and grad is enabled."""
+        token) while a tape is open and grad is enabled; its bytes counted
+        under ``what``."""
         plan = _SharePlan(procs, self.process, entries, device)
         if torch.is_grad_enabled() and self._token is not None:
             self._token, *got = _ShareFn.apply(plan, self._token, *mine)
+            self.crossed_bytes[what] = self.crossed_bytes.get(what, 0) + plan.moved
             it = iter(got)
             return [None if owner == self.process else next(it) for owner, _, _ in entries]
         if torch.is_grad_enabled() and any(t.requires_grad for t in mine):
             raise RuntimeError("a differentiable collective across processes runs under "
                                "DeviceMesh.value_and_grad (or open_tape): without the "
                                "tape its adjoint would not run on every process")
-        return plan.gather(mine)
+        got = plan.gather(mine)
+        self.crossed_bytes[what] = self.crossed_bytes.get(what, 0) + plan.moved
+        return got
 
     def collect(self, values: Sequence[Any], indices: Sequence[int]) -> List[torch.Tensor]:
         """``values[i]`` (a run's per-shard results) of the shards
@@ -650,7 +692,7 @@ class DeviceMesh:
                                group=_process_group(procs))
         known = {i: m for part in meta for i, m in part.items()}
         got = self._share(procs, [(self.process_of[i], *known[i]) for i in indices],
-                          [values[i] for i in indices if self.owns(i)], dev)
+                          [values[i] for i in indices if self.owns(i)], dev, "collect")
         return [values[i].to(dev) if g is None else g for i, g in zip(indices, got)]
 
     def open_tape(self) -> None:
@@ -676,6 +718,7 @@ class DeviceMesh:
             out = forward()
             return out.detach(), torch.autograd.grad(out, inputs, grad_output, allow_unused=True)
         self.open_tape()
+        start = self._token
         try:
             out = forward()
         finally:
@@ -683,9 +726,13 @@ class DeviceMesh:
         seed = torch.ones_like(out) if grad_output is None else grad_output
         if not self.owns(0):
             seed = torch.zeros_like(seed)
-        grads = torch.autograd.grad([out, token], inputs, [seed, torch.zeros_like(token)],
-                                    allow_unused=True)
-        return out.detach(), grads
+        # the chain's first token is asked for too: autograd runs only the
+        # nodes on a path to an input, and an exchange whose deposits here
+        # reach no parameter (a pipeline stage's bubble tick) would be
+        # skipped on this process and run on the others
+        grads = torch.autograd.grad([out, token], [*inputs, start],
+                                    [seed, torch.zeros_like(token)], allow_unused=True)
+        return out.detach(), grads[:-1]
 
     def map_shards(self, fn: Callable[[Shard], Any]) -> "ShardedTree":
         """``run`` whose per-shard results form a ``ShardedTree``."""
@@ -915,13 +962,13 @@ def only_axes(*axes: str):
         _TLS.only = prev
 
 
-def _exchange(t, axis: str) -> Optional[List[Any]]:
+def _exchange(t, axis: str, plan: Optional[RoundPlan] = None) -> Optional[List[Any]]:
     """The group's tensors of this round along ``axis``, in shard order
     (None outside a shard or on an axis of size 1)."""
     shard = current_shard()
     if shard is None or shard.mesh.shape.get(axis, 1) == 1 or _hidden(axis):
         return None
-    return shard.mesh._exchange(shard, axis, t)
+    return shard.mesh._exchange(shard, axis, t, plan)
 
 
 def axis_size(axis: str) -> int:
@@ -982,13 +1029,15 @@ def _onto(x, device: torch.device):
     return x.to(device)
 
 
-def ring_shift(t, axis: str):
+def ring_shift(t, axis: str, plan: Optional[RoundPlan] = None):
     """``lax.ppermute`` over ``axis`` with the permutation i -> i + 1: the
     calling shard gets the ``t`` of its predecessor along ``axis``
     (cyclically), read onto its device, in one baton round.  ``t`` is a
     tensor, a tuple of tensors (moved together in that one round), or None
-    (a shard with nothing to send; its successor gets None)."""
-    slots = _exchange(t, axis)
+    (a shard with nothing to send; its successor gets None).  Across
+    processes a round where some shards send None needs its ``plan``
+    (``RoundPlan``: who sends, and what), the same on every shard."""
+    slots = _exchange(t, axis, plan)
     if slots is None:
         return t
     return _onto(slots[(axis_index(axis) - 1) % len(slots)], current_shard().device)

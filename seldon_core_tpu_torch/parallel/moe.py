@@ -73,7 +73,7 @@ def moe_init(rng: torch.Generator, cfg: MoEConfig, device=None) -> Dict[str, Any
     F] and ``w2`` [E, F, D] in ``cfg.dtype``, drawn from ``rng`` (a CPU
     generator) in that order with the reference's scales."""
     def normal(shape, fan_in):
-        return torch.randn(shape, generator=rng, dtype=torch.float32) * (fan_in ** -0.5)
+        return torch.randn(shape, generator=rng, dtype=torch.float32).mul_(fan_in ** -0.5)
 
     E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
     return {

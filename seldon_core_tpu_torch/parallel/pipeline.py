@@ -15,6 +15,17 @@ which changes no answer.  The reference then ``psum``s the last stage's
 emits over ``pp``; the port reads them from the last stage's shards
 (``pipeline_map``), the only ones that hold them.
 
+Across processes (a mesh of ``parallel/multihost.py`` whose ``pp`` axis
+spans them) the hand-off of a tick names its senders and the activation's
+shape (``RoundPlan``): stage s sends at tick t exactly when 0 <= t - s <
+n_micro, and every activation has the shape of stage 0's input, so every
+process knows the round without asking and exchanges only the senders'
+tensors.  The last stages' answers then come through
+``DeviceMesh.collect``, so every process holds the same bits.  A tick's
+round is one ``all_gather`` of every process's deposits over the pipeline's
+processes (``DeviceMesh.crossed_bytes`` counts them), where a ring needs
+only the predecessor's: a point-to-point hand-off is a later host lever.
+
 Composes with ``dp``: the microbatch's rows split over ``dp``
 (``x_micro`` [n_micro, mb, ...] split along mb), each ``dp`` group its own
 pipeline.  A stage sees only the ``pp`` and ``dp`` axes (``only_axes``),
@@ -30,12 +41,13 @@ replays the schedule in reverse as the reference's transposed
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from seldon_core_tpu_torch.parallel.mesh import (DeviceMesh, ShardedTree, axis_index, axis_size,
-                                                 lead_shards, only_axes, place_tree, ring_shift)
+from seldon_core_tpu_torch.parallel.mesh import (DeviceMesh, RoundPlan, ShardedTree, axis_index,
+                                                 axis_size, first_shard, lead_shards, only_axes,
+                                                 place_tree, ring_shift)
 from seldon_core_tpu_torch.tree import tree_leaves, tree_map
 
 __all__ = ["stack_stage_params", "stage_param_shardings", "split_microbatches",
@@ -82,11 +94,13 @@ def stage_count(mesh: DeviceMesh, shard_stages, axis: str = "pp") -> int:
 
 
 def pipeline_run(stage_fn: Callable[[Any, Any], Any], params_local, x_local, n_micro: int,
-                 axis: str = "pp") -> Optional[torch.Tensor]:
+                 axis: str = "pp", like=None) -> Optional[torch.Tensor]:
     """The schedule, called inside a shard: ``params_local`` this stage's
     params (leading stage dim of 1 dropped), ``x_local`` [n_micro, mb, ...]
     the microbatches entering stage 0 (read only there).  Returns the last
-    stage's outputs [n_micro, mb, ...] on the last stage, None elsewhere."""
+    stage's outputs [n_micro, mb, ...] on the last stage, None elsewhere.
+    ``like`` (an activation's (shape, dtype), given where ``axis`` spans
+    processes) makes each hand-off's ``RoundPlan``."""
     n, s = axis_size(axis), axis_index(axis)
     if n == 1:
         # degenerate pipeline: single stage, no rotation
@@ -101,7 +115,9 @@ def pipeline_run(stage_fn: Callable[[Any, Any], Any], params_local, x_local, n_m
             if s == n - 1:
                 outs.append(y)
         if t < n_micro + n - 2:  # the last tick hands nothing on
-            carry = ring_shift(y, axis)
+            plan = None if like is None else RoundPlan(
+                tuple(0 <= t - r < n_micro for r in range(n)), like)
+            carry = ring_shift(y, axis, plan)
     return torch.stack(outs) if outs else None
 
 
@@ -109,19 +125,28 @@ def pipeline_map(stage_fn: Callable[[Any, Any], Any], params: ShardedTree, x_mic
                  axis: str = "pp", batch_axis: Optional[str] = "dp",
                  stages: Callable[[Any], Any] = lambda p: p,
                  enter: Callable[[Any, Any], Any] = lambda p, x: x,
-                 leave: Callable[[Any, Any, Callable], Any] = lambda p, y, rows: y) -> List[Any]:
+                 leave: Callable[[Any, Any, Callable], Any] = lambda p, y, rows: y,
+                 handoff: Callable[[Any, Tuple[int, ...], torch.dtype],
+                                   Tuple[Tuple[int, ...], torch.dtype]]
+                 = lambda p, shape, dtype: (shape, dtype)) -> List[Any]:
     """The microbatched pipeline over ``params``' mesh, one pipeline for
     each ``batch_axis`` group, on global ``x_micro`` [n_micro, mb, ...]
     split along mb over ``batch_axis``.  ``stages(p)`` is a shard's placed
     stage tree (its leading stage dim 1), ``enter(p, x)`` maps the group's
     rows to stage 0's input, ``leave(p, y, rows)`` the last stage's outputs
     y [n_micro, mb / groups, ...] to the answer (``rows`` slices a
-    [n_micro, mb, ...] tensor to the group's rows).  Returns ``leave``'s
-    answers, one a group, in ``batch_axis`` order.  Differentiable: the
-    graph runs through every stage."""
+    [n_micro, mb, ...] tensor to the group's rows), and ``handoff(p,
+    shape, dtype)`` the (shape, dtype) ``enter`` gives one microbatch's
+    rows of that shape and dtype, without computing it (every stage needs
+    it where ``axis`` spans processes).  Returns ``leave``'s
+    answers, one a group, in ``batch_axis`` order, on this process's first
+    device (``DeviceMesh.collect``: over a mesh that spans processes every
+    process gets them all, and a train step runs under
+    ``DeviceMesh.value_and_grad``).  Differentiable: the graph runs through
+    every stage."""
     mesh = params.mesh
-    mesh.refuse_spanning(mesh.axis_names, "the pipeline")
-    n = stage_count(mesh, stages(params.shards[0]), axis)
+    n = stage_count(mesh, stages(first_shard(params)), axis)
+    spans = mesh.spans(axis)
     n_micro = x_micro.shape[0]
     dp = mesh.shape.get(batch_axis, 1) if batch_axis is not None else 1
     if x_micro.shape[1] % dp:
@@ -139,18 +164,21 @@ def pipeline_map(stage_fn: Callable[[Any, Any], Any], params: ShardedTree, x_mic
             return t[:, d * mbl:(d + 1) * mbl]
 
         x = enter(p, rows(x_micro).to(shard.device)) if shard.coords[axis] == 0 else None
+        # where the axis spans processes every stage knows a hand-off's
+        # shape: stage 0's input's
+        like = handoff(p, (mbl,) + tuple(x_micro.shape[2:]), x_micro.dtype) if spans else None
         with only_axes(*keep):
-            y = pipeline_run(stage_fn, tree_map(lambda v: v[0], stages(p)), x, n_micro, axis)
+            y = pipeline_run(stage_fn, tree_map(lambda v: v[0], stages(p)), x, n_micro, axis,
+                             like)
         return leave(p, y, rows) if shard.index in leads else None
 
-    outs = mesh.run(body)
-    return [outs[i] for i in leads]
+    return mesh.collect(mesh.run(body), leads)
 
 
 def pipeline_apply(stage_fn: Callable[[Any, Any], Any], stacked_params, x_micro, *,
                    mesh: DeviceMesh, axis: str = "pp", batch_axis: Optional[str] = "dp"):
     """The microbatched pipeline on global ``x_micro`` [n_micro, mb, ...];
-    returns outputs shaped like it, on the mesh's first device.
+    returns outputs shaped like it, on this process's first device.
     ``stacked_params`` is a stacked stage tree (placed here by
     ``stage_param_shardings``) or a ``ShardedTree`` already placed so.
     Differentiable: the graph runs through every stage."""
@@ -158,5 +186,5 @@ def pipeline_apply(stage_fn: Callable[[Any, Any], Any], stacked_params, x_micro,
         stacked_params = place_tree(stacked_params, mesh,
                                     stage_param_shardings(mesh, stacked_params, axis))
     outs = pipeline_map(stage_fn, stacked_params, x_micro, axis=axis, batch_axis=batch_axis)
-    dev = mesh.device_list[0]
+    dev = mesh.first_device
     return torch.cat([o.to(dev) for o in outs], dim=1)

@@ -174,6 +174,7 @@ from seldon_core_tpu_torch.models.generate import (
     paged_write_prefix_tail,
     sample_token,
 )
+from seldon_core_tpu_torch.models.transformer import shard_configs
 from seldon_core_tpu_torch.ops.flash_decode import probe_paged_decode_kernel
 from seldon_core_tpu_torch.parallel.mesh import first_shard
 from seldon_core_tpu_torch.ops.kv_write import probe_kv_write_paged
@@ -475,17 +476,17 @@ class GenServer:
             # The decode kernel at the head shape the lane decodes (the
             # draft's in speculative mode), the write at every pool's
             # (int8 pools probe the int8-K/V variants)
-            # (over a mesh at one shard's heads, on every device of it)
+            # (over a mesh at every shard's heads, one probe a run of one
+            # group size, on every device of it)
             decoder = draft_cfg if self.spec else cfg
-            tp = 1 if mesh is None else mesh.shape.get("tp", 1)
             for dev in [self.device] if mesh is None else mesh.distinct_devices:
-                local = decoder.tp_local(tp)
-                probe_paged_decode_kernel(local.kv_heads, local.n_heads // local.kv_heads,
-                                          local.head_dim, local.dtype, dev,
-                                          self.block_size, _kv_dtype(local))
+                for local in shard_configs(decoder, mesh):
+                    for n, g in local.runs:
+                        probe_paged_decode_kernel(n, g, local.head_dim, local.dtype, dev,
+                                                  self.block_size, _kv_dtype(local))
                 for c in (cfg, draft_cfg) if self.spec else (cfg,):
-                    c = c.tp_local(tp)
-                    probe_kv_write_paged(c.kv_heads, c.head_dim, c.dtype, dev, _kv_dtype(c))
+                    for c in shard_configs(c, mesh):
+                        probe_kv_write_paged(c.kv_heads, c.head_dim, c.dtype, dev, _kv_dtype(c))
         self._allocator = BlockAllocator(self.num_blocks)
         self._draft_allocator = BlockAllocator(self.num_blocks) if self.spec else None
         self._pool = None
@@ -1530,7 +1531,7 @@ class GenServer:
             tier=seq.request.tier)
         # on the scheduler thread, after the tick's mesh run has returned:
         # every shard's kernels are queued ahead of the reads on its device
-        layers = kvstream.export_blocks(self._pool, seq.blocks, kv)
+        layers = kvstream.export_blocks(self._pool, seq.blocks, kv, self.cfg.n_heads)
         export = kvstream.KvExport(meta=meta, layers=layers, tenant=seq.request.tenant)
         # the hand-off span's identity is minted now: its traceparent rides
         # every frame's sidecar, so the decode side's spans parent under an
@@ -1697,7 +1698,7 @@ class GenServer:
         n = 0
         while self._remote_arrivals:
             imp = self._remote_arrivals.popleft()
-            kvstream.scatter_staged(self._pool, imp.blocks, imp.staged)
+            kvstream.scatter_staged(self._pool, imp.blocks, imp.staged, self.cfg.n_heads)
             self._allocator.commit_reserved(imp.blocks)
             seq = imp.seq
             seq.blocks = list(imp.blocks)

@@ -152,15 +152,16 @@ def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def export_blocks(pool, blocks: List[int], kv_heads: Optional[int] = None
-                  ) -> List[Dict[str, np.ndarray]]:
+def export_blocks(pool, blocks: List[int], kv_heads: int,
+                  n_heads: int) -> List[Dict[str, np.ndarray]]:
     """``blocks`` of every layer of a port pool, read back to host arrays
     in the wire's layout: ``[n, bs, KV, hd]``, scales ``[n, bs, KV]``.  A
     ``ShardedTree`` pool (a generator over a mesh) answers the same arrays
     at the whole pool's ``kv_heads``: each kv head read once, from the
     first shard that holds it along ``tp`` (every other coordinate 0;
-    ``models/transformer.py`` ``kv_heads_held``), the heads concatenated in
-    order; no whole pool is built on a device."""
+    ``models/transformer.py`` ``kv_heads_held`` at the model's
+    ``n_heads``), the heads concatenated in order; no whole pool is built
+    on a device."""
     from seldon_core_tpu_torch.models.transformer import kv_heads_held
     from seldon_core_tpu_torch.parallel.mesh import ShardedTree, lead_shards
 
@@ -168,7 +169,7 @@ def export_blocks(pool, blocks: List[int], kv_heads: Optional[int] = None
         return _export_layers(pool, blocks, 0, pool["l0"]["k"].shape[1])
     reads, nxt = [], 0
     for i in lead_shards(pool.mesh, ("tp",)):
-        lo, hi = kv_heads_held(kv_heads, pool.mesh, i)
+        lo, hi = kv_heads_held(kv_heads, pool.mesh, i, n_heads)
         if hi > nxt:  # heads not read yet: nxt..hi-1, all on this shard
             reads.append((i, nxt - lo, hi - lo))
             nxt = hi
@@ -185,12 +186,13 @@ def _export_layers(pool, blocks: List[int], a: int, b: int) -> List[Dict[str, np
              for name, t in pool[f"l{li}"].items()} for li in range(len(pool))]
 
 
-def scatter_staged(pool, local_blocks: List[int], staged: List[Dict[str, np.ndarray]]):
+def scatter_staged(pool, local_blocks: List[int], staged: List[Dict[str, np.ndarray]],
+                   n_heads: int):
     """Write a fully staged import (wire layout, the whole pool's kv heads)
     into the pool's blocks ``local_blocks``, in place.  A ``ShardedTree``
     pool takes each kv head into every shard that holds it
-    (``kv_heads_held``), int8 scale planes too.  Runs on the
-    scheduler thread only: the pool has one owner."""
+    (``kv_heads_held``, with the model's ``n_heads``), int8 scale planes
+    too.  Runs on the scheduler thread only: the pool has one owner."""
     from seldon_core_tpu_torch.models.transformer import kv_heads_held
     from seldon_core_tpu_torch.parallel.mesh import ShardedTree
 
@@ -199,7 +201,8 @@ def scatter_staged(pool, local_blocks: List[int], staged: List[Dict[str, np.ndar
         _scatter_layers(pool, local_blocks, staged, 0, kv)
         return pool
     for i in pool.mesh.owned:
-        _scatter_layers(pool.shards[i], local_blocks, staged, *kv_heads_held(kv, pool.mesh, i))
+        _scatter_layers(pool.shards[i], local_blocks, staged,
+                        *kv_heads_held(kv, pool.mesh, i, n_heads))
     return pool
 
 

@@ -28,9 +28,11 @@ its own pool and process.
   binding's ``mesh_axes``, ``graph/units.py``): its K/V heads over ``tp``
   by ``kv_head_range`` (``models/transformer.py`` ``tp_local``), so each
   shard holds the blocks of the kv heads its query heads read beside its
-  params (``param_shardings``); a head is held by every shard of its
-  group when ``tp`` is a multiple of the kv heads, and a ``tp`` that
-  neither divides nor is a multiple of them is refused.  Either role runs over such a mesh: the hand-off reads
+  params (``param_shardings``); a head is held by every shard whose query
+  heads read it: every shard of its group when ``tp`` is a multiple of the
+  kv heads, both neighbours when ``tp`` neither divides nor is a multiple
+  of them and its readers lie on two shards (whose pools then hold
+  different numbers of heads).  Either role runs over such a mesh: the hand-off reads
   each head once and writes it into every shard that holds it
   (``kvstream.export_blocks``, ``scatter_staged``).  The reference's
   ``resolve_gen_mesh`` (a mesh built from an env knob, called by no code of
@@ -112,11 +114,12 @@ def shard_gen_pool(mesh, cfg, num_blocks: int, block_size: int):
     ``cfg.for_shard``: per layer {k, v} ``[num_blocks, KV_local,
     block_size, hd]``, an int8 pool's scale planes ``[num_blocks,
     KV_local, block_size]``); no whole pool is built.  Shard ``i`` holds
-    the kv heads ``kv_heads_held`` names (its block of them when ``tp``
-    divides them; the one head its query heads read, held by each shard
-    of its group, when ``tp`` is a multiple of them); any other ``tp``
-    is refused.  The reference replicates the pool unless ``tp`` divides
-    the heads."""
+    the kv heads ``kv_heads_held`` names: those its query heads read (its
+    block of them when ``tp`` divides them; the one head of its group when
+    ``tp`` is a multiple of them; otherwise the heads its query heads
+    span, a head on two shards held by both, so shards may hold different
+    counts).  The reference replicates the pool unless ``tp`` divides the
+    heads."""
     from seldon_core_tpu_torch.models.generate import init_block_pool
 
     return mesh.map_shards(lambda sh: init_block_pool(cfg.for_shard(sh), num_blocks,

@@ -1,6 +1,7 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py or the turns scripts (paged_decode_turns.py, mlp_turns.py,
-paged_f32_turns.py, int8_decode_turns.py, kv_write_turns.py), imports JAX or anything of
+paged_f32_turns.py, int8_decode_turns.py, kv_write_turns.py, multihost_turns.py,
+policies_turns.py), imports JAX or anything of
 the JAX package, nor aiohttp, grpc, google.protobuf, ml_dtypes or
 prometheus_client (its lanes are stdlib: the HTTP client and servers,
 HTTP/2 and HPACK, the protobuf codec, bf16 by bit pattern, the
@@ -63,11 +64,12 @@ def _port_files():
             "native/_build.py", "runtime/nativeplane.py", "parallel/moe.py",
             "runtime/kvstream.py", "runtime/servingmesh.py", "parallel/mesh.py",
             "parallel/ensemble.py", "graph/sharding.py", "parallel/ring_attention.py",
-            "parallel/pipeline.py", "parallel/multihost.py", "testing/faults.py"} <= names
+            "parallel/pipeline.py", "parallel/multihost.py", "testing/faults.py",
+            "operator/manifests.py", "operator/packaging.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py",
-                                             "multihost_turns.py")]
+                                             "multihost_turns.py", "policies_turns.py")]
 
 
 def _imports(tree):
@@ -403,6 +405,53 @@ print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarr
                   "lanes": lanes, "obs": obs, "native": native, "handoff": handoff,
                   "moe": moe, "multihost": mh, "leaked": leaked}))
 """
+
+
+def test_the_operator_modules_import_no_yaml():
+    """The renderer and packager need no YAML library (the card's machine
+    has none): their stream is JSON documents, their one YAML text a small
+    emitter's."""
+    bad = []
+    for path in sorted((ROOT / "seldon_core_tpu_torch" / "operator").glob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad += [f"{path.relative_to(ROOT)}:{line} {name}" for line, name in _imports(tree)
+                if name.split(".")[0] == "yaml"]
+    assert bad == []
+
+
+_RENDER_WITH_JAX_BLOCKED = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in ("jax", "seldon_core_tpu", "yaml")):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+from seldon_core_tpu_torch.operator import generate_manifests, to_yaml_stream
+
+spec = json.load(open("examples/generator_tp_deployment.json"))
+spec["spec"]["annotations"] = {"seldon.io/shard-graph": "true"}
+docs = generate_manifests(SeldonDeploymentSpec.from_json_dict(spec))
+stream = to_yaml_stream(docs)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "seldon_core_tpu", "yaml"))
+limits = docs[0]["spec"]["template"]["spec"]["containers"][0]["resources"]["limits"]
+print(json.dumps({"docs": [d["kind"] for d in docs], "limits": limits,
+                  "stream": stream.count("---"), "leaked": leaked}))
+"""
+
+
+def test_the_port_renders_manifests_with_jax_and_yaml_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _RENDER_WITH_JAX_BLOCKED], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == (
+        '{"docs": ["Deployment", "Service"], "limits": {"nvidia.com/gpu": "4"}, '
+        '"stream": 1, "leaked": []}')
 
 
 def test_port_serves_with_jax_blocked():

@@ -402,8 +402,13 @@ def test_gen_pool_layout_matches_reference(devices8):
     heads read: the reference's pool narrowed to ``kv_head_range``.  The
     genserver's pool (``shard_gen_pool``, allocated by shard) has each
     shard's blocks at the same shape, dtype and device.  Where ``tp``
-    neither divides nor is a multiple of the heads (3 over ``tp=2``) the
-    reference replicates the pool and the port refuses both."""
+    neither divides nor is a multiple of the heads (3 over ``tp=2`` at 6
+    query heads) the reference replicates the pool and each port shard
+    holds the kv heads its query heads read, kv head 1 on both: the
+    reference's pool narrowed to ``kv_head_range`` at the query heads
+    (shard 0 heads 0-1, shard 1 heads 1-2); the genserver's pool refuses
+    the int8 cache there (its runs' scale planes would not be contiguous)
+    and is laid out so for a float one."""
     from seldon_core_tpu.runtime import servingmesh as jsm
     from seldon_core_tpu_torch.models.generate import init_block_pool
     from seldon_core_tpu_torch.models.transformer import (LMConfig, kv_head_range,
@@ -425,27 +430,27 @@ def test_gen_pool_layout_matches_reference(devices8):
         jplaced = jsm.shard_gen_pool(jm, jpool)
         port = {"l0": {"k": torch.from_numpy(jpool["l0"]["k"]).permute(0, 2, 1, 3).contiguous(),
                        "k_s": torch.from_numpy(jpool["l0"]["k_s"]).permute(0, 2, 1).contiguous()}}
-        if kv % tp and tp % kv:
-            for shard in jplaced["l0"]["k"].addressable_shards:
-                assert np.asarray(shard.data).shape[2] == kv  # the reference's copy is whole
-            for place in (lambda: shard_kv_heads(port, pm),
-                          lambda: psm.shard_gen_pool(pm, cfg, 6, 8)):
-                with pytest.raises(ValueError, match=r"\[6b-kv\] part 2"):
-                    place()
-            continue
-        placed = shard_kv_heads(port, pm)
+        uneven = bool(kv % tp and tp % kv)
+        if uneven:
+            with pytest.raises(ValueError, match="kv_quant='int8' .* unequal groups"):
+                psm.shard_gen_pool(pm, cfg, 6, 8)
+            cfg = LMConfig(vocab=16, d_model=16 * heads, n_heads=heads, n_kv_heads=kv,
+                           n_layers=1, d_ff=32, dtype=torch.float32)
+        placed = shard_kv_heads(port, pm, heads)
         for name in ("k", "k_s"):
             for shard in jplaced["l0"][name].addressable_shards:
                 want = np.asarray(shard.data)
                 if kv % tp:
-                    lo, hi = kv_head_range(kv, tp, pm.coords(shard.device.id)["tp"])
+                    lo, hi = kv_head_range(kv, tp, pm.coords(shard.device.id)["tp"], heads)
                     assert want.shape[2] == kv  # the reference's copy is whole
                     want = want[:, :, lo:hi]
                 want = want.transpose(0, 2, 1, 3) if name == "k" else want.transpose(0, 2, 1)
                 got = placed.shards[shard.device.id]["l0"][name].numpy()
                 assert np.array_equal(got, want), (kv, name, shard.device.id)
         served = psm.shard_gen_pool(pm, cfg, 6, 8)
-        laid = shard_kv_heads(init_block_pool(cfg, 6, 8, "cpu"), pm)
+        laid = shard_kv_heads(init_block_pool(cfg, 6, 8, "cpu"), pm, heads)
+        if uneven:
+            assert [s["l0"]["k"].shape[1] for s in served.shards] == [2] * 4
         for got, want in zip(served.shards, laid.shards):
             assert got.keys() == want.keys() == {"l0"}
             for name, t in want["l0"].items():

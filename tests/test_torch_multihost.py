@@ -12,8 +12,9 @@ the JAX package's ``lm_init`` weights across (``convert.params_from_jax``,
 ``save_lm_weights``); each worker runs every case over a global mesh and
 writes its shards' results to an ``.npz``.  The parent holds them against
 the port's one-process mesh of the same shape (the collectives, the
-logits, the ring's forward and backward, the step-0 loss: bit for bit;
-step-0 gradients within 1e-6 relative) and against the JAX package.
+logits, the ring's forward and backward, the pipeline over ``pp`` and MoE
+experts over ``ep``, the step-0 loss: bit for bit; step-0 gradients within
+1e-6 relative) and against the JAX package.
 """
 
 import json
@@ -112,6 +113,38 @@ def train_step0(mesh, params, tokens, cfg):
     return {"loss": loss.numpy(), **owned_leaves(cap.grads, "g")}
 
 
+def pipeline_cases(mesh, params, cfg):
+    """The GPipe pipeline over ``pp``: the logits of 2 microbatches and
+    step 0's loss and gradients (every stage's leaves, the replicated
+    embedding's and final norm's copies summed)."""
+    from seldon_core_tpu_torch.models import transformer as ttr
+    from seldon_core_tpu_torch.optim import grad_update
+    from seldon_core_tpu_torch.parallel.mesh import ShardedTree
+
+    pp = ttr.lm_pipeline_params(params, cfg, mesh.shape["pp"], mesh)
+    out = {"logits": ttr.lm_pipeline_apply(pp, torch.from_numpy(_tokens(1, TOKENS)), cfg,
+                                           n_micro=2).numpy()}
+    cap = Capture()
+    _, _, loss = grad_update(
+        lambda p, b: ttr.lm_pipeline_loss(p, b, cfg, n_micro=2), pp,
+        ShardedTree(mesh, [None] * mesh.size),
+        {"tokens": torch.from_numpy(_tokens(2, TRAIN_TOKENS))}, cap)
+    return {**out, "loss": loss.numpy(), "crossed": np.array(mesh.crossed_bytes.get("pp", 0)),
+            **owned_leaves(cap.grads, "g")}
+
+
+def moe_cases(mesh, params, cfg):
+    """MoE layers with their experts over ``ep``: the logits, a static
+    generator's greedy tokens, and step 0's loss and gradients."""
+    from seldon_core_tpu_torch.models import generate as gm
+    from seldon_core_tpu_torch.models import transformer as ttr
+
+    placed = ttr.shard_params(params, mesh)
+    toks = gm.generate(placed, torch.from_numpy(_tokens(3, (2, 5))), cfg, max_new_tokens=4)
+    return {"logits": lm_logits(mesh, params, _tokens(1, TOKENS), cfg), "tokens": toks.numpy(),
+            **train_step0(mesh, params, _tokens(2, TRAIN_TOKENS), cfg)}
+
+
 def seeded_everywhere(mesh, params, tokens, cfg):
     """The gradients of ``lm_loss`` when every process seeds its copy of
     the loss with 1 (what ``DeviceMesh.value_and_grad`` does not do),
@@ -187,6 +220,8 @@ MESHES = {
     "dp2_tp2": ({"tp": 2}, {"dp": 2}),   # hybrid: dp over processes, tp inside
     "dp4": ({"dp": 4}, None),
     "ens4": ({"ens": 4}, None),
+    "pp4": ({"pp": 4}, None),            # two stages on each process
+    "ep4": ({"ep": 4}, None),            # one expert of four on each shard
 }
 
 
@@ -217,6 +252,15 @@ def run_cases(make_mesh, weights_path):
     out["logits/tp4_kv2"] = lm_logits(make_mesh("tp4"), gp, _tokens(1, TOKENS), gqa)
     out.update({f"train/tp4_kv2/{k}": v for k, v in
                 train_step0(make_mesh("tp4"), gp, _tokens(2, TRAIN_TOKENS), gqa).items()})
+    # four layers, one a stage over pp=4 (stages 0-1 on process 0, 2-3 on 1)
+    deep = _lm_cfg(n_layers=4)
+    dp_ = ttr.lm_init(torch.Generator().manual_seed(2), deep, "cpu")
+    out.update({f"pipeline/pp4/{k}": v for k, v in
+                pipeline_cases(make_mesh("pp4"), dp_, deep).items()})
+    # every layer MoE, 4 experts top 2, one expert a shard over ep=4
+    moe = _lm_cfg(moe_every=1, n_experts=4)
+    mp = ttr.lm_init(torch.Generator().manual_seed(4), moe, "cpu")
+    out.update({f"moe/ep4/{k}": v for k, v in moe_cases(make_mesh("ep4"), mp, moe).items()})
     out.update({f"mnist/dp4/{k}": v for k, v in mnist_steps(make_mesh("dp4")).items()})
     out["ensemble/ens4"] = ensemble(make_mesh("ens4"))
     return out
@@ -603,10 +647,52 @@ def test_mnist_dp_steps_across_processes(one_process, two_processes):
         assert (diff > 1e-2 * MNIST_LR).mean() <= 1e-3, k
 
 
+def test_pipeline_across_processes(one_process, two_processes):
+    """The GPipe pipeline over a pp=4 that spans the processes (two stages
+    on each, the hand-off of stage 1 to stage 2 crossing): its bubble
+    ticks send nothing, and a tick's round names its senders
+    (``RoundPlan``).  The logits and the step-0 loss on both processes are
+    the one-process mesh's bits; every stage's step-0 gradients (the
+    activations' gradients back through the crossing's adjoint) within
+    1e-6 relative of it.  Each process's hand-offs over ``pp`` received
+    bytes (``DeviceMesh.crossed_bytes``), the one-process mesh's none."""
+    _, want = one_process
+    for pid in range(2):
+        np.testing.assert_array_equal(two_processes.at("pipeline/pp4/logits", pid),
+                                      want["pipeline/pp4/logits"])
+        assert two_processes.at("pipeline/pp4/loss", pid) == want["pipeline/pp4/loss"]
+        assert int(two_processes.at("pipeline/pp4/crossed", pid)) > 0
+    assert int(want["pipeline/pp4/crossed"]) == 0
+    keys = _keys(want, "pipeline/pp4/g/")
+    assert len(keys) == 4 * (2 + 6)  # embed, ln_f and a stage's six leaves on each shard
+    for k in keys:
+        assert _rel(two_processes[k], want[k]) <= 1e-6, k
+
+
+def test_moe_experts_over_ep_across_processes(one_process, two_processes):
+    """MoE layers whose four experts lie one a shard over an ep=4 that
+    spans the processes: the routing, capacity and load-balance loss are
+    computed on every shard, the experts' products joined by an
+    ``all_gather`` that crosses.  The logits, a static generator's greedy
+    tokens and the step-0 loss on both processes are the one-process
+    mesh's bits; every shard's step-0 gradients (its experts' through the
+    gather's adjoint, ``_SharePlan.reduce``) within 1e-6 relative."""
+    _, want = one_process
+    for pid in range(2):
+        for name in ("logits", "tokens", "loss"):
+            np.testing.assert_array_equal(two_processes.at(f"moe/ep4/{name}", pid),
+                                          want[f"moe/ep4/{name}"], err_msg=name)
+    keys = _keys(want, "moe/ep4/g/")
+    assert len(keys) == 4 * (2 * 7 + 2)  # a layer: ln1, wqkv, wo, ln2 and moe wg, w1, w2
+    assert any(np.abs(want[k]).max() > 0 for k in keys if k.endswith("['w1']"))
+    for k in keys:
+        assert _rel(two_processes[k], want[k]) <= 1e-6, k
+
+
 def test_spanning_paths_refused_at_construction(monkeypatch):
-    """A path not run across processes (the pipeline, MoE experts over
-    ``ep``, the continuous lane) raises at construction on a mesh that
-    spans processes, in the port's words."""
+    """The continuous lane raises at construction on a mesh that spans
+    processes, in the port's words; the pipeline's params and an MoE unit
+    over such a mesh (its ``pp`` or ``ep`` axis spanning) are built."""
     from seldon_core_tpu_torch.models import generate as gm
     from seldon_core_tpu_torch.models import transformer as ttr
     from seldon_core_tpu_torch.runtime.genserver import GenServer
@@ -621,14 +707,14 @@ def test_spanning_paths_refused_at_construction(monkeypatch):
     assert mesh.spans("pp") and not mesh.spans("ep") and mesh.owned == [0, 1]
     assert made == []  # every group of two processes is the default group
     cfg = ttr.LMConfig(**DIMS, dtype=torch.float32)
-    with pytest.raises(ValueError, match="the pipeline across processes .* 'pp' axis spans"):
-        ttr.shard_pipeline_params({"embed": torch.zeros(1), "ln_f": torch.zeros(1),
-                                   "stages": {}}, mesh)
+    placed = ttr.shard_pipeline_params({"embed": torch.zeros(1), "ln_f": torch.zeros(1),
+                                        "stages": {"w": torch.zeros(2, 3)}}, mesh)
+    assert placed.shards[2:] == [None, None] and placed.shards[0]["stages"]["w"].shape == (1, 3)
     ep = pmesh.DeviceMesh(devs.reshape(1, 4), ("tp", "ep"),
                           process_of=np.array([[0, 0, 1, 1]]))
-    with pytest.raises(ValueError, match="MoE layers across processes .* 'ep' axis spans"):
-        ttr.TransformerLM(**DIMS, dtype="float32", moe_every=1, n_experts=4, mesh=ep,
-                          device="cpu")
+    unit = ttr.TransformerLM(**DIMS, dtype="float32", moe_every=1, n_experts=4, mesh=ep,
+                             device="cpu")
+    assert unit.mesh is ep and ep.spans("ep")
     with pytest.raises(ValueError, match="continuous lane over a mesh that spans processes"):
         GenServer({}, cfg, mesh=ep)
     gen = gm.TransformerGenerator(**DIMS, dtype="float32", mesh=ep, device="cpu")

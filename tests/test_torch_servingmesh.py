@@ -576,7 +576,7 @@ def test_a_pool_exports_in_the_wire_layout_and_scatters_back(dtype, kv_quant):
                 t.copy_(torch.randint(-127, 128, t.shape, generator=g, dtype=torch.int8))
             else:
                 t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
-    out = kvstream.export_blocks(pool, [3, 1])
+    out = kvstream.export_blocks(pool, [3, 1], cfg.kv_heads, cfg.n_heads)
     for li, layer in enumerate(out):
         for nm, arr in layer.items():
             src = pool[f"l{li}"][nm][[3, 1]].transpose(1, 2)
@@ -586,7 +586,7 @@ def test_a_pool_exports_in_the_wire_layout_and_scatters_back(dtype, kv_quant):
             np.testing.assert_array_equal(arr, np.asarray(src))
     assert out[0]["k"].shape == (2, 4, 2, 16)
     fresh = init_block_pool(cfg, 8, 4, "cpu")
-    kvstream.scatter_staged(fresh, [5, 6], out)
+    kvstream.scatter_staged(fresh, [5, 6], out, cfg.n_heads)
     for li in range(2):
         for nm in pool[f"l{li}"]:
             assert torch.equal(fresh[f"l{li}"][nm][[5, 6]].view(torch.uint8),
@@ -617,22 +617,59 @@ def test_a_sharded_pool_exports_each_head_once_and_scatters_into_every_copy(axes
             t.copy_(torch.randint(-127, 128, t.shape, generator=g, dtype=torch.int8)
                     if t.dtype == torch.int8 else torch.randn(t.shape, generator=g))
     mesh = build_mesh(axes, devices=["cpu"] * (2 if axes == {"tp": 2} else 4))
-    pool = shard_kv_heads(whole, mesh)
-    want = kvstream.export_blocks(whole, [3, 1])
-    got = kvstream.export_blocks(pool, [3, 1], kv)
+    pool = shard_kv_heads(whole, mesh, heads)
+    want = kvstream.export_blocks(whole, [3, 1], kv, heads)
+    got = kvstream.export_blocks(pool, [3, 1], kv, heads)
     for w, o in zip(want, got):
         assert w.keys() == o.keys()
         for nm in w:
             np.testing.assert_array_equal(o[nm], w[nm])
     fresh = shard_gen_pool(mesh, cfg, 8, 4)
-    kvstream.scatter_staged(fresh, [5, 6], got)
+    kvstream.scatter_staged(fresh, [5, 6], got, heads)
     tp = mesh.shape["tp"]
     for i, shard in enumerate(fresh.shards):
-        lo, hi = kv_head_range(kv, tp, mesh.coords(i)["tp"])
+        lo, hi = kv_head_range(kv, tp, mesh.coords(i)["tp"], heads)
         for li in range(2):
             for nm, t in shard[f"l{li}"].items():
                 assert t.shape[1] == hi - lo
                 assert torch.equal(t[[5, 6]], whole[f"l{li}"][nm][[3, 1]][:, lo:hi]), (i, nm)
+
+
+def test_an_uneven_tp_pool_exports_each_head_once_and_scatters_into_both_copies():
+    """40 heads over 10 kv heads at ``{"tp": 4}``: each shard's pool
+    (``shard_gen_pool``) holds the three kv heads its query heads read,
+    kv heads 2 and 7 on two shards each (``kv_heads_held`` with the query
+    heads).  A sharded pool exports the whole pool's wire arrays, each
+    head read once, and a scatter into the genserver's pool writes each
+    shared head into both shards that hold it."""
+    from seldon_core_tpu_torch.models.transformer import (LMConfig, kv_head_range,
+                                                           shard_kv_heads)
+    from seldon_core_tpu_torch.parallel.mesh import build_mesh
+    from seldon_core_tpu_torch.runtime.servingmesh import shard_gen_pool
+
+    cfg = LMConfig(vocab=16, d_model=320, n_heads=40, n_kv_heads=10, n_layers=2, d_ff=32,
+                   dtype=torch.float32)
+    whole = init_block_pool(cfg, 8, 4, "cpu")
+    g = torch.Generator().manual_seed(2)
+    for layer in whole.values():
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, generator=g))
+    mesh = build_mesh({"tp": 4}, devices=["cpu"] * 4)
+    pool = shard_kv_heads(whole, mesh, cfg.n_heads)
+    assert [(s["l0"]["k"].shape[1]) for s in pool.shards] == [3] * 4
+    want = kvstream.export_blocks(whole, [3, 1], cfg.kv_heads, cfg.n_heads)
+    got = kvstream.export_blocks(pool, [3, 1], cfg.kv_heads, cfg.n_heads)
+    for w, o in zip(want, got):
+        for nm in w:
+            np.testing.assert_array_equal(o[nm], w[nm])
+    fresh = shard_gen_pool(mesh, cfg, 8, 4)
+    kvstream.scatter_staged(fresh, [5, 6], got, cfg.n_heads)
+    held = [kv_head_range(10, 4, t, 40) for t in range(4)]
+    assert held == [(0, 3), (2, 5), (5, 8), (7, 10)]
+    for (lo, hi), shard in zip(held, fresh.shards):
+        for li in range(2):
+            for nm, t in shard[f"l{li}"].items():
+                assert torch.equal(t[[5, 6]], whole[f"l{li}"][nm][[3, 1]][:, lo:hi]), (lo, nm)
 
 
 def test_geometry_mismatch_refused_typed():
@@ -873,7 +910,8 @@ def test_a_prefill_replica_sheds_a_budget_below_its_chain(autopilot, monkeypatch
 # -- either role over a tensor-parallel mesh ([6b-disagg]) ---------------------------
 
 _DIMS = {"mha": dict(n_heads=2, n_kv_heads=0, d_model=32),
-         "gqa": dict(n_heads=8, n_kv_heads=2, d_model=64)}
+         "gqa": dict(n_heads=8, n_kv_heads=2, d_model=64),
+         "uneven": dict(n_heads=40, n_kv_heads=10, d_model=320)}
 
 
 @pytest.fixture(scope="module")
@@ -905,16 +943,20 @@ def _replica(name, params, axes, role, coordinator=None):
 
 
 @pytest.mark.parametrize("name,prefill_axes,decode_axes", [
-    ("mha", None, {"tp": 2}), ("mha", {"tp": 2}, None), ("gqa", None, {"tp": 4})],
-    ids=["decode_tp2", "prefill_tp2", "decode_tp4_kv2"])
+    ("mha", None, {"tp": 2}), ("mha", {"tp": 2}, None), ("gqa", None, {"tp": 4}),
+    ("uneven", None, {"tp": 4}), ("uneven", {"tp": 4}, None)],
+    ids=["decode_tp2", "prefill_tp2", "decode_tp4_kv2", "decode_tp4_uneven",
+         "prefill_tp4_uneven"])
 def test_mesh_disagg_composes(name, prefill_axes, decode_axes, _reference_unified):
     """``tests/test_servingmesh.py::test_mesh_disagg_composes`` on the
     port, with the reference unit's weights: a decode replica over ``tp=2``
     imports a one-device prefill's hand-off, a prefill replica over
     ``tp=2`` feeds a one-device decode replica, and a decode replica over
     ``tp=4`` at 8 heads and 2 kv heads (each head on the two shards of its
-    group) does the same; each answers the reference's f32 greedy tokens
-    bit for bit."""
+    group) does the same, and so do a decode and a prefill replica over
+    ``tp=4`` at 40 heads and 10 kv heads (kv heads 2 and 7 shared by two
+    shards: the hand-off reads each once and writes it into both); each
+    answers the reference's f32 greedy tokens bit for bit."""
     params, want = _reference_unified[name]
     decode = _replica(name, params, decode_axes, "decode")
     prefill = _replica(name, params, prefill_axes, "prefill", LoopbackCoordinator(decode))

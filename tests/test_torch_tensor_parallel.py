@@ -3,9 +3,11 @@
 ``models/generate.py`` and ``runtime/genserver.py`` over a mesh) against
 the JAX package on 8 CPU devices: every port shard of the tp and ep
 layout is the reference array's block on that device; ``TransformerLM``
-over ``{"tp": 4}``, ``{"dp": 2, "tp": 2}`` and a ``tp`` that is a multiple
-of the kv heads (``{"tp": 8}`` over 4) gives the reference's logits within
-3e-4 (``test_parallel.py:139``); the MoE layer over ``ep``
+over ``{"tp": 4}``, ``{"dp": 2, "tp": 2}``, a ``tp`` that is a multiple
+of the kv heads (``{"tp": 8}`` over 4) and one that neither divides nor is
+a multiple of them (40 heads over 10 at ``{"tp": 4}``, 12 over 4 at
+``{"tp": 6}``) gives the reference's logits within 3e-4
+(``test_parallel.py:139``); the MoE layer over ``ep``
 equals the unsharded layer within 1e-5 (``test_moe.py:72``); and the two
 multi-device examples served by both engines give identical f32 greedy
 tokens, with the reference's ``genserver.mesh`` in ``/stats``."""
@@ -128,9 +130,9 @@ def test_a_split_leaf_holds_only_its_block(axes, quant):
     assert n_split >= 4
 
 
-def _lm_pair(axes, quant="none", n_heads=4, n_kv_heads=0, d_model=32):
+def _lm_pair(axes, quant="none", n_heads=4, n_kv_heads=0, d_model=32, d_ff=64):
     kw = dict(vocab=64, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads, n_layers=2,
-              d_ff=64, dtype="float32", quant=quant)
+              d_ff=d_ff, dtype="float32", quant=quant)
     junit = jtr.TransformerLM(**kw, mesh=jmesh.build_mesh(axes))
     jstate = junit.init_state(jax.random.key(7))
     punit = ptr.TransformerLM(**kw, mesh=pmesh.build_mesh(axes, platform="cpu"), device="cpu")
@@ -141,7 +143,8 @@ def _lm_pair(axes, quant="none", n_heads=4, n_kv_heads=0, d_model=32):
     ({"tp": 4}, "none", (4, 0, 32), 3e-4), ({"dp": 2, "tp": 2}, "none", (4, 0, 32), 3e-4),
     ({"tp": 4}, "none", (8, 4, 64), 3e-4), ({"tp": 4}, "int8", (4, 0, 32), 3e-4),
     ({"dp": 2, "tp": 2}, "int8", (8, 4, 64), 1e-2), ({"tp": 8}, "none", (16, 4, 128), 3e-4),
-    ({"tp": 4}, "none", (8, 2, 64), 3e-4), ({"tp": 4}, "int8", (8, 2, 64), 1e-2)])
+    ({"tp": 4}, "none", (8, 2, 64), 3e-4), ({"tp": 4}, "int8", (8, 2, 64), 1e-2),
+    ({"tp": 4}, "none", (40, 10, 320), 3e-4), ({"tp": 6}, "none", (12, 4, 576, 96), 3e-4)])
 def test_transformer_lm_over_a_mesh_matches_reference(axes, quant, heads, ref_atol, devices8):
     """The reference unit's sharded state gathered and re-split by the
     port's layout: logits within 3e-4 of the port's unsharded unit with the
@@ -152,15 +155,20 @@ def test_transformer_lm_over_a_mesh_matches_reference(axes, quant, heads, ref_at
     6.3e-3 from the reference, and those cases hold the reference at 1e-2
     (``test_torch_quant.py``'s bound on the int8 path's outputs).  A ``tp``
     that is a multiple of the kv heads (8 over 4, 4 over 2) gives each
-    shard the one kv head its query heads read (``kv_head_range``)."""
+    shard the one kv head its query heads read (``kv_head_range``).  A
+    ``tp`` that neither divides nor is a multiple of them (40 heads over
+    10 at tp=4, head dim 8: shards read kv heads in runs of groups 4 and
+    2; 12 over 4 at tp=6, head dim 48: shards hold 1 or 2 kv heads) gives
+    each shard the kv heads its query heads read, one attention call a
+    run (``per_run``)."""
     junit, jstate, punit, pstate = _lm_pair(axes, quant, *heads)
     assert isinstance(pstate, pmesh.ShardedTree) and pstate.mesh is punit.mesh
     tokens = np.random.default_rng(7).integers(0, 64, size=(4, 16)).astype(np.int32)
     want = np.asarray(jax.jit(junit.predict)(jstate, tokens))
     got = punit.predict(pstate, torch.from_numpy(tokens)).numpy()
     single = ptr.TransformerLM(vocab=64, d_model=heads[2], n_heads=heads[0],
-                               n_kv_heads=heads[1], n_layers=2, d_ff=64, dtype="float32",
-                               quant=quant, device="cpu")
+                               n_kv_heads=heads[1], n_layers=2, d_ff=(*heads, 64)[3],
+                               dtype="float32", quant=quant, device="cpu")
     ref = single.predict(params_from_jax(jstate, "cpu"), torch.from_numpy(tokens)).numpy()
     np.testing.assert_allclose(got, ref, atol=3e-4)
     np.testing.assert_allclose(got, want, atol=ref_atol)
@@ -177,9 +185,14 @@ def test_lm_apply_checks_its_mesh_and_splits_dp_rows(devices8):
     with pytest.raises(ValueError, match="mesh differs"):
         ptr.lm_apply(pstate, x, punit.cfg, mesh=pmesh.build_mesh({"tp": 2}, platform="cpu"))
     # a tp that neither divides nor is a multiple of the kv heads (4 over 6)
-    with pytest.raises(ValueError, match=r"not divisible over the tp axis.*\[6b-kv\] part 2"):
+    # is served: each shard holds the kv heads its query heads read
+    uneven = ptr.TransformerLM(vocab=64, d_model=48, n_heads=12, n_kv_heads=4, d_ff=96,
+                               device="cpu", mesh=pmesh.build_mesh({"tp": 6}, platform="cpu"))
+    assert [c.kv_heads for c in ptr.shard_configs(uneven.cfg, uneven.mesh)] == [1, 2]
+    # a tp that does not divide the query heads is refused (12 over 8)
+    with pytest.raises(ValueError, match="n_heads=12 not divisible over the tp axis of size 8"):
         ptr.TransformerLM(vocab=64, d_model=48, n_heads=12, n_kv_heads=4, d_ff=96,
-                          device="cpu", mesh=pmesh.build_mesh({"tp": 6}, platform="cpu"))
+                          device="cpu", mesh=pmesh.build_mesh({"tp": 8}, platform="cpu"))
 
 
 def test_moe_over_ep_matches_unsharded_and_reference(devices8):
@@ -300,6 +313,53 @@ def test_a_gqa_generator_over_a_multiple_of_its_kv_heads_serves_the_reference_to
         got = server.submit(prompt).future.result(timeout=120)
         np.testing.assert_array_equal(np.asarray(got, np.float32), want)
         assert [s["l0"]["k"].shape[1] for s in server._pool.shards] == [1] * 4
+    finally:
+        server.stop()
+
+
+_UNEVEN = dict(vocab=64, d_model=320, n_heads=40, n_kv_heads=10, n_layers=2, d_ff=64,
+               max_new_tokens=8, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def _uneven_tp4_reference():
+    """The reference generator at 40 heads over 10 kv heads on its
+    ``{"tp": 4}`` mesh: its state and its jitted greedy f32 tokens for
+    three prompt rows."""
+    from seldon_core_tpu.models.generate import TransformerGenerator as JaxGenerator
+
+    junit = JaxGenerator(**_UNEVEN, mesh=jmesh.build_mesh({"tp": 4}))
+    jstate = junit.init_state(jax.random.key(4))
+    prompt = np.random.default_rng(8).integers(0, 64, size=(3, 11)).astype(np.float32)
+    return jstate, prompt, np.asarray(jax.jit(junit.predict)(jstate, prompt))
+
+
+@pytest.mark.parametrize("continuous", [True, False], ids=["continuous", "static"])
+def test_a_generator_over_an_uneven_tp_serves_the_reference_tokens(
+        continuous, _uneven_tp4_reference, devices8):
+    """40 heads over 10 kv heads at ``{"tp": 4}``, a tp that neither divides
+    nor is a multiple of the kv heads: each shard holds the three kv heads
+    its ten query heads read (kv heads 2 and 7 on two shards each) and
+    attends them in two runs, of groups 4 and 2.  With the reference unit's
+    weights both lanes answer the reference's f32 greedy tokens; the
+    continuous lane's pool holds three kv heads a shard."""
+    jstate, prompt, want = _uneven_tp4_reference
+    unit = TransformerGenerator(**_UNEVEN, device="cpu",
+                                mesh=pmesh.build_mesh({"tp": 4}, platform="cpu"))
+    assert [c.kv_runs for c in ptr.shard_configs(unit.cfg, unit.mesh)] == \
+        [((2, 4), (1, 2)), ((1, 2), (2, 4))]
+    state = params_from_jax(jstate, "cpu", layout=unit.shard_state)
+    if not continuous:
+        np.testing.assert_array_equal(unit.predict(state, torch.from_numpy(prompt)).numpy(),
+                                      want)
+        return
+    from seldon_core_tpu_torch.runtime.genserver import GenServer
+
+    server = GenServer(**unit.continuous_spec(state), num_blocks=64, block_size=8)
+    try:
+        got = server.submit(prompt).future.result(timeout=120)
+        np.testing.assert_array_equal(np.asarray(got, np.float32), want)
+        assert [s["l0"]["k"].shape[1] for s in server._pool.shards] == [3] * 4
     finally:
         server.stop()
 

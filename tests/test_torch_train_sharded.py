@@ -233,6 +233,53 @@ def test_a_tp_multiple_of_the_kv_heads_trains_as_the_reference(devices8):
         assert (diff > 1e-2 * lr).mean() <= 1e-3, key
 
 
+UNEVEN = dict(vocab=64, d_model=320, n_heads=40, n_kv_heads=10, n_layers=2, d_ff=64)
+
+
+def test_an_uneven_tp_trains_as_one_device_and_the_reference(devices8):
+    """Over {"tp": 4} at 40 heads and 10 kv heads (a tp that neither
+    divides nor is a multiple of the kv heads: kv heads 2 and 7 are read
+    by two shards each, every shard attends two runs of groups 4 and 2):
+    step 0's loss and every leaf's gradient, the shared K/V columns'
+    summed over both readers, equal the one-device port's within
+    ``test_shared_kv_columns_sum_their_readers_gradients_as_one_device``'s
+    bounds; then two ``lm_train_step``s against the reference's step
+    jitted over the same mesh by ``test_sharded_train_steps_match_reference``'s
+    rule."""
+    lr = 1e-2
+    jcfg, tcfg, jp, tp = _setup(5, UNEVEN)
+    tokens = np.random.default_rng(5).integers(0, 64, size=(4, 17))
+    batch = {"tokens": torch.from_numpy(tokens)}
+    mesh = pmesh.build_mesh({"tp": 4}, platform="cpu")
+    loss1, g1 = _capture_grads(tcfg, tp, None, batch)
+    loss4, g4 = _capture_grads(tcfg, ttr.shard_params(tp, mesh), mesh, batch)
+    np.testing.assert_allclose(float(loss4), float(loss1), rtol=1e-6)
+    _copies_identical(g4)
+    whole = dict(leaves_with_paths(_gather(g4)))
+    for key, g in leaves_with_paths(g1):
+        np.testing.assert_allclose(whole[key].numpy(), g.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=key)
+    jm = jmesh.build_mesh({"tp": 4})
+    jp = jax.device_put(jp, jtr.param_shardings(jm, jp))
+    jopt, opt = optax.adam(lr), adam(lr)
+    jstate = jopt.init(jp)
+    jstep = jax.jit(lambda p, o, b: jtr.lm_train_step(p, o, b, jopt, jcfg, jm, use_flash=False))
+    params = ttr.shard_params(tp, mesh)
+    state = opt.init(params)
+    for step in range(2):
+        tokens = np.random.default_rng(30 + step).integers(0, 64, size=(4, 17)).astype(np.int32)
+        jp, jstate, jloss = jstep(jp, jstate, {"tokens": jnp.asarray(tokens)})
+        params, state, loss = ttr.lm_train_step(params, state, {"tokens": torch.from_numpy(tokens)},
+                                                opt, tcfg)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        _copies_identical(params)
+    want = _jax_leaves(jax.device_get(jp))
+    for key, p in leaves_with_paths(_gather(params)):
+        diff = np.abs(p.numpy() - want[key])
+        assert diff.max() <= 3 * 2 * lr, key
+        assert (diff > 1e-2 * lr).mean() <= 1e-3, key
+
+
 def _mnist(seed, hidden=32):
     jp = jmnist.mlp_init(jax.random.key(seed), hidden=hidden, dtype=jnp.float32)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
