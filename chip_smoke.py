@@ -501,6 +501,30 @@ it serves the static lane it measured before that lane's switch:
               error_rate 1.0: answers bit for bit the healthy three's,
               calls and injections as seeded, fused_mlp on the healthy
               members; a {"new_paths": {"multihost": ...}} line
+ 10x. gateway the port's gateway (seldon_core_tpu_torch/gateway) on the
+              card: (a) examples/canary_deployment.json's two predictors as
+              in-process engines behind the gateway's HTTP routes: 401
+              without a token, 200 with one, GATEWAY_REQUESTS 1-row
+              requests whose predictor sequence is the one its seed draws
+              (the CPU test pins the same rule), every answer the same
+              engine's direct answer bit for bit, one fused-MLP launch a
+              dispatch, and the kernel held to its plain version at
+              784-512-512-10, B = 1, 8 and 64; (b) the MNIST example on two
+              engine_main subprocesses, one with the binary wire switched
+              off, behind the gateway's predictions route with a bearer
+              token: a deployment a lane (HTTP JSON, HTTP wire, uds: wire,
+              uds: JSON) and one whose replica set holds the wire engine's
+              REST and uds: endpoints, whose p2c picks reach both; one gRPC
+              Predict through the gateway's front to that set; every answer
+              an in-process twin's bit for bit, and each engine's /stats
+              shows the launches and, by lane, the binary or JSON predicts
+              its lanes sent there; (c) the flagship generator in process on the
+              continuous lane, a 1-row 128-token prompt streamed through
+              the gateway for 16 tokens: the engine's direct stream's
+              tokens, 12 flash_decode_paged launches a decode step and 12
+              kv_write_paged a prefill tick; (d) the gateway's overhead,
+              its p50 minus the engine's own REST p50 over 200 requests
+              each, in turns, each arm's launches counted apart; a {"new_paths": {"gateway": ...}} line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -11593,6 +11617,415 @@ def multihost_phase(torch, dev, smi, mesh_walls: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 10x. the gateway: auth, the canary split, replica sets over every lane, the
+# SSE relay, its overhead
+# ---------------------------------------------------------------------------
+
+GATEWAY_SEED = 7          # the gateway's seed: its predictor draws
+GATEWAY_REQUESTS = 400    # 1-row requests of the canary split
+GATEWAY_TURN = 50         # requests a side a turn of the overhead (4 turns: 200 a side)
+GATEWAY_STREAM = (128, 16, 8)   # prompt tokens, streamed tokens, tokens a frame
+GATEWAY_LANES = ("http+json", "http+wire", "uds+wire", "uds+json")
+GATEWAY_LANE_REQUESTS = 8   # 1-row requests a lane, and through the two-endpoint set
+
+
+def canary_picks(seed: int, weights, n: int, skip: int = 0) -> list:
+    """The predictor indices a gateway seeded ``seed`` draws for its next
+    ``n`` weighted picks after ``skip`` earlier ones: one
+    ``default_rng(seed).choice`` a pick (apife.py ``_pick_engine``)."""
+    rng = np.random.default_rng(seed)
+    p = np.asarray(weights, dtype=np.float64)
+    p = p / p.sum()
+    return [int(rng.choice(len(p), p=p)) for _ in range(skip + n)][skip:]
+
+
+class GatewayThread(ServerThread):
+    """The port's gateway routes on their own loop and thread; ``call``
+    runs a coroutine on that loop."""
+
+    def __init__(self, gateway):
+        from seldon_core_tpu_torch.gateway.apife import serve_gateway
+
+        super().__init__(gateway, serve=serve_gateway)
+
+    def call(self, coro, timeout: float = 120):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def stop(self, close_engine: bool = False):
+        try:
+            self.call(self.engine.close(), 30)
+        finally:
+            super().stop(close_engine=False)
+
+
+def gateway_post(conn, path: str, body: bytes, headers: dict):
+    conn.request("POST", path, body=body, headers=headers)
+    r = conn.getresponse()
+    return r.status, r.getheader("Content-Type", ""), r.read()
+
+
+def gateway_token(conn, key: str, secret: str):
+    """POST /oauth/token with HTTP Basic credentials: (status, token)."""
+    import base64
+
+    basic = base64.b64encode(f"{key}:{secret}".encode()).decode()
+    st, _, raw = gateway_post(conn, "/oauth/token", b"", {"Authorization": "Basic " + basic})
+    return st, (json.loads(raw)["access_token"] if st == 200 else None)
+
+
+def start_mnist_engine(dev, name: str, env: dict) -> dict:
+    """examples/mnist_deployment.json on an engine_main subprocess with its
+    REST port, gRPC port and relay socket; ``env`` is added to its
+    environment."""
+    port = free_port()
+    uds = f"/tmp/smoke-gw-{name}-{os.getpid()}.sock"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.runtime.engine_main", "--file",
+         str(ROOT / "examples" / "mnist_deployment.json"), "--device", dev.type,
+         "--host", "127.0.0.1", "--rest-port", str(port)], cwd=ROOT,
+        env={**os.environ, "ENGINE_SERVER_GRPC_PORT": str(free_port()),
+             "ENGINE_UDS_PATH": uds, **env},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "base": f"http://127.0.0.1:{port}", "uds": uds}
+
+
+def await_engine_up(remote: dict, timeout: float = 300) -> None:
+    start = time.perf_counter()
+    while True:
+        line = remote["proc"].stdout.readline()
+        if line.startswith("engine up:"):
+            return
+        if not line or time.perf_counter() - start > timeout:
+            raise AssertionError(f"[gateway] engine_main did not come up: "
+                                 f"{line + remote['proc'].stdout.read()[-1500:]}")
+
+
+def mnist_engine_counts(remote: dict) -> dict:
+    """A remote engine's fused-MLP launches, its REST and relay predicts,
+    and the binary-wire predicts among them, from its /stats."""
+    d = json.loads(request("GET", remote["base"] + "/stats")[1])
+    t = d["telemetry"]
+    wire = t["wire"]["requests"]
+    return {"launches": d["kernels"]["fused_mlp_softmax"]["launches"],
+            "rest": t["replicas"]["lanes"].get("rest", 0),
+            "relay": t["replicas"]["lanes"].get("relay", 0),
+            "rest_binary": wire.get("fast/binary", 0),
+            "relay_binary": wire.get("relay/binary", 0)}
+
+
+def gateway_phase(torch, dev, smi) -> dict:
+    """10x. The port's gateway in front of engines on the card (see the
+    module docstring).  Returns the counts of the served paths and what
+    was measured."""
+    from seldon_core_tpu_torch import protoconv
+    from seldon_core_tpu_torch.gateway.apife import ApiGateway, DeploymentStore
+    from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+    from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.ops import flash_decode as fd, fused_mlp, kv_write as kw
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+    from seldon_core_tpu_torch.runtime.grpcfast import FastGrpcChannel, FastGrpcServer
+
+    t_phase = time.perf_counter()
+    counted = dev.type == "cuda"
+    out = {"launches": {}}
+    # (b)'s engine_mains come up while (a) runs: one with the binary wire,
+    # one with it switched off (it answers the wire with 415, and the
+    # gateway falls back to JSON on its REST and relay lanes)
+    remotes = {"wire": start_mnist_engine(dev, "wire", {}),
+               "json": start_mnist_engine(dev, "json", {"SELDON_TPU_WIRE": "0"})}
+    gw_thread = engines = twin = gen = None
+    try:
+        # -- (a) the canary, in process ---------------------------------------
+        doc = json.loads((ROOT / "examples" / "canary_deployment.json").read_text())
+        spec = default_and_validate(SeldonDeploymentSpec.from_json_dict(doc))
+        engines = {p.name: EngineService(spec, p.name, device=dev) for p in spec.predictors}
+        if any(e.device.type != dev.type for e in engines.values()):
+            raise AssertionError("[gateway] an in-process engine is not on the card")
+        # the kernel at the canary's width, before the counted traffic
+        state = engines["canary"].states()["mnist"]
+        gen_x = torch.Generator(device="cpu").manual_seed(SEED)
+        mlp_err = {}
+        for B in (1, 8, 64):
+            x = torch.rand((B, 784), generator=gen_x).to(dev)
+            got = fused_mlp.fused_mlp_softmax(state, x)
+            want = fused_mlp.fused_mlp_softmax_reference(state, x)
+            mlp_err[B] = float((got - want).abs().max())
+        if max(mlp_err.values()) > KERNEL_ATOL:
+            raise AssertionError(f"[gateway] fused_mlp at 784-512-512-10 vs plain {mlp_err}")
+        store = DeploymentStore()
+        store.register(spec, engines)
+        main_only = SeldonDeploymentSpec.from_json_dict({"spec": {
+            **doc["spec"], "name": "canary-main", "oauth_key": "main-key",
+            "oauth_secret": "main-secret", "predictors": [doc["spec"]["predictors"][0]]}})
+        store.register(main_only, {"main": engines["main"]})
+        gateway = ApiGateway(store=store, seed=GATEWAY_SEED)
+        gw_thread = GatewayThread(gateway)
+        gw_port = gw_thread.start()
+        conn = http.client.HTTPConnection("127.0.0.1", gw_port, timeout=120)
+        st_bad, _ = gateway_token(conn, "canary-key", "nope")
+        st_tok, token = gateway_token(conn, "canary-key", "canary-secret")
+        hdr = {"Content-Type": "application/json", "Authorization": "Bearer " + token}
+        rng = np.random.default_rng(SEED + 28)
+        xs = rng.random((GATEWAY_REQUESTS, 784))
+        body = lambda x: json.dumps({"data": {"ndarray": np.atleast_2d(x).tolist()}}).encode()
+        st_noauth, _, _ = gateway_post(conn, "/api/v0.1/predictions", body(xs[0]),
+                                       {"Content-Type": "application/json"})
+        if (st_bad, st_tok, st_noauth) != (401, 200, 401):
+            raise AssertionError(f"[gateway] token flow {(st_bad, st_tok, st_noauth)}")
+        fused_mlp.LAUNCHES = 0
+        served, answers = [], []
+        for x in xs:
+            st, _, raw = gateway_post(conn, "/api/v0.1/predictions", body(x), hdr)
+            d = json.loads(raw)
+            if st != 200 or set(d["meta"]) < {"puid", "requestPath"}:
+                raise AssertionError(f"[gateway] predict answered {st}: {raw[:300]!r}")
+            served.append(d["meta"]["requestPath"]["predictor"])
+            answers.append(np.asarray(d["data"]["ndarray"], dtype=np.float64))
+        n_canary = fused_mlp.LAUNCHES
+        names = [name for name, _w, _e in store._by_key["canary-key"].engines]
+        weights = [w for _n, w, _e in store._by_key["canary-key"].engines]
+        want = [names[i] for i in canary_picks(GATEWAY_SEED, weights, GATEWAY_REQUESTS)]
+        split = {n: served.count(n) for n in names}
+        if served != want or (counted and n_canary != GATEWAY_REQUESTS):
+            raise AssertionError(f"[gateway] split {split}, the seed's {want.count('main')}/"
+                                 f"{want.count('canary')}; {n_canary} fused-MLP launches for "
+                                 f"{GATEWAY_REQUESTS} dispatches")
+        # every answer the serving engine's own, bit for bit (these direct
+        # calls' launches are not the path's: (d) counts from 0 again)
+        for x, pred, y in zip(xs, served, answers):
+            resp = gw_thread.call(engines[pred].predict(SeldonMessage.from_array(
+                np.atleast_2d(x))))
+            if not np.array_equal(np.asarray(resp.array(), dtype=np.float64), y):
+                raise AssertionError(f"[gateway] a {pred} answer through the gateway differs "
+                                     f"from the engine's direct answer")
+        out["canary"] = {"split": split, "split_of_seed": {n: want.count(n) for n in names},
+                         "fused_mlp_launches": n_canary, "kernel_vs_plain_784_512": mlp_err}
+        out["launches"]["fused_mlp_softmax"] = n_canary
+        log(f"[gateway] canary: 401 without a token, 200 with one; {GATEWAY_REQUESTS} 1-row "
+            f"requests split {split} (the seed {GATEWAY_SEED}'s draws exactly, the CPU test's "
+            f"rule), every answer the serving engine's direct answer bit for bit, "
+            f"{n_canary} fused-MLP launches (one a dispatch); the kernel at 784-512-512-10 vs "
+            f"plain {max(mlp_err.values()):.2e} at B = 1, 8, 64 (tolerance {KERNEL_ATOL})")
+
+        # -- (b) remote engine_mains behind the gateway, every lane ------------
+        # one deployment a lane, each one endpoint; one whose replica set
+        # holds the wire engine's REST and relay endpoints (the p2c pick)
+        for r in remotes.values():
+            await_engine_up(r)
+        W, J = remotes["wire"], remotes["json"]
+        mdoc = json.loads((ROOT / "examples" / "mnist_deployment.json").read_text())
+        targets = {"http+json": [J["base"]], "http+wire": [W["base"]],
+                   "uds+wire": [f"uds:{W['uds']}"], "uds+json": [f"uds:{J['uds']}"],
+                   "set": [W["base"], f"uds:{W['uds']}"]}
+        mtok = {}
+        for lane, t in targets.items():
+            store.register(default_and_validate(SeldonDeploymentSpec.from_json_dict({"spec": {
+                **mdoc["spec"], "name": f"mnist-{lane}", "oauth_key": f"mnist-{lane}",
+                "oauth_secret": "mnist-secret"}})), {"main": t})
+            st, mtok[lane] = gateway_token(conn, f"mnist-{lane}", "mnist-secret")
+            if st != 200:
+                raise AssertionError(f"[gateway] no token for mnist-{lane}: {st}")
+        twin = EngineService(default_and_validate(SeldonDeploymentSpec.from_json_dict(mdoc)),
+                             device=dev)
+        before = {k: mnist_engine_counts(r) for k, r in remotes.items()}
+        xr = rng.random((GATEWAY_LANE_REQUESTS, 784))
+        twin_y = [np.asarray(gw_thread.call(twin.predict(SeldonMessage.from_array(
+            xr[i:i + 1]))).array(), dtype=np.float64) for i in range(len(xr))]
+        lane_err = {}
+        for lane in (*GATEWAY_LANES, "set"):
+            h = {"Content-Type": "application/json", "Authorization": "Bearer " + mtok[lane]}
+            for x, want_y in zip(xr, twin_y):
+                st, _, raw = gateway_post(conn, "/api/v0.1/predictions", body(x), h)
+                if st != 200:
+                    raise AssertionError(f"[gateway] {lane} answered {st}: {raw[:300]!r}")
+                got_y = np.asarray(SeldonMessage.from_json(raw.decode()).array(),
+                                   dtype=np.float64)
+                lane_err[lane] = max(lane_err.get(lane, 0.0),
+                                     float(np.abs(got_y - want_y).max()))
+        # one gRPC Predict through the gateway's front, to the replica set
+        grpc = FastGrpcServer.for_gateway(gateway)
+        gw_thread.call(grpc.start("127.0.0.1", 0))
+
+        async def grpc_predict():
+            ch = await FastGrpcChannel().connect("127.0.0.1", grpc.port)
+            try:
+                return await ch.call(b"/seldon.protos.Seldon/Predict",
+                                     protoconv.msg_to_proto(SeldonMessage.from_array(xr[:1])),
+                                     ((b"authorization", f"Bearer {mtok['set']}".encode()),))
+            finally:
+                ch.close_nowait()
+
+        g_resp = protoconv.msg_from_proto(gw_thread.call(grpc_predict()))
+        gw_thread.call(grpc.stop())
+        lane_err["grpc"] = float(np.abs(np.asarray(g_resp.array(), np.float64)
+                                        - twin_y[0]).max())
+        # the card's kernel gives a row the same bits in every process; the
+        # CPU's plain version (a rehearsal) sums in its threads' order
+        if max(lane_err.values()) > (0.0 if counted else 1e-6):
+            raise AssertionError(f"[gateway] remote lanes vs the in-process twin {lane_err}")
+        after = {k: mnist_engine_counts(r) for k, r in remotes.items()}
+        moved = {k: {c: after[k][c] - before[k][c] for c in after[k]} for k in remotes}
+        gstats = json.loads(request("GET", f"http://127.0.0.1:{gw_port}/stats")[1])
+        set_eps = gstats["replicas"]["mnist-set/main"]["endpoints"]
+        picks = {("rest" if ep["uds_path"] is None else "uds"): ep["picks"] for ep in set_eps}
+        n = GATEWAY_LANE_REQUESTS
+        # each lane reached the engine it names, in the format it names: the
+        # wire engine took every binary predict (its REST ones the http+wire
+        # lane's and the set's REST picks, its relay ones the uds+wire lane's
+        # and the set's relay picks); the other answered JSON only
+        want_moved = {"wire": {"launches": 3 * n + 1, "rest_binary": n + picks.get("rest", 0),
+                               "relay_binary": n + picks.get("uds", 0)},
+                      "json": {"launches": 2 * n, "rest_binary": 0, "relay_binary": 0}}
+        got_moved = {k: {c: moved[k][c] for c in want_moved[k]} for k in remotes}
+        if (min(picks.get("rest", 0), picks.get("uds", 0)) < 1
+                or sum(picks.values()) != n + 1
+                or (counted and got_moved != want_moved)
+                or min(moved["json"]["rest"], moved["json"]["relay"]) < n):
+            raise AssertionError(f"[gateway] lanes reached {moved}, set picks {picks}; "
+                                 f"wanted {want_moved}")
+        n_remote = moved["wire"]["launches"] + moved["json"]["launches"]
+        out["remote"] = {"lanes_vs_twin": lane_err, "launches": n_remote,
+                         "engines_moved": moved, "set_picks": picks,
+                         "grpc_predictor": g_resp.meta.requestPath.get("predictor")}
+        out["launches"]["fused_mlp_softmax remote"] = n_remote
+        log(f"[gateway] two remote engine_mains (one with the binary wire off) behind the "
+            f"gateway's predictions route with a bearer token: {n} 1-row requests a lane over "
+            f"{', '.join(GATEWAY_LANES)} and through a replica set of the wire engine's REST "
+            f"and uds: endpoints (p2c picks {picks}), and one gRPC Predict through the "
+            f"gateway's front to that set: every answer the in-process twin's bit for bit "
+            f"({lane_err}); the engines' /stats moved {moved}: {n_remote} launches")
+
+        # -- (c) the flagship generator's stream through the gateway ------------
+        gen = mode_engine(torch, dev, gen_deployment(), continuous=True)
+        gspec = default_and_validate(SeldonDeploymentSpec.from_json_dict(
+            {"spec": {**gen_deployment()["spec"], "oauth_key": "gen-key",
+                      "oauth_secret": "gen-secret"}}))
+        store.register(gspec, {"main": gen})
+        g = gen.genserver
+        cfg = gen.compiled.units["gen"].cfg
+        S, NEW, CH = GATEWAY_STREAM
+        prompt = rng.integers(0, GEN_DIMS["vocab"], size=(1, S))
+        sbody = {"data": {"ndarray": prompt.tolist()}, "chunk": CH, "max_new": NEW}
+        gtok = store.issue_token("gen-key", "gen-secret")
+
+        async def direct_stream():
+            toks = []
+            async for ev in gen.generate_stream(gen.prepare_stream_request(json.dumps(sbody))):
+                d = json.loads(ev)
+                if "tokens" in d:
+                    toks.append(np.asarray(d["tokens"]))
+            return np.concatenate(toks, axis=1)
+
+        want_toks = gw_thread.call(direct_stream())
+        fd.PAGED_LAUNCHES = kw.PAGED_LAUNCHES = fd.LAUNCHES = kw.LAUNCHES = 0
+        snap0 = g.snapshot()
+        events = gateway_sse(gw_port, sbody, gtok)
+        snap1 = g.snapshot()
+        stream_launches = {"flash_decode_paged": fd.PAGED_LAUNCHES,
+                           "kv_write_paged": kw.PAGED_LAUNCHES}
+        steps = snap1["decode_steps_total"] - snap0["decode_steps_total"]
+        ticks = snap1["prefill_dispatches_total"] - snap0["prefill_dispatches_total"]
+        got_toks = np.concatenate([np.asarray(e["tokens"]) for e in events if "tokens" in e],
+                                  axis=1)
+        if not events or events[-1].get("done") is not True or "error" in events[-1]:
+            raise AssertionError(f"[gateway] the stream did not end cleanly: {events[-1:]}")
+        if got_toks.shape != (1, NEW) or not np.array_equal(got_toks, want_toks):
+            raise AssertionError(f"[gateway] streamed tokens {got_toks.shape} differ from the "
+                                 f"engine's direct stream")
+        want_l = {"flash_decode_paged": cfg.n_layers * steps,
+                  "kv_write_paged": cfg.n_layers * ticks}
+        if counted and (stream_launches != want_l or steps == 0 or ticks == 0):
+            raise AssertionError(f"[gateway] stream launches {stream_launches}, not {want_l}")
+        out["stream"] = {"tokens": NEW, "decode_steps": steps, "prefill_ticks": ticks,
+                         "launches": stream_launches}
+        out["launches"].update(stream_launches)
+        log(f"[gateway] a 1-row {S}-token prompt streamed through /api/v0.1/generate/stream "
+            f"for {NEW} tokens: the engine's direct stream's tokens; {steps} decode steps and "
+            f"{ticks} prefill ticks launched {stream_launches} ({cfg.n_layers} a step and a "
+            f"tick)")
+
+        # -- (d) the gateway's overhead, in turns --------------------------------
+        # the engine's own REST lane: a second engine of the same predictor
+        # (one engine serves one event loop), built before the counts reset
+        direct = ServerThread(EngineService(spec, "main", device=dev))
+        d_port = direct.start()
+        _, mtok2 = gateway_token(conn, "main-key", "main-secret")
+        dconn = http.client.HTTPConnection("127.0.0.1", d_port, timeout=120)
+        ghdr = {"Content-Type": "application/json", "Authorization": "Bearer " + mtok2}
+        x1 = body(xs[0])
+        walls = {"gateway": [], "engine": []}
+        # each arm's launches counted from 0 just before its requests
+        n_turns = {"gateway": 0, "engine": 0}
+        try:
+            for turn in range(4):
+                for arm in (("gateway", "engine") if turn % 2 == 0 else ("engine", "gateway")):
+                    c, h = (conn, ghdr) if arm == "gateway" else (
+                        dconn, {"Content-Type": "application/json"})
+                    fused_mlp.LAUNCHES = 0
+                    for _ in range(GATEWAY_TURN):
+                        t0 = time.perf_counter()
+                        st, _, _ = gateway_post(c, "/api/v0.1/predictions", x1, h)
+                        walls[arm].append(time.perf_counter() - t0)
+                        if st != 200:
+                            raise AssertionError(f"[gateway] {arm} answered {st}")
+                    n_turns[arm] += fused_mlp.LAUNCHES
+        finally:
+            direct.stop()
+        if counted and n_turns != {"gateway": 4 * GATEWAY_TURN, "engine": 4 * GATEWAY_TURN}:
+            raise AssertionError(f"[gateway] launches in the overhead turns {n_turns}")
+        p50 = {k: float(np.percentile(np.asarray(v) * 1e3, 50)) for k, v in walls.items()}
+        out["overhead"] = {"gateway_p50_ms": p50["gateway"], "engine_p50_ms": p50["engine"],
+                           "overhead_p50_ms": p50["gateway"] - p50["engine"],
+                           "requests_a_side": len(walls["gateway"]), "card": smi}
+        out["launches"]["fused_mlp_softmax"] += n_turns["gateway"]
+        out["launches"]["fused_mlp_softmax direct"] = n_turns["engine"]
+        log(f"[gateway] overhead: 1-row p50 through the gateway {p50['gateway']:.3f} ms, the "
+            f"engine's own REST lane {p50['engine']:.3f} ms, {len(walls['gateway'])} requests "
+            f"a side in 4 turns: the gateway adds {p50['gateway'] - p50['engine']:.3f} ms "
+            f"({smi})")
+    finally:
+        if gw_thread is not None:
+            gw_thread.stop()
+        for e in [*(engines or {}).values(), twin, gen]:
+            if e is not None:
+                e.close()
+        out_text = ""
+        for r in remotes.values():
+            out_text += stop_service(r["proc"])[-300:]
+            try:
+                os.unlink(r["uds"])
+            except FileNotFoundError:
+                pass
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[gateway] phase 10x wall {out['wall_s']:.2f} s")
+    if out["wall_s"] > 40.0:
+        log(f"[gateway] the phase took longer than its 40 s wall ({out_text[-300:]!r})")
+    return out
+
+
+def gateway_sse(port: int, body: dict, token: str) -> list:
+    """POST the stream route of the gateway with a bearer token; the
+    parsed events of its chunked 200."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/api/v0.1/generate/stream", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json",
+                              "Authorization": "Bearer " + token})
+        r = conn.getresponse()
+        raw = r.read()
+        if r.status != 200 or not r.getheader("Content-Type", "").startswith(
+                "text/event-stream"):
+            raise AssertionError(f"[gateway] the stream answered {r.status}: {raw[:300]!r}")
+    finally:
+        conn.close()
+    return [json.loads(ev[len(b"data: "):]) for ev in raw.split(b"\n\n")
+            if ev.startswith(b"data: ")]
+
+
+
+
 def main() -> int:
     import torch
 
@@ -11854,6 +12287,24 @@ def main() -> int:
                                    "multihost (processes over tp, dp x tp, pp, ep; "
                                    "ensemble4 faults)": n}
         row["launches"] += n
+
+    # 10x: after 10w, each path's counts set to 0 just before it and read
+    # just after; the remote engine's read from its /stats
+    gw = gateway_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"gateway": gw}}))
+    mlp_row["launches_by_path"]["gateway (canary in process, the overhead's gateway arm)"] = \
+        gw["launches"]["fused_mlp_softmax"]
+    mlp_row["launches_by_path"]["gateway (remote engine_mains: HTTP and relay, JSON and "
+                                "wire, a replica set, gRPC)"] = \
+        gw["launches"]["fused_mlp_softmax remote"]
+    mlp_row["launches_by_path"]["engine's own REST lane (the gateway overhead's other arm)"] = \
+        gw["launches"]["fused_mlp_softmax direct"]
+    mlp_row["launches"] += (gw["launches"]["fused_mlp_softmax"]
+                            + gw["launches"]["fused_mlp_softmax remote"]
+                            + gw["launches"]["fused_mlp_softmax direct"])
+    for row, key in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
+        row["launches_by_path"]["gateway (SSE stream, continuous lane)"] = gw["launches"][key]
+        row["launches"] += gw["launches"][key]
 
     alive = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
     log(f"[exit] {len(alive)} threads still alive at the end of the run: {alive}")

@@ -39,6 +39,7 @@ __all__ = [
     "DeadlineExceededError",
     "LoadShedError",
     "new_puid",
+    "prediction_delta",
 ]
 
 ArrayLike = Any  # np.ndarray | torch.Tensor | nested lists
@@ -291,6 +292,18 @@ class SeldonMessage:
     def failure(info: str, code: int = 400, meta: Optional[Meta] = None) -> "SeldonMessage":
         return SeldonMessage(status=Status.failure(info, code=code), meta=meta or Meta())
 
+    @property
+    def data_kind(self) -> str:
+        """Which payload the message carries: ``data``, ``binData``,
+        ``strData`` or ``empty``."""
+        if self.data is not None:
+            return "data"
+        if self.bin_data is not None:
+            return "binData"
+        if self.str_data is not None:
+            return "strData"
+        return "empty"
+
     def array(self) -> np.ndarray:
         if self.data is None:
             raise SeldonMessageError("message has no DefaultData payload")
@@ -525,3 +538,43 @@ class Feedback:
 
     def to_json(self) -> str:
         return json.dumps(self.to_json_dict(), separators=(",", ":"))
+
+
+def prediction_delta(live: Optional["SeldonMessage"], other: Optional["SeldonMessage"],
+                     atol: float = 1e-6) -> dict:
+    """How far two answers to one request disagree — the rule of the shadow
+    mirror (``gateway/shadow.py``), as ``messages.prediction_delta`` of the
+    JAX package states it.  Returns ``{"comparable", "disagree",
+    "mean_abs_delta"}``:
+
+      * both failed: they agree (``disagree`` 0.0, not comparable);
+      * one failed, the payload kinds or the shapes differ, or the tensor is
+        empty: ``disagree`` 1.0, not comparable;
+      * strData / binData: 0.0 when the bytes are equal, else 1.0;
+      * a [rows, classes > 1] tensor: the fraction of rows whose argmax
+        differs; any other tensor: the fraction of elements further apart
+        than ``atol``.
+
+    Both answers are host messages: their arrays are numpy."""
+    full = {"comparable": False, "disagree": 1.0, "mean_abs_delta": None}
+
+    def failed(m: Optional["SeldonMessage"]) -> bool:
+        return m is None or (m.status is not None and m.status.status == "FAILURE")
+
+    if failed(live) and failed(other):
+        return {"comparable": False, "disagree": 0.0, "mean_abs_delta": None}
+    if failed(live) or failed(other) or live.data_kind != other.data_kind:
+        return full
+    if live.data_kind != "data":
+        same = live.str_data == other.str_data and live.bin_data == other.bin_data
+        return {"comparable": True, "disagree": 0.0 if same else 1.0, "mean_abs_delta": None}
+    a = np.asarray(live.array(), dtype=np.float64)
+    b = np.asarray(other.array(), dtype=np.float64)
+    if a.shape != b.shape or a.size == 0:
+        return full
+    mean_abs = float(np.mean(np.abs(a - b)))
+    if a.ndim == 2 and a.shape[1] > 1:
+        disagree = float(np.mean(np.argmax(a, axis=1) != np.argmax(b, axis=1)))
+    else:
+        disagree = float(np.mean(np.abs(a - b) > atol))
+    return {"comparable": True, "disagree": disagree, "mean_abs_delta": round(mean_abs, 9)}

@@ -55,16 +55,35 @@ counts in ``seldon_tpu_retry_attempts_total``.
 
 A failure after the policy gives up is a ``RemoteCallError`` (502); the
 client never swaps a remote node for a local unit.
+
+``HttpClient`` is the gateway's one upstream client (the JAX gateway's
+pooled aiohttp session, ``gateway/apife.py:1251`` there), used by the
+gateway's dispatch lanes, the replica scrape and the fleet plane: asyncio
+streams, HTTP/1.1 keep-alive connections pooled per authority, at most
+``SELDON_TPU_GW_POOL`` (default 100) in use at once and idle ones dropped
+after ``SELDON_TPU_GW_KEEPALIVE_S`` (default 15 s).  ``request`` sends a
+POST or GET of any body under a whole-call timeout and reads a
+``Content-Length``, chunked or to-the-end response; ``stream`` sends a POST
+whose response is read chunk by chunk as it arrives (an SSE relay) under a
+connect timeout only.  A connection that could not be opened raises
+``UpstreamConnectError`` (nothing reached the peer, so a caller may retry);
+a pooled connection the peer closed before answering is retried once on a
+fresh one; every other transport failure is an ``OSError``, and a timeout
+``TimeoutError``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextvars
+import json
+import os
 import socket
 import threading
+import time
 from concurrent.futures import Executor
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
+from urllib.parse import urlsplit
 
 import numpy as np
 
@@ -105,7 +124,8 @@ from seldon_core_tpu_torch.utils.tracing import (
     traceparent_header_value,
 )
 
-__all__ = ["RestNodeRuntime", "GrpcNodeRuntime", "RemoteCallError", "make_node_runtime"]
+__all__ = ["RestNodeRuntime", "GrpcNodeRuntime", "RemoteCallError", "make_node_runtime",
+           "HttpClient", "HttpResponse", "UpstreamConnectError"]
 
 DEFAULT_TIMEOUT_S = 5.0  # the reference's TIMEOUT, InternalPredictionService.java:77
 MAX_IDLE = 8  # idle keep-alive connections kept per node
@@ -700,3 +720,292 @@ def make_node_runtime(node: PredictiveUnit, binding: ComponentBinding,
     return cls(node, binding, retry_policy=retry_policy,
                breaker=breaker or CircuitBreaker(node.name),
                retry_budget=retry_budget, executor=executor)
+
+
+# ---------------------------------------------------------------------------
+# The gateway's upstream HTTP client
+# ---------------------------------------------------------------------------
+
+
+class UpstreamConnectError(ConnectionError):
+    """The connection could not be opened: no byte reached the peer."""
+
+
+class HttpResponse:
+    """One upstream answer: ``status``, ``ctype`` (the media type, lower
+    case, parameters cut), ``headers`` (lower-cased names) and ``body``."""
+
+    __slots__ = ("status", "ctype", "headers", "body")
+
+    def __init__(self, status: int, headers: Dict[str, str], body: bytes = b""):
+        self.status = status
+        self.headers = headers
+        self.ctype = headers.get("content-type", "").split(";", 1)[0].strip().lower()
+        self.body = body
+
+    def text(self) -> str:
+        return self.body.decode("utf-8", "replace")
+
+    def json(self):
+        return json.loads(self.body)
+
+
+def _env_number(name: str, default, cast):
+    try:
+        return cast(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+class _Upstream:
+    """A streamed response: ``status`` and ``headers`` are read; iterate
+    ``chunks()`` for the body as it arrives, then ``close()``."""
+
+    def __init__(self, response: HttpResponse, reader: asyncio.StreamReader,
+                 writer: asyncio.StreamWriter, release: Callable[[], None]):
+        self.response = response
+        self.status = response.status
+        self._reader = reader
+        self._writer = writer
+        self._release = release
+
+    async def chunks(self) -> AsyncIterator[bytes]:
+        async for part in _body_parts(self._reader, self.response.headers):
+            yield part
+
+    async def read(self) -> bytes:
+        return b"".join([p async for p in self.chunks()])
+
+    def close(self) -> None:
+        self._writer.close()
+        self._release()
+
+
+async def _body_parts(reader: asyncio.StreamReader, headers: Dict[str, str]
+                      ) -> AsyncIterator[bytes]:
+    """A response body as it arrives: chunked, by Content-Length, or to the
+    connection's end; a body cut short raises ``ConnectionResetError``."""
+    try:
+        async for part in _body_parts_raw(reader, headers):
+            yield part
+    except asyncio.IncompleteReadError as e:
+        raise ConnectionResetError("the peer closed the connection mid-response") from e
+    except asyncio.LimitOverrunError as e:
+        raise _BadResponse("response chunk header too large") from e
+
+
+async def _body_parts_raw(reader: asyncio.StreamReader, headers: Dict[str, str]
+                          ) -> AsyncIterator[bytes]:
+    if "chunked" in headers.get("transfer-encoding", "").lower():
+        while True:
+            line = await reader.readuntil(b"\r\n")
+            try:
+                n = int(line.split(b";", 1)[0].strip(), 16)
+            except ValueError:
+                raise _BadResponse(f"bad chunk size {line[:40]!r}") from None
+            if n == 0:
+                while (await reader.readuntil(b"\r\n")) != b"\r\n":
+                    pass  # trailers
+                return
+            data = await reader.readexactly(n + 2)
+            yield data[:-2]
+    elif "content-length" in headers:
+        try:
+            n = int(headers["content-length"])
+        except ValueError:
+            raise _BadResponse("bad Content-Length") from None
+        while n > 0:
+            data = await reader.read(min(n, 262144))
+            if not data:
+                raise ConnectionResetError("the peer closed the connection mid-response")
+            n -= len(data)
+            yield data
+    else:
+        while data := await reader.read(262144):
+            yield data
+
+
+class HttpClient:
+    """Pooled HTTP/1.1 keep-alive client (see the module docstring).  One
+    per gateway; bound to the event loop of its first call (a call on
+    another loop starts a fresh pool)."""
+
+    def __init__(self, pool: Optional[int] = None, keepalive_s: Optional[float] = None):
+        self.pool = pool if pool is not None else _env_number("SELDON_TPU_GW_POOL", 100, int)
+        self.keepalive_s = (keepalive_s if keepalive_s is not None
+                            else _env_number("SELDON_TPU_GW_KEEPALIVE_S", 15.0, float))
+        self._idle: Dict[Tuple[str, int], List[Tuple[Any, Any, float]]] = {}
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._slots: Optional[asyncio.Semaphore] = None
+        self.closed = False
+
+    # -- connections -------------------------------------------------------
+
+    def _bind_loop(self) -> asyncio.Semaphore:
+        loop = asyncio.get_running_loop()
+        if self._loop is not loop:
+            for conns in self._idle.values():
+                for _r, w, _t in conns:
+                    w.close()
+            self._idle = {}
+            self._loop = loop
+            self._slots = asyncio.Semaphore(max(1, int(self.pool)))
+        return self._slots
+
+    def _checkout(self, key):
+        conns = self._idle.get(key)
+        now = time.monotonic()
+        while conns:
+            reader, writer, since = conns.pop()
+            if writer.is_closing() or reader.at_eof() or now - since > self.keepalive_s:
+                writer.close()
+                continue
+            return reader, writer
+        return None
+
+    def _checkin(self, key, reader, writer) -> None:
+        conns = self._idle.setdefault(key, [])
+        if self.closed or len(conns) >= self.pool or writer.is_closing():
+            writer.close()
+            return
+        conns.append((reader, writer, time.monotonic()))
+
+    @staticmethod
+    async def _dial(host: str, port: int):
+        try:
+            reader, writer = await asyncio.open_connection(host, port, limit=1 << 20)
+        except OSError as e:
+            raise UpstreamConnectError(f"cannot connect to {host}:{port}: {e}") from e
+        sock = writer.get_extra_info("socket")
+        if sock is not None:
+            try:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            except OSError:
+                pass
+        return reader, writer
+
+    @staticmethod
+    def _split(url: str) -> Tuple[str, int, str]:
+        parts = urlsplit(url)
+        if parts.scheme != "http" or not parts.hostname:
+            raise ValueError(f"not an http:// URL: {url!r}")
+        target = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
+        return parts.hostname, parts.port or 80, target
+
+    @staticmethod
+    async def _send_and_read_head(reader, writer, method: str, host: str, port: int,
+                                  target: str, body: bytes,
+                                  headers: Optional[Dict[str, str]]) -> HttpResponse:
+        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+        writer.write(
+            f"{method} {target} HTTP/1.1\r\nHost: {host}:{port}\r\n{extra}"
+            f"Content-Length: {len(body)}\r\n\r\n".encode("latin-1") + body)
+        await writer.drain()
+        try:
+            head = await reader.readuntil(b"\r\n\r\n")
+        except asyncio.IncompleteReadError as e:
+            raise ConnectionResetError("the peer closed the connection before answering") from e
+        except asyncio.LimitOverrunError as e:
+            raise _BadResponse("response head too large") from e
+        lines = head[:-4].decode("latin-1").split("\r\n")
+        try:
+            status = int(lines[0].split(" ", 2)[1])
+        except (IndexError, ValueError):
+            raise _BadResponse(f"bad status line {lines[0][:80]!r}") from None
+        fields = {}
+        for line in lines[1:]:
+            name, _, value = line.partition(":")
+            fields[name.strip().lower()] = value.strip()
+        if not lines[0].startswith("HTTP/1.1"):
+            fields.setdefault("connection", "close")
+        return HttpResponse(status, fields)
+
+    async def _open(self, method: str, url: str, body: bytes,
+                    headers: Optional[Dict[str, str]]):
+        """Send one request on a pooled or a new connection and read its
+        head: (response, reader, writer, key).  A pooled connection the
+        peer closed before any answer is replaced by a fresh one, once."""
+        if self.closed:
+            raise ConnectionError("http client closed")
+        host, port, target = self._split(url)
+        key = (host, port)
+        pooled = self._checkout(key)
+        for attempt in (0, 1):
+            reader, writer = pooled if pooled is not None else await self._dial(host, port)
+            try:
+                resp = await self._send_and_read_head(reader, writer, method, host, port, target,
+                                                      body, headers)
+                return resp, reader, writer, key
+            except (ConnectionResetError, BrokenPipeError):
+                writer.close()
+                if pooled is None or attempt:
+                    raise
+                pooled = None  # a stale keep-alive: dial once more
+            except BaseException:
+                writer.close()
+                raise
+        raise AssertionError("unreachable")
+
+    # -- calls -------------------------------------------------------------
+
+    async def request(self, method: str, url: str, body: bytes = b"",
+                      headers: Optional[Dict[str, str]] = None,
+                      timeout: Optional[float] = 20.0) -> HttpResponse:
+        """One whole call under ``timeout`` seconds (None: no limit)."""
+        slots = self._bind_loop()
+        async with asyncio.timeout(timeout):
+            async with slots:
+                resp, reader, writer, key = await self._open(method, url, body, headers)
+                try:
+                    resp.body = b"".join([p async for p in _body_parts(reader, resp.headers)])
+                except BaseException:
+                    writer.close()
+                    raise
+                framed = ("content-length" in resp.headers
+                          or "chunked" in resp.headers.get("transfer-encoding", ""))
+                if framed and resp.headers.get("connection", "").lower() != "close":
+                    self._checkin(key, reader, writer)
+                else:
+                    writer.close()
+                return resp
+
+    async def post(self, url: str, body: bytes, headers: Optional[Dict[str, str]] = None,
+                   timeout: Optional[float] = 20.0) -> HttpResponse:
+        return await self.request("POST", url, body, headers, timeout)
+
+    async def get(self, url: str, timeout: Optional[float] = 20.0) -> HttpResponse:
+        return await self.request("GET", url, b"", None, timeout)
+
+    async def get_json(self, url: str, timeout: Optional[float] = 20.0):
+        """GET a JSON document: (status, the parsed body)."""
+        resp = await self.get(url, timeout)
+        return resp.status, json.loads(resp.body)
+
+    async def stream(self, url: str, body: bytes, headers: Optional[Dict[str, str]] = None,
+                     connect_timeout: float = 20.0) -> _Upstream:
+        """POST ``body`` and return once the response head is read (within
+        ``connect_timeout``); the body is then read as it arrives, with no
+        time limit.  The connection is the stream's own, never pooled."""
+        slots = self._bind_loop()
+        async with asyncio.timeout(connect_timeout):
+            await slots.acquire()
+            try:
+                resp, reader, writer, _key = await self._open("POST", url, body, headers)
+            except BaseException:
+                slots.release()
+                raise
+        released = []
+
+        def release():
+            if not released:
+                released.append(True)
+                slots.release()
+
+        return _Upstream(resp, reader, writer, release)
+
+    async def close(self) -> None:
+        self.closed = True
+        for conns in self._idle.values():
+            for _r, w, _t in conns:
+                w.close()
+        self._idle = {}

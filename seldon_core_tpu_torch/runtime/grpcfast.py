@@ -45,8 +45,8 @@ from seldon_core_tpu_torch.utils.tracing import (
     parse_traceparent,
 )
 
-__all__ = ["FastGrpcServer", "FastGrpcChannel", "GrpcCallError", "serve_grpc_fast",
-           "GRPC_STATUS_NAMES"]
+__all__ = ["FastGrpcServer", "FastGrpcChannel", "GrpcCallError", "GrpcAbort", "Unauthenticated",
+           "serve_grpc_fast", "GRPC_STATUS_NAMES", "CALL_TOKEN"]
 
 _PREFACE = b"PRI * HTTP/2.0\r\n\r\nSM\r\n\r\n"
 
@@ -81,6 +81,7 @@ _SETTINGS_MAX_FRAME_SIZE = 0x5
 
 # gRPC status codes used here
 GRPC_OK = 0
+GRPC_UNAUTHENTICATED = 16
 GRPC_INTERNAL = 13
 GRPC_UNIMPLEMENTED = 12
 GRPC_RESOURCE_EXHAUSTED = 8
@@ -390,17 +391,24 @@ class _ServerConnection(_H2Endpoint):
         self.protocols.discard(self)
 
     def _on_headers(self, sid, headers, end_stream):
-        path, traceparent, qos = b"", None, [None, None]
+        # the call's tenant, tier and bearer token
+        path, traceparent, meta = b"", None, [None, None, None]
         for name, value in headers:
             if name == b":path":
                 path = value
             elif name == b"traceparent":
                 traceparent = value.decode("latin-1")
             elif name == b"seldon-tenant":
-                qos[0] = value.decode("latin-1").strip()
+                meta[0] = value.decode("latin-1").strip()
             elif name == b"seldon-tier":
-                qos[1] = value.decode("latin-1").strip()
-        self.streams[sid] = (path, bytearray(), traceparent, qos)
+                meta[1] = value.decode("latin-1").strip()
+            elif name == b"oauth_token":
+                meta[2] = value.decode("latin-1").strip()
+            elif name == b"authorization" and meta[2] is None:
+                auth = value.decode("latin-1").strip()
+                if auth.startswith("Bearer "):
+                    meta[2] = auth[len("Bearer "):]
+        self.streams[sid] = (path, bytearray(), traceparent, meta)
         if end_stream:  # unary call with no body: invalid -> trailers-only
             self._trailers_only(sid, GRPC_INTERNAL, b"missing request body")
             self.streams.pop(sid, None)
@@ -417,7 +425,7 @@ class _ServerConnection(_H2Endpoint):
             self.streams.pop(sid, None)
             return
         if end_stream:
-            path, buf, traceparent, qos = self.streams.pop(sid)
+            path, buf, traceparent, meta = self.streams.pop(sid)
             handler = self.handlers.get(path)
             if handler is None:
                 self._trailers_only(
@@ -438,7 +446,7 @@ class _ServerConnection(_H2Endpoint):
                 return
             task = asyncio.get_running_loop().create_task(
                 self._run(sid, handler, bytes(buf[5:])),
-                context=call_context(traceparent, *qos))
+                context=call_context(traceparent, *meta))
             self._tasks.add(task)
             task.add_done_callback(self._tasks.discard)
 
@@ -449,6 +457,9 @@ class _ServerConnection(_H2Endpoint):
     async def _run(self, sid: int, handler: Handler, message: bytes):
         try:
             response = await handler(message)
+        except GrpcAbort as e:
+            self._trailers_only(sid, e.status, e.grpc_message.encode())
+            return
         except NotImplementedError as e:
             self._trailers_only(sid, GRPC_UNIMPLEMENTED, str(e).encode())
             return
@@ -478,12 +489,21 @@ class _ServerConnection(_H2Endpoint):
         )
 
 
+#: a call's bearer token: its ``oauth_token`` metadata (the reference
+#: gateway's), else the token of an ``authorization: Bearer`` entry
+CALL_TOKEN: "contextvars.ContextVar[Optional[str]]" = contextvars.ContextVar(
+    "seldon_torch_grpc_token", default=None)
+
+
 def call_context(traceparent: Optional[str], tenant: Optional[str],
-                 tier: Optional[str]) -> contextvars.Context:
+                 tier: Optional[str], token: Optional[str] = None) -> contextvars.Context:
     """The context a call's handler runs in: the caller's trace context
     (the metadata's ``traceparent``: the handler's spans join the caller's
-    tree) and the ``seldon-tenant`` / ``seldon-tier`` QoS identity."""
+    tree), the ``seldon-tenant`` / ``seldon-tier`` QoS identity and the
+    call's bearer token (``CALL_TOKEN``)."""
     ctx = contextvars.copy_context()
+    if token is not None:
+        ctx.run(CALL_TOKEN.set, token)
     parent = parse_traceparent(traceparent)
     if parent is not None:
         ctx.run(TRACE_VAR.set, parent)
@@ -528,6 +548,31 @@ class FastGrpcServer:
             b"/seldon.protos.Model/Predict": predict,
             b"/seldon.protos.Router/SendFeedback": send_feedback,
             b"/seldon.protos.Generic/SendFeedback": send_feedback,
+        })
+
+    @classmethod
+    def for_gateway(cls, gateway) -> "FastGrpcServer":
+        """The gateway's Seldon service (``make_gateway_grpc_server`` of the
+        JAX package's ``runtime/grpc_server.py``): Predict and SendFeedback
+        through ``gateway.predict`` / ``gateway.send_feedback`` with the
+        call's bearer token; a refused token (``Unauthenticated``, which
+        the gateway's ``AuthError`` is) ends the call UNAUTHENTICATED, a
+        typed error answers a FAILURE message."""
+        from seldon_core_tpu_torch import protoconv
+
+        def unary(call, decode):
+            async def handle(wire: bytes) -> bytes:
+                async def run():
+                    return protoconv.msg_to_proto(await call(decode(wire), CALL_TOKEN.get()))
+
+                return await _failure_on_error(run())
+
+            return handle
+
+        return cls({
+            b"/seldon.protos.Seldon/Predict": unary(gateway.predict, protoconv.msg_from_proto),
+            b"/seldon.protos.Seldon/SendFeedback": unary(gateway.send_feedback,
+                                                         protoconv.feedback_from_proto),
         })
 
     @classmethod
@@ -663,6 +708,23 @@ async def _failure_on_error(call: Awaitable[bytes]) -> bytes:
 # ---------------------------------------------------------------------------
 # Client
 # ---------------------------------------------------------------------------
+
+
+class GrpcAbort(Exception):
+    """Raised by a handler to end its call with ``status`` and
+    ``grpc_message`` (a trailers-only response)."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+        self.grpc_message = message
+
+
+class Unauthenticated(GrpcAbort):
+    """A refused credential: ends a call UNAUTHENTICATED."""
+
+    def __init__(self, message: str):
+        super().__init__(GRPC_UNAUTHENTICATED, message)
 
 
 class GrpcCallError(Exception):

@@ -149,18 +149,18 @@ _WIRE = wire.WIRE_CONTENT_TYPE
 _WIRE_UNIT_METHODS = ("predict", "transform_input", "transform_output", "route")
 Handler = Callable[[bytes, str], Awaitable[Result]]
 
-#: the request's query string and lower-cased head, bound in the handler
-#: task's context (``_request_query``, ``_request_header``)
-_REQUEST: "contextvars.ContextVar[Tuple[str, bytes]]" = contextvars.ContextVar(
-    "seldon_torch_http_request", default=("", b""))
+#: the request's query string, lower-cased head and head as received, bound
+#: in the handler task's context (``_request_query``, ``_request_header``)
+_REQUEST: "contextvars.ContextVar[Tuple[str, bytes, bytes]]" = contextvars.ContextVar(
+    "seldon_torch_http_request", default=("", b"", b""))
 
 _STATUS_LINE = {
     code: f"HTTP/1.1 {code} {text}\r\n".encode()
     for code, text in {
-        200: "OK", 400: "Bad Request", 404: "Not Found",
+        200: "OK", 400: "Bad Request", 401: "Unauthorized", 404: "Not Found",
         405: "Method Not Allowed", 409: "Conflict", 413: "Payload Too Large",
-        415: "Unsupported Media Type",
-        500: "Internal Server Error", 501: "Not Implemented",
+        415: "Unsupported Media Type", 429: "Too Many Requests",
+        500: "Internal Server Error", 501: "Not Implemented", 502: "Bad Gateway",
         503: "Service Unavailable", 504: "Gateway Timeout",
     }.items()
 }
@@ -168,14 +168,17 @@ _STATUS_LINE = {
 
 class StreamResult:
     """Handler result of a streaming route: the writer sends a chunked
-    response, one SSE ``data:`` frame per item of the async generator."""
+    response, one SSE ``data:`` frame per item of the async generator (a
+    str), or with ``raw`` each item's bytes as they are (a relayed SSE
+    stream, already framed)."""
 
-    __slots__ = ("status", "ctype", "agen")
+    __slots__ = ("status", "ctype", "agen", "raw")
 
-    def __init__(self, status: int, ctype: str, agen):
+    def __init__(self, status: int, ctype: str, agen, raw: bool = False):
         self.status = status
         self.ctype = ctype
         self.agen = agen
+        self.raw = raw
 
 
 def _payload_text(body: bytes, ctype: str) -> str:
@@ -196,10 +199,12 @@ def _request_query() -> Dict[str, list]:
     return parse_qs(_REQUEST.get()[0])
 
 
-def _request_header(name: bytes) -> Optional[str]:
+def _request_header(name: bytes, exact: bool = False) -> Optional[str]:
     """A header of the current request (``name`` lower-case with its
-    colon), or None."""
-    v = _header_value(_REQUEST.get()[1], name)
+    colon), or None; lower-cased unless ``exact`` (a credential's case
+    matters)."""
+    _query, lower, head = _REQUEST.get()
+    v = _header_value(lower, name, head if exact else None)
     return None if v is None else v.decode("latin-1")
 
 
@@ -591,7 +596,7 @@ def request_context(query: bytes, lower: bytes, head: bytes) -> contextvars.Cont
     ``traceparent`` trace context and its ``Seldon-Tenant`` /
     ``Seldon-Tier`` QoS identity; every task it starts inherits them."""
     ctx = contextvars.copy_context()
-    ctx.run(_REQUEST.set, (query.decode("latin-1"), lower))
+    ctx.run(_REQUEST.set, (query.decode("latin-1"), lower, head))
     budget = deadline_ms_header(_header_value(lower, b"seldon-deadline-ms:"))
     if budget is not None:
         ctx.run(DEADLINE_VAR.set, Deadline.after(budget))
@@ -683,7 +688,9 @@ class _HttpProtocol(asyncio.Protocol):
                 async for event in result.agen:
                     if self.transport is None or self.transport.is_closing():
                         return  # the client went away; finally closes the generator
-                    frame = b"data: " + event.encode() + b"\n\n"
+                    frame = event if result.raw else b"data: " + event.encode() + b"\n\n"
+                    if not frame:
+                        continue
                     self.transport.write(b"%x\r\n" % len(frame) + frame + b"\r\n")
             except asyncio.CancelledError:
                 raise

@@ -102,6 +102,8 @@ __all__ = [
     "WireFrameTooLarge",
     "WireFrame",
     "wire_enabled",
+    "coalesce_window_s",
+    "coalesce_max",
     "encode_frame",
     "encode_multi",
     "decode_frame",
@@ -176,6 +178,27 @@ def wire_enabled() -> bool:
     """Kill switch: ``SELDON_TPU_WIRE=0`` answers binary ingress with 415
     and keeps client lanes on JSON."""
     return os.environ.get("SELDON_TPU_WIRE", "1") != "0"
+
+
+def coalesce_window_s() -> float:
+    """The gateway's coalesce window (``SELDON_TPU_WIRE_COALESCE_US``,
+    default 200 us; 0 disables): binary predicts for one engine socket that
+    arrive within it ride one multi-tensor relay frame."""
+    try:
+        us = float(os.environ.get("SELDON_TPU_WIRE_COALESCE_US", "") or 200.0)
+    except ValueError:
+        us = 200.0
+    return max(0.0, us) / 1e6
+
+
+def coalesce_max() -> int:
+    """Sub-frames per coalesced frame (``SELDON_TPU_WIRE_COALESCE_MAX``,
+    default 16, clamped to 2..``MAX_MULTI``)."""
+    try:
+        n = int(os.environ.get("SELDON_TPU_WIRE_COALESCE_MAX", "") or 16)
+    except ValueError:
+        n = 16
+    return max(2, min(n, MAX_MULTI))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port stands alone: no module of seldon_core_tpu_torch, and not
 chip_smoke.py or the turns scripts (paged_decode_turns.py, mlp_turns.py,
 paged_f32_turns.py, int8_decode_turns.py, kv_write_turns.py, multihost_turns.py,
-policies_turns.py), imports JAX or anything of
+smoke_turns.py), imports JAX or anything of
 the JAX package, nor aiohttp, grpc, google.protobuf, ml_dtypes or
 prometheus_client (its lanes are stdlib: the HTTP client and servers,
 HTTP/2 and HPACK, the protobuf codec, bf16 by bit pattern, the
@@ -19,8 +19,11 @@ with a ``Seldon-Tenant`` header, ``/quality``, ``/costs``,
 the autopilot predicts past its deadline with a 503 shed, and serves one
 request through the native data plane, hands a generation from a prefill
 engine to a decode engine over the unix relay (the unified engine's
-tokens), and serves an MoE generator, with all of them blocked.  The
-port's native sources are its own: nothing of it names or builds the JAX
+tokens), and serves an MoE generator, with all of them blocked; and the
+port's gateway, booted by ``gateway_main.serve`` with the same imports
+blocked, issues a token, serves a predict and an SSE stream through
+in-process engines and answers ``/stats``.  The port's native sources are
+its own: nothing of it names or builds the JAX
 package's ``native/`` directory."""
 
 import ast
@@ -65,11 +68,14 @@ def _port_files():
             "runtime/kvstream.py", "runtime/servingmesh.py", "parallel/mesh.py",
             "parallel/ensemble.py", "graph/sharding.py", "parallel/ring_attention.py",
             "parallel/pipeline.py", "parallel/multihost.py", "testing/faults.py",
-            "operator/manifests.py", "operator/packaging.py"} <= names
+            "operator/manifests.py", "operator/packaging.py", "gateway/__init__.py",
+            "gateway/apife.py", "gateway/balancer.py", "gateway/federation.py",
+            "gateway/firehose.py", "gateway/fleet.py", "gateway/gateway_main.py",
+            "gateway/shadow.py", "gateway/state.py"} <= names
     return files + [ROOT / name for name in ("chip_smoke.py", "paged_decode_turns.py",
                                              "mlp_turns.py", "paged_f32_turns.py",
                                              "int8_decode_turns.py", "kv_write_turns.py",
-                                             "multihost_turns.py", "policies_turns.py")]
+                                             "multihost_turns.py", "smoke_turns.py")]
 
 
 def _imports(tree):
@@ -471,3 +477,110 @@ def test_port_serves_with_jax_blocked():
         '[503, "autopilot load shed"]], "native": [200, true, "native", 1], '
         '"handoff": [200, true, 1], "moe": [200, 2, true], '
         '"multihost": [false, 2, {"tp": 2}, false, 0.5], "leaked": []}')
+
+
+_GATEWAY_WITH_JAX_BLOCKED = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".")
+               for b in ("jax", "seldon_core_tpu", "aiohttp", "grpc", "google.protobuf",
+                         "ml_dtypes", "prometheus_client")):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import asyncio, base64, os, tempfile
+import torch
+torch.set_num_threads(1)
+from seldon_core_tpu_torch.gateway import gateway_main
+from seldon_core_tpu_torch.gateway.apife import ApiGateway
+from seldon_core_tpu_torch.graph.defaulting import default_and_validate
+from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+from seldon_core_tpu_torch.runtime.client import HttpClient
+from seldon_core_tpu_torch.runtime.engine import EngineService
+
+def spec(path, **params):
+    doc = json.load(open(path))
+    comp = doc["spec"]["predictors"][0]["components"][0]
+    comp["parameters"] = [p for p in comp.get("parameters", []) if p["name"] not in params] + [
+        {"name": k, "value": str(v), "type": "INT"} for k, v in params.items()]
+    return default_and_validate(SeldonDeploymentSpec.from_json_dict(doc))
+
+mnist = EngineService(spec("examples/mnist_deployment.json"), device="cpu")
+gen = EngineService(spec("examples/generator_deployment.json", max_new_tokens=6), device="cpu")
+registered = []
+real_init = ApiGateway.__init__
+
+def init(self, *a, **kw):
+    real_init(self, *a, **kw)
+    for sp, engine in ((mnist.deployment, mnist), (gen.deployment, gen)):
+        self.store.register(sp, {"main": engine})
+    registered.append(self)
+
+ApiGateway.__init__ = init
+os.environ.update(GATEWAY_REST_PORT="0", GATEWAY_GRPC_PORT="0")
+lines = []
+real_print = print
+
+def capture(*a, **kw):
+    lines.append(" ".join(str(x) for x in a))
+
+async def main():
+    import builtins
+    ready, stop = asyncio.Event(), asyncio.Event()
+    builtins.print = capture
+    task = asyncio.create_task(gateway_main.serve("", "127.0.0.1", ready, stop))
+    await asyncio.wait_for(ready.wait(), 60)
+    builtins.print = real_print
+    port = int([l for l in lines if "gateway up" in l][0].split("rest=:")[1].split()[0])
+    base = f"http://127.0.0.1:{port}"
+    cl = HttpClient()
+    try:
+        auth = {"Authorization": "Basic " + base64.b64encode(b"mnist-key:mnist-secret").decode()}
+        tok = (await cl.post(base + "/oauth/token", b"", auth)).json()["access_token"]
+        r = await cl.post(base + "/api/v0.1/predictions",
+                          json.dumps({"data": {"ndarray": [[0.5] * 784]}}).encode(),
+                          {"Authorization": "Bearer " + tok, "Content-Type": "application/json"})
+        pred = [r.status, len(r.json()["data"]["ndarray"][0]),
+                r.json()["meta"]["requestPath"]["predictor"]]
+        auth = {"Authorization": "Basic " + base64.b64encode(b"gen-key:gen-secret").decode()}
+        gtok = (await cl.post(base + "/oauth/token", b"", auth)).json()["access_token"]
+        up = await cl.stream(base + "/api/v0.1/generate/stream",
+                             json.dumps({"data": {"ndarray": [[1, 2, 3]]}, "chunk": 4}).encode(),
+                             {"Authorization": "Bearer " + gtok})
+        raw = await up.read()
+        up.close()
+        events = [json.loads(e.partition(b"data:")[2]) for e in raw.split(b"\n\n") if e.strip()]
+        stream = [up.status, sum(len(e["tokens"][0]) for e in events if "tokens" in e),
+                  events[-1]["done"]]
+        stats = (await cl.get(base + "/stats")).json()
+    finally:
+        await cl.close()
+        stop.set()
+        await asyncio.wait_for(task, 60)
+    return pred, stream, sorted(stats["gateway"]["deployments"])
+
+pred, stream, deployments = asyncio.run(main())
+mnist.close()
+gen.close()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc",
+                                       "ml_dtypes", "prometheus_client")
+                or m.startswith("google.protobuf"))
+print(json.dumps({"predict": pred, "stream": stream, "deployments": deployments,
+                  "leaked": leaked}))
+"""
+
+
+def test_port_gateway_serves_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", _GATEWAY_WITH_JAX_BLOCKED], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == (
+        '{"predict": [200, 10, "main"], "stream": [200, 6, true], '
+        '"deployments": ["generator-deployment", "mnist-deployment"], "leaked": []}')
