@@ -525,6 +525,35 @@ it serves the static lane it measured before that lane's switch:
               kv_write_paged a prefill tick; (d) the gateway's overhead,
               its p50 minus the engine's own REST p50 over 200 requests
               each, in turns, each arm's launches counted apart; a {"new_paths": {"gateway": ...}} line
+ 10y. operator the operator's local half and the load rig on the card:
+              (a) the materializer (device cuda) applies
+              examples/canary_deployment.json from a spec directory: both
+              engines on the card, registered, the status file Available;
+              (b) OPERATOR_REQUESTS 1-row N(0,1) requests through the
+              gateway (seed fixed, firehose on): the seed's predictor
+              sequence, every answer the serving engine's direct answer bit
+              for bit, one fused-MLP launch a request; (c) the port's
+              replayer over the flushed firehose: main on the lines main
+              served passes with disagreement 0.0, canary on the whole log
+              fails, each replay's launches its engine's dispatches; (d) a
+              staged rollout of the canary (5, 25, 100; drift gate 0.25,
+              min 4 requests) rolls back on drift once the inputs shift to
+              N(3,1): the split {main: 100, canary: 0}, GET /rollouts the
+              controller's document, the rollback counter on /prometheus and
+              in the firehose, no live request failing; (e) the reconciler
+              on a FakeKubeApi with the controller and the scale-ahead
+              planner: engine Deployments asking nvidia.com/gpu, rollout and
+              autoscale status blocks, and a second pass with zero writes;
+              (f) a runtime "rest" MnistClassifier at 784-512-512-10 spawned
+              as the port's microservice on the card: 8 requests through the
+              gateway equal to an in-process twin's bit for bit and 8
+              launches on the unit's /stats; killed, Degraded, restarted by
+              supervise(), Available, one more request; (g) the native
+              loadgen (16 clients, 3 s) through the gateway's predictions
+              route and at the main engine's own REST lane, zero failures,
+              QPS, p50 and p99 recorded; fused_mlp.cu held to its plain
+              version at 784-256-256-10; a {"new_paths": {"operator": ...}}
+              line
  15. last line {"ok": true, "device": {"platform": "gpu", ...}}
 
 It needs one card and exits non-zero when CUDA is absent or when the
@@ -12025,6 +12054,394 @@ def gateway_sse(port: int, body: dict, token: str) -> list:
 
 
 
+# ---------------------------------------------------------------------------
+# 10y. the operator's local half: materializer, rollout and rollback, replay
+# vet, reconciler, a spawned unit, the load rig
+# ---------------------------------------------------------------------------
+
+OPERATOR_SEED = 29        # the gateway's seed: its predictor draws
+OPERATOR_REQUESTS = 80    # 1-row N(0, 1) requests of the canary split
+OPERATOR_ROUND = 24       # 1-row N(3, 1) requests a rollout round
+OPERATOR_ROUNDS = 6       # rounds before the rollback must have come
+OPERATOR_UNIT_REQUESTS = 8
+OPERATOR_LOAD = (16, 3.0, 0.5)   # loadgen clients, seconds, warm-up seconds
+OPERATOR_MLP_ATOL = 1e-4  # the kernel against its plain version, probabilities
+
+
+def _sync_call(fn, *args):
+    """A coroutine that runs ``fn(*args)`` on the loop it is awaited on."""
+    async def run():
+        return fn(*args)
+    return run()
+
+
+def operator_phase(torch, dev, smi) -> dict:
+    """10y. The operator's local half on the card (see the module docstring).
+    Returns the launches of each path and what was measured."""
+    import shutil
+    import tempfile
+
+    from seldon_core_tpu_torch.gateway.apife import ApiGateway
+    from seldon_core_tpu_torch.gateway.firehose import Firehose
+    from seldon_core_tpu_torch.graph.spec import Parameter, SeldonDeploymentSpec
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.native import _build as native_build
+    from seldon_core_tpu_torch.operator.materializer import Materializer
+    from seldon_core_tpu_torch.operator.reconciler import FakeKubeApi, Reconciler, _config_hash
+    from seldon_core_tpu_torch.operator.rollouts import (GatewaySignals, RolloutController,
+                                                         RolloutGates, RolloutPlan,
+                                                         plan_from_annotations)
+    from seldon_core_tpu_torch.operator.scaleahead import ScaleAheadPlanner
+    from seldon_core_tpu_torch.ops import fused_mlp
+    from seldon_core_tpu_torch.runtime.engine import EngineService
+    from seldon_core_tpu_torch.runtime.microservice import build_runtime
+    from seldon_core_tpu_torch.runtime.replay import load_firehose_events, replay_events, replay_file
+    from seldon_core_tpu_torch.testing.contract import Contract
+    from seldon_core_tpu_torch.testing.loadtest import run_load_native
+    from seldon_core_tpu_torch.utils.perf import OBSERVATORY
+    from seldon_core_tpu_torch.utils.quality import QUALITY
+
+    t_phase = time.perf_counter()
+    counted = dev.type == "cuda"
+    out = {"launches": {}, "card": smi}
+    # the observatories as a process starts them (10q leaves the spine and
+    # the perf observatory off, 10p a reference window of its own): the
+    # drift gate reads the quality folds of the dispatch records, (c) the
+    # observatory's dispatch count; tracing stays off
+    from seldon_core_tpu_torch.runtime.autopilot import reset_learned_singletons
+    from seldon_core_tpu_torch.utils.hotrecord import SPINE
+    from seldon_core_tpu_torch.utils.tracing import TRACER
+
+    SPINE.telemetry_enabled = OBSERVATORY.enabled = QUALITY.enabled = True
+    TRACER.enabled = False
+    QUALITY.sample, QUALITY.ref_target = 1.0, 256
+    SPINE.drain()
+    QUALITY.reset()
+    reset_learned_singletons()
+    tmp = Path(tempfile.mkdtemp(prefix="smoke-operator-"))
+    # the load rig's generator builds while (a)-(f) run
+    loadgen = ThreadPoolExecutor(1).submit(native_build.build, "loadgen")
+    mat = gw_thread = direct = twin = None
+    try:
+        # -- (a) materialize the canary from a spec directory ------------------
+        spec_dir = tmp / "specs"
+        spec_dir.mkdir()
+        doc = json.loads((ROOT / "examples" / "canary_deployment.json").read_text())
+        (spec_dir / "canary.json").write_text(json.dumps(doc))
+        mat = Materializer(device=dev)
+        fh = Firehose(base_dir=str(tmp / "firehose"))
+        gateway = ApiGateway(store=mat.store, firehose=fh, seed=OPERATOR_SEED)
+        gw_thread = GatewayThread(gateway)
+        gw_port = gw_thread.start()
+        # the engines are built on the gateway's loop, which serves them
+        gw_thread.call(mat.watch_dir(str(spec_dir), once=True), 300)
+        status = json.loads((spec_dir / "canary.json.status").read_text())
+        engines = mat.deployments["mnist-canary"].engines
+        reg = mat.store._by_key["canary-key"]
+        if (status["state"] != "Available" or set(engines) != {"main", "canary"}
+                or any(e.device.type != dev.type for e in engines.values())
+                or {n: e for n, _w, e in reg.engines} != engines):
+            raise AssertionError(f"[operator] materialized {status}, engines {sorted(engines)}")
+        # the kernel at the main predictor's width, before the counted traffic
+        state = engines["main"].states()["mnist"]
+        gen_x = torch.Generator(device="cpu").manual_seed(SEED + 29)
+        mlp_err = {}
+        for B in (1, 8, 64):
+            x = torch.rand((B, 784), generator=gen_x).to(dev)
+            got = fused_mlp.fused_mlp_softmax(state, x)
+            want = fused_mlp.fused_mlp_softmax_reference(state, x)
+            mlp_err[B] = float((got - want).abs().max())
+        if max(mlp_err.values()) > OPERATOR_MLP_ATOL:
+            raise AssertionError(f"[operator] fused_mlp at 784-256-256-10 vs plain {mlp_err}")
+        out["materialize"] = {"status": status["state"], "engines": sorted(engines),
+                              "kernel_vs_plain_784_256": mlp_err}
+        log(f"[operator] (a) the materializer applied examples/canary_deployment.json from a "
+            f"spec directory: engines {sorted(engines)} on {dev.type}, registered, status "
+            f"{status['state']}; fused_mlp at 784-256-256-10 vs plain "
+            f"{max(mlp_err.values()):.2e} at B = 1, 8, 64 (tolerance {OPERATOR_MLP_ATOL})")
+
+        # -- (b) canary traffic through the gateway, firehose on ---------------
+        gw_thread.call(_sync_call(fh.start))
+        conn = http.client.HTTPConnection("127.0.0.1", gw_port, timeout=120)
+        st, token = gateway_token(conn, "canary-key", "canary-secret")
+        if st != 200:
+            raise AssertionError(f"[operator] token {st}")
+        hdr = {"Content-Type": "application/json", "Authorization": "Bearer " + token}
+        rng = np.random.default_rng(SEED + 29)
+        body = lambda x: json.dumps({"data": {"ndarray": np.atleast_2d(x).tolist()}}).encode()
+
+        def drive(xs):
+            """POST each row; (served predictors, answers, failures)."""
+            served, answers, failed = [], [], []
+            for x in xs:
+                st, _, raw = gateway_post(conn, "/api/v0.1/predictions", body(x), hdr)
+                d = json.loads(raw)
+                if st != 200 or (d.get("status") or {}).get("status") == "FAILURE":
+                    failed.append((st, raw[:200]))
+                    continue
+                served.append(d["meta"]["requestPath"]["predictor"])
+                answers.append(np.asarray(d["data"]["ndarray"], dtype=np.float64))
+            return served, answers, failed
+
+        xs = rng.normal(0.0, 1.0, (OPERATOR_REQUESTS, 784))
+        fused_mlp.LAUNCHES = 0
+        served, answers, failed = drive(xs)
+        n_canary = fused_mlp.LAUNCHES
+        names = [n for n, _w, _e in reg.engines]
+        weights = [w for _n, w, _e in reg.engines]
+        want = [names[i] for i in canary_picks(OPERATOR_SEED, weights, OPERATOR_REQUESTS)]
+        split = {n: served.count(n) for n in names}
+        if failed or served != want or (counted and n_canary != OPERATOR_REQUESTS):
+            raise AssertionError(f"[operator] split {split} (failed {failed[:2]}), the seed's "
+                                 f"{ {n: want.count(n) for n in names} }; {n_canary} launches")
+        for x, pred, y in zip(xs, served, answers):
+            resp = gw_thread.call(engines[pred].predict(SeldonMessage.from_array(
+                np.atleast_2d(x))))
+            if np.abs(np.asarray(resp.array(), dtype=np.float64) - y).max() > (
+                    0.0 if counted else 1e-6):
+                raise AssertionError(f"[operator] a {pred} answer through the gateway differs "
+                                     f"from the engine's direct answer")
+        QUALITY.reference_control("freeze")
+        out["canary"] = {"split": split, "fused_mlp_launches": n_canary}
+        out["launches"]["canary"] = n_canary
+        log(f"[operator] (b) {OPERATOR_REQUESTS} 1-row N(0,1) requests with a token: split "
+            f"{split}, the seed {OPERATOR_SEED}'s draws; every answer the serving engine's "
+            f"direct answer bit for bit; {n_canary} fused-MLP launches; drift reference frozen")
+
+        # -- (c) replay vet of the flushed firehose ------------------------------
+        gw_thread.call(fh.stop())
+        log_path = str(tmp / "firehose" / "mnist-canary.jsonl")
+        main_lines = [e for e in load_firehose_events(log_path)
+                      if e["response"]["meta"]["requestPath"]["predictor"] == "main"]
+        verdicts = {}
+        for name, run in (("main", lambda: replay_events(main_lines, engines["main"])),
+                          ("canary", lambda: replay_file(log_path, engines["canary"]))):
+            fused_mlp.LAUNCHES = 0
+            d0 = OBSERVATORY.snapshot()["dispatches"]
+            v = gw_thread.call(run())
+            v["launches"] = fused_mlp.LAUNCHES
+            v["dispatches"] = OBSERVATORY.snapshot()["dispatches"] - d0
+            verdicts[name] = v
+        vm, vc = verdicts["main"], verdicts["canary"]
+        if (vm["verdict"] != "pass" or vm["disagreement"]["mean"] != 0.0
+                or vc["verdict"] != "fail" or vm["counts"]["replayed"] != split["main"]
+                or vc["counts"]["replayed"] != OPERATOR_REQUESTS
+                or (counted and any(v["launches"] != v["dispatches"] or not v["launches"]
+                                    for v in verdicts.values()))):
+            raise AssertionError(f"[operator] replay {json.dumps(verdicts)[:1500]}")
+        out["replay"] = {k: {"verdict": v["verdict"], "reasons": v["reasons"],
+                             "disagreement_mean": v["disagreement"]["mean"],
+                             "replayed": v["counts"]["replayed"], "launches": v["launches"],
+                             "dispatches": v["dispatches"]} for k, v in verdicts.items()}
+        out["launches"]["replay"] = vm["launches"] + vc["launches"]
+        for k, v in verdicts.items():
+            log(f"[operator] (c) replay against {k}: {v['verdict']} {v['reasons']}, "
+                f"{v['counts']['replayed']} lines, disagreement mean "
+                f"{v['disagreement']['mean']}, {v['launches']} launches for "
+                f"{v['dispatches']} dispatches")
+
+        # -- (d) staged rollout, rollback on drift -------------------------------
+        gw_thread.call(_sync_call(fh.start))
+        ctrl = RolloutController(mat.store, GatewaySignals(gateway), firehose=fh)
+        gateway.rollouts = ctrl
+        plan = RolloutPlan("mnist-canary", "canary", "main", stages=(5, 25, 100), hold_s=0.0,
+                           config_hash="smoke-v2",
+                           gates=RolloutGates(max_drift=0.25, max_shadow_disagreement=None,
+                                              min_requests=4))
+        ctrl.apply(plan)
+        fused_mlp.LAUNCHES = 0
+        decisions = [gw_thread.call(_sync_call(ctrl.tick))[0]]
+        if decisions[0]["decision"] != "advance":
+            raise AssertionError(f"[operator] the first tick {decisions[0]}")
+        rounds = 0
+        for rounds in range(1, OPERATOR_ROUNDS + 1):
+            _, _, failed = drive(rng.normal(3.0, 1.0, (OPERATOR_ROUND, 784)))
+            if failed:
+                raise AssertionError(f"[operator] live requests failed mid-rollout {failed[:2]}")
+            ticked = gw_thread.call(_sync_call(ctrl.tick))
+            decisions += ticked
+            if ticked and ticked[0]["decision"] == "rollback":
+                break
+        n_rollout = fused_mlp.LAUNCHES
+        last = decisions[-1]
+        split_after = {n: w for n, w, _e in mat.store._by_key["canary-key"].engines}
+        doc_http = json.loads(request("GET", f"http://127.0.0.1:{gw_port}/rollouts")[1])
+        prom = request("GET", f"http://127.0.0.1:{gw_port}/prometheus")[1]
+        prom = prom.decode() if isinstance(prom, bytes) else prom
+        gw_thread.call(fh.stop())
+        fire = [json.loads(x) for x in open(log_path) if x.strip()]
+        if (last["decision"] != "rollback" or last.get("reason") != "drift"
+                or split_after != {"main": 100, "canary": 0}
+                or doc_http != json.loads(json.dumps(ctrl.document()))
+                or 'seldon_tpu_rollbacks_total{reason="drift"}' not in prom
+                or not any(e.get("event") == "rollback" for e in fire)
+                or (counted and n_rollout != OPERATOR_ROUND * rounds)):
+            raise AssertionError(f"[operator] rollout {[d['decision'] for d in decisions]} "
+                                 f"{last}, split {split_after}, {n_rollout} launches")
+        out["rollout"] = {"decisions": [(d["decision"], d.get("reason"), d["stage_percent"])
+                                        for d in decisions],
+                          "rounds": rounds, "observed_drift": last.get("observed"),
+                          "split_after": split_after, "launches": n_rollout}
+        out["launches"]["rollout"] = n_rollout
+        log(f"[operator] (d) staged rollout (5, 25, 100): "
+            f"{[d['decision'] for d in decisions]}; rollback on drift "
+            f"({last.get('observed')}) after round {rounds} of {OPERATOR_ROUND} N(3,1) "
+            f"requests, split {split_after}; GET /rollouts is the controller's document; "
+            f"seldon_tpu_rollbacks_total{{reason=\"drift\"}} on /prometheus; a rollback event "
+            f"in the firehose; no live request failed; {n_rollout} launches")
+
+        # -- (e) the reconciler over the canary CR ----------------------------------
+        cr = json.loads(json.dumps(doc))
+        cr["metadata"] = {"name": "mnist-canary", "namespace": "default"}
+        cr["spec"]["annotations"] = {
+            "seldon.io/canary": "canary", "seldon.io/canary-max-drift": "none",
+            "seldon.io/canary-hold-s": "600", "seldon.io/autoscale": "true",
+            "seldon.io/autoscale-max": "4"}
+        api = FakeKubeApi()
+        api.create(cr)
+        rec = Reconciler(api, rollouts=ctrl, autoscaler=ScaleAheadPlanner())
+        # the controller holds the CR's plan before the first pass: a pass
+        # reads the rollout's state for the autoscale gate before it ticks
+        # the rollout (the reference's order), so a plan new to the
+        # controller would flip the gate, and the status, on the next pass
+        ctrl.apply(plan_from_annotations(SeldonDeploymentSpec.from_json_dict(cr),
+                                         _config_hash({"spec": cr["spec"]})))
+        api.clear_ops()
+        first = gw_thread.call(_sync_call(rec.run_once))["mnist-canary"]
+        writes1 = len(api.ops)
+        api.clear_ops()
+        second = gw_thread.call(_sync_call(rec.run_once))["mnist-canary"]
+        writes2 = list(api.ops)
+        cr_status = api.get("SeldonDeployment", "default", "mnist-canary")["status"]
+        gpus = sorted({c["resources"]["limits"].get("nvidia.com/gpu")
+                       for (k, _ns, _n), o in api.objects.items() if k == "Deployment"
+                       for c in o["spec"]["template"]["spec"]["containers"]})
+        if (first.get("failed") or writes2 or gpus != ["1"]
+                or not {"rollout", "autoscale"} <= set(cr_status)):
+            raise AssertionError(f"[operator] reconciler {first} {second}, second pass "
+                                 f"{writes2}, gpus {gpus}, status {sorted(cr_status)}")
+        out["reconciler"] = {"first_pass": first, "first_writes": writes1,
+                             "second_pass_writes": 0, "rollout": cr_status["rollout"]["state"],
+                             "autoscale": cr_status["autoscale"]["decisions"][0]["reason"]}
+        log(f"[operator] (e) the reconciler over the annotated canary CR: first pass {first} "
+            f"({writes1} writes), engine Deployments ask nvidia.com/gpu {gpus}, status "
+            f"rollout {cr_status['rollout']['state']} and autoscale "
+            f"'{cr_status['autoscale']['decisions'][0]['reason']}'; second pass 0 writes")
+
+        # -- (f) a spawned unit on the card ------------------------------------------
+        unit_port = free_port()
+        unit_doc = {"spec": {"name": "mnist-unit", "oauth_key": "unit-key",
+                             "oauth_secret": "unit-secret", "predictors": [{
+                                 "name": "p", "graph": {"name": "m", "type": "MODEL"},
+                                 "components": [{
+                                     "name": "m", "runtime": "rest",
+                                     "class_path": "MnistClassifier", "port": unit_port,
+                                     "parameters": [
+                                         {"name": "hidden", "value": "512", "type": "INT"},
+                                         {"name": "seed", "value": "1", "type": "INT"}]}]}]}}
+        umd = gw_thread.call(_sync_call(mat.apply, SeldonDeploymentSpec.from_json_dict(
+            unit_doc)), 300)
+        [uproc] = umd.unit_procs
+        if uproc.popen.args[-2:] != ["--device", dev.type]:
+            raise AssertionError(f"[operator] the unit's argv {uproc.popen.args}")
+        params = [Parameter.from_json_dict(p)
+                  for p in json.loads(uproc.binding.env["PREDICTIVE_UNIT_PARAMETERS"])]
+        twin = build_runtime("MnistClassifier", "MODEL", params, device=dev)
+        unit_base = f"http://127.0.0.1:{unit_port}"
+
+        def unit_launches():
+            return json.loads(request("GET", unit_base + "/stats")[1])["kernels"][
+                "fused_mlp_softmax"]["launches"]
+
+        _, utok = gateway_token(conn, "unit-key", "unit-secret")
+        uhdr = {"Content-Type": "application/json", "Authorization": "Bearer " + utok}
+        xu = rng.random((OPERATOR_UNIT_REQUESTS + 1, 784))
+        l0 = unit_launches()
+        unit_err = 0.0
+        for x in xu[:-1]:
+            st, _, raw = gateway_post(conn, "/api/v0.1/predictions", body(x), uhdr)
+            if st != 200:
+                raise AssertionError(f"[operator] the unit answered {st}: {raw[:300]!r}")
+            y = np.asarray(json.loads(raw)["data"]["ndarray"], dtype=np.float64)
+            want_y = gw_thread.call(twin.predict(SeldonMessage.from_array(np.atleast_2d(x))))
+            unit_err = max(unit_err, float(np.abs(np.asarray(want_y.array(), np.float64)
+                                                  - y).max()))
+        n_unit = unit_launches() - l0
+        if unit_err > (0.0 if counted else 1e-6) or (counted and n_unit != OPERATOR_UNIT_REQUESTS):
+            raise AssertionError(f"[operator] the unit vs its twin {unit_err}, {n_unit} launches")
+        uproc.popen.kill()
+        uproc.popen.wait()
+        degraded = mat.status("mnist-unit")["state"]
+        restarts = mat.supervise()
+        mat._await_unit(uproc)
+        restored = mat.status("mnist-unit")["state"]
+        l1 = unit_launches()  # the fresh process's count (its probe's launch among them)
+        st, _, raw = gateway_post(conn, "/api/v0.1/predictions", body(xu[-1]), uhdr)
+        n_unit_after = unit_launches() - l1
+        if (degraded, restarts, restored, st) != ("Degraded", 1, "Available", 200) or (
+                counted and n_unit_after != 1):
+            raise AssertionError(f"[operator] kill and restart: {degraded}, {restarts} "
+                                 f"restarts, {restored}, {st} {raw[:200]!r}, "
+                                 f"{n_unit_after} launches")
+        out["unit"] = {"vs_twin": unit_err, "launches": n_unit, "after_restart": n_unit_after,
+                       "states": [degraded, restored], "restarts": restarts}
+        out["launches"]["unit (spawned microservice)"] = n_unit + n_unit_after
+        log(f"[operator] (f) a rest MnistClassifier 784-512-512-10 spawned as the port's "
+            f"microservice on {dev.type}: {OPERATOR_UNIT_REQUESTS} requests through the gateway "
+            f"its twin's bits ({unit_err}), {n_unit} launches on its /stats; killed -> "
+            f"{degraded}, supervise() restarted {restarts} -> {restored}, one more request 200 "
+            f"({n_unit_after} launch)")
+
+        # -- (g) the native load rig --------------------------------------------------
+        loadgen.result(120)
+        direct = ServerThread(EngineService(mat.deployments["mnist-canary"].spec, "main",
+                                            device=dev))
+        d_port = direct.start()
+        contract = Contract.from_file(str(ROOT / "examples" / "mnist_contract.json"))
+        clients, seconds, warm = OPERATOR_LOAD
+        load = {}
+        for arm, port, auth in (("gateway", gw_port, ("canary-key", "canary-secret")),
+                                ("engine", d_port, (None, None))):
+            fused_mlp.LAUNCHES = 0
+            rep = asyncio.run(run_load_native(contract, "127.0.0.1", port, clients=clients,
+                                              duration_s=seconds, warmup_s=warm,
+                                              oauth_key=auth[0], oauth_secret=auth[1]))
+            rep["fused_mlp_launches"] = fused_mlp.LAUNCHES
+            load[arm] = rep
+            if rep["failures"] or not rep["requests"] or (counted and not rep[
+                    "fused_mlp_launches"]):
+                raise AssertionError(f"[operator] loadgen on the {arm}: {rep}")
+        out["load"] = {arm: {k: r.get(k) for k in ("requests", "failures", "qps", "p50_ms",
+                                                   "p99_ms", "fused_mlp_launches")}
+                       for arm, r in load.items()}
+        out["load"]["shape"] = {"clients": clients, "seconds": seconds, "warmup_s": warm,
+                                "rows": 1, "card": smi}
+        out["launches"]["load (gateway)"] = load["gateway"]["fused_mlp_launches"]
+        out["launches"]["load (engine's own REST lane)"] = load["engine"]["fused_mlp_launches"]
+        for arm, r in load.items():
+            log(f"[operator] (g) loadgen, {clients} clients, {seconds} s, 1-row, "
+                f"{'through the gateway' if arm == 'gateway' else 'at the engine'}: "
+                f"{r['qps']} req/s, p50 {r.get('p50_ms')} ms, p99 {r.get('p99_ms')} ms, "
+                f"{r['failures']} failures, {r['fused_mlp_launches']} launches ({smi})")
+    finally:
+        if direct is not None:
+            direct.stop()
+        if mat is not None:
+            mat.shutdown()  # stops the spawned unit, closes the engines
+        if gw_thread is not None:
+            gw_thread.stop()
+        if twin is not None and hasattr(twin, "close"):
+            twin.close()
+        loadgen.cancel()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[operator] phase 10y wall {out['wall_s']:.2f} s")
+    if out["wall_s"] > 40.0:
+        log("[operator] the phase took longer than its 40 s wall")
+    return out
+
+
+
 
 def main() -> int:
     import torch
@@ -12305,6 +12722,14 @@ def main() -> int:
     for row, key in ((paged_row, "flash_decode_paged"), (kv_paged_row, "kv_write_paged")):
         row["launches_by_path"]["gateway (SSE stream, continuous lane)"] = gw["launches"][key]
         row["launches"] += gw["launches"][key]
+
+    # 10y: after 10x, each path's counts set to 0 just before it and read just
+    # after; the spawned unit's read from its /stats
+    op = operator_phase(torch, dev, smi)
+    log(json.dumps({"new_paths": {"operator": op}}))
+    for path, n in op["launches"].items():
+        mlp_row["launches_by_path"][f"operator ({path})"] = n
+        mlp_row["launches"] += n
 
     alive = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
     log(f"[exit] {len(alive)} threads still alive at the end of the run: {alive}")

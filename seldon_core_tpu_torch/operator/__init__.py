@@ -1,16 +1,24 @@
-"""The operator's renderer and packager for the port: Kubernetes manifests
-for GPU engine pods (``manifests.py``, helm-equivalent) and model images
-(``packaging.py``, s2i-equivalent).  The JAX package's local operator
-(materializer, reconciler, rollouts, scale-ahead, bundles) is not ported
-yet.  The names load at first use, so ``python -m
-seldon_core_tpu_torch.operator.manifests`` runs its module once."""
+"""The port's deployment operator: materializes SeldonDeployment specs into
+running engines and units on the card, watches a spec directory and tracks
+status (``materializer.py``); walks canary rollouts with automatic rollback
+(``rollouts.py``) and plans replicas ahead of load (``scaleahead.py``);
+reconciles CRs against a (pluggable) Kubernetes API server with CRD
+bootstrap and status write-back (``reconciler.py``); renders Kubernetes
+manifests for GPU engine pods (``manifests.py``, helm-equivalent), the
+platform bundle (``bundle.py``) and model images (``packaging.py``,
+s2i-equivalent).  The names load at first use, so ``python -m
+seldon_core_tpu_torch.operator.<module>`` runs its module once."""
 
 import importlib
 
-__all__ = ["generate_manifests", "to_yaml_stream", "ImageSpec", "package_model"]
+__all__ = ["Materializer", "generate_manifests", "to_yaml_stream", "ImageSpec",
+           "package_model", "FakeKubeApi", "KubeClient", "KubectlClient", "Reconciler"]
 
-_HOME = {"generate_manifests": "manifests", "to_yaml_stream": "manifests",
-         "ImageSpec": "packaging", "package_model": "packaging"}
+_HOME = {"Materializer": "materializer",
+         "generate_manifests": "manifests", "to_yaml_stream": "manifests",
+         "ImageSpec": "packaging", "package_model": "packaging",
+         "FakeKubeApi": "reconciler", "KubeClient": "reconciler",
+         "KubectlClient": "reconciler", "Reconciler": "reconciler"}
 
 
 def __getattr__(name):

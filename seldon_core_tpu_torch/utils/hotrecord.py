@@ -317,6 +317,9 @@ class TelemetrySpine:
         self._rings: List[ThreadRing] = []
         self._rings_lock = threading.Lock()
         self._drain_lock = threading.RLock()
+        #: drains between popping their records and folding the last one:
+        #: empty rings are not "current" while this is above 0
+        self._folding = 0
         self._drainer: Optional[threading.Thread] = None
         self._rng = random.Random()
         #: bumped once per drain that folded >= 1 record — the staleness
@@ -677,48 +680,60 @@ class TelemetrySpine:
         Fast path: Engine.stats() and the four snapshot walks it runs
         each drain defensively, so back-to-back calls with nothing
         pending are the COMMON case — they return after a lock-free
-        cursor scan instead of serializing scrapers on the drain lock."""
+        cursor scan instead of serializing scrapers on the drain lock.
+        Empty rings while another drain is folding the records it popped
+        take the lock, so the caller reads once that fold is done."""
         with self._rings_lock:
             rings = list(self._rings)
-        if all(r.head == r.tail for r in rings):
+        # the rings first, then the fold count: a drain counts itself
+        # before it pops, so rings seen empty after its pop see its count
+        if all(r.head == r.tail for r in rings) and not self._folding:
             self._retire_dead(rings)
             # totals folded just before a traffic pause must still reach
             # the gauges once the throttle window passes
             self._refresh_gauges()
             return 0
         with self._drain_lock:
-            with self._rings_lock:
-                rings = list(self._rings)
-            records: List[HotRecord] = []
-            for ring in rings:
-                ring.pop_into(records)
-            self._retire_dead(rings)
-            with self._rings_lock:
-                dropped = self._retired_dropped + sum(
-                    r.dropped for r in self._rings
-                )
-            new_drops = dropped - self._dropped_folded
-            if new_drops > 0:
-                self._dropped_folded = dropped
-                RECORDER.record_ring_dropped(new_drops)
-            if not records:
-                self._last_drain_s = time.monotonic()
-                self._refresh_gauges()
-                return 0
-            records.sort(key=lambda r: r.seq)
-            for rec in records:
-                try:
-                    self._fold(rec)
-                except Exception:  # noqa: BLE001 - a bad record must not
-                    pass           # wedge the drain behind it
-                self.records_total[rec.hop] = (
-                    self.records_total.get(rec.hop, 0) + 1
-                )
-            self.fold_generation += 1
+            self._folding += 1
+            try:
+                return self._drain_locked()
+            finally:
+                self._folding -= 1
+
+    def _drain_locked(self) -> int:
+        """``drain``'s pop and fold, under the drain lock."""
+        with self._rings_lock:
+            rings = list(self._rings)
+        records: List[HotRecord] = []
+        for ring in rings:
+            ring.pop_into(records)
+        self._retire_dead(rings)
+        with self._rings_lock:
+            dropped = self._retired_dropped + sum(
+                r.dropped for r in self._rings
+            )
+        new_drops = dropped - self._dropped_folded
+        if new_drops > 0:
+            self._dropped_folded = dropped
+            RECORDER.record_ring_dropped(new_drops)
+        if not records:
             self._last_drain_s = time.monotonic()
-            self._gauges_dirty = True
             self._refresh_gauges()
-            return len(records)
+            return 0
+        records.sort(key=lambda r: r.seq)
+        for rec in records:
+            try:
+                self._fold(rec)
+            except Exception:  # noqa: BLE001 - a bad record must not
+                pass           # wedge the drain behind it
+            self.records_total[rec.hop] = (
+                self.records_total.get(rec.hop, 0) + 1
+            )
+        self.fold_generation += 1
+        self._last_drain_s = time.monotonic()
+        self._gauges_dirty = True
+        self._refresh_gauges()
+        return len(records)
 
     def _fold(self, rec: HotRecord) -> None:
         pc = time.perf_counter

@@ -416,12 +416,16 @@ print(json.dumps({"status": status, "shape": len(json.loads(text)["data"]["ndarr
 def test_the_operator_modules_import_no_yaml():
     """The renderer and packager need no YAML library (the card's machine
     has none): their stream is JSON documents, their one YAML text a small
-    emitter's."""
+    emitter's.  The one import of ``yaml`` is the bundle CLI's reader of a
+    values file that is not JSON, inside ``main``, where its absence is said."""
     bad = []
     for path in sorted((ROOT / "seldon_core_tpu_torch" / "operator").glob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
+        mains = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main"]
+        allowed = ({(n.lineno, "yaml") for m in mains for n in ast.walk(m)
+                    if isinstance(n, ast.Import)} if path.name == "bundle.py" else set())
         bad += [f"{path.relative_to(ROOT)}:{line} {name}" for line, name in _imports(tree)
-                if name.split(".")[0] == "yaml"]
+                if name.split(".")[0] == "yaml" and (line, name) not in allowed]
     assert bad == []
 
 
@@ -584,3 +588,96 @@ def test_port_gateway_serves_with_jax_blocked():
     assert proc.stdout.strip().splitlines()[-1] == (
         '{"predict": [200, 10, "main"], "stream": [200, 6, true], '
         '"deployments": ["generator-deployment", "mnist-deployment"], "leaked": []}')
+
+
+_OPERATOR_WITH_JAX_BLOCKED = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".")
+               for b in ("jax", "seldon_core_tpu", "aiohttp", "grpc", "google.protobuf",
+                         "ml_dtypes", "prometheus_client", "yaml")):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import asyncio, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from seldon_core_tpu_torch.gateway.apife import ApiGateway
+from seldon_core_tpu_torch.gateway.firehose import Firehose
+from seldon_core_tpu_torch.graph.spec import SeldonDeploymentSpec
+from seldon_core_tpu_torch.messages import SeldonMessage
+from seldon_core_tpu_torch.operator.bundle import render_bundle
+from seldon_core_tpu_torch.operator.materializer import Materializer
+from seldon_core_tpu_torch.operator.reconciler import FakeKubeApi, Reconciler
+from seldon_core_tpu_torch.operator.rollouts import (GatewaySignals, RolloutController,
+                                                     RolloutGates, RolloutPlan)
+from seldon_core_tpu_torch.operator.scaleahead import ScaleAheadPlanner
+from seldon_core_tpu_torch.runtime.replay import replay_file
+
+doc = json.load(open("examples/canary_deployment.json"))
+d = tempfile.mkdtemp()
+
+async def main():
+    mat = Materializer(device="cpu")
+    md = mat.apply(SeldonDeploymentSpec.from_json_dict(doc))
+    fh = Firehose(base_dir=d)
+    gw = ApiGateway(store=mat.store, firehose=fh, seed=3)
+    fh.start()
+    token = mat.store.issue_token("canary-key", "canary-secret")
+    rng = np.random.default_rng(0)
+    served = []
+    for _ in range(8):
+        r = await gw.predict(SeldonMessage.from_array(rng.normal(size=(1, 784))), token)
+        served.append(r.meta.requestPath["predictor"])
+    await fh.stop()
+    ctrl = RolloutController(mat.store, GatewaySignals(gw), firehose=fh)
+    ctrl.apply(RolloutPlan("mnist-canary", "canary", "main", stages=(5, 100), hold_s=0.0,
+                           config_hash="h", gates=RolloutGates(min_requests=4)))
+    [tick] = ctrl.tick()
+    path = os.path.join(d, "mnist-canary.jsonl")
+    verdict = await replay_file(path, md.engines["main"])
+    await gw.close()
+    mat.shutdown()
+    return sorted(md.engines), len(served), tick["decision"], verdict["counts"]["replayed"]
+
+engines, n, decision, replayed = asyncio.run(main())
+api = FakeKubeApi()
+cr = dict(doc, metadata={"name": "mnist-canary", "namespace": "default"},
+          kind="SeldonDeployment")
+cr["spec"] = dict(cr["spec"], annotations={"seldon.io/autoscale": "true"})
+api.create(cr)
+counts = Reconciler(api, autoscaler=ScaleAheadPlanner()).run_once()["mnist-canary"]
+limits = sorted({c["resources"].get("limits", {}).get("nvidia.com/gpu", "0")
+                 for o in api.objects.values() if o["kind"] == "Deployment"
+                 for c in o["spec"]["template"]["spec"]["containers"]})
+bundle = [m["kind"] for m in render_bundle({"loadtest": {"enabled": True}})]
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu", "aiohttp", "grpc",
+                                       "ml_dtypes", "prometheus_client", "yaml")
+                or m.startswith("google.protobuf"))
+print(json.dumps({"engines": engines, "served": n, "tick": decision, "replayed": replayed,
+                  "reconciled": counts, "gpu_limits": limits, "bundle": len(bundle),
+                  "job": bundle.count("Job"), "leaked": leaked}))
+"""
+
+
+def test_port_operator_runs_with_jax_blocked():
+    """The operator's local half with JAX, the JAX package, aiohttp, grpc,
+    protobuf and PyYAML blocked: the canary example materialized on the CPU
+    behind the port gateway, one rollout tick, one replay of the firehose
+    against a port engine, one reconciler pass on ``FakeKubeApi`` with the
+    scale-ahead planner, one ``render_bundle``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", _OPERATOR_WITH_JAX_BLOCKED], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == (
+        '{"engines": ["canary", "main"], "served": 8, "tick": "advance", "replayed": 8, '
+        '"reconciled": {"creates": 3, "updates": 0, "deletes": 0}, "gpu_limits": ["1"], '
+        '"bundle": 8, "job": 1, "leaked": []}')

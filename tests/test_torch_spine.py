@@ -309,6 +309,39 @@ def test_dead_thread_rings_are_retired():
     spine.quiesce()
 
 
+def test_a_drain_waits_for_another_drains_fold(monkeypatch):
+    """A reader's drain that finds the rings empty while another drain
+    (the drainer thread) is still folding the records it popped waits for
+    that fold: it returns only once the record is folded, so a query
+    surface never reads the state from before a request it answered."""
+    spine = phr.TelemetrySpine()
+    spine.record_flush(rows=1, requests=1, start_s=0.0, duration_s=0.001)
+    folding, release, folded = threading.Event(), threading.Event(), []
+    real_fold = spine._fold
+
+    def slow_fold(rec):
+        folding.set()
+        assert release.wait(10)
+        real_fold(rec)
+        folded.append(rec)
+
+    monkeypatch.setattr(spine, "_fold", slow_fold)
+    drainer = threading.Thread(target=spine.drain)
+    drainer.start()
+    assert folding.wait(10)  # the record is popped: every ring is empty
+    assert all(r.head == r.tail for r in spine._rings)
+    reader_done = threading.Event()
+    reader = threading.Thread(target=lambda: (spine.drain(), reader_done.set()))
+    reader.start()
+    assert not reader_done.wait(0.2)  # the reader waits on the fold
+    release.set()
+    drainer.join(10)
+    reader.join(10)
+    assert reader_done.is_set() and len(folded) == 1
+    assert spine.records_total == {"flush": 1}
+    spine.quiesce()
+
+
 def test_query_surfaces_drain_lazily(engine, monkeypatch):
     """No drainer tick needed: a recorder snapshot, the observatory's
     document and a tracer lookup each fold what is pending first."""
